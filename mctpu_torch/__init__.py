@@ -1,0 +1,34 @@
+"""mctpu_torch — the PyTorch/CUDA port of mctpu for NVIDIA Hopper (H100).
+
+The main path of the JAX package, on one GPU: vanilla, basket and CVA
+pricing through hand-written CUDA kernels (``csrc/``, built with ``nvcc`` for
+``sm_90a`` at first use), per-block partial sums, a fixed-order float64
+combine and the reference estimator.  Each kernel has a plain PyTorch
+version beside it, which runs for CPU tensors.  Imports neither jax nor
+mctpu.
+"""
+from mctpu_torch import math
+from mctpu_torch.engine import (EngineConfig, price_basket, price_cva,
+                                price_cva_portfolio, price_vanilla)
+from mctpu_torch.rng import seed_from_generator
+from mctpu_torch.types import (BasketOption, CvaPortfolioSpec, CvaResult,
+                               CvaSpec, McResult, Precision, VanillaOption,
+                               from_reference)
+
+__all__ = [
+    "EngineConfig",
+    "price_vanilla",
+    "price_basket",
+    "price_cva",
+    "price_cva_portfolio",
+    "seed_from_generator",
+    "Precision",
+    "VanillaOption",
+    "BasketOption",
+    "CvaSpec",
+    "CvaPortfolioSpec",
+    "McResult",
+    "CvaResult",
+    "from_reference",
+    "math",
+]

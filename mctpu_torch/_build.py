@@ -1,0 +1,115 @@
+"""Build the CUDA kernels from ``csrc/`` at first use and bind them by ctypes.
+
+One ``nvcc`` call compiles every ``.cu`` file into one shared library with a
+plain C interface (no PyTorch headers, so it builds in seconds) under
+``mctpu_torch/_build/``.  The library's name carries a hash of the sources
+and flags, so an edited kernel rebuilds.  Nothing is built at import, and a
+failed build raises: there is no fallback to the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["CSRC", "BUILD_DIR", "build", "library", "check"]
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("vanilla.cu", "basket.cu", "cva.cu")
+HEADERS = ("philox.cuh", "common.cuh")
+# sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
+# sqrtf and on un-reassociated compensated sums.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Every entry point returns cudaGetLastError() after its launch.
+_SIGNATURES = {
+    # par, seed, off, n_blocks, rows, iters, antithetic, put, kahan, out,
+    # stream
+    "mctpu_vanilla": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # lt, par, k, n_assets, seed, off, n_blocks, rows, iters, antithetic,
+    # kahan, out, stream
+    "mctpu_basket_am": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # lt, par, k, n_assets, a_tile, width, seed, off, n_blocks, rows, iters,
+    # antithetic, kahan, out, stream
+    "mctpu_basket_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P, _P),
+    # scal, opts, nodes, n_options, n_grid, seed, off, n_blocks, rows,
+    # iters, antithetic, kahan, ds, wwr, scratch, out, ee, stream
+    "mctpu_cva": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _P, _P, _P, _P),
+    # n_grid -> float count of one block's profile scratch
+    "mctpu_cva_scratch_floats": (_I,),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "are built from mctpu_torch/csrc at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    so = BUILD_DIR / f"libmctpu_torch_{_digest()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC / name) for name in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built and bound on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.mctpu_error_string.argtypes = (_I,)
+        lib.mctpu_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if status != 0:
+        msg = library().mctpu_error_string(status).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {status} "
+                           f"({msg})")

@@ -1,0 +1,110 @@
+// Shared device helpers of the port's kernels: compensated sums, the
+// double-single walk state, the Hastings normal CDF and the fixed-order
+// block reduction.
+//
+// Every compensated operation is written with __fadd_rn/__fsub_rn/__fmul_rn,
+// which nvcc never contracts into an FMA nor reassociates, so the error-free
+// transformations stay error-free (counterparts: mctpu/utils/accum.py and
+// mctpu_torch/utils/accum.py).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "philox.cuh"
+
+namespace mct {
+
+constexpr int LANES = 128;
+
+// Neumaier compensated add of x into (s, c).
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float t = __fadd_rn(s, x);
+  const float lost = (fabsf(s) >= fabsf(x)) ? __fadd_rn(__fsub_rn(s, t), x)
+                                            : __fadd_rn(__fsub_rn(x, t), s);
+  s = t;
+  c = __fadd_rn(c, lost);
+}
+
+// Per-thread (sum p, sum p^2) accumulator, compensated when KAHAN.
+template <bool KAHAN>
+struct Acc2 {
+  float s = 0.0f, c = 0.0f, s2 = 0.0f, c2 = 0.0f;
+
+  __device__ __forceinline__ void add(float p) {
+    const float pp = __fmul_rn(p, p);
+    if (KAHAN) {
+      kahan_add(s, c, p);
+      kahan_add(s2, c2, pp);
+    } else {
+      s = __fadd_rn(s, p);
+      s2 = __fadd_rn(s2, pp);
+    }
+  }
+  __device__ __forceinline__ float sum() const { return __fadd_rn(s, c); }
+  __device__ __forceinline__ float sum2() const { return __fadd_rn(s2, c2); }
+};
+
+// Normalized double-single add: (hi, lo) += x.
+__device__ __forceinline__ void ds_add(float& hi, float& lo, float x) {
+  const float s = __fadd_rn(hi, x);
+  const float bb = __fsub_rn(s, hi);
+  const float e = __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(x, bb));
+  const float l = __fadd_rn(lo, e);
+  const float hi2 = __fadd_rn(s, l);
+  lo = __fsub_rn(l, __fsub_rn(hi2, s));
+  hi = hi2;
+}
+
+// Hastings approximation of the standard normal CDF (Abramowitz & Stegun
+// 26.2.17), the reference's `cnd` (mctpu/math.py, norm_cdf_hastings).
+__device__ __forceinline__ float norm_cdf_hastings(float d) {
+  const float k = 1.0f / (1.0f + MCT_F32(0.2316419) * fabsf(d));
+  const float poly =
+      k * (MCT_F32(0.31938153) +
+           k * (MCT_F32(-0.356563782) +
+                k * (MCT_F32(1.781477937) +
+                     k * (MCT_F32(-1.821255978) + k * MCT_F32(1.330274429)))));
+  const float cnd = MCT_F32(0.39894228040143267793994605993438) *
+                    expf(MCT_F32(-0.5) * d * d) * poly;
+  return d > 0.0f ? 1.0f - cnd : cnd;
+}
+
+// Sum of (a, b) over the block's THREADS threads, in a fixed shared-memory
+// tree; every thread returns the block totals.  Deterministic: the same
+// inputs give the same bits on every launch.
+template <int THREADS>
+__device__ __forceinline__ void block_sum2(float& a, float& b) {
+  __shared__ float sa[THREADS];
+  __shared__ float sb[THREADS];
+  const int t = threadIdx.x;
+  sa[t] = a;
+  sb[t] = b;
+  __syncthreads();
+#pragma unroll
+  for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
+    if (t < stride) {
+      sa[t] = __fadd_rn(sa[t], sa[t + stride]);
+      sb[t] = __fadd_rn(sb[t], sb[t + stride]);
+    }
+    __syncthreads();
+  }
+  a = sa[0];
+  b = sb[0];
+}
+
+// Writes one simulation block's (sum_p, sum_p2) row.
+template <int THREADS, bool KAHAN>
+__device__ __forceinline__ void write_block_sums(const Acc2<KAHAN>& acc,
+                                                 float* out) {
+  float s = acc.sum();
+  float s2 = acc.sum2();
+  block_sum2<THREADS>(s, s2);
+  if (threadIdx.x == 0) {
+    out[2 * blockIdx.x] = s;
+    out[2 * blockIdx.x + 1] = s2;
+  }
+}
+
+}  // namespace mct

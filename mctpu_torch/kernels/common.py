@@ -1,0 +1,152 @@
+"""Shared kernel plumbing: the launch plan and the in-kernel random stream.
+
+Counterpart of :mod:`mctpu.kernels.common`.  The stream is the one every
+JAX kernel draws in interpret mode:
+
+* key: the seed words (int32, read as u32) folded with the murmur3
+  finalizer ``_mix32`` into a Philox key ``(k0, k1)`` (:func:`seed_key`);
+* counter: (flat tile element index, draw counter, call-site tag, 0);
+* normals: Box-Muller of the first two Philox words (:func:`draw_normal_pair`).
+
+The CUDA kernels draw the same stream from ``csrc/philox.cuh``; the plain
+versions in ``kernels/*.py`` draw it here, vectorised over blocks.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mctpu_torch import rng as mcrng
+from mctpu_torch.rng import M32
+from mctpu_torch.utils.accum import kahan_add
+
+__all__ = ["LANES", "Plan", "seed_key", "block_keys", "tile_index",
+           "draw_normal_pair", "walk_pairwise", "acc_init", "acc_add",
+           "acc_final"]
+
+# Lane width of one path tile: tiles are (rows, LANES) with the flat element
+# index row * LANES + lane, as the JAX kernels lay them out.
+LANES = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Static launch geometry of one Monte Carlo run.
+
+    ``num_blocks`` simulation blocks each run ``iters`` iterations over a
+    ``(rows, LANES)`` tile; ``paths_per_iter`` GBM paths and
+    ``units_per_iter`` i.i.d. estimator samples (pairs under antithetic)
+    per block iteration.  ``kahan`` compensates the per-block sums and
+    ``ds`` carries the CVA walk state as a double-single pair.
+    """
+
+    num_blocks: int
+    iters: int
+    rows: int
+    paths_per_iter: int
+    units_per_iter: int
+    antithetic: bool
+    kahan: bool = True
+    ds: bool = False
+
+    @property
+    def paths_per_block(self) -> int:
+        return self.iters * self.paths_per_iter
+
+    @property
+    def total_paths(self) -> int:
+        return self.num_blocks * self.paths_per_block
+
+    @property
+    def total_units(self) -> int:
+        return self.num_blocks * self.iters * self.units_per_iter
+
+    @staticmethod
+    def plan(n_paths: int, num_blocks: int, rows: int, paths_per_iter: int,
+             units_per_iter: int, antithetic: bool, kahan: bool,
+             ds: bool = False) -> "Plan":
+        """Round ``n_paths`` up to whole (block, iteration) tiles."""
+        iters = max(1, -(-n_paths // (num_blocks * paths_per_iter)))
+        return Plan(num_blocks=num_blocks, iters=iters, rows=rows,
+                    paths_per_iter=paths_per_iter,
+                    units_per_iter=units_per_iter, antithetic=antithetic,
+                    kahan=kahan, ds=ds)
+
+
+def _mix32(x):
+    """murmur3 finalizer on u32 values (int64 tensor or int)."""
+    x = x ^ (x >> 16)
+    x = mcrng.mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = mcrng.mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def seed_key(*words):
+    """Philox key ``(k0, k1)`` of the seed words (ints or int64 tensors,
+    int32 values read as u32) — the JAX ``seed_prng`` fold."""
+    k0 = 0x9E3779B9
+    for w in words:
+        k0 = _mix32(k0 ^ (w & M32))
+    return k0, _mix32(k0 ^ 0xBB67AE85)
+
+
+def block_keys(seed: int, words, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keys of ``seed_prng(seed, w)`` for each second word ``w``, as
+    ``(n, 1)`` int64 tensors on ``device`` (one row per block)."""
+    w = torch.as_tensor(words, dtype=torch.int64)
+    k0, k1 = seed_key(seed, w)
+    return k0.view(-1, 1).to(device), k1.view(-1, 1).to(device)
+
+
+def tile_index(n: int, device) -> torch.Tensor:
+    """Flat element index ``0..n-1`` of a tile, as int64 u32 values."""
+    return torch.arange(n, dtype=torch.int64, device=device)
+
+
+def draw_normal_pair(key, idx: torch.Tensor, ctr: int, tag: int = 0):
+    """Both Box-Muller branches for every tile element: Philox block
+    ``(idx, ctr, tag, 0)`` under ``key``; words 0 and 1 feed the transform."""
+    b1, b2, _, _ = mcrng.philox4x32(key, (idx, ctr & M32, tag, 0))
+    return mcrng.box_muller(b1, b2)
+
+
+def acc_init(n_blocks: int, device):
+    """Zeroed per-block ``((sum, comp), (sum2, comp2))`` float32 carries."""
+    z = torch.zeros(n_blocks, dtype=torch.float32, device=device)
+    return (z, z), (z, z)
+
+
+def acc_add(carry, cs, cs2, kahan: bool):
+    """Add one iteration's per-block tile sums (compensated if ``kahan``)."""
+    a, b = carry
+    if kahan:
+        return kahan_add(a, cs), kahan_add(b, cs2)
+    return (a[0] + cs, a[1]), (b[0] + cs2, b[1])
+
+
+def acc_final(carry) -> torch.Tensor:
+    """``(n_blocks, 2)`` partials ``[sum_p, sum_p2]`` with the compensation
+    folded back in (zero without Kahan)."""
+    (s, c), (s2, c2) = carry
+    return torch.stack([s + c, s2 + c2], dim=1)
+
+
+def walk_pairwise(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
+    """Drive a walk that consumes both Box-Muller branches.
+
+    Pair ``jj`` draws counter ``jj``; its cosine branch feeds step ``2jj``
+    and its sine branch step ``2jj+1``.  An odd step count takes the cosine
+    branch of counter ``n_steps // 2`` for its last step.  ``step_fn(j, z,
+    carry) -> carry``.
+    """
+    half = n_steps // 2
+    for jj in range(half):
+        z1, z2 = draw_normal_pair(key, idx, jj)
+        carry = step_fn(2 * jj, z1, carry)
+        carry = step_fn(2 * jj + 1, z2, carry)
+    if n_steps % 2:
+        z1, _ = draw_normal_pair(key, idx, half)
+        carry = step_fn(n_steps - 1, z1, carry)
+    return carry

@@ -1,0 +1,128 @@
+"""Closed-form financial math on tensors (counterpart of :mod:`mctpu.math`).
+
+The oracles (Black-Scholes, the CVA closed forms) and the host-side setup
+(Cholesky, default-leg weights) run in float64 — the port's ``wide_dtype``
+is always float64, as ``mctpu`` under x64.  ``norm_cdf_hastings`` is the
+kernels' CDF and runs in the dtype it is given.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    "wide_dtype",
+    "norm_cdf",
+    "norm_cdf_hastings",
+    "bs_call",
+    "bs_put",
+    "cholesky_lower",
+    "default_leg_weights",
+    "cva_closed_form",
+    "cva_portfolio_closed_form",
+]
+
+
+def wide_dtype() -> torch.dtype:
+    """The estimator's and the combine's dtype: always float64 here."""
+    return torch.float64
+
+
+def _t(x, dtype=torch.float64) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float64), dtype=dtype)
+
+
+# Hastings polynomial (Abramowitz & Stegun 26.2.17), the reference's `cnd`.
+_A1 = 0.31938153
+_A2 = -0.356563782
+_A3 = 1.781477937
+_A4 = -1.821255978
+_A5 = 1.330274429
+_ONEOVER2PI = 0.39894228040143267793994605993438
+
+
+def norm_cdf_hastings(d: torch.Tensor) -> torch.Tensor:
+    """Hastings approximation of the standard normal CDF (|err| < 7.5e-8)."""
+    k = 1.0 / (1.0 + 0.2316419 * d.abs())
+    poly = k * (_A1 + k * (_A2 + k * (_A3 + k * (_A4 + k * _A5))))
+    cnd = _ONEOVER2PI * torch.exp(-0.5 * d * d) * poly
+    return torch.where(d > 0, 1.0 - cnd, cnd)
+
+
+def norm_cdf(d: torch.Tensor) -> torch.Tensor:
+    """Standard normal CDF via erf."""
+    return 0.5 * (1.0 + torch.erf(d * (2.0 ** -0.5)))
+
+
+def bs_call(s, k, r, v, t) -> torch.Tensor:
+    """Black-Scholes European call in float64; intrinsic value at ``t = 0``."""
+    s, k, r, v, t = (_t(x) for x in (s, k, r, v, t))
+    eps = 1e-12
+    t_safe = torch.clamp(t, min=eps)
+    sq = v * torch.sqrt(t_safe)
+    d1 = (torch.log(s / k) + (r + 0.5 * v * v) * t_safe) / sq
+    d2 = d1 - sq
+    price = s * norm_cdf(d1) - k * torch.exp(-r * t_safe) * norm_cdf(d2)
+    return torch.where(t > eps, price, torch.clamp(s - k, min=0.0))
+
+
+def bs_put(s, k, r, v, t) -> torch.Tensor:
+    """Black-Scholes European put by put-call parity."""
+    s_, k_, r_, t_ = (_t(x) for x in (s, k, r, t))
+    return bs_call(s, k, r, v, t) - s_ + k_ * torch.exp(-r_ * t_)
+
+
+def cholesky_lower(corr) -> torch.Tensor:
+    """Lower Cholesky factor ``L`` with ``L @ L.T == corr``, PSD-tolerant.
+
+    A pivot below ``n * eps * max|diag|`` is numerically zero and leaves its
+    column zero, as the reference's pivot-guarded ``Chol`` does — needed for
+    the reference's singular 3-asset matrix.
+    """
+    c = _t(corr)
+    n = c.shape[0]
+    a = torch.zeros_like(c)
+    idx = torch.arange(n)
+    tol = n * torch.finfo(c.dtype).eps * c.diagonal().abs().max()
+    for j in range(n):
+        v = c[:, j] - a @ a[j, :]
+        col = torch.where(v[j] > tol, v / torch.sqrt(torch.maximum(v[j], tol)),
+                          torch.zeros_like(v))
+        a[:, j] = torch.where(idx >= j, col, torch.zeros_like(col))
+    return a
+
+
+def default_leg_weights(intensity, t, n_grid: int,
+                        dtype=torch.float64) -> torch.Tensor:
+    """Default-probability mass per node, ``dp_j = e^{-lam t_{j-1}} -
+    e^{-lam t_j}``, in the cancellation-free form ``e^{-lam dt (j-1)} *
+    (-expm1(-lam dt))``."""
+    dt = _t(t, dtype) / n_grid
+    j = torch.arange(1, n_grid + 1, dtype=dtype)
+    lam = _t(intensity, dtype)
+    return torch.exp(-lam * dt * (j - 1)) * (-torch.expm1(-lam * dt))
+
+
+def _cva_node_factor(intensity, r, t, n_grid: int) -> torch.Tensor:
+    """``sum_j dp_j e^{r t_j}``: the martingale factor of the closed forms."""
+    dp = default_leg_weights(intensity, t, n_grid)
+    tj = _t(t) / n_grid * torch.arange(1, n_grid + 1, dtype=torch.float64)
+    return torch.sum(dp * torch.exp(_t(r) * tj))
+
+
+def cva_closed_form(intensity, lgd, s, k, r, v, t,
+                    n_grid: int) -> torch.Tensor:
+    """Exact expectation of the (undiscounted) CVA estimator:
+    ``lgd * C(S_0, T) * sum_j dp_j e^{r t_j}``."""
+    return _t(lgd) * bs_call(s, k, r, v, t) * _cva_node_factor(
+        intensity, r, t, n_grid)
+
+
+def cva_portfolio_closed_form(intensity, lgd, s, r, v, t, strikes, weights,
+                              n_grid: int) -> torch.Tensor:
+    """Exact CVA of an all-long call portfolio (netting never binds)."""
+    if (np.asarray(weights) < 0).any():
+        raise ValueError("closed form requires non-negative weights "
+                         "(netting may bind otherwise)")
+    c0 = torch.sum(_t(weights) * bs_call(s, strikes, r, v, t))
+    return _t(lgd) * c0 * _cva_node_factor(intensity, r, t, n_grid)

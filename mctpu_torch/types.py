@@ -1,0 +1,315 @@
+"""Product and result records of the PyTorch/CUDA port.
+
+Counterpart of :mod:`mctpu.types` for the main-path products.  The records
+are frozen dataclasses holding Python floats (scalars) and NumPy arrays
+(vectors, matrices); the engine turns them into device tensors when it
+builds a kernel's operands.  Results hold 0-d float64 tensors on the CPU.
+
+:func:`from_reference` carries a record of the JAX package across by class
+and field name, reading every value through ``np.asarray`` — it never
+imports jax, so the tests can feed both packages identical inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Precision",
+    "VanillaOption",
+    "BasketOption",
+    "CvaSpec",
+    "CvaPortfolioSpec",
+    "McResult",
+    "CvaResult",
+    "from_reference",
+]
+
+
+class Precision(str, enum.Enum):
+    """Accumulation/compute precision policy (see ``mctpu.types.Precision``).
+
+    ``F32`` plain f32 sums; ``F32_KAHAN`` f32 compute with compensated
+    per-block sums; ``F32_DS`` adds a double-single (hi, lo) carried walk
+    state in the CVA kernel; ``F64`` is not a kernel path in the port.
+    """
+
+    F32 = "f32"
+    F32_KAHAN = "f32_kahan"
+    F32_DS = "f32_ds"
+    F64 = "f64"
+
+    @property
+    def kahan(self) -> bool:
+        return self in (Precision.F32_KAHAN, Precision.F32_DS)
+
+    @property
+    def ds(self) -> bool:
+        return self is Precision.F32_DS
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaOption:
+    """European call or put under Black-Scholes GBM: spot ``s``, strike
+    ``k``, rate ``r``, volatility ``v``, maturity ``t`` (years)."""
+
+    s: float
+    k: float
+    r: float
+    v: float
+    t: float
+    kind: str = "call"
+
+    def validate(self) -> None:
+        if self.kind not in ("call", "put"):
+            raise ValueError("kind must be 'call' or 'put'")
+        if not (float(self.s) > 0 and float(self.k) > 0):
+            raise ValueError("spot and strike must be positive")
+        if float(self.v) < 0:
+            raise ValueError("volatility must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class BasketOption:
+    """European call on a weighted basket of correlated GBM underlyings.
+
+    ``s, v, w, d`` have shape ``(n_assets,)`` and ``corr`` is the
+    ``(n_assets, n_assets)`` correlation matrix; the engine factorizes it.
+    """
+
+    s: Any
+    v: Any
+    w: Any
+    corr: Any
+    d: Any
+    k: float
+    r: float
+    t: float
+
+    @property
+    def n_assets(self) -> int:
+        return int(np.shape(self.s)[0])
+
+    def validate(self) -> None:
+        a = self.n_assets
+        for name, x in (("s", self.s), ("v", self.v), ("w", self.w),
+                        ("d", self.d)):
+            if np.shape(x) != (a,):
+                raise ValueError(f"{name} must have shape ({a},), "
+                                 f"got {np.shape(x)}")
+        if np.shape(self.corr) != (a, a):
+            raise ValueError(f"corr must have shape ({a},{a})")
+        s, v, corr = (np.asarray(self.s), np.asarray(self.v),
+                      np.asarray(self.corr))
+        if (s <= 0).any():
+            raise ValueError("spot prices must be positive")
+        if (v < 0).any():
+            raise ValueError("volatilities must be non-negative")
+        if not np.allclose(corr, corr.T, atol=1e-6):
+            raise ValueError("correlation matrix must be symmetric")
+        if not np.allclose(np.diag(corr), 1.0, atol=1e-6):
+            raise ValueError("correlation matrix must have unit diagonal")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+
+    @staticmethod
+    def equicorrelated(n_assets: int, rho: float = 0.3) -> "BasketOption":
+        """Equicorrelation ``rho``, vols alternating 0.3/0.2, equal weights."""
+        a = n_assets
+        corr = np.full((a, a), rho)
+        np.fill_diagonal(corr, 1.0)
+        return BasketOption(
+            s=np.full((a,), 100.0),
+            v=np.where(np.arange(a) % 2 == 0, 0.3, 0.2),
+            w=np.full((a,), 1.0 / a),
+            corr=corr,
+            d=np.zeros((a,)),
+            k=100.0,
+            r=0.048790164,
+            t=1.0,
+        )
+
+    @staticmethod
+    def default_reference(n_assets: int = 3) -> "BasketOption":
+        """The reference driver's basket; for ``n_assets != 3`` its
+        alternating fallback, whose correlation matrix is indefinite (the
+        pivot-guarded Cholesky truncates it, as the reference does)."""
+        a = n_assets
+        if a == 3:
+            v = np.array([0.2, 0.3, 0.2])
+            corr = np.array(
+                [[1.0, -0.5, -0.5], [-0.5, 1.0, -0.5], [-0.5, -0.5, 1.0]]
+            )
+        else:
+            v = np.where(np.arange(a) % 2 == 0, 0.3, 0.2)
+            corr = np.empty((a, a))
+            for i in range(a):
+                for j in range(i, a):
+                    rho = 1.0 if i == j else (0.5 if j % 2 == 0 else -0.5)
+                    corr[i, j] = corr[j, i] = rho
+        return BasketOption(
+            s=np.full((a,), 100.0),
+            v=v,
+            w=np.full((a,), 1.0 / a),
+            corr=corr,
+            d=np.zeros((a,)),
+            k=100.0,
+            r=0.048790164,
+            t=1.0,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CvaSpec:
+    """CVA of a European call: default ``intensity``, loss given default
+    ``lgd``, the ``option`` and the number of exposure-grid steps."""
+
+    intensity: float
+    lgd: float
+    option: VanillaOption
+    n_grid: int = 50
+
+    def validate(self) -> None:
+        if self.n_grid < 1:
+            raise ValueError("n_grid must be >= 1")
+        if self.option.kind != "call":
+            raise ValueError("CVA exposure model prices call options")
+        self.option.validate()
+        if float(self.intensity) < 0:
+            raise ValueError("default intensity must be non-negative")
+        if not 0.0 <= float(self.lgd) <= 1.0:
+            raise ValueError("lgd must lie in [0, 1]")
+
+
+@dataclasses.dataclass(frozen=True)
+class CvaPortfolioSpec:
+    """CVA of a netted portfolio of calls on one underlying.
+
+    Exposure at node ``j`` is ``max(sum_m w_m BS(S_j, k_m, T - t_j), 0)``;
+    ``wwr_b != 0`` makes the hazard path-dependent (wrong-way risk, see
+    ``mctpu.types.CvaPortfolioSpec``).
+    """
+
+    intensity: float
+    lgd: float
+    s: float
+    r: float
+    v: float
+    t: float
+    strikes: Any  # (M,)
+    weights: Any  # (M,)
+    wwr_b: float = 0.0
+    n_grid: int = 50
+
+    @property
+    def n_options(self) -> int:
+        return int(np.shape(self.strikes)[0])
+
+    def validate(self) -> None:
+        if self.n_grid < 1:
+            raise ValueError("n_grid must be >= 1")
+        m = self.n_options
+        if np.shape(self.weights) != (m,):
+            raise ValueError(f"weights must have shape ({m},)")
+        if float(self.s) <= 0:
+            raise ValueError("spot must be positive")
+        if (np.asarray(self.strikes) <= 0).any():
+            raise ValueError("strikes must be positive")
+        if float(self.v) < 0:
+            raise ValueError("volatility must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+        if float(self.intensity) < 0:
+            raise ValueError("default intensity must be non-negative")
+        if not 0.0 <= float(self.lgd) <= 1.0:
+            raise ValueError("lgd must lie in [0, 1]")
+
+    @staticmethod
+    def from_single(spec: CvaSpec, wwr_b: float = 0.0) -> "CvaPortfolioSpec":
+        o = spec.option
+        return CvaPortfolioSpec(
+            intensity=spec.intensity, lgd=spec.lgd,
+            s=o.s, r=o.r, v=o.v, t=o.t,
+            strikes=np.reshape(np.asarray(o.k, np.float64), (1,)),
+            weights=np.ones((1,)),
+            wwr_b=wwr_b,
+            n_grid=spec.n_grid,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class McResult:
+    """Monte Carlo estimate: ``price``, ``std_error`` and the 95% half-width
+    ``ci`` in discounted units; raw undiscounted ``sum_p``/``sum_p2``; ``n``
+    i.i.d. samples (pairs under antithetic) from ``n_paths`` GBM paths."""
+
+    price: torch.Tensor
+    ci: torch.Tensor
+    std_error: torch.Tensor
+    sum_p: torch.Tensor
+    sum_p2: torch.Tensor
+    n: int = 0
+    n_paths: int = 0
+
+    def __repr__(self):
+        return (f"McResult(price={float(self.price):.6f}, "
+                f"ci=±{float(self.ci):.6f}, n={self.n}, "
+                f"n_paths={self.n_paths})")
+
+
+@dataclasses.dataclass(frozen=True)
+class CvaResult:
+    """CVA (undiscounted mean of per-path default legs, as the reference)
+    plus the expected-exposure profile per grid node and the deterministic
+    default-leg masses at ``wwr_b = 0``."""
+
+    cva: torch.Tensor
+    ci: torch.Tensor
+    std_error: torch.Tensor
+    expected_exposure: torch.Tensor  # (n_grid,)
+    default_leg: torch.Tensor  # (n_grid,)
+    n: int = 0
+    n_paths: int = 0
+
+    def __repr__(self):
+        return (f"CvaResult(cva={float(self.cva):.6f}, "
+                f"ci=±{float(self.ci):.6f}, n={self.n}, "
+                f"n_paths={self.n_paths})")
+
+
+_RECORDS = {cls.__name__: cls for cls in
+            (VanillaOption, BasketOption, CvaSpec, CvaPortfolioSpec)}
+
+
+def _carry(value):
+    if dataclasses.is_dataclass(value) or isinstance(value, enum.Enum):
+        return from_reference(value)
+    if isinstance(value, str):
+        return value
+    arr = np.asarray(value, np.float64)
+    return float(arr) if arr.ndim == 0 else arr
+
+
+def from_reference(obj):
+    """The port's record equal to a ``mctpu`` record (or ``Precision``).
+
+    Matches by class name and field names; every numeric field is read
+    through ``np.asarray`` (scalars become Python floats, vectors float64
+    arrays), ``n_grid`` stays an int and ``kind`` a string.
+    """
+    if isinstance(obj, enum.Enum):
+        return Precision(obj.value)
+    cls = _RECORDS.get(type(obj).__name__)
+    if cls is None:
+        raise TypeError(f"no port record for {type(obj).__name__}")
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        value = getattr(obj, f.name)
+        kwargs[f.name] = int(value) if f.name == "n_grid" else _carry(value)
+    return cls(**kwargs)

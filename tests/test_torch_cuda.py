@@ -1,0 +1,138 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and the CUDA toolkit: it builds the
+kernels from ``mctpu_torch/csrc`` and skips where there is no card.  The
+module imports neither jax nor mctpu, so on a machine with a GPU and no JAX
+it runs without the repository's conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerance: ``rtol=2e-5`` between a kernel and its plain version — the two
+draw the same normals but sum in other orders, and nvcc contracts
+multiply-adds into FMAs (about 1e-6 relative is expected).  Repeated
+launches and the block-offset contract are held bitwise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mctpu_torch import _build
+from mctpu_torch.kernels import basket as kbasket
+from mctpu_torch.kernels import cva as kcva
+from mctpu_torch.kernels import vanilla as kvanilla
+from mctpu_torch.math import cholesky_lower
+from mctpu_torch.types import (BasketOption, CvaPortfolioSpec, CvaSpec,
+                               VanillaOption)
+
+pytestmark = pytest.mark.cuda
+
+RTOL = 2e-5
+SEED = -123457
+NB = 6
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    return torch.device("cuda")
+
+
+def _contract(fn, plain, n_blocks=NB):
+    """Kernel == plain at RTOL; two launches bitwise equal; blocks [2, NB)
+    of offset 0 bitwise equal blocks [0, NB-2) of offset 2."""
+    got = fn(0, n_blocks)
+    again = fn(0, n_blocks)
+    tail = fn(2, n_blocks - 2)
+    want = plain(0, n_blocks)
+    got, again, tail, want = (
+        tuple(x) if isinstance(x, tuple) else (x,)
+        for x in (got, again, tail, want))
+    torch.cuda.synchronize()
+    for g, a, t, w in zip(got, again, tail, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        assert torch.equal(g[2:], t)
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["call", "put"])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_vanilla_kernel_matches_plain(dev, kind, antithetic, kahan):
+    par = kvanilla.params(VanillaOption(100., 100., 0.04879, 0.2, 1.,
+                                        kind=kind), dev)
+    plan = kvanilla.make_plan(3 * NB * 2 * 32 * 128, NB, 32, antithetic,
+                              kahan)
+    put = kind == "put"
+    _contract(
+        lambda off, nb: kvanilla.partials(par, SEED, off, plan, nb, put),
+        lambda off, nb: kvanilla.plain_partials(par, SEED, off, plan, nb,
+                                                put))
+
+
+@pytest.mark.parametrize("n_assets", [1, 3, 8, 10, 100, 129])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_basket_kernel_matches_plain(dev, n_assets, antithetic):
+    opt = (BasketOption.default_reference(n_assets) if n_assets <= 10
+           else BasketOption.equicorrelated(n_assets))
+    ops = kbasket.operands(opt, cholesky_lower(opt.corr), dev)
+    plan = kbasket.make_plan(1, NB, 16, antithetic, n_assets=n_assets)
+    plan = kbasket.make_plan(2 * NB * plan.paths_per_iter, NB, 16,
+                             antithetic, n_assets=n_assets)
+    _contract(lambda off, nb: kbasket.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kbasket.plain_partials(ops, SEED, off, plan,
+                                                     nb))
+
+
+_SPEC = CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 10)
+_CVA_CASES = {
+    "single": (CvaPortfolioSpec.from_single(_SPEC), True, False, False),
+    "odd_grid": (CvaPortfolioSpec.from_single(
+        CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 7)),
+        True, False, False),
+    "netted": (CvaPortfolioSpec(0.03, 0.6, 100., 0.05, 0.2, 1.,
+                                np.array([95., 110.]), np.array([1., -0.5]),
+                                0.0, 10), True, False, False),
+    "wwr": (CvaPortfolioSpec.from_single(_SPEC, wwr_b=0.8), True, False,
+            False),
+    "f32_ds": (CvaPortfolioSpec.from_single(_SPEC), True, True, False),
+    "antithetic": (CvaPortfolioSpec.from_single(_SPEC), True, False, True),
+    "f32": (CvaPortfolioSpec.from_single(_SPEC), False, False, False),
+    # 2000 nodes: tables and profile slots exceed shared memory.
+    "global_tables": (CvaPortfolioSpec.from_single(
+        CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 2000)),
+        True, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CVA_CASES))
+def test_cva_kernel_matches_plain(dev, case):
+    port, kahan, ds, antithetic = _CVA_CASES[case]
+    ops = kcva.operands(port, dev)
+    wwr = float(port.wwr_b) != 0.0
+    plan = kcva.make_plan(2 * NB * 8 * 128, NB, 8, antithetic, kahan, ds)
+    _contract(lambda off, nb: kcva.partials(ops, SEED, off, plan, nb, wwr),
+              lambda off, nb: kcva.plain_partials(ops, SEED, off, plan, nb,
+                                                  wwr))
+
+
+def test_launch_counters_count_kernel_launches(dev):
+    par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
+    plan = kvanilla.make_plan(1, 2, 8, False)
+    before = kvanilla.LAUNCHES["vanilla"]
+    kvanilla.partials(par, 1, 0, plan, 2, False)
+    kvanilla.plain_partials(par, 1, 0, plan, 2, False)
+    assert kvanilla.LAUNCHES["vanilla"] == before + 1
+
+
+def test_bad_operands_raise(dev):
+    par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
+    plan = kvanilla.make_plan(1, 2, 8, False)
+    with pytest.raises(ValueError):
+        kvanilla.partials(par.double(), 1, 0, plan, 2, False)
+    with pytest.raises(ValueError):
+        kvanilla.partials(par, 1, 0, plan, 0, False)
