@@ -1,19 +1,22 @@
 """mctpu_torch — the PyTorch/CUDA port of mctpu for NVIDIA Hopper (H100).
 
 The main path of the JAX package, on one GPU: vanilla, basket and CVA
-pricing through hand-written CUDA kernels (``csrc/``, built with ``nvcc`` for
-``sm_90a`` at first use), per-block partial sums, a fixed-order float64
-combine and the reference estimator.  Each kernel has a plain PyTorch
+pricing and their in-kernel Greeks through hand-written CUDA kernels
+(``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use), per-block
+partial sums, a fixed-order float64 combine and the reference estimator.
+:mod:`mctpu_torch.greeks` adds the autodiff and bump-and-revalue tier.  Each kernel has a plain PyTorch
 version beside it, which runs for CPU tensors.  Imports neither jax nor
 mctpu.
 """
 from mctpu_torch import math
-from mctpu_torch.engine import (EngineConfig, price_basket, price_cva,
-                                price_cva_portfolio, price_vanilla)
+from mctpu_torch.engine import (EngineConfig, greeks, greeks_basket,
+                                greeks_cva, greeks_vanilla, price_basket,
+                                price_cva, price_cva_portfolio, price_vanilla)
 from mctpu_torch.rng import seed_from_generator
-from mctpu_torch.types import (BasketOption, CvaPortfolioSpec, CvaResult,
-                               CvaSpec, McResult, Precision, VanillaOption,
-                               from_reference)
+from mctpu_torch.types import (BasketOption, CvaGreeksResult,
+                               CvaPortfolioSpec, CvaResult, CvaSpec,
+                               GreeksResult, McResult, Precision,
+                               VanillaOption, from_reference)
 
 __all__ = [
     "EngineConfig",
@@ -21,6 +24,10 @@ __all__ = [
     "price_basket",
     "price_cva",
     "price_cva_portfolio",
+    "greeks",
+    "greeks_vanilla",
+    "greeks_basket",
+    "greeks_cva",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
@@ -29,6 +36,8 @@ __all__ = [
     "CvaPortfolioSpec",
     "McResult",
     "CvaResult",
+    "GreeksResult",
+    "CvaGreeksResult",
     "from_reference",
     "math",
 ]

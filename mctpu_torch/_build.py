@@ -1,7 +1,8 @@
 """Build the CUDA kernels from ``csrc/`` at first use and bind them by ctypes.
 
-One ``nvcc`` call compiles every ``.cu`` file into one shared library with a
-plain C interface (no PyTorch headers, so it builds in seconds) under
+One ``nvcc`` process per ``.cu`` file, all started together, compiles the
+sources to objects; one more links them into a shared library with a plain
+C interface (no PyTorch headers, so it builds in seconds) under
 ``mctpu_torch/_build/``.  The library's name carries a hash of the sources
 and flags, so an edited kernel rebuilds.  Nothing is built at import, and a
 failed build raises: there is no fallback to the plain versions.
@@ -21,12 +22,13 @@ __all__ = ["CSRC", "BUILD_DIR", "build", "library", "check"]
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("vanilla.cu", "basket.cu", "cva.cu")
+SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
+           "cva_greeks.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -47,6 +49,21 @@ _SIGNATURES = {
                   _P, _P, _P, _P),
     # n_grid -> float count of one block's profile scratch
     "mctpu_cva_scratch_floats": (_I,),
+    # par, seed, off, n_blocks, rows, iters, antithetic, put, kahan, out,
+    # stream
+    "mctpu_greeks_vanilla": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # scal, lt, par, vec, n_assets, seed, off, n_blocks, rows, iters,
+    # antithetic, kahan, out, stream
+    "mctpu_greeks_basket_am": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _P),
+    # scal, lt, rows, n_assets, a_tile, width, seed, off, n_blocks, rows,
+    # iters, antithetic, kahan, out, vecs, stream
+    "mctpu_greeks_basket_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _P, _P, _P),
+    # scal, opts, nodes, n_options, n_grid, seed, off, n_blocks, rows,
+    # iters, antithetic, kahan, wwr, out, stream
+    "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P),
 }
 
 _lib = None
@@ -79,17 +96,29 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [str(Path(work) / f"{Path(name).stem}.o") for name in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)]
+                for name, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [p.communicate()[0] for p in procs]  # waits for every one
+        for cmd, p, out in zip(cmds, procs, outs):
+            _raise_on_failure(cmd, p.returncode, out)
+        tmp = str(Path(work) / "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _raise_on_failure(cmd, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(tmp, so)  # atomic: builders never see a partial file
     return so
+
+
+def _raise_on_failure(cmd, returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {returncode}):\n"
+                           f"{' '.join(cmd)}\n{output}")
 
 
 def library() -> ctypes.CDLL:

@@ -1,0 +1,85 @@
+"""Monte Carlo Greeks by automatic differentiation and by bump-and-revalue.
+
+Counterpart of :mod:`mctpu.greeks` for the products the port has.  The
+engine tier (:func:`mctpu_torch.greeks`, kernels K5-K8) is the production
+path; this tier differentiates a float64 estimator with ``torch.autograd``
+over normals drawn from an explicit ``torch.Generator``, and is the oracle
+for the engine's basket delta.  Pathwise differentiation is unbiased here
+because the payoff kinks have measure zero.  (The engine's ``greeks``
+dispatcher is exported from the package under that name, so this module
+is not called ``greeks``.)
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from mctpu_torch.math import cholesky_lower
+from mctpu_torch.models import basket as mbasket
+from mctpu_torch.types import BasketOption, VanillaOption
+
+__all__ = ["vanilla_greeks", "basket_delta", "bump_and_revalue"]
+
+_F64 = torch.float64
+
+
+def _leaf(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float64), dtype=_F64,
+                        requires_grad=True)
+
+
+def vanilla_greeks(opt: VanillaOption, n_paths: int, gen: torch.Generator,
+                   antithetic: bool = True) -> dict:
+    """Pathwise Greeks of a European call in float64: price, delta, vega,
+    theta (d/d maturity, as :func:`mctpu_torch.math.bs_greeks`) and rho,
+    from ``n_paths`` paths (pairs of mirrored paths under antithetic).
+    Gamma has no pathwise estimator; use :func:`bump_and_revalue`."""
+    if opt.kind != "call":
+        raise ValueError("vanilla_greeks prices calls; use put-call parity "
+                         "for put Greeks")
+    n = n_paths // 2 if antithetic else n_paths
+    z = torch.randn(n, generator=gen, dtype=_F64)
+    s, k, r, v, t = (_leaf(x) for x in (opt.s, opt.k, opt.r, opt.v, opt.t))
+    mu = (r - 0.5 * v * v) * t
+    sig = v * torch.sqrt(t)
+    pay = torch.clamp(s * torch.exp(mu + sig * z) - k, min=0.0)
+    if antithetic:
+        pay = 0.5 * (pay + torch.clamp(s * torch.exp(mu - sig * z) - k,
+                                       min=0.0))
+    price = torch.exp(-r * t) * pay.mean()
+    delta, rho, vega, theta = torch.autograd.grad(price, (s, r, v, t))
+    return {"price": price.detach(), "delta": delta, "vega": vega,
+            "theta": theta, "rho": rho}
+
+
+def basket_delta(opt: BasketOption, n_paths: int, gen: torch.Generator):
+    """``(price, per-asset pathwise delta vector)`` of the basket call in
+    float64."""
+    a = opt.n_assets
+    chol = cholesky_lower(opt.corr)
+    z = torch.randn((n_paths, a), generator=gen, dtype=_F64)
+    s = _leaf(opt.s)
+    v, w, d, k, r, t = (torch.tensor(np.asarray(x, np.float64), dtype=_F64)
+                        for x in (opt.v, opt.w, opt.d, opt.k, opt.r, opt.t))
+    pay = mbasket.terminal_payoff(s, v, w, d, k, r, t, chol, z)
+    price = torch.exp(-r * t) * pay.mean()
+    (delta,) = torch.autograd.grad(price, (s,))
+    return price.detach(), delta
+
+
+def bump_and_revalue(price_fn: Callable, x0, eps: float, order: int = 2):
+    """Central finite differences with common random numbers.
+
+    ``price_fn(x)`` must be deterministic in ``x`` (fix its seed or
+    generator state inside), so the bumped runs reuse the same paths and
+    the Monte Carlo noise cancels to first order.  ``order=1`` gives the
+    first derivative, ``order=2`` ``(f(x+e) - 2 f(x) + f(x-e)) / e^2``.
+    """
+    up = price_fn(x0 + eps)
+    dn = price_fn(x0 - eps)
+    if order == 1:
+        return (up - dn) / (2 * eps)
+    mid = price_fn(x0)
+    return (up - 2 * mid + dn) / (eps * eps)

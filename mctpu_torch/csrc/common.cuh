@@ -1,6 +1,6 @@
 // Shared device helpers of the port's kernels: compensated sums, the
 // double-single walk state, the Hastings normal CDF and the fixed-order
-// block reduction.
+// block reductions (two sums per thread, or N sums per iteration).
 //
 // Every compensated operation is written with __fadd_rn/__fsub_rn/__fmul_rn,
 // which nvcc never contracts into an FMA nor reassociates, so the error-free
@@ -58,17 +58,21 @@ __device__ __forceinline__ void ds_add(float& hi, float& lo, float x) {
 }
 
 // Hastings approximation of the standard normal CDF (Abramowitz & Stegun
-// 26.2.17), the reference's `cnd` (mctpu/math.py, norm_cdf_hastings).
-__device__ __forceinline__ float norm_cdf_hastings(float d) {
+// 26.2.17), the reference's `cnd` (mctpu/math.py, norm_cdf_hastings), given
+// e = expf(-0.5 d d), which a caller that also needs the density shares.
+__device__ __forceinline__ float norm_cdf_hastings_e(float d, float e) {
   const float k = 1.0f / (1.0f + MCT_F32(0.2316419) * fabsf(d));
   const float poly =
       k * (MCT_F32(0.31938153) +
            k * (MCT_F32(-0.356563782) +
                 k * (MCT_F32(1.781477937) +
                      k * (MCT_F32(-1.821255978) + k * MCT_F32(1.330274429)))));
-  const float cnd = MCT_F32(0.39894228040143267793994605993438) *
-                    expf(MCT_F32(-0.5) * d * d) * poly;
+  const float cnd = MCT_F32(0.39894228040143267793994605993438) * e * poly;
   return d > 0.0f ? 1.0f - cnd : cnd;
+}
+
+__device__ __forceinline__ float norm_cdf_hastings(float d) {
+  return norm_cdf_hastings_e(d, expf(MCT_F32(-0.5) * d * d));
 }
 
 // Sum of (a, b) over the block's THREADS threads, in a fixed shared-memory
@@ -106,5 +110,55 @@ __device__ __forceinline__ void write_block_sums(const Acc2<KAHAN>& acc,
     out[2 * blockIdx.x + 1] = s2;
   }
 }
+
+// N per-iteration sums of a block, as the JAX kernels' acc_add_n: each
+// thread sums its elements of an iteration plainly into v[]; add() reduces
+// every v[k] over the block in a fixed order (warp-shuffle tree, then the
+// warps in order), scales it by scale[k] when scale is given, and adds it
+// into the carry of thread k (k < N), Neumaier-compensated when KAHAN.
+// Deterministic, no atomics.  Every thread of the block calls add() and
+// write().
+template <int THREADS, int N, bool KAHAN>
+struct BlockAccN {
+  static_assert(N <= THREADS, "one carrying thread per sum");
+  static constexpr int WARPS = THREADS / 32;
+  float s = 0.0f, c = 0.0f;  // carry of sum threadIdx.x
+
+  // sh: WARPS * N floats of shared memory; v is zeroed on return.
+  __device__ __forceinline__ void add(float (&v)[N], const float* scale,
+                                      float* sh) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float r = v[k];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, o));
+      }
+      if (lane == 0) sh[warp * N + k] = r;
+      v[k] = 0.0f;
+    }
+    __syncthreads();
+    if (threadIdx.x < N) {
+      float t = sh[threadIdx.x];
+      for (int w = 1; w < WARPS; ++w) t = __fadd_rn(t, sh[w * N + threadIdx.x]);
+      if (scale != nullptr) t = __fmul_rn(t, scale[threadIdx.x]);
+      if (KAHAN) {
+        kahan_add(s, c, t);
+      } else {
+        s = __fadd_rn(s, t);
+      }
+    }
+    __syncthreads();
+  }
+
+  // The block's row of N partials (compensation folded in).
+  __device__ __forceinline__ void write(float* out) const {
+    if (threadIdx.x < N) {
+      out[static_cast<size_t>(blockIdx.x) * N + threadIdx.x] = __fadd_rn(s, c);
+    }
+  }
+};
 
 }  // namespace mct

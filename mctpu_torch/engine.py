@@ -1,4 +1,5 @@
-"""The Monte Carlo engine of the port: pricing drivers on one device.
+"""The Monte Carlo engine of the port: pricing and Greeks drivers on one
+device.
 
 Counterpart of the main path of :mod:`mctpu.engine`:
 
@@ -11,7 +12,8 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
 JAX package's kernels in interpret mode, so a run here matches that run
-block by block.  PyTorch runs eagerly: there is no jit cache.
+block by block.  :func:`greeks` and the ``greeks_*`` drivers run the Greek
+kernels over the pricers' paths (common random numbers with ``price_*``).  PyTorch runs eagerly: there is no jit cache.
 """
 from __future__ import annotations
 
@@ -23,16 +25,21 @@ from mctpu_torch import estimator as mcest
 from mctpu_torch import math as mcmath
 from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import cva as kcva
+from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels.common import LANES
 from mctpu_torch.parallel.reduce import pairwise_tree_sum
 from mctpu_torch.rng import wrap_int32
-from mctpu_torch.types import (BasketOption, CvaPortfolioSpec, CvaResult,
-                               CvaSpec, McResult, Precision, VanillaOption)
+from mctpu_torch.types import (BasketOption, CvaGreeksResult,
+                               CvaPortfolioSpec, CvaResult, CvaSpec,
+                               GreeksResult, McResult, Precision,
+                               VanillaOption)
 
 __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "price_cva_portfolio", "vanilla_setup", "basket_setup",
-           "cva_setup"]
+           "cva_setup", "greeks", "greeks_vanilla", "greeks_basket",
+           "greeks_cva", "greeks_vanilla_setup", "greeks_basket_setup",
+           "greeks_cva_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,19 +120,23 @@ def price_vanilla(opt: VanillaOption, n_paths: int, seed: int,
                           n_paths=plan.total_paths)
 
 
+def _basket_plan(opt: BasketOption, n_paths: int, config: EngineConfig):
+    anti = 2 if config.antithetic else 1
+    a = opt.n_assets
+    c = LANES if kbasket.use_asset_major(a) else kbasket.pack_factor(a)[1]
+    blocks, rows = config.layout_for(n_paths, 2 * c * anti)
+    return kbasket.make_plan(n_paths, blocks, rows, config.antithetic,
+                             config.precision.kahan, n_assets=a)
+
+
 def basket_setup(opt: BasketOption, n_paths: int, config: EngineConfig):
     """``(plan, operands)``: the launch :func:`price_basket` makes.  The
     correlation matrix is factorized in float64 on the host, then cast to
     float32 for the kernel."""
     dev = config.torch_device()
-    anti = 2 if config.antithetic else 1
-    a = opt.n_assets
-    c = LANES if kbasket.use_asset_major(a) else kbasket.pack_factor(a)[1]
-    blocks, rows = config.layout_for(n_paths, 2 * c * anti)
-    plan = kbasket.make_plan(n_paths, blocks, rows, config.antithetic,
-                             config.precision.kahan, n_assets=a)
     chol = mcmath.cholesky_lower(opt.corr)
-    return plan, kbasket.operands(opt, chol, dev)
+    return _basket_plan(opt, n_paths, config), kbasket.operands(opt, chol,
+                                                                dev)
 
 
 def price_basket(opt: BasketOption, n_paths: int, seed: int,
@@ -188,3 +199,139 @@ def price_cva_portfolio(port: CvaPortfolioSpec, n_paths: int, seed: int,
         n=plan.total_units,
         n_paths=plan.total_paths,
     )
+
+
+# ---------------------------------------------------------------------------
+# Greeks: the pricing kernels' paths, with the Greek integrands summed beside
+# the payoff (K5-K8); every output is a full estimate with its own CI.
+# ---------------------------------------------------------------------------
+
+def _estimates(total, n: int, plan, discount):
+    """One :class:`McResult` per ``(sum, sum^2)`` pair of ``total``."""
+    return [mcest.estimate(total[2 * i], total[2 * i + 1], n,
+                           discount=discount, n_paths=plan.total_paths)
+            for i in range(total.shape[0] // 2)]
+
+
+def greeks_vanilla_setup(opt: VanillaOption, n_paths: int,
+                         config: EngineConfig):
+    """``(plan, params)``: the launch :func:`greeks_vanilla` makes."""
+    dev = config.torch_device()
+    anti = 2 if config.antithetic else 1
+    blocks, rows = config.layout_for(n_paths, 2 * LANES * anti)
+    plan = kgreeks.make_plan(n_paths, blocks, rows, config.antithetic,
+                             config.precision.kahan)
+    return plan, kgreeks.params(opt, dev)
+
+
+def greeks_vanilla(opt: VanillaOption, n_paths: int, seed: int,
+                   config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """Price + delta/vega/rho/theta/gamma/vanna/volga of a European call or
+    put in one sweep (K6): pathwise first-order Greeks, mixed pathwise-
+    likelihood-ratio second-order ones, over :func:`price_vanilla`'s paths."""
+    opt.validate()
+    plan, par = greeks_vanilla_setup(opt, n_paths, config)
+    partials = kgreeks.partials(par, wrap_int32(seed), 0, plan,
+                                plan.num_blocks, opt.kind == "put")
+    total = pairwise_tree_sum(partials.to(mcmath.wide_dtype()), 0).cpu()
+    price, delta, vega, rho, theta, gamma, vanna, volga = _estimates(
+        total, plan.total_units, plan, _discount(opt.r, opt.t))
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho,
+                        theta=theta, gamma=gamma, vanna=vanna, volga=volga)
+
+
+def greeks_basket_setup(opt: BasketOption, n_paths: int,
+                        config: EngineConfig):
+    """``(plan, operands, gamma_ok)``: the launch :func:`greeks_basket`
+    makes (K7's operands up to 8 assets, K8's beyond); ``gamma_ok`` is
+    false when the correlation admits no Stein tilt."""
+    dev = config.torch_device()
+    plan = _basket_plan(opt, n_paths, config)
+    chol = mcmath.cholesky_lower(opt.corr)
+    evec, gvec, ok = kgreeks.tilt_direction(chol)
+    build = (kgreeks.am_operands if kbasket.use_asset_major(opt.n_assets)
+             else kgreeks.packed_operands)
+    return plan, build(opt, chol, (evec, gvec), dev), ok
+
+
+def greeks_basket(opt: BasketOption, n_paths: int, seed: int,
+                  config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """Price, scalar rho and theta, and per-asset delta, vega and diagonal
+    gamma vectors of the basket call, over :func:`price_basket`'s paths
+    (K7 up to 8 assets, K8 beyond).  ``gamma`` is ``None`` when the
+    correlation is rank-deficient with no sign-definite Stein tilt
+    (:func:`mctpu_torch.kernels.greeks.tilt_direction`)."""
+    opt.validate()
+    a = opt.n_assets
+    plan, ops, gamma_ok = greeks_basket_setup(opt, n_paths, config)
+    wide = mcmath.wide_dtype()
+    if kbasket.use_asset_major(a):
+        partials = kgreeks.am_partials(ops, wrap_int32(seed), 0, plan,
+                                       plan.num_blocks)
+        total = pairwise_tree_sum(partials.to(wide), 0).cpu()
+        scal, vec = total[:6], total[6:].reshape(a, 6).T
+    else:
+        partials, vecs = kgreeks.packed_partials(ops, wrap_int32(seed), 0,
+                                                 plan, plan.num_blocks)
+        scal = pairwise_tree_sum(partials.to(wide), 0).cpu()
+        a_tile, c, _ = kbasket.pack_factor(a)
+        vec = pairwise_tree_sum(vecs.to(wide), 0).cpu()
+        # Fold the c packed path groups back onto the asset slots.
+        vec = pairwise_tree_sum(vec.reshape(6, c, a_tile), 1)[:, :a]
+    disc = _discount(opt.r, opt.t)
+    n = plan.total_units
+    price, rho, theta = _estimates(scal, n, plan, disc)
+    delta, vega, gamma = _estimates(vec, n, plan, disc)
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho,
+                        theta=theta, gamma=gamma if gamma_ok else None)
+
+
+def greeks_cva_setup(port: CvaPortfolioSpec, n_paths: int,
+                     config: EngineConfig):
+    """``(plan, operands)``: the launch :func:`greeks_cva` makes."""
+    dev = config.torch_device()
+    anti = 2 if config.antithetic else 1
+    blocks, rows = config.layout_for(n_paths, LANES * anti)
+    # No double-single walk state: the Greeks plan is mctpu's, without ds.
+    plan = kcva.make_plan(n_paths, blocks, rows, config.antithetic,
+                          config.precision.kahan)
+    return plan, kcva.greek_operands(port, dev)
+
+
+def greeks_cva(spec, n_paths: int, seed: int,
+               config: EngineConfig = EngineConfig()) -> CvaGreeksResult:
+    """CVA + credit delta, spot delta, vega, spot gamma, credit gamma and
+    cross gamma of a :class:`CvaSpec` or :class:`CvaPortfolioSpec`
+    (netting, and wrong-way risk when ``wwr_b != 0``) in one sweep (K5),
+    over :func:`price_cva_portfolio`'s paths, each with the CVA's
+    undiscounted-mean semantics.
+
+    As in ``mctpu.engine.greeks_cva``, the Greeks plan carries no
+    double-single walk state: under ``Precision.F32_DS`` the walk is the
+    plain float32 one (with Kahan-compensated block sums).
+    """
+    if isinstance(spec, CvaSpec):
+        spec = CvaPortfolioSpec.from_single(spec)
+    spec.validate()
+    plan, ops = greeks_cva_setup(spec, n_paths, config)
+    partials = kcva.greek_partials(ops, wrap_int32(seed), 0, plan,
+                                   plan.num_blocks,
+                                   wwr=float(spec.wwr_b) != 0.0)
+    total = pairwise_tree_sum(partials.to(mcmath.wide_dtype()), 0).cpu()
+    cva, credit_delta, delta, vega, gamma, credit_gamma, cross_gamma = (
+        _estimates(total, plan.total_units, plan, 1.0))
+    return CvaGreeksResult(cva=cva, credit_delta=credit_delta, delta=delta,
+                           vega=vega, gamma=gamma, credit_gamma=credit_gamma,
+                           cross_gamma=cross_gamma)
+
+
+def greeks(opt, n_paths: int, seed: int,
+           config: EngineConfig = EngineConfig()):
+    """In-kernel Greeks, dispatched on the product record."""
+    if isinstance(opt, VanillaOption):
+        return greeks_vanilla(opt, n_paths, seed, config)
+    if isinstance(opt, BasketOption):
+        return greeks_basket(opt, n_paths, seed, config)
+    if isinstance(opt, (CvaSpec, CvaPortfolioSpec)):
+        return greeks_cva(opt, n_paths, seed, config)
+    raise TypeError(f"no in-kernel Greeks for {type(opt).__name__}")

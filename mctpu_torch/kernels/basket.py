@@ -23,7 +23,7 @@ import torch
 
 from mctpu_torch import _build
 from mctpu_torch.kernels.common import (LANES, Plan, acc_add, acc_final,
-                                        acc_init, block_keys,
+                                        acc_init, block_keys, check_operand,
                                         draw_normal_pair, tile_index)
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import BasketOption
@@ -198,10 +198,7 @@ def _check(ops: Operands):
     rows = 4 if use_asset_major(a) else 5
     for name, x, shape in (("k", ops.k, (1,)), ("lt", ops.lt, (a, a)),
                            ("par", ops.par, (rows, a))):
-        if x.dtype != torch.float32 or tuple(x.shape) != shape \
-                or not x.is_contiguous() or x.device != ops.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor of "
-                             f"shape {shape} on {ops.device}")
+        check_operand(name, x, shape, ops.device)
 
 
 def _cuda_partials(ops: Operands, seed, block_offset, plan, n_blocks):

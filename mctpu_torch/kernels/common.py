@@ -23,7 +23,8 @@ from mctpu_torch.utils.accum import kahan_add
 
 __all__ = ["LANES", "Plan", "seed_key", "block_keys", "tile_index",
            "draw_normal_pair", "walk_pairwise", "acc_init", "acc_add",
-           "acc_final"]
+           "acc_final", "acc_init_n", "acc_add_n", "acc_final_n",
+           "det_col_sums", "check_operand"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
 # index row * LANES + lane, as the JAX kernels lay them out.
@@ -131,6 +132,49 @@ def acc_final(carry) -> torch.Tensor:
     folded back in (zero without Kahan)."""
     (s, c), (s2, c2) = carry
     return torch.stack([s + c, s2 + c2], dim=1)
+
+
+def check_operand(name: str, x: torch.Tensor, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous float32 tensor of ``shape`` on
+    ``device`` (what a kernel's C entry point takes)."""
+    if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape) \
+            or not x.is_contiguous() or x.device != device:
+        raise ValueError(f"{name} must be a contiguous float32 tensor of "
+                         f"shape {tuple(shape)} on {device}")
+
+
+def acc_init_n(n: int, n_blocks: int, device):
+    """``n`` zeroed per-block ``(sum, comp)`` float32 carries."""
+    z = torch.zeros(n_blocks, dtype=torch.float32, device=device)
+    return tuple((z, z) for _ in range(n))
+
+
+def acc_add_n(carry, vals, kahan: bool):
+    """Add ``vals[i]`` (per-block iteration sums) into ``carry[i]``,
+    compensated if ``kahan``."""
+    if kahan:
+        return tuple(kahan_add(c, v) for c, v in zip(carry, vals))
+    return tuple((c[0] + v, c[1]) for c, v in zip(carry, vals))
+
+
+def acc_final_n(carry) -> torch.Tensor:
+    """``(n_blocks, n)`` partials with the compensations folded back in
+    (zero without Kahan)."""
+    return torch.stack([s + c for s, c in carry], dim=1)
+
+
+def det_col_sums(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` by a fixed halving tree (``mctpu``'s
+    ``det_col_sums``): rows ``[:h]`` and ``[h:2h]`` are added and an odd
+    last row is carried, until one row is left."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        half = n // 2
+        y = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+        if n % 2:
+            y = torch.cat([y, x.narrow(dim, 2 * half, 1)], dim=dim)
+        x = y
+    return x.squeeze(dim)
 
 
 def walk_pairwise(key, idx: torch.Tensor, n_steps: int, step_fn, carry):

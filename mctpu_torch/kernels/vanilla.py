@@ -15,7 +15,7 @@ import torch
 
 from mctpu_torch import _build
 from mctpu_torch.kernels.common import (LANES, Plan, acc_add, acc_final,
-                                        acc_init, block_keys,
+                                        acc_init, block_keys, check_operand,
                                         draw_normal_pair, tile_index)
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import VanillaOption
@@ -77,9 +77,7 @@ def plain_partials(par: torch.Tensor, seed: int, block_offset: int,
 
 
 def _cuda_partials(par, seed, block_offset, plan, n_blocks, put):
-    if par.dtype != torch.float32 or par.shape != (4,) \
-            or not par.is_contiguous():
-        raise ValueError("par must be a contiguous float32 tensor of shape (4,)")
+    check_operand("par", par, (4,), par.device)
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
     lib = _build.library()

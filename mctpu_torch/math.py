@@ -16,6 +16,7 @@ __all__ = [
     "norm_cdf_hastings",
     "bs_call",
     "bs_put",
+    "bs_greeks",
     "cholesky_lower",
     "default_leg_weights",
     "cva_closed_form",
@@ -70,6 +71,28 @@ def bs_put(s, k, r, v, t) -> torch.Tensor:
     """Black-Scholes European put by put-call parity."""
     s_, k_, r_, t_ = (_t(x) for x in (s, k, r, t))
     return bs_call(s, k, r, v, t) - s_ + k_ * torch.exp(-r_ * t_)
+
+
+def bs_greeks(s, k, r, v, t) -> dict:
+    """Closed-form Black-Scholes call Greeks in float64: price, delta,
+    gamma, vega, theta (d/d maturity), rho, vanna (d2V/ds dv) and volga
+    (d2V/dv2); vanna, volga, gamma and vega are the same for the put."""
+    s, k, r, v, t = (_t(x) for x in (s, k, r, v, t))
+    sq = v * torch.sqrt(t)
+    d1 = (torch.log(s / k) + (r + 0.5 * v * v) * t) / sq
+    d2 = d1 - sq
+    pdf = torch.exp(-0.5 * d1 * d1) * 0.3989422804014327
+    disc = torch.exp(-r * t)
+    return {
+        "price": s * norm_cdf(d1) - k * disc * norm_cdf(d2),
+        "delta": norm_cdf(d1),
+        "gamma": pdf / (s * sq),
+        "vega": s * pdf * torch.sqrt(t),
+        "theta": s * pdf * v / (2 * torch.sqrt(t)) + r * k * disc * norm_cdf(d2),
+        "rho": k * t * disc * norm_cdf(d2),
+        "vanna": -pdf * d2 / v,
+        "volga": s * pdf * torch.sqrt(t) * d1 * d2 / v,
+    }
 
 
 def cholesky_lower(corr) -> torch.Tensor:

@@ -26,6 +26,8 @@ __all__ = [
     "CvaPortfolioSpec",
     "McResult",
     "CvaResult",
+    "GreeksResult",
+    "CvaGreeksResult",
     "from_reference",
 ]
 
@@ -281,6 +283,65 @@ class CvaResult:
         return (f"CvaResult(cva={float(self.cva):.6f}, "
                 f"ci=±{float(self.ci):.6f}, n={self.n}, "
                 f"n_paths={self.n_paths})")
+
+
+def _fmt(r) -> str:
+    if r is None:
+        return "None"
+    if r.price.ndim == 0:
+        return f"{float(r.price):.6f}±{float(r.ci):.6f}"
+    return np.array2string(r.price.numpy(), precision=4)
+
+
+@dataclasses.dataclass(frozen=True)
+class GreeksResult:
+    """Price plus pathwise Greeks, each a full :class:`McResult`.
+
+    ``delta``/``vega``/``gamma`` are per-asset vectors for baskets;
+    ``rho``/``theta``/``gamma``/``vanna``/``volga`` are ``None`` where not
+    computed.  ``theta`` is d/d(maturity), as :func:`mctpu_torch.math.
+    bs_greeks`; ``gamma`` is the mixed pathwise-likelihood-ratio estimator.
+    """
+
+    price: McResult
+    delta: McResult
+    vega: McResult
+    rho: Any = None
+    theta: Any = None
+    gamma: Any = None
+    vanna: Any = None  # d2V/ds dv (vanilla)
+    volga: Any = None  # d2V/dv2 (vanilla)
+
+    def __repr__(self):
+        return (f"GreeksResult(price={_fmt(self.price)}, "
+                f"delta={_fmt(self.delta)}, vega={_fmt(self.vega)}, "
+                f"rho={_fmt(self.rho)}, theta={_fmt(self.theta)}, "
+                f"gamma={_fmt(self.gamma)})")
+
+
+@dataclasses.dataclass(frozen=True)
+class CvaGreeksResult:
+    """CVA plus its pathwise sensitivities, each a full :class:`McResult`
+    with the CVA's undiscounted-mean semantics: ``credit_delta``
+    dCVA/dlambda, ``delta`` dCVA/dS0, ``vega`` dCVA/dv, ``gamma``
+    d2CVA/dS0^2, ``credit_gamma`` d2CVA/dlambda^2 and ``cross_gamma``
+    d2CVA/dS0 dlambda."""
+
+    cva: McResult
+    credit_delta: McResult
+    delta: McResult
+    vega: McResult
+    gamma: Any = None
+    credit_gamma: Any = None
+    cross_gamma: Any = None
+
+    def __repr__(self):
+        return (f"CvaGreeksResult(cva={_fmt(self.cva)}, "
+                f"credit_delta={_fmt(self.credit_delta)}, "
+                f"delta={_fmt(self.delta)}, vega={_fmt(self.vega)}, "
+                f"gamma={_fmt(self.gamma)}, "
+                f"credit_gamma={_fmt(self.credit_gamma)}, "
+                f"cross_gamma={_fmt(self.cross_gamma)})")
 
 
 _RECORDS = {cls.__name__: cls for cls in

@@ -9,8 +9,13 @@ it runs without the repository's conftest:
 
 Tolerance: ``rtol=2e-5`` between a kernel and its plain version — the two
 draw the same normals but sum in other orders, and nvcc contracts
-multiply-adds into FMAs (about 1e-6 relative is expected).  Repeated
-launches and the block-offset contract are held bitwise.
+multiply-adds into FMAs (about 1e-6 relative is expected).  The Greek
+kernels' ``(sum x, sum x^2)`` pairs are held by the scaled bound of
+``tests/torch_tolerance.py`` (``rtol * (|want sum x| + sqrt(n * want sum
+x^2))``, ``n`` the units per block), because a Greek's block sum can nearly
+cancel; under wrong-way risk at ``rtol=1e-4`` (the hazard's series switch
+can flip on one ulp).  Repeated launches and the block-offset contract are
+held bitwise.
 """
 import numpy as np
 import pytest
@@ -19,10 +24,12 @@ import torch
 from mctpu_torch import _build
 from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import cva as kcva
+from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.types import (BasketOption, CvaPortfolioSpec, CvaSpec,
                                VanillaOption)
+from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
 
@@ -40,9 +47,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _contract(fn, plain, n_blocks=NB):
-    """Kernel == plain at RTOL; two launches bitwise equal; blocks [2, NB)
-    of offset 0 bitwise equal blocks [0, NB-2) of offset 2."""
+def _contract(fn, plain, n_blocks=NB, units=None, rtol=RTOL):
+    """Kernel == plain at ``rtol`` (by the scaled pair bound when ``units``
+    per block is given); two launches bitwise equal; blocks [2, NB) of
+    offset 0 bitwise equal blocks [0, NB-2) of offset 2."""
     got = fn(0, n_blocks)
     again = fn(0, n_blocks)
     tail = fn(2, n_blocks - 2)
@@ -55,8 +63,11 @@ def _contract(fn, plain, n_blocks=NB):
         assert torch.isfinite(g).all()
         assert torch.equal(g, a)
         assert torch.equal(g[2:], t)
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
-                                   rtol=RTOL, atol=0)
+        if units is None:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=rtol, atol=0)
+        else:
+            assert_pairs_close(g.cpu().numpy(), w.cpu().numpy(), units, rtol)
 
 
 @pytest.mark.parametrize("kind", ["call", "put"])
@@ -120,6 +131,91 @@ def test_cva_kernel_matches_plain(dev, case):
                                                   wwr))
 
 
+def _units(plan):
+    return plan.iters * plan.units_per_iter
+
+
+@pytest.mark.parametrize("kind", ["call", "put"])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_greeks_vanilla_kernel_matches_plain(dev, kind, antithetic, kahan):
+    par = kgreeks.params(VanillaOption(100., 100., 0.04879, 0.2, 1.,
+                                       kind=kind), dev)
+    plan = kgreeks.make_plan(2 * NB * 2 * 32 * 128, NB, 32, antithetic, kahan)
+    put = kind == "put"
+    _contract(
+        lambda off, nb: kgreeks.partials(par, SEED, off, plan, nb, put),
+        lambda off, nb: kgreeks.plain_partials(par, SEED, off, plan, nb,
+                                               put),
+        units=_units(plan))
+
+
+_BASKETS = {
+    "one_asset": BasketOption(s=[100.], v=[0.2], w=[1.], corr=[[1.]],
+                              d=[0.], k=100., r=0.04879, t=1.),
+    "default_reference_3": BasketOption.default_reference(3),
+    "equicorrelated_3": BasketOption.equicorrelated(3),
+    "equicorrelated_8": BasketOption.equicorrelated(8),
+    "default_reference_10": BasketOption.default_reference(10),
+    "equicorrelated_16": BasketOption.equicorrelated(16),
+    "equicorrelated_100": BasketOption.equicorrelated(100),
+    "equicorrelated_129": BasketOption.equicorrelated(129),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BASKETS))
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_greeks_basket_kernel_matches_plain(dev, name, antithetic):
+    opt = _BASKETS[name]
+    a = opt.n_assets
+    chol = cholesky_lower(opt.corr)
+    tilt = kgreeks.tilt_direction(chol)[:2]
+    plan = kbasket.make_plan(1, NB, 16, antithetic, n_assets=a)
+    plan = kbasket.make_plan(2 * NB * plan.paths_per_iter, NB, 16,
+                             antithetic, n_assets=a)
+    if kbasket.use_asset_major(a):
+        ops = kgreeks.am_operands(opt, chol, tilt, dev)
+        fn, plain = kgreeks.am_partials, kgreeks.am_plain_partials
+    else:
+        ops = kgreeks.packed_operands(opt, chol, tilt, dev)
+        fn, plain = kgreeks.packed_partials, kgreeks.packed_plain_partials
+    _contract(lambda off, nb: fn(ops, SEED, off, plan, nb),
+              lambda off, nb: plain(ops, SEED, off, plan, nb),
+              units=_units(plan))
+
+
+_GREEK_CVA_CASES = {
+    # name: (portfolio, kahan, antithetic)
+    "single": (CvaPortfolioSpec.from_single(_SPEC), True, False),
+    "odd_grid": (CvaPortfolioSpec.from_single(
+        CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 7)),
+        True, False),
+    "netted": (CvaPortfolioSpec(0.03, 0.6, 100., 0.05, 0.2, 1.,
+                                np.array([95., 110.]), np.array([1., -0.5]),
+                                0.0, 10), True, False),
+    "wwr": (CvaPortfolioSpec.from_single(_SPEC, wwr_b=0.5), True, False),
+    "antithetic": (CvaPortfolioSpec.from_single(_SPEC), True, True),
+    "f32": (CvaPortfolioSpec.from_single(_SPEC), False, False),
+    # 2100 nodes: the 12 node tables exceed shared memory.
+    "global_tables": (CvaPortfolioSpec.from_single(
+        CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 2100)),
+        True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GREEK_CVA_CASES))
+def test_cva_greeks_kernel_matches_plain(dev, case):
+    port, kahan, antithetic = _GREEK_CVA_CASES[case]
+    ops = kcva.greek_operands(port, dev)
+    wwr = float(port.wwr_b) != 0.0
+    plan = kcva.make_plan(2 * NB * 8 * 128, NB, 8, antithetic, kahan)
+    _contract(
+        lambda off, nb: kcva.greek_partials(ops, SEED, off, plan, nb, wwr),
+        lambda off, nb: kcva.greek_plain_partials(ops, SEED, off, plan, nb,
+                                                  wwr),
+        units=_units(plan), rtol=1e-4 if wwr else RTOL)
+
+
 def test_launch_counters_count_kernel_launches(dev):
     par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
     plan = kvanilla.make_plan(1, 2, 8, False)
@@ -127,6 +223,11 @@ def test_launch_counters_count_kernel_launches(dev):
     kvanilla.partials(par, 1, 0, plan, 2, False)
     kvanilla.plain_partials(par, 1, 0, plan, 2, False)
     assert kvanilla.LAUNCHES["vanilla"] == before + 1
+    par = kgreeks.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
+    before = kgreeks.LAUNCHES["greeks_vanilla"]
+    kgreeks.partials(par, 1, 0, plan, 2, False)
+    kgreeks.plain_partials(par, 1, 0, plan, 2, False)
+    assert kgreeks.LAUNCHES["greeks_vanilla"] == before + 1
 
 
 def test_bad_operands_raise(dev):
@@ -136,3 +237,6 @@ def test_bad_operands_raise(dev):
         kvanilla.partials(par.double(), 1, 0, plan, 2, False)
     with pytest.raises(ValueError):
         kvanilla.partials(par, 1, 0, plan, 0, False)
+    gpar = kgreeks.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
+    with pytest.raises(ValueError):
+        kgreeks.partials(gpar[:4], 1, 0, plan, 2, False)

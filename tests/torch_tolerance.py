@@ -1,0 +1,40 @@
+"""Tolerance for per-block Greek partials, laid out as ``(sum x, sum x^2)``
+pairs along axis 1.
+
+A Greek's block sum can nearly cancel (vanna near the money, the cross
+gamma of a netted portfolio), so a bound relative to it alone fails where
+the rounding of its terms does not.  A ``sum x`` column is held to
+
+    |got - want| <= rtol * (|want sum x| + sqrt(n * want sum x^2))
+
+where ``n`` is the units per block: by Cauchy-Schwarz the root bounds
+``sum |x|``, so the bound tracks the rounding of the terms.  A ``sum x^2``
+column has non-negative terms, so its ``sum |terms|`` is itself: it is held
+to ``rtol * want sum x^2``.  Exact zeros (padded basket slots) must stay
+exactly zero.  This module imports neither jax nor mctpu.
+"""
+import numpy as np
+
+
+def pair_bounds(want, n: int, rtol: float):
+    """Per-element bound of :func:`assert_pairs_close`."""
+    want = np.asarray(want, np.float64)
+    s, s2 = want[:, 0::2], want[:, 1::2]
+    bound = np.empty_like(want)
+    bound[:, 0::2] = rtol * (np.abs(s) + np.sqrt(n * np.abs(s2)))
+    bound[:, 1::2] = rtol * np.abs(s2)
+    return bound
+
+
+def assert_pairs_close(got, want, n: int, rtol: float):
+    """Assert the ``(sum x, sum x^2)`` pairs of ``got`` match ``want``."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert np.isfinite(got).all()
+    err = np.abs(got - want)
+    bound = pair_bounds(want, n, rtol)
+    worst = np.unravel_index(np.argmax(err - bound), err.shape)
+    assert (err <= bound).all(), (
+        f"beyond the scaled bound at {worst}: got {got[worst]!r}, want "
+        f"{want[worst]!r}, bound {bound[worst]!r}")
