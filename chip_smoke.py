@@ -9,23 +9,28 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the eight kernels from ``mctpu_torch/csrc`` with nvcc (sm_90a),
-   one nvcc per source, all started together;
+2. build — the twelve kernels from ``mctpu_torch/csrc`` with nvcc
+   (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
-   card at a medium plan (64 blocks, rows 32, 2 iterations): equal at
-   rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
-   bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
-   because a Greek's block sum can nearly cancel; rtol 1e-4 under
-   wrong-way risk), two launches bitwise equal, block offsets bitwise;
+   card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian and
+   barrier walks at an odd n_obs=13): equal at rtol 2e-5 (the Greek
+   kernels' (sum x, sum x^2) pairs by the scaled bound
+   rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block, because a
+   Greek's block sum can nearly cancel; rtol 1e-4 under wrong-way risk),
+   two launches bitwise equal, block offsets bitwise;
 4. main paths, each with the launch counters set to 0 just before it and
    read just after: the pricing path (``mctpu_torch.price_*`` with the
    default EngineConfig at real sizes, each within 4 standard errors of
-   its closed form, or equal to the plain version at the same plan) and
-   the Greeks path (``mctpu_torch.greeks`` at real sizes: vanilla against
+   its closed form, or equal to the plain version at the same plan), the
+   Greeks path (``mctpu_torch.greeks`` at real sizes: vanilla against
    Black-Scholes Greeks, basket against common-random-number bumps of
    ``price_basket``, CVA against finite differences of its closed form and
    CRN bumps under wrong-way risk; each Greeks price equal to its
-   pricer's at the same seed);
+   pricer's at the same seed) and the exotic path (Asian and knock-out
+   barrier calls at n_obs=50 and 2^22 paths: prices against the geometric
+   closed form, Black-Scholes limits and the BGK-corrected barrier
+   formula; Greeks against autograd of the geometric closed form and CRN
+   bumps of the pricers);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -56,6 +61,7 @@ SEED = 20240607
 PRICE_KERNELS = ("vanilla", "basket_am", "basket_packed", "cva")
 GREEK_KERNELS = ("greeks_vanilla", "greeks_basket_am", "greeks_basket_packed",
                  "cva_greeks")
+EXOTIC_KERNELS = ("asian", "asian_greeks", "barrier", "barrier_greeks")
 
 
 def phase(name: str, msg: str) -> None:
@@ -108,6 +114,25 @@ def crn_gate(got, se, fd, what: str) -> float:
     check(abs(got - fd) < 5 * se + 5e-3 * abs(fd),
           f"{what}: {got:.6f} vs CRN bump {fd:.6f} (se {se:.2e})")
     return abs(got - fd) / se
+
+
+def walk_launchers(kmod, opt, greek: bool, dev):
+    """Bound ``(kernel, plain)`` callables ``(block_offset, n_blocks,
+    plan)`` of a single-asset walk kernel (``kmod`` is
+    ``mctpu_torch.kernels.asian`` or ``.barrier``) on ``opt``: the Greeks
+    kernel if ``greek``, on scalars formed on ``dev``."""
+    flag = (opt.average == "geometric" if hasattr(opt, "average")
+            else opt.kind == "up-and-out")
+    if greek:
+        par = kmod.greek_params(opt, dev)
+        fn, plain = kmod.greek_partials, kmod.greek_plain_partials
+    else:
+        par = kmod.params(opt, dev)
+        fn, plain = kmod.partials, kmod.plain_partials
+    return tuple(
+        (lambda off, n, plan, f=f: f(par, SEED, off, plan, n, opt.n_obs,
+                                     flag))
+        for f in (fn, plain))
 
 
 def greeks_path(mt, mcmath) -> None:
@@ -263,6 +288,139 @@ def greeks_path(mt, mcmath) -> None:
           + ", ".join(f"{f} |z|={z:.2f}" for f, z in zs.items()))
 
 
+def exotic_path(mt, mcmath) -> None:
+    """The Asian and knock-out barrier path at full width (n_obs=50, 2^22
+    paths, the default EngineConfig: 128 blocks x 256 rows x 1 iteration)
+    through ``price_asian``, ``price_barrier`` and ``mctpu_torch.greeks``,
+    each output against its oracle."""
+    from mctpu_torch.types import AsianOption, BarrierOption
+
+    n = 1 << 22
+    s, k, r, v, t = 100.0, 100.0, 0.05, 0.2, 1.0
+    bs = float(mcmath.bs_call(s, k, r, v, t))
+    ari = AsianOption(s, k, r, v, t, n_obs=50)
+    geo = dataclasses.replace(ari, average="geometric")
+    uo = BarrierOption(s, k, r, v, t, barrier=130.0, n_obs=50)
+
+    def same_price(got, want, rtol, what):
+        got, want = float(got), float(want)
+        check(abs(got - want) <= rtol * abs(want),
+              f"{what}: Greeks price {got:.7f} vs pricer {want:.7f} "
+              f"(rtol {rtol:.1e})")
+        return abs(got / want - 1)
+
+    # Prices (K9, K12).
+    pg = mt.price_asian(geo, n, SEED)
+    cf = float(mcmath.geometric_asian_call(s, k, r, v, t, 50))
+    zg = within_sigma(pg.price, cf, pg.std_error, "Asian geometric")
+    pa = mt.price_asian(ari, n, SEED)
+    # AM >= GM path by path, so the arithmetic payoffs dominate.
+    check(float(pa.price) >= float(pg.price),
+          f"Asian arithmetic {float(pa.price):.6f} below geometric "
+          f"{float(pg.price):.6f} at the same seed")
+    p1 = mt.price_asian(dataclasses.replace(ari, n_obs=1), n, SEED)
+    z1 = within_sigma(p1.price, bs, p1.std_error, "Asian n_obs=1")
+    phase("exotic-path", f"Asian 2^22 n_obs=50 (K9): geometric "
+                         f"{float(pg.price):.6f} (closed form {cf:.6f}, "
+                         f"z={zg:.2f}); arithmetic {float(pa.price):.6f} >= "
+                         f"geometric; n_obs=1 {float(p1.price):.6f} (BS, "
+                         f"z={z1:.2f})")
+    pb = mt.price_barrier(uo, n, SEED)
+    b_eff = mcmath.barrier_continuity_correction(130.0, s, v, t, 50, up=True)
+    want = float(mcmath.up_and_out_call(s, k, r, v, t, b_eff))
+    se = float(pb.std_error)
+    # BGK is O(1/sqrt(n_obs)) accurate: MC error plus 1% correction bias.
+    check(abs(float(pb.price) - want) < 3 * se + 0.01 * want,
+          f"up-and-out {float(pb.price):.6f} vs BGK {want:.6f} (se {se:.2e})")
+    pd = mt.price_barrier(BarrierOption(s, k, r, v, t, barrier=1.0, n_obs=50,
+                                        kind="down-and-out"), n, SEED)
+    zd = within_sigma(pd.price, bs, pd.std_error, "down-and-out H=1")
+    phase("exotic-path", f"barrier 2^22 n_obs=50 (K12): up-and-out H=130 "
+                         f"{float(pb.price):.6f} (BGK {want:.6f}, "
+                         f"{abs(float(pb.price) - want) / se:.2f} se); "
+                         f"down-and-out H=1 {float(pd.price):.6f} (BS, "
+                         f"z={zd:.2f})")
+
+    # Asian Greeks (K10).  Geometric: autograd of the exact closed form.
+    gg = mt.greeks(geo, n, SEED)
+    sv, vv, rv = (torch.tensor(x, dtype=torch.float64, requires_grad=True)
+                  for x in (s, v, r))
+    price = mcmath.geometric_asian_call(sv, k, rv, vv, t, 50)
+    d_s, d_v, d_r = torch.autograd.grad(price, (sv, vv, rv),
+                                        create_graph=True)
+    (gam,) = torch.autograd.grad(d_s, sv)
+    zs = {f: within_sigma(getattr(gg, f).price, float(w.detach()),
+                          getattr(gg, f).std_error, f"Asian geometric {f}")
+          for f, w in (("delta", d_s), ("vega", d_v), ("rho", d_r),
+                       ("gamma", gam))}
+    # The Greeks walk forms the average as acc * f32(1/n), the pricer as
+    # acc / n: f32(1/50) is 2.2e-8 low, which the geometric average takes
+    # on a log-average of size ln s0 before exp; hence 1e-6 * ln s0 there.
+    rel_g = same_price(gg.price.price, pg.price, 1e-6 * math.log(s),
+                       "Asian geometric")
+    phase("exotic-path", "Asian geometric Greeks 2^22 (K10) vs autograd of "
+          "the closed form: z " + ", ".join(f"{f}={z:.2f}"
+                                           for f, z in zs.items())
+          + f"; price vs price_asian rel {rel_g:.1e}")
+
+    def crn_fd(value, x0, h, seeds=1):
+        """Mean over ``seeds`` seeds of the CRN central difference of
+        ``value(x, seed)`` at ``x0 +- h``, and its standard error (0 for
+        one seed)."""
+        fds = [(value(x0 + h, sd) - value(x0 - h, sd)) / (2 * h)
+               for sd in range(SEED, SEED + seeds)]
+        if seeds == 1:
+            return fds[0], 0.0
+        return statistics.mean(fds), statistics.stdev(fds) / math.sqrt(seeds)
+
+    def bumped(pricer, opt, field, out=lambda res: res.price):
+        return lambda x, sd: float(out(pricer(
+            dataclasses.replace(opt, **{field: x}), n, sd)))
+
+    def gates(res, fd, what):
+        return {f: crn_gate(getattr(res, f).price,
+                            math.hypot(float(getattr(res, f).std_error),
+                                       se_fd), w, f"{what} {f}")
+                for f, (w, se_fd) in fd.items()}
+
+    # Arithmetic: CRN bumps of price_asian.  The float32 walk adds the
+    # drift (~6e-4) to a log-spot near ln 100, which lies on the 2^-21
+    # grid, so the sum rounds the drift to that grid and the price moves
+    # with r in steps: at h=2e-3 the bump reads the drift's share of rho
+    # 0.14% high (+0.04 here, every run), which the gate's 0.5% covers; the
+    # pathwise rho follows a float64 walk.  Gamma: the CRN
+    # difference of the Greeks' delta at s0 +- 1.  That delta jumps where a
+    # path's average crosses the strike, so the difference has noise of
+    # its own, about twice the Stein gamma's per path: it is averaged over
+    # 16 seeds, and its standard error joins the gate's.
+    ga = mt.greeks(ari, n, SEED)
+    fd = {"delta": crn_fd(bumped(mt.price_asian, ari, "s"), s, 0.5),
+          "vega": crn_fd(bumped(mt.price_asian, ari, "v"), v, 5e-3),
+          "rho": crn_fd(bumped(mt.price_asian, ari, "r"), r, 2e-3),
+          "gamma": crn_fd(bumped(mt.greeks, ari, "s",
+                                 out=lambda g: g.delta.price), s, 1.0, 16)}
+    zs = gates(ga, fd, "Asian arithmetic")
+    rel_a = same_price(ga.price.price, pa.price, 1e-6, "Asian arithmetic")
+    phase("exotic-path", "Asian arithmetic Greeks 2^22 (K10) vs CRN bumps: "
+          + ", ".join(f"{f} |z|={z:.2f}" for f, z in zs.items())
+          + f"; price vs price_asian rel {rel_a:.1e}")
+
+    # Barrier Greeks (K13): CRN bumps of price_barrier.  A bump flips the
+    # knock-out of the paths that graze the barrier, so the difference has
+    # noise of its own, at rho some 25x the LR estimator's per path: each
+    # is averaged over 16 seeds.
+    gb = mt.greeks(uo, n, SEED)
+    fd = {"delta": crn_fd(bumped(mt.price_barrier, uo, "s"), s, 0.5, 16),
+          "vega": crn_fd(bumped(mt.price_barrier, uo, "v"), v, 5e-3, 16),
+          "rho": crn_fd(bumped(mt.price_barrier, uo, "r"), r, 4e-3, 16)}
+    zs = gates(gb, fd, "up-and-out")
+    # The same per-path payoffs, summed in another order.
+    rel_b = same_price(gb.price.price, pb.price, 1e-6, "up-and-out")
+    phase("exotic-path", "up-and-out LR Greeks 2^22 (K13) vs CRN bumps: "
+          + ", ".join(f"{f} |z|={z:.2f}" for f, z in zs.items())
+          + f"; price vs price_barrier rel {rel_b:.1e}")
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -274,13 +432,16 @@ def main() -> int:
     import mctpu_torch
     from mctpu_torch import _build, engine, estimator as mcest
     from mctpu_torch import math as mcmath
+    from mctpu_torch.kernels import asian as kasian
+    from mctpu_torch.kernels import barrier as kbarrier
     from mctpu_torch.kernels import basket as kbasket
     from mctpu_torch.kernels import cva as kcva
     from mctpu_torch.kernels import greeks as kgreeks
     from mctpu_torch.kernels import vanilla as kvanilla
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
-    from mctpu_torch.types import (BasketOption, CvaPortfolioSpec, CvaSpec,
-                                   Precision, VanillaOption)
+    from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
+                                   CvaPortfolioSpec, CvaSpec, Precision,
+                                   VanillaOption)
 
     check(Path(mctpu_torch.__file__).resolve().is_relative_to(ROOT),
           f"mctpu_torch imported from {mctpu_torch.__file__}, not this "
@@ -435,9 +596,30 @@ def main() -> int:
                                                           plan, n, wwr),
                  units=units(plan), rtol=RTOL_WWR if wwr else RTOL)
 
+    # The single-asset walks at an odd date count (the trailing half pair).
+    n_obs = 13
+    ari13 = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=n_obs)
+    uo13 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, 130.0, n_obs=n_obs)
+    for greek, k_asian, k_barrier in ((False, 9, 12), (True, 10, 13)):
+        for label, kmod, wopt, anti in (
+                (f"K{k_asian} arithmetic", kasian, ari13, False),
+                (f"K{k_asian} geometric", kasian,
+                 dataclasses.replace(ari13, average="geometric"), False),
+                (f"K{k_asian} arithmetic antithetic", kasian, ari13, True),
+                (f"K{k_barrier} up-and-out H=130", kbarrier, uo13, False),
+                (f"K{k_barrier} down-and-out H=80", kbarrier,
+                 dataclasses.replace(uo13, barrier=80.0,
+                                     kind="down-and-out"), False)):
+            plan = kmod.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                                  nb, rows, anti)
+            fn, plain = walk_launchers(kmod, wopt, greek, dev)
+            contract(label, lambda off, n: fn(off, n, plan),
+                     lambda off, n: plain(off, n, plan),
+                     units=units(plan) if greek else None)
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
-                kgreeks.LAUNCHES)
+                kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -530,8 +712,17 @@ def main() -> int:
     launches.update(read_counts(GREEK_KERNELS))
     phase("greeks-path", f"done in {time.perf_counter() - t_greeks:.1f} s")
 
+    # ---- 4c. the exotic path at full width ------------------------------
+    reset_counts()
+    t_exotic = time.perf_counter()
+    exotic_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(EXOTIC_KERNELS))
+    phase("exotic-path", f"done in {time.perf_counter() - t_exotic:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
-    check(all(launches.get(k, 0) > 0 for k in PRICE_KERNELS + GREEK_KERNELS),
+    check(all(launches.get(k, 0) > 0
+              for k in PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
 
@@ -665,6 +856,27 @@ def main() -> int:
           lambda: kcva.greek_plain_partials(ops, SEED, 0, plan,
                                             plan.num_blocks, False),
           units=gunits(plan), plain_reps=3)
+
+    # The exotic path's shape: arithmetic Asian and up-and-out H=130 calls,
+    # n_obs=50, 2^22 paths.
+    n_ex = 1 << 22
+    ari = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=50)
+    uo = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0, n_obs=50)
+    disc = math.exp(-0.05)
+    for kname, replaces, kmod, wopt, greek in (
+            ("asian", "mctpu/kernels/asian.py:344", kasian, ari, False),
+            ("asian_greeks", "mctpu/kernels/asian.py:257", kasian, ari, True),
+            ("barrier", "mctpu/kernels/barrier.py:305", kbarrier, uo, False),
+            ("barrier_greeks", "mctpu/kernels/barrier.py:228", kbarrier, uo,
+             True)):
+        setup = engine.asian_setup if kmod is kasian else engine.barrier_setup
+        plan, _ = setup(wopt, n_ex, cfg)
+        fn, plain = walk_launchers(kmod, wopt, greek, dev)
+        source = "mctpu_torch/csrc/" + kname.split("_")[0] + ".cu"
+        timed(kname, source, replaces, plan, 50, disc,
+              lambda: fn(0, plan.num_blocks, plan),
+              lambda: plain(0, plan.num_blocks, plan),
+              units=gunits(plan) if greek else None, plain_reps=3)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,24 @@
 """mctpu_torch — the PyTorch/CUDA port of mctpu for NVIDIA Hopper (H100).
 
-The main path of the JAX package, on one GPU: vanilla, basket and CVA
-pricing and their in-kernel Greeks through hand-written CUDA kernels
+The main path of the JAX package and its first single-asset walks, on one
+GPU: vanilla, basket, CVA, Asian and knock-out barrier pricing and their
+in-kernel Greeks through hand-written CUDA kernels
 (``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use), per-block
 partial sums, a fixed-order float64 combine and the reference estimator.
-:mod:`mctpu_torch.greeks` adds the autodiff and bump-and-revalue tier.  Each kernel has a plain PyTorch
+:mod:`mctpu_torch.autodiff` adds the autodiff and bump-and-revalue tier.  Each kernel has a plain PyTorch
 version beside it, which runs for CPU tensors.  Imports neither jax nor
 mctpu.
 """
 from mctpu_torch import math
-from mctpu_torch.engine import (EngineConfig, greeks, greeks_basket,
-                                greeks_cva, greeks_vanilla, price_basket,
-                                price_cva, price_cva_portfolio, price_vanilla)
+from mctpu_torch.engine import (EngineConfig, greeks, greeks_asian,
+                                greeks_barrier, greeks_basket, greeks_cva,
+                                greeks_vanilla, price_asian, price_barrier,
+                                price_basket, price_cva, price_cva_portfolio,
+                                price_vanilla)
 from mctpu_torch.rng import seed_from_generator
-from mctpu_torch.types import (BasketOption, CvaGreeksResult,
-                               CvaPortfolioSpec, CvaResult, CvaSpec,
-                               GreeksResult, McResult, Precision,
+from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
+                               CvaGreeksResult, CvaPortfolioSpec, CvaResult,
+                               CvaSpec, GreeksResult, McResult, Precision,
                                VanillaOption, from_reference)
 
 __all__ = [
@@ -24,16 +27,22 @@ __all__ = [
     "price_basket",
     "price_cva",
     "price_cva_portfolio",
+    "price_asian",
+    "price_barrier",
     "greeks",
     "greeks_vanilla",
     "greeks_basket",
     "greeks_cva",
+    "greeks_asian",
+    "greeks_barrier",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
     "BasketOption",
     "CvaSpec",
     "CvaPortfolioSpec",
+    "AsianOption",
+    "BarrierOption",
     "McResult",
     "CvaResult",
     "GreeksResult",

@@ -23,12 +23,17 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
-           "cva_greeks.cu")
+           "cva_greeks.cu", "asian.cu", "barrier.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# Per-source flags.  The single-asset walks take no FMA contraction, so each
+# path rounds as the plain version's separate operations do and their
+# discontinuities (knock-out, in-the-money indicator) fall on the same side
+# (see the head of csrc/asian.cu).
+SOURCE_FLAGS = {"asian.cu": ("-fmad=false",), "barrier.cu": ("-fmad=false",)}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -64,6 +69,12 @@ _SIGNATURES = {
     # iters, antithetic, kahan, wwr, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P),
+    # The single-asset walks (K9, K10, K12, K13): scal, n_obs, seed, off,
+    # n_blocks, rows, iters, antithetic, kahan, geometric (Asian) or up
+    # (barrier), out, stream
+    **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+       for name in ("mctpu_asian", "mctpu_asian_greeks", "mctpu_barrier",
+                    "mctpu_barrier_greeks")},
 }
 
 _lib = None
@@ -86,6 +97,7 @@ def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(name, ())).encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -99,7 +111,8 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [str(Path(work) / f"{Path(name).stem}.o") for name in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)]
+        cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-c", "-o",
+                 obj, str(CSRC / name)]
                 for name, obj in zip(SOURCES, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)

@@ -1,26 +1,32 @@
 """Monte Carlo Greeks by automatic differentiation and by bump-and-revalue.
 
 Counterpart of :mod:`mctpu.greeks` for the products the port has.  The
-engine tier (:func:`mctpu_torch.greeks`, kernels K5-K8) is the production
-path; this tier differentiates a float64 estimator with ``torch.autograd``
-over normals drawn from an explicit ``torch.Generator``, and is the oracle
-for the engine's basket delta.  Pathwise differentiation is unbiased here
-because the payoff kinks have measure zero.  (The engine's ``greeks``
+engine tier (:func:`mctpu_torch.greeks`, kernels K5-K8, K10, K13) is the
+production path; this tier differentiates a float64 estimator with
+``torch.autograd`` over normals drawn from an explicit ``torch.Generator``,
+and is the oracle for the engine's basket delta.  Pathwise differentiation
+is unbiased here because the payoff kinks have measure zero; the barrier's
+knock-out is not a kink, so its delta goes by common-random-number bumps of
+the engine's pricer (:func:`barrier_delta_crn`).  (The engine's ``greeks``
 dispatcher is exported from the package under that name, so this module
 is not called ``greeks``.)
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
 
+from mctpu_torch import engine
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.models import basket as mbasket
-from mctpu_torch.types import BasketOption, VanillaOption
+from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
+                               VanillaOption)
 
-__all__ = ["vanilla_greeks", "basket_delta", "bump_and_revalue"]
+__all__ = ["vanilla_greeks", "basket_delta", "asian_greeks",
+           "barrier_delta_crn", "bump_and_revalue"]
 
 _F64 = torch.float64
 
@@ -67,6 +73,48 @@ def basket_delta(opt: BasketOption, n_paths: int, gen: torch.Generator):
     price = torch.exp(-r * t) * pay.mean()
     (delta,) = torch.autograd.grad(price, (s,))
     return price.detach(), delta
+
+
+def asian_greeks(opt: AsianOption, n_paths: int,
+                 gen: torch.Generator) -> dict:
+    """Pathwise price, delta, vega and rho of the Asian call in float64,
+    differentiated through the walk over ``(n_obs, n_paths)`` normals."""
+    opt.validate()
+    z = torch.randn((opt.n_obs, n_paths), generator=gen, dtype=_F64)
+    s, k, r, v, t = (_leaf(x) for x in (opt.s, opt.k, opt.r, opt.v, opt.t))
+    geometric = opt.average == "geometric"
+    dt = t / opt.n_obs
+    drift = (r - 0.5 * v * v) * dt
+    vol = v * torch.sqrt(dt)
+    spot = s.expand(n_paths)
+    acc = torch.zeros(n_paths, dtype=_F64)
+    for zj in z:
+        spot = spot * torch.exp(drift + vol * zj)
+        acc = acc + (torch.log(spot) if geometric else spot)
+    avg = torch.exp(acc / opt.n_obs) if geometric else acc / opt.n_obs
+    price = torch.exp(-r * t) * torch.clamp(avg - k, min=0.0).mean()
+    delta, rho, vega = torch.autograd.grad(price, (s, r, v))
+    return {"price": price.detach(), "delta": delta, "vega": vega,
+            "rho": rho}
+
+
+def barrier_delta_crn(opt: BarrierOption, n_paths: int, seed: int,
+                      config: engine.EngineConfig = engine.EngineConfig(),
+                      eps: float = 0.5) -> float:
+    """Barrier-call delta by common-random-number central differences of
+    :func:`mctpu_torch.price_barrier` at ``s +- eps``.
+
+    Pathwise differentiation is biased here: the knock-out indicator is
+    discontinuous in the spot and its derivative (a surface term)
+    differentiates to zero.  The bumped runs draw the same paths (same
+    seed and plan), so the Monte Carlo noise cancels to first order."""
+    opt.validate()
+
+    def price(s0):
+        o = dataclasses.replace(opt, s=float(s0))
+        return float(engine.price_barrier(o, n_paths, seed, config).price)
+
+    return bump_and_revalue(price, float(opt.s), eps, order=1)
 
 
 def bump_and_revalue(price_fn: Callable, x0, eps: float, order: int = 2):

@@ -1,0 +1,241 @@
+// K9 and K10: fused Asian-call Monte Carlo and its Greeks.
+//
+// K9 replaces mctpu/kernels/asian.py::_asian_kernel, K10
+// ::_asian_greeks_kernel.  Per simulation block b and iteration i the
+// stream is reseeded with (seed, (off + b) * iters + i) in int32 wrap; tile
+// element e walks the n_obs dates in pairs (mct::walk_pairwise), the
+// antithetic mirror replaying the same draws with the sign flipped, and the
+// two mirrored outputs are averaged before they are summed.  K9 carries the
+// log-spot and the running sum of the spots (of the log-spots for the
+// geometric average) and pays max(avg - k, 0).  K10 also carries the vega
+// tangent sum, sum s_j t_j and sum s_j t_j^2 and the running scalars
+// cj = c1 (j + 1) and tj = t_j, and forms price, pathwise delta, vega and
+// rho, and the Stein-tilt gamma (mctpu/kernels/asian.py, _greek_quants):
+// 5 outputs, 10 sums.  The geometric walk is a template of its own: it
+// takes no expf per step and never touches racc/r2acc.
+//
+// This file is built with -fmad=false (mctpu_torch/_build.py): no multiply
+// is contracted into an FMA, so every per-path value rounds as the plain
+// PyTorch version's separate operations do, and with the same libm expf/
+// logf/sqrtf and IEEE division the two agree per path to the bit.  Only the
+// block sums' order differs.  That matters because the Greeks' ITM
+// indicator is discontinuous: one ulp on a path at avg ~ k flips a whole
+// delta term.
+//
+// Bound on the H100: arithmetic and latency.  Per path-step: half a Philox
+// block (10 rounds of two 32-bit mul.hi/lo), half a Box-Muller (logf,
+// sqrtf, the sin/cos polynomials), one add chain and, arithmetic only, one
+// expf; the walk is a serial dependence from date to date and the only
+// memory traffic is the block's partials.  Simple design: one CUDA block
+// per simulation block, one thread per path element striding over the
+// (rows, 128) tile, the state in registers; K9 sums with mct::Acc2 and one
+// fixed-order block tree, K10 with mct::BlockAccN once per iteration.  No
+// atomics: two launches give the same bits.  layout_for gives 128 blocks
+// at 2^22 paths, one per SM.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 1024;        // K9
+constexpr int GREEK_THREADS = 512;   // K10: 10 sums and 7 carries a thread
+constexpr int N_SUMS = 10;
+
+// One K9 walk of tile element e -> its payoff.
+template <bool GEO>
+__device__ __forceinline__ float walk(float log_s0, float k, float drift,
+                                      float vol, int n_obs, mct::Key key,
+                                      uint32_t e, float sgn) {
+  float log_s = log_s0, acc = 0.0f;
+  mct::walk_pairwise(key, e, n_obs, [&](int, float z) {
+    log_s = log_s + drift + vol * (sgn * z);
+    acc = acc + (GEO ? log_s : expf(log_s));
+  });
+  float avg = acc / static_cast<float>(n_obs);
+  if (GEO) avg = expf(avg);
+  return fmaxf(avg - k, 0.0f);
+}
+
+template <bool ANTI, bool KAHAN, bool GEO>
+__global__ void __launch_bounds__(THREADS)
+    asian_kernel(const float* __restrict__ par, int n_obs, uint32_t seed,
+                 uint32_t off, int n_elems, int iters,
+                 float* __restrict__ out) {
+  // par: log s0, k, drift, vol
+  const float log_s0 = par[0], k = par[1], drift = par[2], vol = par[3];
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float p = walk<GEO>(log_s0, k, drift, vol, n_obs, key, u, 1.0f);
+      if (ANTI) {
+        p = 0.5f * (p + walk<GEO>(log_s0, k, drift, vol, n_obs, key, u,
+                                  -1.0f));
+      }
+      acc.add(p);
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
+}
+
+// K10's scalars (mctpu_torch/kernels/asian.py, GREEK_SCAL).
+struct GreekScal {
+  float log_s0, s0, k, drift, vol, inv_v, c1, dt, t, tbar, zc0, ivst;
+  float inv_n, sqt_v, inv_s02;
+};
+
+// One K10 walk of tile element e; q[] gets (p, gd, gv, gr, gg).
+template <bool GEO>
+__device__ __forceinline__ void greek_walk(const GreekScal& c, int n_obs,
+                                           mct::Key key, uint32_t e,
+                                           float sgn, float (&q)[5]) {
+  float log_s = c.log_s0, acc = 0.0f, gacc = 0.0f, racc = 0.0f,
+        r2acc = 0.0f, cj = c.c1, tj = c.dt;
+  mct::walk_pairwise(key, e, n_obs, [&](int, float z) {
+    log_s = log_s + c.drift + c.vol * (sgn * z);
+    const float f = (log_s - c.log_s0) * c.inv_v + cj;
+    if (GEO) {
+      acc = acc + log_s;
+      gacc = gacc + f;
+    } else {
+      const float s = expf(log_s);
+      const float st = s * tj;
+      acc = acc + s;
+      gacc = gacc + s * f;
+      racc = racc + st;
+      r2acc = r2acc + st * tj;
+      tj = tj + c.dt;
+    }
+    cj = cj + c.c1;
+  });
+  float avg = acc * c.inv_n;
+  if (GEO) avg = expf(avg);
+  const float ind = avg > c.k ? 1.0f : 0.0f;
+  const float p = fmaxf(avg - c.k, 0.0f);
+  const float z = (log_s - c.log_s0 - c.zc0) * c.ivst;
+  q[0] = p;
+  q[1] = __fdiv_rn(ind * avg, c.s0);
+  if (GEO) {
+    q[2] = ind * (avg * gacc * c.inv_n);
+    q[3] = ind * (avg * c.tbar) - c.t * p;
+    q[4] = ind * (avg * c.inv_s02) * (__fdiv_rn(c.sqt_v, c.tbar) * z - 1.0f);
+  } else {
+    const float m = racc * c.inv_n;
+    const float r2n = r2acc * c.inv_n;
+    q[2] = ind * (gacc * c.inv_n);
+    q[3] = ind * m - c.t * p;
+    // h = Abar^2 / (dA/dz); IEEE division (m >= t_1 avg > 0).
+    const float h = __fdiv_rn(c.sqt_v * (avg * avg) * c.inv_s02, m);
+    const float dh = c.inv_s02 * (2.0f * avg - __fdiv_rn((avg * avg) * r2n,
+                                                           m * m));
+    q[4] = ind * (h * z - dh);
+  }
+}
+
+template <bool ANTI, bool KAHAN, bool GEO>
+__global__ void __launch_bounds__(GREEK_THREADS)
+    asian_greeks_kernel(const float* __restrict__ scal, int n_obs,
+                        uint32_t seed, uint32_t off, int n_elems, int iters,
+                        float* __restrict__ out) {
+  __shared__ float sh[(GREEK_THREADS / 32) * N_SUMS];
+  GreekScal c;
+  c.log_s0 = scal[0];
+  c.s0 = scal[1];
+  c.k = scal[2];
+  c.drift = scal[3];
+  c.vol = scal[4];
+  c.inv_v = scal[5];
+  c.c1 = scal[6];
+  c.dt = scal[7];
+  c.t = scal[8];
+  c.tbar = scal[9];
+  c.zc0 = scal[10];
+  c.ivst = scal[11];
+  // The JAX kernel's in-kernel scalars: 1.0 / n_obs is a double rounded to
+  // float (a weakly typed Python float there).
+  c.inv_n = MCT_F32(1.0 / n_obs);
+  c.sqt_v = c.t * c.ivst;
+  c.inv_s02 = __fdiv_rn(1.0f, c.s0 * c.s0);
+
+  mct::BlockAccN<GREEK_THREADS, N_SUMS, KAHAN> acc;
+  float v[N_SUMS];
+#pragma unroll
+  for (int j = 0; j < N_SUMS; ++j) v[j] = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += GREEK_THREADS) {
+      float q[5];
+      greek_walk<GEO>(c, n_obs, key, static_cast<uint32_t>(e), 1.0f, q);
+      if (ANTI) {
+        float m[5];
+        greek_walk<GEO>(c, n_obs, key, static_cast<uint32_t>(e), -1.0f, m);
+#pragma unroll
+        for (int j = 0; j < 5; ++j) q[j] = 0.5f * (q[j] + m[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        v[2 * j] += q[j];
+        v[2 * j + 1] += q[j] * q[j];
+      }
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <bool ANTI, bool KAHAN, bool GEO>
+void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+            int n_blocks, int n_elems, int iters, int greeks, float* out,
+            cudaStream_t stream) {
+  if (greeks) {
+    asian_greeks_kernel<ANTI, KAHAN, GEO><<<n_blocks, GREEK_THREADS, 0,
+                                            stream>>>(scal, n_obs, seed, off,
+                                                      n_elems, iters, out);
+  } else {
+    asian_kernel<ANTI, KAHAN, GEO><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_obs, seed, off, n_elems, iters, out);
+  }
+}
+
+using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
+                          int, int, float*, cudaStream_t);
+
+// Indexed by antithetic << 2 | kahan << 1 | geometric.
+constexpr LaunchFn LAUNCHERS[8] = {
+    launch<false, false, false>, launch<false, false, true>,
+    launch<false, true, false>,  launch<false, true, true>,
+    launch<true, false, false>,  launch<true, false, true>,
+    launch<true, true, false>,   launch<true, true, true>,
+};
+
+int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
+        int rows, int iters, int antithetic, int kahan, int geometric,
+        int greeks, float* out, void* stream) {
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (geometric ? 1 : 0);
+  LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
+                 iters, greeks, out, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mctpu_asian(const float* par, int n_obs, int seed, int off,
+                           int n_blocks, int rows, int iters, int antithetic,
+                           int kahan, int geometric, float* out,
+                           void* stream) {
+  return run(par, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             geometric, 0, out, stream);
+}
+
+extern "C" int mctpu_asian_greeks(const float* scal, int n_obs, int seed,
+                                  int off, int n_blocks, int rows, int iters,
+                                  int antithetic, int kahan, int geometric,
+                                  float* out, void* stream) {
+  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             geometric, 1, out, stream);
+}

@@ -1,0 +1,195 @@
+// K12 and K13: fused knock-out barrier-call Monte Carlo and its
+// likelihood-ratio Greeks.
+//
+// K12 replaces mctpu/kernels/barrier.py::_barrier_kernel, K13
+// ::_barrier_greeks_kernel.  The stream is K9's (csrc/asian.cu): reseed per
+// (block, iteration) with (seed, (off + b) * iters + i), pairs of dates per
+// Philox block, the antithetic mirror replaying the draws with the sign
+// flipped and averaged in before the sums.  Each path carries the log-spot
+// and a 0/1 alive flag that the first date with log s >= log H (up-and-out)
+// or log s <= log H (down-and-out) multiplies by 0; the payoff is
+// alive * max(exp(log s_T) - k, 0).  K13 also carries zeta_1, sum zeta and
+// sum zeta^2 and forms the likelihood-ratio delta, vega and rho
+// (mctpu/kernels/barrier.py, _greek_quants): 4 outputs, 8 sums.  Its vega
+// integrand p (z2s / v - zs sqrt(dt) - n / v) cancels heavily, which is why
+// the tests hold its sums by the scaled pair bound.
+//
+// This file is built with -fmad=false (mctpu_torch/_build.py), like
+// csrc/asian.cu: the knock-out compare is a discontinuity, and an FMA that
+// the plain PyTorch version does not take would move a log-spot by an ulp
+// and flip a path that grazes the barrier, changing a block sum by a whole
+// payoff.  Without contraction, and with the same libm logf/sqrtf, each
+// path's log-spot, flag and payoff equal the plain version's to the bit.
+//
+// Bound on the H100: arithmetic and latency.  Per path-step: half a Philox
+// block, half a Box-Muller, one add chain and a compare; one expf per path.
+// Simple design, as K9: one CUDA block per simulation block, one thread per
+// path element striding over the (rows, 128) tile, state in registers; K12
+// sums with mct::Acc2, K13 with mct::BlockAccN per iteration.  No atomics.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 1024;        // K12
+constexpr int GREEK_THREADS = 512;   // K13
+constexpr int N_SUMS = 8;
+
+template <bool UP>
+__device__ __forceinline__ float alive_update(float alive, float log_s,
+                                              float log_h) {
+  const bool hit = UP ? log_s >= log_h : log_s <= log_h;
+  return alive * (hit ? 0.0f : 1.0f);
+}
+
+// One K12 walk of tile element e -> its payoff.
+template <bool UP>
+__device__ __forceinline__ float walk(float log_s0, float k, float log_h,
+                                      float drift, float vol, int n_obs,
+                                      mct::Key key, uint32_t e, float sgn) {
+  float log_s = log_s0, alive = 1.0f;
+  mct::walk_pairwise(key, e, n_obs, [&](int, float z) {
+    log_s = log_s + drift + vol * (sgn * z);
+    alive = alive_update<UP>(alive, log_s, log_h);
+  });
+  return alive * fmaxf(expf(log_s) - k, 0.0f);
+}
+
+template <bool ANTI, bool KAHAN, bool UP>
+__global__ void __launch_bounds__(THREADS)
+    barrier_kernel(const float* __restrict__ par, int n_obs, uint32_t seed,
+                   uint32_t off, int n_elems, int iters,
+                   float* __restrict__ out) {
+  // par: log s0, k, log H, drift, vol
+  const float log_s0 = par[0], k = par[1], log_h = par[2], drift = par[3],
+              vol = par[4];
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float p = walk<UP>(log_s0, k, log_h, drift, vol, n_obs, key, u, 1.0f);
+      if (ANTI) {
+        p = 0.5f * (p + walk<UP>(log_s0, k, log_h, drift, vol, n_obs, key, u,
+                                 -1.0f));
+      }
+      acc.add(p);
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
+}
+
+// K13's scalars (mctpu_torch/kernels/barrier.py, GREEK_SCAL).
+struct GreekScal {
+  float log_s0, k, log_h, drift, vol, c_d, inv_v, sqdt, n_over_v, c_r, t;
+};
+
+// One K13 walk of tile element e; q[] gets (p, gd, gv, gr).
+template <bool UP>
+__device__ __forceinline__ void greek_walk(const GreekScal& c, int n_obs,
+                                           mct::Key key, uint32_t e,
+                                           float sgn, float (&q)[4]) {
+  float log_s = c.log_s0, alive = 1.0f, z1 = 0.0f, zs = 0.0f, z2s = 0.0f;
+  mct::walk_pairwise(key, e, n_obs, [&](int j, float z) {
+    const float zeta = sgn * z;
+    log_s = log_s + c.drift + c.vol * zeta;
+    alive = alive_update<UP>(alive, log_s, c.log_h);
+    if (j == 0) z1 = zeta;
+    zs = zs + zeta;
+    z2s = z2s + zeta * zeta;
+  });
+  const float p = alive * fmaxf(expf(log_s) - c.k, 0.0f);
+  q[0] = p;
+  q[1] = p * z1 * c.c_d;
+  q[2] = p * (z2s * c.inv_v - zs * c.sqdt - c.n_over_v);
+  q[3] = p * (zs * c.c_r - c.t);
+}
+
+template <bool ANTI, bool KAHAN, bool UP>
+__global__ void __launch_bounds__(GREEK_THREADS)
+    barrier_greeks_kernel(const float* __restrict__ scal, int n_obs,
+                          uint32_t seed, uint32_t off, int n_elems, int iters,
+                          float* __restrict__ out) {
+  __shared__ float sh[(GREEK_THREADS / 32) * N_SUMS];
+  const GreekScal c{scal[0], scal[1], scal[2], scal[3], scal[4], scal[5],
+                    scal[6], scal[7], scal[8], scal[9], scal[10]};
+  mct::BlockAccN<GREEK_THREADS, N_SUMS, KAHAN> acc;
+  float v[N_SUMS];
+#pragma unroll
+  for (int j = 0; j < N_SUMS; ++j) v[j] = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += GREEK_THREADS) {
+      float q[4];
+      greek_walk<UP>(c, n_obs, key, static_cast<uint32_t>(e), 1.0f, q);
+      if (ANTI) {
+        float m[4];
+        greek_walk<UP>(c, n_obs, key, static_cast<uint32_t>(e), -1.0f, m);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) q[j] = 0.5f * (q[j] + m[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[2 * j] += q[j];
+        v[2 * j + 1] += q[j] * q[j];
+      }
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <bool ANTI, bool KAHAN, bool UP>
+void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+            int n_blocks, int n_elems, int iters, int greeks, float* out,
+            cudaStream_t stream) {
+  if (greeks) {
+    barrier_greeks_kernel<ANTI, KAHAN, UP><<<n_blocks, GREEK_THREADS, 0,
+                                             stream>>>(scal, n_obs, seed, off,
+                                                       n_elems, iters, out);
+  } else {
+    barrier_kernel<ANTI, KAHAN, UP><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_obs, seed, off, n_elems, iters, out);
+  }
+}
+
+using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
+                          int, int, float*, cudaStream_t);
+
+// Indexed by antithetic << 2 | kahan << 1 | up.
+constexpr LaunchFn LAUNCHERS[8] = {
+    launch<false, false, false>, launch<false, false, true>,
+    launch<false, true, false>,  launch<false, true, true>,
+    launch<true, false, false>,  launch<true, false, true>,
+    launch<true, true, false>,   launch<true, true, true>,
+};
+
+int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
+        int rows, int iters, int antithetic, int kahan, int up, int greeks,
+        float* out, void* stream) {
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (up ? 1 : 0);
+  LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
+                 iters, greeks, out, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mctpu_barrier(const float* par, int n_obs, int seed, int off,
+                             int n_blocks, int rows, int iters, int antithetic,
+                             int kahan, int up, float* out, void* stream) {
+  return run(par, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             up, 0, out, stream);
+}
+
+extern "C" int mctpu_barrier_greeks(const float* scal, int n_obs, int seed,
+                                    int off, int n_blocks, int rows, int iters,
+                                    int antithetic, int kahan, int up,
+                                    float* out, void* stream) {
+  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             up, 1, out, stream);
+}

@@ -75,6 +75,28 @@ __device__ __forceinline__ float norm_cdf_hastings(float d) {
   return norm_cdf_hastings_e(d, expf(MCT_F32(-0.5) * d * d));
 }
 
+// Drives a walk of n_steps over tile element e that consumes both
+// Box-Muller branches (mctpu_torch/kernels/common.py, walk_pairwise): pair jj
+// draws Philox block (e, jj, 0, 0), its cosine branch feeds step 2jj and its
+// sine branch step 2jj+1; an odd n_steps takes the cosine branch of pair
+// n_steps/2 last.  step(j, z) advances the caller's state.
+template <typename Step>
+__device__ __forceinline__ void walk_pairwise(Key key, uint32_t e, int n_steps,
+                                              Step&& step) {
+  const int half = n_steps / 2;
+  for (int jj = 0; jj < half; ++jj) {
+    float z1, z2;
+    draw_normal_pair(key, e, static_cast<uint32_t>(jj), z1, z2);
+    step(2 * jj, z1);
+    step(2 * jj + 1, z2);
+  }
+  if (n_steps & 1) {
+    float z1, z2;
+    draw_normal_pair(key, e, static_cast<uint32_t>(half), z1, z2);
+    step(n_steps - 1, z1);
+  }
+}
+
 // Sum of (a, b) over the block's THREADS threads, in a fixed shared-memory
 // tree; every thread returns the block totals.  Deterministic: the same
 // inputs give the same bits on every launch.

@@ -170,18 +170,7 @@ __device__ void walk(const Ctx& cx, mct::Key key, uint32_t e, float sgn,
     acg = acg + ddp2_j * G.ee;
     axg = axg + ddp_l * dee_ds0;
   };
-  const int half = cx.g / 2;
-  for (int jj = 0; jj < half; ++jj) {
-    float z1, z2;
-    mct::draw_normal_pair(key, e, static_cast<uint32_t>(jj), z1, z2);
-    step(2 * jj, z1);
-    step(2 * jj + 1, z2);
-  }
-  if (cx.g & 1) {
-    float z1, z2;
-    mct::draw_normal_pair(key, e, static_cast<uint32_t>(half), z1, z2);
-    step(cx.g - 1, z1);
-  }
+  mct::walk_pairwise(key, e, cx.g, step);
   out[0] = cx.lgd * a;
   out[1] = cx.lgd * al;
   out[2] = cx.lgd * ad;

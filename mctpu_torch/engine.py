@@ -7,8 +7,9 @@ Counterpart of the main path of :mod:`mctpu.engine`:
       -> fixed-order float64 pairwise combine across blocks
         -> estimator (price, standard error, 95% CI) in float64
 
-:func:`price_vanilla`, :func:`price_basket`, :func:`price_cva` and
-:func:`price_cva_portfolio` take an int32 ``seed`` word (the value
+:func:`price_vanilla`, :func:`price_basket`, :func:`price_cva`,
+:func:`price_cva_portfolio`, :func:`price_asian` and :func:`price_barrier`
+take an int32 ``seed`` word (the value
 ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
 JAX package's kernels in interpret mode, so a run here matches that run
@@ -23,23 +24,27 @@ import torch
 
 from mctpu_torch import estimator as mcest
 from mctpu_torch import math as mcmath
+from mctpu_torch.kernels import asian as kasian
+from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import vanilla as kvanilla
-from mctpu_torch.kernels.common import LANES
+from mctpu_torch.kernels.common import LANES, walk_plan
 from mctpu_torch.parallel.reduce import pairwise_tree_sum
 from mctpu_torch.rng import wrap_int32
-from mctpu_torch.types import (BasketOption, CvaGreeksResult,
-                               CvaPortfolioSpec, CvaResult, CvaSpec,
-                               GreeksResult, McResult, Precision,
+from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
+                               CvaGreeksResult, CvaPortfolioSpec, CvaResult,
+                               CvaSpec, GreeksResult, McResult, Precision,
                                VanillaOption)
 
 __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
-           "price_cva_portfolio", "vanilla_setup", "basket_setup",
-           "cva_setup", "greeks", "greeks_vanilla", "greeks_basket",
-           "greeks_cva", "greeks_vanilla_setup", "greeks_basket_setup",
-           "greeks_cva_setup"]
+           "price_cva_portfolio", "price_asian", "price_barrier",
+           "vanilla_setup", "basket_setup", "cva_setup", "asian_setup",
+           "barrier_setup", "greeks", "greeks_vanilla", "greeks_basket",
+           "greeks_cva", "greeks_asian", "greeks_barrier",
+           "greeks_vanilla_setup", "greeks_basket_setup", "greeks_cva_setup",
+           "greeks_asian_setup", "greeks_barrier_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +102,22 @@ def _discount(r, t) -> torch.Tensor:
                      * torch.tensor(float(t), dtype=wide))
 
 
+def _price(partials, plan, r, t) -> McResult:
+    """The discounted price estimate of ``(n_blocks, 2)`` partials."""
+    sum_p, sum_p2 = mcest.combine_block_partials(partials)
+    return mcest.estimate(sum_p, sum_p2, plan.total_units,
+                          discount=_discount(r, t), n_paths=plan.total_paths)
+
+
+def _walk_plan(n_paths: int, config: EngineConfig, ds: bool = False):
+    """The plan of a walk kernel (CVA, Asian, barrier): ``rows * 128``
+    units per (block, iteration), as ``mctpu``'s walk pricers lay it out."""
+    anti = 2 if config.antithetic else 1
+    blocks, rows = config.layout_for(n_paths, LANES * anti)
+    return walk_plan(n_paths, blocks, rows, config.antithetic,
+                     config.precision.kahan, ds=ds)
+
+
 def vanilla_setup(opt: VanillaOption, n_paths: int, config: EngineConfig):
     """``(plan, params)``: the launch :func:`price_vanilla` makes."""
     dev = config.torch_device()
@@ -114,10 +135,7 @@ def price_vanilla(opt: VanillaOption, n_paths: int, seed: int,
     plan, par = vanilla_setup(opt, n_paths, config)
     partials = kvanilla.partials(par, wrap_int32(seed), 0, plan,
                                  plan.num_blocks, opt.kind == "put")
-    sum_p, sum_p2 = mcest.combine_block_partials(partials)
-    return mcest.estimate(sum_p, sum_p2, plan.total_units,
-                          discount=_discount(opt.r, opt.t),
-                          n_paths=plan.total_paths)
+    return _price(partials, plan, opt.r, opt.t)
 
 
 def _basket_plan(opt: BasketOption, n_paths: int, config: EngineConfig):
@@ -147,10 +165,7 @@ def price_basket(opt: BasketOption, n_paths: int, seed: int,
     plan, ops = basket_setup(opt, n_paths, config)
     partials = kbasket.partials(ops, wrap_int32(seed), 0, plan,
                                 plan.num_blocks)
-    sum_p, sum_p2 = mcest.combine_block_partials(partials)
-    return mcest.estimate(sum_p, sum_p2, plan.total_units,
-                          discount=_discount(opt.r, opt.t),
-                          n_paths=plan.total_paths)
+    return _price(partials, plan, opt.r, opt.t)
 
 
 def price_cva(spec: CvaSpec, n_paths: int, seed: int,
@@ -165,11 +180,8 @@ def price_cva(spec: CvaSpec, n_paths: int, seed: int,
 def cva_setup(port: CvaPortfolioSpec, n_paths: int, config: EngineConfig):
     """``(plan, operands)``: the launch :func:`price_cva_portfolio` makes."""
     dev = config.torch_device()
-    anti = 2 if config.antithetic else 1
-    blocks, rows = config.layout_for(n_paths, LANES * anti)
-    plan = kcva.make_plan(n_paths, blocks, rows, config.antithetic,
-                          config.precision.kahan, ds=config.precision.ds)
-    return plan, kcva.operands(port, dev)
+    return (_walk_plan(n_paths, config, ds=config.precision.ds),
+            kcva.operands(port, dev))
 
 
 def price_cva_portfolio(port: CvaPortfolioSpec, n_paths: int, seed: int,
@@ -201,6 +213,42 @@ def price_cva_portfolio(port: CvaPortfolioSpec, n_paths: int, seed: int,
     )
 
 
+def asian_setup(opt: AsianOption, n_paths: int, config: EngineConfig):
+    """``(plan, params)``: the launch :func:`price_asian` makes."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kasian.params(opt, dev)
+
+
+def price_asian(opt: AsianOption, n_paths: int, seed: int,
+                config: EngineConfig = EngineConfig()) -> McResult:
+    """Monte Carlo price of a discretely monitored arithmetic or geometric
+    Asian call (K9)."""
+    opt.validate()
+    plan, par = asian_setup(opt, n_paths, config)
+    partials = kasian.partials(par, wrap_int32(seed), 0, plan,
+                               plan.num_blocks, opt.n_obs,
+                               opt.average == "geometric")
+    return _price(partials, plan, opt.r, opt.t)
+
+
+def barrier_setup(opt: BarrierOption, n_paths: int, config: EngineConfig):
+    """``(plan, params)``: the launch :func:`price_barrier` makes."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kbarrier.params(opt, dev)
+
+
+def price_barrier(opt: BarrierOption, n_paths: int, seed: int,
+                  config: EngineConfig = EngineConfig()) -> McResult:
+    """Monte Carlo price of a discretely monitored up- or down-and-out
+    barrier call (K12)."""
+    opt.validate()
+    plan, par = barrier_setup(opt, n_paths, config)
+    partials = kbarrier.partials(par, wrap_int32(seed), 0, plan,
+                                 plan.num_blocks, opt.n_obs,
+                                 opt.kind == "up-and-out")
+    return _price(partials, plan, opt.r, opt.t)
+
+
 # ---------------------------------------------------------------------------
 # Greeks: the pricing kernels' paths, with the Greek integrands summed beside
 # the payoff (K5-K8); every output is a full estimate with its own CI.
@@ -211,6 +259,11 @@ def _estimates(total, n: int, plan, discount):
     return [mcest.estimate(total[2 * i], total[2 * i + 1], n,
                            discount=discount, n_paths=plan.total_paths)
             for i in range(total.shape[0] // 2)]
+
+
+def _total(partials) -> torch.Tensor:
+    """Per-block partials combined across blocks in float64, on the CPU."""
+    return pairwise_tree_sum(partials.to(mcmath.wide_dtype()), 0).cpu()
 
 
 def greeks_vanilla_setup(opt: VanillaOption, n_paths: int,
@@ -233,7 +286,7 @@ def greeks_vanilla(opt: VanillaOption, n_paths: int, seed: int,
     plan, par = greeks_vanilla_setup(opt, n_paths, config)
     partials = kgreeks.partials(par, wrap_int32(seed), 0, plan,
                                 plan.num_blocks, opt.kind == "put")
-    total = pairwise_tree_sum(partials.to(mcmath.wide_dtype()), 0).cpu()
+    total = _total(partials)
     price, delta, vega, rho, theta, gamma, vanna, volga = _estimates(
         total, plan.total_units, plan, _discount(opt.r, opt.t))
     return GreeksResult(price=price, delta=delta, vega=vega, rho=rho,
@@ -264,18 +317,17 @@ def greeks_basket(opt: BasketOption, n_paths: int, seed: int,
     opt.validate()
     a = opt.n_assets
     plan, ops, gamma_ok = greeks_basket_setup(opt, n_paths, config)
-    wide = mcmath.wide_dtype()
     if kbasket.use_asset_major(a):
         partials = kgreeks.am_partials(ops, wrap_int32(seed), 0, plan,
                                        plan.num_blocks)
-        total = pairwise_tree_sum(partials.to(wide), 0).cpu()
+        total = _total(partials)
         scal, vec = total[:6], total[6:].reshape(a, 6).T
     else:
         partials, vecs = kgreeks.packed_partials(ops, wrap_int32(seed), 0,
                                                  plan, plan.num_blocks)
-        scal = pairwise_tree_sum(partials.to(wide), 0).cpu()
+        scal = _total(partials)
         a_tile, c, _ = kbasket.pack_factor(a)
-        vec = pairwise_tree_sum(vecs.to(wide), 0).cpu()
+        vec = _total(vecs)
         # Fold the c packed path groups back onto the asset slots.
         vec = pairwise_tree_sum(vec.reshape(6, c, a_tile), 1)[:, :a]
     disc = _discount(opt.r, opt.t)
@@ -290,12 +342,8 @@ def greeks_cva_setup(port: CvaPortfolioSpec, n_paths: int,
                      config: EngineConfig):
     """``(plan, operands)``: the launch :func:`greeks_cva` makes."""
     dev = config.torch_device()
-    anti = 2 if config.antithetic else 1
-    blocks, rows = config.layout_for(n_paths, LANES * anti)
     # No double-single walk state: the Greeks plan is mctpu's, without ds.
-    plan = kcva.make_plan(n_paths, blocks, rows, config.antithetic,
-                          config.precision.kahan)
-    return plan, kcva.greek_operands(port, dev)
+    return _walk_plan(n_paths, config), kcva.greek_operands(port, dev)
 
 
 def greeks_cva(spec, n_paths: int, seed: int,
@@ -317,12 +365,65 @@ def greeks_cva(spec, n_paths: int, seed: int,
     partials = kcva.greek_partials(ops, wrap_int32(seed), 0, plan,
                                    plan.num_blocks,
                                    wwr=float(spec.wwr_b) != 0.0)
-    total = pairwise_tree_sum(partials.to(mcmath.wide_dtype()), 0).cpu()
+    total = _total(partials)
     cva, credit_delta, delta, vega, gamma, credit_gamma, cross_gamma = (
         _estimates(total, plan.total_units, plan, 1.0))
     return CvaGreeksResult(cva=cva, credit_delta=credit_delta, delta=delta,
                            vega=vega, gamma=gamma, credit_gamma=credit_gamma,
                            cross_gamma=cross_gamma)
+
+
+def greeks_asian_setup(opt: AsianOption, n_paths: int,
+                       config: EngineConfig):
+    """``(plan, params)``: the launch :func:`greeks_asian` makes (the
+    pricer's plan)."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kasian.greek_params(opt, dev)
+
+
+def greeks_asian(opt: AsianOption, n_paths: int, seed: int,
+                 config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """Price, pathwise delta, vega and rho and the Stein-tilt gamma of an
+    Asian call in one sweep (K10), over :func:`price_asian`'s paths.
+
+    The price forms the average as ``acc * (1 / n_obs)`` where the pricer
+    divides, so it equals :func:`price_asian`'s to about an ulp per path,
+    not to the bit."""
+    opt.validate()
+    plan, gp = greeks_asian_setup(opt, n_paths, config)
+    partials = kasian.greek_partials(gp, wrap_int32(seed), 0, plan,
+                                     plan.num_blocks, opt.n_obs,
+                                     opt.average == "geometric")
+    price, delta, vega, rho, gamma = _estimates(
+        _total(partials), plan.total_units, plan, _discount(opt.r, opt.t))
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho,
+                        gamma=gamma)
+
+
+def greeks_barrier_setup(opt: BarrierOption, n_paths: int,
+                         config: EngineConfig):
+    """``(plan, params)``: the launch :func:`greeks_barrier` makes (the
+    pricer's plan)."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kbarrier.greek_params(opt, dev)
+
+
+def greeks_barrier(opt: BarrierOption, n_paths: int, seed: int,
+                   config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """Price and likelihood-ratio delta, vega and rho of a knock-out
+    barrier call in one sweep (K13), over :func:`price_barrier`'s paths.
+    The knock-out is discontinuous in every parameter, so pathwise
+    derivatives would be biased; the LR scores are unbiased for the
+    discretely monitored product, and their variance grows about linearly
+    in ``n_obs``."""
+    opt.validate()
+    plan, gp = greeks_barrier_setup(opt, n_paths, config)
+    partials = kbarrier.greek_partials(gp, wrap_int32(seed), 0, plan,
+                                       plan.num_blocks, opt.n_obs,
+                                       opt.kind == "up-and-out")
+    price, delta, vega, rho = _estimates(
+        _total(partials), plan.total_units, plan, _discount(opt.r, opt.t))
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
 
 
 def greeks(opt, n_paths: int, seed: int,
@@ -334,4 +435,8 @@ def greeks(opt, n_paths: int, seed: int,
         return greeks_basket(opt, n_paths, seed, config)
     if isinstance(opt, (CvaSpec, CvaPortfolioSpec)):
         return greeks_cva(opt, n_paths, seed, config)
+    if isinstance(opt, AsianOption):
+        return greeks_asian(opt, n_paths, seed, config)
+    if isinstance(opt, BarrierOption):
+        return greeks_barrier(opt, n_paths, seed, config)
     raise TypeError(f"no in-kernel Greeks for {type(opt).__name__}")

@@ -13,18 +13,21 @@ versions in ``kernels/*.py`` draw it here, vectorised over blocks.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
+from mctpu_torch import _build
 from mctpu_torch import rng as mcrng
-from mctpu_torch.rng import M32
+from mctpu_torch.rng import M32, wrap_int32
 from mctpu_torch.utils.accum import kahan_add
 
-__all__ = ["LANES", "Plan", "seed_key", "block_keys", "tile_index",
-           "draw_normal_pair", "walk_pairwise", "acc_init", "acc_add",
-           "acc_final", "acc_init_n", "acc_add_n", "acc_final_n",
-           "det_col_sums", "check_operand"]
+__all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
+           "iter_keys", "tile_index", "draw_normal_pair", "walk_pairwise",
+           "walk_partials", "acc_init", "acc_add", "acc_final", "acc_init_n",
+           "acc_add_n", "acc_final_n", "det_col_sums", "check_operand",
+           "launch_walk"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
 # index row * LANES + lane, as the JAX kernels lay them out.
@@ -75,6 +78,17 @@ class Plan:
                     kahan=kahan, ds=ds)
 
 
+def walk_plan(n_paths: int, num_blocks: int, rows: int, antithetic: bool,
+              kahan: bool = True, ds: bool = False) -> Plan:
+    """Plan of a walk kernel (CVA, Asian, barrier): one ``(rows, 128)``
+    tile of units walks the grid per block iteration, two mirrored paths
+    per unit under antithetic."""
+    units = rows * LANES
+    paths = units * (2 if antithetic else 1)
+    return Plan.plan(n_paths, num_blocks, rows, paths, units, antithetic,
+                     kahan, ds)
+
+
 def _mix32(x):
     """murmur3 finalizer on u32 values (int64 tensor or int)."""
     x = x ^ (x >> 16)
@@ -99,6 +113,16 @@ def block_keys(seed: int, words, device) -> tuple[torch.Tensor, torch.Tensor]:
     w = torch.as_tensor(words, dtype=torch.int64)
     k0, k1 = seed_key(seed, w)
     return k0.view(-1, 1).to(device), k1.view(-1, 1).to(device)
+
+
+def iter_keys(seed: int, block_offset: int, iters: int, i: int,
+              n_blocks: int, device):
+    """Keys of the walk kernels' per-(block, iteration) reseed: block ``b``
+    in iteration ``i`` draws under ``seed_prng(seed, (block_offset + b) *
+    iters + i)``, int32 wrap, so the antithetic mirror can replay it."""
+    words = [wrap_int32((block_offset + b) * iters + i)
+             for b in range(n_blocks)]
+    return block_keys(seed, words, device)
 
 
 def tile_index(n: int, device) -> torch.Tensor:
@@ -194,3 +218,58 @@ def walk_pairwise(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
         z1, _ = draw_normal_pair(key, idx, half)
         carry = step_fn(n_steps - 1, z1, carry)
     return carry
+
+
+def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
+                  n_blocks: int, device) -> torch.Tensor:
+    """Per-block ``(n_blocks, 2 * n_out)`` partials ``[sum x, sum x^2]`` of
+    each per-path output of a walk, iteration by iteration over
+    :func:`iter_keys`' streams.
+
+    ``walk(key, idx, shape, sgn)`` returns the ``n_out`` output tiles of
+    shape ``(n_blocks, rows * 128)``; under antithetic the mirror
+    (``sgn = -1``) replays the same key and the two are averaged before
+    the sums, which are Kahan-added over iterations if ``plan.kahan``.
+    """
+    shape = (n_blocks, plan.rows * LANES)
+    idx = tile_index(shape[1], device)
+    carry = None
+    for i in range(plan.iters):
+        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, device)
+        tiles = walk(key, idx, shape, 1.0)
+        if plan.antithetic:
+            mirror = walk(key, idx, shape, -1.0)
+            tiles = [0.5 * (x + y) for x, y in zip(tiles, mirror)]
+        sums = []
+        for q in tiles:
+            sums += [q.sum(1), (q * q).sum(1)]
+        if carry is None:
+            carry = acc_init_n(len(sums), n_blocks, device)
+        carry = acc_add_n(carry, sums, plan.kahan)
+    return acc_final_n(carry)
+
+
+def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
+                seed: int, block_offset: int, plan: Plan, n_blocks: int,
+                n_obs: int, flag: bool) -> torch.Tensor:
+    """Launch a single-asset walk kernel (K9, K10, K12, K13 share one C
+    signature; ``flag`` is geometric for the Asian, up-and-out for the
+    barrier) on ``scal``'s device and return its ``(n_blocks, n_out)``
+    partials.  Raises on a bad operand or a failed launch."""
+    check_operand("scal", scal, (n_scal,), scal.device)
+    if n_blocks < 1:
+        raise ValueError("n_blocks must be >= 1")
+    if n_obs < 1:
+        raise ValueError("n_obs must be >= 1")
+    lib = _build.library()
+    with torch.cuda.device(scal.device):
+        out = torch.empty((n_blocks, n_out), dtype=torch.float32,
+                          device=scal.device)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        status = getattr(lib, entry)(
+            scal.data_ptr(), n_obs, wrap_int32(seed),
+            wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
+            int(plan.antithetic), int(plan.kahan), int(flag), out.data_ptr(),
+            stream)
+    _build.check(status, entry)
+    return out

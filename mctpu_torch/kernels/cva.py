@@ -22,10 +22,11 @@ import torch
 
 from mctpu_torch import _build
 from mctpu_torch import math as mcmath
-from mctpu_torch.kernels.common import (LANES, Plan, acc_add, acc_add_n,
-                                        acc_final, acc_final_n, acc_init,
-                                        acc_init_n, block_keys, check_operand,
-                                        tile_index, walk_pairwise)
+from mctpu_torch.kernels.common import (LANES, Plan, acc_add, acc_final,
+                                        acc_init, check_operand, iter_keys,
+                                        tile_index, walk_pairwise,
+                                        walk_partials)
+from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import CvaPortfolioSpec
 from mctpu_torch.utils.accum import ds_add
@@ -40,14 +41,6 @@ __all__ = ["make_plan", "Operands", "node_constants", "bs_node_constants",
 
 # Launches of the CUDA kernel in this process, by kernel name.
 LAUNCHES = {"cva": 0, "cva_greeks": 0}
-
-
-def make_plan(n_paths: int, num_blocks: int, rows: int, antithetic: bool,
-              kahan: bool = True, ds: bool = False) -> Plan:
-    units = rows * LANES  # one (rows, 128) tile walks the grid per iteration
-    paths = units * (2 if antithetic else 1)
-    return Plan.plan(n_paths, num_blocks, rows, paths, units, antithetic,
-                     kahan, ds)
 
 
 def _f32(x) -> torch.Tensor:
@@ -233,9 +226,7 @@ def plain_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
         return lgd * acc
 
     for i in range(plan.iters):
-        words = [wrap_int32((block_offset + b) * plan.iters + i)
-                 for b in range(n_blocks)]
-        key = block_keys(seed, words, dev)
+        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, dev)
         if plan.antithetic:
             cva_tile = 0.5 * (walk(key, 1.0) + walk(key, -1.0))
         else:
@@ -523,23 +514,10 @@ def greek_plain_partials(ops: GreekOperands, seed: int, block_offset: int,
                          plan: Plan, n_blocks: int, wwr: bool):
     """Per-block ``(n_blocks, 14)`` Greek partials in plain PyTorch on the
     operands' device, over K4's stream."""
-    dev = ops.device
-    shape = (n_blocks, plan.rows * LANES)
-    idx = tile_index(shape[1], dev)
-    carry = acc_init_n(N_GREEK_SUMS, n_blocks, dev)
-    for i in range(plan.iters):
-        words = [wrap_int32((block_offset + b) * plan.iters + i)
-                 for b in range(n_blocks)]
-        key = block_keys(seed, words, dev)
-        tiles = _greek_walk(ops, key, idx, shape, 1.0, wwr)
-        if plan.antithetic:
-            mirror = _greek_walk(ops, key, idx, shape, -1.0, wwr)
-            tiles = [0.5 * (x + y) for x, y in zip(tiles, mirror)]
-        sums = []
-        for q in tiles:
-            sums += [q.sum(1), (q * q).sum(1)]
-        carry = acc_add_n(carry, sums, plan.kahan)
-    return acc_final_n(carry)
+    return walk_partials(
+        lambda key, idx, shape, sgn: _greek_walk(ops, key, idx, shape, sgn,
+                                                 wwr),
+        seed, block_offset, plan, n_blocks, ops.device)
 
 
 def _greek_cuda_partials(ops: GreekOperands, seed, block_offset, plan,

@@ -1,6 +1,7 @@
 """Closed-form financial math on tensors (counterpart of :mod:`mctpu.math`).
 
-The oracles (Black-Scholes, the CVA closed forms) and the host-side setup
+The oracles (Black-Scholes, the CVA, geometric-Asian and barrier closed
+forms) and the host-side setup
 (Cholesky, default-leg weights) run in float64 — the port's ``wide_dtype``
 is always float64, as ``mctpu`` under x64.  ``norm_cdf_hastings`` is the
 kernels' CDF and runs in the dtype it is given.
@@ -21,6 +22,9 @@ __all__ = [
     "default_leg_weights",
     "cva_closed_form",
     "cva_portfolio_closed_form",
+    "geometric_asian_call",
+    "up_and_out_call",
+    "barrier_continuity_correction",
 ]
 
 
@@ -31,6 +35,13 @@ def wide_dtype() -> torch.dtype:
 
 def _t(x, dtype=torch.float64) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float64), dtype=dtype)
+
+
+def _wide(x) -> torch.Tensor:
+    """``x`` as float64; a tensor stays in its autograd graph."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64)
+    return _t(x)
 
 
 # Hastings polynomial (Abramowitz & Stegun 26.2.17), the reference's `cnd`.
@@ -149,3 +160,59 @@ def cva_portfolio_closed_form(intensity, lgd, s, r, v, t, strikes, weights,
                          "(netting may bind otherwise)")
     c0 = torch.sum(_t(weights) * bs_call(s, strikes, r, v, t))
     return _t(lgd) * c0 * _cva_node_factor(intensity, r, t, n_grid)
+
+
+def geometric_asian_call(s, k, r, v, t, n_obs: int) -> torch.Tensor:
+    """Exact price of the discretely monitored geometric-average Asian call
+    in float64: over ``t_i = i T / m`` the log of the geometric mean is
+    normal with mean ``log s + (r - v^2/2) T (m+1) / (2m)`` and variance
+    ``v^2 T (m+1)(2m+1) / (6 m^2)``.  Differentiable by autograd in every
+    tensor argument."""
+    s, k, r, v, t = (_wide(x) for x in (s, k, r, v, t))
+    m = n_obs
+    mu_g = torch.log(s) + (r - 0.5 * v * v) * t * (m + 1) / (2 * m)
+    var_g = v * v * t * (m + 1) * (2 * m + 1) / (6 * m * m)
+    sd = torch.sqrt(var_g)
+    d1 = (mu_g - torch.log(k) + var_g) / sd
+    d2 = d1 - sd
+    fwd_g = torch.exp(mu_g + 0.5 * var_g)
+    return torch.exp(-r * t) * (fwd_g * norm_cdf(d1) - k * norm_cdf(d2))
+
+
+def up_and_out_call(s, k, r, v, t, barrier) -> torch.Tensor:
+    """Continuously monitored up-and-out call (Reiner-Rubinstein) in
+    float64: the vanilla call less the up-and-in call; 0 where ``s`` or
+    ``k`` is at or above the barrier.  Differentiable by autograd."""
+    s, k, r, v, t, b = (_wide(x) for x in (s, k, r, v, t, barrier))
+    sq = v * torch.sqrt(t)
+    lam = (r + 0.5 * v * v) / (v * v)
+    x = torch.log(s / k) / sq + lam * sq
+    x1 = torch.log(s / b) / sq + lam * sq
+    y = torch.log(b * b / (s * k)) / sq + lam * sq
+    y1 = torch.log(b / s) / sq + lam * sq
+    disc = torch.exp(-r * t)
+    pow1 = (b / s) ** (2 * lam)
+    pow2 = (b / s) ** (2 * lam - 2)
+    price = (
+        s * (norm_cdf(x) - norm_cdf(x1))
+        - k * disc * (norm_cdf(x - sq) - norm_cdf(x1 - sq))
+        + s * pow1 * (norm_cdf(-y) - norm_cdf(-y1))
+        - k * disc * pow2 * (norm_cdf(-y + sq) - norm_cdf(-y1 + sq))
+    )
+    zero = torch.zeros_like(price)
+    price = torch.where(s >= b, zero, price)
+    price = torch.where(k >= b, zero, price)
+    return torch.clamp(price, min=0.0)
+
+
+def barrier_continuity_correction(barrier, s, v, t, n_obs: int,
+                                  up: bool = True) -> torch.Tensor:
+    """Broadie-Glasserman-Kou effective barrier of a walk monitored at
+    ``n_obs`` dates: ``barrier * exp(+-beta v sqrt(T / n_obs))`` with
+    ``beta = zeta(1/2) / sqrt(2 pi)``, float64.  ``s`` does not enter;
+    it is kept so calls read as ``mctpu.math``'s."""
+    del s
+    beta = 0.5825971579390106
+    dt = _wide(t) / n_obs
+    shift = torch.exp((beta if up else -beta) * _wide(v) * torch.sqrt(dt))
+    return _wide(barrier) * shift

@@ -1,6 +1,6 @@
 """Product and result records of the PyTorch/CUDA port.
 
-Counterpart of :mod:`mctpu.types` for the main-path products.  The records
+Counterpart of :mod:`mctpu.types` for the products the port has.  The records
 are frozen dataclasses holding Python floats (scalars) and NumPy arrays
 (vectors, matrices); the engine turns them into device tensors when it
 builds a kernel's operands.  Results hold 0-d float64 tensors on the CPU.
@@ -24,6 +24,8 @@ __all__ = [
     "BasketOption",
     "CvaSpec",
     "CvaPortfolioSpec",
+    "AsianOption",
+    "BarrierOption",
     "McResult",
     "CvaResult",
     "GreeksResult",
@@ -246,6 +248,71 @@ class CvaPortfolioSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class AsianOption:
+    """Discretely monitored average-price (Asian) call: the average runs
+    over ``n_obs`` equally spaced dates ``t_i = i T / n_obs`` (i = 1..n_obs),
+    ``average`` is ``"arithmetic"`` or ``"geometric"`` (the geometric one
+    has the exact closed form :func:`mctpu_torch.math.geometric_asian_call`).
+    """
+
+    s: float
+    k: float
+    r: float
+    v: float
+    t: float
+    n_obs: int = 50
+    average: str = "arithmetic"
+
+    def validate(self) -> None:
+        if self.average not in ("arithmetic", "geometric"):
+            raise ValueError("average must be 'arithmetic' or 'geometric'")
+        if self.n_obs < 1:
+            raise ValueError("n_obs must be >= 1")
+        if not (float(self.s) > 0 and float(self.k) > 0):
+            raise ValueError("spot and strike must be positive")
+        if float(self.v) < 0:
+            raise ValueError("volatility must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class BarrierOption:
+    """Discretely monitored knock-out barrier call: ``"up-and-out"`` dies
+    when the spot touches or exceeds ``barrier`` at any of the ``n_obs``
+    dates, ``"down-and-out"`` when it touches or falls below it."""
+
+    s: float
+    k: float
+    r: float
+    v: float
+    t: float
+    barrier: float
+    n_obs: int = 50
+    kind: str = "up-and-out"
+
+    def validate(self) -> None:
+        if self.kind not in ("up-and-out", "down-and-out"):
+            raise ValueError("kind must be 'up-and-out' or 'down-and-out'")
+        if self.n_obs < 1:
+            raise ValueError("n_obs must be >= 1")
+        if not (float(self.s) > 0 and float(self.k) > 0):
+            raise ValueError("spot and strike must be positive")
+        if float(self.barrier) <= 0:
+            raise ValueError("barrier must be positive")
+        if self.kind == "up-and-out" and float(self.s) >= float(self.barrier):
+            raise ValueError("up-and-out option is already knocked out "
+                             "(spot >= barrier)")
+        if self.kind == "down-and-out" and float(self.s) <= float(self.barrier):
+            raise ValueError("down-and-out option is already knocked out "
+                             "(spot <= barrier)")
+        if float(self.v) < 0:
+            raise ValueError("volatility must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
 class McResult:
     """Monte Carlo estimate: ``price``, ``std_error`` and the 95% half-width
     ``ci`` in discounted units; raw undiscounted ``sum_p``/``sum_p2``; ``n``
@@ -345,7 +412,8 @@ class CvaGreeksResult:
 
 
 _RECORDS = {cls.__name__: cls for cls in
-            (VanillaOption, BasketOption, CvaSpec, CvaPortfolioSpec)}
+            (VanillaOption, BasketOption, CvaSpec, CvaPortfolioSpec,
+             AsianOption, BarrierOption)}
 
 
 def _carry(value):
@@ -362,7 +430,8 @@ def from_reference(obj):
 
     Matches by class name and field names; every numeric field is read
     through ``np.asarray`` (scalars become Python floats, vectors float64
-    arrays), ``n_grid`` stays an int and ``kind`` a string.
+    arrays), except the fields the port's record declares ``int``
+    (``n_grid``, ``n_obs``), which stay ints; strings stay strings.
     """
     if isinstance(obj, enum.Enum):
         return Precision(obj.value)
@@ -372,5 +441,5 @@ def from_reference(obj):
     kwargs = {}
     for f in dataclasses.fields(cls):
         value = getattr(obj, f.name)
-        kwargs[f.name] = int(value) if f.name == "n_grid" else _carry(value)
+        kwargs[f.name] = int(value) if f.type == "int" else _carry(value)
     return cls(**kwargs)

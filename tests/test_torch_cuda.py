@@ -22,13 +22,15 @@ import pytest
 import torch
 
 from mctpu_torch import _build
+from mctpu_torch.kernels import asian as kasian
+from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.math import cholesky_lower
-from mctpu_torch.types import (BasketOption, CvaPortfolioSpec, CvaSpec,
-                               VanillaOption)
+from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
+                               CvaPortfolioSpec, CvaSpec, VanillaOption)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -216,6 +218,50 @@ def test_cva_greeks_kernel_matches_plain(dev, case):
         units=_units(plan), rtol=1e-4 if wwr else RTOL)
 
 
+# The single-asset walks at the medium plan's odd date count (n_obs=13, the
+# trailing half pair), and at n_obs=1.
+_WALK_CASES = {
+    # name: (n_obs, flag, antithetic, kahan); flag = geometric / up-and-out
+    "n13": (13, False, False, True),
+    "n13_flag": (13, True, False, True),
+    "n13_antithetic": (13, False, True, True),
+    "n13_flag_antithetic_f32": (13, True, True, False),
+    "n1": (1, False, False, True),
+}
+
+
+def _asian(n_obs, geometric):
+    return AsianOption(100., 100., 0.05, 0.2, 1., n_obs=n_obs,
+                       average="geometric" if geometric else "arithmetic")
+
+
+def _barrier(n_obs, up):
+    return BarrierOption(100., 100., 0.05, 0.2, 1., 130. if up else 80.,
+                         n_obs=n_obs,
+                         kind="up-and-out" if up else "down-and-out")
+
+
+@pytest.mark.parametrize("case", sorted(_WALK_CASES))
+@pytest.mark.parametrize("product", ["asian", "barrier"])
+def test_walk_kernels_match_plain(dev, product, case):
+    n_obs, flag, antithetic, kahan = _WALK_CASES[case]
+    kmod, opt = ((kasian, _asian(n_obs, flag)) if product == "asian"
+                 else (kbarrier, _barrier(n_obs, flag)))
+    plan = kmod.make_plan(2 * NB * 32 * 128, NB, 32, antithetic, kahan)
+    par = kmod.params(opt, dev)
+    _contract(
+        lambda off, nb: kmod.partials(par, SEED, off, plan, nb, n_obs, flag),
+        lambda off, nb: kmod.plain_partials(par, SEED, off, plan, nb, n_obs,
+                                            flag))
+    gp = kmod.greek_params(opt, dev)
+    _contract(
+        lambda off, nb: kmod.greek_partials(gp, SEED, off, plan, nb, n_obs,
+                                            flag),
+        lambda off, nb: kmod.greek_plain_partials(gp, SEED, off, plan, nb,
+                                                  n_obs, flag),
+        units=_units(plan))
+
+
 def test_launch_counters_count_kernel_launches(dev):
     par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
     plan = kvanilla.make_plan(1, 2, 8, False)
@@ -228,6 +274,18 @@ def test_launch_counters_count_kernel_launches(dev):
     kgreeks.partials(par, 1, 0, plan, 2, False)
     kgreeks.plain_partials(par, 1, 0, plan, 2, False)
     assert kgreeks.LAUNCHES["greeks_vanilla"] == before + 1
+    wplan = kasian.make_plan(1, 2, 8, False)
+    for kmod, name, opt in ((kasian, "asian", _asian(3, True)),
+                            (kbarrier, "barrier", _barrier(3, True))):
+        for fn, plain, make, key in (
+                (kmod.partials, kmod.plain_partials, kmod.params, name),
+                (kmod.greek_partials, kmod.greek_plain_partials,
+                 kmod.greek_params, name + "_greeks")):
+            par = make(opt, dev)
+            before = kmod.LAUNCHES[key]
+            fn(par, 1, 0, wplan, 2, 3, True)
+            plain(par, 1, 0, wplan, 2, 3, True)
+            assert kmod.LAUNCHES[key] == before + 1, key
 
 
 def test_bad_operands_raise(dev):
@@ -240,3 +298,8 @@ def test_bad_operands_raise(dev):
     gpar = kgreeks.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
     with pytest.raises(ValueError):
         kgreeks.partials(gpar[:4], 1, 0, plan, 2, False)
+    apar = kasian.params(AsianOption(100., 100., 0.05, 0.2, 1.), dev)
+    with pytest.raises(ValueError):
+        kasian.partials(apar, 1, 0, plan, 2, 0, False)
+    with pytest.raises(ValueError):
+        kbarrier.greek_partials(apar, 1, 0, plan, 2, 4, True)

@@ -7,6 +7,7 @@ records carried across by ``from_reference``.  Path counts must be equal;
 prices, standard errors and the exposure profile agree at ``rtol=2e-5``
 (same draws; other summation orders and libm within an ulp).
 """
+import dataclasses
 import subprocess
 import sys
 
@@ -88,6 +89,21 @@ def test_from_reference_carries_records():
     np.testing.assert_array_equal(
         b.corr, jtypes.BasketOption.default_reference(3).corr)
     assert from_reference(jtypes.Precision.F32_DS) is Precision.F32_DS
+
+
+@pytest.mark.parametrize("opt", [
+    jtypes.AsianOption(100.0, 95.0, 0.05, 0.2, 1.0, n_obs=50,
+                       average="geometric"),
+    jtypes.BarrierOption(100.0, 95.0, 0.05, 0.2, 1.0, barrier=80.0,
+                         n_obs=13, kind="down-and-out")],
+    ids=["asian", "barrier"])
+def test_from_reference_keeps_int_fields(opt):
+    got = from_reference(opt)
+    assert type(got).__name__ == type(opt).__name__
+    assert type(got.n_obs) is int
+    for f in dataclasses.fields(opt):
+        assert getattr(got, f.name) == getattr(opt, f.name), f.name
+    assert isinstance(got.s, float)
 
 
 def test_import_does_not_load_jax():
