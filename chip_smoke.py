@@ -9,14 +9,15 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the twelve kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the sixteen kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
-   card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian and
-   barrier walks at an odd n_obs=13): equal at rtol 2e-5 (the Greek
-   kernels' (sum x, sum x^2) pairs by the scaled bound
-   rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block, because a
-   Greek's block sum can nearly cancel; rtol 1e-4 under wrong-way risk),
+   card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
+   barrier, lookback and cliquet walks at an odd step count of 13): equal
+   at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
+   bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
+   because a Greek's block sum can nearly cancel; rtol 1e-4 under
+   wrong-way risk),
    two launches bitwise equal, block offsets bitwise;
 4. main paths, each with the launch counters set to 0 just before it and
    read just after: the pricing path (``mctpu_torch.price_*`` with the
@@ -30,11 +31,17 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    barrier calls at n_obs=50 and 2^22 paths: prices against the geometric
    closed form, Black-Scholes limits and the BGK-corrected barrier
    formula; Greeks against autograd of the geometric closed form and CRN
-   bumps of the pricers);
+   bumps of the pricers) and the lookback/cliquet path (lookbacks at
+   n_obs=50 and 2^22 paths against a float64 NumPy oracle, the
+   Goldman-Sosin-Gatto bound and Black-Scholes; their Greeks against the
+   homogeneity identity and CRN bumps; cliquets at 2^24 paths against the
+   exact closed form, their Greeks against its autograd);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
-   the line).
+   the line), beside the least time the card could take for the same
+   work (``bound_ms``: instruction counts over the peak rate of their
+   class, see ``PEAK_OPS``).
 
 The last two lines of output are a JSON line of per-kernel results and the
 line ``{"ok": true, "device": {...}}``.  Imports nothing of jax or mctpu.
@@ -62,6 +69,81 @@ PRICE_KERNELS = ("vanilla", "basket_am", "basket_packed", "cva")
 GREEK_KERNELS = ("greeks_vanilla", "greeks_basket_am", "greeks_basket_packed",
                  "cva_greeks")
 EXOTIC_KERNELS = ("asian", "asian_greeks", "barrier", "barrier_greeks")
+LOOKBACK_KERNELS = ("lookback", "lookback_greeks")
+CLIQUET_KERNELS = ("cliquet", "cliquet_greeks")
+
+# ---- the bound of phase 6 ---------------------------------------------------
+# Peak instruction rates of one H100 SXM at 700 W: 132 SMs at the clock its
+# published 67 TFLOP/s float32 implies (an FFMA counts two flops), with the
+# rates per clock per SM of the CUDA C++ Programming Guide's arithmetic-
+# instruction throughput table for compute capability 9.0: float32 add,
+# multiply, FMA, compare and min/max 128; 32-bit integer multiply-add,
+# logic and shift 64; the special-function unit (rcp, rsqrt, lg2, ex2) 16.
+PEAK_OPS = {"int32": 67e12 / 4, "f32": 67e12 / 2, "sfu": 67e12 / 16}
+PEAK_BYTES = 3.35e12  # HBM3, bytes/s
+# Instructions (int32, f32, sfu) of one unit of work, the least the
+# arithmetic needs: a Philox-4x32-10 block is 10 rounds of two 32x32->64
+# multiplies and two 3-input XORs (the round keys hoisted); a Box-Muller
+# pair is logf and sqrtf on the SFU, the sin/cos polynomials and the bit
+# moves; expf and an IEEE divide are one SFU instruction and their float32
+# range reduction or refinement.  Every other multiply, add, compare or
+# select counts one float32 instruction.
+UNIT_OPS = {"philox": (40, 0, 0), "box_muller": (8, 16, 2),
+            "expf": (0, 3, 1), "div": (0, 4, 1), "f32": (0, 1, 0)}
+
+
+def work(draws=0.0, expf=0.0, div=0.0, f32=0.0):
+    """``(int32, f32, sfu)`` instruction counts of a run that computes
+    ``draws`` normals (a Philox block and a Box-Muller pair per two),
+    ``expf`` exponentials, ``div`` IEEE divides and ``f32`` further float32
+    operations."""
+    counts = {"philox": draws / 2, "box_muller": draws / 2, "expf": expf,
+              "div": div, "f32": f32}
+    return tuple(sum(n * UNIT_OPS[u][c] for u, n in counts.items())
+                 for c in range(3))
+
+
+# The walk kernels (K4, K5, K9, K10, K12, K13, K15-K18) beyond their draws,
+# counted from their sources: (expf per step, expf per path, IEEE divides
+# per step, per path, float32 operations per step, per path, and per
+# estimator unit for its sums: Acc2's compensated pair, or BlockAccN's
+# plain (x, x^2) adds).  K4 and K5 reprice one option with two Hastings
+# CDFs (an expf, a divide and a 5-term polynomial each) per node.
+WALK_OPS = {
+    "cva": (3, 0, 2, 0, 46, 0, 0),
+    "cva_greeks": (3, 0, 2, 0, 100, 0, 21),
+    "asian": (1, 0, 0, 1, 5, 2, 11),
+    "asian_greeks": (1, 0, 0, 3, 16, 30, 15),
+    "barrier": (0, 1, 0, 0, 6, 2, 11),
+    "barrier_greeks": (0, 1, 0, 0, 10, 10, 12),
+    "lookback": (0, 2, 0, 0, 5, 3, 11),
+    "lookback_greeks": (0, 2, 0, 1, 14, 12, 12),
+    "cliquet": (1, 0, 0, 0, 7, 0, 11),
+    "cliquet_greeks": (1, 0, 0, 0, 19, 6, 12),
+}
+
+
+def walk_work(kname: str, plan, steps: int):
+    """Instruction counts of a walk kernel's run: every path draws a
+    Philox block and a Box-Muller pair per two steps (an odd count draws a
+    whole pair for its last step)."""
+    e_s, e_p, d_s, d_p, f_s, f_p, f_u = WALK_OPS[kname]
+    p, u = plan.total_paths, plan.total_units
+    return work(draws=p * 2 * -(-steps // 2), expf=p * (e_s * steps + e_p),
+                div=p * (d_s * steps + d_p),
+                f32=p * (f_s * steps + f_p) + u * f_u)
+
+
+def bound(ops, nbytes):
+    """``(bound_ms, bound_by, class)``: the larger of the instruction time
+    of the slowest class and the byte time (each input read once, each
+    output written once)."""
+    times = {c: n / PEAK_OPS[c] for c, n in zip(PEAK_OPS, ops)}
+    cls = max(times, key=times.get)
+    t_bytes = nbytes / PEAK_BYTES
+    if t_bytes > times[cls]:
+        return t_bytes * 1e3, "bytes", "bytes"
+    return times[cls] * 1e3, "operations", cls
 
 
 def phase(name: str, msg: str) -> None:
@@ -116,13 +198,26 @@ def crn_gate(got, se, fd, what: str) -> float:
     return abs(got - fd) / se
 
 
+def walk_args(kmod, opt) -> tuple:
+    """The trailing arguments of a single-asset walk kernel's wrappers:
+    the step count and, but for the cliquet, the static variant."""
+    name = type(opt).__name__
+    if name == "CliquetOption":
+        return (opt.n_periods,)
+    if name == "LookbackOption":
+        return opt.n_obs, kmod.mode_of(opt)
+    if name == "AsianOption":
+        return opt.n_obs, opt.average == "geometric"
+    return opt.n_obs, opt.kind == "up-and-out"
+
+
 def walk_launchers(kmod, opt, greek: bool, dev):
     """Bound ``(kernel, plain)`` callables ``(block_offset, n_blocks,
     plan)`` of a single-asset walk kernel (``kmod`` is
-    ``mctpu_torch.kernels.asian`` or ``.barrier``) on ``opt``: the Greeks
-    kernel if ``greek``, on scalars formed on ``dev``."""
-    flag = (opt.average == "geometric" if hasattr(opt, "average")
-            else opt.kind == "up-and-out")
+    ``mctpu_torch.kernels.asian``, ``.barrier``, ``.lookback`` or
+    ``.cliquet``) on ``opt``: the Greeks kernel if ``greek``, on scalars
+    formed on ``dev``."""
+    args = walk_args(kmod, opt)
     if greek:
         par = kmod.greek_params(opt, dev)
         fn, plain = kmod.greek_partials, kmod.greek_plain_partials
@@ -130,8 +225,7 @@ def walk_launchers(kmod, opt, greek: bool, dev):
         par = kmod.params(opt, dev)
         fn, plain = kmod.partials, kmod.plain_partials
     return tuple(
-        (lambda off, n, plan, f=f: f(par, SEED, off, plan, n, opt.n_obs,
-                                     flag))
+        (lambda off, n, plan, f=f: f(par, SEED, off, plan, n, *args))
         for f in (fn, plain))
 
 
@@ -421,6 +515,182 @@ def exotic_path(mt, mcmath) -> None:
           + f"; price vs price_barrier rel {rel_b:.1e}")
 
 
+def lookback_oracle(opt, n_paths: int, seed: int):
+    """``(price, std_error)`` of a lookback option from a float64 NumPy walk
+    with its own generator (the JAX package's ``reference.price_lookback``,
+    copied so that this script imports nothing of it)."""
+    rng = np.random.default_rng(seed)
+    s0, r, v, t = (float(x) for x in (opt.s, opt.r, opt.v, opt.t))
+    k, g = float(opt.k), int(opt.n_obs)
+    dt = t / g
+    drift = (r - 0.5 * v * v) * dt
+    vol = v * np.sqrt(dt)
+    s = np.full(n_paths, s0)
+    ext = np.full(n_paths, s0)
+    use_min = (opt.kind == "floating") != (opt.payoff == "put")
+    for _ in range(g):
+        s = s * np.exp(drift + vol * rng.standard_normal(n_paths))
+        ext = np.minimum(ext, s) if use_min else np.maximum(ext, s)
+    if opt.kind == "floating":
+        pay = (ext - s) if opt.payoff == "put" else (s - ext)
+    elif opt.payoff == "put":
+        pay = np.maximum(k - ext, 0.0)
+    else:
+        pay = np.maximum(ext - k, 0.0)
+    disc = math.exp(-r * t)
+    return disc * pay.mean(), disc * pay.std(ddof=1) / math.sqrt(n_paths)
+
+
+def lookback_cliquet_path(mt, mcmath) -> None:
+    """The lookback and cliquet path at full width through
+    ``price_lookback``, ``price_cliquet`` and ``mctpu_torch.greeks`` with the
+    default EngineConfig: lookbacks at n_obs=50 and 2^22 paths (128 blocks
+    x 256 rows), cliquets at 12 periods and 2^24 paths (512 blocks x 256
+    rows, the whole grid), each output against its oracle."""
+    from mctpu_torch.types import CliquetOption, LookbackOption
+
+    n = 1 << 22
+    s, r, v, t = 100.0, 0.05, 0.2, 1.0
+    fl = LookbackOption(s, r, v, t, n_obs=50)
+    gsg = float(mcmath.lookback_floating_call(s, r, v, t))
+
+    def same_price(got, want, what):
+        got, want = float(got), float(want)
+        check(abs(got - want) <= 1e-6 * abs(want),
+              f"{what}: Greeks price {got:.7f} vs pricer {want:.7f}")
+        return abs(got / want - 1)
+
+    # Prices (K15) against the float64 oracle, its own 2^21 paths.
+    zs = {}
+    for label, opt in (("floating call", fl),
+                       ("floating put", dataclasses.replace(fl,
+                                                            payoff="put")),
+                       ("fixed put k=100", dataclasses.replace(
+                           fl, kind="fixed", payoff="put", k=100.0))):
+        res = mt.price_lookback(opt, n, SEED)
+        want, se_o = lookback_oracle(opt, 1 << 21, SEED)
+        zs[label] = within_sigma(res.price, want,
+                                 math.hypot(float(res.std_error), se_o),
+                                 f"lookback {label} vs oracle")
+        if opt is fl:
+            pf = float(res.price)
+    check(pf < gsg, f"floating call {pf:.6f} not below GSG {gsg:.6f}")
+    sweep = [float(mt.price_lookback(dataclasses.replace(fl, n_obs=m), n,
+                                     SEED).price) for m in (12, 50, 250)]
+    check(sweep[0] < sweep[1] < sweep[2] < gsg,
+          f"floating call over n_obs 12/50/250 {sweep} not rising below "
+          f"GSG {gsg:.6f}")
+    fc = mt.price_lookback(dataclasses.replace(fl, kind="fixed", k=100.0), n,
+                           SEED)
+    bs = float(mcmath.bs_call(s, 100.0, r, v, t))
+    check(float(fc.price) > bs + 3 * float(fc.std_error),
+          f"fixed call k=100 {float(fc.price):.6f} not above BS {bs:.6f} + "
+          "3 se")
+    phase("lookback-path", "lookback 2^22 n_obs=50 (K15) vs float64 oracle: "
+          + ", ".join(f"{k} z={z:.2f}" for k, z in zs.items())
+          + f"; floating call {pf:.6f} < GSG {gsg:.6f}; n_obs 12/50/250 "
+          f"{sweep[0]:.4f} < {sweep[1]:.4f} < {sweep[2]:.4f}; fixed call "
+          f"{float(fc.price):.6f} > BS {bs:.6f}")
+
+    # Greeks (K16) at v=0.25: homogeneity, CRN equality with the pricer,
+    # and CRN bumps of price_lookback (fixed strikes off the atom at s0).
+    vg = 0.25
+    for n_obs in (16, 50):
+        base = LookbackOption(s, r, vg, t, n_obs=n_obs)
+        g = mt.greeks(base, n, SEED)
+        ratio = float(g.delta.price) / (float(g.price.price) / s)
+        check(abs(ratio - 1) <= 1e-5,
+              f"floating delta {float(g.delta.price):.7f} vs price / s0 at "
+              f"n_obs={n_obs}")
+        rel = same_price(g.price.price, mt.price_lookback(base, n,
+                                                          SEED).price,
+                         f"lookback n_obs={n_obs}")
+        phase("lookback-path", f"floating call Greeks n_obs={n_obs} (K16): "
+              f"delta / (price / s0) - 1 = {ratio - 1:.1e}; price vs "
+              f"price_lookback rel {rel:.1e}")
+
+    def fd(opt, field, h):
+        def price(x):
+            return float(mt.price_lookback(
+                dataclasses.replace(opt, **{field: x}), n, SEED).price)
+
+        x0 = getattr(opt, field)
+        return (price(x0 + h) - price(x0 - h)) / (2 * h)
+
+    modes = (("floating call", "floating", "call", 0.0),
+             ("floating put", "floating", "put", 0.0),
+             ("fixed call k=105", "fixed", "call", 105.0),
+             ("fixed put k=95", "fixed", "put", 95.0))
+    for label, kind, payoff, k in modes:
+        opt = LookbackOption(s, r, vg, t, k=k, n_obs=16, kind=kind,
+                             payoff=payoff)
+        g = mt.greeks(opt, n, SEED)
+        same_price(g.price.price, mt.price_lookback(opt, n, SEED).price,
+                   f"lookback {label}")
+        gz = {"rho": crn_gate(g.rho.price, g.rho.std_error,
+                              fd(opt, "r", 1e-3), f"lookback {label} rho")}
+        if kind == "fixed":
+            for f, h in (("delta", ("s", 0.5)), ("vega", ("v", 5e-3))):
+                gz[f] = crn_gate(getattr(g, f).price,
+                                 getattr(g, f).std_error, fd(opt, *h),
+                                 f"lookback {label} {f}")
+        phase("lookback-path", f"{label} Greeks n_obs=16 2^22 (K16) vs CRN "
+              "bumps: " + ", ".join(f"{f} |z|={z:.2f}"
+                                    for f, z in gz.items()))
+
+    # Cliquet prices (K17) against the exact closed form.
+    nc = 1 << 24
+    cq = CliquetOption(100.0, 0.03, 0.2, 1.0, n_periods=12, cap=0.05,
+                       floor=-0.02)
+
+    def closed(opt):
+        return float(mcmath.cliquet_closed_form(opt.r, opt.v, opt.t,
+                                                opt.n_periods, opt.cap,
+                                                opt.floor))
+
+    cf = closed(cq)
+    pc = mt.price_cliquet(cq, nc, SEED)
+    z0 = within_sigma(pc.price, cf, pc.std_error, "cliquet")
+    pa = mt.price_cliquet(cq, nc, SEED, mt.EngineConfig(antithetic=True))
+    za = within_sigma(pa.price, cf, pa.std_error, "cliquet antithetic")
+    zs = []
+    for n_p, cap, floor in ((1, 0.10, -0.10), (4, 0.03, 0.0),
+                            (52, 0.02, -0.01)):
+        o = dataclasses.replace(cq, n_periods=n_p, cap=cap, floor=floor)
+        res = mt.price_cliquet(o, n, SEED)
+        zs.append(within_sigma(res.price, closed(o), res.std_error,
+                               f"cliquet n={n_p} cap={cap} floor={floor}"))
+    tight = mt.price_cliquet(dataclasses.replace(cq, cap=0.02 + 1e-6,
+                                                 floor=0.02), nc, SEED)
+    pin = math.exp(-0.03) * 12 * 0.02
+    check(abs(float(tight.price) / pin - 1) <= 1e-4,
+          f"cliquet tight band {float(tight.price):.7f} vs {pin:.7f}")
+    phase("cliquet-path", f"cliquet 2^24 n=12 (K17): {float(pc.price):.6f} "
+          f"(closed form {cf:.6f}, z={z0:.2f}); antithetic z={za:.2f}; "
+          f"sweep at 2^22 max |z| {max(zs):.2f}; tight band "
+          f"{float(tight.price):.7f} vs e^-rT 12 floor {pin:.7f}")
+
+    # Cliquet Greeks (K18) against autograd of the closed form.
+    g = mt.greeks(cq, nc, SEED)
+    xs = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
+          for x in (cq.v, cq.r, cq.t)]
+    vv, rr, tt = xs
+    grads = torch.autograd.grad(mcmath.cliquet_closed_form(
+        rr, vv, tt, 12, cq.cap, cq.floor), xs)
+    zs = {f: within_sigma(getattr(g, f).price, float(w),
+                          getattr(g, f).std_error, f"cliquet {f}")
+          for f, w in zip(("vega", "rho", "theta"), grads)}
+    for f in ("delta", "gamma"):
+        res = getattr(g, f)
+        check(float(res.price) == 0.0 and float(res.std_error) == 0.0,
+              f"cliquet {f} is not an exact 0 +- 0")
+    rel = same_price(g.price.price, pc.price, "cliquet")
+    phase("cliquet-path", "cliquet Greeks 2^24 (K18) vs autograd of the "
+          "closed form: z " + ", ".join(f"{f}={z:.2f}" for f, z in zs.items())
+          + f"; delta and gamma exact 0 +- 0; price vs price_cliquet rel "
+          f"{rel:.1e}")
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -435,13 +705,15 @@ def main() -> int:
     from mctpu_torch.kernels import asian as kasian
     from mctpu_torch.kernels import barrier as kbarrier
     from mctpu_torch.kernels import basket as kbasket
+    from mctpu_torch.kernels import cliquet as kcliquet
     from mctpu_torch.kernels import cva as kcva
     from mctpu_torch.kernels import greeks as kgreeks
+    from mctpu_torch.kernels import lookback as klookback
     from mctpu_torch.kernels import vanilla as kvanilla
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
     from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                                   CvaPortfolioSpec, CvaSpec, Precision,
-                                   VanillaOption)
+                                   CliquetOption, CvaPortfolioSpec, CvaSpec,
+                                   LookbackOption, Precision, VanillaOption)
 
     check(Path(mctpu_torch.__file__).resolve().is_relative_to(ROOT),
           f"mctpu_torch imported from {mctpu_torch.__file__}, not this "
@@ -616,10 +888,35 @@ def main() -> int:
             contract(label, lambda off, n: fn(off, n, plan),
                      lambda off, n: plain(off, n, plan),
                      units=units(plan) if greek else None)
+    # The lookback in every mode (fixed strikes off the atom at s0) and the
+    # cliquet, at the same odd step count.
+    lb13 = LookbackOption(100.0, 0.05, 0.2, 1.0, n_obs=n_obs)
+    cq13 = CliquetOption(100.0, 0.03, 0.2, 1.0, n_periods=n_obs, cap=0.05,
+                         floor=-0.02)
+    for greek, k_lb, k_cq in ((False, 15, 17), (True, 16, 18)):
+        for label, kmod, wopt, anti in (
+                (f"K{k_lb} floating call", klookback, lb13, False),
+                (f"K{k_lb} floating put", klookback,
+                 dataclasses.replace(lb13, payoff="put"), False),
+                (f"K{k_lb} fixed call k=105", klookback,
+                 dataclasses.replace(lb13, kind="fixed", k=105.0), False),
+                (f"K{k_lb} fixed put k=95", klookback,
+                 dataclasses.replace(lb13, kind="fixed", payoff="put",
+                                     k=95.0), False),
+                (f"K{k_lb} floating call antithetic", klookback, lb13, True),
+                (f"K{k_cq} cliquet", kcliquet, cq13, False),
+                (f"K{k_cq} cliquet antithetic", kcliquet, cq13, True)):
+            plan = kmod.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                                  nb, rows, anti)
+            fn, plain = walk_launchers(kmod, wopt, greek, dev)
+            contract(label, lambda off, n: fn(off, n, plan),
+                     lambda off, n: plain(off, n, plan),
+                     units=units(plan) if greek else None)
 
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
-                kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES)
+                kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
+                klookback.LAUNCHES, kcliquet.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -720,9 +1017,19 @@ def main() -> int:
     launches.update(read_counts(EXOTIC_KERNELS))
     phase("exotic-path", f"done in {time.perf_counter() - t_exotic:.1f} s")
 
+    # ---- 4d. the lookback/cliquet path at full width -----------------------
+    reset_counts()
+    t_lc = time.perf_counter()
+    lookback_cliquet_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(LOOKBACK_KERNELS + CLIQUET_KERNELS))
+    phase("lookback-cliquet-path",
+          f"done in {time.perf_counter() - t_lc:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
-    check(all(launches.get(k, 0) > 0
-              for k in PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS),
+    all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
+                   + LOOKBACK_KERNELS + CLIQUET_KERNELS)
+    check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
 
@@ -765,9 +1072,12 @@ def main() -> int:
         return torch.cat(vals)
 
     def timed(kname, source, replaces, plan, steps, disc, kernel, plain,
-              units=None, fold=None, plain_reps=5, rtol=RTOL):
+              ops, in_bytes=64, units=None, fold=None, plain_reps=5,
+              rtol=RTOL):
         """``units`` per block given: Greek partials (scaled pair bound,
-        every output's estimate in max_abs_err)."""
+        every output's estimate in max_abs_err).  ``ops`` are the run's
+        instruction counts (:func:`work`), ``in_bytes`` its operands'
+        bytes."""
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -787,13 +1097,23 @@ def main() -> int:
         ms, plain_ms = median_ms(kernel), median_ms(plain, plain_reps)
         rate = plan.total_paths * steps / (ms * 1e-3)
         unit = "path-steps/s" if steps > 1 else "paths/s"
+        bound_ms, bound_by, cls = bound(
+            ops, in_bytes + sum(g.numel() * g.element_size() for g in got))
         phase("times", f"{kname}: kernel {ms:.3f} ms ({rate:.4g} {unit}), "
                        f"plain {plain_ms:.3f} ms (median of {plain_reps}), "
                        f"{plan.num_blocks} blocks x {plan.iters} iters x rows "
-                       f"{plan.rows}; max_abs_err {err:.3e}; [{smi}]")
+                       f"{plan.rows}; bound {bound_ms:.4f} ms ({cls}; "
+                       f"int32/f32/sfu {ops[0]:.3e}/{ops[1]:.3e}/"
+                       f"{ops[2]:.3e}), {bound_ms / ms:.0%} of it reached; "
+                       f"max_abs_err {err:.3e}; [{smi}]")
+        # library_ms: no one PyTorch call computes any of these kernels'
+        # functions (an in-kernel counter-based stream feeding per-block
+        # compensated sums).
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
 
     plan, par = engine.vanilla_setup(opt, n_van, cfg)
     timed("vanilla", "mctpu_torch/csrc/vanilla.cu",
@@ -801,17 +1121,30 @@ def main() -> int:
           lambda: kvanilla.partials(par, SEED, 0, plan, plan.num_blocks,
                                     False),
           lambda: kvanilla.plain_partials(par, SEED, 0, plan,
-                                          plan.num_blocks, False))
+                                          plan.num_blocks, False),
+          work(draws=plan.total_paths, expf=plan.total_paths,
+               f32=6 * plan.total_paths + 11 * plan.total_units))
+
+    def basket_work(plan, a, per_asset, per_path, per_unit):
+        """K2/K3 (K7/K8): a normals, a expf and the lower-triangular
+        correlation product per path, ``per_asset`` and ``per_path`` float32
+        operations beyond them, ``per_unit`` for the sums."""
+        p = plan.total_paths
+        return work(draws=p * a, expf=p * a,
+                    f32=p * (a * (a + 1) / 2 + per_asset * a + per_path)
+                    + per_unit * plan.total_units)
     for kname, label, replaces in (
             ("basket_am", "K2", "mctpu/kernels/basket.py:353"),
             ("basket_packed", "K3", "mctpu/kernels/basket.py:311")):
         bopt, n = basket_cells[label]
         plan, ops = engine.basket_setup(bopt, n, cfg)
+        a = bopt.n_assets
         timed(kname, "mctpu_torch/csrc/basket.cu", replaces, plan, 1,
               math.exp(-bopt.r * bopt.t),
               lambda: kbasket.partials(ops, SEED, 0, plan, plan.num_blocks),
               lambda: kbasket.plain_partials(ops, SEED, 0, plan,
-                                             plan.num_blocks))
+                                             plan.num_blocks),
+              basket_work(plan, a, 4, 3, 11), in_bytes=4 * (a * a + 4 * a))
     port = CvaPortfolioSpec.from_single(
         CvaSpec(0.03, 0.6, VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0), 500))
     plan, ops = engine.cva_setup(port, 1 << 20, cfg)
@@ -819,7 +1152,8 @@ def main() -> int:
           500, 1.0,
           lambda: kcva.partials(ops, SEED, 0, plan, plan.num_blocks, False),
           lambda: kcva.plain_partials(ops, SEED, 0, plan, plan.num_blocks,
-                                      False))
+                                      False),
+          walk_work("cva", plan, 500), in_bytes=4 * 7 * 500)
 
     def gunits(plan):
         return plan.iters * plan.units_per_iter
@@ -831,6 +1165,8 @@ def main() -> int:
                                    False),
           lambda: kgreeks.plain_partials(par, SEED, 0, plan, plan.num_blocks,
                                          False),
+          work(draws=plan.total_paths, expf=plan.total_paths,
+               f32=66 * plan.total_paths + 24 * plan.total_units),
           units=gunits(plan), plain_reps=3)
     for kname, label, replaces in (
             ("greeks_basket_am", "K2", "mctpu/kernels/greeks.py:448"),
@@ -847,6 +1183,7 @@ def main() -> int:
               math.exp(-bopt.r * bopt.t),
               lambda: fn(ops, SEED, 0, plan, plan.num_blocks),
               lambda: plain(ops, SEED, 0, plan, plan.num_blocks),
+              basket_work(plan, a, 29, 30, 24), in_bytes=4 * (a * a + 4 * a),
               units=gunits(plan), fold=(c, a_tile, a), plain_reps=3)
     plan, ops = engine.greeks_cva_setup(port, 1 << 20, cfg)
     timed("cva_greeks", "mctpu_torch/csrc/cva_greeks.cu",
@@ -855,6 +1192,7 @@ def main() -> int:
                                       False),
           lambda: kcva.greek_plain_partials(ops, SEED, 0, plan,
                                             plan.num_blocks, False),
+          walk_work("cva_greeks", plan, 500), in_bytes=4 * 12 * 500,
           units=gunits(plan), plain_reps=3)
 
     # The exotic path's shape: arithmetic Asian and up-and-out H=130 calls,
@@ -876,6 +1214,32 @@ def main() -> int:
         timed(kname, source, replaces, plan, 50, disc,
               lambda: fn(0, plan.num_blocks, plan),
               lambda: plain(0, plan.num_blocks, plan),
+              walk_work(kname, plan, 50),
+              units=gunits(plan) if greek else None, plain_reps=3)
+
+    # The lookback/cliquet path's shapes: the floating call at n_obs=50 and
+    # 2^22 paths, the cliquet at 12 periods and 2^24 paths.
+    fl = LookbackOption(100.0, 0.05, 0.2, 1.0, n_obs=50)
+    cq = CliquetOption(100.0, 0.03, 0.2, 1.0, n_periods=12, cap=0.05,
+                       floor=-0.02)
+    for kname, replaces, kmod, wopt, greek, n_paths, steps, disc in (
+            ("lookback", "mctpu/kernels/lookback.py:127", klookback, fl,
+             False, n_ex, 50, math.exp(-0.05)),
+            ("lookback_greeks", "mctpu/kernels/lookback.py:321", klookback,
+             fl, True, n_ex, 50, math.exp(-0.05)),
+            ("cliquet", "mctpu/kernels/cliquet.py:179", kcliquet, cq, False,
+             1 << 24, 12, math.exp(-0.03)),
+            ("cliquet_greeks", "mctpu/kernels/cliquet.py:241", kcliquet, cq,
+             True, 1 << 24, 12, math.exp(-0.03))):
+        setup = (engine.lookback_setup if kmod is klookback
+                 else engine.cliquet_setup)
+        plan, _ = setup(wopt, n_paths, cfg)
+        fn, plain = walk_launchers(kmod, wopt, greek, dev)
+        source = "mctpu_torch/csrc/" + kname.split("_")[0] + ".cu"
+        timed(kname, source, replaces, plan, steps, disc,
+              lambda: fn(0, plan.num_blocks, plan),
+              lambda: plain(0, plan.num_blocks, plan),
+              walk_work(kname, plan, steps),
               units=gunits(plan) if greek else None, plain_reps=3)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,8 @@
 """mctpu_torch — the PyTorch/CUDA port of mctpu for NVIDIA Hopper (H100).
 
 The main path of the JAX package and its first single-asset walks, on one
-GPU: vanilla, basket, CVA, Asian and knock-out barrier pricing and their
-in-kernel Greeks through hand-written CUDA kernels
+GPU: vanilla, basket, CVA, Asian, knock-out barrier, lookback and cliquet
+pricing and their in-kernel Greeks through hand-written CUDA kernels
 (``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use), per-block
 partial sums, a fixed-order float64 combine and the reference estimator.
 :mod:`mctpu_torch.autodiff` adds the autodiff and bump-and-revalue tier.  Each kernel has a plain PyTorch
@@ -11,15 +11,18 @@ mctpu.
 """
 from mctpu_torch import math
 from mctpu_torch.engine import (EngineConfig, greeks, greeks_asian,
-                                greeks_barrier, greeks_basket, greeks_cva,
+                                greeks_barrier, greeks_basket,
+                                greeks_cliquet, greeks_cva, greeks_lookback,
                                 greeks_vanilla, price_asian, price_barrier,
-                                price_basket, price_cva, price_cva_portfolio,
+                                price_basket, price_cliquet, price_cva,
+                                price_cva_portfolio, price_lookback,
                                 price_vanilla)
 from mctpu_torch.rng import seed_from_generator
 from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                               CvaGreeksResult, CvaPortfolioSpec, CvaResult,
-                               CvaSpec, GreeksResult, McResult, Precision,
-                               VanillaOption, from_reference)
+                               CliquetOption, CvaGreeksResult,
+                               CvaPortfolioSpec, CvaResult, CvaSpec,
+                               GreeksResult, LookbackOption, McResult,
+                               Precision, VanillaOption, from_reference)
 
 __all__ = [
     "EngineConfig",
@@ -29,12 +32,16 @@ __all__ = [
     "price_cva_portfolio",
     "price_asian",
     "price_barrier",
+    "price_lookback",
+    "price_cliquet",
     "greeks",
     "greeks_vanilla",
     "greeks_basket",
     "greeks_cva",
     "greeks_asian",
     "greeks_barrier",
+    "greeks_lookback",
+    "greeks_cliquet",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
@@ -43,6 +50,8 @@ __all__ = [
     "CvaPortfolioSpec",
     "AsianOption",
     "BarrierOption",
+    "LookbackOption",
+    "CliquetOption",
     "McResult",
     "CvaResult",
     "GreeksResult",

@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
-           "cva_greeks.cu", "asian.cu", "barrier.cu")
+           "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
+           "cliquet.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
@@ -31,9 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # Per-source flags.  The single-asset walks take no FMA contraction, so each
 # path rounds as the plain version's separate operations do and their
-# discontinuities (knock-out, in-the-money indicator) fall on the same side
-# (see the head of csrc/asian.cu).
-SOURCE_FLAGS = {"asian.cu": ("-fmad=false",), "barrier.cu": ("-fmad=false",)}
+# discontinuities (knock-out, in-the-money indicator, arg-extreme, the
+# cliquet's band mask) fall on the same side (see the head of csrc/asian.cu).
+SOURCE_FLAGS = {name: ("-fmad=false",)
+                for name in ("asian.cu", "barrier.cu", "lookback.cu",
+                             "cliquet.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -69,12 +72,15 @@ _SIGNATURES = {
     # iters, antithetic, kahan, wwr, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P),
-    # The single-asset walks (K9, K10, K12, K13): scal, n_obs, seed, off,
-    # n_blocks, rows, iters, antithetic, kahan, geometric (Asian) or up
-    # (barrier), out, stream
+    # The single-asset walks (K9, K10, K12, K13, K15-K18): scal, n_obs (the
+    # cliquet's n_periods), seed, off, n_blocks, rows, iters, antithetic,
+    # kahan, mode (geometric Asian, up-and-out barrier, 2 * fixed + put for
+    # the lookback, 0 for the cliquet), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_asian_greeks", "mctpu_barrier",
-                    "mctpu_barrier_greeks")},
+                    "mctpu_barrier_greeks", "mctpu_lookback",
+                    "mctpu_lookback_greeks", "mctpu_cliquet",
+                    "mctpu_cliquet_greeks")},
 }
 
 _lib = None

@@ -8,9 +8,9 @@ Counterpart of the main path of :mod:`mctpu.engine`:
         -> estimator (price, standard error, 95% CI) in float64
 
 :func:`price_vanilla`, :func:`price_basket`, :func:`price_cva`,
-:func:`price_cva_portfolio`, :func:`price_asian` and :func:`price_barrier`
-take an int32 ``seed`` word (the value
-``mctpu.rng.key_to_seed`` gives a JAX key; see
+:func:`price_cva_portfolio`, :func:`price_asian`, :func:`price_barrier`,
+:func:`price_lookback` and :func:`price_cliquet` take an int32 ``seed``
+word (the value ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
 JAX package's kernels in interpret mode, so a run here matches that run
 block by block.  :func:`greeks` and the ``greeks_*`` drivers run the Greek
@@ -27,24 +27,30 @@ from mctpu_torch import math as mcmath
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import basket as kbasket
+from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
+from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels.common import LANES, walk_plan
 from mctpu_torch.parallel.reduce import pairwise_tree_sum
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                               CvaGreeksResult, CvaPortfolioSpec, CvaResult,
-                               CvaSpec, GreeksResult, McResult, Precision,
-                               VanillaOption)
+                               CliquetOption, CvaGreeksResult,
+                               CvaPortfolioSpec, CvaResult, CvaSpec,
+                               GreeksResult, LookbackOption, McResult,
+                               Precision, VanillaOption)
 
 __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "price_cva_portfolio", "price_asian", "price_barrier",
-           "vanilla_setup", "basket_setup", "cva_setup", "asian_setup",
-           "barrier_setup", "greeks", "greeks_vanilla", "greeks_basket",
-           "greeks_cva", "greeks_asian", "greeks_barrier",
-           "greeks_vanilla_setup", "greeks_basket_setup", "greeks_cva_setup",
-           "greeks_asian_setup", "greeks_barrier_setup"]
+           "price_lookback", "price_cliquet", "vanilla_setup",
+           "basket_setup", "cva_setup", "asian_setup", "barrier_setup",
+           "lookback_setup", "cliquet_setup", "greeks", "greeks_vanilla",
+           "greeks_basket", "greeks_cva", "greeks_asian", "greeks_barrier",
+           "greeks_lookback", "greeks_cliquet", "greeks_vanilla_setup",
+           "greeks_basket_setup", "greeks_cva_setup", "greeks_asian_setup",
+           "greeks_barrier_setup", "greeks_lookback_setup",
+           "greeks_cliquet_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,6 +255,45 @@ def price_barrier(opt: BarrierOption, n_paths: int, seed: int,
     return _price(partials, plan, opt.r, opt.t)
 
 
+def lookback_setup(opt: LookbackOption, n_paths: int, config: EngineConfig):
+    """``(plan, params)``: the launch :func:`price_lookback` makes."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), klookback.params(opt, dev)
+
+
+def price_lookback(opt: LookbackOption, n_paths: int, seed: int,
+                   config: EngineConfig = EngineConfig()) -> McResult:
+    """Monte Carlo price of a discretely monitored floating- or fixed-strike
+    lookback call or put (K15).  The floating call approaches the
+    continuously monitored Goldman-Sosin-Gatto value
+    (:func:`mctpu_torch.math.lookback_floating_call`) from below as
+    ``n_obs`` grows."""
+    opt.validate()
+    plan, par = lookback_setup(opt, n_paths, config)
+    partials = klookback.partials(par, wrap_int32(seed), 0, plan,
+                                  plan.num_blocks, opt.n_obs,
+                                  klookback.mode_of(opt))
+    return _price(partials, plan, opt.r, opt.t)
+
+
+def cliquet_setup(opt: CliquetOption, n_paths: int, config: EngineConfig):
+    """``(plan, params)``: the launch :func:`price_cliquet` makes."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kcliquet.params(opt, dev)
+
+
+def price_cliquet(opt: CliquetOption, n_paths: int, seed: int,
+                  config: EngineConfig = EngineConfig()) -> McResult:
+    """Monte Carlo price of a locally capped and floored cliquet (K17),
+    exact against :func:`mctpu_torch.math.cliquet_closed_form` at any
+    period count."""
+    opt.validate()
+    plan, par = cliquet_setup(opt, n_paths, config)
+    partials = kcliquet.partials(par, wrap_int32(seed), 0, plan,
+                                 plan.num_blocks, opt.n_periods)
+    return _price(partials, plan, opt.r, opt.t)
+
+
 # ---------------------------------------------------------------------------
 # Greeks: the pricing kernels' paths, with the Greek integrands summed beside
 # the payoff (K5-K8); every output is a full estimate with its own CI.
@@ -426,6 +471,58 @@ def greeks_barrier(opt: BarrierOption, n_paths: int, seed: int,
     return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
 
 
+def greeks_lookback_setup(opt: LookbackOption, n_paths: int,
+                          config: EngineConfig):
+    """``(plan, params)``: the launch :func:`greeks_lookback` makes (the
+    pricer's plan)."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), klookback.greek_params(opt, dev)
+
+
+def greeks_lookback(opt: LookbackOption, n_paths: int, seed: int,
+                    config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """Price and pathwise delta, vega and rho of a lookback option in one
+    sweep (K16), over :func:`price_lookback`'s paths.  Delta is the
+    homogeneity identity (``price / s0`` for the floating kind); vega and
+    rho follow the tangent and the date of the arg-extreme.  A fixed strike
+    at ``k == s0`` has no delta: the extreme has an atom at ``s0``, and the
+    estimator returns the left derivative."""
+    opt.validate()
+    plan, gp = greeks_lookback_setup(opt, n_paths, config)
+    partials = klookback.greek_partials(gp, wrap_int32(seed), 0, plan,
+                                        plan.num_blocks, opt.n_obs,
+                                        klookback.mode_of(opt))
+    price, delta, vega, rho = _estimates(
+        _total(partials), plan.total_units, plan, _discount(opt.r, opt.t))
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
+
+
+def greeks_cliquet_setup(opt: CliquetOption, n_paths: int,
+                         config: EngineConfig):
+    """``(plan, params)``: the launch :func:`greeks_cliquet` makes (the
+    pricer's plan)."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kcliquet.greek_params(opt, dev)
+
+
+def greeks_cliquet(opt: CliquetOption, n_paths: int, seed: int,
+                   config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """Price and pathwise vega, rho and theta (d/dT) of a cliquet in one
+    sweep (K18), over :func:`price_cliquet`'s paths.  The payoff depends on
+    returns only, so delta and gamma are identically zero: they come back
+    as exact ``0 +- 0`` estimates, as in ``mctpu.engine.greeks_cliquet``."""
+    opt.validate()
+    plan, gp = greeks_cliquet_setup(opt, n_paths, config)
+    partials = kcliquet.greek_partials(gp, wrap_int32(seed), 0, plan,
+                                       plan.num_blocks, opt.n_periods)
+    n, disc = plan.total_units, _discount(opt.r, opt.t)
+    price, vega, rho, theta = _estimates(_total(partials), n, plan, disc)
+    zero = mcest.estimate(0.0, 0.0, n, discount=disc,
+                          n_paths=plan.total_paths)
+    return GreeksResult(price=price, delta=zero, vega=vega, rho=rho,
+                        theta=theta, gamma=zero)
+
+
 def greeks(opt, n_paths: int, seed: int,
            config: EngineConfig = EngineConfig()):
     """In-kernel Greeks, dispatched on the product record."""
@@ -439,4 +536,8 @@ def greeks(opt, n_paths: int, seed: int,
         return greeks_asian(opt, n_paths, seed, config)
     if isinstance(opt, BarrierOption):
         return greeks_barrier(opt, n_paths, seed, config)
+    if isinstance(opt, LookbackOption):
+        return greeks_lookback(opt, n_paths, seed, config)
+    if isinstance(opt, CliquetOption):
+        return greeks_cliquet(opt, n_paths, seed, config)
     raise TypeError(f"no in-kernel Greeks for {type(opt).__name__}")

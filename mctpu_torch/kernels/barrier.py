@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from mctpu_torch.kernels.common import (Plan, launch_walk, walk_pairwise,
-                                        walk_partials)
+from mctpu_torch.kernels.common import (Plan, f32, launch_walk,
+                                        walk_pairwise, walk_partials)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import asian as masian
 from mctpu_torch.types import BarrierOption
@@ -31,13 +31,9 @@ GREEK_SCAL = ("log_s0", "k", "log_h", "drift", "vol", "c_d", "inv_v", "sqdt",
               "n_over_v", "c_r", "t")
 
 
-def _f32(*xs):
-    return (torch.tensor(float(x), dtype=torch.float32) for x in xs)
-
-
 def params(opt: BarrierOption, device) -> torch.Tensor:
     """``[log s0, k, log H, drift, vol]`` in float32 (K12's ``scal``)."""
-    s, k, h = _f32(opt.s, opt.k, opt.barrier)
+    s, k, h = f32(opt.s, opt.k, opt.barrier)
     drift, vol = masian.step_constants(opt)
     return torch.stack([torch.log(s), k, torch.log(h), drift, vol]).to(device)
 
@@ -103,7 +99,7 @@ def greek_params(opt: BarrierOption, device) -> torch.Tensor:
     """K13's float32 ``scal`` (:data:`GREEK_SCAL`), formed in the JAX
     kernel's expression order (``_greek_scalars``)."""
     n = opt.n_obs
-    s, k, h, r, v, t = _f32(opt.s, opt.k, opt.barrier, opt.r, opt.v, opt.t)
+    s, k, h, r, v, t = f32(opt.s, opt.k, opt.barrier, opt.r, opt.v, opt.t)
     dt = t / n
     vol = v * torch.sqrt(dt)
     drift = (r - 0.5 * v * v) * dt

@@ -27,7 +27,7 @@ __all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
            "iter_keys", "tile_index", "draw_normal_pair", "walk_pairwise",
            "walk_partials", "acc_init", "acc_add", "acc_final", "acc_init_n",
            "acc_add_n", "acc_final_n", "det_col_sums", "check_operand",
-           "launch_walk"]
+           "f32", "launch_walk"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
 # index row * LANES + lane, as the JAX kernels lay them out.
@@ -158,6 +158,12 @@ def acc_final(carry) -> torch.Tensor:
     return torch.stack([s + c, s2 + c2], dim=1)
 
 
+def f32(*xs):
+    """Each of ``xs`` as a 0-d float32 CPU tensor, so that a kernel's
+    scalars round as the JAX kernels' float32 operations do."""
+    return (torch.tensor(float(x), dtype=torch.float32) for x in xs)
+
+
 def check_operand(name: str, x: torch.Tensor, shape, device) -> None:
     """Raise unless ``x`` is a contiguous float32 tensor of ``shape`` on
     ``device`` (what a kernel's C entry point takes)."""
@@ -251,11 +257,13 @@ def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
 
 def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
                 seed: int, block_offset: int, plan: Plan, n_blocks: int,
-                n_obs: int, flag: bool) -> torch.Tensor:
-    """Launch a single-asset walk kernel (K9, K10, K12, K13 share one C
-    signature; ``flag`` is geometric for the Asian, up-and-out for the
-    barrier) on ``scal``'s device and return its ``(n_blocks, n_out)``
-    partials.  Raises on a bad operand or a failed launch."""
+                n_obs: int, mode: int) -> torch.Tensor:
+    """Launch a single-asset walk kernel (K9, K10, K12, K13, K15-K18 share
+    one C signature) on ``scal``'s device and return its ``(n_blocks,
+    n_out)`` partials.  ``mode`` selects the kernel's static variant: 1 for
+    the geometric Asian or the up-and-out barrier, ``2 * fixed + put`` for
+    the lookback, 0 otherwise; ``n_obs`` is the step count (the cliquet's
+    ``n_periods``).  Raises on a bad operand or a failed launch."""
     check_operand("scal", scal, (n_scal,), scal.device)
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
@@ -269,7 +277,7 @@ def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
         status = getattr(lib, entry)(
             scal.data_ptr(), n_obs, wrap_int32(seed),
             wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
-            int(plan.antithetic), int(plan.kahan), int(flag), out.data_ptr(),
+            int(plan.antithetic), int(plan.kahan), int(mode), out.data_ptr(),
             stream)
     _build.check(status, entry)
     return out

@@ -1,7 +1,7 @@
 """Closed-form financial math on tensors (counterpart of :mod:`mctpu.math`).
 
-The oracles (Black-Scholes, the CVA, geometric-Asian and barrier closed
-forms) and the host-side setup
+The oracles (Black-Scholes, the CVA, geometric-Asian, barrier, lookback
+and cliquet closed forms) and the host-side setup
 (Cholesky, default-leg weights) run in float64 — the port's ``wide_dtype``
 is always float64, as ``mctpu`` under x64.  ``norm_cdf_hastings`` is the
 kernels' CDF and runs in the dtype it is given.
@@ -25,6 +25,8 @@ __all__ = [
     "geometric_asian_call",
     "up_and_out_call",
     "barrier_continuity_correction",
+    "lookback_floating_call",
+    "cliquet_closed_form",
 ]
 
 
@@ -216,3 +218,46 @@ def barrier_continuity_correction(barrier, s, v, t, n_obs: int,
     dt = _wide(t) / n_obs
     shift = torch.exp((beta if up else -beta) * _wide(v) * torch.sqrt(dt))
     return _wide(barrier) * shift
+
+
+def lookback_floating_call(s, r, v, t, m=None) -> torch.Tensor:
+    """Continuously monitored floating-strike lookback call (Goldman-Sosin-
+    Gatto 1979) in float64: pays ``S_T - min_{u<=T} S_u``; ``m`` is the
+    running minimum so far (``s`` for a newly written option).  A
+    discretely monitored minimum is higher, so the discrete price
+    approaches this value from below as ``n_obs`` grows.  Differentiable
+    by autograd."""
+    s, r, v, t = (_wide(x) for x in (s, r, v, t))
+    m = s if m is None else _wide(m)
+    sq = v * torch.sqrt(t)
+    a1 = (torch.log(s / m) + (r + 0.5 * v * v) * t) / sq
+    a2 = a1 - sq
+    a3 = (torch.log(s / m) + (-r + 0.5 * v * v) * t) / sq
+    q = 2.0 * r / (v * v)
+    disc = torch.exp(-r * t)
+    return (s * norm_cdf(a1) - m * disc * norm_cdf(a2)
+            + s * disc * (1.0 / q)
+            * ((s / m) ** (-q) * norm_cdf(-a3)
+               - torch.exp(r * t) * norm_cdf(-a1)))
+
+
+def cliquet_closed_form(r, v, t, n_periods: int, cap, floor) -> torch.Tensor:
+    """Exact value of the locally capped and floored cliquet in float64.
+
+    The period gross returns ``R = exp((r - v^2/2) dt + v sqrt(dt) z)`` are
+    i.i.d., so the value is ``e^{-rT} n E[clip(R - 1, floor, cap)]`` with
+    ``E[clip] = floor + E[(R - (1 + floor))^+] - E[(R - (1 + cap))^+]`` and
+    the undiscounted Black expectation ``E[(R - K)^+] = e^{r dt} N(d1) -
+    K N(d2)``.  Differentiable by autograd in ``r``, ``v`` and ``t``."""
+    r, v, t = (_wide(x) for x in (r, v, t))
+    dt = t / n_periods
+    sq = v * torch.sqrt(dt)
+
+    def call_on_gross(kk):
+        kk = _wide(kk)
+        d1 = (-torch.log(kk) + (r + 0.5 * v * v) * dt) / sq
+        return torch.exp(r * dt) * norm_cdf(d1) - kk * norm_cdf(d1 - sq)
+
+    e_clip = (_wide(floor) + call_on_gross(1.0 + floor)
+              - call_on_gross(1.0 + cap))
+    return torch.exp(-r * t) * n_periods * e_clip

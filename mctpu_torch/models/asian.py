@@ -2,7 +2,9 @@
 
 Counterpart of :mod:`mctpu.models.asian`.  The walk kernels (K9, K10 in
 ``kernels/asian.py``; K12, K13 in ``kernels/barrier.py``) step a log-spot
-over ``n_obs`` equal dates with the constants of :func:`step_constants`.
+over ``n_obs`` equal dates with the constants of :func:`step_constants`
+(as do the lookback's K15 and K16, and the cliquet's K17 and K18 over its
+``n_periods``).
 """
 from __future__ import annotations
 
@@ -19,12 +21,14 @@ def _scalars(opt, dtype):
             for x in (opt.s, opt.k, opt.r, opt.v, opt.t))
 
 
-def step_constants(opt, dtype=torch.float32):
-    """``(drift, vol)`` of one observation step ``dt = T / n_obs`` in
-    ``dtype``, in ``mctpu``'s expression order (``opt`` is any record with
-    ``r``, ``v``, ``t`` and ``n_obs``)."""
-    _, _, r, v, t = _scalars(opt, dtype)
-    dt = t / opt.n_obs
+def step_constants(opt, n_steps: int | None = None, dtype=torch.float32):
+    """``(drift, vol)`` of one step ``dt = T / n_steps`` in ``dtype``, in
+    ``mctpu``'s expression order ``dt = t / n; (r - 0.5 v v) dt; v
+    sqrt(dt)`` (``opt`` is any record with ``r``, ``v`` and ``t``;
+    ``n_steps`` defaults to its ``n_obs``)."""
+    r, v, t = (torch.tensor(float(x), dtype=dtype)
+               for x in (opt.r, opt.v, opt.t))
+    dt = t / (opt.n_obs if n_steps is None else n_steps)
     drift = (r - 0.5 * v * v) * dt
     vol = v * torch.sqrt(dt)
     return drift, vol
@@ -36,7 +40,7 @@ def path_payoff(opt: AsianOption, z_seq: torch.Tensor) -> torch.Tensor:
     of the log-spots and exponentiated for the geometric average."""
     dtype = z_seq.dtype
     s0, k, _, _, _ = _scalars(opt, dtype)
-    drift, vol = step_constants(opt, dtype)
+    drift, vol = step_constants(opt, dtype=dtype)
     s = s0.expand(z_seq.shape[1:])
     acc = torch.zeros(z_seq.shape[1:], dtype=dtype)
     for j in range(opt.n_obs):

@@ -26,6 +26,8 @@ __all__ = [
     "CvaPortfolioSpec",
     "AsianOption",
     "BarrierOption",
+    "LookbackOption",
+    "CliquetOption",
     "McResult",
     "CvaResult",
     "GreeksResult",
@@ -313,6 +315,73 @@ class BarrierOption:
 
 
 @dataclasses.dataclass(frozen=True)
+class LookbackOption:
+    """Discretely monitored lookback option on the running extreme of the
+    ``n_obs`` dates (and the initial fixing): ``"floating"`` call pays
+    ``S_T - min_j S_j`` (put ``max_j S_j - S_T``), ``"fixed"`` call pays
+    ``max(max_j S_j - k, 0)`` (put ``max(k - min_j S_j, 0)``).  The
+    continuously monitored floating call
+    (:func:`mctpu_torch.math.lookback_floating_call`) bounds the discrete
+    one from above."""
+
+    s: float
+    r: float
+    v: float
+    t: float
+    k: float = 0.0  # strike (fixed kind only)
+    n_obs: int = 50
+    kind: str = "floating"
+    payoff: str = "call"
+
+    def validate(self) -> None:
+        if self.kind not in ("floating", "fixed"):
+            raise ValueError("kind must be 'floating' or 'fixed'")
+        if self.payoff not in ("call", "put"):
+            raise ValueError("payoff must be 'call' or 'put'")
+        if self.n_obs < 1:
+            raise ValueError("n_obs must be >= 1")
+        if float(self.s) <= 0:
+            raise ValueError("spot must be positive")
+        if self.kind == "fixed" and float(self.k) <= 0:
+            raise ValueError("fixed-strike lookback needs a positive strike")
+        if float(self.v) < 0:
+            raise ValueError("volatility must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class CliquetOption:
+    """Locally capped and floored cliquet: pays ``sum_j clip(S_{t_j} /
+    S_{t_{j-1}} - 1, floor, cap)`` at maturity over ``n_periods`` equal
+    periods.  The period returns are i.i.d. under GBM, so the value has the
+    exact closed form :func:`mctpu_torch.math.cliquet_closed_form`; spot
+    delta is identically zero."""
+
+    s: float
+    r: float
+    v: float
+    t: float
+    n_periods: int = 12
+    cap: float = 0.08
+    floor: float = 0.0
+
+    def validate(self) -> None:
+        if self.n_periods < 1:
+            raise ValueError("n_periods must be >= 1")
+        if float(self.s) <= 0:
+            raise ValueError("spot must be positive")
+        if float(self.v) < 0:
+            raise ValueError("volatility must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+        if float(self.cap) <= float(self.floor):
+            raise ValueError("cap must exceed floor")
+        if float(self.floor) < -1.0:
+            raise ValueError("floor below -100% is meaningless")
+
+
+@dataclasses.dataclass(frozen=True)
 class McResult:
     """Monte Carlo estimate: ``price``, ``std_error`` and the 95% half-width
     ``ci`` in discounted units; raw undiscounted ``sum_p``/``sum_p2``; ``n``
@@ -413,7 +482,7 @@ class CvaGreeksResult:
 
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, BasketOption, CvaSpec, CvaPortfolioSpec,
-             AsianOption, BarrierOption)}
+             AsianOption, BarrierOption, LookbackOption, CliquetOption)}
 
 
 def _carry(value):
@@ -431,7 +500,8 @@ def from_reference(obj):
     Matches by class name and field names; every numeric field is read
     through ``np.asarray`` (scalars become Python floats, vectors float64
     arrays), except the fields the port's record declares ``int``
-    (``n_grid``, ``n_obs``), which stay ints; strings stay strings.
+    (``n_grid``, ``n_obs``, ``n_periods``), which stay ints; strings stay
+    strings.
     """
     if isinstance(obj, enum.Enum):
         return Precision(obj.value)

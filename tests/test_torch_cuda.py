@@ -25,12 +25,15 @@ from mctpu_torch import _build
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import basket as kbasket
+from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
+from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                               CvaPortfolioSpec, CvaSpec, VanillaOption)
+                               CliquetOption, CvaPortfolioSpec, CvaSpec,
+                               LookbackOption, VanillaOption)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -262,6 +265,67 @@ def test_walk_kernels_match_plain(dev, product, case):
         units=_units(plan))
 
 
+# K15-K18 at the odd step count 13 (and 1): every lookback mode, antithetic
+# and plain sums; the fixed strikes away from the atom at s0.
+_LOOKBACK_CASES = {
+    # name: (n_obs, kind, payoff, k, antithetic, kahan)
+    "floating_call": (13, "floating", "call", 0.0, False, True),
+    "floating_put": (13, "floating", "put", 0.0, False, True),
+    "fixed_call": (13, "fixed", "call", 105.0, False, True),
+    "fixed_put": (13, "fixed", "put", 95.0, False, True),
+    "floating_call_antithetic": (13, "floating", "call", 0.0, True, True),
+    "fixed_put_antithetic_f32": (13, "fixed", "put", 95.0, True, False),
+    "fixed_call_n1": (1, "fixed", "call", 105.0, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LOOKBACK_CASES))
+def test_lookback_kernels_match_plain(dev, case):
+    n_obs, kind, payoff, k, antithetic, kahan = _LOOKBACK_CASES[case]
+    opt = LookbackOption(100., 0.05, 0.2, 1., k=k, n_obs=n_obs, kind=kind,
+                         payoff=payoff)
+    mode = klookback.mode_of(opt)
+    plan = klookback.make_plan(2 * NB * 32 * 128, NB, 32, antithetic, kahan)
+    par, gp = klookback.params(opt, dev), klookback.greek_params(opt, dev)
+    _contract(
+        lambda off, nb: klookback.partials(par, SEED, off, plan, nb, n_obs,
+                                           mode),
+        lambda off, nb: klookback.plain_partials(par, SEED, off, plan, nb,
+                                                 n_obs, mode))
+    _contract(
+        lambda off, nb: klookback.greek_partials(gp, SEED, off, plan, nb,
+                                                 n_obs, mode),
+        lambda off, nb: klookback.greek_plain_partials(gp, SEED, off, plan,
+                                                       nb, n_obs, mode),
+        units=_units(plan))
+
+
+_CLIQUET_CASES = {
+    # name: (n_periods, cap, floor, antithetic, kahan)
+    "n13": (13, 0.05, -0.02, False, True),
+    "n13_antithetic": (13, 0.05, -0.02, True, True),
+    "n13_f32": (13, 0.03, 0.0, False, False),
+    "n1": (1, 0.10, -0.10, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CLIQUET_CASES))
+def test_cliquet_kernels_match_plain(dev, case):
+    n, cap, floor, antithetic, kahan = _CLIQUET_CASES[case]
+    opt = CliquetOption(100., 0.03, 0.2, 1., n_periods=n, cap=cap,
+                        floor=floor)
+    plan = kcliquet.make_plan(2 * NB * 32 * 128, NB, 32, antithetic, kahan)
+    par, gp = kcliquet.params(opt, dev), kcliquet.greek_params(opt, dev)
+    _contract(
+        lambda off, nb: kcliquet.partials(par, SEED, off, plan, nb, n),
+        lambda off, nb: kcliquet.plain_partials(par, SEED, off, plan, nb, n))
+    _contract(
+        lambda off, nb: kcliquet.greek_partials(gp, SEED, off, plan, nb, n),
+        lambda off, nb: kcliquet.greek_plain_partials(gp, SEED, off, plan,
+                                                      nb, n),
+        units=_units(plan))
+
+
 def test_launch_counters_count_kernel_launches(dev):
     par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
     plan = kvanilla.make_plan(1, 2, 8, False)
@@ -286,6 +350,19 @@ def test_launch_counters_count_kernel_launches(dev):
             fn(par, 1, 0, wplan, 2, 3, True)
             plain(par, 1, 0, wplan, 2, 3, True)
             assert kmod.LAUNCHES[key] == before + 1, key
+    lb, cq = LookbackOption(100., 0.05, 0.2, 1., n_obs=3), CliquetOption(
+        100., 0.03, 0.2, 1., n_periods=3)
+    for kmod, name, opt, extra in ((klookback, "lookback", lb, (3, 0)),
+                                   (kcliquet, "cliquet", cq, (3,))):
+        for fn, plain, make, key in (
+                (kmod.partials, kmod.plain_partials, kmod.params, name),
+                (kmod.greek_partials, kmod.greek_plain_partials,
+                 kmod.greek_params, name + "_greeks")):
+            par = make(opt, dev)
+            before = kmod.LAUNCHES[key]
+            fn(par, 1, 0, wplan, 2, *extra)
+            plain(par, 1, 0, wplan, 2, *extra)
+            assert kmod.LAUNCHES[key] == before + 1, key
 
 
 def test_bad_operands_raise(dev):
@@ -303,3 +380,9 @@ def test_bad_operands_raise(dev):
         kasian.partials(apar, 1, 0, plan, 2, 0, False)
     with pytest.raises(ValueError):
         kbarrier.greek_partials(apar, 1, 0, plan, 2, 4, True)
+    with pytest.raises(ValueError):
+        klookback.greek_partials(apar, 1, 0, plan, 2, 4, 0)
+    with pytest.raises(RuntimeError):  # no fifth lookback mode
+        klookback.partials(apar, 1, 0, plan, 2, 4, 4)
+    with pytest.raises(ValueError):
+        kcliquet.greek_partials(apar, 1, 0, plan, 2, 4)

@@ -95,12 +95,17 @@ def test_from_reference_carries_records():
     jtypes.AsianOption(100.0, 95.0, 0.05, 0.2, 1.0, n_obs=50,
                        average="geometric"),
     jtypes.BarrierOption(100.0, 95.0, 0.05, 0.2, 1.0, barrier=80.0,
-                         n_obs=13, kind="down-and-out")],
-    ids=["asian", "barrier"])
+                         n_obs=13, kind="down-and-out"),
+    jtypes.LookbackOption(100.0, 0.05, 0.2, 1.0, k=95.0, n_obs=13,
+                          kind="fixed", payoff="put"),
+    jtypes.CliquetOption(100.0, 0.03, 0.2, 1.0, n_periods=13, cap=0.05,
+                         floor=-0.02)],
+    ids=["asian", "barrier", "lookback", "cliquet"])
 def test_from_reference_keeps_int_fields(opt):
     got = from_reference(opt)
     assert type(got).__name__ == type(opt).__name__
-    assert type(got.n_obs) is int
+    steps = "n_periods" if hasattr(opt, "n_periods") else "n_obs"
+    assert type(getattr(got, steps)) is int
     for f in dataclasses.fields(opt):
         assert getattr(got, f.name) == getattr(opt, f.name), f.name
     assert isinstance(got.s, float)

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Time the port's entry points per call on one GPU: wall, device and kernel.
+
+Run from the repository root on a machine with a CUDA device and ``nvcc``:
+
+    python3 tools/profile_calls.py
+
+For each call at the main-path shapes that ``chip_smoke.py`` drives (the
+default ``EngineConfig``), after one warm-up call:
+
+* wall ms — median of 7 calls, host clock around the call and a
+  ``torch.cuda.synchronize()``;
+* device ms — sum of the durations of every device-side event
+  (kernels, copies, fills) that ``torch.profiler`` records in one call;
+* kernel ms — the same for the call's own CUDA kernel alone;
+* busy — device ms over that call's wall ms.
+
+Prints the card's name and power limit, one line per call, and a JSON
+list of the rows last.  Imports neither jax nor mctpu.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SEED = 20240607
+
+
+def calls(mt):
+    """``(label, kernel, fn)``: each entry point at its main-path shape;
+    ``kernel`` is the name of the CUDA kernel it launches."""
+    from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
+                                   CliquetOption, CvaSpec, LookbackOption,
+                                   VanillaOption)
+
+    van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
+    b3, b100 = (BasketOption.default_reference(3),
+                BasketOption.equicorrelated(100))
+    cva = {g: CvaSpec(0.03, 0.6, VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0),
+                      g) for g in (50, 500)}
+    ari = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=50)
+    geo = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=50,
+                      average="geometric")
+    uo = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0, n_obs=50)
+    lb = LookbackOption(100.0, 0.05, 0.2, 1.0, n_obs=50)
+    cq = CliquetOption(100.0, 0.03, 0.2, 1.0, n_periods=12, cap=0.05,
+                       floor=-0.02)
+    n22, n24 = 1 << 22, 1 << 24
+    return [
+        ("price_vanilla 2^28", "vanilla_kernel",
+         lambda: mt.price_vanilla(van, 1 << 28, SEED)),
+        ("price_basket a=3, 2^24", "basket_am_kernel",
+         lambda: mt.price_basket(b3, n24, SEED)),
+        ("price_basket a=100, 2^22", "basket_packed_kernel",
+         lambda: mt.price_basket(b100, n22, SEED)),
+        ("price_cva n_grid=50, 2^20", "cva_kernel",
+         lambda: mt.price_cva(cva[50], 1 << 20, SEED)),
+        ("price_cva n_grid=500, 2^20", "cva_kernel",
+         lambda: mt.price_cva(cva[500], 1 << 20, SEED)),
+        ("greeks_vanilla 2^28", "greeks_vanilla_kernel",
+         lambda: mt.greeks(van, 1 << 28, SEED)),
+        ("greeks_basket a=3, 2^24", "greeks_am_kernel",
+         lambda: mt.greeks(b3, n24, SEED)),
+        ("greeks_basket a=100, 2^22", "greeks_packed_kernel",
+         lambda: mt.greeks(b100, n22, SEED)),
+        ("greeks_cva n_grid=50, 2^20", "cva_greeks_kernel",
+         lambda: mt.greeks(cva[50], 1 << 20, SEED)),
+        ("greeks_cva n_grid=500, 2^20", "cva_greeks_kernel",
+         lambda: mt.greeks(cva[500], 1 << 20, SEED)),
+        ("price_asian arithmetic, n_obs=50, 2^22", "asian_kernel",
+         lambda: mt.price_asian(ari, n22, SEED)),
+        ("price_asian geometric, n_obs=50, 2^22", "asian_kernel",
+         lambda: mt.price_asian(geo, n22, SEED)),
+        ("greeks_asian arithmetic, 2^22", "asian_greeks_kernel",
+         lambda: mt.greeks(ari, n22, SEED)),
+        ("price_barrier up-and-out, 2^22", "barrier_kernel",
+         lambda: mt.price_barrier(uo, n22, SEED)),
+        ("greeks_barrier up-and-out, 2^22", "barrier_greeks_kernel",
+         lambda: mt.greeks(uo, n22, SEED)),
+        ("price_lookback floating call, n_obs=50, 2^22", "lookback_kernel",
+         lambda: mt.price_lookback(lb, n22, SEED)),
+        ("greeks_lookback floating call, 2^22", "lookback_greeks_kernel",
+         lambda: mt.greeks(lb, n22, SEED)),
+        ("price_cliquet n=12, 2^24", "cliquet_kernel",
+         lambda: mt.price_cliquet(cq, n24, SEED)),
+        ("greeks_cliquet n=12, 2^24", "cliquet_greeks_kernel",
+         lambda: mt.greeks(cq, n24, SEED)),
+    ]
+
+
+def is_kernel(name: str, kernel: str) -> bool:
+    """``name`` (demangled or mangled) is the kernel ``kernel`` itself, not
+    one whose name ends in it."""
+    return f"::{kernel}<" in name or f"{len(kernel)}{kernel}I" in name
+
+
+def profile(fn, kernel: str):
+    """``(device ms, kernel ms)`` of one call under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in dev)
+    kernel_us = sum(e.time_range.elapsed_us() for e in dev
+                    if is_kernel(e.name, kernel))
+    if kernel_us <= 0:
+        raise RuntimeError(f"the profiler saw no {kernel} launch")
+    return device_us / 1e3, kernel_us / 1e3
+
+
+def wall_ms(fn, reps: int = 7) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_calls: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import mctpu_torch as mt
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    rows = []
+    for label, kernel, fn in calls(mt):
+        fn()  # warm-up: builds the kernels on the first call
+        wall = wall_ms(fn)
+        device, kern = profile(fn, kernel)
+        rows.append({"call": label, "kernel": kernel, "wall_ms": wall,
+                     "device_ms": device, "kernel_ms": kern,
+                     "busy": device / wall, "card": smi})
+        print(f"{label}: wall {wall:.3f} ms, device {device:.3f} ms, "
+              f"kernel {kern:.3f} ms, busy {device / wall:.0%}", flush=True)
+    print(json.dumps(rows), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
