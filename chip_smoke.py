@@ -9,11 +9,12 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the sixteen kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the twenty kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
-   barrier, lookback and cliquet walks at an odd step count of 13): equal
+   barrier, lookback and cliquet walks at an odd step count of 13; the
+   ladder and the book at 1, 5 and 64 strikes or instruments): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -35,7 +36,12 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    n_obs=50 and 2^22 paths against a float64 NumPy oracle, the
    Goldman-Sosin-Gatto bound and Black-Scholes; their Greeks against the
    homogeneity identity and CRN bumps; cliquets at 2^24 paths against the
-   exact closed form, their Greeks against its autograd);
+   exact closed form, their Greeks against its autograd) and the book path
+   (a 64-strike ladder and the 64-instrument serving book at 2^24 paths,
+   prices and all six Greeks against Black-Scholes at 4.5 standard errors,
+   the reference's small gates at 4; the one-strike ladder and the
+   one-instrument book against ``price_vanilla``; a market tick through
+   the same library);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -71,6 +77,7 @@ GREEK_KERNELS = ("greeks_vanilla", "greeks_basket_am", "greeks_basket_packed",
 EXOTIC_KERNELS = ("asian", "asian_greeks", "barrier", "barrier_greeks")
 LOOKBACK_KERNELS = ("lookback", "lookback_greeks")
 CLIQUET_KERNELS = ("cliquet", "cliquet_greeks")
+BOOK_KERNELS = ("ladder", "ladder_greeks", "book", "book_greeks")
 
 # ---- the bound of phase 6 ---------------------------------------------------
 # Peak instruction rates of one H100 SXM at 700 W: 132 SMs at the clock its
@@ -132,6 +139,30 @@ def walk_work(kname: str, plan, steps: int):
     return work(draws=p * 2 * -(-steps // 2), expf=p * (e_s * steps + e_p),
                 div=p * (d_s * steps + d_p),
                 f32=p * (f_s * steps + f_p) + u * f_u)
+
+
+# The strike ladder and the vanilla book (K21-K24), counted from their
+# sources: the strikes or instruments per CUDA block (a group redraws the
+# simulation block's normals), and (float32 operations per path and
+# strike/instrument: the payoff or the six integrands and their squares and
+# adds; per path and group: the shared values; expf per path and group;
+# expf per path and strike/instrument).
+BOOK_GROUPS = {"ladder": 16, "ladder_greeks": 4, "book": 16,
+               "book_greeks": 4}
+BOOK_OPS = {"ladder": (4, 2, 1, 0), "ladder_greeks": (24, 4, 1, 0),
+            "book": (7, 0, 0, 1), "book_greeks": (30, 0, 0, 1)}
+
+
+def book_work(kname: str, plan, items: int, redraw: bool = True):
+    """Instruction counts of a ladder or book kernel's run over ``items``
+    strikes or instruments: each of its groups draws every path's normal,
+    as the kernel does (with ``redraw=False``, one draw per path: the least
+    the function needs, which ``bound_ms`` counts)."""
+    f_i, f_g, e_g, e_i = BOOK_OPS[kname]
+    groups = -(-items // BOOK_GROUPS[kname]) if redraw else 1
+    p = plan.total_paths
+    return work(draws=p * groups, expf=p * (e_g * groups + e_i * items),
+                f32=p * (f_i * items + f_g * groups))
 
 
 def bound(ops, nbytes):
@@ -691,6 +722,158 @@ def lookback_cliquet_path(mt, mcmath) -> None:
           f"{rel:.1e}")
 
 
+def bs_book(mcmath, book):
+    """``{field: (M,) float64}``: Black-Scholes price and Greeks of every
+    instrument of ``book``, the puts' by put-call parity."""
+    s, k, r, v, t = (torch.as_tensor(np.asarray(x, np.float64))
+                     for x in (book.s, book.k, book.r, book.v, book.t))
+    cf = mcmath.bs_greeks(s, k, r, v, t)
+    put = torch.tensor([kd == "put" for kd in book.kinds])
+    disc = torch.exp(-r * t)
+    parity = {"price": cf["price"] - s + k * disc, "delta": cf["delta"] - 1,
+              "rho": cf["rho"] - k * t * disc,
+              "theta": cf["theta"] - r * k * disc}
+    return {f: torch.where(put, parity[f], cf[f]) if f in parity else cf[f]
+            for f in ("price", "delta", "vega", "rho", "theta", "gamma")}
+
+
+def sigma_gate(res, want, n_sigma: float, what: str) -> float:
+    """Assert every entry of the vector ``res`` lies within ``n_sigma``
+    standard errors of ``want``; returns the largest distance."""
+    got, se = res.price.double(), res.std_error.double().clamp(min=1e-12)
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape {tuple(got.shape)} or non-finite values")
+    z = (got - want).abs() / se
+    i = int(z.argmax())
+    check(float(z[i]) < n_sigma,
+          f"{what}[{i}]: {float(got[i]):.6f} vs {float(want[i]):.6f} is "
+          f"{float(z[i]):.2f} standard errors away (gate {n_sigma})")
+    return float(z[i])
+
+
+def book_path(mt, mcmath) -> None:
+    """The strike ladder and the vanilla book at full width (64 strikes, 64
+    instruments, 2^24 paths, the default EngineConfig: 256 blocks x 256 rows
+    x 1 iteration) through ``price_vanilla_ladder``,
+    ``greeks_vanilla_ladder``, ``price_book`` and ``greeks_book``, each
+    output against Black-Scholes, and the one-strike and one-instrument
+    ties against ``price_vanilla`` (K1)."""
+    from mctpu_torch import _build
+    from mctpu_torch.types import VanillaBook, VanillaOption
+
+    n = 1 << 24
+    s, r, v, t = 100.0, 0.048790, 0.2, 1.0
+    call = VanillaOption(s, 100.0, r, v, t)
+    put = VanillaOption(s, 100.0, r, v, t, kind="put")
+    ks = np.linspace(50.0, 150.0, 64)
+    fields = ("price", "delta", "vega", "rho", "theta", "gamma")
+
+    # Ladder (K21): 64 strikes at 4.5 sigma (64 tests); the reference's
+    # own chip gate at its 5 strikes: 4 sigma and convex.
+    lad = mt.price_vanilla_ladder(call, ks, n, SEED)
+    z64 = sigma_gate(lad, mcmath.bs_call(s, torch.tensor(ks), r, v, t), 4.5,
+                     "ladder 64 strikes")
+    k5 = np.array([70.0, 85.0, 100.0, 115.0, 130.0])
+    lad5 = mt.price_vanilla_ladder(call, k5, n, SEED)
+    z5 = sigma_gate(lad5, mcmath.bs_call(s, torch.tensor(k5), r, v, t), 4.0,
+                    "ladder 5 strikes")
+    p = lad5.price.double()
+    check(bool((p[:-2] - 2 * p[1:-1] + p[2:] >= -1e-6).all()),
+          f"ladder 5 strikes not convex: {p.tolist()}")
+    check(bool((lad.price.diff() < 0).all()), "ladder prices not falling")
+    phase("book-path", f"ladder call 64 strikes 50..150 2^24 (K21): max |z| "
+                       f"{z64:.2f} (gate 4.5), falling; 5 strikes 70..130 "
+                       f"max |z| {z5:.2f} (gate 4), convex: {lad5!r}")
+
+    # Ladder Greeks (K22): all six outputs at 4.5 sigma; the call delta
+    # ladder falls; the reference's 5-strike gate at 4 sigma; a put ladder
+    # against put-call parity.
+    for label, opt, strikes, gate in (
+            ("call 64 strikes", call, ks, 4.5),
+            ("call 5 strikes 80..120", call,
+             np.array([80.0, 90.0, 100.0, 110.0, 120.0]), 4.0),
+            ("put 64 strikes", put, ks, 4.5)):
+        g = mt.greeks_vanilla_ladder(opt, strikes, n, SEED)
+        want = bs_book(mcmath, VanillaBook.from_options(
+            [dataclasses.replace(opt, k=float(k)) for k in strikes]))
+        zs = {f: sigma_gate(getattr(g, f), want[f], gate,
+                            f"ladder Greeks {label} {f}") for f in fields}
+        if opt.kind == "call":
+            check(bool((g.delta.price.diff() < 0).all()),
+                  f"ladder Greeks {label}: delta ladder not falling")
+        phase("book-path", f"ladder Greeks {label} 2^24 (K22) vs BS"
+              + (" (put by parity)" if opt.kind == "put" else "")
+              + ": max |z| " + ", ".join(f"{f}={z:.2f}"
+                                         for f, z in zs.items())
+              + (f" (gate {gate}); delta ladder falling"
+                 if opt.kind == "call" else f" (gate {gate})"))
+
+    # Book (K23): the 64-instrument serving book at 4.5 sigma; the
+    # reference's 4-instrument chip book at 4 sigma.
+    book = VanillaBook.serving(64)
+    res = mt.price_book(book, n, SEED)
+    zb = sigma_gate(res, bs_book(mcmath, book)["price"], 4.5,
+                    "book 64 instruments")
+    ref4 = VanillaBook.from_options([
+        VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0),
+        VanillaOption(100.0, 120.0, 0.05, 0.3, 0.5),
+        VanillaOption(95.0, 90.0, 0.03, 0.15, 2.0, kind="put"),
+        VanillaOption(120.0, 100.0, 0.01, 0.25, 0.25, kind="put")])
+    z4 = sigma_gate(mt.price_book(ref4, n, SEED),
+                    bs_book(mcmath, ref4)["price"], 4.0, "book 4 instruments")
+    phase("book-path", f"book 64 instruments 2^24 (K23) vs BS: max |z| "
+                       f"{zb:.2f} (gate 4.5); reference 4-instrument book max "
+                       f"|z| {z4:.2f} (gate 4)")
+
+    # The ties: a one-instrument book (K23) and a one-strike ladder (K21)
+    # against price_vanilla (K1) at the same seed.
+    ties = {}
+    for opt in (call, dataclasses.replace(put, k=95.0)):
+        van = mt.price_vanilla(opt, n, SEED)
+        for label, got in (
+                ("K23 M=1", mt.price_book(VanillaBook.from_options([opt]), n,
+                                          SEED)),
+                ("K21 K=1", mt.price_vanilla_ladder(opt, [opt.k], n, SEED))):
+            rel = max(abs(float(getattr(got, f)[0]) / float(getattr(van, f))
+                          - 1) for f in ("sum_p", "sum_p2", "price"))
+            bitwise = all(float(getattr(got, f)[0]) == float(getattr(van, f))
+                          for f in ("sum_p", "sum_p2"))
+            check(rel <= 2e-5, f"{label} {opt.kind} vs K1: relative "
+                               f"difference {rel:.2e}")
+            ties[f"{label} {opt.kind}"] = (rel, bitwise)
+    phase("book-path", "ties vs price_vanilla (K1) at 2^24: " + ", ".join(
+        f"{k} rel {rel:.2e} {'bitwise' if bw else 'not bitwise'}"
+        for k, (rel, bw) in ties.items()))
+
+    # Book Greeks (K24): all six outputs at 4.5 sigma; the reference's
+    # 2-instrument gate at 4 sigma.
+    g = mt.greeks_book(book, n, SEED)
+    want = bs_book(mcmath, book)
+    zs = {f: sigma_gate(getattr(g, f), want[f], 4.5, f"book Greeks {f}")
+          for f in fields}
+    two = VanillaBook.from_options([ref4.option(0), ref4.option(2)])
+    want2 = bs_book(mcmath, two)
+    g2 = mt.greeks_book(two, n, SEED)
+    z2 = max(sigma_gate(getattr(g2, f), want2[f], 4.0,
+                        f"book Greeks 2 instruments {f}") for f in fields)
+    phase("book-path", "book Greeks 64 instruments 2^24 (K24) vs BS (puts "
+          "by parity): max |z| " + ", ".join(f"{f}={z:.2f}"
+                                             for f, z in zs.items())
+          + f" (gate 4.5); reference 2-instrument book max |z| {z2:.2f}")
+
+    # A market tick reprices through the same compiled library.
+    lib, so = _build.library(), _build.build()
+    tick = dataclasses.replace(book, s=np.asarray(book.s) * 1.01,
+                               v=np.asarray(book.v) * 0.98)
+    rt = mt.price_book(tick, n, SEED)
+    zt = sigma_gate(rt, bs_book(mcmath, tick)["price"], 4.5, "ticked book")
+    check(_build.library() is lib and _build.build() == so,
+          "the tick rebuilt the kernel library")
+    check(not torch.equal(rt.price, res.price), "the tick moved no price")
+    phase("book-path", f"tick (s x 1.01, v x 0.98): repriced through the "
+                       f"same library {so.name}, max |z| {zt:.2f}")
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -705,15 +888,18 @@ def main() -> int:
     from mctpu_torch.kernels import asian as kasian
     from mctpu_torch.kernels import barrier as kbarrier
     from mctpu_torch.kernels import basket as kbasket
+    from mctpu_torch.kernels import book as kbook
     from mctpu_torch.kernels import cliquet as kcliquet
     from mctpu_torch.kernels import cva as kcva
     from mctpu_torch.kernels import greeks as kgreeks
+    from mctpu_torch.kernels import ladder as kladder
     from mctpu_torch.kernels import lookback as klookback
     from mctpu_torch.kernels import vanilla as kvanilla
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
     from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
                                    CliquetOption, CvaPortfolioSpec, CvaSpec,
-                                   LookbackOption, Precision, VanillaOption)
+                                   LookbackOption, Precision, VanillaBook,
+                                   VanillaOption)
 
     check(Path(mctpu_torch.__file__).resolve().is_relative_to(ROOT),
           f"mctpu_torch imported from {mctpu_torch.__file__}, not this "
@@ -913,10 +1099,62 @@ def main() -> int:
                      lambda off, n: plain(off, n, plan),
                      units=units(plan) if greek else None)
 
+    # The strike ladder and the vanilla book (K21-K24) at K and M of 1, 5
+    # and 64: calls, puts and a mixed book, antithetic and Kahan on and off.
+    def flat(x):
+        return x.reshape(x.shape[0], -1)
+
+    variants = (("call", False, True), ("put", False, False),
+                ("call", True, False), ("put", True, True))
+    for n_k in (1, 5, 64):
+        ks = kladder.strike_vector(np.linspace(50.0, 150.0, n_k), dev)
+        for kind, anti, kahan in variants:
+            o = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0, kind=kind)
+            plan = kladder.make_plan(nb * iters * 2 * rows * 128
+                                     * (2 if anti else 1), nb, rows, anti,
+                                     kahan)
+            put = kind == "put"
+            tag = (f"K={n_k} {kind}{' antithetic' if anti else ''}"
+                   f"{'' if kahan else ' f32'}")
+            par, gp = kladder.params(o, dev), kladder.greek_params(o, dev)
+            contract(f"K21 {tag}",
+                     lambda off, n: flat(kladder.partials(par, ks, SEED, off,
+                                                          plan, n, put)),
+                     lambda off, n: flat(kladder.plain_partials(
+                         par, ks, SEED, off, plan, n, put)))
+            contract(f"K22 {tag}",
+                     lambda off, n: flat(kladder.greek_partials(
+                         gp, ks, SEED, off, plan, n, put)),
+                     lambda off, n: flat(kladder.greek_plain_partials(
+                         gp, ks, SEED, off, plan, n, put)),
+                     units=units(plan))
+    for m in (1, 5, 64):
+        for kind, anti, kahan in (
+                ("mixed", False, True), ("put", False, False),
+                ("call", True, False), ("mixed", True, True)):
+            bk = VanillaBook.serving(m, kind)
+            plan = kbook.make_plan(nb * iters * 2 * rows * 128
+                                   * (2 if anti else 1), nb, rows, anti, kahan)
+            tag = (f"M={m} {kind}{' antithetic' if anti else ''}"
+                   f"{'' if kahan else ' f32'}")
+            par, cvec = kbook.params(bk, dev), kbook.greek_const_rows(bk, dev)
+            contract(f"K23 {tag}",
+                     lambda off, n: flat(kbook.partials(par, SEED, off, plan,
+                                                        n)),
+                     lambda off, n: flat(kbook.plain_partials(par, SEED, off,
+                                                              plan, n)))
+            contract(f"K24 {tag}",
+                     lambda off, n: flat(kbook.greek_partials(
+                         cvec, SEED, off, plan, n)),
+                     lambda off, n: flat(kbook.greek_plain_partials(
+                         cvec, SEED, off, plan, n)),
+                     units=units(plan))
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
-                klookback.LAUNCHES, kcliquet.LAUNCHES)
+                klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
+                kbook.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -1026,9 +1264,17 @@ def main() -> int:
     phase("lookback-cliquet-path",
           f"done in {time.perf_counter() - t_lc:.1f} s")
 
+    # ---- 4e. the strike-ladder and vanilla-book path at full width -------
+    reset_counts()
+    t_book = time.perf_counter()
+    book_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(BOOK_KERNELS))
+    phase("book-path", f"done in {time.perf_counter() - t_book:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
-                   + LOOKBACK_KERNELS + CLIQUET_KERNELS)
+                   + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -1047,11 +1293,11 @@ def main() -> int:
     kernels = []
 
     def estimates(outs, plan, disc):
-        """The price (and, for CVA, the EE profile) the engine forms from
-        these partials."""
-        sums = mcest.combine_block_partials(outs[0])
-        vals = [mcest.estimate(*sums, plan.total_units,
-                               discount=disc).price.reshape(1)]
+        """The price (the ``(B, 2K)`` ladder's or book's prices, and, for
+        CVA, the EE profile) the engine forms from these partials."""
+        sums = pairwise_tree_sum(outs[0].double(), 0).cpu()
+        vals = [mcest.estimate(sums[0::2], sums[1::2], plan.total_units,
+                               discount=disc).price.reshape(-1)]
         if len(outs) > 1:
             vals.append(pairwise_tree_sum(outs[1].double(), 0).cpu()
                         / plan.total_units)
@@ -1240,6 +1486,55 @@ def main() -> int:
               lambda: fn(0, plan.num_blocks, plan),
               lambda: plain(0, plan.num_blocks, plan),
               walk_work(kname, plan, steps),
+              units=gunits(plan) if greek else None, plain_reps=3)
+
+    # The book path's shapes: 64 strikes 50..150 on the call, and the
+    # 64-instrument serving book, at 2^24 paths.
+    n_bk = 1 << 24
+    call = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
+    ks64 = np.linspace(50.0, 150.0, 64)
+    book64 = VanillaBook.serving(64)
+    disc_lad = math.exp(-call.r * call.t)
+    disc_book = torch.exp(-torch.as_tensor(book64.r) * torch.as_tensor(
+        book64.t))
+    plan, par, ks = engine.ladder_setup(call, ks64, n_bk, cfg)
+    _, gp, _ = engine.greeks_vanilla_ladder_setup(call, ks64, n_bk, cfg)
+    _, bpar = engine.book_setup(book64, n_bk, cfg)
+    _, cvec = engine.greeks_book_setup(book64, n_bk, cfg)
+    nbl = plan.num_blocks
+    for kname, replaces, kernel, plain, disc, in_bytes, greek in (
+            ("ladder", "mctpu/kernels/ladder.py:104",
+             lambda: kladder.partials(par, ks, SEED, 0, plan, nbl, False),
+             lambda: kladder.plain_partials(par, ks, SEED, 0, plan, nbl,
+                                            False),
+             disc_lad, 4 * (3 + 64), False),
+            ("ladder_greeks", "mctpu/kernels/ladder.py:294",
+             lambda: kladder.greek_partials(gp, ks, SEED, 0, plan, nbl,
+                                            False),
+             lambda: kladder.greek_plain_partials(gp, ks, SEED, 0, plan, nbl,
+                                                  False),
+             disc_lad, 4 * (9 + 64), True),
+            ("book", "mctpu/kernels/book.py:122",
+             lambda: kbook.partials(bpar, SEED, 0, plan, nbl),
+             lambda: kbook.plain_partials(bpar, SEED, 0, plan, nbl),
+             disc_book, 4 * 5 * 64, False),
+            ("book_greeks", "mctpu/kernels/book.py:292",
+             lambda: kbook.greek_partials(cvec, SEED, 0, plan, nbl),
+             lambda: kbook.greek_plain_partials(cvec, SEED, 0, plan, nbl),
+             disc_book.repeat_interleave(6), 4 * 13 * 64, True)):
+        # The bound counts one draw per path, the least the function needs;
+        # the groups' redraws are this design's cost, printed beside it.
+        groups = -(-64 // BOOK_GROUPS[kname])
+        redrawn = bound(book_work(kname, plan, 64), 0)
+        phase("times", f"{kname}: {groups} groups of {BOOK_GROUPS[kname]}, "
+                       f"so each normal is drawn {groups} times (the redraw "
+                       f"factor); the bound below counts one draw per path, "
+                       f"with the redraws counted it would be "
+                       f"{redrawn[0]:.4f} ms ({redrawn[2]})")
+        timed(kname, f"mctpu_torch/csrc/{kname.split('_')[0]}.cu", replaces,
+              plan, 1, disc, lambda f=kernel: flat(f()),
+              lambda f=plain: flat(f()),
+              book_work(kname, plan, 64, redraw=False), in_bytes=in_bytes,
               units=gunits(plan) if greek else None, plain_reps=3)
 
     print(json.dumps({"kernels": kernels}), flush=True)

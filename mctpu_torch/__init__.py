@@ -1,28 +1,31 @@
 """mctpu_torch — the PyTorch/CUDA port of mctpu for NVIDIA Hopper (H100).
 
-The main path of the JAX package and its first single-asset walks, on one
-GPU: vanilla, basket, CVA, Asian, knock-out barrier, lookback and cliquet
-pricing and their in-kernel Greeks through hand-written CUDA kernels
-(``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use), per-block
-partial sums, a fixed-order float64 combine and the reference estimator.
-:mod:`mctpu_torch.autodiff` adds the autodiff and bump-and-revalue tier.  Each kernel has a plain PyTorch
-version beside it, which runs for CPU tensors.  Imports neither jax nor
-mctpu.
+The main path of the JAX package, its single-asset walks and its serving
+sweeps, on one GPU: vanilla, basket, CVA, Asian, knock-out barrier,
+lookback and cliquet pricing, strike ladders and vanilla books, and their
+in-kernel Greeks through hand-written CUDA kernels (``csrc/``, built with
+``nvcc`` for ``sm_90a`` at first use), per-block partial sums, a
+fixed-order float64 combine and the reference estimator.
+:mod:`mctpu_torch.autodiff` adds the autodiff and bump-and-revalue tier.
+Each kernel has a plain PyTorch version beside it, which runs for CPU
+tensors.  Imports neither jax nor mctpu.
 """
 from mctpu_torch import math
 from mctpu_torch.engine import (EngineConfig, greeks, greeks_asian,
-                                greeks_barrier, greeks_basket,
+                                greeks_barrier, greeks_basket, greeks_book,
                                 greeks_cliquet, greeks_cva, greeks_lookback,
-                                greeks_vanilla, price_asian, price_barrier,
-                                price_basket, price_cliquet, price_cva,
+                                greeks_vanilla, greeks_vanilla_ladder,
+                                price_asian, price_barrier, price_basket,
+                                price_book, price_cliquet, price_cva,
                                 price_cva_portfolio, price_lookback,
-                                price_vanilla)
+                                price_vanilla, price_vanilla_ladder)
 from mctpu_torch.rng import seed_from_generator
 from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
                                CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, LookbackOption, McResult,
-                               Precision, VanillaOption, from_reference)
+                               Precision, VanillaBook, VanillaOption,
+                               from_reference)
 
 __all__ = [
     "EngineConfig",
@@ -34,6 +37,8 @@ __all__ = [
     "price_barrier",
     "price_lookback",
     "price_cliquet",
+    "price_vanilla_ladder",
+    "price_book",
     "greeks",
     "greeks_vanilla",
     "greeks_basket",
@@ -42,9 +47,12 @@ __all__ = [
     "greeks_barrier",
     "greeks_lookback",
     "greeks_cliquet",
+    "greeks_vanilla_ladder",
+    "greeks_book",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
+    "VanillaBook",
     "BasketOption",
     "CvaSpec",
     "CvaPortfolioSpec",

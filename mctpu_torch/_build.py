@@ -24,19 +24,22 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
-           "cliquet.cu")
+           "cliquet.cu", "ladder.cu", "book.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-# Per-source flags.  The single-asset walks take no FMA contraction, so each
-# path rounds as the plain version's separate operations do and their
-# discontinuities (knock-out, in-the-money indicator, arg-extreme, the
-# cliquet's band mask) fall on the same side (see the head of csrc/asian.cu).
+# Per-source flags.  The single-asset walks, the strike ladder and the book
+# take no FMA contraction, so each path rounds as the plain version's
+# separate operations do: their discontinuities (knock-out, in-the-money
+# indicator, arg-extreme, the cliquet's band mask) fall on the same side
+# (see the head of csrc/asian.cu), and a deep out-of-the-money strike's
+# st - k and an antithetic pair's cancelling gamma terms are exact as
+# there (see the head of csrc/ladder.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
-                             "cliquet.cu")}
+                             "cliquet.cu", "ladder.cu", "book.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -81,6 +84,14 @@ _SIGNATURES = {
                     "mctpu_barrier_greeks", "mctpu_lookback",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
                     "mctpu_cliquet_greeks")},
+    # The strike ladder (K21, K22): par, strikes, n_strikes, seed, off,
+    # n_blocks, rows, iters, antithetic, put, kahan, out, stream
+    **{name: (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+       for name in ("mctpu_ladder", "mctpu_ladder_greeks")},
+    # The vanilla book (K23, K24): table, n_instruments, seed, off,
+    # n_blocks, rows, iters, antithetic, kahan, out, stream
+    **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+       for name in ("mctpu_book", "mctpu_book_greeks")},
 }
 
 _lib = None

@@ -181,6 +181,11 @@ struct BlockAccN {
       out[static_cast<size_t>(blockIdx.x) * N + threadIdx.x] = __fadd_rn(s, c);
     }
   }
+
+  // The first n <= N partials, to dst[0 .. n) (compensation folded in).
+  __device__ __forceinline__ void write_n(float* dst, int n) const {
+    if (threadIdx.x < n) dst[threadIdx.x] = __fadd_rn(s, c);
+  }
 };
 
 }  // namespace mct

@@ -13,13 +13,16 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 word (the value ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
 JAX package's kernels in interpret mode, so a run here matches that run
-block by block.  :func:`greeks` and the ``greeks_*`` drivers run the Greek
-kernels over the pricers' paths (common random numbers with ``price_*``).  PyTorch runs eagerly: there is no jit cache.
+block by block; so do :func:`price_vanilla_ladder` and :func:`price_book`,
+which return vector results.  :func:`greeks` and the ``greeks_*`` drivers
+run the Greek kernels over the pricers' paths (common random numbers with
+``price_*``).  PyTorch runs eagerly: there is no jit cache.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from mctpu_torch import estimator as mcest
@@ -27,9 +30,11 @@ from mctpu_torch import math as mcmath
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import basket as kbasket
+from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
+from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels.common import LANES, walk_plan
@@ -39,18 +44,20 @@ from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
                                CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, LookbackOption, McResult,
-                               Precision, VanillaOption)
+                               Precision, VanillaBook, VanillaOption)
 
 __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "price_cva_portfolio", "price_asian", "price_barrier",
-           "price_lookback", "price_cliquet", "vanilla_setup",
-           "basket_setup", "cva_setup", "asian_setup", "barrier_setup",
-           "lookback_setup", "cliquet_setup", "greeks", "greeks_vanilla",
+           "price_lookback", "price_cliquet", "price_vanilla_ladder",
+           "price_book", "vanilla_setup", "basket_setup", "cva_setup",
+           "asian_setup", "barrier_setup", "lookback_setup", "cliquet_setup",
+           "ladder_setup", "book_setup", "greeks", "greeks_vanilla",
            "greeks_basket", "greeks_cva", "greeks_asian", "greeks_barrier",
-           "greeks_lookback", "greeks_cliquet", "greeks_vanilla_setup",
-           "greeks_basket_setup", "greeks_cva_setup", "greeks_asian_setup",
-           "greeks_barrier_setup", "greeks_lookback_setup",
-           "greeks_cliquet_setup"]
+           "greeks_lookback", "greeks_cliquet", "greeks_vanilla_ladder",
+           "greeks_book", "greeks_vanilla_setup", "greeks_basket_setup",
+           "greeks_cva_setup", "greeks_asian_setup", "greeks_barrier_setup",
+           "greeks_lookback_setup", "greeks_cliquet_setup",
+           "greeks_vanilla_ladder_setup", "greeks_book_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,14 +131,20 @@ def _walk_plan(n_paths: int, config: EngineConfig, ds: bool = False):
                      config.precision.kahan, ds=ds)
 
 
+def _terminal_plan(n_paths: int, config: EngineConfig):
+    """K1's plan, which every terminal-draw kernel runs (K1, K6, K21-K24):
+    ``2 * rows * 128`` units per (block, iteration), both Box-Muller
+    branches."""
+    anti = 2 if config.antithetic else 1
+    blocks, rows = config.layout_for(n_paths, 2 * LANES * anti)
+    return kvanilla.make_plan(n_paths, blocks, rows, config.antithetic,
+                              config.precision.kahan)
+
+
 def vanilla_setup(opt: VanillaOption, n_paths: int, config: EngineConfig):
     """``(plan, params)``: the launch :func:`price_vanilla` makes."""
     dev = config.torch_device()
-    anti = 2 if config.antithetic else 1
-    blocks, rows = config.layout_for(n_paths, 2 * LANES * anti)
-    plan = kvanilla.make_plan(n_paths, blocks, rows, config.antithetic,
-                              config.precision.kahan)
-    return plan, kvanilla.params(opt, dev)
+    return _terminal_plan(n_paths, config), kvanilla.params(opt, dev)
 
 
 def price_vanilla(opt: VanillaOption, n_paths: int, seed: int,
@@ -294,6 +307,80 @@ def price_cliquet(opt: CliquetOption, n_paths: int, seed: int,
     return _price(partials, plan, opt.r, opt.t)
 
 
+def _check_strikes(strikes) -> None:
+    n_k = int(np.asarray(strikes, np.float64).shape[0])
+    if not 1 <= n_k <= kladder.MAX_STRIKES:
+        raise ValueError(f"strikes must have 1..{kladder.MAX_STRIKES} "
+                         f"entries, got {n_k}")
+
+
+def ladder_setup(opt: VanillaOption, strikes, n_paths: int,
+                 config: EngineConfig):
+    """``(plan, params, strikes)``: the launch :func:`price_vanilla_ladder`
+    makes (K1's plan)."""
+    _check_strikes(strikes)
+    dev = config.torch_device()
+    return (_terminal_plan(n_paths, config), kladder.params(opt, dev),
+            kladder.strike_vector(strikes, dev))
+
+
+def price_vanilla_ladder(opt: VanillaOption, strikes, n_paths: int,
+                         seed: int,
+                         config: EngineConfig = EngineConfig()) -> McResult:
+    """Price a strike ladder of 1 to 64 strikes from one path sweep (K21):
+    a vector :class:`McResult` whose fields have shape ``(K,)``.  Every
+    strike reuses the same terminal draws, so call spreads and butterflies
+    of the ladder are arbitrage-consistent up to MC noise; ``opt.k`` is
+    ignored."""
+    opt.validate()
+    plan, par, ks = ladder_setup(opt, strikes, n_paths, config)
+    partials = kladder.partials(par, ks, wrap_int32(seed), 0, plan,
+                                plan.num_blocks, opt.kind == "put")
+    total = _total(partials)
+    return mcest.estimate(total[:, 0], total[:, 1], plan.total_units,
+                          discount=_discount(opt.r, opt.t),
+                          n_paths=plan.total_paths)
+
+
+def _check_book(book: VanillaBook) -> None:
+    book.validate()
+    m = book.n_instruments
+    if m > kbook.MAX_BOOK:
+        raise ValueError(f"book holds {m} instruments; max {kbook.MAX_BOOK}"
+                         " per fused sweep (split larger books)")
+
+
+def _book_discount(book: VanillaBook) -> torch.Tensor:
+    """Each instrument's own float64 ``exp(-r_i t_i)``."""
+    r, t = (torch.tensor(np.asarray(x, np.float64).reshape(-1),
+                         dtype=mcmath.wide_dtype()) for x in (book.r, book.t))
+    return torch.exp(-r * t)
+
+
+def book_setup(book: VanillaBook, n_paths: int, config: EngineConfig):
+    """``(plan, params)``: the launch :func:`price_book` makes (K1's
+    plan)."""
+    _check_book(book)
+    dev = config.torch_device()
+    return _terminal_plan(n_paths, config), kbook.params(book, dev)
+
+
+def price_book(book: VanillaBook, n_paths: int, seed: int,
+               config: EngineConfig = EngineConfig()) -> McResult:
+    """Price a book of 1 to 64 heterogeneous calls and puts from one path
+    sweep (K23): a vector :class:`McResult` of shape ``(M,)``, each
+    instrument discounted by its own ``exp(-r_i t_i)``.  All instruments
+    share the standard-normal draws, so the marks are comonotone across the
+    book; a one-instrument book equals :func:`price_vanilla`."""
+    plan, par = book_setup(book, n_paths, config)
+    partials = kbook.partials(par, wrap_int32(seed), 0, plan,
+                              plan.num_blocks)
+    total = _total(partials)
+    return mcest.estimate(total[:, 0], total[:, 1], plan.total_units,
+                          discount=_book_discount(book),
+                          n_paths=plan.total_paths)
+
+
 # ---------------------------------------------------------------------------
 # Greeks: the pricing kernels' paths, with the Greek integrands summed beside
 # the payoff (K5-K8); every output is a full estimate with its own CI.
@@ -315,11 +402,7 @@ def greeks_vanilla_setup(opt: VanillaOption, n_paths: int,
                          config: EngineConfig):
     """``(plan, params)``: the launch :func:`greeks_vanilla` makes."""
     dev = config.torch_device()
-    anti = 2 if config.antithetic else 1
-    blocks, rows = config.layout_for(n_paths, 2 * LANES * anti)
-    plan = kgreeks.make_plan(n_paths, blocks, rows, config.antithetic,
-                             config.precision.kahan)
-    return plan, kgreeks.params(opt, dev)
+    return _terminal_plan(n_paths, config), kgreeks.params(opt, dev)
 
 
 def greeks_vanilla(opt: VanillaOption, n_paths: int, seed: int,
@@ -521,6 +604,62 @@ def greeks_cliquet(opt: CliquetOption, n_paths: int, seed: int,
                           n_paths=plan.total_paths)
     return GreeksResult(price=price, delta=zero, vega=vega, rho=rho,
                         theta=theta, gamma=zero)
+
+
+def _vector_greeks(total, plan, discount) -> GreeksResult:
+    """Price, delta, vega, rho, theta and gamma of ``(K, 12)`` combined
+    partials, each a vector :class:`McResult`."""
+    price, delta, vega, rho, theta, gamma = _estimates(
+        total.T, plan.total_units, plan, discount)
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho,
+                        theta=theta, gamma=gamma)
+
+
+def greeks_vanilla_ladder_setup(opt: VanillaOption, strikes, n_paths: int,
+                                config: EngineConfig):
+    """``(plan, params, strikes)``: the launch :func:`greeks_vanilla_ladder`
+    makes (the ladder pricer's plan)."""
+    _check_strikes(strikes)
+    dev = config.torch_device()
+    return (_terminal_plan(n_paths, config), kladder.greek_params(opt, dev),
+            kladder.strike_vector(strikes, dev))
+
+
+def greeks_vanilla_ladder(opt: VanillaOption, strikes, n_paths: int,
+                          seed: int,
+                          config: EngineConfig = EngineConfig()
+                          ) -> GreeksResult:
+    """The per-strike risk ladder from one path sweep (K22): price, delta,
+    vega, rho, theta and gamma at every strike, each a vector
+    :class:`McResult` of shape ``(K,)``, over :func:`price_vanilla_ladder`'s
+    paths.  The integrands are K6's; the call delta ladder falls in the
+    strike path by path."""
+    opt.validate()
+    plan, gp, ks = greeks_vanilla_ladder_setup(opt, strikes, n_paths, config)
+    partials = kladder.greek_partials(gp, ks, wrap_int32(seed), 0, plan,
+                                      plan.num_blocks, opt.kind == "put")
+    return _vector_greeks(_total(partials), plan, _discount(opt.r, opt.t))
+
+
+def greeks_book_setup(book: VanillaBook, n_paths: int, config: EngineConfig):
+    """``(plan, table)``: the launch :func:`greeks_book` makes (the book
+    pricer's plan)."""
+    _check_book(book)
+    dev = config.torch_device()
+    return _terminal_plan(n_paths, config), kbook.greek_const_rows(book, dev)
+
+
+def greeks_book(book: VanillaBook, n_paths: int, seed: int,
+                config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """The whole book's risk run from one path sweep (K24): price, delta,
+    vega, rho, theta and gamma of every instrument, each a vector
+    :class:`McResult` of shape ``(M,)``, over :func:`price_book`'s paths.
+    Delta and vega are with respect to each instrument's own spot and vol
+    (the diagonal of the book's Jacobian)."""
+    plan, cvec = greeks_book_setup(book, n_paths, config)
+    partials = kbook.greek_partials(cvec, wrap_int32(seed), 0, plan,
+                                    plan.num_blocks)
+    return _vector_greeks(_total(partials), plan, _book_discount(book))
 
 
 def greeks(opt, n_paths: int, seed: int,

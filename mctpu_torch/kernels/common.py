@@ -255,6 +255,48 @@ def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
     return acc_final_n(carry)
 
 
+def terminal_partials(draw_sums, n_sums: int, seed: int, block_offset: int,
+                      plan: Plan, n_blocks: int, device) -> torch.Tensor:
+    """Per-block ``(n_blocks, n_sums)`` partials of a terminal-draw kernel
+    over K1's stream (K21-K24): block ``b`` is seeded ``(seed,
+    block_offset + b)`` and iteration ``i`` draws counter ``i``.
+    ``draw_sums(z)`` returns the ``n_sums`` per-block sums of one
+    Box-Muller branch's tile ``z``; the two branches' sums are added, then
+    Kahan-added over iterations if ``plan.kahan``."""
+    key = block_keys(seed, [block_offset + b for b in range(n_blocks)],
+                     device)
+    idx = tile_index(plan.rows * LANES, device)
+    carry = acc_init_n(n_sums, n_blocks, device)
+    for i in range(plan.iters):
+        z1, z2 = draw_normal_pair(key, idx, i)
+        sums = [a + b for a, b in zip(draw_sums(z1), draw_sums(z2))]
+        carry = acc_add_n(carry, sums, plan.kahan)
+    return acc_final_n(carry)
+
+
+def launch_terminal(entry: str, ptrs, n_items: int, n_sums: int, seed: int,
+                    block_offset: int, plan: Plan, n_blocks: int, device,
+                    flags=()) -> torch.Tensor:
+    """Launch a ladder or book kernel (K21-K24) on ``device`` and return its
+    ``(n_blocks, n_items, n_sums)`` partials.  Their C signatures are
+    ``(*ptrs, n_items, seed, block_offset, n_blocks, rows, iters,
+    antithetic, *flags, kahan, out, stream)``.  The caller checks the
+    operands; raises on a failed launch."""
+    if n_blocks < 1:
+        raise ValueError("n_blocks must be >= 1")
+    lib = _build.library()
+    with torch.cuda.device(device):
+        out = torch.empty((n_blocks, n_items, n_sums), dtype=torch.float32,
+                          device=device)
+        status = getattr(lib, entry)(
+            *ptrs, n_items, wrap_int32(seed), wrap_int32(block_offset),
+            n_blocks, plan.rows, plan.iters, int(plan.antithetic),
+            *(int(f) for f in flags), int(plan.kahan), out.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(status, entry)
+    return out
+
+
 def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
                 seed: int, block_offset: int, plan: Plan, n_blocks: int,
                 n_obs: int, mode: int) -> torch.Tensor:

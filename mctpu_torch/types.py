@@ -21,6 +21,7 @@ import torch
 __all__ = [
     "Precision",
     "VanillaOption",
+    "VanillaBook",
     "BasketOption",
     "CvaSpec",
     "CvaPortfolioSpec",
@@ -79,6 +80,80 @@ class VanillaOption:
             raise ValueError("volatility must be non-negative")
         if float(self.t) <= 0:
             raise ValueError("time to maturity must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaBook:
+    """A book of M independent European calls and puts, priced in one
+    sweep on shared draws (:func:`mctpu_torch.engine.price_book`).
+
+    ``s, k, r, v, t`` have shape ``(M,)``; ``kinds`` is a length-M tuple of
+    ``"call"``/``"put"``.  Every value is runtime data of the kernel, so a
+    market tick reprices through the same compiled library.
+    """
+
+    s: Any
+    k: Any
+    r: Any
+    v: Any
+    t: Any
+    kinds: tuple = ()
+
+    @property
+    def n_instruments(self) -> int:
+        return int(np.shape(self.s)[0])
+
+    @staticmethod
+    def from_options(options) -> "VanillaBook":
+        """A book of a sequence of :class:`VanillaOption`."""
+        opts = list(options)
+
+        def col(f):
+            return np.asarray([float(getattr(o, f)) for o in opts], np.float64)
+
+        return VanillaBook(s=col("s"), k=col("k"), r=col("r"), v=col("v"),
+                           t=col("t"), kinds=tuple(o.kind for o in opts))
+
+    @staticmethod
+    def serving(m: int = 64, kind: str = "mixed") -> "VanillaBook":
+        """The first ``m`` instruments of the 64-instrument serving book
+        (``benchmarks/book_rate_r4.py``): s=100, k = 80 + 40 (j mod 5) / 4,
+        r=0.05, v = 0.15 + 0.05 (j mod 4), t = 0.5 + 0.5 (j mod 3); calls
+        and puts alternate for ``kind="mixed"``, else all are ``kind``."""
+        return VanillaBook.from_options([
+            VanillaOption(100.0, 80.0 + 40.0 * (j % 5) / 4, 0.05,
+                          0.15 + 0.05 * (j % 4), 0.5 + 0.5 * (j % 3),
+                          kind=("call", "put")[j % 2] if kind == "mixed"
+                          else kind)
+            for j in range(m)])
+
+    def option(self, i: int) -> VanillaOption:
+        """Instrument ``i`` as a standalone :class:`VanillaOption`."""
+        return VanillaOption(*(float(np.asarray(x)[i]) for x in
+                               (self.s, self.k, self.r, self.v, self.t)),
+                             kind=self.kinds[i])
+
+    def validate(self) -> None:
+        m = self.n_instruments
+        if m < 1:
+            raise ValueError("book must hold at least one instrument")
+        for name, x in (("s", self.s), ("k", self.k), ("r", self.r),
+                        ("v", self.v), ("t", self.t)):
+            if np.shape(x) != (m,):
+                raise ValueError(f"{name} must have shape ({m},), "
+                                 f"got {np.shape(x)}")
+        if len(self.kinds) != m:
+            raise ValueError(f"kinds must have {m} entries, "
+                             f"got {len(self.kinds)}")
+        if any(kd not in ("call", "put") for kd in self.kinds):
+            raise ValueError("kinds entries must be 'call' or 'put'")
+        s, k, v, t = (np.asarray(x) for x in (self.s, self.k, self.v, self.t))
+        if not (np.all(s > 0) and np.all(k > 0)):
+            raise ValueError("spots and strikes must be positive")
+        if np.any(v < 0):
+            raise ValueError("volatilities must be non-negative")
+        if np.any(t <= 0):
+            raise ValueError("maturities must be positive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,9 +471,13 @@ class McResult:
     n_paths: int = 0
 
     def __repr__(self):
-        return (f"McResult(price={float(self.price):.6f}, "
-                f"ci=±{float(self.ci):.6f}, n={self.n}, "
-                f"n_paths={self.n_paths})")
+        if self.price.numel() == 1:
+            body = f"price={float(self.price):.6f}, ci=±{float(self.ci):.6f}"
+        else:  # a vector result (a ladder, a book, a basket's deltas): pairs
+            pairs = ", ".join(f"{p:.4f}±{c:.4f}" for p, c in zip(
+                self.price.reshape(-1).tolist(), self.ci.reshape(-1).tolist()))
+            body = f"prices=[{pairs}]"
+        return f"McResult({body}, n={self.n}, n_paths={self.n_paths})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,8 +560,9 @@ class CvaGreeksResult:
 
 
 _RECORDS = {cls.__name__: cls for cls in
-            (VanillaOption, BasketOption, CvaSpec, CvaPortfolioSpec,
-             AsianOption, BarrierOption, LookbackOption, CliquetOption)}
+            (VanillaOption, VanillaBook, BasketOption, CvaSpec,
+             CvaPortfolioSpec, AsianOption, BarrierOption, LookbackOption,
+             CliquetOption)}
 
 
 def _carry(value):
@@ -490,6 +570,8 @@ def _carry(value):
         return from_reference(value)
     if isinstance(value, str):
         return value
+    if isinstance(value, tuple) and all(isinstance(x, str) for x in value):
+        return tuple(str(x) for x in value)  # a book's kinds
     arr = np.asarray(value, np.float64)
     return float(arr) if arr.ndim == 0 else arr
 
@@ -500,8 +582,8 @@ def from_reference(obj):
     Matches by class name and field names; every numeric field is read
     through ``np.asarray`` (scalars become Python floats, vectors float64
     arrays), except the fields the port's record declares ``int``
-    (``n_grid``, ``n_obs``, ``n_periods``), which stay ints; strings stay
-    strings.
+    (``n_grid``, ``n_obs``, ``n_periods``), which stay ints; strings, and
+    tuples of strings (a book's ``kinds``), stay so.
     """
     if isinstance(obj, enum.Enum):
         return Precision(obj.value)

@@ -25,15 +25,17 @@ from mctpu_torch import _build
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import basket as kbasket
+from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
+from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
                                CliquetOption, CvaPortfolioSpec, CvaSpec,
-                               LookbackOption, VanillaOption)
+                               LookbackOption, VanillaBook, VanillaOption)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -326,6 +328,49 @@ def test_cliquet_kernels_match_plain(dev, case):
         units=_units(plan))
 
 
+@pytest.mark.parametrize("n_strikes", [1, 5, 64])
+@pytest.mark.parametrize("kind", ["call", "put"])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_ladder_kernels_match_plain(dev, n_strikes, kind, antithetic):
+    opt = VanillaOption(100., 100., 0.04879, 0.2, 1., kind=kind)
+    ks = kladder.strike_vector(np.linspace(50., 150., n_strikes), dev)
+    plan = kladder.make_plan(2 * NB * 2 * 32 * 128, NB, 32, antithetic,
+                             kind == "call")  # Kahan on for calls only
+    put = kind == "put"
+    par, gp = kladder.params(opt, dev), kladder.greek_params(opt, dev)
+    flat = (lambda x: x.reshape(x.shape[0], -1))
+    _contract(
+        lambda off, nb: flat(kladder.partials(par, ks, SEED, off, plan, nb,
+                                              put)),
+        lambda off, nb: flat(kladder.plain_partials(par, ks, SEED, off, plan,
+                                                    nb, put)))
+    _contract(
+        lambda off, nb: flat(kladder.greek_partials(gp, ks, SEED, off, plan,
+                                                    nb, put)),
+        lambda off, nb: flat(kladder.greek_plain_partials(gp, ks, SEED, off,
+                                                          plan, nb, put)),
+        units=_units(plan))
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+@pytest.mark.parametrize("kind", ["call", "put", "mixed"])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_book_kernels_match_plain(dev, m, kind, antithetic):
+    book = VanillaBook.serving(m, kind)
+    plan = kbook.make_plan(2 * NB * 2 * 32 * 128, NB, 32, antithetic,
+                           kind != "put")  # Kahan off for the puts
+    par, cvec = kbook.params(book, dev), kbook.greek_const_rows(book, dev)
+    flat = (lambda x: x.reshape(x.shape[0], -1))
+    _contract(
+        lambda off, nb: flat(kbook.partials(par, SEED, off, plan, nb)),
+        lambda off, nb: flat(kbook.plain_partials(par, SEED, off, plan, nb)))
+    _contract(
+        lambda off, nb: flat(kbook.greek_partials(cvec, SEED, off, plan, nb)),
+        lambda off, nb: flat(kbook.greek_plain_partials(cvec, SEED, off, plan,
+                                                        nb)),
+        units=_units(plan))
+
+
 def test_launch_counters_count_kernel_launches(dev):
     par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
     plan = kvanilla.make_plan(1, 2, 8, False)
@@ -363,6 +408,25 @@ def test_launch_counters_count_kernel_launches(dev):
             fn(par, 1, 0, wplan, 2, *extra)
             plain(par, 1, 0, wplan, 2, *extra)
             assert kmod.LAUNCHES[key] == before + 1, key
+    opt = VanillaOption(100., 100., 0.05, 0.2, 1.)
+    book = VanillaBook.serving(5)
+    ks = kladder.strike_vector([90., 100., 110.], dev)
+    for kmod, key, fn, plain, ops in (
+            (kladder, "ladder", kladder.partials, kladder.plain_partials,
+             (kladder.params(opt, dev), ks)),
+            (kladder, "ladder_greeks", kladder.greek_partials,
+             kladder.greek_plain_partials, (kladder.greek_params(opt, dev),
+                                            ks)),
+            (kbook, "book", kbook.partials, kbook.plain_partials,
+             (kbook.params(book, dev),)),
+            (kbook, "book_greeks", kbook.greek_partials,
+             kbook.greek_plain_partials,
+             (kbook.greek_const_rows(book, dev),))):
+        extra = (False,) if kmod is kladder else ()
+        before = kmod.LAUNCHES[key]
+        fn(*ops, 1, 0, plan, 2, *extra)
+        plain(*ops, 1, 0, plan, 2, *extra)
+        assert kmod.LAUNCHES[key] == before + 1, key
 
 
 def test_bad_operands_raise(dev):
@@ -386,3 +450,16 @@ def test_bad_operands_raise(dev):
         klookback.partials(apar, 1, 0, plan, 2, 4, 4)
     with pytest.raises(ValueError):
         kcliquet.greek_partials(apar, 1, 0, plan, 2, 4)
+    opt = VanillaOption(100., 100., 0.05, 0.2, 1.)
+    lpar = kladder.params(opt, dev)
+    with pytest.raises(ValueError):  # 65 strikes
+        kladder.partials(lpar, kladder.strike_vector(np.ones(65), dev), 1, 0,
+                         plan, 2, False)
+    with pytest.raises(ValueError):  # the price operands to K22
+        kladder.greek_partials(lpar, kladder.strike_vector([100.], dev), 1,
+                               0, plan, 2, False)
+    table = kbook.params(VanillaBook.serving(3), dev)
+    with pytest.raises(ValueError):  # K23's table to K24
+        kbook.greek_partials(table, 1, 0, plan, 2)
+    with pytest.raises(ValueError):  # 65 instruments
+        kbook.partials(torch.ones((5, 65), device=dev), 1, 0, plan, 2)

@@ -31,14 +31,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 20240607
+PROFILE_TRIES = 3  # profiles of one call before an empty trace is an error
 
 
 def calls(mt):
     """``(label, kernel, fn)``: each entry point at its main-path shape;
     ``kernel`` is the name of the CUDA kernel it launches."""
+    import numpy as np
+
     from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
                                    CliquetOption, CvaSpec, LookbackOption,
-                                   VanillaOption)
+                                   VanillaBook, VanillaOption)
 
     van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
     b3, b100 = (BasketOption.default_reference(3),
@@ -53,6 +56,8 @@ def calls(mt):
     cq = CliquetOption(100.0, 0.03, 0.2, 1.0, n_periods=12, cap=0.05,
                        floor=-0.02)
     n22, n24 = 1 << 22, 1 << 24
+    ks = np.linspace(50.0, 150.0, 64)
+    book = VanillaBook.serving(64)
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -92,6 +97,14 @@ def calls(mt):
          lambda: mt.price_cliquet(cq, n24, SEED)),
         ("greeks_cliquet n=12, 2^24", "cliquet_greeks_kernel",
          lambda: mt.greeks(cq, n24, SEED)),
+        ("price_vanilla_ladder 64 strikes, 2^24", "ladder_kernel",
+         lambda: mt.price_vanilla_ladder(van, ks, n24, SEED)),
+        ("greeks_vanilla_ladder 64 strikes, 2^24", "ladder_greeks_kernel",
+         lambda: mt.greeks_vanilla_ladder(van, ks, n24, SEED)),
+        ("price_book 64 instruments, 2^24", "book_kernel",
+         lambda: mt.price_book(book, n24, SEED)),
+        ("greeks_book 64 instruments, 2^24", "book_greeks_kernel",
+         lambda: mt.greeks_book(book, n24, SEED)),
     ]
 
 
@@ -102,20 +115,26 @@ def is_kernel(name: str, kernel: str) -> bool:
 
 
 def profile(fn, kernel: str):
-    """``(device ms, kernel ms)`` of one call under torch.profiler."""
+    """``(device ms, kernel ms)`` of one call under torch.profiler.  Now and
+    then the profiler keeps none of a call's device events; such a call is
+    profiled again, up to PROFILE_TRIES times in all."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.time_range.elapsed_us() for e in dev)
-    kernel_us = sum(e.time_range.elapsed_us() for e in dev
-                    if is_kernel(e.name, kernel))
-    if kernel_us <= 0:
-        raise RuntimeError(f"the profiler saw no {kernel} launch")
-    return device_us / 1e3, kernel_us / 1e3
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.time_range.elapsed_us() for e in dev)
+        kernel_us = sum(e.time_range.elapsed_us() for e in dev
+                        if is_kernel(e.name, kernel))
+        if kernel_us > 0:
+            return device_us / 1e3, kernel_us / 1e3
+    raise RuntimeError(f"the profiler saw no {kernel} launch in "
+                       f"{PROFILE_TRIES} "
+                       f"tries; device events: "
+                       f"{sorted({e.name for e in dev})[:8]}")
 
 
 def wall_ms(fn, reps: int = 7) -> float:
