@@ -9,12 +9,14 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the twenty kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the twenty-four kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
    barrier, lookback and cliquet walks at an odd step count of 13; the
-   ladder and the book at 1, 5 and 64 strikes or instruments): equal
+   ladder and the book at 1, 5 and 64 strikes or instruments; the
+   variance swap at 1, 13 and 252 dates; the barrier book at 1, 5 and 32
+   instruments and 1, 7 and 50 dates): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -41,7 +43,13 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    prices and all six Greeks against Black-Scholes at 4.5 standard errors,
    the reference's small gates at 4; the one-strike ladder and the
    one-instrument book against ``price_vanilla``; a market tick through
-   the same library);
+   the same library) and the variance-swap path (the fair strike at 252,
+   52 and 12 dates and 2^22 paths, and its vega, rho and theta, against
+   the exact discrete oracle and its derivatives) and the barrier-book
+   path (the 32-instrument serving book at 2^22 paths: calls against
+   ``price_barrier``, puts against a float64 oracle, the Greeks against
+   ``greeks_barrier`` and a CRN bump, the one-instrument tie with
+   ``price_barrier``, a tick that flips a direction);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -78,6 +86,8 @@ EXOTIC_KERNELS = ("asian", "asian_greeks", "barrier", "barrier_greeks")
 LOOKBACK_KERNELS = ("lookback", "lookback_greeks")
 CLIQUET_KERNELS = ("cliquet", "cliquet_greeks")
 BOOK_KERNELS = ("ladder", "ladder_greeks", "book", "book_greeks")
+VARSWAP_KERNELS = ("varswap", "varswap_greeks")
+BARRIER_BOOK_KERNELS = ("barrier_book", "barrier_book_greeks")
 
 # ---- the bound of phase 6 ---------------------------------------------------
 # Peak instruction rates of one H100 SXM at 700 W: 132 SMs at the clock its
@@ -110,7 +120,7 @@ def work(draws=0.0, expf=0.0, div=0.0, f32=0.0):
                  for c in range(3))
 
 
-# The walk kernels (K4, K5, K9, K10, K12, K13, K15-K18) beyond their draws,
+# The walk kernels (K4, K5, K9, K10, K12, K13, K15-K20) beyond their draws,
 # counted from their sources: (expf per step, expf per path, IEEE divides
 # per step, per path, float32 operations per step, per path, and per
 # estimator unit for its sums: Acc2's compensated pair, or BlockAccN's
@@ -127,6 +137,8 @@ WALK_OPS = {
     "lookback_greeks": (0, 2, 0, 1, 14, 12, 12),
     "cliquet": (1, 0, 0, 0, 7, 0, 11),
     "cliquet_greeks": (1, 0, 0, 0, 19, 6, 12),
+    "varswap": (0, 0, 0, 0, 4, 1, 11),
+    "varswap_greeks": (0, 0, 0, 0, 5, 9, 12),
 }
 
 
@@ -163,6 +175,26 @@ def book_work(kname: str, plan, items: int, redraw: bool = True):
     p = plan.total_paths
     return work(draws=p * groups, expf=p * (e_g * groups + e_i * items),
                 f32=p * (f_i * items + f_g * groups))
+
+
+# The barrier book (K25, K26), counted from its source: float32 operations
+# per path-step shared by the book (K26's z_1 select and its sum z and sum
+# z^2), per instrument-step (the step's add, multiply and add, the
+# compare's subtract, multiply and set, the alive mask's select) and per
+# instrument and path (the payoff's subtract, multiply, max and select, in
+# K26 the three scores, and the (x, x^2) sums); one expf per instrument and
+# path.  Every path draws its walk once for the whole book.
+BB_OPS = {"barrier_book": (0, 7, 7), "barrier_book_greeks": (4, 7, 26)}
+
+
+def bb_work(kname: str, plan, items: int, steps: int):
+    """Instruction counts of a barrier-book kernel's run over ``items``
+    instruments and ``steps`` dates: one walk per path, as the kernel
+    draws."""
+    f_s, f_is, f_ip = BB_OPS[kname]
+    p = plan.total_paths
+    return work(draws=p * 2 * -(-steps // 2), expf=p * items,
+                f32=p * (steps * (f_s + items * f_is) + items * f_ip))
 
 
 def bound(ops, nbytes):
@@ -874,6 +906,203 @@ def book_path(mt, mcmath) -> None:
                        f"same library {so.name}, max |z| {zt:.2f}")
 
 
+def varswap_path(mt) -> None:
+    """The variance swap at full width (2^22 paths, the default
+    EngineConfig: 128 blocks x 256 rows x 1 iteration) through
+    ``fair_variance_strike`` and ``greeks_varswap``, against the exact
+    discrete fair strike ``v^2 + mu^2 T / n`` (mu = r - v^2/2) and its
+    derivatives: vega ``2 v - 2 v mu T / n``, rho ``2 mu T / n`` and theta
+    (d/dT) ``mu^2 / n``."""
+    from mctpu_torch.types import VanillaOption
+
+    n = 1 << 22
+    r, v, t = 0.05, 0.2, 1.0
+    opt = VanillaOption(100.0, 100.0, r, v, t)
+    mu = r - 0.5 * v * v
+    strikes, zs = {}, {}
+    for n_obs in (252, 52, 12):
+        res = mt.fair_variance_strike(opt, n, SEED, n_obs=n_obs)
+        want = v * v + mu * mu * t / n_obs
+        zs[n_obs] = within_sigma(res.price, want, res.std_error,
+                                 f"fair strike n_obs={n_obs}")
+        strikes[n_obs] = res
+    phase("varswap-path", "fair strike 2^22 (K19) vs v^2 + mu^2 T/n: "
+          + ", ".join(f"n_obs={k} {float(res.price):.7f} (exact "
+                      f"{v * v + mu * mu * t / k:.7f}, z={zs[k]:.2f})"
+                      for k, res in strikes.items()))
+    for n_obs in (16, 252):
+        g = mt.greeks_varswap(opt, n, SEED, n_obs=n_obs)
+        want = {"price": v * v + mu * mu * t / n_obs,
+                "vega": 2 * v - 2 * v * mu * t / n_obs,
+                "rho": 2 * mu * t / n_obs, "theta": mu * mu / n_obs}
+        zs = {f: within_sigma(getattr(g, f).price, w, getattr(g, f).std_error,
+                              f"varswap n_obs={n_obs} {f}")
+              for f, w in want.items()}
+        check(float(g.delta.price) == 0.0 and float(g.delta.std_error) == 0.0,
+              f"varswap n_obs={n_obs}: delta is not an exact 0 +- 0")
+        p = float(mt.fair_variance_strike(opt, n, SEED, n_obs=n_obs).price)
+        rel = abs(float(g.price.price) / p - 1)
+        # The same per-path realized variances, summed in another order.
+        check(rel <= 1e-6, f"varswap n_obs={n_obs}: Greeks price "
+                           f"{float(g.price.price):.8f} vs fair strike "
+                           f"{p:.8f}")
+        phase("varswap-path", f"Greeks n_obs={n_obs} 2^22 (K20) vs the "
+              "oracle's derivatives: z " + ", ".join(
+                  f"{f}={z:.2f}" for f, z in zs.items())
+              + f"; delta exact 0 +- 0; price vs fair strike rel {rel:.1e}")
+
+
+def barrier_oracle(book, i: int, n_paths: int, seed: int):
+    """``(price, std_error)`` of instrument ``i`` of a barrier book from a
+    float64 walk over ``torch.randn`` normals of its own generator on the
+    card (the discrete walk of ``tests/test_book.py``'s NumPy oracle)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s0, k, r, v, t, b = (float(np.asarray(x)[i]) for x in
+                         (book.s, book.k, book.r, book.v, book.t,
+                          book.barrier))
+    g = book.n_obs
+    dt = t / g
+    z = torch.randn((g, n_paths), generator=gen, dtype=torch.float64,
+                    device=dev)
+    logs = math.log(s0) + torch.cumsum((r - 0.5 * v * v) * dt
+                                       + v * math.sqrt(dt) * z, 0)
+    up = book.directions[i] == "up-and-out"
+    alive = ((logs < math.log(b)) if up else (logs > math.log(b))).all(0)
+    st = torch.exp(logs[-1])
+    pay = alive * torch.clamp(st - k if book.kinds[i] == "call" else k - st,
+                              min=0.0)
+    disc = math.exp(-r * t)
+    return (disc * float(pay.mean()),
+            disc * float(pay.std()) / math.sqrt(n_paths))
+
+
+def barrier_book_path(mt) -> None:
+    """The barrier book at full width (the 32-instrument serving book,
+    n_obs=50, 2^22 paths, the default EngineConfig: 128 blocks x 256 rows
+    x 1 iteration) through ``price_barrier_book`` and
+    ``greeks_barrier_book``: each call against ``price_barrier`` and
+    ``greeks_barrier`` of its own option on an independent seed, each put
+    against a float64 oracle, a put's delta against a CRN bump; the
+    one-instrument tie with ``price_barrier`` (K12); two identical
+    instruments; a tick that flips a direction."""
+    from mctpu_torch import _build
+    from mctpu_torch.types import BarrierBook
+
+    n = 1 << 22
+    book = BarrierBook.serving(32)
+    calls = [i for i, kd in enumerate(book.kinds) if kd == "call"]
+    puts = [i for i, kd in enumerate(book.kinds) if kd == "put"]
+
+    def against_singles(res, bk, single, seed0, what, fields=None):
+        """Largest distance, in combined standard errors, of each call's
+        estimate from ``single(option, n, seed)`` on its own seed: the
+        price, or each of ``fields`` of a Greeks result."""
+        worst = 0.0
+        for i in calls:
+            one = single(bk.option(i), n, seed0 + i)
+            pairs = ([(f, getattr(res, f), getattr(one, f)) for f in fields]
+                     if fields else [("price", res, one)])
+            for f, got, ref in pairs:
+                se = math.hypot(float(got.std_error[i]),
+                                float(ref.std_error))
+                z = abs(float(got.price[i]) - float(ref.price)) / se
+                check(z < 4.5, f"{what} instrument {i} {f}: "
+                               f"{float(got.price[i]):.6f} vs "
+                               f"{float(ref.price):.6f}, {z:.2f} standard "
+                               "errors (gate 4.5)")
+                worst = max(worst, z)
+        return worst
+
+    # Prices (K25): calls against price_barrier (K12), puts against the
+    # float64 oracle at 2^20 paths.
+    res = mt.price_barrier_book(book, n, SEED)
+    check(res.price.shape == (32,) and bool(torch.isfinite(res.price).all()),
+          "barrier book: bad result")
+    zc = against_singles(res, book, mt.price_barrier, SEED + 1,
+                         "barrier book")
+    zp = 0.0
+    for i in puts:
+        want, se_o = barrier_oracle(book, i, 1 << 20, SEED + 100 + i)
+        se = math.hypot(float(res.std_error[i]), se_o)
+        z = abs(float(res.price[i]) - want) / se
+        check(z < 4.5, f"barrier book put {i}: {float(res.price[i]):.6f} vs "
+                       f"oracle {want:.6f}, {z:.2f} standard errors")
+        zp = max(zp, z)
+    phase("barrier-book-path", f"serving book 32 instruments n_obs=50 2^22 "
+          f"(K25): {len(calls)} up-and-out calls vs price_barrier (K12) "
+          f"on their own seeds, max |z| {zc:.2f}; {len(puts)} down-and-out "
+          f"puts vs a float64 oracle at 2^20, max |z| {zp:.2f} (gate 4.5): "
+          f"{res!r}")
+
+    # The ties: one instrument against K12 at the same seed; two identical
+    # instruments give identical marks.
+    uo = book.option(0)
+    one = mt.price_barrier_book(BarrierBook.from_options([uo]), n, SEED)
+    single = mt.price_barrier(uo, n, SEED)
+    rel = max(abs(float(getattr(one, f)[0]) / float(getattr(single, f)) - 1)
+              for f in ("sum_p", "sum_p2", "price"))
+    bitwise = all(float(getattr(one, f)[0]) == float(getattr(single, f))
+                  for f in ("sum_p", "sum_p2"))
+    check(rel <= 2e-5, f"M=1 barrier book vs K12: relative difference "
+                       f"{rel:.2e}")
+    twin = BarrierBook.from_options([uo, uo])
+    pt, gt = (mt.price_barrier_book(twin, n, SEED),
+              mt.greeks_barrier_book(twin, n, SEED))
+    for f, r in (("price", pt), ("greeks price", gt.price),
+                 ("delta", gt.delta), ("vega", gt.vega), ("rho", gt.rho)):
+        check(torch.equal(r.sum_p[0], r.sum_p[1])
+              and torch.equal(r.sum_p2[0], r.sum_p2[1]),
+              f"two identical instruments: {f} marks differ")
+    phase("barrier-book-path", f"M=1 book vs price_barrier (K12) at 2^22: "
+          f"rel {rel:.2e}, {'bitwise' if bitwise else 'not bitwise'}; two "
+          "identical instruments: identical price, delta, vega and rho")
+
+    # Greeks (K26): calls against greeks_barrier (K13) on their own seeds;
+    # the first put's delta against a CRN bump of price_barrier_book.
+    g = mt.greeks_barrier_book(book, n, SEED)
+    check(g.theta is None and g.gamma is None, "barrier book: theta/gamma")
+    zg = against_singles(g, book, mt.greeks_barrier, SEED + 1,
+                         "barrier book Greeks",
+                         fields=("price", "delta", "vega", "rho"))
+    i = puts[0]
+
+    def priced(x):
+        s = np.asarray(book.s, float).copy()
+        s[i] = x
+        return float(mt.price_barrier_book(dataclasses.replace(book, s=s), n,
+                                           SEED).price[i])
+
+    fd = priced(100.5) - priced(99.5)
+    got, se = float(g.delta.price[i]), float(g.delta.std_error[i])
+    check(abs(got - fd) < 6 * se + 5e-3,
+          f"barrier book put {i} delta {got:.6f} vs CRN bump {fd:.6f} (se "
+          f"{se:.2e})")
+    rel_p = float(((g.price.price / res.price) - 1).abs().max())
+    check(rel_p <= 1e-6, f"Greeks prices vs price_barrier_book: rel {rel_p}")
+    phase("barrier-book-path", f"Greeks 2^22 (K26) vs greeks_barrier (K13) "
+          f"on the calls: max |z| {zg:.2f} (gate 4.5); put {i} delta "
+          f"{got:.6f} vs CRN bump {fd:.6f} ({abs(got - fd) / se:.2f} se); "
+          f"prices vs price_barrier_book rel {rel_p:.1e}")
+
+    # A tick: spots up 1%, vols down 1%, and instrument 0 turned from
+    # up-and-out at 130 to down-and-out at 80, through the same library.
+    lib, so = _build.library(), _build.build()
+    tick = dataclasses.replace(
+        book, s=np.asarray(book.s) * 1.01, v=np.asarray(book.v) * 0.99,
+        barrier=np.concatenate([[80.0], np.asarray(book.barrier)[1:]]),
+        directions=("down-and-out",) + book.directions[1:])
+    rt = mt.price_barrier_book(tick, n, SEED)
+    zt = against_singles(rt, tick, mt.price_barrier, SEED + 1,
+                         "ticked barrier book")
+    check(_build.library() is lib and _build.build() == so,
+          "the tick rebuilt the kernel library")
+    check(not torch.equal(rt.price, res.price), "the tick moved no price")
+    phase("barrier-book-path", f"tick (s x 1.01, v x 0.99, instrument 0 "
+          f"down-and-out at 80): repriced through the same library "
+          f"{so.name}, calls vs price_barrier max |z| {zt:.2f}")
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -887,6 +1116,7 @@ def main() -> int:
     from mctpu_torch import math as mcmath
     from mctpu_torch.kernels import asian as kasian
     from mctpu_torch.kernels import barrier as kbarrier
+    from mctpu_torch.kernels import barrier_book as kbb
     from mctpu_torch.kernels import basket as kbasket
     from mctpu_torch.kernels import book as kbook
     from mctpu_torch.kernels import cliquet as kcliquet
@@ -895,9 +1125,11 @@ def main() -> int:
     from mctpu_torch.kernels import ladder as kladder
     from mctpu_torch.kernels import lookback as klookback
     from mctpu_torch.kernels import vanilla as kvanilla
+    from mctpu_torch.kernels import varswap as kvarswap
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
-    from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                                   CliquetOption, CvaPortfolioSpec, CvaSpec,
+    from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                                   BasketOption, CliquetOption,
+                                   CvaPortfolioSpec, CvaSpec,
                                    LookbackOption, Precision, VanillaBook,
                                    VanillaOption)
 
@@ -1150,11 +1382,58 @@ def main() -> int:
                          cvec, SEED, off, plan, n)),
                      units=units(plan))
 
+    # The variance swap (K19, K20) at 1, 13 and 252 dates.
+    vs_opt = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
+    for n_obs, anti, kahan in ((1, False, True), (13, False, False),
+                               (13, True, True), (252, False, True),
+                               (252, True, False)):
+        plan = kvarswap.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                                  nb, rows, anti, kahan)
+        tag = (f"n_obs={n_obs}{' antithetic' if anti else ''}"
+               f"{'' if kahan else ' f32'}")
+        par = kvarswap.params(vs_opt, n_obs, dev)
+        gp = kvarswap.greek_params(vs_opt, n_obs, dev)
+        contract(f"K19 {tag}",
+                 lambda off, n: kvarswap.partials(par, SEED, off, plan, n,
+                                                  n_obs),
+                 lambda off, n: kvarswap.plain_partials(par, SEED, off, plan,
+                                                        n, n_obs))
+        contract(f"K20 {tag}",
+                 lambda off, n: kvarswap.greek_partials(gp, SEED, off, plan,
+                                                        n, n_obs),
+                 lambda off, n: kvarswap.greek_plain_partials(
+                     gp, SEED, off, plan, n, n_obs),
+                 units=units(plan))
+    # The barrier book (K25, K26) at M of 1, 5 and 32 and 1, 7 and 50 dates:
+    # the serving mix (calls up-and-out, puts down-and-out) and all calls.
+    for m, n_obs, kind, anti, kahan in (
+            (1, 7, "call", False, True), (1, 50, "call", True, False),
+            (5, 1, "mixed", True, True), (5, 50, "mixed", False, False),
+            (32, 7, "call", False, True), (32, 50, "mixed", False, True),
+            (32, 50, "mixed", True, False)):
+        bk = dataclasses.replace(BarrierBook.serving(m, kind), n_obs=n_obs)
+        plan = kbb.make_plan(nb * iters * rows * 128 * (2 if anti else 1), nb,
+                             rows, anti, kahan)
+        tag = (f"M={m} n_obs={n_obs} {kind}{' antithetic' if anti else ''}"
+               f"{'' if kahan else ' f32'}")
+        par, gp = kbb.book_params(bk, dev), kbb.greek_rows(bk, dev)
+        contract(f"K25 {tag}",
+                 lambda off, n: flat(kbb.partials(par, SEED, off, plan, n,
+                                                  n_obs)),
+                 lambda off, n: flat(kbb.plain_partials(par, SEED, off, plan,
+                                                        n, n_obs)))
+        contract(f"K26 {tag}",
+                 lambda off, n: flat(kbb.greek_partials(gp, SEED, off, plan, n,
+                                                        n_obs)),
+                 lambda off, n: flat(kbb.greek_plain_partials(
+                     gp, SEED, off, plan, n, n_obs)),
+                 units=units(plan))
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
-                kbook.LAUNCHES)
+                kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -1272,9 +1551,26 @@ def main() -> int:
     launches.update(read_counts(BOOK_KERNELS))
     phase("book-path", f"done in {time.perf_counter() - t_book:.1f} s")
 
+    # ---- 4f. the variance-swap path at full width ------------------------
+    reset_counts()
+    t_vs = time.perf_counter()
+    varswap_path(mctpu_torch)
+    torch.cuda.synchronize()
+    launches.update(read_counts(VARSWAP_KERNELS))
+    phase("varswap-path", f"done in {time.perf_counter() - t_vs:.1f} s")
+
+    # ---- 4g. the barrier-book path at full width -------------------------
+    reset_counts()
+    t_bb = time.perf_counter()
+    barrier_book_path(mctpu_torch)
+    torch.cuda.synchronize()
+    launches.update(read_counts(BARRIER_BOOK_KERNELS))
+    phase("barrier-book-path", f"done in {time.perf_counter() - t_bb:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
-                   + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS)
+                   + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
+                   + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -1535,6 +1831,45 @@ def main() -> int:
               plan, 1, disc, lambda f=kernel: flat(f()),
               lambda f=plain: flat(f()),
               book_work(kname, plan, 64, redraw=False), in_bytes=in_bytes,
+              units=gunits(plan) if greek else None, plain_reps=3)
+
+    # The variance-swap path's shape: 252 dates, 2^22 paths.
+    plan, vpar = engine.varswap_setup(vs_opt, n_ex, cfg, 252)
+    _, vgp = engine.greeks_varswap_setup(vs_opt, n_ex, cfg, 252)
+    nbl = plan.num_blocks
+    for kname, replaces, kernel, plain, greek in (
+            ("varswap", "mctpu/kernels/varswap.py:123",
+             lambda: kvarswap.partials(vpar, SEED, 0, plan, nbl, 252),
+             lambda: kvarswap.plain_partials(vpar, SEED, 0, plan, nbl, 252),
+             False),
+            ("varswap_greeks", "mctpu/kernels/varswap.py:382",
+             lambda: kvarswap.greek_partials(vgp, SEED, 0, plan, nbl, 252),
+             lambda: kvarswap.greek_plain_partials(vgp, SEED, 0, plan, nbl,
+                                                   252),
+             True)):
+        timed(kname, "mctpu_torch/csrc/varswap.cu", replaces, plan, 252, 1.0,
+              kernel, plain, walk_work(kname, plan, 252),
+              units=gunits(plan) if greek else None, plain_reps=3)
+
+    # The barrier-book path's shape: the 32-instrument serving book, 50
+    # dates, 2^22 paths.
+    bbook = BarrierBook.serving(32)
+    plan, bpar = engine.barrier_book_setup(bbook, n_ex, cfg)
+    _, bgp = engine.greeks_barrier_book_setup(bbook, n_ex, cfg)
+    nbl = plan.num_blocks
+    disc_bb = torch.exp(-torch.as_tensor(bbook.r) * torch.as_tensor(bbook.t))
+    for kname, replaces, kernel, plain, disc, in_bytes, greek in (
+            ("barrier_book", "mctpu/kernels/barrier_book.py:174",
+             lambda: kbb.partials(bpar, SEED, 0, plan, nbl, 50),
+             lambda: kbb.plain_partials(bpar, SEED, 0, plan, nbl, 50),
+             disc_bb, 4 * 7 * 32, False),
+            ("barrier_book_greeks", "mctpu/kernels/barrier_book.py:344",
+             lambda: kbb.greek_partials(bgp, SEED, 0, plan, nbl, 50),
+             lambda: kbb.greek_plain_partials(bgp, SEED, 0, plan, nbl, 50),
+             disc_bb.repeat_interleave(4), 4 * 13 * 32, True)):
+        timed(kname, "mctpu_torch/csrc/barrier_book.cu", replaces, plan, 50,
+              disc, lambda f=kernel: flat(f()), lambda f=plain: flat(f()),
+              bb_work(kname, plan, 32, 50), in_bytes=in_bytes,
               units=gunits(plan) if greek else None, plain_reps=3)
 
     print(json.dumps({"kernels": kernels}), flush=True)

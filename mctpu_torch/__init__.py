@@ -2,7 +2,8 @@
 
 The main path of the JAX package, its single-asset walks and its serving
 sweeps, on one GPU: vanilla, basket, CVA, Asian, knock-out barrier,
-lookback and cliquet pricing, strike ladders and vanilla books, and their
+lookback and cliquet pricing, the variance swap's fair strike (GBM),
+strike ladders, vanilla books and barrier books, and their
 in-kernel Greeks through hand-written CUDA kernels (``csrc/``, built with
 ``nvcc`` for ``sm_90a`` at first use), per-block partial sums, a
 fixed-order float64 combine and the reference estimator.
@@ -11,17 +12,20 @@ Each kernel has a plain PyTorch version beside it, which runs for CPU
 tensors.  Imports neither jax nor mctpu.
 """
 from mctpu_torch import math
-from mctpu_torch.engine import (EngineConfig, greeks, greeks_asian,
-                                greeks_barrier, greeks_basket, greeks_book,
-                                greeks_cliquet, greeks_cva, greeks_lookback,
-                                greeks_vanilla, greeks_vanilla_ladder,
-                                price_asian, price_barrier, price_basket,
-                                price_book, price_cliquet, price_cva,
+from mctpu_torch.engine import (EngineConfig, fair_variance_strike, greeks,
+                                greeks_asian, greeks_barrier,
+                                greeks_barrier_book, greeks_basket,
+                                greeks_book, greeks_cliquet, greeks_cva,
+                                greeks_lookback, greeks_vanilla,
+                                greeks_vanilla_ladder, greeks_varswap,
+                                price_asian, price_barrier,
+                                price_barrier_book, price_basket, price_book,
+                                price_cliquet, price_cva,
                                 price_cva_portfolio, price_lookback,
                                 price_vanilla, price_vanilla_ladder)
 from mctpu_torch.rng import seed_from_generator
-from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                               CliquetOption, CvaGreeksResult,
+from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                               BasketOption, CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, LookbackOption, McResult,
                                Precision, VanillaBook, VanillaOption,
@@ -39,6 +43,8 @@ __all__ = [
     "price_cliquet",
     "price_vanilla_ladder",
     "price_book",
+    "price_barrier_book",
+    "fair_variance_strike",
     "greeks",
     "greeks_vanilla",
     "greeks_basket",
@@ -49,6 +55,8 @@ __all__ = [
     "greeks_cliquet",
     "greeks_vanilla_ladder",
     "greeks_book",
+    "greeks_barrier_book",
+    "greeks_varswap",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
@@ -58,6 +66,7 @@ __all__ = [
     "CvaPortfolioSpec",
     "AsianOption",
     "BarrierOption",
+    "BarrierBook",
     "LookbackOption",
     "CliquetOption",
     "McResult",

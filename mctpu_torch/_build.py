@@ -24,13 +24,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
-           "cliquet.cu", "ladder.cu", "book.cu")
+           "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
+           "barrier_book.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
-# Per-source flags.  The single-asset walks, the strike ladder and the book
+# Per-source flags.  The single-asset walks, the strike ladder and the books
 # take no FMA contraction, so each path rounds as the plain version's
 # separate operations do: their discontinuities (knock-out, in-the-money
 # indicator, arg-extreme, the cliquet's band mask) fall on the same side
@@ -39,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # there (see the head of csrc/ladder.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
-                             "cliquet.cu", "ladder.cu", "book.cu")}
+                             "cliquet.cu", "ladder.cu", "book.cu",
+                             "varswap.cu", "barrier_book.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -75,15 +77,16 @@ _SIGNATURES = {
     # iters, antithetic, kahan, wwr, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P),
-    # The single-asset walks (K9, K10, K12, K13, K15-K18): scal, n_obs (the
+    # The single-asset walks (K9, K10, K12, K13, K15-K20): scal, n_obs (the
     # cliquet's n_periods), seed, off, n_blocks, rows, iters, antithetic,
     # kahan, mode (geometric Asian, up-and-out barrier, 2 * fixed + put for
-    # the lookback, 0 for the cliquet), out, stream
+    # the lookback, 0 for the cliquet and the variance swap), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_asian_greeks", "mctpu_barrier",
                     "mctpu_barrier_greeks", "mctpu_lookback",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
-                    "mctpu_cliquet_greeks")},
+                    "mctpu_cliquet_greeks", "mctpu_varswap",
+                    "mctpu_varswap_greeks")},
     # The strike ladder (K21, K22): par, strikes, n_strikes, seed, off,
     # n_blocks, rows, iters, antithetic, put, kahan, out, stream
     **{name: (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
@@ -92,6 +95,10 @@ _SIGNATURES = {
     # n_blocks, rows, iters, antithetic, kahan, out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_book", "mctpu_book_greeks")},
+    # The barrier book (K25, K26): table, n_instruments, seed, off,
+    # n_blocks, rows, iters, antithetic, n_obs, kahan, out, stream
+    **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+       for name in ("mctpu_barrier_book", "mctpu_barrier_book_greeks")},
 }
 
 _lib = None

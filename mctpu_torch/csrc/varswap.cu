@@ -1,0 +1,198 @@
+// K19 and K20, GBM leg: the variance swap's fair strike (K19) and its vega,
+// rho and theta (K20), one realized-variance walk per path.
+//
+// K19 replaces the GBM branch of mctpu/kernels/varswap.py::_varswap_kernel,
+// K20 that of ::_varswap_greeks_kernel.  The stream is K9's and K12's
+// (csrc/asian.cu): reseed per (block, iteration) with (seed, (off + b) *
+// iters + i), pairs of dates per Philox block, an odd n_obs taking the
+// cosine branch of the last pair.  Each path sums lr^2 (and, in K20, lr)
+// with lr = drift + vol z over n_obs dates; K19 pays rv = acc / T, K20 forms
+// (rv, vega, rho, theta) from the two sums in mctpu's _gbm_greek_quants
+// order (mctpu_torch/kernels/varswap.py, _greek_quants).  The antithetic
+// mirror's z is -z of the same draw: both signs step in one walk over one
+// draw per date (the JAX kernel reseeds and draws again), and the pair's
+// mean 0.5 (x + x_mirror) is formed before the sums, per quantity.
+//
+// Built with -fmad=false (mctpu_torch/_build.py), as every walk: the walk
+// has no discontinuity, but a contracted drift + vol * z would round each
+// log-return otherwise than the plain version does.  1 / v is an IEEE
+// division (no fast math), as the plain version's.
+//
+// Bound on the H100: the draws.  Per path-step half a Philox block (20
+// 32-bit integer multiplies and XORs) and half a Box-Muller, beside 4 (K19)
+// or 5 (K20) float32 operations: the integer pipe bounds it, 252 dates make
+// 126 Philox blocks a path.  Simple design, as K12 and K13: one CUDA block
+// per simulation block, one thread per path element striding over the
+// (rows, 128) tile, state in registers; K19 sums with mct::Acc2, K20 with
+// mct::BlockAccN per iteration.  No atomics: two launches give the same
+// bits.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 1024;        // K19
+constexpr int GREEK_THREADS = 512;   // K20
+constexpr int N_SUMS = 8;            // (sum, sum^2) of rv, vega, rho, theta
+
+// K19: the realized variance of tile element e's path (the antithetic
+// pair's mean when ANTI).
+template <bool ANTI>
+__device__ __forceinline__ float realized_variance(float inv_t, float drift,
+                                                   float vol, int n_obs,
+                                                   mct::Key key, uint32_t e) {
+  float acc = 0.0f, acc_m = 0.0f;
+  mct::walk_pairwise(key, e, n_obs, [&](int, float z) {
+    const float lr = drift + vol * z;
+    acc = acc + lr * lr;
+    if (ANTI) {
+      const float lm = drift + vol * (-z);
+      acc_m = acc_m + lm * lm;
+    }
+  });
+  const float rv = acc * inv_t;
+  return ANTI ? 0.5f * (rv + acc_m * inv_t) : rv;
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(THREADS)
+    varswap_kernel(const float* __restrict__ scal, int n_obs, uint32_t seed,
+                   uint32_t off, int n_elems, int iters,
+                   float* __restrict__ out) {
+  // scal: 1/t, drift, vol
+  const float inv_t = scal[0], drift = scal[1], vol = scal[2];
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      acc.add(realized_variance<ANTI>(inv_t, drift, vol, n_obs, key,
+                                      static_cast<uint32_t>(e)));
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
+}
+
+// K20's scalars (mctpu_torch/kernels/varswap.py, greek_params) and the
+// products of them that _greek_quants forms, once per thread.
+struct GreekScal {
+  float inv_t, drift, vol, two_inv_t, inv_v, v_dt, rho_c, theta_c;
+};
+
+__device__ __forceinline__ GreekScal greek_scal(const float* scal) {
+  const float inv_t = scal[0], drift = scal[1], v = scal[3], dt = scal[4];
+  return GreekScal{inv_t,          drift,
+                   scal[2],        2.0f * inv_t,
+                   1.0f / v,       v * dt,
+                   (2.0f * dt) * inv_t, (drift * inv_t) * inv_t};
+}
+
+// (rv, vega, rho, theta) of the two sums a2 = sum lr^2, a1 = sum lr.
+__device__ __forceinline__ void greek_quants(const GreekScal& c, float a2,
+                                             float a1, float (&q)[4]) {
+  q[0] = a2 * c.inv_t;
+  q[1] = c.two_inv_t * ((a2 - c.drift * a1) * c.inv_v - c.v_dt * a1);
+  q[2] = c.rho_c * a1;
+  q[3] = c.theta_c * a1;
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(GREEK_THREADS)
+    varswap_greeks_kernel(const float* __restrict__ scal, int n_obs,
+                          uint32_t seed, uint32_t off, int n_elems, int iters,
+                          float* __restrict__ out) {
+  __shared__ float sh[(GREEK_THREADS / 32) * N_SUMS];
+  const GreekScal c = greek_scal(scal);
+  mct::BlockAccN<GREEK_THREADS, N_SUMS, KAHAN> acc;
+  float v[N_SUMS];
+#pragma unroll
+  for (int j = 0; j < N_SUMS; ++j) v[j] = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += GREEK_THREADS) {
+      float a2 = 0.0f, a1 = 0.0f, m2 = 0.0f, m1 = 0.0f;
+      mct::walk_pairwise(key, static_cast<uint32_t>(e), n_obs,
+                         [&](int, float z) {
+                           const float lr = c.drift + c.vol * z;
+                           a2 = a2 + lr * lr;
+                           a1 = a1 + lr;
+                           if (ANTI) {
+                             const float lm = c.drift + c.vol * (-z);
+                             m2 = m2 + lm * lm;
+                             m1 = m1 + lm;
+                           }
+                         });
+      float q[4];
+      greek_quants(c, a2, a1, q);
+      if (ANTI) {
+        float qm[4];
+        greek_quants(c, m2, m1, qm);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) q[j] = 0.5f * (q[j] + qm[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[2 * j] += q[j];
+        v[2 * j + 1] += q[j] * q[j];
+      }
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <bool ANTI, bool KAHAN>
+void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+            int n_blocks, int n_elems, int iters, int greeks, float* out,
+            cudaStream_t stream) {
+  if (greeks) {
+    varswap_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
+                                         stream>>>(scal, n_obs, seed, off,
+                                                   n_elems, iters, out);
+  } else {
+    varswap_kernel<ANTI, KAHAN><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_obs, seed, off, n_elems, iters, out);
+  }
+}
+
+using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
+                          int, int, float*, cudaStream_t);
+
+// Indexed by antithetic << 1 | kahan.
+constexpr LaunchFn LAUNCHERS[4] = {
+    launch<false, false>, launch<false, true>,
+    launch<true, false>,  launch<true, true>,
+};
+
+int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
+        int rows, int iters, int antithetic, int kahan, int greeks,
+        float* out, void* stream) {
+  const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
+  LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
+                 iters, greeks, out, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// scal (1/t, drift, vol) -> out (n_blocks, 2).  mode is unused (the
+// single-asset walks' common signature).
+extern "C" int mctpu_varswap(const float* scal, int n_obs, int seed, int off,
+                             int n_blocks, int rows, int iters, int antithetic,
+                             int kahan, int /*mode*/, float* out,
+                             void* stream) {
+  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             0, out, stream);
+}
+
+// scal (1/t, drift, vol, v, dt) -> out (n_blocks, 8).
+extern "C" int mctpu_varswap_greeks(const float* scal, int n_obs, int seed,
+                                    int off, int n_blocks, int rows, int iters,
+                                    int antithetic, int kahan, int /*mode*/,
+                                    float* out, void* stream) {
+  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             1, out, stream);
+}

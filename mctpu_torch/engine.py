@@ -9,14 +9,16 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 
 :func:`price_vanilla`, :func:`price_basket`, :func:`price_cva`,
 :func:`price_cva_portfolio`, :func:`price_asian`, :func:`price_barrier`,
-:func:`price_lookback` and :func:`price_cliquet` take an int32 ``seed``
-word (the value ``mctpu.rng.key_to_seed`` gives a JAX key; see
+:func:`price_lookback`, :func:`price_cliquet` and
+:func:`fair_variance_strike` take an int32 ``seed`` word (the value
+``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
 JAX package's kernels in interpret mode, so a run here matches that run
-block by block; so do :func:`price_vanilla_ladder` and :func:`price_book`,
-which return vector results.  :func:`greeks` and the ``greeks_*`` drivers
-run the Greek kernels over the pricers' paths (common random numbers with
-``price_*``).  PyTorch runs eagerly: there is no jit cache.
+block by block; so do :func:`price_vanilla_ladder`, :func:`price_book` and
+:func:`price_barrier_book`, which return vector results.  :func:`greeks` and
+the ``greeks_*`` drivers run the Greek kernels over the pricers' paths
+(common random numbers with ``price_*``).  PyTorch runs eagerly: there is
+no jit cache.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from mctpu_torch import estimator as mcest
 from mctpu_torch import math as mcmath
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
+from mctpu_torch.kernels import barrier_book as kbb
 from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
@@ -37,11 +40,12 @@ from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
+from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.kernels.common import LANES, walk_plan
 from mctpu_torch.parallel.reduce import pairwise_tree_sum
 from mctpu_torch.rng import wrap_int32
-from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                               CliquetOption, CvaGreeksResult,
+from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                               BasketOption, CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, LookbackOption, McResult,
                                Precision, VanillaBook, VanillaOption)
@@ -57,7 +61,11 @@ __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "greeks_book", "greeks_vanilla_setup", "greeks_basket_setup",
            "greeks_cva_setup", "greeks_asian_setup", "greeks_barrier_setup",
            "greeks_lookback_setup", "greeks_cliquet_setup",
-           "greeks_vanilla_ladder_setup", "greeks_book_setup"]
+           "greeks_vanilla_ladder_setup", "greeks_book_setup",
+           "fair_variance_strike", "greeks_varswap", "varswap_setup",
+           "greeks_varswap_setup", "price_barrier_book",
+           "greeks_barrier_book", "barrier_book_setup",
+           "greeks_barrier_book_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -350,8 +358,9 @@ def _check_book(book: VanillaBook) -> None:
                          " per fused sweep (split larger books)")
 
 
-def _book_discount(book: VanillaBook) -> torch.Tensor:
-    """Each instrument's own float64 ``exp(-r_i t_i)``."""
+def _book_discount(book) -> torch.Tensor:
+    """Each instrument's own float64 ``exp(-r_i t_i)`` (a
+    :class:`VanillaBook` or a :class:`BarrierBook`)."""
     r, t = (torch.tensor(np.asarray(x, np.float64).reshape(-1),
                          dtype=mcmath.wide_dtype()) for x in (book.r, book.t))
     return torch.exp(-r * t)
@@ -660,6 +669,129 @@ def greeks_book(book: VanillaBook, n_paths: int, seed: int,
     partials = kbook.greek_partials(cvec, wrap_int32(seed), 0, plan,
                                     plan.num_blocks)
     return _vector_greeks(_total(partials), plan, _book_discount(book))
+
+
+def _check_varswap(opt, n_obs: int) -> None:
+    if not isinstance(opt, VanillaOption):
+        raise TypeError(
+            f"the variance swap takes a VanillaOption (GBM dynamics), got "
+            f"{type(opt).__name__}: its Heston leg comes with the Heston "
+            "slice of the port")
+    opt.validate()
+    if n_obs < 1:
+        raise ValueError("n_obs must be >= 1")
+
+
+def varswap_setup(opt: VanillaOption, n_paths: int, config: EngineConfig,
+                  n_obs: int = 252):
+    """``(plan, params)``: the launch :func:`fair_variance_strike` makes."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kvarswap.params(opt, n_obs, dev)
+
+
+def fair_variance_strike(opt: VanillaOption, n_paths: int, seed: int,
+                         config: EngineConfig = EngineConfig(),
+                         n_obs: int = 252) -> McResult:
+    """Fair strike of a variance swap under GBM (K19): ``E[(1/T) sum_j
+    ln(S_j / S_{j-1})^2]`` over ``n_obs`` equal dates, exactly ``v^2 + (r -
+    v^2/2)^2 T / n``.  In variance units, undiscounted (a strike, not a
+    price).  ``opt.k`` and ``opt.kind`` are not used; any record other than
+    a :class:`VanillaOption` raises ``TypeError`` (``mctpu``'s Heston leg is
+    not ported yet)."""
+    _check_varswap(opt, n_obs)
+    plan, par = varswap_setup(opt, n_paths, config, n_obs)
+    partials = kvarswap.partials(par, wrap_int32(seed), 0, plan,
+                                 plan.num_blocks, n_obs)
+    sum_p, sum_p2 = mcest.combine_block_partials(partials)
+    return mcest.estimate(sum_p, sum_p2, plan.total_units, discount=1.0,
+                          n_paths=plan.total_paths)
+
+
+def greeks_varswap_setup(opt: VanillaOption, n_paths: int,
+                         config: EngineConfig, n_obs: int = 252):
+    """``(plan, params)``: the launch :func:`greeks_varswap` makes (the
+    fair-strike plan)."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kvarswap.greek_params(opt, n_obs,
+                                                              dev)
+
+
+def greeks_varswap(opt: VanillaOption, n_paths: int, seed: int,
+                   config: EngineConfig = EngineConfig(),
+                   n_obs: int = 252) -> GreeksResult:
+    """The fair strike and its vega (d/dv), rho (d/dr) and theta (d/dT)
+    under GBM in one sweep (K20), over :func:`fair_variance_strike`'s
+    paths, each undiscounted.  Log-returns do not depend on the spot, so
+    delta is an exact ``0 +- 0`` estimate, as in
+    ``mctpu.engine.greeks_varswap``."""
+    _check_varswap(opt, n_obs)
+    plan, gp = greeks_varswap_setup(opt, n_paths, config, n_obs)
+    partials = kvarswap.greek_partials(gp, wrap_int32(seed), 0, plan,
+                                       plan.num_blocks, n_obs)
+    n = plan.total_units
+    price, vega, rho, theta = _estimates(_total(partials), n, plan, 1.0)
+    zero = mcest.estimate(0.0, 0.0, n, discount=1.0, n_paths=plan.total_paths)
+    return GreeksResult(price=price, delta=zero, vega=vega, rho=rho,
+                        theta=theta)
+
+
+def _check_barrier_book(book: BarrierBook) -> None:
+    book.validate()
+    m = book.n_instruments
+    if m > kbb.MAX_BARRIER_BOOK:
+        raise ValueError(f"barrier book holds {m} instruments; max "
+                         f"{kbb.MAX_BARRIER_BOOK} per fused walk "
+                         "(split larger books)")
+
+
+def barrier_book_setup(book: BarrierBook, n_paths: int,
+                       config: EngineConfig):
+    """``(plan, table)``: the launch :func:`price_barrier_book` makes."""
+    _check_barrier_book(book)
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kbb.book_params(book, dev)
+
+
+def price_barrier_book(book: BarrierBook, n_paths: int, seed: int,
+                       config: EngineConfig = EngineConfig()) -> McResult:
+    """Price a book of 1 to 32 knock-out calls and puts, up- and
+    down-and-out, from one walk sweep (K25): a vector :class:`McResult` of
+    shape ``(M,)``, each instrument discounted by its own ``exp(-r_i
+    t_i)``.  All instruments step on the same normals, so the draw is paid
+    once for the book; a one-instrument book computes what
+    :func:`price_barrier` computes, path by path."""
+    plan, par = barrier_book_setup(book, n_paths, config)
+    partials = kbb.partials(par, wrap_int32(seed), 0, plan, plan.num_blocks,
+                            book.n_obs)
+    total = _total(partials)
+    return mcest.estimate(total[:, 0], total[:, 1], plan.total_units,
+                          discount=_book_discount(book),
+                          n_paths=plan.total_paths)
+
+
+def greeks_barrier_book_setup(book: BarrierBook, n_paths: int,
+                              config: EngineConfig):
+    """``(plan, table)``: the launch :func:`greeks_barrier_book` makes (the
+    barrier-book pricer's plan)."""
+    _check_barrier_book(book)
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kbb.greek_rows(book, dev)
+
+
+def greeks_barrier_book(book: BarrierBook, n_paths: int, seed: int,
+                        config: EngineConfig = EngineConfig()
+                        ) -> GreeksResult:
+    """The barrier book's risk run from one walk sweep (K26): price and
+    likelihood-ratio delta, vega and rho of every instrument, each a vector
+    :class:`McResult` of shape ``(M,)``, over :func:`price_barrier_book`'s
+    paths.  Delta and vega are with respect to each instrument's own spot
+    and vol; theta and gamma are ``None``, as in ``mctpu``."""
+    plan, gp = greeks_barrier_book_setup(book, n_paths, config)
+    partials = kbb.greek_partials(gp, wrap_int32(seed), 0, plan,
+                                  plan.num_blocks, book.n_obs)
+    price, delta, vega, rho = _estimates(
+        _total(partials).T, plan.total_units, plan, _book_discount(book))
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
 
 
 def greeks(opt, n_paths: int, seed: int,

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mctpu_torch.kernels.common import (Plan, check_operand, launch_terminal,
+from mctpu_torch.kernels.common import (Plan, check_operand, launch_items,
                                         terminal_partials)
 from mctpu_torch.kernels.vanilla import make_plan  # K23/K24 run K1's plan
 from mctpu_torch.types import VanillaBook
@@ -95,8 +95,8 @@ def _launch(entry: str, table, n_rows: int, n_sums: int, seed: int,
     if not 1 <= m <= MAX_BOOK:
         raise ValueError(f"a book holds 1..{MAX_BOOK} instruments")
     check_operand("table", table, (n_rows, m), table.device)
-    return launch_terminal(entry, (table.data_ptr(),), m, n_sums, seed,
-                           block_offset, plan, n_blocks, table.device)
+    return launch_items(entry, (table.data_ptr(),), m, n_sums, seed,
+                        block_offset, plan, n_blocks, table.device)
 
 
 def partials(par: torch.Tensor, seed: int, block_offset: int, plan: Plan,

@@ -27,7 +27,7 @@ __all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
            "iter_keys", "tile_index", "draw_normal_pair", "walk_pairwise",
            "walk_partials", "acc_init", "acc_add", "acc_final", "acc_init_n",
            "acc_add_n", "acc_final_n", "det_col_sums", "check_operand",
-           "f32", "launch_walk"]
+           "f32", "launch_walk", "launch_items", "terminal_partials"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
 # index row * LANES + lane, as the JAX kernels lay them out.
@@ -274,14 +274,16 @@ def terminal_partials(draw_sums, n_sums: int, seed: int, block_offset: int,
     return acc_final_n(carry)
 
 
-def launch_terminal(entry: str, ptrs, n_items: int, n_sums: int, seed: int,
-                    block_offset: int, plan: Plan, n_blocks: int, device,
-                    flags=()) -> torch.Tensor:
-    """Launch a ladder or book kernel (K21-K24) on ``device`` and return its
-    ``(n_blocks, n_items, n_sums)`` partials.  Their C signatures are
-    ``(*ptrs, n_items, seed, block_offset, n_blocks, rows, iters,
-    antithetic, *flags, kahan, out, stream)``.  The caller checks the
-    operands; raises on a failed launch."""
+def launch_items(entry: str, ptrs, n_items: int, n_sums: int, seed: int,
+                 block_offset: int, plan: Plan, n_blocks: int, device,
+                 flags=()) -> torch.Tensor:
+    """Launch a kernel over a vector of strikes or instruments (the ladder
+    and the books, K21-K26) on ``device`` and return its ``(n_blocks,
+    n_items, n_sums)`` partials.  Their C signatures are ``(*ptrs, n_items,
+    seed, block_offset, n_blocks, rows, iters, antithetic, *flags, kahan,
+    out, stream)``; ``flags`` are the ladder's put flag or the barrier
+    book's ``n_obs``.  The caller checks the operands; raises on a failed
+    launch."""
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
     lib = _build.library()

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from mctpu_torch.kernels.common import (Plan, check_operand, f32,
-                                        launch_terminal, terminal_partials)
+                                        launch_items, terminal_partials)
 from mctpu_torch.kernels.vanilla import make_plan  # K21/K22 run K1's plan
 from mctpu_torch.types import VanillaOption
 
@@ -88,9 +88,9 @@ def _launch(entry: str, par, n_par: int, ks, n_sums: int, seed: int,
     if not 1 <= n_k <= MAX_STRIKES:
         raise ValueError(f"strikes must have 1..{MAX_STRIKES} entries")
     check_operand("strikes", ks, (n_k,), par.device)
-    return launch_terminal(entry, (par.data_ptr(), ks.data_ptr()), n_k,
-                           n_sums, seed, block_offset, plan, n_blocks,
-                           par.device, flags=(put,))
+    return launch_items(entry, (par.data_ptr(), ks.data_ptr()), n_k,
+                        n_sums, seed, block_offset, plan, n_blocks,
+                        par.device, flags=(put,))
 
 
 def partials(par: torch.Tensor, ks: torch.Tensor, seed: int,

@@ -27,6 +27,7 @@ __all__ = [
     "CvaPortfolioSpec",
     "AsianOption",
     "BarrierOption",
+    "BarrierBook",
     "LookbackOption",
     "CliquetOption",
     "McResult",
@@ -390,6 +391,124 @@ class BarrierOption:
 
 
 @dataclasses.dataclass(frozen=True)
+class BarrierBook:
+    """A book of M knock-out barrier options that share one walk
+    (:func:`mctpu_torch.engine.price_barrier_book`).
+
+    ``s, k, r, v, t, barrier`` have shape ``(M,)``; ``kinds`` is a length-M
+    tuple of ``"call"``/``"put"`` and ``directions`` one of
+    ``"up-and-out"``/``"down-and-out"``; every instrument is watched at the
+    same ``n_obs`` dates.  All M instruments step on one shared stream of
+    standard normals, each with its own drift and vol, and every value and
+    direction is runtime data of the kernel, so a market tick reprices
+    through the same compiled library.
+    """
+
+    s: Any
+    k: Any
+    r: Any
+    v: Any
+    t: Any
+    barrier: Any
+    n_obs: int = 50
+    kinds: tuple = ()
+    directions: tuple = ()
+
+    @property
+    def n_instruments(self) -> int:
+        return int(np.shape(self.s)[0])
+
+    @staticmethod
+    def from_options(options) -> "BarrierBook":
+        """A book of a sequence of :class:`BarrierOption` (calls, which must
+        share ``n_obs``)."""
+        opts = list(options)
+        n_obs = {o.n_obs for o in opts}
+        if len(n_obs) != 1:
+            raise ValueError("BarrierBook instruments must share n_obs "
+                             f"(got {sorted(n_obs)})")
+
+        def col(f):
+            return np.asarray([float(getattr(o, f)) for o in opts], np.float64)
+
+        return BarrierBook(s=col("s"), k=col("k"), r=col("r"), v=col("v"),
+                           t=col("t"), barrier=col("barrier"),
+                           n_obs=n_obs.pop(), kinds=("call",) * len(opts),
+                           directions=tuple(o.kind for o in opts))
+
+    @staticmethod
+    def serving(m: int = 32, kind: str = "mixed") -> "BarrierBook":
+        """The first ``m`` instruments of the 32-instrument serving book, the
+        JAX command line's ``--product barrier-book`` recipe at its defaults
+        (``mctpu/cli/exotic.py``): s=100, r=0.05, k = 100 (0.8 + 0.4 (j mod
+        5) / 4), v = 0.2 (0.8 + 0.1 (j mod 4)), t = 0.5 + 0.25 (j mod 3),
+        n_obs=50; with ``kind="mixed"`` every fourth instrument (j mod 4 =
+        3) is a down-and-out put with barrier 60, the rest up-and-out calls
+        with barrier 130 (1 + 0.1 (j mod 3)); with ``kind="call"`` all are
+        those calls."""
+        puts = [kind == "mixed" and j % 4 == 3 for j in range(m)]
+        return BarrierBook(
+            s=np.full(m, 100.0),
+            k=np.asarray([100.0 * (0.8 + 0.4 * (j % 5) / 4)
+                          for j in range(m)]),
+            r=np.full(m, 0.05),
+            v=np.asarray([0.2 * (0.8 + 0.1 * (j % 4)) for j in range(m)]),
+            t=np.asarray([1.0 * (0.5 + 0.25 * (j % 3)) for j in range(m)]),
+            barrier=np.asarray([0.6 * 100.0 if put
+                                else 130.0 * (1.0 + 0.1 * (j % 3))
+                                for j, put in enumerate(puts)]),
+            n_obs=50,
+            kinds=tuple("put" if put else "call" for put in puts),
+            directions=tuple("down-and-out" if put else "up-and-out"
+                             for put in puts))
+
+    def option(self, i: int) -> BarrierOption:
+        """Instrument ``i`` as a standalone :class:`BarrierOption` (calls
+        only: the single barrier pricer has no put)."""
+        if self.kinds[i] != "call":
+            raise ValueError("single BarrierOption is call-only")
+        s, k, r, v, t, b = (float(np.asarray(x)[i]) for x in
+                            (self.s, self.k, self.r, self.v, self.t,
+                             self.barrier))
+        return BarrierOption(s, k, r, v, t, barrier=b, n_obs=self.n_obs,
+                             kind=self.directions[i])
+
+    def validate(self) -> None:
+        m = self.n_instruments
+        if m < 1:
+            raise ValueError("book must hold at least one instrument")
+        if self.n_obs < 1:
+            raise ValueError("n_obs must be >= 1")
+        for name, x in (("s", self.s), ("k", self.k), ("r", self.r),
+                        ("v", self.v), ("t", self.t),
+                        ("barrier", self.barrier)):
+            if np.shape(x) != (m,):
+                raise ValueError(f"{name} must have shape ({m},), "
+                                 f"got {np.shape(x)}")
+        if len(self.kinds) != m or len(self.directions) != m:
+            raise ValueError(f"kinds and directions must have {m} entries")
+        if any(kd not in ("call", "put") for kd in self.kinds):
+            raise ValueError("kinds entries must be 'call' or 'put'")
+        if any(d not in ("up-and-out", "down-and-out")
+               for d in self.directions):
+            raise ValueError("directions entries must be 'up-and-out' or "
+                             "'down-and-out'")
+        s, k, v, t, b = (np.asarray(x) for x in
+                         (self.s, self.k, self.v, self.t, self.barrier))
+        if not (np.all(s > 0) and np.all(k > 0) and np.all(b > 0)):
+            raise ValueError("spots, strikes and barriers must be positive")
+        if np.any(v < 0):
+            raise ValueError("volatilities must be non-negative")
+        if np.any(t <= 0):
+            raise ValueError("maturities must be positive")
+        up = np.asarray([d == "up-and-out" for d in self.directions])
+        dead = np.where(up, s >= b, s <= b)
+        if np.any(dead):
+            raise ValueError("instrument starts knocked out "
+                             f"(indices {np.nonzero(dead)[0].tolist()})")
+
+
+@dataclasses.dataclass(frozen=True)
 class LookbackOption:
     """Discretely monitored lookback option on the running extreme of the
     ``n_obs`` dates (and the initial fixing): ``"floating"`` call pays
@@ -561,8 +680,8 @@ class CvaGreeksResult:
 
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, VanillaBook, BasketOption, CvaSpec,
-             CvaPortfolioSpec, AsianOption, BarrierOption, LookbackOption,
-             CliquetOption)}
+             CvaPortfolioSpec, AsianOption, BarrierOption, BarrierBook,
+             LookbackOption, CliquetOption)}
 
 
 def _carry(value):
@@ -571,7 +690,7 @@ def _carry(value):
     if isinstance(value, str):
         return value
     if isinstance(value, tuple) and all(isinstance(x, str) for x in value):
-        return tuple(str(x) for x in value)  # a book's kinds
+        return tuple(str(x) for x in value)  # a book's kinds, directions
     arr = np.asarray(value, np.float64)
     return float(arr) if arr.ndim == 0 else arr
 

@@ -17,6 +17,8 @@ cancel; under wrong-way risk at ``rtol=1e-4`` (the hazard's series switch
 can flip on one ulp).  Repeated launches and the block-offset contract are
 held bitwise.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ import torch
 from mctpu_torch import _build
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
+from mctpu_torch.kernels import barrier_book as kbb
 from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
@@ -32,10 +35,12 @@ from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
+from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.math import cholesky_lower
-from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                               CliquetOption, CvaPortfolioSpec, CvaSpec,
-                               LookbackOption, VanillaBook, VanillaOption)
+from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                               BasketOption, CliquetOption, CvaPortfolioSpec,
+                               CvaSpec, LookbackOption, VanillaBook,
+                               VanillaOption)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -371,6 +376,51 @@ def test_book_kernels_match_plain(dev, m, kind, antithetic):
         units=_units(plan))
 
 
+# K19/K20 at odd and even date counts (and the 252 of the main path); Kahan
+# off under antithetic.
+@pytest.mark.parametrize("n_obs", [1, 13, 252])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_varswap_kernels_match_plain(dev, n_obs, antithetic):
+    opt = VanillaOption(100., 100., 0.05, 0.2, 1.)
+    plan = kvarswap.make_plan(2 * NB * 32 * 128 * (2 if antithetic else 1),
+                              NB, 32, antithetic, not antithetic)
+    par = kvarswap.params(opt, n_obs, dev)
+    gp = kvarswap.greek_params(opt, n_obs, dev)
+    _contract(
+        lambda off, nb: kvarswap.partials(par, SEED, off, plan, nb, n_obs),
+        lambda off, nb: kvarswap.plain_partials(par, SEED, off, plan, nb,
+                                                n_obs))
+    _contract(
+        lambda off, nb: kvarswap.greek_partials(gp, SEED, off, plan, nb,
+                                                n_obs),
+        lambda off, nb: kvarswap.greek_plain_partials(gp, SEED, off, plan, nb,
+                                                      n_obs),
+        units=_units(plan))
+
+
+# K25/K26 on the serving book's first M instruments (a put from M=4 on) at
+# an odd and an even date count; Kahan off under antithetic.
+@pytest.mark.parametrize("m", [1, 5, 32])
+@pytest.mark.parametrize("n_obs", [7, 50])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_barrier_book_kernels_match_plain(dev, m, n_obs, antithetic):
+    book = dataclasses.replace(BarrierBook.serving(m), n_obs=n_obs)
+    plan = kbb.make_plan(2 * NB * 32 * 128 * (2 if antithetic else 1), NB,
+                         32, antithetic, not antithetic)
+    par, gp = kbb.book_params(book, dev), kbb.greek_rows(book, dev)
+    flat = (lambda x: x.reshape(x.shape[0], -1))
+    _contract(
+        lambda off, nb: flat(kbb.partials(par, SEED, off, plan, nb, n_obs)),
+        lambda off, nb: flat(kbb.plain_partials(par, SEED, off, plan, nb,
+                                                n_obs)))
+    _contract(
+        lambda off, nb: flat(kbb.greek_partials(gp, SEED, off, plan, nb,
+                                                n_obs)),
+        lambda off, nb: flat(kbb.greek_plain_partials(gp, SEED, off, plan,
+                                                      nb, n_obs)),
+        units=_units(plan))
+
+
 def test_launch_counters_count_kernel_launches(dev):
     par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
     plan = kvanilla.make_plan(1, 2, 8, False)
@@ -427,6 +477,21 @@ def test_launch_counters_count_kernel_launches(dev):
         fn(*ops, 1, 0, plan, 2, *extra)
         plain(*ops, 1, 0, plan, 2, *extra)
         assert kmod.LAUNCHES[key] == before + 1, key
+    bbook = BarrierBook.serving(5)
+    for kmod, key, fn, plain, par in (
+            (kvarswap, "varswap", kvarswap.partials, kvarswap.plain_partials,
+             kvarswap.params(opt, 3, dev)),
+            (kvarswap, "varswap_greeks", kvarswap.greek_partials,
+             kvarswap.greek_plain_partials,
+             kvarswap.greek_params(opt, 3, dev)),
+            (kbb, "barrier_book", kbb.partials, kbb.plain_partials,
+             kbb.book_params(bbook, dev)),
+            (kbb, "barrier_book_greeks", kbb.greek_partials,
+             kbb.greek_plain_partials, kbb.greek_rows(bbook, dev))):
+        before = kmod.LAUNCHES[key]
+        fn(par, 1, 0, wplan, 2, 3)
+        plain(par, 1, 0, wplan, 2, 3)
+        assert kmod.LAUNCHES[key] == before + 1, key
 
 
 def test_bad_operands_raise(dev):
@@ -463,3 +528,15 @@ def test_bad_operands_raise(dev):
         kbook.greek_partials(table, 1, 0, plan, 2)
     with pytest.raises(ValueError):  # 65 instruments
         kbook.partials(torch.ones((5, 65), device=dev), 1, 0, plan, 2)
+    vpar = kvarswap.params(opt, 3, dev)
+    with pytest.raises(ValueError):  # K19's scalars to K20
+        kvarswap.greek_partials(vpar, 1, 0, plan, 2, 3)
+    with pytest.raises(ValueError):
+        kvarswap.partials(vpar, 1, 0, plan, 2, 0)
+    bpar = kbb.book_params(BarrierBook.serving(3), dev)
+    with pytest.raises(ValueError):  # K25's table to K26
+        kbb.greek_partials(bpar, 1, 0, plan, 2, 5)
+    with pytest.raises(ValueError):  # 33 instruments
+        kbb.partials(torch.ones((7, 33), device=dev), 1, 0, plan, 2, 5)
+    with pytest.raises(ValueError):
+        kbb.partials(bpar, 1, 0, plan, 2, 0)

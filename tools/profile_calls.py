@@ -39,9 +39,10 @@ def calls(mt):
     ``kernel`` is the name of the CUDA kernel it launches."""
     import numpy as np
 
-    from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                                   CliquetOption, CvaSpec, LookbackOption,
-                                   VanillaBook, VanillaOption)
+    from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                                   BasketOption, CliquetOption, CvaSpec,
+                                   LookbackOption, VanillaBook,
+                                   VanillaOption)
 
     van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
     b3, b100 = (BasketOption.default_reference(3),
@@ -58,6 +59,8 @@ def calls(mt):
     n22, n24 = 1 << 22, 1 << 24
     ks = np.linspace(50.0, 150.0, 64)
     book = VanillaBook.serving(64)
+    vs = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
+    bbook = BarrierBook.serving(32)
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -105,6 +108,14 @@ def calls(mt):
          lambda: mt.price_book(book, n24, SEED)),
         ("greeks_book 64 instruments, 2^24", "book_greeks_kernel",
          lambda: mt.greeks_book(book, n24, SEED)),
+        ("fair_variance_strike n_obs=252, 2^22", "varswap_kernel",
+         lambda: mt.fair_variance_strike(vs, n22, SEED, n_obs=252)),
+        ("greeks_varswap n_obs=252, 2^22", "varswap_greeks_kernel",
+         lambda: mt.greeks_varswap(vs, n22, SEED, n_obs=252)),
+        ("price_barrier_book 32 instruments, n_obs=50, 2^22", "bb_kernel",
+         lambda: mt.price_barrier_book(bbook, n22, SEED)),
+        ("greeks_barrier_book 32 instruments, 2^22", "bb_greeks_kernel",
+         lambda: mt.greeks_barrier_book(bbook, n22, SEED)),
     ]
 
 
