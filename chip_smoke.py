@@ -9,14 +9,16 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the twenty-four kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the twenty-six kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
    barrier, lookback and cliquet walks at an odd step count of 13; the
    ladder and the book at 1, 5 and 64 strikes or instruments; the
    variance swap at 1, 13 and 252 dates; the barrier book at 1, 5 and 32
-   instruments and 1, 7 and 50 dates): equal
+   instruments and 1, 7 and 50 dates; the Heston walks, Euler, QE and
+   Greeks, at 13 and 100 steps, and the variance swap's Heston leg at 13
+   and 252 dates): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -49,7 +51,12 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    path (the 32-instrument serving book at 2^22 paths: calls against
    ``price_barrier``, puts against a float64 oracle, the Greeks against
    ``greeks_barrier`` and a CRN bump, the one-instrument tie with
-   ``price_barrier``, a tick that flips a direction);
+   ``price_barrier``, a tick that flips a direction) and the Heston path
+   (``price_heston`` Euler and QE and ``mctpu_torch.greeks`` at 100 steps
+   and 2^22 paths against Black-Scholes at zero vol-of-vol, the
+   characteristic-function price and its finite differences and CRN
+   bumps; QE at 16 steps; the Heston variance swap at 252 dates against
+   its continuous-time fair strike and that form's gradient);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -88,6 +95,15 @@ CLIQUET_KERNELS = ("cliquet", "cliquet_greeks")
 BOOK_KERNELS = ("ladder", "ladder_greeks", "book", "book_greeks")
 VARSWAP_KERNELS = ("varswap", "varswap_greeks")
 BARRIER_BOOK_KERNELS = ("barrier_book", "barrier_book_greeks")
+# K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
+HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
+                  "varswap_heston_greeks")
+# The Euler scheme's bias at 100 steps beside the gates' standard errors,
+# measured by tools/heston_euler_bias.py (float64, 2^22 paths): price
+# within 0.01 of the characteristic-function price, delta, vega and rho
+# within 0.5% of its central differences.
+EULER_PRICE_ALLOWANCE = 0.01
+EULER_GREEK_ALLOWANCE = 5e-3
 
 # ---- the bound of phase 6 ---------------------------------------------------
 # Peak instruction rates of one H100 SXM at 700 W: 132 SMs at the clock its
@@ -102,20 +118,21 @@ PEAK_BYTES = 3.35e12  # HBM3, bytes/s
 # arithmetic needs: a Philox-4x32-10 block is 10 rounds of two 32x32->64
 # multiplies and two 3-input XORs (the round keys hoisted); a Box-Muller
 # pair is logf and sqrtf on the SFU, the sin/cos polynomials and the bit
-# moves; expf and an IEEE divide are one SFU instruction and their float32
-# range reduction or refinement.  Every other multiply, add, compare or
-# select counts one float32 instruction.
+# moves; expf, an IEEE divide and an IEEE sqrtf are one SFU instruction and
+# their float32 range reduction or refinement.  Every other multiply, add,
+# compare or select counts one float32 instruction.
 UNIT_OPS = {"philox": (40, 0, 0), "box_muller": (8, 16, 2),
-            "expf": (0, 3, 1), "div": (0, 4, 1), "f32": (0, 1, 0)}
+            "expf": (0, 3, 1), "div": (0, 4, 1), "sqrt": (0, 4, 1),
+            "f32": (0, 1, 0)}
 
 
-def work(draws=0.0, expf=0.0, div=0.0, f32=0.0):
+def work(draws=0.0, expf=0.0, div=0.0, f32=0.0, sqrt=0.0):
     """``(int32, f32, sfu)`` instruction counts of a run that computes
     ``draws`` normals (a Philox block and a Box-Muller pair per two),
-    ``expf`` exponentials, ``div`` IEEE divides and ``f32`` further float32
-    operations."""
+    ``expf`` exponentials, ``div`` IEEE divides, ``sqrt`` IEEE square roots
+    and ``f32`` further float32 operations."""
     counts = {"philox": draws / 2, "box_muller": draws / 2, "expf": expf,
-              "div": div, "f32": f32}
+              "div": div, "sqrt": sqrt, "f32": f32}
     return tuple(sum(n * UNIT_OPS[u][c] for u, n in counts.items())
                  for c in range(3))
 
@@ -139,18 +156,34 @@ WALK_OPS = {
     "cliquet_greeks": (1, 0, 0, 0, 19, 6, 12),
     "varswap": (0, 0, 0, 0, 4, 1, 11),
     "varswap_greeks": (0, 0, 0, 0, 5, 9, 12),
+    "heston": (0, 1, 0, 0, 17, 3, 11),
+    "heston_qe": (0, 1, 3, 0, 29, 3, 11),
+    "heston_greeks": (0, 1, 1, 0, 50, 13, 21),
+    "varswap_heston": (0, 0, 0, 0, 20, 1, 11),
+    "varswap_heston_greeks": (0, 0, 1, 0, 67, 6, 18),
 }
+# The Heston walks (K27, K28, K19/K20's Heston leg) draw a whole Box-Muller
+# pair every step (mct::walk_steps) and take IEEE square roots: sqrtf per
+# step.  QE's counts are its quadratic branch, which the data takes unless
+# v falls to about 6e-4 (psi > 1.5): the cheaper branch in float32, the
+# same in SFU (its two divides and two roots against the exponential
+# branch's Hastings expf and divide, a divide and a logf); the int32 class
+# bounds either way.
+WALK_SQRT = {"heston": 1, "heston_qe": 3, "heston_greeks": 1,
+             "varswap_heston": 1, "varswap_heston_greeks": 1}
 
 
 def walk_work(kname: str, plan, steps: int):
     """Instruction counts of a walk kernel's run: every path draws a
     Philox block and a Box-Muller pair per two steps (an odd count draws a
-    whole pair for its last step)."""
+    whole pair for its last step), or per step for a Heston walk."""
     e_s, e_p, d_s, d_p, f_s, f_p, f_u = WALK_OPS[kname]
     p, u = plan.total_paths, plan.total_units
-    return work(draws=p * 2 * -(-steps // 2), expf=p * (e_s * steps + e_p),
+    pairs = steps if kname in WALK_SQRT else -(-steps // 2)
+    return work(draws=p * 2 * pairs, expf=p * (e_s * steps + e_p),
                 div=p * (d_s * steps + d_p),
-                f32=p * (f_s * steps + f_p) + u * f_u)
+                f32=p * (f_s * steps + f_p) + u * f_u,
+                sqrt=p * WALK_SQRT.get(kname, 0) * steps)
 
 
 # The strike ladder and the vanilla book (K21-K24), counted from their
@@ -1103,6 +1136,136 @@ def barrier_book_path(mt) -> None:
           f"{so.name}, calls vs price_barrier max |z| {zt:.2f}")
 
 
+# tests/test_heston.py's option and its Feller-violating QE option; the
+# Greeks option of tests/test_greeks.py (2 kappa theta = 0.36 > xi^2); the
+# variance swap's, Feller-satisfied (0.16 > 0.09) with v0 above theta.
+HESTON_OPTS = {
+    "opt": (100.0, 100.0, 0.05, 1.0, 0.04, 2.0, 0.04, 0.3, -0.7),
+    "steep": (100.0, 100.0, 0.03, 1.0, 0.04, 1.5, 0.04, 0.5, -0.7),
+    "gopt": (100.0, 100.0, 0.03, 1.0, 0.09, 2.0, 0.09, 0.4, -0.6),
+    "vs": (100.0, 100.0, 0.03, 1.0, 0.09, 2.0, 0.04, 0.3, -0.6),
+}
+
+
+def heston_path(mt, mcmath) -> None:
+    """The Heston slice at full width (2^22 paths, the default EngineConfig:
+    128 blocks x 256 rows x 1 iteration): ``price_heston`` (Euler and QE),
+    ``mctpu_torch.greeks`` on a ``HestonOption`` and the Heston leg of
+    ``fair_variance_strike`` and ``greeks_varswap``, each against its
+    oracle."""
+    from mctpu_torch.models.heston import cf_call_price
+    from mctpu_torch.types import HestonOption
+
+    n = 1 << 22
+    opt, steep, gopt, vs = (HestonOption(*HESTON_OPTS[k])
+                            for k in ("opt", "steep", "gopt", "vs"))
+
+    # K27: Euler at zero vol-of-vol is the log-Euler walk of GBM, exact.
+    flat = dataclasses.replace(opt, xi=0.0)
+    res = mt.price_heston(flat, n, SEED)
+    bs = float(mcmath.bs_call(100.0, 100.0, 0.05, 0.2, 1.0))
+    z_bs = within_sigma(res.price, bs, res.std_error, "Heston xi=0 vs BS")
+    # Euler (with the scheme's measured bias allowed) and QE at 100 steps,
+    # and QE at 16 steps on the Feller-violating option, against the CF.
+    cf = cf_call_price(opt)
+    eu = mt.price_heston(opt, n, SEED)
+    gap = abs(float(eu.price) - cf)
+    check(gap < N_SIGMA * float(eu.std_error) + EULER_PRICE_ALLOWANCE,
+          f"Heston Euler {float(eu.price):.6f} vs CF {cf:.6f}")
+    qe = mt.price_heston(opt, n, SEED, scheme="qe")
+    z_qe = within_sigma(qe.price, cf, qe.std_error, "Heston QE vs CF")
+    cf_s = cf_call_price(steep)
+    qe16 = mt.price_heston(steep, n, SEED, n_steps=16, scheme="qe")
+    z_qe16 = within_sigma(qe16.price, cf_s, qe16.std_error,
+                          "Heston QE 16 steps vs CF")
+    phase("heston-path", f"price 2^22 100 steps (K27): xi=0 Euler "
+          f"{float(res.price):.6f} vs BS {bs:.6f} (z={z_bs:.2f}); Euler "
+          f"{float(eu.price):.6f} vs CF {cf:.6f} "
+          f"({gap / float(eu.std_error):.2f} se, allowance "
+          f"{EULER_PRICE_ALLOWANCE}); QE {float(qe.price):.6f} "
+          f"(z={z_qe:.2f}); QE 16 steps on the Feller-violating option "
+          f"{float(qe16.price):.6f} vs CF {cf_s:.6f} (z={z_qe16:.2f})")
+
+    # K28 through the dispatcher: delta, vega (d/dv0) and rho against
+    # central differences of the CF price; dtheta, dkappa and dxi against
+    # CRN bumps of price_heston (mctpu's gate: per path the bump is the
+    # tangent to O(h)).
+    g = mt.greeks(gopt, n, SEED)
+    check(type(g).__name__ == "HestonGreeksResult", "greeks: not Heston")
+    p = mt.price_heston(gopt, n, SEED)
+    rel = abs(float(g.price.price) / float(p.price) - 1)
+    # The tangent walk takes (dt / 2) vp where the pricer takes 0.5 vp
+    # sqrt(dt)^2: the last ulps of x drift apart.
+    check(rel <= 1e-4, f"Heston Greeks price vs price_heston: rel {rel:.2e}")
+    msgs = []
+    for f, field, h in (("delta", "s", 0.5), ("vega", "v0", 2e-3),
+                        ("rho", "r", 2e-3)):
+        x0 = getattr(gopt, field)
+        fd = (cf_call_price(dataclasses.replace(gopt, **{field: x0 + h}))
+              - cf_call_price(dataclasses.replace(gopt, **{field: x0 - h}))
+              ) / (2 * h)
+        got, se = float(getattr(g, f).price), float(getattr(g, f).std_error)
+        check(abs(got - fd) < N_SIGMA * se + EULER_GREEK_ALLOWANCE * abs(fd),
+              f"Heston {f} {got:.6f} vs CF difference {fd:.6f} (se "
+              f"{se:.2e})")
+        msgs.append(f"{f} {got:.5f} vs CF {fd:.5f} ({abs(got - fd) / se:.2f}"
+                    " se)")
+    for f, field, h in (("dtheta", "theta", 1e-4), ("dkappa", "kappa", 1e-2),
+                        ("dxi", "xi", 1e-3)):
+        x0 = getattr(gopt, field)
+        fd = (float(mt.price_heston(dataclasses.replace(
+                  gopt, **{field: x0 + h}), n, SEED).price)
+              - float(mt.price_heston(dataclasses.replace(
+                  gopt, **{field: x0 - h}), n, SEED).price)) / (2 * h)
+        got, se = float(getattr(g, f).price), float(getattr(g, f).std_error)
+        check(abs(got - fd) < 0.05 * se + 2e-3 * abs(fd) + 1e-4,
+              f"Heston {f} {got:.6f} vs CRN bump {fd:.6f} (se {se:.2e})")
+        msgs.append(f"{f} {got:.5f} vs CRN {fd:.5f}")
+    phase("heston-path", "Greeks 2^22 100 steps (K28) through "
+          f"mctpu_torch.greeks: price vs price_heston rel {rel:.1e}; "
+          + "; ".join(msgs))
+
+    # K19/K20, Heston leg: the fair strike at 252 dates against theta +
+    # (v0 - theta) a, a = (1 - e^{-kappa T}) / (kappa T), and its gradient.
+    kap, t, th, v0 = vs.kappa, vs.t, vs.theta, vs.v0
+    a = (1 - math.exp(-kap * t)) / (kap * t)
+    want = th + (v0 - th) * a
+    fs = mt.fair_variance_strike(vs, n, SEED, n_obs=252)
+    check(abs(float(fs.price) - want) < N_SIGMA * float(fs.std_error) + 5e-4,
+          f"Heston fair strike {float(fs.price):.7f} vs {want:.7f}")
+    gv = mt.greeks_varswap(vs, n, SEED, n_obs=252)
+    e_kt = math.exp(-kap * t)
+    grad = {"vega": a, "dtheta": 1 - a,
+            "dkappa": (v0 - th) * (kap * t * e_kt - (1 - e_kt))
+            / (kap * kap * t)}
+    zs = {}
+    for f, w in grad.items():
+        got, se = float(getattr(gv, f).price), float(getattr(gv, f).std_error)
+        check(abs(got - w) < N_SIGMA * se + 0.01 * abs(w),
+              f"Heston varswap {f} {got:.6f} vs {w:.6f} (se {se:.2e})")
+        zs[f] = abs(got - w) / se
+    fd = (float(mt.fair_variance_strike(dataclasses.replace(vs, xi=0.301), n,
+                                        SEED, n_obs=252).price)
+          - float(mt.fair_variance_strike(dataclasses.replace(vs, xi=0.299),
+                                          n, SEED, n_obs=252).price)) / 2e-3
+    got, se = float(gv.dxi.price), float(gv.dxi.std_error)
+    check(abs(got - fd) < 0.05 * se + 2e-3 * abs(fd) + 1e-4,
+          f"Heston varswap dxi {got:.7f} vs CRN bump {fd:.7f}")
+    check(float(gv.delta.price) == 0.0 and float(gv.delta.std_error) == 0.0,
+          "Heston varswap: delta is not an exact 0 +- 0")
+    rel_v = abs(float(gv.price.price) / float(fs.price) - 1)
+    check(rel_v <= 1e-6, f"Heston varswap Greeks price vs fair strike: rel "
+                         f"{rel_v:.2e}")
+    phase("heston-path", f"variance swap 2^22 252 dates (K19, K20 Heston "
+          f"legs): fair strike {float(fs.price):.7f} vs continuous "
+          f"{want:.7f} "
+          f"({abs(float(fs.price) - want) / float(fs.std_error):.2f} se, "
+          "allowance 5e-4); gradient z " + ", ".join(
+              f"{f}={z:.2f}" for f, z in zs.items())
+          + f" (allowance 1%); dxi {got:.7f} vs CRN {fd:.7f}; delta exact "
+          f"0 +- 0; price vs fair strike rel {rel_v:.1e}")
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -1122,6 +1285,7 @@ def main() -> int:
     from mctpu_torch.kernels import cliquet as kcliquet
     from mctpu_torch.kernels import cva as kcva
     from mctpu_torch.kernels import greeks as kgreeks
+    from mctpu_torch.kernels import heston as kheston
     from mctpu_torch.kernels import ladder as kladder
     from mctpu_torch.kernels import lookback as klookback
     from mctpu_torch.kernels import vanilla as kvanilla
@@ -1129,7 +1293,7 @@ def main() -> int:
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
     from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                    BasketOption, CliquetOption,
-                                   CvaPortfolioSpec, CvaSpec,
+                                   CvaPortfolioSpec, CvaSpec, HestonOption,
                                    LookbackOption, Precision, VanillaBook,
                                    VanillaOption)
 
@@ -1428,12 +1592,58 @@ def main() -> int:
                  lambda off, n: flat(kbb.greek_plain_partials(
                      gp, SEED, off, plan, n, n_obs)),
                  units=units(plan))
+    # The Heston walks: K27 (Euler and QE) and K28 at an odd 13 steps and
+    # the default 100, on the reference option and the Feller-violating
+    # one; K19/K20's Heston leg at 13 and 252 dates.
+    h_opt, h_steep, h_vs = (HestonOption(*HESTON_OPTS[k])
+                            for k in ("opt", "steep", "vs"))
+    for label, hopt, n_steps, anti, kahan in (
+            ("", h_opt, 13, False, True), ("", h_opt, 100, True, False),
+            (" Feller-violating", h_steep, 100, False, True)):
+        plan = kheston.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                                 nb, rows, anti, kahan)
+        tag = (f"n_steps={n_steps}{label}{' antithetic' if anti else ''}"
+               f"{'' if kahan else ' f32'}")
+        for qe in (False, True):
+            par = kheston.params(hopt, n_steps, qe, dev)
+            contract(f"K27 {'QE' if qe else 'Euler'} {tag}",
+                     lambda off, n: kheston.partials(par, SEED, off, plan, n,
+                                                     n_steps, qe),
+                     lambda off, n: kheston.plain_partials(
+                         par, SEED, off, plan, n, n_steps, qe))
+        gp = kheston.greek_params(hopt, n_steps, dev)
+        contract(f"K28 {tag}",
+                 lambda off, n: kheston.greek_partials(gp, SEED, off, plan, n,
+                                                       n_steps),
+                 lambda off, n: kheston.greek_plain_partials(
+                     gp, SEED, off, plan, n, n_steps),
+                 units=units(plan))
+    for n_obs, anti, kahan in ((13, False, True), (252, False, True),
+                               (252, True, False)):
+        plan = kvarswap.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                                  nb, rows, anti, kahan)
+        tag = (f"Heston n_obs={n_obs}{' antithetic' if anti else ''}"
+               f"{'' if kahan else ' f32'}")
+        par = kvarswap.heston_params(h_vs, n_obs, dev)
+        gp = kvarswap.heston_greek_params(h_vs, n_obs, dev)
+        contract(f"K19 {tag}",
+                 lambda off, n: kvarswap.partials(par, SEED, off, plan, n,
+                                                  n_obs),
+                 lambda off, n: kvarswap.plain_partials(par, SEED, off, plan,
+                                                        n, n_obs))
+        contract(f"K20 {tag}",
+                 lambda off, n: kvarswap.greek_partials(gp, SEED, off, plan,
+                                                        n, n_obs),
+                 lambda off, n: kvarswap.greek_plain_partials(
+                     gp, SEED, off, plan, n, n_obs),
+                 units=units(plan))
 
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
-                kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES)
+                kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES,
+                kheston.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -1567,10 +1777,18 @@ def main() -> int:
     launches.update(read_counts(BARRIER_BOOK_KERNELS))
     phase("barrier-book-path", f"done in {time.perf_counter() - t_bb:.1f} s")
 
+    # ---- 4h. the Heston path at full width -------------------------------
+    reset_counts()
+    t_h = time.perf_counter()
+    heston_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(HESTON_KERNELS))
+    phase("heston-path", f"done in {time.perf_counter() - t_h:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
-                   + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS)
+                   + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -1871,6 +2089,44 @@ def main() -> int:
               disc, lambda f=kernel: flat(f()), lambda f=plain: flat(f()),
               bb_work(kname, plan, 32, 50), in_bytes=in_bytes,
               units=gunits(plan) if greek else None, plain_reps=3)
+
+    # The Heston path's shapes: the reference option at 100 steps (Euler,
+    # QE, Greeks) and the variance swap's Heston leg at 252 dates, 2^22
+    # paths.
+    plan, hpar = engine.heston_setup(h_opt, n_ex, cfg, 100, "euler")
+    _, hqe = engine.heston_setup(h_opt, n_ex, cfg, 100, "qe")
+    _, hgp = engine.greeks_heston_setup(h_opt, n_ex, cfg, 100)
+    _, vhpar = engine.varswap_setup(h_vs, n_ex, cfg, 252)
+    _, vhgp = engine.greeks_varswap_setup(h_vs, n_ex, cfg, 252)
+    nbl = plan.num_blocks
+    disc_h = math.exp(-h_opt.r * h_opt.t)
+    for kname, source, replaces, kernel, plain, ops, steps, disc, greek in (
+            ("heston", "heston.cu", "heston.py:137",
+             lambda: kheston.partials(hpar, SEED, 0, plan, nbl, 100, False),
+             lambda: kheston.plain_partials(hpar, SEED, 0, plan, nbl, 100,
+                                            False), hpar, 100, disc_h, False),
+            ("heston_qe", "heston.cu", "heston.py:137",
+             lambda: kheston.partials(hqe, SEED, 0, plan, nbl, 100, True),
+             lambda: kheston.plain_partials(hqe, SEED, 0, plan, nbl, 100,
+                                            True), hqe, 100, disc_h, False),
+            ("heston_greeks", "heston.cu", "heston.py:337",
+             lambda: kheston.greek_partials(hgp, SEED, 0, plan, nbl, 100),
+             lambda: kheston.greek_plain_partials(hgp, SEED, 0, plan, nbl,
+                                                  100), hgp, 100, disc_h,
+             True),
+            ("varswap_heston", "varswap.cu", "varswap.py:143",
+             lambda: kvarswap.partials(vhpar, SEED, 0, plan, nbl, 252),
+             lambda: kvarswap.plain_partials(vhpar, SEED, 0, plan, nbl, 252),
+             vhpar, 252, 1.0, False),
+            ("varswap_heston_greeks", "varswap.cu", "varswap.py:410",
+             lambda: kvarswap.greek_partials(vhgp, SEED, 0, plan, nbl, 252),
+             lambda: kvarswap.greek_plain_partials(vhgp, SEED, 0, plan, nbl,
+                                                   252), vhgp, 252, 1.0,
+             True)):
+        timed(kname, f"mctpu_torch/csrc/{source}", f"mctpu/kernels/{replaces}",
+              plan, steps, disc, kernel, plain, walk_work(kname, plan, steps),
+              in_bytes=4 * ops.numel(), units=gunits(plan) if greek else None,
+              plain_reps=3)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

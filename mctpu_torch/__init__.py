@@ -2,8 +2,9 @@
 
 The main path of the JAX package, its single-asset walks and its serving
 sweeps, on one GPU: vanilla, basket, CVA, Asian, knock-out barrier,
-lookback and cliquet pricing, the variance swap's fair strike (GBM),
-strike ladders, vanilla books and barrier books, and their
+lookback and cliquet pricing, Heston pricing (Euler and QE), the variance
+swap's fair strike (GBM and Heston), strike ladders, vanilla books and
+barrier books, and their
 in-kernel Greeks through hand-written CUDA kernels (``csrc/``, built with
 ``nvcc`` for ``sm_90a`` at first use), per-block partial sums, a
 fixed-order float64 combine and the reference estimator.
@@ -16,18 +17,20 @@ from mctpu_torch.engine import (EngineConfig, fair_variance_strike, greeks,
                                 greeks_asian, greeks_barrier,
                                 greeks_barrier_book, greeks_basket,
                                 greeks_book, greeks_cliquet, greeks_cva,
-                                greeks_lookback, greeks_vanilla,
-                                greeks_vanilla_ladder, greeks_varswap,
-                                price_asian, price_barrier,
+                                greeks_heston, greeks_lookback,
+                                greeks_vanilla, greeks_vanilla_ladder,
+                                greeks_varswap, price_asian, price_barrier,
                                 price_barrier_book, price_basket, price_book,
                                 price_cliquet, price_cva,
-                                price_cva_portfolio, price_lookback,
-                                price_vanilla, price_vanilla_ladder)
+                                price_cva_portfolio, price_heston,
+                                price_lookback, price_vanilla,
+                                price_vanilla_ladder)
 from mctpu_torch.rng import seed_from_generator
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketOption, CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
-                               GreeksResult, LookbackOption, McResult,
+                               GreeksResult, HestonGreeksResult,
+                               HestonOption, LookbackOption, McResult,
                                Precision, VanillaBook, VanillaOption,
                                from_reference)
 
@@ -44,6 +47,7 @@ __all__ = [
     "price_vanilla_ladder",
     "price_book",
     "price_barrier_book",
+    "price_heston",
     "fair_variance_strike",
     "greeks",
     "greeks_vanilla",
@@ -57,6 +61,7 @@ __all__ = [
     "greeks_book",
     "greeks_barrier_book",
     "greeks_varswap",
+    "greeks_heston",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
@@ -69,9 +74,11 @@ __all__ = [
     "BarrierBook",
     "LookbackOption",
     "CliquetOption",
+    "HestonOption",
     "McResult",
     "CvaResult",
     "GreeksResult",
+    "HestonGreeksResult",
     "CvaGreeksResult",
     "from_reference",
     "math",

@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
            "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
-           "barrier_book.cu")
+           "barrier_book.cu", "heston.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
@@ -34,14 +34,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Per-source flags.  The single-asset walks, the strike ladder and the books
 # take no FMA contraction, so each path rounds as the plain version's
 # separate operations do: their discontinuities (knock-out, in-the-money
-# indicator, arg-extreme, the cliquet's band mask) fall on the same side
+# indicator, arg-extreme, the cliquet's band mask, the Heston walks'
+# truncation max(v, 0) and QE's branch switches) fall on the same side
 # (see the head of csrc/asian.cu), and a deep out-of-the-money strike's
 # st - k and an antithetic pair's cancelling gamma terms are exact as
 # there (see the head of csrc/ladder.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
                              "cliquet.cu", "ladder.cu", "book.cu",
-                             "varswap.cu", "barrier_book.cu")}
+                             "varswap.cu", "barrier_book.cu", "heston.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -77,16 +78,18 @@ _SIGNATURES = {
     # iters, antithetic, kahan, wwr, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P),
-    # The single-asset walks (K9, K10, K12, K13, K15-K20): scal, n_obs (the
-    # cliquet's n_periods), seed, off, n_blocks, rows, iters, antithetic,
-    # kahan, mode (geometric Asian, up-and-out barrier, 2 * fixed + put for
-    # the lookback, 0 for the cliquet and the variance swap), out, stream
+    # The single-asset walks (K9, K10, K12, K13, K15-K20, K27, K28): scal,
+    # n_obs (the cliquet's n_periods, the Heston walk's n_steps), seed, off,
+    # n_blocks, rows, iters, antithetic, kahan, mode (geometric Asian,
+    # up-and-out barrier, 2 * fixed + put for the lookback, the QE scheme,
+    # the variance swap's Heston leg; 0 for the cliquet), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_asian_greeks", "mctpu_barrier",
                     "mctpu_barrier_greeks", "mctpu_lookback",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
                     "mctpu_cliquet_greeks", "mctpu_varswap",
-                    "mctpu_varswap_greeks")},
+                    "mctpu_varswap_greeks", "mctpu_heston",
+                    "mctpu_heston_greeks")},
     # The strike ladder (K21, K22): par, strikes, n_strikes, seed, off,
     # n_blocks, rows, iters, antithetic, put, kahan, out, stream
     **{name: (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)

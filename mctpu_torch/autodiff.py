@@ -20,13 +20,14 @@ import numpy as np
 import torch
 
 from mctpu_torch import engine
-from mctpu_torch.math import cholesky_lower
+from mctpu_torch.math import cholesky_lower, norm_cdf
 from mctpu_torch.models import basket as mbasket
+from mctpu_torch.models import heston as mheston
 from mctpu_torch.types import (AsianOption, BarrierOption, BasketOption,
-                               VanillaOption)
+                               HestonOption, VanillaOption)
 
 __all__ = ["vanilla_greeks", "basket_delta", "asian_greeks",
-           "barrier_delta_crn", "bump_and_revalue"]
+           "heston_greeks", "barrier_delta_crn", "bump_and_revalue"]
 
 _F64 = torch.float64
 
@@ -96,6 +97,46 @@ def asian_greeks(opt: AsianOption, n_paths: int,
     delta, rho, vega = torch.autograd.grad(price, (s, r, v))
     return {"price": price.detach(), "delta": delta, "vega": vega,
             "rho": rho}
+
+
+def heston_greeks(opt: HestonOption, n_paths: int, gen: torch.Generator,
+                  n_steps: int = 100, scheme: str = "euler") -> dict:
+    """Pathwise price, delta, d/d(v0) and d/d(xi) of a Heston call in
+    float64, differentiated through the whole walk over ``(n_steps, 2,
+    n_paths)`` normals (``mctpu.greeks.heston_greeks``): the Euler scheme
+    walks the spot multiplicatively, QE the log-spot with the exact normal
+    CDF; QE's branches are selected with ``where``, which keeps autograd
+    finite."""
+    opt.validate()
+    if scheme not in ("euler", "qe"):
+        raise ValueError("scheme must be 'euler' or 'qe'")
+    z = torch.randn((n_steps, 2, n_paths), generator=gen, dtype=_F64)
+    s0, v0, xi = (_leaf(x) for x in (opt.s, opt.v0, opt.xi))
+    k, r, t, kappa, theta, rho = (torch.tensor(float(x), dtype=_F64) for x in
+                                  (opt.k, opt.r, opt.t, opt.kappa, opt.theta,
+                                   opt.rho))
+    if scheme == "qe":
+        c = mheston.qe_constants(dataclasses.replace(opt, v0=v0, xi=xi),
+                                 n_steps, _F64)
+        x = torch.zeros(n_paths, dtype=_F64)
+        v = v0.expand(n_paths)
+        for zj in z:
+            x, v = mheston.qe_step(x, v, zj[0], zj[1], c, norm_cdf)
+        st = s0 * torch.exp(x)
+    else:
+        dt = t / n_steps
+        sqdt = torch.sqrt(dt)
+        rho_s = torch.sqrt(1.0 - rho * rho)
+        st, v = s0.expand(n_paths), v0.expand(n_paths)
+        for zj in z:
+            vp = torch.clamp(v, min=0.0)
+            sq_v = torch.sqrt(vp) * sqdt
+            z_s = rho * zj[0] + rho_s * zj[1]
+            st = st * torch.exp(r * dt - 0.5 * vp * dt + sq_v * z_s)
+            v = v + kappa * (theta - vp) * dt + xi * sq_v * zj[0]
+    price = torch.exp(-r * t) * torch.clamp(st - k, min=0.0).mean()
+    delta, dv0, dxi = torch.autograd.grad(price, (s0, v0, xi))
+    return {"price": price.detach(), "delta": delta, "dv0": dv0, "dxi": dxi}
 
 
 def barrier_delta_crn(opt: BarrierOption, n_paths: int, seed: int,

@@ -1,6 +1,7 @@
 // Shared device helpers of the port's kernels: compensated sums, the
-// double-single walk state, the Hastings normal CDF and the fixed-order
-// block reductions (two sums per thread, or N sums per iteration).
+// double-single walk state, the Hastings normal CDF, the walk drivers, the
+// Heston Euler steps and the fixed-order block reductions (two sums per
+// thread, or N sums per iteration).
 //
 // Every compensated operation is written with __fadd_rn/__fsub_rn/__fmul_rn,
 // which nvcc never contracts into an FMA nor reassociates, so the error-free
@@ -95,6 +96,74 @@ __device__ __forceinline__ void walk_pairwise(Key key, uint32_t e, int n_steps,
     draw_normal_pair(key, e, static_cast<uint32_t>(half), z1, z2);
     step(n_steps - 1, z1);
   }
+}
+
+// Drives a walk of n_steps over tile element e that takes one Box-Muller
+// pair per step (mctpu_torch/kernels/common.py, walk_steps): step j draws
+// Philox block (e, j, 0, 0) and gets both branches.  step(j, z1, z2)
+// advances the caller's state.
+template <typename Step>
+__device__ __forceinline__ void walk_steps(Key key, uint32_t e, int n_steps,
+                                           Step&& step) {
+  for (int j = 0; j < n_steps; ++j) {
+    float z1, z2;
+    draw_normal_pair(key, e, static_cast<uint32_t>(j), z1, z2);
+    step(j, z1, z2);
+  }
+}
+
+// The constants of one full-truncation Euler step of the Heston walk
+// (mctpu_torch/kernels/heston.py), read from seven consecutive scalars.
+struct HestonStep {
+  float k_dt, th, xi, rho_c, rho_s, r_dt, sqdt;
+};
+
+__device__ __forceinline__ HestonStep heston_consts(const float* p) {
+  return HestonStep{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+}
+
+// One Euler step of (x, v), x = log(S / S0), in mctpu's _heston_step order:
+// vp = max(v, 0), x += r dt - vp dt / 2 + sqrt(vp) sqrt(dt) z_s,
+// v += kappa dt (theta - vp) + xi sqrt(vp) sqrt(dt) z_v.  Its translation
+// unit builds with -fmad=false, so every path rounds as the plain version's
+// separate operations do and max(v, 0) falls on the same side.
+__device__ __forceinline__ void heston_step(const HestonStep& c, float z_v,
+                                            float z_perp, float& x,
+                                            float& v) {
+  const float vp = fmaxf(v, 0.0f);
+  const float sq_v = sqrtf(vp) * c.sqdt;
+  const float z_s = c.rho_c * z_v + c.rho_s * z_perp;
+  x = x + c.r_dt - 0.5f * vp * (c.sqdt * c.sqdt) + sq_v * z_s;
+  v = v + c.k_dt * (c.th - vp) + c.xi * sq_v * z_v;
+}
+
+// One Euler step of (x, v) and of the tangent pairs tg = (al, av) for
+// p = v0, theta, kappa, xi (mctpu's _greek_step): dvp = 1{v > 0} av,
+// al += dvp cA, av += dvp cB + e_p.  mctpu's (0.5 sqdt) rsqrt(vp) is
+// (0.5 sqdt) (1 / sqrt(vp)) here, an IEEE root and division as in the plain
+// version (rsqrtf is not correctly rounded), and 0 at vp = 0.
+__device__ __forceinline__ void heston_greek_step(const HestonStep& c,
+                                                  float half_dt, float dt,
+                                                  float z_v, float z_perp,
+                                                  float& x, float& v,
+                                                  float (&tg)[8]) {
+  const float vp = fmaxf(v, 0.0f);
+  const float sq = sqrtf(vp);
+  const float sq_v = sq * c.sqdt;
+  const float dsq = vp > 0.0f ? (0.5f * c.sqdt) * __fdiv_rn(1.0f, sq) : 0.0f;
+  const bool m = v > 0.0f;
+  const float z_s = c.rho_c * z_v + c.rho_s * z_perp;
+  x = x + c.r_dt - half_dt * vp + sq_v * z_s;
+  const float c_a = z_s * dsq - half_dt;
+  const float c_b = c.xi * dsq * z_v - c.k_dt;
+  const float extra[4] = {0.0f, c.k_dt, dt * (c.th - vp), sq_v * z_v};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float dvp = m ? tg[2 * i + 1] : 0.0f;
+    tg[2 * i] = tg[2 * i] + dvp * c_a;
+    tg[2 * i + 1] = tg[2 * i + 1] + dvp * c_b + extra[i];
+  }
+  v = v + c.k_dt * (c.th - vp) + c.xi * sq_v * z_v;
 }
 
 // Sum of (a, b) over the block's THREADS threads, in a fixed shared-memory

@@ -1,0 +1,254 @@
+// K27 and K28: Heston Monte Carlo (full-truncation Euler or Andersen's QE)
+// and its pathwise Greeks.
+//
+// K27 replaces mctpu/kernels/heston.py::_heston_kernel (both schemes), K28
+// ::_heston_greeks_kernel.  Per simulation block b and iteration i the
+// stream is reseeded with (seed, (off + b) * iters + i) in int32 wrap; tile
+// element e walks n_steps steps, step j drawing Philox block (e, j, 0, 0)
+// and taking both Box-Muller branches, z_v (cosine) and z_perp (sine), in
+// that step (mct::walk_steps); the antithetic mirror replays the same draws
+// with the sign flipped, and the two mirrored outputs are averaged before
+// they are summed.  Each path carries x = log(S / S0) and v.  K27 steps
+// mct::heston_step (Euler) or qe_step below (mctpu/models/heston.py,
+// qe_step) and pays max(s0 e^x - k, 0).  K28 steps mct::heston_greek_step
+// with four tangent pairs and forms price, delta, vega (v0), rho, dtheta,
+// dkappa and dxi (mctpu_torch/kernels/heston.py, _greek_quants): 7
+// outputs, 14 sums.
+//
+// Built with -fmad=false (mctpu_torch/_build.py): each path rounds as the
+// plain PyTorch version's separate operations do, with the same IEEE sqrtf
+// and divisions and the same libm expf/logf, so the walk's branches fall on
+// the same side as there: max(v, 0) and v > 0 in Euler, psi <= 1.5 (where
+// the QE variance is not continuous), u (psi + 1) <= psi - 1 and the clip of
+// u in QE, and S > K in the payoff.  Only the block sums' order differs.
+//
+// Bound on the H100: the draws.  Per path-step one whole Philox block (10
+// rounds of two 32-bit mul.hi/lo) and one Box-Muller pair (logf, sqrtf, the
+// sin/cos polynomials), beside some 15 float32 operations and a sqrtf for
+// Euler; QE adds an expf (the Hastings CDF), a logf in its exponential
+// branch, two more sqrtf and three divides, and may be bound by them rather
+// than by the integer pipe.  The walk is a serial dependence from step to
+// step and the only memory traffic is the block's partials.  Simple design,
+// as K9 and K10: one CUDA block per simulation block, one thread per path
+// element striding over the (rows, 128) tile, the state in registers; K27
+// sums with mct::Acc2 and one fixed-order block tree, K28 with
+// mct::BlockAccN once per iteration.  No atomics: two launches give the
+// same bits.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 1024;       // K27
+constexpr int GREEK_THREADS = 512;  // K28: 14 sums and 10 carries a thread
+constexpr int N_SUMS = 14;
+constexpr int N_EULER = 10;  // K27's scal: 10 Euler scalars, then QE_KEYS
+
+// The QE constants, in mctpu_torch/models/heston.py's QE_KEYS order.
+struct QeConst {
+  float e, c1, c2, r_dt, k0, k1, k2, k3, k4, theta;
+};
+
+// One QE step of (x, v) in mctpu's qe_step order.  The branch not taken is
+// not formed: mctpu forms both and selects, which gives the same value.
+__device__ __forceinline__ void qe_step(const QeConst& c, float z_v, float z_s,
+                                        float& x, float& v) {
+  const float m = c.theta + (v - c.theta) * c.e;
+  const float s2 = v * c.c1 + c.c2;
+  const float inv_m = __fdiv_rn(1.0f, fmaxf(m, MCT_F32(1e-30)));
+  const float psi = s2 * inv_m * inv_m;
+  float v_new;
+  if (psi <= 1.5f) {  // quadratic: a (b + z_v)^2
+    const float two_over = __fdiv_rn(2.0f, psi);
+    const float quad_arg = fmaxf(two_over * (two_over - 1.0f), 0.0f);
+    const float b2 = two_over - 1.0f + sqrtf(quad_arg);
+    const float a = __fdiv_rn(m, 1.0f + b2);
+    const float w = sqrtf(b2) + z_v;
+    v_new = a * (w * w);
+  } else {  // exponential, its mass at zero drawn through u = Phi(z_v)
+    const float psip1 = psi + 1.0f;
+    const float u = fminf(fmaxf(mct::norm_cdf_hastings(z_v), 0.0f),
+                          MCT_F32(1.0 - 1e-7));
+    if (u * psip1 <= psi - 1.0f) {
+      v_new = 0.0f;
+    } else {
+      const float log_arg =
+          __fdiv_rn(2.0f, fmaxf(psip1 * (1.0f - u), MCT_F32(1e-30)));
+      v_new = logf(log_arg) * (0.5f * m * psip1);
+    }
+  }
+  x = x + c.r_dt + c.k0 + c.k1 * v + c.k2 * v_new +
+      sqrtf(fmaxf(c.k3 * v + c.k4 * v_new, MCT_F32(1e-20))) * z_s;
+  v = v_new;
+}
+
+struct Scal {
+  float s0, k, v0;
+  mct::HestonStep h;
+  QeConst qe;
+};
+
+__device__ __forceinline__ Scal load_scal(const float* p) {
+  const float* q = p + N_EULER;
+  return Scal{p[0], p[1], p[2], mct::heston_consts(p + 3),
+              QeConst{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8],
+                      q[9]}};
+}
+
+// One K27 walk of tile element e -> its payoff.
+template <bool QE>
+__device__ __forceinline__ float walk(const Scal& c, int n_steps,
+                                      mct::Key key, uint32_t e, float sgn) {
+  float x = 0.0f, v = c.v0;
+  mct::walk_steps(key, e, n_steps, [&](int, float z_v, float z_perp) {
+    if (QE) {
+      qe_step(c.qe, sgn * z_v, sgn * z_perp, x, v);
+    } else {
+      mct::heston_step(c.h, sgn * z_v, sgn * z_perp, x, v);
+    }
+  });
+  return fmaxf(c.s0 * expf(x) - c.k, 0.0f);
+}
+
+template <bool ANTI, bool KAHAN, bool QE>
+__global__ void __launch_bounds__(THREADS)
+    heston_kernel(const float* __restrict__ scal, int n_steps, uint32_t seed,
+                  uint32_t off, int n_elems, int iters,
+                  float* __restrict__ out) {
+  const Scal c = load_scal(scal);
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float p = walk<QE>(c, n_steps, key, u, 1.0f);
+      if (ANTI) p = 0.5f * (p + walk<QE>(c, n_steps, key, u, -1.0f));
+      acc.add(p);
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
+}
+
+// K28's scalars (mctpu_torch/kernels/heston.py, GREEK_SCAL).
+struct GreekScal {
+  float s0, k, v0;
+  mct::HestonStep h;
+  float half_dt, t_k, dt;
+};
+
+// One K28 walk of tile element e; q[] gets (p, delta, vega, rho, dtheta,
+// dkappa, dxi).
+__device__ __forceinline__ void greek_walk(const GreekScal& c, int n_steps,
+                                           mct::Key key, uint32_t e,
+                                           float sgn, float (&q)[7]) {
+  float x = 0.0f, v = c.v0;
+  float tg[8] = {0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  mct::walk_steps(key, e, n_steps, [&](int, float z_v, float z_perp) {
+    mct::heston_greek_step(c.h, c.half_dt, c.dt, sgn * z_v, sgn * z_perp, x,
+                           v, tg);
+  });
+  const float e_x = expf(x);
+  const float st = c.s0 * e_x;
+  const float ind = st > c.k ? 1.0f : 0.0f;
+  const float ist = ind * st;
+  q[0] = fmaxf(st - c.k, 0.0f);
+  q[1] = ind * e_x;
+  q[2] = ist * tg[0];
+  q[3] = c.t_k * ind;
+  q[4] = ist * tg[2];
+  q[5] = ist * tg[4];
+  q[6] = ist * tg[6];
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(GREEK_THREADS)
+    heston_greeks_kernel(const float* __restrict__ scal, int n_steps,
+                         uint32_t seed, uint32_t off, int n_elems, int iters,
+                         float* __restrict__ out) {
+  __shared__ float sh[(GREEK_THREADS / 32) * N_SUMS];
+  const GreekScal c{scal[0], scal[1], scal[2], mct::heston_consts(scal + 3),
+                    scal[10], scal[11], scal[12]};
+  mct::BlockAccN<GREEK_THREADS, N_SUMS, KAHAN> acc;
+  float vs[N_SUMS];
+#pragma unroll
+  for (int j = 0; j < N_SUMS; ++j) vs[j] = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += GREEK_THREADS) {
+      float q[7];
+      greek_walk(c, n_steps, key, static_cast<uint32_t>(e), 1.0f, q);
+      if (ANTI) {
+        float m[7];
+        greek_walk(c, n_steps, key, static_cast<uint32_t>(e), -1.0f, m);
+#pragma unroll
+        for (int j = 0; j < 7; ++j) q[j] = 0.5f * (q[j] + m[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        vs[2 * j] += q[j];
+        vs[2 * j + 1] += q[j] * q[j];
+      }
+    }
+    acc.add(vs, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <bool ANTI, bool KAHAN>
+void launch(const float* scal, int n_steps, uint32_t seed, uint32_t off,
+            int n_blocks, int n_elems, int iters, int greeks, int qe,
+            float* out, cudaStream_t stream) {
+  if (greeks) {
+    heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0, stream>>>(
+        scal, n_steps, seed, off, n_elems, iters, out);
+  } else if (qe) {
+    heston_kernel<ANTI, KAHAN, true><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_steps, seed, off, n_elems, iters, out);
+  } else {
+    heston_kernel<ANTI, KAHAN, false><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_steps, seed, off, n_elems, iters, out);
+  }
+}
+
+using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
+                          int, int, int, float*, cudaStream_t);
+
+// Indexed by antithetic << 1 | kahan.
+constexpr LaunchFn LAUNCHERS[4] = {
+    launch<false, false>, launch<false, true>,
+    launch<true, false>,  launch<true, true>,
+};
+
+int run(const float* scal, int n_steps, int seed, int off, int n_blocks,
+        int rows, int iters, int antithetic, int kahan, int greeks, int qe,
+        float* out, void* stream) {
+  const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
+  LAUNCHERS[idx](scal, n_steps, static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
+                 iters, greeks, qe, out, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// scal (the 10 Euler scalars, then the 10 QE constants) -> out (n_blocks,
+// 2); mode 1 takes the QE scheme, 0 Euler.
+extern "C" int mctpu_heston(const float* scal, int n_steps, int seed, int off,
+                            int n_blocks, int rows, int iters, int antithetic,
+                            int kahan, int mode, float* out, void* stream) {
+  return run(scal, n_steps, seed, off, n_blocks, rows, iters, antithetic,
+             kahan, 0, mode, out, stream);
+}
+
+// scal (the 10 Euler scalars, half_dt, t_k, dt) -> out (n_blocks, 14).
+// mode is unused (the single-asset walks' common signature).
+extern "C" int mctpu_heston_greeks(const float* scal, int n_steps, int seed,
+                                   int off, int n_blocks, int rows, int iters,
+                                   int antithetic, int kahan, int /*mode*/,
+                                   float* out, void* stream) {
+  return run(scal, n_steps, seed, off, n_blocks, rows, iters, antithetic,
+             kahan, 1, 0, out, stream);
+}

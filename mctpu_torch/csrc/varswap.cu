@@ -1,31 +1,46 @@
-// K19 and K20, GBM leg: the variance swap's fair strike (K19) and its vega,
-// rho and theta (K20), one realized-variance walk per path.
+// K19 and K20: the variance swap's fair strike (K19) and its sensitivities
+// (K20), one realized-variance walk per path, under GBM or Heston.
 //
-// K19 replaces the GBM branch of mctpu/kernels/varswap.py::_varswap_kernel,
-// K20 that of ::_varswap_greeks_kernel.  The stream is K9's and K12's
-// (csrc/asian.cu): reseed per (block, iteration) with (seed, (off + b) *
-// iters + i), pairs of dates per Philox block, an odd n_obs taking the
-// cosine branch of the last pair.  Each path sums lr^2 (and, in K20, lr)
-// with lr = drift + vol z over n_obs dates; K19 pays rv = acc / T, K20 forms
-// (rv, vega, rho, theta) from the two sums in mctpu's _gbm_greek_quants
-// order (mctpu_torch/kernels/varswap.py, _greek_quants).  The antithetic
-// mirror's z is -z of the same draw: both signs step in one walk over one
-// draw per date (the JAX kernel reseeds and draws again), and the pair's
-// mean 0.5 (x + x_mirror) is formed before the sums, per quantity.
+// K19 replaces mctpu/kernels/varswap.py::_varswap_kernel, K20
+// ::_varswap_greeks_kernel, both legs (dynamics "gbm" and "heston"; mode 0
+// and 1 of the entry points).  Every walk reseeds per (block, iteration)
+// with (seed, (off + b) * iters + i).
 //
-// Built with -fmad=false (mctpu_torch/_build.py), as every walk: the walk
-// has no discontinuity, but a contracted drift + vol * z would round each
-// log-return otherwise than the plain version does.  1 / v is an IEEE
-// division (no fast math), as the plain version's.
+// GBM: the stream is K9's and K12's (csrc/asian.cu): pairs of dates per
+// Philox block, an odd n_obs taking the cosine branch of the last pair.
+// Each path sums lr^2 (and, in K20, lr) with lr = drift + vol z over n_obs
+// dates; K19 pays rv = acc / T, K20 forms (rv, vega, rho, theta) from the
+// two sums in mctpu's _gbm_greek_quants order (mctpu_torch/kernels/
+// varswap.py, _greek_quants).  The antithetic mirror's z is -z of the same
+// draw: both signs step in one walk over one draw per date (the JAX kernel
+// reseeds and draws again), and the pair's mean 0.5 (x + x_mirror) is
+// formed before the sums, per quantity.
 //
-// Bound on the H100: the draws.  Per path-step half a Philox block (20
+// Heston: the stream is K27's (csrc/heston.cu): one Philox block and both
+// Box-Muller branches per date (mct::walk_steps).  Each path steps
+// mct::heston_step and adds lr^2 with lr the step's increment of x = log(S /
+// S0) (K19); K20 steps mct::heston_greek_step (K28's tangents) and also sums
+// lr and 2 lr (al_p,new - al_p) per parameter p = v0, theta, kappa, xi, and
+// pays (rv, dv0, dtheta, dkappa, dxi, rho = (2 dt / T) sum lr), each over T
+// (mctpu's _heston_greek_walk).  The antithetic mirror reseeds and replays
+// the draws with -z, as the JAX kernel does.
+//
+// Built with -fmad=false (mctpu_torch/_build.py), as every walk: a
+// contracted drift + vol * z would round each log-return otherwise than the
+// plain version does, and the Heston step has max(v, 0) and v > 0.  1 / v,
+// sqrtf and the tangents' 1 / sqrt(vp) are IEEE (no fast math), as the
+// plain version's.
+//
+// Bound on the H100: the draws.  GBM: per path-step half a Philox block (20
 // 32-bit integer multiplies and XORs) and half a Box-Muller, beside 4 (K19)
-// or 5 (K20) float32 operations: the integer pipe bounds it, 252 dates make
-// 126 Philox blocks a path.  Simple design, as K12 and K13: one CUDA block
-// per simulation block, one thread per path element striding over the
-// (rows, 128) tile, state in registers; K19 sums with mct::Acc2, K20 with
-// mct::BlockAccN per iteration.  No atomics: two launches give the same
-// bits.
+// or 5 (K20) float32 operations.  Heston: a whole Philox block and a
+// Box-Muller pair per path-step, beside the Euler step's ~15 float32
+// operations and a sqrtf (K19) or the tangent step's ~45 and a sqrtf and a
+// divide (K20): 252 dates make 126 (GBM) or 252 (Heston) Philox blocks a
+// path.  Simple design, as K12 and K13: one CUDA block per simulation
+// block, one thread per path element striding over the (rows, 128) tile,
+// state in registers; K19 sums with mct::Acc2, K20 with mct::BlockAccN per
+// iteration.  No atomics: two launches give the same bits.
 #include "common.cuh"
 
 namespace {
@@ -33,6 +48,7 @@ namespace {
 constexpr int THREADS = 1024;        // K19
 constexpr int GREEK_THREADS = 512;   // K20
 constexpr int N_SUMS = 8;            // (sum, sum^2) of rv, vega, rho, theta
+constexpr int N_SUMS_HESTON = 12;    // of rv, dv0, dtheta, dkappa, dxi, rho
 
 // K19: the realized variance of tile element e's path (the antithetic
 // pair's mean when ANTI).
@@ -143,14 +159,133 @@ __global__ void __launch_bounds__(GREEK_THREADS)
   acc.write(out);
 }
 
+// K19, Heston leg: the realized variance of tile element e's path under
+// sign sgn.
+__device__ __forceinline__ float heston_rv(const mct::HestonStep& h, float v0,
+                                           float inv_t, int n_obs,
+                                           mct::Key key, uint32_t e,
+                                           float sgn) {
+  float x = 0.0f, v = v0, acc = 0.0f;
+  mct::walk_steps(key, e, n_obs, [&](int, float z_v, float z_perp) {
+    const float x_old = x;
+    mct::heston_step(h, sgn * z_v, sgn * z_perp, x, v);
+    const float lr = x - x_old;
+    acc = acc + lr * lr;
+  });
+  return acc * inv_t;
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(THREADS)
+    varswap_heston_kernel(const float* __restrict__ scal, int n_obs,
+                          uint32_t seed, uint32_t off, int n_elems, int iters,
+                          float* __restrict__ out) {
+  // scal: 1/t, s0 (not read), v0, then the Euler step's seven constants
+  const float inv_t = scal[0], v0 = scal[2];
+  const mct::HestonStep h = mct::heston_consts(scal + 3);
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float rv = heston_rv(h, v0, inv_t, n_obs, key, u, 1.0f);
+      if (ANTI) rv = 0.5f * (rv + heston_rv(h, v0, inv_t, n_obs, key, u,
+                                            -1.0f));
+      acc.add(rv);
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
+}
+
+// K20's Heston scalars (mctpu_torch/kernels/varswap.py, HESTON_GREEK_SCAL).
+struct HestonGreekScal {
+  float inv_t, v0;
+  mct::HestonStep h;
+  float half_dt, dt;
+};
+
+// One K20 Heston walk of tile element e; q[] gets (rv, dv0, dtheta, dkappa,
+// dxi, rho).
+__device__ __forceinline__ void heston_greek_walk(const HestonGreekScal& c,
+                                                  int n_obs, mct::Key key,
+                                                  uint32_t e, float sgn,
+                                                  float (&q)[6]) {
+  float x = 0.0f, v = c.v0, acc2 = 0.0f, acc1 = 0.0f;
+  float tg[8] = {0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mct::walk_steps(key, e, n_obs, [&](int, float z_v, float z_perp) {
+    const float x_old = x;
+    const float al_old[4] = {tg[0], tg[2], tg[4], tg[6]};
+    mct::heston_greek_step(c.h, c.half_dt, c.dt, sgn * z_v, sgn * z_perp, x,
+                           v, tg);
+    const float lr = x - x_old;
+    const float two_lr = 2.0f * lr;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      dacc[p] = dacc[p] + two_lr * (tg[2 * p] - al_old[p]);
+    }
+    acc2 = acc2 + lr * lr;
+    acc1 = acc1 + lr;
+  });
+  q[0] = acc2 * c.inv_t;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) q[1 + p] = dacc[p] * c.inv_t;
+  q[5] = ((2.0f * c.dt) * c.inv_t) * acc1;
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(GREEK_THREADS)
+    varswap_heston_greeks_kernel(const float* __restrict__ scal, int n_obs,
+                                 uint32_t seed, uint32_t off, int n_elems,
+                                 int iters, float* __restrict__ out) {
+  __shared__ float sh[(GREEK_THREADS / 32) * N_SUMS_HESTON];
+  const HestonGreekScal c{scal[0], scal[1], mct::heston_consts(scal + 2),
+                          scal[9], scal[10]};
+  mct::BlockAccN<GREEK_THREADS, N_SUMS_HESTON, KAHAN> acc;
+  float vs[N_SUMS_HESTON];
+#pragma unroll
+  for (int j = 0; j < N_SUMS_HESTON; ++j) vs[j] = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += GREEK_THREADS) {
+      float q[6];
+      heston_greek_walk(c, n_obs, key, static_cast<uint32_t>(e), 1.0f, q);
+      if (ANTI) {
+        float m[6];
+        heston_greek_walk(c, n_obs, key, static_cast<uint32_t>(e), -1.0f, m);
+#pragma unroll
+        for (int j = 0; j < 6; ++j) q[j] = 0.5f * (q[j] + m[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        vs[2 * j] += q[j];
+        vs[2 * j + 1] += q[j] * q[j];
+      }
+    }
+    acc.add(vs, nullptr, sh);
+  }
+  acc.write(out);
+}
+
 template <bool ANTI, bool KAHAN>
 void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int greeks, float* out,
-            cudaStream_t stream) {
-  if (greeks) {
+            int n_blocks, int n_elems, int iters, int greeks, int heston,
+            float* out, cudaStream_t stream) {
+  if (greeks && heston) {
+    varswap_heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
+                                                stream>>>(
+        scal, n_obs, seed, off, n_elems, iters, out);
+  } else if (greeks) {
     varswap_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
                                          stream>>>(scal, n_obs, seed, off,
                                                    n_elems, iters, out);
+  } else if (heston) {
+    varswap_heston_kernel<ANTI, KAHAN><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_obs, seed, off, n_elems, iters, out);
   } else {
     varswap_kernel<ANTI, KAHAN><<<n_blocks, THREADS, 0, stream>>>(
         scal, n_obs, seed, off, n_elems, iters, out);
@@ -158,7 +293,7 @@ void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
 }
 
 using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
-                          int, int, float*, cudaStream_t);
+                          int, int, int, float*, cudaStream_t);
 
 // Indexed by antithetic << 1 | kahan.
 constexpr LaunchFn LAUNCHERS[4] = {
@@ -168,31 +303,34 @@ constexpr LaunchFn LAUNCHERS[4] = {
 
 int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
         int rows, int iters, int antithetic, int kahan, int greeks,
-        float* out, void* stream) {
+        int heston, float* out, void* stream) {
   const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
   LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
                  static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, greeks, out, static_cast<cudaStream_t>(stream));
+                 iters, greeks, heston, out,
+                 static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// scal (1/t, drift, vol) -> out (n_blocks, 2).  mode is unused (the
-// single-asset walks' common signature).
+// mode 0 (GBM): scal (1/t, drift, vol); mode 1 (Heston): scal (1/t, s0, v0,
+// kappa dt, theta, xi, rho, sqrt(1 - rho^2), r dt, sqrt(dt)).  -> out
+// (n_blocks, 2).
 extern "C" int mctpu_varswap(const float* scal, int n_obs, int seed, int off,
                              int n_blocks, int rows, int iters, int antithetic,
-                             int kahan, int /*mode*/, float* out,
-                             void* stream) {
+                             int kahan, int mode, float* out, void* stream) {
   return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             0, out, stream);
+             0, mode, out, stream);
 }
 
-// scal (1/t, drift, vol, v, dt) -> out (n_blocks, 8).
+// mode 0 (GBM): scal (1/t, drift, vol, v, dt) -> out (n_blocks, 8); mode 1
+// (Heston): scal (1/t, v0, kappa dt, theta, xi, rho, sqrt(1 - rho^2), r dt,
+// sqrt(dt), dt / 2, dt) -> out (n_blocks, 12).
 extern "C" int mctpu_varswap_greeks(const float* scal, int n_obs, int seed,
                                     int off, int n_blocks, int rows, int iters,
-                                    int antithetic, int kahan, int /*mode*/,
+                                    int antithetic, int kahan, int mode,
                                     float* out, void* stream) {
   return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             1, out, stream);
+             1, mode, out, stream);
 }

@@ -9,7 +9,7 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 
 :func:`price_vanilla`, :func:`price_basket`, :func:`price_cva`,
 :func:`price_cva_portfolio`, :func:`price_asian`, :func:`price_barrier`,
-:func:`price_lookback`, :func:`price_cliquet` and
+:func:`price_lookback`, :func:`price_cliquet`, :func:`price_heston` and
 :func:`fair_variance_strike` take an int32 ``seed`` word (the value
 ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
@@ -37,6 +37,7 @@ from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
+from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
@@ -47,7 +48,8 @@ from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketOption, CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
-                               GreeksResult, LookbackOption, McResult,
+                               GreeksResult, HestonGreeksResult,
+                               HestonOption, LookbackOption, McResult,
                                Precision, VanillaBook, VanillaOption)
 
 __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
@@ -65,7 +67,8 @@ __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "fair_variance_strike", "greeks_varswap", "varswap_setup",
            "greeks_varswap_setup", "price_barrier_book",
            "greeks_barrier_book", "barrier_book_setup",
-           "greeks_barrier_book_setup"]
+           "greeks_barrier_book_setup", "price_heston", "greeks_heston",
+           "heston_setup", "greeks_heston_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,6 +315,37 @@ def price_cliquet(opt: CliquetOption, n_paths: int, seed: int,
     plan, par = cliquet_setup(opt, n_paths, config)
     partials = kcliquet.partials(par, wrap_int32(seed), 0, plan,
                                  plan.num_blocks, opt.n_periods)
+    return _price(partials, plan, opt.r, opt.t)
+
+
+def _check_heston(opt: HestonOption, n_steps: int) -> None:
+    opt.validate()
+    if n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
+
+
+def heston_setup(opt: HestonOption, n_paths: int, config: EngineConfig,
+                 n_steps: int = 100, scheme: str = "euler"):
+    """``(plan, params)``: the launch :func:`price_heston` makes."""
+    dev = config.torch_device()
+    return (_walk_plan(n_paths, config),
+            kheston.params(opt, n_steps, scheme == "qe", dev))
+
+
+def price_heston(opt: HestonOption, n_paths: int, seed: int,
+                 config: EngineConfig = EngineConfig(), n_steps: int = 100,
+                 scheme: str = "euler") -> McResult:
+    """Monte Carlo price of a European call under Heston stochastic
+    volatility (K27) over ``n_steps`` steps: ``scheme="euler"`` (full
+    truncation, O(dt) bias) or ``"qe"`` (Andersen's quadratic-exponential,
+    nearly unbiased at coarse grids).  The characteristic-function price
+    (:func:`mctpu_torch.models.heston.cf_call_price`) is its oracle."""
+    _check_heston(opt, n_steps)
+    if scheme not in ("euler", "qe"):
+        raise ValueError("scheme must be 'euler' or 'qe'")
+    plan, par = heston_setup(opt, n_paths, config, n_steps, scheme)
+    partials = kheston.partials(par, wrap_int32(seed), 0, plan,
+                                plan.num_blocks, n_steps, scheme == "qe")
     return _price(partials, plan, opt.r, opt.t)
 
 
@@ -615,6 +649,35 @@ def greeks_cliquet(opt: CliquetOption, n_paths: int, seed: int,
                         theta=theta, gamma=zero)
 
 
+def greeks_heston_setup(opt: HestonOption, n_paths: int,
+                        config: EngineConfig, n_steps: int = 100):
+    """``(plan, params)``: the launch :func:`greeks_heston` makes (the
+    pricer's plan)."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), kheston.greek_params(opt, n_steps,
+                                                             dev)
+
+
+def greeks_heston(opt: HestonOption, n_paths: int, seed: int,
+                  config: EngineConfig = EngineConfig(),
+                  n_steps: int = 100) -> HestonGreeksResult:
+    """Price and pathwise delta, vega (dV/dv0), rho, dtheta, dkappa and dxi
+    of a Heston call in one sweep (K28), over the Euler walk of
+    :func:`price_heston`'s paths: four forward-mode tangent pairs ride the
+    walk.  The payoff is continuous in the parameters, so the pathwise
+    estimates are unbiased for the discretized scheme's price; where the
+    Feller condition ``2 kappa theta >= xi^2`` fails, the variance tangents
+    are heavy-tailed and their standard errors converge slowly."""
+    _check_heston(opt, n_steps)
+    plan, gp = greeks_heston_setup(opt, n_paths, config, n_steps)
+    partials = kheston.greek_partials(gp, wrap_int32(seed), 0, plan,
+                                      plan.num_blocks, n_steps)
+    price, delta, vega, rho, dtheta, dkappa, dxi = _estimates(
+        _total(partials), plan.total_units, plan, _discount(opt.r, opt.t))
+    return HestonGreeksResult(price=price, delta=delta, vega=vega, rho=rho,
+                              dtheta=dtheta, dkappa=dkappa, dxi=dxi)
+
+
 def _vector_greeks(total, plan, discount) -> GreeksResult:
     """Price, delta, vega, rho, theta and gamma of ``(K, 12)`` combined
     partials, each a vector :class:`McResult`."""
@@ -672,32 +735,35 @@ def greeks_book(book: VanillaBook, n_paths: int, seed: int,
 
 
 def _check_varswap(opt, n_obs: int) -> None:
-    if not isinstance(opt, VanillaOption):
+    if not isinstance(opt, (VanillaOption, HestonOption)):
         raise TypeError(
-            f"the variance swap takes a VanillaOption (GBM dynamics), got "
-            f"{type(opt).__name__}: its Heston leg comes with the Heston "
-            "slice of the port")
+            "the variance swap takes a VanillaOption (GBM dynamics) or a "
+            f"HestonOption (Heston dynamics), got {type(opt).__name__}")
     opt.validate()
     if n_obs < 1:
         raise ValueError("n_obs must be >= 1")
 
 
-def varswap_setup(opt: VanillaOption, n_paths: int, config: EngineConfig,
+def varswap_setup(opt, n_paths: int, config: EngineConfig,
                   n_obs: int = 252):
-    """``(plan, params)``: the launch :func:`fair_variance_strike` makes."""
+    """``(plan, params)``: the launch :func:`fair_variance_strike` makes
+    (the Heston leg's scalars for a :class:`HestonOption`)."""
     dev = config.torch_device()
-    return _walk_plan(n_paths, config), kvarswap.params(opt, n_obs, dev)
+    make = (kvarswap.heston_params if isinstance(opt, HestonOption)
+            else kvarswap.params)
+    return _walk_plan(n_paths, config), make(opt, n_obs, dev)
 
 
-def fair_variance_strike(opt: VanillaOption, n_paths: int, seed: int,
+def fair_variance_strike(opt, n_paths: int, seed: int,
                          config: EngineConfig = EngineConfig(),
                          n_obs: int = 252) -> McResult:
-    """Fair strike of a variance swap under GBM (K19): ``E[(1/T) sum_j
-    ln(S_j / S_{j-1})^2]`` over ``n_obs`` equal dates, exactly ``v^2 + (r -
-    v^2/2)^2 T / n``.  In variance units, undiscounted (a strike, not a
-    price).  ``opt.k`` and ``opt.kind`` are not used; any record other than
-    a :class:`VanillaOption` raises ``TypeError`` (``mctpu``'s Heston leg is
-    not ported yet)."""
+    """Fair strike of a variance swap (K19): ``E[(1/T) sum_j ln(S_j /
+    S_{j-1})^2]`` over ``n_obs`` equal dates, in variance units and
+    undiscounted (a strike, not a price).  A :class:`VanillaOption` walks
+    GBM, exactly ``v^2 + (r - v^2/2)^2 T / n`` (``opt.k`` and ``opt.kind``
+    are not used); a :class:`HestonOption` the Euler Heston walk, whose
+    strike approaches ``theta + (v0 - theta)(1 - e^{-kappa T})/(kappa T)``
+    as ``n_obs`` grows.  Any other record raises ``TypeError``."""
     _check_varswap(opt, n_obs)
     plan, par = varswap_setup(opt, n_paths, config, n_obs)
     partials = kvarswap.partials(par, wrap_int32(seed), 0, plan,
@@ -707,30 +773,38 @@ def fair_variance_strike(opt: VanillaOption, n_paths: int, seed: int,
                           n_paths=plan.total_paths)
 
 
-def greeks_varswap_setup(opt: VanillaOption, n_paths: int,
-                         config: EngineConfig, n_obs: int = 252):
+def greeks_varswap_setup(opt, n_paths: int, config: EngineConfig,
+                         n_obs: int = 252):
     """``(plan, params)``: the launch :func:`greeks_varswap` makes (the
     fair-strike plan)."""
     dev = config.torch_device()
-    return _walk_plan(n_paths, config), kvarswap.greek_params(opt, n_obs,
-                                                              dev)
+    make = (kvarswap.heston_greek_params if isinstance(opt, HestonOption)
+            else kvarswap.greek_params)
+    return _walk_plan(n_paths, config), make(opt, n_obs, dev)
 
 
-def greeks_varswap(opt: VanillaOption, n_paths: int, seed: int,
-                   config: EngineConfig = EngineConfig(),
-                   n_obs: int = 252) -> GreeksResult:
-    """The fair strike and its vega (d/dv), rho (d/dr) and theta (d/dT)
-    under GBM in one sweep (K20), over :func:`fair_variance_strike`'s
-    paths, each undiscounted.  Log-returns do not depend on the spot, so
-    delta is an exact ``0 +- 0`` estimate, as in
-    ``mctpu.engine.greeks_varswap``."""
+def greeks_varswap(opt, n_paths: int, seed: int,
+                   config: EngineConfig = EngineConfig(), n_obs: int = 252):
+    """The fair strike and its sensitivities in one sweep (K20), over
+    :func:`fair_variance_strike`'s paths, each undiscounted.  GBM: a
+    :class:`GreeksResult` with vega (d/dv), rho (d/dr) and theta (d/dT).
+    Heston: a :class:`HestonGreeksResult` with vega (d/dv0), dtheta, dkappa,
+    dxi and rho.  Log-returns do not depend on the spot, so delta is an
+    exact ``0 +- 0`` estimate in both, as in ``mctpu.engine.greeks_varswap``.
+    """
     _check_varswap(opt, n_obs)
     plan, gp = greeks_varswap_setup(opt, n_paths, config, n_obs)
     partials = kvarswap.greek_partials(gp, wrap_int32(seed), 0, plan,
                                        plan.num_blocks, n_obs)
     n = plan.total_units
-    price, vega, rho, theta = _estimates(_total(partials), n, plan, 1.0)
+    est = _estimates(_total(partials), n, plan, 1.0)
     zero = mcest.estimate(0.0, 0.0, n, discount=1.0, n_paths=plan.total_paths)
+    if isinstance(opt, HestonOption):
+        price, vega, dtheta, dkappa, dxi, rho = est
+        return HestonGreeksResult(price=price, delta=zero, vega=vega,
+                                  rho=rho, dtheta=dtheta, dkappa=dkappa,
+                                  dxi=dxi)
+    price, vega, rho, theta = est
     return GreeksResult(price=price, delta=zero, vega=vega, rho=rho,
                         theta=theta)
 
@@ -811,4 +885,6 @@ def greeks(opt, n_paths: int, seed: int,
         return greeks_lookback(opt, n_paths, seed, config)
     if isinstance(opt, CliquetOption):
         return greeks_cliquet(opt, n_paths, seed, config)
+    if isinstance(opt, HestonOption):
+        return greeks_heston(opt, n_paths, seed, config)
     raise TypeError(f"no in-kernel Greeks for {type(opt).__name__}")

@@ -25,9 +25,10 @@ from mctpu_torch.utils.accum import kahan_add
 
 __all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
            "iter_keys", "tile_index", "draw_normal_pair", "walk_pairwise",
-           "walk_partials", "acc_init", "acc_add", "acc_final", "acc_init_n",
-           "acc_add_n", "acc_final_n", "det_col_sums", "check_operand",
-           "f32", "launch_walk", "launch_items", "terminal_partials"]
+           "walk_steps", "walk_partials", "acc_init", "acc_add", "acc_final",
+           "acc_init_n", "acc_add_n", "acc_final_n", "det_col_sums",
+           "check_operand", "f32", "sqrt32", "launch_walk", "launch_items",
+           "terminal_partials"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
 # index row * LANES + lane, as the JAX kernels lay them out.
@@ -164,6 +165,13 @@ def f32(*xs):
     return (torch.tensor(float(x), dtype=torch.float32) for x in xs)
 
 
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float32 scalar, as
+    ``jnp.sqrt`` gives it on the CPU: taken in float64 and rounded once
+    (``torch.sqrt`` on a CPU float32 tensor may miss by an ulp)."""
+    return torch.sqrt(x.double()).float()
+
+
 def check_operand(name: str, x: torch.Tensor, shape, device) -> None:
     """Raise unless ``x`` is a contiguous float32 tensor of ``shape`` on
     ``device`` (what a kernel's C entry point takes)."""
@@ -223,6 +231,16 @@ def walk_pairwise(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
     if n_steps % 2:
         z1, _ = draw_normal_pair(key, idx, half)
         carry = step_fn(n_steps - 1, z1, carry)
+    return carry
+
+
+def walk_steps(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
+    """Drive a walk that takes one Box-Muller pair per step (the Heston
+    walks): step ``j`` draws counter ``j`` and gets both branches,
+    ``step_fn(j, z1, z2, carry) -> carry``."""
+    for j in range(n_steps):
+        z1, z2 = draw_normal_pair(key, idx, j)
+        carry = step_fn(j, z1, z2, carry)
     return carry
 
 
@@ -302,11 +320,12 @@ def launch_items(entry: str, ptrs, n_items: int, n_sums: int, seed: int,
 def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
                 seed: int, block_offset: int, plan: Plan, n_blocks: int,
                 n_obs: int, mode: int) -> torch.Tensor:
-    """Launch a single-asset walk kernel (K9, K10, K12, K13, K15-K18 share
-    one C signature) on ``scal``'s device and return its ``(n_blocks,
-    n_out)`` partials.  ``mode`` selects the kernel's static variant: 1 for
-    the geometric Asian or the up-and-out barrier, ``2 * fixed + put`` for
-    the lookback, 0 otherwise; ``n_obs`` is the step count (the cliquet's
+    """Launch a single-asset walk kernel (K9, K10, K12, K13, K15-K20, K27,
+    K28 share one C signature) on ``scal``'s device and return its
+    ``(n_blocks, n_out)`` partials.  ``mode`` selects the kernel's static
+    variant: 1 for the geometric Asian, the up-and-out barrier, the QE
+    scheme or the variance swap's Heston leg, ``2 * fixed + put`` for the
+    lookback, 0 otherwise; ``n_obs`` is the step count (the cliquet's
     ``n_periods``).  Raises on a bad operand or a failed launch."""
     check_operand("scal", scal, (n_scal,), scal.device)
     if n_blocks < 1:

@@ -30,9 +30,11 @@ __all__ = [
     "BarrierBook",
     "LookbackOption",
     "CliquetOption",
+    "HestonOption",
     "McResult",
     "CvaResult",
     "GreeksResult",
+    "HestonGreeksResult",
     "CvaGreeksResult",
     "from_reference",
 ]
@@ -576,6 +578,38 @@ class CliquetOption:
 
 
 @dataclasses.dataclass(frozen=True)
+class HestonOption:
+    """European call under Heston stochastic volatility: spot ``s``, strike
+    ``k``, rate ``r``, maturity ``t``, initial variance ``v0``,
+    mean-reversion speed ``kappa``, long-run variance ``theta``, vol-of-vol
+    ``xi`` and spot-variance correlation ``rho``.  The characteristic-
+    function price (:func:`mctpu_torch.models.heston.cf_call_price`) is its
+    oracle."""
+
+    s: Any
+    k: Any
+    r: Any
+    t: Any
+    v0: Any
+    kappa: Any
+    theta: Any
+    xi: Any
+    rho: Any
+
+    def validate(self) -> None:
+        if not (float(self.s) > 0 and float(self.k) > 0):
+            raise ValueError("spot and strike must be positive")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+        if float(self.v0) < 0 or float(self.theta) < 0:
+            raise ValueError("variances must be non-negative")
+        if float(self.kappa) < 0 or float(self.xi) < 0:
+            raise ValueError("kappa and xi must be non-negative")
+        if not -1.0 <= float(self.rho) <= 1.0:
+            raise ValueError("rho must lie in [-1, 1]")
+
+
+@dataclasses.dataclass(frozen=True)
 class McResult:
     """Monte Carlo estimate: ``price``, ``std_error`` and the 95% half-width
     ``ci`` in discounted units; raw undiscounted ``sum_p``/``sum_p2``; ``n``
@@ -654,6 +688,22 @@ class GreeksResult:
 
 
 @dataclasses.dataclass(frozen=True)
+class HestonGreeksResult(GreeksResult):
+    """Heston Greeks: the :class:`GreeksResult` contract, with ``vega`` the
+    initial-variance sensitivity dV/dv0, extended with ``dtheta`` (long-run
+    variance), ``dkappa`` (mean reversion) and ``dxi`` (vol-of-vol)."""
+
+    dtheta: Any = None
+    dkappa: Any = None
+    dxi: Any = None
+
+    def __repr__(self):
+        base = super().__repr__()[len("GreeksResult("):-1]
+        return (f"HestonGreeksResult({base}, dtheta={_fmt(self.dtheta)}, "
+                f"dkappa={_fmt(self.dkappa)}, dxi={_fmt(self.dxi)})")
+
+
+@dataclasses.dataclass(frozen=True)
 class CvaGreeksResult:
     """CVA plus its pathwise sensitivities, each a full :class:`McResult`
     with the CVA's undiscounted-mean semantics: ``credit_delta``
@@ -681,10 +731,14 @@ class CvaGreeksResult:
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, VanillaBook, BasketOption, CvaSpec,
              CvaPortfolioSpec, AsianOption, BarrierOption, BarrierBook,
-             LookbackOption, CliquetOption)}
+             LookbackOption, CliquetOption, HestonOption, McResult,
+             GreeksResult, HestonGreeksResult)}
+_TENSOR_FIELDS = ("price", "ci", "std_error", "sum_p", "sum_p2")
 
 
 def _carry(value):
+    if value is None:  # a Greek a result does not compute
+        return None
     if dataclasses.is_dataclass(value) or isinstance(value, enum.Enum):
         return from_reference(value)
     if isinstance(value, str):
@@ -701,8 +755,11 @@ def from_reference(obj):
     Matches by class name and field names; every numeric field is read
     through ``np.asarray`` (scalars become Python floats, vectors float64
     arrays), except the fields the port's record declares ``int``
-    (``n_grid``, ``n_obs``, ``n_periods``), which stay ints; strings, and
-    tuples of strings (a book's ``kinds``), stay so.
+    (``n_grid``, ``n_obs``, ``n_periods``, a result's ``n``), which stay
+    ints; strings, and tuples of strings (a book's ``kinds``), stay so.  A
+    result (:class:`McResult`, :class:`GreeksResult`,
+    :class:`HestonGreeksResult`) comes across with float64 CPU tensors, as
+    the port's entry points return it, and ``None`` for a Greek it lacks.
     """
     if isinstance(obj, enum.Enum):
         return Precision(obj.value)
@@ -712,5 +769,10 @@ def from_reference(obj):
     kwargs = {}
     for f in dataclasses.fields(cls):
         value = getattr(obj, f.name)
-        kwargs[f.name] = int(value) if f.type == "int" else _carry(value)
+        if f.type == "int":
+            kwargs[f.name] = int(value)
+        elif cls is McResult and f.name in _TENSOR_FIELDS:
+            kwargs[f.name] = torch.tensor(np.asarray(value, np.float64))
+        else:
+            kwargs[f.name] = _carry(value)
     return cls(**kwargs)

@@ -32,6 +32,7 @@ from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
 from mctpu_torch.kernels import greeks as kgreeks
+from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import vanilla as kvanilla
@@ -39,8 +40,8 @@ from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketOption, CliquetOption, CvaPortfolioSpec,
-                               CvaSpec, LookbackOption, VanillaBook,
-                               VanillaOption)
+                               CvaSpec, HestonOption, LookbackOption,
+                               VanillaBook, VanillaOption)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -421,6 +422,64 @@ def test_barrier_book_kernels_match_plain(dev, m, n_obs, antithetic):
         units=_units(plan))
 
 
+# K27 (both schemes) and K28 on the Euler reference option, the
+# Feller-violating QE option and a vol-of-vol that drives v below 0, at 1,
+# an odd 13 and the default 100 steps; Kahan off under antithetic.  On the
+# card each path equals the plain version's (IEEE roots and divisions, no
+# FMA contraction), so the Greek tangents are held at the same bound as the
+# rest.
+_HESTON = {
+    "opt": HestonOption(100., 100., 0.05, 1., 0.04, 2., 0.04, 0.3, -0.7),
+    "steep": HestonOption(100., 100., 0.03, 1., 0.04, 1.5, 0.04, 0.5, -0.7),
+    "large_xi": HestonOption(100., 100., 0.03, 1., 0.09, 2., 0.09, 1.2,
+                             -0.6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_HESTON))
+@pytest.mark.parametrize("n_steps", [1, 13, 100])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_heston_kernels_match_plain(dev, name, n_steps, antithetic):
+    opt = _HESTON[name]
+    plan = kheston.make_plan(2 * NB * 32 * 128 * (2 if antithetic else 1),
+                             NB, 32, antithetic, not antithetic)
+    for qe in (False, True):
+        par = kheston.params(opt, n_steps, qe, dev)
+        _contract(
+            lambda off, nb, par=par, qe=qe: kheston.partials(
+                par, SEED, off, plan, nb, n_steps, qe),
+            lambda off, nb, par=par, qe=qe: kheston.plain_partials(
+                par, SEED, off, plan, nb, n_steps, qe))
+    gp = kheston.greek_params(opt, n_steps, dev)
+    _contract(
+        lambda off, nb: kheston.greek_partials(gp, SEED, off, plan, nb,
+                                               n_steps),
+        lambda off, nb: kheston.greek_plain_partials(gp, SEED, off, plan, nb,
+                                                     n_steps),
+        units=_units(plan))
+
+
+# K19/K20's Heston leg at 1, 13 and the default 252 dates.
+@pytest.mark.parametrize("n_obs", [1, 13, 252])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_varswap_heston_kernels_match_plain(dev, n_obs, antithetic):
+    opt = _HESTON["steep"]
+    plan = kvarswap.make_plan(2 * NB * 32 * 128 * (2 if antithetic else 1),
+                              NB, 32, antithetic, not antithetic)
+    par = kvarswap.heston_params(opt, n_obs, dev)
+    gp = kvarswap.heston_greek_params(opt, n_obs, dev)
+    _contract(
+        lambda off, nb: kvarswap.partials(par, SEED, off, plan, nb, n_obs),
+        lambda off, nb: kvarswap.plain_partials(par, SEED, off, plan, nb,
+                                                n_obs))
+    _contract(
+        lambda off, nb: kvarswap.greek_partials(gp, SEED, off, plan, nb,
+                                                n_obs),
+        lambda off, nb: kvarswap.greek_plain_partials(gp, SEED, off, plan, nb,
+                                                      n_obs),
+        units=_units(plan))
+
+
 def test_launch_counters_count_kernel_launches(dev):
     par = kvanilla.params(VanillaOption(100., 100., 0.05, 0.2, 1.), dev)
     plan = kvanilla.make_plan(1, 2, 8, False)
@@ -487,11 +546,27 @@ def test_launch_counters_count_kernel_launches(dev):
             (kbb, "barrier_book", kbb.partials, kbb.plain_partials,
              kbb.book_params(bbook, dev)),
             (kbb, "barrier_book_greeks", kbb.greek_partials,
-             kbb.greek_plain_partials, kbb.greek_rows(bbook, dev))):
+             kbb.greek_plain_partials, kbb.greek_rows(bbook, dev)),
+            (kvarswap, "varswap_heston", kvarswap.partials,
+             kvarswap.plain_partials,
+             kvarswap.heston_params(_HESTON["opt"], 3, dev)),
+            (kvarswap, "varswap_heston_greeks", kvarswap.greek_partials,
+             kvarswap.greek_plain_partials,
+             kvarswap.heston_greek_params(_HESTON["opt"], 3, dev)),
+            (kheston, "heston_greeks", kheston.greek_partials,
+             kheston.greek_plain_partials,
+             kheston.greek_params(_HESTON["opt"], 3, dev))):
         before = kmod.LAUNCHES[key]
         fn(par, 1, 0, wplan, 2, 3)
         plain(par, 1, 0, wplan, 2, 3)
         assert kmod.LAUNCHES[key] == before + 1, key
+    for key, qe in (("heston", False), ("heston_qe", True)):
+        par = kheston.params(_HESTON["opt"], 3, qe, dev)
+        before = dict(kheston.LAUNCHES)
+        kheston.partials(par, 1, 0, wplan, 2, 3, qe)
+        kheston.plain_partials(par, 1, 0, wplan, 2, 3, qe)
+        assert kheston.LAUNCHES[key] == before[key] + 1, key
+        assert sum(kheston.LAUNCHES.values()) == sum(before.values()) + 1
 
 
 def test_bad_operands_raise(dev):
@@ -540,3 +615,11 @@ def test_bad_operands_raise(dev):
         kbb.partials(torch.ones((7, 33), device=dev), 1, 0, plan, 2, 5)
     with pytest.raises(ValueError):
         kbb.partials(bpar, 1, 0, plan, 2, 0)
+    hpar = kheston.params(_HESTON["opt"], 3, False, dev)
+    with pytest.raises(ValueError):  # K27's scalars to K28
+        kheston.greek_partials(hpar, 1, 0, plan, 2, 3)
+    with pytest.raises(ValueError):
+        kheston.partials(hpar, 1, 0, plan, 2, 0, False)
+    with pytest.raises(ValueError):  # K19's Heston scalars to K20
+        kvarswap.greek_partials(
+            kvarswap.heston_params(_HESTON["opt"], 3, dev), 1, 0, plan, 2, 3)

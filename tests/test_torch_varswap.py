@@ -1,7 +1,7 @@
-"""The variance swap of the port against mctpu (CPU), GBM leg: K19's and
-K20's plain versions against the JAX kernels in interpret mode, the entry
-points against ``mctpu.engine`` on interpret-mode Pallas, the scalars,
-the exact-zero delta and the refusal of the Heston leg.
+"""The variance swap of the port against mctpu (CPU), GBM and Heston legs:
+K19's and K20's plain versions against the JAX kernels in interpret mode,
+the entry points against ``mctpu.engine`` on interpret-mode Pallas, the
+scalars, the exact-zero delta and the refusal of other records.
 
 Both packages draw the walk kernels' Philox stream.  K19's ``(B, 2)``
 partials agree at ``rtol=2e-5`` (other summation orders); K20's ``(B, 8)``
@@ -9,8 +9,13 @@ partials agree at ``rtol=2e-5`` (other summation orders); K20's ``(B, 8)``
 ``tests/torch_tolerance.py`` at ``rtol=2e-5``: the vega integrand ``(A -
 drift B) / v - v dt B`` cancels, so a plain relative bound would test the
 cancellation, not the port.  Each case runs 2 blocks of ``rows=8`` for
-one or two iterations at up to 13 dates; the scalars are bitwise.
+one or two iterations at up to 13 dates; the scalars are bitwise.  The
+Heston leg walks K27's Euler step: its realized variance at ``rtol=2e-5``,
+its Greeks' rv and rho pairs by the scaled bound at 2e-5 and the variance
+tangents' at ``TANGENT_RTOL`` (``tests/test_torch_heston.py`` says why).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,10 +29,11 @@ from mctpu import types as jtypes
 from mctpu.kernels import varswap as jvarswap
 from mctpu_torch import engine as tengine
 from mctpu_torch.kernels import varswap as tvarswap
-from mctpu_torch.types import GreeksResult, from_reference
+from mctpu_torch.types import GreeksResult, HestonGreeksResult, from_reference
 from torch_tolerance import assert_pairs_close
 
 RTOL = 2e-5
+TANGENT_RTOL = 1e-3
 KEY = jax.random.key(252)
 SEED = int(jrng.key_to_seed(KEY))
 NB, ROWS = 2, 8
@@ -189,7 +195,7 @@ def test_fair_strike_matches_exact_oracle():
 ], ids=["asian", "barrier", "barrier_book"])
 def test_other_records_are_refused(record):
     for fn in (mctpu_torch.fair_variance_strike, mctpu_torch.greeks_varswap):
-        with pytest.raises(TypeError, match="Heston"):
+        with pytest.raises(TypeError, match="VanillaOption .* HestonOption"):
             fn(record, 1 << 10, SEED, TCFG)
 
 
@@ -203,3 +209,126 @@ def test_n_obs_and_validation():
     with pytest.raises(ValueError) as got:
         mctpu_torch.greeks_varswap(bad, 1 << 10, SEED, TCFG)
     assert str(got.value) == str(want.value)
+
+
+# ---------------------------------------------------------------------------
+# The Heston leg (dynamics="heston"): K27's Euler step and stream
+# ---------------------------------------------------------------------------
+
+HOPT = jtypes.HestonOption(s=100.0, k=100.0, r=0.03, t=1.0, v0=0.09,
+                           kappa=2.0, theta=0.09, xi=0.4, rho=-0.6)
+HESTON_CASES = {
+    # name: (option, n_obs, antithetic, kahan, iters)
+    "n1": (HOPT, 1, False, True, 1),
+    "n8_antithetic": (HOPT, 8, True, True, 1),
+    "n5_f32_2iters_feller_violated": (
+        jtypes.HestonOption(100.0, 100.0, 0.03, 1.0, 0.04, 1.5, 0.04, 0.5,
+                            -0.7), 5, False, False, 2),
+}
+# K20's Heston pairs: rv, dv0, dtheta, dkappa, dxi, rho.
+HESTON_GREEK_RTOLS = (RTOL,) + (TANGENT_RTOL,) * 4 + (RTOL,)
+
+
+@pytest.mark.parametrize("greeks", [False, True], ids=["K19", "K20"])
+@pytest.mark.parametrize("case", sorted(HESTON_CASES))
+def test_heston_partials_match_interpret_mode(case, greeks):
+    opt, n_obs, antithetic, kahan, iters = HESTON_CASES[case]
+    jplan, tplan = _plans(antithetic, kahan, iters)
+    topt = from_reference(opt)
+    if greeks:
+        want = np.asarray(jvarswap.greek_pallas_partials(
+            opt, SEED, 1, jplan, NB, n_obs=n_obs, dynamics="heston",
+            interpret=True))
+        got = tvarswap.greek_partials(
+            tvarswap.heston_greek_params(topt, n_obs, "cpu"), SEED, 1, tplan,
+            NB, n_obs)
+        assert got.shape == (NB, tvarswap.N_GREEK_SUMS_HESTON)
+        assert_pairs_close(got.numpy(), want,
+                           tplan.iters * tplan.units_per_iter,
+                           HESTON_GREEK_RTOLS)
+    else:
+        want = np.asarray(jvarswap.pallas_partials(
+            opt, SEED, 1, jplan, NB, n_obs=n_obs, dynamics="heston",
+            interpret=True))
+        got = tvarswap.partials(tvarswap.heston_params(topt, n_obs, "cpu"),
+                                SEED, 1, tplan, NB, n_obs)
+        assert got.shape == (NB, 2)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n_obs", [1, 13, 252])
+def test_heston_scalars_match_kernel_prep(n_obs):
+    """The Heston leg's scalars bit for bit as the JAX kernels form them
+    eagerly (``varswap.py:197-201``, ``:455-459``; the roots correctly
+    rounded in both)."""
+    topt = from_reference(HOPT)
+    with jax.enable_x64(False):
+        o = HOPT.astype(jnp.float32)
+        inv_t = 1.0 / jnp.asarray(o.t, jnp.float32)
+        dt = o.t / n_obs
+        tail = [o.kappa * dt, o.theta, o.xi, o.rho,
+                jnp.sqrt(1.0 - o.rho * o.rho), o.r * dt, jnp.sqrt(dt)]
+        price = np.asarray(jnp.stack([inv_t, o.s, o.v0] + tail))
+        greek = np.asarray(jnp.stack([inv_t, o.v0] + tail + [0.5 * dt, dt]))
+    np.testing.assert_array_equal(
+        tvarswap.heston_params(topt, n_obs, "cpu").numpy(), price)
+    np.testing.assert_array_equal(
+        tvarswap.heston_greek_params(topt, n_obs, "cpu").numpy(), greek)
+
+
+@pytest.mark.parametrize("greeks", [False, True], ids=["K19", "K20"])
+def test_heston_block_offset_relabels_streams(greeks):
+    opt = from_reference(HOPT)
+    plan = tvarswap.make_plan(4 * 2 * ROWS * 128, 4, ROWS, False)
+    if greeks:
+        par, fn = (tvarswap.heston_greek_params(opt, 5, "cpu"),
+                   tvarswap.greek_partials)
+    else:
+        par, fn = tvarswap.heston_params(opt, 5, "cpu"), tvarswap.partials
+    full = fn(par, 9, 0, plan, 4, 5)
+    tail = fn(par, 9, 2, plan, 2, 5)
+    assert np.array_equal(full[2:].numpy(), tail.numpy())
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_heston_entry_points_match_mctpu(antithetic):
+    n, n_obs = 1 << 12, 5
+    jcfg = jengine.EngineConfig(backend="pallas", interpret=True,
+                                num_blocks=4, rows=8, antithetic=antithetic)
+    tcfg = tengine.EngineConfig(num_blocks=4, rows=8, device="cpu",
+                                antithetic=antithetic)
+    topt = from_reference(HOPT)
+    want = jengine.fair_variance_strike(HOPT, n, KEY, jcfg, n_obs=n_obs)
+    got = mctpu_torch.fair_variance_strike(topt, n, SEED, tcfg, n_obs=n_obs)
+    assert (got.n, got.n_paths) == (want.n, want.n_paths)
+    for field in ("price", "std_error", "ci"):
+        np.testing.assert_allclose(float(getattr(got, field)),
+                                   float(getattr(want, field)), rtol=RTOL)
+    gwant = jengine.greeks_varswap(HOPT, n, KEY, jcfg, n_obs=n_obs)
+    ggot = mctpu_torch.greeks_varswap(topt, n, SEED, tcfg, n_obs=n_obs)
+    assert isinstance(ggot, HestonGreeksResult)
+    for f, rtol in (("price", 1e-5), ("vega", TANGENT_RTOL),
+                    ("dtheta", TANGENT_RTOL), ("dkappa", TANGENT_RTOL),
+                    ("dxi", TANGENT_RTOL), ("rho", 1e-5)):
+        r, w = getattr(ggot, f), getattr(gwant, f)
+        assert (r.n, r.n_paths) == (w.n, w.n_paths)
+        assert_pairs_close([[float(r.sum_p), float(r.sum_p2)]],
+                           [[float(w.sum_p), float(w.sum_p2)]], w.n, rtol)
+    for res in (ggot.delta, gwant.delta):
+        assert float(res.price) == 0.0 and float(res.std_error) == 0.0
+    assert ggot.theta is None and ggot.gamma is None
+    # The same per-path realized variances, summed in another order.
+    np.testing.assert_allclose(float(ggot.price.price), float(got.price),
+                               rtol=1e-6)
+
+
+def test_heston_fair_strike_near_the_continuous_limit():
+    """Statistical, 2^15 paths at 52 dates: within 4 standard errors plus
+    the discrete-sampling and Euler gap (5e-4) of ``theta + (v0 -
+    theta)(1 - e^{-kappa T}) / (kappa T)``."""
+    opt = from_reference(dataclasses.replace(HOPT, v0=0.04))
+    cfg = tengine.EngineConfig(num_blocks=8, rows=8, device="cpu")
+    res = mctpu_torch.fair_variance_strike(opt, 1 << 15, SEED, cfg, n_obs=52)
+    kt = opt.kappa * opt.t
+    want = opt.theta + (opt.v0 - opt.theta) * (1 - np.exp(-kt)) / kt
+    assert abs(float(res.price) - want) < 4 * float(res.std_error) + 5e-4

@@ -11,22 +11,26 @@ where ``n`` is the units per block: by Cauchy-Schwarz the root bounds
 ``sum |x|``, so the bound tracks the rounding of the terms.  A ``sum x^2``
 column has non-negative terms, so its ``sum |terms|`` is itself: it is held
 to ``rtol * want sum x^2``.  Exact zeros (padded basket slots) must stay
-exactly zero.  This module imports neither jax nor mctpu.
+exactly zero.  ``rtol`` is one number, or one per pair where the pairs'
+outputs are conditioned differently.  This module imports neither jax nor
+mctpu.
 """
 import numpy as np
 
 
-def pair_bounds(want, n: int, rtol: float):
-    """Per-element bound of :func:`assert_pairs_close`."""
+def pair_bounds(want, n: int, rtol):
+    """Per-element bound of :func:`assert_pairs_close`; ``rtol`` a number
+    or one per pair."""
     want = np.asarray(want, np.float64)
     s, s2 = want[:, 0::2], want[:, 1::2]
+    rtol = np.broadcast_to(np.asarray(rtol, np.float64), s.shape[1:])
     bound = np.empty_like(want)
     bound[:, 0::2] = rtol * (np.abs(s) + np.sqrt(n * np.abs(s2)))
     bound[:, 1::2] = rtol * np.abs(s2)
     return bound
 
 
-def assert_pairs_close(got, want, n: int, rtol: float):
+def assert_pairs_close(got, want, n: int, rtol):
     """Assert the ``(sum x, sum x^2)`` pairs of ``got`` match ``want``."""
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)

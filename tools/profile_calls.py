@@ -41,7 +41,7 @@ def calls(mt):
 
     from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                    BasketOption, CliquetOption, CvaSpec,
-                                   LookbackOption, VanillaBook,
+                                   HestonOption, LookbackOption, VanillaBook,
                                    VanillaOption)
 
     van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
@@ -61,6 +61,8 @@ def calls(mt):
     book = VanillaBook.serving(64)
     vs = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
     bbook = BarrierBook.serving(32)
+    hopt = HestonOption(100.0, 100.0, 0.05, 1.0, 0.04, 2.0, 0.04, 0.3, -0.7)
+    hvs = HestonOption(100.0, 100.0, 0.03, 1.0, 0.09, 2.0, 0.04, 0.3, -0.6)
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -116,6 +118,18 @@ def calls(mt):
          lambda: mt.price_barrier_book(bbook, n22, SEED)),
         ("greeks_barrier_book 32 instruments, 2^22", "bb_greeks_kernel",
          lambda: mt.greeks_barrier_book(bbook, n22, SEED)),
+        ("price_heston Euler, n_steps=100, 2^22", "heston_kernel",
+         lambda: mt.price_heston(hopt, n22, SEED)),
+        ("price_heston QE, n_steps=100, 2^22", "heston_kernel",
+         lambda: mt.price_heston(hopt, n22, SEED, scheme="qe")),
+        ("greeks_heston n_steps=100, 2^22", "heston_greeks_kernel",
+         lambda: mt.greeks_heston(hopt, n22, SEED)),
+        ("fair_variance_strike Heston, n_obs=252, 2^22",
+         "varswap_heston_kernel",
+         lambda: mt.fair_variance_strike(hvs, n22, SEED, n_obs=252)),
+        ("greeks_varswap Heston, n_obs=252, 2^22",
+         "varswap_heston_greeks_kernel",
+         lambda: mt.greeks_varswap(hvs, n22, SEED, n_obs=252)),
     ]
 
 
