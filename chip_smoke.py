@@ -9,7 +9,7 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the twenty-six kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the thirty kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
@@ -18,7 +18,8 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    variance swap at 1, 13 and 252 dates; the barrier book at 1, 5 and 32
    instruments and 1, 7 and 50 dates; the Heston walks, Euler, QE and
    Greeks, at 13 and 100 steps, and the variance swap's Heston leg at 13
-   and 252 dates): equal
+   and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
+   3 and 8 assets and the packed walk at 16 and 100, at 13 dates): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -56,7 +57,14 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    and 2^22 paths against Black-Scholes at zero vol-of-vol, the
    characteristic-function price and its finite differences and CRN
    bumps; QE at 16 steps; the Heston variance swap at 252 dates against
-   its continuous-time fair strike and that form's gradient);
+   its continuous-time fair strike and that form's gradient) and the
+   multi-asset walk path (basket-Asian and basket-barrier calls on the JAX
+   CLIs' default basket at 50 dates and 2^22 paths, and at 16 and 100
+   assets, against a float64 oracle, the terminal basket and the
+   single-asset walks; their asset-major Greeks on ``equicorrelated(3,
+   0.3)`` against CRN bumps, the terminal basket Greeks and the
+   single-asset Greeks, each Greeks price equal to its pricer's bit for
+   bit; a rank-deficient correlation refused);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -96,6 +104,10 @@ BOOK_KERNELS = ("ladder", "ladder_greeks", "book", "book_greeks")
 VARSWAP_KERNELS = ("varswap", "varswap_greeks")
 BARRIER_BOOK_KERNELS = ("barrier_book", "barrier_book_greeks")
 # K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
+# K30 and K31 under each product, K32 and K34.
+MULTI_WALK_KERNELS = ("basket_asian_am", "basket_barrier_am",
+                      "basket_asian_packed", "basket_barrier_packed",
+                      "basket_asian_greeks_am", "basket_barrier_greeks_am")
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
 # The Euler scheme's bias at 100 steps beside the gates' standard errors,
@@ -228,6 +240,37 @@ def bb_work(kname: str, plan, items: int, steps: int):
     p = plan.total_paths
     return work(draws=p * 2 * -(-steps // 2), expf=p * items,
                 f32=p * (steps * (f_s + items * f_is) + items * f_ip))
+
+
+# The multi-asset walks (K30-K32, K34), counted from csrc/multi_walk.cu:
+# float32 operations per asset and date beyond the correlation products (the
+# signed normal, the log-spot step, the weighted spot and its sum; K32's
+# three tangents, K34's score sums), per date (the monitor; K32's t_j
+# sums), per asset and path and per path (the payoff and the Greeks), the
+# outputs per estimator unit (each a plain add of x and of x^2), the
+# lower-triangular products per date (L z; K34 also L^-1 z), each of
+# a(a+1)/2 multiply-adds taken as a multiply and an add under -fmad=false,
+# and the IEEE divides per path.  Every path draws a Philox block and a
+# Box-Muller pair per asset and two dates, and takes an expf per asset and
+# date.
+MW_OPS = {"basket_asian_am": (6, 1, 0, 2, 1, 1, 1),
+          "basket_barrier_am": (6, 3, 0, 3, 1, 1, 0),
+          "basket_asian_packed": (6, 1, 0, 2, 1, 1, 1),
+          "basket_barrier_packed": (6, 3, 0, 3, 1, 1, 0),
+          "basket_asian_greeks_am": (12, 5, 5, 9, None, 1, 0),
+          "basket_barrier_greeks_am": (12, 3, 7, 6, None, 2, 0)}
+
+
+def mw_work(kname: str, plan, a: int, steps: int):
+    """Instruction counts of a multi-asset walk kernel's run over ``a``
+    assets and ``steps`` dates (a Greek kernel has 2 + 2a outputs)."""
+    f_as, f_s, f_ap, f_p, outs, prods, divs = MW_OPS[kname]
+    outs = 2 + 2 * a if outs is None else outs
+    p, u = plan.total_paths, plan.total_units
+    per_date = a * f_as + f_s + prods * a * (a + 1)
+    return work(draws=p * a * 2 * -(-steps // 2), expf=p * a * steps,
+                div=p * divs,
+                f32=p * (steps * per_date + a * f_ap + f_p) + u * 3 * outs)
 
 
 def bound(ops, nbytes):
@@ -1266,6 +1309,209 @@ def heston_path(mt, mcmath) -> None:
           f"0 +- 0; price vs fair strike rel {rel_v:.1e}")
 
 
+def multi_walk_path(mt) -> None:
+    """The multi-asset walk slice at full width on the JAX CLIs' defaults
+    (``--assets 3``; Greeks on ``equicorrelated(3, 0.3)``), the default
+    EngineConfig: ``price_basket_asian`` and ``price_basket_barrier`` (K30,
+    and K31 at 16 and 100 assets) against the float64 oracle and their
+    limits, ``greeks_basket_asian`` (K32) and ``greeks_basket_barrier``
+    (K34) against CRN bumps and the single-asset and terminal Greeks."""
+    from mctpu_torch.models.basket import (basket_asian_oracle,
+                                           basket_barrier_oracle)
+    from mctpu_torch.types import (AsianOption, BarrierOption,
+                                   BasketAsianOption, BasketBarrierOption,
+                                   BasketOption)
+
+    n, n_or = 1 << 22, 1 << 20
+    b3 = BasketOption.default_reference(3)
+    one = BasketOption(s=[100.0], v=[0.2], w=[1.0], corr=[[1.0]], d=[0.0],
+                       k=100.0, r=0.05, t=1.0)
+
+    def tie(res, price, se, what, n_sigma=N_SIGMA):
+        """|res - price| within n_sigma combined standard errors."""
+        z = abs(float(res.price) - price) / math.hypot(float(res.std_error),
+                                                       se)
+        check(z < n_sigma, f"{what}: {float(res.price):.6f} vs "
+                           f"{price:.6f} ({z:.2f} combined se)")
+        return z
+
+    def vs_oracle(opt, n_paths, n_oracle):
+        barrier = isinstance(opt, BasketBarrierOption)
+        res = (mt.price_basket_barrier if barrier
+               else mt.price_basket_asian)(opt, n_paths, SEED)
+        oracle = (basket_barrier_oracle if barrier
+                  else basket_asian_oracle)(opt, n_oracle, SEED, "cuda")
+        return res, oracle, tie(res, *oracle, "oracle")
+
+    # K30, basket-Asian: the oracle, the terminal basket at n_obs = 1 and
+    # the single-asset Asian at a = 1.
+    ba = BasketAsianOption(b3, n_obs=50)
+    res, orc, z_a = vs_oracle(ba, n, n_or)
+    r1 = mt.price_basket_asian(BasketAsianOption(b3, n_obs=1), n, SEED)
+    pb = mt.price_basket(b3, n, SEED)
+    z1 = tie(r1, float(pb.price), float(pb.std_error),
+             "basket-Asian n_obs=1 vs price_basket")
+    r_one = mt.price_basket_asian(BasketAsianOption(one, n_obs=50), n, SEED)
+    pa = mt.price_asian(AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=50),
+                        n, SEED)
+    z_one = tie(r_one, float(pa.price), float(pa.std_error),
+                "basket-Asian a=1 vs price_asian")
+    phase("multi-walk-path", f"basket-Asian default_reference(3) 2^22 "
+          f"n_obs=50 (K30): {float(res.price):.6f} vs float64 oracle "
+          f"{orc[0]:.6f} at 2^20 (z={z_a:.2f}); n_obs=1 "
+          f"{float(r1.price):.6f} vs price_basket {float(pb.price):.6f} "
+          f"(z={z1:.2f}); a=1 {float(r_one.price):.6f} vs price_asian "
+          f"{float(pa.price):.6f} (z={z_one:.2f})")
+
+    # K30, knock-out: up at 130, down at 90, and a barrier out of reach.
+    msgs = []
+    for kind, h in (("up-and-out", 130.0), ("down-and-out", 90.0)):
+        bo = BasketBarrierOption(b3, h, n_obs=50, kind=kind)
+        res, orc, z = vs_oracle(bo, n, n_or)
+        msgs.append(f"{kind} H={h:g} {float(res.price):.6f} vs oracle "
+                    f"{orc[0]:.6f} (z={z:.2f})")
+    far = mt.price_basket_barrier(BasketBarrierOption(b3, 1e7, n_obs=50), n,
+                                  SEED)
+    z_far = tie(far, float(pb.price), float(pb.std_error),
+                "basket-barrier H=1e7 vs price_basket")
+    phase("multi-walk-path", "basket-barrier default_reference(3) 2^22 "
+          "n_obs=50 (K30): " + "; ".join(msgs) + f"; H=1e7 "
+          f"{float(far.price):.6f} vs price_basket (z={z_far:.2f})")
+
+    # K31: 16 assets at 50 dates, 100 assets at 12, both products.
+    msgs = []
+    for a, n_obs, n_paths in ((16, 50, n), (100, 12, 1 << 20)):
+        bk = BasketOption.equicorrelated(a)
+        for opt in (BasketAsianOption(bk, n_obs=n_obs),
+                    BasketBarrierOption(bk, 115.0, n_obs=n_obs)):
+            res, orc, z = vs_oracle(opt, n_paths, n_or)
+            what = ("Asian" if isinstance(opt, BasketAsianOption)
+                    else "up-and-out H=115")
+            msgs.append(f"a={a} n_obs={n_obs} {what} {float(res.price):.6f} "
+                        f"vs oracle {orc[0]:.6f} (z={z:.2f})")
+    phase("multi-walk-path", "packed (K31): " + "; ".join(msgs))
+
+    def crn(pricer, opt, n_paths, field, i, h):
+        """CRN central difference of ``pricer`` in ``field`` (asset ``i`` of
+        the basket's vector, or the scalar ``r`` when ``i`` is None)."""
+        bk = opt.basket
+
+        def price(x):
+            if i is None:
+                nb = dataclasses.replace(bk, **{field: x})
+            else:
+                vals = np.asarray(getattr(bk, field), float).copy()
+                vals[i] = x
+                nb = dataclasses.replace(bk, **{field: vals})
+            res = pricer(dataclasses.replace(opt, basket=nb), n_paths, SEED)
+            return float(res.price)
+
+        x0 = float(getattr(bk, field) if i is None
+                   else np.asarray(getattr(bk, field))[i])
+        return (price(x0 + h) - price(x0 - h)) / (2 * h)
+
+    def entries(res):
+        """``(price, se)`` of each entry of a scalar or vector result."""
+        return list(zip(np.atleast_1d(res.price.numpy()),
+                        np.atleast_1d(res.std_error.numpy())))
+
+    def ties(g, want, n_sigma, what):
+        """Every output of ``g`` within ``n_sigma`` combined standard errors
+        of ``want``'s; returns the largest distance."""
+        worst = 0.0
+        for f in ("price", "delta", "vega", "rho"):
+            for j, ((x, xs), (y, ys)) in enumerate(zip(
+                    entries(getattr(g, f)), entries(getattr(want, f)))):
+                z = abs(x - y) / math.hypot(xs, ys)
+                check(z < n_sigma, f"{what} {f}[{j}]: {x:.6f} vs {y:.6f} "
+                                   f"({z:.2f} combined se)")
+                worst = max(worst, z)
+        return worst
+
+    # K32 on equicorrelated(3, 0.3) at 16 dates: the price is
+    # price_basket_asian's bit for bit (at n = 16 the Greek walk's
+    # acc * (1/n) is acc / n), the Greeks within 5 se + 0.5% of CRN bumps;
+    # at a = 1, greeks_asian's.
+    eq3 = BasketOption.equicorrelated(3, 0.3)
+    n_g = 1 << 24
+    ga = BasketAsianOption(eq3, n_obs=16)
+    g = mt.greeks(ga, n_g, SEED)
+    p = mt.price_basket_asian(ga, n_g, SEED)
+    check(float(g.price.price) == float(p.price),
+          f"greeks_basket_asian price {float(g.price.price)!r} is not "
+          f"price_basket_asian's {float(p.price)!r}")
+    zs = []
+    for i in range(3):
+        zs.append(crn_gate(g.delta.price[i], g.delta.std_error[i],
+                           crn(mt.price_basket_asian, ga, n_g, "s", i, 0.5),
+                           f"basket-Asian delta_{i}"))
+        zs.append(crn_gate(g.vega.price[i], g.vega.std_error[i],
+                           crn(mt.price_basket_asian, ga, n_g, "v", i, 5e-3),
+                           f"basket-Asian vega_{i}"))
+    zs.append(crn_gate(g.rho.price, g.rho.std_error,
+                       crn(mt.price_basket_asian, ga, n_g, "r", None, 2e-3),
+                       "basket-Asian rho"))
+    z1 = ties(mt.greeks(BasketAsianOption(one, n_obs=16), n_g, SEED),
+              mt.greeks(AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=16),
+                        n_g, SEED), 5.0, "basket-Asian a=1 vs greeks_asian")
+    phase("multi-walk-path", "basket-Asian Greeks equicorrelated(3, 0.3) "
+          "2^24 n_obs=16 (K32): price equals price_basket_asian "
+          f"({float(p.price):.6f}); delta/vega/rho vs CRN bumps, max "
+          f"|z| {max(zs):.2f}; a=1 vs greeks_asian, max z {z1:.2f}")
+
+    # K34 on equicorrelated(3, 0.3), H=130, 50 dates: the price is
+    # price_basket_barrier's bit for bit, the LR Greeks within
+    # tests/test_greeks.py's limits of CRN bumps (6 se + 0.003 delta, 0.3
+    # vega and rho: the bumps flip knock-outs), at H=1e5 within 4 combined
+    # se of greeks_basket, at a = 1 within 5 of greeks_barrier; a
+    # rank-deficient correlation raises.
+    n_g = 1 << 23
+    gb = BasketBarrierOption(eq3, 130.0, n_obs=50)
+    g = mt.greeks(gb, n_g, SEED)
+    p = mt.price_basket_barrier(gb, n_g, SEED)
+    check(float(g.price.price) == float(p.price),
+          f"greeks_basket_barrier price {float(g.price.price)!r} is not "
+          f"price_basket_barrier's {float(p.price)!r}")
+
+    def lr_gate(got, se, fd, allow, what):
+        got, se = float(got), float(se)
+        check(abs(got - fd) < 6 * se + allow,
+              f"{what}: {got:.6f} vs CRN bump {fd:.6f} (se {se:.2e})")
+        return abs(got - fd) / se
+
+    zs = []
+    for i in range(3):
+        zs.append(lr_gate(g.delta.price[i], g.delta.std_error[i],
+                          crn(mt.price_basket_barrier, gb, n_g, "s", i, 0.25),
+                          0.003, f"basket-barrier delta_{i}"))
+        zs.append(lr_gate(g.vega.price[i], g.vega.std_error[i],
+                          crn(mt.price_basket_barrier, gb, n_g, "v", i, 5e-3),
+                          0.3, f"basket-barrier vega_{i}"))
+    zs.append(lr_gate(g.rho.price, g.rho.std_error,
+                      crn(mt.price_basket_barrier, gb, n_g, "r", None, 1e-2),
+                      0.3, "basket-barrier rho"))
+    zf = ties(mt.greeks(BasketBarrierOption(eq3, 1e5, n_obs=50), n_g, SEED),
+              mt.greeks(eq3, n_g, SEED), N_SIGMA,
+              "basket-barrier H=1e5 vs greeks_basket")
+    z1 = ties(mt.greeks(BasketBarrierOption(one, 130.0, n_obs=50), n_g,
+                        SEED),
+              mt.greeks(BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, 130.0,
+                                      n_obs=50), n_g, SEED), 5.0,
+              "basket-barrier a=1 vs greeks_barrier")
+    try:
+        mt.greeks(BasketBarrierOption(b3, 130.0, n_obs=50), 1 << 20, SEED)
+    except ValueError as err:
+        check("rank-deficient" in str(err), f"wrong refusal: {err}")
+    else:
+        raise AssertionError("greeks_basket_barrier took default_reference(3)")
+    phase("multi-walk-path", "basket-barrier LR Greeks equicorrelated(3, "
+          "0.3) H=130 2^23 n_obs=50 (K34): price equals "
+          f"price_basket_barrier ({float(p.price):.6f}); delta/vega/rho vs "
+          f"CRN bumps, max |z| {max(zs):.2f}; H=1e5 vs greeks_basket, max "
+          f"z {zf:.2f}; a=1 vs greeks_barrier, max z {z1:.2f}; "
+          "default_reference(3) raises ValueError")
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -1288,10 +1534,12 @@ def main() -> int:
     from mctpu_torch.kernels import heston as kheston
     from mctpu_torch.kernels import ladder as kladder
     from mctpu_torch.kernels import lookback as klookback
+    from mctpu_torch.kernels import multi_walk as kmw
     from mctpu_torch.kernels import vanilla as kvanilla
     from mctpu_torch.kernels import varswap as kvarswap
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
     from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                                   BasketAsianOption, BasketBarrierOption,
                                    BasketOption, CliquetOption,
                                    CvaPortfolioSpec, CvaSpec, HestonOption,
                                    LookbackOption, Precision, VanillaBook,
@@ -1638,12 +1886,65 @@ def main() -> int:
                      gp, SEED, off, plan, n, n_obs),
                  units=units(plan))
 
+    # The multi-asset walks: K30 and K32/K34 at a = 1, 3 and 8, K31 at 16
+    # and 100 assets, both products (up- and down-and-out), 13 dates (the
+    # trailing half pair); antithetic and Kahan on and off, rotated over the
+    # products so that each kernel meets every variant.
+    def mw_pairs(out):
+        scal, vec = out
+        return torch.cat([scal] + [vec[:, :, i] for i in range(vec.shape[2])],
+                         1)
+
+    mw_variants = ((False, True), (True, True), (False, False))
+    mw_obs = 13
+    for ka, a in enumerate((1, 3, 8, 16, 100)):
+        bk = BasketOption.equicorrelated(a, 0.3)
+        chol = mcmath.cholesky_lower(bk.corr)
+        lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, mw_obs))
+        kid = "K30" if kbasket.use_asset_major(a) else "K31"
+        for (product, up, h), (anti, kahan) in zip(
+                (("asian", True, None), ("barrier", True, 104.0),
+                 ("barrier", False, 96.0)),
+                mw_variants[ka % 3:] + mw_variants[:ka % 3]):
+            probe = kmw.make_plan(1, nb, rows, anti, kahan, n_assets=a)
+            plan = kmw.make_plan(nb * iters * probe.paths_per_iter, nb, rows,
+                                 anti, kahan, n_assets=a)
+            scal = kmw.scalars(bk, h).to(dev)
+            tag = (f"a={a} {product if h is None else ('up' if up else 'down')}"
+                   f"{'' if h is None else f' H={h:g}'}"
+                   f"{' antithetic' if anti else ''}{'' if kahan else ' f32'}")
+            contract(f"{kid} {tag}",
+                     lambda off, n: kmw.partials(lt, par, scal, SEED, off,
+                                                 plan, n, product, mw_obs, up),
+                     lambda off, n: kmw.plain_partials(lt, par, scal, SEED,
+                                                       off, plan, n, product,
+                                                       mw_obs, up))
+            if a > 8:
+                continue
+            if product == "asian":
+                ops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol,
+                                                                mw_obs))
+                fn, plain = kmw.am_greek_partials, kmw.am_greek_plain_partials
+                extra, gid = (), "K32"
+            else:
+                ops = tuple(x.to(dev) for x in kmw.am_bar_greek_ops(
+                    bk, chol, mw_obs, h))
+                fn = kmw.am_bar_greek_partials
+                plain = kmw.am_bar_greek_plain_partials
+                extra, gid = (up,), "K34"
+            contract(f"{gid} {tag}",
+                     lambda off, n: mw_pairs(fn(*ops, SEED, off, plan, n,
+                                                mw_obs, *extra)),
+                     lambda off, n: mw_pairs(plain(*ops, SEED, off, plan, n,
+                                                   mw_obs, *extra)),
+                     units=units(plan))
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
                 kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES,
-                kheston.LAUNCHES)
+                kheston.LAUNCHES, kmw.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -1785,10 +2086,19 @@ def main() -> int:
     launches.update(read_counts(HESTON_KERNELS))
     phase("heston-path", f"done in {time.perf_counter() - t_h:.1f} s")
 
+    # ---- 4i. the multi-asset walk path at full width ---------------------
+    reset_counts()
+    t_mw = time.perf_counter()
+    multi_walk_path(mctpu_torch)
+    torch.cuda.synchronize()
+    launches.update(read_counts(MULTI_WALK_KERNELS))
+    phase("multi-walk-path", f"done in {time.perf_counter() - t_mw:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
-                   + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS)
+                   + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
+                   + MULTI_WALK_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -2127,6 +2437,63 @@ def main() -> int:
               plan, steps, disc, kernel, plain, walk_work(kname, plan, steps),
               in_bytes=4 * ops.numel(), units=gunits(plan) if greek else None,
               plain_reps=3)
+
+    # The multi-asset walk path's shapes: default_reference(3) and
+    # equicorrelated(16) at 50 dates and 2^22 paths (the Asian, and the
+    # up-and-out at H=130); the Greeks on equicorrelated(3, 0.3), the
+    # Asian's at 16 dates and 2^24 paths, the knock-out's at H=130, 50
+    # dates and 2^23.
+    eq16 = BasketOption.equicorrelated(16)
+    eq3 = BasketOption.equicorrelated(3, 0.3)
+    mw_cells = (
+        ("basket_asian_am", "multi_walk.py:369", BasketAsianOption(
+            BasketOption.default_reference(3), n_obs=50), n_ex),
+        ("basket_barrier_am", "multi_walk.py:369", BasketBarrierOption(
+            BasketOption.default_reference(3), 130.0, n_obs=50), n_ex),
+        ("basket_asian_packed", "multi_walk.py:316",
+         BasketAsianOption(eq16, n_obs=50), n_ex),
+        ("basket_barrier_packed", "multi_walk.py:316",
+         BasketBarrierOption(eq16, 130.0, n_obs=50), n_ex),
+        ("basket_asian_greeks_am", "multi_walk.py:1154",
+         BasketAsianOption(eq3, n_obs=16), 1 << 24),
+        ("basket_barrier_greeks_am", "multi_walk.py:1347",
+         BasketBarrierOption(eq3, 130.0, n_obs=50), 1 << 23))
+    for kname, replaces, mopt, n_paths in mw_cells:
+        bk, a = mopt.basket, mopt.basket.n_assets
+        barrier = isinstance(mopt, BasketBarrierOption)
+        product = "barrier" if barrier else "asian"
+        greek = kname.endswith("greeks_am")
+        if greek and barrier:
+            plan, ops = engine.greeks_basket_barrier_setup(mopt, n_paths, cfg)
+            fn = kmw.am_bar_greek_partials
+            plain = kmw.am_bar_greek_plain_partials
+            extra = (True,)
+        elif greek:
+            plan, ops = engine.greeks_basket_asian_setup(mopt, n_paths, cfg)
+            fn, plain = kmw.am_greek_partials, kmw.am_greek_plain_partials
+            extra = ()
+        else:
+            setup = (engine.basket_barrier_setup if barrier
+                     else engine.basket_asian_setup)
+            plan, ops = setup(mopt, n_paths, cfg)
+            fn, plain = kmw.partials, kmw.plain_partials
+            extra = (product, mopt.n_obs, True)
+        nbl = plan.num_blocks
+        if greek:
+            extra = (mopt.n_obs,) + extra
+            kernel = (lambda f=fn, o=ops, e=extra:
+                      mw_pairs(f(*o, SEED, 0, plan, nbl, *e)))
+            pl = (lambda f=plain, o=ops, e=extra:
+                  mw_pairs(f(*o, SEED, 0, plan, nbl, *e)))
+        else:
+            kernel = lambda f=fn, o=ops, e=extra: f(*o, SEED, 0, plan, nbl, *e)
+            pl = lambda f=plain, o=ops, e=extra: f(*o, SEED, 0, plan, nbl, *e)
+        timed(kname, "mctpu_torch/csrc/multi_walk.cu",
+              f"mctpu/kernels/{replaces}", plan, mopt.n_obs,
+              math.exp(-bk.r * bk.t), kernel, pl,
+              mw_work(kname, plan, a, mopt.n_obs),
+              in_bytes=4 * sum(x.numel() for x in ops),
+              units=gunits(plan) if greek else None, plain_reps=3)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

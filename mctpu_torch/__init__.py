@@ -3,8 +3,8 @@
 The main path of the JAX package, its single-asset walks and its serving
 sweeps, on one GPU: vanilla, basket, CVA, Asian, knock-out barrier,
 lookback and cliquet pricing, Heston pricing (Euler and QE), the variance
-swap's fair strike (GBM and Heston), strike ladders, vanilla books and
-barrier books, and their
+swap's fair strike (GBM and Heston), strike ladders, vanilla books,
+barrier books, and basket-Asian and basket-barrier calls, and their
 in-kernel Greeks through hand-written CUDA kernels (``csrc/``, built with
 ``nvcc`` for ``sm_90a`` at first use), per-block partial sums, a
 fixed-order float64 combine and the reference estimator.
@@ -16,17 +16,20 @@ from mctpu_torch import math
 from mctpu_torch.engine import (EngineConfig, fair_variance_strike, greeks,
                                 greeks_asian, greeks_barrier,
                                 greeks_barrier_book, greeks_basket,
+                                greeks_basket_asian, greeks_basket_barrier,
                                 greeks_book, greeks_cliquet, greeks_cva,
                                 greeks_heston, greeks_lookback,
                                 greeks_vanilla, greeks_vanilla_ladder,
                                 greeks_varswap, price_asian, price_barrier,
-                                price_barrier_book, price_basket, price_book,
-                                price_cliquet, price_cva,
+                                price_barrier_book, price_basket,
+                                price_basket_asian, price_basket_barrier,
+                                price_book, price_cliquet, price_cva,
                                 price_cva_portfolio, price_heston,
                                 price_lookback, price_vanilla,
                                 price_vanilla_ladder)
 from mctpu_torch.rng import seed_from_generator
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                               BasketAsianOption, BasketBarrierOption,
                                BasketOption, CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, HestonGreeksResult,
@@ -48,6 +51,8 @@ __all__ = [
     "price_book",
     "price_barrier_book",
     "price_heston",
+    "price_basket_asian",
+    "price_basket_barrier",
     "fair_variance_strike",
     "greeks",
     "greeks_vanilla",
@@ -62,11 +67,15 @@ __all__ = [
     "greeks_barrier_book",
     "greeks_varswap",
     "greeks_heston",
+    "greeks_basket_asian",
+    "greeks_basket_barrier",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
     "VanillaBook",
     "BasketOption",
+    "BasketAsianOption",
+    "BasketBarrierOption",
     "CvaSpec",
     "CvaPortfolioSpec",
     "AsianOption",

@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
            "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
-           "barrier_book.cu", "heston.cu")
+           "barrier_book.cu", "heston.cu", "multi_walk.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
@@ -35,14 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # take no FMA contraction, so each path rounds as the plain version's
 # separate operations do: their discontinuities (knock-out, in-the-money
 # indicator, arg-extreme, the cliquet's band mask, the Heston walks'
-# truncation max(v, 0) and QE's branch switches) fall on the same side
+# truncation max(v, 0) and QE's branch switches, the basket walks' knock-out
+# and in-the-money indicator) fall on the same side
 # (see the head of csrc/asian.cu), and a deep out-of-the-money strike's
 # st - k and an antithetic pair's cancelling gamma terms are exact as
 # there (see the head of csrc/ladder.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
                              "cliquet.cu", "ladder.cu", "book.cu",
-                             "varswap.cu", "barrier_book.cu", "heston.cu")}
+                             "varswap.cu", "barrier_book.cu", "heston.cu",
+                             "multi_walk.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -102,6 +104,18 @@ _SIGNATURES = {
     # n_blocks, rows, iters, antithetic, n_obs, kahan, out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_barrier_book", "mctpu_barrier_book_greeks")},
+    # The multi-asset walks (K30, K31, K32, K34): their operands, then
+    # n_assets, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
+    # the kernel's flags, out, stream.  K30: lt, par, scal; flags barrier,
+    # up.
+    "mctpu_multi_walk_am": (_P, _P, _P) + (_I,) * 11 + (_P, _P),
+    # K31: lt, par, scal; flags a_tile, width, barrier, up.
+    "mctpu_multi_walk_packed": (_P, _P, _P) + (_I,) * 13 + (_P, _P),
+    # K32: scal, lt, par; no flags.
+    "mctpu_multi_walk_greeks_am": (_P, _P, _P) + (_I,) * 9 + (_P, _P),
+    # K34: scal, lt, linv, par; flag up.
+    "mctpu_multi_walk_bar_greeks_am": (_P, _P, _P, _P) + (_I,) * 10
+    + (_P, _P),
 }
 
 _lib = None

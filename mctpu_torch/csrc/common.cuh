@@ -98,6 +98,37 @@ __device__ __forceinline__ void walk_pairwise(Key key, uint32_t e, int n_steps,
   }
 }
 
+// Drives an asset-major walk of n_steps over tile element e that takes A
+// normals a step and consumes both Box-Muller branches
+// (mctpu_torch/kernels/common.py, walk_pairwise_multi): pair jj draws Philox
+// blocks (e, jj*A + i, 0, 0) for i < A, their cosine branches feed step 2jj
+// and their sine branches step 2jj+1; an odd n_steps takes the cosine
+// branches of counters (n_steps/2)*A + i last.  step(j, z) advances the
+// caller's state from z[A].
+template <int A, typename Step>
+__device__ __forceinline__ void walk_pairwise_multi(Key key, uint32_t e,
+                                                    int n_steps, Step&& step) {
+  const int half = n_steps / 2;
+  float z1[A], z2[A];
+  for (int jj = 0; jj < half; ++jj) {
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      draw_normal_pair(key, e, static_cast<uint32_t>(jj * A + i), z1[i],
+                       z2[i]);
+    }
+    step(2 * jj, z1);
+    step(2 * jj + 1, z2);
+  }
+  if (n_steps & 1) {
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      draw_normal_pair(key, e, static_cast<uint32_t>(half * A + i), z1[i],
+                       z2[i]);
+    }
+    step(n_steps - 1, z1);
+  }
+}
+
 // Drives a walk of n_steps over tile element e that takes one Box-Muller
 // pair per step (mctpu_torch/kernels/common.py, walk_steps): step j draws
 // Philox block (e, j, 0, 0) and gets both branches.  step(j, z1, z2)

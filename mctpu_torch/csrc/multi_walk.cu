@@ -1,0 +1,689 @@
+// K30, K31, K32 and K34: the correlated multi-asset walks, basket-Asian
+// and basket-barrier calls and their asset-major Greeks.
+//
+// K30 replaces mctpu/kernels/multi_walk.py::_mw_am_kernel (<= 8 assets),
+// K31 ::_mw_kernel (> 8 assets, lane-packed), K32 ::_mw_am_greeks_kernel
+// (basket-Asian pathwise delta/vega vectors and rho) and K34
+// ::_mw_am_bar_greeks_kernel (basket-barrier likelihood-ratio Greeks).
+//
+// Stream: per simulation block b and iteration i the key is reseeded with
+// (seed, (off + b) * iters + i) in int32 wrap; the antithetic mirror
+// replays it with the signs flipped, and the two mirrored outputs are
+// averaged before they are summed.  Asset-major (K30, K32, K34): tile
+// element e of a (rows, 128) tile is a path; pair jj draws Philox blocks
+// (e, jj*A + i) for asset i (mct::walk_pairwise_multi), cosine branches for
+// date 2jj, sine branches for date 2jj+1.  Packed (K31): the tile is
+// (rows, width), element row*width + lane, path (row, p) owning lanes
+// p*a_tile .. p*a_tile + a - 1; pair jj draws block (element, jj).
+//
+// Each date: x_i += drift_i + vol_i * bt_i, s_i = expf(x_i), basket B =
+// sum_i w_i s_i, in mctpu's operand order: asset-major bt_i = d_i + sum_{j
+// <= i} L_ij z_j (from d_i, j = 0..i), packed bt_i = (sum_{j <= i} L_ij z_j)
+// + d_i (the product first).  The monitor is the Asian running sum,
+// payoff max(sum B / n - k, 0), or the knock-out flag alive *= (B < H) up-
+// and-out, (B > H) down-and-out, payoff alive * max(B_T - k, 0).  K32 adds
+// the tangents dxv_i += sqrt(dt) bt_i - v_i dt, AS_i += s_i, AV_i += s_i
+// dxv_i, tb += t_j B with t_j = dt (j + 1); K34 the scores q_m = sum_{j >=
+// m} Linv[j, m] z_j, their first-date value, sum q and sum q (bt / v -
+// sqrt(dt)) (mctpu's _am_greek_step and _am_bar_greek_step).
+//
+// This file is built with -fmad=false (mctpu_torch/_build.py): the knock-out
+// compare and the in-the-money indicator are discontinuous, so each path must
+// round as the plain PyTorch version's separate multiplies and adds do, or a
+// path that grazes the barrier or the strike flips and a block sum moves by a
+// whole payoff.  With the same libm expf/logf/sqrtf each path equals the
+// plain version's to the bit; only the block sums' order differs.  K30, K32
+// and K34 share am_core, the thread count and BlockAccN's reduction, so a
+// Greek kernel's price sums equal K30's bit for bit wherever its payoff is
+// formed the same way (the barrier; the Asian when 1/n_obs is a power of
+// two, since K32 takes acc * (1/n) where K30 takes acc / n).
+//
+// Bound on the H100: arithmetic.  Per path-date: a/2 Philox blocks and
+// Box-Muller pairs, a expf and the a(a+1)/2 multiply-adds of L z (twice
+// that for K34's L^-1 z), each a separate multiply and add here.  Simple
+// design: one CUDA block per simulation block.  Asset-major: one thread per
+// path element striding over the tile, the walk state in registers, L,
+// L^-1 and the per-asset rows in shared memory, per-iteration sums through
+// mct::BlockAccN (4 + 4a of them for the Greeks).  Packed: a path's
+// log-spots do not fit a thread's registers at a = 100, so a chunk of rows
+// keeps its log-spots in shared memory (asset-major over the chunk's paths,
+// so a warp's threads hit consecutive words), every pair of dates first
+// draws the chunk's normals into shared memory (one odd-strided row per
+// path, padded lanes not drawn), then one thread per packed path forms the
+// triangular product (L read through the read-only cache, every thread of
+// a warp on the same entry) and the basket for both dates; the mirror's
+// product is the negated sum of the same terms, exactly.  Measured on an
+// H100, that product's loads (one of L, one of z per multiply-add) and not
+// the arithmetic hold K31 well under its bound.  No atomics: two launches
+// give the same bits.
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int MAX_AM_ASSETS = 8;
+constexpr int PK_THREADS = 256;
+constexpr size_t SMEM_LIMIT = 160 * 1024;
+
+// Threads of the asset-major kernels: one count for K30, K32 and K34 at a
+// given A, so their price sums reduce alike; the wider Greek states get
+// the larger register budget.
+template <int A>
+__host__ __device__ constexpr int am_threads() {
+  return A <= 4 ? 512 : 256;
+}
+
+// One asset-major date (mctpu's _am_core): advances x[A] with the signed
+// normals sgn * z, returns the basket value and the per-asset bt and spots.
+// par rows (A each): log s0, drift, vol, d, w, ...
+template <int A>
+__device__ __forceinline__ float am_core(const float (&z)[A], float sgn,
+                                         float (&x)[A], const float* lt,
+                                         const float* par, float (&bt)[A],
+                                         float (&s)[A]) {
+  float basket = 0.0f;
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    float b = par[3 * A + i];
+#pragma unroll
+    for (int j = 0; j <= i; ++j) b = b + lt[i * A + j] * (sgn * z[j]);
+    const float xi = x[i] + par[A + i] + par[2 * A + i] * b;
+    const float si = expf(xi);
+    const float term = par[4 * A + i] * si;
+    basket = (i == 0) ? term : basket + term;
+    x[i] = xi;
+    bt[i] = b;
+    s[i] = si;
+  }
+  return basket;
+}
+
+__device__ __forceinline__ float knock(float alive, float basket, float h,
+                                       bool up) {
+  const bool in = up ? basket < h : basket > h;
+  return alive * (in ? 1.0f : 0.0f);
+}
+
+// Loads n floats of src into the block's shared dst.
+template <int THREADS>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
+                                      int n) {
+  for (int t = threadIdx.x; t < n; t += THREADS) dst[t] = src[t];
+}
+
+// The launch shape every kernel of this file takes.
+struct Launch {
+  int n_obs;
+  uint32_t seed, off;
+  int rows, iters;
+};
+
+__device__ __forceinline__ mct::Key iter_key(const Launch& g, int i) {
+  return mct::seed_key(g.seed, (g.off + blockIdx.x) *
+                                   static_cast<uint32_t>(g.iters) +
+                               static_cast<uint32_t>(i));
+}
+
+// ------------------------------------------------------------ K30 (a <= 8)
+
+// One pricing walk of tile element e and sign sgn -> its payoff.
+template <int A, bool BARRIER>
+__device__ __forceinline__ float am_walk(const float* lt, const float* par,
+                                         float k, float h, bool up,
+                                         int n_obs, mct::Key key, uint32_t e,
+                                         float sgn) {
+  float x[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) x[i] = par[i];
+  float acc = 0.0f, alive = 1.0f, last = 0.0f;
+  mct::walk_pairwise_multi<A>(key, e, n_obs, [&](int, const float(&z)[A]) {
+    float bt[A], s[A];
+    const float basket = am_core<A>(z, sgn, x, lt, par, bt, s);
+    if (BARRIER) {
+      alive = knock(alive, basket, h, up);
+      last = basket;
+    } else {
+      acc = acc + basket;
+    }
+  });
+  if (BARRIER) return alive * fmaxf(last - k, 0.0f);
+  return fmaxf(acc / static_cast<float>(n_obs) - k, 0.0f);
+}
+
+template <int A, bool ANTI, bool KAHAN, bool BARRIER>
+__global__ void __launch_bounds__(am_threads<A>())
+    mw_walk_am_kernel(const float* __restrict__ lt_g,
+                      const float* __restrict__ par_g,
+                      const float* __restrict__ scal, int up, Launch g,
+                      float* __restrict__ out) {
+  constexpr int THREADS = am_threads<A>();
+  __shared__ float lt[A * A], par[5 * A], sh[(THREADS / 32) * 2];
+  stage<THREADS>(lt, lt_g, A * A);
+  stage<THREADS>(par, par_g, 5 * A);
+  __syncthreads();
+  const float k = scal[0], h = scal[1];
+  const int n_elems = g.rows * mct::LANES;
+  mct::BlockAccN<THREADS, 2, KAHAN> acc;
+  float v[2] = {0.0f, 0.0f};
+  for (int i = 0; i < g.iters; ++i) {
+    const mct::Key key = iter_key(g, i);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float p = am_walk<A, BARRIER>(lt, par, k, h, up, g.n_obs, key, u, 1.0f);
+      if (ANTI) {
+        p = 0.5f * (p + am_walk<A, BARRIER>(lt, par, k, h, up, g.n_obs, key,
+                                            u, -1.0f));
+      }
+      v[0] += p;
+      v[1] += p * p;
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <int A>
+void launch_walk_am(bool anti, bool kahan, bool barrier, const float* lt,
+                    const float* par, const float* scal, int up,
+                    const Launch& g, int n_blocks, float* out,
+                    cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, int, Launch,
+                      float*);
+  static const Fn FNS[8] = {
+      mw_walk_am_kernel<A, false, false, false>,
+      mw_walk_am_kernel<A, false, false, true>,
+      mw_walk_am_kernel<A, false, true, false>,
+      mw_walk_am_kernel<A, false, true, true>,
+      mw_walk_am_kernel<A, true, false, false>,
+      mw_walk_am_kernel<A, true, false, true>,
+      mw_walk_am_kernel<A, true, true, false>,
+      mw_walk_am_kernel<A, true, true, true>,
+  };
+  const Fn fn = FNS[(anti ? 4 : 0) | (kahan ? 2 : 0) | (barrier ? 1 : 0)];
+  fn<<<n_blocks, am_threads<A>(), 0, s>>>(lt, par, scal, up, g, out);
+}
+
+// ------------------------------------------------------- K32 (a <= 8)
+
+// One Greek walk of tile element e and sign sgn; q gets [p, gr, d_0..,
+// v_0..] (mctpu's _am_greek_payoff).  sc: k, t, 1/n, sqrt(dt), dt; par
+// rows 5..7: v dt, w / n, 1 / s0.
+template <int A>
+__device__ __forceinline__ void am_greek_walk(const float* lt,
+                                              const float* par,
+                                              const float* sc, int n_obs,
+                                              mct::Key key, uint32_t e,
+                                              float sgn,
+                                              float (&q)[2 + 2 * A]) {
+  const float sqdt = sc[3], dt = sc[4];
+  float x[A], dxv[A], as[A], av[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    x[i] = par[i];
+    dxv[i] = as[i] = av[i] = 0.0f;
+  }
+  float acc = 0.0f, tb = 0.0f;
+  mct::walk_pairwise_multi<A>(key, e, n_obs, [&](int j, const float(&z)[A]) {
+    float bt[A], s[A];
+    const float basket = am_core<A>(z, sgn, x, lt, par, bt, s);
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      dxv[i] = dxv[i] + sqdt * bt[i] - par[5 * A + i];
+      as[i] = as[i] + s[i];
+      av[i] = av[i] + s[i] * dxv[i];
+    }
+    const float tj = dt * (static_cast<float>(j) + 1.0f);
+    acc = acc + basket;
+    tb = tb + tj * basket;
+  });
+  const float k = sc[0], t = sc[1], inv_n = sc[2];
+  const float abar = acc * inv_n;
+  const float p = fmaxf(abar - k, 0.0f);
+  const float ind = abar > k ? 1.0f : 0.0f;
+  q[0] = p;
+  q[1] = ind * (tb * inv_n) - t * p;
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    q[2 + i] = ind * par[6 * A + i] * as[i] * par[7 * A + i];
+    q[2 + A + i] = ind * par[6 * A + i] * av[i];
+  }
+}
+
+// Adds one path's outputs q [p, gr, d.., v..] to the per-thread sums, in
+// the kernels' row order [p, p2, gr, gr2, d.., d2.., v.., v2..].
+template <int A>
+__device__ __forceinline__ void add_greek_sums(const float (&q)[2 + 2 * A],
+                                               float (&v)[4 + 4 * A]) {
+  v[0] += q[0];
+  v[1] += q[0] * q[0];
+  v[2] += q[1];
+  v[3] += q[1] * q[1];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    const float d = q[2 + i], w = q[2 + A + i];
+    v[4 + i] += d;
+    v[4 + A + i] += d * d;
+    v[4 + 2 * A + i] += w;
+    v[4 + 3 * A + i] += w * w;
+  }
+}
+
+template <int A>
+__device__ __forceinline__ void mirror_mean(float (&q)[2 + 2 * A],
+                                            const float (&m)[2 + 2 * A]) {
+#pragma unroll
+  for (int j = 0; j < 2 + 2 * A; ++j) q[j] = 0.5f * (q[j] + m[j]);
+}
+
+template <int A, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(am_threads<A>())
+    mw_greeks_am_kernel(const float* __restrict__ scal,
+                        const float* __restrict__ lt_g,
+                        const float* __restrict__ par_g, Launch g,
+                        float* __restrict__ out) {
+  constexpr int THREADS = am_threads<A>();
+  constexpr int N = 4 + 4 * A;
+  __shared__ float lt[A * A], par[8 * A], sc[5], sh[(THREADS / 32) * N];
+  stage<THREADS>(lt, lt_g, A * A);
+  stage<THREADS>(par, par_g, 8 * A);
+  stage<THREADS>(sc, scal, 5);
+  __syncthreads();
+  const int n_elems = g.rows * mct::LANES;
+  mct::BlockAccN<THREADS, N, KAHAN> acc;
+  float v[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = 0.0f;
+  for (int i = 0; i < g.iters; ++i) {
+    const mct::Key key = iter_key(g, i);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float q[2 + 2 * A];
+      am_greek_walk<A>(lt, par, sc, g.n_obs, key, u, 1.0f, q);
+      if (ANTI) {
+        float m[2 + 2 * A];
+        am_greek_walk<A>(lt, par, sc, g.n_obs, key, u, -1.0f, m);
+        mirror_mean<A>(q, m);
+      }
+      add_greek_sums<A>(q, v);
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <int A>
+void launch_greeks_am(bool anti, bool kahan, const float* scal,
+                      const float* lt, const float* par, const Launch& g,
+                      int n_blocks, float* out, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, Launch,
+                      float*);
+  static const Fn FNS[4] = {
+      mw_greeks_am_kernel<A, false, false>, mw_greeks_am_kernel<A, false, true>,
+      mw_greeks_am_kernel<A, true, false>, mw_greeks_am_kernel<A, true, true>};
+  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
+  fn<<<n_blocks, am_threads<A>(), 0, s>>>(scal, lt, par, g, out);
+}
+
+// ------------------------------------------------------- K34 (a <= 8)
+
+// One likelihood-ratio walk of tile element e and sign sgn; q gets [p, gr,
+// delta_0.., vega_0..] (mctpu's _am_bar_greek_payoff).  sc: k, t, H,
+// sqrt(dt); par rows 5..7: 1/v, 1/(s0 v sqrt(dt)), sqrt(dt)/v.
+template <int A>
+__device__ __forceinline__ void am_bar_greek_walk(
+    const float* lt, const float* linv, const float* par, const float* sc,
+    bool up, int n_obs, mct::Key key, uint32_t e, float sgn,
+    float (&q)[2 + 2 * A]) {
+  const float h = sc[2], sqdt = sc[3];
+  float x[A], qd[A], aq[A], avv[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    x[i] = par[i];
+    qd[i] = aq[i] = avv[i] = 0.0f;
+  }
+  float alive = 1.0f, last = 0.0f;
+  mct::walk_pairwise_multi<A>(key, e, n_obs, [&](int j, const float(&z)[A]) {
+    float bt[A], s[A];
+    const float basket = am_core<A>(z, sgn, x, lt, par, bt, s);
+#pragma unroll
+    for (int m = 0; m < A; ++m) {
+      float qm = linv[m * A + m] * (sgn * z[m]);
+#pragma unroll
+      for (int jj = m + 1; jj < A; ++jj) {
+        qm = qm + linv[jj * A + m] * (sgn * z[jj]);
+      }
+      if (j == 0) qd[m] = qm;
+      aq[m] = aq[m] + qm;
+      avv[m] = avv[m] + qm * (bt[m] * par[5 * A + m] - sqdt);
+    }
+    alive = knock(alive, basket, h, up);
+    last = basket;
+  });
+  const float k = sc[0], t = sc[1];
+  const float p = alive * fmaxf(last - k, 0.0f);
+  float score_r = aq[0] * par[7 * A];
+#pragma unroll
+  for (int m = 1; m < A; ++m) score_r = score_r + aq[m] * par[7 * A + m];
+  q[0] = p;
+  q[1] = p * score_r - t * p;
+  const float n = static_cast<float>(n_obs);
+#pragma unroll
+  for (int m = 0; m < A; ++m) {
+    q[2 + m] = p * qd[m] * par[6 * A + m];
+    q[2 + A + m] = p * (avv[m] - n * par[5 * A + m]);
+  }
+}
+
+template <int A, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(am_threads<A>())
+    mw_bar_greeks_am_kernel(const float* __restrict__ scal,
+                            const float* __restrict__ lt_g,
+                            const float* __restrict__ linv_g,
+                            const float* __restrict__ par_g, int up, Launch g,
+                            float* __restrict__ out) {
+  constexpr int THREADS = am_threads<A>();
+  constexpr int N = 4 + 4 * A;
+  __shared__ float lt[A * A], linv[A * A], par[8 * A], sc[4];
+  __shared__ float sh[(THREADS / 32) * N];
+  stage<THREADS>(lt, lt_g, A * A);
+  stage<THREADS>(linv, linv_g, A * A);
+  stage<THREADS>(par, par_g, 8 * A);
+  stage<THREADS>(sc, scal, 4);
+  __syncthreads();
+  const int n_elems = g.rows * mct::LANES;
+  mct::BlockAccN<THREADS, N, KAHAN> acc;
+  float v[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = 0.0f;
+  for (int i = 0; i < g.iters; ++i) {
+    const mct::Key key = iter_key(g, i);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float q[2 + 2 * A];
+      am_bar_greek_walk<A>(lt, linv, par, sc, up, g.n_obs, key, u, 1.0f, q);
+      if (ANTI) {
+        float m[2 + 2 * A];
+        am_bar_greek_walk<A>(lt, linv, par, sc, up, g.n_obs, key, u, -1.0f,
+                             m);
+        mirror_mean<A>(q, m);
+      }
+      add_greek_sums<A>(q, v);
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <int A>
+void launch_bar_greeks_am(bool anti, bool kahan, const float* scal,
+                          const float* lt, const float* linv,
+                          const float* par, int up, const Launch& g,
+                          int n_blocks, float* out, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      int, Launch, float*);
+  static const Fn FNS[4] = {mw_bar_greeks_am_kernel<A, false, false>,
+                         mw_bar_greeks_am_kernel<A, false, true>,
+                         mw_bar_greeks_am_kernel<A, true, false>,
+                         mw_bar_greeks_am_kernel<A, true, true>};
+  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
+  fn<<<n_blocks, am_threads<A>(), 0, s>>>(scal, lt, linv, par, up, g, out);
+}
+
+// --------------------------------------------------------- K31 (a > 8)
+
+// The packed walk's shape: a assets in a_tile lanes, c paths a row, a
+// chunk of chunk_rows rows (np_max = chunk_rows * c paths) per pass; each
+// path's normals sit in shared memory at stride ap = a | 1 (odd: the
+// threads of a warp, one path each, hit distinct banks).
+struct Packed {
+  int a, a_tile, width, c, chunk_rows, np_max, ap;
+};
+
+// One date of packed path q for both signs: log-spots xs (and the mirror's
+// xm) at stride np_max in shared memory, z its a normals.  Returns the
+// basket values through b and bm.  par rows: log s0, drift, vol, d, w.
+template <bool ANTI>
+__device__ __forceinline__ void packed_date(const Packed& P,
+                                            const float* __restrict__ lt,
+                                            const float* __restrict__ par,
+                                            const float* z, float* xs,
+                                            float* xm, float& b, float& bm) {
+  const int a = P.a;
+  float basket = 0.0f, basket_m = 0.0f;
+  for (int i = 0; i < a; ++i) {
+    const float* lrow = lt + i * a;
+    float sum = 0.0f;
+    for (int j = 0; j <= i; ++j) sum = sum + __ldg(lrow + j) * z[j];
+    const float drift = __ldg(par + a + i), vol = __ldg(par + 2 * a + i);
+    const float d = __ldg(par + 3 * a + i), w = __ldg(par + 4 * a + i);
+    const float x = xs[i * P.np_max] + drift + vol * (sum + d);
+    xs[i * P.np_max] = x;
+    basket = basket + expf(x) * w;
+    if (ANTI) {
+      // L (-z) is the negated sum of the same products, exactly.
+      const float x2 = xm[i * P.np_max] + drift + vol * (-sum + d);
+      xm[i * P.np_max] = x2;
+      basket_m = basket_m + expf(x2) * w;
+    }
+  }
+  b = basket;
+  bm = basket_m;
+}
+
+template <bool ANTI, bool KAHAN, bool BARRIER>
+__global__ void __launch_bounds__(PK_THREADS)
+    mw_walk_packed_kernel(const float* __restrict__ lt,
+                          const float* __restrict__ par,
+                          const float* __restrict__ scal, int up, Packed P,
+                          Launch g, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* z1s = smem;
+  float* z2s = z1s + P.np_max * P.ap;
+  float* xs = z2s + P.np_max * P.ap;
+  float* xm = xs + P.np_max * P.a;  // the mirror's log-spots (ANTI)
+  __shared__ float sh[(PK_THREADS / 32) * 2];
+  const float k = scal[0], h = scal[1];
+  const int q = threadIdx.x;
+  mct::BlockAccN<PK_THREADS, 2, KAHAN> acc;
+  float v[2] = {0.0f, 0.0f};
+  for (int i = 0; i < g.iters; ++i) {
+    const mct::Key key = iter_key(g, i);
+    for (int r0 = 0; r0 < g.rows; r0 += P.chunk_rows) {
+      const int nr = min(P.chunk_rows, g.rows - r0);
+      const int np = nr * P.c;
+      for (int t = threadIdx.x; t < P.a * np; t += PK_THREADS) {
+        const int asset = t / np;
+        const float x0 = __ldg(par + asset);
+        xs[asset * P.np_max + t - asset * np] = x0;
+        if (ANTI) xm[asset * P.np_max + t - asset * np] = x0;
+      }
+      float m1 = 0.0f, alive = 1.0f, last = 0.0f;  // acc, or flag and B
+      float m1m = 0.0f, alive_m = 1.0f, last_m = 0.0f;
+      const int pairs = (g.n_obs + 1) / 2;
+      for (int jj = 0; jj < pairs; ++jj) {
+        for (int t = threadIdx.x; t < nr * P.width; t += PK_THREADS) {
+          const int row = t / P.width;
+          const int lane = t - row * P.width;
+          const int p = lane / P.a_tile;
+          const int m = lane - p * P.a_tile;
+          if (m < P.a) {  // padded asset slots are never read
+            float z1, z2;
+            mct::draw_normal_pair(key, static_cast<uint32_t>(r0 * P.width + t),
+                                  static_cast<uint32_t>(jj), z1, z2);
+            const int slot = (row * P.c + p) * P.ap + m;
+            z1s[slot] = z1;
+            z2s[slot] = z2;
+          }
+        }
+        __syncthreads();
+        if (q < np) {
+          const int dates = min(2, g.n_obs - 2 * jj);
+          for (int date = 0; date < dates; ++date) {
+            const float* z = (date ? z2s : z1s) + q * P.ap;
+            float b, bm;
+            packed_date<ANTI>(P, lt, par, z, xs + q, xm + q, b, bm);
+            if (BARRIER) {
+              alive = knock(alive, b, h, up);
+              last = b;
+              if (ANTI) {
+                alive_m = knock(alive_m, bm, h, up);
+                last_m = bm;
+              }
+            } else {
+              m1 = m1 + b;
+              if (ANTI) m1m = m1m + bm;
+            }
+          }
+        }
+        __syncthreads();
+      }
+      if (q < np) {
+        const float n = static_cast<float>(g.n_obs);
+        float pay = BARRIER ? alive * fmaxf(last - k, 0.0f)
+                            : fmaxf(m1 / n - k, 0.0f);
+        if (ANTI) {
+          const float pm = BARRIER ? alive_m * fmaxf(last_m - k, 0.0f)
+                                   : fmaxf(m1m / n - k, 0.0f);
+          pay = 0.5f * (pay + pm);
+        }
+        v[0] += pay;
+        v[1] += pay * pay;
+      }
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+// Paths per pass: about one per thread, within SMEM_LIMIT.
+Packed packed_shape(int a, int a_tile, int width, int rows, bool anti,
+                    size_t& smem) {
+  Packed P{a, a_tile, width, width / a_tile, 0, 0, a | 1};
+  const size_t floats = 2 * static_cast<size_t>(P.ap) +
+                        (anti ? 2 : 1) * static_cast<size_t>(a);
+  const size_t path_bytes = floats * sizeof(float);
+  int chunk = std::min(rows, std::max(1, PK_THREADS / P.c));
+  chunk = std::min<int>(chunk,
+                        static_cast<int>(SMEM_LIMIT / (P.c * path_bytes)));
+  P.chunk_rows = chunk;
+  P.np_max = chunk * P.c;
+  smem = static_cast<size_t>(P.np_max) * path_bytes;
+  return P;
+}
+
+int launch_walk_packed(bool anti, bool kahan, bool barrier, const float* lt,
+                       const float* par, const float* scal, int up,
+                       const Packed& P, size_t smem, const Launch& g,
+                       int n_blocks, float* out, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, int, Packed,
+                      Launch, float*);
+  static const Fn FNS[8] = {
+      mw_walk_packed_kernel<false, false, false>,
+      mw_walk_packed_kernel<false, false, true>,
+      mw_walk_packed_kernel<false, true, false>,
+      mw_walk_packed_kernel<false, true, true>,
+      mw_walk_packed_kernel<true, false, false>,
+      mw_walk_packed_kernel<true, false, true>,
+      mw_walk_packed_kernel<true, true, false>,
+      mw_walk_packed_kernel<true, true, true>,
+  };
+  const Fn fn = FNS[(anti ? 4 : 0) | (kahan ? 2 : 0) | (barrier ? 1 : 0)];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<n_blocks, PK_THREADS, smem, s>>>(lt, par, scal, up, P, g, out);
+  return 0;
+}
+
+Launch make_launch(int n_obs, int seed, int off, int rows, int iters) {
+  return Launch{n_obs, static_cast<uint32_t>(seed), static_cast<uint32_t>(off),
+                rows, iters};
+}
+
+}  // namespace
+
+// Dispatches the asset-major kernels on n_assets = 1..8.
+#define MCT_DISPATCH_A(CALL)                             \
+  switch (n_assets) {                                    \
+    case 1: CALL(1); break;                              \
+    case 2: CALL(2); break;                              \
+    case 3: CALL(3); break;                              \
+    case 4: CALL(4); break;                              \
+    case 5: CALL(5); break;                              \
+    case 6: CALL(6); break;                              \
+    case 7: CALL(7); break;                              \
+    case MAX_AM_ASSETS: CALL(MAX_AM_ASSETS); break;      \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+extern "C" int mctpu_multi_walk_am(const float* lt, const float* par,
+                                   const float* scal, int n_assets, int n_obs,
+                                   int seed, int off, int n_blocks, int rows,
+                                   int iters, int antithetic, int kahan,
+                                   int barrier, int up, float* out,
+                                   void* stream) {
+  const Launch g = make_launch(n_obs, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MCT_CALL(A)                                                        \
+  launch_walk_am<A>(antithetic != 0, kahan != 0, barrier != 0, lt, par, scal, \
+                    up, g, n_blocks, out, s)
+  MCT_DISPATCH_A(MCT_CALL)
+#undef MCT_CALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mctpu_multi_walk_packed(const float* lt, const float* par,
+                                       const float* scal, int n_assets,
+                                       int n_obs, int seed, int off,
+                                       int n_blocks, int rows, int iters,
+                                       int antithetic, int kahan, int a_tile,
+                                       int width, int barrier, int up,
+                                       float* out, void* stream) {
+  if (a_tile < n_assets || width % a_tile != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem = 0;
+  const Packed P = packed_shape(n_assets, a_tile, width, rows,
+                                antithetic != 0, smem);
+  if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_walk_packed(
+      antithetic != 0, kahan != 0, barrier != 0, lt, par, scal, up, P, smem,
+      make_launch(n_obs, seed, off, rows, iters), n_blocks, out,
+      static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mctpu_multi_walk_greeks_am(const float* scal, const float* lt,
+                                          const float* par, int n_assets,
+                                          int n_obs, int seed, int off,
+                                          int n_blocks, int rows, int iters,
+                                          int antithetic, int kahan,
+                                          float* out, void* stream) {
+  const Launch g = make_launch(n_obs, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MCT_CALL(A)                                                        \
+  launch_greeks_am<A>(antithetic != 0, kahan != 0, scal, lt, par, g,       \
+                      n_blocks, out, s)
+  MCT_DISPATCH_A(MCT_CALL)
+#undef MCT_CALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mctpu_multi_walk_bar_greeks_am(
+    const float* scal, const float* lt, const float* linv, const float* par,
+    int n_assets, int n_obs, int seed, int off, int n_blocks, int rows,
+    int iters, int antithetic, int kahan, int up, float* out, void* stream) {
+  const Launch g = make_launch(n_obs, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MCT_CALL(A)                                                          \
+  launch_bar_greeks_am<A>(antithetic != 0, kahan != 0, scal, lt, linv, par, \
+                          up, g, n_blocks, out, s)
+  MCT_DISPATCH_A(MCT_CALL)
+#undef MCT_CALL
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,7 +9,8 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 
 :func:`price_vanilla`, :func:`price_basket`, :func:`price_cva`,
 :func:`price_cva_portfolio`, :func:`price_asian`, :func:`price_barrier`,
-:func:`price_lookback`, :func:`price_cliquet`, :func:`price_heston` and
+:func:`price_lookback`, :func:`price_cliquet`, :func:`price_heston`,
+:func:`price_basket_asian`, :func:`price_basket_barrier` and
 :func:`fair_variance_strike` take an int32 ``seed`` word (the value
 ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
@@ -40,12 +41,14 @@ from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
+from mctpu_torch.kernels import multi_walk as kmw
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.kernels.common import LANES, walk_plan
 from mctpu_torch.parallel.reduce import pairwise_tree_sum
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                               BasketAsianOption, BasketBarrierOption,
                                BasketOption, CliquetOption, CvaGreeksResult,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, HestonGreeksResult,
@@ -68,7 +71,11 @@ __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "greeks_varswap_setup", "price_barrier_book",
            "greeks_barrier_book", "barrier_book_setup",
            "greeks_barrier_book_setup", "price_heston", "greeks_heston",
-           "heston_setup", "greeks_heston_setup"]
+           "heston_setup", "greeks_heston_setup", "price_basket_asian",
+           "price_basket_barrier", "greeks_basket_asian",
+           "greeks_basket_barrier", "basket_asian_setup",
+           "basket_barrier_setup", "greeks_basket_asian_setup",
+           "greeks_basket_barrier_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -868,6 +875,158 @@ def greeks_barrier_book(book: BarrierBook, n_paths: int, seed: int,
     return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
 
 
+# ---------------------------------------------------------------------------
+# Multi-asset walks: basket-Asian and basket-barrier
+# ---------------------------------------------------------------------------
+
+def _multi_walk_plan(bk: BasketOption, n_paths: int, config: EngineConfig):
+    """The plan of a multi-asset walk: ``unit_per_row`` is ``128 * anti``
+    asset-major, ``c * anti`` packed, as ``mctpu``'s pricers and Greeks
+    lay them out."""
+    anti = 2 if config.antithetic else 1
+    a = bk.n_assets
+    c = LANES if kbasket.use_asset_major(a) else kbasket.pack_factor(a)[1]
+    blocks, rows = config.layout_for(n_paths, c * anti)
+    return kmw.make_plan(n_paths, blocks, rows, config.antithetic,
+                         config.precision.kahan, n_assets=a)
+
+
+def _walk_setup(bk: BasketOption, n_obs: int, barrier, n_paths: int,
+                config: EngineConfig):
+    dev = config.torch_device()
+    lt, par = kmw.walk_ops(bk, mcmath.cholesky_lower(bk.corr), n_obs)
+    ops = tuple(x.contiguous().to(dev)
+                for x in (lt, par, kmw.scalars(bk, barrier)))
+    return _multi_walk_plan(bk, n_paths, config), ops
+
+
+def basket_asian_setup(opt: BasketAsianOption, n_paths: int,
+                       config: EngineConfig):
+    """``(plan, (lt, par, scal))``: the launch :func:`price_basket_asian`
+    makes.  The correlation is factorized in float64 on the host, then
+    cast to float32."""
+    return _walk_setup(opt.basket, opt.n_obs, None, n_paths, config)
+
+
+def price_basket_asian(opt: BasketAsianOption, n_paths: int, seed: int,
+                       config: EngineConfig = EngineConfig()) -> McResult:
+    """Monte Carlo price of an arithmetic-average call on a correlated
+    basket value over ``opt.n_obs`` dates (K30 up to 8 assets, K31
+    beyond)."""
+    opt.validate()
+    plan, ops = basket_asian_setup(opt, n_paths, config)
+    partials = kmw.partials(*ops, wrap_int32(seed), 0, plan,
+                            plan.num_blocks, "asian", opt.n_obs)
+    return _price(partials, plan, opt.basket.r, opt.basket.t)
+
+
+def basket_barrier_setup(opt: BasketBarrierOption, n_paths: int,
+                         config: EngineConfig):
+    """``(plan, (lt, par, scal))``: the launch :func:`price_basket_barrier`
+    makes."""
+    return _walk_setup(opt.basket, opt.n_obs, opt.barrier, n_paths, config)
+
+
+def price_basket_barrier(opt: BasketBarrierOption, n_paths: int, seed: int,
+                         config: EngineConfig = EngineConfig()) -> McResult:
+    """Monte Carlo price of a knock-out call on a correlated basket value,
+    monitored at ``opt.n_obs`` dates (K30 up to 8 assets, K31 beyond)."""
+    opt.validate()
+    plan, ops = basket_barrier_setup(opt, n_paths, config)
+    partials = kmw.partials(*ops, wrap_int32(seed), 0, plan,
+                            plan.num_blocks, "barrier", opt.n_obs,
+                            opt.kind == "up-and-out")
+    return _price(partials, plan, opt.basket.r, opt.basket.t)
+
+
+def _check_am_greeks(bk: BasketOption, what: str) -> None:
+    if not kbasket.use_asset_major(bk.n_assets):
+        raise NotImplementedError(
+            f"{what} runs the asset-major Greek kernel, up to "
+            f"{kbasket.ASSET_MAJOR_MAX} assets; the packed kernel for "
+            f"{bk.n_assets} assets is not ported yet (ROADMAP A11b)")
+
+
+def _basket_vector_greeks(partials, vecs, plan, bk) -> GreeksResult:
+    """Price, scalar rho and per-asset delta and vega vectors of ``((B,
+    4), (B, 4, a))`` partials: float64 pairwise trees over the blocks (the
+    vector fold of ``mctpu``'s ``_vec_greeks_runner``; its lanes past ``a``
+    are zero and the port writes none)."""
+    disc = _discount(bk.r, bk.t)
+    n = plan.total_units
+    price, rho = _estimates(_total(partials), n, plan, disc)
+    delta, vega = _estimates(_total(vecs), n, plan, disc)
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
+
+
+def greeks_basket_asian_setup(opt: BasketAsianOption, n_paths: int,
+                              config: EngineConfig):
+    """``(plan, (scal, lt, par))``: the launch :func:`greeks_basket_asian`
+    makes (the pricer's plan)."""
+    _check_am_greeks(opt.basket, "greeks_basket_asian")
+    dev = config.torch_device()
+    bk = opt.basket
+    ops = kmw.am_greek_ops(bk, mcmath.cholesky_lower(bk.corr), opt.n_obs)
+    return (_multi_walk_plan(bk, n_paths, config),
+            tuple(x.contiguous().to(dev) for x in ops))
+
+
+def greeks_basket_asian(opt: BasketAsianOption, n_paths: int, seed: int,
+                        config: EngineConfig = EngineConfig()
+                        ) -> GreeksResult:
+    """Price, scalar pathwise rho and per-asset pathwise delta and vega
+    vectors of the basket-Asian call in one sweep (K32), over
+    :func:`price_basket_asian`'s paths.  Theta and gamma are ``None``, as
+    in ``mctpu``.  Up to 8 assets; wider baskets raise
+    ``NotImplementedError``."""
+    opt.validate()
+    plan, ops = greeks_basket_asian_setup(opt, n_paths, config)
+    partials, vecs = kmw.am_greek_partials(*ops, wrap_int32(seed), 0, plan,
+                                           plan.num_blocks, opt.n_obs)
+    return _basket_vector_greeks(partials, vecs, plan, opt.basket)
+
+
+def _check_full_rank(chol: torch.Tensor) -> None:
+    """The likelihood-ratio scores shift z along ``L^-1`` directions: raise
+    when the float64 factor ``chol`` is rank-deficient (``mctpu``'s
+    check)."""
+    if float(torch.diagonal(chol).min()) <= 1e-6:
+        raise ValueError(
+            "greeks_basket_barrier needs a full-rank correlation matrix "
+            "(the likelihood-ratio scores shift z along L^-1 directions); "
+            "this correlation is rank-deficient — use CRN bumps "
+            "(mctpu_torch.autodiff.bump_and_revalue) instead")
+
+
+def greeks_basket_barrier_setup(opt: BasketBarrierOption, n_paths: int,
+                                config: EngineConfig):
+    """``(plan, (scal, lt, linv, par))``: the launch
+    :func:`greeks_basket_barrier` makes (the pricer's plan)."""
+    bk = opt.basket
+    _check_am_greeks(bk, "greeks_basket_barrier")
+    chol = mcmath.cholesky_lower(bk.corr)
+    _check_full_rank(chol)
+    dev = config.torch_device()
+    ops = kmw.am_bar_greek_ops(bk, chol, opt.n_obs, opt.barrier)
+    return (_multi_walk_plan(bk, n_paths, config),
+            tuple(x.contiguous().to(dev) for x in ops))
+
+
+def greeks_basket_barrier(opt: BasketBarrierOption, n_paths: int, seed: int,
+                          config: EngineConfig = EngineConfig()
+                          ) -> GreeksResult:
+    """Price, scalar rho and per-asset likelihood-ratio delta and vega
+    vectors of the knock-out basket call in one sweep (K34), over
+    :func:`price_basket_barrier`'s paths.  A rank-deficient correlation
+    raises ``ValueError``; more than 8 assets ``NotImplementedError``."""
+    opt.validate()
+    plan, ops = greeks_basket_barrier_setup(opt, n_paths, config)
+    partials, vecs = kmw.am_bar_greek_partials(
+        *ops, wrap_int32(seed), 0, plan, plan.num_blocks, opt.n_obs,
+        opt.kind == "up-and-out")
+    return _basket_vector_greeks(partials, vecs, plan, opt.basket)
+
+
 def greeks(opt, n_paths: int, seed: int,
            config: EngineConfig = EngineConfig()):
     """In-kernel Greeks, dispatched on the product record."""
@@ -887,4 +1046,8 @@ def greeks(opt, n_paths: int, seed: int,
         return greeks_cliquet(opt, n_paths, seed, config)
     if isinstance(opt, HestonOption):
         return greeks_heston(opt, n_paths, seed, config)
+    if isinstance(opt, BasketAsianOption):
+        return greeks_basket_asian(opt, n_paths, seed, config)
+    if isinstance(opt, BasketBarrierOption):
+        return greeks_basket_barrier(opt, n_paths, seed, config)
     raise TypeError(f"no in-kernel Greeks for {type(opt).__name__}")

@@ -25,8 +25,9 @@ from mctpu_torch.utils.accum import kahan_add
 
 __all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
            "iter_keys", "tile_index", "draw_normal_pair", "walk_pairwise",
-           "walk_steps", "walk_partials", "acc_init", "acc_add", "acc_final",
-           "acc_init_n", "acc_add_n", "acc_final_n", "det_col_sums",
+           "walk_pairwise_multi", "walk_steps", "walk_partials", "acc_init",
+           "acc_add", "acc_final", "acc_init_n", "acc_add_n", "acc_final_n",
+           "det_col_sums",
            "check_operand", "f32", "sqrt32", "launch_walk", "launch_items",
            "terminal_partials"]
 
@@ -234,6 +235,30 @@ def walk_pairwise(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
     return carry
 
 
+def walk_pairwise_multi(key, idx: torch.Tensor, n_draws: int, n_steps: int,
+                        step_fn, carry):
+    """Drive a walk that takes ``n_draws`` normals per step (one per asset)
+    and consumes both Box-Muller branches.
+
+    Pair ``jj`` draws counter ``jj * n_draws + i`` for draw ``i``; the
+    cosine branches feed step ``2jj`` and the sine branches step ``2jj+1``.
+    An odd step count takes the cosine branches of counters
+    ``(n_steps // 2) * n_draws + i`` for its last step.  ``step_fn(j, zs,
+    carry) -> carry`` with ``zs`` a list of ``n_draws`` tiles.
+    """
+    half = n_steps // 2
+    for jj in range(half):
+        pairs = [draw_normal_pair(key, idx, jj * n_draws + i)
+                 for i in range(n_draws)]
+        carry = step_fn(2 * jj, [z1 for z1, _ in pairs], carry)
+        carry = step_fn(2 * jj + 1, [z2 for _, z2 in pairs], carry)
+    if n_steps % 2:
+        zs = [draw_normal_pair(key, idx, half * n_draws + i)[0]
+              for i in range(n_draws)]
+        carry = step_fn(n_steps - 1, zs, carry)
+    return carry
+
+
 def walk_steps(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
     """Drive a walk that takes one Box-Muller pair per step (the Heston
     walks): step ``j`` draws counter ``j`` and gets both branches,
@@ -245,17 +270,18 @@ def walk_steps(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
 
 
 def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
-                  n_blocks: int, device) -> torch.Tensor:
+                  n_blocks: int, device, width: int = LANES) -> torch.Tensor:
     """Per-block ``(n_blocks, 2 * n_out)`` partials ``[sum x, sum x^2]`` of
     each per-path output of a walk, iteration by iteration over
     :func:`iter_keys`' streams.
 
-    ``walk(key, idx, shape, sgn)`` returns the ``n_out`` output tiles of
-    shape ``(n_blocks, rows * 128)``; under antithetic the mirror
+    ``walk(key, idx, shape, sgn)`` gets the ``(n_blocks, rows * width)``
+    draw tile's shape and element indices and returns the ``n_out`` output
+    tiles, each ``(n_blocks, -1)``; under antithetic the mirror
     (``sgn = -1``) replays the same key and the two are averaged before
     the sums, which are Kahan-added over iterations if ``plan.kahan``.
     """
-    shape = (n_blocks, plan.rows * LANES)
+    shape = (n_blocks, plan.rows * width)
     idx = tile_index(shape[1], device)
     carry = None
     for i in range(plan.iters):

@@ -23,6 +23,8 @@ __all__ = [
     "VanillaOption",
     "VanillaBook",
     "BasketOption",
+    "BasketAsianOption",
+    "BasketBarrierOption",
     "CvaSpec",
     "CvaPortfolioSpec",
     "AsianOption",
@@ -247,6 +249,48 @@ class BasketOption:
             r=0.048790164,
             t=1.0,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class BasketAsianOption:
+    """Discretely monitored arithmetic-average call on a correlated basket:
+    ``max(mean_j sum_a w_a S_a(t_j) - k, 0)`` over ``n_obs`` equally spaced
+    dates (the basket's ``k``, ``r`` and ``t``)."""
+
+    basket: BasketOption
+    n_obs: int = 12
+
+    def validate(self) -> None:
+        if self.n_obs < 1:
+            raise ValueError("n_obs must be >= 1")
+        self.basket.validate()
+
+
+@dataclasses.dataclass(frozen=True)
+class BasketBarrierOption:
+    """Discretely monitored knock-out call on a correlated basket value:
+    ``"up-and-out"`` dies when the basket value ``w @ S`` touches or
+    exceeds ``barrier`` at any of the ``n_obs`` dates, ``"down-and-out"``
+    when it touches or falls below it."""
+
+    basket: BasketOption
+    barrier: float = 130.0
+    n_obs: int = 50
+    kind: str = "up-and-out"
+
+    def validate(self) -> None:
+        if self.kind not in ("up-and-out", "down-and-out"):
+            raise ValueError("kind must be 'up-and-out' or 'down-and-out'")
+        if self.n_obs < 1:
+            raise ValueError("n_obs must be >= 1")
+        self.basket.validate()
+        if float(self.barrier) <= 0:
+            raise ValueError("barrier must be positive")
+        b0 = float(np.asarray(self.basket.w) @ np.asarray(self.basket.s))
+        if self.kind == "up-and-out" and b0 >= float(self.barrier):
+            raise ValueError("up-and-out basket already knocked out")
+        if self.kind == "down-and-out" and b0 <= float(self.barrier):
+            raise ValueError("down-and-out basket already knocked out")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -729,7 +773,8 @@ class CvaGreeksResult:
 
 
 _RECORDS = {cls.__name__: cls for cls in
-            (VanillaOption, VanillaBook, BasketOption, CvaSpec,
+            (VanillaOption, VanillaBook, BasketOption, BasketAsianOption,
+             BasketBarrierOption, CvaSpec,
              CvaPortfolioSpec, AsianOption, BarrierOption, BarrierBook,
              LookbackOption, CliquetOption, HestonOption, McResult,
              GreeksResult, HestonGreeksResult)}

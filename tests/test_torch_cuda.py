@@ -35,6 +35,7 @@ from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
+from mctpu_torch.kernels import multi_walk as kmw
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.math import cholesky_lower
@@ -623,3 +624,141 @@ def test_bad_operands_raise(dev):
     with pytest.raises(ValueError):  # K19's Heston scalars to K20
         kvarswap.greek_partials(
             kvarswap.heston_params(_HESTON["opt"], 3, dev), 1, 0, plan, 2, 3)
+
+
+# ---- the multi-asset walks: K30, K31, K32, K34 ------------------------------
+
+_MW_CASES = {
+    # name: (assets, n_obs, antithetic, kahan)
+    "a1_n13": (1, 13, False, True),
+    "a3_n13_antithetic": (3, 13, True, True),
+    "a3_n50_f32": (3, 50, False, False),
+    "a8_n7_antithetic_f32": (8, 7, True, False),
+    "a8_n16": (8, 16, False, True),
+    "a16_n13": (16, 13, False, True),
+    "a16_n7_antithetic_f32": (16, 7, True, False),
+    "a100_n5": (100, 5, False, True),
+    "a100_n4_antithetic": (100, 4, True, True),
+}
+_MW_PRODUCTS = {"asian": ("asian", True, None),
+                "up": ("barrier", True, 104.0),
+                "down": ("barrier", False, 96.0)}
+
+
+def _mw_setup(dev, a, n_obs, antithetic, kahan, rows=16):
+    bk = BasketOption.equicorrelated(a, 0.3)
+    chol = cholesky_lower(bk.corr)
+    probe = kmw.make_plan(1, NB, rows, antithetic, kahan, n_assets=a)
+    plan = kmw.make_plan(2 * NB * probe.paths_per_iter, NB, rows, antithetic,
+                         kahan, n_assets=a)
+    return bk, chol, plan
+
+
+@pytest.mark.parametrize("case", sorted(_MW_CASES))
+@pytest.mark.parametrize("product", sorted(_MW_PRODUCTS))
+def test_multi_walk_kernels_match_plain(dev, case, product):
+    """K30 (a <= 8) and K31 against the plain version, both products."""
+    a, n_obs, antithetic, kahan = _MW_CASES[case]
+    kind, up, h = _MW_PRODUCTS[product]
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, n_obs))
+    scal = kmw.scalars(bk, h).to(dev)
+    _contract(
+        lambda off, nb: kmw.partials(lt, par, scal, SEED, off, plan, nb, kind,
+                                     n_obs, up),
+        lambda off, nb: kmw.plain_partials(lt, par, scal, SEED, off, plan, nb,
+                                           kind, n_obs, up))
+
+
+def _mw_greek_pairs(out):
+    scal, vec = out
+    return torch.cat([scal] + [vec[:, :, i] for i in range(vec.shape[2])], 1)
+
+
+@pytest.mark.parametrize("case", [c for c in sorted(_MW_CASES)
+                                  if _MW_CASES[c][0] <= 8])
+@pytest.mark.parametrize("kernel", ["K32", "K34_up", "K34_down"])
+def test_multi_walk_greek_kernels_match_plain(dev, case, kernel):
+    """K32 and K34 against their plain versions, by the scaled pair bound."""
+    a, n_obs, antithetic, kahan = _MW_CASES[case]
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan)
+    if kernel == "K32":
+        ops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol, n_obs))
+        fn, plain = kmw.am_greek_partials, kmw.am_greek_plain_partials
+        extra = ()
+    else:
+        up = kernel == "K34_up"
+        ops = tuple(x.to(dev) for x in kmw.am_bar_greek_ops(
+            bk, chol, n_obs, 104.0 if up else 96.0))
+        fn, plain = kmw.am_bar_greek_partials, kmw.am_bar_greek_plain_partials
+        extra = (up,)
+    _contract(
+        lambda off, nb: _mw_greek_pairs(fn(*ops, SEED, off, plan, nb, n_obs,
+                                           *extra)),
+        lambda off, nb: _mw_greek_pairs(plain(*ops, SEED, off, plan, nb,
+                                              n_obs, *extra)),
+        units=plan.iters * plan.units_per_iter)
+
+
+@pytest.mark.parametrize("a", [1, 3, 8])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_multi_walk_greek_price_equals_pricer(dev, a, antithetic):
+    """K32's and K34's price sums equal K30's bit for bit: one log-spot
+    chain, one thread count, one block reduction (the Asian at n_obs = 16,
+    where acc * (1/n) is acc / n)."""
+    n_obs = 16
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, True)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, n_obs))
+    price = kmw.partials(lt, par, kmw.scalars(bk).to(dev), SEED, 0, plan, NB,
+                         "asian", n_obs)
+    gops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol, n_obs))
+    scal, _ = kmw.am_greek_partials(*gops, SEED, 0, plan, NB, n_obs)
+    assert torch.equal(scal[:, :2], price)
+    price = kmw.partials(lt, par, kmw.scalars(bk, 110.0).to(dev), SEED, 0,
+                         plan, NB, "barrier", n_obs, True)
+    bops = tuple(x.to(dev) for x in kmw.am_bar_greek_ops(bk, chol, n_obs,
+                                                         110.0))
+    scal, _ = kmw.am_bar_greek_partials(*bops, SEED, 0, plan, NB, n_obs, True)
+    assert torch.equal(scal[:, :2], price)
+
+
+def test_multi_walk_launch_counters(dev):
+    for a, names in ((3, ("basket_asian_am", "basket_barrier_am",
+                          "basket_asian_greeks_am",
+                          "basket_barrier_greeks_am")),
+                     (16, ("basket_asian_packed", "basket_barrier_packed"))):
+        bk, chol, plan = _mw_setup(dev, a, 3, False, True, rows=8)
+        lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, 3))
+        calls = [
+            (lambda f: f(lt, par, kmw.scalars(bk).to(dev), 1, 0, plan, 2,
+                         "asian", 3), kmw.partials, kmw.plain_partials),
+            (lambda f: f(lt, par, kmw.scalars(bk, 110.0).to(dev), 1, 0, plan,
+                         2, "barrier", 3), kmw.partials, kmw.plain_partials)]
+        if a <= 8:
+            gops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol, 3))
+            bops = tuple(x.to(dev) for x in kmw.am_bar_greek_ops(bk, chol, 3,
+                                                                 110.0))
+            calls += [
+                (lambda f: f(*gops, 1, 0, plan, 2, 3), kmw.am_greek_partials,
+                 kmw.am_greek_plain_partials),
+                (lambda f: f(*bops, 1, 0, plan, 2, 3, True),
+                 kmw.am_bar_greek_partials, kmw.am_bar_greek_plain_partials)]
+        for name, (call, fn, plain) in zip(names, calls):
+            before = dict(kmw.LAUNCHES)
+            call(fn)
+            call(plain)
+            assert kmw.LAUNCHES[name] == before[name] + 1, name
+            assert sum(kmw.LAUNCHES.values()) == sum(before.values()) + 1
+
+
+def test_multi_walk_bad_operands_raise(dev):
+    bk, chol, plan = _mw_setup(dev, 3, 3, False, True, rows=8)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, 3))
+    scal = kmw.scalars(bk).to(dev)
+    with pytest.raises(ValueError):
+        kmw.partials(lt, par.double(), scal, 1, 0, plan, 2, "asian", 3)
+    with pytest.raises(ValueError):
+        kmw.partials(lt, par, scal, 1, 0, plan, 2, "asian", 0)
+    gops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol, 3))
+    with pytest.raises(ValueError):  # K30's rows handed to K32
+        kmw.am_greek_partials(gops[0], lt, par, 1, 0, plan, 2, 3)

@@ -1,0 +1,248 @@
+"""The asset-major basket Greeks of the port against mctpu (CPU): K32's and
+K34's plain versions against the JAX kernels in interpret mode, their
+operand tables (``L^-1`` included) against ``mctpu``'s builders bit for
+bit, the engine entry points against ``mctpu.engine`` on interpret-mode
+Pallas, the dispatcher, and what the entry points refuse.
+
+The ``(B, 4)`` scalar and ``(B, 4, a)`` per-asset ``(sum x, sum x^2)``
+pairs are held by the scaled bound of ``tests/torch_tolerance.py`` at
+``rtol=2e-5``: the likelihood-ratio vega ``p (sum q (bt / v - sqrt(dt)) -
+n / v)`` cancels heavily, so a plain relative bound would test the
+cancellation, not the port.  ``mctpu`` writes the per-asset sums into
+lanes ``0..a-1`` of ``(B, 4, 128)`` rows; the lanes past ``a`` must be
+zero.  Each interpret-mode call runs once: 2 blocks of ``rows=8``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mctpu_torch
+from mctpu import engine as jengine
+from mctpu import math as jmath
+from mctpu import rng as jrng
+from mctpu import types as jtypes
+from mctpu.kernels import multi_walk as jmw
+from mctpu_torch import engine as tengine
+from mctpu_torch import math as tmath
+from mctpu_torch.kernels import multi_walk as tmw
+from mctpu_torch.types import (BasketAsianOption, BasketBarrierOption,
+                               BasketOption, GreeksResult, from_reference)
+from torch_tolerance import assert_pairs_close
+
+RTOL = 2e-5
+KEY = jax.random.key(37)
+SEED = int(jrng.key_to_seed(KEY))
+NB, ROWS = 2, 8
+
+CASES = {
+    # name: (assets, barrier kernel, n_obs, up, barrier, antithetic, kahan,
+    #        iters)
+    "K32_a3_n5": (3, False, 5, True, None, False, True, 1),
+    "K32_a1_n4_antithetic_f32_2iters": (1, False, 4, True, None, True, False,
+                                        2),
+    "K32_a8_n2": (8, False, 2, True, None, False, True, 1),
+    "K34_a3_up_n4_antithetic_f32_2iters": (3, True, 4, True, 104.0, True,
+                                           False, 2),
+    "K34_a1_down_n7": (1, True, 7, False, 97.0, False, True, 1),
+    "K34_a8_up_n2": (8, True, 2, True, 103.0, False, True, 1),
+}
+
+MIXED = jtypes.BasketOption(
+    s=np.array([95.0, 100.0, 110.0]), v=np.array([0.2, 0.3, 0.25]),
+    w=np.array([0.5, 0.3, 0.2]),
+    corr=np.array([[1.0, 0.3, -0.2], [0.3, 1.0, 0.4], [-0.2, 0.4, 1.0]]),
+    d=np.array([0.1, -0.05, 0.0]), k=100.0, r=0.03, t=1.5)
+
+
+def _chol64(bk):
+    with jax.enable_x64(True):
+        return np.asarray(jmath.cholesky_lower(jnp.asarray(bk.corr,
+                                                           jnp.float64)))
+
+
+def _pairs(scal, vec):
+    """``(B, 4)`` and ``(B, 4, a)`` sums -> ``(B, 4 + 4a)`` as ``(sum x,
+    sum x^2)`` pairs: price, rho, then per asset delta and vega."""
+    scal, vec = np.asarray(scal), np.asarray(vec)
+    cols = [scal] + [vec[:, :, i] for i in range(vec.shape[2])]
+    return np.concatenate(cols, axis=1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_greek_partials_match_interpret_mode(case):
+    a, bar, n_obs, up, h, antithetic, kahan, iters = CASES[case]
+    bk = jtypes.BasketOption.equicorrelated(a, 0.3)
+    probe = jmw.make_plan(1, NB, ROWS, antithetic, n_assets=a)
+    paths = NB * iters * probe.paths_per_iter
+    jplan = jmw.make_plan(paths, NB, ROWS, antithetic, kahan=kahan,
+                          n_assets=a)
+    tplan = tmw.make_plan(paths, NB, ROWS, antithetic, kahan, n_assets=a)
+    assert (tplan.iters, tplan.units_per_iter) == (jplan.iters,
+                                                   jplan.units_per_iter)
+    tb = from_reference(bk)
+    chol = tmath.cholesky_lower(tb.corr)
+    if bar:
+        ws, wv = jmw.bar_greek_pallas_partials(
+            bk, _chol64(bk), SEED, 1, jplan, NB, n_obs=n_obs, barrier=h,
+            up=up, interpret=True)
+        gs, gv = tmw.am_bar_greek_partials(
+            *tmw.am_bar_greek_ops(tb, chol, n_obs, h), SEED, 1, tplan, NB,
+            n_obs, up)
+    else:
+        ws, wv = jmw.greek_pallas_partials(bk, _chol64(bk), SEED, 1, jplan,
+                                           NB, n_obs=n_obs, interpret=True)
+        gs, gv = tmw.am_greek_partials(*tmw.am_greek_ops(tb, chol, n_obs),
+                                       SEED, 1, tplan, NB, n_obs)
+    wv = np.asarray(wv)
+    assert wv.shape == (NB, 4, 128) and (wv[:, :, a:] == 0).all()
+    assert gs.shape == (NB, 4) and gv.shape == (NB, 4, a)
+    assert_pairs_close(_pairs(gs, gv), _pairs(ws, wv[:, :, :a]),
+                       tplan.iters * tplan.units_per_iter, RTOL)
+
+
+@pytest.mark.parametrize("basket", ["mixed", "eq1", "eq8"])
+@pytest.mark.parametrize("n_obs", [7, 16, 50])
+def test_greek_ops_match_mctpu_builders(basket, n_obs):
+    """K32's and K34's tables equal ``_am_greek_ops`` and
+    ``_am_bar_greek_ops`` as ``mctpu``'s source forms them (eagerly), bit
+    for bit; ``L^-1`` by ``torch.linalg.solve_triangular`` equals
+    ``jax.scipy.linalg.solve_triangular``'s."""
+    bk = (MIXED if basket == "mixed"
+          else jtypes.BasketOption.equicorrelated(int(basket[2:]), 0.3))
+    ch = _chol64(bk)
+    with jax.enable_x64(False):
+        o = bk.astype(jnp.float32)
+        jlt, jpar, jsqdt, jdt = jmw._am_greek_ops(o, ch, jnp.float32, n_obs)
+        blt, blinv, bpar, bsqdt = jmw._am_bar_greek_ops(o, ch, jnp.float32,
+                                                        n_obs)
+        want_scal = np.array([o.k, o.t, np.float32(1.0 / n_obs), jsqdt, jdt],
+                             np.float32)
+        want_bscal = np.array([o.k, o.t, 120.0, bsqdt], np.float32)
+        jpar, bpar, blinv = (np.asarray(x) for x in (jpar, bpar, blinv))
+    tb = from_reference(bk)
+    chol = tmath.cholesky_lower(tb.corr)
+    scal, lt, par = tmw.am_greek_ops(tb, chol, n_obs)
+    np.testing.assert_array_equal(scal.numpy(), want_scal)
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(jlt))
+    np.testing.assert_array_equal(par.numpy(), jpar)
+    bscal, blt2, linv, bpar2 = tmw.am_bar_greek_ops(tb, chol, n_obs, 120.0)
+    np.testing.assert_array_equal(bscal.numpy(), want_bscal)
+    np.testing.assert_array_equal(blt2.numpy(), np.asarray(blt))
+    np.testing.assert_array_equal(linv.numpy(), blinv)
+    np.testing.assert_array_equal(bpar2.numpy(), bpar)
+
+
+JCFG = jengine.EngineConfig(backend="pallas", interpret=True, num_blocks=8,
+                            rows=8)
+TCFG = tengine.EngineConfig(num_blocks=8, rows=8, device="cpu")
+
+
+@pytest.mark.parametrize("product", ["asian", "barrier"])
+def test_engine_greeks_match_mctpu(product):
+    bk = jtypes.BasketOption.equicorrelated(3, 0.3)
+    if product == "asian":
+        opt = jtypes.BasketAsianOption(bk, n_obs=4)
+        jfn, tfn = jengine.greeks_basket_asian, mctpu_torch.greeks_basket_asian
+    else:
+        opt = jtypes.BasketBarrierOption(bk, 106.0, n_obs=5)
+        jfn, tfn = (jengine.greeks_basket_barrier,
+                    mctpu_torch.greeks_basket_barrier)
+    n = 1 << 13
+    want = jfn(opt, n, KEY, JCFG)
+    got = tfn(from_reference(opt), n, SEED, TCFG)
+    assert isinstance(got, GreeksResult)
+    assert got.theta is None and got.gamma is None
+    for f in ("price", "rho", "delta", "vega"):
+        r, w = getattr(got, f), getattr(want, f)
+        assert (r.n, r.n_paths) == (w.n, w.n_paths)
+        pairs = np.stack([np.atleast_1d(np.asarray(x, np.float64))
+                          for x in (r.sum_p, r.sum_p2)], 1)
+        wpairs = np.stack([np.atleast_1d(np.asarray(x, np.float64))
+                           for x in (w.sum_p, w.sum_p2)], 1)
+        assert pairs.shape == wpairs.shape == ((3, 2) if f in ("delta",
+                                                               "vega")
+                                               else (1, 2))
+        assert_pairs_close(pairs.reshape(1, -1), wpairs.reshape(1, -1),
+                           w.n, 1e-5)
+
+
+@pytest.mark.parametrize("product", ["asian", "barrier"])
+def test_greeks_price_equals_pricer(product):
+    """The Greek walk's payoffs are the pricer's, path by path, and the plain
+    versions sum them alike: the prices are equal (at n_obs = 16 the
+    Asian's acc * (1/n) is acc / n exactly)."""
+    bk = BasketOption.equicorrelated(3, 0.3)
+    n = 1 << 12
+    if product == "asian":
+        opt = BasketAsianOption(bk, n_obs=16)
+        g = mctpu_torch.greeks(opt, n, SEED, TCFG)
+        p = mctpu_torch.price_basket_asian(opt, n, SEED, TCFG)
+    else:
+        opt = BasketBarrierOption(bk, 110.0, n_obs=9, kind="up-and-out")
+        g = mctpu_torch.greeks(opt, n, SEED, TCFG)
+        p = mctpu_torch.price_basket_barrier(opt, n, SEED, TCFG)
+    assert float(g.price.price) == float(p.price)
+    assert g.delta.price.shape == g.vega.price.shape == (3,)
+    assert bool(torch.isfinite(g.delta.price).all())
+
+
+@pytest.mark.parametrize("kernel", ["K32", "K34"])
+def test_block_offset_relabels_streams(kernel):
+    tb = BasketOption.equicorrelated(3, 0.3)
+    chol = tmath.cholesky_lower(tb.corr)
+    plan = tmw.make_plan(4 * ROWS * 128, 4, ROWS, False)
+    if kernel == "K32":
+        ops, fn = tmw.am_greek_ops(tb, chol, 5), tmw.am_greek_partials
+        extra = ()
+    else:
+        ops = tmw.am_bar_greek_ops(tb, chol, 5, 104.0)
+        fn, extra = tmw.am_bar_greek_partials, (True,)
+    full = fn(*ops, 9, 0, plan, 4, 5, *extra)
+    tail = fn(*ops, 9, 2, plan, 2, 5, *extra)
+    for x, y in zip(full, tail):
+        assert torch.equal(x[2:], y)
+
+
+def test_rank_deficient_correlation_raises():
+    """``default_reference(3)``'s +-0.5 matrix is singular: no L^-1 shift
+    exists, so the LR Greeks refuse it, as ``mctpu``'s do."""
+    bk = jtypes.BasketOption.default_reference(3)
+    opt = jtypes.BasketBarrierOption(bk, 130.0, n_obs=5)
+    with pytest.raises(ValueError, match="rank-deficient"):
+        jengine.greeks_basket_barrier(opt, 1 << 10, KEY, JCFG)
+    with pytest.raises(ValueError, match="rank-deficient"):
+        mctpu_torch.greeks_basket_barrier(from_reference(opt), 1 << 10, SEED,
+                                          TCFG)
+
+
+@pytest.mark.parametrize("product", ["asian", "barrier"])
+def test_wide_basket_greeks_are_not_ported_yet(product):
+    bk = BasketOption.equicorrelated(16, 0.3)
+    opt = (BasketAsianOption(bk, n_obs=4) if product == "asian"
+           else BasketBarrierOption(bk, 120.0, n_obs=4))
+    with pytest.raises(NotImplementedError, match="A11b"):
+        mctpu_torch.greeks(opt, 1 << 10, SEED, TCFG)
+
+
+def test_am_greek_wrappers_refuse_wide_operands():
+    tb = BasketOption.equicorrelated(9, 0.3)
+    chol = tmath.cholesky_lower(tb.corr)
+    plan = tmw.make_plan(ROWS * 128, 1, ROWS, False)
+    with pytest.raises(ValueError, match="1..8"):
+        tmw.am_greek_partials(*tmw.am_greek_ops(tb, chol, 3), SEED, 0, plan,
+                              1, 3)
+    with pytest.raises(ValueError, match="1..8"):
+        tmw.am_bar_greek_partials(*tmw.am_bar_greek_ops(tb, chol, 3, 120.0),
+                                  SEED, 0, plan, 1, 3, True)
+
+
+def test_greek_entry_points_validate():
+    bk = BasketOption.equicorrelated(3, 0.3)
+    with pytest.raises(ValueError, match="already knocked out"):
+        mctpu_torch.greeks_basket_barrier(
+            BasketBarrierOption(bk, 95.0, n_obs=4), 1 << 10, SEED, TCFG)
+    with pytest.raises(ValueError, match="n_obs"):
+        mctpu_torch.greeks_basket_asian(BasketAsianOption(bk, n_obs=0),
+                                        1 << 10, SEED, TCFG)

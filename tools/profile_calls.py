@@ -40,6 +40,7 @@ def calls(mt):
     import numpy as np
 
     from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+                                   BasketAsianOption, BasketBarrierOption,
                                    BasketOption, CliquetOption, CvaSpec,
                                    HestonOption, LookbackOption, VanillaBook,
                                    VanillaOption)
@@ -63,6 +64,12 @@ def calls(mt):
     bbook = BarrierBook.serving(32)
     hopt = HestonOption(100.0, 100.0, 0.05, 1.0, 0.04, 2.0, 0.04, 0.3, -0.7)
     hvs = HestonOption(100.0, 100.0, 0.03, 1.0, 0.09, 2.0, 0.04, 0.3, -0.6)
+    ba3 = BasketAsianOption(b3, n_obs=50)
+    bb3 = BasketBarrierOption(b3, 130.0, n_obs=50)
+    ba16 = BasketAsianOption(BasketOption.equicorrelated(16), n_obs=50)
+    eq3 = BasketOption.equicorrelated(3, 0.3)
+    ga3 = BasketAsianOption(eq3, n_obs=16)
+    gb3 = BasketBarrierOption(eq3, 130.0, n_obs=50)
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -130,6 +137,16 @@ def calls(mt):
         ("greeks_varswap Heston, n_obs=252, 2^22",
          "varswap_heston_greeks_kernel",
          lambda: mt.greeks_varswap(hvs, n22, SEED, n_obs=252)),
+        ("price_basket_asian a=3, n_obs=50, 2^22", "mw_walk_am_kernel",
+         lambda: mt.price_basket_asian(ba3, n22, SEED)),
+        ("price_basket_barrier a=3 up-and-out, n_obs=50, 2^22",
+         "mw_walk_am_kernel", lambda: mt.price_basket_barrier(bb3, n22, SEED)),
+        ("price_basket_asian a=16, n_obs=50, 2^22", "mw_walk_packed_kernel",
+         lambda: mt.price_basket_asian(ba16, n22, SEED)),
+        ("greeks_basket_asian a=3, n_obs=16, 2^24", "mw_greeks_am_kernel",
+         lambda: mt.greeks(ga3, n24, SEED)),
+        ("greeks_basket_barrier a=3, n_obs=50, 2^23",
+         "mw_bar_greeks_am_kernel", lambda: mt.greeks(gb3, 1 << 23, SEED)),
     ]
 
 
