@@ -9,7 +9,7 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the thirty kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the thirty-four kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
@@ -19,7 +19,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    instruments and 1, 7 and 50 dates; the Heston walks, Euler, QE and
    Greeks, at 13 and 100 steps, and the variance swap's Heston leg at 13
    and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
-   3 and 8 assets and the packed walk at 16 and 100, at 13 dates): equal
+   3 and 8 assets and the packed walk and its Asian Greeks at 16 and 100,
+   at 13 dates; the rainbow and its Greeks at 1, 3 and 8 assets and the
+   packed rainbow at 9, 16 and 100, max and min): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -64,7 +66,13 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    single-asset walks; their asset-major Greeks on ``equicorrelated(3,
    0.3)`` against CRN bumps, the terminal basket Greeks and the
    single-asset Greeks, each Greeks price equal to its pricer's bit for
-   bit; a rank-deficient correlation refused);
+   bit; a rank-deficient correlation refused; the packed basket-Asian
+   Greeks on ``equicorrelated(16, 0.3)`` at 12 dates against CRN bumps,
+   its price equal to the pricer's at 16 dates) and the rainbow path
+   (``price_rainbow`` at 1, 2, 3, 16 and 100 assets against Black-Scholes,
+   the Stulz closed form, the k = 0 identity and a float64 oracle;
+   ``greeks_rainbow`` against autograd of the Stulz form, CRN bumps and
+   the k = 0 identities, its price equal to the pricer's bit for bit);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -103,11 +111,14 @@ CLIQUET_KERNELS = ("cliquet", "cliquet_greeks")
 BOOK_KERNELS = ("ladder", "ladder_greeks", "book", "book_greeks")
 VARSWAP_KERNELS = ("varswap", "varswap_greeks")
 BARRIER_BOOK_KERNELS = ("barrier_book", "barrier_book_greeks")
-# K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
-# K30 and K31 under each product, K32 and K34.
+# K30 and K31 under each product, K32, K33 and K34.
 MULTI_WALK_KERNELS = ("basket_asian_am", "basket_barrier_am",
                       "basket_asian_packed", "basket_barrier_packed",
-                      "basket_asian_greeks_am", "basket_barrier_greeks_am")
+                      "basket_asian_greeks_am", "basket_asian_greeks_packed",
+                      "basket_barrier_greeks_am")
+# K36, K37, K38.
+RAINBOW_KERNELS = ("rainbow_am", "rainbow_packed", "rainbow_greeks")
+# K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
 # The Euler scheme's bias at 100 steps beside the gates' standard errors,
@@ -242,12 +253,14 @@ def bb_work(kname: str, plan, items: int, steps: int):
                 f32=p * (steps * (f_s + items * f_is) + items * f_ip))
 
 
-# The multi-asset walks (K30-K32, K34), counted from csrc/multi_walk.cu:
+# The multi-asset walks (K30-K34), counted from csrc/multi_walk.cu:
 # float32 operations per asset and date beyond the correlation products (the
-# signed normal, the log-spot step, the weighted spot and its sum; K32's
-# three tangents, K34's score sums), per date (the monitor; K32's t_j
-# sums), per asset and path and per path (the payoff and the Greeks), the
-# outputs per estimator unit (each a plain add of x and of x^2), the
+# signed normal, the log-spot step, the weighted spot and its sum; K32's and
+# K33's three tangents, K34's score sums), per date (the monitor; K32's and
+# K33's t_j sums), per asset and path and per path (the payoff and the
+# Greeks; K33's lane values, their squares and their four halving-tree
+# adds), the outputs per estimator unit (each a plain add of x and of x^2),
+# the
 # lower-triangular products per date (L z; K34 also L^-1 z), each of
 # a(a+1)/2 multiply-adds taken as a multiply and an add under -fmad=false,
 # and the IEEE divides per path.  Every path draws a Philox block and a
@@ -258,6 +271,7 @@ MW_OPS = {"basket_asian_am": (6, 1, 0, 2, 1, 1, 1),
           "basket_asian_packed": (6, 1, 0, 2, 1, 1, 1),
           "basket_barrier_packed": (6, 3, 0, 3, 1, 1, 0),
           "basket_asian_greeks_am": (12, 5, 5, 9, None, 1, 0),
+          "basket_asian_greeks_packed": (12, 3, 11, 9, 2, 1, 0),
           "basket_barrier_greeks_am": (12, 3, 7, 6, None, 2, 0)}
 
 
@@ -271,6 +285,29 @@ def mw_work(kname: str, plan, a: int, steps: int):
     return work(draws=p * a * 2 * -(-steps // 2), expf=p * a * steps,
                 div=p * divs,
                 f32=p * (steps * per_date + a * f_ap + f_p) + u * 3 * outs)
+
+
+# The rainbow kernels (K36-K38), counted from csrc/rainbow.cu: float32
+# operations per asset and path beyond L z (the signed bt, the exponent, the
+# spot, the arg-extreme's compare and select; K38's masked delta, vega and
+# theta integrands), per path (the payoff; K38's indicator, theta and its
+# IEEE divide by t) and per estimator unit (the (x, x^2) sums, K38's rho);
+# L z per path is a(a+1)/2 multiplies and a(a-1)/2 adds in K36 and K38
+# (each row from its first product), a(a+1) in K37 (each row from 0).  An
+# expf per asset and path; a normal per asset and unit.
+RB_OPS = {"rainbow_am": (6, 2, 3, 0), "rainbow_packed": (5, 2, 3, 0),
+          "rainbow_greeks": (17, 7, None, 1)}
+
+
+def rb_work(kname: str, plan, a: int):
+    """Instruction counts of a rainbow kernel's run over ``a`` assets (K38
+    sums 3 + 2a (x, x^2) outputs and rho's product per unit)."""
+    f_a, f_p, f_u, divs = RB_OPS[kname]
+    f_u = 1 + 3 * (3 + 2 * a) if f_u is None else f_u
+    lz = a * (a + 1) if kname == "rainbow_packed" else a * a
+    p, u = plan.total_paths, plan.total_units
+    return work(draws=u * a, expf=p * a, div=p * divs,
+                f32=p * (lz + f_a * a + f_p) + u * f_u)
 
 
 def bound(ops, nbytes):
@@ -1459,6 +1496,52 @@ def multi_walk_path(mt) -> None:
           f"({float(p.price):.6f}); delta/vega/rho vs CRN bumps, max "
           f"|z| {max(zs):.2f}; a=1 vs greeks_asian, max z {z1:.2f}")
 
+    # K33 on equicorrelated(16, 0.3) at 12 dates (the JAX Greeks CLI's
+    # --product basket-asian --assets 16 at its default --obs), 2^22 paths:
+    # the price within RTOL of price_basket_asian's (K31 takes acc / n where
+    # K33 takes acc * (1/n)), equal bit for bit at 16 dates; per-asset delta
+    # and vega and rho within 5 se + 0.5% of CRN bumps.  The packed
+    # basket-barrier Greeks (K35) are still refused.
+    eq16 = BasketOption.equicorrelated(16, 0.3)
+    n_p = 1 << 22
+    gp = BasketAsianOption(eq16, n_obs=12)
+    g = mt.greeks(gp, n_p, SEED)
+    p = mt.price_basket_asian(gp, n_p, SEED)
+    gap = abs(float(g.price.price) - float(p.price)) / float(p.price)
+    check(gap <= RTOL, f"greeks_basket_asian (16 assets) price "
+                       f"{float(g.price.price)!r} vs price_basket_asian's "
+                       f"{float(p.price)!r}")
+    o16 = BasketAsianOption(eq16, n_obs=16)
+    g16, p16 = mt.greeks(o16, n_p, SEED), mt.price_basket_asian(o16, n_p, SEED)
+    check(float(g16.price.price) == float(p16.price),
+          f"greeks_basket_asian (16 assets, 16 dates) price "
+          f"{float(g16.price.price)!r} is not price_basket_asian's "
+          f"{float(p16.price)!r}")
+    zs = []
+    for i in range(16):
+        zs.append(crn_gate(g.delta.price[i], g.delta.std_error[i],
+                           crn(mt.price_basket_asian, gp, n_p, "s", i, 0.5),
+                           f"basket-Asian (16) delta_{i}"))
+        zs.append(crn_gate(g.vega.price[i], g.vega.std_error[i],
+                           crn(mt.price_basket_asian, gp, n_p, "v", i, 5e-3),
+                           f"basket-Asian (16) vega_{i}"))
+    zs.append(crn_gate(g.rho.price, g.rho.std_error,
+                       crn(mt.price_basket_asian, gp, n_p, "r", None, 2e-3),
+                       "basket-Asian (16) rho"))
+    try:
+        mt.greeks(BasketBarrierOption(eq16, 130.0, n_obs=12), 1 << 20, SEED)
+    except NotImplementedError as err:
+        check("A11b" in str(err), f"wrong refusal: {err}")
+    else:
+        raise AssertionError("greeks_basket_barrier took 16 assets")
+    phase("multi-walk-path", "basket-Asian Greeks equicorrelated(16, 0.3) "
+          f"2^22 n_obs=12 (K33): price {float(g.price.price):.6f} vs "
+          f"price_basket_asian {float(p.price):.6f} (relative gap "
+          f"{gap:.2e}), at n_obs=16 equal bit for bit "
+          f"({float(p16.price):.6f}); delta/vega/rho vs CRN bumps, max |z| "
+          f"{max(zs):.2f}; greeks_basket_barrier at 16 assets raises "
+          "NotImplementedError")
+
     # K34 on equicorrelated(3, 0.3), H=130, 50 dates: the price is
     # price_basket_barrier's bit for bit, the LR Greeks within
     # tests/test_greeks.py's limits of CRN bumps (6 se + 0.003 delta, 0.3
@@ -1512,6 +1595,163 @@ def multi_walk_path(mt) -> None:
           "default_reference(3) raises ValueError")
 
 
+def rainbow_path(mt) -> None:
+    """The rainbow slice at full width with the default EngineConfig:
+    ``price_rainbow`` (K36 on the JAX exotic CLI's 3-asset rainbow and at 1
+    and 2 assets, K37 at 16 and 100) against the Stulz closed form, the
+    k = 0 identity, Black-Scholes and the float64 oracle;
+    ``greeks_rainbow`` (K38) against autograd of the Stulz form, CRN bumps
+    and the k = 0 identities, its price equal to the pricer's."""
+    from mctpu_torch import math as mcmath
+    from mctpu_torch.models.rainbow import rainbow_oracle
+    from mctpu_torch.types import RainbowOption
+
+    n24, n22, n_or = 1 << 24, 1 << 22, 1 << 20
+
+    # Two assets against Stulz, max + min at k = 0 against s1 + s2 (its
+    # sigma that of the forwards' sum: lognormal moments), one asset
+    # against Black-Scholes.
+    two = RainbowOption.equicorrelated([100.0, 95.0], [0.2, 0.3], 0.3, 100.0,
+                                       0.05)
+    msgs = []
+    for kind in ("max", "min"):
+        res = mt.price_rainbow(dataclasses.replace(two, kind=kind), n24, SEED)
+        cf = float(getattr(mcmath, f"rainbow_{kind}_call")(
+            100.0, 95.0, 100.0, 0.05, 0.2, 0.3, 0.3, 1.0))
+        z = within_sigma(res.price, cf, res.std_error,
+                         f"rainbow {kind} of 2 vs Stulz")
+        msgs.append(f"{kind} {float(res.price):.6f} vs Stulz {cf:.6f} "
+                    f"(z={z:.2f})")
+    mx = mt.price_rainbow(dataclasses.replace(two, k=0.0), n24, SEED)
+    mn = mt.price_rainbow(dataclasses.replace(two, k=0.0, kind="min"), n24,
+                          SEED)
+    s2, v2 = np.array([100.0, 95.0]), np.array([0.2, 0.3])
+    var = (np.sum(s2 * s2 * np.expm1(v2 * v2))
+           + 2 * s2[0] * s2[1] * np.expm1(0.3 * v2[0] * v2[1]))
+    z0 = within_sigma(float(mx.price) + float(mn.price), 195.0,
+                      math.sqrt(var / mx.n), "rainbow k=0 max + min")
+    one = RainbowOption(s=np.array([100.0]), v=np.array([0.2]),
+                        corr=np.eye(1), k=100.0, r=0.05, t=1.0)
+    r1 = mt.price_rainbow(one, n24, SEED)
+    bs = float(mcmath.bs_call(100.0, 100.0, 0.05, 0.2, 1.0))
+    z1 = within_sigma(r1.price, bs, r1.std_error, "rainbow a=1 vs BS")
+    phase("rainbow-path", "2^24 (K36): " + "; ".join(msgs) + f"; k=0 max + "
+          f"min {float(mx.price) + float(mn.price):.6f} vs 195 (z={z0:.2f})"
+          f"; a=1 {float(r1.price):.6f} vs BS {bs:.6f} (z={z1:.2f})")
+
+    # 3 assets (the JAX exotic CLI's --product rainbow: vols 0.2/0.3/0.2,
+    # correlation 0.3, k = 100), 16 (tests/test_rainbow.py's packed case:
+    # v = 0.25, k = 110) and 100, max and min (the min's strike lowered with
+    # the basket), against the float64 oracle at 2^20 paths.
+    cells = ((3, n24, [0.2, 0.3, 0.2], 100.0, 100.0),
+             (16, n22, [0.25] * 16, 110.0, 75.0),
+             (100, n22, [0.25] * 100, 110.0, 60.0))
+    msgs = []
+    for a, n, vols, k_max, k_min in cells:
+        for kind, k in (("max", k_max), ("min", k_min)):
+            opt = RainbowOption.equicorrelated(np.full(a, 100.0), vols, 0.3,
+                                               k, 0.05, kind=kind)
+            res = mt.price_rainbow(opt, n, SEED)
+            price, se = rainbow_oracle(opt, n_or, SEED, "cuda")
+            z = abs(float(res.price) - price) / math.hypot(
+                float(res.std_error), se)
+            check(z < N_SIGMA, f"rainbow {kind} of {a}: {float(res.price):.6f}"
+                               f" vs oracle {price:.6f} ({z:.2f} combined se)")
+            msgs.append(f"{kind} of {a} 2^{n.bit_length() - 1} "
+                        f"{float(res.price):.6f} vs {price:.6f} (z={z:.2f})")
+    phase("rainbow-path", "vs float64 oracle (K36 at 3, K37 at 16 and 100): "
+          + "; ".join(msgs))
+
+    # K38 at 2 assets (tests/test_greeks.py's option, correlation 0.5): every
+    # output within 4 se of autograd of the Stulz form, max and min.
+    g2 = RainbowOption.equicorrelated([100.0, 95.0], [0.2, 0.3], 0.5, 100.0,
+                                      0.05)
+    worst = 0.0
+    for kind in ("max", "min"):
+        xs = [torch.tensor(x, dtype=torch.float64, requires_grad=True)
+              for x in (100.0, 95.0, 0.2, 0.3, 0.05, 1.0)]
+        s1, s2_, v1, v2_, r, t = xs
+        price = getattr(mcmath, f"rainbow_{kind}_call")(s1, s2_, 100.0, r,
+                                                        v1, v2_, 0.5, t)
+        price.backward()
+        want = {"price": [price.item()], "delta": [s1.grad, s2_.grad],
+                "vega": [v1.grad, v2_.grad], "rho": [r.grad],
+                "theta": [t.grad]}
+        g = mt.greeks(dataclasses.replace(g2, kind=kind), n24, SEED)
+        check(g.gamma is None, "rainbow gamma is not None")
+        for f, ws in want.items():
+            res = getattr(g, f)
+            for x, se, w in zip(np.atleast_1d(res.price.numpy()),
+                                np.atleast_1d(res.std_error.numpy()), ws):
+                worst = max(worst, within_sigma(
+                    x, float(w), se, f"rainbow {kind} of 2 {f}"))
+
+    # 3 assets (tests/test_greeks.py's CRN option): delta within 0.01 of a
+    # CRN bump of price_rainbow (h = 0.25), vega within max(5%, 0.3)
+    # (h = 0.005), that test's limits.
+    o3 = RainbowOption(s=np.array([100.0, 98.0, 102.0]),
+                       v=np.array([0.2, 0.25, 0.3]),
+                       corr=np.array([[1.0, 0.3, 0.2], [0.3, 1.0, 0.4],
+                                      [0.2, 0.4, 1.0]]),
+                       k=100.0, r=0.05, t=1.0)
+    g = mt.greeks(o3, n22, SEED)
+
+    def fd(field, i, h):
+        vals = []
+        for sign in (1.0, -1.0):
+            x = np.asarray(getattr(o3, field), float).copy()
+            x[i] += sign * h
+            vals.append(float(mt.price_rainbow(
+                dataclasses.replace(o3, **{field: x}), n22, SEED).price))
+        return (vals[0] - vals[1]) / (2 * h)
+
+    dev_d = dev_v = 0.0
+    for i in range(3):
+        got, want = float(g.delta.price[i]), fd("s", i, 0.25)
+        check(abs(got - want) <= 0.01, f"rainbow delta_{i}: {got:.6f} vs "
+                                       f"CRN bump {want:.6f}")
+        dev_d = max(dev_d, abs(got - want))
+        got, want = float(g.vega.price[i]), fd("v", i, 0.005)
+        check(abs(got - want) <= max(0.05 * abs(want), 0.3),
+              f"rainbow vega_{i}: {got:.6f} vs CRN bump {want:.6f}")
+        dev_v = max(dev_v, abs(got - want))
+
+    # k = 0: rho exactly 0, and per asset delta_max + delta_min = 1.
+    gmax = mt.greeks(dataclasses.replace(g2, k=0.0), n22, SEED)
+    gmin = mt.greeks(dataclasses.replace(g2, k=0.0, kind="min"), n22, SEED)
+    check(float(gmax.rho.price) == 0.0 and float(gmin.rho.price) == 0.0,
+          "rainbow k=0: rho is not exactly 0")
+    d = gmax.delta.price.numpy() + gmin.delta.price.numpy()
+    se = np.hypot(gmax.delta.std_error.numpy(), gmin.delta.std_error.numpy())
+    zk = float(np.max(np.abs(d - 1.0) / se))
+    check(zk < N_SIGMA, f"rainbow k=0: delta_max + delta_min = {d}")
+
+    # The JAX Greeks CLI's rainbow (spots 100/95/90, vols 0.2/0.25/0.3,
+    # correlation 0.5): the Greeks price is price_rainbow's bit for bit;
+    # 9 assets are refused.
+    gc = RainbowOption.equicorrelated([100.0, 95.0, 90.0], [0.2, 0.25, 0.3],
+                                      0.5, 100.0, 0.04879)
+    g = mt.greeks_rainbow(gc, n24, SEED)
+    p = mt.price_rainbow(gc, n24, SEED)
+    check(float(g.price.price) == float(p.price),
+          f"greeks_rainbow price {float(g.price.price)!r} is not "
+          f"price_rainbow's {float(p.price)!r}")
+    try:
+        mt.greeks(RainbowOption.equicorrelated(np.full(9, 100.0),
+                                               np.full(9, 0.2), 0.3, 100.0,
+                                               0.05), 1 << 20, SEED)
+    except ValueError as err:
+        check("asset-major" in str(err), f"wrong refusal: {err}")
+    else:
+        raise AssertionError("greeks_rainbow took 9 assets")
+    phase("rainbow-path", f"Greeks (K38): a=2 max/min 2^24 vs autograd of "
+          f"Stulz, max |z| {worst:.2f}; a=3 2^22 vs CRN bumps, max |delta "
+          f"- fd| {dev_d:.2e}, max |vega - fd| {dev_v:.2e}; k=0 rho 0, "
+          f"delta_max + delta_min - 1 max |z| {zk:.2f}; the Greeks CLI's "
+          f"3 assets at 2^24: price equals price_rainbow "
+          f"({float(p.price):.6f}); 9 assets raise ValueError")
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -1535,6 +1775,7 @@ def main() -> int:
     from mctpu_torch.kernels import ladder as kladder
     from mctpu_torch.kernels import lookback as klookback
     from mctpu_torch.kernels import multi_walk as kmw
+    from mctpu_torch.kernels import rainbow as krainbow
     from mctpu_torch.kernels import vanilla as kvanilla
     from mctpu_torch.kernels import varswap as kvarswap
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
@@ -1542,8 +1783,8 @@ def main() -> int:
                                    BasketAsianOption, BasketBarrierOption,
                                    BasketOption, CliquetOption,
                                    CvaPortfolioSpec, CvaSpec, HestonOption,
-                                   LookbackOption, Precision, VanillaBook,
-                                   VanillaOption)
+                                   LookbackOption, Precision, RainbowOption,
+                                   VanillaBook, VanillaOption)
 
     check(Path(mctpu_torch.__file__).resolve().is_relative_to(ROOT),
           f"mctpu_torch imported from {mctpu_torch.__file__}, not this "
@@ -1886,10 +2127,11 @@ def main() -> int:
                      gp, SEED, off, plan, n, n_obs),
                  units=units(plan))
 
-    # The multi-asset walks: K30 and K32/K34 at a = 1, 3 and 8, K31 at 16
-    # and 100 assets, both products (up- and down-and-out), 13 dates (the
-    # trailing half pair); antithetic and Kahan on and off, rotated over the
-    # products so that each kernel meets every variant.
+    # The multi-asset walks: K30 and K32/K34 at a = 1, 3 and 8, K31 and K33
+    # at 16 and 100 assets, both products (up- and down-and-out), 13 dates
+    # (the trailing half pair); antithetic and Kahan on and off, rotated over
+    # the products so that each kernel meets every variant (K33's padded
+    # lanes held to exact zeros by the pair bound's zero columns).
     def mw_pairs(out):
         scal, vec = out
         return torch.cat([scal] + [vec[:, :, i] for i in range(vec.shape[2])],
@@ -1919,9 +2161,15 @@ def main() -> int:
                      lambda off, n: kmw.plain_partials(lt, par, scal, SEED,
                                                        off, plan, n, product,
                                                        mw_obs, up))
-            if a > 8:
+            if a > 8 and product != "asian":
                 continue
-            if product == "asian":
+            if a > 8:
+                ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(
+                    bk, chol, mw_obs))
+                fn = kmw.am_greek_partials
+                plain = kmw.packed_greek_plain_partials
+                extra, gid = (), "K33"
+            elif product == "asian":
                 ops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol,
                                                                 mw_obs))
                 fn, plain = kmw.am_greek_partials, kmw.am_greek_plain_partials
@@ -1939,12 +2187,51 @@ def main() -> int:
                                                    mw_obs, *extra)),
                      units=units(plan))
 
+    # The rainbow: K36 and K38 at 1, 3 and 8 assets, K37 at 9, 16 and 100,
+    # max and min, antithetic and Kahan rotated over the sizes; K38's price
+    # sums equal K36's bit for bit.
+    rb_strike_min = {1: 100.0, 3: 90.0, 8: 85.0, 9: 80.0, 16: 75.0,
+                     100: 60.0}
+    for ka, a in enumerate(sorted(rb_strike_min)):
+        j = np.arange(a)
+        kid = "K36" if kbasket.use_asset_major(a) else "K37"
+        for kind, (anti, kahan) in zip(("max", "min"),
+                                       mw_variants[ka % 3:]
+                                       + mw_variants[:ka % 3]):
+            ropt = RainbowOption.equicorrelated(
+                90.0 + 20.0 * ((j * 7) % 11) / 10.0, 0.15 + 0.05 * (j % 5),
+                0.3, 100.0 if kind == "max" else rb_strike_min[a], 0.05,
+                kind=kind)
+            chol = mcmath.cholesky_lower(ropt.corr)
+            ops = krainbow.operands(ropt, chol, dev)
+            probe = krainbow.make_plan(1, nb, rows, anti, kahan, n_assets=a)
+            plan = krainbow.make_plan(nb * iters * probe.paths_per_iter, nb,
+                                      rows, anti, kahan, n_assets=a)
+            tag = (f"a={a} {kind}{' antithetic' if anti else ''}"
+                   f"{'' if kahan else ' f32'}")
+            contract(f"{kid} {tag}",
+                     lambda off, n: krainbow.partials(ops, SEED, off, plan, n),
+                     lambda off, n: krainbow.plain_partials(ops, SEED, off,
+                                                            plan, n))
+            if a > 8:
+                continue
+            gops = krainbow.greek_operands(ropt, chol, dev)
+            contract(f"K38 {tag}",
+                     lambda off, n: krainbow.greek_partials(gops, SEED, off,
+                                                            plan, n),
+                     lambda off, n: krainbow.greek_plain_partials(
+                         gops, SEED, off, plan, n), units=units(plan))
+            check(torch.equal(
+                krainbow.greek_partials(gops, SEED, 0, plan, nb)[:, :2],
+                krainbow.partials(ops, SEED, 0, plan, nb)),
+                f"K38 {tag}: price sums differ from K36's")
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
                 kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES,
-                kheston.LAUNCHES, kmw.LAUNCHES)
+                kheston.LAUNCHES, kmw.LAUNCHES, krainbow.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -2094,11 +2381,19 @@ def main() -> int:
     launches.update(read_counts(MULTI_WALK_KERNELS))
     phase("multi-walk-path", f"done in {time.perf_counter() - t_mw:.1f} s")
 
+    # ---- 4j. the rainbow path at full width ------------------------------
+    reset_counts()
+    t_rb = time.perf_counter()
+    rainbow_path(mctpu_torch)
+    torch.cuda.synchronize()
+    launches.update(read_counts(RAINBOW_KERNELS))
+    phase("rainbow-path", f"done in {time.perf_counter() - t_rb:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
                    + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
-                   + MULTI_WALK_KERNELS)
+                   + MULTI_WALK_KERNELS + RAINBOW_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -2129,15 +2424,15 @@ def main() -> int:
 
     def greek_estimates(outs, plan, disc, fold=None):
         """Every output's mean (price and each Greek) the engine forms
-        from these Greek partials; ``fold = (c, a_tile, a)`` folds K8's
-        slot vectors onto the assets."""
+        from these Greek partials; ``fold = (c, a_tile, a)`` folds K8's and
+        K33's slot vectors onto the assets."""
         vals = []
         for out in outs:
             total = pairwise_tree_sum(out.double(), 0).cpu()
-            if total.ndim == 2:  # K8 slot vectors (6, width)
+            if total.ndim == 2:  # K8's, K33's slot vectors (rows, width)
                 c, a_tile, a = fold
-                total = pairwise_tree_sum(total.reshape(6, c, a_tile), 1)
-                total = total[:, :a]
+                total = pairwise_tree_sum(
+                    total.reshape(total.shape[0], c, a_tile), 1)[:, :a]
             vals.append((disc * total[0::2] / plan.total_units).reshape(-1))
         return torch.cat(vals)
 
@@ -2442,7 +2737,8 @@ def main() -> int:
     # equicorrelated(16) at 50 dates and 2^22 paths (the Asian, and the
     # up-and-out at H=130); the Greeks on equicorrelated(3, 0.3), the
     # Asian's at 16 dates and 2^24 paths, the knock-out's at H=130, 50
-    # dates and 2^23.
+    # dates and 2^23; K33 on equicorrelated(16, 0.3) at 12 dates and 2^22
+    # (its lane rows folded onto the assets for max_abs_err).
     eq16 = BasketOption.equicorrelated(16)
     eq3 = BasketOption.equicorrelated(3, 0.3)
     mw_cells = (
@@ -2456,14 +2752,26 @@ def main() -> int:
          BasketBarrierOption(eq16, 130.0, n_obs=50), n_ex),
         ("basket_asian_greeks_am", "multi_walk.py:1154",
          BasketAsianOption(eq3, n_obs=16), 1 << 24),
+        ("basket_asian_greeks_packed", "multi_walk.py:630",
+         BasketAsianOption(BasketOption.equicorrelated(16, 0.3), n_obs=12),
+         n_ex),
         ("basket_barrier_greeks_am", "multi_walk.py:1347",
          BasketBarrierOption(eq3, 130.0, n_obs=50), 1 << 23))
     for kname, replaces, mopt, n_paths in mw_cells:
         bk, a = mopt.basket, mopt.basket.n_assets
         barrier = isinstance(mopt, BasketBarrierOption)
         product = "barrier" if barrier else "asian"
-        greek = kname.endswith("greeks_am")
-        if greek and barrier:
+        greek = "greeks" in kname
+        fold = None
+        if greek and not kbasket.use_asset_major(a):
+            plan, ops = engine.greeks_basket_asian_setup(mopt, n_paths, cfg)
+            a_tile, c, _ = kbasket.pack_factor(a)
+            fold = (c, a_tile, a)
+            kernel = (lambda o=ops, m=mopt: kmw.am_greek_partials(
+                *o, SEED, 0, plan, nbl, m.n_obs))
+            pl = (lambda o=ops, m=mopt: kmw.packed_greek_plain_partials(
+                *o, SEED, 0, plan, nbl, m.n_obs))
+        elif greek and barrier:
             plan, ops = engine.greeks_basket_barrier_setup(mopt, n_paths, cfg)
             fn = kmw.am_bar_greek_partials
             plain = kmw.am_bar_greek_plain_partials
@@ -2479,13 +2787,13 @@ def main() -> int:
             fn, plain = kmw.partials, kmw.plain_partials
             extra = (product, mopt.n_obs, True)
         nbl = plan.num_blocks
-        if greek:
+        if greek and fold is None:
             extra = (mopt.n_obs,) + extra
             kernel = (lambda f=fn, o=ops, e=extra:
                       mw_pairs(f(*o, SEED, 0, plan, nbl, *e)))
             pl = (lambda f=plain, o=ops, e=extra:
                   mw_pairs(f(*o, SEED, 0, plan, nbl, *e)))
-        else:
+        elif fold is None:
             kernel = lambda f=fn, o=ops, e=extra: f(*o, SEED, 0, plan, nbl, *e)
             pl = lambda f=plain, o=ops, e=extra: f(*o, SEED, 0, plan, nbl, *e)
         timed(kname, "mctpu_torch/csrc/multi_walk.cu",
@@ -2493,7 +2801,54 @@ def main() -> int:
               math.exp(-bk.r * bk.t), kernel, pl,
               mw_work(kname, plan, a, mopt.n_obs),
               in_bytes=4 * sum(x.numel() for x in ops),
-              units=gunits(plan) if greek else None, plain_reps=3)
+              units=gunits(plan) if greek else None, fold=fold, plain_reps=3)
+
+    # The rainbow path's shapes: the JAX exotic CLI's max of 3 (K36) and
+    # tests/test_rainbow.py's max of 16 (K37, 2^22 paths), the JAX Greeks
+    # CLI's max of 3 (K38), 2^24 paths.
+    rb_opt = RainbowOption.equicorrelated
+    rb_cells = (
+        ("rainbow_am", "rainbow.py:267",
+         rb_opt([100.0] * 3, [0.2, 0.3, 0.2], 0.3, 100.0, 0.05), 1 << 24),
+        ("rainbow_packed", "rainbow.py:231",
+         rb_opt([100.0] * 16, [0.25] * 16, 0.3, 110.0, 0.05), n_ex),
+        ("rainbow_greeks", "rainbow.py:493",
+         rb_opt([100.0, 95.0, 90.0], [0.2, 0.25, 0.3], 0.5, 100.0, 0.04879),
+         1 << 24))
+    for kname, replaces, ropt, n_paths in rb_cells:
+        a = ropt.n_assets
+        if kname == "rainbow_greeks":
+            plan, gops = engine.greeks_rainbow_setup(ropt, n_paths, cfg)
+            kernel = (lambda o=gops, p=plan: krainbow.greek_partials(
+                o, SEED, 0, p, p.num_blocks))
+            pl = (lambda o=gops, p=plan: krainbow.greek_plain_partials(
+                o, SEED, 0, p, p.num_blocks))
+            in_bytes = 4 * (4 + a * a + 4 * a)
+        else:
+            plan, rops = engine.rainbow_setup(ropt, n_paths, cfg)
+            kernel = (lambda o=rops, p=plan: krainbow.partials(
+                o, SEED, 0, p, p.num_blocks))
+            pl = (lambda o=rops, p=plan: krainbow.plain_partials(
+                o, SEED, 0, p, p.num_blocks))
+            in_bytes = 4 * (1 + a * a + 3 * a)
+        timed(kname, "mctpu_torch/csrc/rainbow.cu",
+              f"mctpu/kernels/{replaces}", plan, 1,
+              math.exp(-ropt.r * ropt.t), kernel, pl,
+              rb_work(kname, plan, a), in_bytes=in_bytes,
+              units=gunits(plan) if kname == "rainbow_greeks" else None,
+              plain_reps=3)
+
+    # K37 at 100 assets on the plan rainbow_path gives it (c = 1, a
+    # 5050-term product a thread), held against its plain version untimed.
+    ropt = rb_opt(np.full(100, 100.0), np.full(100, 0.25), 0.3, 110.0, 0.05)
+    plan, rops = engine.rainbow_setup(ropt, n_ex, cfg)
+    got = krainbow.partials(rops, SEED, 0, plan, plan.num_blocks)
+    close_rtol(got, krainbow.plain_partials(rops, SEED, 0, plan,
+                                            plan.num_blocks),
+               "rainbow_packed a=100")
+    phase("times", f"rainbow_packed a=100 max, {plan.num_blocks} blocks x "
+                   f"{plan.iters} iters x rows {plan.rows}: kernel matches "
+                   f"plain at rtol {RTOL}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

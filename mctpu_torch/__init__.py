@@ -4,9 +4,10 @@ The main path of the JAX package, its single-asset walks and its serving
 sweeps, on one GPU: vanilla, basket, CVA, Asian, knock-out barrier,
 lookback and cliquet pricing, Heston pricing (Euler and QE), the variance
 swap's fair strike (GBM and Heston), strike ladders, vanilla books,
-barrier books, and basket-Asian and basket-barrier calls, and their
-in-kernel Greeks through hand-written CUDA kernels (``csrc/``, built with
-``nvcc`` for ``sm_90a`` at first use), per-block partial sums, a
+barrier books, basket-Asian and basket-barrier calls, and rainbow calls
+on the maximum or minimum of correlated assets, and their in-kernel
+Greeks through hand-written CUDA kernels (``csrc/``, built with ``nvcc``
+for ``sm_90a`` at first use), per-block partial sums, a
 fixed-order float64 combine and the reference estimator.
 :mod:`mctpu_torch.autodiff` adds the autodiff and bump-and-revalue tier.
 Each kernel has a plain PyTorch version beside it, which runs for CPU
@@ -19,14 +20,15 @@ from mctpu_torch.engine import (EngineConfig, fair_variance_strike, greeks,
                                 greeks_basket_asian, greeks_basket_barrier,
                                 greeks_book, greeks_cliquet, greeks_cva,
                                 greeks_heston, greeks_lookback,
-                                greeks_vanilla, greeks_vanilla_ladder,
+                                greeks_rainbow, greeks_vanilla,
+                                greeks_vanilla_ladder,
                                 greeks_varswap, price_asian, price_barrier,
                                 price_barrier_book, price_basket,
                                 price_basket_asian, price_basket_barrier,
                                 price_book, price_cliquet, price_cva,
                                 price_cva_portfolio, price_heston,
-                                price_lookback, price_vanilla,
-                                price_vanilla_ladder)
+                                price_lookback, price_rainbow,
+                                price_vanilla, price_vanilla_ladder)
 from mctpu_torch.rng import seed_from_generator
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketAsianOption, BasketBarrierOption,
@@ -34,8 +36,8 @@ from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, HestonGreeksResult,
                                HestonOption, LookbackOption, McResult,
-                               Precision, VanillaBook, VanillaOption,
-                               from_reference)
+                               Precision, RainbowOption, VanillaBook,
+                               VanillaOption, from_reference)
 
 __all__ = [
     "EngineConfig",
@@ -53,6 +55,7 @@ __all__ = [
     "price_heston",
     "price_basket_asian",
     "price_basket_barrier",
+    "price_rainbow",
     "fair_variance_strike",
     "greeks",
     "greeks_vanilla",
@@ -69,6 +72,7 @@ __all__ = [
     "greeks_heston",
     "greeks_basket_asian",
     "greeks_basket_barrier",
+    "greeks_rainbow",
     "seed_from_generator",
     "Precision",
     "VanillaOption",
@@ -76,6 +80,7 @@ __all__ = [
     "BasketOption",
     "BasketAsianOption",
     "BasketBarrierOption",
+    "RainbowOption",
     "CvaSpec",
     "CvaPortfolioSpec",
     "AsianOption",

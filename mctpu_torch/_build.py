@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
            "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
-           "barrier_book.cu", "heston.cu", "multi_walk.cu")
+           "barrier_book.cu", "heston.cu", "multi_walk.cu", "rainbow.cu")
 HEADERS = ("philox.cuh", "common.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # separate operations do: their discontinuities (knock-out, in-the-money
 # indicator, arg-extreme, the cliquet's band mask, the Heston walks'
 # truncation max(v, 0) and QE's branch switches, the basket walks' knock-out
-# and in-the-money indicator) fall on the same side
+# and in-the-money indicator, the rainbow's arg-extreme asset) fall on the
+# same side
 # (see the head of csrc/asian.cu), and a deep out-of-the-money strike's
 # st - k and an antithetic pair's cancelling gamma terms are exact as
 # there (see the head of csrc/ladder.cu).
@@ -44,7 +45,7 @@ SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
                              "cliquet.cu", "ladder.cu", "book.cu",
                              "varswap.cu", "barrier_book.cu", "heston.cu",
-                             "multi_walk.cu")}
+                             "multi_walk.cu", "rainbow.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -116,6 +117,15 @@ _SIGNATURES = {
     # K34: scal, lt, linv, par; flag up.
     "mctpu_multi_walk_bar_greeks_am": (_P, _P, _P, _P) + (_I,) * 10
     + (_P, _P),
+    # K33: scal, tj, lt, par; flags a_tile, width; out, vecs, stream.
+    "mctpu_multi_walk_greeks_packed": (_P, _P, _P, _P) + (_I,) * 11
+    + (_P, _P, _P),
+    # The rainbow (K36, K38, K37): lt, par, k (K38: scal, lt, par, inv_s0),
+    # n_assets, [K37: a_tile, width,] use_min, seed, off, n_blocks, rows,
+    # iters, antithetic, kahan, out, stream
+    "mctpu_rainbow_am": (_P, _P, _P) + (_I,) * 9 + (_P, _P),
+    "mctpu_rainbow_packed": (_P, _P, _P) + (_I,) * 11 + (_P, _P),
+    "mctpu_rainbow_greeks": (_P, _P, _P, _P) + (_I,) * 9 + (_P, _P),
 }
 
 _lib = None

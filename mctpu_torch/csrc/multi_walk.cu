@@ -1,9 +1,11 @@
-// K30, K31, K32 and K34: the correlated multi-asset walks, basket-Asian
-// and basket-barrier calls and their asset-major Greeks.
+// K30-K34: the correlated multi-asset walks, basket-Asian and
+// basket-barrier calls, the basket-Asian Greeks at every basket size and
+// the basket-barrier Greeks up to 8 assets.
 //
 // K30 replaces mctpu/kernels/multi_walk.py::_mw_am_kernel (<= 8 assets),
 // K31 ::_mw_kernel (> 8 assets, lane-packed), K32 ::_mw_am_greeks_kernel
-// (basket-Asian pathwise delta/vega vectors and rho) and K34
+// (basket-Asian pathwise delta/vega vectors and rho), K33
+// ::_mw_greeks_kernel (the same Greeks on K31's packed walk) and K34
 // ::_mw_am_bar_greeks_kernel (basket-barrier likelihood-ratio Greeks).
 //
 // Stream: per simulation block b and iteration i the key is reseeded with
@@ -21,11 +23,16 @@
 // <= i} L_ij z_j (from d_i, j = 0..i), packed bt_i = (sum_{j <= i} L_ij z_j)
 // + d_i (the product first).  The monitor is the Asian running sum,
 // payoff max(sum B / n - k, 0), or the knock-out flag alive *= (B < H) up-
-// and-out, (B > H) down-and-out, payoff alive * max(B_T - k, 0).  K32 adds
-// the tangents dxv_i += sqrt(dt) bt_i - v_i dt, AS_i += s_i, AV_i += s_i
-// dxv_i, tb += t_j B with t_j = dt (j + 1); K34 the scores q_m = sum_{j >=
-// m} Linv[j, m] z_j, their first-date value, sum q and sum q (bt / v -
-// sqrt(dt)) (mctpu's _am_greek_step and _am_bar_greek_step).
+// and-out, (B > H) down-and-out, payoff alive * max(B_T - k, 0).  K32 and
+// K33 add the tangents dxv_i += sqrt(dt) bt_i - v_i dt, AS_i += s_i, AV_i +=
+// s_i dxv_i, tb += t_j B with t_j = dt (j + 1); K34 the scores q_m =
+// sum_{j >= m} Linv[j, m] z_j, their first-date value, sum q and sum q (bt
+// / v - sqrt(dt)) (mctpu's _am_greek_step, _greek_step_mw and
+// _am_bar_greek_step).  K33 writes, beside its four scalar sums, the (4,
+// width) lane rows (dval, dval^2, vval, vval^2) of each block: each
+// iteration's column sums by mctpu's halving tree over the rows
+// (det_col_sums), added in plain float32; the engine folds the packed
+// groups onto the assets.
 //
 // This file is built with -fmad=false (mctpu_torch/_build.py): the knock-out
 // compare and the in-the-money indicator are discontinuous, so each path must
@@ -54,8 +61,13 @@
 // a warp on the same entry) and the basket for both dates; the mirror's
 // product is the negated sum of the same terms, exactly.  Measured on an
 // H100, that product's loads (one of L, one of z per multiply-add) and not
-// the arithmetic hold K31 well under its bound.  No atomics: two launches
-// give the same bits.
+// the arithmetic hold K31 well under its bound.  A pass walks every
+// n_chunks-th row (see Packed), so that K33 adds its lane rows pass by pass
+// in the halving tree's own order: the tree's first levels inside a pass,
+// its last over the passes, with only a pass's leaves and one partial row
+// set a pass in shared memory.  K31 takes as few passes as its threads
+// and shared memory allow at any rows; K33 needs a power of two of rows a
+// pass.  No atomics: two launches give the same bits.
 #include <algorithm>
 
 #include "common.cuh"
@@ -65,6 +77,9 @@ namespace {
 constexpr int MAX_AM_ASSETS = 8;
 constexpr int PK_THREADS = 256;
 constexpr size_t SMEM_LIMIT = 160 * 1024;
+// K33's budget: the 227 KB a block may take, less a margin for the static
+// shared memory of its block reduction.
+constexpr size_t GREEK_SMEM_LIMIT = 220 * 1024;
 
 // Threads of the asset-major kernels: one count for K30, K32 and K34 at a
 // given A, so their price sums reduce alike; the wider Greek states get
@@ -432,13 +447,73 @@ void launch_bar_greeks_am(bool anti, bool kahan, const float* scal,
 
 // --------------------------------------------------------- K31 (a > 8)
 
-// The packed walk's shape: a assets in a_tile lanes, c paths a row, a
-// chunk of chunk_rows rows (np_max = chunk_rows * c paths) per pass; each
-// path's normals sit in shared memory at stride ap = a | 1 (odd: the
-// threads of a warp, one path each, hit distinct banks).
+// The packed walk's shape: a assets in a_tile lanes, c paths a row, and a
+// pass over chunk_rows rows (np_max = chunk_rows * c paths, one a thread);
+// each path's normals sit in shared memory at stride ap = a | 1 (odd: the
+// threads of a warp, one path each, hit distinct banks).  Pass c0 of the
+// n_chunks passes walks the rows c0, c0 + n_chunks, c0 + 2 n_chunks, ...
+// below rows.  K31 takes the fewest passes its bound allows, rows split
+// evenly over them (set_chunk_even).  K33 takes a power of two chunk_rows
+// that divides rows (set_chunk_pow2): its passes hold the rows that the
+// first log2(chunk_rows) levels of mctpu's halving tree over the rows
+// (det_col_sums) add together, so K33 can take that tree pass by pass.
+// Where both give one shape (rows a power of two, K31's bound a power of
+// two), a thread sums the same paths in the same order in both.
 struct Packed {
-  int a, a_tile, width, c, chunk_rows, np_max, ap;
+  int a, a_tile, width, c, chunk_rows, np_max, ap, n_chunks;
 };
+
+Packed packed_base(int a, int a_tile, int width) {
+  return Packed{a, a_tile, width, width / a_tile, 0, 0, a | 1, 0};
+}
+
+// K31: ceil(rows / bound) passes of at most ceil(rows / n_chunks) rows
+// each (0 if bound < 1).
+void set_chunk_even(Packed& P, int rows, int bound) {
+  P.n_chunks = bound < 1 ? 0 : (rows + bound - 1) / bound;
+  P.chunk_rows = P.n_chunks > 0 ? (rows + P.n_chunks - 1) / P.n_chunks : 0;
+  P.np_max = P.chunk_rows * P.c;
+}
+
+// K33: the largest power of two up to bound that divides rows (0 if bound
+// < 1), so every pass holds chunk_rows rows.
+void set_chunk_pow2(Packed& P, int rows, int bound) {
+  int nr = bound < 1 ? 0 : 1;
+  while (nr > 0 && nr * 2 <= bound && rows % (nr * 2) == 0) nr *= 2;
+  P.chunk_rows = nr;
+  P.np_max = nr * P.c;
+  P.n_chunks = nr > 0 ? rows / nr : 0;
+}
+
+// The global row of local row rl in pass c0.
+__device__ __forceinline__ int pass_row(const Packed& P, int c0, int rl) {
+  return c0 + rl * P.n_chunks;
+}
+
+// Draws the normals of one pair of dates of pass c0 into z1s and z2s (path
+// q's a normals at q * ap; padded lanes and rows past rows are never
+// drawn).
+template <int THREADS>
+__device__ __forceinline__ void draw_pass(const Packed& P, mct::Key key,
+                                          int rows, int c0, int jj,
+                                          float* z1s, float* z2s) {
+  for (int t = threadIdx.x; t < P.chunk_rows * P.width; t += THREADS) {
+    const int rl = t / P.width;
+    const int lane = t - rl * P.width;
+    const int p = lane / P.a_tile;
+    const int m = lane - p * P.a_tile;
+    const int row = pass_row(P, c0, rl);
+    if (m < P.a && row < rows) {
+      float z1, z2;
+      mct::draw_normal_pair(
+          key, static_cast<uint32_t>(row * P.width + lane),
+          static_cast<uint32_t>(jj), z1, z2);
+      const int slot = (rl * P.c + p) * P.ap + m;
+      z1s[slot] = z1;
+      z2s[slot] = z2;
+    }
+  }
+}
 
 // One date of packed path q for both signs: log-spots xs (and the mirror's
 // xm) at stride np_max in shared memory, z its a normals.  Returns the
@@ -478,10 +553,11 @@ __global__ void __launch_bounds__(PK_THREADS)
                           const float* __restrict__ scal, int up, Packed P,
                           Launch g, float* __restrict__ out) {
   extern __shared__ float smem[];
+  const int np = P.np_max;
   float* z1s = smem;
-  float* z2s = z1s + P.np_max * P.ap;
-  float* xs = z2s + P.np_max * P.ap;
-  float* xm = xs + P.np_max * P.a;  // the mirror's log-spots (ANTI)
+  float* z2s = z1s + np * P.ap;
+  float* xs = z2s + np * P.ap;
+  float* xm = xs + np * P.a;  // the mirror's log-spots (ANTI)
   __shared__ float sh[(PK_THREADS / 32) * 2];
   const float k = scal[0], h = scal[1];
   const int q = threadIdx.x;
@@ -489,35 +565,21 @@ __global__ void __launch_bounds__(PK_THREADS)
   float v[2] = {0.0f, 0.0f};
   for (int i = 0; i < g.iters; ++i) {
     const mct::Key key = iter_key(g, i);
-    for (int r0 = 0; r0 < g.rows; r0 += P.chunk_rows) {
-      const int nr = min(P.chunk_rows, g.rows - r0);
-      const int np = nr * P.c;
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      // A pass's last rows may lie past rows (set_chunk_even).
+      const bool mine = q < np && pass_row(P, c0, q / P.c) < g.rows;
       for (int t = threadIdx.x; t < P.a * np; t += PK_THREADS) {
-        const int asset = t / np;
-        const float x0 = __ldg(par + asset);
-        xs[asset * P.np_max + t - asset * np] = x0;
-        if (ANTI) xm[asset * P.np_max + t - asset * np] = x0;
+        const float x0 = __ldg(par + t / np);
+        xs[t] = x0;
+        if (ANTI) xm[t] = x0;
       }
       float m1 = 0.0f, alive = 1.0f, last = 0.0f;  // acc, or flag and B
       float m1m = 0.0f, alive_m = 1.0f, last_m = 0.0f;
       const int pairs = (g.n_obs + 1) / 2;
       for (int jj = 0; jj < pairs; ++jj) {
-        for (int t = threadIdx.x; t < nr * P.width; t += PK_THREADS) {
-          const int row = t / P.width;
-          const int lane = t - row * P.width;
-          const int p = lane / P.a_tile;
-          const int m = lane - p * P.a_tile;
-          if (m < P.a) {  // padded asset slots are never read
-            float z1, z2;
-            mct::draw_normal_pair(key, static_cast<uint32_t>(r0 * P.width + t),
-                                  static_cast<uint32_t>(jj), z1, z2);
-            const int slot = (row * P.c + p) * P.ap + m;
-            z1s[slot] = z1;
-            z2s[slot] = z2;
-          }
-        }
+        draw_pass<PK_THREADS>(P, key, g.rows, c0, jj, z1s, z2s);
         __syncthreads();
-        if (q < np) {
+        if (mine) {
           const int dates = min(2, g.n_obs - 2 * jj);
           for (int date = 0; date < dates; ++date) {
             const float* z = (date ? z2s : z1s) + q * P.ap;
@@ -538,7 +600,7 @@ __global__ void __launch_bounds__(PK_THREADS)
         }
         __syncthreads();
       }
-      if (q < np) {
+      if (mine) {
         const float n = static_cast<float>(g.n_obs);
         float pay = BARRIER ? alive * fmaxf(last - k, 0.0f)
                             : fmaxf(m1 / n - k, 0.0f);
@@ -559,15 +621,13 @@ __global__ void __launch_bounds__(PK_THREADS)
 // Paths per pass: about one per thread, within SMEM_LIMIT.
 Packed packed_shape(int a, int a_tile, int width, int rows, bool anti,
                     size_t& smem) {
-  Packed P{a, a_tile, width, width / a_tile, 0, 0, a | 1};
+  Packed P = packed_base(a, a_tile, width);
   const size_t floats = 2 * static_cast<size_t>(P.ap) +
                         (anti ? 2 : 1) * static_cast<size_t>(a);
   const size_t path_bytes = floats * sizeof(float);
-  int chunk = std::min(rows, std::max(1, PK_THREADS / P.c));
-  chunk = std::min<int>(chunk,
-                        static_cast<int>(SMEM_LIMIT / (P.c * path_bytes)));
-  P.chunk_rows = chunk;
-  P.np_max = chunk * P.c;
+  const int bound = std::min(std::max(1, PK_THREADS / P.c),
+                             static_cast<int>(SMEM_LIMIT / (P.c * path_bytes)));
+  set_chunk_even(P, rows, bound);
   smem = static_cast<size_t>(P.np_max) * path_bytes;
   return P;
 }
@@ -597,6 +657,254 @@ int launch_walk_packed(bool anti, bool kahan, bool barrier, const float* lt,
   }
   fn<<<n_blocks, PK_THREADS, smem, s>>>(lt, par, scal, up, P, g, out);
   return 0;
+}
+
+// --------------------------------------------------------- K33 (a > 8)
+
+// K33's block keeps in shared memory, per pass: both dates' normals (2 np
+// ap), per asset and path the log-spot x, the tangent dxv, the spot sum AS
+// and the S dxv sum AV (and the mirror's four), then per pass the (dval,
+// dval^2, vval, vval^2) lane rows its rows add up to ([n_chunks][4][width])
+// and the block's running lane rows ([4][width]).  After a pass's walk its
+// (dval, vval) leaves ([2][chunk_rows][width]) take the place of the
+// normals, x and dxv, which span at least as many floats (ap + a >=
+// a_tile).  acc and tb stay in the path's thread.
+size_t greek_smem_floats(const Packed& P, bool anti) {
+  const size_t per_path = 2 * static_cast<size_t>(P.ap) +
+                          (anti ? 8 : 4) * static_cast<size_t>(P.a);
+  return static_cast<size_t>(P.np_max) * per_path +
+         (4 * static_cast<size_t>(P.n_chunks) + 4) * P.width;
+}
+
+// One date of K33's walk for packed path q and both signs (state pointers
+// at q, stride np_max): bt = L z + d, x += drift + vol bt, dxv += sqrt(dt)
+// bt - v dt, s = expf(x), B += s w, AS += s, AV += s dxv (mctpu's
+// _greek_step_mw).  x and B round as packed_date's.  par rows: log s0,
+// drift, vol, d, w, v dt, 1/s0.
+template <bool ANTI>
+__device__ __forceinline__ void packed_greek_date(
+    const Packed& P, const float* __restrict__ lt,
+    const float* __restrict__ par, float sqdt, const float* z,
+    float* const* st, float& b, float& bm) {
+  const int a = P.a, np = P.np_max;
+  float basket = 0.0f, basket_m = 0.0f;
+  for (int i = 0; i < a; ++i) {
+    const float* lrow = lt + i * a;
+    float sum = 0.0f;
+    for (int j = 0; j <= i; ++j) sum = sum + __ldg(lrow + j) * z[j];
+    const float drift = __ldg(par + a + i), vol = __ldg(par + 2 * a + i);
+    const float d = __ldg(par + 3 * a + i), w = __ldg(par + 4 * a + i);
+    const float vdt = __ldg(par + 5 * a + i);
+    const int o = i * np;
+#pragma unroll
+    for (int sgn = 0; sgn < (ANTI ? 2 : 1); ++sgn) {
+      float* const* S = st + 4 * sgn;  // x, dxv, AS, AV of this sign
+      const float bt = (sgn ? -sum : sum) + d;
+      const float x = S[0][o] + drift + vol * bt;
+      S[0][o] = x;
+      const float dxv = S[1][o] + sqdt * bt - vdt;
+      S[1][o] = dxv;
+      const float s = expf(x);
+      if (sgn) {
+        basket_m = basket_m + s * w;
+      } else {
+        basket = basket + s * w;
+      }
+      S[2][o] = S[2][o] + s;
+      S[3][o] = S[3][o] + s * dxv;
+    }
+  }
+  b = basket;
+  bm = basket_m;
+}
+
+// In place over a column of n = 2^m values at stride ld: the (sum, sum of
+// squares) of mctpu's halving tree, the squares formed at the leaves.
+__device__ __forceinline__ void halving_pair(float* col, int n, int ld,
+                                             float& sum, float& sum2) {
+  if (n == 1) {
+    sum = col[0];
+    sum2 = col[0] * col[0];
+    return;
+  }
+  const int half = n / 2;
+  for (int j = 0; j < half; ++j) {
+    const float x = col[j * ld], y = col[(j + half) * ld];
+    col[j * ld] = x + y;
+    col[(j + half) * ld] = x * x + y * y;
+  }
+  for (int h = half / 2; h > 0; h >>= 1) {
+    for (int j = 0; j < h; ++j) {
+      col[j * ld] = col[j * ld] + col[(j + h) * ld];
+      col[(half + j) * ld] = col[(half + j) * ld] + col[(half + j + h) * ld];
+    }
+  }
+  sum = col[0];
+  sum2 = col[half * ld];
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(PK_THREADS)
+    mw_greeks_packed_kernel(const float* __restrict__ scal,
+                            const float* __restrict__ tj,
+                            const float* __restrict__ lt,
+                            const float* __restrict__ par, Packed P, Launch g,
+                            float* __restrict__ out,
+                            float* __restrict__ vecs) {
+  extern __shared__ float smem[];
+  const int np = P.np_max, a = P.a, W = P.width, nr = P.chunk_rows;
+  constexpr int NS = ANTI ? 2 : 1;  // signs
+  float* z1s = smem;
+  float* z2s = z1s + np * P.ap;
+  float* walk = z2s + np * P.ap;     // x, dxv of each sign
+  float* sums = walk + 2 * NS * a * np;  // AS, AV of each sign
+  float* st[4 * NS];  // x, dxv, AS, AV; the mirror's x, dxv, AS, AV
+  for (int sgn = 0; sgn < NS; ++sgn) {
+    st[4 * sgn] = walk + 2 * sgn * a * np;
+    st[4 * sgn + 1] = walk + (2 * sgn + 1) * a * np;
+    st[4 * sgn + 2] = sums + 2 * sgn * a * np;
+    st[4 * sgn + 3] = sums + (2 * sgn + 1) * a * np;
+  }
+  float* part = sums + 2 * NS * a * np;   // [n_chunks][4][W]
+  float* vec = part + 4 * P.n_chunks * W;  // [4][W]
+  float* leaf = smem;  // [2][nr][W], per pass, over the normals and walk
+  __shared__ float sh[(PK_THREADS / 32) * 4];
+  const float k = scal[0], t = scal[1], inv_n = scal[2], sqdt = scal[3];
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) vec[u] = 0.0f;
+  const int q = threadIdx.x;
+  mct::BlockAccN<PK_THREADS, 4, KAHAN> acc;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < g.iters; ++i) {
+    const mct::Key key = iter_key(g, i);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      for (int u = threadIdx.x; u < a * np; u += PK_THREADS) {
+        const float x0 = __ldg(par + u / np);
+#pragma unroll
+        for (int sgn = 0; sgn < NS; ++sgn) {
+          st[4 * sgn][u] = x0;
+          st[4 * sgn + 1][u] = 0.0f;
+          st[4 * sgn + 2][u] = 0.0f;
+          st[4 * sgn + 3][u] = 0.0f;
+        }
+      }
+      float m1 = 0.0f, tb = 0.0f, m1m = 0.0f, tbm = 0.0f;
+      const int pairs = (g.n_obs + 1) / 2;
+      for (int jj = 0; jj < pairs; ++jj) {
+        draw_pass<PK_THREADS>(P, key, g.rows, c0, jj, z1s, z2s);
+        __syncthreads();
+        if (q < np) {
+          float* sq[4 * NS];  // this path's state
+          for (int u = 0; u < 4 * NS; ++u) sq[u] = st[u] + q;
+          const int dates = min(2, g.n_obs - 2 * jj);
+          for (int date = 0; date < dates; ++date) {
+            const float* z = (date ? z2s : z1s) + q * P.ap;
+            const float tjv = __ldg(tj + 2 * jj + date);
+            float b, bm;
+            packed_greek_date<ANTI>(P, lt, par, sqdt, z, sq, b, bm);
+            m1 = m1 + b;
+            tb = tb + tjv * b;
+            if (ANTI) {
+              m1m = m1m + bm;
+              tbm = tbm + tjv * bm;
+            }
+          }
+        }
+        __syncthreads();
+      }
+      // The payoff, rho and the (dval, vval) leaves of each path's lanes
+      // (mctpu's _greek_payoff_mw); padded lanes get exact zeros.
+      if (q < np) {
+        const float abar = m1 * inv_n;
+        float p = fmaxf(abar - k, 0.0f);
+        const float ind = abar > k ? 1.0f : 0.0f;
+        float gr = ind * (tb * inv_n) - t * p;
+        float ind_m = 0.0f;
+        if (ANTI) {
+          const float abar_m = m1m * inv_n;
+          const float pm = fmaxf(abar_m - k, 0.0f);
+          ind_m = abar_m > k ? 1.0f : 0.0f;
+          const float grm = ind_m * (tbm * inv_n) - t * pm;
+          p = 0.5f * (p + pm);
+          gr = 0.5f * (gr + grm);
+        }
+        v[0] += p;
+        v[1] += p * p;
+        v[2] += gr;
+        v[3] += gr * gr;
+        const int rl = q / P.c;
+        const int lane0 = (q - rl * P.c) * P.a_tile;
+        float* ld = leaf + rl * W + lane0;
+        float* lv = leaf + (nr + rl) * W + lane0;
+        for (int m = 0; m < P.a_tile; ++m) {
+          float dval = 0.0f, vval = 0.0f;
+          if (m < a) {
+            const float w = __ldg(par + 4 * a + m);
+            const float inv_s0 = __ldg(par + 6 * a + m);
+            const int o = m * np + q;
+            const float wiv = ind * w * inv_n;
+            dval = wiv * st[2][o] * inv_s0;
+            vval = wiv * st[3][o];
+            if constexpr (ANTI) {
+              const float wiv_m = ind_m * w * inv_n;
+              dval = 0.5f * (dval + wiv_m * st[6][o] * inv_s0);
+              vval = 0.5f * (vval + wiv_m * st[7][o]);
+            }
+          }
+          ld[m] = dval;
+          lv[m] = vval;
+        }
+      }
+      __syncthreads();
+      // The first log2(nr) levels of the halving tree over the rows: one
+      // thread per (quantity, lane) column of this pass's leaves.
+      for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
+        const int qty = u / W;
+        const int lane = u - qty * W;
+        float s1, s2;
+        halving_pair(leaf + qty * nr * W + lane, nr, W, s1, s2);
+        part[(4 * c0 + 2 * qty) * W + lane] = s1;
+        part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
+      }
+      __syncthreads();
+    }
+    // The tree's remaining levels over the passes (odd rows carried, as
+    // det_col_sums), added into the block's lane rows in plain float32.
+    for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) {
+      float* col = part + u;
+      const int ld = 4 * W;
+      int n = P.n_chunks;
+      while (n > 1) {
+        const int half = n / 2;
+        for (int j = 0; j < half; ++j) {
+          col[j * ld] = col[j * ld] + col[(j + half) * ld];
+        }
+        if (n & 1) col[half * ld] = col[(n - 1) * ld];
+        n = half + (n & 1);
+      }
+      vec[u] = vec[u] + col[0];
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) {
+    vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
+  }
+}
+
+// K33's pass: about one path per thread, and the block's floats within
+// GREEK_SMEM_LIMIT (halving the pass as needed).
+Packed greek_shape(int a, int a_tile, int width, int rows, bool anti,
+                   size_t& smem) {
+  Packed P = packed_base(a, a_tile, width);
+  int bound = std::max(1, PK_THREADS / P.c);
+  for (;;) {
+    set_chunk_pow2(P, rows, bound);
+    smem = greek_smem_floats(P, anti) * sizeof(float);
+    if (smem <= GREEK_SMEM_LIMIT || P.chunk_rows <= 1) break;
+    bound = P.chunk_rows / 2;
+  }
+  if (smem > GREEK_SMEM_LIMIT) P.chunk_rows = 0;
+  return P;
 }
 
 Launch make_launch(int n_obs, int seed, int off, int rows, int iters) {
@@ -685,5 +993,37 @@ extern "C" int mctpu_multi_walk_bar_greeks_am(
                           up, g, n_blocks, out, s)
   MCT_DISPATCH_A(MCT_CALL)
 #undef MCT_CALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mctpu_multi_walk_greeks_packed(
+    const float* scal, const float* tj, const float* lt, const float* par,
+    int n_assets, int n_obs, int seed, int off, int n_blocks, int rows,
+    int iters, int antithetic, int kahan, int a_tile, int width, float* out,
+    float* vecs, void* stream) {
+  if (a_tile < n_assets || width % a_tile != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem = 0;
+  const Packed P = greek_shape(n_assets, a_tile, width, rows, antithetic != 0,
+                               smem);
+  if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      Packed, Launch, float*, float*);
+  static const Fn FNS[4] = {
+      mw_greeks_packed_kernel<false, false>,
+      mw_greeks_packed_kernel<false, true>,
+      mw_greeks_packed_kernel<true, false>,
+      mw_greeks_packed_kernel<true, true>};
+  const Fn fn = FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<n_blocks, PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      scal, tj, lt, par, P, make_launch(n_obs, seed, off, rows, iters), out,
+      vecs);
   return static_cast<int>(cudaGetLastError());
 }

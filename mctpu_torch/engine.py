@@ -10,9 +10,9 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 :func:`price_vanilla`, :func:`price_basket`, :func:`price_cva`,
 :func:`price_cva_portfolio`, :func:`price_asian`, :func:`price_barrier`,
 :func:`price_lookback`, :func:`price_cliquet`, :func:`price_heston`,
-:func:`price_basket_asian`, :func:`price_basket_barrier` and
-:func:`fair_variance_strike` take an int32 ``seed`` word (the value
-``mctpu.rng.key_to_seed`` gives a JAX key; see
+:func:`price_basket_asian`, :func:`price_basket_barrier`,
+:func:`price_rainbow` and :func:`fair_variance_strike` take an int32
+``seed`` word (the value ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
 JAX package's kernels in interpret mode, so a run here matches that run
 block by block; so do :func:`price_vanilla_ladder`, :func:`price_book` and
@@ -42,6 +42,7 @@ from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import multi_walk as kmw
+from mctpu_torch.kernels import rainbow as krainbow
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.kernels.common import LANES, walk_plan
@@ -53,7 +54,8 @@ from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                CvaPortfolioSpec, CvaResult, CvaSpec,
                                GreeksResult, HestonGreeksResult,
                                HestonOption, LookbackOption, McResult,
-                               Precision, VanillaBook, VanillaOption)
+                               Precision, RainbowOption, VanillaBook,
+                               VanillaOption)
 
 __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "price_cva_portfolio", "price_asian", "price_barrier",
@@ -75,7 +77,8 @@ __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "price_basket_barrier", "greeks_basket_asian",
            "greeks_basket_barrier", "basket_asian_setup",
            "basket_barrier_setup", "greeks_basket_asian_setup",
-           "greeks_basket_barrier_setup"]
+           "greeks_basket_barrier_setup", "price_rainbow", "greeks_rainbow",
+           "rainbow_setup", "greeks_rainbow_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +178,9 @@ def price_vanilla(opt: VanillaOption, n_paths: int, seed: int,
     return _price(partials, plan, opt.r, opt.t)
 
 
-def _basket_plan(opt: BasketOption, n_paths: int, config: EngineConfig):
+def _basket_plan(opt, n_paths: int, config: EngineConfig):
+    """The terminal basket kernels' plan (K2, K3, K7, K8 and the rainbow's
+    K36-K38): ``2 * c * anti`` units a row, ``c`` = 128 asset-major."""
     anti = 2 if config.antithetic else 1
     a = opt.n_assets
     c = LANES if kbasket.use_asset_major(a) else kbasket.pack_factor(a)[1]
@@ -944,29 +949,38 @@ def _check_am_greeks(bk: BasketOption, what: str) -> None:
         raise NotImplementedError(
             f"{what} runs the asset-major Greek kernel, up to "
             f"{kbasket.ASSET_MAJOR_MAX} assets; the packed kernel for "
-            f"{bk.n_assets} assets is not ported yet (ROADMAP A11b)")
+            f"{bk.n_assets} assets (K35) is not ported yet (ROADMAP A11b)")
 
 
 def _basket_vector_greeks(partials, vecs, plan, bk) -> GreeksResult:
     """Price, scalar rho and per-asset delta and vega vectors of ``((B,
-    4), (B, 4, a))`` partials: float64 pairwise trees over the blocks (the
-    vector fold of ``mctpu``'s ``_vec_greeks_runner``; its lanes past ``a``
-    are zero and the port writes none)."""
+    4), (B, 4, a))`` asset-major or ``((B, 4), (B, 4, width))`` packed
+    partials, by ``mctpu``'s ``_vec_greeks_runner`` fold: float64 pairwise
+    trees over the blocks, then over the ``c`` packed groups of the lane
+    rows (``(4, c, a_tile)``), keeping the first ``a`` lanes (the port's
+    asset-major kernels write only those)."""
     disc = _discount(bk.r, bk.t)
     n = plan.total_units
     price, rho = _estimates(_total(partials), n, plan, disc)
-    delta, vega = _estimates(_total(vecs), n, plan, disc)
+    vtot = _total(vecs)
+    if not kbasket.use_asset_major(bk.n_assets):
+        a_tile, c, _ = kbasket.pack_factor(bk.n_assets)
+        vtot = pairwise_tree_sum(vtot.reshape(4, c, a_tile), 1)
+        vtot = vtot[:, :bk.n_assets]
+    delta, vega = _estimates(vtot, n, plan, disc)
     return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
 
 
 def greeks_basket_asian_setup(opt: BasketAsianOption, n_paths: int,
                               config: EngineConfig):
     """``(plan, (scal, lt, par))``: the launch :func:`greeks_basket_asian`
-    makes (the pricer's plan)."""
-    _check_am_greeks(opt.basket, "greeks_basket_asian")
+    makes (the pricer's plan; K32's tables up to 8 assets, K33's
+    beyond)."""
     dev = config.torch_device()
     bk = opt.basket
-    ops = kmw.am_greek_ops(bk, mcmath.cholesky_lower(bk.corr), opt.n_obs)
+    build = (kmw.am_greek_ops if kbasket.use_asset_major(bk.n_assets)
+             else kmw.packed_greek_ops)
+    ops = build(bk, mcmath.cholesky_lower(bk.corr), opt.n_obs)
     return (_multi_walk_plan(bk, n_paths, config),
             tuple(x.contiguous().to(dev) for x in ops))
 
@@ -975,10 +989,9 @@ def greeks_basket_asian(opt: BasketAsianOption, n_paths: int, seed: int,
                         config: EngineConfig = EngineConfig()
                         ) -> GreeksResult:
     """Price, scalar pathwise rho and per-asset pathwise delta and vega
-    vectors of the basket-Asian call in one sweep (K32), over
-    :func:`price_basket_asian`'s paths.  Theta and gamma are ``None``, as
-    in ``mctpu``.  Up to 8 assets; wider baskets raise
-    ``NotImplementedError``."""
+    vectors of the basket-Asian call in one sweep (K32 up to 8 assets, K33
+    beyond), over :func:`price_basket_asian`'s paths.  Theta and gamma are
+    ``None``, as in ``mctpu``."""
     opt.validate()
     plan, ops = greeks_basket_asian_setup(opt, n_paths, config)
     partials, vecs = kmw.am_greek_partials(*ops, wrap_int32(seed), 0, plan,
@@ -1027,6 +1040,71 @@ def greeks_basket_barrier(opt: BasketBarrierOption, n_paths: int, seed: int,
     return _basket_vector_greeks(partials, vecs, plan, opt.basket)
 
 
+# ---------------------------------------------------------------------------
+# Rainbow: the call on the maximum or minimum of correlated assets
+# ---------------------------------------------------------------------------
+
+def rainbow_setup(opt: RainbowOption, n_paths: int, config: EngineConfig):
+    """``(plan, operands)``: the launch :func:`price_rainbow` makes (the
+    basket's plan, ``2 * c * anti`` units a row).  The correlation is
+    factorized in float64 on the host, then cast to float32."""
+    dev = config.torch_device()
+    chol = mcmath.cholesky_lower(opt.corr)
+    return (_basket_plan(opt, n_paths, config),
+            krainbow.operands(opt, chol, dev))
+
+
+def price_rainbow(opt: RainbowOption, n_paths: int, seed: int,
+                  config: EngineConfig = EngineConfig()) -> McResult:
+    """Monte Carlo price of a European call on the maximum or minimum of
+    correlated assets (K36 up to 8 assets, K37 beyond).  Two-asset prices
+    have the Stulz closed form (:func:`mctpu_torch.math.rainbow_max_call`,
+    ``rainbow_min_call``)."""
+    opt.validate()
+    plan, ops = rainbow_setup(opt, n_paths, config)
+    partials = krainbow.partials(ops, wrap_int32(seed), 0, plan,
+                                 plan.num_blocks)
+    return _price(partials, plan, opt.r, opt.t)
+
+
+def greeks_rainbow_setup(opt: RainbowOption, n_paths: int,
+                         config: EngineConfig):
+    """``(plan, operands)``: the launch :func:`greeks_rainbow` makes (the
+    pricer's plan).  More than 8 assets raise ``ValueError``, as in
+    ``mctpu``."""
+    a = opt.n_assets
+    if not kbasket.use_asset_major(a):
+        raise ValueError(
+            f"greeks_rainbow runs the asset-major regime (n_assets <= "
+            f"{kbasket.ASSET_MAJOR_MAX}, got {a}); use CRN bumps "
+            "(mctpu_torch.autodiff.bump_and_revalue) for larger rainbows")
+    dev = config.torch_device()
+    chol = mcmath.cholesky_lower(opt.corr)
+    return (_basket_plan(opt, n_paths, config),
+            krainbow.greek_operands(opt, chol, dev))
+
+
+def greeks_rainbow(opt: RainbowOption, n_paths: int, seed: int,
+                   config: EngineConfig = EngineConfig()) -> GreeksResult:
+    """Price, per-asset pathwise delta and vega vectors, and scalar rho and
+    theta of the rainbow call in one sweep (K38), over
+    :func:`price_rainbow`'s paths: the price equals the pricer's.  Gamma is
+    ``None`` (no sign-definite Stein tilt crosses the arg-extreme
+    boundary), as in ``mctpu``.  Up to 8 assets."""
+    opt.validate()
+    plan, ops = greeks_rainbow_setup(opt, n_paths, config)
+    partials = krainbow.greek_partials(ops, wrap_int32(seed), 0, plan,
+                                       plan.num_blocks)
+    total = _total(partials)
+    n = plan.total_units
+    disc = _discount(opt.r, opt.t)
+    price, rho, theta = _estimates(total[:6], n, plan, disc)
+    vtot = total[6:].reshape(opt.n_assets, 4).T
+    delta, vega = _estimates(vtot, n, plan, disc)
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho,
+                        theta=theta)
+
+
 def greeks(opt, n_paths: int, seed: int,
            config: EngineConfig = EngineConfig()):
     """In-kernel Greeks, dispatched on the product record."""
@@ -1050,4 +1128,6 @@ def greeks(opt, n_paths: int, seed: int,
         return greeks_basket_asian(opt, n_paths, seed, config)
     if isinstance(opt, BasketBarrierOption):
         return greeks_basket_barrier(opt, n_paths, seed, config)
+    if isinstance(opt, RainbowOption):
+        return greeks_rainbow(opt, n_paths, seed, config)
     raise TypeError(f"no in-kernel Greeks for {type(opt).__name__}")

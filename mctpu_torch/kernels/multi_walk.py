@@ -1,6 +1,6 @@
-"""K30, K31, K32 and K34: the correlated multi-asset walks — basket-Asian
-and basket-barrier pricing and their asset-major Greeks
-(``csrc/multi_walk.cu``).
+"""K30-K34: the correlated multi-asset walks — basket-Asian and
+basket-barrier pricing, the basket-Asian Greeks at every basket size and
+the basket-barrier Greeks up to 8 assets (``csrc/multi_walk.cu``).
 
 Counterpart of :mod:`mctpu.kernels.multi_walk`.  Each unit walks a
 correlated GBM basket over ``n_obs`` dates; at every date the correlated
@@ -15,15 +15,15 @@ two stream maps are ``mctpu``'s:
   of a date come from :func:`walk_pairwise_multi` (pair ``jj`` draws counter
   ``jj * a + i`` for asset ``i``).  ``bt_i = d_i + sum_{j <= i} L_ij z_j``
   starts from ``d_i``;
-* wider baskets, lane-packed (K31): a ``(rows, width)`` tile whose row packs
-  ``c`` paths of ``a_tile`` lanes each (:func:`pack_factor`), one pair per
-  lane per two dates (:func:`walk_pairwise`).  ``bt = (z @ L^T) + d``: the
-  product first, then ``+ d``.
+* wider baskets, lane-packed (K31, K33): a ``(rows, width)`` tile whose row
+  packs ``c`` paths of ``a_tile`` lanes each (:func:`pack_factor`), one pair
+  per lane per two dates (:func:`walk_pairwise`).  ``bt = (z @ L^T) + d``:
+  the product first, then ``+ d``.
 
 ``mctpu``'s docstring of ``make_plan`` says the Greek kernels run the packed
 layout only; its engine sends baskets of up to 8 assets to the asset-major
-Greek kernels (K32, K34), and so does the port's.  The packed Greek kernels
-(K33, K35) are not ported yet.
+Greek kernels (K32, K34) and wider ones to the packed (K33, K35), and so
+does the port's.  The packed barrier Greeks (K35) are not ported yet.
 
 The operand tables are formed on the CPU in float32 in ``mctpu``'s
 expression order and moved to the device.  Every discontinuity (the
@@ -42,23 +42,27 @@ import torch
 
 from mctpu_torch import _build
 from mctpu_torch.kernels.basket import pack_factor, use_asset_major
-from mctpu_torch.kernels.common import (LANES, Plan, check_operand, f32,
-                                        sqrt32, walk_pairwise,
+from mctpu_torch.kernels.common import (LANES, Plan, acc_add_n, acc_final_n,
+                                        acc_init_n, check_operand,
+                                        det_col_sums, f32, iter_keys, sqrt32,
+                                        tile_index, walk_pairwise,
                                         walk_pairwise_multi, walk_partials)
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import BasketOption
 
 __all__ = ["make_plan", "walk_ops", "scalars", "am_greek_ops",
-           "am_bar_greek_ops", "plain_partials", "partials",
-           "am_greek_plain_partials", "am_greek_partials",
+           "packed_greek_ops", "am_bar_greek_ops", "plain_partials",
+           "partials", "am_greek_plain_partials",
+           "packed_greek_plain_partials", "am_greek_partials",
            "am_bar_greek_plain_partials", "am_bar_greek_partials",
            "N_GREEK_SCALARS", "LAUNCHES"]
 
 # Launches of the CUDA kernels in this process, by kernel name: K30 and K31
-# for each product, K32, K34.
+# for each product, K32, K33, K34.
 LAUNCHES = {"basket_asian_am": 0, "basket_barrier_am": 0,
             "basket_asian_packed": 0, "basket_barrier_packed": 0,
-            "basket_asian_greeks_am": 0, "basket_barrier_greeks_am": 0}
+            "basket_asian_greeks_am": 0, "basket_asian_greeks_packed": 0,
+            "basket_barrier_greeks_am": 0}
 
 N_GREEK_SCALARS = 4  # (sum, sum^2) of: payoff, rho
 PRODUCTS = ("asian", "barrier")
@@ -68,7 +72,7 @@ def make_plan(n_paths: int, num_blocks: int, rows: int, antithetic: bool,
               kahan: bool = True, n_assets: int = 3) -> Plan:
     """The plan of a multi-asset walk: ``rows * 128`` units per (block,
     iteration) asset-major, ``rows * c`` packed (``mctpu``'s ``make_plan``;
-    the Greek kernels run the asset-major regime, as the pricers)."""
+    each Greek kernel runs its pricer's regime)."""
     if use_asset_major(n_assets):
         units = rows * LANES
     else:
@@ -121,6 +125,25 @@ def am_greek_ops(opt: BasketOption, chol, n_obs: int):
     extra = torch.stack([v * dt, w / n, 1.0 / s])
     scal = torch.stack([k, t, inv_n, sqrt32(dt), dt])
     return scal, lt, torch.cat([par, extra])
+
+
+def packed_greek_ops(opt: BasketOption, chol, n_obs: int):
+    """K33's ``(scal, lt, par)``: ``scal (4 + n_obs,)`` = k, t, ``1 / n``,
+    ``sqrt(dt)`` and the dates ``t_j = dt j``, ``j = 1..n``; ``par (7, a)``
+    = :func:`walk_ops`' rows plus ``v dt`` and ``1 / s0``, the real lanes
+    of ``mctpu``'s ``greek_step_ops`` rows in its order (``v dt`` from the
+    step vol: ``(vol / sqrt(dt)) dt``; its ``w_row`` is ``w``)."""
+    lt, par = walk_ops(opt, chol, n_obs)
+    a = opt.n_assets
+    k, t, inv_n = f32(opt.k, opt.t, 1.0 / n_obs)
+    (n,) = f32(n_obs)
+    dt = t / n
+    sqdt = sqrt32(dt)
+    vdt = (par[2] / sqdt) * dt
+    inv_s0 = 1.0 / torch.broadcast_to(_f32(opt.s), (a,))
+    tj = dt * torch.arange(1, n_obs + 1, dtype=torch.float32)
+    scal = torch.cat([torch.stack([k, t, inv_n, sqdt]), tj])
+    return scal, lt, torch.cat([par, torch.stack([vdt, inv_s0])])
 
 
 def am_bar_greek_ops(opt: BasketOption, chol, n_obs: int, barrier):
@@ -391,28 +414,159 @@ def _check_am(a: int) -> None:
                          f"got {a}")
 
 
+# ---------------------------------------------------------------------------
+# K33: basket-Asian pathwise Greeks, lane-packed
+# ---------------------------------------------------------------------------
+# K32's estimators on K31's walk (mctpu's _greek_step_mw and
+# _greek_payoff_mw): per lane the carries dxv += sqrt(dt) bt - v dt, AS +=
+# S, AV += S dxv, per path acc += B and tb += t_j B; at the end dval = (I w
+# / n) AS / s0 and vval = (I w / n) AV on each lane.  Per block the four
+# scalar sums (Kahan-carried) and the (4, width) lane rows (dval, dval^2,
+# vval, vval^2), each iteration's column sums taken by mctpu's halving tree
+# over the rows and added in plain float32; the engine folds the c packed
+# groups onto the assets.
+
+def _packed_greek_walk(scal, lt, par, n_obs, key, idx, shape, sgn):
+    """One packed Greek walk -> ``(p, gr)`` per path ``(B, rows, c)`` and
+    ``(dval, vval)`` per real lane ``(B, rows, c, a)``."""
+    a = lt.shape[0]
+    a_tile, c, width = pack_factor(a)
+    k, t, inv_n, sqdt = scal[:N_GREEK_SCALARS].unbind()
+    tj = scal[N_GREEK_SCALARS:]
+    log_s0, drift, vol, d, w, vdt, inv_s0 = par.unbind()
+    n_blocks, rows = shape[0], shape[1] // width
+
+    def step(j, z, carry):
+        x, dxv, acc, tb, a_s, a_v = carry
+        zp = (sgn * z).view(n_blocks, rows, c, a_tile)[..., :a]
+        prod = torch.zeros_like(x)
+        for jj in range(a):
+            prod = prod + lt[:, jj] * zp[..., jj:jj + 1]
+        bt = prod + d
+        x = x + drift + vol * bt
+        dxv = dxv + sqdt * bt - vdt
+        s = torch.exp(x)
+        basket = torch.zeros_like(s[..., 0])
+        for i in range(a):
+            basket = basket + s[..., i] * w[i]
+        return (x, dxv, acc + basket, tb + tj[j] * basket, a_s + s,
+                a_v + s * dxv)
+
+    lanes = torch.zeros((n_blocks, rows, c, a), dtype=torch.float32,
+                        device=lt.device)
+    paths = lanes[..., 0]
+    init = (log_s0.expand(n_blocks, rows, c, a), lanes, paths, paths, lanes,
+            lanes)
+    _, _, acc, tb, a_s, a_v = walk_pairwise(key, idx, n_obs, step, init)
+    abar = acc * inv_n
+    p = torch.clamp(abar - k, min=0.0)
+    ind = (abar > k).to(torch.float32)
+    gr = ind * (tb * inv_n) - t * p
+    wiv = ind.unsqueeze(-1) * w * inv_n
+    return p, gr, wiv * a_s * inv_s0, wiv * a_v
+
+
+def packed_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
+                                par: torch.Tensor, seed: int,
+                                block_offset: int, plan: Plan, n_blocks: int,
+                                n_obs: int):
+    """K33's per-block ``((B, 4), (B, 4, width))`` partials in plain PyTorch
+    on the operands' device, over K31's stream: the scalar pairs
+    Kahan-carried (their tiles summed as K31's plain version sums its
+    payoffs), the lane rows by :func:`det_col_sums` over the rows, padded
+    lanes exactly 0."""
+    dev = lt.device
+    a = lt.shape[0]
+    a_tile, c, width = pack_factor(a)
+    shape = (n_blocks, plan.rows * width)
+    idx = tile_index(shape[1], dev)
+    carry = acc_init_n(N_GREEK_SCALARS, n_blocks, dev)
+    vecs = torch.zeros((n_blocks, 4, width), dtype=torch.float32, device=dev)
+    for i in range(plan.iters):
+        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, dev)
+        tiles = _packed_greek_walk(scal, lt, par, n_obs, key, idx, shape, 1.0)
+        if plan.antithetic:
+            mirror = _packed_greek_walk(scal, lt, par, n_obs, key, idx, shape,
+                                        -1.0)
+            tiles = [0.5 * (x + y) for x, y in zip(tiles, mirror)]
+        p, gr, dval, vval = tiles
+        sums = []
+        for x in (p.reshape(n_blocks, -1), gr.reshape(n_blocks, -1)):
+            sums += [x.sum(1), (x * x).sum(1)]
+        carry = acc_add_n(carry, sums, plan.kahan)
+        rows = [torch.nn.functional.pad(x, (0, a_tile - a)).reshape(
+            n_blocks, plan.rows, width) for x in (dval, vval)]
+        vecs = vecs + torch.stack(
+            [det_col_sums(rows[0], 1), det_col_sums(rows[0] * rows[0], 1),
+             det_col_sums(rows[1], 1), det_col_sums(rows[1] * rows[1], 1)],
+            1)
+    return acc_final_n(carry), vecs
+
+
+def _check_greek_ops(scal, lt, par, n_obs: int) -> None:
+    """K32's operands (``scal (5,)``, ``par (8, a)``) up to 8 assets, K33's
+    (``scal (4 + n_obs,)``, ``par (7, a)``) beyond; raises otherwise."""
+    a = lt.shape[0]
+    if use_asset_major(a):
+        shapes = (("scal", scal, (5,)), ("lt", lt, (a, a)),
+                  ("par", par, (8, a)))
+    else:
+        shapes = (("scal", scal, (N_GREEK_SCALARS + n_obs,)),
+                  ("lt", lt, (a, a)), ("par", par, (7, a)))
+    try:
+        for name, x, shape in shapes:
+            check_operand(name, x, shape, lt.device)
+    except ValueError as err:
+        raise ValueError(
+            f"{err}: the asset-major Greek kernel K32 takes 1..8 assets and "
+            f"am_greek_ops' tables, the packed K33 more and "
+            f"packed_greek_ops' ({a} assets given)") from None
+
+
 def am_greek_partials(scal: torch.Tensor, lt: torch.Tensor,
                       par: torch.Tensor, seed: int, block_offset: int,
                       plan: Plan, n_blocks: int, n_obs: int):
-    """K32's ``((B, 4), (B, 4, a))`` partials: the kernel for CUDA operands,
+    """The basket-Asian Greek partials ``((B, 4), (B, 4, a))`` of K32 (up
+    to 8 assets, :func:`am_greek_ops`) or ``((B, 4), (B, 4, width))`` of
+    K33 (beyond, :func:`packed_greek_ops`): the kernel for CUDA operands,
     the plain version for CPU operands; other devices raise."""
     a = lt.shape[0]
-    _check_am(a)
+    if n_obs < 1:
+        raise ValueError("n_obs must be >= 1")
+    _check_greek_ops(scal, lt, par, n_obs)
     dev = lt.device
+    am = use_asset_major(a)
     if dev.type == "cpu":
-        return am_greek_plain_partials(scal, lt, par, seed, block_offset,
-                                       plan, n_blocks, n_obs)
+        plain = am_greek_plain_partials if am else packed_greek_plain_partials
+        return plain(scal, lt, par, seed, block_offset, plan, n_blocks, n_obs)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    for name, x, shape in (("scal", scal, (5,)), ("lt", lt, (a, a)),
-                           ("par", par, (8, a))):
-        check_operand(name, x, shape, dev)
-    out = _launch("mctpu_multi_walk_greeks_am",
-                  (scal.data_ptr(), lt.data_ptr(), par.data_ptr()), a,
-                  N_GREEK_SCALARS + 4 * a, seed, block_offset, plan,
-                  n_blocks, n_obs, (), dev)
-    LAUNCHES["basket_asian_greeks_am"] += 1
-    return _split_vec(out, a)
+    if am:
+        out = _launch("mctpu_multi_walk_greeks_am",
+                      (scal.data_ptr(), lt.data_ptr(), par.data_ptr()), a,
+                      N_GREEK_SCALARS + 4 * a, seed, block_offset, plan,
+                      n_blocks, n_obs, (), dev)
+        LAUNCHES["basket_asian_greeks_am"] += 1
+        return _split_vec(out, a)
+    if n_blocks < 1:
+        raise ValueError("n_blocks must be >= 1")
+    a_tile, _, width = pack_factor(a)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        out = torch.empty((n_blocks, N_GREEK_SCALARS), dtype=torch.float32,
+                          device=dev)
+        vecs = torch.empty((n_blocks, 4, width), dtype=torch.float32,
+                           device=dev)
+        status = lib.mctpu_multi_walk_greeks_packed(
+            scal.data_ptr(), scal[N_GREEK_SCALARS:].data_ptr(), lt.data_ptr(),
+            par.data_ptr(), a, n_obs, wrap_int32(seed),
+            wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
+            int(plan.antithetic), int(plan.kahan), a_tile, width,
+            out.data_ptr(), vecs.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(status, "mctpu_multi_walk_greeks_packed")
+    LAUNCHES["basket_asian_greeks_packed"] += 1
+    return out, vecs
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ __all__ = [
     "BasketOption",
     "BasketAsianOption",
     "BasketBarrierOption",
+    "RainbowOption",
     "CvaSpec",
     "CvaPortfolioSpec",
     "AsianOption",
@@ -40,6 +41,13 @@ __all__ = [
     "CvaGreeksResult",
     "from_reference",
 ]
+
+
+def _equicorr(a: int, rho: float) -> np.ndarray:
+    """The ``(a, a)`` correlation matrix with ``rho`` off the diagonal."""
+    corr = np.full((a, a), rho)
+    np.fill_diagonal(corr, 1.0)
+    return corr
 
 
 class Precision(str, enum.Enum):
@@ -208,13 +216,11 @@ class BasketOption:
     def equicorrelated(n_assets: int, rho: float = 0.3) -> "BasketOption":
         """Equicorrelation ``rho``, vols alternating 0.3/0.2, equal weights."""
         a = n_assets
-        corr = np.full((a, a), rho)
-        np.fill_diagonal(corr, 1.0)
         return BasketOption(
             s=np.full((a,), 100.0),
             v=np.where(np.arange(a) % 2 == 0, 0.3, 0.2),
             w=np.full((a,), 1.0 / a),
-            corr=corr,
+            corr=_equicorr(a, rho),
             d=np.zeros((a,)),
             k=100.0,
             r=0.048790164,
@@ -291,6 +297,54 @@ class BasketBarrierOption:
             raise ValueError("up-and-out basket already knocked out")
         if self.kind == "down-and-out" and b0 <= float(self.barrier):
             raise ValueError("down-and-out basket already knocked out")
+
+
+@dataclasses.dataclass(frozen=True)
+class RainbowOption:
+    """European call on the maximum (``kind="max"``) or minimum
+    (``"min"``) of correlated GBM underlyings: spots ``s`` and vols ``v``
+    of shape ``(n_assets,)``, correlation ``corr`` ``(n_assets,
+    n_assets)``, strike ``k``, rate ``r``, maturity ``t``.  Two-asset
+    prices have the Stulz (1982) closed form
+    (:func:`mctpu_torch.math.rainbow_max_call`, ``rainbow_min_call``); at
+    ``k = 0`` the max and min calls sum to ``s1 + s2``."""
+
+    s: Any
+    v: Any
+    corr: Any
+    k: float
+    r: float
+    t: float
+    kind: str = "max"
+
+    @property
+    def n_assets(self) -> int:
+        return int(np.shape(self.s)[0])
+
+    @staticmethod
+    def equicorrelated(s, v, rho: float, k: float, r: float, t: float = 1.0,
+                       kind: str = "max") -> "RainbowOption":
+        """Spots ``s`` and vols ``v`` (one per asset) at equicorrelation
+        ``rho``."""
+        s = np.asarray(s, np.float64)
+        return RainbowOption(s=s, v=np.asarray(v, np.float64),
+                             corr=_equicorr(s.shape[0], rho), k=k, r=r, t=t,
+                             kind=kind)
+
+    def validate(self) -> None:
+        if self.kind not in ("max", "min"):
+            raise ValueError("kind must be 'max' or 'min'")
+        m = self.n_assets
+        if np.shape(self.v) != (m,):
+            raise ValueError(f"v must have shape ({m},)")
+        if np.shape(self.corr) != (m, m):
+            raise ValueError(f"corr must have shape ({m},{m})")
+        if (np.asarray(self.s) <= 0).any():
+            raise ValueError("spots must be positive")
+        if float(self.k) < 0:
+            raise ValueError("strike must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -774,7 +828,7 @@ class CvaGreeksResult:
 
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, VanillaBook, BasketOption, BasketAsianOption,
-             BasketBarrierOption, CvaSpec,
+             BasketBarrierOption, RainbowOption, CvaSpec,
              CvaPortfolioSpec, AsianOption, BarrierOption, BarrierBook,
              LookbackOption, CliquetOption, HestonOption, McResult,
              GreeksResult, HestonGreeksResult)}

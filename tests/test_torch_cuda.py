@@ -36,13 +36,14 @@ from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import multi_walk as kmw
+from mctpu_torch.kernels import rainbow as krainbow
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketOption, CliquetOption, CvaPortfolioSpec,
                                CvaSpec, HestonOption, LookbackOption,
-                               VanillaBook, VanillaOption)
+                               RainbowOption, VanillaBook, VanillaOption)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -762,3 +763,173 @@ def test_multi_walk_bad_operands_raise(dev):
     gops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol, 3))
     with pytest.raises(ValueError):  # K30's rows handed to K32
         kmw.am_greek_partials(gops[0], lt, par, 1, 0, plan, 2, 3)
+
+
+# K33: the packed basket-Asian Greeks (a > 8), and its price against K31's.
+_MW_PACKED = {
+    # name: (assets, n_obs, antithetic, kahan)
+    "a9_n13": (9, 13, False, True),
+    "a16_n12_antithetic": (16, 12, True, True),
+    "a16_n7_f32": (16, 7, False, False),
+    "a100_n5_antithetic_f32": (100, 5, True, False),
+    "a129_n4": (129, 4, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MW_PACKED))
+def test_multi_walk_packed_greek_kernel_matches_plain(dev, case):
+    """K33 against its plain version, by the scaled pair bound; its padded
+    lanes exactly 0."""
+    a, n_obs, antithetic, kahan = _MW_PACKED[case]
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan)
+    ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(bk, chol, n_obs))
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kmw.am_greek_partials(
+            *ops, SEED, off, plan, nb, n_obs)),
+        lambda off, nb: _mw_greek_pairs(kmw.packed_greek_plain_partials(
+            *ops, SEED, off, plan, nb, n_obs)),
+        units=plan.iters * plan.units_per_iter)
+    _, vec = kmw.am_greek_partials(*ops, SEED, 0, plan, NB, n_obs)
+    a_tile = kmw.pack_factor(a)[0]
+    pad = vec.view(NB, 4, -1, a_tile)[..., a:]
+    assert bool((pad == 0).all())
+
+
+@pytest.mark.parametrize("a", [9, 16])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_multi_walk_packed_greek_price_equals_pricer(dev, a, antithetic):
+    """K33's price sums equal K31's bit for bit at n_obs = 16 (acc * (1/n)
+    is acc / n): one walk order, one pass shape, one block reduction."""
+    n_obs = 16
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, True)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, n_obs))
+    price = kmw.partials(lt, par, kmw.scalars(bk).to(dev), SEED, 0, plan, NB,
+                         "asian", n_obs)
+    ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(bk, chol, n_obs))
+    scal, _ = kmw.am_greek_partials(*ops, SEED, 0, plan, NB, n_obs)
+    assert torch.equal(scal[:, :2], price)
+
+
+def test_multi_walk_packed_greek_launch_counter(dev):
+    bk, chol, plan = _mw_setup(dev, 16, 3, False, True, rows=8)
+    ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(bk, chol, 3))
+    before = dict(kmw.LAUNCHES)
+    kmw.am_greek_partials(*ops, 1, 0, plan, 2, 3)
+    kmw.packed_greek_plain_partials(*ops, 1, 0, plan, 2, 3)
+    assert kmw.LAUNCHES["basket_asian_greeks_packed"] == \
+        before["basket_asian_greeks_packed"] + 1
+    assert sum(kmw.LAUNCHES.values()) == sum(before.values()) + 1
+    with pytest.raises(ValueError):  # K31's rows handed to K33
+        kmw.am_greek_partials(ops[0], ops[1], ops[2][:5].contiguous(), 1, 0,
+                              plan, 2, 3)
+
+
+@pytest.mark.parametrize("rows", [24, 35])
+@pytest.mark.parametrize("case", ["a16_n7_f32", "a100_n5_antithetic_f32"])
+def test_multi_walk_packed_uneven_rows_match_plain(dev, case, rows):
+    """K31 (both products) and K33 against their plain versions at rows
+    that are not a power of two: K31 splits them evenly over its passes
+    (at 35 rows of 16 assets its last pass holds a row fewer), K33 takes
+    a power of two of rows a pass."""
+    a, n_obs, antithetic, kahan = _MW_PACKED[case]
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan, rows=rows)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, n_obs))
+    for kind, up, h in _MW_PRODUCTS.values():
+        scal = kmw.scalars(bk, h).to(dev)
+        _contract(
+            lambda off, nb: kmw.partials(lt, par, scal, SEED, off, plan, nb,
+                                         kind, n_obs, up),
+            lambda off, nb: kmw.plain_partials(lt, par, scal, SEED, off,
+                                               plan, nb, kind, n_obs, up))
+    ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(bk, chol, n_obs))
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kmw.am_greek_partials(
+            *ops, SEED, off, plan, nb, n_obs)),
+        lambda off, nb: _mw_greek_pairs(kmw.packed_greek_plain_partials(
+            *ops, SEED, off, plan, nb, n_obs)),
+        units=plan.iters * plan.units_per_iter)
+
+
+# K36, K37, K38: the rainbow call.
+_RB_STRIKE = {1: 100.0, 2: 95.0, 3: 90.0, 8: 85.0, 9: 80.0, 16: 75.0,
+              100: 60.0, 129: 60.0}
+
+
+def _rainbow(a, kind):
+    """Spots 90..110, vols 0.15..0.35, equicorrelation 0.3; the min call's
+    strike lowered with the basket so that paths finish in the money."""
+    j = np.arange(a)
+    return RainbowOption.equicorrelated(
+        90.0 + 20.0 * ((j * 7) % 11) / 10.0, 0.15 + 0.05 * (j % 5), 0.3,
+        100.0 if kind == "max" else _RB_STRIKE[a], 0.05, kind=kind)
+
+
+def _rb_plan(a, antithetic, kahan, rows=16):
+    probe = krainbow.make_plan(1, NB, rows, antithetic, kahan, n_assets=a)
+    return krainbow.make_plan(2 * NB * probe.paths_per_iter, NB, rows,
+                              antithetic, kahan, n_assets=a)
+
+
+@pytest.mark.parametrize("a", sorted(_RB_STRIKE))
+@pytest.mark.parametrize("kind", ["max", "min"])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_rainbow_kernels_match_plain(dev, a, kind, antithetic):
+    """K36 (a <= 8) and K37 against the plain version; Kahan off for the
+    antithetic cases."""
+    opt = _rainbow(a, kind)
+    ops = krainbow.operands(opt, cholesky_lower(opt.corr), dev)
+    plan = _rb_plan(a, antithetic, not antithetic)
+    _contract(lambda off, nb: krainbow.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: krainbow.plain_partials(ops, SEED, off, plan,
+                                                      nb))
+
+
+@pytest.mark.parametrize("a", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind", ["max", "min"])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_rainbow_greeks_kernel_matches_plain(dev, a, kind, antithetic):
+    """K38 against its plain version by the scaled pair bound, and its price
+    sums equal K36's bit for bit."""
+    opt = _rainbow(a, kind)
+    chol = cholesky_lower(opt.corr)
+    gops = krainbow.greek_operands(opt, chol, dev)
+    plan = _rb_plan(a, antithetic, antithetic)
+    _contract(
+        lambda off, nb: krainbow.greek_partials(gops, SEED, off, plan, nb),
+        lambda off, nb: krainbow.greek_plain_partials(gops, SEED, off, plan,
+                                                      nb),
+        units=plan.iters * plan.units_per_iter)
+    price = krainbow.partials(krainbow.operands(opt, chol, dev), SEED, 0,
+                              plan, NB)
+    greek = krainbow.greek_partials(gops, SEED, 0, plan, NB)
+    assert torch.equal(greek[:, :2], price)
+
+
+def test_rainbow_launch_counters_and_bad_operands(dev):
+    for a, name in ((3, "rainbow_am"), (16, "rainbow_packed")):
+        opt = _rainbow(a, "max")
+        ops = krainbow.operands(opt, cholesky_lower(opt.corr), dev)
+        plan = _rb_plan(a, False, True, rows=8)
+        before = dict(krainbow.LAUNCHES)
+        krainbow.partials(ops, 1, 0, plan, 2)
+        krainbow.plain_partials(ops, 1, 0, plan, 2)
+        assert krainbow.LAUNCHES[name] == before[name] + 1, name
+        assert sum(krainbow.LAUNCHES.values()) == sum(before.values()) + 1
+        with pytest.raises(ValueError):
+            krainbow.partials(dataclasses.replace(ops, par=ops.par.double()),
+                              1, 0, plan, 2)
+    opt = _rainbow(3, "min")
+    gops = krainbow.greek_operands(opt, cholesky_lower(opt.corr), dev)
+    plan = _rb_plan(3, False, True, rows=8)
+    before = krainbow.LAUNCHES["rainbow_greeks"]
+    krainbow.greek_partials(gops, 1, 0, plan, 2)
+    krainbow.greek_plain_partials(gops, 1, 0, plan, 2)
+    assert krainbow.LAUNCHES["rainbow_greeks"] == before + 1
+    with pytest.raises(ValueError):
+        krainbow.greek_partials(
+            dataclasses.replace(gops, inv_s0=gops.inv_s0[:2].contiguous()), 1,
+            0, plan, 2)
+    wide = _rainbow(9, "max")
+    with pytest.raises(ValueError, match="1..8"):
+        krainbow.greek_partials(krainbow.greek_operands(
+            wide, cholesky_lower(wide.corr), dev), 1, 0, plan, 2)

@@ -1,4 +1,4 @@
-"""The asset-major basket Greeks of the port against mctpu (CPU): K32's and
+"""The basket Greeks of the port against mctpu (CPU): K32's, K33's and
 K34's plain versions against the JAX kernels in interpret mode, their
 operand tables (``L^-1`` included) against ``mctpu``'s builders bit for
 bit, the engine entry points against ``mctpu.engine`` on interpret-mode
@@ -10,8 +10,12 @@ pairs are held by the scaled bound of ``tests/torch_tolerance.py`` at
 n / v)`` cancels heavily, so a plain relative bound would test the
 cancellation, not the port.  ``mctpu`` writes the per-asset sums into
 lanes ``0..a-1`` of ``(B, 4, 128)`` rows; the lanes past ``a`` must be
-zero.  Each interpret-mode call runs once: 2 blocks of ``rows=8``.
+zero.  K33 writes ``(B, 4, width)`` lane rows whose padded lanes are
+exactly zero.  Each interpret-mode call runs once: 2 blocks of
+``rows=8``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -217,13 +221,115 @@ def test_rank_deficient_correlation_raises():
                                           TCFG)
 
 
-@pytest.mark.parametrize("product", ["asian", "barrier"])
+@pytest.mark.parametrize("product", ["barrier"])
 def test_wide_basket_greeks_are_not_ported_yet(product):
+    """The packed basket-barrier Greeks (K35) are not ported yet."""
     bk = BasketOption.equicorrelated(16, 0.3)
-    opt = (BasketAsianOption(bk, n_obs=4) if product == "asian"
-           else BasketBarrierOption(bk, 120.0, n_obs=4))
+    opt = BasketBarrierOption(bk, 120.0, n_obs=4)
     with pytest.raises(NotImplementedError, match="A11b"):
         mctpu_torch.greeks(opt, 1 << 10, SEED, TCFG)
+
+
+# K33: the packed basket-Asian Greeks (a > 8).
+PACKED = {
+    # name: (assets, n_obs, antithetic, kahan, iters)
+    "K33_a9_n3": (9, 3, False, True, 1),
+    "K33_a16_n4_antithetic_f32_2iters": (16, 4, True, False, 2),
+    "K33_a16_n3_antithetic": (16, 3, True, True, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED))
+def test_packed_greek_partials_match_interpret_mode(case):
+    """K33's ``(B, 4)`` scalars and ``(B, 4, width)`` lane rows (every
+    packed group, padded lanes exactly 0) against the interpret-mode
+    kernel, by the scaled pair bound."""
+    a, n_obs, antithetic, kahan, iters = PACKED[case]
+    bk = jtypes.BasketOption.equicorrelated(a, 0.3)
+    probe = jmw.make_plan(1, NB, ROWS, antithetic, n_assets=a)
+    paths = NB * iters * probe.paths_per_iter
+    jplan = jmw.make_plan(paths, NB, ROWS, antithetic, kahan=kahan,
+                          n_assets=a)
+    tplan = tmw.make_plan(paths, NB, ROWS, antithetic, kahan, n_assets=a)
+    assert (tplan.iters, tplan.units_per_iter) == (jplan.iters,
+                                                   jplan.units_per_iter)
+    ws, wv = jmw.greek_pallas_partials(bk, _chol64(bk), SEED, 1, jplan, NB,
+                                       n_obs=n_obs, interpret=True)
+    tb = from_reference(bk)
+    gs, gv = tmw.am_greek_partials(
+        *tmw.packed_greek_ops(tb, tmath.cholesky_lower(tb.corr), n_obs),
+        SEED, 1, tplan, NB, n_obs)
+    a_tile, _, width = tmw.pack_factor(a)
+    wv = np.asarray(wv)
+    assert gs.shape == (NB, 4) and gv.shape == wv.shape == (NB, 4, width)
+    pad = gv.view(NB, 4, -1, a_tile)[..., a:]
+    assert bool((pad == 0).all())
+    assert_pairs_close(_pairs(gs, gv), _pairs(ws, wv),
+                       tplan.iters * tplan.units_per_iter, RTOL)
+
+
+@pytest.mark.parametrize("a", [9, 16, 100])
+@pytest.mark.parametrize("n_obs", [12, 50])
+def test_packed_greek_ops_match_greek_step_ops(a, n_obs):
+    """K33's table equals the real lanes of ``greek_step_ops``' rows and
+    scalars as ``mctpu``'s source forms them (eagerly), bit for bit."""
+    bk = jtypes.BasketOption.equicorrelated(a, 0.3)
+    ch = _chol64(bk)
+    with jax.enable_x64(False):
+        o = bk.astype(jnp.float32)
+        ops = jmw.greek_step_ops(o, ch, jnp.float32, n_obs)
+        want_par = np.stack(
+            [np.asarray(ops[name])[0, :a] for name in
+             ("log_s0", "drift", "vol", "d", "w_row", "vdt", "inv_s0")])
+        want_scal = np.concatenate([
+            np.array([o.k, o.t, np.float32(1.0 / n_obs), ops["sqdt"]],
+                     np.float32), np.asarray(ops["tj"])])
+        want_lt = np.asarray(ops["chol_bd"])[:a, :a].T
+    tb = from_reference(bk)
+    scal, lt, par = tmw.packed_greek_ops(tb, tmath.cholesky_lower(tb.corr),
+                                         n_obs)
+    np.testing.assert_array_equal(scal.numpy(), want_scal)
+    np.testing.assert_array_equal(lt.numpy(), want_lt)
+    np.testing.assert_array_equal(par.numpy(), want_par)
+
+
+def test_wide_basket_asian_greeks_match_mctpu():
+    """``greeks_basket_asian`` beyond 8 assets (K33) against ``mctpu``'s on
+    interpret-mode Pallas: the blocks' float64 tree, then the tree over
+    the ``c`` packed groups, then the first ``a`` lanes."""
+    bk = jtypes.BasketOption.equicorrelated(16, 0.3)
+    opt = jtypes.BasketAsianOption(bk, n_obs=4)
+    n = 1 << 13
+    want = jengine.greeks_basket_asian(opt, n, KEY, JCFG)
+    got = mctpu_torch.greeks(from_reference(opt), n, SEED, TCFG)
+    assert isinstance(got, GreeksResult)
+    assert got.theta is None and got.gamma is None
+    for f in ("price", "rho", "delta", "vega"):
+        r, w = getattr(got, f), getattr(want, f)
+        assert (r.n, r.n_paths) == (w.n, w.n_paths)
+        pairs = np.stack([np.atleast_1d(np.asarray(x, np.float64))
+                          for x in (r.sum_p, r.sum_p2)], 1)
+        wpairs = np.stack([np.atleast_1d(np.asarray(x, np.float64))
+                           for x in (w.sum_p, w.sum_p2)], 1)
+        assert pairs.shape == wpairs.shape == ((16, 2) if f in ("delta",
+                                                                "vega")
+                                               else (1, 2))
+        assert_pairs_close(pairs.reshape(1, -1), wpairs.reshape(1, -1),
+                           w.n, 1e-5)
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_wide_basket_asian_greeks_price_equals_pricer(antithetic):
+    """K33's walk is K31's, path by path, and its plain version sums the
+    payoffs alike: at n_obs = 16 (acc * (1/n) is acc / n) the prices are
+    equal."""
+    opt = BasketAsianOption(BasketOption.equicorrelated(16, 0.3), n_obs=16)
+    cfg = dataclasses.replace(TCFG, antithetic=antithetic)
+    g = mctpu_torch.greeks_basket_asian(opt, 1 << 12, SEED, cfg)
+    p = mctpu_torch.price_basket_asian(opt, 1 << 12, SEED, cfg)
+    assert float(g.price.price) == float(p.price)
+    assert g.delta.price.shape == g.vega.price.shape == (16,)
+    assert bool(torch.isfinite(g.vega.price).all())
 
 
 def test_am_greek_wrappers_refuse_wide_operands():

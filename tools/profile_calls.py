@@ -42,8 +42,8 @@ def calls(mt):
     from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                    BasketAsianOption, BasketBarrierOption,
                                    BasketOption, CliquetOption, CvaSpec,
-                                   HestonOption, LookbackOption, VanillaBook,
-                                   VanillaOption)
+                                   HestonOption, LookbackOption,
+                                   RainbowOption, VanillaBook, VanillaOption)
 
     van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
     b3, b100 = (BasketOption.default_reference(3),
@@ -70,6 +70,12 @@ def calls(mt):
     eq3 = BasketOption.equicorrelated(3, 0.3)
     ga3 = BasketAsianOption(eq3, n_obs=16)
     gb3 = BasketBarrierOption(eq3, 130.0, n_obs=50)
+    ga16 = BasketAsianOption(BasketOption.equicorrelated(16, 0.3), n_obs=12)
+
+    rainbow = RainbowOption.equicorrelated
+    rb3 = rainbow([100.0] * 3, [0.2, 0.3, 0.2], 0.3, 100.0, 0.05)
+    rb16 = rainbow([100.0] * 16, [0.25] * 16, 0.3, 110.0, 0.05)
+    rbg = rainbow([100.0, 95.0, 90.0], [0.2, 0.25, 0.3], 0.5, 100.0, 0.04879)
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -147,6 +153,14 @@ def calls(mt):
          lambda: mt.greeks(ga3, n24, SEED)),
         ("greeks_basket_barrier a=3, n_obs=50, 2^23",
          "mw_bar_greeks_am_kernel", lambda: mt.greeks(gb3, 1 << 23, SEED)),
+        ("greeks_basket_asian a=16, n_obs=12, 2^22",
+         "mw_greeks_packed_kernel", lambda: mt.greeks(ga16, n22, SEED)),
+        ("price_rainbow max of 3, 2^24", "rainbow_am_kernel",
+         lambda: mt.price_rainbow(rb3, n24, SEED)),
+        ("price_rainbow max of 16, 2^22", "rainbow_packed_kernel",
+         lambda: mt.price_rainbow(rb16, n22, SEED)),
+        ("greeks_rainbow max of 3, 2^24", "rainbow_greeks_kernel",
+         lambda: mt.greeks(rbg, n24, SEED)),
     ]
 
 
