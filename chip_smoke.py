@@ -9,7 +9,7 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the thirty-four kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the thirty-eight kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
@@ -19,9 +19,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    instruments and 1, 7 and 50 dates; the Heston walks, Euler, QE and
    Greeks, at 13 and 100 steps, and the variance swap's Heston leg at 13
    and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
-   3 and 8 assets and the packed walk and its Asian Greeks at 16 and 100,
-   at 13 dates; the rainbow and its Greeks at 1, 3 and 8 assets and the
-   packed rainbow at 9, 16 and 100, max and min): equal
+   3 and 8 assets and the packed walk and its Greeks at 16 and 100, at 13
+   dates; the rainbow and its Greeks at 1, 3 and 8 assets and the packed
+   rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
+   Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
+   netting set at 9, 16 and 100, at 13 nodes): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -68,11 +70,20 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    single-asset Greeks, each Greeks price equal to its pricer's bit for
    bit; a rank-deficient correlation refused; the packed basket-Asian
    Greeks on ``equicorrelated(16, 0.3)`` at 12 dates against CRN bumps,
-   its price equal to the pricer's at 16 dates) and the rainbow path
+   its price equal to the pricer's at 16 dates; the packed basket-barrier
+   Greeks at 9 and 16 assets against CRN bumps, the price equal to the
+   pricer's) and the rainbow path
    (``price_rainbow`` at 1, 2, 3, 16 and 100 assets against Black-Scholes,
    the Stulz closed form, the k = 0 identity and a float64 oracle;
    ``greeks_rainbow`` against autograd of the Stulz form, CRN bumps and
-   the k = 0 identities, its price equal to the pricer's bit for bit);
+   the k = 0 identities, its price equal to the pricer's bit for bit) and
+   the netting-set CVA path (``price_cva_multi`` on the JAX exotic CLI's
+   netting set at 3 and 16 underlyings and 2^20 paths against the closed
+   form, its EE profile node by node against ``e^{r t_j} sum_m w_m C0_m``,
+   the mixed-sign sets against the float64 oracle, one underlying against
+   ``price_cva``; ``greeks_cva_multi`` on the JAX Greeks CLI's set against
+   autograd of the closed form, on the mixed-sign set against CRN bumps,
+   its CVA equal to the pricer's bit for bit, 9 underlyings refused);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -111,13 +122,17 @@ CLIQUET_KERNELS = ("cliquet", "cliquet_greeks")
 BOOK_KERNELS = ("ladder", "ladder_greeks", "book", "book_greeks")
 VARSWAP_KERNELS = ("varswap", "varswap_greeks")
 BARRIER_BOOK_KERNELS = ("barrier_book", "barrier_book_greeks")
-# K30 and K31 under each product, K32, K33 and K34.
+# K30 and K31 under each product, K32, K33, K34 and K35.
 MULTI_WALK_KERNELS = ("basket_asian_am", "basket_barrier_am",
                       "basket_asian_packed", "basket_barrier_packed",
                       "basket_asian_greeks_am", "basket_asian_greeks_packed",
-                      "basket_barrier_greeks_am")
+                      "basket_barrier_greeks_am",
+                      "basket_barrier_greeks_packed")
 # K36, K37, K38.
 RAINBOW_KERNELS = ("rainbow_am", "rainbow_packed", "rainbow_greeks")
+# K40, K39, K42.
+CVA_MULTI_KERNELS = ("cva_multi_am", "cva_multi_packed",
+                     "cva_multi_greeks_am")
 # K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
@@ -253,15 +268,15 @@ def bb_work(kname: str, plan, items: int, steps: int):
                 f32=p * (steps * (f_s + items * f_is) + items * f_ip))
 
 
-# The multi-asset walks (K30-K34), counted from csrc/multi_walk.cu:
+# The multi-asset walks (K30-K35), counted from csrc/multi_walk.cu:
 # float32 operations per asset and date beyond the correlation products (the
 # signed normal, the log-spot step, the weighted spot and its sum; K32's and
-# K33's three tangents, K34's score sums), per date (the monitor; K32's and
-# K33's t_j sums), per asset and path and per path (the payoff and the
-# Greeks; K33's lane values, their squares and their four halving-tree
-# adds), the outputs per estimator unit (each a plain add of x and of x^2),
-# the
-# lower-triangular products per date (L z; K34 also L^-1 z), each of
+# K33's three tangents, K34's and K35's score sums), per date (the monitor;
+# K32's and K33's t_j sums), per asset and path and per path (the payoff
+# and the Greeks; K33's and K35's lane values, their squares and their four
+# halving-tree adds), the outputs per estimator unit (each a plain add of x
+# and of x^2), the lower-triangular products per date (L z; K34 and K35
+# also L^-1 z), each of
 # a(a+1)/2 multiply-adds taken as a multiply and an add under -fmad=false,
 # and the IEEE divides per path.  Every path draws a Philox block and a
 # Box-Muller pair per asset and two dates, and takes an expf per asset and
@@ -272,7 +287,8 @@ MW_OPS = {"basket_asian_am": (6, 1, 0, 2, 1, 1, 1),
           "basket_barrier_packed": (6, 3, 0, 3, 1, 1, 0),
           "basket_asian_greeks_am": (12, 5, 5, 9, None, 1, 0),
           "basket_asian_greeks_packed": (12, 3, 11, 9, 2, 1, 0),
-          "basket_barrier_greeks_am": (12, 3, 7, 6, None, 2, 0)}
+          "basket_barrier_greeks_am": (12, 3, 7, 6, None, 2, 0),
+          "basket_barrier_greeks_packed": (11, 3, 13, 6, 2, 2, 0)}
 
 
 def mw_work(kname: str, plan, a: int, steps: int):
@@ -308,6 +324,36 @@ def rb_work(kname: str, plan, a: int):
     p, u = plan.total_paths, plan.total_units
     return work(draws=u * a, expf=p * a, div=p * divs,
                 f32=p * (lz + f_a * a + f_p) + u * f_u)
+
+
+# The netting-set CVA kernels (K39, K40, K42), counted from
+# csrc/cva_multi.cu: float32 operations per underlying and node beyond the
+# correlation product (the log-spot step, d1 and d2, the two Hastings CDFs'
+# polynomials at about 8 each, the leg's value and the net; K42's tangent,
+# indicator-masked integrands and their two accumulators, the density),
+# per path and node (the positive part, the default leg's multiply-add and
+# the profile's share of a warp's shuffle tree; K42's indicator and credit
+# accumulator), expf (logf counted with them) and IEEE divides per
+# underlying and node (the spot and the two CDFs; 1 / sq, or K39's s / k
+# and / sq and its logf), and the outputs per estimator unit (K42: 2 + 2m,
+# each a plain add of x and of x^2).  L z per node is m^2 operations from
+# the first product (K40, K42), m(m + 1) from 0 (K39).  Every path draws a
+# normal per underlying and node, in pairs of nodes.
+CVA_OPS = {"cva_multi_am": (35, 3, 3, 3, 1),
+           "cva_multi_packed": (29, 3, 4, 4, 1),
+           "cva_multi_greeks_am": (50, 6, 3, 3, None)}
+
+
+def cva_work(kname: str, plan, m: int, nodes: int):
+    """Instruction counts of a netting-set CVA kernel's run over ``m``
+    underlyings and ``nodes`` exposure nodes."""
+    f_un, f_n, e_un, d_un, outs = CVA_OPS[kname]
+    outs = 2 + 2 * m if outs is None else outs
+    lz = m * (m + 1) if kname == "cva_multi_packed" else m * m
+    p, u = plan.total_paths, plan.total_units
+    return work(draws=p * m * 2 * -(-nodes // 2), expf=p * m * nodes * e_un,
+                div=p * m * nodes * d_un,
+                f32=p * nodes * (m * f_un + f_n + lz) + u * 3 * outs)
 
 
 def bound(ops, nbytes):
@@ -1500,8 +1546,7 @@ def multi_walk_path(mt) -> None:
     # --product basket-asian --assets 16 at its default --obs), 2^22 paths:
     # the price within RTOL of price_basket_asian's (K31 takes acc / n where
     # K33 takes acc * (1/n)), equal bit for bit at 16 dates; per-asset delta
-    # and vega and rho within 5 se + 0.5% of CRN bumps.  The packed
-    # basket-barrier Greeks (K35) are still refused.
+    # and vega and rho within 5 se + 0.5% of CRN bumps.
     eq16 = BasketOption.equicorrelated(16, 0.3)
     n_p = 1 << 22
     gp = BasketAsianOption(eq16, n_obs=12)
@@ -1528,19 +1573,12 @@ def multi_walk_path(mt) -> None:
     zs.append(crn_gate(g.rho.price, g.rho.std_error,
                        crn(mt.price_basket_asian, gp, n_p, "r", None, 2e-3),
                        "basket-Asian (16) rho"))
-    try:
-        mt.greeks(BasketBarrierOption(eq16, 130.0, n_obs=12), 1 << 20, SEED)
-    except NotImplementedError as err:
-        check("A11b" in str(err), f"wrong refusal: {err}")
-    else:
-        raise AssertionError("greeks_basket_barrier took 16 assets")
     phase("multi-walk-path", "basket-Asian Greeks equicorrelated(16, 0.3) "
           f"2^22 n_obs=12 (K33): price {float(g.price.price):.6f} vs "
           f"price_basket_asian {float(p.price):.6f} (relative gap "
           f"{gap:.2e}), at n_obs=16 equal bit for bit "
           f"({float(p16.price):.6f}); delta/vega/rho vs CRN bumps, max |z| "
-          f"{max(zs):.2f}; greeks_basket_barrier at 16 assets raises "
-          "NotImplementedError")
+          f"{max(zs):.2f}")
 
     # K34 on equicorrelated(3, 0.3), H=130, 50 dates: the price is
     # price_basket_barrier's bit for bit, the LR Greeks within
@@ -1593,6 +1631,225 @@ def multi_walk_path(mt) -> None:
           f"CRN bumps, max |z| {max(zs):.2f}; H=1e5 vs greeks_basket, max "
           f"z {zf:.2f}; a=1 vs greeks_barrier, max z {z1:.2f}; "
           "default_reference(3) raises ValueError")
+
+    # K35 on equicorrelated(9, 0.3) and (16, 0.3), up-and-out H=130, 50
+    # dates (K31's knock-out shape; the JAX Greeks CLI's --product
+    # basket-barrier --assets 16 --obs 50), 2^22 paths: the price equal to
+    # price_basket_barrier's bit for bit (K31 and K35 take one pass shape
+    # at these rows), the LR Greeks within the limits above of CRN bumps.
+    msgs = []
+    for a in (9, 16):
+        gb = BasketBarrierOption(BasketOption.equicorrelated(a, 0.3), 130.0,
+                                 n_obs=50)
+        g = mt.greeks(gb, n, SEED)
+        p = mt.price_basket_barrier(gb, n, SEED)
+        check(float(g.price.price) == float(p.price),
+              f"greeks_basket_barrier ({a} assets) price "
+              f"{float(g.price.price)!r} is not price_basket_barrier's "
+              f"{float(p.price)!r}")
+        zs = []
+        for i in range(a):
+            zs.append(lr_gate(g.delta.price[i], g.delta.std_error[i],
+                              crn(mt.price_basket_barrier, gb, n, "s", i,
+                                  0.25), 0.003, f"K35 a={a} delta_{i}"))
+            zs.append(lr_gate(g.vega.price[i], g.vega.std_error[i],
+                              crn(mt.price_basket_barrier, gb, n, "v", i,
+                                  5e-3), 0.3, f"K35 a={a} vega_{i}"))
+        zs.append(lr_gate(g.rho.price, g.rho.std_error,
+                          crn(mt.price_basket_barrier, gb, n, "r", None,
+                              1e-2), 0.3, f"K35 a={a} rho"))
+        msgs.append(f"a={a} price {float(p.price):.6f} equals "
+                    f"price_basket_barrier, delta/vega/rho vs CRN bumps max "
+                    f"|z| {max(zs):.2f}")
+    phase("multi-walk-path", "basket-barrier LR Greeks equicorrelated(a, "
+          "0.3) H=130 2^22 n_obs=50 (K35): " + "; ".join(msgs))
+
+
+def cva_multi_spec(m: int, n_grid: int, mixed: bool = False):
+    """A netting set of ``m`` calls at lambda = 0.03, lgd = 0.6, r = 0.05,
+    T = 1: the JAX exotic CLI's (``--product cva-multi``: s = k = 100, v =
+    0.2, correlation 0.5, w = 1/m), or with ``mixed`` the legs of
+    ``tests/test_cva_multi.py``'s mixed-sign pair (s 100/95, v 0.2/0.3, k
+    100/90, w 1/-0.6) alternated over the ``m`` underlyings."""
+    from mctpu_torch.types import CvaMultiSpec
+
+    corr = np.full((m, m), 0.5) + 0.5 * np.eye(m)
+    if not mixed:
+        full = np.full(m, 100.0)
+        return CvaMultiSpec(0.03, 0.6, full, np.full(m, 0.2), corr, 0.05, 1.0,
+                            full, np.full(m, 1.0 / m), n_grid)
+    odd = np.arange(m) % 2 == 1
+    pick = lambda a, b: np.where(odd, b, a)  # noqa: E731
+    return CvaMultiSpec(0.03, 0.6, pick(100.0, 95.0), pick(0.2, 0.3), corr,
+                        0.05, 1.0, pick(100.0, 90.0), pick(1.0, -0.6),
+                        n_grid)
+
+
+def cva_greeks_cli_spec():
+    """The JAX Greeks CLI's netting set (``--product cva-multi``,
+    ``mctpu/cli/greeks.py:193-204``): 3 underlyings, correlation 0.3 +
+    0.7 I, s = 100 (1 - 0.05 i), v = 0.2 (1 + 0.25 i), r = 0.04879, k =
+    100, w = 1, 12 nodes."""
+    i = np.arange(3)
+    return dataclasses.replace(
+        cva_multi_spec(3, 12), s=100.0 * (1.0 - 0.05 * i),
+        v=0.2 * (1.0 + 0.25 * i), r=0.04879,
+        corr=np.full((3, 3), 0.3) + 0.7 * np.eye(3), weights=np.ones(3))
+
+
+def cva_multi_path(mt, mcmath) -> None:
+    """The netting-set CVA slice at full width with the default
+    EngineConfig: ``price_cva_multi`` on the JAX exotic CLI's set (K40 at
+    3 underlyings, K39 at 16, 2^20 paths, 50 nodes) against the closed form
+    and its EE profile node by node against ``e^{r t_j} sum_m w_m C0_m``;
+    the mixed-sign sets (2 underlyings, K40; 9, K39) against the float64
+    oracle; one underlying against ``price_cva`` (K4); the JAX test's
+    9-underlying set and 100 underlyings against the closed form;
+    ``greeks_cva_multi`` (K42) on the JAX Greeks CLI's set against autograd
+    of the closed form and on the mixed-sign pair against CRN bumps of
+    ``price_cva_multi``, its CVA equal to the pricer's bit for bit; 9
+    underlyings refused."""
+    from mctpu_torch.models.cva_multi import cva_multi_oracle
+    from mctpu_torch.types import CvaMultiSpec, CvaSpec, VanillaOption
+
+    n, n_or = 1 << 20, 1 << 20
+
+    def closed(spec):
+        return float(mcmath.cva_multi_closed_form(
+            spec.intensity, spec.lgd, spec.s, spec.v, spec.strikes,
+            spec.weights, spec.r, spec.t, spec.n_grid))
+
+    def tie(res, price, se, what):
+        z = abs(float(res.cva) - price) / math.hypot(float(res.std_error), se)
+        check(z < N_SIGMA, f"{what}: {float(res.cva):.6f} vs {price:.6f} "
+                           f"({z:.2f} combined se)")
+        return z
+
+    # K40 and K39 on the CLI's all-long set: the CVA against the closed
+    # form, each node of the EE profile against its martingale value within
+    # 4 of its standard errors (the exposure's sample deviation per node
+    # from the float64 oracle at 2^18 paths, over sqrt(n)).
+    msgs = []
+    for m in (3, 16):
+        spec = cva_multi_spec(m, 50)
+        res = mt.price_cva_multi(spec, n, SEED)
+        z = within_sigma(res.cva, closed(spec), res.std_error,
+                         f"cva_multi m={m}")
+        _, _, _, ee_sd = cva_multi_oracle(spec, 1 << 18, SEED + m, "cuda")
+        c0 = float(torch.sum(torch.as_tensor(spec.weights) * mcmath.bs_call(
+            torch.as_tensor(spec.s), torch.as_tensor(spec.strikes), spec.r,
+            torch.as_tensor(spec.v), spec.t)))
+        tj = torch.arange(1, 51, dtype=torch.float64) / 50
+        ee_want = c0 * torch.exp(spec.r * tj)
+        ee = res.expected_exposure
+        check(ee.shape == (50,) and bool(torch.isfinite(ee).all()),
+              f"cva_multi m={m}: profile shape")
+        zee = float(((ee - ee_want).abs() / (ee_sd / math.sqrt(res.n))).max())
+        check(zee < N_SIGMA, f"cva_multi m={m}: EE profile {zee:.2f} "
+                             "standard errors off its martingale value")
+        msgs.append(f"m={m} ({'K40' if m <= 8 else 'K39'}) "
+                    f"{float(res.cva):.6f} vs closed form "
+                    f"{closed(spec):.6f} (z={z:.2f}), EE max |z| {zee:.2f}")
+    phase("cva-multi-path", "CLI set 2^20 n_grid=50: " + "; ".join(msgs))
+
+    # The mixed-sign sets against the float64 oracle, 2^20 paths each.
+    msgs = []
+    for m in (2, 9):
+        spec = cva_multi_spec(m, 50, mixed=True)
+        res = mt.price_cva_multi(spec, n, SEED)
+        cva, se, _, _ = cva_multi_oracle(spec, n_or, SEED, "cuda")
+        z = tie(res, cva, se, f"cva_multi mixed m={m} vs oracle")
+        msgs.append(f"m={m} ({'K40' if m <= 8 else 'K39'}) "
+                    f"{float(res.cva):.6f} vs oracle {cva:.6f} (z={z:.2f})")
+    phase("cva-multi-path", "mixed-sign sets 2^20 n_grid=50 vs float64 "
+          "oracle at 2^20: " + "; ".join(msgs))
+
+    # One underlying (K40) against price_cva (K4); the JAX test's 9-set and
+    # 100 underlyings (K39) against the closed form.
+    one = cva_multi_spec(1, 50)
+    r1 = mt.price_cva_multi(one, n, SEED)
+    r4 = mt.price_cva(CvaSpec(0.03, 0.6, VanillaOption(100.0, 100.0, 0.05,
+                                                       0.2, 1.0), 50),
+                      n, SEED)
+    z1 = tie(r1, float(r4.cva), float(r4.std_error), "cva_multi m=1 vs K4")
+    m9 = 9
+    s9 = CvaMultiSpec(0.03, 0.6, np.full(m9, 100.0),
+                      np.linspace(0.15, 0.35, m9),
+                      np.full((m9, m9), 0.2) + 0.8 * np.eye(m9), 0.05, 1.0,
+                      np.linspace(90.0, 110.0, m9), np.full(m9, 1.0 / m9), 10)
+    s100 = cva_multi_spec(100, 12)
+    zs = []
+    for spec, n_paths in ((s9, 1 << 18), (s100, 1 << 16)):
+        res = mt.price_cva_multi(spec, n_paths, SEED)
+        zs.append(within_sigma(res.cva, closed(spec), res.std_error,
+                               f"cva_multi m={spec.n_underlyings}"))
+    phase("cva-multi-path", f"m=1 (K40) {float(r1.cva):.6f} vs price_cva "
+          f"{float(r4.cva):.6f} (z={z1:.2f}); m=9 n_grid=10 2^18 (K39) "
+          f"z={zs[0]:.2f}, m=100 n_grid=12 2^16 (K39) z={zs[1]:.2f} vs the "
+          "closed form")
+
+    # K42 on the JAX Greeks CLI's set (m = 3, n_grid = 12): every output
+    # within 4 se of autograd of the closed form; the CVA equal to
+    # price_cva_multi's bit for bit.
+    m = 3
+    gspec = cva_greeks_cli_spec()
+    g = mt.greeks(gspec, n, SEED)
+    p = mt.price_cva_multi(gspec, n, SEED)
+    check(float(g.cva.price) == float(p.cva),
+          f"greeks_cva_multi cva {float(g.cva.price)!r} is not "
+          f"price_cva_multi's {float(p.cva)!r}")
+    lam, s0, v0 = (torch.tensor(np.asarray(x, np.float64), requires_grad=True)
+                   for x in (gspec.intensity, gspec.s, gspec.v))
+    cf = mcmath.cva_multi_closed_form(lam, gspec.lgd, s0, v0, gspec.strikes,
+                                      gspec.weights, gspec.r, gspec.t, 12)
+    cf.backward()
+    zs = [within_sigma(g.cva.price, float(cf.detach()), g.cva.std_error,
+                       "K42 cva"),
+          within_sigma(g.credit_delta.price, float(lam.grad),
+                       g.credit_delta.std_error, "K42 credit delta")]
+    for j in range(m):
+        zs.append(within_sigma(g.delta.price[j], float(s0.grad[j]),
+                               g.delta.std_error[j], f"K42 delta_{j}"))
+        zs.append(within_sigma(g.vega.price[j], float(v0.grad[j]),
+                               g.vega.std_error[j], f"K42 vega_{j}"))
+    phase("cva-multi-path", "Greeks CLI set 2^20 n_grid=12 (K42): cva "
+          f"equals price_cva_multi ({float(p.cva):.6f}); cva, credit delta, "
+          f"delta/vega vs autograd of the closed form, max z {max(zs):.2f}")
+
+    # K42 on the mixed-sign pair against CRN bumps of price_cva_multi.
+    mspec = cva_multi_spec(2, 50, mixed=True)
+    g = mt.greeks(mspec, n, SEED)
+
+    def bump(field, j, h):
+        def at(x):
+            if j is None:
+                sp = dataclasses.replace(mspec, **{field: x})
+            else:
+                vals = np.asarray(getattr(mspec, field), float).copy()
+                vals[j] = x
+                sp = dataclasses.replace(mspec, **{field: vals})
+            return float(mt.price_cva_multi(sp, n, SEED).cva)
+
+        x0 = float(getattr(mspec, field) if j is None
+                   else np.asarray(getattr(mspec, field))[j])
+        return (at(x0 + h) - at(x0 - h)) / (2 * h)
+
+    zs = [crn_gate(g.credit_delta.price, g.credit_delta.std_error,
+                   bump("intensity", None, 1e-3), "K42 mixed credit delta")]
+    for j in range(2):
+        zs.append(crn_gate(g.delta.price[j], g.delta.std_error[j],
+                           bump("s", j, 0.5), f"K42 mixed delta_{j}"))
+        zs.append(crn_gate(g.vega.price[j], g.vega.std_error[j],
+                           bump("v", j, 5e-3), f"K42 mixed vega_{j}"))
+    try:
+        mt.greeks(cva_multi_spec(9, 12), 1 << 16, SEED)
+    except NotImplementedError as err:
+        check("K41" in str(err), f"wrong refusal: {err}")
+    else:
+        raise AssertionError("greeks_cva_multi took 9 underlyings")
+    phase("cva-multi-path", "Greeks mixed-sign pair 2^20 n_grid=50 (K42) vs "
+          f"CRN bumps: max |z| {max(zs):.2f}; 9 underlyings raise "
+          "NotImplementedError (K41)")
 
 
 def rainbow_path(mt) -> None:
@@ -1770,6 +2027,7 @@ def main() -> int:
     from mctpu_torch.kernels import book as kbook
     from mctpu_torch.kernels import cliquet as kcliquet
     from mctpu_torch.kernels import cva as kcva
+    from mctpu_torch.kernels import cva_multi as kcm
     from mctpu_torch.kernels import greeks as kgreeks
     from mctpu_torch.kernels import heston as kheston
     from mctpu_torch.kernels import ladder as kladder
@@ -2127,11 +2385,12 @@ def main() -> int:
                      gp, SEED, off, plan, n, n_obs),
                  units=units(plan))
 
-    # The multi-asset walks: K30 and K32/K34 at a = 1, 3 and 8, K31 and K33
-    # at 16 and 100 assets, both products (up- and down-and-out), 13 dates
-    # (the trailing half pair); antithetic and Kahan on and off, rotated over
-    # the products so that each kernel meets every variant (K33's padded
-    # lanes held to exact zeros by the pair bound's zero columns).
+    # The multi-asset walks: K30 and K32/K34 at a = 1, 3 and 8, K31 and
+    # K33/K35 at 16 and 100 assets, both products (up- and down-and-out), 13
+    # dates (the trailing half pair); antithetic and Kahan on and off,
+    # rotated over the products so that each kernel meets every variant
+    # (K33's and K35's padded lanes held to exact zeros by the pair bound's
+    # zero columns); K35's price sums equal K31's bit for bit.
     def mw_pairs(out):
         scal, vec = out
         return torch.cat([scal] + [vec[:, :, i] for i in range(vec.shape[2])],
@@ -2161,14 +2420,18 @@ def main() -> int:
                      lambda off, n: kmw.plain_partials(lt, par, scal, SEED,
                                                        off, plan, n, product,
                                                        mw_obs, up))
-            if a > 8 and product != "asian":
-                continue
-            if a > 8:
+            if a > 8 and product == "asian":
                 ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(
                     bk, chol, mw_obs))
                 fn = kmw.am_greek_partials
                 plain = kmw.packed_greek_plain_partials
                 extra, gid = (), "K33"
+            elif a > 8:
+                ops = tuple(x.to(dev) for x in kmw.packed_bar_greek_ops(
+                    bk, chol, mw_obs, h))
+                fn = kmw.bar_greek_partials
+                plain = kmw.packed_bar_greek_plain_partials
+                extra, gid = (up,), "K35"
             elif product == "asian":
                 ops = tuple(x.to(dev) for x in kmw.am_greek_ops(bk, chol,
                                                                 mw_obs))
@@ -2186,6 +2449,12 @@ def main() -> int:
                      lambda off, n: mw_pairs(plain(*ops, SEED, off, plan, n,
                                                    mw_obs, *extra)),
                      units=units(plan))
+            if gid == "K35":
+                check(torch.equal(
+                    fn(*ops, SEED, 0, plan, nb, mw_obs, *extra)[0][:, :2],
+                    kmw.partials(lt, par, scal, SEED, 0, plan, nb, product,
+                                 mw_obs, up)),
+                      f"K35 {tag}: price sums differ from K31's")
 
     # The rainbow: K36 and K38 at 1, 3 and 8 assets, K37 at 9, 16 and 100,
     # max and min, antithetic and Kahan rotated over the sizes; K38's price
@@ -2226,12 +2495,45 @@ def main() -> int:
                 krainbow.partials(ops, SEED, 0, plan, nb)),
                 f"K38 {tag}: price sums differ from K36's")
 
+    # The netting-set CVA: K40 and K42 at 1, 2, 3 and 8 underlyings, K39 at
+    # 9, 16 and 100 (the mixed-sign legs at 2, 8, 9 and 100, the CLI's
+    # all-long set at 1, 3 and 16), 13 nodes (the trailing half pair),
+    # antithetic and Kahan rotated over the sizes; the EE profile at RTOL
+    # (its warp-then-block order against the plain version's sum over the
+    # block); K42's CVA sums equal K40's bit for bit.
+    for ka, (m, mixed) in enumerate(((1, False), (2, True), (3, False),
+                                     (8, True), (9, True), (16, False),
+                                     (100, True))):
+        anti, kahan = mw_variants[ka % 3]
+        cspec = cva_multi_spec(m, 13, mixed)
+        cops = kcm.operands(cspec, mcmath.cholesky_lower(cspec.corr), dev)
+        probe = kcm.make_plan(1, nb, rows, anti, kahan, n_underlyings=m)
+        plan = kcm.make_plan(nb * iters * probe.paths_per_iter, nb, rows,
+                             anti, kahan, n_underlyings=m)
+        tag = (f"m={m}{' mixed' if mixed else ''}"
+               f"{' antithetic' if anti else ''}{'' if kahan else ' f32'}")
+        contract(f"{'K40' if m <= 8 else 'K39'} {tag}",
+                 lambda off, n: kcm.partials(cops, SEED, off, plan, n),
+                 lambda off, n: kcm.plain_partials(cops, SEED, off, plan, n))
+        if m > 8:
+            continue
+        contract(f"K42 {tag}",
+                 lambda off, n: mw_pairs(kcm.greek_partials(cops, SEED, off,
+                                                            plan, n)),
+                 lambda off, n: mw_pairs(kcm.greek_plain_partials(
+                     cops, SEED, off, plan, n)), units=units(plan))
+        gsum = kcm.greek_partials(cops, SEED, 0, plan, nb)[0]
+        check(torch.equal(gsum[:, :2],
+                          kcm.partials(cops, SEED, 0, plan, nb)[0]),
+              f"K42 {tag}: CVA sums differ from K40's")
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
                 kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES,
-                kheston.LAUNCHES, kmw.LAUNCHES, krainbow.LAUNCHES)
+                kheston.LAUNCHES, kmw.LAUNCHES, krainbow.LAUNCHES,
+                kcm.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -2389,11 +2691,19 @@ def main() -> int:
     launches.update(read_counts(RAINBOW_KERNELS))
     phase("rainbow-path", f"done in {time.perf_counter() - t_rb:.1f} s")
 
+    # ---- 4k. the netting-set CVA path at full width ----------------------
+    reset_counts()
+    t_cm = time.perf_counter()
+    cva_multi_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(CVA_MULTI_KERNELS))
+    phase("cva-multi-path", f"done in {time.perf_counter() - t_cm:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
                    + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
-                   + MULTI_WALK_KERNELS + RAINBOW_KERNELS)
+                   + MULTI_WALK_KERNELS + RAINBOW_KERNELS + CVA_MULTI_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -2737,8 +3047,9 @@ def main() -> int:
     # equicorrelated(16) at 50 dates and 2^22 paths (the Asian, and the
     # up-and-out at H=130); the Greeks on equicorrelated(3, 0.3), the
     # Asian's at 16 dates and 2^24 paths, the knock-out's at H=130, 50
-    # dates and 2^23; K33 on equicorrelated(16, 0.3) at 12 dates and 2^22
-    # (its lane rows folded onto the assets for max_abs_err).
+    # dates and 2^23; K33 on equicorrelated(16, 0.3) at 12 dates and K35 at
+    # H=130 and 50 dates, 2^22 (their lane rows folded onto the assets for
+    # max_abs_err).
     eq16 = BasketOption.equicorrelated(16)
     eq3 = BasketOption.equicorrelated(3, 0.3)
     mw_cells = (
@@ -2756,14 +3067,26 @@ def main() -> int:
          BasketAsianOption(BasketOption.equicorrelated(16, 0.3), n_obs=12),
          n_ex),
         ("basket_barrier_greeks_am", "multi_walk.py:1347",
-         BasketBarrierOption(eq3, 130.0, n_obs=50), 1 << 23))
+         BasketBarrierOption(eq3, 130.0, n_obs=50), 1 << 23),
+        ("basket_barrier_greeks_packed", "multi_walk.py:933",
+         BasketBarrierOption(BasketOption.equicorrelated(16, 0.3), 130.0,
+                             n_obs=50), n_ex))
     for kname, replaces, mopt, n_paths in mw_cells:
         bk, a = mopt.basket, mopt.basket.n_assets
         barrier = isinstance(mopt, BasketBarrierOption)
         product = "barrier" if barrier else "asian"
         greek = "greeks" in kname
         fold = None
-        if greek and not kbasket.use_asset_major(a):
+        if greek and barrier and not kbasket.use_asset_major(a):
+            plan, ops = engine.greeks_basket_barrier_setup(mopt, n_paths,
+                                                           cfg)
+            a_tile, c, _ = kbasket.pack_factor(a)
+            fold = (c, a_tile, a)
+            kernel = (lambda o=ops, m=mopt: kmw.bar_greek_partials(
+                *o, SEED, 0, plan, nbl, m.n_obs, True))
+            pl = (lambda o=ops, m=mopt: kmw.packed_bar_greek_plain_partials(
+                *o, SEED, 0, plan, nbl, m.n_obs, True))
+        elif greek and not kbasket.use_asset_major(a):
             plan, ops = engine.greeks_basket_asian_setup(mopt, n_paths, cfg)
             a_tile, c, _ = kbasket.pack_factor(a)
             fold = (c, a_tile, a)
@@ -2837,6 +3160,34 @@ def main() -> int:
               rb_work(kname, plan, a), in_bytes=in_bytes,
               units=gunits(plan) if kname == "rainbow_greeks" else None,
               plain_reps=3)
+
+    # The netting-set CVA path's shapes, 2^20 paths: the JAX exotic CLI's
+    # set at 3 underlyings (K40) and 16 (K39), 50 nodes; the JAX Greeks
+    # CLI's set (K42), 12 nodes.
+    cm_cells = (
+        ("cva_multi_am", "cva_multi.py:780", cva_multi_spec(3, 50)),
+        ("cva_multi_packed", "cva_multi.py:201", cva_multi_spec(16, 50)),
+        ("cva_multi_greeks_am", "cva_multi.py:986", cva_greeks_cli_spec()))
+    for kname, replaces, cspec in cm_cells:
+        m, g = cspec.n_underlyings, cspec.n_grid
+        greek = kname == "cva_multi_greeks_am"
+        plan, cops = engine.price_cva_multi_setup(cspec, 1 << 20, cfg)
+        if greek:
+            kernel = (lambda o=cops, p=plan: mw_pairs(kcm.greek_partials(
+                o, SEED, 0, p, p.num_blocks)))
+            pl = (lambda o=cops, p=plan: mw_pairs(kcm.greek_plain_partials(
+                o, SEED, 0, p, p.num_blocks)))
+        else:
+            kernel = (lambda o=cops, p=plan: kcm.partials(o, SEED, 0, p,
+                                                          p.num_blocks))
+            pl = (lambda o=cops, p=plan: kcm.plain_partials(o, SEED, 0, p,
+                                                            p.num_blocks))
+        timed(kname, "mctpu_torch/csrc/cva_multi.cu",
+              f"mctpu/kernels/{replaces}", plan, g, 1.0, kernel, pl,
+              cva_work(kname, plan, m, g),
+              in_bytes=4 * sum(x.numel() for x in (cops.scal, cops.lt,
+                                                   cops.par, cops.nodes)),
+              units=gunits(plan) if greek else None, plain_reps=3)
 
     # K37 at 100 assets on the plan rainbow_path gives it (c = 1, a
     # 5050-term product a thread), held against its plain version untimed.

@@ -25,8 +25,9 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
            "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
-           "barrier_book.cu", "heston.cu", "multi_walk.cu", "rainbow.cu")
-HEADERS = ("philox.cuh", "common.cuh")
+           "barrier_book.cu", "heston.cu", "multi_walk.cu", "rainbow.cu",
+           "cva_multi.cu")
+HEADERS = ("philox.cuh", "common.cuh", "packed.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,16 +37,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # separate operations do: their discontinuities (knock-out, in-the-money
 # indicator, arg-extreme, the cliquet's band mask, the Heston walks'
 # truncation max(v, 0) and QE's branch switches, the basket walks' knock-out
-# and in-the-money indicator, the rainbow's arg-extreme asset) fall on the
-# same side
-# (see the head of csrc/asian.cu), and a deep out-of-the-money strike's
+# and in-the-money indicator, the rainbow's arg-extreme asset, the netting
+# set's exercise indicator and positive part) fall on the same side (see
+# the head of csrc/asian.cu), and a deep out-of-the-money strike's
 # st - k and an antithetic pair's cancelling gamma terms are exact as
 # there (see the head of csrc/ladder.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
                              "cliquet.cu", "ladder.cu", "book.cu",
                              "varswap.cu", "barrier_book.cu", "heston.cu",
-                             "multi_walk.cu", "rainbow.cu")}
+                             "multi_walk.cu", "rainbow.cu", "cva_multi.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -105,7 +106,7 @@ _SIGNATURES = {
     # n_blocks, rows, iters, antithetic, n_obs, kahan, out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_barrier_book", "mctpu_barrier_book_greeks")},
-    # The multi-asset walks (K30, K31, K32, K34): their operands, then
+    # The multi-asset walks (K30-K35): their operands, then
     # n_assets, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
     # the kernel's flags, out, stream.  K30: lt, par, scal; flags barrier,
     # up.
@@ -120,12 +121,23 @@ _SIGNATURES = {
     # K33: scal, tj, lt, par; flags a_tile, width; out, vecs, stream.
     "mctpu_multi_walk_greeks_packed": (_P, _P, _P, _P) + (_I,) * 11
     + (_P, _P, _P),
+    # K35: scal, lt, linv, par; flags a_tile, width, up; out, vecs, stream.
+    "mctpu_multi_walk_bar_greeks_packed": (_P, _P, _P, _P) + (_I,) * 12
+    + (_P, _P, _P),
     # The rainbow (K36, K38, K37): lt, par, k (K38: scal, lt, par, inv_s0),
     # n_assets, [K37: a_tile, width,] use_min, seed, off, n_blocks, rows,
     # iters, antithetic, kahan, out, stream
     "mctpu_rainbow_am": (_P, _P, _P) + (_I,) * 9 + (_P, _P),
     "mctpu_rainbow_packed": (_P, _P, _P) + (_I,) * 11 + (_P, _P),
     "mctpu_rainbow_greeks": (_P, _P, _P, _P) + (_I,) * 9 + (_P, _P),
+    # The netting-set CVA (K40, K39, K42): scal, lt, par, nodes, n_under,
+    # n_grid, [K39: a_tile, width,] seed, off, n_blocks, rows, iters,
+    # antithetic, kahan, [K40, K39: scratch,] out, [K40, K39: ee,] stream
+    "mctpu_cva_multi_am": (_P,) * 4 + (_I,) * 9 + (_P,) * 4,
+    "mctpu_cva_multi_packed": (_P,) * 4 + (_I,) * 11 + (_P,) * 4,
+    "mctpu_cva_multi_greeks_am": (_P,) * 4 + (_I,) * 9 + (_P, _P),
+    # n_under, n_grid -> float count of one block's profile scratch
+    "mctpu_cva_multi_scratch_floats": (_I, _I),
 }
 
 _lib = None

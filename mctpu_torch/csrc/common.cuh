@@ -1,7 +1,8 @@
 // Shared device helpers of the port's kernels: compensated sums, the
 // double-single walk state, the Hastings normal CDF, the walk drivers, the
-// Heston Euler steps and the fixed-order block reductions (two sums per
-// thread, or N sums per iteration).
+// Heston Euler steps, the fixed-order block reductions (two sums per
+// thread, or N sums per iteration) and the asset-major Greek kernels'
+// per-path sums.
 //
 // Every compensated operation is written with __fadd_rn/__fsub_rn/__fmul_rn,
 // which nvcc never contracts into an FMA nor reassociates, so the error-free
@@ -287,5 +288,34 @@ struct BlockAccN {
     if (threadIdx.x < n) dst[threadIdx.x] = __fadd_rn(s, c);
   }
 };
+
+// Adds one path's outputs q [p, gr, d.., v..] (the asset-major Greek
+// kernels' two scalars and A-vectors) to the per-thread sums, in the row
+// order [p, p2, gr, gr2, d.., d2.., v.., v2..] that the port's split_vec
+// reads.
+template <int A>
+__device__ __forceinline__ void add_greek_sums(const float (&q)[2 + 2 * A],
+                                               float (&v)[4 + 4 * A]) {
+  v[0] += q[0];
+  v[1] += q[0] * q[0];
+  v[2] += q[1];
+  v[3] += q[1] * q[1];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    const float d = q[2 + i], w = q[2 + A + i];
+    v[4 + i] += d;
+    v[4 + A + i] += d * d;
+    v[4 + 2 * A + i] += w;
+    v[4 + 3 * A + i] += w * w;
+  }
+}
+
+// The antithetic pair's mean of each output, into q.
+template <int A>
+__device__ __forceinline__ void mirror_mean(float (&q)[2 + 2 * A],
+                                            const float (&m)[2 + 2 * A]) {
+#pragma unroll
+  for (int j = 0; j < 2 + 2 * A; ++j) q[j] = 0.5f * (q[j] + m[j]);
+}
 
 }  // namespace mct

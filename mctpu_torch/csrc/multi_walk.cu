@@ -1,12 +1,12 @@
-// K30-K34: the correlated multi-asset walks, basket-Asian and
-// basket-barrier calls, the basket-Asian Greeks at every basket size and
-// the basket-barrier Greeks up to 8 assets.
+// K30-K35: the correlated multi-asset walks, basket-Asian and
+// basket-barrier calls and their Greeks at every basket size.
 //
 // K30 replaces mctpu/kernels/multi_walk.py::_mw_am_kernel (<= 8 assets),
 // K31 ::_mw_kernel (> 8 assets, lane-packed), K32 ::_mw_am_greeks_kernel
 // (basket-Asian pathwise delta/vega vectors and rho), K33
-// ::_mw_greeks_kernel (the same Greeks on K31's packed walk) and K34
-// ::_mw_am_bar_greeks_kernel (basket-barrier likelihood-ratio Greeks).
+// ::_mw_greeks_kernel (the same Greeks on K31's packed walk), K34
+// ::_mw_am_bar_greeks_kernel (basket-barrier likelihood-ratio Greeks) and
+// K35 ::_mw_bar_greeks_kernel (the same on K31's packed walk).
 //
 // Stream: per simulation block b and iteration i the key is reseeded with
 // (seed, (off + b) * iters + i) in int32 wrap; the antithetic mirror
@@ -14,9 +14,9 @@
 // averaged before they are summed.  Asset-major (K30, K32, K34): tile
 // element e of a (rows, 128) tile is a path; pair jj draws Philox blocks
 // (e, jj*A + i) for asset i (mct::walk_pairwise_multi), cosine branches for
-// date 2jj, sine branches for date 2jj+1.  Packed (K31): the tile is
-// (rows, width), element row*width + lane, path (row, p) owning lanes
-// p*a_tile .. p*a_tile + a - 1; pair jj draws block (element, jj).
+// date 2jj, sine branches for date 2jj+1.  Packed (K31, K33, K35): the
+// tile is (rows, width), element row*width + lane, path (row, p) owning
+// lanes p*a_tile .. p*a_tile + a - 1; pair jj draws block (element, jj).
 //
 // Each date: x_i += drift_i + vol_i * bt_i, s_i = expf(x_i), basket B =
 // sum_i w_i s_i, in mctpu's operand order: asset-major bt_i = d_i + sum_{j
@@ -25,14 +25,14 @@
 // payoff max(sum B / n - k, 0), or the knock-out flag alive *= (B < H) up-
 // and-out, (B > H) down-and-out, payoff alive * max(B_T - k, 0).  K32 and
 // K33 add the tangents dxv_i += sqrt(dt) bt_i - v_i dt, AS_i += s_i, AV_i +=
-// s_i dxv_i, tb += t_j B with t_j = dt (j + 1); K34 the scores q_m =
-// sum_{j >= m} Linv[j, m] z_j, their first-date value, sum q and sum q (bt
-// / v - sqrt(dt)) (mctpu's _am_greek_step, _greek_step_mw and
-// _am_bar_greek_step).  K33 writes, beside its four scalar sums, the (4,
-// width) lane rows (dval, dval^2, vval, vval^2) of each block: each
-// iteration's column sums by mctpu's halving tree over the rows
-// (det_col_sums), added in plain float32; the engine folds the packed
-// groups onto the assets.
+// s_i dxv_i, tb += t_j B with t_j = dt (j + 1); K34 and K35 the scores q_m
+// = sum_{j >= m} Linv[j, m] z_j, their first-date value, sum q and sum q
+// (bt / v - sqrt(dt)) (mctpu's _am_greek_step, _greek_step_mw,
+// _am_bar_greek_step and _bar_greek_step).  K33 and K35 write, beside their
+// four scalar sums, the (4, width) lane rows (dval, dval^2, vval, vval^2)
+// of each block: each iteration's column sums by mctpu's halving tree over
+// the rows (det_col_sums), added in plain float32; the engine folds the
+// packed groups onto the assets.
 //
 // This file is built with -fmad=false (mctpu_torch/_build.py): the knock-out
 // compare and the in-the-money indicator are discontinuous, so each path must
@@ -47,14 +47,14 @@
 //
 // Bound on the H100: arithmetic.  Per path-date: a/2 Philox blocks and
 // Box-Muller pairs, a expf and the a(a+1)/2 multiply-adds of L z (twice
-// that for K34's L^-1 z), each a separate multiply and add here.  Simple
-// design: one CUDA block per simulation block.  Asset-major: one thread per
-// path element striding over the tile, the walk state in registers, L,
-// L^-1 and the per-asset rows in shared memory, per-iteration sums through
-// mct::BlockAccN (4 + 4a of them for the Greeks).  Packed: a path's
-// log-spots do not fit a thread's registers at a = 100, so a chunk of rows
-// keeps its log-spots in shared memory (asset-major over the chunk's paths,
-// so a warp's threads hit consecutive words), every pair of dates first
+// that for K34's and K35's L^-1 z), each a separate multiply and add here.
+// Simple design: one CUDA block per simulation block.  Asset-major: one
+// thread per path element striding over the tile, the walk state in
+// registers, L, L^-1 and the per-asset rows in shared memory, per-iteration
+// sums through mct::BlockAccN (4 + 4a of them for the Greeks).  Packed: a
+// path's log-spots do not fit a thread's registers at a = 100, so a chunk of
+// rows keeps its log-spots in shared memory (asset-major over the chunk's
+// paths, so a warp's threads hit consecutive words), every pair of dates first
 // draws the chunk's normals into shared memory (one odd-strided row per
 // path, padded lanes not drawn), then one thread per packed path forms the
 // triangular product (L read through the read-only cache, every thread of
@@ -62,21 +62,30 @@
 // product is the negated sum of the same terms, exactly.  Measured on an
 // H100, that product's loads (one of L, one of z per multiply-add) and not
 // the arithmetic hold K31 well under its bound.  A pass walks every
-// n_chunks-th row (see Packed), so that K33 adds its lane rows pass by pass
-// in the halving tree's own order: the tree's first levels inside a pass,
-// its last over the passes, with only a pass's leaves and one partial row
-// set a pass in shared memory.  K31 takes as few passes as its threads
-// and shared memory allow at any rows; K33 needs a power of two of rows a
-// pass.  No atomics: two launches give the same bits.
+// n_chunks-th row (see Packed), so that K33 and K35 add their lane rows
+// pass by pass in the halving tree's own order: the tree's first levels
+// inside a pass, its last over the passes, with only a pass's leaves and
+// one partial row set a pass in shared memory.  K31 takes as few passes as
+// its threads and shared memory allow at any rows; K33 and K35 need a power
+// of two of rows a pass.  No atomics: two launches give the same bits.
 #include <algorithm>
 
 #include "common.cuh"
+#include "packed.cuh"
 
 namespace {
 
+using mct::add_greek_sums;
+using mct::draw_pass;
+using mct::mirror_mean;
+using mct::packed_base;
+using mct::packed_shape;
+using mct::pass_row;
+using mct::Packed;
+using mct::PK_THREADS;
+using mct::set_chunk_pow2;
+
 constexpr int MAX_AM_ASSETS = 8;
-constexpr int PK_THREADS = 256;
-constexpr size_t SMEM_LIMIT = 160 * 1024;
 // K33's budget: the 227 KB a block may take, less a margin for the static
 // shared memory of its block reduction.
 constexpr size_t GREEK_SMEM_LIMIT = 220 * 1024;
@@ -265,32 +274,6 @@ __device__ __forceinline__ void am_greek_walk(const float* lt,
   }
 }
 
-// Adds one path's outputs q [p, gr, d.., v..] to the per-thread sums, in
-// the kernels' row order [p, p2, gr, gr2, d.., d2.., v.., v2..].
-template <int A>
-__device__ __forceinline__ void add_greek_sums(const float (&q)[2 + 2 * A],
-                                               float (&v)[4 + 4 * A]) {
-  v[0] += q[0];
-  v[1] += q[0] * q[0];
-  v[2] += q[1];
-  v[3] += q[1] * q[1];
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    const float d = q[2 + i], w = q[2 + A + i];
-    v[4 + i] += d;
-    v[4 + A + i] += d * d;
-    v[4 + 2 * A + i] += w;
-    v[4 + 3 * A + i] += w * w;
-  }
-}
-
-template <int A>
-__device__ __forceinline__ void mirror_mean(float (&q)[2 + 2 * A],
-                                            const float (&m)[2 + 2 * A]) {
-#pragma unroll
-  for (int j = 0; j < 2 + 2 * A; ++j) q[j] = 0.5f * (q[j] + m[j]);
-}
-
 template <int A, bool ANTI, bool KAHAN>
 __global__ void __launch_bounds__(am_threads<A>())
     mw_greeks_am_kernel(const float* __restrict__ scal,
@@ -447,74 +430,6 @@ void launch_bar_greeks_am(bool anti, bool kahan, const float* scal,
 
 // --------------------------------------------------------- K31 (a > 8)
 
-// The packed walk's shape: a assets in a_tile lanes, c paths a row, and a
-// pass over chunk_rows rows (np_max = chunk_rows * c paths, one a thread);
-// each path's normals sit in shared memory at stride ap = a | 1 (odd: the
-// threads of a warp, one path each, hit distinct banks).  Pass c0 of the
-// n_chunks passes walks the rows c0, c0 + n_chunks, c0 + 2 n_chunks, ...
-// below rows.  K31 takes the fewest passes its bound allows, rows split
-// evenly over them (set_chunk_even).  K33 takes a power of two chunk_rows
-// that divides rows (set_chunk_pow2): its passes hold the rows that the
-// first log2(chunk_rows) levels of mctpu's halving tree over the rows
-// (det_col_sums) add together, so K33 can take that tree pass by pass.
-// Where both give one shape (rows a power of two, K31's bound a power of
-// two), a thread sums the same paths in the same order in both.
-struct Packed {
-  int a, a_tile, width, c, chunk_rows, np_max, ap, n_chunks;
-};
-
-Packed packed_base(int a, int a_tile, int width) {
-  return Packed{a, a_tile, width, width / a_tile, 0, 0, a | 1, 0};
-}
-
-// K31: ceil(rows / bound) passes of at most ceil(rows / n_chunks) rows
-// each (0 if bound < 1).
-void set_chunk_even(Packed& P, int rows, int bound) {
-  P.n_chunks = bound < 1 ? 0 : (rows + bound - 1) / bound;
-  P.chunk_rows = P.n_chunks > 0 ? (rows + P.n_chunks - 1) / P.n_chunks : 0;
-  P.np_max = P.chunk_rows * P.c;
-}
-
-// K33: the largest power of two up to bound that divides rows (0 if bound
-// < 1), so every pass holds chunk_rows rows.
-void set_chunk_pow2(Packed& P, int rows, int bound) {
-  int nr = bound < 1 ? 0 : 1;
-  while (nr > 0 && nr * 2 <= bound && rows % (nr * 2) == 0) nr *= 2;
-  P.chunk_rows = nr;
-  P.np_max = nr * P.c;
-  P.n_chunks = nr > 0 ? rows / nr : 0;
-}
-
-// The global row of local row rl in pass c0.
-__device__ __forceinline__ int pass_row(const Packed& P, int c0, int rl) {
-  return c0 + rl * P.n_chunks;
-}
-
-// Draws the normals of one pair of dates of pass c0 into z1s and z2s (path
-// q's a normals at q * ap; padded lanes and rows past rows are never
-// drawn).
-template <int THREADS>
-__device__ __forceinline__ void draw_pass(const Packed& P, mct::Key key,
-                                          int rows, int c0, int jj,
-                                          float* z1s, float* z2s) {
-  for (int t = threadIdx.x; t < P.chunk_rows * P.width; t += THREADS) {
-    const int rl = t / P.width;
-    const int lane = t - rl * P.width;
-    const int p = lane / P.a_tile;
-    const int m = lane - p * P.a_tile;
-    const int row = pass_row(P, c0, rl);
-    if (m < P.a && row < rows) {
-      float z1, z2;
-      mct::draw_normal_pair(
-          key, static_cast<uint32_t>(row * P.width + lane),
-          static_cast<uint32_t>(jj), z1, z2);
-      const int slot = (rl * P.c + p) * P.ap + m;
-      z1s[slot] = z1;
-      z2s[slot] = z2;
-    }
-  }
-}
-
 // One date of packed path q for both signs: log-spots xs (and the mirror's
 // xm) at stride np_max in shared memory, z its a normals.  Returns the
 // basket values through b and bm.  par rows: log s0, drift, vol, d, w.
@@ -616,20 +531,6 @@ __global__ void __launch_bounds__(PK_THREADS)
     acc.add(v, nullptr, sh);
   }
   acc.write(out);
-}
-
-// Paths per pass: about one per thread, within SMEM_LIMIT.
-Packed packed_shape(int a, int a_tile, int width, int rows, bool anti,
-                    size_t& smem) {
-  Packed P = packed_base(a, a_tile, width);
-  const size_t floats = 2 * static_cast<size_t>(P.ap) +
-                        (anti ? 2 : 1) * static_cast<size_t>(a);
-  const size_t path_bytes = floats * sizeof(float);
-  const int bound = std::min(std::max(1, PK_THREADS / P.c),
-                             static_cast<int>(SMEM_LIMIT / (P.c * path_bytes)));
-  set_chunk_even(P, rows, bound);
-  smem = static_cast<size_t>(P.np_max) * path_bytes;
-  return P;
 }
 
 int launch_walk_packed(bool anti, bool kahan, bool barrier, const float* lt,
@@ -741,6 +642,44 @@ __device__ __forceinline__ void halving_pair(float* col, int n, int ld,
   }
   sum = col[0];
   sum2 = col[half * ld];
+}
+
+// The first log2(chunk_rows) levels of the halving tree over the rows of
+// pass c0: one thread per (quantity, lane) column of the pass's (dval,
+// vval) leaves ([2][chunk_rows][width]) into its (dval, dval^2, vval,
+// vval^2) rows of part ([n_chunks][4][width]).
+__device__ __forceinline__ void pass_tree(const Packed& P, int c0,
+                                          float* leaf, float* part) {
+  const int W = P.width, nr = P.chunk_rows;
+  for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
+    const int qty = u / W;
+    const int lane = u - qty * W;
+    float s1, s2;
+    halving_pair(leaf + qty * nr * W + lane, nr, W, s1, s2);
+    part[(4 * c0 + 2 * qty) * W + lane] = s1;
+    part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
+  }
+}
+
+// The tree's remaining levels over the passes (odd rows carried, as
+// det_col_sums), added into the block's lane rows vec ([4][width]) in plain
+// float32.
+__device__ __forceinline__ void fold_passes(const Packed& P, float* part,
+                                            float* vec) {
+  const int ld = 4 * P.width;
+  for (int u = threadIdx.x; u < ld; u += PK_THREADS) {
+    float* col = part + u;
+    int n = P.n_chunks;
+    while (n > 1) {
+      const int half = n / 2;
+      for (int j = 0; j < half; ++j) {
+        col[j * ld] = col[j * ld] + col[(j + half) * ld];
+      }
+      if (n & 1) col[half * ld] = col[(n - 1) * ld];
+      n = half + (n & 1);
+    }
+    vec[u] = vec[u] + col[0];
+  }
 }
 
 template <bool ANTI, bool KAHAN>
@@ -855,34 +794,10 @@ __global__ void __launch_bounds__(PK_THREADS)
         }
       }
       __syncthreads();
-      // The first log2(nr) levels of the halving tree over the rows: one
-      // thread per (quantity, lane) column of this pass's leaves.
-      for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
-        const int qty = u / W;
-        const int lane = u - qty * W;
-        float s1, s2;
-        halving_pair(leaf + qty * nr * W + lane, nr, W, s1, s2);
-        part[(4 * c0 + 2 * qty) * W + lane] = s1;
-        part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
-      }
+      pass_tree(P, c0, leaf, part);
       __syncthreads();
     }
-    // The tree's remaining levels over the passes (odd rows carried, as
-    // det_col_sums), added into the block's lane rows in plain float32.
-    for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) {
-      float* col = part + u;
-      const int ld = 4 * W;
-      int n = P.n_chunks;
-      while (n > 1) {
-        const int half = n / 2;
-        for (int j = 0; j < half; ++j) {
-          col[j * ld] = col[j * ld] + col[(j + half) * ld];
-        }
-        if (n & 1) col[half * ld] = col[(n - 1) * ld];
-        n = half + (n & 1);
-      }
-      vec[u] = vec[u] + col[0];
-    }
+    fold_passes(P, part, vec);
     acc.add(v, nullptr, sh);
   }
   acc.write(out);
@@ -905,6 +820,197 @@ Packed greek_shape(int a, int a_tile, int width, int rows, bool anti,
   }
   if (smem > GREEK_SMEM_LIMIT) P.chunk_rows = 0;
   return P;
+}
+
+// --------------------------------------------------------- K35 (a > 8)
+
+// One date of K35's walk for packed path q and both signs (state pointers
+// at q, stride np_max: x, qd, acc_q, acc_v): bt = L z + d, q = z L^-1 (q_m
+// = sum_{j >= m} Linv[j, m] z_j, from 0), x += drift + vol bt, qd = q at
+// the first date, acc_q += q, acc_v += q (bt inv_v - sqrt(dt)), s =
+// expf(x), B += s w (mctpu's _bar_greek_step).  x and B round as
+// packed_date's; the mirror's products are the negated sums.  par rows:
+// log s0, drift, vol, d, w, inv_v, cd, sr.
+template <bool ANTI>
+__device__ __forceinline__ void packed_bar_greek_date(
+    const Packed& P, const float* __restrict__ lt,
+    const float* __restrict__ linv, const float* __restrict__ par,
+    float sqdt, bool first, const float* z, float* const* st, float& b,
+    float& bm) {
+  const int a = P.a, np = P.np_max;
+  float basket = 0.0f, basket_m = 0.0f;
+  for (int i = 0; i < a; ++i) {
+    const float* lrow = lt + i * a;
+    float sum = 0.0f;
+    for (int j = 0; j <= i; ++j) sum = sum + __ldg(lrow + j) * z[j];
+    float qs = 0.0f;
+    for (int j = i; j < a; ++j) qs = qs + __ldg(linv + j * a + i) * z[j];
+    const float drift = __ldg(par + a + i), vol = __ldg(par + 2 * a + i);
+    const float d = __ldg(par + 3 * a + i), w = __ldg(par + 4 * a + i);
+    const float inv_v = __ldg(par + 5 * a + i);
+    const int o = i * np;
+#pragma unroll
+    for (int sgn = 0; sgn < (ANTI ? 2 : 1); ++sgn) {
+      float* const* S = st + 4 * sgn;  // x, qd, acc_q, acc_v of this sign
+      const float bt = (sgn ? -sum : sum) + d;
+      const float q = sgn ? -qs : qs;
+      const float x = S[0][o] + drift + vol * bt;
+      S[0][o] = x;
+      if (first) S[1][o] = q;
+      S[2][o] = S[2][o] + q;
+      S[3][o] = S[3][o] + q * (bt * inv_v - sqdt);
+      const float s = expf(x);
+      if (sgn) {
+        basket_m = basket_m + s * w;
+      } else {
+        basket = basket + s * w;
+      }
+    }
+  }
+  b = basket;
+  bm = basket_m;
+}
+
+// K35: K33's passes, shared memory and halving tree (greek_smem_floats
+// sizes it: x, qd, acc_q, acc_v take the places of x, dxv, AS, AV), the
+// knock-out flag and last basket value per path in its thread, and at the
+// end the (payoff, rho) sums and the (dval, vval) leaves of mctpu's
+// _bar_greek_payoff: p = alive max(B_T - k, 0), rho = p sum_m acc_q_m sr_m
+// - t p, dval = p qd cd, vval = p (acc_v - n inv_v).  K33 writes its leaves
+// over the dead normals and dxv; K35's qd is live to the end, so each path
+// writes its leaves over its own qd and acc_v and the tree reads them there
+// (the same tree, the same order).  Padded lanes sum to exact zeros.
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(PK_THREADS)
+    mw_bar_greeks_packed_kernel(const float* __restrict__ scal,
+                                const float* __restrict__ lt,
+                                const float* __restrict__ linv,
+                                const float* __restrict__ par, int up,
+                                Packed P, Launch g, float* __restrict__ out,
+                                float* __restrict__ vecs) {
+  extern __shared__ float smem[];
+  const int np = P.np_max, a = P.a, W = P.width, nr = P.chunk_rows;
+  constexpr int NS = ANTI ? 2 : 1;  // signs
+  float* z1s = smem;
+  float* z2s = z1s + np * P.ap;
+  float* walk = z2s + np * P.ap;     // x, qd of each sign
+  float* sums = walk + 2 * NS * a * np;  // acc_q, acc_v of each sign
+  float* st[4 * NS];
+  for (int sgn = 0; sgn < NS; ++sgn) {
+    st[4 * sgn] = walk + 2 * sgn * a * np;
+    st[4 * sgn + 1] = walk + (2 * sgn + 1) * a * np;
+    st[4 * sgn + 2] = sums + 2 * sgn * a * np;
+    st[4 * sgn + 3] = sums + (2 * sgn + 1) * a * np;
+  }
+  float* part = sums + 2 * NS * a * np;   // [n_chunks][4][W]
+  float* vec = part + 4 * P.n_chunks * W;  // [4][W]
+  __shared__ float sh[(PK_THREADS / 32) * 4];
+  const float k = scal[0], t = scal[1], h = scal[2], sqdt = scal[3];
+  const float n = static_cast<float>(g.n_obs);
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) vec[u] = 0.0f;
+  const int q = threadIdx.x;
+  mct::BlockAccN<PK_THREADS, 4, KAHAN> acc;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < g.iters; ++i) {
+    const mct::Key key = iter_key(g, i);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      for (int u = threadIdx.x; u < a * np; u += PK_THREADS) {
+        const float x0 = __ldg(par + u / np);
+#pragma unroll
+        for (int sgn = 0; sgn < NS; ++sgn) {
+          st[4 * sgn][u] = x0;
+          st[4 * sgn + 1][u] = 0.0f;
+          st[4 * sgn + 2][u] = 0.0f;
+          st[4 * sgn + 3][u] = 0.0f;
+        }
+      }
+      float alive = 1.0f, last = 0.0f, alive_m = 1.0f, last_m = 0.0f;
+      const int pairs = (g.n_obs + 1) / 2;
+      for (int jj = 0; jj < pairs; ++jj) {
+        draw_pass<PK_THREADS>(P, key, g.rows, c0, jj, z1s, z2s);
+        __syncthreads();
+        if (q < np) {
+          float* sq[4 * NS];  // this path's state
+          for (int u = 0; u < 4 * NS; ++u) sq[u] = st[u] + q;
+          const int dates = min(2, g.n_obs - 2 * jj);
+          for (int date = 0; date < dates; ++date) {
+            const float* z = (date ? z2s : z1s) + q * P.ap;
+            float b, bm;
+            packed_bar_greek_date<ANTI>(P, lt, linv, par, sqdt,
+                                        jj == 0 && date == 0, z, sq, b, bm);
+            alive = knock(alive, b, h, up);
+            last = b;
+            if (ANTI) {
+              alive_m = knock(alive_m, bm, h, up);
+              last_m = bm;
+            }
+          }
+        }
+        __syncthreads();
+      }
+      if (q < np) {
+        float p = alive * fmaxf(last - k, 0.0f);
+        float sr = 0.0f;
+        for (int m = 0; m < a; ++m) {
+          sr = sr + st[2][m * np + q] * __ldg(par + 7 * a + m);
+        }
+        float gr = p * sr - t * p;
+        float pm = 0.0f;
+        if (ANTI) {
+          pm = alive_m * fmaxf(last_m - k, 0.0f);
+          float srm = 0.0f;
+          for (int m = 0; m < a; ++m) {
+            srm = srm + st[6][m * np + q] * __ldg(par + 7 * a + m);
+          }
+          const float grm = pm * srm - t * pm;
+          gr = 0.5f * (gr + grm);
+        }
+        const float p_own = p;
+        if (ANTI) p = 0.5f * (p + pm);
+        v[0] += p;
+        v[1] += p * p;
+        v[2] += gr;
+        v[3] += gr * gr;
+        // The (dval, vval) leaves in place of this path's qd and acc_v.
+        for (int m = 0; m < a; ++m) {
+          const float inv_v = __ldg(par + 5 * a + m);
+          const float cd = __ldg(par + 6 * a + m);
+          const int o = m * np + q;
+          float dval = p_own * st[1][o] * cd;
+          float vval = p_own * (st[3][o] - n * inv_v);
+          if constexpr (ANTI) {
+            dval = 0.5f * (dval + pm * st[5][o] * cd);
+            vval = 0.5f * (vval + pm * (st[7][o] - n * inv_v));
+          }
+          st[1][o] = dval;
+          st[3][o] = vval;
+        }
+      }
+      __syncthreads();
+      // pass_tree's levels, read from the leaves where they lie: lane p
+      // a_tile + m of local row rl at st[m np + rl c + p], so a column's
+      // rows stand c apart; padded lanes sum to exact zeros.
+      for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
+        const int qty = u / W;
+        const int lane = u - qty * W;
+        const int pth = lane / P.a_tile;
+        const int m = lane - pth * P.a_tile;
+        float s1 = 0.0f, s2 = 0.0f;
+        if (m < a) {
+          halving_pair(st[1 + 2 * qty] + m * np + pth, nr, P.c, s1, s2);
+        }
+        part[(4 * c0 + 2 * qty) * W + lane] = s1;
+        part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
+      }
+      __syncthreads();
+    }
+    fold_passes(P, part, vec);
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) {
+    vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
+  }
 }
 
 Launch make_launch(int n_obs, int seed, int off, int rows, int iters) {
@@ -1025,5 +1131,37 @@ extern "C" int mctpu_multi_walk_greeks_packed(
   fn<<<n_blocks, PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       scal, tj, lt, par, P, make_launch(n_obs, seed, off, rows, iters), out,
       vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mctpu_multi_walk_bar_greeks_packed(
+    const float* scal, const float* lt, const float* linv, const float* par,
+    int n_assets, int n_obs, int seed, int off, int n_blocks, int rows,
+    int iters, int antithetic, int kahan, int a_tile, int width, int up,
+    float* out, float* vecs, void* stream) {
+  if (a_tile < n_assets || width % a_tile != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem = 0;
+  const Packed P = greek_shape(n_assets, a_tile, width, rows, antithetic != 0,
+                               smem);
+  if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      int, Packed, Launch, float*, float*);
+  static const Fn FNS[4] = {
+      mw_bar_greeks_packed_kernel<false, false>,
+      mw_bar_greeks_packed_kernel<false, true>,
+      mw_bar_greeks_packed_kernel<true, false>,
+      mw_bar_greeks_packed_kernel<true, true>};
+  const Fn fn = FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<n_blocks, PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      scal, lt, linv, par, up, P, make_launch(n_obs, seed, off, rows, iters),
+      out, vecs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,8 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 :func:`price_cva_portfolio`, :func:`price_asian`, :func:`price_barrier`,
 :func:`price_lookback`, :func:`price_cliquet`, :func:`price_heston`,
 :func:`price_basket_asian`, :func:`price_basket_barrier`,
-:func:`price_rainbow` and :func:`fair_variance_strike` take an int32
+:func:`price_rainbow`, :func:`price_cva_multi` and
+:func:`fair_variance_strike` take an int32
 ``seed`` word (the value ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
 JAX package's kernels in interpret mode, so a run here matches that run
@@ -37,6 +38,7 @@ from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
+from mctpu_torch.kernels import cva_multi as kcm
 from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
@@ -51,7 +53,8 @@ from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketAsianOption, BasketBarrierOption,
                                BasketOption, CliquetOption, CvaGreeksResult,
-                               CvaPortfolioSpec, CvaResult, CvaSpec,
+                               CvaMultiSpec, CvaPortfolioSpec, CvaResult,
+                               CvaSpec,
                                GreeksResult, HestonGreeksResult,
                                HestonOption, LookbackOption, McResult,
                                Precision, RainbowOption, VanillaBook,
@@ -78,7 +81,9 @@ __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "greeks_basket_barrier", "basket_asian_setup",
            "basket_barrier_setup", "greeks_basket_asian_setup",
            "greeks_basket_barrier_setup", "price_rainbow", "greeks_rainbow",
-           "rainbow_setup", "greeks_rainbow_setup"]
+           "rainbow_setup", "greeks_rainbow_setup", "price_cva_multi",
+           "greeks_cva_multi", "price_cva_multi_setup",
+           "greeks_cva_multi_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -944,14 +949,6 @@ def price_basket_barrier(opt: BasketBarrierOption, n_paths: int, seed: int,
     return _price(partials, plan, opt.basket.r, opt.basket.t)
 
 
-def _check_am_greeks(bk: BasketOption, what: str) -> None:
-    if not kbasket.use_asset_major(bk.n_assets):
-        raise NotImplementedError(
-            f"{what} runs the asset-major Greek kernel, up to "
-            f"{kbasket.ASSET_MAJOR_MAX} assets; the packed kernel for "
-            f"{bk.n_assets} assets (K35) is not ported yet (ROADMAP A11b)")
-
-
 def _basket_vector_greeks(partials, vecs, plan, bk) -> GreeksResult:
     """Price, scalar rho and per-asset delta and vega vectors of ``((B,
     4), (B, 4, a))`` asset-major or ``((B, 4), (B, 4, width))`` packed
@@ -1014,13 +1011,15 @@ def _check_full_rank(chol: torch.Tensor) -> None:
 def greeks_basket_barrier_setup(opt: BasketBarrierOption, n_paths: int,
                                 config: EngineConfig):
     """``(plan, (scal, lt, linv, par))``: the launch
-    :func:`greeks_basket_barrier` makes (the pricer's plan)."""
+    :func:`greeks_basket_barrier` makes (the pricer's plan; K34's tables
+    up to 8 assets, K35's beyond)."""
     bk = opt.basket
-    _check_am_greeks(bk, "greeks_basket_barrier")
     chol = mcmath.cholesky_lower(bk.corr)
     _check_full_rank(chol)
     dev = config.torch_device()
-    ops = kmw.am_bar_greek_ops(bk, chol, opt.n_obs, opt.barrier)
+    build = (kmw.am_bar_greek_ops if kbasket.use_asset_major(bk.n_assets)
+             else kmw.packed_bar_greek_ops)
+    ops = build(bk, chol, opt.n_obs, opt.barrier)
     return (_multi_walk_plan(bk, n_paths, config),
             tuple(x.contiguous().to(dev) for x in ops))
 
@@ -1029,12 +1028,12 @@ def greeks_basket_barrier(opt: BasketBarrierOption, n_paths: int, seed: int,
                           config: EngineConfig = EngineConfig()
                           ) -> GreeksResult:
     """Price, scalar rho and per-asset likelihood-ratio delta and vega
-    vectors of the knock-out basket call in one sweep (K34), over
-    :func:`price_basket_barrier`'s paths.  A rank-deficient correlation
-    raises ``ValueError``; more than 8 assets ``NotImplementedError``."""
+    vectors of the knock-out basket call in one sweep (K34 up to 8 assets,
+    K35 beyond), over :func:`price_basket_barrier`'s paths.  A
+    rank-deficient correlation raises ``ValueError``."""
     opt.validate()
     plan, ops = greeks_basket_barrier_setup(opt, n_paths, config)
-    partials, vecs = kmw.am_bar_greek_partials(
+    partials, vecs = kmw.bar_greek_partials(
         *ops, wrap_int32(seed), 0, plan, plan.num_blocks, opt.n_obs,
         opt.kind == "up-and-out")
     return _basket_vector_greeks(partials, vecs, plan, opt.basket)
@@ -1105,6 +1104,93 @@ def greeks_rainbow(opt: RainbowOption, n_paths: int, seed: int,
                         theta=theta)
 
 
+# ---------------------------------------------------------------------------
+# Netting-set CVA over correlated underlyings
+# ---------------------------------------------------------------------------
+
+def _cva_multi_plan(spec: CvaMultiSpec, n_paths: int, config: EngineConfig):
+    """``mctpu``'s plan of the netting-set walks: ``128 * anti`` units a
+    row asset-major, ``c * anti`` packed."""
+    anti = 2 if config.antithetic else 1
+    m = spec.n_underlyings
+    c = LANES if kbasket.use_asset_major(m) else kbasket.pack_factor(m)[1]
+    blocks, rows = config.layout_for(n_paths, c * anti)
+    return kcm.make_plan(n_paths, blocks, rows, config.antithetic,
+                         config.precision.kahan, n_underlyings=m)
+
+
+def price_cva_multi_setup(spec: CvaMultiSpec, n_paths: int,
+                          config: EngineConfig):
+    """``(plan, operands)``: the launch :func:`price_cva_multi` makes.  The
+    correlation is factorized in float64 on the host, then cast to
+    float32."""
+    dev = config.torch_device()
+    chol = mcmath.cholesky_lower(spec.corr)
+    return (_cva_multi_plan(spec, n_paths, config),
+            kcm.operands(spec, chol, dev))
+
+
+def price_cva_multi(spec: CvaMultiSpec, n_paths: int, seed: int,
+                    config: EngineConfig = EngineConfig()) -> CvaResult:
+    """CVA of a netting set of calls on ``M`` correlated underlyings (K40
+    up to 8 underlyings, K39 beyond): the undiscounted mean of the per-path
+    default legs, the per-node expected exposure and the default-leg
+    masses, as ``mctpu.engine.price_cva_multi``.  All-long sets have the
+    closed form :func:`mctpu_torch.math.cva_multi_closed_form`."""
+    spec.validate()
+    plan, ops = price_cva_multi_setup(spec, n_paths, config)
+    partials, ee_sums = kcm.partials(ops, wrap_int32(seed), 0, plan,
+                                     plan.num_blocks)
+    sum_p, sum_p2 = mcest.combine_block_partials(partials)
+    ee_profile = pairwise_tree_sum(ee_sums.to(mcmath.wide_dtype()), 0).cpu()
+    res = mcest.estimate(sum_p, sum_p2, plan.total_units, discount=1.0,
+                         n_paths=plan.total_paths)
+    return CvaResult(
+        cva=res.price, ci=res.ci, std_error=res.std_error,
+        expected_exposure=ee_profile / plan.total_units,
+        default_leg=mcmath.default_leg_weights(spec.intensity, spec.t,
+                                               spec.n_grid),
+        n=plan.total_units, n_paths=plan.total_paths)
+
+
+def greeks_cva_multi_setup(spec: CvaMultiSpec, n_paths: int,
+                           config: EngineConfig):
+    """``(plan, operands)``: the launch :func:`greeks_cva_multi` makes (the
+    pricer's).  More than 8 underlyings raise ``NotImplementedError``: the
+    packed Greek kernel K41 is not ported yet."""
+    m = spec.n_underlyings
+    if not kbasket.use_asset_major(m):
+        raise NotImplementedError(
+            f"greeks_cva_multi runs the asset-major Greek kernel K42, up to "
+            f"{kbasket.ASSET_MAJOR_MAX} underlyings; the packed kernel for "
+            f"{m} underlyings (K41) is not ported yet (ROADMAP A12)")
+    return price_cva_multi_setup(spec, n_paths, config)
+
+
+def greeks_cva_multi(spec: CvaMultiSpec, n_paths: int, seed: int,
+                     config: EngineConfig = EngineConfig()
+                     ) -> CvaGreeksResult:
+    """CVA, credit delta dCVA/dlambda and per-underlying pathwise delta and
+    vega vectors of a netting set in one sweep (K42), over
+    :func:`price_cva_multi`'s paths, each with the CVA's undiscounted-mean
+    semantics; the CVA equals the pricer's bit for bit.  The delta rows
+    take ``1 / s0`` and ``1 / s0^2`` in float64 after the fold, as
+    ``mctpu``'s runner does; the second-order outputs are ``None``."""
+    spec.validate()
+    plan, ops = greeks_cva_multi_setup(spec, n_paths, config)
+    partials, vecs = kcm.greek_partials(ops, wrap_int32(seed), 0, plan,
+                                        plan.num_blocks)
+    n = plan.total_units
+    cva, credit_delta = _estimates(_total(partials), n, plan, 1.0)
+    vtot = _total(vecs)
+    s0 = torch.as_tensor(np.asarray(spec.s, np.float64))
+    vtot[0] = vtot[0] / s0
+    vtot[1] = vtot[1] / (s0 * s0)
+    delta, vega = _estimates(vtot, n, plan, 1.0)
+    return CvaGreeksResult(cva=cva, credit_delta=credit_delta, delta=delta,
+                           vega=vega)
+
+
 def greeks(opt, n_paths: int, seed: int,
            config: EngineConfig = EngineConfig()):
     """In-kernel Greeks, dispatched on the product record."""
@@ -1114,6 +1200,8 @@ def greeks(opt, n_paths: int, seed: int,
         return greeks_basket(opt, n_paths, seed, config)
     if isinstance(opt, (CvaSpec, CvaPortfolioSpec)):
         return greeks_cva(opt, n_paths, seed, config)
+    if isinstance(opt, CvaMultiSpec):
+        return greeks_cva_multi(opt, n_paths, seed, config)
     if isinstance(opt, AsianOption):
         return greeks_asian(opt, n_paths, seed, config)
     if isinstance(opt, BarrierOption):

@@ -27,8 +27,9 @@ __all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
            "iter_keys", "tile_index", "draw_normal_pair", "walk_pairwise",
            "walk_pairwise_multi", "walk_steps", "walk_partials", "acc_init",
            "acc_add", "acc_final", "acc_init_n", "acc_add_n", "acc_final_n",
-           "det_col_sums",
-           "check_operand", "f32", "sqrt32", "launch_walk", "launch_items",
+           "det_col_sums", "N_GREEK_SCALARS", "split_vec",
+           "vec_greek_partials", "check_operand", "f32", "sqrt32",
+           "launch_walk", "launch_items",
            "terminal_partials"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
@@ -297,6 +298,33 @@ def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
             carry = acc_init_n(len(sums), n_blocks, device)
         carry = acc_add_n(carry, sums, plan.kahan)
     return acc_final_n(carry)
+
+
+# The asset-major vector-Greek kernels (K32, K34, K42) write per block
+# ``4 + 4a`` sums: the (sum, sum^2) pairs of two scalar outputs (a price
+# and rho, or the CVA and its credit delta), then per asset ``(d.., d^2..,
+# v.., v^2..)``.
+N_GREEK_SCALARS = 4
+
+
+def split_vec(out: torch.Tensor, a: int):
+    """``(B, 4 + 4a)`` sums ``[p, p2, gr, gr2, d.., d2.., v.., v2..]`` ->
+    ``((B, 4), (B, 4, a))``, the second as ``mctpu``'s lane rows 0..3 in
+    lanes 0..a-1."""
+    return out[:, :N_GREEK_SCALARS], out[:, N_GREEK_SCALARS:].reshape(
+        out.shape[0], 4, a)
+
+
+def vec_greek_partials(walk, a: int, seed: int, block_offset: int,
+                       plan: Plan, n_blocks: int, device):
+    """:func:`walk_partials` of an asset-major Greek walk's ``[p, gr, d_0..,
+    v_0..]`` tiles, reordered to the kernels' ``(B, 4 + 4a)`` layout and
+    split by :func:`split_vec`."""
+    out = walk_partials(walk, seed, block_offset, plan, n_blocks, device)
+    dv = out[:, N_GREEK_SCALARS:]
+    d, v = dv[:, :2 * a], dv[:, 2 * a:]
+    vec = torch.stack([d[:, 0::2], d[:, 1::2], v[:, 0::2], v[:, 1::2]], 1)
+    return out[:, :N_GREEK_SCALARS], vec
 
 
 def terminal_partials(draw_sums, n_sums: int, seed: int, block_offset: int,

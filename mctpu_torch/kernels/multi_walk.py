@@ -1,6 +1,6 @@
-"""K30-K34: the correlated multi-asset walks — basket-Asian and
-basket-barrier pricing, the basket-Asian Greeks at every basket size and
-the basket-barrier Greeks up to 8 assets (``csrc/multi_walk.cu``).
+"""K30-K35: the correlated multi-asset walks — basket-Asian and
+basket-barrier pricing and their Greeks at every basket size
+(``csrc/multi_walk.cu``).
 
 Counterpart of :mod:`mctpu.kernels.multi_walk`.  Each unit walks a
 correlated GBM basket over ``n_obs`` dates; at every date the correlated
@@ -15,15 +15,15 @@ two stream maps are ``mctpu``'s:
   of a date come from :func:`walk_pairwise_multi` (pair ``jj`` draws counter
   ``jj * a + i`` for asset ``i``).  ``bt_i = d_i + sum_{j <= i} L_ij z_j``
   starts from ``d_i``;
-* wider baskets, lane-packed (K31, K33): a ``(rows, width)`` tile whose row
-  packs ``c`` paths of ``a_tile`` lanes each (:func:`pack_factor`), one pair
-  per lane per two dates (:func:`walk_pairwise`).  ``bt = (z @ L^T) + d``:
-  the product first, then ``+ d``.
+* wider baskets, lane-packed (K31, K33, K35): a ``(rows, width)`` tile
+  whose row packs ``c`` paths of ``a_tile`` lanes each (:func:`pack_factor`),
+  one pair per lane per two dates (:func:`walk_pairwise`).  ``bt = (z @
+  L^T) + d``: the product first, then ``+ d``.
 
 ``mctpu``'s docstring of ``make_plan`` says the Greek kernels run the packed
 layout only; its engine sends baskets of up to 8 assets to the asset-major
 Greek kernels (K32, K34) and wider ones to the packed (K33, K35), and so
-does the port's.  The packed barrier Greeks (K35) are not ported yet.
+does the port's.
 
 The operand tables are formed on the CPU in float32 in ``mctpu``'s
 expression order and moved to the device.  Every discontinuity (the
@@ -42,29 +42,32 @@ import torch
 
 from mctpu_torch import _build
 from mctpu_torch.kernels.basket import pack_factor, use_asset_major
-from mctpu_torch.kernels.common import (LANES, Plan, acc_add_n, acc_final_n,
-                                        acc_init_n, check_operand,
-                                        det_col_sums, f32, iter_keys, sqrt32,
-                                        tile_index, walk_pairwise,
-                                        walk_pairwise_multi, walk_partials)
+from mctpu_torch.kernels.common import (LANES, N_GREEK_SCALARS, Plan,
+                                        acc_add_n, acc_final_n, acc_init_n,
+                                        check_operand, det_col_sums, f32,
+                                        iter_keys, split_vec, sqrt32,
+                                        tile_index, vec_greek_partials,
+                                        walk_pairwise, walk_pairwise_multi,
+                                        walk_partials)
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import BasketOption
 
 __all__ = ["make_plan", "walk_ops", "scalars", "am_greek_ops",
-           "packed_greek_ops", "am_bar_greek_ops", "plain_partials",
-           "partials", "am_greek_plain_partials",
+           "packed_greek_ops", "am_bar_greek_ops", "packed_bar_greek_ops",
+           "plain_partials", "partials", "am_greek_plain_partials",
            "packed_greek_plain_partials", "am_greek_partials",
            "am_bar_greek_plain_partials", "am_bar_greek_partials",
+           "packed_bar_greek_plain_partials", "bar_greek_partials",
            "N_GREEK_SCALARS", "LAUNCHES"]
 
 # Launches of the CUDA kernels in this process, by kernel name: K30 and K31
-# for each product, K32, K33, K34.
+# for each product, K32, K33, K34, K35.
 LAUNCHES = {"basket_asian_am": 0, "basket_barrier_am": 0,
             "basket_asian_packed": 0, "basket_barrier_packed": 0,
             "basket_asian_greeks_am": 0, "basket_asian_greeks_packed": 0,
-            "basket_barrier_greeks_am": 0}
+            "basket_barrier_greeks_am": 0,
+            "basket_barrier_greeks_packed": 0}
 
-N_GREEK_SCALARS = 4  # (sum, sum^2) of: payoff, rho
 PRODUCTS = ("asian", "barrier")
 
 
@@ -163,6 +166,25 @@ def am_bar_greek_ops(opt: BasketOption, chol, n_obs: int, barrier):
     extra = torch.stack([1.0 / v, 1.0 / (s * v * sqdt), sqdt / v])
     scal = torch.stack([k, t, h, sqdt])
     return scal, lt, linv, torch.cat([par, extra])
+
+
+def packed_bar_greek_ops(opt: BasketOption, chol, n_obs: int, barrier):
+    """K35's ``(scal, lt, linv, par)``: K34's ``scal`` and ``linv``;
+    ``par (8, a)`` = :func:`walk_ops`' rows plus the real lanes of
+    ``mctpu``'s ``barrier_greek_ops`` score rows in its order: with the
+    step vol's ``v = vol / sqrt(dt)`` and the mask ``safe = (s0 > 0) & (v
+    > 0)``, ``inv_v = 1 / v``, ``cd = 1 / (s0 v sqrt(dt))`` (0 where not
+    safe) and ``sr = sqrt(dt) inv_v``."""
+    scal, lt, linv, am_par = am_bar_greek_ops(opt, chol, n_obs, barrier)
+    par, sqdt = am_par[:5], scal[3]
+    s0 = torch.broadcast_to(_f32(opt.s), (opt.n_assets,))
+    v = par[2] / sqdt
+    safe = (s0 > 0) & (v > 0)
+    inv_v = torch.where(safe, 1.0 / torch.clamp(v, min=1e-30), 0.0)
+    cd = torch.where(safe, 1.0 / torch.clamp(s0 * v * sqdt, min=1e-30),
+                     0.0)
+    return scal, lt, linv, torch.cat([par, torch.stack([inv_v, cd,
+                                                        sqdt * inv_v])])
 
 
 # ---------------------------------------------------------------------------
@@ -351,25 +373,6 @@ def partials(lt: torch.Tensor, par: torch.Tensor, scal: torch.Tensor,
 # section).  Per block: the (payoff, rho) pairs and, per asset, the (delta,
 # delta^2, vega, vega^2) sums.
 
-def _split_vec(out: torch.Tensor, a: int):
-    """``(B, 4 + 4a)`` sums ``[p, p2, gr, gr2, d.., d2.., v.., v2..]`` ->
-    ``((B, 4), (B, 4, a))``, the second as ``mctpu``'s lane rows 0..3 in
-    lanes 0..a-1."""
-    return out[:, :N_GREEK_SCALARS], out[:, N_GREEK_SCALARS:].reshape(
-        out.shape[0], 4, a)
-
-
-def _greek_sums_partials(walk, a, seed, block_offset, plan, n_blocks,
-                         device):
-    """:func:`walk_partials` of a Greek walk's ``[p, gr, d_0.., v_0..]``
-    tiles, reordered to the kernels' ``(B, 4 + 4a)`` layout and split."""
-    out = walk_partials(walk, seed, block_offset, plan, n_blocks, device)
-    dv = out[:, N_GREEK_SCALARS:]
-    d, v = dv[:, :2 * a], dv[:, 2 * a:]
-    vec = torch.stack([d[:, 0::2], d[:, 1::2], v[:, 0::2], v[:, 1::2]], 1)
-    return out[:, :N_GREEK_SCALARS], vec
-
-
 def _am_greek_walk(scal, lt, par, n_obs, key, idx, shape, sgn):
     a = lt.shape[0]
     k, t, inv_n, sqdt, dt = scal.unbind()
@@ -402,7 +405,7 @@ def am_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
                             plan: Plan, n_blocks: int, n_obs: int):
     """K32's per-block ``((B, 4), (B, 4, a))`` partials in plain PyTorch on
     the operands' device, over K30's stream."""
-    return _greek_sums_partials(
+    return vec_greek_partials(
         lambda key, idx, shape, sgn: _am_greek_walk(scal, lt, par, n_obs,
                                                     key, idx, shape, sgn),
         lt.shape[0], seed, block_offset, plan, n_blocks, lt.device)
@@ -466,28 +469,24 @@ def _packed_greek_walk(scal, lt, par, n_obs, key, idx, shape, sgn):
     return p, gr, wiv * a_s * inv_s0, wiv * a_v
 
 
-def packed_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
-                                par: torch.Tensor, seed: int,
-                                block_offset: int, plan: Plan, n_blocks: int,
-                                n_obs: int):
-    """K33's per-block ``((B, 4), (B, 4, width))`` partials in plain PyTorch
-    on the operands' device, over K31's stream: the scalar pairs
-    Kahan-carried (their tiles summed as K31's plain version sums its
-    payoffs), the lane rows by :func:`det_col_sums` over the rows, padded
-    lanes exactly 0."""
-    dev = lt.device
-    a = lt.shape[0]
+def _packed_vec_partials(walk, a: int, seed: int, block_offset: int,
+                         plan: Plan, n_blocks: int, device):
+    """K33's and K35's per-block ``((B, 4), (B, 4, width))`` partials of a
+    packed Greek walk ``walk(key, idx, shape, sgn) -> (p, gr, dval,
+    vval)``: the scalar pairs Kahan-carried (their tiles summed as K31's
+    plain version sums its payoffs), the lane rows by :func:`det_col_sums`
+    over the rows, padded lanes exactly 0."""
     a_tile, c, width = pack_factor(a)
     shape = (n_blocks, plan.rows * width)
-    idx = tile_index(shape[1], dev)
-    carry = acc_init_n(N_GREEK_SCALARS, n_blocks, dev)
-    vecs = torch.zeros((n_blocks, 4, width), dtype=torch.float32, device=dev)
+    idx = tile_index(shape[1], device)
+    carry = acc_init_n(N_GREEK_SCALARS, n_blocks, device)
+    vecs = torch.zeros((n_blocks, 4, width), dtype=torch.float32,
+                       device=device)
     for i in range(plan.iters):
-        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, dev)
-        tiles = _packed_greek_walk(scal, lt, par, n_obs, key, idx, shape, 1.0)
+        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, device)
+        tiles = walk(key, idx, shape, 1.0)
         if plan.antithetic:
-            mirror = _packed_greek_walk(scal, lt, par, n_obs, key, idx, shape,
-                                        -1.0)
+            mirror = walk(key, idx, shape, -1.0)
             tiles = [0.5 * (x + y) for x, y in zip(tiles, mirror)]
         p, gr, dval, vval = tiles
         sums = []
@@ -501,6 +500,19 @@ def packed_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
              det_col_sums(rows[1], 1), det_col_sums(rows[1] * rows[1], 1)],
             1)
     return acc_final_n(carry), vecs
+
+
+def packed_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
+                                par: torch.Tensor, seed: int,
+                                block_offset: int, plan: Plan, n_blocks: int,
+                                n_obs: int):
+    """K33's per-block ``((B, 4), (B, 4, width))`` partials in plain PyTorch
+    on the operands' device, over K31's stream
+    (:func:`_packed_vec_partials`)."""
+    return _packed_vec_partials(
+        lambda key, idx, shape, sgn: _packed_greek_walk(
+            scal, lt, par, n_obs, key, idx, shape, sgn),
+        lt.shape[0], seed, block_offset, plan, n_blocks, lt.device)
 
 
 def _check_greek_ops(scal, lt, par, n_obs: int) -> None:
@@ -547,7 +559,7 @@ def am_greek_partials(scal: torch.Tensor, lt: torch.Tensor,
                       N_GREEK_SCALARS + 4 * a, seed, block_offset, plan,
                       n_blocks, n_obs, (), dev)
         LAUNCHES["basket_asian_greeks_am"] += 1
-        return _split_vec(out, a)
+        return split_vec(out, a)
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
     a_tile, _, width = pack_factor(a)
@@ -623,7 +635,7 @@ def am_bar_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
                                 n_blocks: int, n_obs: int, up: bool):
     """K34's per-block ``((B, 4), (B, 4, a))`` partials in plain PyTorch on
     the operands' device, over K30's stream."""
-    return _greek_sums_partials(
+    return vec_greek_partials(
         lambda key, idx, shape, sgn: _am_bar_greek_walk(
             scal, lt, linv, par, n_obs, up, key, idx, shape, sgn),
         lt.shape[0], seed, block_offset, plan, n_blocks, lt.device)
@@ -652,4 +664,122 @@ def am_bar_greek_partials(scal: torch.Tensor, lt: torch.Tensor,
                    par.data_ptr()), a, N_GREEK_SCALARS + 4 * a, seed,
                   block_offset, plan, n_blocks, n_obs, (up,), dev)
     LAUNCHES["basket_barrier_greeks_am"] += 1
-    return _split_vec(out, a)
+    return split_vec(out, a)
+
+
+# ---------------------------------------------------------------------------
+# K35: basket-barrier likelihood-ratio Greeks, lane-packed
+# ---------------------------------------------------------------------------
+# K34's scores on K31's walk (mctpu's _bar_greek_step and _bar_greek_payoff):
+# per lane q = z L^-1 (q_m = sum_{j >= m} Linv[j, m] z_j), its first-date
+# value qd, acc_q += q and acc_v += q (bt inv_v - sqrt(dt)); per path the
+# knock-out flag and the last basket value; at the end dval = p qd cd and
+# vval = p (acc_v - n inv_v) on each lane, rho = p sum_m acc_q sr - t p per
+# path.  Per block K33's four scalar sums and (4, width) lane rows.
+
+def _packed_bar_greek_walk(scal, lt, linv, par, n_obs, up, key, idx, shape,
+                           sgn):
+    """One packed LR walk -> ``(p, gr)`` per path ``(B, rows, c)`` and
+    ``(dval, vval)`` per real lane ``(B, rows, c, a)``.  ``L z`` and ``z
+    L^-1`` are formed column by column from 0 (the zero terms add exactly
+    0), then ``+ d``."""
+    a = lt.shape[0]
+    a_tile, c, width = pack_factor(a)
+    k, t, barrier, sqdt = scal.unbind()
+    log_s0, drift, vol, d, w, inv_v, cd, sr = par.unbind()
+    n_blocks, rows = shape[0], shape[1] // width
+
+    def step(j, z, carry):
+        x, qd, acc_q, acc_v, alive, _ = carry
+        zp = (sgn * z).view(n_blocks, rows, c, a_tile)[..., :a]
+        prod = torch.zeros_like(x)
+        q = torch.zeros_like(x)
+        for jj in range(a):
+            zj = zp[..., jj:jj + 1]
+            prod = prod + lt[:, jj] * zj
+            q = q + linv[jj, :] * zj
+        bt = prod + d
+        x = x + drift + vol * bt
+        if j == 0:
+            qd = q
+        acc_q = acc_q + q
+        acc_v = acc_v + q * (bt * inv_v - sqdt)
+        s = torch.exp(x)
+        basket = torch.zeros_like(s[..., 0])
+        for i in range(a):
+            basket = basket + s[..., i] * w[i]
+        hit = basket < barrier if up else basket > barrier
+        return x, qd, acc_q, acc_v, alive * hit.to(alive.dtype), basket
+
+    lanes = torch.zeros((n_blocks, rows, c, a), dtype=torch.float32,
+                        device=lt.device)
+    paths = lanes[..., 0]
+    init = (log_s0.expand(n_blocks, rows, c, a), lanes, lanes, lanes,
+            torch.ones_like(paths), paths)
+    _, qd, acc_q, acc_v, alive, last = walk_pairwise(key, idx, n_obs, step,
+                                                     init)
+    p = alive * torch.clamp(last - k, min=0.0)
+    score_r = torch.zeros_like(p)
+    for m in range(a):
+        score_r = score_r + acc_q[..., m] * sr[m]
+    gr = p * score_r - t * p
+    pw = p.unsqueeze(-1)
+    return p, gr, pw * qd * cd, pw * (acc_v - float(n_obs) * inv_v)
+
+
+def packed_bar_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
+                                    linv: torch.Tensor, par: torch.Tensor,
+                                    seed: int, block_offset: int, plan: Plan,
+                                    n_blocks: int, n_obs: int, up: bool):
+    """K35's per-block ``((B, 4), (B, 4, width))`` partials in plain PyTorch
+    on the operands' device, over K31's stream
+    (:func:`_packed_vec_partials`)."""
+    return _packed_vec_partials(
+        lambda key, idx, shape, sgn: _packed_bar_greek_walk(
+            scal, lt, linv, par, n_obs, up, key, idx, shape, sgn),
+        lt.shape[0], seed, block_offset, plan, n_blocks, lt.device)
+
+
+def bar_greek_partials(scal: torch.Tensor, lt: torch.Tensor,
+                       linv: torch.Tensor, par: torch.Tensor, seed: int,
+                       block_offset: int, plan: Plan, n_blocks: int,
+                       n_obs: int, up: bool):
+    """The basket-barrier LR Greek partials: K34's ``((B, 4), (B, 4, a))``
+    up to 8 assets (:func:`am_bar_greek_ops`' tables), K35's ``((B, 4),
+    (B, 4, width))`` beyond (:func:`packed_bar_greek_ops`'); the kernel for
+    CUDA operands, the plain version for CPU operands; other devices
+    raise."""
+    a = lt.shape[0]
+    if use_asset_major(a):
+        return am_bar_greek_partials(scal, lt, linv, par, seed, block_offset,
+                                     plan, n_blocks, n_obs, up)
+    if n_obs < 1:
+        raise ValueError("n_obs must be >= 1")
+    dev = lt.device
+    if dev.type == "cpu":
+        return packed_bar_greek_plain_partials(scal, lt, linv, par, seed,
+                                               block_offset, plan, n_blocks,
+                                               n_obs, up)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, x, shape in (("scal", scal, (4,)), ("lt", lt, (a, a)),
+                           ("linv", linv, (a, a)), ("par", par, (8, a))):
+        check_operand(name, x, shape, dev)
+    if n_blocks < 1:
+        raise ValueError("n_blocks must be >= 1")
+    a_tile, _, width = pack_factor(a)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        out = torch.empty((n_blocks, N_GREEK_SCALARS), dtype=torch.float32,
+                          device=dev)
+        vecs = torch.empty((n_blocks, 4, width), dtype=torch.float32,
+                           device=dev)
+        status = lib.mctpu_multi_walk_bar_greeks_packed(
+            scal.data_ptr(), lt.data_ptr(), linv.data_ptr(), par.data_ptr(),
+            a, n_obs, wrap_int32(seed), wrap_int32(block_offset), n_blocks,
+            plan.rows, plan.iters, int(plan.antithetic), int(plan.kahan),
+            a_tile, width, int(up), out.data_ptr(), vecs.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(status, "mctpu_multi_walk_bar_greeks_packed")
+    LAUNCHES["basket_barrier_greeks_packed"] += 1
+    return out, vecs

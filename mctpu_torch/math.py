@@ -1,7 +1,8 @@
 """Closed-form financial math on tensors (counterpart of :mod:`mctpu.math`).
 
-The oracles (Black-Scholes, the CVA, geometric-Asian, barrier, lookback,
-cliquet and two-asset rainbow closed forms) and the host-side setup
+The oracles (Black-Scholes, the CVA and netting-set CVA, geometric-Asian,
+barrier, lookback, cliquet and two-asset rainbow closed forms) and the
+host-side setup
 (Cholesky, default-leg weights) run in float64 — the port's ``wide_dtype``
 is always float64, as ``mctpu`` under x64.  ``norm_cdf_hastings`` is the
 kernels' CDF and runs in the dtype it is given.
@@ -22,6 +23,7 @@ __all__ = [
     "default_leg_weights",
     "cva_closed_form",
     "cva_portfolio_closed_form",
+    "cva_multi_closed_form",
     "geometric_asian_call",
     "up_and_out_call",
     "barrier_continuity_correction",
@@ -166,6 +168,27 @@ def cva_portfolio_closed_form(intensity, lgd, s, r, v, t, strikes, weights,
                          "(netting may bind otherwise)")
     c0 = torch.sum(_t(weights) * bs_call(s, strikes, r, v, t))
     return _t(lgd) * c0 * _cva_node_factor(intensity, r, t, n_grid)
+
+
+def cva_multi_closed_form(intensity, lgd, s, v, strikes, weights, r, t,
+                          n_grid: int) -> torch.Tensor:
+    """Exact CVA of an all-long netting set over ``M`` correlated
+    underlyings in float64: with non-negative weights the netting never
+    binds, and each option's discounted Black-Scholes value is a martingale
+    in its own underlying, so the correlation drops out:
+
+        CVA = lgd (sum_m w_m C_0(s_m, k_m, v_m)) sum_j dp_j e^{r t_j}.
+
+    Differentiable by autograd in every tensor argument (``intensity``
+    through the default-leg masses)."""
+    lam, lgd, s, v, strikes, weights, r, t = (
+        _wide(x) for x in (intensity, lgd, s, v, strikes, weights, r, t))
+    c0 = torch.sum(weights * bs_call(s, strikes, r, v, t))
+    dt = t / n_grid
+    j = torch.arange(1, n_grid + 1, dtype=torch.float64)
+    dp = torch.exp(-lam * dt * (j - 1)) * (-torch.expm1(-lam * dt))
+    growth = torch.sum(dp * torch.exp(r * (t * j / n_grid)))
+    return lgd * c0 * growth
 
 
 def geometric_asian_call(s, k, r, v, t, n_obs: int) -> torch.Tensor:

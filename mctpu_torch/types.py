@@ -28,6 +28,7 @@ __all__ = [
     "RainbowOption",
     "CvaSpec",
     "CvaPortfolioSpec",
+    "CvaMultiSpec",
     "AsianOption",
     "BarrierOption",
     "BarrierBook",
@@ -423,6 +424,53 @@ class CvaPortfolioSpec:
             wwr_b=wwr_b,
             n_grid=spec.n_grid,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class CvaMultiSpec:
+    """CVA of a netting set of calls on ``M`` correlated underlyings.
+
+    Option ``m`` is a call struck at ``strikes[m]`` on underlying ``m``;
+    the underlyings follow correlated GBMs (``corr``), and the exposure at
+    node ``j`` is the netted positive part ``max(sum_m weights[m] BS(S_m,
+    strikes[m], T - t_j), 0)``: short positions offset long ones across
+    underlyings.  All-long weights admit an exact closed form
+    (:func:`mctpu_torch.math.cva_multi_closed_form`).
+    """
+
+    intensity: float
+    lgd: float
+    s: Any  # (M,) spots
+    v: Any  # (M,) vols
+    corr: Any  # (M, M)
+    r: float
+    t: float
+    strikes: Any  # (M,)
+    weights: Any  # (M,)
+    n_grid: int = 50
+
+    @property
+    def n_underlyings(self) -> int:
+        return len(self.s)
+
+    def validate(self) -> None:
+        m = self.n_underlyings
+        for name, x in (("v", self.v), ("strikes", self.strikes),
+                        ("weights", self.weights)):
+            if np.shape(x) != (m,):
+                raise ValueError(f"{name} must have shape ({m},)")
+        if np.shape(self.corr) != (m, m):
+            raise ValueError(f"corr must have shape ({m},{m})")
+        if self.n_grid < 1:
+            raise ValueError("n_grid must be >= 1")
+        if (np.asarray(self.s) <= 0).any():
+            raise ValueError("spots must be positive")
+        if (np.asarray(self.strikes) <= 0).any():
+            raise ValueError("strikes must be positive")
+        if float(self.intensity) < 0:
+            raise ValueError("default intensity must be non-negative")
+        if not 0.0 <= float(self.lgd) <= 1.0:
+            raise ValueError("lgd must lie in [0, 1]")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -829,7 +877,8 @@ class CvaGreeksResult:
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, VanillaBook, BasketOption, BasketAsianOption,
              BasketBarrierOption, RainbowOption, CvaSpec,
-             CvaPortfolioSpec, AsianOption, BarrierOption, BarrierBook,
+             CvaPortfolioSpec, CvaMultiSpec, AsianOption, BarrierOption,
+             BarrierBook,
              LookbackOption, CliquetOption, HestonOption, McResult,
              GreeksResult, HestonGreeksResult)}
 _TENSOR_FIELDS = ("price", "ci", "std_error", "sum_p", "sum_p2")

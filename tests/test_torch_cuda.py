@@ -31,6 +31,7 @@ from mctpu_torch.kernels import basket as kbasket
 from mctpu_torch.kernels import book as kbook
 from mctpu_torch.kernels import cliquet as kcliquet
 from mctpu_torch.kernels import cva as kcva
+from mctpu_torch.kernels import cva_multi as kcm
 from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
@@ -41,9 +42,10 @@ from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
-                               BasketOption, CliquetOption, CvaPortfolioSpec,
-                               CvaSpec, HestonOption, LookbackOption,
-                               RainbowOption, VanillaBook, VanillaOption)
+                               BasketOption, CliquetOption, CvaMultiSpec,
+                               CvaPortfolioSpec, CvaSpec, HestonOption,
+                               LookbackOption, RainbowOption, VanillaBook,
+                               VanillaOption)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -824,6 +826,60 @@ def test_multi_walk_packed_greek_launch_counter(dev):
                               plan, 2, 3)
 
 
+# K35: the packed basket-barrier LR Greeks (a > 8), and its price against
+# K31's.
+@pytest.mark.parametrize("case", sorted(_MW_PACKED))
+@pytest.mark.parametrize("up", [True, False])
+def test_multi_walk_packed_bar_greek_kernel_matches_plain(dev, case, up):
+    """K35 against its plain version, by the scaled pair bound; its padded
+    lanes exactly 0."""
+    a, n_obs, antithetic, kahan = _MW_PACKED[case]
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan)
+    ops = tuple(x.to(dev) for x in kmw.packed_bar_greek_ops(
+        bk, chol, n_obs, 104.0 if up else 96.0))
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kmw.bar_greek_partials(
+            *ops, SEED, off, plan, nb, n_obs, up)),
+        lambda off, nb: _mw_greek_pairs(kmw.packed_bar_greek_plain_partials(
+            *ops, SEED, off, plan, nb, n_obs, up)),
+        units=plan.iters * plan.units_per_iter)
+    _, vec = kmw.bar_greek_partials(*ops, SEED, 0, plan, NB, n_obs, up)
+    a_tile = kmw.pack_factor(a)[0]
+    pad = vec.view(NB, 4, -1, a_tile)[..., a:]
+    assert bool((pad == 0).all())
+
+
+@pytest.mark.parametrize("a", [9, 16])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_multi_walk_packed_bar_greek_price_equals_pricer(dev, a, antithetic):
+    """K35's price sums equal K31's bit for bit: one walk order, one pass
+    shape (rows 16), one block reduction."""
+    n_obs = 13
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, True)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, n_obs))
+    price = kmw.partials(lt, par, kmw.scalars(bk, 106.0).to(dev), SEED, 0,
+                         plan, NB, "barrier", n_obs, True)
+    ops = tuple(x.to(dev) for x in kmw.packed_bar_greek_ops(bk, chol, n_obs,
+                                                            106.0))
+    scal, _ = kmw.bar_greek_partials(*ops, SEED, 0, plan, NB, n_obs, True)
+    assert torch.equal(scal[:, :2], price)
+
+
+def test_multi_walk_packed_bar_greek_launch_counter(dev):
+    bk, chol, plan = _mw_setup(dev, 16, 3, False, True, rows=8)
+    ops = tuple(x.to(dev) for x in kmw.packed_bar_greek_ops(bk, chol, 3,
+                                                            110.0))
+    before = dict(kmw.LAUNCHES)
+    kmw.bar_greek_partials(*ops, 1, 0, plan, 2, 3, True)
+    kmw.packed_bar_greek_plain_partials(*ops, 1, 0, plan, 2, 3, True)
+    assert kmw.LAUNCHES["basket_barrier_greeks_packed"] == \
+        before["basket_barrier_greeks_packed"] + 1
+    assert sum(kmw.LAUNCHES.values()) == sum(before.values()) + 1
+    with pytest.raises(ValueError):  # a short scal
+        kmw.bar_greek_partials(ops[0][:3].contiguous(), *ops[1:], 1, 0, plan,
+                               2, 3, True)
+
+
 @pytest.mark.parametrize("rows", [24, 35])
 @pytest.mark.parametrize("case", ["a16_n7_f32", "a100_n5_antithetic_f32"])
 def test_multi_walk_packed_uneven_rows_match_plain(dev, case, rows):
@@ -933,3 +989,89 @@ def test_rainbow_launch_counters_and_bad_operands(dev):
     with pytest.raises(ValueError, match="1..8"):
         krainbow.greek_partials(krainbow.greek_operands(
             wide, cholesky_lower(wide.corr), dev), 1, 0, plan, 2)
+
+
+# ---- the netting-set CVA: K39, K40, K42 -------------------------------------
+
+def _netting_set(m: int, n_grid: int, mixed: bool) -> CvaMultiSpec:
+    """``m`` calls at correlation 0.5: the JAX exotic CLI's all-long legs
+    (s = k = 100, v = 0.2, w = 1/m), or the mixed-sign pair's legs (s
+    100/95, v 0.2/0.3, k 100/90, w 1/-0.6) alternated over the set."""
+    corr = np.full((m, m), 0.5) + 0.5 * np.eye(m)
+    odd = np.arange(m) % 2 == 1
+    if not mixed:
+        full = np.full(m, 100.0)
+        return CvaMultiSpec(0.03, 0.6, full, np.full(m, 0.2), corr, 0.05, 1.0,
+                            full, np.full(m, 1.0 / m), n_grid)
+    pick = lambda a, b: np.where(odd, b, a)  # noqa: E731
+    return CvaMultiSpec(0.03, 0.6, pick(100.0, 95.0), pick(0.2, 0.3), corr,
+                        0.05, 1.0, pick(100.0, 90.0), pick(1.0, -0.6),
+                        n_grid)
+
+
+_CM_CASES = {
+    # name: (underlyings, mixed, n_grid, antithetic, kahan)
+    "m1_g13": (1, False, 13, False, True),
+    "m2_mixed_g13_antithetic": (2, True, 13, True, True),
+    "m3_g7_f32": (3, False, 7, False, False),
+    "m8_mixed_g13_antithetic_f32": (8, True, 13, True, False),
+    "m9_mixed_g13": (9, True, 13, False, True),
+    "m16_g12_antithetic": (16, False, 12, True, True),
+    "m100_mixed_g5_f32": (100, True, 5, False, False),
+}
+
+
+def _cm_setup(dev, m, mixed, n_grid, antithetic, kahan, rows=16):
+    spec = _netting_set(m, n_grid, mixed)
+    ops = kcm.operands(spec, cholesky_lower(spec.corr), dev)
+    probe = kcm.make_plan(1, NB, rows, antithetic, kahan, n_underlyings=m)
+    plan = kcm.make_plan(2 * NB * probe.paths_per_iter, NB, rows, antithetic,
+                         kahan, n_underlyings=m)
+    return ops, plan
+
+
+@pytest.mark.parametrize("case", sorted(_CM_CASES))
+def test_cva_multi_kernels_match_plain(dev, case):
+    """K40 (m <= 8) and K39 against the plain version: the price pairs and
+    the EE profile (summed per warp, then across warps, against the plain
+    version's sum over the block) at rtol."""
+    ops, plan = _cm_setup(dev, *_CM_CASES[case])
+    _contract(lambda off, nb: kcm.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kcm.plain_partials(ops, SEED, off, plan, nb))
+
+
+@pytest.mark.parametrize("case", [c for c in sorted(_CM_CASES)
+                                  if _CM_CASES[c][0] <= 8])
+def test_cva_multi_greek_kernel_matches_plain(dev, case):
+    """K42 against its plain version, by the scaled pair bound; its CVA sums
+    equal K40's bit for bit."""
+    ops, plan = _cm_setup(dev, *_CM_CASES[case])
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kcm.greek_partials(ops, SEED, off,
+                                                           plan, nb)),
+        lambda off, nb: _mw_greek_pairs(kcm.greek_plain_partials(
+            ops, SEED, off, plan, nb)),
+        units=plan.iters * plan.units_per_iter)
+    scal, _ = kcm.greek_partials(ops, SEED, 0, plan, NB)
+    price, _ = kcm.partials(ops, SEED, 0, plan, NB)
+    assert torch.equal(scal[:, :2], price)
+
+
+def test_cva_multi_launch_counters_and_bad_operands(dev):
+    for m, names in ((3, ("cva_multi_am", "cva_multi_greeks_am")),
+                     (9, ("cva_multi_packed",))):
+        ops, plan = _cm_setup(dev, m, False, 3, False, True, rows=8)
+        calls = [(kcm.partials, kcm.plain_partials)]
+        if m <= 8:
+            calls.append((kcm.greek_partials, kcm.greek_plain_partials))
+        for name, (fn, plain) in zip(names, calls):
+            before = dict(kcm.LAUNCHES)
+            fn(ops, 1, 0, plan, 2)
+            plain(ops, 1, 0, plan, 2)
+            assert kcm.LAUNCHES[name] == before[name] + 1, name
+            assert sum(kcm.LAUNCHES.values()) == sum(before.values()) + 1
+    with pytest.raises(ValueError):
+        kcm.partials(dataclasses.replace(ops, par=ops.par.double()), 1, 0,
+                     plan, 2)
+    with pytest.raises(ValueError, match="1..8"):
+        kcm.greek_partials(ops, 1, 0, plan, 2)

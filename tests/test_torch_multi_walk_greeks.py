@@ -1,5 +1,5 @@
-"""The basket Greeks of the port against mctpu (CPU): K32's, K33's and
-K34's plain versions against the JAX kernels in interpret mode, their
+"""The basket Greeks of the port against mctpu (CPU): K32's, K33's, K34's
+and K35's plain versions against the JAX kernels in interpret mode, their
 operand tables (``L^-1`` included) against ``mctpu``'s builders bit for
 bit, the engine entry points against ``mctpu.engine`` on interpret-mode
 Pallas, the dispatcher, and what the entry points refuse.
@@ -10,7 +10,7 @@ pairs are held by the scaled bound of ``tests/torch_tolerance.py`` at
 n / v)`` cancels heavily, so a plain relative bound would test the
 cancellation, not the port.  ``mctpu`` writes the per-asset sums into
 lanes ``0..a-1`` of ``(B, 4, 128)`` rows; the lanes past ``a`` must be
-zero.  K33 writes ``(B, 4, width)`` lane rows whose padded lanes are
+zero.  K33 and K35 write ``(B, 4, width)`` lane rows whose padded lanes are
 exactly zero.  Each interpret-mode call runs once: 2 blocks of
 ``rows=8``.
 """
@@ -223,11 +223,16 @@ def test_rank_deficient_correlation_raises():
 
 @pytest.mark.parametrize("product", ["barrier"])
 def test_wide_basket_greeks_are_not_ported_yet(product):
-    """The packed basket-barrier Greeks (K35) are not ported yet."""
+    """The packed basket-barrier Greeks (K35) run beyond 8 assets through
+    the ``greeks`` dispatcher: per-asset delta and vega vectors, scalar
+    rho, no theta or gamma."""
     bk = BasketOption.equicorrelated(16, 0.3)
     opt = BasketBarrierOption(bk, 120.0, n_obs=4)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        mctpu_torch.greeks(opt, 1 << 10, SEED, TCFG)
+    g = mctpu_torch.greeks(opt, 1 << 10, SEED, TCFG)
+    assert isinstance(g, GreeksResult)
+    assert g.delta.price.shape == g.vega.price.shape == (16,)
+    assert g.theta is None and g.gamma is None
+    assert bool(torch.isfinite(g.delta.price).all())
 
 
 # K33: the packed basket-Asian Greeks (a > 8).
@@ -352,3 +357,123 @@ def test_greek_entry_points_validate():
     with pytest.raises(ValueError, match="n_obs"):
         mctpu_torch.greeks_basket_asian(BasketAsianOption(bk, n_obs=0),
                                         1 << 10, SEED, TCFG)
+
+
+# K35: the packed basket-barrier LR Greeks (a > 8).
+PACKED_BAR = {
+    # name: (assets, n_obs, up, barrier, antithetic, kahan, iters)
+    "K35_a9_up_n3": (9, 3, True, 104.0, False, True, 1),
+    "K35_a16_down_n4_antithetic_f32_2iters": (16, 4, False, 97.0, True,
+                                              False, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_BAR))
+def test_packed_bar_greek_partials_match_interpret_mode(case):
+    """K35's ``(B, 4)`` scalars and ``(B, 4, width)`` lane rows against the
+    interpret-mode kernel by the scaled pair bound; the padded lanes are
+    exactly 0 (``q`` vanishes there and ``inv_v = cd = 0``).  ``mctpu``'s
+    K35 price sums equal its packed pricer's (K31) bit for bit on these
+    plans, and so do the port's plain versions'."""
+    a, n_obs, up, h, antithetic, kahan, iters = PACKED_BAR[case]
+    bk = jtypes.BasketOption.equicorrelated(a, 0.3)
+    probe = jmw.make_plan(1, NB, ROWS, antithetic, n_assets=a)
+    paths = NB * iters * probe.paths_per_iter
+    jplan = jmw.make_plan(paths, NB, ROWS, antithetic, kahan=kahan,
+                          n_assets=a)
+    tplan = tmw.make_plan(paths, NB, ROWS, antithetic, kahan, n_assets=a)
+    ch = _chol64(bk)
+    ws, wv = jmw.bar_greek_pallas_partials(bk, ch, SEED, 1, jplan, NB,
+                                           n_obs=n_obs, barrier=h, up=up,
+                                           interpret=True)
+    wp = jmw.pallas_partials(bk, ch, SEED, 1, jplan, NB, product="barrier",
+                             n_obs=n_obs, barrier=h, up=up, interpret=True)
+    tb = from_reference(bk)
+    chol = tmath.cholesky_lower(tb.corr)
+    gs, gv = tmw.bar_greek_partials(
+        *tmw.packed_bar_greek_ops(tb, chol, n_obs, h), SEED, 1, tplan, NB,
+        n_obs, up)
+    a_tile, _, width = tmw.pack_factor(a)
+    wv = np.asarray(wv)
+    assert gs.shape == (NB, 4) and gv.shape == wv.shape == (NB, 4, width)
+    assert bool((gv.view(NB, 4, -1, a_tile)[..., a:] == 0).all())
+    assert_pairs_close(_pairs(gs, gv), _pairs(ws, wv),
+                       tplan.iters * tplan.units_per_iter, RTOL)
+    np.testing.assert_array_equal(np.asarray(ws)[:, :2], np.asarray(wp))
+    lt, par = tmw.walk_ops(tb, chol, n_obs)
+    tp = tmw.plain_partials(lt, par, tmw.scalars(tb, h), SEED, 1, tplan, NB,
+                            "barrier", n_obs, up)
+    assert torch.equal(gs[:, :2], tp)
+
+
+@pytest.mark.parametrize("a", [9, 16])
+@pytest.mark.parametrize("n_obs", [12, 50])
+def test_packed_bar_greek_ops_match_barrier_greek_ops(a, n_obs):
+    """K35's tables equal the real lanes of ``barrier_greek_ops``' rows
+    (``linvT_bd``'s block is ``L^-1`` itself) as ``mctpu``'s source forms
+    them (eagerly), bit for bit."""
+    bk = jtypes.BasketOption.equicorrelated(a, 0.3)
+    ch = _chol64(bk)
+    with jax.enable_x64(False):
+        o = bk.astype(jnp.float32)
+        ops = jmw.barrier_greek_ops(o, ch, jnp.float32, n_obs)
+        want_par = np.stack(
+            [np.asarray(ops[name])[0, :a] for name in
+             ("log_s0", "drift", "vol", "d", "w_row", "inv_v", "cd_row",
+              "sr_row")])
+        want_scal = np.array([o.k, o.t, 125.0, ops["sqdt"]], np.float32)
+        want_lt = np.asarray(ops["chol_bd"])[:a, :a].T
+        want_linv = np.asarray(ops["linvT_bd"])[:a, :a]
+    tb = from_reference(bk)
+    scal, lt, linv, par = tmw.packed_bar_greek_ops(
+        tb, tmath.cholesky_lower(tb.corr), n_obs, 125.0)
+    np.testing.assert_array_equal(scal.numpy(), want_scal)
+    np.testing.assert_array_equal(lt.numpy(), want_lt)
+    np.testing.assert_array_equal(linv.numpy(), want_linv)
+    np.testing.assert_array_equal(par.numpy(), want_par)
+
+
+def test_wide_basket_barrier_greeks_match_mctpu():
+    """``greeks_basket_barrier`` beyond 8 assets (K35) against ``mctpu``'s
+    on interpret-mode Pallas, folded as the basket-Asian's."""
+    bk = jtypes.BasketOption.equicorrelated(9, 0.3)
+    opt = jtypes.BasketBarrierOption(bk, 108.0, n_obs=3)
+    n = 1 << 12
+    want = jengine.greeks_basket_barrier(opt, n, KEY, JCFG)
+    got = mctpu_torch.greeks(from_reference(opt), n, SEED, TCFG)
+    for f in ("price", "rho", "delta", "vega"):
+        r, w = getattr(got, f), getattr(want, f)
+        assert (r.n, r.n_paths) == (w.n, w.n_paths)
+        pairs = np.stack([np.atleast_1d(np.asarray(x, np.float64))
+                          for x in (r.sum_p, r.sum_p2)], 1)
+        wpairs = np.stack([np.atleast_1d(np.asarray(x, np.float64))
+                           for x in (w.sum_p, w.sum_p2)], 1)
+        assert pairs.shape == wpairs.shape == ((9, 2) if f in ("delta",
+                                                               "vega")
+                                               else (1, 2))
+        assert_pairs_close(pairs.reshape(1, -1), wpairs.reshape(1, -1),
+                           w.n, 1e-5)
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_wide_basket_barrier_greeks_price_equals_pricer(antithetic):
+    """K35's walk is K31's, path by path, and the plain versions sum the
+    payoffs alike: the prices are equal bit for bit."""
+    opt = BasketBarrierOption(BasketOption.equicorrelated(16, 0.3), 112.0,
+                              n_obs=5)
+    cfg = dataclasses.replace(TCFG, antithetic=antithetic)
+    g = mctpu_torch.greeks_basket_barrier(opt, 1 << 12, SEED, cfg)
+    p = mctpu_torch.price_basket_barrier(opt, 1 << 12, SEED, cfg)
+    assert float(g.price.price) == float(p.price)
+    assert g.delta.price.shape == g.vega.price.shape == (16,)
+
+
+def test_packed_bar_block_offset_relabels_streams():
+    tb = BasketOption.equicorrelated(9, 0.3)
+    ops = tmw.packed_bar_greek_ops(tb, tmath.cholesky_lower(tb.corr), 3,
+                                   104.0)
+    plan = tmw.make_plan(4 * ROWS * 8, 4, ROWS, False, n_assets=9)
+    full = tmw.bar_greek_partials(*ops, 9, 0, plan, 4, 3, True)
+    tail = tmw.bar_greek_partials(*ops, 9, 2, plan, 2, 3, True)
+    for x, y in zip(full, tail):
+        assert torch.equal(x[2:], y)

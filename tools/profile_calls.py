@@ -3,7 +3,9 @@
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
 
-    python3 tools/profile_calls.py
+    python3 tools/profile_calls.py [label-substring ...]
+
+(with substrings, only the calls whose label holds one of them).
 
 For each call at the main-path shapes that ``chip_smoke.py`` drives (the
 default ``EngineConfig``), after one warm-up call:
@@ -41,8 +43,9 @@ def calls(mt):
 
     from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                    BasketAsianOption, BasketBarrierOption,
-                                   BasketOption, CliquetOption, CvaSpec,
-                                   HestonOption, LookbackOption,
+                                   BasketOption, CliquetOption,
+                                   CvaMultiSpec, CvaSpec, HestonOption,
+                                   LookbackOption,
                                    RainbowOption, VanillaBook, VanillaOption)
 
     van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
@@ -71,6 +74,24 @@ def calls(mt):
     ga3 = BasketAsianOption(eq3, n_obs=16)
     gb3 = BasketBarrierOption(eq3, 130.0, n_obs=50)
     ga16 = BasketAsianOption(BasketOption.equicorrelated(16, 0.3), n_obs=12)
+
+    gb16 = BasketBarrierOption(BasketOption.equicorrelated(16, 0.3), 130.0,
+                               n_obs=50)
+
+    def netting_set(m, n_grid, s=100.0, v=0.2, rho=0.5, r=0.05, w=None):
+        corr = np.full((m, m), rho) + (1.0 - rho) * np.eye(m)
+        return CvaMultiSpec(0.03, 0.6, np.broadcast_to(s, (m,)).copy(),
+                            np.broadcast_to(v, (m,)).copy(), corr, r, 1.0,
+                            np.full(m, 100.0),
+                            np.full(m, 1.0 / m) if w is None else w, n_grid)
+
+    # The JAX exotic CLI's netting set (--product cva-multi) at 3 and 16
+    # underlyings; the JAX Greeks CLI's.
+    cm3, cm16 = netting_set(3, 50), netting_set(16, 50)
+    i3 = np.arange(3)
+    cmg = netting_set(3, 12, s=100.0 * (1.0 - 0.05 * i3),
+                      v=0.2 * (1.0 + 0.25 * i3), rho=0.3, r=0.04879,
+                      w=np.ones(3))
 
     rainbow = RainbowOption.equicorrelated
     rb3 = rainbow([100.0] * 3, [0.2, 0.3, 0.2], 0.3, 100.0, 0.05)
@@ -161,6 +182,15 @@ def calls(mt):
          lambda: mt.price_rainbow(rb16, n22, SEED)),
         ("greeks_rainbow max of 3, 2^24", "rainbow_greeks_kernel",
          lambda: mt.greeks(rbg, n24, SEED)),
+        ("greeks_basket_barrier a=16, n_obs=50, 2^22",
+         "mw_bar_greeks_packed_kernel", lambda: mt.greeks(gb16, n22, SEED)),
+        ("price_cva_multi m=3, n_grid=50, 2^20", "cva_multi_am_kernel",
+         lambda: mt.price_cva_multi(cm3, 1 << 20, SEED)),
+        ("price_cva_multi m=16, n_grid=50, 2^20", "cva_multi_packed_kernel",
+         lambda: mt.price_cva_multi(cm16, 1 << 20, SEED)),
+        ("greeks_cva_multi m=3, n_grid=12, 2^20",
+         "cva_multi_greeks_am_kernel",
+         lambda: mt.greeks(cmg, 1 << 20, SEED)),
     ]
 
 
@@ -217,7 +247,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     rows = []
+    wanted = sys.argv[1:]
     for label, kernel, fn in calls(mt):
+        if wanted and not any(w in label for w in wanted):
+            continue
         fn()  # warm-up: builds the kernels on the first call
         wall = wall_ms(fn)
         device, kern = profile(fn, kernel)

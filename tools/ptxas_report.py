@@ -6,8 +6,8 @@ Run from the repository root on a machine with the CUDA toolkit (``nvcc``):
     python3 tools/ptxas_report.py [source.cu ...]
 
 Compiles each source of ``mctpu_torch/csrc`` (all of ``_build.SOURCES`` by
-default, ``multi_walk.cu`` and ``rainbow.cu`` among them) with
-the flags ``mctpu_torch/_build.py`` builds it with, plus ``-Xptxas -v``,
+default, ``multi_walk.cu``, ``rainbow.cu`` and ``cva_multi.cu`` among them)
+with the flags ``mctpu_torch/_build.py`` builds it with, plus ``-Xptxas -v``,
 one ``nvcc`` per source, all started together, into a temporary
 directory, and prints one line per kernel instance: its source, its name
 (demangled where ``cu++filt`` is found), registers, spill stores and loads
