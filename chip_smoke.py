@@ -9,8 +9,9 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the thirty-eight kernels from ``mctpu_torch/csrc`` with nvcc
-   (sm_90a), one nvcc per source, all started together;
+2. build — the forty-one kernels from ``mctpu_torch/csrc`` with nvcc
+   (sm_90a), one nvcc per source, all started together, and the
+   runtime-m xVA kernels;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card at a medium plan (64 blocks, rows 32, 2 iterations; the Asian,
    barrier, lookback and cliquet walks at an odd step count of 13; the
@@ -23,7 +24,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    dates; the rainbow and its Greeks at 1, 3 and 8 assets and the packed
    rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
-   netting set at 9, 16 and 100, at 13 nodes): equal
+   netting set and its Greeks at 9, 16 and 100, at 13 nodes; the xVA and
+   its Greeks at 1, 2, 3 and 8 and the runtime-m kernels at 9 and 16 and
+   forced at 3 against the M = 3 kernels): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -83,7 +86,16 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    the mixed-sign sets against the float64 oracle, one underlying against
    ``price_cva``; ``greeks_cva_multi`` on the JAX Greeks CLI's set against
    autograd of the closed form, on the mixed-sign set against CRN bumps,
-   its CVA equal to the pricer's bit for bit, 9 underlyings refused);
+   its CVA equal to the pricer's bit for bit, and at 9 and 16 underlyings
+   (K41) against autograd of the closed form, its CVA within 1e-5 of the
+   pricer's) and the xVA path (``price_xva`` on the JAX exotic CLI's set
+   at 3 and 16 underlyings and 2^20 paths against the closed form, its EPE
+   profile node by node, the all-short set's DVA and FBA, the mixed-sign
+   sets at 2 and 9 against the float64 oracle, the tie to
+   ``price_cva_multi`` without own default or funding, one run at 100
+   underlyings; ``greeks_xva`` on the JAX Greeks CLI's set at 3 and 16
+   against autograd of the closed form and on a mixed pair against CRN
+   bumps of ``price_xva``);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -130,9 +142,11 @@ MULTI_WALK_KERNELS = ("basket_asian_am", "basket_barrier_am",
                       "basket_barrier_greeks_packed")
 # K36, K37, K38.
 RAINBOW_KERNELS = ("rainbow_am", "rainbow_packed", "rainbow_greeks")
-# K40, K39, K42.
+# K40, K39, K42, K41.
 CVA_MULTI_KERNELS = ("cva_multi_am", "cva_multi_packed",
-                     "cva_multi_greeks_am")
+                     "cva_multi_greeks_am", "cva_multi_greeks_packed")
+# K43 and K44, up to 8 underlyings and their runtime-m kernels beyond.
+XVA_KERNELS = ("xva_am", "xva_wide", "xva_greeks_am", "xva_greeks_wide")
 # K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
@@ -326,30 +340,40 @@ def rb_work(kname: str, plan, a: int):
                 f32=p * (lz + f_a * a + f_p) + u * f_u)
 
 
-# The netting-set CVA kernels (K39, K40, K42), counted from
+# The netting-set CVA and xVA kernels (K39-K44), counted from
 # csrc/cva_multi.cu: float32 operations per underlying and node beyond the
 # correlation product (the log-spot step, d1 and d2, the two Hastings CDFs'
-# polynomials at about 8 each, the leg's value and the net; K42's tangent,
-# indicator-masked integrands and their two accumulators, the density),
+# polynomials at about 8 each, the leg's value and the net; the Greek
+# kernels' tangent, integrands and their two accumulators, the density),
 # per path and node (the positive part, the default leg's multiply-add and
-# the profile's share of a warp's shuffle tree; K42's indicator and credit
-# accumulator), expf (logf counted with them) and IEEE divides per
-# underlying and node (the spot and the two CDFs; 1 / sq, or K39's s / k
-# and / sq and its logf), and the outputs per estimator unit (K42: 2 + 2m,
-# each a plain add of x and of x^2).  L z per node is m^2 operations from
-# the first product (K40, K42), m(m + 1) from 0 (K39).  Every path draws a
-# normal per underlying and node, in pairs of nodes.
+# the profile's share of a warp's shuffle tree; K42's and K41's indicator
+# and credit accumulator; K43's negative part and four legs, two profiles;
+# K44's side-selected weight, four legs and three sensitivities), expf
+# (logf counted with them) and IEEE divides per underlying and node (the
+# spot and the two CDFs; 1 / sq, or K39's s / k and / sq and its logf),
+# and the outputs per estimator unit (K43: 4; K42, K41: 2 + 2m; K44: 7 +
+# 2m; each a plain add of x and of x^2).  L z per node is m^2 operations
+# from the first product (K40, K42, K43, K44 and their runtime-m kernels),
+# m(m + 1) from 0 (K39, K41).  Every path draws a normal per underlying
+# and node, in pairs of nodes.
 CVA_OPS = {"cva_multi_am": (35, 3, 3, 3, 1),
            "cva_multi_packed": (29, 3, 4, 4, 1),
-           "cva_multi_greeks_am": (50, 6, 3, 3, None)}
+           "cva_multi_greeks_am": (50, 6, 3, 3, None),
+           "cva_multi_greeks_packed": (50, 6, 3, 3, None),
+           "xva_am": (35, 12, 3, 3, 4),
+           "xva_wide": (35, 12, 3, 3, 4),
+           "xva_greeks_am": (50, 20, 3, 3, "xva"),
+           "xva_greeks_wide": (50, 20, 3, 3, "xva")}
 
 
 def cva_work(kname: str, plan, m: int, nodes: int):
-    """Instruction counts of a netting-set CVA kernel's run over ``m``
-    underlyings and ``nodes`` exposure nodes."""
+    """Instruction counts of a netting-set CVA or xVA kernel's run over
+    ``m`` underlyings and ``nodes`` exposure nodes."""
     f_un, f_n, e_un, d_un, outs = CVA_OPS[kname]
-    outs = 2 + 2 * m if outs is None else outs
-    lz = m * (m + 1) if kname == "cva_multi_packed" else m * m
+    if outs is None or outs == "xva":
+        outs = (2 if outs is None else 7) + 2 * m
+    from_zero = kname in ("cva_multi_packed", "cva_multi_greeks_packed")
+    lz = m * (m + 1) if from_zero else m * m
     p, u = plan.total_paths, plan.total_units
     return work(draws=p * m * 2 * -(-nodes // 2), expf=p * m * nodes * e_un,
                 div=p * m * nodes * d_un,
@@ -1685,16 +1709,27 @@ def cva_multi_spec(m: int, n_grid: int, mixed: bool = False):
                         n_grid)
 
 
-def cva_greeks_cli_spec():
+def cva_greeks_cli_spec(m: int = 3):
     """The JAX Greeks CLI's netting set (``--product cva-multi``,
-    ``mctpu/cli/greeks.py:193-204``): 3 underlyings, correlation 0.3 +
-    0.7 I, s = 100 (1 - 0.05 i), v = 0.2 (1 + 0.25 i), r = 0.04879, k =
-    100, w = 1, 12 nodes."""
-    i = np.arange(3)
+    ``mctpu/cli/greeks.py:193-204``): ``m`` underlyings (its default 3, or
+    ``--assets m``), correlation 0.3 + 0.7 I, s = 100 (1 - 0.05 i), v = 0.2
+    (1 + 0.25 i), r = 0.04879, k = 100, w = 1, 12 nodes."""
+    i = np.arange(m)
     return dataclasses.replace(
-        cva_multi_spec(3, 12), s=100.0 * (1.0 - 0.05 * i),
+        cva_multi_spec(m, 12), s=100.0 * (1.0 - 0.05 * i),
         v=0.2 * (1.0 + 0.25 * i), r=0.04879,
-        corr=np.full((3, 3), 0.3) + 0.7 * np.eye(3), weights=np.ones(3))
+        corr=np.full((m, m), 0.3) + 0.7 * np.eye(m), weights=np.ones(m))
+
+
+def xva_spec(net, own: float = 0.02, spread: float = 0.01):
+    """The JAX CLIs' bank side of ``--product xva``
+    (``mctpu/cli/exotic.py:460-473``, ``mctpu/cli/greeks.py:230-244``) on
+    the netting set ``net``: own intensity 0.02 (or ``own``), own lgd 0.5,
+    funding spread 0.01 (or ``spread``)."""
+    from mctpu_torch.types import XvaSpec
+
+    return XvaSpec(net, own_intensity=own, own_lgd=0.5,
+                   funding_spread=spread)
 
 
 def cva_multi_path(mt, mcmath) -> None:
@@ -1841,15 +1876,238 @@ def cva_multi_path(mt, mcmath) -> None:
                            bump("s", j, 0.5), f"K42 mixed delta_{j}"))
         zs.append(crn_gate(g.vega.price[j], g.vega.std_error[j],
                            bump("v", j, 5e-3), f"K42 mixed vega_{j}"))
-    try:
-        mt.greeks(cva_multi_spec(9, 12), 1 << 16, SEED)
-    except NotImplementedError as err:
-        check("K41" in str(err), f"wrong refusal: {err}")
-    else:
-        raise AssertionError("greeks_cva_multi took 9 underlyings")
     phase("cva-multi-path", "Greeks mixed-sign pair 2^20 n_grid=50 (K42) vs "
-          f"CRN bumps: max |z| {max(zs):.2f}; 9 underlyings raise "
-          "NotImplementedError (K41)")
+          f"CRN bumps: max |z| {max(zs):.2f}")
+
+    # K41 on the JAX Greeks CLI's set at --assets 9 and 16 (12 nodes,
+    # 2^20): every output within 4 se of autograd of the closed form; the
+    # CVA within 1e-5 of price_cva_multi's (K39: the same stream, the leg
+    # priced in log(s / k)'s form).
+    msgs = []
+    for m in (9, 16):
+        gspec = cva_greeks_cli_spec(m)
+        g = mt.greeks(gspec, n, SEED)
+        p = mt.price_cva_multi(gspec, n, SEED)
+        rel = abs(float(g.cva.price) / float(p.cva) - 1.0)
+        check(rel < 1e-5, f"K41 m={m}: cva {float(g.cva.price)!r} is "
+                          f"{rel:.2e} from price_cva_multi's {float(p.cva)!r}")
+        lam, s0, v0 = (torch.tensor(np.asarray(x, np.float64),
+                                    requires_grad=True)
+                       for x in (gspec.intensity, gspec.s, gspec.v))
+        cf = mcmath.cva_multi_closed_form(lam, gspec.lgd, s0, v0,
+                                          gspec.strikes, gspec.weights,
+                                          gspec.r, gspec.t, 12)
+        cf.backward()
+        zs = [within_sigma(g.cva.price, float(cf.detach()), g.cva.std_error,
+                           f"K41 m={m} cva"),
+              within_sigma(g.credit_delta.price, float(lam.grad),
+                           g.credit_delta.std_error,
+                           f"K41 m={m} credit delta")]
+        for j in range(m):
+            zs.append(within_sigma(g.delta.price[j], float(s0.grad[j]),
+                                   g.delta.std_error[j],
+                                   f"K41 m={m} delta_{j}"))
+            zs.append(within_sigma(g.vega.price[j], float(v0.grad[j]),
+                                   g.vega.std_error[j],
+                                   f"K41 m={m} vega_{j}"))
+        msgs.append(f"m={m}: cva {rel:.1e} from price_cva_multi's, max z "
+                    f"{max(zs):.2f}")
+    phase("cva-multi-path", "Greeks CLI set --assets 9/16 2^20 n_grid=12 "
+          "(K41) vs autograd of the closed form: " + "; ".join(msgs))
+
+
+def xva_path(mt, mcmath) -> None:
+    """The bilateral xVA slice at full width with the default EngineConfig:
+    ``price_xva`` on the JAX exotic CLI's set (``--product xva``: K43 at 3
+    underlyings, its runtime-m kernel at 16, 2^20 paths, 50 nodes) against
+    the closed form, the EPE profile node by node against ``e^{r t_j} sum_m
+    w_m C0_m``, exact zeros on the side a single-signed set never reaches;
+    the all-short set's DVA and FBA; the mixed-sign pair (K43) and a
+    9-underlying mixed set (runtime-m) against the float64 oracle; the
+    no-own-default, no-funding tie to ``price_cva_multi``; one run at 100
+    underlyings; ``greeks_xva`` on the JAX Greeks CLI's set (K44 at 3,
+    runtime-m at 16, 12 nodes) against autograd of the closed form, and on
+    ``tests/test_xva.py``'s mixed pair against CRN bumps of
+    ``price_xva``."""
+    from mctpu_torch.models.cva_multi import xva_oracle
+
+    n = 1 << 20
+    # A single-signed set never reaches the other side, but a leg deep out
+    # of the money can price a hair below 0 under the Hastings CDF: its
+    # side's legs and profile are 0 up to float32's subnormal range (mctpu's
+    # XLA flushes subnormals to 0; the kernels and PyTorch keep them).
+    tiny = torch.finfo(torch.float32).tiny
+
+    def zero(x) -> bool:
+        return bool((torch.as_tensor(x).abs() < tiny).all())
+
+    def closed(xs, **inputs):
+        net = xs.netting
+        args = dict(intensity=net.intensity, own=xs.own_intensity,
+                    spread=xs.funding_spread, s=net.s, v=net.v)
+        args.update(inputs)
+        return mcmath.xva_multi_closed_form(
+            args["intensity"], net.lgd, args["own"], xs.own_lgd,
+            args["spread"], args["s"], args["v"], net.strikes, net.weights,
+            net.r, net.t, net.n_grid)
+
+    # K43 and the runtime-m kernel on the CLI's all-long set: CVA and FCA
+    # against the closed form, DVA, FBA and the ENE profile 0,
+    # each EPE node within 4 of its standard errors of its martingale value
+    # (the exposure's deviation per node from the float64 oracle at 2^18).
+    msgs = []
+    for m in (3, 16):
+        xs = xva_spec(cva_multi_spec(m, 50))
+        res = mt.price_xva(xs, n, SEED)
+        legs = [float(x) for x in closed(xs)]
+        zc = within_sigma(res.cva.price, legs[0], res.cva.std_error,
+                          f"xva m={m} cva")
+        zf = within_sigma(res.fca.price, legs[2], res.fca.std_error,
+                          f"xva m={m} fca")
+        check(zero(res.dva.price) and zero(res.fba.price)
+              and zero(res.ene_profile),
+              f"xva m={m}: the all-long set has a bank-side leg")
+        net = xs.netting
+        c0 = float(torch.sum(torch.as_tensor(net.weights) * mcmath.bs_call(
+            torch.as_tensor(net.s), torch.as_tensor(net.strikes), net.r,
+            torch.as_tensor(net.v), net.t)))
+        tj = torch.arange(1, 51, dtype=torch.float64) / 50
+        ora = xva_oracle(xs, 1 << 18, SEED + m, "cuda")
+        zee = float(((res.epe_profile - c0 * torch.exp(net.r * tj)).abs()
+                     / (ora["epe_sd"] / math.sqrt(res.cva.n))).max())
+        check(zee < N_SIGMA, f"xva m={m}: EPE profile {zee:.2f} standard "
+                             "errors off its martingale value")
+        msgs.append(f"m={m} ({'K43' if m <= 8 else 'runtime-m'}) cva "
+                    f"{float(res.cva.price):.6f} (z={zc:.2f}), fca "
+                    f"{float(res.fca.price):.6f} (z={zf:.2f}), EPE max |z| "
+                    f"{zee:.2f}")
+    phase("xva-path", "CLI set 2^20 n_grid=50 vs the closed form: "
+          + "; ".join(msgs))
+
+    # The all-short set: DVA and FBA against the closed form, CVA, FCA and
+    # the EPE profile 0.
+    short = xva_spec(dataclasses.replace(cva_multi_spec(3, 50),
+                                         weights=np.full(3, -1.0 / 3)))
+    res = mt.price_xva(short, n, SEED)
+    legs = [float(x) for x in closed(short)]
+    zd = within_sigma(res.dva.price, legs[1], res.dva.std_error, "xva dva")
+    zb = within_sigma(res.fba.price, legs[3], res.fba.std_error, "xva fba")
+    check(zero(res.cva.price) and zero(res.fca.price)
+          and zero(res.epe_profile),
+          "xva: the all-short set has a counterparty-side leg")
+
+    # The mixed-sign sets against the float64 oracle at 2^20: every leg.
+    zs = []
+    for m in (2, 9):
+        xs = xva_spec(cva_multi_spec(m, 50, mixed=True))
+        res = mt.price_xva(xs, n, SEED)
+        ora = xva_oracle(xs, n, SEED, "cuda")
+        for leg in ("cva", "dva", "fca", "fba"):
+            r = getattr(res, leg)
+            price, se = ora[leg]
+            z = abs(float(r.price) - price) / math.hypot(float(r.std_error),
+                                                         se)
+            check(z < N_SIGMA, f"xva mixed m={m} {leg}: "
+                               f"{float(r.price):.6f} vs oracle {price:.6f} "
+                               f"({z:.2f} combined se)")
+            zs.append(z)
+
+    # No own default, no funding: the CVA leg is price_cva_multi's (K40)
+    # bit for bit, its CI and EPE profile too.
+    net = cva_multi_spec(3, 50)
+    a = mt.price_xva(xva_spec(net, own=0.0, spread=0.0), n, SEED)
+    b = mt.price_cva_multi(net, n, SEED)
+    check(float(a.cva.price) == float(b.cva) and float(a.cva.ci) == float(
+        b.ci) and torch.equal(a.epe_profile, b.expected_exposure),
+          "xva at no own default and no funding is not price_cva_multi's")
+
+    # One run at 100 underlyings (runtime-m K43, 12 nodes, 2^16 paths).
+    x100 = xva_spec(cva_multi_spec(100, 12))
+    r100 = mt.price_xva(x100, 1 << 16, SEED)
+    z100 = within_sigma(r100.cva.price, float(closed(x100)[0]),
+                        r100.cva.std_error, "xva m=100 cva")
+    phase("xva-path", f"all-short m=3: dva z={zd:.2f}, fba z={zb:.2f}, "
+          f"cva = fca = 0; mixed m=2 (K43) and m=9 (runtime-m) vs float64 "
+          f"oracle at 2^20: max z {max(zs):.2f}; no own default and no "
+          f"funding: cva {float(a.cva.price):.6f} equals price_cva_multi's; "
+          f"m=100 2^16 n_grid=12 (runtime-m) cva z={z100:.2f}")
+
+    # K44 and its runtime-m kernel on the JAX Greeks CLI's set (12 nodes,
+    # 2^20): every output within 4 se of the closed form and its autograd.
+    msgs = []
+    for m in (3, 16):
+        xs = xva_spec(cva_greeks_cli_spec(m))
+        g = mt.greeks_xva(xs, n, SEED)
+        net = xs.netting
+        drv = {k: torch.tensor(np.asarray(x, np.float64), requires_grad=True)
+               for k, x in (("intensity", net.intensity),
+                            ("own", xs.own_intensity),
+                            ("spread", xs.funding_spread), ("s", net.s),
+                            ("v", net.v))}
+        cva, dva, fca, fba = closed(xs, **drv)
+
+        def grad(y, x):
+            (gx,) = torch.autograd.grad(y, drv[x], retain_graph=True,
+                                        allow_unused=True)
+            return torch.zeros_like(drv[x]) if gx is None else gx
+
+        zs = []
+        for got, want in zip((g.cva, g.dva, g.fca, g.fba),
+                             (cva, dva, fca, fba)):
+            if float(want.detach()) == 0.0:
+                check(zero(got.price), f"K44 m={m}: a leg the set never "
+                                       "reaches is not 0")
+            else:
+                zs.append(within_sigma(got.price, float(want.detach()),
+                                       got.std_error, f"K44 m={m} leg"))
+        for got, want, what in (
+                (g.credit_cpty, grad(cva, "intensity"), "credit_cpty"),
+                (g.funding, grad(fca - fba, "spread"), "funding")):
+            zs.append(within_sigma(got.price, float(want), got.std_error,
+                                   f"K44 m={m} {what}"))
+        check(zero(g.credit_own.price) and float(grad(dva, "own")) == 0.0,
+              f"K44 m={m}: credit_own of an all-long set is not 0")
+        total = cva - dva + fca - fba
+        ds, dv = grad(total, "s"), grad(total, "v")
+        for j in range(m):
+            zs.append(within_sigma(g.delta.price[j], float(ds[j]),
+                                   g.delta.std_error[j],
+                                   f"K44 m={m} delta_{j}"))
+            zs.append(within_sigma(g.vega.price[j], float(dv[j]),
+                                   g.vega.std_error[j],
+                                   f"K44 m={m} vega_{j}"))
+        msgs.append(f"m={m} ({'K44' if m <= 8 else 'runtime-m'}) max z "
+                    f"{max(zs):.2f}")
+    phase("xva-path", "Greeks CLI set 2^20 n_grid=12 vs autograd of the "
+          "closed form: " + "; ".join(msgs))
+
+    # K44 on tests/test_xva.py's mixed pair (w 1/-0.8, 25 nodes) against
+    # central CRN bumps of price_xva at that test's limits.
+    mixed = xva_spec(dataclasses.replace(cva_multi_spec(2, 25, mixed=True),
+                                         weights=np.array([1.0, -0.8])))
+    g = mt.greeks_xva(mixed, n, SEED)
+
+    def total(field, h):
+        vals = np.asarray(getattr(mixed.netting, field), float).copy()
+        vals[0] += h
+        sp = dataclasses.replace(mixed, netting=dataclasses.replace(
+            mixed.netting, **{field: vals}))
+        r = mt.price_xva(sp, n, SEED)
+        return (float(r.cva.price) - float(r.dva.price)
+                + float(r.fca.price) - float(r.fba.price))
+
+    zs = []
+    for field, h, allow, got in (("s", 0.25, 2e-4, g.delta),
+                                 ("v", 0.005, 5e-3, g.vega)):
+        fd = (total(field, h) - total(field, -h)) / (2 * h)
+        se = float(got.std_error[0])
+        check(abs(float(got.price[0]) - fd) < 6 * se + allow,
+              f"K44 mixed {field}: {float(got.price[0]):.6f} vs CRN bump "
+              f"{fd:.6f} (se {se:.2e})")
+        zs.append(abs(float(got.price[0]) - fd) / se)
+    phase("xva-path", "Greeks mixed pair w 1/-0.8 2^20 n_grid=25 (K44) vs "
+          f"CRN bumps of price_xva: delta_0, vega_0 |z| {zs[0]:.2f}, "
+          f"{zs[1]:.2f}")
 
 
 def rainbow_path(mt) -> None:
@@ -2495,12 +2753,13 @@ def main() -> int:
                 krainbow.partials(ops, SEED, 0, plan, nb)),
                 f"K38 {tag}: price sums differ from K36's")
 
-    # The netting-set CVA: K40 and K42 at 1, 2, 3 and 8 underlyings, K39 at
-    # 9, 16 and 100 (the mixed-sign legs at 2, 8, 9 and 100, the CLI's
-    # all-long set at 1, 3 and 16), 13 nodes (the trailing half pair),
-    # antithetic and Kahan rotated over the sizes; the EE profile at RTOL
-    # (its warp-then-block order against the plain version's sum over the
-    # block); K42's CVA sums equal K40's bit for bit.
+    # The netting-set CVA: K40 and K42 at 1, 2, 3 and 8 underlyings, K39
+    # and K41 at 9, 16 and 100 (the mixed-sign legs at 2, 8, 9 and 100, the
+    # CLI's all-long set at 1, 3 and 16), 13 nodes (the trailing half
+    # pair), antithetic and Kahan rotated over the sizes; the EE profile at
+    # RTOL (its warp-then-block order against the plain version's sum over
+    # the block); K42's CVA sums equal K40's bit for bit, K41's K39's at
+    # 1e-5 (the two forms of a leg).
     for ka, (m, mixed) in enumerate(((1, False), (2, True), (3, False),
                                      (8, True), (9, True), (16, False),
                                      (100, True))):
@@ -2515,17 +2774,74 @@ def main() -> int:
         contract(f"{'K40' if m <= 8 else 'K39'} {tag}",
                  lambda off, n: kcm.partials(cops, SEED, off, plan, n),
                  lambda off, n: kcm.plain_partials(cops, SEED, off, plan, n))
-        if m > 8:
-            continue
-        contract(f"K42 {tag}",
-                 lambda off, n: mw_pairs(kcm.greek_partials(cops, SEED, off,
+        gops = kcm.operands(cspec, mcmath.cholesky_lower(cspec.corr), dev,
+                            greeks=True)
+        kid = "K42" if m <= 8 else "K41"
+        contract(f"{kid} {tag}",
+                 lambda off, n: mw_pairs(kcm.greek_partials(gops, SEED, off,
                                                             plan, n)),
                  lambda off, n: mw_pairs(kcm.greek_plain_partials(
-                     cops, SEED, off, plan, n)), units=units(plan))
-        gsum = kcm.greek_partials(cops, SEED, 0, plan, nb)[0]
-        check(torch.equal(gsum[:, :2],
-                          kcm.partials(cops, SEED, 0, plan, nb)[0]),
-              f"K42 {tag}: CVA sums differ from K40's")
+                     gops, SEED, off, plan, n)), units=units(plan))
+        gsum = kcm.greek_partials(gops, SEED, 0, plan, nb)[0][:, :2]
+        price = kcm.partials(cops, SEED, 0, plan, nb)[0]
+        if m <= 8:
+            check(torch.equal(gsum, price),
+                  f"K42 {tag}: CVA sums differ from K40's")
+        else:
+            close = (gsum.double() - price.double()).abs() <= (
+                1e-5 * price.double().abs())
+            check(bool(close.all()), f"K41 {tag}: CVA sums beyond 1e-5 "
+                                     "of K39's")
+
+    # The bilateral xVA: K43 and K44 at 1, 2 (mixed), 3 and 8 (mixed), their
+    # runtime-m kernels at 9 (mixed) and 16 and forced at 3 (mixed), 13
+    # nodes, antithetic and Kahan rotated; the profiles at RTOL; at
+    # own_intensity = 0 and funding_spread = 0 K43's CVA sums and EPE
+    # profile equal K40's bit for bit.
+    for ka, (m, mixed, wide) in enumerate(((1, False, None), (2, True, None),
+                                           (3, False, None), (8, True, None),
+                                           (9, True, None), (16, False, None),
+                                           (3, True, True))):
+        anti, kahan = mw_variants[ka % 3]
+        xs = xva_spec(cva_multi_spec(m, 13, mixed))
+        chol = mcmath.cholesky_lower(xs.netting.corr)
+        xops = kcm.xva_operands(xs, chol, dev)
+        xgops = kcm.xva_operands(xs, chol, dev, greeks=True)
+        plan = kcm.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                             nb, rows, anti, kahan, n_underlyings=1)
+        wide_run = wide or m > 8
+        tag = (f"m={m}{' mixed' if mixed else ''}"
+               f"{' runtime-m' if wide_run else ''}"
+               f"{' antithetic' if anti else ''}{'' if kahan else ' f32'}")
+        contract(f"K43 {tag}",
+                 lambda off, n: kcm.xva_partials(xops, SEED, off, plan, n,
+                                                 wide=wide),
+                 lambda off, n: kcm.xva_plain_partials(xops, SEED, off, plan,
+                                                       n))
+        contract(f"K44 {tag}",
+                 lambda off, n: mw_pairs(kcm.xva_greek_partials(
+                     xgops, SEED, off, plan, n, wide=wide)),
+                 lambda off, n: mw_pairs(kcm.xva_greek_plain_partials(
+                     xgops, SEED, off, plan, n)), units=units(plan))
+        if wide:  # the runtime-m kernels against K43's and K44's M = 3
+            for got, want in zip(kcm.xva_partials(xops, SEED, 0, plan, nb,
+                                                  wide=True),
+                                 kcm.xva_partials(xops, SEED, 0, plan, nb)):
+                close_rtol(got, want, f"K43 {tag} vs M=3")
+            close_pairs(mw_pairs(kcm.xva_greek_partials(
+                xgops, SEED, 0, plan, nb, wide=True)),
+                mw_pairs(kcm.xva_greek_partials(xgops, SEED, 0, plan, nb)),
+                units(plan), RTOL, f"K44 {tag} vs M=3")
+        if m <= 8 and not wide:
+            zs = xva_spec(xs.netting, own=0.0, spread=0.0)
+            zsum, zprof = kcm.xva_partials(kcm.xva_operands(zs, chol, dev),
+                                           SEED, 0, plan, nb)
+            cops = kcm.operands(zs.netting, chol, dev)
+            csum, cprof = kcm.partials(cops, SEED, 0, plan, nb)
+            check(torch.equal(zsum[:, :2], csum)
+                  and torch.equal(zprof[:, 0], cprof),
+                  f"K43 {tag}: the CVA sums or EPE profile at no own "
+                  "default and no funding differ from K40's")
 
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
@@ -2699,11 +3015,20 @@ def main() -> int:
     launches.update(read_counts(CVA_MULTI_KERNELS))
     phase("cva-multi-path", f"done in {time.perf_counter() - t_cm:.1f} s")
 
+    # ---- 4l. the bilateral xVA path at full width -------------------------
+    reset_counts()
+    t_xva = time.perf_counter()
+    xva_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(XVA_KERNELS))
+    phase("xva-path", f"done in {time.perf_counter() - t_xva:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
                    + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
-                   + MULTI_WALK_KERNELS + RAINBOW_KERNELS + CVA_MULTI_KERNELS)
+                   + MULTI_WALK_KERNELS + RAINBOW_KERNELS + CVA_MULTI_KERNELS
+                   + XVA_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -2723,13 +3048,14 @@ def main() -> int:
 
     def estimates(outs, plan, disc):
         """The price (the ``(B, 2K)`` ladder's or book's prices, and, for
-        CVA, the EE profile) the engine forms from these partials."""
+        CVA and xVA, the exposure profiles) the engine forms from these
+        partials."""
         sums = pairwise_tree_sum(outs[0].double(), 0).cpu()
         vals = [mcest.estimate(sums[0::2], sums[1::2], plan.total_units,
                                discount=disc).price.reshape(-1)]
         if len(outs) > 1:
             vals.append(pairwise_tree_sum(outs[1].double(), 0).cpu()
-                        / plan.total_units)
+                        .reshape(-1) / plan.total_units)
         return torch.cat(vals)
 
     def greek_estimates(outs, plan, disc, fold=None):
@@ -3163,16 +3489,29 @@ def main() -> int:
 
     # The netting-set CVA path's shapes, 2^20 paths: the JAX exotic CLI's
     # set at 3 underlyings (K40) and 16 (K39), 50 nodes; the JAX Greeks
-    # CLI's set (K42), 12 nodes.
+    # CLI's set at 3 (K42) and --assets 16 (K41), 12 nodes.
     cm_cells = (
         ("cva_multi_am", "cva_multi.py:780", cva_multi_spec(3, 50)),
         ("cva_multi_packed", "cva_multi.py:201", cva_multi_spec(16, 50)),
-        ("cva_multi_greeks_am", "cva_multi.py:986", cva_greeks_cli_spec()))
+        ("cva_multi_greeks_am", "cva_multi.py:986", cva_greeks_cli_spec()),
+        ("cva_multi_greeks_packed", "cva_multi.py:508",
+         cva_greeks_cli_spec(16)))
     for kname, replaces, cspec in cm_cells:
         m, g = cspec.n_underlyings, cspec.n_grid
-        greek = kname == "cva_multi_greeks_am"
-        plan, cops = engine.price_cva_multi_setup(cspec, 1 << 20, cfg)
+        greek = "greeks" in kname
+        fold = None
         if greek:
+            plan, cops = engine.greeks_cva_multi_setup(cspec, 1 << 20, cfg)
+        else:
+            plan, cops = engine.price_cva_multi_setup(cspec, 1 << 20, cfg)
+        if greek and not kbasket.use_asset_major(m):
+            a_tile, c, _ = kbasket.pack_factor(m)
+            fold = (c, a_tile, m)
+            kernel = (lambda o=cops, p=plan: kcm.greek_partials(
+                o, SEED, 0, p, p.num_blocks))
+            pl = (lambda o=cops, p=plan: kcm.greek_plain_partials(
+                o, SEED, 0, p, p.num_blocks))
+        elif greek:
             kernel = (lambda o=cops, p=plan: mw_pairs(kcm.greek_partials(
                 o, SEED, 0, p, p.num_blocks)))
             pl = (lambda o=cops, p=plan: mw_pairs(kcm.greek_plain_partials(
@@ -3187,6 +3526,41 @@ def main() -> int:
               cva_work(kname, plan, m, g),
               in_bytes=4 * sum(x.numel() for x in (cops.scal, cops.lt,
                                                    cops.par, cops.nodes)),
+              units=gunits(plan) if greek else None, fold=fold,
+              plain_reps=3)
+
+    # The xVA path's shapes, 2^20 paths: the JAX exotic CLI's --product xva
+    # at 3 underlyings (K43) and 16 (its runtime-m kernel), 50 nodes; the
+    # JAX Greeks CLI's at 3 (K44) and 16 (runtime-m), 12 nodes.  mctpu has
+    # no Pallas kernel past 8 underlyings: the runtime-m kernels stand in
+    # for K43 and K44 there.
+    xva_cells = (
+        ("xva_am", "cva_multi.py:1189", xva_spec(cva_multi_spec(3, 50))),
+        ("xva_wide", "cva_multi.py:1189", xva_spec(cva_multi_spec(16, 50))),
+        ("xva_greeks_am", "cva_multi.py:1471",
+         xva_spec(cva_greeks_cli_spec(3))),
+        ("xva_greeks_wide", "cva_multi.py:1471",
+         xva_spec(cva_greeks_cli_spec(16))))
+    for kname, replaces, xs in xva_cells:
+        m, g = xs.netting.n_underlyings, xs.netting.n_grid
+        greek = "greeks" in kname
+        setup = engine.greeks_xva_setup if greek else engine.price_xva_setup
+        plan, xops = setup(xs, 1 << 20, cfg)
+        if greek:
+            kernel = (lambda o=xops, p=plan: mw_pairs(kcm.xva_greek_partials(
+                o, SEED, 0, p, p.num_blocks)))
+            pl = (lambda o=xops, p=plan: mw_pairs(
+                kcm.xva_greek_plain_partials(o, SEED, 0, p, p.num_blocks)))
+        else:
+            kernel = (lambda o=xops, p=plan: kcm.xva_partials(
+                o, SEED, 0, p, p.num_blocks))
+            pl = (lambda o=xops, p=plan: kcm.xva_plain_partials(
+                o, SEED, 0, p, p.num_blocks))
+        timed(kname, "mctpu_torch/csrc/cva_multi.cu",
+              f"mctpu/kernels/{replaces}", plan, g, 1.0, kernel, pl,
+              cva_work(kname, plan, m, g),
+              in_bytes=4 * sum(x.numel() for x in (xops.scal, xops.lt,
+                                                   xops.par, xops.nodes)),
               units=gunits(plan) if greek else None, plain_reps=3)
 
     # K37 at 100 assets on the plan rainbow_path gives it (c = 1, a

@@ -38,10 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # indicator, arg-extreme, the cliquet's band mask, the Heston walks'
 # truncation max(v, 0) and QE's branch switches, the basket walks' knock-out
 # and in-the-money indicator, the rainbow's arg-extreme asset, the netting
-# set's exercise indicator and positive part) fall on the same side (see
-# the head of csrc/asian.cu), and a deep out-of-the-money strike's
-# st - k and an antithetic pair's cancelling gamma terms are exact as
-# there (see the head of csrc/ladder.cu).
+# set's and the xVA's exercise indicator and positive part) fall on the
+# same side (see the head of csrc/asian.cu), and a deep out-of-the-money
+# strike's st - k and an antithetic pair's cancelling gamma terms are exact
+# as there (see the head of csrc/ladder.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
                              "cliquet.cu", "ladder.cu", "book.cu",
@@ -130,14 +130,23 @@ _SIGNATURES = {
     "mctpu_rainbow_am": (_P, _P, _P) + (_I,) * 9 + (_P, _P),
     "mctpu_rainbow_packed": (_P, _P, _P) + (_I,) * 11 + (_P, _P),
     "mctpu_rainbow_greeks": (_P, _P, _P, _P) + (_I,) * 9 + (_P, _P),
-    # The netting-set CVA (K40, K39, K42): scal, lt, par, nodes, n_under,
-    # n_grid, [K39: a_tile, width,] seed, off, n_blocks, rows, iters,
-    # antithetic, kahan, [K40, K39: scratch,] out, [K40, K39: ee,] stream
+    # The netting-set CVA (K40, K39, K42, K41): scal, lt, par, nodes,
+    # n_under, n_grid, [K39, K41: a_tile, width,] seed, off, n_blocks, rows,
+    # iters, antithetic, kahan, [K40, K39: scratch,] out, [K40, K39: ee,
+    # K41: vecs,] stream
     "mctpu_cva_multi_am": (_P,) * 4 + (_I,) * 9 + (_P,) * 4,
     "mctpu_cva_multi_packed": (_P,) * 4 + (_I,) * 11 + (_P,) * 4,
     "mctpu_cva_multi_greeks_am": (_P,) * 4 + (_I,) * 9 + (_P, _P),
+    "mctpu_cva_multi_greeks_packed": (_P,) * 4 + (_I,) * 11 + (_P,) * 3,
     # n_under, n_grid -> float count of one block's profile scratch
     "mctpu_cva_multi_scratch_floats": (_I, _I),
+    # The xVA (K43, K44 and their runtime-m kernels): scal, lt, par, nodes,
+    # n_under, n_grid, wide, seed, off, n_blocks, rows, iters, antithetic,
+    # kahan, scratch, out, [K43: prof,] stream
+    "mctpu_xva": (_P,) * 4 + (_I,) * 10 + (_P,) * 4,
+    "mctpu_xva_greeks": (_P,) * 4 + (_I,) * 10 + (_P,) * 3,
+    # n_under, n_grid, greeks, wide -> float count of one block's scratch
+    "mctpu_xva_scratch_floats": (_I,) * 4,
 }
 
 _lib = None

@@ -289,33 +289,34 @@ struct BlockAccN {
   }
 };
 
-// Adds one path's outputs q [p, gr, d.., v..] (the asset-major Greek
-// kernels' two scalars and A-vectors) to the per-thread sums, in the row
-// order [p, p2, gr, gr2, d.., d2.., v.., v2..] that the port's split_vec
-// reads.
-template <int A>
-__device__ __forceinline__ void add_greek_sums(const float (&q)[2 + 2 * A],
-                                               float (&v)[4 + 4 * A]) {
-  v[0] += q[0];
-  v[1] += q[0] * q[0];
-  v[2] += q[1];
-  v[3] += q[1] * q[1];
+// Adds one path's outputs q [S scalars, d.., v..] (the asset-major Greek
+// kernels' scalars, two but for K44's seven, and A-vectors) to the
+// per-thread sums, in the row order [p, p2, gr, gr2, .., d.., d2.., v..,
+// v2..] that the port's split_vec reads.
+template <int A, int S = 2>
+__device__ __forceinline__ void add_greek_sums(const float (&q)[S + 2 * A],
+                                               float (&v)[2 * S + 4 * A]) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    v[2 * k] += q[k];
+    v[2 * k + 1] += q[k] * q[k];
+  }
 #pragma unroll
   for (int i = 0; i < A; ++i) {
-    const float d = q[2 + i], w = q[2 + A + i];
-    v[4 + i] += d;
-    v[4 + A + i] += d * d;
-    v[4 + 2 * A + i] += w;
-    v[4 + 3 * A + i] += w * w;
+    const float d = q[S + i], w = q[S + A + i];
+    v[2 * S + i] += d;
+    v[2 * S + A + i] += d * d;
+    v[2 * S + 2 * A + i] += w;
+    v[2 * S + 3 * A + i] += w * w;
   }
 }
 
 // The antithetic pair's mean of each output, into q.
-template <int A>
-__device__ __forceinline__ void mirror_mean(float (&q)[2 + 2 * A],
-                                            const float (&m)[2 + 2 * A]) {
+template <int A, int S = 2>
+__device__ __forceinline__ void mirror_mean(float (&q)[S + 2 * A],
+                                            const float (&m)[S + 2 * A]) {
 #pragma unroll
-  for (int j = 0; j < 2 + 2 * A; ++j) q[j] = 0.5f * (q[j] + m[j]);
+  for (int j = 0; j < S + 2 * A; ++j) q[j] = 0.5f * (q[j] + m[j]);
 }
 
 }  // namespace mct

@@ -1,46 +1,59 @@
-// K39, K40 and K42: the netting-set CVA over correlated underlyings and its
-// asset-major Greeks.
+// K39-K44: the netting-set CVA over correlated underlyings, its Greeks and
+// the bilateral xVA with its Greeks.
 //
 // K40 replaces mctpu/kernels/cva_multi.py::_am_cva_multi_kernel (<= 8
-// underlyings), K39 ::_cva_multi_kernel (> 8, lane-packed) and K42
+// underlyings), K39 ::_cva_multi_kernel (> 8, lane-packed), K42
 // ::_am_cva_multi_greeks_kernel (CVA, credit delta and per-underlying delta
-// and vega, <= 8).
+// and vega, <= 8), K41 ::_cva_multi_greeks_kernel (the same, > 8,
+// lane-packed), K43 ::_am_xva_kernel (CVA, DVA, FCA, FBA and the EPE and
+// ENE profiles, <= 8) and K44 ::_am_xva_greeks_kernel (the legs, three
+// credit and funding sensitivities and the total xVA's per-underlying
+// delta and vega, <= 8).  Beyond 8 underlyings mctpu's engine sends the
+// xVA to a Threefry XLA twin; here runtime-m kernels of K43 and K44 serve
+// those sets on the asset-major Philox map extended to any m.
 //
 // Stream: per simulation block b and iteration i the key is reseeded with
 // (seed, (off + b) * iters + i) in int32 wrap; the antithetic mirror
-// replays it with the signs flipped.  Asset-major (K40, K42): tile element
-// e of a (rows, 128) tile is a path; pair jj draws Philox blocks (e, jj*M +
-// i) for underlying i (mct::walk_pairwise_multi), cosine branches for node
-// 2jj, sine branches for node 2jj+1.  Packed (K39): K31's map (packed.cuh),
-// path (row, p) owning lanes p*a_tile .. p*a_tile + m - 1.
+// replays it with the signs flipped.  Asset-major (K40, K42, K43, K44 and
+// the runtime-m kernels): tile element e of a (rows, 128) tile is a path;
+// pair jj draws Philox blocks (e, jj*M + i) for underlying i
+// (mct::walk_pairwise_multi), cosine branches for node 2jj, sine branches
+// for node 2jj+1.  Packed (K39, K41): K31's map (packed.cuh), path (row, p)
+// owning lanes p*a_tile .. p*a_tile + m - 1.
 //
 // Each node j: x_i += drift_i + vol_i bt_i with bt = L z (asset-major from
 // the first product, packed from 0), s_i = expf(x_i); each leg's value w_i
 // BS_hastings(s_i, k_i, v_i, tau_j), its intrinsic value at the last node
 // (tau = 0); the legs net and ee_j = max(net, 0) adds dp_j ee_j to the
-// path's default leg (times lgd at the end).  The two regimes price the leg
-// in their TPU kernels' two forms and keep each one's rounding: asset-major
-// (mctpu's _am_quants) d1 = (x - log k + (r + v^2/2) tau) * (1 / (v
-// sqrt(tau))); packed (bs_call_hastings) d1 = (log(s / k) + (r + v^2/2)
-// tau) / (v sqrt(tau)).  N(d1) and the density phi(d1) share one expf
-// (mct::norm_cdf_hastings_e): the argument is the same operation on both
-// sides.  K42 adds the vol tangents dxv_i += sqrt(dt) bt_i - v_i dt, the
-// exercise indicator I = 1{net > 0}, delta_i += dp_j I w_i N(d1) s_i and
-// vega_i += dp_j (I w_i N(d1) s_i dxv_i + I w_i s_i phi(d1) sqrt(tau))
-// (mctpu's _am_greek_step), and the credit delta ddp_j ee_j.
+// path's default leg (times lgd at the end).  The leg is priced in two
+// forms and each kernel keeps its TPU kernel's rounding: am_leg (mctpu's
+// _am_quants and _greek_node; K40-K44) d1 = (x - log k + (r + v^2/2) tau)
+// * (1 / (v sqrt(tau))); packed_leg (bs_call_hastings; K39) d1 = (log(s /
+// k) + (r + v^2/2) tau) / (v sqrt(tau)).  N(d1) and the density phi(d1)
+// share one expf (mct::norm_cdf_hastings_e): the argument is the same
+// operation on both sides.  K42 and K41 add the vol tangents dxv_i +=
+// sqrt(dt) bt_i - v_i dt, the exercise indicator I = 1{net > 0}, delta_i
+// += dp_j I w_i N(d1) s_i and vega_i += dp_j (I w_i N(d1) s_i dxv_i + I w_i
+// s_i phi(d1) sqrt(tau)) (mctpu's _am_greek_step and _greek_step), and the
+// credit delta ddp_j ee_j.  K43 adds ene_j = ee_j - net (no second clamp)
+// and four legs over its node tables; K44 weights the integrands by the
+// side-selected tw = (wc' + wf) I + (wd' + wf) (1 - I) and adds the three
+// sensitivities over the derivative tables.
 //
 // Built with -fmad=false (mctpu_torch/_build.py): the exercise indicator
 // and the positive part of the net are discontinuities, so each path must
 // round as the plain PyTorch version's separate multiplies and adds do.
-// K40 and K42 share am_node, the thread count and BlockAccN's reduction, so
-// K42's CVA sums equal K40's bit for bit.
+// K40, K42 and K43 share am_node, the thread count and BlockAccN's
+// reduction, so K42's CVA sums equal K40's bit for bit, and so do K43's
+// CVA sums and EPE profile where its CVA table is K40's (no own default).
 //
-// The expected-exposure profile: mctpu Kahan-adds (1/2 under antithetic)
+// The expected-exposure profiles: mctpu Kahan-adds (1/2 under antithetic)
 // the tile's sum of ee_j into an SMEM scalar per node.  Here (K4's design,
 // csrc/cva.cu) each node's exposures are reduced by a fixed warp-shuffle
 // tree, lane 0 adds the warp's sum into its own compensated slot (global
-// scratch, [warps][n_grid][2]), and the warps are combined in warp order:
-// no atomics, two launches give the same bits.
+// scratch, [warps][n_grid][2]; K43 [warps][2 n_grid][2], EPE then ENE),
+// and the warps are combined in warp order: no atomics, two launches give
+// the same bits.
 //
 // Bound on the H100: arithmetic.  Per path-node and underlying: half a
 // Philox block and a Box-Muller pair, three expf (the spot and the two
@@ -48,12 +61,14 @@
 // and of the two CDFs, the m(m+1)/2 multiply-adds of L z.  Simple design:
 // one CUDA block per simulation block (layout_for gives 32 at 2^20 paths,
 // so most of the 132 SMs idle, as with K4).  Asset-major: one thread per
-// path element striding over the tile, the walk state in registers (K42 at
-// m = 8: 8 log-spots, 8 tangents, 16 accumulators and 36 sums), L and the
-// per-leg rows in shared memory, the node tables read through the
-// read-only cache (every thread of a warp on the same node).  Packed: K31's
-// passes (packed.cuh), the log-spots and a pair of nodes' normals in shared
-// memory, one thread per packed path.
+// path element striding over the tile, the walk state in registers (K44 at
+// m = 8: 8 log-spots, 8 tangents, 16 accumulators, 7 legs and 46 sums), L
+// and the per-leg rows in shared memory, the node tables read through the
+// read-only cache (every thread of a warp on the same node).  Runtime m:
+// the same per thread, its state in global scratch.  Packed: K31's passes
+// (packed.cuh), the log-spots and a pair of nodes' normals in shared
+// memory, one thread per packed path; K41 adds K33's lane carries and its
+// halving tree over the rows.
 #include "common.cuh"
 #include "packed.cuh"
 
@@ -143,11 +158,52 @@ __device__ __forceinline__ void profile_write(const float* prof, int warps,
 
 // --------------------------------------------------------- K40, K42 (m <= 8)
 
+// One leg i of an asset-major node (mctpu's _am_quants) from its correlated
+// increment b: advances the log-spot x, sets the spot s and returns the
+// leg's signed value w BS (w (s - k)^+ at the last node, tau = 0); for the
+// Greeks also N(d1) (the in-the-money indicator at the last node) and
+// phi(d1) (0 there).  par rows (m each): log s0, drift dt, v sqrt(dt), v
+// dt, w, k, log k, v^2 / 2, v.  Shared by the kernels of every size (M <= 8
+// in registers, the runtime-m xVA kernels and K41 over shared or scratch
+// state), so they round alike.
+template <bool GREEKS>
+__device__ __forceinline__ float am_leg(float b, float& x, const float* par,
+                                        int m, int i, float r, const Node& nd,
+                                        float& s, float& nd1, float& phi) {
+  const float tau_safe = fmaxf(nd.tau, MCT_F32(1e-12));
+  const float sq_floor = fmaxf(nd.sqtau, MCT_F32(1e-6));
+  const float xi = x + par[m + i] + par[2 * m + i] * b;
+  const float si = expf(xi);
+  const float k = par[5 * m + i];
+  float val;
+  if (nd.tau <= 0.0f) {
+    val = par[4 * m + i] * fmaxf(si - k, 0.0f);
+    if (GREEKS) {
+      nd1 = si > k ? 1.0f : 0.0f;
+      phi = 0.0f;
+    }
+  } else {
+    const float sq = par[8 * m + i] * sq_floor;
+    const float d1 = (xi - par[6 * m + i] + (r + par[7 * m + i]) * tau_safe) *
+                     (1.0f / sq);
+    const float e = expf(MCT_F32(-0.5) * d1 * d1);
+    const float n1 = mct::norm_cdf_hastings_e(d1, e);
+    const float bs = si * n1 - k * nd.disc * mct::norm_cdf_hastings(d1 - sq);
+    val = par[4 * m + i] * bs;
+    if (GREEKS) {
+      nd1 = n1;
+      phi = INV_SQRT_2PI * e;
+    }
+  }
+  x = xi;
+  s = si;
+  return val;
+}
+
 // One asset-major node (mctpu's _am_quants and _am_net): advances x[M] with
 // the signed normals sgn * z, returns ee = max(net, 0) and, for the Greeks,
-// the per-leg bt, spots, delta factor N(d1) (the in-the-money indicator at
-// the last node) and density phi(d1) (0 there).  par rows (M each): log s0,
-// drift dt, v sqrt(dt), v dt, w, k, log k, v^2 / 2, v.
+// the per-leg bt, spots, delta factor N(d1) and density phi(d1)
+// (am_leg).
 template <int M, bool GREEKS>
 __device__ __forceinline__ float am_node(const float (&z)[M], float sgn,
                                          float (&x)[M], const float* lt,
@@ -155,42 +211,16 @@ __device__ __forceinline__ float am_node(const float (&z)[M], float sgn,
                                          const Node& nd, float (&bt)[M],
                                          float (&s)[M], float (&nd1)[M],
                                          float (&phi)[M], float& net) {
-  const bool last = nd.tau <= 0.0f;
-  const float tau_safe = fmaxf(nd.tau, MCT_F32(1e-12));
-  const float sq_floor = fmaxf(nd.sqtau, MCT_F32(1e-6));
   float value = 0.0f;
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     float b = lt[i * M] * (sgn * z[0]);
 #pragma unroll
     for (int j = 1; j <= i; ++j) b = b + lt[i * M + j] * (sgn * z[j]);
-    const float xi = x[i] + par[M + i] + par[2 * M + i] * b;
-    const float si = expf(xi);
-    const float k = par[5 * M + i];
-    float val;
-    if (last) {
-      val = par[4 * M + i] * fmaxf(si - k, 0.0f);
-      if (GREEKS) {
-        nd1[i] = si > k ? 1.0f : 0.0f;
-        phi[i] = 0.0f;
-      }
-    } else {
-      const float sq = par[8 * M + i] * sq_floor;
-      const float d1 = (xi - par[6 * M + i] + (r + par[7 * M + i]) * tau_safe) *
-                       (1.0f / sq);
-      const float e = expf(MCT_F32(-0.5) * d1 * d1);
-      const float n1 = mct::norm_cdf_hastings_e(d1, e);
-      const float bs = si * n1 - k * nd.disc * mct::norm_cdf_hastings(d1 - sq);
-      val = par[4 * M + i] * bs;
-      if (GREEKS) {
-        nd1[i] = n1;
-        phi[i] = INV_SQRT_2PI * e;
-      }
-    }
+    const float val =
+        am_leg<GREEKS>(b, x[i], par, M, i, r, nd, s[i], nd1[i], phi[i]);
     value = (i == 0) ? val : value + val;
-    x[i] = xi;
     bt[i] = b;
-    s[i] = si;
   }
   net = value;
   return fmaxf(value, 0.0f);
@@ -504,6 +534,706 @@ __global__ void __launch_bounds__(mct::PK_THREADS)
   acc.write(out);
 }
 
+// ------------------------------------------------------------- K41 (m > 8)
+
+// K41's block keeps in shared memory, per pass: both nodes' normals (2 np
+// ap), then per underlying and path of each sign the log-spot x, the vol
+// tangent dxv and the node's two integrands before the indicator (dval0 =
+// w s N(d1), vval0 = dval0 dxv + w s phi(d1) sqrt(tau)), then of each sign
+// the lane carries ad and av (lgd applied at the end), then K33's partial
+// rows and the block's lane rows (greek_shape).  After a pass's walk its
+// (dval, vval) leaves ([2][chunk_rows][width]) take the place of the
+// normals, x, dxv and the integrands, which span at least as many floats (2
+// ap + 4 a >= 2 a_tile); ad and av are read from past them.  The CVA and
+// credit legs stay in the path's thread.
+constexpr int K41_LANE_FLOATS = 6;
+
+// One node of K41's walk for packed path q and both signs (state pointers
+// st at q, stride np_max: x, dxv, dval0, vval0, ad, av of each sign):
+// bt = L z from 0 (the mirror's the negated sum), x += drift + vol bt,
+// dxv += sqrt(dt) bt - v dt, each leg in am_leg's form (mctpu's
+// _greek_node); the path's net from 0 over its real legs, ee = max(net, 0),
+// and the indicator 1{net > 0} on its lanes: ad += dp dval0 and av += dp
+// vval0 where it is 1.  That equals mctpu's ws = 1{net > 0} w s, dval = ws
+// N(d1), vval = dval dxv + ws phi sqrt(tau) bit for bit: where the
+// indicator is 0 its terms are zeros, which leave a sum unchanged.  par
+// rows as am_node's.
+template <bool ANTI>
+__device__ __forceinline__ void packed_greek_node(
+    const mct::Packed& P, const float* __restrict__ lt,
+    const float* __restrict__ par, float r, float sqdt, const Node& nd,
+    const float* z, float* const* st, float (&ee)[2]) {
+  const int a = P.a, np = P.np_max;
+  float net[2] = {0.0f, 0.0f};
+  for (int i = 0; i < a; ++i) {
+    const float* lrow = lt + i * a;
+    float sum = 0.0f;
+    for (int j = 0; j <= i; ++j) sum = sum + __ldg(lrow + j) * z[j];
+    const float vdt = __ldg(par + 3 * a + i), w = __ldg(par + 4 * a + i);
+    const int o = i * np;
+#pragma unroll
+    for (int sgn = 0; sgn < (ANTI ? 2 : 1); ++sgn) {
+      float* const* S = st + 6 * sgn;
+      const float b = sgn ? -sum : sum;
+      float x = S[0][o], s, nd1, phi;
+      const float val = am_leg<true>(b, x, par, a, i, r, nd, s, nd1, phi);
+      S[0][o] = x;
+      const float dxv = S[1][o] + sqdt * b - vdt;
+      S[1][o] = dxv;
+      const float ws = w * s;
+      const float dval = ws * nd1;
+      S[2][o] = dval;
+      S[3][o] = dval * dxv + ws * phi * nd.sqtau;
+      net[sgn] = net[sgn] + val;
+    }
+  }
+#pragma unroll
+  for (int sgn = 0; sgn < (ANTI ? 2 : 1); ++sgn) {
+    ee[sgn] = fmaxf(net[sgn], 0.0f);
+    if (!(net[sgn] > 0.0f)) continue;
+    float* const* S = st + 6 * sgn;
+    for (int i = 0; i < a; ++i) {
+      const int o = i * np;
+      S[4][o] = S[4][o] + nd.dp * S[2][o];
+      S[5][o] = S[5][o] + nd.dp * S[3][o];
+    }
+  }
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(mct::PK_THREADS)
+    cva_multi_greeks_packed_kernel(const float* __restrict__ scal,
+                                   const float* __restrict__ lt,
+                                   const float* __restrict__ par,
+                                   const float* __restrict__ nodes,
+                                   mct::Packed P, Launch L,
+                                   float* __restrict__ out,
+                                   float* __restrict__ vecs) {
+  constexpr int THREADS = mct::PK_THREADS;
+  constexpr int NS = ANTI ? 2 : 1;  // signs
+  extern __shared__ float smem[];
+  const int np = P.np_max, a = P.a, W = P.width, nr = P.chunk_rows;
+  float* z1s = smem;
+  float* z2s = z1s + np * P.ap;
+  float* walk = z2s + np * P.ap;          // x, dxv, dval0, vval0 a sign
+  float* carry = walk + 4 * NS * a * np;  // ad, av a sign
+  float* part = carry + 2 * NS * a * np;  // [n_chunks][4][W]
+  float* vec = part + 4 * P.n_chunks * W;  // [4][W]
+  float* leaf = smem;  // [2][nr][W], per pass, over the normals and walk
+  float* st[6 * NS];   // per sign: x, dxv, dval0, vval0, ad, av
+  for (int sgn = 0; sgn < NS; ++sgn) {
+    for (int u = 0; u < 4; ++u) st[6 * sgn + u] = walk + (4 * sgn + u) * a * np;
+    st[6 * sgn + 4] = carry + 2 * sgn * a * np;
+    st[6 * sgn + 5] = carry + (2 * sgn + 1) * a * np;
+  }
+  __shared__ float sh[(THREADS / 32) * 4];
+  const float r = scal[0], lgd = scal[1], sqdt = scal[2];
+  for (int u = threadIdx.x; u < 4 * W; u += THREADS) vec[u] = 0.0f;
+  const int q = threadIdx.x;
+  mct::BlockAccN<THREADS, 4, KAHAN> acc;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < L.iters; ++i) {
+    const mct::Key key = iter_key(L, i);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      for (int u = threadIdx.x; u < a * np; u += THREADS) {
+        const float x0 = __ldg(par + u / np);
+#pragma unroll
+        for (int sgn = 0; sgn < NS; ++sgn) {
+          st[6 * sgn][u] = x0;
+          st[6 * sgn + 1][u] = 0.0f;
+          st[6 * sgn + 4][u] = 0.0f;
+          st[6 * sgn + 5][u] = 0.0f;
+        }
+      }
+      float cva[2] = {0.0f, 0.0f}, cr[2] = {0.0f, 0.0f};  // before lgd
+      const int pairs = (L.g + 1) / 2;
+      for (int jj = 0; jj < pairs; ++jj) {
+        mct::draw_pass<THREADS>(P, key, L.rows, c0, jj, z1s, z2s);
+        __syncthreads();
+        if (q < np) {
+          float* sq[6 * NS];  // this path's state
+          for (int u = 0; u < 6 * NS; ++u) sq[u] = st[u] + q;
+          const int dates = min(2, L.g - 2 * jj);
+          for (int date = 0; date < dates; ++date) {
+            const Node nd = node_at(nodes, L.g, 2 * jj + date);
+            float ee[2];
+            packed_greek_node<ANTI>(P, lt, par, r, sqdt, nd,
+                                    (date ? z2s : z1s) + q * P.ap, sq, ee);
+#pragma unroll
+            for (int sgn = 0; sgn < NS; ++sgn) {
+              cva[sgn] = cva[sgn] + nd.dp * ee[sgn];
+              cr[sgn] = cr[sgn] + nd.ddp * ee[sgn];
+            }
+          }
+        }
+        __syncthreads();
+      }
+      // The (cva, credit) sums and the (dval, vval) leaves of each path's
+      // lanes (mctpu's lgd-scaled tiles, the mirror's averaged in); padded
+      // lanes get exact zeros.
+      if (q < np) {
+        float c = lgd * cva[0], d = lgd * cr[0];
+        if (ANTI) {
+          c = 0.5f * (c + lgd * cva[1]);
+          d = 0.5f * (d + lgd * cr[1]);
+        }
+        v[0] += c;
+        v[1] += c * c;
+        v[2] += d;
+        v[3] += d * d;
+        const int rl = q / P.c;
+        const int lane0 = (q - rl * P.c) * P.a_tile;
+        float* ld = leaf + rl * W + lane0;
+        float* lv = leaf + (nr + rl) * W + lane0;
+        for (int m = 0; m < P.a_tile; ++m) {
+          float dval = 0.0f, vval = 0.0f;
+          if (m < a) {
+            const int o = m * np + q;
+            dval = lgd * st[4][o];
+            vval = lgd * st[5][o];
+            if constexpr (ANTI) {
+              dval = 0.5f * (dval + lgd * st[10][o]);
+              vval = 0.5f * (vval + lgd * st[11][o]);
+            }
+          }
+          ld[m] = dval;
+          lv[m] = vval;
+        }
+      }
+      __syncthreads();
+      mct::pass_tree(P, c0, leaf, part);
+      __syncthreads();
+    }
+    mct::fold_passes(P, part, vec);
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+  for (int u = threadIdx.x; u < 4 * W; u += THREADS) {
+    vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
+  }
+}
+
+// -------------------------------------------------- K43, K44 (m <= 8)
+
+// The maturity rows of an xVA table: tau, sqrt(tau), exp(-r tau) at rows
+// first, first + 1, first + 2 of a (rows, g) table.
+__device__ __forceinline__ Node tail_node(const float* __restrict__ nodes,
+                                          int g, int j, int first) {
+  return Node{0.0f, 0.0f, __ldg(nodes + first * g + j),
+              __ldg(nodes + (first + 1) * g + j),
+              __ldg(nodes + (first + 2) * g + j)};
+}
+
+__device__ __forceinline__ float row_at(const float* __restrict__ nodes,
+                                        int g, int row, int j) {
+  return __ldg(nodes + row * g + j);
+}
+
+// The four xVA legs' node adds (mctpu's _am_xva_step): epe and ene =
+// epe - net (no second clamp) times the node weights of K43's table rows
+// w_cva, w_dva, w_fnd (K44's, with the LGDs folded in).
+__device__ __forceinline__ void xva_legs_add(const float* __restrict__ nodes,
+                                             int g, int j, float epe,
+                                             float ene, float (&leg)[4]) {
+  const float wf = row_at(nodes, g, 2, j);
+  leg[0] = leg[0] + row_at(nodes, g, 0, j) * epe;
+  leg[1] = leg[1] + row_at(nodes, g, 1, j) * ene;
+  leg[2] = leg[2] + wf * epe;
+  leg[3] = leg[3] + wf * ene;
+}
+
+// One K43 walk of tile element e and sign sgn: the legs (before the LGDs)
+// into leg; each node's epe and ene go to the warp's profile slots j and g
+// + j.  nodes (6, g): w_cva, w_dva, w_fnd, tau, sqrt(tau), disc.
+template <int M>
+__device__ __forceinline__ void am_xva_walk(const float* lt, const float* par,
+                                            const float* nodes, float r,
+                                            int g, mct::Key key, uint32_t e,
+                                            float sgn, float half_w,
+                                            float* wprof, int lane,
+                                            float (&leg)[4]) {
+  float x[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) x[i] = par[i];
+  leg[0] = leg[1] = leg[2] = leg[3] = 0.0f;
+  mct::walk_pairwise_multi<M>(key, e, g, [&](int j, const float(&z)[M]) {
+    float bt[M], s[M], nd1[M], phi[M], net;
+    const float epe = am_node<M, false>(z, sgn, x, lt, par, r,
+                                        tail_node(nodes, g, j, 3), bt, s, nd1,
+                                        phi, net);
+    const float ene = epe - net;
+    xva_legs_add(nodes, g, j, epe, ene, leg);
+    profile_add(wprof, j, half_w, epe, lane);
+    profile_add(wprof, g + j, half_w, ene, lane);
+  });
+}
+
+// The legs of one element's walk (or its antithetic pair's mean) with the
+// LGDs applied at the walk's end, added to the per-thread (x, x^2) sums.
+__device__ __forceinline__ void xva_leg_sums(const float (&a)[4],
+                                             const float* mirror, float lgd,
+                                             float olgd, float (&v)[8]) {
+  float leg[4] = {lgd * a[0], olgd * a[1], a[2], a[3]};
+  if (mirror != nullptr) {
+    const float m[4] = {lgd * mirror[0], olgd * mirror[1], mirror[2],
+                        mirror[3]};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) leg[k] = 0.5f * (leg[k] + m[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] += leg[k];
+    v[2 * k + 1] += leg[k] * leg[k];
+  }
+}
+
+// K43: K40's walk, threads, element loop and profile slots with 8 sums and
+// two profiles (scratch [warps][2g][2]), so at own_intensity = 0 and
+// funding_spread = 0 (w_cva = dp) its CVA sums and EPE profile are K40's
+// bit for bit.  scal: r, lgd, own_lgd, sqrt(dt).
+template <int M, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(am_threads<M>())
+    xva_am_kernel(const float* __restrict__ scal,
+                  const float* __restrict__ lt_g,
+                  const float* __restrict__ par_g,
+                  const float* __restrict__ nodes, Launch L,
+                  float* __restrict__ scratch, float* __restrict__ out,
+                  float* __restrict__ prof_out) {
+  constexpr int THREADS = am_threads<M>();
+  constexpr int WARPS = THREADS / 32;
+  __shared__ float lt[M * M], par[9 * M], sh[WARPS * 8];
+  stage<THREADS>(lt, lt_g, M * M);
+  stage<THREADS>(par, par_g, 9 * M);
+  const int g2 = 2 * L.g;
+  float* prof = scratch + static_cast<size_t>(blockIdx.x) * WARPS * g2 * 2;
+  profile_zero<THREADS>(prof, WARPS * g2 * 2);
+  __syncthreads();
+  const float r = scal[0], lgd = scal[1], olgd = scal[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* wprof = prof + warp * g2 * 2;
+  const float half_w = ANTI ? 0.5f : 1.0f;
+  const int n_elems = L.rows * mct::LANES;
+  mct::BlockAccN<THREADS, 8, KAHAN> acc;
+  float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < L.iters; ++i) {
+    const mct::Key key = iter_key(L, i);
+    for (int base = 0; base < n_elems; base += THREADS) {
+      if (base + warp * 32 >= n_elems) continue;  // as K40: whole warps
+      const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
+      float a[4], m[4];
+      am_xva_walk<M>(lt, par, nodes, r, L.g, key, e, 1.0f, half_w, wprof,
+                     lane, a);
+      if (ANTI) {
+        am_xva_walk<M>(lt, par, nodes, r, L.g, key, e, -1.0f, half_w, wprof,
+                       lane, m);
+      }
+      xva_leg_sums(a, ANTI ? m : nullptr, lgd, olgd, v);
+    }
+    acc.add(v, nullptr, sh);
+  }
+  __syncthreads();
+  profile_write<THREADS>(prof, WARPS, g2, prof_out);
+  acc.write(out);
+}
+
+// The xVA Greek node's adds (mctpu's _am_xva_greek_step) after the legs'
+// values: the total-xVA weight tw = (wc' + wf) 1{net > 0} + (wd' + wf)
+// (1 - 1{net > 0}) on each underlying's pathwise integrands, the legs, and
+// the three sensitivities dwc' epe, dwd' ene, dwf (epe - ene).  nodes (9,
+// g): wc' = lgd w_cva, wd' = own_lgd w_dva, wf, dwc', dwd', dwf, tau,
+// sqrt(tau), disc.  q: [legs 4, sens 3].
+__device__ __forceinline__ float xva_greek_weight(
+    const float* __restrict__ nodes, int g, int j, float epe, float net,
+    float (&q)[7]) {
+  const float ene = epe - net;
+  const float ind = net > 0.0f ? 1.0f : 0.0f;
+  const float wc = row_at(nodes, g, 0, j), wd = row_at(nodes, g, 1, j);
+  const float wf = row_at(nodes, g, 2, j);
+  const float tw = (wc + wf) * ind + (wd + wf) * (1.0f - ind);
+  q[0] = q[0] + wc * epe;
+  q[1] = q[1] + wd * ene;
+  q[2] = q[2] + wf * epe;
+  q[3] = q[3] + wf * ene;
+  q[4] = q[4] + row_at(nodes, g, 3, j) * epe;
+  q[5] = q[5] + row_at(nodes, g, 4, j) * ene;
+  q[6] = q[6] + row_at(nodes, g, 5, j) * (epe - ene);
+  return tw;
+}
+
+// One K44 walk of tile element e and sign sgn: q = [cva, dva, fca, fba,
+// dCVA/dlambda_C, dDVA/dlambda_B, dFVA/dspread, delta_0.., vega_0..]
+// (before the host's 1 / s0).  sc: r, lgd, own_lgd, sqrt(dt).
+template <int M>
+__device__ __forceinline__ void am_xva_greek_walk(const float* lt,
+                                                  const float* par,
+                                                  const float* nodes,
+                                                  const float* sc, int g,
+                                                  mct::Key key, uint32_t e,
+                                                  float sgn,
+                                                  float (&q)[7 + 2 * M]) {
+  const float r = sc[0], sqdt = sc[3];
+  float x[M], dxv[M], ad[M], av[M], sc7[7];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    x[i] = par[i];
+    dxv[i] = ad[i] = av[i] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 7; ++k) sc7[k] = 0.0f;
+  mct::walk_pairwise_multi<M>(key, e, g, [&](int j, const float(&z)[M]) {
+    float bt[M], s[M], nd1[M], phi[M], net;
+    const Node nd = tail_node(nodes, g, j, 6);
+    const float epe =
+        am_node<M, true>(z, sgn, x, lt, par, r, nd, bt, s, nd1, phi, net);
+    const float tw = xva_greek_weight(nodes, g, j, epe, net, sc7);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      dxv[i] = dxv[i] + sqdt * bt[i] - par[3 * M + i];
+      const float ws = par[4 * M + i] * s[i];
+      const float dval = ws * nd1[i];
+      const float vval = dval * dxv[i] + ws * phi[i] * nd.sqtau;
+      ad[i] = ad[i] + tw * dval;
+      av[i] = av[i] + tw * vval;
+    }
+  });
+#pragma unroll
+  for (int k = 0; k < 7; ++k) q[k] = sc7[k];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    q[7 + i] = ad[i];
+    q[7 + M + i] = av[i];
+  }
+}
+
+template <int M, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(am_threads<M>())
+    xva_greeks_am_kernel(const float* __restrict__ scal,
+                         const float* __restrict__ lt_g,
+                         const float* __restrict__ par_g,
+                         const float* __restrict__ nodes, Launch L,
+                         float* __restrict__ out) {
+  constexpr int THREADS = am_threads<M>();
+  constexpr int N = 14 + 4 * M;
+  __shared__ float lt[M * M], par[9 * M], sc[4], sh[(THREADS / 32) * N];
+  stage<THREADS>(lt, lt_g, M * M);
+  stage<THREADS>(par, par_g, 9 * M);
+  stage<THREADS>(sc, scal, 4);
+  __syncthreads();
+  const int n_elems = L.rows * mct::LANES;
+  mct::BlockAccN<THREADS, N, KAHAN> acc;
+  float v[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = 0.0f;
+  for (int i = 0; i < L.iters; ++i) {
+    const mct::Key key = iter_key(L, i);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float q[7 + 2 * M];
+      am_xva_greek_walk<M>(lt, par, nodes, sc, L.g, key, u, 1.0f, q);
+      if (ANTI) {
+        float m[7 + 2 * M];
+        am_xva_greek_walk<M>(lt, par, nodes, sc, L.g, key, u, -1.0f, m);
+        mct::mirror_mean<M, 7>(q, m);
+      }
+      mct::add_greek_sums<M, 7>(q, v);
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+// ------------------------------------- K43, K44 at any m (runtime m)
+
+// Beyond 8 underlyings mctpu serves xVA with its asset-major XLA twin (a
+// Threefry stream); here the asset-major Philox map extends to any m (pair
+// jj draws counters jj m + i, as walk_pairwise_multi for any A) and one
+// thread walks one path element with its state in global scratch: per
+// thread WIDE_THREADS-strided slots (coalesced over a warp) of the
+// log-spots, both nodes' normals and, for K44, the tangents, the carries of
+// each sign, the node's integrands and the 4m per-underlying sums.  L and
+// the per-leg rows are read through the read-only cache (every thread of a
+// warp on the same entry).  The node math is am_leg's and the order of
+// every sum K43's and K44's, so the runtime-m kernels match the M <= 8
+// ones but for the block reduction's thread count.
+constexpr int WIDE_THREADS = 256;
+
+// Per-thread scratch slots (each m floats) of the runtime-m kernels.
+constexpr int XVA_WIDE_SLOTS = 3;         // x, z1, z2
+constexpr int XVA_GREEK_WIDE_SLOTS = 14;  // x, dxv, ad, av, ad', av', z1,
+                                          // z2, dval, vval, 4 sums
+
+// One runtime-m node over slot pointers at stride T: x and z (and, for the
+// Greeks, dxv, the integrands dval and vval before the total-xVA weight);
+// returns epe and sets net.
+template <bool GREEKS>
+__device__ __forceinline__ float wide_node(int m, const float* __restrict__ lt,
+                                           const float* __restrict__ par,
+                                           float r, float sqdt,
+                                           const Node& nd, float sgn,
+                                           const float* z, float* x,
+                                           float* dxv, float* dv, float* vv,
+                                           int T, float& net) {
+  float value = 0.0f;
+  for (int i = 0; i < m; ++i) {
+    const float* lrow = lt + i * m;
+    float b = __ldg(lrow) * (sgn * z[0]);
+    for (int j = 1; j <= i; ++j) b = b + __ldg(lrow + j) * (sgn * z[j * T]);
+    float xi = x[i * T], s, nd1, phi;
+    const float val = am_leg<GREEKS>(b, xi, par, m, i, r, nd, s, nd1, phi);
+    x[i * T] = xi;
+    if (GREEKS) {
+      const float d = dxv[i * T] + sqdt * b - __ldg(par + 3 * m + i);
+      dxv[i * T] = d;
+      const float ws = __ldg(par + 4 * m + i) * s;
+      const float dval = ws * nd1;
+      dv[i * T] = dval;
+      vv[i * T] = dval * d + ws * phi * nd.sqtau;
+    }
+    value = (i == 0) ? val : value + val;
+  }
+  net = value;
+  return fmaxf(value, 0.0f);
+}
+
+// Drives a runtime-m walk over g nodes: pair jj draws counters jj m + i
+// into z1, z2 (stride T), node 2jj takes z1 and 2jj + 1 z2; an odd g takes
+// the cosine branches of pair g / 2 last (mct::walk_pairwise_multi at any
+// m).
+template <typename NodeFn>
+__device__ __forceinline__ void wide_walk(mct::Key key, uint32_t e, int m,
+                                          int g, float* z1, float* z2, int T,
+                                          NodeFn&& node) {
+  auto draw = [&](int jj) {
+    for (int i = 0; i < m; ++i) {
+      float a, b;
+      mct::draw_normal_pair(key, e, static_cast<uint32_t>(jj * m + i), a, b);
+      z1[i * T] = a;
+      z2[i * T] = b;
+    }
+  };
+  const int half = g / 2;
+  for (int jj = 0; jj < half; ++jj) {
+    draw(jj);
+    node(2 * jj, z1);
+    node(2 * jj + 1, z2);
+  }
+  if (g & 1) {
+    draw(half);
+    node(g - 1, z1);
+  }
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    xva_wide_kernel(const float* __restrict__ scal,
+                    const float* __restrict__ lt,
+                    const float* __restrict__ par,
+                    const float* __restrict__ nodes, int m, Launch L,
+                    float* __restrict__ scratch, float* __restrict__ out,
+                    float* __restrict__ prof_out) {
+  constexpr int THREADS = WIDE_THREADS;
+  constexpr int WARPS = THREADS / 32;
+  __shared__ float sh[WARPS * 8];
+  const int g2 = 2 * L.g;
+  float* prof = scratch + static_cast<size_t>(blockIdx.x) *
+                              (WARPS * g2 * 2 + XVA_WIDE_SLOTS * m * THREADS);
+  float* x = prof + WARPS * g2 * 2 + threadIdx.x;
+  float* z1 = x + m * THREADS;
+  float* z2 = z1 + m * THREADS;
+  profile_zero<THREADS>(prof, WARPS * g2 * 2);
+  __syncthreads();
+  const float r = scal[0], lgd = scal[1], olgd = scal[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* wprof = prof + warp * g2 * 2;
+  const float half_w = ANTI ? 0.5f : 1.0f;
+  const int n_elems = L.rows * mct::LANES;
+  mct::BlockAccN<THREADS, 8, KAHAN> acc;
+  float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < L.iters; ++i) {
+    const mct::Key key = iter_key(L, i);
+    for (int base = 0; base < n_elems; base += THREADS) {
+      if (base + warp * 32 >= n_elems) continue;  // whole warps
+      const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
+      float legs[2][4];
+      for (int sg = 0; sg < (ANTI ? 2 : 1); ++sg) {
+        const float sgn = sg ? -1.0f : 1.0f;
+        float(&leg)[4] = legs[sg];
+        for (int k = 0; k < 4; ++k) leg[k] = 0.0f;
+        for (int u = 0; u < m; ++u) x[u * THREADS] = __ldg(par + u);
+        wide_walk(key, e, m, L.g, z1, z2, THREADS, [&](int j, const float* z) {
+          float net;
+          const float epe = wide_node<false>(
+              m, lt, par, r, 0.0f, tail_node(nodes, L.g, j, 3), sgn, z, x,
+              nullptr, nullptr, nullptr, THREADS, net);
+          xva_legs_add(nodes, L.g, j, epe, epe - net, leg);
+          profile_add(wprof, j, half_w, epe, lane);
+          profile_add(wprof, L.g + j, half_w, epe - net, lane);
+        });
+      }
+      xva_leg_sums(legs[0], ANTI ? legs[1] : nullptr, lgd, olgd, v);
+    }
+    acc.add(v, nullptr, sh);
+  }
+  __syncthreads();
+  profile_write<THREADS>(prof, WARPS, g2, prof_out);
+  acc.write(out);
+}
+
+// Adds the n per-thread sums at vals (stride THREADS, zeroed on return)
+// over the block as BlockAccN adds its N (warp-shuffle tree, then the warps
+// in order) into the carries cs/cc (shared, n each), compensated when
+// KAHAN.  sh: WARPS * n floats of shared memory.
+template <int THREADS, bool KAHAN>
+__device__ __forceinline__ void block_add_n(float* vals, int n, float* sh,
+                                            float* cs, float* cc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int k = 0; k < n; ++k) {
+    float r = vals[k * THREADS];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, o));
+    }
+    if (lane == 0) sh[warp * n + k] = r;
+    vals[k * THREADS] = 0.0f;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n; k += THREADS) {
+    float t = sh[k];
+    for (int w = 1; w < THREADS / 32; ++w) t = __fadd_rn(t, sh[w * n + k]);
+    if (KAHAN) {
+      mct::kahan_add(cs[k], cc[k], t);
+    } else {
+      cs[k] = __fadd_rn(cs[k], t);
+    }
+  }
+  __syncthreads();
+}
+
+// Dynamic shared floats of the runtime-m K44: the warps' partial sums and
+// the carries of the 4m per-underlying sums.
+__host__ __device__ inline int xva_greek_wide_smem_floats(int m) {
+  return (WIDE_THREADS / 32 + 2) * 4 * m;
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    xva_greeks_wide_kernel(const float* __restrict__ scal,
+                           const float* __restrict__ lt,
+                           const float* __restrict__ par,
+                           const float* __restrict__ nodes, int m, Launch L,
+                           float* __restrict__ scratch,
+                           float* __restrict__ out) {
+  constexpr int THREADS = WIDE_THREADS;
+  constexpr int T = THREADS;
+  extern __shared__ float smem[];
+  const int n4 = 4 * m;
+  float* shn = smem;  // [WARPS][4m]
+  float* cs = shn + (THREADS / 32) * n4;
+  float* cc = cs + n4;
+  __shared__ float sh[(THREADS / 32) * 14];
+  float* base = scratch + static_cast<size_t>(blockIdx.x) *
+                              XVA_GREEK_WIDE_SLOTS * m * T + threadIdx.x;
+  float* x = base;
+  float* dxv = x + m * T;
+  float* carry[2] = {dxv + m * T, dxv + 3 * m * T};  // ad, av of each sign
+  float* z1 = dxv + 5 * m * T;
+  float* z2 = z1 + m * T;
+  float* dv = z2 + m * T;
+  float* vv = dv + m * T;
+  float* sums = vv + m * T;  // [d.., d2.., v.., v2..]
+  for (int k = threadIdx.x; k < n4; k += THREADS) cs[k] = cc[k] = 0.0f;
+  for (int k = 0; k < n4; ++k) sums[k * T] = 0.0f;
+  const float r = scal[0], sqdt = scal[3];
+  const int n_elems = L.rows * mct::LANES;
+  mct::BlockAccN<THREADS, 14, KAHAN> acc;
+  float v[14];
+  for (int k = 0; k < 14; ++k) v[k] = 0.0f;
+  __syncthreads();
+  for (int i = 0; i < L.iters; ++i) {
+    const mct::Key key = iter_key(L, i);
+    for (int e0 = threadIdx.x; e0 < n_elems; e0 += THREADS) {
+      const uint32_t e = static_cast<uint32_t>(e0);
+      float q[2][7];
+      for (int sg = 0; sg < (ANTI ? 2 : 1); ++sg) {
+        const float sgn = sg ? -1.0f : 1.0f;
+        float* ad = carry[sg];
+        float* av = ad + m * T;
+        float(&q7)[7] = q[sg];
+        for (int k = 0; k < 7; ++k) q7[k] = 0.0f;
+        for (int u = 0; u < m; ++u) {
+          x[u * T] = __ldg(par + u);
+          dxv[u * T] = ad[u * T] = av[u * T] = 0.0f;
+        }
+        wide_walk(key, e, m, L.g, z1, z2, T, [&](int j, const float* z) {
+          float net;
+          const Node nd = tail_node(nodes, L.g, j, 6);
+          const float epe = wide_node<true>(m, lt, par, r, sqdt, nd, sgn, z,
+                                            x, dxv, dv, vv, T, net);
+          const float tw = xva_greek_weight(nodes, L.g, j, epe, net, q7);
+          for (int u = 0; u < m; ++u) {
+            ad[u * T] = ad[u * T] + tw * dv[u * T];
+            av[u * T] = av[u * T] + tw * vv[u * T];
+          }
+        });
+      }
+      // mct::mirror_mean and add_greek_sums at runtime m.
+      for (int k = 0; k < 7; ++k) {
+        const float y = ANTI ? 0.5f * (q[0][k] + q[1][k]) : q[0][k];
+        v[2 * k] += y;
+        v[2 * k + 1] += y * y;
+      }
+      for (int u = 0; u < m; ++u) {
+        float d = carry[0][u * T], w = carry[0][(m + u) * T];
+        if (ANTI) {
+          d = 0.5f * (d + carry[1][u * T]);
+          w = 0.5f * (w + carry[1][(m + u) * T]);
+        }
+        sums[u * T] += d;
+        sums[(m + u) * T] += d * d;
+        sums[(2 * m + u) * T] += w;
+        sums[(3 * m + u) * T] += w * w;
+      }
+    }
+    acc.add(v, nullptr, sh);
+    block_add_n<THREADS, KAHAN>(sums, n4, shn, cs, cc);
+  }
+  float* row = out + static_cast<size_t>(blockIdx.x) * (14 + n4);
+  acc.write_n(row, 14);
+  for (int k = threadIdx.x; k < n4; k += THREADS) {
+    row[14 + k] = __fadd_rn(cs[k], cc[k]);
+  }
+}
+
+template <int M>
+void launch_xva_am(bool anti, bool kahan, const float* scal, const float* lt,
+                   const float* par, const float* nodes, const Launch& L,
+                   int n_blocks, float* scratch, float* out, float* prof,
+                   cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      Launch, float*, float*, float*);
+  static const Fn FNS[4] = {
+      xva_am_kernel<M, false, false>, xva_am_kernel<M, false, true>,
+      xva_am_kernel<M, true, false>, xva_am_kernel<M, true, true>};
+  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
+  fn<<<n_blocks, am_threads<M>(), 0, s>>>(scal, lt, par, nodes, L, scratch,
+                                          out, prof);
+}
+
+template <int M>
+void launch_xva_greeks_am(bool anti, bool kahan, const float* scal,
+                          const float* lt, const float* par,
+                          const float* nodes, const Launch& L, int n_blocks,
+                          float* out, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      Launch, float*);
+  static const Fn FNS[4] = {xva_greeks_am_kernel<M, false, false>,
+                            xva_greeks_am_kernel<M, false, true>,
+                            xva_greeks_am_kernel<M, true, false>,
+                            xva_greeks_am_kernel<M, true, true>};
+  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
+  fn<<<n_blocks, am_threads<M>(), 0, s>>>(scal, lt, par, nodes, L, out);
+}
+
 int warps_of(int m) {
   switch (m) {
     case 1: return am_threads<1>() / 32;
@@ -514,7 +1244,7 @@ int warps_of(int m) {
     case 6: return am_threads<6>() / 32;
     case 7: return am_threads<7>() / 32;
     case MAX_AM: return am_threads<MAX_AM>() / 32;
-    default: return mct::PK_THREADS / 32;
+    default: return WIDE_THREADS / 32;  // K39's PK_THREADS, the same
   }
 }
 
@@ -607,5 +1337,113 @@ extern "C" int mctpu_cva_multi_packed(const float* scal, const float* lt,
   fn<<<n_blocks, mct::PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       scal, lt, par, nodes, P, make_launch(n_grid, seed, off, rows, iters),
       scratch, out, ee);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mctpu_cva_multi_greeks_packed(
+    const float* scal, const float* lt, const float* par, const float* nodes,
+    int n_under, int n_grid, int a_tile, int width, int seed, int off,
+    int n_blocks, int rows, int iters, int antithetic, int kahan, float* out,
+    float* vecs, void* stream) {
+  if (a_tile < n_under || width % a_tile != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem = 0;
+  const mct::Packed P =
+      mct::greek_shape(n_under, a_tile, width, rows,
+                       (antithetic ? 2 : 1) * K41_LANE_FLOATS, smem);
+  if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      mct::Packed, Launch, float*, float*);
+  static const Fn FNS[4] = {cva_multi_greeks_packed_kernel<false, false>,
+                            cva_multi_greeks_packed_kernel<false, true>,
+                            cva_multi_greeks_packed_kernel<true, false>,
+                            cva_multi_greeks_packed_kernel<true, true>};
+  const Fn fn = FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<n_blocks, mct::PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      scal, lt, par, nodes, P, make_launch(n_grid, seed, off, rows, iters),
+      out, vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Floats of one block's xVA scratch: K43's profile slots ([warps][2 g][2])
+// and, for the runtime-m kernels (wide), their per-thread state.
+extern "C" int mctpu_xva_scratch_floats(int n_under, int n_grid, int greeks,
+                                        int wide) {
+  if (greeks) return wide ? XVA_GREEK_WIDE_SLOTS * n_under * WIDE_THREADS : 0;
+  if (wide) {
+    return (WIDE_THREADS / 32) * 2 * n_grid * 2 +
+           XVA_WIDE_SLOTS * n_under * WIDE_THREADS;
+  }
+  return warps_of(n_under) * 2 * n_grid * 2;
+}
+
+// K43 (n_under = 1..8) or its runtime-m kernel (wide, any n_under).
+extern "C" int mctpu_xva(const float* scal, const float* lt, const float* par,
+                         const float* nodes, int n_under, int n_grid, int wide,
+                         int seed, int off, int n_blocks, int rows, int iters,
+                         int antithetic, int kahan, float* scratch, float* out,
+                         float* prof, void* stream) {
+  const Launch L = make_launch(n_grid, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    using Fn = void (*)(const float*, const float*, const float*,
+                        const float*, int, Launch, float*, float*, float*);
+    static const Fn FNS[4] = {
+        xva_wide_kernel<false, false>, xva_wide_kernel<false, true>,
+        xva_wide_kernel<true, false>, xva_wide_kernel<true, true>};
+    FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)]<<<n_blocks, WIDE_THREADS, 0,
+                                                  s>>>(
+        scal, lt, par, nodes, n_under, L, scratch, out, prof);
+    return static_cast<int>(cudaGetLastError());
+  }
+#define MCT_CALL(M)                                                        \
+  launch_xva_am<M>(antithetic != 0, kahan != 0, scal, lt, par, nodes, L,    \
+                   n_blocks, scratch, out, prof, s)
+  MCT_DISPATCH_M(MCT_CALL)
+#undef MCT_CALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K44 (n_under = 1..8) or its runtime-m kernel (wide, any n_under): out is
+// (n_blocks, 14 + 4 n_under).
+extern "C" int mctpu_xva_greeks(const float* scal, const float* lt,
+                                const float* par, const float* nodes,
+                                int n_under, int n_grid, int wide, int seed,
+                                int off, int n_blocks, int rows, int iters,
+                                int antithetic, int kahan, float* scratch,
+                                float* out, void* stream) {
+  const Launch L = make_launch(n_grid, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    using Fn = void (*)(const float*, const float*, const float*,
+                        const float*, int, Launch, float*, float*);
+    static const Fn FNS[4] = {xva_greeks_wide_kernel<false, false>,
+                              xva_greeks_wide_kernel<false, true>,
+                              xva_greeks_wide_kernel<true, false>,
+                              xva_greeks_wide_kernel<true, true>};
+    const Fn fn = FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
+    const size_t smem = xva_greek_wide_smem_floats(n_under) * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    fn<<<n_blocks, WIDE_THREADS, smem, s>>>(scal, lt, par, nodes, n_under, L,
+                                            scratch, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+#define MCT_CALL(M)                                                          \
+  launch_xva_greeks_am<M>(antithetic != 0, kahan != 0, scal, lt, par, nodes, \
+                          L, n_blocks, out, s)
+  MCT_DISPATCH_M(MCT_CALL)
+#undef MCT_CALL
   return static_cast<int>(cudaGetLastError());
 }

@@ -77,18 +77,19 @@ namespace {
 
 using mct::add_greek_sums;
 using mct::draw_pass;
+using mct::fold_passes;
+using mct::greek_shape;
+using mct::halving_pair;
 using mct::mirror_mean;
 using mct::packed_base;
 using mct::packed_shape;
 using mct::pass_row;
+using mct::pass_tree;
 using mct::Packed;
 using mct::PK_THREADS;
 using mct::set_chunk_pow2;
 
 constexpr int MAX_AM_ASSETS = 8;
-// K33's budget: the 227 KB a block may take, less a margin for the static
-// shared memory of its block reduction.
-constexpr size_t GREEK_SMEM_LIMIT = 220 * 1024;
 
 // Threads of the asset-major kernels: one count for K30, K32 and K34 at a
 // given A, so their price sums reduce alike; the wider Greek states get
@@ -569,13 +570,9 @@ int launch_walk_packed(bool anti, bool kahan, bool barrier, const float* lt,
 // and the block's running lane rows ([4][width]).  After a pass's walk its
 // (dval, vval) leaves ([2][chunk_rows][width]) take the place of the
 // normals, x and dxv, which span at least as many floats (ap + a >=
-// a_tile).  acc and tb stay in the path's thread.
-size_t greek_smem_floats(const Packed& P, bool anti) {
-  const size_t per_path = 2 * static_cast<size_t>(P.ap) +
-                          (anti ? 8 : 4) * static_cast<size_t>(P.a);
-  return static_cast<size_t>(P.np_max) * per_path +
-         (4 * static_cast<size_t>(P.n_chunks) + 4) * P.width;
-}
+// a_tile).  acc and tb stay in the path's thread.  greek_shape's lane
+// floats: x, dxv, AS, AV of each sign.
+constexpr int K33_LANE_FLOATS = 4;
 
 // One date of K33's walk for packed path q and both signs (state pointers
 // at q, stride np_max): bt = L z + d, x += drift + vol bt, dxv += sqrt(dt)
@@ -617,69 +614,6 @@ __device__ __forceinline__ void packed_greek_date(
   }
   b = basket;
   bm = basket_m;
-}
-
-// In place over a column of n = 2^m values at stride ld: the (sum, sum of
-// squares) of mctpu's halving tree, the squares formed at the leaves.
-__device__ __forceinline__ void halving_pair(float* col, int n, int ld,
-                                             float& sum, float& sum2) {
-  if (n == 1) {
-    sum = col[0];
-    sum2 = col[0] * col[0];
-    return;
-  }
-  const int half = n / 2;
-  for (int j = 0; j < half; ++j) {
-    const float x = col[j * ld], y = col[(j + half) * ld];
-    col[j * ld] = x + y;
-    col[(j + half) * ld] = x * x + y * y;
-  }
-  for (int h = half / 2; h > 0; h >>= 1) {
-    for (int j = 0; j < h; ++j) {
-      col[j * ld] = col[j * ld] + col[(j + h) * ld];
-      col[(half + j) * ld] = col[(half + j) * ld] + col[(half + j + h) * ld];
-    }
-  }
-  sum = col[0];
-  sum2 = col[half * ld];
-}
-
-// The first log2(chunk_rows) levels of the halving tree over the rows of
-// pass c0: one thread per (quantity, lane) column of the pass's (dval,
-// vval) leaves ([2][chunk_rows][width]) into its (dval, dval^2, vval,
-// vval^2) rows of part ([n_chunks][4][width]).
-__device__ __forceinline__ void pass_tree(const Packed& P, int c0,
-                                          float* leaf, float* part) {
-  const int W = P.width, nr = P.chunk_rows;
-  for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
-    const int qty = u / W;
-    const int lane = u - qty * W;
-    float s1, s2;
-    halving_pair(leaf + qty * nr * W + lane, nr, W, s1, s2);
-    part[(4 * c0 + 2 * qty) * W + lane] = s1;
-    part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
-  }
-}
-
-// The tree's remaining levels over the passes (odd rows carried, as
-// det_col_sums), added into the block's lane rows vec ([4][width]) in plain
-// float32.
-__device__ __forceinline__ void fold_passes(const Packed& P, float* part,
-                                            float* vec) {
-  const int ld = 4 * P.width;
-  for (int u = threadIdx.x; u < ld; u += PK_THREADS) {
-    float* col = part + u;
-    int n = P.n_chunks;
-    while (n > 1) {
-      const int half = n / 2;
-      for (int j = 0; j < half; ++j) {
-        col[j * ld] = col[j * ld] + col[(j + half) * ld];
-      }
-      if (n & 1) col[half * ld] = col[(n - 1) * ld];
-      n = half + (n & 1);
-    }
-    vec[u] = vec[u] + col[0];
-  }
 }
 
 template <bool ANTI, bool KAHAN>
@@ -806,22 +740,6 @@ __global__ void __launch_bounds__(PK_THREADS)
   }
 }
 
-// K33's pass: about one path per thread, and the block's floats within
-// GREEK_SMEM_LIMIT (halving the pass as needed).
-Packed greek_shape(int a, int a_tile, int width, int rows, bool anti,
-                   size_t& smem) {
-  Packed P = packed_base(a, a_tile, width);
-  int bound = std::max(1, PK_THREADS / P.c);
-  for (;;) {
-    set_chunk_pow2(P, rows, bound);
-    smem = greek_smem_floats(P, anti) * sizeof(float);
-    if (smem <= GREEK_SMEM_LIMIT || P.chunk_rows <= 1) break;
-    bound = P.chunk_rows / 2;
-  }
-  if (smem > GREEK_SMEM_LIMIT) P.chunk_rows = 0;
-  return P;
-}
-
 // --------------------------------------------------------- K35 (a > 8)
 
 // One date of K35's walk for packed path q and both signs (state pointers
@@ -871,8 +789,8 @@ __device__ __forceinline__ void packed_bar_greek_date(
   bm = basket_m;
 }
 
-// K35: K33's passes, shared memory and halving tree (greek_smem_floats
-// sizes it: x, qd, acc_q, acc_v take the places of x, dxv, AS, AV), the
+// K35: K33's passes, shared memory and halving tree (greek_shape sizes
+// it: x, qd, acc_q, acc_v take the places of x, dxv, AS, AV), the
 // knock-out flag and last basket value per path in its thread, and at the
 // end the (payoff, rho) sums and the (dval, vval) leaves of mctpu's
 // _bar_greek_payoff: p = alive max(B_T - k, 0), rho = p sum_m acc_q_m sr_m
@@ -1111,8 +1029,8 @@ extern "C" int mctpu_multi_walk_greeks_packed(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   size_t smem = 0;
-  const Packed P = greek_shape(n_assets, a_tile, width, rows, antithetic != 0,
-                               smem);
+  const Packed P = greek_shape(n_assets, a_tile, width, rows,
+                               (antithetic ? 2 : 1) * K33_LANE_FLOATS, smem);
   if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       Packed, Launch, float*, float*);
@@ -1143,8 +1061,8 @@ extern "C" int mctpu_multi_walk_bar_greeks_packed(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   size_t smem = 0;
-  const Packed P = greek_shape(n_assets, a_tile, width, rows, antithetic != 0,
-                               smem);
+  const Packed P = greek_shape(n_assets, a_tile, width, rows,
+                               (antithetic ? 2 : 1) * K33_LANE_FLOATS, smem);
   if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       int, Packed, Launch, float*, float*);

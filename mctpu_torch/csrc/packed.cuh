@@ -1,5 +1,5 @@
 // The lane-packed walk's pass structure, shared by the packed kernels of
-// multi_walk.cu (K31, K33, K35) and cva_multi.cu (K39): a (rows, width)
+// multi_walk.cu (K31, K33, K35) and cva_multi.cu (K39, K41): a (rows, width)
 // tile packs c paths of a_tile lanes a row (a assets or underlyings each,
 // the rest padding); a CUDA block walks it in passes of chunk_rows rows,
 // one thread per packed path, with the pass's normals (and, in the
@@ -23,11 +23,11 @@ constexpr size_t PK_SMEM_LIMIT = 160 * 1024;
 // threads of a warp, one path each, hit distinct banks).  Pass c0 of the
 // n_chunks passes walks the rows c0, c0 + n_chunks, c0 + 2 n_chunks, ...
 // below rows.  K31 and K39 take the fewest passes their bound allows, rows
-// split evenly over them (set_chunk_even).  K33 and K35 take a power of two
-// chunk_rows that divides rows (set_chunk_pow2): their passes hold the rows
-// that the first log2(chunk_rows) levels of mctpu's halving tree over the
-// rows (det_col_sums) add together, so they can take that tree pass by
-// pass.  Where both give one shape (rows a power of two, K31's bound a
+// split evenly over them (set_chunk_even).  K33, K35 and K41 take a power
+// of two chunk_rows that divides rows (set_chunk_pow2): their passes hold
+// the rows that the first log2(chunk_rows) levels of mctpu's halving tree
+// over the rows (det_col_sums) add together, so they can take that tree
+// pass by pass (pass_tree, then fold_passes).  Where both give one shape (rows a power of two, K31's bound a
 // power of two), a thread sums the same paths in the same order in both.
 struct Packed {
   int a, a_tile, width, c, chunk_rows, np_max, ap, n_chunks;
@@ -99,6 +99,98 @@ inline Packed packed_shape(int a, int a_tile, int width, int rows,
   set_chunk_even(P, rows, bound);
   smem = static_cast<size_t>(P.np_max) * path_bytes;
   return P;
+}
+
+// The packed Greek kernels' budget (K33, K35, K41): the 227 KB a block may
+// take, less a margin for the static shared memory of its block reduction.
+constexpr size_t PK_GREEK_SMEM_LIMIT = 220 * 1024;
+
+// A packed Greek kernel's pass (K33, K35, K41): about one path per thread,
+// a power of two of rows (set_chunk_pow2), and the block's shared floats --
+// both dates' normals (2 ap) and lane_floats per lane of each path, then
+// per pass the (dval, dval^2, vval, vval^2) lane rows its rows add up to
+// ([n_chunks][4][width]) and the block's running lane rows ([4][width]) --
+// within PK_GREEK_SMEM_LIMIT, halving the pass as needed (chunk_rows 0 if
+// even one row does not fit).
+inline Packed greek_shape(int a, int a_tile, int width, int rows,
+                          int lane_floats, size_t& smem) {
+  Packed P = packed_base(a, a_tile, width);
+  int bound = std::max(1, PK_THREADS / P.c);
+  for (;;) {
+    set_chunk_pow2(P, rows, bound);
+    const size_t per_path = 2 * static_cast<size_t>(P.ap) +
+                            static_cast<size_t>(lane_floats) * P.a;
+    smem = (static_cast<size_t>(P.np_max) * per_path +
+            (4 * static_cast<size_t>(P.n_chunks) + 4) * P.width) *
+           sizeof(float);
+    if (smem <= PK_GREEK_SMEM_LIMIT || P.chunk_rows <= 1) break;
+    bound = P.chunk_rows / 2;
+  }
+  if (smem > PK_GREEK_SMEM_LIMIT) P.chunk_rows = 0;
+  return P;
+}
+
+// In place over a column of n = 2^m values at stride ld: the (sum, sum of
+// squares) of mctpu's halving tree, the squares formed at the leaves.
+__device__ __forceinline__ void halving_pair(float* col, int n, int ld,
+                                             float& sum, float& sum2) {
+  if (n == 1) {
+    sum = col[0];
+    sum2 = col[0] * col[0];
+    return;
+  }
+  const int half = n / 2;
+  for (int j = 0; j < half; ++j) {
+    const float x = col[j * ld], y = col[(j + half) * ld];
+    col[j * ld] = x + y;
+    col[(j + half) * ld] = x * x + y * y;
+  }
+  for (int h = half / 2; h > 0; h >>= 1) {
+    for (int j = 0; j < h; ++j) {
+      col[j * ld] = col[j * ld] + col[(j + h) * ld];
+      col[(half + j) * ld] = col[(half + j) * ld] + col[(half + j + h) * ld];
+    }
+  }
+  sum = col[0];
+  sum2 = col[half * ld];
+}
+
+// The first log2(chunk_rows) levels of the halving tree over the rows of
+// pass c0: one thread per (quantity, lane) column of the pass's (dval,
+// vval) leaves ([2][chunk_rows][width]) into its (dval, dval^2, vval,
+// vval^2) rows of part ([n_chunks][4][width]).
+__device__ __forceinline__ void pass_tree(const Packed& P, int c0,
+                                          float* leaf, float* part) {
+  const int W = P.width, nr = P.chunk_rows;
+  for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
+    const int qty = u / W;
+    const int lane = u - qty * W;
+    float s1, s2;
+    halving_pair(leaf + qty * nr * W + lane, nr, W, s1, s2);
+    part[(4 * c0 + 2 * qty) * W + lane] = s1;
+    part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
+  }
+}
+
+// The tree's remaining levels over the passes (odd rows carried, as
+// det_col_sums), added into the block's lane rows vec ([4][width]) in plain
+// float32.
+__device__ __forceinline__ void fold_passes(const Packed& P, float* part,
+                                            float* vec) {
+  const int ld = 4 * P.width;
+  for (int u = threadIdx.x; u < ld; u += PK_THREADS) {
+    float* col = part + u;
+    int n = P.n_chunks;
+    while (n > 1) {
+      const int half = n / 2;
+      for (int j = 0; j < half; ++j) {
+        col[j * ld] = col[j * ld] + col[(j + half) * ld];
+      }
+      if (n & 1) col[half * ld] = col[(n - 1) * ld];
+      n = half + (n & 1);
+    }
+    vec[u] = vec[u] + col[0];
+  }
 }
 
 }  // namespace mct

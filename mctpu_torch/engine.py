@@ -11,7 +11,7 @@ Counterpart of the main path of :mod:`mctpu.engine`:
 :func:`price_cva_portfolio`, :func:`price_asian`, :func:`price_barrier`,
 :func:`price_lookback`, :func:`price_cliquet`, :func:`price_heston`,
 :func:`price_basket_asian`, :func:`price_basket_barrier`,
-:func:`price_rainbow`, :func:`price_cva_multi` and
+:func:`price_rainbow`, :func:`price_cva_multi`, :func:`price_xva` and
 :func:`fair_variance_strike` take an int32
 ``seed`` word (the value ``mctpu.rng.key_to_seed`` gives a JAX key; see
 :func:`mctpu_torch.rng.seed_from_generator`) and draw the same streams as the
@@ -58,7 +58,8 @@ from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                GreeksResult, HestonGreeksResult,
                                HestonOption, LookbackOption, McResult,
                                Precision, RainbowOption, VanillaBook,
-                               VanillaOption)
+                               VanillaOption, XvaGreeksResult, XvaResult,
+                               XvaSpec)
 
 __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "price_cva_portfolio", "price_asian", "price_barrier",
@@ -83,7 +84,8 @@ __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "greeks_basket_barrier_setup", "price_rainbow", "greeks_rainbow",
            "rainbow_setup", "greeks_rainbow_setup", "price_cva_multi",
            "greeks_cva_multi", "price_cva_multi_setup",
-           "greeks_cva_multi_setup"]
+           "greeks_cva_multi_setup", "price_xva", "greeks_xva",
+           "price_xva_setup", "greeks_xva_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -953,19 +955,25 @@ def _basket_vector_greeks(partials, vecs, plan, bk) -> GreeksResult:
     """Price, scalar rho and per-asset delta and vega vectors of ``((B,
     4), (B, 4, a))`` asset-major or ``((B, 4), (B, 4, width))`` packed
     partials, by ``mctpu``'s ``_vec_greeks_runner`` fold: float64 pairwise
-    trees over the blocks, then over the ``c`` packed groups of the lane
-    rows (``(4, c, a_tile)``), keeping the first ``a`` lanes (the port's
-    asset-major kernels write only those)."""
+    trees over the blocks, then :func:`_lane_rows` (the port's
+    asset-major kernels write only the first ``a`` lanes)."""
     disc = _discount(bk.r, bk.t)
     n = plan.total_units
     price, rho = _estimates(_total(partials), n, plan, disc)
-    vtot = _total(vecs)
-    if not kbasket.use_asset_major(bk.n_assets):
-        a_tile, c, _ = kbasket.pack_factor(bk.n_assets)
-        vtot = pairwise_tree_sum(vtot.reshape(4, c, a_tile), 1)
-        vtot = vtot[:, :bk.n_assets]
-    delta, vega = _estimates(vtot, n, plan, disc)
+    delta, vega = _estimates(_lane_rows(_total(vecs), bk.n_assets), n, plan,
+                             disc)
     return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
+
+
+def _lane_rows(vtot: torch.Tensor, a: int) -> torch.Tensor:
+    """The ``(4, a)`` per-asset rows of combined lane rows: asset-major
+    ``(4, a)`` as they are, packed ``(4, width)`` folded over the ``c``
+    path groups (``(4, c, a_tile)``) by a float64 pairwise tree, keeping
+    the first ``a`` lanes (``mctpu``'s ``_vec_greeks_runner``)."""
+    if kbasket.use_asset_major(a):
+        return vtot
+    a_tile, c, _ = kbasket.pack_factor(a)
+    return pairwise_tree_sum(vtot.reshape(4, c, a_tile), 1)[:, :a]
 
 
 def greeks_basket_asian_setup(opt: BasketAsianOption, n_paths: int,
@@ -1155,40 +1163,114 @@ def price_cva_multi(spec: CvaMultiSpec, n_paths: int, seed: int,
 
 def greeks_cva_multi_setup(spec: CvaMultiSpec, n_paths: int,
                            config: EngineConfig):
-    """``(plan, operands)``: the launch :func:`greeks_cva_multi` makes (the
-    pricer's).  More than 8 underlyings raise ``NotImplementedError``: the
-    packed Greek kernel K41 is not ported yet."""
-    m = spec.n_underlyings
-    if not kbasket.use_asset_major(m):
-        raise NotImplementedError(
-            f"greeks_cva_multi runs the asset-major Greek kernel K42, up to "
-            f"{kbasket.ASSET_MAJOR_MAX} underlyings; the packed kernel for "
-            f"{m} underlyings (K41) is not ported yet (ROADMAP A12)")
-    return price_cva_multi_setup(spec, n_paths, config)
+    """``(plan, operands)``: the launch :func:`greeks_cva_multi` makes: the
+    pricer's plan and the Greek kernels' operands (K42's up to 8
+    underlyings, K41's beyond: :func:`mctpu_torch.kernels.cva_multi.
+    operands` with ``greeks=True``)."""
+    dev = config.torch_device()
+    chol = mcmath.cholesky_lower(spec.corr)
+    return (_cva_multi_plan(spec, n_paths, config),
+            kcm.operands(spec, chol, dev, greeks=True))
 
 
 def greeks_cva_multi(spec: CvaMultiSpec, n_paths: int, seed: int,
                      config: EngineConfig = EngineConfig()
                      ) -> CvaGreeksResult:
     """CVA, credit delta dCVA/dlambda and per-underlying pathwise delta and
-    vega vectors of a netting set in one sweep (K42), over
-    :func:`price_cva_multi`'s paths, each with the CVA's undiscounted-mean
-    semantics; the CVA equals the pricer's bit for bit.  The delta rows
-    take ``1 / s0`` and ``1 / s0^2`` in float64 after the fold, as
-    ``mctpu``'s runner does; the second-order outputs are ``None``."""
+    vega vectors of a netting set in one sweep (K42 up to 8 underlyings,
+    K41 beyond), over :func:`price_cva_multi`'s paths, each with the CVA's
+    undiscounted-mean semantics.  Up to 8 underlyings the CVA equals the
+    pricer's bit for bit; beyond, K41 prices each leg in K42's form, K39
+    in ``log(s / k)``'s, so the two CVAs agree to float32 rounding.  The
+    lane rows fold as :func:`_lane_rows` folds them; the delta rows then
+    take ``1 / s0`` and ``1 / s0^2`` in float64, as ``mctpu``'s runner
+    does; the second-order outputs are ``None``."""
     spec.validate()
     plan, ops = greeks_cva_multi_setup(spec, n_paths, config)
     partials, vecs = kcm.greek_partials(ops, wrap_int32(seed), 0, plan,
                                         plan.num_blocks)
     n = plan.total_units
     cva, credit_delta = _estimates(_total(partials), n, plan, 1.0)
-    vtot = _total(vecs)
-    s0 = torch.as_tensor(np.asarray(spec.s, np.float64))
-    vtot[0] = vtot[0] / s0
-    vtot[1] = vtot[1] / (s0 * s0)
-    delta, vega = _estimates(vtot, n, plan, 1.0)
+    delta, vega = _estimates(_spot_scaled(_lane_rows(_total(vecs),
+                                                     spec.n_underlyings),
+                                          spec.s), n, plan, 1.0)
     return CvaGreeksResult(cva=cva, credit_delta=credit_delta, delta=delta,
                            vega=vega)
+
+
+def _spot_scaled(vtot: torch.Tensor, s) -> torch.Tensor:
+    """The ``(4, m)`` float64 lane rows with the delta rows over ``s0`` and
+    ``s0^2`` (pathwise homogeneity: the kernels sum ``w S N(d1)``)."""
+    s0 = torch.as_tensor(np.broadcast_to(np.asarray(s, np.float64),
+                                         (vtot.shape[1],)).copy())
+    vtot = vtot.clone()
+    vtot[0] = vtot[0] / s0
+    vtot[1] = vtot[1] / (s0 * s0)
+    return vtot
+
+
+# ---------------------------------------------------------------------------
+# Bilateral xVA of a netting set (K43, K44)
+# ---------------------------------------------------------------------------
+
+def price_xva_setup(spec: XvaSpec, n_paths: int, config: EngineConfig):
+    """``(plan, operands)``: the launch :func:`price_xva` makes: ``mctpu``'s
+    plan (``rows * 128`` units a block iteration at every set size, the
+    walk pricers') and K43's operands; the correlation is factorized in
+    float64 on the host, then cast to float32."""
+    dev = config.torch_device()
+    chol = mcmath.cholesky_lower(spec.netting.corr)
+    return _walk_plan(n_paths, config), kcm.xva_operands(spec, chol, dev)
+
+
+def price_xva(spec: XvaSpec, n_paths: int, seed: int,
+              config: EngineConfig = EngineConfig()) -> XvaResult:
+    """Bilateral xVA of a netting set: CVA, DVA, FCA and FBA from one
+    sweep, each an undiscounted mean (the CVA estimator's semantics, the
+    funding legs forward-valued), and the EPE and ENE profiles (K43 up to
+    8 underlyings, its runtime-m kernel beyond).  At ``own_intensity = 0``
+    and ``funding_spread = 0`` the CVA leg and the EPE profile are
+    :func:`price_cva_multi`'s bit for bit up to 8 underlyings.
+    Single-signed sets have the closed form
+    :func:`mctpu_torch.math.xva_multi_closed_form`."""
+    spec.validate()
+    plan, ops = price_xva_setup(spec, n_paths, config)
+    partials, profs = kcm.xva_partials(ops, wrap_int32(seed), 0, plan,
+                                       plan.num_blocks)
+    n = plan.total_units
+    cva, dva, fca, fba = _estimates(_total(partials), n, plan, 1.0)
+    prof = _total(profs)
+    return XvaResult(cva=cva, dva=dva, fca=fca, fba=fba,
+                     epe_profile=prof[0] / n, ene_profile=prof[1] / n)
+
+
+def greeks_xva_setup(spec: XvaSpec, n_paths: int, config: EngineConfig):
+    """``(plan, operands)``: the launch :func:`greeks_xva` makes (the
+    pricer's plan, K44's operands)."""
+    dev = config.torch_device()
+    chol = mcmath.cholesky_lower(spec.netting.corr)
+    return (_walk_plan(n_paths, config),
+            kcm.xva_operands(spec, chol, dev, greeks=True))
+
+
+def greeks_xva(spec: XvaSpec, n_paths: int, seed: int,
+               config: EngineConfig = EngineConfig()) -> XvaGreeksResult:
+    """The four xVA legs, the per-leg sensitivities dCVA/dlambda_C,
+    dDVA/dlambda_B and dFVA/dspread, and the per-underlying pathwise delta
+    and vega vectors of the total XVA = CVA - DVA + FCA - FBA, from one
+    sweep over :func:`price_xva`'s paths (K44 up to 8 underlyings, its
+    runtime-m kernel beyond); the delta rows take ``1 / s0`` and ``1 /
+    s0^2`` in float64 after the block combine, as ``mctpu``'s runner
+    does."""
+    spec.validate()
+    plan, ops = greeks_xva_setup(spec, n_paths, config)
+    partials, vecs = kcm.xva_greek_partials(ops, wrap_int32(seed), 0, plan,
+                                            plan.num_blocks)
+    n = plan.total_units
+    legs = _estimates(_total(partials), n, plan, 1.0)
+    delta, vega = _estimates(_spot_scaled(_total(vecs), spec.netting.s), n,
+                             plan, 1.0)
+    return XvaGreeksResult(*legs, delta=delta, vega=vega)
 
 
 def greeks(opt, n_paths: int, seed: int,

@@ -307,24 +307,59 @@ def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
 N_GREEK_SCALARS = 4
 
 
-def split_vec(out: torch.Tensor, a: int):
-    """``(B, 4 + 4a)`` sums ``[p, p2, gr, gr2, d.., d2.., v.., v2..]`` ->
-    ``((B, 4), (B, 4, a))``, the second as ``mctpu``'s lane rows 0..3 in
-    lanes 0..a-1."""
-    return out[:, :N_GREEK_SCALARS], out[:, N_GREEK_SCALARS:].reshape(
-        out.shape[0], 4, a)
+def split_vec(out: torch.Tensor, a: int, n_scal: int = N_GREEK_SCALARS):
+    """``(B, n_scal + 4a)`` sums ``[p, p2, gr, gr2, d.., d2.., v.., v2..]``
+    (``n_scal / 2`` scalar pairs; K44 has 7) -> ``((B, n_scal), (B, 4,
+    a))``, the second as ``mctpu``'s lane rows 0..3 in lanes 0..a-1."""
+    return out[:, :n_scal], out[:, n_scal:].reshape(out.shape[0], 4, a)
 
 
 def vec_greek_partials(walk, a: int, seed: int, block_offset: int,
-                       plan: Plan, n_blocks: int, device):
+                       plan: Plan, n_blocks: int, device,
+                       n_scal: int = N_GREEK_SCALARS):
     """:func:`walk_partials` of an asset-major Greek walk's ``[p, gr, d_0..,
-    v_0..]`` tiles, reordered to the kernels' ``(B, 4 + 4a)`` layout and
-    split by :func:`split_vec`."""
+    v_0..]`` tiles (``n_scal / 2`` scalar outputs first), reordered to the
+    kernels' ``(B, n_scal + 4a)`` layout and split by :func:`split_vec`."""
     out = walk_partials(walk, seed, block_offset, plan, n_blocks, device)
-    dv = out[:, N_GREEK_SCALARS:]
+    dv = out[:, n_scal:]
     d, v = dv[:, :2 * a], dv[:, 2 * a:]
     vec = torch.stack([d[:, 0::2], d[:, 1::2], v[:, 0::2], v[:, 1::2]], 1)
-    return out[:, :N_GREEK_SCALARS], vec
+    return out[:, :n_scal], vec
+
+
+def packed_vec_partials(walk, pack, seed: int, block_offset: int,
+                        plan: Plan, n_blocks: int, device):
+    """K33's, K35's and K41's per-block ``((B, 4), (B, 4, width))``
+    partials of a packed Greek walk ``walk(key, idx, shape, sgn) -> (p, gr,
+    dval, vval)`` (two per-path scalars, ``(B, rows, c)``, and two per-lane
+    values of the ``a`` real lanes, ``(B, rows, c, a)``) over the packed
+    shape ``pack = (a_tile, c, width)``: the scalar pairs Kahan-carried
+    (their tiles summed as K31's plain version sums its payoffs), the lane
+    rows by :func:`det_col_sums` over the rows, padded lanes exactly 0."""
+    a_tile, c, width = pack
+    shape = (n_blocks, plan.rows * width)
+    idx = tile_index(shape[1], device)
+    carry = acc_init_n(N_GREEK_SCALARS, n_blocks, device)
+    vecs = torch.zeros((n_blocks, 4, width), dtype=torch.float32,
+                       device=device)
+    for i in range(plan.iters):
+        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, device)
+        tiles = walk(key, idx, shape, 1.0)
+        if plan.antithetic:
+            mirror = walk(key, idx, shape, -1.0)
+            tiles = [0.5 * (x + y) for x, y in zip(tiles, mirror)]
+        p, gr, dval, vval = tiles
+        sums = []
+        for x in (p.reshape(n_blocks, -1), gr.reshape(n_blocks, -1)):
+            sums += [x.sum(1), (x * x).sum(1)]
+        carry = acc_add_n(carry, sums, plan.kahan)
+        rows = [torch.nn.functional.pad(x, (0, a_tile - x.shape[-1]))
+                .reshape(n_blocks, plan.rows, width) for x in (dval, vval)]
+        vecs = vecs + torch.stack(
+            [det_col_sums(rows[0], 1), det_col_sums(rows[0] * rows[0], 1),
+             det_col_sums(rows[1], 1), det_col_sums(rows[1] * rows[1], 1)],
+            1)
+    return acc_final_n(carry), vecs
 
 
 def terminal_partials(draw_sums, n_sums: int, seed: int, block_offset: int,

@@ -1,5 +1,5 @@
-"""K39, K40 and K42: the netting-set CVA over correlated underlyings and its
-asset-major Greeks (``csrc/cva_multi.cu``).
+"""K39-K44: the netting-set CVA over correlated underlyings, its Greeks and
+the bilateral xVA with its Greeks (``csrc/cva_multi.cu``).
 
 Counterpart of :mod:`mctpu.kernels.cva_multi`.  Option ``m`` is a call on
 underlying ``m``; the underlyings walk correlated GBMs in log space over
@@ -16,18 +16,22 @@ The two stream maps are ``mctpu``'s:
   i``); ``bt_i = sum_{j <= i} L_ij z_j`` from the first product, and each
   leg prices in ``_am_quants``' form, ``d1 = (x - log k + (r + v^2/2)
   tau) / (v sqrt(tau))`` with the division as a multiply by ``1 / sq``;
-* wider sets, lane-packed (K39): a ``(rows, width)`` tile whose row packs
-  ``c`` paths of ``a_tile`` lanes (``pack_factor``), one pair per lane per
-  two nodes (:func:`walk_pairwise`); ``bt = z L^T`` formed from 0, and each
-  leg prices through ``bs_call_hastings``' ``log(s / k)`` form.  The two
-  regimes round differently and each keeps its own order.
+* wider sets, lane-packed (K39, K41): a ``(rows, width)`` tile whose row
+  packs ``c`` paths of ``a_tile`` lanes (``pack_factor``), one pair per
+  lane per two nodes (:func:`walk_pairwise`); ``bt = z L^T`` formed from
+  0.  K39 prices each leg through ``bs_call_hastings``' ``log(s / k)``
+  form, K41 (as ``mctpu``'s ``_greek_node``) in ``_am_quants``'.  The
+  forms round differently and each kernel keeps its own.
 
 K42 adds to K40's node the per-underlying vol tangent ``dxv_i += sqrt(dt)
 bt_i - v_i dt``, the shared exercise indicator ``net > 0`` and the
 pathwise delta and vega integrands (``mctpu``'s ``_am_greek_step``), and
-the credit delta through ``d(dp_j)/dlambda``.  K40 and K42 share the node
-function and the block reduction, so a Greeks CVA equals the pricer's bit
-for bit on the same plan.
+the credit delta through ``d(dp_j)/dlambda``; K41 carries the same on each
+packed lane.  K40 and K42 share the node function and the block
+reduction, so a Greeks CVA equals the pricer's bit for bit on the same
+plan.  The bilateral xVA (K43, K44) runs K40's asset-major walk at every
+set size: the negative part of the net feeds the DVA and funding-benefit
+legs (see the xVA section below).
 
 Every table is formed on the CPU in float32 in ``mctpu``'s expression order
 and moved to the device; the kernels build with ``-fmad=false`` so the
@@ -44,27 +48,33 @@ import torch
 
 from mctpu_torch import _build
 from mctpu_torch import math as mcmath
-from mctpu_torch.kernels.basket import (ASSET_MAJOR_MAX, pack_factor,
-                                        use_asset_major)
+from mctpu_torch.kernels.basket import pack_factor, use_asset_major
 from mctpu_torch.kernels.common import (LANES, N_GREEK_SCALARS, Plan,
                                         acc_add_n, acc_final_n, acc_init_n,
                                         check_operand, f32, iter_keys,
-                                        split_vec, sqrt32, tile_index,
+                                        packed_vec_partials, split_vec,
+                                        sqrt32, tile_index,
                                         vec_greek_partials, walk_pairwise,
                                         walk_pairwise_multi)
 from mctpu_torch.kernels.cva import credit_delta_weights
 from mctpu_torch.rng import wrap_int32
-from mctpu_torch.types import CvaMultiSpec
+from mctpu_torch.types import CvaMultiSpec, XvaSpec
 
 __all__ = ["make_plan", "pack_spec", "am_ops", "packed_ops", "greek_tables",
            "Operands", "operands", "plain_partials", "partials",
            "greek_plain_partials", "greek_partials", "N_GREEK_SCALARS",
+           "xva_tables", "xva_greek_tables", "xva_operands",
+           "xva_plain_partials", "xva_partials", "xva_greek_plain_partials",
+           "xva_greek_partials", "N_XVA_SUMS", "N_XVA_GREEK_SCALARS",
            "LAUNCHES"]
 
 # Launches of the CUDA kernels in this process, by kernel name: K40, K39,
-# K42.
+# K42, K41, K43 (up to 8 underlyings and the runtime-m kernel), K44 (the
+# same).
 LAUNCHES = {"cva_multi_am": 0, "cva_multi_packed": 0,
-            "cva_multi_greeks_am": 0}
+            "cva_multi_greeks_am": 0, "cva_multi_greeks_packed": 0,
+            "xva_am": 0, "xva_wide": 0, "xva_greeks_am": 0,
+            "xva_greeks_wide": 0}
 
 
 def make_plan(n_paths: int, num_blocks: int, rows: int, antithetic: bool,
@@ -181,11 +191,18 @@ class Operands:
         return self.lt.device
 
 
-def operands(spec: CvaMultiSpec, chol, device) -> Operands:
+def operands(spec: CvaMultiSpec, chol, device,
+             greeks: bool = False) -> Operands:
     """The operands of ``spec`` with lower Cholesky factor ``chol``, formed
-    on the CPU and moved to ``device``."""
+    on the CPU and moved to ``device``: the pricers' (K40's :func:`am_ops`
+    rows up to 8 underlyings, K39's :func:`packed_ops` beyond), or with
+    ``greeks`` the Greek kernels' (K42 and K41), :func:`am_ops`' rows at
+    every size.  The real lanes of ``mctpu``'s ``greek_ops`` (``pack_spec``'s
+    rows with ``logk``, ``v2half`` and ``vdt``) are those rows bit for bit,
+    so the packed K41 reads them as K42 does."""
     m = spec.n_underlyings
-    lt, par = (am_ops if use_asset_major(m) else packed_ops)(spec, chol)
+    build = am_ops if greeks or use_asset_major(m) else packed_ops
+    lt, par = build(spec, chol)
     (t, r, lgd) = f32(spec.t, spec.r, spec.lgd)
     scal = torch.stack([r, lgd, sqrt32(t / spec.n_grid)])
     return Operands(*(x.contiguous().to(device) for x in
@@ -439,25 +456,39 @@ def _am_greek_walk(ops: Operands, key, idx, shape, sgn):
 
 def greek_plain_partials(ops: Operands, seed: int, block_offset: int,
                          plan: Plan, n_blocks: int):
-    """K42's per-block ``((B, 4), (B, 4, m))`` partials in plain PyTorch on
-    the operands' device, over K40's stream: the CVA pair is the pricer's
-    bit for bit."""
-    return vec_greek_partials(
-        lambda key, idx, shape, sgn: _am_greek_walk(ops, key, idx, shape,
-                                                    sgn),
-        ops.n_underlyings, seed, block_offset, plan, n_blocks, ops.device)
+    """K42's per-block ``((B, 4), (B, 4, m))`` partials (up to 8
+    underlyings, over K40's stream: the CVA pair is the pricer's bit for
+    bit) or K41's ``((B, 4), (B, 4, width))`` (beyond, over K39's stream)
+    in plain PyTorch on the operands' device."""
+    m = ops.n_underlyings
+    if use_asset_major(m):
+        return vec_greek_partials(
+            lambda key, idx, shape, sgn: _am_greek_walk(ops, key, idx, shape,
+                                                        sgn),
+            m, seed, block_offset, plan, n_blocks, ops.device)
+    return packed_vec_partials(
+        lambda key, idx, shape, sgn: _packed_greek_walk(ops, key, idx, shape,
+                                                        sgn),
+        pack_factor(m), seed, block_offset, plan, n_blocks, ops.device)
+
+
+def _check_greek_ops(ops: Operands) -> None:
+    try:
+        _check(ops, 9)
+    except ValueError as err:
+        raise ValueError(
+            f"{err}: the Greek kernels K42 and K41 take operands(..., "
+            f"greeks=True)' (9, m) rows ({ops.n_underlyings} underlyings "
+            f"given)") from None
 
 
 def greek_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
                    n_blocks: int):
-    """K42's ``((B, 4), (B, 4, m))`` partials: the kernel for CUDA
-    operands, the plain version for CPU operands; other devices raise, and
-    so do more than 8 underlyings (the packed K41 is not ported)."""
-    m = ops.n_underlyings
-    if not use_asset_major(m):
-        raise ValueError(f"K42 takes 1..{ASSET_MAJOR_MAX} underlyings, got "
-                         f"{m}")
-    _check(ops, 9)
+    """The netting-set Greek partials: K42's ``((B, 4), (B, 4, m))`` up to
+    8 underlyings, K41's ``((B, 4), (B, 4, width))`` beyond, both from
+    :func:`operands`' ``greeks=True`` rows; the kernel for CUDA operands,
+    the plain version for CPU operands; other devices raise."""
+    _check_greek_ops(ops)
     dev = ops.device
     if dev.type == "cpu":
         return greek_plain_partials(ops, seed, block_offset, plan, n_blocks)
@@ -465,15 +496,369 @@ def greek_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
         raise ValueError(f"unsupported device {dev}")
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
+    m = ops.n_underlyings
+    ptrs = (ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),
+            ops.nodes.data_ptr(), m, ops.n_grid)
+    common = (wrap_int32(seed), wrap_int32(block_offset), n_blocks,
+              plan.rows, plan.iters, int(plan.antithetic), int(plan.kahan))
     lib = _build.library()
     with torch.cuda.device(dev):
-        out = torch.empty((n_blocks, N_GREEK_SCALARS + 4 * m),
-                          dtype=torch.float32, device=dev)
-        status = lib.mctpu_cva_multi_greeks_am(
+        if use_asset_major(m):
+            name = "cva_multi_greeks_am"
+            out = torch.empty((n_blocks, N_GREEK_SCALARS + 4 * m),
+                              dtype=torch.float32, device=dev)
+            status = lib.mctpu_cva_multi_greeks_am(*ptrs, *common,
+                                                   out.data_ptr(), _stream())
+        else:
+            name = "cva_multi_greeks_packed"
+            a_tile, _, width = pack_factor(m)
+            out = torch.empty((n_blocks, N_GREEK_SCALARS),
+                              dtype=torch.float32, device=dev)
+            vecs = torch.empty((n_blocks, 4, width), dtype=torch.float32,
+                               device=dev)
+            status = lib.mctpu_cva_multi_greeks_packed(
+                *ptrs, a_tile, width, *common, out.data_ptr(),
+                vecs.data_ptr(), _stream())
+    _build.check(status, name)
+    LAUNCHES[name] += 1
+    return split_vec(out, m) if use_asset_major(m) else (out, vecs)
+
+
+# ---------------------------------------------------------------------------
+# K41: credit delta and per-underlying delta and vega, lane-packed (m > 8)
+# ---------------------------------------------------------------------------
+# K42's estimators on K39's walk (mctpu's _greek_step and _greek_node): per
+# lane the log-spot and the vol tangent dxv += sqrt(dt) bt - v dt with bt =
+# L z from 0; each leg in _am_quants' form (d1 = (x - log k + (r + v^2/2)
+# tau) * (1 / sq), not K39's log(s / k): K41's CVA is close to K39's, not
+# equal); the path's net from 0 over its real lanes and the indicator 1{net
+# > 0} broadcast onto them (mctpu's iselT product).  The lanes carry lgd
+# sum_j dp_j dval and vval, the path its CVA and credit legs; per block the
+# four scalar sums and the (4, width) lane rows (K33's, packed_vec_partials).
+
+def _packed_greek_walk(ops: Operands, key, idx, shape, sgn):
+    """One packed Greek walk -> ``(cva, credit)`` per path ``(B, rows, c)``
+    and ``(delta, vega)`` per real lane ``(B, rows, c, m)``, lgd applied."""
+    m = ops.n_underlyings
+    a_tile, c, width = pack_factor(m)
+    r, lgd, sqdt = ops.scal.unbind()
+    dp, ddp, tau, sqtau, disc = ops.nodes
+    log_s0, drift, vol, vdt, w, k, logk, v2h, v = ops.par
+    n_blocks, rows = shape[0], shape[1] // width
+    cdf = mcmath.norm_cdf_hastings
+
+    def step(j, z, carry):
+        x, dxv, acc, acc_cr, acc_d, acc_v = carry
+        zp = (sgn * z).view(n_blocks, rows, c, a_tile)[..., :m]
+        bt = torch.zeros_like(x)
+        for jj in range(m):
+            bt = bt + ops.lt[:, jj] * zp[..., jj:jj + 1]
+        x = x + drift + vol * bt
+        dxv = dxv + sqdt * bt - vdt
+        s = torch.exp(x)
+        if bool(tau[j] <= 0.0):
+            val = w * torch.clamp(s - k, min=0.0)
+            nd1 = (s > k).to(s.dtype)
+            phi = torch.zeros_like(s)
+        else:
+            sq = v * torch.clamp(sqtau[j], min=1e-6)
+            d1 = ((x - logk + (r + v2h) * torch.clamp(tau[j], min=1e-12))
+                  * (1.0 / sq))
+            nd1 = cdf(d1)
+            val = w * (s * nd1 - k * disc[j] * cdf(d1 - sq))
+            phi = 0.3989422804014327 * torch.exp(-0.5 * d1 * d1)
+        net = torch.zeros_like(val[..., 0])
+        for i in range(m):
+            net = net + val[..., i]
+        ee = torch.clamp(net, min=0.0)
+        ws = (net > 0.0).to(net.dtype).unsqueeze(-1) * w * s
+        dval = ws * nd1
+        vval = dval * dxv + ws * phi * sqtau[j]
+        return (x, dxv, acc + dp[j] * ee, acc_cr + ddp[j] * ee,
+                acc_d + dp[j] * dval, acc_v + dp[j] * vval)
+
+    lanes = torch.zeros((n_blocks, rows, c, m), dtype=torch.float32,
+                        device=ops.device)
+    paths = lanes[..., 0]
+    init = (log_s0.expand(n_blocks, rows, c, m), lanes, paths, paths, lanes,
+            lanes)
+    _, _, acc, acc_cr, acc_d, acc_v = walk_pairwise(key, idx, ops.n_grid,
+                                                    step, init)
+    return lgd * acc, lgd * acc_cr, lgd * acc_d, lgd * acc_v
+
+
+# ---------------------------------------------------------------------------
+# K43, K44: bilateral xVA and its Greeks, asset-major at any m
+# ---------------------------------------------------------------------------
+# The netted value V_j of K40's node carries both exposure sides: EPE_j =
+# max(V_j, 0) feeds the CVA and funding-cost legs, ENE_j = EPE_j - V_j (no
+# second clamp) the DVA and funding-benefit legs, each a node table times a
+# per-path sum (mctpu's _am_xva_step): lgd sum w_cva EPE, own_lgd sum w_dva
+# ENE, sum w_fnd EPE, sum w_fnd ENE.  K44 (mctpu's _am_xva_greek_step) adds
+# the per-leg sensitivities dCVA/dlambda_C, dDVA/dlambda_B, dFVA/dspread
+# over the derivative tables and the per-underlying pathwise delta and vega
+# of the total XVA = CVA - DVA + FCA - FBA, with the side-selected weight
+# tw = (wc' + wf) 1{V > 0} + (wd' + wf) (1 - 1{V > 0}) (wc' = lgd w_cva,
+# wd' = own_lgd w_dva folded into K44's tables).  mctpu's Pallas kernels
+# stop at 8 underlyings and its engine sends wider sets to a Threefry twin;
+# the port extends the asset-major Philox map to any m (pair jj draws
+# counter jj m + i) and serves them with runtime-m kernels.  At
+# own_intensity = 0 and funding_spread = 0 K43's CVA sums and EPE profile
+# are K40's bit for bit.
+
+N_XVA_SUMS = 8  # (sum, sum^2) of the cva, dva, fca, fba legs
+N_XVA_GREEK_SCALARS = 14  # ... and of dCVA/dlambda_C, dDVA/dlambda_B,
+#                           dFVA/dspread
+
+
+def _maturity_rows(spec: CvaMultiSpec) -> torch.Tensor:
+    """``(3, g)`` float32 ``tau``, ``sqrt(tau)``, ``exp(-r tau)``: the
+    last rows of :func:`greek_tables`."""
+    return greek_tables(spec)[2:]
+
+
+def xva_tables(xspec: XvaSpec) -> torch.Tensor:
+    """K43's ``(6, n_grid)`` float32 node tables, ``mctpu``'s
+    ``xva_tables``: ``w_cva``, ``w_dva`` (:func:`mcmath.xva_leg_weights`),
+    ``w_fnd`` (:func:`mcmath.funding_leg_weights`), ``tau``, ``sqrt(tau)``,
+    ``exp(-r tau)``."""
+    sp = xspec.netting
+    g = sp.n_grid
+    f = torch.float32
+    w_cva, w_dva = mcmath.xva_leg_weights(sp.intensity, xspec.own_intensity,
+                                          sp.t, g, dtype=f)
+    w_fnd = mcmath.funding_leg_weights(sp.intensity, xspec.own_intensity,
+                                       xspec.funding_spread, sp.t, g, dtype=f)
+    return torch.cat([torch.stack([w_cva, w_dva, w_fnd]),
+                      _maturity_rows(sp)])
+
+
+def xva_greek_tables(xspec: XvaSpec) -> torch.Tensor:
+    """K44's ``(9, n_grid)`` float32 node tables, ``mctpu``'s
+    ``xva_greek_tables``: ``lgd w_cva``, ``own_lgd w_dva``, ``w_fnd``,
+    ``lgd dw_cva``, ``own_lgd dw_dva``, ``dw_fnd``
+    (:func:`mcmath.xva_leg_weight_derivs`), ``tau``, ``sqrt(tau)``,
+    ``exp(-r tau)``."""
+    sp = xspec.netting
+    g = sp.n_grid
+    f = torch.float32
+    lgd, olgd = f32(sp.lgd, xspec.own_lgd)
+    w_cva, w_dva, w_fnd = xva_tables(xspec)[:3]
+    dwc, dwd, dwf = mcmath.xva_leg_weight_derivs(
+        sp.intensity, xspec.own_intensity, sp.t, g, dtype=f)
+    return torch.cat([torch.stack([lgd * w_cva, olgd * w_dva, w_fnd,
+                                   lgd * dwc, olgd * dwd, dwf]),
+                      _maturity_rows(sp)])
+
+
+def xva_operands(xspec: XvaSpec, chol, device,
+                 greeks: bool = False) -> Operands:
+    """K43's (or with ``greeks`` K44's) operands of ``xspec`` with lower
+    Cholesky factor ``chol`` (of ``xspec.netting.corr``), formed on the CPU
+    and moved to ``device``: ``scal (4,)`` = r, lgd, own_lgd, ``sqrt(dt)``;
+    :func:`am_ops`' ``lt`` and ``(9, m)`` rows at every size; the node
+    tables :func:`xva_tables` ``(6, g)`` or :func:`xva_greek_tables` ``(9,
+    g)``."""
+    sp = xspec.netting
+    lt, par = am_ops(sp, chol)
+    (t, r, lgd, olgd) = f32(sp.t, sp.r, sp.lgd, xspec.own_lgd)
+    scal = torch.stack([r, lgd, olgd, sqrt32(t / sp.n_grid)])
+    nodes = (xva_greek_tables if greeks else xva_tables)(xspec)
+    return Operands(*(x.contiguous().to(device) for x in
+                      (scal, lt, par, nodes)))
+
+
+def _am_xva_walk(ops: Operands, key, idx, shape, sgn, hook):
+    """One K43 walk -> its ``[cva, dva, fca, fba]`` tiles (LGDs applied at
+    the end); ``hook(j, epe, ene)`` takes each node's exposure tiles."""
+    m = ops.n_underlyings
+    r, lgd, olgd, _ = ops.scal.unbind()
+    wc, wd, wf, tau, sqtau, disc = ops.nodes
+
+    def step(j, zs, carry):
+        xs, ac, ad, af, ab = carry
+        xs, _, _, _, _, net = _am_node([sgn * z for z in zs], xs, ops.lt,
+                                       ops.par, r, tau[j], sqtau[j], disc[j],
+                                       False)
+        epe = torch.clamp(net, min=0.0)
+        ene = epe - net
+        hook(j, epe, ene)
+        return (xs, ac + wc[j] * epe, ad + wd[j] * ene, af + wf[j] * epe,
+                ab + wf[j] * ene)
+
+    zero = torch.zeros(shape, dtype=torch.float32, device=ops.device)
+    init = ([ops.par[0, i].expand(shape) for i in range(m)], zero, zero,
+            zero, zero)
+    _, ac, ad, af, ab = walk_pairwise_multi(key, idx, m, ops.n_grid, step,
+                                            init)
+    return [lgd * ac, olgd * ad, af, ab]
+
+
+def xva_plain_partials(ops: Operands, seed: int, block_offset: int,
+                       plan: Plan, n_blocks: int):
+    """K43's ``((B, 8) [(sum, sum^2) of cva, dva, fca, fba], (B, 2, g)
+    [EPE, ENE profile sums])`` in plain PyTorch on the operands' device,
+    over K40's stream extended to any m: the leg pairs Kahan-carried over
+    iterations, each node's exposures summed over the block (times 1/2
+    under antithetic) into their profile slots in ``mctpu``'s compensated
+    form, walk by walk; the CVA pair and EPE row are
+    :func:`plain_partials`' at ``w_cva = dp``."""
+    dev = ops.device
+    shape = (n_blocks, plan.rows * LANES)
+    idx = tile_index(shape[1], dev)
+    prof = torch.zeros((n_blocks, 2, ops.n_grid), dtype=torch.float32,
+                       device=dev)
+    comp = torch.zeros_like(prof)
+    half = 0.5 if plan.antithetic else 1.0
+
+    def hook(j, epe, ene):
+        for side, x in enumerate((epe, ene)):
+            _add_profile(prof[:, side], comp[:, side], j,
+                         half * x.reshape(n_blocks, -1).sum(1))
+
+    carry = acc_init_n(N_XVA_SUMS, n_blocks, dev)
+    for i in range(plan.iters):
+        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, dev)
+        legs = _am_xva_walk(ops, key, idx, shape, 1.0, hook)
+        if plan.antithetic:
+            mirror = _am_xva_walk(ops, key, idx, shape, -1.0, hook)
+            legs = [0.5 * (x + y) for x, y in zip(legs, mirror)]
+        sums = []
+        for q in legs:
+            sums += [q.sum(1), (q * q).sum(1)]
+        carry = acc_add_n(carry, sums, plan.kahan)
+    return acc_final_n(carry), prof + comp
+
+
+def _am_xva_greek_walk(ops: Operands, key, idx, shape, sgn):
+    """One K44 walk -> ``[cva, dva, fca, fba, dCVA/dlambda_C,
+    dDVA/dlambda_B, dFVA/dspread, delta_0.., vega_0..]`` tiles."""
+    m = ops.n_underlyings
+    r, _, _, sqdt = ops.scal.unbind()
+    wc, wd, wf, dwc, dwd, dwf, tau, sqtau, disc = ops.nodes
+    par = ops.par
+
+    def step(j, zs, carry):
+        xs, dxvs, legs, sens, acc_d, acc_v = carry
+        xs, bts, ss, nd1s, phis, net = _am_node(
+            [sgn * z for z in zs], xs, ops.lt, par, r, tau[j], sqtau[j],
+            disc[j], True)
+        dxvs = [dxvs[i] + sqdt * bts[i] - par[3, i] for i in range(m)]
+        epe = torch.clamp(net, min=0.0)
+        ene = epe - net
+        ind = (net > 0.0).to(net.dtype)
+        tw = (wc[j] + wf[j]) * ind + (wd[j] + wf[j]) * (1.0 - ind)
+        new_d, new_v = [], []
+        for i in range(m):
+            ws = par[4, i] * ss[i]
+            dval = ws * nd1s[i]
+            vval = dval * dxvs[i] + ws * phis[i] * sqtau[j]
+            new_d.append(acc_d[i] + tw * dval)
+            new_v.append(acc_v[i] + tw * vval)
+        ac, ad, af, ab = legs
+        scr, sdr, sfr = sens
+        return (xs, dxvs,
+                (ac + wc[j] * epe, ad + wd[j] * ene, af + wf[j] * epe,
+                 ab + wf[j] * ene),
+                (scr + dwc[j] * epe, sdr + dwd[j] * ene,
+                 sfr + dwf[j] * (epe - ene)),
+                new_d, new_v)
+
+    zero = torch.zeros(shape, dtype=torch.float32, device=ops.device)
+    init = ([par[0, i].expand(shape) for i in range(m)], [zero] * m,
+            (zero,) * 4, (zero,) * 3, [zero] * m, [zero] * m)
+    _, _, legs, sens, acc_d, acc_v = walk_pairwise_multi(
+        key, idx, m, ops.n_grid, step, init)
+    return list(legs) + list(sens) + acc_d + acc_v
+
+
+def xva_greek_plain_partials(ops: Operands, seed: int, block_offset: int,
+                             plan: Plan, n_blocks: int):
+    """K44's per-block ``((B, 14), (B, 4, m))`` partials in plain PyTorch on
+    the operands' device, over K43's stream."""
+    return vec_greek_partials(
+        lambda key, idx, shape, sgn: _am_xva_greek_walk(ops, key, idx, shape,
+                                                        sgn),
+        ops.n_underlyings, seed, block_offset, plan, n_blocks, ops.device,
+        n_scal=N_XVA_GREEK_SCALARS)
+
+
+def _check_xva(ops: Operands, greeks: bool) -> None:
+    m, g = ops.n_underlyings, ops.n_grid
+    for name, x, shape in (("scal", ops.scal, (4,)), ("lt", ops.lt, (m, m)),
+                           ("par", ops.par, (9, m)),
+                           ("nodes", ops.nodes, (9 if greeks else 6, g))):
+        check_operand(name, x, shape, ops.device)
+
+
+def _xva_launch(ops: Operands, greeks: bool, wide, n_blocks: int):
+    """The device, whether the runtime-m kernel runs (``wide`` None: beyond
+    8 underlyings) and the library, after the operand checks."""
+    _check_xva(ops, greeks)
+    dev = ops.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if n_blocks < 1:
+        raise ValueError("n_blocks must be >= 1")
+    m = ops.n_underlyings
+    wide = not use_asset_major(m) if wide is None else bool(wide)
+    return dev, wide
+
+
+def xva_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
+                 n_blocks: int, wide=None):
+    """K43's ``((B, 8), (B, 2, g))`` partials: for CUDA operands K43 up to
+    8 underlyings and its runtime-m kernel beyond (or wherever ``wide`` is
+    true), for CPU operands the plain version; other devices raise."""
+    dev, wide = _xva_launch(ops, False, wide, n_blocks)
+    if dev.type == "cpu":
+        return xva_plain_partials(ops, seed, block_offset, plan, n_blocks)
+    m, g = ops.n_underlyings, ops.n_grid
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        out = torch.empty((n_blocks, N_XVA_SUMS), dtype=torch.float32,
+                          device=dev)
+        prof = torch.empty((n_blocks, 2, g), dtype=torch.float32, device=dev)
+        scratch = torch.empty(
+            n_blocks * lib.mctpu_xva_scratch_floats(m, g, 0, int(wide)),
+            dtype=torch.float32, device=dev)
+        status = lib.mctpu_xva(
             ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),
-            ops.nodes.data_ptr(), m, ops.n_grid, wrap_int32(seed),
+            ops.nodes.data_ptr(), m, g, int(wide), wrap_int32(seed),
             wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
-            int(plan.antithetic), int(plan.kahan), out.data_ptr(), _stream())
-    _build.check(status, "cva_multi_greeks_am")
-    LAUNCHES["cva_multi_greeks_am"] += 1
-    return split_vec(out, m)
+            int(plan.antithetic), int(plan.kahan), scratch.data_ptr(),
+            out.data_ptr(), prof.data_ptr(), _stream())
+    name = "xva_wide" if wide else "xva_am"
+    _build.check(status, name)
+    LAUNCHES[name] += 1
+    return out, prof
+
+
+def xva_greek_partials(ops: Operands, seed: int, block_offset: int,
+                       plan: Plan, n_blocks: int, wide=None):
+    """K44's ``((B, 14), (B, 4, m))`` partials: for CUDA operands K44 up to
+    8 underlyings and its runtime-m kernel beyond (or wherever ``wide`` is
+    true), for CPU operands the plain version; other devices raise."""
+    dev, wide = _xva_launch(ops, True, wide, n_blocks)
+    if dev.type == "cpu":
+        return xva_greek_plain_partials(ops, seed, block_offset, plan,
+                                        n_blocks)
+    m, g = ops.n_underlyings, ops.n_grid
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        out = torch.empty((n_blocks, N_XVA_GREEK_SCALARS + 4 * m),
+                          dtype=torch.float32, device=dev)
+        scratch = torch.empty(
+            max(1, n_blocks * lib.mctpu_xva_scratch_floats(m, g, 1,
+                                                           int(wide))),
+            dtype=torch.float32, device=dev)
+        status = lib.mctpu_xva_greeks(
+            ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),
+            ops.nodes.data_ptr(), m, g, int(wide), wrap_int32(seed),
+            wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
+            int(plan.antithetic), int(plan.kahan), scratch.data_ptr(),
+            out.data_ptr(), _stream())
+    name = "xva_greeks_wide" if wide else "xva_greeks_am"
+    _build.check(status, name)
+    LAUNCHES[name] += 1
+    return split_vec(out, m, N_XVA_GREEK_SCALARS)

@@ -43,10 +43,9 @@ import torch
 from mctpu_torch import _build
 from mctpu_torch.kernels.basket import pack_factor, use_asset_major
 from mctpu_torch.kernels.common import (LANES, N_GREEK_SCALARS, Plan,
-                                        acc_add_n, acc_final_n, acc_init_n,
-                                        check_operand, det_col_sums, f32,
-                                        iter_keys, split_vec, sqrt32,
-                                        tile_index, vec_greek_partials,
+                                        check_operand, f32,
+                                        packed_vec_partials, split_vec,
+                                        sqrt32, vec_greek_partials,
                                         walk_pairwise, walk_pairwise_multi,
                                         walk_partials)
 from mctpu_torch.rng import wrap_int32
@@ -469,50 +468,18 @@ def _packed_greek_walk(scal, lt, par, n_obs, key, idx, shape, sgn):
     return p, gr, wiv * a_s * inv_s0, wiv * a_v
 
 
-def _packed_vec_partials(walk, a: int, seed: int, block_offset: int,
-                         plan: Plan, n_blocks: int, device):
-    """K33's and K35's per-block ``((B, 4), (B, 4, width))`` partials of a
-    packed Greek walk ``walk(key, idx, shape, sgn) -> (p, gr, dval,
-    vval)``: the scalar pairs Kahan-carried (their tiles summed as K31's
-    plain version sums its payoffs), the lane rows by :func:`det_col_sums`
-    over the rows, padded lanes exactly 0."""
-    a_tile, c, width = pack_factor(a)
-    shape = (n_blocks, plan.rows * width)
-    idx = tile_index(shape[1], device)
-    carry = acc_init_n(N_GREEK_SCALARS, n_blocks, device)
-    vecs = torch.zeros((n_blocks, 4, width), dtype=torch.float32,
-                       device=device)
-    for i in range(plan.iters):
-        key = iter_keys(seed, block_offset, plan.iters, i, n_blocks, device)
-        tiles = walk(key, idx, shape, 1.0)
-        if plan.antithetic:
-            mirror = walk(key, idx, shape, -1.0)
-            tiles = [0.5 * (x + y) for x, y in zip(tiles, mirror)]
-        p, gr, dval, vval = tiles
-        sums = []
-        for x in (p.reshape(n_blocks, -1), gr.reshape(n_blocks, -1)):
-            sums += [x.sum(1), (x * x).sum(1)]
-        carry = acc_add_n(carry, sums, plan.kahan)
-        rows = [torch.nn.functional.pad(x, (0, a_tile - a)).reshape(
-            n_blocks, plan.rows, width) for x in (dval, vval)]
-        vecs = vecs + torch.stack(
-            [det_col_sums(rows[0], 1), det_col_sums(rows[0] * rows[0], 1),
-             det_col_sums(rows[1], 1), det_col_sums(rows[1] * rows[1], 1)],
-            1)
-    return acc_final_n(carry), vecs
-
-
 def packed_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
                                 par: torch.Tensor, seed: int,
                                 block_offset: int, plan: Plan, n_blocks: int,
                                 n_obs: int):
     """K33's per-block ``((B, 4), (B, 4, width))`` partials in plain PyTorch
     on the operands' device, over K31's stream
-    (:func:`_packed_vec_partials`)."""
-    return _packed_vec_partials(
+    (:func:`packed_vec_partials`)."""
+    return packed_vec_partials(
         lambda key, idx, shape, sgn: _packed_greek_walk(
             scal, lt, par, n_obs, key, idx, shape, sgn),
-        lt.shape[0], seed, block_offset, plan, n_blocks, lt.device)
+        pack_factor(lt.shape[0]), seed, block_offset, plan, n_blocks,
+        lt.device)
 
 
 def _check_greek_ops(scal, lt, par, n_obs: int) -> None:
@@ -733,11 +700,12 @@ def packed_bar_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
                                     n_blocks: int, n_obs: int, up: bool):
     """K35's per-block ``((B, 4), (B, 4, width))`` partials in plain PyTorch
     on the operands' device, over K31's stream
-    (:func:`_packed_vec_partials`)."""
-    return _packed_vec_partials(
+    (:func:`packed_vec_partials`)."""
+    return packed_vec_partials(
         lambda key, idx, shape, sgn: _packed_bar_greek_walk(
             scal, lt, linv, par, n_obs, up, key, idx, shape, sgn),
-        lt.shape[0], seed, block_offset, plan, n_blocks, lt.device)
+        pack_factor(lt.shape[0]), seed, block_offset, plan, n_blocks,
+        lt.device)
 
 
 def bar_greek_partials(scal: torch.Tensor, lt: torch.Tensor,

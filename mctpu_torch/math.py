@@ -1,11 +1,12 @@
 """Closed-form financial math on tensors (counterpart of :mod:`mctpu.math`).
 
-The oracles (Black-Scholes, the CVA and netting-set CVA, geometric-Asian,
-barrier, lookback, cliquet and two-asset rainbow closed forms) and the
-host-side setup
-(Cholesky, default-leg weights) run in float64 — the port's ``wide_dtype``
-is always float64, as ``mctpu`` under x64.  ``norm_cdf_hastings`` is the
-kernels' CDF and runs in the dtype it is given.
+The oracles (Black-Scholes, the CVA, netting-set CVA and xVA,
+geometric-Asian, barrier, lookback, cliquet and two-asset rainbow closed
+forms) and the host-side setup (Cholesky, default-leg and xVA leg
+weights) run in float64 — the port's ``wide_dtype`` is always float64, as
+``mctpu`` under x64.  ``norm_cdf_hastings`` is the kernels' CDF and runs
+in the dtype it is given; the leg-weight tables also build in float32 for
+the kernels.
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ __all__ = [
     "cva_closed_form",
     "cva_portfolio_closed_form",
     "cva_multi_closed_form",
+    "xva_leg_weights",
+    "funding_leg_weights",
+    "xva_leg_weight_derivs",
+    "xva_multi_closed_form",
     "geometric_asian_call",
     "up_and_out_call",
     "barrier_continuity_correction",
@@ -44,11 +49,16 @@ def _t(x, dtype=torch.float64) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float64), dtype=dtype)
 
 
+def _as(x, dtype) -> torch.Tensor:
+    """``x`` in ``dtype``; a tensor stays in its autograd graph."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    return _t(x, dtype)
+
+
 def _wide(x) -> torch.Tensor:
     """``x`` as float64; a tensor stays in its autograd graph."""
-    if isinstance(x, torch.Tensor):
-        return x.to(torch.float64)
-    return _t(x)
+    return _as(x, torch.float64)
 
 
 # Hastings polynomial (Abramowitz & Stegun 26.2.17), the reference's `cnd`.
@@ -189,6 +199,92 @@ def cva_multi_closed_form(intensity, lgd, s, v, strikes, weights, r, t,
     dp = torch.exp(-lam * dt * (j - 1)) * (-torch.expm1(-lam * dt))
     growth = torch.sum(dp * torch.exp(r * (t * j / n_grid)))
     return lgd * c0 * growth
+
+
+def xva_leg_weights(intensity, own_intensity, t, n_grid: int,
+                    dtype=torch.float64):
+    """Bilateral default-leg node tables ``(w_cva, w_dva)``, ``(n_grid,)``
+    each, first-to-default weighted at the start of each interval:
+
+        w_cva_j = S_B(t_{j-1}) [S_C(t_{j-1}) - S_C(t_j)],
+        w_dva_j = S_C(t_{j-1}) [S_B(t_{j-1}) - S_B(t_j)],
+
+    ``S_X(u) = exp(-lambda_X u)``, in the factored ``exp * (-expm1)`` form:
+    at ``own_intensity = 0`` ``w_cva`` is :func:`default_leg_weights` bit
+    for bit and ``w_dva`` is zero.  The start-of-interval weighting counts
+    both parties defaulting in one interval twice, an O(lambda_C lambda_B
+    dt^2) bias per node that :func:`xva_multi_closed_form` and the oracle
+    share.  Differentiable by autograd in tensor arguments."""
+    dt = _as(t, dtype) / n_grid
+    j = torch.arange(1, n_grid + 1, dtype=dtype)
+    lam_c = _as(intensity, dtype)
+    lam_b = _as(own_intensity, dtype)
+    surv_prev = torch.exp(-(lam_c + lam_b) * dt * (j - 1))
+    return (surv_prev * (-torch.expm1(-lam_c * dt)),
+            surv_prev * (-torch.expm1(-lam_b * dt)))
+
+
+def funding_leg_weights(intensity, own_intensity, funding_spread, t,
+                        n_grid: int, dtype=torch.float64) -> torch.Tensor:
+    """Funding accrual node table ``w_fnd_j = sf dt S_B(t_{j-1})
+    S_C(t_{j-1})``, ``(n_grid,)``: forward-valued, with no discount factor
+    (the CVA estimator's undiscounted semantics)."""
+    dt = _as(t, dtype) / n_grid
+    j = torch.arange(1, n_grid + 1, dtype=dtype)
+    lam = _as(intensity, dtype) + _as(own_intensity, dtype)
+    return _as(funding_spread, dtype) * dt * torch.exp(-lam * dt * (j - 1))
+
+
+def xva_leg_weight_derivs(intensity, own_intensity, t, n_grid: int,
+                          dtype=torch.float64):
+    """``(dw_cva/dlambda_C, dw_dva/dlambda_B, dw_fnd/dspread)``, ``(n_grid,)``
+    each: each leg's table differentiated in its own intensity or spread
+    only (the cross terms through the joint survival are left out, as in
+    ``mctpu``):
+
+        dw_cva_j = S(t_{j-1}) (t_{j-1} expm1(-lambda_C dt)
+                               + dt exp(-lambda_C dt)),
+
+    the same with ``lambda_B`` for the DVA leg, and ``dt S(t_{j-1})``."""
+    dt = _as(t, dtype) / n_grid
+    j = torch.arange(1, n_grid + 1, dtype=dtype)
+    lam_c = _as(intensity, dtype)
+    lam_b = _as(own_intensity, dtype)
+    t_prev = dt * (j - 1)
+    surv_prev = torch.exp(-(lam_c + lam_b) * t_prev)
+    dwc = surv_prev * (t_prev * torch.expm1(-lam_c * dt)
+                       + dt * torch.exp(-lam_c * dt))
+    dwd = surv_prev * (t_prev * torch.expm1(-lam_b * dt)
+                       + dt * torch.exp(-lam_b * dt))
+    return dwc, dwd, dt * surv_prev
+
+
+def xva_multi_closed_form(intensity, lgd, own_intensity, own_lgd,
+                          funding_spread, s, v, strikes, weights, r, t,
+                          n_grid: int):
+    """Exact xVA legs ``(cva, dva, fca, fba)`` of a single-signed netting
+    set in float64.  All-long weights never trip the netting clamp, so
+    ``E[EPE_j] = sum_m w_m C_0m e^{r t_j}`` and ``ENE_j = 0`` (DVA = FBA =
+    0 exactly); all-short sets mirror onto the ENE side.  Mixed-sign
+    weights raise ``ValueError``: the clamp binds path by path.
+    Differentiable by autograd in every tensor argument."""
+    w_np = np.asarray(weights.detach() if isinstance(weights, torch.Tensor)
+                      else weights)
+    if (w_np < 0).any() and (w_np > 0).any():
+        raise ValueError("closed form requires single-signed weights "
+                         "(netting binds otherwise); use the MC engine")
+    lgd, own_lgd, s, v, strikes, weights, r, t = (
+        _wide(x) for x in (lgd, own_lgd, s, v, strikes, weights, r, t))
+    c0 = torch.sum(weights * bs_call(s, strikes, r, v, t))
+    t_j = t * torch.arange(1, n_grid + 1, dtype=torch.float64) / n_grid
+    growth = torch.exp(r * t_j)
+    epe = torch.clamp(c0, min=0.0) * growth
+    ene = torch.clamp(-c0, min=0.0) * growth
+    w_cva, w_dva = xva_leg_weights(intensity, own_intensity, t, n_grid)
+    w_fnd = funding_leg_weights(intensity, own_intensity, funding_spread, t,
+                                n_grid)
+    return (lgd * torch.sum(w_cva * epe), own_lgd * torch.sum(w_dva * ene),
+            torch.sum(w_fnd * epe), torch.sum(w_fnd * ene))
 
 
 def geometric_asian_call(s, k, r, v, t, n_obs: int) -> torch.Tensor:

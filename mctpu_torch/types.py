@@ -29,6 +29,7 @@ __all__ = [
     "CvaSpec",
     "CvaPortfolioSpec",
     "CvaMultiSpec",
+    "XvaSpec",
     "AsianOption",
     "BarrierOption",
     "BarrierBook",
@@ -40,6 +41,8 @@ __all__ = [
     "GreeksResult",
     "HestonGreeksResult",
     "CvaGreeksResult",
+    "XvaResult",
+    "XvaGreeksResult",
     "from_reference",
 ]
 
@@ -474,6 +477,31 @@ class CvaMultiSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class XvaSpec:
+    """Bilateral xVA of a netting set: the :class:`CvaMultiSpec`
+    ``netting`` (the counterparty's hazard ``netting.intensity`` and
+    ``netting.lgd``) plus the bank's own ``own_intensity`` and ``own_lgd``,
+    which drive the DVA leg on the negative exposure side, and the funding
+    ``funding_spread`` (continuously accrued, per year) of the FCA and FBA
+    legs.  At ``own_intensity = 0`` and ``funding_spread = 0`` the CVA leg
+    is :func:`mctpu_torch.price_cva_multi`'s on the same streams."""
+
+    netting: CvaMultiSpec
+    own_intensity: Any = 0.0
+    own_lgd: Any = 0.6
+    funding_spread: Any = 0.0
+
+    def validate(self) -> None:
+        self.netting.validate()
+        if float(self.own_intensity) < 0:
+            raise ValueError("own default intensity must be non-negative")
+        if not 0.0 <= float(self.own_lgd) <= 1.0:
+            raise ValueError("own_lgd must lie in [0, 1]")
+        if float(self.funding_spread) < 0:
+            raise ValueError("funding_spread must be non-negative")
+
+
+@dataclasses.dataclass(frozen=True)
 class AsianOption:
     """Discretely monitored average-price (Asian) call: the average runs
     over ``n_obs`` equally spaced dates ``t_i = i T / n_obs`` (i = 1..n_obs),
@@ -778,6 +806,12 @@ class McResult:
             body = f"prices=[{pairs}]"
         return f"McResult({body}, n={self.n}, n_paths={self.n_paths})"
 
+    def to_dict(self) -> dict:
+        """Plain-Python record (JSON-ready) of a scalar result."""
+        return {"price": float(self.price), "ci": float(self.ci),
+                "std_error": float(self.std_error), "n": int(self.n),
+                "n_paths": int(self.n_paths)}
+
 
 @dataclasses.dataclass(frozen=True)
 class CvaResult:
@@ -874,14 +908,105 @@ class CvaGreeksResult:
                 f"cross_gamma={_fmt(self.cross_gamma)})")
 
 
+@dataclasses.dataclass(frozen=True)
+class XvaResult:
+    """Bilateral xVA legs of one sweep, each a full :class:`McResult` with
+    the CVA's undiscounted-mean semantics, and both exposure profiles:
+    ``epe_profile`` and ``ene_profile`` are ``E[max(+-V_j, 0)]`` per node.
+    The legs share their paths, so ``bcva`` and ``fva`` carry
+    common-random-number noise only."""
+
+    cva: McResult
+    dva: McResult
+    fca: McResult
+    fba: McResult
+    epe_profile: torch.Tensor  # (n_grid,)
+    ene_profile: torch.Tensor  # (n_grid,)
+
+    @property
+    def bcva(self):
+        """Bilateral CVA = CVA - DVA (first-to-default weighted legs)."""
+        return self.cva.price - self.dva.price
+
+    @property
+    def fva(self):
+        """Funding value adjustment = FCA - FBA."""
+        return self.fca.price - self.fba.price
+
+    def __repr__(self):
+        legs = ", ".join(
+            f"{leg}={float(getattr(self, leg).price):.6f}"
+            f"±{float(getattr(self, leg).ci):.6f}"
+            for leg in ("cva", "dva", "fca", "fba"))
+        return (f"XvaResult({legs}, bcva={float(self.bcva):.6f}, "
+                f"fva={float(self.fva):.6f})")
+
+    def to_dict(self) -> dict:
+        """Plain-Python record (JSON-ready)."""
+        d = {leg: getattr(self, leg).to_dict()
+             for leg in ("cva", "dva", "fca", "fba")}
+        d["bcva"] = float(self.bcva)
+        d["fva"] = float(self.fva)
+        d["epe_profile"] = np.asarray(self.epe_profile).tolist()
+        d["ene_profile"] = np.asarray(self.ene_profile).tolist()
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class XvaGreeksResult:
+    """The xVA legs and their sensitivities from one sweep, each a full
+    :class:`McResult` with the CVA's undiscounted-mean semantics: the four
+    legs, ``credit_cpty`` dCVA/dlambda_C, ``credit_own`` dDVA/dlambda_B,
+    ``funding`` dFVA/dspread (each leg in its own intensity or spread,
+    :func:`mctpu_torch.math.xva_leg_weight_derivs`) and the per-underlying
+    ``delta`` and ``vega`` vectors of the total XVA = CVA - DVA + FCA -
+    FBA."""
+
+    cva: McResult
+    dva: McResult
+    fca: McResult
+    fba: McResult
+    credit_cpty: McResult
+    credit_own: McResult
+    funding: McResult
+    delta: McResult  # (M,) d(XVA)/ds0_m
+    vega: McResult  # (M,) d(XVA)/dv_m
+
+    def __repr__(self):
+        def fmt(r):
+            if r.price.ndim:
+                return (f"{np.array2string(r.price.numpy(), precision=4)}"
+                        f"±{np.array2string(r.ci.numpy(), precision=4)}")
+            return f"{float(r.price):.6f}±{float(r.ci):.6f}"
+
+        body = ", ".join(f"{f.name}={fmt(getattr(self, f.name))}"
+                         for f in dataclasses.fields(self))
+        return f"XvaGreeksResult({body})"
+
+    def to_dict(self) -> dict:
+        """Plain-Python record (JSON-ready); the vectors as lists."""
+        out = {}
+        for f in dataclasses.fields(self):
+            r = getattr(self, f.name)
+            if r.price.ndim:
+                out[f.name] = {"price": r.price.tolist(),
+                               "ci": r.ci.tolist(), "n": int(r.n),
+                               "n_paths": int(r.n_paths)}
+            else:
+                out[f.name] = r.to_dict()
+        return out
+
+
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, VanillaBook, BasketOption, BasketAsianOption,
              BasketBarrierOption, RainbowOption, CvaSpec,
              CvaPortfolioSpec, CvaMultiSpec, AsianOption, BarrierOption,
              BarrierBook,
-             LookbackOption, CliquetOption, HestonOption, McResult,
-             GreeksResult, HestonGreeksResult)}
-_TENSOR_FIELDS = ("price", "ci", "std_error", "sum_p", "sum_p2")
+             LookbackOption, CliquetOption, HestonOption, XvaSpec, McResult,
+             CvaResult, GreeksResult, HestonGreeksResult, CvaGreeksResult,
+             XvaResult, XvaGreeksResult)}
+# Results whose numeric fields the port holds as float64 CPU tensors.
+_TENSOR_RECORDS = (McResult, CvaResult, XvaResult)
 
 
 def _carry(value):
@@ -904,10 +1029,13 @@ def from_reference(obj):
     through ``np.asarray`` (scalars become Python floats, vectors float64
     arrays), except the fields the port's record declares ``int``
     (``n_grid``, ``n_obs``, ``n_periods``, a result's ``n``), which stay
-    ints; strings, and tuples of strings (a book's ``kinds``), stay so.  A
-    result (:class:`McResult`, :class:`GreeksResult`,
-    :class:`HestonGreeksResult`) comes across with float64 CPU tensors, as
-    the port's entry points return it, and ``None`` for a Greek it lacks.
+    ints; strings, and tuples of strings (a book's ``kinds``), stay so; a
+    nested record (an :class:`XvaSpec`'s netting set, a result's legs)
+    comes across the same way.  A result (:class:`McResult`,
+    :class:`CvaResult`, :class:`GreeksResult`, :class:`HestonGreeksResult`,
+    :class:`CvaGreeksResult`, :class:`XvaResult`,
+    :class:`XvaGreeksResult`) comes across with float64 CPU tensors, as the
+    port's entry points return it, and ``None`` for a Greek it lacks.
     """
     if isinstance(obj, enum.Enum):
         return Precision(obj.value)
@@ -919,7 +1047,7 @@ def from_reference(obj):
         value = getattr(obj, f.name)
         if f.type == "int":
             kwargs[f.name] = int(value)
-        elif cls is McResult and f.name in _TENSOR_FIELDS:
+        elif cls in _TENSOR_RECORDS and not dataclasses.is_dataclass(value):
             kwargs[f.name] = torch.tensor(np.asarray(value, np.float64))
         else:
             kwargs[f.name] = _carry(value)

@@ -45,7 +45,7 @@ from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketOption, CliquetOption, CvaMultiSpec,
                                CvaPortfolioSpec, CvaSpec, HestonOption,
                                LookbackOption, RainbowOption, VanillaBook,
-                               VanillaOption)
+                               VanillaOption, XvaSpec)
 from torch_tolerance import assert_pairs_close
 
 pytestmark = pytest.mark.cuda
@@ -991,7 +991,7 @@ def test_rainbow_launch_counters_and_bad_operands(dev):
             wide, cholesky_lower(wide.corr), dev), 1, 0, plan, 2)
 
 
-# ---- the netting-set CVA: K39, K40, K42 -------------------------------------
+# ---- the netting-set CVA and xVA: K39-K44 ------------------------------------
 
 def _netting_set(m: int, n_grid: int, mixed: bool) -> CvaMultiSpec:
     """``m`` calls at correlation 0.5: the JAX exotic CLI's all-long legs
@@ -1021,9 +1021,10 @@ _CM_CASES = {
 }
 
 
-def _cm_setup(dev, m, mixed, n_grid, antithetic, kahan, rows=16):
+def _cm_setup(dev, m, mixed, n_grid, antithetic, kahan, rows=16,
+              greeks=False):
     spec = _netting_set(m, n_grid, mixed)
-    ops = kcm.operands(spec, cholesky_lower(spec.corr), dev)
+    ops = kcm.operands(spec, cholesky_lower(spec.corr), dev, greeks)
     probe = kcm.make_plan(1, NB, rows, antithetic, kahan, n_underlyings=m)
     plan = kcm.make_plan(2 * NB * probe.paths_per_iter, NB, rows, antithetic,
                          kahan, n_underlyings=m)
@@ -1040,38 +1041,144 @@ def test_cva_multi_kernels_match_plain(dev, case):
               lambda off, nb: kcm.plain_partials(ops, SEED, off, plan, nb))
 
 
-@pytest.mark.parametrize("case", [c for c in sorted(_CM_CASES)
-                                  if _CM_CASES[c][0] <= 8])
+@pytest.mark.parametrize("case", sorted(_CM_CASES))
 def test_cva_multi_greek_kernel_matches_plain(dev, case):
-    """K42 against its plain version, by the scaled pair bound; its CVA sums
-    equal K40's bit for bit."""
-    ops, plan = _cm_setup(dev, *_CM_CASES[case])
+    """K42 (m <= 8) and K41 against their plain versions, by the scaled
+    pair bound (K41's padded lanes exactly 0); K42's CVA sums equal K40's
+    bit for bit, K41's K39's at rtol 1e-5 (two forms of the leg)."""
+    m = _CM_CASES[case][0]
+    ops, plan = _cm_setup(dev, *_CM_CASES[case], greeks=True)
     _contract(
         lambda off, nb: _mw_greek_pairs(kcm.greek_partials(ops, SEED, off,
                                                            plan, nb)),
         lambda off, nb: _mw_greek_pairs(kcm.greek_plain_partials(
             ops, SEED, off, plan, nb)),
         units=plan.iters * plan.units_per_iter)
-    scal, _ = kcm.greek_partials(ops, SEED, 0, plan, NB)
-    price, _ = kcm.partials(ops, SEED, 0, plan, NB)
-    assert torch.equal(scal[:, :2], price)
+    scal, vec = kcm.greek_partials(ops, SEED, 0, plan, NB)
+    pops, _ = _cm_setup(dev, *_CM_CASES[case])
+    price, _ = kcm.partials(pops, SEED, 0, plan, NB)
+    if m <= 8:
+        assert torch.equal(scal[:, :2], price)
+    else:
+        a_tile, c, _ = kbasket.pack_factor(m)
+        assert (vec.reshape(NB, 4, c, a_tile)[..., m:] == 0).all()
+        np.testing.assert_allclose(scal[:, :2].cpu().numpy(),
+                                   price.cpu().numpy(), rtol=1e-5)
 
 
 def test_cva_multi_launch_counters_and_bad_operands(dev):
     for m, names in ((3, ("cva_multi_am", "cva_multi_greeks_am")),
-                     (9, ("cva_multi_packed",))):
+                     (9, ("cva_multi_packed", "cva_multi_greeks_packed"))):
         ops, plan = _cm_setup(dev, m, False, 3, False, True, rows=8)
-        calls = [(kcm.partials, kcm.plain_partials)]
-        if m <= 8:
-            calls.append((kcm.greek_partials, kcm.greek_plain_partials))
-        for name, (fn, plain) in zip(names, calls):
+        gops, _ = _cm_setup(dev, m, False, 3, False, True, rows=8,
+                            greeks=True)
+        for name, (fn, plain, o) in zip(names, (
+                (kcm.partials, kcm.plain_partials, ops),
+                (kcm.greek_partials, kcm.greek_plain_partials, gops))):
             before = dict(kcm.LAUNCHES)
-            fn(ops, 1, 0, plan, 2)
-            plain(ops, 1, 0, plan, 2)
+            fn(o, 1, 0, plan, 2)
+            plain(o, 1, 0, plan, 2)
             assert kcm.LAUNCHES[name] == before[name] + 1, name
             assert sum(kcm.LAUNCHES.values()) == sum(before.values()) + 1
     with pytest.raises(ValueError):
         kcm.partials(dataclasses.replace(ops, par=ops.par.double()), 1, 0,
                      plan, 2)
-    with pytest.raises(ValueError, match="1..8"):
+    with pytest.raises(ValueError, match="greeks=True"):
         kcm.greek_partials(ops, 1, 0, plan, 2)
+
+
+_XVA_CASES = {
+    # name: (underlyings, mixed, n_grid, antithetic, kahan); past 8 the
+    # runtime-m kernels
+    "m1_g13": (1, False, 13, False, True),
+    "m2_mixed_g13_antithetic": (2, True, 13, True, True),
+    "m3_g7_f32": (3, False, 7, False, False),
+    "m8_mixed_g13_antithetic_f32": (8, True, 13, True, False),
+    "m9_mixed_g13": (9, True, 13, False, True),
+    "m16_g12_antithetic": (16, False, 12, True, True),
+}
+
+
+def _xva_setup(dev, m, mixed, n_grid, antithetic, kahan, greeks=False,
+               own=0.02, spread=0.01):
+    spec = XvaSpec(_netting_set(m, n_grid, mixed), own_intensity=own,
+                   own_lgd=0.5, funding_spread=spread)
+    ops = kcm.xva_operands(spec, cholesky_lower(spec.netting.corr), dev,
+                           greeks)
+    plan = kcm.make_plan(2 * NB * 16 * 128, NB, 16, antithetic, kahan,
+                         n_underlyings=1)
+    return ops, plan
+
+
+@pytest.mark.parametrize("case", sorted(_XVA_CASES))
+def test_xva_kernels_match_plain(dev, case):
+    """K43 (m <= 8) and its runtime-m kernel against the plain version: the
+    leg pairs and both profiles at rtol."""
+    ops, plan = _xva_setup(dev, *_XVA_CASES[case])
+    _contract(lambda off, nb: kcm.xva_partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kcm.xva_plain_partials(ops, SEED, off, plan,
+                                                     nb))
+
+
+@pytest.mark.parametrize("case", sorted(_XVA_CASES))
+def test_xva_greek_kernels_match_plain(dev, case):
+    """K44 (m <= 8) and its runtime-m kernel against the plain version, by
+    the scaled pair bound."""
+    ops, plan = _xva_setup(dev, *_XVA_CASES[case], greeks=True)
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kcm.xva_greek_partials(
+            ops, SEED, off, plan, nb)),
+        lambda off, nb: _mw_greek_pairs(kcm.xva_greek_plain_partials(
+            ops, SEED, off, plan, nb)),
+        units=plan.iters * plan.units_per_iter)
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_xva_ties_cva_multi_and_runtime_m_kernels(dev, antithetic):
+    """At own_intensity = 0 and funding_spread = 0 K43's CVA sums and EPE
+    profile are K40's bit for bit; the runtime-m kernels forced at m = 3
+    match K43's and K44's M = 3 kernels at the kernel-vs-plain tolerance
+    (the same arithmetic, another block reduction's thread count)."""
+    ops, plan = _xva_setup(dev, 3, False, 13, antithetic, True, own=0.0,
+                           spread=0.0)
+    cops, _ = _cm_setup(dev, 3, False, 13, antithetic, True)
+    xs, xp = kcm.xva_partials(ops, SEED, 0, plan, NB)
+    cs, cp = kcm.partials(cops, SEED, 0, plan, NB)
+    assert torch.equal(xs[:, :2], cs) and torch.equal(xp[:, 0], cp)
+    ops, _ = _xva_setup(dev, 3, True, 13, antithetic, True)
+    for a, b in zip(kcm.xva_partials(ops, SEED, 0, plan, NB),
+                    kcm.xva_partials(ops, SEED, 0, plan, NB, wide=True)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(),
+                                   rtol=RTOL, atol=0)
+    gops, _ = _xva_setup(dev, 3, True, 13, antithetic, True, greeks=True)
+    assert_pairs_close(
+        _mw_greek_pairs(kcm.xva_greek_partials(gops, SEED, 0, plan, NB,
+                                               wide=True)).cpu().numpy(),
+        _mw_greek_pairs(kcm.xva_greek_partials(gops, SEED, 0, plan,
+                                               NB)).cpu().numpy(),
+        plan.iters * plan.units_per_iter, RTOL)
+
+
+def test_xva_launch_counters_and_bad_operands(dev):
+    for m, wide in ((3, False), (9, True)):
+        ops, plan = _xva_setup(dev, m, True, 3, False, True)
+        gops, _ = _xva_setup(dev, m, True, 3, False, True, greeks=True)
+        suffix = "wide" if wide else "am"
+        for name, (fn, plain, o) in (
+                (f"xva_{suffix}", (kcm.xva_partials, kcm.xva_plain_partials,
+                                   ops)),
+                (f"xva_greeks_{suffix}", (kcm.xva_greek_partials,
+                                          kcm.xva_greek_plain_partials,
+                                          gops))):
+            before = dict(kcm.LAUNCHES)
+            fn(o, 1, 0, plan, 2)
+            plain(o, 1, 0, plan, 2)
+            assert kcm.LAUNCHES[name] == before[name] + 1, name
+            assert sum(kcm.LAUNCHES.values()) == sum(before.values()) + 1
+    with pytest.raises(ValueError, match="nodes"):
+        kcm.xva_partials(gops, 1, 0, plan, 2)
+    with pytest.raises(ValueError, match="nodes"):
+        kcm.xva_greek_partials(ops, 1, 0, plan, 2)
+    with pytest.raises(ValueError):
+        kcm.xva_partials(dataclasses.replace(ops, par=ops.par.double()), 1,
+                         0, plan, 2)

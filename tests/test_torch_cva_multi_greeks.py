@@ -1,7 +1,8 @@
-"""The netting-set CVA Greeks of the port against mctpu (CPU): K42's plain
-version against the JAX kernel in interpret mode, ``greeks_cva_multi``
-against ``mctpu.engine.greeks_cva_multi`` on interpret-mode Pallas, the
-CVA it shares with the pricer, and what the entry points refuse.
+"""The netting-set CVA Greeks of the port against mctpu (CPU): K42's and
+K41's plain versions against the JAX kernels in interpret mode,
+``greeks_cva_multi`` against ``mctpu.engine.greeks_cva_multi`` on
+interpret-mode Pallas (asset-major and packed), the CVA it shares with the
+pricer, and what the entry points refuse.
 
 The ``(B, 4)`` (cva, credit delta) and ``(B, 4, m)`` per-underlying
 ``(sum x, sum x^2)`` pairs are held by the scaled bound of
@@ -113,17 +114,45 @@ def test_greek_partials_match_interpret_mode(case):
     assert torch.equal(gs[:, :2], tp)
 
 
+def test_packed_greek_partials_match_interpret_mode():
+    """K41 (9 underlyings, packed) against the interpret-mode kernel: the
+    ``(B, 4)`` pairs and the ``(B, 4, width)`` lane rows (padded lanes
+    exactly 0 in both) by the scaled bound.  K41 prices each leg in K42's
+    ``x - log k`` form and K39 in ``log(s / k)``'s, so on one stream their
+    CVA pairs agree to float32 rounding (rtol 1e-5), not bit for bit."""
+    spec = _cli(9, 3)
+    m = spec.n_underlyings
+    jplan, tplan = _plans(m, False, True, 1)
+    ws, wv = jcm.greek_pallas_partials(spec, _chol64(spec), SEED, 1, jplan,
+                                       NB, interpret=True)
+    ts = from_reference(spec)
+    ops = tcm.operands(ts, tmath.cholesky_lower(ts.corr), "cpu",
+                       greeks=True)
+    gs, gv = tcm.greek_partials(ops, SEED, 1, tplan, NB)
+    a_tile, c, width = tcm.pack_factor(m)
+    assert gs.shape == (NB, 4) and gv.shape == (NB, 4, width)
+    pad = gv.reshape(NB, 4, c, a_tile)[..., m:]
+    assert (pad == 0).all()
+    wv = np.asarray(wv)
+    assert (wv.reshape(NB, 4, c, a_tile)[..., m:] == 0).all()
+    assert_pairs_close(_pairs(gs, gv), _pairs(ws, wv),
+                       tplan.iters * tplan.units_per_iter, RTOL)
+    price, _ = tcm.partials(_ops(spec), SEED, 1, tplan, NB)
+    np.testing.assert_allclose(gs[:, :2].numpy(), price.numpy(), rtol=1e-5)
+
+
 JCFG = jengine.EngineConfig(backend="pallas", interpret=True, num_blocks=8,
                             rows=8)
 TCFG = tengine.EngineConfig(num_blocks=8, rows=8, device="cpu")
 
 
-@pytest.mark.parametrize("which", ["cli", "mixed"])
+@pytest.mark.parametrize("which", ["cli", "mixed", "wide"])
 def test_engine_greeks_match_mctpu(which):
     """``greeks_cva_multi`` on the same streams as ``mctpu``'s: every
     output's ``(sum x, sum x^2)`` by the scaled bound, the delta rows after
-    the float64 ``1 / s0`` and ``1 / s0^2``; no second-order outputs."""
-    spec = _cli(2, 3) if which == "cli" else MIXED
+    the float64 pairwise fold of K41's packed lane rows (9 underlyings) and
+    the ``1 / s0`` and ``1 / s0^2``; no second-order outputs."""
+    spec = {"cli": _cli(2, 3), "mixed": MIXED, "wide": _cli(9, 2)}[which]
     n = 1 << 12
     want = jengine.greeks_cva_multi(spec, n, KEY, JCFG)
     got = mctpu_torch.greeks(from_reference(spec), n, SEED, TCFG)
@@ -159,16 +188,22 @@ def test_greeks_cva_equals_pricer(antithetic):
 
 
 def test_wide_sets_are_refused():
-    """More than 8 underlyings: the engine raises ``NotImplementedError``
-    naming the packed kernel K41, which is not ported; K42's wrapper
-    refuses the packed operands."""
+    """More than 8 underlyings run K41: the engine and the dispatcher give
+    the 9-underlying delta and vega vectors (finite, the CVA within
+    float32 rounding of the pricer's), and the Greek wrapper refuses the
+    pricer's packed operands, whose rows K41 does not read."""
     spec = from_reference(_cli(9, 3))
-    with pytest.raises(NotImplementedError, match="K41"):
-        mctpu_torch.greeks_cva_multi(spec, 1 << 10, SEED, TCFG)
-    with pytest.raises(NotImplementedError, match="K41"):
-        mctpu_torch.greeks(spec, 1 << 10, SEED, TCFG)
+    g = mctpu_torch.greeks_cva_multi(spec, 1 << 11, SEED, TCFG)
+    assert isinstance(mctpu_torch.greeks(spec, 1 << 11, SEED, TCFG),
+                      CvaGreeksResult)
+    for r in (g.delta, g.vega):
+        assert r.price.shape == r.std_error.shape == (9,)
+        assert bool(torch.isfinite(r.price).all())
+    assert bool((g.delta.price > 0).all()) and bool((g.vega.price > 0).all())
+    p = mctpu_torch.price_cva_multi(spec, 1 << 11, SEED, TCFG)
+    np.testing.assert_allclose(float(g.cva.price), float(p.cva), rtol=1e-5)
     plan = tcm.make_plan(ROWS * 8, 1, ROWS, False, n_underlyings=9)
-    with pytest.raises(ValueError, match="1..8"):
+    with pytest.raises(ValueError, match="greeks=True"):
         tcm.greek_partials(_ops(_cli(9, 3)), SEED, 0, plan, 1)
 
 

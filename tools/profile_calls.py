@@ -46,7 +46,8 @@ def calls(mt):
                                    BasketOption, CliquetOption,
                                    CvaMultiSpec, CvaSpec, HestonOption,
                                    LookbackOption,
-                                   RainbowOption, VanillaBook, VanillaOption)
+                                   RainbowOption, VanillaBook, VanillaOption,
+                                   XvaSpec)
 
     van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
     b3, b100 = (BasketOption.default_reference(3),
@@ -92,6 +93,15 @@ def calls(mt):
     cmg = netting_set(3, 12, s=100.0 * (1.0 - 0.05 * i3),
                       v=0.2 * (1.0 + 0.25 * i3), rho=0.3, r=0.04879,
                       w=np.ones(3))
+    i16 = np.arange(16)
+    cmg16 = netting_set(16, 12, s=100.0 * (1.0 - 0.05 * i16),
+                        v=0.2 * (1.0 + 0.25 * i16), rho=0.3, r=0.04879,
+                        w=np.ones(16))
+    # The JAX CLIs' --product xva: the exotic CLI's netting set at 3 and 16
+    # underlyings, the Greeks CLI's at 3, with own intensity 0.02, own lgd
+    # 0.5 and funding spread 0.01.
+    xva3, xva16, xvag = (XvaSpec(net, 0.02, 0.5, 0.01)
+                         for net in (cm3, cm16, cmg))
 
     rainbow = RainbowOption.equicorrelated
     rb3 = rainbow([100.0] * 3, [0.2, 0.3, 0.2], 0.3, 100.0, 0.05)
@@ -191,6 +201,15 @@ def calls(mt):
         ("greeks_cva_multi m=3, n_grid=12, 2^20",
          "cva_multi_greeks_am_kernel",
          lambda: mt.greeks(cmg, 1 << 20, SEED)),
+        ("greeks_cva_multi m=16, n_grid=12, 2^20",
+         "cva_multi_greeks_packed_kernel",
+         lambda: mt.greeks(cmg16, 1 << 20, SEED)),
+        ("price_xva m=3, n_grid=50, 2^20", "xva_am_kernel",
+         lambda: mt.price_xva(xva3, 1 << 20, SEED)),
+        ("price_xva m=16, n_grid=50, 2^20", "xva_wide_kernel",
+         lambda: mt.price_xva(xva16, 1 << 20, SEED)),
+        ("greeks_xva m=3, n_grid=12, 2^20", "xva_greeks_am_kernel",
+         lambda: mt.greeks_xva(xvag, 1 << 20, SEED)),
     ]
 
 
