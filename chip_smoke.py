@@ -9,7 +9,7 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the forty-one kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the forty-five kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together, and the
    runtime-m xVA kernels;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
@@ -26,11 +26,15 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
    netting set and its Greeks at 9, 16 and 100, at 13 nodes; the xVA and
    its Greeks at 1, 2, 3 and 8 and the runtime-m kernels at 9 and 16 and
-   forced at 3 against the M = 3 kernels): equal
+   forced at 3 against the M = 3 kernels; the control variates K45-K48
+   at the vanilla call at and deep in the money, the Asian at 13 and 50
+   dates, baskets of 1, 3 and 8 and packed of 9, 16 and 100 assets,
+   antithetic and Kahan each on and off): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
-   wrong-way risk),
+   wrong-way risk; the control variates' centered sum d and sum cc by the
+   same bound and sum d cc within rtol * sqrt(sum d^2 * sum cc^2)),
    two launches bitwise equal, block offsets bitwise;
 4. main paths, each with the launch counters set to 0 just before it and
    read just after: the pricing path (``mctpu_torch.price_*`` with the
@@ -95,7 +99,14 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    ``price_cva_multi`` without own default or funding, one run at 100
    underlyings; ``greeks_xva`` on the JAX Greeks CLI's set at 3 and 16
    against autograd of the closed form and on a mixed pair against CRN
-   bumps of ``price_xva``);
+   bumps of ``price_xva``) and the control-variate path
+   (``mctpu_torch.variance`` at the JAX exotic CLI's ``--product cv``
+   shapes: the call at 2^28 against Black-Scholes with its standard error
+   1.8x below ``price_vanilla``'s, antithetic, and deep in the money
+   100x below; the arithmetic Asian at 50 dates and 2^22 against
+   ``price_asian`` on another seed, 8x below; baskets of 3 (2^24) and 100
+   (2^22) assets and one with a Brownian offset against ``price_basket``,
+   1.8x below);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -147,6 +158,8 @@ CVA_MULTI_KERNELS = ("cva_multi_am", "cva_multi_packed",
                      "cva_multi_greeks_am", "cva_multi_greeks_packed")
 # K43 and K44, up to 8 underlyings and their runtime-m kernels beyond.
 XVA_KERNELS = ("xva_am", "xva_wide", "xva_greeks_am", "xva_greeks_wide")
+# K45, K46, K47, K48.
+CV_KERNELS = ("vanilla_cv", "asian_cv", "basket_cv_am", "basket_cv_packed")
 # K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
@@ -213,6 +226,7 @@ WALK_OPS = {
     "heston_greeks": (0, 1, 1, 0, 50, 13, 21),
     "varswap_heston": (0, 0, 0, 0, 20, 1, 11),
     "varswap_heston_greeks": (0, 0, 1, 0, 67, 6, 18),
+    "asian_cv": (1, 1, 0, 0, 6, 6, 11),
 }
 # The Heston walks (K27, K28, K19/K20's Heston leg) draw a whole Box-Muller
 # pair every step (mct::walk_steps) and take IEEE square roots: sqrtf per
@@ -380,6 +394,24 @@ def cva_work(kname: str, plan, m: int, nodes: int):
                 f32=p * nodes * (m * f_un + f_n + lz) + u * 3 * outs)
 
 
+# The control variates (K45-K48), counted from csrc/varred.cu: their
+# parents' (K1, K9, K2, K3) draws, expf and payoffs, the control being the
+# value the payoff forms (S_T, the basket) but for K46's geometric payoff
+# (a log-sum add per date; an expf, a multiply, a subtract and a max per
+# path, and no divide); a unit's five centered moments take 11 float32
+# operations (cc, d, five adds, three products), as K1's compensated pair.
+def cv_work(kname: str, plan, a: int = 1, steps: int = 1):
+    """Instruction counts of a control-variate kernel's run over ``a``
+    assets (K47, K48) or ``steps`` dates (K46)."""
+    p, u = plan.total_paths, plan.total_units
+    if kname == "asian_cv":
+        return walk_work(kname, plan, steps)
+    if kname == "vanilla_cv":
+        return work(draws=p, expf=p, f32=6 * p + 11 * u)
+    return work(draws=p * a, expf=p * a,
+                f32=p * (a * (a + 1) / 2 + 4 * a + 3) + 11 * u)
+
+
 def bound(ops, nbytes):
     """``(bound_ms, bound_by, class)``: the larger of the instruction time
     of the slowest class and the byte time (each input read once, each
@@ -425,6 +457,21 @@ def close_pairs(got, want, units: int, rtol: float, what: str) -> float:
           f"{what}: kernel vs plain beyond the scaled bound (rtol {rtol}): "
           f"max abs err {float(err.max()):.3e}")
     return float((err / bound.clamp(min=1e-300)).max())
+
+
+def close_moments(got, want, units: int, rtol: float, what: str) -> float:
+    """Assert the control variates' ``(sum d, sum d^2, sum cc, sum cc^2,
+    sum d cc)`` rows match: the first four as (sum x, sum x^2) pairs by
+    :func:`close_pairs`, ``sum d cc`` within ``rtol * sqrt(sum d^2 sum
+    cc^2)``.  Returns the largest error / bound."""
+    worst = close_pairs(got[:, :4], want[:, :4], units, rtol, what)
+    got, want = got.double(), want.double()
+    err = (got[:, 4] - want[:, 4]).abs()
+    bound = rtol * torch.sqrt((want[:, 1] * want[:, 3]).abs())
+    check(bool((err <= bound).all()),
+          f"{what}: sum d cc beyond rtol {rtol} * sqrt(sum d^2 sum cc^2): "
+          f"max abs err {float(err.max()):.3e}")
+    return max(worst, float((err / bound.clamp(min=1e-300)).max()))
 
 
 def within_sigma(value, want, se, what: str) -> float:
@@ -2267,6 +2314,93 @@ def rainbow_path(mt) -> None:
           f"({float(p.price):.6f}); 9 assets raise ValueError")
 
 
+def varred_path(mt, mcmath) -> None:
+    """The control-variate path at the JAX exotic CLI's ``--product cv``
+    shapes (S=K=100, r=0.05, v=0.2, T=1): ``mctpu_torch.variance``'s
+    pricers with the default EngineConfig, each against Black-Scholes or
+    the plain pricer on an independent seed, and its standard error
+    against the plain pricer's at the same path count (the limits of
+    tests/test_variance.py, tests/test_asian.py and
+    tests/test_varred_engine.py)."""
+    from mctpu_torch import variance
+    from mctpu_torch.types import AsianOption, BasketOption, VanillaOption
+
+    def tighter(cv, mc, factor, what):
+        ratio = float(mc.std_error) / max(float(cv.std_error), 1e-300)
+        check(bool(torch.isfinite(cv.price)) and ratio > factor,
+              f"{what}: CV std_error {float(cv.std_error):.3e} not below "
+              f"plain {float(mc.std_error):.3e} / {factor}")
+        return ratio
+
+    def vs_plain(cv, mc, what):
+        se = math.hypot(float(cv.std_error), float(mc.std_error))
+        z = abs(float(cv.price) - float(mc.price)) / se
+        check(z < N_SIGMA, f"{what}: CV {float(cv.price):.6f} vs plain "
+                           f"{float(mc.price):.6f} is {z:.2f} combined "
+                           "standard errors away")
+        return z
+
+    van = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
+    n_van = 1 << 28
+    bs = float(mcmath.bs_call(100.0, 100.0, 0.05, 0.2, 1.0))
+    cv = variance.price_vanilla_cv(van, n_van, SEED)
+    mc = mt.price_vanilla(van, n_van, SEED + 1)
+    z = within_sigma(cv.price, bs, cv.std_error, "vanilla CV")
+    ratio = tighter(cv, mc, 1.8, "vanilla CV")
+    plan = variance.cv_setup(van, n_van, mt.EngineConfig()).plan
+    pilot = variance._pilot_plan(plan, 0.1)  # 8 blocks x 51 iterations
+    check(cv.n == n_van and cv.n_paths == n_van + pilot.total_paths,
+          f"vanilla CV paths {cv.n_paths}, units {cv.n}")
+    anti = variance.price_vanilla_cv(van, 1 << 24, SEED,
+                                     mt.EngineConfig(antithetic=True))
+    z_a = within_sigma(anti.price, bs, anti.std_error, "vanilla CV antithetic")
+    deep = VanillaOption(100.0, 20.0, 0.05, 0.2, 1.0)
+    cv_d = variance.price_vanilla_cv(deep, 1 << 24, SEED)
+    mc_d = mt.price_vanilla(deep, 1 << 24, SEED + 1)
+    bs_d = float(mcmath.bs_call(100.0, 20.0, 0.05, 0.2, 1.0))
+    tighter(cv_d, mc_d, 100.0, "deep ITM vanilla CV")
+    # d is one float32 value on every deep in-the-money path, so the
+    # standard error may be exactly 0: the float32 centers' rounding (half
+    # an ulp of m = s0 e^{rT}) is the price's only error.
+    check(abs(float(cv_d.price) - bs_d) < 4 * float(cv_d.std_error) + 4e-6,
+          f"deep ITM vanilla CV {float(cv_d.price):.7f} vs BS {bs_d:.7f}")
+    phase("cv-path", f"vanilla CV 2^28 (K45): {float(cv.price):.6f} (BS "
+                     f"{bs:.6f}, z={z:.2f}), std_error "
+                     f"{float(cv.std_error):.3e}, {ratio:.2f}x below plain "
+                     f"{float(mc.std_error):.3e}; antithetic 2^24 "
+                     f"z={z_a:.2f}; k=20 2^24 std_error "
+                     f"{float(cv_d.std_error):.3e} vs plain "
+                     f"{float(mc_d.std_error):.3e}, price - BS "
+                     f"{float(cv_d.price) - bs_d:.2e}")
+
+    ari = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=50)
+    cv = variance.price_asian_cv(ari, 1 << 22, SEED)
+    mc = mt.price_asian(ari, 1 << 22, SEED + 1)
+    z = vs_plain(cv, mc, "Asian CV")
+    ratio = tighter(cv, mc, 8.0, "Asian CV")
+    phase("cv-path", f"arithmetic Asian CV n_obs=50 2^22 (K46): "
+                     f"{float(cv.price):.6f} vs plain {float(mc.price):.6f} "
+                     f"(z={z:.2f}), std_error {ratio:.1f}x below plain")
+
+    msgs = []
+    base3 = BasketOption.default_reference(3)
+    for label, bopt, n in (
+            ("equicorrelated(3, 0.3) (K47)",
+             BasketOption.equicorrelated(3, 0.3), 1 << 24),
+            ("equicorrelated(100, 0.3) (K48)",
+             BasketOption.equicorrelated(100, 0.3), 1 << 22),
+            ("default_reference(3), d=0.3 (K47)",
+             dataclasses.replace(base3, d=np.full(3, 0.3)), 1 << 22)):
+        cv = variance.price_basket_cv(bopt, n, SEED)
+        mc = mt.price_basket(bopt, n, SEED + 1)
+        z = vs_plain(cv, mc, f"basket CV {label}")
+        ratio = tighter(cv, mc, 1.8, f"basket CV {label}")
+        msgs.append(f"{label} 2^{n.bit_length() - 1} {float(cv.price):.6f} "
+                    f"vs plain {float(mc.price):.6f} (z={z:.2f}), "
+                    f"std_error {ratio:.1f}x below")
+    phase("cv-path", "basket CV: " + "; ".join(msgs))
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -2276,7 +2410,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import mctpu_torch
-    from mctpu_torch import _build, engine, estimator as mcest
+    from mctpu_torch import _build, engine, estimator as mcest, variance
     from mctpu_torch import math as mcmath
     from mctpu_torch.kernels import asian as kasian
     from mctpu_torch.kernels import barrier as kbarrier
@@ -2293,6 +2427,7 @@ def main() -> int:
     from mctpu_torch.kernels import multi_walk as kmw
     from mctpu_torch.kernels import rainbow as krainbow
     from mctpu_torch.kernels import vanilla as kvanilla
+    from mctpu_torch.kernels import varred as kvr
     from mctpu_torch.kernels import varswap as kvarswap
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
     from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
@@ -2327,8 +2462,9 @@ def main() -> int:
     # ---- 3. kernel vs plain at a medium plan ----------------------------
     nb, rows, iters = 64, 32, 2
 
-    def contract(label, fn, plain, units=None, rtol=RTOL):
-        """``units`` per block given: the Greek partials' scaled bound."""
+    def contract(label, fn, plain, units=None, rtol=RTOL, moments=False):
+        """``units`` per block given: the Greek partials' scaled bound, or
+        with ``moments`` the control variates' moment bound."""
         outs = [fn(0, nb), fn(0, nb), fn(2, nb - 2), plain(0, nb)]
         outs = [o if isinstance(o, tuple) else (o,) for o in outs]
         torch.cuda.synchronize()
@@ -2337,7 +2473,10 @@ def main() -> int:
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
             check(torch.equal(got, again), f"{label}: launches differ")
             check(torch.equal(got[2:], tail), f"{label}: block offset")
-            if units is None:
+            if moments:
+                worst = max(worst, close_moments(got, want, units, rtol,
+                                                 label))
+            elif units is None:
                 close_rtol(got, want, label)
                 rel = ((got.double() - want.double()).abs()
                        / want.double().abs().clamp(min=1e-30)).max()
@@ -2843,13 +2982,50 @@ def main() -> int:
                   f"K43 {tag}: the CVA sums or EPE profile at no own "
                   "default and no funding differ from K40's")
 
+    # The control variates (K45-K48) at the a-priori float32 centers,
+    # antithetic and Kahan each on and off: K45 at and deep in the money
+    # (where d is exactly 0 on every path), K46 at an odd 13 dates and at
+    # 50, K47 at 1, 3 (a Brownian offset d = 0.3) and 8 assets, K48 at 9,
+    # 16 and 100.
+    cv_variants = ((False, True), (True, False), (True, True), (False, False))
+    base3 = BasketOption.equicorrelated(3, 0.3)
+    for label, copt, variants in (
+            ("K45 k=100", VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0),
+             cv_variants),
+            ("K45 k=20", VanillaOption(100.0, 20.0, 0.05, 0.2, 1.0),
+             cv_variants[:2]),
+            ("K46 n_obs=13", ari13, cv_variants),
+            ("K46 n_obs=50", dataclasses.replace(ari13, n_obs=50),
+             cv_variants[:2]),
+            ("K47 a=1", BasketOption.equicorrelated(1, 0.3), cv_variants[:2]),
+            ("K47 a=3 d=0.3", dataclasses.replace(base3, d=np.full(3, 0.3)),
+             cv_variants),
+            ("K47 a=8", BasketOption.equicorrelated(8, 0.3), cv_variants[:2]),
+            ("K48 a=9", BasketOption.equicorrelated(9, 0.3), cv_variants[:2]),
+            ("K48 a=16", BasketOption.equicorrelated(16, 0.3), cv_variants),
+            ("K48 a=100", BasketOption.equicorrelated(100, 0.3),
+             cv_variants[:2])):
+        for anti, kahan in variants:
+            cvs = variance.cv_setup(copt, 1, engine.EngineConfig(
+                num_blocks=nb, rows=rows, antithetic=anti,
+                precision=Precision.F32_KAHAN if kahan else Precision.F32,
+                auto_shrink=False))
+            plan = dataclasses.replace(cvs.plan, iters=iters)
+            cops = cvs.operands(kvr.center32(cvs.center))
+            contract(f"{label}{' antithetic' if anti else ''}"
+                     f"{'' if kahan else ' f32'}",
+                     lambda off, n: cvs.partials(cops, SEED, off, plan, n),
+                     lambda off, n: cvs.plain_partials(cops, SEED, off, plan,
+                                                       n),
+                     units=units(plan), moments=True)
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
                 kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES,
                 kheston.LAUNCHES, kmw.LAUNCHES, krainbow.LAUNCHES,
-                kcm.LAUNCHES)
+                kcm.LAUNCHES, kvr.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -3023,12 +3199,20 @@ def main() -> int:
     launches.update(read_counts(XVA_KERNELS))
     phase("xva-path", f"done in {time.perf_counter() - t_xva:.1f} s")
 
+    # ---- 4m. the control-variate path at full width ----------------------
+    reset_counts()
+    t_cv = time.perf_counter()
+    varred_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(CV_KERNELS))
+    phase("cv-path", f"done in {time.perf_counter() - t_cv:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
                    + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
                    + MULTI_WALK_KERNELS + RAINBOW_KERNELS + CVA_MULTI_KERNELS
-                   + XVA_KERNELS)
+                   + XVA_KERNELS + CV_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -3072,23 +3256,37 @@ def main() -> int:
             vals.append((disc * total[0::2] / plan.total_units).reshape(-1))
         return torch.cat(vals)
 
+    def cv_price(out, plan, disc, p0):
+        """The price the CV estimator forms from one run's moment sums,
+        regressed on themselves, at the undiscounted center ``p0``."""
+        m = pairwise_tree_sum(out.double(), 0).cpu()
+        n = plan.total_units
+        db = (m[4] - m[0] * m[2] / n) / (m[3] - m[2] * m[2] / n + 1e-300)
+        return torch.stack([disc * (p0 + (m[0] - db * m[2]) / n)])
+
     def timed(kname, source, replaces, plan, steps, disc, kernel, plain,
               ops, in_bytes=64, units=None, fold=None, plain_reps=5,
-              rtol=RTOL):
+              rtol=RTOL, cv_p0=None):
         """``units`` per block given: Greek partials (scaled pair bound,
-        every output's estimate in max_abs_err).  ``ops`` are the run's
-        instruction counts (:func:`work`), ``in_bytes`` its operands'
-        bytes."""
+        every output's estimate in max_abs_err), or with ``cv_p0`` (the
+        center) the control variates' moment sums (their bound, the CV
+        price in max_abs_err).  ``ops`` are the run's instruction counts
+        (:func:`work`), ``in_bytes`` its operands' bytes."""
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for g, w in zip(got, want):
-            if units is None:
+            if cv_p0 is not None:
+                close_moments(g, w, units, rtol, kname)
+            elif units is None:
                 close_rtol(g, w, kname)
             else:
                 close_pairs(g, w, units, rtol, kname)
         # max_abs_err: kernel vs plain in the estimates, in price units.
-        if units is None:
+        if cv_p0 is not None:
+            err = float((cv_price(got[0], plan, disc, cv_p0)
+                         - cv_price(want[0], plan, disc, cv_p0)).abs().max())
+        elif units is None:
             err = float((estimates(got, plan, disc)
                          - estimates(want, plan, disc)).abs().max())
         else:
@@ -3562,6 +3760,39 @@ def main() -> int:
               in_bytes=4 * sum(x.numel() for x in (xops.scal, xops.lt,
                                                    xops.par, xops.nodes)),
               units=gunits(plan) if greek else None, plain_reps=3)
+
+    # The control-variate path's shapes (the JAX exotic CLI's --product cv
+    # at its defaults): K45 the call at 2^28, K46 the arithmetic Asian at
+    # n_obs=50 and 2^22, K47 equicorrelated(3, 0.3) at 2^24, K48
+    # equicorrelated(100, 0.3) at 2^22; the main run's plan at the a-priori
+    # float32 centers.
+    cv_cells = (
+        ("vanilla_cv", "varred.py:167",
+         VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0), 1 << 28),
+        ("asian_cv", "varred.py:273", ari, n_ex),
+        ("basket_cv_am", "varred.py:402", BasketOption.equicorrelated(3, 0.3),
+         1 << 24),
+        ("basket_cv_packed", "varred.py:430",
+         BasketOption.equicorrelated(100, 0.3), n_ex))
+    for kname, replaces, copt, n in cv_cells:
+        cvs = variance.cv_setup(copt, n, cfg)
+        cops = cvs.operands(kvr.center32(cvs.center))
+        a = getattr(copt, "n_assets", 1)
+        steps = getattr(copt, "n_obs", 1)
+        if kname.startswith("basket"):
+            in_bytes = 4 * sum(x.numel() for x in (cops.scal, cops.lt,
+                                                   cops.par))
+        else:
+            in_bytes = 4 * cops.numel()  # the six scalars
+        timed(kname, "mctpu_torch/csrc/varred.cu",
+              f"mctpu/kernels/{replaces}", cvs.plan, steps,
+              math.exp(-copt.r * copt.t),
+              lambda s=cvs, o=cops: s.partials(o, SEED, 0, s.plan,
+                                               s.plan.num_blocks),
+              lambda s=cvs, o=cops: s.plain_partials(o, SEED, 0, s.plan,
+                                                     s.plan.num_blocks),
+              cv_work(kname, cvs.plan, a, steps), in_bytes=in_bytes,
+              units=gunits(cvs.plan), plain_reps=3, cv_p0=cvs.center[0])
 
     # K37 at 100 assets on the plan rainbow_path gives it (c = 1, a
     # 5050-term product a thread), held against its plain version untimed.

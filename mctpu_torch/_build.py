@@ -26,8 +26,8 @@ SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
            "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
            "barrier_book.cu", "heston.cu", "multi_walk.cu", "rainbow.cu",
-           "cva_multi.cu")
-HEADERS = ("philox.cuh", "common.cuh", "packed.cuh")
+           "cva_multi.cu", "varred.cu")
+HEADERS = ("philox.cuh", "common.cuh", "packed.cuh", "basket.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,12 +41,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # set's and the xVA's exercise indicator and positive part) fall on the
 # same side (see the head of csrc/asian.cu), and a deep out-of-the-money
 # strike's st - k and an antithetic pair's cancelling gamma terms are exact
-# as there (see the head of csrc/ladder.cu).
+# as there (see the head of csrc/ladder.cu), and so is the control
+# variates' residual d = (p - p0) - (c - m), the difference of two nearly
+# equal terms (see the head of csrc/varred.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
                              "cliquet.cu", "ladder.cu", "book.cu",
                              "varswap.cu", "barrier_book.cu", "heston.cu",
-                             "multi_walk.cu", "rainbow.cu", "cva_multi.cu")}
+                             "multi_walk.cu", "rainbow.cu", "cva_multi.cu",
+                             "varred.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -82,18 +85,18 @@ _SIGNATURES = {
     # iters, antithetic, kahan, wwr, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P),
-    # The single-asset walks (K9, K10, K12, K13, K15-K20, K27, K28): scal,
+    # The single-asset walks (K9, K10, K12, K13, K15-K20, K27, K28, K46): scal,
     # n_obs (the cliquet's n_periods, the Heston walk's n_steps), seed, off,
     # n_blocks, rows, iters, antithetic, kahan, mode (geometric Asian,
     # up-and-out barrier, 2 * fixed + put for the lookback, the QE scheme,
-    # the variance swap's Heston leg; 0 for the cliquet), out, stream
+    # the variance swap's Heston leg; 0 for the cliquet and K46), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_asian_greeks", "mctpu_barrier",
                     "mctpu_barrier_greeks", "mctpu_lookback",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
                     "mctpu_cliquet_greeks", "mctpu_varswap",
                     "mctpu_varswap_greeks", "mctpu_heston",
-                    "mctpu_heston_greeks")},
+                    "mctpu_heston_greeks", "mctpu_asian_cv")},
     # The strike ladder (K21, K22): par, strikes, n_strikes, seed, off,
     # n_blocks, rows, iters, antithetic, put, kahan, out, stream
     **{name: (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
@@ -147,6 +150,14 @@ _SIGNATURES = {
     "mctpu_xva_greeks": (_P,) * 4 + (_I,) * 10 + (_P,) * 3,
     # n_under, n_grid, greeks, wide -> float count of one block's scratch
     "mctpu_xva_scratch_floats": (_I,) * 4,
+    # The control variates (K45, K47, K48; K46 takes the single-asset
+    # walks' signature above): K45 par, seed, off, n_blocks, rows, iters,
+    # antithetic, kahan, out, stream
+    "mctpu_vanilla_cv": (_P,) + (_I,) * 7 + (_P, _P),
+    # K47, K48: K2's and K3's signatures with the strike replaced by scal
+    # (k, p0, m)
+    "mctpu_basket_cv_am": (_P, _P, _P) + (_I,) * 8 + (_P, _P),
+    "mctpu_basket_cv_packed": (_P, _P, _P) + (_I,) * 10 + (_P, _P),
 }
 
 _lib = None

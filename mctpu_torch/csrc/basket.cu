@@ -29,7 +29,7 @@
 // no atomics, deterministic.
 #include <algorithm>
 
-#include "common.cuh"
+#include "basket.cuh"
 
 namespace {
 
@@ -40,30 +40,12 @@ constexpr size_t SMEM_LIMIT = 96 * 1024;
 
 // ---------------------------------------------------------------- K2 (a <= 8)
 
-// sum_i ws0_i exp(drift_i + vol_i (sgn * (L z)_i + d_i)); par rows: drift,
-// vol, d, w*s0 (mctpu/kernels/basket.py, asset_major_ops).
-template <int A>
-__device__ __forceinline__ float am_basket(const float* z, const float* lt,
-                                           const float* par, float sgn) {
-  float basket = 0.0f;
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    float bt = lt[i * A] * z[0];
-#pragma unroll
-    for (int j = 1; j <= i; ++j) bt = bt + lt[i * A + j] * z[j];
-    const float arg = par[i] + par[A + i] * (sgn * bt + par[2 * A + i]);
-    const float term = par[3 * A + i] * expf(arg);
-    basket = (i == 0) ? term : basket + term;
-  }
-  return basket;
-}
-
 template <int A, bool ANTI>
 __device__ __forceinline__ float am_payoff(const float* z, const float* lt,
                                            const float* par, float k) {
-  const float p = fmaxf(am_basket<A>(z, lt, par, 1.0f) - k, 0.0f);
+  const float p = fmaxf(mct::am_basket<A>(z, lt, par, 1.0f) - k, 0.0f);
   if (ANTI) {
-    return 0.5f * (p + fmaxf(am_basket<A>(z, lt, par, -1.0f) - k, 0.0f));
+    return 0.5f * (p + fmaxf(mct::am_basket<A>(z, lt, par, -1.0f) - k, 0.0f));
   }
   return p;
 }
@@ -119,25 +101,15 @@ void dispatch_am(bool anti, bool kahan, const float* lt, const float* par,
 
 // ---------------------------------------------------------------- K3 (a > 8)
 
-// Payoff of one packed path from its a normals z (shared memory).  par
-// rows: drift, vol, d, s0, w (mctpu_torch/kernels/basket.py, pack_assets).
-// bt is formed once and serves both antithetic signs.
+// Payoff of one packed path from its a normals z (shared memory), pair-meaned
+// under ANTI (mct::packed_baskets).
 template <bool ANTI>
 __device__ __forceinline__ float packed_payoff(const float* z,
                                                const float* __restrict__ lt,
                                                const float* __restrict__ par,
                                                int a, float k) {
-  float basket = 0.0f, basket_m = 0.0f;
-  for (int j = 0; j < a; ++j) {
-    const float* lrow = lt + j * a;
-    float bt = 0.0f;
-    for (int l = 0; l <= j; ++l) bt = fmaf(__ldg(lrow + l), z[l], bt);
-    const float drift = __ldg(par + j), vol = __ldg(par + a + j);
-    const float d = __ldg(par + 2 * a + j), s0 = __ldg(par + 3 * a + j);
-    const float w = __ldg(par + 4 * a + j);
-    basket = fmaf(s0 * expf(drift + vol * (bt + d)), w, basket);
-    if (ANTI) basket_m = fmaf(s0 * expf(drift + vol * (d - bt)), w, basket_m);
-  }
+  float basket, basket_m;
+  mct::packed_baskets<ANTI>(z, lt, par, a, basket, basket_m);
   const float p = fmaxf(basket - k, 0.0f);
   if (ANTI) return 0.5f * (p + fmaxf(basket_m - k, 0.0f));
   return p;

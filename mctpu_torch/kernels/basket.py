@@ -22,14 +22,16 @@ import numpy as np
 import torch
 
 from mctpu_torch import _build
-from mctpu_torch.kernels.common import (LANES, Plan, acc_add, acc_final,
-                                        acc_init, block_keys, check_operand,
-                                        draw_normal_pair, tile_index)
+from mctpu_torch.kernels.common import (LANES, Plan, acc_add_n,
+                                        acc_final_n, acc_init_n, block_keys,
+                                        check_operand, draw_normal_pair,
+                                        tile_index)
 from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import BasketOption
 
 __all__ = ["ASSET_MAJOR_MAX", "use_asset_major", "pack_factor", "make_plan",
            "Operands", "asset_major_ops", "pack_assets", "operands",
+           "am_basket", "packed_basket", "stream_partials", "launch",
            "plain_partials", "partials", "LAUNCHES"]
 
 # Launches of the CUDA kernels in this process, by kernel name.
@@ -122,37 +124,77 @@ def operands(opt: BasketOption, chol, device) -> Operands:
                     par=par.contiguous().to(device))
 
 
+def am_basket(zs, lt, par, a: int, sgn: float):
+    """Basket value of one path tile from its ``a`` asset normal tiles,
+    the ``L z`` term signed by ``sgn`` (K2's and K47's core)."""
+    basket = None
+    for i in range(a):
+        bt = None
+        for j in range(i + 1):
+            term = lt[i, j] * zs[j]
+            bt = term if bt is None else bt + term
+        arg = par[0, i] + par[1, i] * (sgn * bt + par[2, i])
+        term = par[3, i] * torch.exp(arg)
+        basket = term if basket is None else basket + term
+    return basket
+
+
 def _am_payoff(zs, lt, par, k, a: int, antithetic: bool):
     """Basket payoff of one path tile from its ``a`` asset normal tiles."""
     def pay(sgn):
-        basket = None
-        for i in range(a):
-            bt = None
-            for j in range(i + 1):
-                term = lt[i, j] * zs[j]
-                bt = term if bt is None else bt + term
-            arg = par[0, i] + par[1, i] * (sgn * bt + par[2, i])
-            term = par[3, i] * torch.exp(arg)
-            basket = term if basket is None else basket + term
-        return torch.clamp(basket - k, min=0.0)
+        return torch.clamp(am_basket(zs, lt, par, a, sgn) - k, min=0.0)
 
     if antithetic:
         return 0.5 * (pay(1.0) + pay(-1.0))
     return pay(1.0)
 
 
+def packed_basket(z, lt, par):
+    """Basket values of packed paths ``z (..., a)`` -> ``(...)`` (K3's and
+    K48's core)."""
+    drift, vol, d, s0, w = par
+    bt = torch.matmul(z, lt.T) + d
+    s_t = s0 * torch.exp(drift + vol * bt)
+    return (s_t * w).sum(-1)
+
+
 def _packed_payoff(z, lt, par, k, antithetic: bool):
     """Basket payoffs of packed paths ``z (..., a)`` -> ``(...)``."""
-    drift, vol, d, s0, w = par
-
     def pay(zz):
-        bt = torch.matmul(zz, lt.T) + d
-        s_t = s0 * torch.exp(drift + vol * bt)
-        return torch.clamp((s_t * w).sum(-1) - k, min=0.0)
+        return torch.clamp(packed_basket(zz, lt, par) - k, min=0.0)
 
     if antithetic:
         return 0.5 * (pay(z) + pay(-z))
     return pay(z)
+
+
+def stream_partials(tile_sums, n_sums: int, a: int, seed: int,
+                    block_offset: int, plan: Plan, n_blocks: int,
+                    device) -> torch.Tensor:
+    """Per-block ``(n_blocks, n_sums)`` partials over the basket kernels'
+    stream map (asset-major or packed by ``a``): ``tile_sums(z)`` returns
+    the ``n_sums`` per-block sums of one branch's path tile, ``z`` a list
+    of ``a`` ``(n_blocks, rows * 128)`` asset tiles (asset-major) or the
+    ``(n_blocks, rows, c, a)`` packed paths; the two branches' sums are
+    added, then Kahan-added over iterations if ``plan.kahan``."""
+    key = block_keys(seed, [block_offset + b for b in range(n_blocks)],
+                     device)
+    carry = acc_init_n(n_sums, n_blocks, device)
+    if use_asset_major(a):
+        idx = tile_index(plan.rows * LANES, device)
+    else:
+        a_tile, c, width = pack_factor(a)
+        idx = tile_index(plan.rows * width, device)
+    for i in range(plan.iters):
+        if use_asset_major(a):
+            pairs = [draw_normal_pair(key, idx, i * a + p) for p in range(a)]
+            tiles = ([z1 for z1, _ in pairs], [z2 for _, z2 in pairs])
+        else:
+            tiles = tuple(z.view(n_blocks, plan.rows, c, a_tile)[..., :a]
+                          for z in draw_normal_pair(key, idx, i))
+        sums = [x + y for x, y in zip(*(tile_sums(z) for z in tiles))]
+        carry = acc_add_n(carry, sums, plan.kahan)
+    return acc_final_n(carry)
 
 
 def plain_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
@@ -160,37 +202,19 @@ def plain_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
     """Per-block ``[sum_p, sum_p2]``, shape ``(n_blocks, 2)``, in plain
     PyTorch on the operands' device, over the same stream map as the
     kernel (asset-major or packed by ``n_assets``)."""
-    dev = ops.device
     a = ops.n_assets
     k = ops.k[0]
-    key = block_keys(seed, [block_offset + b for b in range(n_blocks)], dev)
-    carry = acc_init(n_blocks, dev)
-    if use_asset_major(a):
-        idx = tile_index(plan.rows * LANES, dev)
-        for i in range(plan.iters):
-            za, zb = [], []
-            for p in range(a):
-                z1, z2 = draw_normal_pair(key, idx, i * a + p)
-                za.append(z1)
-                zb.append(z2)
-            p1 = _am_payoff(za, ops.lt, ops.par, k, a, plan.antithetic)
-            p2 = _am_payoff(zb, ops.lt, ops.par, k, a, plan.antithetic)
-            cs = p1.sum(1) + p2.sum(1)
-            cs2 = (p1 * p1).sum(1) + (p2 * p2).sum(1)
-            carry = acc_add(carry, cs, cs2, plan.kahan)
-        return acc_final(carry)
+    am = use_asset_major(a)
 
-    a_tile, c, width = pack_factor(a)
-    idx = tile_index(plan.rows * width, dev)
-    for i in range(plan.iters):
-        z1, z2 = draw_normal_pair(key, idx, i)
-        ps = [_packed_payoff(z.view(n_blocks, plan.rows, c, a_tile)[..., :a],
-                             ops.lt, ops.par, k, plan.antithetic)
-              for z in (z1, z2)]
-        cs = ps[0].sum((1, 2)) + ps[1].sum((1, 2))
-        cs2 = (ps[0] * ps[0]).sum((1, 2)) + (ps[1] * ps[1]).sum((1, 2))
-        carry = acc_add(carry, cs, cs2, plan.kahan)
-    return acc_final(carry)
+    def tile_sums(z):
+        if am:
+            p = _am_payoff(z, ops.lt, ops.par, k, a, plan.antithetic)
+            return [p.sum(1), (p * p).sum(1)]
+        p = _packed_payoff(z, ops.lt, ops.par, k, plan.antithetic)
+        return [p.sum((1, 2)), (p * p).sum((1, 2))]
+
+    return stream_partials(tile_sums, 2, a, seed, block_offset, plan,
+                           n_blocks, ops.device)
 
 
 def _check(ops: Operands):
@@ -201,30 +225,41 @@ def _check(ops: Operands):
         check_operand(name, x, shape, ops.device)
 
 
-def _cuda_partials(ops: Operands, seed, block_offset, plan, n_blocks):
-    _check(ops)
+def launch(prefix: str, scal: torch.Tensor, lt: torch.Tensor,
+           par: torch.Tensor, n_sums: int, seed: int, block_offset: int,
+           plan: Plan, n_blocks: int):
+    """Launch the asset-major or packed kernel ``mctpu_{prefix}_am`` /
+    ``_packed`` (K2/K3 with ``scal = [k]``, K47/K48 with ``scal = [k, p0,
+    m]``) on checked operands; returns ``(kernel name, (n_blocks, n_sums)
+    partials)``.  Raises on a failed launch."""
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
-    a = ops.n_assets
+    a = lt.shape[0]
     lib = _build.library()
-    with torch.cuda.device(ops.device):
-        out = torch.empty((n_blocks, 2), dtype=torch.float32,
-                          device=ops.device)
+    with torch.cuda.device(lt.device):
+        out = torch.empty((n_blocks, n_sums), dtype=torch.float32,
+                          device=lt.device)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         common = (wrap_int32(seed), wrap_int32(block_offset), n_blocks,
                   plan.rows, plan.iters, int(plan.antithetic),
                   int(plan.kahan), out.data_ptr(), stream)
+        ptrs = (lt.data_ptr(), par.data_ptr(), scal.data_ptr())
         if use_asset_major(a):
-            name = "basket_am"
-            status = lib.mctpu_basket_am(ops.lt.data_ptr(), ops.par.data_ptr(),
-                                         ops.k.data_ptr(), a, *common)
+            name = f"{prefix}_am"
+            status = getattr(lib, f"mctpu_{name}")(*ptrs, a, *common)
         else:
-            name = "basket_packed"
+            name = f"{prefix}_packed"
             a_tile, _, width = pack_factor(a)
-            status = lib.mctpu_basket_packed(
-                ops.lt.data_ptr(), ops.par.data_ptr(), ops.k.data_ptr(), a,
-                a_tile, width, *common)
+            status = getattr(lib, f"mctpu_{name}")(*ptrs, a, a_tile, width,
+                                                    *common)
     _build.check(status, name)
+    return name, out
+
+
+def _cuda_partials(ops: Operands, seed, block_offset, plan, n_blocks):
+    _check(ops)
+    name, out = launch("basket", ops.k, ops.lt, ops.par, 2, seed,
+                       block_offset, plan, n_blocks)
     LAUNCHES[name] += 1
     return out
 

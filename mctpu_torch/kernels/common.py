@@ -271,7 +271,8 @@ def walk_steps(key, idx: torch.Tensor, n_steps: int, step_fn, carry):
 
 
 def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
-                  n_blocks: int, device, width: int = LANES) -> torch.Tensor:
+                  n_blocks: int, device, width: int = LANES,
+                  sums=None) -> torch.Tensor:
     """Per-block ``(n_blocks, 2 * n_out)`` partials ``[sum x, sum x^2]`` of
     each per-path output of a walk, iteration by iteration over
     :func:`iter_keys`' streams.
@@ -281,6 +282,9 @@ def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
     tiles, each ``(n_blocks, -1)``; under antithetic the mirror
     (``sgn = -1``) replays the same key and the two are averaged before
     the sums, which are Kahan-added over iterations if ``plan.kahan``.
+    ``sums(tiles)``, if given, returns the per-block sums of an
+    iteration's (pair-meaned) tiles in place of the ``[sum x, sum x^2]``
+    pairs (K46's centered moments).
     """
     shape = (n_blocks, plan.rows * width)
     idx = tile_index(shape[1], device)
@@ -291,12 +295,15 @@ def walk_partials(walk, seed: int, block_offset: int, plan: Plan,
         if plan.antithetic:
             mirror = walk(key, idx, shape, -1.0)
             tiles = [0.5 * (x + y) for x, y in zip(tiles, mirror)]
-        sums = []
-        for q in tiles:
-            sums += [q.sum(1), (q * q).sum(1)]
+        if sums is None:
+            vals = []
+            for q in tiles:
+                vals += [q.sum(1), (q * q).sum(1)]
+        else:
+            vals = sums(tiles)
         if carry is None:
-            carry = acc_init_n(len(sums), n_blocks, device)
-        carry = acc_add_n(carry, sums, plan.kahan)
+            carry = acc_init_n(len(vals), n_blocks, device)
+        carry = acc_add_n(carry, vals, plan.kahan)
     return acc_final_n(carry)
 
 

@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from mctpu_torch import _build
+from mctpu_torch import _build, variance
+from mctpu_torch.engine import EngineConfig
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import barrier_book as kbb
@@ -39,14 +40,15 @@ from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import multi_walk as kmw
 from mctpu_torch.kernels import rainbow as krainbow
 from mctpu_torch.kernels import vanilla as kvanilla
+from mctpu_torch.kernels import varred as kvr
 from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.math import cholesky_lower
 from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
                                BasketOption, CliquetOption, CvaMultiSpec,
                                CvaPortfolioSpec, CvaSpec, HestonOption,
-                               LookbackOption, RainbowOption, VanillaBook,
-                               VanillaOption, XvaSpec)
-from torch_tolerance import assert_pairs_close
+                               LookbackOption, Precision, RainbowOption,
+                               VanillaBook, VanillaOption, XvaSpec)
+from torch_tolerance import assert_moments_close, assert_pairs_close
 
 pytestmark = pytest.mark.cuda
 
@@ -64,10 +66,11 @@ def dev():
     return torch.device("cuda")
 
 
-def _contract(fn, plain, n_blocks=NB, units=None, rtol=RTOL):
+def _contract(fn, plain, n_blocks=NB, units=None, rtol=RTOL, moments=False):
     """Kernel == plain at ``rtol`` (by the scaled pair bound when ``units``
-    per block is given); two launches bitwise equal; blocks [2, NB) of
-    offset 0 bitwise equal blocks [0, NB-2) of offset 2."""
+    per block is given, the control variates' moment bound as well with
+    ``moments``); two launches bitwise equal; blocks [2, NB) of offset 0
+    bitwise equal blocks [0, NB-2) of offset 2."""
     got = fn(0, n_blocks)
     again = fn(0, n_blocks)
     tail = fn(2, n_blocks - 2)
@@ -80,7 +83,10 @@ def _contract(fn, plain, n_blocks=NB, units=None, rtol=RTOL):
         assert torch.isfinite(g).all()
         assert torch.equal(g, a)
         assert torch.equal(g[2:], t)
-        if units is None:
+        if moments:
+            assert_moments_close(g.cpu().numpy(), w.cpu().numpy(), units,
+                                 rtol)
+        elif units is None:
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                        rtol=rtol, atol=0)
         else:
@@ -1182,3 +1188,63 @@ def test_xva_launch_counters_and_bad_operands(dev):
     with pytest.raises(ValueError):
         kcm.xva_partials(dataclasses.replace(ops, par=ops.par.double()), 1,
                          0, plan, 2)
+
+
+# ---- K45-K48: the control variates -----------------------------------------
+
+def _cv_contract(dev, opt, antithetic, kahan=True):
+    """K45-K48 against their plain versions on ``opt``'s CV launch at NB
+    blocks of 16 rows, 2 iterations, at the a-priori float32 centers."""
+    prec = Precision.F32_KAHAN if kahan else Precision.F32
+    setup = variance.cv_setup(opt, 1, EngineConfig(
+        num_blocks=NB, rows=16, precision=prec, antithetic=antithetic,
+        auto_shrink=False))
+    plan = dataclasses.replace(setup.plan, iters=2)
+    ops = setup.operands(kvr.center32(setup.center))
+    _contract(lambda off, nb: setup.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: setup.plain_partials(ops, SEED, off, plan, nb),
+              units=plan.iters * plan.units_per_iter, moments=True)
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_vanilla_cv_kernel_matches_plain(dev, antithetic, kahan):
+    for k in (100.0, 20.0):  # at the money; deep in the money (d near 0)
+        _cv_contract(dev, VanillaOption(100., k, 0.04879, 0.2, 1.),
+                     antithetic, kahan)
+
+
+@pytest.mark.parametrize("n_obs", [1, 8, 13, 50])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_asian_cv_kernel_matches_plain(dev, n_obs, antithetic):
+    _cv_contract(dev, AsianOption(100., 100., 0.05, 0.2, 1., n_obs=n_obs),
+                 antithetic, kahan=n_obs != 8)
+
+
+@pytest.mark.parametrize("n_assets", [1, 3, 8, 9, 16, 100])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_basket_cv_kernel_matches_plain(dev, n_assets, antithetic):
+    opt = BasketOption.equicorrelated(n_assets, 0.3)
+    if n_assets == 3:  # a Brownian offset on every asset
+        opt = dataclasses.replace(opt, d=np.full(3, 0.3))
+    _cv_contract(dev, opt, antithetic, kahan=n_assets != 9)
+
+
+def test_cv_pricers_launch_their_kernels(dev):
+    """Each CV pricer runs two launches (pilot and main) of its kernel on
+    the card."""
+    cfg = EngineConfig(num_blocks=16, rows=16)
+    calls = (
+        ("vanilla_cv", variance.price_vanilla_cv,
+         VanillaOption(100., 100., 0.04879, 0.2, 1.)),
+        ("asian_cv", variance.price_asian_cv,
+         AsianOption(100., 100., 0.05, 0.2, 1., n_obs=12)),
+        ("basket_cv_am", variance.price_basket_cv,
+         BasketOption.equicorrelated(3, 0.3)),
+        ("basket_cv_packed", variance.price_basket_cv,
+         BasketOption.equicorrelated(16, 0.3)))
+    for name, fn, opt in calls:
+        before = kvr.LAUNCHES[name]
+        res = fn(opt, 1 << 18, SEED, cfg)
+        assert kvr.LAUNCHES[name] == before + 2, name
+        assert np.isfinite(float(res.price)) and float(res.std_error) > 0

@@ -42,3 +42,20 @@ def assert_pairs_close(got, want, n: int, rtol):
     assert (err <= bound).all(), (
         f"beyond the scaled bound at {worst}: got {got[worst]!r}, want "
         f"{want[worst]!r}, bound {bound[worst]!r}")
+
+
+def assert_moments_close(got, want, n: int, rtol):
+    """Assert the control variates' ``(sum d, sum d^2, sum cc, sum cc^2,
+    sum d cc)`` rows of ``got`` match ``want``.  ``sum d`` and ``sum cc``
+    are centered and can sit near 0, so each is held, with its square, by
+    the pair bound above; the cross sum by ``rtol * sqrt(sum d^2 * sum
+    cc^2)``, its Cauchy-Schwarz bound on ``sum |d cc|``."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape and got.shape[1] == 5, got.shape
+    assert_pairs_close(got[:, :4], want[:, :4], n, rtol)
+    err = np.abs(got[:, 4] - want[:, 4])
+    bound = rtol * np.sqrt(np.abs(want[:, 1] * want[:, 3]))
+    assert (err <= bound).all(), (
+        f"sum d cc beyond rtol * sqrt(sum d^2 sum cc^2): got {got[:, 4]!r}, "
+        f"want {want[:, 4]!r}, bound {bound!r}")

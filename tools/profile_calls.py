@@ -14,7 +14,8 @@ default ``EngineConfig``), after one warm-up call:
   ``torch.cuda.synchronize()``;
 * device ms — sum of the durations of every device-side event
   (kernels, copies, fills) that ``torch.profiler`` records in one call;
-* kernel ms — the same for the call's own CUDA kernel alone;
+* kernel ms — the same for the call's own CUDA kernel alone (both
+  launches of a control-variate call);
 * busy — device ms over that call's wall ms.
 
 Prints the card's name and power limit, one line per call, and a JSON
@@ -107,6 +108,7 @@ def calls(mt):
     rb3 = rainbow([100.0] * 3, [0.2, 0.3, 0.2], 0.3, 100.0, 0.05)
     rb16 = rainbow([100.0] * 16, [0.25] * 16, 0.3, 110.0, 0.05)
     rbg = rainbow([100.0, 95.0, 90.0], [0.2, 0.25, 0.3], 0.5, 100.0, 0.04879)
+    cv_van = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -210,6 +212,17 @@ def calls(mt):
          lambda: mt.price_xva(xva16, 1 << 20, SEED)),
         ("greeks_xva m=3, n_grid=12, 2^20", "xva_greeks_am_kernel",
          lambda: mt.greeks_xva(xvag, 1 << 20, SEED)),
+        # The control variates at the JAX exotic CLI's --product cv shapes:
+        # two launches a call (the pilot's 8 blocks, then the main run).
+        ("price_vanilla_cv 2^28", "vanilla_cv_kernel",
+         lambda: mt.variance.price_vanilla_cv(cv_van, 1 << 28, SEED)),
+        ("price_asian_cv n_obs=50, 2^22", "asian_cv_kernel",
+         lambda: mt.variance.price_asian_cv(ari, n22, SEED)),
+        ("price_basket_cv a=3, 2^24", "basket_cv_am_kernel",
+         lambda: mt.variance.price_basket_cv(eq3, n24, SEED)),
+        ("price_basket_cv a=100, 2^22", "basket_cv_packed_kernel",
+         lambda: mt.variance.price_basket_cv(
+             BasketOption.equicorrelated(100, 0.3), n22, SEED)),
     ]
 
 
