@@ -9,7 +9,7 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the forty-five kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the forty-eight kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together, and the
    runtime-m xVA kernels;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
@@ -29,6 +29,10 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    forced at 3 against the M = 3 kernels; the control variates K45-K48
    at the vanilla call at and deep in the money, the Asian at 13 and 50
    dates, baskets of 1, 3 and 8 and packed of 9, 16 and 100 assets,
+   antithetic and Kahan each on and off; the importance-sampled call K49
+   at K = 100 and 200, untilted and at the optimal tilt; the American walk
+   K50 and its Greeks K51 on a put and a call at 1, 13 and 50 dates under
+   a pilot-fitted rule, K51's price sums equal to K50's bit for bit;
    antithetic and Kahan each on and off): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
@@ -106,7 +110,19 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    100x below; the arithmetic Asian at 50 dates and 2^22 against
    ``price_asian`` on another seed, 8x below; baskets of 3 (2^24) and 100
    (2^22) assets and one with a Brownian offset against ``price_basket``,
-   1.8x below);
+   1.8x below) and the American path (``lsm.price_american`` on the JAX
+   exotic CLI's put, 50 dates, 2^22 paths, engine tier (K50) against
+   CRR-2000 within 4 standard errors + 0.02, CRR-1000 as a lower bound and
+   the float64 oracle tier; the call at 20 dates against Black-Scholes,
+   one date against the European put; ``price_american_bounds`` at 2^16
+   and 64 inner samples bracketing CRR-4000; ``greeks_american`` (K51) on
+   the Greeks CLI's put, 12 dates, 2^20, against central differences of
+   the 12-date Bermudan lattice, its price equal to the pricer's bit for
+   bit; ``price_american_heston`` QE at 50 steps, 2^17, against the
+   characteristic-function European put and the CRR-50 limit; and
+   ``variance.price_vanilla_is`` (K49) at K = 200, 2^28, against
+   Black-Scholes with its standard error 10x below ``price_vanilla``'s,
+   and three tilts at K = 150);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -160,6 +176,8 @@ CVA_MULTI_KERNELS = ("cva_multi_am", "cva_multi_packed",
 XVA_KERNELS = ("xva_am", "xva_wide", "xva_greeks_am", "xva_greeks_wide")
 # K45, K46, K47, K48.
 CV_KERNELS = ("vanilla_cv", "asian_cv", "basket_cv_am", "basket_cv_packed")
+# K49 (importance sampling), K50 and K51 (the American walk and its Greeks).
+AMERICAN_KERNELS = ("vanilla_is", "lsm", "lsm_greeks")
 # K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
@@ -227,6 +245,11 @@ WALK_OPS = {
     "varswap_heston": (0, 0, 0, 0, 20, 1, 11),
     "varswap_heston_greeks": (0, 0, 1, 0, 67, 6, 18),
     "asian_cv": (1, 1, 0, 0, 6, 6, 11),
+    # K50: the step (4), payoff (2), moneyness, Horner and compares (12),
+    # cashflow (3) and alive flag (1); K51 adds the indicator, the pathwise
+    # weight and the three tangents (14).  BlockAccN's adds per output.
+    "lsm": (1, 0, 0, 0, 22, 0, 3),
+    "lsm_greeks": (1, 0, 0, 0, 36, 0, 12),
 }
 # The Heston walks (K27, K28, K19/K20's Heston leg) draw a whole Box-Muller
 # pair every step (mct::walk_steps) and take IEEE square roots: sqrtf per
@@ -410,6 +433,15 @@ def cv_work(kname: str, plan, a: int = 1, steps: int = 1):
         return work(draws=p, expf=p, f32=6 * p + 11 * u)
     return work(draws=p * a, expf=p * a,
                 f32=p * (a * (a + 1) / 2 + 4 * a + 3) + 11 * u)
+
+
+# K49, counted from csrc/varred.cu: K1's draw per path, two expf (the spot
+# and the likelihood ratio), 9 float32 operations per path (the tilt, the
+# ratio's exponent, the spot, the weighted payoff) and Acc2's compensated
+# pair per unit.
+def is_work(plan):
+    p, u = plan.total_paths, plan.total_units
+    return work(draws=p, expf=2 * p, f32=9 * p + 11 * u)
 
 
 def bound(ops, nbytes):
@@ -2401,6 +2433,215 @@ def varred_path(mt, mcmath) -> None:
     phase("cv-path", "basket CV: " + "; ".join(msgs))
 
 
+def bermudan(s, k, r, v, t, n_dates: int, n_steps: int,
+             payoff: str = "put") -> float:
+    """CRR lattice price of an option exercisable only at ``n_dates``
+    equally spaced dates (``n_steps`` a multiple of ``n_dates``), float64
+    NumPy: the oracle of a frozen rule at those dates (the continuous
+    lattice prices the American, which a 12-date rule does not)."""
+    dt = t / n_steps
+    u = np.exp(v * np.sqrt(dt))
+    d = 1.0 / u
+    p = (np.exp(r * dt) - d) / (u - d)
+    disc = np.exp(-r * dt)
+    st = s * u ** (n_steps - np.arange(n_steps + 1)) \
+        * d ** np.arange(n_steps + 1)
+
+    def exercise(sv):
+        return (np.maximum(k - sv, 0.0) if payoff == "put"
+                else np.maximum(sv - k, 0.0))
+
+    values = exercise(st)
+    every = n_steps // n_dates
+    for step in range(n_steps - 1, 0, -1):
+        st = st[: step + 1] * d
+        values = disc * (p * values[:-1] + (1 - p) * values[1:])
+        if step % every == 0:
+            values = np.maximum(values, exercise(st))
+    return float(disc * (p * values[0] + (1 - p) * values[1]))
+
+
+def american_path(mt, mcmath) -> None:
+    """The American path at the JAX CLIs' shapes (S=K=100, r=0.05, v=0.2,
+    T=1; mctpu/cli/exotic.py's american and is products, mctpu/cli/
+    greeks.py's american): ``lsm.price_american`` on the engine tier
+    (K50) against the CRR lattice and the float64 oracle tier, the call
+    against Black-Scholes, one date against the European put, the dual
+    bracket, ``greeks_american`` (K51) against lattice differences and
+    its price against the pricer's bit for bit, the Heston American
+    against the characteristic-function European and the CRR limit, and
+    ``variance.price_vanilla_is`` (K49) against Black-Scholes (the limits
+    of tests/test_american.py, tests/test_greeks.py and
+    tests/test_variance.py)."""
+    from mctpu_torch import lsm, variance
+    from mctpu_torch.models import heston as mheston
+    from mctpu_torch.types import AmericanOption, HestonOption, VanillaOption
+
+    crr = mcmath.binomial_american
+    cfg = mt.EngineConfig()
+    put = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=50)
+    n = 1 << 22
+    res = lsm.price_american(put, n, SEED, config=cfg)
+    p, se = float(res.price), float(res.std_error)
+    c2000 = crr(100.0, 100.0, 0.05, 0.2, 1.0, 2000, "put")
+    c1000 = crr(100.0, 100.0, 0.05, 0.2, 1.0, 1000, "put")
+    check(res.n_paths == n and abs(p - c2000) < 4 * se + 0.02,
+          f"American put {p:.6f} vs CRR-2000 {c2000:.6f} (se {se:.2e})")
+    check(c1000 - 0.06 < p < c1000 + 3 * se,
+          f"American put {p:.6f} outside (CRR-1000 - 0.06, CRR-1000 + 3 "
+          f"se) around {c1000:.6f}")
+    oracle = lsm.price_american(put, 1 << 20, SEED)
+    se_c = math.hypot(se, float(oracle.std_error))
+    z_o = abs(p - float(oracle.price)) / se_c
+    check(z_o < 5.0, f"engine tier {p:.6f} vs oracle tier "
+                     f"{float(oracle.price):.6f}: {z_o:.2f} combined se")
+    phase("american-path", f"put 50 dates 2^22 (K50): {p:.6f} ± "
+                           f"{float(res.ci):.6f}, CRR-2000 {c2000:.6f} "
+                           f"(gap {c2000 - p:.4f}, Bermudan and rule), "
+                           f"float64 oracle tier 2^20 "
+                           f"{float(oracle.price):.6f} (z={z_o:.2f})")
+
+    call = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=20,
+                          payoff="call")
+    bs = float(mcmath.bs_call(100.0, 100.0, 0.05, 0.2, 1.0))
+    rc = lsm.price_american(call, n, SEED, config=cfg)
+    z_c = abs(float(rc.price) - bs) / float(rc.std_error)
+    check(z_c < 5.0, f"American call {float(rc.price):.6f} vs BS {bs:.6f}")
+    one = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=1)
+    bs_put = float(mcmath.bs_put(100.0, 100.0, 0.05, 0.2, 1.0))
+    r1 = lsm.price_american(one, n, SEED, config=cfg)
+    z_1 = abs(float(r1.price) - bs_put) / float(r1.std_error)
+    check(z_1 < 5.0, f"one-date put {float(r1.price):.6f} vs BS put "
+                     f"{bs_put:.6f}")
+    b = lsm.price_american_bounds(put, 1 << 16, SEED, n_sub=64, config=cfg)
+    c4000 = crr(100.0, 100.0, 0.05, 0.2, 1.0, 4000, "put")
+    lo = float(b.lower.price) - float(b.lower.ci)
+    hi = float(b.upper.price) + float(b.upper.ci)
+    check(lo <= c4000 <= hi, f"bracket [{lo:.6f}, {hi:.6f}] misses "
+                             f"CRR-4000 {c4000:.6f}")
+    check(b.gap < 0.005 * c4000 + float(b.lower.ci) + float(b.upper.ci),
+          f"bracket gap {b.gap:.6f}")
+    phase("american-path", f"call 20 dates 2^22 z={z_c:.2f} vs BS; one "
+                           f"date z={z_1:.2f} vs the BS put; bracket 2^16 "
+                           f"n_sub=64 [{lo:.6f}, {hi:.6f}] holds CRR-4000 "
+                           f"{c4000:.6f}, gap {b.gap:.6f} "
+                           f"({b.gap / c4000:.3%})")
+
+    # The Greeks CLI's put: 12 exercise dates, 2^20 paths.  The frozen rule
+    # prices the 12-date Bermudan, not the American, and its pathwise delta
+    # and rho carry the rule's boundary term, which moves with the pilot
+    # by several times the standard error at 2^20 (tools/
+    # american_greeks_spread.py).  So, as tests/test_greeks.py holds them:
+    # vega within 4 standard errors of central differences of the Bermudan
+    # lattice at the same dates (4800 steps), rho within 4 standard errors
+    # + 0.5, delta within 0.02 of the frozen-rule CRN difference of
+    # price_american at h = 0.5 (the estimator's own definition); the call,
+    # never exercised early, within 4 standard errors of Black-Scholes.
+    # The z-scores against the Bermudan and the continuous CRR-4000
+    # differences are printed beside them.
+    g_opt = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=12)
+    n_g = 1 << 20
+    g = mt.greeks_american(g_opt, n_g, SEED)
+
+    def diffs(price):
+        at = {"s": 100.0, "r": 0.05, "v": 0.2}
+
+        def fd(name, h):
+            up, dn = dict(at), dict(at)
+            up[name] += h
+            dn[name] -= h
+            return (price(**up) - price(**dn)) / (2 * h)
+
+        return {"delta": fd("s", 0.25), "vega": fd("v", 5e-3),
+                "rho": fd("r", 2e-3)}
+
+    berm = diffs(lambda s, r, v: bermudan(s, 100.0, r, v, 1.0, 12, 4800))
+    amer = diffs(lambda s, r, v: crr(s, 100.0, r, v, 1.0, 4000, "put"))
+    beta = lsm.fit_exercise_rule(100.0, 100.0, 0.05, 0.2, 1.0, SEED, 1 << 15,
+                                 12, "put", device=cfg.torch_device())
+
+    def frozen(ds):
+        return float(lsm._price_forward_engine(
+            dataclasses.replace(g_opt, s=100.0 + ds), beta, SEED, n_g, cfg,
+            False).price)
+
+    crn_delta = frozen(0.5) - frozen(-0.5)
+    msgs = []
+    for name, slack in (("delta", None), ("vega", 0.0), ("rho", 0.5)):
+        r = getattr(g, name)
+        got, gse = float(r.price), float(r.std_error)
+        if slack is None:
+            check(abs(got - crn_delta) < 0.02,
+                  f"American delta {got:.6f} vs frozen-rule CRN difference "
+                  f"{crn_delta:.6f}")
+        else:
+            check(abs(got - berm[name]) < 4 * gse + slack,
+                  f"American {name} {got:.6f} vs Bermudan-12 lattice "
+                  f"{berm[name]:.6f} (se {gse:.2e})")
+        msgs.append(f"{name} {got:.5f} (Bermudan-12 {berm[name]:.5f}, "
+                    f"z={(got - berm[name]) / gse:.2f}; CRR-4000 "
+                    f"{amer[name]:.5f}, z={(got - amer[name]) / gse:.2f})")
+    p12 = lsm.price_american(g_opt, n_g, SEED, antithetic=False, config=cfg)
+    check(float(g.price.sum_p) == float(p12.sum_p)
+          and float(g.price.sum_p2) == float(p12.sum_p2),
+          "greeks_american's price sums differ from price_american's")
+    g_call = mt.greeks_american(dataclasses.replace(g_opt, payoff="call"),
+                                n_g, SEED)
+    bs_g = mcmath.bs_greeks(100.0, 100.0, 0.05, 0.2, 1.0)
+    zc = [within_sigma(getattr(g_call, name).price, bs_g[name],
+                       getattr(g_call, name).std_error,
+                       f"American call {name}")
+          for name in ("delta", "vega", "rho")]
+    phase("american-path", "Greeks put 12 dates 2^20 (K51): " + "; ".join(msgs)
+          + f"; delta vs frozen-rule CRN {crn_delta:.5f}; price "
+            f"{float(g.price.price):.6f} equals price_american's bit for "
+            "bit; call delta/vega/rho vs BS z=" + "/".join(f"{z:.2f}"
+                                                          for z in zc))
+
+    hopt = HestonOption(s=100.0, k=100.0, r=0.05, t=1.0, v0=0.04, kappa=1.5,
+                        theta=0.04, xi=0.5, rho=-0.7)
+    rh = lsm.price_american_heston(hopt, 1 << 17, SEED, n_steps=50)
+    eur = mheston.cf_call_price(hopt) - 100.0 + 100.0 * math.exp(-0.05)
+    check(float(rh.price) > eur + 3 * float(rh.std_error),
+          f"Heston American {float(rh.price):.6f} not above the European "
+          f"{eur:.6f}")
+    hlim = dataclasses.replace(hopt, xi=1e-4, rho=0.0, kappa=2.0)
+    rl = lsm.price_american_heston(hlim, 1 << 17, SEED + 1, n_steps=50)
+    c50 = crr(100.0, 100.0, 0.05, 0.2, 1.0, 50, "put")
+    check(abs(float(rl.price) - c50) < 4 * float(rl.std_error) + 0.02,
+          f"Heston xi=1e-4 {float(rl.price):.6f} vs CRR-50 {c50:.6f}")
+    z_h = (float(rh.price) - eur) / float(rh.std_error)
+    phase("american-path", f"Heston QE 50 steps 2^17: {float(rh.price):.6f} "
+                           f"above the CF European put {eur:.6f} by "
+                           f"{z_h:.1f} se; xi=1e-4 {float(rl.price):.6f} vs "
+                           f"CRR-50 {c50:.6f}")
+
+    deep = VanillaOption(100.0, 200.0, 0.05, 0.2, 1.0)
+    n_is = 1 << 28
+    bs_d = float(mcmath.bs_call(100.0, 200.0, 0.05, 0.2, 1.0))
+    ri = variance.price_vanilla_is(deep, n_is, SEED)
+    z_i = within_sigma(ri.price, bs_d, ri.std_error, "IS K=200")
+    mc = mt.price_vanilla(deep, n_is, SEED)
+    ratio = float(mc.std_error) / float(ri.std_error)
+    check(ratio >= 10.0, f"IS std_error only {ratio:.1f}x below plain")
+    zs = []
+    bs_150 = float(mcmath.bs_call(100.0, 150.0, 0.05, 0.2, 1.0))
+    for theta in (0.5, 1.5, 3.0):
+        rt = variance.price_vanilla_is(
+            VanillaOption(100.0, 150.0, 0.05, 0.2, 1.0), n_is, SEED,
+            theta=theta)
+        z = abs(float(rt.price) - bs_150) / float(rt.std_error)
+        check(z < 5.0, f"IS K=150 theta={theta}: {float(rt.price):.8f} vs "
+                       f"BS {bs_150:.8f}")
+        zs.append(f"theta={theta} z={z:.2f}")
+    phase("american-path", f"IS K=200 2^28 (K49, tilt "
+                           f"{variance.optimal_tilt(deep):.3f}): "
+                           f"{float(ri.price):.8f} (BS {bs_d:.8f}, "
+                           f"z={z_i:.2f}), std_error {ratio:.1f}x below "
+                           "price_vanilla's at the same seed; K=150 "
+                           + ", ".join(zs))
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -2410,7 +2651,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import mctpu_torch
-    from mctpu_torch import _build, engine, estimator as mcest, variance
+    from mctpu_torch import _build, engine, estimator as mcest, lsm, variance
     from mctpu_torch import math as mcmath
     from mctpu_torch.kernels import asian as kasian
     from mctpu_torch.kernels import barrier as kbarrier
@@ -2424,14 +2665,16 @@ def main() -> int:
     from mctpu_torch.kernels import heston as kheston
     from mctpu_torch.kernels import ladder as kladder
     from mctpu_torch.kernels import lookback as klookback
+    from mctpu_torch.kernels import lsm as klsm
     from mctpu_torch.kernels import multi_walk as kmw
     from mctpu_torch.kernels import rainbow as krainbow
     from mctpu_torch.kernels import vanilla as kvanilla
     from mctpu_torch.kernels import varred as kvr
     from mctpu_torch.kernels import varswap as kvarswap
     from mctpu_torch.parallel.reduce import pairwise_tree_sum
-    from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
-                                   BasketAsianOption, BasketBarrierOption,
+    from mctpu_torch.types import (AmericanOption, AsianOption, BarrierBook,
+                                   BarrierOption, BasketAsianOption,
+                                   BasketBarrierOption,
                                    BasketOption, CliquetOption,
                                    CvaPortfolioSpec, CvaSpec, HestonOption,
                                    LookbackOption, Precision, RainbowOption,
@@ -3019,13 +3262,62 @@ def main() -> int:
                                                        n),
                      units=units(plan), moments=True)
 
+    # K49 at the money and twice the spot, untilted and at the optimal
+    # tilt (0 at the money); K50 and K51 on a put and a call at 1, 13 and 50 dates under a
+    # rule fitted on a 2^15-path pilot; antithetic and Kahan each on and
+    # off.  K51's price sums must equal K50's bit for bit.
+    for kk in (100.0, 200.0):
+        vopt = VanillaOption(100.0, kk, 0.05, 0.2, 1.0)
+        for th in sorted({0.0, variance.optimal_tilt(vopt)}):
+            ipar = kvr.is_params(vopt, th, dev)
+            for anti, kahan in cv_variants:
+                plan = kvanilla.make_plan(nb * iters * 2 * rows * 128, nb,
+                                          rows, anti, kahan)
+                contract(f"K49 k={kk:.0f} theta={th:.3f}"
+                         f"{' antithetic' if anti else ''}"
+                         f"{'' if kahan else ' f32'}",
+                         lambda off, n: kvr.is_partials(ipar, SEED, off,
+                                                        plan, n),
+                         lambda off, n: kvr.is_plain_partials(ipar, SEED,
+                                                              off, plan, n))
+    for payoff in ("put", "call"):
+        for n_steps in (1, 13, 50):
+            aopt = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0,
+                                  n_steps=n_steps, payoff=payoff)
+            beta = lsm.fit_exercise_rule(100.0, 100.0, 0.05, 0.2, 1.0, SEED,
+                                         1 << 15, n_steps, payoff,
+                                         device=dev)
+            lops = klsm.operands(aopt, beta, dev)
+            is_put = payoff == "put"
+            for anti, kahan in cv_variants:
+                plan = klsm.make_plan(nb * iters * rows * 128, nb, rows,
+                                      anti, kahan)
+                tag = (f"{payoff} n_steps={n_steps}"
+                       f"{' antithetic' if anti else ''}"
+                       f"{'' if kahan else ' f32'}")
+                contract(f"K50 {tag}",
+                         lambda off, n: klsm.partials(lops, SEED, off, plan,
+                                                      n, is_put),
+                         lambda off, n: klsm.plain_partials(
+                             lops, SEED, off, plan, n, is_put))
+                contract(f"K51 {tag}",
+                         lambda off, n: klsm.greek_partials(
+                             lops, SEED, off, plan, n, is_put),
+                         lambda off, n: klsm.greek_plain_partials(
+                             lops, SEED, off, plan, n, is_put),
+                         units=units(plan))
+                check(torch.equal(
+                    klsm.greek_partials(lops, SEED, 0, plan, nb, is_put)
+                    [:, :2], klsm.partials(lops, SEED, 0, plan, nb, is_put)),
+                    f"K51 {tag}: price sums differ from K50's")
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
                 kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES,
                 kheston.LAUNCHES, kmw.LAUNCHES, krainbow.LAUNCHES,
-                kcm.LAUNCHES, kvr.LAUNCHES)
+                kcm.LAUNCHES, kvr.LAUNCHES, klsm.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -3207,12 +3499,20 @@ def main() -> int:
     launches.update(read_counts(CV_KERNELS))
     phase("cv-path", f"done in {time.perf_counter() - t_cv:.1f} s")
 
+    # ---- 4n. the American and importance-sampling path at full width ----
+    reset_counts()
+    t_am = time.perf_counter()
+    american_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(AMERICAN_KERNELS))
+    phase("american-path", f"done in {time.perf_counter() - t_am:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
                    + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
                    + MULTI_WALK_KERNELS + RAINBOW_KERNELS + CVA_MULTI_KERNELS
-                   + XVA_KERNELS + CV_KERNELS)
+                   + XVA_KERNELS + CV_KERNELS + AMERICAN_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -3266,12 +3566,13 @@ def main() -> int:
 
     def timed(kname, source, replaces, plan, steps, disc, kernel, plain,
               ops, in_bytes=64, units=None, fold=None, plain_reps=5,
-              rtol=RTOL, cv_p0=None):
+              rtol=RTOL, cv_p0=None, record=True):
         """``units`` per block given: Greek partials (scaled pair bound,
         every output's estimate in max_abs_err), or with ``cv_p0`` (the
         center) the control variates' moment sums (their bound, the CV
         price in max_abs_err).  ``ops`` are the run's instruction counts
-        (:func:`work`), ``in_bytes`` its operands' bytes."""
+        (:func:`work`), ``in_bytes`` its operands' bytes.  ``record=False``
+        prints the line only (a kernel's second shape)."""
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -3308,11 +3609,12 @@ def main() -> int:
         # library_ms: no one PyTorch call computes any of these kernels'
         # functions (an in-kernel counter-based stream feeding per-block
         # compensated sums).
-        kernels.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+        if record:
+            kernels.append({"name": kname, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches[kname],
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": None})
 
     plan, par = engine.vanilla_setup(opt, n_van, cfg)
     timed("vanilla", "mctpu_torch/csrc/vanilla.cu",
@@ -3793,6 +4095,42 @@ def main() -> int:
                                                      s.plan.num_blocks),
               cv_work(kname, cvs.plan, a, steps), in_bytes=in_bytes,
               units=gunits(cvs.plan), plain_reps=3, cv_p0=cvs.center[0])
+
+    # The American path's shapes: K49 at the exotic CLI's --product is
+    # (K = 200, 2^28 paths at the optimal tilt); K50 and K51 on the put at
+    # 50 dates and 2^22 paths and K51 at the Greeks CLI's 12 dates and
+    # 2^20, each on the default EngineConfig's plan (no antithetic) under
+    # its pilot-fitted rule.
+    deep = VanillaOption(100.0, 200.0, 0.05, 0.2, 1.0)
+    plan = engine._terminal_plan(1 << 28, cfg)
+    ipar = kvr.is_params(deep, variance.optimal_tilt(deep), dev)
+    timed("vanilla_is", "mctpu_torch/csrc/varred.cu",
+          "mctpu/kernels/varred.py:567", plan, 1, math.exp(-0.05),
+          lambda: kvr.is_partials(ipar, SEED, 0, plan, plan.num_blocks),
+          lambda: kvr.is_plain_partials(ipar, SEED, 0, plan,
+                                        plan.num_blocks),
+          is_work(plan), in_bytes=4 * 5, plain_reps=3)
+    for kname, replaces, n_steps, n, record in (
+            ("lsm", "mctpu/kernels/lsm.py:149", 50, n_ex, True),
+            ("lsm_greeks", "mctpu/kernels/lsm.py:383", 50, n_ex, True),
+            ("lsm_greeks", "mctpu/kernels/lsm.py:383", 12, 1 << 20, False)):
+        aopt = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=n_steps)
+        beta = lsm.fit_exercise_rule(100.0, 100.0, 0.05, 0.2, 1.0, SEED,
+                                     1 << 15, n_steps, "put", device=dev)
+        plan, lops = engine.american_setup(aopt, beta, n, cfg)
+        greek = kname == "lsm_greeks"
+        fn = klsm.greek_partials if greek else klsm.partials
+        plain = klsm.greek_plain_partials if greek else klsm.plain_partials
+        timed(kname, "mctpu_torch/csrc/lsm.cu", replaces, plan, n_steps, 1.0,
+              lambda f=fn, o=lops, p=plan: f(o, SEED, 0, p, p.num_blocks,
+                                             True),
+              lambda f=plain, o=lops, p=plan: f(o, SEED, 0, p, p.num_blocks,
+                                                True),
+              walk_work(kname, plan, n_steps),
+              in_bytes=4 * sum(x.numel() for x in (lops.scal, lops.beta,
+                                                   lops.tables)),
+              units=gunits(plan) if greek else None, plain_reps=3,
+              record=record)
 
     # K37 at 100 assets on the plan rainbow_path gives it (c = 1, a
     # 5050-term product a thread), held against its plain version untimed.

@@ -26,7 +26,7 @@ SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
            "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
            "barrier_book.cu", "heston.cu", "multi_walk.cu", "rainbow.cu",
-           "cva_multi.cu", "varred.cu")
+           "cva_multi.cu", "varred.cu", "lsm.cu")
 HEADERS = ("philox.cuh", "common.cuh", "packed.cuh", "basket.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
@@ -38,8 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # indicator, arg-extreme, the cliquet's band mask, the Heston walks'
 # truncation max(v, 0) and QE's branch switches, the basket walks' knock-out
 # and in-the-money indicator, the rainbow's arg-extreme asset, the netting
-# set's and the xVA's exercise indicator and positive part) fall on the
-# same side (see the head of csrc/asian.cu), and a deep out-of-the-money
+# set's and the xVA's exercise indicator and positive part, the American
+# walk's exercise decision) fall on the same side (see the head of
+# csrc/asian.cu and of csrc/lsm.cu), and a deep out-of-the-money
 # strike's st - k and an antithetic pair's cancelling gamma terms are exact
 # as there (see the head of csrc/ladder.cu), and so is the control
 # variates' residual d = (p - p0) - (c - m), the difference of two nearly
@@ -49,7 +50,7 @@ SOURCE_FLAGS = {name: ("-fmad=false",)
                              "cliquet.cu", "ladder.cu", "book.cu",
                              "varswap.cu", "barrier_book.cu", "heston.cu",
                              "multi_walk.cu", "rainbow.cu", "cva_multi.cu",
-                             "varred.cu")}
+                             "varred.cu", "lsm.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -154,6 +155,13 @@ _SIGNATURES = {
     # walks' signature above): K45 par, seed, off, n_blocks, rows, iters,
     # antithetic, kahan, out, stream
     "mctpu_vanilla_cv": (_P,) + (_I,) * 7 + (_P, _P),
+    # The importance-sampled call (K49): K45's signature.
+    "mctpu_vanilla_is": (_P,) + (_I,) * 7 + (_P, _P),
+    # The American forward pass (K50) and its Greeks (K51): scal, beta,
+    # tables, n_steps, seed, off, n_blocks, rows, iters, antithetic, put,
+    # kahan, out, stream
+    **{name: (_P, _P, _P) + (_I,) * 9 + (_P, _P)
+       for name in ("mctpu_lsm", "mctpu_lsm_greeks")},
     # K47, K48: K2's and K3's signatures with the strike replaced by scal
     # (k, p0, m)
     "mctpu_basket_cv_am": (_P, _P, _P) + (_I,) * 8 + (_P, _P),

@@ -1,6 +1,7 @@
 // K45-K48: the control-variate kernels.  Each is a pricing kernel the port
 // already has, plus a control variable c beside the payoff p and five
-// centered moment sums a block instead of (sum p, sum p^2).
+// centered moment sums a block instead of (sum p, sum p^2).  K49: the
+// importance-sampled call, K1 with an exponentially tilted draw.
 //
 // K45 replaces mctpu/kernels/varred.py::_vanilla_cv_kernel: K1's stream
 // and terminal draw (vanilla.cu), p = max(S_T - k, 0) and c = S_T.
@@ -22,6 +23,14 @@
 // visible fraction.  This file builds with -fmad=false (_build.py): every
 // per-unit value rounds as the plain version's separate operations do (K48's
 // explicit fmaf in the L z product and the basket sum aside, as in K3).
+//
+// K49 replaces ::_is_kernel: K1's stream and terminal draw, each normal z
+// shifted to zt = z + theta and its payoff max(s0 e^{mu + sig zt} - k, 0)
+// weighted by the likelihood ratio e^{-theta zt + theta^2 / 2}
+// (mctpu's _is_tile), the pair mean of z and -z under antithetic; the
+// block's (sum p, sum p^2) as K1 sums them (mct::Acc2, one block tree).
+// The weight is a second expf a path, and -fmad=false keeps its exponent
+// -theta zt + theta^2 / 2 uncontracted, as the plain version rounds it.
 //
 // Bound on the H100: arithmetic, as K1, K9, K2 and K3 (the moments add ten
 // float32 operations a unit).  Simple design, the parents' threads and
@@ -286,6 +295,49 @@ __global__ void __launch_bounds__(PK_THREADS)
   acc.write(out);
 }
 
+// ---------------------------------------------------------------- K49
+
+// The likelihood-ratio-weighted payoff of one draw z; neg_th = -theta and
+// half_th2 = 0.5 theta theta, as mctpu's -theta * zt + 0.5 * theta * theta
+// rounds them.
+__device__ __forceinline__ float is_pay(float s0, float k, float mu,
+                                        float sig, float th, float neg_th,
+                                        float half_th2, float z) {
+  const float zt = z + th;
+  const float lr = expf(neg_th * zt + half_th2);
+  const float st = s0 * expf(mu + sig * zt);
+  return fmaxf(st - k, 0.0f) * lr;
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(VAN_THREADS)
+    vanilla_is_kernel(const float* __restrict__ par, uint32_t seed,
+                      uint32_t off, int n_elems, int iters,
+                      float* __restrict__ out) {
+  // par: s0, k, mu, sig, theta
+  const float s0 = par[0], k = par[1], mu = par[2], sig = par[3];
+  const float th = par[4];
+  const float neg_th = -th, half_th2 = (0.5f * th) * th;
+  const mct::Key key = mct::seed_key(seed, off + blockIdx.x);
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    for (int e = threadIdx.x; e < n_elems; e += VAN_THREADS) {
+      float z[2];
+      mct::draw_normal_pair(key, e, i, z[0], z[1]);
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float p = is_pay(s0, k, mu, sig, th, neg_th, half_th2, z[b]);
+        if (ANTI) {
+          p = 0.5f * (p + is_pay(s0, k, mu, sig, th, neg_th, half_th2,
+                                 -z[b]));
+        }
+        acc.add(p);
+      }
+    }
+  }
+  mct::write_block_sums<VAN_THREADS, KAHAN>(acc, out);
+}
+
 template <bool ANTI, bool KAHAN>
 int launch_packed(const float* lt, const float* par, const float* scal, int a,
                   int a_tile, int width, int chunk_rows, size_t smem,
@@ -319,6 +371,25 @@ extern "C" int mctpu_vanilla_cv(const float* par, int seed, int off,
     case 1: vanilla_cv_kernel<false, true><<<g, b, 0, s>>>(par, sd, of, n, iters, out); break;
     case 2: vanilla_cv_kernel<true, false><<<g, b, 0, s>>>(par, sd, of, n, iters, out); break;
     default: vanilla_cv_kernel<true, true><<<g, b, 0, s>>>(par, sd, of, n, iters, out); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K45's C signature.
+extern "C" int mctpu_vanilla_is(const float* par, int seed, int off,
+                                int n_blocks, int rows, int iters,
+                                int antithetic, int kahan, float* out,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t sd = static_cast<uint32_t>(seed);
+  const uint32_t of = static_cast<uint32_t>(off);
+  const int n = rows * mct::LANES;
+  const dim3 g(n_blocks), b(VAN_THREADS);
+  switch ((antithetic ? 2 : 0) | (kahan ? 1 : 0)) {
+    case 0: vanilla_is_kernel<false, false><<<g, b, 0, s>>>(par, sd, of, n, iters, out); break;
+    case 1: vanilla_is_kernel<false, true><<<g, b, 0, s>>>(par, sd, of, n, iters, out); break;
+    case 2: vanilla_is_kernel<true, false><<<g, b, 0, s>>>(par, sd, of, n, iters, out); break;
+    default: vanilla_is_kernel<true, true><<<g, b, 0, s>>>(par, sd, of, n, iters, out); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

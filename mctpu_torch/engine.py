@@ -43,6 +43,7 @@ from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
+from mctpu_torch.kernels import lsm as klsm
 from mctpu_torch.kernels import multi_walk as kmw
 from mctpu_torch.kernels import rainbow as krainbow
 from mctpu_torch.kernels import vanilla as kvanilla
@@ -50,7 +51,8 @@ from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.kernels.common import LANES, walk_plan
 from mctpu_torch.parallel.reduce import pairwise_tree_sum
 from mctpu_torch.rng import wrap_int32
-from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+from mctpu_torch.types import (AmericanOption, AsianOption, BarrierBook,
+                               BarrierOption,
                                BasketAsianOption, BasketBarrierOption,
                                BasketOption, CliquetOption, CvaGreeksResult,
                                CvaMultiSpec, CvaPortfolioSpec, CvaResult,
@@ -85,7 +87,8 @@ __all__ = ["EngineConfig", "price_vanilla", "price_basket", "price_cva",
            "rainbow_setup", "greeks_rainbow_setup", "price_cva_multi",
            "greeks_cva_multi", "price_cva_multi_setup",
            "greeks_cva_multi_setup", "price_xva", "greeks_xva",
-           "price_xva_setup", "greeks_xva_setup"]
+           "price_xva_setup", "greeks_xva_setup", "american_setup",
+           "greeks_american", "greeks_american_setup"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1273,9 +1276,69 @@ def greeks_xva(spec: XvaSpec, n_paths: int, seed: int,
     return XvaGreeksResult(*legs, delta=delta, vega=vega)
 
 
+# ---------------------------------------------------------------------------
+# American options: the frozen-rule forward pass (K50) and its pathwise
+# Greeks (K51); the rule fit and the pricers are mctpu_torch.lsm.
+# ---------------------------------------------------------------------------
+
+def american_setup(opt: AmericanOption, beta, n_paths: int,
+                   config: EngineConfig):
+    """``(plan, operands)``: the launch of K50 (``lsm.price_american`` at
+    ``config.antithetic``) and K51 under the rule ``beta``, the walk plan
+    of ``mctpu``'s American engine tier."""
+    dev = config.torch_device()
+    return _walk_plan(n_paths, config), klsm.operands(opt, beta, dev)
+
+
+def greeks_american_setup(opt: AmericanOption, n_paths: int, seed: int,
+                          config: EngineConfig,
+                          pilot_paths: int | None = None, fit_dtype=None):
+    """``(plan, operands)``: the launch :func:`greeks_american` makes, the
+    rule fitted as ``lsm.price_american`` fits it at ``seed``."""
+    from mctpu_torch import lsm as mclsm  # lsm imports this module
+
+    if pilot_paths is None:
+        pilot_paths = min(n_paths, 1 << 15)
+    beta = mclsm.fit_exercise_rule(
+        opt.s, opt.k, opt.r, opt.v, opt.t, seed, pilot_paths, opt.n_steps,
+        opt.payoff, dtype=fit_dtype or torch.float64,
+        device=config.torch_device())
+    return american_setup(opt, beta, n_paths, config)
+
+
+def _greeks_american_run(opt: AmericanOption, plan, ops,
+                         seed: int) -> GreeksResult:
+    partials = klsm.greek_partials(ops, wrap_int32(seed), 0, plan,
+                                   plan.num_blocks, opt.payoff == "put")
+    # Cashflows and their derivatives are already present values.
+    price, delta, vega, rho = _estimates(_total(partials), plan.total_units,
+                                         plan, 1.0)
+    return GreeksResult(price=price, delta=delta, vega=vega, rho=rho)
+
+
+def greeks_american(opt: AmericanOption, n_paths: int, seed: int,
+                    config: EngineConfig = EngineConfig(),
+                    pilot_paths: int | None = None,
+                    fit_dtype=None) -> GreeksResult:
+    """Price and frozen-rule pathwise delta, vega and rho of an American
+    put or call (K51).  Two passes as ``lsm.price_american``: the same
+    pilot fit and pricing stream, so at the same seed, rule and plan its
+    price sums equal K50's bit for bit (common random numbers with the
+    pricer at ``antithetic=config.antithetic``).  The Greeks are the exact
+    pathwise derivatives of the frozen-policy value (Piterbarg 2004); no
+    theta, because the exercise grid moves with the maturity.  ``fit_dtype``
+    is the pilot regression's (default float64)."""
+    opt.validate()
+    plan, ops = greeks_american_setup(opt, n_paths, seed, config,
+                                      pilot_paths, fit_dtype)
+    return _greeks_american_run(opt, plan, ops, seed)
+
+
 def greeks(opt, n_paths: int, seed: int,
            config: EngineConfig = EngineConfig()):
     """In-kernel Greeks, dispatched on the product record."""
+    if isinstance(opt, AmericanOption):
+        return greeks_american(opt, n_paths, seed, config)
     if isinstance(opt, VanillaOption):
         return greeks_vanilla(opt, n_paths, seed, config)
     if isinstance(opt, BasketOption):

@@ -1,6 +1,7 @@
-"""K45-K48: the control-variate kernels (``csrc/varred.cu``).
+"""K45-K48: the control-variate kernels, and K49: the importance-sampled
+call (``csrc/varred.cu``).
 
-Counterpart of the control-variate half of :mod:`mctpu.kernels.varred`.
+Counterpart of :mod:`mctpu.kernels.varred`.
 Each kernel is a pricing kernel of the port with a control variable ``c``
 beside the payoff ``p``, and writes per block the five centered moment sums
 
@@ -18,9 +19,15 @@ control's exact mean and ``p0`` a proxy for the payoff's
   (beyond): K2's and K3's stream maps; ``c`` the terminal basket value.
 
 The centers are the last two float32 entries of each kernel's scalars
-(``par``, ``scal``).  Each wrapper launches its CUDA kernel for a CUDA
-operand and runs its plain PyTorch version, over the same stream, for a
-CPU operand; any other device raises.
+(``par``, ``scal``).
+
+* K49 ``vanilla_is``: K1's stream, each normal tilted to ``zt = z +
+  theta`` and its call payoff weighted by ``exp(-theta zt + theta^2 /
+  2)``; per block ``(sum p, sum p^2)``.
+
+Each wrapper launches its CUDA kernel for a CUDA operand and runs its plain
+PyTorch version, over the same stream, for a CPU operand; any other device
+raises.
 """
 from __future__ import annotations
 
@@ -45,14 +52,15 @@ __all__ = ["N_MOMENT_SUMS", "LAUNCHES", "moment_sums", "center32",
            "vanilla_cv_partials", "asian_cv_params",
            "asian_cv_plain_partials", "asian_cv_partials", "CvOperands",
            "basket_cv_operands", "basket_cv_plain_partials",
-           "basket_cv_partials"]
+           "basket_cv_partials", "is_params", "is_plain_partials",
+           "is_partials"]
 
 # Per block: (sum d, sum d^2, sum cc, sum cc^2, sum d cc).
 N_MOMENT_SUMS = 5
 
 # Launches of the CUDA kernels in this process, by kernel name.
 LAUNCHES = {"vanilla_cv": 0, "asian_cv": 0, "basket_cv_am": 0,
-            "basket_cv_packed": 0}
+            "basket_cv_packed": 0, "vanilla_is": 0}
 
 
 def moment_sums(p, c, p0, m, dims):
@@ -266,3 +274,68 @@ def basket_cv_partials(ops: CvOperands, seed: int, block_offset: int,
         return basket_cv_plain_partials(ops, seed, block_offset, plan,
                                         n_blocks)
     raise ValueError(f"unsupported device {ops.device}")
+
+
+# ---------------------------------------------------------------------------
+# K49: importance-sampled call (exponential tilting of K1's draw)
+# ---------------------------------------------------------------------------
+
+def is_params(opt: VanillaOption, theta, device) -> torch.Tensor:
+    """``[s0, k, mu, sig, theta]`` in float32 (K1's ``par`` and the tilt
+    rounded to float32)."""
+    th = torch.tensor(float(theta), dtype=torch.float32)
+    return torch.cat([kvanilla.params(opt, "cpu"), th.view(1)]).to(device)
+
+
+def _is_tile(s0, k, mu, sig, th, z, antithetic: bool):
+    """Likelihood-ratio-weighted payoffs of a draw tile: sample ``zt = z +
+    theta``, weight by ``dP/dQ = exp(-theta zt + theta^2 / 2)``
+    (``mctpu``'s ``_is_tile``)."""
+    def y(zz):
+        zt = zz + th
+        lr = torch.exp(-th * zt + 0.5 * th * th)
+        st = s0 * torch.exp(mu + sig * zt)
+        return torch.clamp(st - k, min=0.0) * lr
+
+    if antithetic:
+        return 0.5 * (y(z) + y(-z))
+    return y(z)
+
+
+def is_plain_partials(par: torch.Tensor, seed: int, block_offset: int,
+                      plan: Plan, n_blocks: int) -> torch.Tensor:
+    """Per-block ``(n_blocks, 2)`` ``[sum p, sum p^2]`` in plain PyTorch on
+    ``par``'s device, over K1's stream."""
+    s0, k, mu, sig, th = par.unbind()
+
+    def draw_sums(z):
+        p = _is_tile(s0, k, mu, sig, th, z, plan.antithetic)
+        return [p.sum(1), (p * p).sum(1)]
+
+    return terminal_partials(draw_sums, 2, seed, block_offset, plan,
+                             n_blocks, par.device)
+
+
+def is_partials(par: torch.Tensor, seed: int, block_offset: int, plan: Plan,
+                n_blocks: int) -> torch.Tensor:
+    """``(n_blocks, 2)`` partials: K49 for a CUDA ``par``, the plain version
+    for a CPU ``par``; any other device raises."""
+    if par.device.type == "cuda":
+        check_operand("par", par, (5,), par.device)
+        if n_blocks < 1:
+            raise ValueError("n_blocks must be >= 1")
+        lib = _build.library()
+        with torch.cuda.device(par.device):
+            out = torch.empty((n_blocks, 2), dtype=torch.float32,
+                              device=par.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            status = lib.mctpu_vanilla_is(
+                par.data_ptr(), wrap_int32(seed), wrap_int32(block_offset),
+                n_blocks, plan.rows, plan.iters, int(plan.antithetic),
+                int(plan.kahan), out.data_ptr(), ctypes.c_void_p(stream))
+        _build.check(status, "vanilla_is")
+        LAUNCHES["vanilla_is"] += 1
+        return out
+    if par.device.type == "cpu":
+        return is_plain_partials(par, seed, block_offset, plan, n_blocks)
+    raise ValueError(f"unsupported device {par.device}")

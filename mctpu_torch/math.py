@@ -2,7 +2,8 @@
 
 The oracles (Black-Scholes, the CVA, netting-set CVA and xVA,
 geometric-Asian, barrier, lookback, cliquet and two-asset rainbow closed
-forms) and the host-side setup (Cholesky, default-leg and xVA leg
+forms, the CRR lattice price of an American option) and the host-side
+setup (Cholesky, default-leg and xVA leg
 weights) run in float64 — the port's ``wide_dtype`` is always float64, as
 ``mctpu`` under x64.  ``norm_cdf_hastings`` is the kernels' CDF and runs
 in the dtype it is given; the leg-weight tables also build in float32 for
@@ -37,6 +38,7 @@ __all__ = [
     "bivariate_norm_cdf",
     "rainbow_min_call",
     "rainbow_max_call",
+    "binomial_american",
 ]
 
 
@@ -431,3 +433,30 @@ def rainbow_max_call(s1, s2, k, r, v1, v2, rho, t) -> torch.Tensor:
     ``C_max = C1 + C2 - C_min``.  Differentiable by autograd."""
     return (bs_call(s1, k, r, v1, t) + bs_call(s2, k, r, v2, t)
             - rainbow_min_call(s1, s2, k, r, v1, v2, rho, t))
+
+
+def binomial_american(s, k, r, v, t, n_steps: int = 2000,
+                      payoff: str = "put") -> float:
+    """Cox-Ross-Rubinstein binomial price of an American option, in NumPy
+    float64 (``mctpu.reference.binomial_american``): the independent
+    lattice oracle of the Longstaff-Schwartz pricers
+    (:mod:`mctpu_torch.lsm`); converges O(1/n) to the continuous-exercise
+    price, and at ``n_steps`` dates prices the Bermudan."""
+    dt = t / n_steps
+    u = np.exp(v * np.sqrt(dt))
+    d = 1.0 / u
+    p = (np.exp(r * dt) - d) / (u - d)
+    disc = np.exp(-r * dt)
+    j = np.arange(n_steps + 1)
+    st = s * u ** (n_steps - j) * d ** j
+
+    def exercise(sv):
+        return (np.maximum(k - sv, 0.0) if payoff == "put"
+                else np.maximum(sv - k, 0.0))
+
+    values = exercise(st)
+    for step in range(n_steps - 1, -1, -1):
+        st = st[: step + 1] * d  # spots at this level
+        values = disc * (p * values[:-1] + (1 - p) * values[1:])
+        values = np.maximum(values, exercise(st))
+    return float(values[0])

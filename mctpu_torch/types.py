@@ -36,6 +36,7 @@ __all__ = [
     "LookbackOption",
     "CliquetOption",
     "HestonOption",
+    "AmericanOption",
     "McResult",
     "CvaResult",
     "GreeksResult",
@@ -43,6 +44,7 @@ __all__ = [
     "CvaGreeksResult",
     "XvaResult",
     "XvaGreeksResult",
+    "AmericanBounds",
     "from_reference",
 ]
 
@@ -784,6 +786,34 @@ class HestonOption:
 
 
 @dataclasses.dataclass(frozen=True)
+class AmericanOption:
+    """American-exercise put or call priced by Longstaff-Schwartz regression
+    Monte Carlo (:mod:`mctpu_torch.lsm`): ``n_steps`` exercise dates on a
+    uniform grid; ``payoff`` is ``"put"`` or ``"call"`` (without dividends
+    the call's value equals the European call's)."""
+
+    s: float
+    k: float
+    r: float
+    v: float
+    t: float
+    n_steps: int = 50
+    payoff: str = "put"
+
+    def validate(self) -> None:
+        if self.payoff not in ("put", "call"):
+            raise ValueError("payoff must be 'put' or 'call'")
+        if self.n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        if not (float(self.s) > 0 and float(self.k) > 0):
+            raise ValueError("spot and strike must be positive")
+        if float(self.v) < 0:
+            raise ValueError("volatility must be non-negative")
+        if float(self.t) <= 0:
+            raise ValueError("time to maturity must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
 class McResult:
     """Monte Carlo estimate: ``price``, ``std_error`` and the 95% half-width
     ``ci`` in discounted units; raw undiscounted ``sum_p``/``sum_p2``; ``n``
@@ -997,14 +1027,41 @@ class XvaGreeksResult:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class AmericanBounds:
+    """Two-sided American price bracket: the frozen-rule Longstaff-Schwartz
+    lower bound and the regression-martingale dual upper bound, each a
+    full :class:`McResult`.  ``gap`` (upper minus lower point estimate) is
+    the measured rule-suboptimality bias; ``[lower.price - lower.ci,
+    upper.price + upper.ci]`` brackets the true price at the joint
+    confidence of the two independent CIs."""
+
+    lower: McResult
+    upper: McResult
+
+    @property
+    def gap(self) -> float:
+        return float(self.upper.price) - float(self.lower.price)
+
+    def __repr__(self):
+        return (f"AmericanBounds(lower={float(self.lower.price):.6f}"
+                f"±{float(self.lower.ci):.6f}, "
+                f"upper={float(self.upper.price):.6f}"
+                f"±{float(self.upper.ci):.6f}, gap={self.gap:.6f})")
+
+    def to_dict(self) -> dict:
+        return {"lower": self.lower.to_dict(), "upper": self.upper.to_dict(),
+                "gap": self.gap}
+
+
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, VanillaBook, BasketOption, BasketAsianOption,
              BasketBarrierOption, RainbowOption, CvaSpec,
              CvaPortfolioSpec, CvaMultiSpec, AsianOption, BarrierOption,
              BarrierBook,
-             LookbackOption, CliquetOption, HestonOption, XvaSpec, McResult,
-             CvaResult, GreeksResult, HestonGreeksResult, CvaGreeksResult,
-             XvaResult, XvaGreeksResult)}
+             LookbackOption, CliquetOption, HestonOption, AmericanOption,
+             XvaSpec, McResult, CvaResult, GreeksResult, HestonGreeksResult,
+             CvaGreeksResult, XvaResult, XvaGreeksResult, AmericanBounds)}
 # Results whose numeric fields the port holds as float64 CPU tensors.
 _TENSOR_RECORDS = (McResult, CvaResult, XvaResult)
 
@@ -1028,10 +1085,11 @@ def from_reference(obj):
     Matches by class name and field names; every numeric field is read
     through ``np.asarray`` (scalars become Python floats, vectors float64
     arrays), except the fields the port's record declares ``int``
-    (``n_grid``, ``n_obs``, ``n_periods``, a result's ``n``), which stay
-    ints; strings, and tuples of strings (a book's ``kinds``), stay so; a
-    nested record (an :class:`XvaSpec`'s netting set, a result's legs)
-    comes across the same way.  A result (:class:`McResult`,
+    (``n_grid``, ``n_obs``, ``n_periods``, ``n_steps``, a result's ``n``),
+    which stay ints; strings, and tuples of strings (a book's ``kinds``),
+    stay so; a nested record (an :class:`XvaSpec`'s netting set, a
+    result's legs, an :class:`AmericanBounds`' bounds) comes across the
+    same way.  A result (:class:`McResult`,
     :class:`CvaResult`, :class:`GreeksResult`, :class:`HestonGreeksResult`,
     :class:`CvaGreeksResult`, :class:`XvaResult`,
     :class:`XvaGreeksResult`) comes across with float64 CPU tensors, as the

@@ -23,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from mctpu_torch import _build, variance
-from mctpu_torch.engine import EngineConfig
+from mctpu_torch import _build, lsm, variance
+from mctpu_torch.engine import EngineConfig, greeks_american
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
 from mctpu_torch.kernels import barrier_book as kbb
@@ -37,13 +37,15 @@ from mctpu_torch.kernels import greeks as kgreeks
 from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels import ladder as kladder
 from mctpu_torch.kernels import lookback as klookback
+from mctpu_torch.kernels import lsm as klsm
 from mctpu_torch.kernels import multi_walk as kmw
 from mctpu_torch.kernels import rainbow as krainbow
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels import varred as kvr
 from mctpu_torch.kernels import varswap as kvarswap
 from mctpu_torch.math import cholesky_lower
-from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+from mctpu_torch.types import (AmericanOption, AsianOption, BarrierBook,
+                               BarrierOption,
                                BasketOption, CliquetOption, CvaMultiSpec,
                                CvaPortfolioSpec, CvaSpec, HestonOption,
                                LookbackOption, Precision, RainbowOption,
@@ -1248,3 +1250,89 @@ def test_cv_pricers_launch_their_kernels(dev):
         res = fn(opt, 1 << 18, SEED, cfg)
         assert kvr.LAUNCHES[name] == before + 2, name
         assert np.isfinite(float(res.price)) and float(res.std_error) > 0
+
+
+# ---- K49: importance sampling; K50, K51: the American walk ----------------
+
+@pytest.mark.parametrize("k,theta", [(100.0, 0.0), (200.0, None),
+                                     (150.0, 3.0)])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_vanilla_is_kernel_matches_plain(dev, k, theta, antithetic, kahan):
+    opt = VanillaOption(100., k, 0.05, 0.2, 1.)
+    th = variance.optimal_tilt(opt) if theta is None else theta
+    par = kvr.is_params(opt, th, dev)
+    plan = kvanilla.make_plan(NB * 2 * 2 * 16 * 128, NB, 16, antithetic,
+                              kahan)
+    _contract(lambda off, nb: kvr.is_partials(par, SEED, off, plan, nb),
+              lambda off, nb: kvr.is_plain_partials(par, SEED, off, plan,
+                                                    nb))
+
+
+def _lsm_ops(dev, n_steps, payoff):
+    opt = AmericanOption(100., 100., 0.05, 0.2, 1., n_steps=n_steps,
+                         payoff=payoff)
+    beta = lsm.fit_exercise_rule(opt.s, opt.k, opt.r, opt.v, opt.t, 5,
+                                 1 << 14, n_steps, payoff, device=dev)
+    return opt, klsm.operands(opt, beta, dev)
+
+
+@pytest.mark.parametrize("n_steps", [1, 13, 50])
+@pytest.mark.parametrize("payoff", ["put", "call"])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_lsm_kernels_match_plain(dev, n_steps, payoff, antithetic):
+    """K50 and K51 against their plain versions (K51's pairs by the scaled
+    bound), and K51's price sums equal K50's bit for bit."""
+    _, ops = _lsm_ops(dev, n_steps, payoff)
+    put = payoff == "put"
+    for kahan in (False, True):
+        plan = klsm.make_plan(NB * 2 * 16 * 128, NB, 16, antithetic, kahan)
+        _contract(lambda off, nb: klsm.partials(ops, SEED, off, plan, nb,
+                                                put),
+                  lambda off, nb: klsm.plain_partials(ops, SEED, off, plan,
+                                                      nb, put))
+        _contract(lambda off, nb: klsm.greek_partials(ops, SEED, off, plan,
+                                                      nb, put),
+                  lambda off, nb: klsm.greek_plain_partials(ops, SEED, off,
+                                                            plan, nb, put),
+                  units=plan.iters * plan.units_per_iter)
+        assert torch.equal(
+            klsm.greek_partials(ops, SEED, 0, plan, NB, put)[:, :2],
+            klsm.partials(ops, SEED, 0, plan, NB, put))
+
+
+def test_american_launch_counters_and_price_tie(dev):
+    """price_american (engine tier) launches K50 once, greeks_american K51
+    once, price_vanilla_is K49 once; the Greeks price is the pricer's bit
+    for bit."""
+    cfg = EngineConfig(num_blocks=16, rows=16)
+    opt = AmericanOption(100., 100., 0.05, 0.2, 1., n_steps=12)
+    before = dict(klsm.LAUNCHES)
+    p = lsm.price_american(opt, 1 << 16, SEED, antithetic=False, config=cfg)
+    g = greeks_american(opt, 1 << 16, SEED, cfg)
+    assert klsm.LAUNCHES["lsm"] == before["lsm"] + 1
+    assert klsm.LAUNCHES["lsm_greeks"] == before["lsm_greeks"] + 1
+    assert float(g.price.sum_p) == float(p.sum_p)
+    assert float(g.price.sum_p2) == float(p.sum_p2)
+    before = kvr.LAUNCHES["vanilla_is"]
+    res = variance.price_vanilla_is(VanillaOption(100., 200., 0.05, 0.2, 1.),
+                                    1 << 18, SEED, cfg)
+    assert kvr.LAUNCHES["vanilla_is"] == before + 1
+    assert np.isfinite(float(res.price)) and float(res.std_error) > 0
+
+
+def test_american_bad_operands_raise(dev):
+    _, ops = _lsm_ops(dev, 5, "put")
+    plan = klsm.make_plan(1, 2, 8, False)
+    with pytest.raises(ValueError):
+        klsm.partials(dataclasses.replace(ops, beta=ops.beta[:4]), 1, 0,
+                      plan, 2, True)
+    with pytest.raises(ValueError):
+        klsm.greek_partials(dataclasses.replace(ops, scal=ops.scal.double()),
+                            1, 0, plan, 2, True)
+    with pytest.raises(ValueError):
+        klsm.partials(ops, 1, 0, plan, 0, True)
+    with pytest.raises(ValueError):
+        kvr.is_partials(kvr.is_params(VanillaOption(100., 100., 0.05, 0.2,
+                                                    1.), 0.5, dev)[:4],
+                        1, 0, plan, 2)

@@ -112,7 +112,8 @@ def test_from_reference_keeps_int_fields(opt):
 
 
 def test_import_does_not_load_jax():
-    code = ("import sys, mctpu_torch; "
+    code = ("import sys, mctpu_torch, mctpu_torch.lsm, "
+            "mctpu_torch.variance; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'mctpu' not in sys.modules, 'mctpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

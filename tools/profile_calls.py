@@ -15,7 +15,8 @@ default ``EngineConfig``), after one warm-up call:
 * device ms — sum of the durations of every device-side event
   (kernels, copies, fills) that ``torch.profiler`` records in one call;
 * kernel ms — the same for the call's own CUDA kernel alone (both
-  launches of a control-variate call);
+  launches of a control-variate call; 0 for a call with no kernel of its
+  own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms.
 
 Prints the card's name and power limit, one line per call, and a JSON
@@ -42,7 +43,8 @@ def calls(mt):
     ``kernel`` is the name of the CUDA kernel it launches."""
     import numpy as np
 
-    from mctpu_torch.types import (AsianOption, BarrierBook, BarrierOption,
+    from mctpu_torch.types import (AmericanOption, AsianOption, BarrierBook,
+                                   BarrierOption,
                                    BasketAsianOption, BasketBarrierOption,
                                    BasketOption, CliquetOption,
                                    CvaMultiSpec, CvaSpec, HestonOption,
@@ -109,6 +111,8 @@ def calls(mt):
     rb16 = rainbow([100.0] * 16, [0.25] * 16, 0.3, 110.0, 0.05)
     rbg = rainbow([100.0, 95.0, 90.0], [0.2, 0.25, 0.3], 0.5, 100.0, 0.04879)
     cv_van = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
+    amer = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=50)
+    amer_h = HestonOption(100.0, 100.0, 0.05, 1.0, 0.04, 1.5, 0.04, 0.5, -0.7)
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -223,19 +227,46 @@ def calls(mt):
         ("price_basket_cv a=100, 2^22", "basket_cv_packed_kernel",
          lambda: mt.variance.price_basket_cv(
              BasketOption.equicorrelated(100, 0.3), n22, SEED)),
+        # The American path at the JAX CLIs' shapes: the exotic CLI's
+        # importance-sampled call (K = 200) and American put (50 dates), its
+        # rule fit alone (2^15 pilot paths), the dual bracket, the Heston
+        # American (plain torch, no kernel of its own), the Greeks CLI's
+        # American put (12 dates).
+        ("price_vanilla_is K=200, 2^28", "vanilla_is_kernel",
+         lambda: mt.variance.price_vanilla_is(
+             VanillaOption(100.0, 200.0, 0.05, 0.2, 1.0), 1 << 28, SEED)),
+        ("fit_exercise_rule put n_steps=50, 2^15 pilot", None,
+         lambda: mt.lsm.fit_exercise_rule(100.0, 100.0, 0.05, 0.2, 1.0, SEED,
+                                          1 << 15, 50, "put")),
+        ("price_american put n_steps=50, 2^22", "lsm_kernel",
+         lambda: mt.price_american(amer, n22, SEED,
+                                   config=mt.EngineConfig())),
+        ("price_american_bounds put n_steps=50, 2^16, n_sub=64",
+         "lsm_kernel",
+         lambda: mt.price_american_bounds(amer, 1 << 16, SEED,
+                                          config=mt.EngineConfig())),
+        ("price_american_heston QE n_steps=50, 2^17", None,
+         lambda: mt.price_american_heston(amer_h, 1 << 17, SEED)),
+        ("greeks_american put n_steps=12, 2^20", "lsm_kernel",
+         lambda: mt.greeks_american(
+             AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=12),
+             1 << 20, SEED)),
     ]
 
 
-def is_kernel(name: str, kernel: str) -> bool:
+def is_kernel(name: str, kernel) -> bool:
     """``name`` (demangled or mangled) is the kernel ``kernel`` itself, not
-    one whose name ends in it."""
+    one whose name ends in it; no name for a call without a kernel."""
+    if kernel is None:
+        return False
     return f"::{kernel}<" in name or f"{len(kernel)}{kernel}I" in name
 
 
-def profile(fn, kernel: str):
+def profile(fn, kernel):
     """``(device ms, kernel ms)`` of one call under torch.profiler.  Now and
     then the profiler keeps none of a call's device events; such a call is
-    profiled again, up to PROFILE_TRIES times in all."""
+    profiled again, up to PROFILE_TRIES times in all.  ``kernel=None``
+    (a call with no kernel of its own) needs device events only."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_TRIES):
@@ -247,7 +278,7 @@ def profile(fn, kernel: str):
         device_us = sum(e.time_range.elapsed_us() for e in dev)
         kernel_us = sum(e.time_range.elapsed_us() for e in dev
                         if is_kernel(e.name, kernel))
-        if kernel_us > 0:
+        if kernel_us > 0 or (kernel is None and device_us > 0):
             return device_us / 1e3, kernel_us / 1e3
     raise RuntimeError(f"the profiler saw no {kernel} launch in "
                        f"{PROFILE_TRIES} "
