@@ -9,7 +9,7 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the forty-eight kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the fifty-one kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together, and the
    runtime-m xVA kernels;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
@@ -32,8 +32,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    antithetic and Kahan each on and off; the importance-sampled call K49
    at K = 100 and 200, untilted and at the optimal tilt; the American walk
    K50 and its Greeks K51 on a put and a call at 1, 13 and 50 dates under
-   a pilot-fitted rule, K51's price sums equal to K50's bit for bit;
-   antithetic and Kahan each on and off): equal
+   a pilot-fitted rule, K51's price sums equal to K50's bit for bit; the
+   MLMC level kernels K29 (Heston Euler), K11 (Asian, both averages) and
+   K14 (knock-out, up and down) at levels 1 and 4, their level sums by the
+   Greek kernels' scaled bound, because a payoff difference's block sum can
+   cancel; antithetic and Kahan each on and off): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -122,7 +125,18 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    characteristic-function European put and the CRR-50 limit; and
    ``variance.price_vanilla_is`` (K49) at K = 200, 2^28, against
    Black-Scholes with its standard error 10x below ``price_vanilla``'s,
-   and three tilts at K = 150);
+   and three tilts at K = 150) and the MLMC path (``mctpu_torch.mlmc`` at
+   the JAX exotic CLI's ``--product mlmc``, ``mlmc-asian`` and
+   ``mlmc-barrier`` on its 512 x 256 config at eps = 0.02: the Heston
+   Euler price within 3 eps of the characteristic-function price, the
+   geometric Asian within 4 standard errors of its closed form at the
+   finest level's dates, the up-and-out call above the continuous closed
+   form and within eps + the remaining-bias estimate + 3 standard errors
+   of it; Heston and the Asian at eps = 0.005; the Heston gate of
+   ``tests/test_mlmc.py`` on ``mctpu``'s 8 x 8 default at eps = 0.05; the
+   geometric level means against closed-form differences and the barrier
+   level means below 0; each call's level table, wall ms, path-steps per
+   second and launches);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -178,6 +192,8 @@ XVA_KERNELS = ("xva_am", "xva_wide", "xva_greeks_am", "xva_greeks_wide")
 CV_KERNELS = ("vanilla_cv", "asian_cv", "basket_cv_am", "basket_cv_packed")
 # K49 (importance sampling), K50 and K51 (the American walk and its Greeks).
 AMERICAN_KERNELS = ("vanilla_is", "lsm", "lsm_greeks")
+# K29, K11 and K14 (the MLMC level kernels).
+MLMC_KERNELS = ("heston_level", "asian_level", "barrier_level")
 # K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
@@ -250,6 +266,16 @@ WALK_OPS = {
     # weight and the three tangents (14).  BlockAccN's adds per output.
     "lsm": (1, 0, 0, 0, 22, 0, 3),
     "lsm_greeks": (1, 0, 0, 0, 36, 0, 12),
+    # The MLMC levels, per fine step or date of their fine leg: K29 takes
+    # K27's Euler step (17) a fine step and, per two, a coarse step (17)
+    # and the coarse normals' two adds and two multiplies; two payoffs
+    # (7, two expf).  K11 takes two log-spot steps (8), the two fine and one
+    # coarse sum adds (3) a coarse step, and two averages' divides and
+    # payoffs (5); K14 two log-spot steps (8) and three flag updates (9) a
+    # coarse step, the flags' difference and the payoff (4).
+    "heston_level": (0, 2, 0, 0, 27.5, 7, 11),
+    "asian_level": (1, 0, 0, 2, 5.5, 5, 11),
+    "barrier_level": (0, 1, 0, 0, 8.5, 4, 11),
 }
 # The Heston walks (K27, K28, K19/K20's Heston leg) draw a whole Box-Muller
 # pair every step (mct::walk_steps) and take IEEE square roots: sqrtf per
@@ -259,7 +285,8 @@ WALK_OPS = {
 # branch's Hastings expf and divide, a divide and a logf); the int32 class
 # bounds either way.
 WALK_SQRT = {"heston": 1, "heston_qe": 3, "heston_greeks": 1,
-             "varswap_heston": 1, "varswap_heston_greeks": 1}
+             "varswap_heston": 1, "varswap_heston_greeks": 1,
+             "heston_level": 1.5}
 
 
 def walk_work(kname: str, plan, steps: int):
@@ -1367,12 +1394,15 @@ def barrier_book_path(mt) -> None:
 
 # tests/test_heston.py's option and its Feller-violating QE option; the
 # Greeks option of tests/test_greeks.py (2 kappa theta = 0.36 > xi^2); the
-# variance swap's, Feller-satisfied (0.16 > 0.09) with v0 above theta.
+# variance swap's, Feller-satisfied (0.16 > 0.09) with v0 above theta;
+# tests/test_mlmc.py's MLMC option.  The reference option is also the JAX
+# exotic CLI's --product mlmc at its defaults.
 HESTON_OPTS = {
     "opt": (100.0, 100.0, 0.05, 1.0, 0.04, 2.0, 0.04, 0.3, -0.7),
     "steep": (100.0, 100.0, 0.03, 1.0, 0.04, 1.5, 0.04, 0.5, -0.7),
     "gopt": (100.0, 100.0, 0.03, 1.0, 0.09, 2.0, 0.09, 0.4, -0.6),
     "vs": (100.0, 100.0, 0.03, 1.0, 0.09, 2.0, 0.04, 0.3, -0.6),
+    "mlmc_test": (100.0, 100.0, 0.03, 1.0, 0.04, 1.5, 0.04, 0.4, -0.6),
 }
 
 
@@ -2642,6 +2672,122 @@ def american_path(mt, mcmath) -> None:
                            + ", ".join(zs))
 
 
+def mlmc_path(mt, mcmath) -> None:
+    """The MLMC path: ``mctpu_torch.mlmc`` at the JAX exotic CLI's
+    ``--product mlmc``, ``mlmc-asian`` and ``mlmc-barrier`` defaults (S=K=100,
+    r=0.05, v=0.2, T=1; mctpu/cli/exotic.py:353-425) on the CLI's 512 x 256
+    config, at eps = 0.02 and, for Heston and the Asian, a desk's 0.005;
+    the Heston gate of tests/test_mlmc.py on ``mctpu``'s 8 x 8 default at
+    eps = 0.05; the level checks of tests/test_mlmc.py at 2^22 paths.
+    Each call prints its level table, wall ms, path-steps per second and
+    launches (level 0's K27, K9 or K12 and the level kernel's)."""
+    from mctpu_torch import mlmc
+    from mctpu_torch.kernels import asian as kasian
+    from mctpu_torch.kernels import barrier as kbarrier
+    from mctpu_torch.kernels import heston as kheston
+    from mctpu_torch.models import heston as mheston
+    from mctpu_torch.types import AsianOption, BarrierOption, HestonOption
+
+    counters = (kheston.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES)
+
+    def n_launches():
+        return sum(sum(c.values()) for c in counters)
+
+    def run(label, fn):
+        before = n_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(all(math.isfinite(x) for lv in res.levels
+                  for x in (lv.mean, lv.var)) and res.std_error > 0,
+              f"{label}: non-finite level table")
+        table = "; ".join(f"l{lv.level} n={lv.n_steps} N={lv.n_paths} "
+                          f"mean={lv.mean:+.3e} var={lv.var:.3e}"
+                          for lv in res.levels)
+        phase("mlmc-path", f"{label}: {res.price:.6f} ± {res.ci:.6f}, "
+                           f"{wall * 1e3:.1f} ms wall, "
+                           f"{res.total_path_steps / wall:.4g} path-steps/s "
+                           f"({res.total_path_steps:.4g}), "
+                           f"{n_launches() - before} launches; {table}")
+        return res
+
+    cli = mt.EngineConfig()  # the JAX CLIs' --blocks 512 --rows 256
+    hopt = HestonOption(*HESTON_OPTS["opt"])
+    cf = mheston.cf_call_price(hopt)
+    for eps in (0.02, 0.005):
+        res = run(f"Heston Euler eps={eps} (K27, K29; CF {cf:.6f})",
+                  lambda e=eps: mlmc.price_heston_mlmc(hopt, e, SEED, cli))
+        check(abs(res.price - cf) < 3 * eps,
+              f"MLMC Heston eps={eps}: {res.price:.6f} vs CF {cf:.6f}")
+    topt = HestonOption(*HESTON_OPTS["mlmc_test"])
+    cf_t = mheston.cf_call_price(topt)
+    res = run(f"Heston Euler tests/test_mlmc.py option, 8 x 8 default, "
+              f"eps=0.05 (CF {cf_t:.6f})",
+              lambda: mlmc.price_heston_mlmc(topt, 0.05, SEED))
+    check(abs(res.price - cf_t) < 3 * 0.05,
+          f"MLMC Heston 8 x 8: {res.price:.6f} vs CF {cf_t:.6f}")
+
+    geo = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=4,
+                      average="geometric")
+    for eps in (0.02, 0.005):
+        res = run(f"geometric Asian eps={eps} (K9, K11)",
+                  lambda e=eps: mlmc.price_asian_mlmc(geo, e, SEED, cli))
+        cfa = float(mcmath.geometric_asian_call(
+            100.0, 100.0, 0.05, 0.2, 1.0, res.levels[-1].n_steps))
+        z = abs(res.price - cfa) / res.std_error
+        check(z < N_SIGMA, f"MLMC geometric Asian eps={eps}: "
+                           f"{res.price:.6f} vs closed form {cfa:.6f} at "
+                           f"{res.levels[-1].n_steps} dates (z={z:.2f})")
+        phase("mlmc-path", f"geometric Asian eps={eps}: closed form at "
+                           f"{res.levels[-1].n_steps} dates {cfa:.6f}, "
+                           f"z={z:.2f}")
+    ari = run("arithmetic Asian eps=0.02 (K9, K11)",
+              lambda: mlmc.price_asian_mlmc(
+                  dataclasses.replace(geo, average="arithmetic"), 0.02, SEED,
+                  cli))
+    check(ari.price > res.price, "arithmetic Asian MLMC price below the "
+                                 "geometric one")
+
+    uo = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0, n_obs=8)
+    res = run("up-and-out H=130 eps=0.02 max_levels=8 (K12, K14)",
+              lambda: mlmc.price_barrier_mlmc(uo, 0.02, SEED, cli,
+                                              max_levels=8))
+    cont = float(mcmath.up_and_out_call(100.0, 100.0, 0.05, 0.2, 1.0, 130.0))
+    bias_est = abs(res.levels[-1].mean) * math.exp(-0.05) / (2 ** 0.5 - 1.0)
+    check(res.price > cont and abs(res.price - cont)
+          < 0.02 + bias_est + 3 * res.std_error,
+          f"MLMC up-and-out {res.price:.6f} vs continuous {cont:.6f} "
+          f"(bias estimate {bias_est:.4f}, se {res.std_error:.2e})")
+    phase("mlmc-path", f"up-and-out: continuous closed form {cont:.6f}, "
+                       f"remaining-bias estimate {bias_est:.5f}")
+
+    # Level checks at 2^22 paths on the CLI config: E[d_l] of the geometric
+    # Asian equals cf(n_l) - cf(n_l / 2) (undiscounted, 4 sigma); the
+    # up-and-out level means are negative.
+    n = 1 << 22
+    msgs = []
+    for lv in (1, 3):
+        s, s2, nu = mlmc.asian_level_partials(geo, SEED + lv, lv, 4, n, cli)
+        m = s / nu
+        se = math.sqrt(max(s2 / nu - m * m, 0.0) / nu)
+        want = float(mcmath.geometric_asian_call(100.0, 100.0, 0.05, 0.2, 1.0,
+                                                 4 * 2 ** lv)
+                     - mcmath.geometric_asian_call(100.0, 100.0, 0.05, 0.2,
+                                                   1.0, 2 * 2 ** lv)) \
+            * math.exp(0.05)
+        z = abs(m - want) / se
+        check(z < N_SIGMA, f"geometric level {lv} mean {m:.6e} vs "
+                           f"{want:.6e} (z={z:.2f})")
+        msgs.append(f"Asian l{lv} {m:+.5e} vs {want:+.5e} z={z:.2f}")
+    for lv in (1, 2, 3):
+        s, _, nu = mlmc.barrier_level_partials(uo, SEED + lv, lv, 8, n, cli)
+        check(s / nu < 0, f"up-and-out level {lv} mean {s / nu:.3e} >= 0")
+        msgs.append(f"barrier l{lv} {s / nu:+.4e}")
+    phase("mlmc-path", "level means 2^22: " + "; ".join(msgs))
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -3024,6 +3170,48 @@ def main() -> int:
                  lambda off, n: kvarswap.greek_plain_partials(
                      gp, SEED, off, plan, n, n_obs),
                  units=units(plan))
+
+    # The MLMC level kernels at levels 1 and 4: K29 on the reference option
+    # (the JAX exotic CLI's --product mlmc) with n0 = 8 (16 and 128 fine steps), K11 with n0 = 4 (8
+    # and 64 dates) under both averages, K14 with n0 = 8 (16 and 128 dates)
+    # up-and-out at H = 130 and down-and-out at H = 80; antithetic and Kahan
+    # each on and off.  d is a payoff difference, so its block sums are held
+    # by the scaled pair bound.
+    for lv, anti, kahan in ((1, False, True), (4, True, False),
+                            (4, False, True)):
+        plan = kheston.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                                 nb, rows, anti, kahan)
+        tag = (f"level {lv}{' antithetic' if anti else ''}"
+               f"{'' if kahan else ' f32'}")
+        nf = 8 * 2 ** lv
+        lp = kheston.level_params(h_opt, nf, dev)
+        contract(f"K29 {tag} ({nf} steps)",
+                 lambda off, n: kheston.level_partials(lp, SEED, off, plan, n,
+                                                       nf),
+                 lambda off, n: kheston.level_plain_partials(
+                     lp, SEED, off, plan, n, nf), units=units(plan))
+        for average in ("arithmetic", "geometric"):
+            nfa = 4 * 2 ** lv
+            ap = kasian.level_params(
+                AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=4), nfa, dev)
+            geo = average == "geometric"
+            contract(f"K11 {average} {tag} ({nfa} dates)",
+                     lambda off, n: kasian.level_partials(
+                         ap, SEED, off, plan, n, nfa, geo),
+                     lambda off, n: kasian.level_plain_partials(
+                         ap, SEED, off, plan, n, nfa, geo),
+                     units=units(plan))
+        for kind, h in (("up-and-out", 130.0), ("down-and-out", 80.0)):
+            bp = kbarrier.level_params(
+                BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=h,
+                              n_obs=8, kind=kind), nf, dev)
+            up = kind == "up-and-out"
+            contract(f"K14 {kind} H={h:g} {tag} ({nf} dates)",
+                     lambda off, n: kbarrier.level_partials(
+                         bp, SEED, off, plan, n, nf, up),
+                     lambda off, n: kbarrier.level_plain_partials(
+                         bp, SEED, off, plan, n, nf, up),
+                     units=units(plan))
 
     # The multi-asset walks: K30 and K32/K34 at a = 1, 3 and 8, K31 and
     # K33/K35 at 16 and 100 assets, both products (up- and down-and-out), 13
@@ -3507,12 +3695,21 @@ def main() -> int:
     launches.update(read_counts(AMERICAN_KERNELS))
     phase("american-path", f"done in {time.perf_counter() - t_am:.1f} s")
 
+    # ---- 4o. the MLMC path at the CLI's shapes --------------------------
+    reset_counts()
+    t_ml = time.perf_counter()
+    mlmc_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(MLMC_KERNELS))
+    phase("mlmc-path", f"done in {time.perf_counter() - t_ml:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
                    + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
                    + MULTI_WALK_KERNELS + RAINBOW_KERNELS + CVA_MULTI_KERNELS
-                   + XVA_KERNELS + CV_KERNELS + AMERICAN_KERNELS)
+                   + XVA_KERNELS + CV_KERNELS + AMERICAN_KERNELS
+                   + MLMC_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -4131,6 +4328,40 @@ def main() -> int:
                                                    lops.tables)),
               units=gunits(plan) if greek else None, plain_reps=3,
               record=record)
+
+    # The MLMC path's level kernels at 2^22 paths on the level plan of the
+    # default EngineConfig (mlmc._level_plan): K29 at level 4 of n0 = 8 (128
+    # fine steps) on the reference option, K11 arithmetic at level 4 of n0 =
+    # 4 (64 dates), K14 up-and-out at H = 130 at level 3 of n0 = 8 (64
+    # dates).  max_abs_err is in discounted level means.
+    from mctpu_torch import mlmc
+    plan = mlmc._level_plan(n_ex, cfg)
+    nbl = plan.num_blocks
+    disc_m = math.exp(-0.05)
+    hlp = kheston.level_params(h_opt, 128, dev)
+    alp = kasian.level_params(ari, 64, dev)
+    blp = kbarrier.level_params(
+        BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0, n_obs=8),
+        64, dev)
+    for kname, source, replaces, kernel, plain, ops, steps in (
+            ("heston_level", "heston.cu", "heston.py:511",
+             lambda: kheston.level_partials(hlp, SEED, 0, plan, nbl, 128),
+             lambda: kheston.level_plain_partials(hlp, SEED, 0, plan, nbl,
+                                                  128), hlp, 128),
+            ("asian_level", "asian.cu", "asian.py:491",
+             lambda: kasian.level_partials(alp, SEED, 0, plan, nbl, 64,
+                                           False),
+             lambda: kasian.level_plain_partials(alp, SEED, 0, plan, nbl, 64,
+                                                 False), alp, 64),
+            ("barrier_level", "barrier.cu", "barrier.py:471",
+             lambda: kbarrier.level_partials(blp, SEED, 0, plan, nbl, 64,
+                                             True),
+             lambda: kbarrier.level_plain_partials(blp, SEED, 0, plan, nbl,
+                                                   64, True), blp, 64)):
+        timed(kname, f"mctpu_torch/csrc/{source}", f"mctpu/kernels/{replaces}",
+              plan, steps, disc_m, kernel, plain,
+              walk_work(kname, plan, steps), in_bytes=4 * ops.numel(),
+              units=gunits(plan), plain_reps=3)
 
     # K37 at 100 assets on the plan rainbow_path gives it (c = 1, a
     # 5050-term product a thread), held against its plain version untimed.

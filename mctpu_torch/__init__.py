@@ -11,7 +11,9 @@ in-kernel Greeks, control-variate pricing of calls, arithmetic Asian
 calls and baskets and importance-sampled calls
 (:mod:`mctpu_torch.variance`), and American puts and calls by two-pass
 Longstaff-Schwartz with their frozen-rule Greeks (:mod:`mctpu_torch.lsm`,
-:func:`greeks_american`), through hand-written
+:func:`greeks_american`), and multilevel Monte Carlo for the Heston Euler
+walk and the continuously monitored Asian and knock-out calls
+(:mod:`mctpu_torch.mlmc`), through hand-written
 CUDA kernels (``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use),
 per-block partial sums, a fixed-order float64 combine and the reference
 estimator.  :mod:`mctpu_torch.autodiff` adds the autodiff and
@@ -38,7 +40,7 @@ from mctpu_torch.engine import (EngineConfig, fair_variance_strike, greeks,
                                 price_heston, price_lookback, price_rainbow,
                                 price_vanilla, price_vanilla_ladder,
                                 price_xva)
-from mctpu_torch import lsm, variance  # noqa: F401  (after engine)
+from mctpu_torch import lsm, mlmc, variance  # noqa: F401  (after engine)
 from mctpu_torch.lsm import (price_american, price_american_bounds,
                              price_american_heston)
 from mctpu_torch.rng import seed_from_generator
@@ -50,9 +52,10 @@ from mctpu_torch.types import (AmericanBounds, AmericanOption, AsianOption,
                                CvaSpec,
                                GreeksResult, HestonGreeksResult,
                                HestonOption, LookbackOption, McResult,
-                               Precision, RainbowOption, VanillaBook,
-                               VanillaOption, XvaGreeksResult, XvaResult,
-                               XvaSpec, from_reference)
+                               MlmcLevel, MlmcResult, Precision,
+                               RainbowOption, VanillaBook, VanillaOption,
+                               XvaGreeksResult, XvaResult, XvaSpec,
+                               from_reference)
 
 __all__ = [
     "EngineConfig",
@@ -123,8 +126,11 @@ __all__ = [
     "CvaGreeksResult",
     "XvaResult",
     "XvaGreeksResult",
+    "MlmcLevel",
+    "MlmcResult",
     "from_reference",
     "math",
     "lsm",
+    "mlmc",
     "variance",
 ]

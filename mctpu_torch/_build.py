@@ -86,18 +86,21 @@ _SIGNATURES = {
     # iters, antithetic, kahan, wwr, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P, _P),
-    # The single-asset walks (K9, K10, K12, K13, K15-K20, K27, K28, K46): scal,
-    # n_obs (the cliquet's n_periods, the Heston walk's n_steps), seed, off,
-    # n_blocks, rows, iters, antithetic, kahan, mode (geometric Asian,
-    # up-and-out barrier, 2 * fixed + put for the lookback, the QE scheme,
-    # the variance swap's Heston leg; 0 for the cliquet and K46), out, stream
+    # The single-asset walks (K9-K20, K27-K29, K46): scal, n_obs (the
+    # cliquet's n_periods, the Heston walk's n_steps, an MLMC level's fine
+    # step count), seed, off, n_blocks, rows, iters, antithetic, kahan, mode
+    # (geometric Asian, up-and-out barrier, 2 * fixed + put for the
+    # lookback, the QE scheme, the variance swap's Heston leg; 0 for the
+    # cliquet, K29 and K46), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_asian_greeks", "mctpu_barrier",
                     "mctpu_barrier_greeks", "mctpu_lookback",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
                     "mctpu_cliquet_greeks", "mctpu_varswap",
                     "mctpu_varswap_greeks", "mctpu_heston",
-                    "mctpu_heston_greeks", "mctpu_asian_cv")},
+                    "mctpu_heston_greeks", "mctpu_asian_cv",
+                    "mctpu_heston_level", "mctpu_asian_level",
+                    "mctpu_barrier_level")},
     # The strike ladder (K21, K22): par, strikes, n_strikes, seed, off,
     # n_blocks, rows, iters, antithetic, put, kahan, out, stream
     **{name: (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)

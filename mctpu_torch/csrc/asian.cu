@@ -1,10 +1,11 @@
-// K9 and K10: fused Asian-call Monte Carlo and its Greeks.
+// K9, K10 and K11: fused Asian-call Monte Carlo, its Greeks and the
+// multilevel (MLMC) level correction of the observation count.
 //
 // K9 replaces mctpu/kernels/asian.py::_asian_kernel, K10
-// ::_asian_greeks_kernel.  Per simulation block b and iteration i the
-// stream is reseeded with (seed, (off + b) * iters + i) in int32 wrap; tile
-// element e walks the n_obs dates in pairs (mct::walk_pairwise), the
-// antithetic mirror replaying the same draws with the sign flipped, and the
+// ::_asian_greeks_kernel, K11 ::_asian_level_kernel.  Per simulation block
+// b and iteration i the stream is reseeded with (seed, (off + b) * iters +
+// i) in int32 wrap; tile element e walks the n_obs dates in pairs
+// (mct::walk_pairwise), the antithetic mirror replaying the same draws with the sign flipped, and the
 // two mirrored outputs are averaged before they are summed.  K9 carries the
 // log-spot and the running sum of the spots (of the log-spots for the
 // geometric average) and pays max(avg - k, 0).  K10 also carries the vega
@@ -12,7 +13,12 @@
 // cj = c1 (j + 1) and tj = t_j, and forms price, pathwise delta, vega and
 // rho, and the Stein-tilt gamma (mctpu/kernels/asian.py, _greek_quants):
 // 5 outputs, 10 sums.  The geometric walk is a template of its own: it
-// takes no expf per step and never touches racc/r2acc.
+// takes no expf per step and never touches racc/r2acc.  K11 walks
+// nf = n0 2^l dates, one Box-Muller pair per coarse step j at counter j
+// (mct::walk_steps over nf / 2 steps): the cosine drives the odd,
+// fine-only date, the sine the shared date; the fine sum takes both dates,
+// the coarse sum the shared one, in that order, and d = pay(accf / nf) -
+// pay(accc / (nf / 2)): 2 sums.
 //
 // This file is built with -fmad=false (mctpu_torch/_build.py): no multiply
 // is contracted into an FMA, so every per-path value rounds as the plain
@@ -28,8 +34,8 @@
 // expf; the walk is a serial dependence from date to date and the only
 // memory traffic is the block's partials.  Simple design: one CUDA block
 // per simulation block, one thread per path element striding over the
-// (rows, 128) tile, the state in registers; K9 sums with mct::Acc2 and one
-// fixed-order block tree, K10 with mct::BlockAccN once per iteration.  No
+// (rows, 128) tile, the state in registers; K9 and K11 sum with mct::Acc2
+// and one fixed-order block tree, K10 with mct::BlockAccN once per iteration.  No
 // atomics: two launches give the same bits.  layout_for gives 128 blocks
 // at 2^22 paths, one per SM.
 #include "common.cuh"
@@ -39,6 +45,14 @@ namespace {
 constexpr int THREADS = 1024;        // K9
 constexpr int GREEK_THREADS = 512;   // K10: 10 sums and 7 carries a thread
 constexpr int N_SUMS = 10;
+
+// max(avg - k, 0) of a running sum over n dates (an IEEE division).
+template <bool GEO>
+__device__ __forceinline__ float avg_payoff(float acc, int n, float k) {
+  float avg = acc / static_cast<float>(n);
+  if (GEO) avg = expf(avg);
+  return fmaxf(avg - k, 0.0f);
+}
 
 // One K9 walk of tile element e -> its payoff.
 template <bool GEO>
@@ -50,9 +64,52 @@ __device__ __forceinline__ float walk(float log_s0, float k, float drift,
     log_s = log_s + drift + vol * (sgn * z);
     acc = acc + (GEO ? log_s : expf(log_s));
   });
-  float avg = acc / static_cast<float>(n_obs);
-  if (GEO) avg = expf(avg);
-  return fmaxf(avg - k, 0.0f);
+  return avg_payoff<GEO>(acc, n_obs, k);
+}
+
+// One K11 walk of tile element e over n_fine dates -> its level
+// difference d.
+template <bool GEO>
+__device__ __forceinline__ float level_walk(float log_s0, float k,
+                                            float drift, float vol,
+                                            int n_fine, mct::Key key,
+                                            uint32_t e, float sgn) {
+  const int n_coarse = n_fine / 2;
+  float log_s = log_s0, accf = 0.0f, accc = 0.0f;
+  mct::walk_steps(key, e, n_coarse, [&](int, float z1, float z2) {
+    log_s = log_s + drift + vol * (sgn * z1);  // the odd, fine-only date
+    accf = accf + (GEO ? log_s : expf(log_s));
+    log_s = log_s + drift + vol * (sgn * z2);  // the shared date
+    const float x = GEO ? log_s : expf(log_s);
+    accf = accf + x;
+    accc = accc + x;
+  });
+  return avg_payoff<GEO>(accf, n_fine, k) - avg_payoff<GEO>(accc, n_coarse, k);
+}
+
+template <bool ANTI, bool KAHAN, bool GEO>
+__global__ void __launch_bounds__(THREADS)
+    asian_level_kernel(const float* __restrict__ par, int n_fine,
+                       uint32_t seed, uint32_t off, int n_elems, int iters,
+                       float* __restrict__ out) {
+  // par: log s0, k, drift, vol (at dt = t / n_fine)
+  const float log_s0 = par[0], k = par[1], drift = par[2], vol = par[3];
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float d = level_walk<GEO>(log_s0, k, drift, vol, n_fine, key, u, 1.0f);
+      if (ANTI) {
+        d = 0.5f * (d + level_walk<GEO>(log_s0, k, drift, vol, n_fine, key,
+                                        u, -1.0f));
+      }
+      acc.add(d);
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
 }
 
 template <bool ANTI, bool KAHAN, bool GEO>
@@ -187,11 +244,15 @@ __global__ void __launch_bounds__(GREEK_THREADS)
   acc.write(out);
 }
 
+// kind: 0 K9, 1 K10, 2 K11.
 template <bool ANTI, bool KAHAN, bool GEO>
 void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int greeks, float* out,
+            int n_blocks, int n_elems, int iters, int kind, float* out,
             cudaStream_t stream) {
-  if (greeks) {
+  if (kind == 2) {
+    asian_level_kernel<ANTI, KAHAN, GEO><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_obs, seed, off, n_elems, iters, out);
+  } else if (kind == 1) {
     asian_greeks_kernel<ANTI, KAHAN, GEO><<<n_blocks, GREEK_THREADS, 0,
                                             stream>>>(scal, n_obs, seed, off,
                                                       n_elems, iters, out);
@@ -214,11 +275,11 @@ constexpr LaunchFn LAUNCHERS[8] = {
 
 int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
         int rows, int iters, int antithetic, int kahan, int geometric,
-        int greeks, float* out, void* stream) {
+        int kind, float* out, void* stream) {
   const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (geometric ? 1 : 0);
   LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
                  static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, greeks, out, static_cast<cudaStream_t>(stream));
+                 iters, kind, out, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -238,4 +299,14 @@ extern "C" int mctpu_asian_greeks(const float* scal, int n_obs, int seed,
                                   float* out, void* stream) {
   return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
              geometric, 1, out, stream);
+}
+
+// par (log s0, k, drift, vol at dt = t / n_fine) -> out (n_blocks, 2) of the
+// level correction over n_fine (even) dates.
+extern "C" int mctpu_asian_level(const float* par, int n_fine, int seed,
+                                 int off, int n_blocks, int rows, int iters,
+                                 int antithetic, int kahan, int geometric,
+                                 float* out, void* stream) {
+  return run(par, n_fine, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             geometric, 2, out, stream);
 }

@@ -1,10 +1,11 @@
-// K12 and K13: fused knock-out barrier-call Monte Carlo and its
-// likelihood-ratio Greeks.
+// K12, K13 and K14: fused knock-out barrier-call Monte Carlo, its
+// likelihood-ratio Greeks and the multilevel (MLMC) level correction of the
+// monitoring count.
 //
 // K12 replaces mctpu/kernels/barrier.py::_barrier_kernel, K13
-// ::_barrier_greeks_kernel.  The stream is K9's (csrc/asian.cu): reseed per
-// (block, iteration) with (seed, (off + b) * iters + i), pairs of dates per
-// Philox block, the antithetic mirror replaying the draws with the sign
+// ::_barrier_greeks_kernel, K14 ::_barrier_level_kernel.  The stream is
+// K9's (csrc/asian.cu): reseed per (block, iteration) with (seed, (off + b)
+// * iters + i), pairs of dates per Philox block, the antithetic mirror replaying the draws with the sign
 // flipped and averaged in before the sums.  Each path carries the log-spot
 // and a 0/1 alive flag that the first date with log s >= log H (up-and-out)
 // or log s <= log H (down-and-out) multiplies by 0; the payoff is
@@ -12,7 +13,11 @@
 // sum zeta^2 and forms the likelihood-ratio delta, vega and rho
 // (mctpu/kernels/barrier.py, _greek_quants): 4 outputs, 8 sums.  Its vega
 // integrand p (z2s / v - zs sqrt(dt) - n / v) cancels heavily, which is why
-// the tests hold its sums by the scaled pair bound.
+// the tests hold its sums by the scaled pair bound.  K14 walks nf = n0 2^l dates on K11's map (csrc/asian.cu: one pair per
+// coarse step j at counter j, the cosine on the odd date, the sine on the
+// shared date) with two flags: the fine flag checks both dates, the coarse
+// flag the shared date only, and d = (af - ac) max(exp(log s_T) - k, 0):
+// 2 sums.
 //
 // This file is built with -fmad=false (mctpu_torch/_build.py), like
 // csrc/asian.cu: the knock-out compare is a discontinuity, and an FMA that
@@ -25,7 +30,7 @@
 // block, half a Box-Muller, one add chain and a compare; one expf per path.
 // Simple design, as K9: one CUDA block per simulation block, one thread per
 // path element striding over the (rows, 128) tile, state in registers; K12
-// sums with mct::Acc2, K13 with mct::BlockAccN per iteration.  No atomics.
+// and K14 sum with mct::Acc2, K13 with mct::BlockAccN per iteration.  No atomics.
 #include "common.cuh"
 
 namespace {
@@ -52,6 +57,52 @@ __device__ __forceinline__ float walk(float log_s0, float k, float log_h,
     alive = alive_update<UP>(alive, log_s, log_h);
   });
   return alive * fmaxf(expf(log_s) - k, 0.0f);
+}
+
+// One K14 walk of tile element e over n_fine dates -> its level
+// difference d.
+template <bool UP>
+__device__ __forceinline__ float level_walk(float log_s0, float k,
+                                            float log_h, float drift,
+                                            float vol, int n_fine,
+                                            mct::Key key, uint32_t e,
+                                            float sgn) {
+  float log_s = log_s0, af = 1.0f, ac = 1.0f;
+  mct::walk_steps(key, e, n_fine / 2, [&](int, float z1, float z2) {
+    log_s = log_s + drift + vol * (sgn * z1);  // the odd, fine-only date
+    af = alive_update<UP>(af, log_s, log_h);
+    log_s = log_s + drift + vol * (sgn * z2);  // the shared date
+    af = alive_update<UP>(af, log_s, log_h);
+    ac = alive_update<UP>(ac, log_s, log_h);
+  });
+  return (af - ac) * fmaxf(expf(log_s) - k, 0.0f);
+}
+
+template <bool ANTI, bool KAHAN, bool UP>
+__global__ void __launch_bounds__(THREADS)
+    barrier_level_kernel(const float* __restrict__ par, int n_fine,
+                         uint32_t seed, uint32_t off, int n_elems, int iters,
+                         float* __restrict__ out) {
+  // par: log s0, k, log H, drift, vol (at dt = t / n_fine)
+  const float log_s0 = par[0], k = par[1], log_h = par[2], drift = par[3],
+              vol = par[4];
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float d = level_walk<UP>(log_s0, k, log_h, drift, vol, n_fine, key, u,
+                               1.0f);
+      if (ANTI) {
+        d = 0.5f * (d + level_walk<UP>(log_s0, k, log_h, drift, vol, n_fine,
+                                       key, u, -1.0f));
+      }
+      acc.add(d);
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
 }
 
 template <bool ANTI, bool KAHAN, bool UP>
@@ -142,11 +193,15 @@ __global__ void __launch_bounds__(GREEK_THREADS)
   acc.write(out);
 }
 
+// kind: 0 K12, 1 K13, 2 K14.
 template <bool ANTI, bool KAHAN, bool UP>
 void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int greeks, float* out,
+            int n_blocks, int n_elems, int iters, int kind, float* out,
             cudaStream_t stream) {
-  if (greeks) {
+  if (kind == 2) {
+    barrier_level_kernel<ANTI, KAHAN, UP><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_obs, seed, off, n_elems, iters, out);
+  } else if (kind == 1) {
     barrier_greeks_kernel<ANTI, KAHAN, UP><<<n_blocks, GREEK_THREADS, 0,
                                              stream>>>(scal, n_obs, seed, off,
                                                        n_elems, iters, out);
@@ -168,12 +223,12 @@ constexpr LaunchFn LAUNCHERS[8] = {
 };
 
 int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
-        int rows, int iters, int antithetic, int kahan, int up, int greeks,
+        int rows, int iters, int antithetic, int kahan, int up, int kind,
         float* out, void* stream) {
   const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (up ? 1 : 0);
   LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
                  static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, greeks, out, static_cast<cudaStream_t>(stream));
+                 iters, kind, out, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -192,4 +247,14 @@ extern "C" int mctpu_barrier_greeks(const float* scal, int n_obs, int seed,
                                     float* out, void* stream) {
   return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
              up, 1, out, stream);
+}
+
+// par (log s0, k, log H, drift, vol at dt = t / n_fine) -> out (n_blocks, 2)
+// of the level correction over n_fine (even) dates.
+extern "C" int mctpu_barrier_level(const float* par, int n_fine, int seed,
+                                   int off, int n_blocks, int rows, int iters,
+                                   int antithetic, int kahan, int up,
+                                   float* out, void* stream) {
+  return run(par, n_fine, seed, off, n_blocks, rows, iters, antithetic, kahan,
+             up, 2, out, stream);
 }

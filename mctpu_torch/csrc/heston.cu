@@ -1,26 +1,33 @@
-// K27 and K28: Heston Monte Carlo (full-truncation Euler or Andersen's QE)
-// and its pathwise Greeks.
+// K27, K28 and K29: Heston Monte Carlo (full-truncation Euler or Andersen's
+// QE), its pathwise Greeks and the multilevel (MLMC) level correction of the
+// Euler walk.
 //
 // K27 replaces mctpu/kernels/heston.py::_heston_kernel (both schemes), K28
-// ::_heston_greeks_kernel.  Per simulation block b and iteration i the
-// stream is reseeded with (seed, (off + b) * iters + i) in int32 wrap; tile
-// element e walks n_steps steps, step j drawing Philox block (e, j, 0, 0)
-// and taking both Box-Muller branches, z_v (cosine) and z_perp (sine), in
-// that step (mct::walk_steps); the antithetic mirror replays the same draws
-// with the sign flipped, and the two mirrored outputs are averaged before
-// they are summed.  Each path carries x = log(S / S0) and v.  K27 steps
+// ::_heston_greeks_kernel, K29 ::_level_kernel.  Per simulation block b and
+// iteration i the stream is reseeded with (seed, (off + b) * iters + i) in
+// int32 wrap; tile element e walks n_steps steps, step j drawing Philox
+// block (e, j, 0, 0) and taking both Box-Muller branches, z_v (cosine) and
+// z_perp (sine), in that step (mct::walk_steps); the antithetic mirror
+// replays the same draws with the sign flipped, and the two mirrored
+// outputs are averaged before they are summed.  Each path carries x = log(S / S0) and v.  K27 steps
 // mct::heston_step (Euler) or qe_step below (mctpu/models/heston.py,
 // qe_step) and pays max(s0 e^x - k, 0).  K28 steps mct::heston_greek_step
 // with four tangent pairs and forms price, delta, vega (v0), rho, dtheta,
 // dkappa and dxi (mctpu_torch/kernels/heston.py, _greek_quants): 7
-// outputs, 14 sums.
+// outputs, 14 sums.  K29 walks a fine path of n_fine = n0 2^l Euler steps
+// and a coarse path of n_fine / 2 steps on the same increments: coarse step
+// j draws Philox blocks (e, 2j) and (e, 2j + 1) (K27's stream at n_fine
+// steps), takes the two fine steps on them and one coarse step on
+// zc = (z1 + z2) / sqrt(2) for z_v and z_perp alike, the mirror's sign
+// applied after the sum, and pays d = P(x_fine) - P(x_coarse): 2 sums.
 //
 // Built with -fmad=false (mctpu_torch/_build.py): each path rounds as the
 // plain PyTorch version's separate operations do, with the same IEEE sqrtf
 // and divisions and the same libm expf/logf, so the walk's branches fall on
 // the same side as there: max(v, 0) and v > 0 in Euler, psi <= 1.5 (where
 // the QE variance is not continuous), u (psi + 1) <= psi - 1 and the clip of
-// u in QE, and S > K in the payoff.  Only the block sums' order differs.
+// u in QE, and S > K in the payoff (K29: in each of its two payoffs).  Only
+// the block sums' order differs.
 //
 // Bound on the H100: the draws.  Per path-step one whole Philox block (10
 // rounds of two 32-bit mul.hi/lo) and one Box-Muller pair (logf, sqrtf, the
@@ -30,8 +37,9 @@
 // than by the integer pipe.  The walk is a serial dependence from step to
 // step and the only memory traffic is the block's partials.  Simple design,
 // as K9 and K10: one CUDA block per simulation block, one thread per path
-// element striding over the (rows, 128) tile, the state in registers; K27
-// sums with mct::Acc2 and one fixed-order block tree, K28 with
+// element striding over the (rows, 128) tile, the state in registers.  K29
+// is K27's Euler walk at n_fine steps plus a coarse step (a sqrtf) per two
+// fine steps and a second expf.  K27 and K29 sum with mct::Acc2 and one fixed-order block tree, K28 with
 // mct::BlockAccN once per iteration.  No atomics: two launches give the
 // same bits.
 #include "common.cuh"
@@ -197,11 +205,74 @@ __global__ void __launch_bounds__(GREEK_THREADS)
   acc.write(out);
 }
 
+// K29's scalars (mctpu_torch/kernels/heston.py, LEVEL_SCAL): s0, k, v0,
+// theta, xi, rho_c, rho_s, then kappa dt, r dt and sqrt(dt) of the fine and
+// of the coarse step.
+struct LevelScal {
+  float s0, k, v0;
+  mct::HestonStep fine, coarse;
+};
+
+__device__ __forceinline__ LevelScal load_level(const float* p) {
+  return LevelScal{p[0], p[1], p[2],
+                   mct::HestonStep{p[7], p[3], p[4], p[5], p[6], p[8], p[9]},
+                   mct::HestonStep{p[10], p[3], p[4], p[5], p[6], p[11],
+                                   p[12]}};
+}
+
+// One K29 walk of tile element e -> its payoff difference d.
+__device__ __forceinline__ float level_walk(const LevelScal& c, int n_coarse,
+                                            mct::Key key, uint32_t e,
+                                            float sgn) {
+  const float inv_sqrt2 = MCT_F32(0.7071067811865476);
+  float xf = 0.0f, vf = c.v0, xc = 0.0f, vc = c.v0;
+  for (int j = 0; j < n_coarse; ++j) {
+    float z1v, z1p, z2v, z2p;
+    mct::draw_normal_pair(key, e, static_cast<uint32_t>(2 * j), z1v, z1p);
+    mct::draw_normal_pair(key, e, static_cast<uint32_t>(2 * j + 1), z2v,
+                          z2p);
+    mct::heston_step(c.fine, sgn * z1v, sgn * z1p, xf, vf);
+    mct::heston_step(c.fine, sgn * z2v, sgn * z2p, xf, vf);
+    // The coarse normal is a rounded add, then a rounded multiply.
+    const float zcv = (z1v + z2v) * inv_sqrt2;
+    const float zcp = (z1p + z2p) * inv_sqrt2;
+    mct::heston_step(c.coarse, sgn * zcv, sgn * zcp, xc, vc);
+  }
+  return fmaxf(c.s0 * expf(xf) - c.k, 0.0f) -
+         fmaxf(c.s0 * expf(xc) - c.k, 0.0f);
+}
+
+template <bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(THREADS)
+    heston_level_kernel(const float* __restrict__ scal, int n_fine,
+                        uint32_t seed, uint32_t off, int n_elems, int iters,
+                        float* __restrict__ out) {
+  const LevelScal c = load_level(scal);
+  const int n_coarse = n_fine / 2;
+  mct::Acc2<KAHAN> acc;
+  for (int i = 0; i < iters; ++i) {
+    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
+                          static_cast<uint32_t>(i);
+    const mct::Key key = mct::seed_key(seed, word);
+    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
+      const uint32_t u = static_cast<uint32_t>(e);
+      float d = level_walk(c, n_coarse, key, u, 1.0f);
+      if (ANTI) d = 0.5f * (d + level_walk(c, n_coarse, key, u, -1.0f));
+      acc.add(d);
+    }
+  }
+  mct::write_block_sums<THREADS, KAHAN>(acc, out);
+}
+
+// kind: 0 K27 (qe selects the scheme), 1 K28, 2 K29.
 template <bool ANTI, bool KAHAN>
 void launch(const float* scal, int n_steps, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int greeks, int qe,
+            int n_blocks, int n_elems, int iters, int kind, int qe,
             float* out, cudaStream_t stream) {
-  if (greeks) {
+  if (kind == 2) {
+    heston_level_kernel<ANTI, KAHAN><<<n_blocks, THREADS, 0, stream>>>(
+        scal, n_steps, seed, off, n_elems, iters, out);
+  } else if (kind == 1) {
     heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0, stream>>>(
         scal, n_steps, seed, off, n_elems, iters, out);
   } else if (qe) {
@@ -223,12 +294,12 @@ constexpr LaunchFn LAUNCHERS[4] = {
 };
 
 int run(const float* scal, int n_steps, int seed, int off, int n_blocks,
-        int rows, int iters, int antithetic, int kahan, int greeks, int qe,
+        int rows, int iters, int antithetic, int kahan, int kind, int qe,
         float* out, void* stream) {
   const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
   LAUNCHERS[idx](scal, n_steps, static_cast<uint32_t>(seed),
                  static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, greeks, qe, out, static_cast<cudaStream_t>(stream));
+                 iters, kind, qe, out, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,4 +322,14 @@ extern "C" int mctpu_heston_greeks(const float* scal, int n_steps, int seed,
                                    float* out, void* stream) {
   return run(scal, n_steps, seed, off, n_blocks, rows, iters, antithetic,
              kahan, 1, 0, out, stream);
+}
+
+// scal (LEVEL_SCAL, 13 floats) -> out (n_blocks, 2) of the level correction
+// over n_fine (even) fine steps.  mode is unused.
+extern "C" int mctpu_heston_level(const float* scal, int n_fine, int seed,
+                                  int off, int n_blocks, int rows, int iters,
+                                  int antithetic, int kahan, int /*mode*/,
+                                  float* out, void* stream) {
+  return run(scal, n_fine, seed, off, n_blocks, rows, iters, antithetic,
+             kahan, 2, 0, out, stream);
 }

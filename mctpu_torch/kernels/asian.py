@@ -1,4 +1,5 @@
-"""K9 and K10: fused Asian-call Monte Carlo and its Greeks, serial walks
+"""K9, K10 and K11: fused Asian-call Monte Carlo, its Greeks and the
+multilevel (MLMC) level correction of the observation count, serial walks
 over the observation grid (``csrc/asian.cu``).
 
 Counterpart of :mod:`mctpu.kernels.asian`.  Each unit walks a log-space
@@ -15,18 +16,20 @@ from __future__ import annotations
 
 import torch
 
-from mctpu_torch.kernels.common import (Plan, launch_walk, walk_pairwise,
-                                        walk_partials)
+from mctpu_torch.kernels.common import (Plan, check_level, f32, launch_walk,
+                                        walk_pairwise, walk_partials,
+                                        walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import asian as masian
 from mctpu_torch.types import AsianOption
 
 __all__ = ["make_plan", "params", "plain_partials", "partials",
            "N_GREEK_SUMS", "GREEK_SCAL", "greek_params",
-           "greek_plain_partials", "greek_partials", "LAUNCHES"]
+           "greek_plain_partials", "greek_partials", "LAUNCHES",
+           "level_params", "level_plain_partials", "level_partials"]
 
 # Launches of the CUDA kernels in this process, by kernel name.
-LAUNCHES = {"asian": 0, "asian_greeks": 0}
+LAUNCHES = {"asian": 0, "asian_greeks": 0, "asian_level": 0}
 
 N_GREEK_SUMS = 10  # (sum, sum^2) of: payoff, delta, vega, rho, gamma
 # Entries of greek_params(), in the JAX kernel's scal order.
@@ -55,12 +58,17 @@ def _walk(par, n_obs: int, geometric: bool, key, idx, shape, sgn):
     init = (log_s0.expand(shape),
             torch.zeros(shape, dtype=torch.float32, device=par.device))
     _, acc = walk_pairwise(key, idx, n_obs, step, init)
-    # IEEE division, as the kernel's: on CUDA PyTorch divides by a Python
-    # scalar as a multiply by its reciprocal, so divide by a device tensor.
-    avg = acc / torch.full((), n_obs, dtype=torch.float32, device=par.device)
+    return [_avg_payoff(acc, n_obs, k, geometric)]
+
+
+def _avg_payoff(acc, n: int, k, geometric: bool):
+    """``max(avg - k, 0)`` of a running sum over ``n`` dates.  IEEE
+    division, as the kernels': on CUDA PyTorch divides by a Python scalar
+    as a multiply by its reciprocal, so divide by a device tensor."""
+    avg = acc / torch.full((), n, dtype=torch.float32, device=acc.device)
     if geometric:
         avg = torch.exp(avg)
-    return [torch.clamp(avg - k, min=0.0)]
+    return torch.clamp(avg - k, min=0.0)
 
 
 def plain_partials(par: torch.Tensor, seed: int, block_offset: int,
@@ -196,3 +204,72 @@ def greek_partials(gp: torch.Tensor, seed: int, block_offset: int,
         return greek_plain_partials(gp, seed, block_offset, plan, n_blocks,
                                     n_obs, geometric)
     raise ValueError(f"unsupported device {gp.device}")
+
+
+# ---------------------------------------------------------------------------
+# K11: the MLMC level l >= 1 of the observation count.  Each unit walks one
+# exact log-space path over nf = n0 2^l dates and averages it twice: every
+# date (fine) and every second date (coarse, nc = nf / 2).  Coarse step j
+# takes one Box-Muller pair at counter j: the cosine drives the odd,
+# fine-only date, the sine the shared date (the walk_steps map over nc
+# steps, the normals K9 draws at nf dates).  d = pay(accf / nf) -
+# pay(accc / nc).  Level 0 is K9 itself at n_obs = n0.
+# ---------------------------------------------------------------------------
+
+def level_params(opt: AsianOption, n_fine: int, device) -> torch.Tensor:
+    """``[log s0, k, drift, vol]`` in float32 at ``dt = t / n_fine`` (K11's
+    ``scal``, ``mctpu``'s expression order)."""
+    s, k = f32(opt.s, opt.k)
+    drift, vol = masian.step_constants(opt, n_fine)
+    return torch.stack([torch.log(s), k, drift, vol]).to(device)
+
+
+def _level_walk(lp, n_fine: int, geometric: bool, key, idx, shape, sgn):
+    """One coupled walk of a ``(n_blocks, rows * 128)`` tile -> ``[d]``."""
+    log_s0, k, drift, vol = lp.unbind()
+    nc = n_fine // 2
+
+    def step(j, z1, z2, carry):
+        log_s, accf, accc = carry
+        log_s = log_s + drift + vol * (sgn * z1)
+        x = log_s if geometric else torch.exp(log_s)
+        accf = accf + x
+        log_s = log_s + drift + vol * (sgn * z2)
+        x = log_s if geometric else torch.exp(log_s)
+        return log_s, accf + x, accc + x
+
+    zero = torch.zeros(shape, dtype=torch.float32, device=lp.device)
+    _, accf, accc = walk_steps(key, idx, nc, step,
+                               (log_s0.expand(shape), zero, zero))
+    return [_avg_payoff(accf, n_fine, k, geometric)
+            - _avg_payoff(accc, nc, k, geometric)]
+
+
+
+def level_plain_partials(lp: torch.Tensor, seed: int, block_offset: int,
+                         plan: Plan, n_blocks: int, n_fine: int,
+                         geometric: bool) -> torch.Tensor:
+    """Per-block ``[sum_d, sum_d2]``, shape ``(n_blocks, 2)``, in plain
+    PyTorch on ``lp``'s device."""
+    check_level(n_fine)
+    return walk_partials(
+        lambda key, idx, shape, sgn: _level_walk(lp, n_fine, geometric, key,
+                                                 idx, shape, sgn),
+        seed, block_offset, plan, n_blocks, lp.device)
+
+
+def level_partials(lp: torch.Tensor, seed: int, block_offset: int,
+                   plan: Plan, n_blocks: int, n_fine: int,
+                   geometric: bool) -> torch.Tensor:
+    """Per-block level partials ``(n_blocks, 2)``: K11 for a CUDA ``lp``,
+    the plain version for a CPU ``lp``; any other device raises."""
+    check_level(n_fine)
+    if lp.device.type == "cuda":
+        out = launch_walk("mctpu_asian_level", lp, 4, 2, seed, block_offset,
+                          plan, n_blocks, n_fine, geometric)
+        LAUNCHES["asian_level"] += 1
+        return out
+    if lp.device.type == "cpu":
+        return level_plain_partials(lp, seed, block_offset, plan, n_blocks,
+                                    n_fine, geometric)
+    raise ValueError(f"unsupported device {lp.device}")

@@ -1,5 +1,6 @@
-"""K12 and K13: fused knock-out barrier-call Monte Carlo and its
-likelihood-ratio Greeks (``csrc/barrier.cu``).
+"""K12, K13 and K14: fused knock-out barrier-call Monte Carlo, its
+likelihood-ratio Greeks and the multilevel (MLMC) level correction of the
+monitoring count (``csrc/barrier.cu``).
 
 Counterpart of :mod:`mctpu.kernels.barrier`.  Each unit walks a log-space
 GBM over ``n_obs`` dates on the walk kernels' stream (as K9's) with a 0/1
@@ -12,18 +13,20 @@ from __future__ import annotations
 
 import torch
 
-from mctpu_torch.kernels.common import (Plan, f32, launch_walk,
-                                        walk_pairwise, walk_partials)
+from mctpu_torch.kernels.common import (Plan, check_level, f32, launch_walk,
+                                        walk_pairwise, walk_partials,
+                                        walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import asian as masian
 from mctpu_torch.types import BarrierOption
 
 __all__ = ["make_plan", "params", "plain_partials", "partials",
            "N_GREEK_SUMS", "GREEK_SCAL", "greek_params",
-           "greek_plain_partials", "greek_partials", "LAUNCHES"]
+           "greek_plain_partials", "greek_partials", "LAUNCHES",
+           "level_params", "level_plain_partials", "level_partials"]
 
 # Launches of the CUDA kernels in this process, by kernel name.
-LAUNCHES = {"barrier": 0, "barrier_greeks": 0}
+LAUNCHES = {"barrier": 0, "barrier_greeks": 0, "barrier_level": 0}
 
 N_GREEK_SUMS = 8  # (sum, sum^2) of: payoff, delta, vega, rho
 # Entries of greek_params(), in the JAX kernel's scal order.
@@ -161,3 +164,69 @@ def greek_partials(gp: torch.Tensor, seed: int, block_offset: int,
         return greek_plain_partials(gp, seed, block_offset, plan, n_blocks,
                                     n_obs, up)
     raise ValueError(f"unsupported device {gp.device}")
+
+
+# ---------------------------------------------------------------------------
+# K14: the MLMC level l >= 1 of the monitoring count.  Each unit walks one
+# exact log-space path over nf = n0 2^l dates on K11's stream (one pair per
+# coarse step, the cosine on the odd date, the sine on the shared date) with
+# two knock-out flags: the fine flag checks both dates, the coarse flag the
+# shared date only.  d = (alive_f - alive_c) max(e^{log s_T} - k, 0) <= 0.
+# Level 0 is K12 itself at n_obs = n0.
+# ---------------------------------------------------------------------------
+
+def level_params(opt: BarrierOption, n_fine: int, device) -> torch.Tensor:
+    """``[log s0, k, log H, drift, vol]`` in float32 at ``dt = t / n_fine``
+    (K14's ``scal``, ``mctpu``'s expression order)."""
+    s, k, h = f32(opt.s, opt.k, opt.barrier)
+    drift, vol = masian.step_constants(opt, n_fine)
+    return torch.stack([torch.log(s), k, torch.log(h), drift, vol]).to(device)
+
+
+def _level_walk(lp, n_fine: int, up: bool, key, idx, shape, sgn):
+    """One coupled walk of a ``(n_blocks, rows * 128)`` tile -> ``[d]``."""
+    log_s0, k, log_h, drift, vol = lp.unbind()
+
+    def step(j, z1, z2, carry):
+        log_s, af, ac = carry
+        log_s = log_s + drift + vol * (sgn * z1)
+        af = _alive_update(af, log_s, log_h, up)  # odd (fine-only) date
+        log_s = log_s + drift + vol * (sgn * z2)
+        af = _alive_update(af, log_s, log_h, up)  # shared date
+        ac = _alive_update(ac, log_s, log_h, up)
+        return log_s, af, ac
+
+    one = torch.ones(shape, dtype=torch.float32, device=lp.device)
+    log_s, af, ac = walk_steps(key, idx, n_fine // 2, step,
+                               (log_s0.expand(shape), one, one))
+    return [(af - ac) * torch.clamp(torch.exp(log_s) - k, min=0.0)]
+
+
+
+def level_plain_partials(lp: torch.Tensor, seed: int, block_offset: int,
+                         plan: Plan, n_blocks: int, n_fine: int,
+                         up: bool) -> torch.Tensor:
+    """Per-block ``[sum_d, sum_d2]``, shape ``(n_blocks, 2)``, in plain
+    PyTorch on ``lp``'s device."""
+    check_level(n_fine)
+    return walk_partials(
+        lambda key, idx, shape, sgn: _level_walk(lp, n_fine, up, key, idx,
+                                                 shape, sgn),
+        seed, block_offset, plan, n_blocks, lp.device)
+
+
+def level_partials(lp: torch.Tensor, seed: int, block_offset: int,
+                   plan: Plan, n_blocks: int, n_fine: int,
+                   up: bool) -> torch.Tensor:
+    """Per-block level partials ``(n_blocks, 2)``: K14 for a CUDA ``lp``,
+    the plain version for a CPU ``lp``; any other device raises."""
+    check_level(n_fine)
+    if lp.device.type == "cuda":
+        out = launch_walk("mctpu_barrier_level", lp, 5, 2, seed, block_offset,
+                          plan, n_blocks, n_fine, up)
+        LAUNCHES["barrier_level"] += 1
+        return out
+    if lp.device.type == "cpu":
+        return level_plain_partials(lp, seed, block_offset, plan, n_blocks,
+                                    n_fine, up)
+    raise ValueError(f"unsupported device {lp.device}")

@@ -29,7 +29,7 @@ __all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
            "acc_add", "acc_final", "acc_init_n", "acc_add_n", "acc_final_n",
            "det_col_sums", "N_GREEK_SCALARS", "split_vec",
            "vec_greek_partials", "check_operand", "f32", "sqrt32",
-           "launch_walk", "launch_items",
+           "launch_walk", "launch_items", "check_level",
            "terminal_partials"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
@@ -413,16 +413,24 @@ def launch_items(entry: str, ptrs, n_items: int, n_sums: int, seed: int,
     return out
 
 
+def check_level(n_fine: int) -> None:
+    """Raise unless ``n_fine`` is an MLMC level's fine grid (K11, K14,
+    K29): an even step count, at least 2."""
+    if n_fine < 2 or n_fine % 2:
+        raise ValueError(f"an MLMC level's fine grid has an even step count "
+                         f">= 2, got {n_fine}")
+
+
 def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
                 seed: int, block_offset: int, plan: Plan, n_blocks: int,
                 n_obs: int, mode: int) -> torch.Tensor:
-    """Launch a single-asset walk kernel (K9, K10, K12, K13, K15-K20, K27,
-    K28 share one C signature) on ``scal``'s device and return its
-    ``(n_blocks, n_out)`` partials.  ``mode`` selects the kernel's static
-    variant: 1 for the geometric Asian, the up-and-out barrier, the QE
-    scheme or the variance swap's Heston leg, ``2 * fixed + put`` for the
-    lookback, 0 otherwise; ``n_obs`` is the step count (the cliquet's
-    ``n_periods``).  Raises on a bad operand or a failed launch."""
+    """Launch a single-asset walk kernel (K9-K20, K27-K29 and K46 share one
+    C signature) on ``scal``'s device and return its ``(n_blocks, n_out)``
+    partials.  ``mode`` selects the kernel's static variant: 1 for the
+    geometric Asian, the up-and-out barrier, the QE scheme or the variance
+    swap's Heston leg, ``2 * fixed + put`` for the lookback, 0 otherwise;
+    ``n_obs`` is the step count (the cliquet's ``n_periods``, an MLMC
+    level's fine step count).  Raises on a bad operand or a failed launch."""
     check_operand("scal", scal, (n_scal,), scal.device)
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")

@@ -1,5 +1,6 @@
-"""K27 and K28: Heston Monte Carlo (full-truncation Euler or Andersen's QE)
-and its pathwise Greeks, one serial walk per unit (``csrc/heston.cu``).
+"""K27, K28 and K29: Heston Monte Carlo (full-truncation Euler or Andersen's
+QE), its pathwise Greeks and the multilevel (MLMC) level correction of the
+Euler walk, one serial walk per unit (``csrc/heston.cu``).
 
 Counterpart of :mod:`mctpu.kernels.heston`.  Each unit walks the log-spot
 ratio ``x = log(S / S0)`` and the variance ``v`` over ``n_steps`` steps.
@@ -24,18 +25,22 @@ from __future__ import annotations
 import torch
 
 from mctpu_torch import math as mcmath
-from mctpu_torch.kernels.common import (Plan, f32, launch_walk, sqrt32,
-                                        walk_partials, walk_steps)
+from mctpu_torch.kernels.common import (Plan, check_level,
+                                        draw_normal_pair, f32, launch_walk,
+                                        sqrt32, walk_partials, walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import heston as mheston
 from mctpu_torch.types import HestonOption
 
 __all__ = ["make_plan", "params", "plain_partials", "partials",
            "N_GREEK_SUMS", "EULER_SCAL", "GREEK_SCAL", "greek_params",
-           "greek_plain_partials", "greek_partials", "LAUNCHES"]
+           "greek_plain_partials", "greek_partials", "LAUNCHES",
+           "LEVEL_SCAL", "level_params", "level_plain_partials",
+           "level_partials"]
 
 # Launches of the CUDA kernels in this process, by kernel and scheme.
-LAUNCHES = {"heston": 0, "heston_qe": 0, "heston_greeks": 0}
+LAUNCHES = {"heston": 0, "heston_qe": 0, "heston_greeks": 0,
+            "heston_level": 0}
 
 N_GREEK_SUMS = 14  # (sum, sum^2) of: payoff, delta, vega (v0), rho, dtheta,
 #                    dkappa, dxi
@@ -228,3 +233,88 @@ def greek_partials(gp: torch.Tensor, seed: int, block_offset: int,
         return greek_plain_partials(gp, seed, block_offset, plan, n_blocks,
                                     n_steps)
     raise ValueError(f"unsupported device {gp.device}")
+
+
+# ---------------------------------------------------------------------------
+# K29: the MLMC level l >= 1 of the Euler walk (Giles 2008).  Each unit walks
+# a fine path of n_fine = n0 2^l steps and a coarse path of n_fine / 2 steps
+# on the same Brownian increments: coarse step j draws the pairs at counters
+# 2j and 2j + 1 (one Philox block per fine step, as K27 at n_fine steps),
+# takes the two fine steps on them and one coarse step on zc = (z1 + z2) /
+# sqrt(2) for z_v and z_perp alike, the mirror's sign applied after the sum.
+# The unit's sample is the payoff difference d = P_fine - P_coarse.  Level 0
+# is K27 itself at n_steps = n0.
+# ---------------------------------------------------------------------------
+
+# K29's 13 scalars, in the JAX kernel's scal order (level_pallas_partials).
+LEVEL_SCAL = ("s0", "k", "v0", "th", "xi", "rho_c", "rho_s", "k_dt_f",
+              "r_dt_f", "sq_f", "k_dt_c", "r_dt_c", "sq_c")
+# 1 / sqrt(2) in float32, as mctpu's jnp.float32(_INV_SQRT2).
+INV_SQRT2 = 0.7071067811865476
+
+
+def level_params(opt: HestonOption, n_fine: int, device) -> torch.Tensor:
+    """K29's 13 float32 scalars (:data:`LEVEL_SCAL`) for a fine grid of
+    ``n_fine`` steps, in ``mctpu``'s expression order: ``dt_f = t /
+    n_fine``, ``dt_c = 2 dt_f``, the roots correctly rounded."""
+    s, k, v0, kappa, theta, xi, rho, r, t = f32(
+        opt.s, opt.k, opt.v0, opt.kappa, opt.theta, opt.xi, opt.rho, opt.r,
+        opt.t)
+    dt_f = t / n_fine
+    dt_c = 2.0 * dt_f
+    return torch.stack([s, k, v0, theta, xi, rho, sqrt32(1.0 - rho * rho),
+                        kappa * dt_f, r * dt_f, sqrt32(dt_f), kappa * dt_c,
+                        r * dt_c, sqrt32(dt_c)]).to(device)
+
+
+def _level_walk(lp, n_fine: int, key, idx, shape, sgn):
+    """One coupled walk of a ``(n_blocks, rows * 128)`` tile -> ``[d]``."""
+    s0, k, v0, th, xi, rho_c, rho_s, kf, rf, sf, kc, rc, sc = lp.unbind()
+    inv = torch.tensor(INV_SQRT2, dtype=torch.float32, device=lp.device)
+    zero = torch.zeros(shape, dtype=torch.float32, device=lp.device)
+    xf, vf, xc, vc = zero, v0.expand(shape), zero, v0.expand(shape)
+    for j in range(n_fine // 2):
+        z1v, z1p = draw_normal_pair(key, idx, 2 * j)
+        z2v, z2p = draw_normal_pair(key, idx, 2 * j + 1)
+        xf, vf = _heston_step(xf, vf, sgn * z1v, sgn * z1p, kf, th, xi,
+                              rho_c, rho_s, rf, sf)
+        xf, vf = _heston_step(xf, vf, sgn * z2v, sgn * z2p, kf, th, xi,
+                              rho_c, rho_s, rf, sf)
+        zcv = (z1v + z2v) * inv
+        zcp = (z1p + z2p) * inv
+        xc, vc = _heston_step(xc, vc, sgn * zcv, sgn * zcp, kc, th, xi,
+                              rho_c, rho_s, rc, sc)
+
+    def pay(x):
+        return torch.clamp(s0 * torch.exp(x) - k, min=0.0)
+
+    return [pay(xf) - pay(xc)]
+
+
+
+def level_plain_partials(lp: torch.Tensor, seed: int, block_offset: int,
+                         plan: Plan, n_blocks: int,
+                         n_fine: int) -> torch.Tensor:
+    """Per-block ``[sum_d, sum_d2]``, shape ``(n_blocks, 2)``, in plain
+    PyTorch on ``lp``'s device."""
+    check_level(n_fine)
+    return walk_partials(
+        lambda key, idx, shape, sgn: _level_walk(lp, n_fine, key, idx, shape,
+                                                 sgn),
+        seed, block_offset, plan, n_blocks, lp.device)
+
+
+def level_partials(lp: torch.Tensor, seed: int, block_offset: int,
+                   plan: Plan, n_blocks: int, n_fine: int) -> torch.Tensor:
+    """Per-block level partials ``(n_blocks, 2)``: K29 for a CUDA ``lp``,
+    the plain version for a CPU ``lp``; any other device raises."""
+    check_level(n_fine)
+    if lp.device.type == "cuda":
+        out = launch_walk("mctpu_heston_level", lp, len(LEVEL_SCAL), 2, seed,
+                          block_offset, plan, n_blocks, n_fine, 0)
+        LAUNCHES["heston_level"] += 1
+        return out
+    if lp.device.type == "cpu":
+        return level_plain_partials(lp, seed, block_offset, plan, n_blocks,
+                                    n_fine)
+    raise ValueError(f"unsupported device {lp.device}")

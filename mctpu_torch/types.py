@@ -45,6 +45,8 @@ __all__ = [
     "XvaResult",
     "XvaGreeksResult",
     "AmericanBounds",
+    "MlmcLevel",
+    "MlmcResult",
     "from_reference",
 ]
 
@@ -1054,6 +1056,34 @@ class AmericanBounds:
                 "gap": self.gap}
 
 
+@dataclasses.dataclass(frozen=True)
+class MlmcLevel:
+    """Recorded statistics of one multilevel Monte Carlo level."""
+
+    level: int
+    n_steps: int
+    n_paths: int
+    mean: float     # E[P_l - P_{l-1}] (level 0: E[P_0])
+    var: float      # Var of the level correction
+    cost: float     # fine + coarse steps simulated per path
+
+
+@dataclasses.dataclass(frozen=True)
+class MlmcResult:
+    """MLMC estimate: discounted price, 95% CI, and the level table (a
+    tuple of :class:`MlmcLevel`)."""
+
+    price: float
+    ci: float
+    std_error: float
+    levels: tuple
+    total_path_steps: float
+
+    def validate(self) -> "MlmcResult":
+        assert np.isfinite(self.price) and np.isfinite(self.ci)
+        return self
+
+
 _RECORDS = {cls.__name__: cls for cls in
             (VanillaOption, VanillaBook, BasketOption, BasketAsianOption,
              BasketBarrierOption, RainbowOption, CvaSpec,
@@ -1061,7 +1091,8 @@ _RECORDS = {cls.__name__: cls for cls in
              BarrierBook,
              LookbackOption, CliquetOption, HestonOption, AmericanOption,
              XvaSpec, McResult, CvaResult, GreeksResult, HestonGreeksResult,
-             CvaGreeksResult, XvaResult, XvaGreeksResult, AmericanBounds)}
+             CvaGreeksResult, XvaResult, XvaGreeksResult, AmericanBounds,
+             MlmcLevel, MlmcResult)}
 # Results whose numeric fields the port holds as float64 CPU tensors.
 _TENSOR_RECORDS = (McResult, CvaResult, XvaResult)
 
@@ -1073,6 +1104,9 @@ def _carry(value):
         return from_reference(value)
     if isinstance(value, str):
         return value
+    if isinstance(value, tuple) and value \
+            and all(dataclasses.is_dataclass(x) for x in value):
+        return tuple(from_reference(x) for x in value)  # an MLMC level table
     if isinstance(value, tuple) and all(isinstance(x, str) for x in value):
         return tuple(str(x) for x in value)  # a book's kinds, directions
     arr = np.asarray(value, np.float64)
@@ -1088,8 +1122,8 @@ def from_reference(obj):
     (``n_grid``, ``n_obs``, ``n_periods``, ``n_steps``, a result's ``n``),
     which stay ints; strings, and tuples of strings (a book's ``kinds``),
     stay so; a nested record (an :class:`XvaSpec`'s netting set, a
-    result's legs, an :class:`AmericanBounds`' bounds) comes across the
-    same way.  A result (:class:`McResult`,
+    result's legs, an :class:`AmericanBounds`' bounds, an
+    :class:`MlmcResult`'s tuple of levels) comes across the same way.  A result (:class:`McResult`,
     :class:`CvaResult`, :class:`GreeksResult`, :class:`HestonGreeksResult`,
     :class:`CvaGreeksResult`, :class:`XvaResult`,
     :class:`XvaGreeksResult`) comes across with float64 CPU tensors, as the

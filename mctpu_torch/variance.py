@@ -57,7 +57,7 @@ from mctpu_torch.types import (AsianOption, BasketOption, McResult,
 
 __all__ = ["price_vanilla_cv", "price_asian_cv", "price_basket_cv",
            "pilot_seed", "CvSetup", "cv_setup", "PILOT_WORD", "optimal_tilt",
-           "price_vanilla_is"]
+           "price_vanilla_is", "level_seed"]
 
 # The word mctpu folds into its key for the pilot stage
 # (mctpu/variance.py, fold_in(key, 0x9E37)).
@@ -70,6 +70,15 @@ def pilot_seed(seed: int) -> int:
     int32; never ``seed`` itself."""
     s = wrap_int32(seed_key(wrap_int32(seed), PILOT_WORD)[0])
     return s if s != wrap_int32(seed) else wrap_int32(s ^ PILOT_WORD)
+
+
+def level_seed(seed: int, level: int, n_so_far: int) -> int:
+    """The int32 seed of an MLMC level's run (:mod:`mctpu_torch.mlmc`): the
+    murmur3 fold of ``(seed, level, n_so_far mod 2^32)`` that keys the
+    kernels' streams, its first key word as int32.  ``n_so_far`` is the
+    level's path count before the run, so each top-up draws afresh."""
+    return wrap_int32(seed_key(wrap_int32(seed), level,
+                               n_so_far % (1 << 32))[0])
 
 
 def _pilot_plan(plan: Plan, pilot_frac: float) -> Plan:

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from mctpu_torch import _build, lsm, variance
+from mctpu_torch import _build, lsm, mlmc, variance
 from mctpu_torch.engine import EngineConfig, greeks_american
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
@@ -1336,3 +1336,71 @@ def test_american_bad_operands_raise(dev):
         kvr.is_partials(kvr.is_params(VanillaOption(100., 100., 0.05, 0.2,
                                                     1.), 0.5, dev)[:4],
                         1, 0, plan, 2)
+
+
+# The MLMC level kernels (K29, K11, K14) at levels 1, 2 and 4 of their CLI
+# n0, by the scaled pair bound: d is a payoff difference whose block sum can
+# cancel.
+@pytest.mark.parametrize("level", [1, 2, 4])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_mlmc_level_kernels_match_plain(dev, level, antithetic):
+    plan = kheston.make_plan(2 * NB * 32 * 128 * (2 if antithetic else 1),
+                             NB, 32, antithetic, not antithetic)
+    for name in ("opt", "large_xi"):
+        nf = 8 * 2 ** level
+        lp = kheston.level_params(_HESTON[name], nf, dev)
+        _contract(
+            lambda off, nb, lp=lp: kheston.level_partials(lp, SEED, off, plan,
+                                                          nb, nf),
+            lambda off, nb, lp=lp: kheston.level_plain_partials(
+                lp, SEED, off, plan, nb, nf), units=_units(plan))
+    for geo in (False, True):
+        nf = 4 * 2 ** level
+        ap = kasian.level_params(AsianOption(100., 100., 0.05, 0.2, 1.,
+                                             n_obs=4), nf, dev)
+        _contract(
+            lambda off, nb: kasian.level_partials(ap, SEED, off, plan, nb, nf,
+                                                  geo),
+            lambda off, nb: kasian.level_plain_partials(ap, SEED, off, plan,
+                                                        nb, nf, geo),
+            units=_units(plan))
+    for kind, h in (("up-and-out", 115.), ("down-and-out", 90.)):
+        nf = 8 * 2 ** level
+        bp = kbarrier.level_params(BarrierOption(100., 100., 0.05, 0.2, 1.,
+                                                 barrier=h, n_obs=8,
+                                                 kind=kind), nf, dev)
+        up = kind == "up-and-out"
+        _contract(
+            lambda off, nb: kbarrier.level_partials(bp, SEED, off, plan, nb,
+                                                    nf, up),
+            lambda off, nb: kbarrier.level_plain_partials(bp, SEED, off, plan,
+                                                          nb, nf, up),
+            units=_units(plan))
+
+
+def test_price_heston_mlmc_against_cf_and_launches(dev):
+    """The JAX exotic CLI's --product mlmc on the card (512 x 256, eps =
+    0.02): within 3 eps of the characteristic-function price; level 0 runs
+    K27 and every correction level K29."""
+    from mctpu_torch.models.heston import cf_call_price
+    opt = _HESTON["opt"]
+    before = dict(kheston.LAUNCHES)
+    res = mlmc.price_heston_mlmc(opt, 0.02, SEED, EngineConfig())
+    assert abs(res.price - cf_call_price(opt)) < 3 * 0.02
+    assert len(res.levels) >= 3
+    assert kheston.LAUNCHES["heston"] > before["heston"]
+    assert kheston.LAUNCHES["heston_level"] > before["heston_level"]
+    assert res == mlmc.price_heston_mlmc(opt, 0.02, SEED, EngineConfig())
+
+
+def test_mlmc_bad_operands_raise(dev):
+    plan = kheston.make_plan(1, 2, 8, False)
+    lp = kheston.level_params(_HESTON["opt"], 16, dev)
+    with pytest.raises(ValueError):
+        kheston.level_partials(lp[:12], 1, 0, plan, 2, 16)
+    with pytest.raises(ValueError):
+        kheston.level_partials(lp, 1, 0, plan, 2, 15)
+    with pytest.raises(ValueError):
+        kasian.level_partials(lp[:4].double(), 1, 0, plan, 2, 16, False)
+    with pytest.raises(ValueError):
+        kbarrier.level_partials(lp[:5], 1, 0, plan, 0, 16, True)

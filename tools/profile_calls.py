@@ -14,10 +14,13 @@ default ``EngineConfig``), after one warm-up call:
   ``torch.cuda.synchronize()``;
 * device ms — sum of the durations of every device-side event
   (kernels, copies, fills) that ``torch.profiler`` records in one call;
-* kernel ms — the same for the call's own CUDA kernel alone (both
-  launches of a control-variate call; 0 for a call with no kernel of its
-  own, the rule fit and the Heston American);
-* busy — device ms over that call's wall ms.
+* kernel ms — the same for the call's own CUDA kernels alone (both
+  launches of a control-variate call; an MLMC call's level-0 kernel and
+  its level kernel; 0 for a call with no kernel of its own, the rule fit
+  and the Heston American);
+* busy — device ms over that call's wall ms;
+* launches — the port's kernel launches in one call (every module's
+  ``LAUNCHES`` counters).
 
 Prints the card's name and power limit, one line per call, and a JSON
 list of the rows last.  Imports neither jax nor mctpu.
@@ -40,7 +43,8 @@ PROFILE_TRIES = 3  # profiles of one call before an empty trace is an error
 
 def calls(mt):
     """``(label, kernel, fn)``: each entry point at its main-path shape;
-    ``kernel`` is the name of the CUDA kernel it launches."""
+    ``kernel`` is the name of the CUDA kernel it launches (a tuple of
+    names for a call that launches two)."""
     import numpy as np
 
     from mctpu_torch.types import (AmericanOption, AsianOption, BarrierBook,
@@ -113,6 +117,27 @@ def calls(mt):
     cv_van = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
     amer = AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=50)
     amer_h = HestonOption(100.0, 100.0, 0.05, 1.0, 0.04, 1.5, 0.04, 0.5, -0.7)
+    # The JAX exotic CLI's MLMC products at their defaults (eps = 0.02, the
+    # up-and-out at H = 130 with max_levels = 8), on its 512 x 256 config
+    # and on mctpu's MLMC default of 8 x 8.
+    geo4 = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=4,
+                       average="geometric")
+    uo8 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0,
+                        n_obs=8)
+    mlmc_calls = []
+    for tag, cfg in (("512 x 256", mt.EngineConfig()),
+                     ("8 x 8", mt.EngineConfig(num_blocks=8, rows=8))):
+        mlmc_calls += [
+            (f"price_heston_mlmc eps=0.02, {tag}",
+             ("heston_kernel", "heston_level_kernel"),
+             lambda c=cfg: mt.mlmc.price_heston_mlmc(hopt, 0.02, SEED, c)),
+            (f"price_asian_mlmc geometric eps=0.02, {tag}",
+             ("asian_kernel", "asian_level_kernel"),
+             lambda c=cfg: mt.mlmc.price_asian_mlmc(geo4, 0.02, SEED, c)),
+            (f"price_barrier_mlmc H=130 eps=0.02, {tag}",
+             ("barrier_kernel", "barrier_level_kernel"),
+             lambda c=cfg: mt.mlmc.price_barrier_mlmc(uo8, 0.02, SEED, c,
+                                                      max_levels=8))]
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -251,15 +276,27 @@ def calls(mt):
          lambda: mt.greeks_american(
              AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=12),
              1 << 20, SEED)),
-    ]
+    ] + mlmc_calls
 
 
 def is_kernel(name: str, kernel) -> bool:
-    """``name`` (demangled or mangled) is the kernel ``kernel`` itself, not
-    one whose name ends in it; no name for a call without a kernel."""
+    """``name`` (demangled or mangled) is the kernel ``kernel`` itself (or
+    one of a tuple of kernels), not one whose name ends in it; no name for
+    a call without a kernel."""
     if kernel is None:
         return False
+    if isinstance(kernel, tuple):
+        return any(is_kernel(name, k) for k in kernel)
     return f"::{kernel}<" in name or f"{len(kernel)}{kernel}I" in name
+
+
+def launch_count() -> int:
+    """Every kernel launch the port's wrappers have counted so far (the
+    ``LAUNCHES`` of each ``mctpu_torch.kernels`` module, all imported with
+    the package)."""
+    return sum(sum(getattr(mod, "LAUNCHES", {}).values())
+               for name, mod in list(sys.modules.items())
+               if name.startswith("mctpu_torch.kernels."))
 
 
 def profile(fn, kernel):
@@ -314,14 +351,18 @@ def main() -> int:
     for label, kernel, fn in calls(mt):
         if wanted and not any(w in label for w in wanted):
             continue
+        before = launch_count()
         fn()  # warm-up: builds the kernels on the first call
+        launches = launch_count() - before
         wall = wall_ms(fn)
         device, kern = profile(fn, kernel)
         rows.append({"call": label, "kernel": kernel, "wall_ms": wall,
                      "device_ms": device, "kernel_ms": kern,
-                     "busy": device / wall, "card": smi})
+                     "busy": device / wall, "launches": launches,
+                     "card": smi})
         print(f"{label}: wall {wall:.3f} ms, device {device:.3f} ms, "
-              f"kernel {kern:.3f} ms, busy {device / wall:.0%}", flush=True)
+              f"kernel {kern:.3f} ms, busy {device / wall:.0%}, "
+              f"{launches} launches", flush=True)
     print(json.dumps(rows), flush=True)
     return 0
 
