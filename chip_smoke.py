@@ -9,7 +9,7 @@ toolkit (``nvcc``):
 Phases (one line each; any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build — the fifty-one kernels from ``mctpu_torch/csrc`` with nvcc
+2. build — the fifty-five kernels from ``mctpu_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together, and the
    runtime-m xVA kernels;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
@@ -36,7 +36,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    MLMC level kernels K29 (Heston Euler), K11 (Asian, both averages) and
    K14 (knock-out, up and down) at levels 1 and 4, their level sums by the
    Greek kernels' scaled bound, because a payoff difference's block sum can
-   cancel; antithetic and Kahan each on and off): equal
+   cancel; antithetic and Kahan each on and off; the RQMC nets K52 and
+   K53 call and put, K54 at 3, 12, 100 and 300 assets and K55 at 12, 50, 252
+   and 300 dates, geometric and arithmetic, on a power-of-two chunk and
+   on rows 24 and 163, 16 replicates, their unfolded quads compared
+   folded, s + c and s2 + c2): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -136,7 +140,15 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    ``tests/test_mlmc.py`` on ``mctpu``'s 8 x 8 default at eps = 0.05; the
    geometric level means against closed-form differences and the barrier
    level means below 0; each call's level table, wall ms, path-steps per
-   second and launches);
+   second and launches) and the RQMC path (``mctpu_torch.qmc_engine`` at
+   the JAX CLIs' RQMC calls, 16 replicates of n = 131072 points on the
+   512 x 256 config: the vanilla call within 4 standard errors of
+   Black-Scholes with its CI 5x below ``price_vanilla``'s at the same
+   paths, the put by parity; the Asian at 50 dates, geometric against its
+   closed form, arithmetic between it and the vanilla, and at 252 dates;
+   baskets of 3 and 100 assets against ``price_basket``; the vanilla Greek
+   surface, call and put at 2^13 and 2^20 points, against ``bs_greeks``;
+   each call's wall ms, points per second and launches);
 5. launch counters — every kernel of each path launched during its run;
 6. times — each kernel and its plain version at its phase-4 shape, median
    of 5 synchronized runs (3 for the slower plain versions, said so in
@@ -194,6 +206,8 @@ CV_KERNELS = ("vanilla_cv", "asian_cv", "basket_cv_am", "basket_cv_packed")
 AMERICAN_KERNELS = ("vanilla_is", "lsm", "lsm_greeks")
 # K29, K11 and K14 (the MLMC level kernels).
 MLMC_KERNELS = ("heston_level", "asian_level", "barrier_level")
+# K52, K53, K54 and K55 (the RQMC nets).
+RQMC_KERNELS = ("rqmc_vanilla", "rqmc_greeks", "rqmc_basket", "rqmc_asian")
 # K27 (Euler, QE), K28 and the Heston legs of K19 and K20.
 HESTON_KERNELS = ("heston", "heston_qe", "heston_greeks", "varswap_heston",
                   "varswap_heston_greeks")
@@ -469,6 +483,44 @@ def cv_work(kname: str, plan, a: int = 1, steps: int = 1):
 def is_work(plan):
     p, u = plan.total_paths, plan.total_units
     return work(draws=p, expf=2 * p, f32=9 * p + 11 * u)
+
+
+# The RQMC nets (K52-K55), counted from csrc/rqmc.cu: per point and dim the
+# Sobol coordinate's XOR and the uniform's shift and OR (int32), and the
+# normal quantile's float32 operations (the clip's two, 2u - 1, 4u(1 - u),
+# the compare w < 5, w - 2.5, the central 8-step Horner polynomial, the two
+# products; 28 with the uniform's subtract) beside logf (counted as an
+# expf); the tail polynomial (sqrtf, sqrt(w) - 3 and 8 steps: 17 and a
+# sqrtf) only for the points with w >= 5, a share RQMC_TAIL of each dim's
+# coordinates (the net stratifies every dim, so a run's count is this share
+# to a point a stratum), however many warps the kernel runs it in.  Per
+# point: K52's spot, payoff and sums (8, an expf); K53's spot, the seven
+# integrands and the 16 sums (66, an expf and a divide); K54's L z (a(a +
+# 1)/2 multiply-adds, each one FFMA), 5 a further and an expf per asset, the
+# payoff and sums (5); K55's bridge step (5) and date's log-spot (3) per
+# date, the tree's m - 1 adds, the average, payoff and sums (6), an expf
+# per date (arithmetic) or one (geometric).
+RQMC_TAIL = 1.0 - math.sqrt(1.0 - math.exp(-5.0))  # P(-log(4u(1 - u)) >= 5)
+
+
+def rqmc_work(kname: str, plan, dims: int = 1, geometric: bool = False):
+    p = plan.total_paths
+    pd = p * dims
+    int32 = 3 * pd
+    f32 = (28 + 17 * RQMC_TAIL) * pd
+    expf, div = pd, 0.0  # the logf of every point-dim
+    if kname == "rqmc_vanilla":
+        f32, expf = f32 + 8 * p, expf + p
+    elif kname == "rqmc_greeks":
+        f32, expf, div = f32 + 66 * p, expf + p, p
+    elif kname == "rqmc_basket":
+        f32 += p * (dims * (dims + 1) / 2 + 5 * dims + 5)
+        expf += pd
+    else:
+        f32 += pd * 9 + 5 * p
+        expf += p if geometric else pd
+    ops = work(expf=expf, div=div, f32=f32, sqrt=RQMC_TAIL * pd)
+    return (ops[0] + int32, ops[1], ops[2])
 
 
 def bound(ops, nbytes):
@@ -2788,6 +2840,138 @@ def mlmc_path(mt, mcmath) -> None:
     phase("mlmc-path", "level means 2^22: " + "; ".join(msgs))
 
 
+def rqmc_path(mt, mcmath) -> None:
+    """The RQMC path: ``mctpu_torch.qmc_engine`` at the JAX CLIs' RQMC
+    calls and defaults (``mctpu-exotic --product rqmc``, ``mctpu-greeks
+    --rqmc``; S=K=100, r=0.05, v=0.2, T=1, 16 replicates, n = 131072 on the
+    512 x 256 config; mctpu/cli/exotic.py:265-299, mctpu/cli/greeks.py:
+    594-611): the vanilla call within 4 standard errors of Black-Scholes
+    and its CI 5x below ``price_vanilla``'s at the same total paths, the put
+    within 5 of parity; the Asian at max(n // 50, 4096) points and 50 dates,
+    the geometric within 5 of its closed form, the arithmetic between it
+    and the vanilla; baskets equicorrelated(3, 0.3) and (100, 0.3) within 4
+    combined standard errors of ``price_basket`` at 2^24 and 2^22 paths;
+    ``greeks_vanilla_rqmc`` call and put at 2^13 and 2^20 points a
+    replicate, every output within 4 of ``bs_greeks`` (the put by parity,
+    tests/test_qmc_engine.py); the geometric Asian at 252 dates against its
+    closed form.  Each call prints its wall ms, points per second and
+    launches."""
+    from mctpu_torch import qmc_engine
+    from mctpu_torch.kernels import rqmc as krqmc
+    from mctpu_torch.types import AsianOption, BasketOption, VanillaOption
+
+    n, reps = 131072, 16
+
+    def run(label, fn, points):
+        before = sum(krqmc.LAUNCHES.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        phase("rqmc-path", f"{label}: {wall * 1e3:.2f} ms wall, "
+                           f"{points / wall:.4g} points/s, "
+                           f"{sum(krqmc.LAUNCHES.values()) - before} launches")
+        return res
+
+    def near(res, want, n_sigma, what):
+        z = abs(float(res.price) - want) / float(res.std_error)
+        check(bool(torch.isfinite(res.price)) and z < n_sigma,
+              f"{what}: {float(res.price):.6f} vs {want:.6f} is {z:.2f} "
+              "standard errors away")
+        return z
+
+    call = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
+    put = dataclasses.replace(call, kind="put")
+    bs = float(mcmath.bs_call(100.0, 100.0, 0.05, 0.2, 1.0))
+    res = run("vanilla call n=131072 x 16 (K52)",
+              lambda: mt.price_vanilla_rqmc(call, n, SEED), n * reps)
+    z = near(res, bs, N_SIGMA, "RQMC vanilla call")
+    check(res.n == reps and res.n_paths == n * reps,
+          f"RQMC vanilla n={res.n}, n_paths={res.n_paths}")
+    mc = mt.price_vanilla(call, res.n_paths, SEED)
+    ratio = float(mc.ci) / float(res.ci)
+    check(ratio > 5.0, f"RQMC CI {float(res.ci):.3e} not 5x below plain MC "
+                       f"{float(mc.ci):.3e}")
+    resp = run("vanilla put (K52)",
+               lambda: mt.price_vanilla_rqmc(put, n, SEED), n * reps)
+    parity = bs - 100.0 + 100.0 * math.exp(-0.05)
+    zp = near(resp, parity, 5.0, "RQMC vanilla put")
+    phase("rqmc-path", f"call {float(res.price):.6f} ± {float(res.ci):.2e} "
+                       f"(BS {bs:.6f}, z={z:.2f}), CI {ratio:.0f}x below "
+                       f"price_vanilla's at {res.n_paths} paths; put "
+                       f"{float(resp.price):.6f} (parity {parity:.6f}, "
+                       f"z={zp:.2f})")
+
+    n_as = max(n // 50, 1 << 12)
+    geo = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=50,
+                      average="geometric")
+    rg = run(f"geometric Asian 50 dates n={n_as} (K55)",
+             lambda: mt.price_asian_rqmc(geo, n_as, SEED), n_as * reps * 50)
+    cf = float(mcmath.geometric_asian_call(100.0, 100.0, 0.05, 0.2, 1.0, 50))
+    zg = near(rg, cf, 5.0, "RQMC geometric Asian")
+    ra = run(f"arithmetic Asian 50 dates n={n_as} (K55)",
+             lambda: mt.price_asian_rqmc(dataclasses.replace(
+                 geo, average="arithmetic"), n_as, SEED), n_as * reps * 50)
+    check(float(rg.price) < float(ra.price) < bs,
+          f"RQMC arithmetic Asian {float(ra.price):.6f} outside "
+          f"({float(rg.price):.6f}, {bs:.6f})")
+    g252 = dataclasses.replace(geo, n_obs=252)
+    r252 = run(f"geometric Asian 252 dates n={n} (K55)",
+               lambda: mt.price_asian_rqmc(g252, n, SEED), n * reps * 252)
+    cf252 = float(mcmath.geometric_asian_call(100.0, 100.0, 0.05, 0.2, 1.0,
+                                              252))
+    z252 = near(r252, cf252, 5.0, "RQMC geometric Asian 252")
+    phase("rqmc-path", f"Asian: geometric {float(rg.price):.6f} (closed form "
+                       f"{cf:.6f}, z={zg:.2f}), arithmetic "
+                       f"{float(ra.price):.6f} ± {float(ra.ci):.2e}; 252 "
+                       f"dates {float(r252.price):.6f} (closed form "
+                       f"{cf252:.6f}, z={z252:.2f})")
+
+    msgs = []
+    for a, n_mc in ((3, 1 << 24), (100, 1 << 22)):
+        bopt = BasketOption.equicorrelated(a, 0.3)
+        rb = run(f"basket equicorrelated({a}, 0.3) n={n} (K54)",
+                 lambda o=bopt: mt.price_basket_rqmc(o, n, SEED),
+                 n * reps)
+        mc = mt.price_basket(bopt, n_mc, SEED + 1)
+        se = math.hypot(float(rb.std_error), float(mc.std_error))
+        zb = abs(float(rb.price) - float(mc.price)) / se
+        check(zb < N_SIGMA, f"RQMC basket a={a} {float(rb.price):.6f} vs "
+                            f"price_basket {float(mc.price):.6f} (z={zb:.2f})")
+        msgs.append(f"a={a} {float(rb.price):.6f} ± {float(rb.ci):.2e} vs "
+                    f"price_basket 2^{n_mc.bit_length() - 1} "
+                    f"{float(mc.price):.6f} (z={zb:.2f})")
+    phase("rqmc-path", "basket: " + "; ".join(msgs))
+
+    names = ("price", "delta", "vega", "rho", "theta", "gamma", "vanna",
+             "volga")
+    gopt = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
+    cf_call = {k: float(v) for k, v in
+               mcmath.bs_greeks(100.0, 100.0, 0.048790, 0.2, 1.0).items()}
+    disc = math.exp(-0.048790)
+    cf_put = dict(cf_call)
+    cf_put["price"] -= 100.0 - 100.0 * disc
+    cf_put["delta"] -= 1.0
+    cf_put["rho"] -= 100.0 * disc
+    cf_put["theta"] -= 0.048790 * 100.0 * disc
+    for pts in (1 << 13, 1 << 20):
+        for kind, cf_g in (("call", cf_call), ("put", cf_put)):
+            g = run(f"Greeks {kind} {pts} x 16 (K53)",
+                    lambda k=kind, p=pts: qmc_engine.greeks_vanilla_rqmc(
+                        dataclasses.replace(gopt, kind=k), p, SEED),
+                    pts * reps)
+            zs = []
+            for name in names:
+                r = getattr(g, name)
+                zn = abs(float(r.price) - cf_g[name]) / float(r.std_error)
+                check(zn < N_SIGMA, f"RQMC {kind} {name} {float(r.price):.6f} "
+                                    f"vs {cf_g[name]:.6f} (z={zn:.2f})")
+                zs.append(f"{name} z={zn:.2f}")
+            phase("rqmc-path", f"Greeks {kind} 2^{pts.bit_length() - 1}: "
+                               + ", ".join(zs))
+
+
 def main() -> int:
 
     # ---- 1. device -------------------------------------------------------
@@ -2797,7 +2981,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import mctpu_torch
-    from mctpu_torch import _build, engine, estimator as mcest, lsm, variance
+    from mctpu_torch import (_build, engine, estimator as mcest, lsm,
+                             qmc_engine, variance)
     from mctpu_torch import math as mcmath
     from mctpu_torch.kernels import asian as kasian
     from mctpu_torch.kernels import barrier as kbarrier
@@ -2814,6 +2999,7 @@ def main() -> int:
     from mctpu_torch.kernels import lsm as klsm
     from mctpu_torch.kernels import multi_walk as kmw
     from mctpu_torch.kernels import rainbow as krainbow
+    from mctpu_torch.kernels import rqmc as krqmc
     from mctpu_torch.kernels import vanilla as kvanilla
     from mctpu_torch.kernels import varred as kvr
     from mctpu_torch.kernels import varswap as kvarswap
@@ -3499,13 +3685,95 @@ def main() -> int:
                     [:, :2], klsm.partials(lops, SEED, 0, plan, nb, is_put)),
                     f"K51 {tag}: price sums differ from K50's")
 
+    # The RQMC nets (K52-K55), 16 replicates of 3 chunks: K52 and K53 call
+    # and put (rows 32), K54 at 3, 12 and 100 assets (c = 32, 8, 1) and at
+    # 300 on rows 8 (the kernel's largest z array), K55 geometric and
+    # arithmetic at 12 dates on rows 8 (a 1024-point chunk) and rows 24
+    # (3072 points), at 50 dates on rows 163 (the Asian's cap) and at 252
+    # dates on rows 32, and at 300 dates (the kernel's largest W array).
+    # Each chunk's float32 sum depends on its order, so s and c each differ
+    # between kernel and plain version while s + c agrees: the quads are
+    # compared folded, K53's outputs by the scaled pair bound.
+    # Two launches bitwise equal, block offsets bitwise, on the raw quads.
+    def fold_quads(x):
+        x = x.double()
+        out = torch.empty((x.shape[0], x.shape[1] // 2), dtype=torch.float64,
+                          device=x.device)
+        out[:, 0::2] = x[:, 0::4] + x[:, 1::4]
+        out[:, 1::2] = x[:, 2::4] + x[:, 3::4]
+        return out
+
+    def rqmc_contract(label, fn, plain, units=None):
+        nr = 16
+        got, again, tail = fn(0, nr), fn(0, nr), fn(2, nr - 2)
+        want = plain(0, nr)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        check(torch.equal(got, again), f"{label}: launches differ")
+        check(torch.equal(got[2:], tail), f"{label}: block offset")
+        fg, fw = fold_quads(got), fold_quads(want)
+        if units is None:
+            close_rtol(fg, fw, label)
+            worst = float(((fg - fw).abs() / fw.abs().clamp(min=1e-30)).max())
+            what = "max rel err"
+        else:
+            worst = close_pairs(fg, fw, units, RTOL, label)
+            what = "max err / scaled bound"
+        phase("kernel-vs-plain", f"{label}: ok, folded {what} {worst:.2e}")
+
+    rkey = qmc_engine.rqmc_key(SEED)
+    for kind in ("call", "put"):
+        vo = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0, kind=kind)
+        is_put = kind == "put"
+        plan = qmc_engine.rqmc_plan(3 * rows * 128, 16, rows)
+        vops = krqmc.vanilla_operands(vo, dev)
+        gops = krqmc.greek_operands(vo, dev)
+        rqmc_contract(f"K52 {kind}",
+                      lambda off, n: krqmc.vanilla_partials(
+                          vops, rkey, off, plan, n, is_put),
+                      lambda off, n: krqmc.vanilla_plain_partials(
+                          vops, rkey, off, plan, n, is_put))
+        rqmc_contract(f"K53 {kind}",
+                      lambda off, n: krqmc.greek_partials(
+                          gops, rkey, off, plan, n, is_put),
+                      lambda off, n: krqmc.greek_plain_partials(
+                          gops, rkey, off, plan, n, is_put),
+                      units=plan.paths_per_block)
+    for a, brows in ((3, rows), (12, rows), (100, rows), (300, 8)):
+        bopt = BasketOption.equicorrelated(a, 0.3)
+        c = kbasket.pack_factor(a)[1]
+        plan = qmc_engine.rqmc_plan(3 * brows * c, 16, brows,
+                                    pts_per_chunk=brows * c)
+        bops = krqmc.basket_operands(bopt, mcmath.cholesky_lower(bopt.corr),
+                                     dev)
+        rqmc_contract(f"K54 a={a} (c={c}, rows={brows})",
+                      lambda off, n: krqmc.basket_partials(
+                          bops, rkey, off, plan, n),
+                      lambda off, n: krqmc.basket_plain_partials(
+                          bops, rkey, off, plan, n))
+    for m, arows, avgs in ((12, 8, ("geometric", "arithmetic")),
+                           (12, 24, ("geometric", "arithmetic")),
+                           (50, 163, ("geometric", "arithmetic")),
+                           (252, 32, ("geometric", "arithmetic")),
+                           (300, 8, ("arithmetic",))):
+        for avg in avgs:
+            aops = krqmc.asian_operands(AsianOption(
+                100.0, 100.0, 0.05, 0.2, 1.0, n_obs=m, average=avg), dev)
+            plan = qmc_engine.rqmc_plan(3 * arows * 128, 16, arows)
+            geo = avg == "geometric"
+            rqmc_contract(f"K55 {avg} n_obs={m} rows={arows}",
+                          lambda off, n: krqmc.asian_partials(
+                              aops, rkey, off, plan, n, geo),
+                          lambda off, n: krqmc.asian_plain_partials(
+                              aops, rkey, off, plan, n, geo))
+
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,
                 kgreeks.LAUNCHES, kasian.LAUNCHES, kbarrier.LAUNCHES,
                 klookback.LAUNCHES, kcliquet.LAUNCHES, kladder.LAUNCHES,
                 kbook.LAUNCHES, kvarswap.LAUNCHES, kbb.LAUNCHES,
                 kheston.LAUNCHES, kmw.LAUNCHES, krainbow.LAUNCHES,
-                kcm.LAUNCHES, kvr.LAUNCHES, klsm.LAUNCHES)
+                kcm.LAUNCHES, kvr.LAUNCHES, klsm.LAUNCHES, krqmc.LAUNCHES)
 
     def reset_counts():
         for c in counters:
@@ -3703,13 +3971,21 @@ def main() -> int:
     launches.update(read_counts(MLMC_KERNELS))
     phase("mlmc-path", f"done in {time.perf_counter() - t_ml:.1f} s")
 
+    # ---- 4p. the RQMC path at the CLIs' defaults -------------------------
+    reset_counts()
+    t_rq = time.perf_counter()
+    rqmc_path(mctpu_torch, mcmath)
+    torch.cuda.synchronize()
+    launches.update(read_counts(RQMC_KERNELS))
+    phase("rqmc-path", f"done in {time.perf_counter() - t_rq:.1f} s")
+
     # ---- 5. launch counters ----------------------------------------------
     all_kernels = (PRICE_KERNELS + GREEK_KERNELS + EXOTIC_KERNELS
                    + LOOKBACK_KERNELS + CLIQUET_KERNELS + BOOK_KERNELS
                    + VARSWAP_KERNELS + BARRIER_BOOK_KERNELS + HESTON_KERNELS
                    + MULTI_WALK_KERNELS + RAINBOW_KERNELS + CVA_MULTI_KERNELS
                    + XVA_KERNELS + CV_KERNELS + AMERICAN_KERNELS
-                   + MLMC_KERNELS)
+                   + MLMC_KERNELS + RQMC_KERNELS)
     check(all(launches.get(k, 0) > 0 for k in all_kernels),
           f"a kernel of a main path never launched: {launches}")
     phase("launches", json.dumps(launches))
@@ -3763,16 +4039,21 @@ def main() -> int:
 
     def timed(kname, source, replaces, plan, steps, disc, kernel, plain,
               ops, in_bytes=64, units=None, fold=None, plain_reps=5,
-              rtol=RTOL, cv_p0=None, record=True):
+              rtol=RTOL, cv_p0=None, record=True, quads=False):
         """``units`` per block given: Greek partials (scaled pair bound,
         every output's estimate in max_abs_err), or with ``cv_p0`` (the
         center) the control variates' moment sums (their bound, the CV
-        price in max_abs_err).  ``ops`` are the run's instruction counts
-        (:func:`work`), ``in_bytes`` its operands' bytes.  ``record=False``
-        prints the line only (a kernel's second shape)."""
+        price in max_abs_err).  ``quads``: the RQMC nets' unfolded
+        ``[s, c, s2, c2]`` quads, compared and estimated folded.  ``ops``
+        are the run's instruction counts (:func:`work`), ``in_bytes`` its
+        operands' bytes.  ``record=False`` prints the line only (a kernel's
+        second shape)."""
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        out_bytes = sum(g.numel() * g.element_size() for g in got)
+        if quads:
+            got, want = ((fold_quads(got[0]),), (fold_quads(want[0]),))
         for g, w in zip(got, want):
             if cv_p0 is not None:
                 close_moments(g, w, units, rtol, kname)
@@ -3794,8 +4075,7 @@ def main() -> int:
         ms, plain_ms = median_ms(kernel), median_ms(plain, plain_reps)
         rate = plan.total_paths * steps / (ms * 1e-3)
         unit = "path-steps/s" if steps > 1 else "paths/s"
-        bound_ms, bound_by, cls = bound(
-            ops, in_bytes + sum(g.numel() * g.element_size() for g in got))
+        bound_ms, bound_by, cls = bound(ops, in_bytes + out_bytes)
         phase("times", f"{kname}: kernel {ms:.3f} ms ({rate:.4g} {unit}), "
                        f"plain {plain_ms:.3f} ms (median of {plain_reps}), "
                        f"{plan.num_blocks} blocks x {plan.iters} iters x rows "
@@ -4362,6 +4642,63 @@ def main() -> int:
               plan, steps, disc_m, kernel, plain,
               walk_work(kname, plan, steps), in_bytes=4 * ops.numel(),
               units=gunits(plan), plain_reps=3)
+
+    # The RQMC path's nets at PERF.md's section 4 shapes, 16 replicates on
+    # the default EngineConfig's layout: K52 and K53 at 2^24 points a
+    # replicate (rows 256), K54 at equicorrelated(3, 0.3) 2^20 (c = 32) and
+    # (100, 0.3) 2^18 (c = 1), K55 arithmetic at 50 dates 2^18 (rows 163)
+    # and geometric at 252 dates 2^16 (rows 32).  max_abs_err is in the
+    # replicate-mean estimates (every Greek's for K53); the bytes are the
+    # operands, the chunk scratch written and read, the quads.
+    def rqmc_bytes(ops, plan, n_sums):
+        tabs = sum(x.numel() * x.element_size() for x in (
+            ops.par, ops.v, ops.low, ops.lt, ops.rows, ops.drift, ops.bridge)
+            if x is not None)
+        return tabs + 8 * plan.num_blocks * plan.iters * n_sums
+
+    rq_van = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0)
+    for kname, replaces, greek in (
+            ("rqmc_vanilla", "mctpu/qmc_engine.py:288", False),
+            ("rqmc_greeks", "mctpu/qmc_engine.py:395", True)):
+        plan, rops = qmc_engine.vanilla_rqmc_setup(rq_van, 1 << 24, cfg, 16,
+                                                   greeks=greek)
+        fn = krqmc.greek_partials if greek else krqmc.vanilla_partials
+        plain = (krqmc.greek_plain_partials if greek
+                 else krqmc.vanilla_plain_partials)
+        timed(kname, "mctpu_torch/csrc/rqmc.cu", replaces, plan, 1,
+              math.exp(-0.048790),
+              lambda f=fn, o=rops, p=plan: f(o, rkey, 0, p, 16, False),
+              lambda f=plain, o=rops, p=plan: f(o, rkey, 0, p, 16, False),
+              rqmc_work(kname, plan),
+              in_bytes=rqmc_bytes(rops, plan, 16 if greek else 2),
+              units=plan.paths_per_block if greek else None, plain_reps=3,
+              quads=True)
+    for a, n, record in ((3, 1 << 20, True), (100, 1 << 18, False)):
+        bopt = BasketOption.equicorrelated(a, 0.3)
+        plan, rops = qmc_engine.basket_rqmc_setup(bopt, n, cfg, 16)
+        timed("rqmc_basket", "mctpu_torch/csrc/rqmc.cu",
+              "mctpu/qmc_engine.py:519", plan, a, math.exp(-0.05),
+              lambda o=rops, p=plan: krqmc.basket_partials(o, rkey, 0, p, 16),
+              lambda o=rops, p=plan: krqmc.basket_plain_partials(
+                  o, rkey, 0, p, 16),
+              rqmc_work("rqmc_basket", plan, a),
+              in_bytes=rqmc_bytes(rops, plan, 2), plain_reps=3, quads=True,
+              record=record)
+    for m, avg, n, record in ((50, "arithmetic", 1 << 18, True),
+                              (252, "geometric", 1 << 16, False)):
+        aopt = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=m,
+                           average=avg)
+        plan, rops = qmc_engine.asian_rqmc_setup(aopt, n, cfg, 16)
+        geo = avg == "geometric"
+        timed("rqmc_asian", "mctpu_torch/csrc/rqmc.cu",
+              "mctpu/qmc_engine.py:769", plan, m, math.exp(-0.05),
+              lambda o=rops, p=plan, g=geo: krqmc.asian_partials(
+                  o, rkey, 0, p, 16, g),
+              lambda o=rops, p=plan, g=geo: krqmc.asian_plain_partials(
+                  o, rkey, 0, p, 16, g),
+              rqmc_work("rqmc_asian", plan, m, geo),
+              in_bytes=rqmc_bytes(rops, plan, 2), plain_reps=3, quads=True,
+              record=record)
 
     # K37 at 100 assets on the plan rainbow_path gives it (c = 1, a
     # 5050-term product a thread), held against its plain version untimed.

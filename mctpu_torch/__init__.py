@@ -13,7 +13,9 @@ calls and baskets and importance-sampled calls
 Longstaff-Schwartz with their frozen-rule Greeks (:mod:`mctpu_torch.lsm`,
 :func:`greeks_american`), and multilevel Monte Carlo for the Heston Euler
 walk and the continuously monitored Asian and knock-out calls
-(:mod:`mctpu_torch.mlmc`), through hand-written
+(:mod:`mctpu_torch.mlmc`), and randomized QMC on digitally shifted Sobol
+nets (:mod:`mctpu_torch.qmc_engine`: the vanilla price and Greeks, the
+basket, the Brownian-bridge Asian), through hand-written
 CUDA kernels (``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use),
 per-block partial sums, a fixed-order float64 combine and the reference
 estimator.  :mod:`mctpu_torch.autodiff` adds the autodiff and
@@ -41,6 +43,9 @@ from mctpu_torch.engine import (EngineConfig, fair_variance_strike, greeks,
                                 price_vanilla, price_vanilla_ladder,
                                 price_xva)
 from mctpu_torch import lsm, mlmc, variance  # noqa: F401  (after engine)
+from mctpu_torch import qmc, qmc_engine, sobol  # noqa: F401
+from mctpu_torch.qmc_engine import (price_asian_rqmc, price_basket_rqmc,
+                                    price_vanilla_rqmc)
 from mctpu_torch.lsm import (price_american, price_american_bounds,
                              price_american_heston)
 from mctpu_torch.rng import seed_from_generator
@@ -79,6 +84,9 @@ __all__ = [
     "price_american",
     "price_american_bounds",
     "price_american_heston",
+    "price_vanilla_rqmc",
+    "price_basket_rqmc",
+    "price_asian_rqmc",
     "fair_variance_strike",
     "greeks",
     "greeks_vanilla",
@@ -133,4 +141,7 @@ __all__ = [
     "lsm",
     "mlmc",
     "variance",
+    "qmc",
+    "qmc_engine",
+    "sobol",
 ]

@@ -26,8 +26,9 @@ SOURCES = ("vanilla.cu", "basket.cu", "cva.cu", "greeks.cu",
            "cva_greeks.cu", "asian.cu", "barrier.cu", "lookback.cu",
            "cliquet.cu", "ladder.cu", "book.cu", "varswap.cu",
            "barrier_book.cu", "heston.cu", "multi_walk.cu", "rainbow.cu",
-           "cva_multi.cu", "varred.cu", "lsm.cu")
-HEADERS = ("philox.cuh", "common.cuh", "packed.cuh", "basket.cuh")
+           "cva_multi.cu", "varred.cu", "lsm.cu", "rqmc.cu")
+HEADERS = ("philox.cuh", "common.cuh", "packed.cuh", "basket.cuh",
+           "greeks.cuh")
 # sm_90a (Hopper).  No --use_fast_math: the kernels rely on IEEE expf/logf/
 # sqrtf and on un-reassociated compensated sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,13 +45,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # strike's st - k and an antithetic pair's cancelling gamma terms are exact
 # as there (see the head of csrc/ladder.cu), and so is the control
 # variates' residual d = (p - p0) - (c - m), the difference of two nearly
-# equal terms (see the head of csrc/varred.cu).
+# equal terms (see the head of csrc/varred.cu), and the RQMC nets' normal
+# quantile, payoff kink and in-the-money indicator (see the head of
+# csrc/rqmc.cu).
 SOURCE_FLAGS = {name: ("-fmad=false",)
                 for name in ("asian.cu", "barrier.cu", "lookback.cu",
                              "cliquet.cu", "ladder.cu", "book.cu",
                              "varswap.cu", "barrier_book.cu", "heston.cu",
                              "multi_walk.cu", "rainbow.cu", "cva_multi.cu",
-                             "varred.cu", "lsm.cu")}
+                             "varred.cu", "lsm.cu", "rqmc.cu")}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Every entry point returns cudaGetLastError() after its launch.
@@ -169,6 +172,14 @@ _SIGNATURES = {
     # (k, p0, m)
     "mctpu_basket_cv_am": (_P, _P, _P) + (_I,) * 8 + (_P, _P),
     "mctpu_basket_cv_packed": (_P, _P, _P) + (_I,) * 10 + (_P, _P),
+    # The RQMC nets (K52-K55), both passes: their operands (K52, K53: par;
+    # K54: par, lt, rows; K55: par, drift, bridge), v, low, the shifts' key
+    # words k0, k1 and block offset, dims, n_blocks, ppc, iters, [K52, K53:
+    # put; K55: geometric,] tiles, out, stream
+    **{name: (_P,) * 3 + (_I,) * 8 + (_P,) * 3
+       for name in ("mctpu_rqmc_vanilla", "mctpu_rqmc_greeks")},
+    "mctpu_rqmc_basket": (_P,) * 5 + (_I,) * 7 + (_P,) * 3,
+    "mctpu_rqmc_asian": (_P,) * 5 + (_I,) * 8 + (_P,) * 3,
 }
 
 _lib = None

@@ -5,8 +5,9 @@
 // draws Philox block (e, i, 0, 0) and both Box-Muller branches are terminal
 // draws.  Per draw: payoff and the delta, vega, rho, theta, gamma, vanna and
 // volga integrands (pathwise first order; gamma, vanna and volga by the
-// mixed pathwise-likelihood-ratio device, derivations in the JAX module),
-// pair-meaned under antithetic: 16 sums (x, x^2).
+// mixed pathwise-likelihood-ratio device, derivations in the JAX module;
+// greeks.cuh, shared with K53), pair-meaned under antithetic: 16 sums
+// (x, x^2).
 //
 // K7 replaces _basket_greeks_am_kernel (<= 8 assets).  K2's stream: element
 // e draws Philox blocks (e, i*a + p, 0, 0) for asset p; cosine branches are
@@ -44,6 +45,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "greeks.cuh"
 
 namespace {
 
@@ -56,44 +58,14 @@ constexpr size_t SMEM_LIMIT = 96 * 1024;
 
 constexpr int N_VAN = 16;
 
-struct VanPar {
-  float s0, k, r, v, t, mu, sig, sqt, cg, cvn, cvg, inv_s0;
-};
-
-// Payoff and the 7 integrands of one draw (mctpu _greek_tile's quants).
-template <bool PUT>
-__device__ __forceinline__ void van_quants(const VanPar& P, float zz,
-                                           float (&q)[8]) {
-  const float st = P.s0 * expf(P.mu + P.sig * zz);
-  float ind, p;
-  if (PUT) {
-    ind = st < P.k ? -1.0f : 0.0f;
-    p = fmaxf(P.k - st, 0.0f);
-  } else {
-    ind = st > P.k ? 1.0f : 0.0f;
-    p = fmaxf(st - P.k, 0.0f);
-  }
-  const float w = ind * st;
-  const float gd = w * P.inv_s0;
-  const float wv = P.sqt * zz - P.v * P.t;
-  q[0] = p;
-  q[1] = gd;
-  q[2] = w * wv;
-  q[3] = (P.t * P.k) * ind;
-  q[4] = w * (P.r - 0.5f * P.v * P.v + 0.5f * P.v * zz / P.sqt) - P.r * p;
-  q[5] = P.cg * (ind * zz);
-  q[6] = gd * wv + P.cvn * (ind * (wv * zz - P.sqt));
-  q[7] = w * (wv * wv - P.t) + P.cvg * (ind * (wv * (wv * zz - 2.0f * P.sqt)));
-}
-
 template <bool ANTI, bool PUT>
-__device__ __forceinline__ void van_add(const VanPar& P, float z,
+__device__ __forceinline__ void van_add(const mct::VanPar& P, float z,
                                         float (&v)[N_VAN]) {
   float q[8];
-  van_quants<PUT>(P, z, q);
+  mct::van_quants<PUT>(P, z, q);
   if (ANTI) {
     float m[8];
-    van_quants<PUT>(P, -z, m);
+    mct::van_quants<PUT>(P, -z, m);
 #pragma unroll
     for (int j = 0; j < 8; ++j) q[j] = 0.5f * (q[j] + m[j]);
   }
@@ -111,19 +83,7 @@ __global__ void __launch_bounds__(THREADS)
                           float* __restrict__ out) {
   __shared__ float sh[WARPS * N_VAN];
   const mct::Key key = mct::seed_key(seed, off + blockIdx.x);
-  VanPar P;
-  P.s0 = par[0];
-  P.k = par[1];
-  P.r = par[2];
-  P.v = par[3];
-  P.t = par[4];
-  P.mu = par[5];
-  P.sig = par[6];
-  P.sqt = par[7];
-  P.cg = P.k / (P.s0 * P.s0 * P.sig);
-  P.cvn = P.k / (P.s0 * P.sig);
-  P.cvg = P.k / P.sig;
-  P.inv_s0 = 1.0f / P.s0;
+  const mct::VanPar P = mct::van_par(par);
   mct::BlockAccN<THREADS, N_VAN, KAHAN> acc;
   float v[N_VAN];
 #pragma unroll

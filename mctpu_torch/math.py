@@ -39,6 +39,8 @@ __all__ = [
     "rainbow_min_call",
     "rainbow_max_call",
     "binomial_american",
+    "erf_inv_f32",
+    "norm_ppf_f32",
 ]
 
 
@@ -83,6 +85,56 @@ def norm_cdf_hastings(d: torch.Tensor) -> torch.Tensor:
 def norm_cdf(d: torch.Tensor) -> torch.Tensor:
     """Standard normal CDF via erf."""
     return 0.5 * (1.0 + torch.erf(d * (2.0 ** -0.5)))
+
+
+# Giles (2010), "Approximating the erfinv function": the float32 polynomial
+# pair (central for w < 5, tail otherwise) of mctpu.math, which the RQMC
+# kernels (csrc/rqmc.cu) evaluate in the same order.
+_GILES_CENTRAL = (3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                  0.00021858087, -0.00125372503, -0.00417768164,
+                  0.246640727, 1.50140941)
+_GILES_TAIL = (0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047,
+               1.00167406, 2.83297682)
+
+
+def _f32(x) -> torch.Tensor:
+    """``x`` rounded to float32 as ``jnp.float32(x)`` rounds it."""
+    return torch.tensor(np.float32(x))
+
+
+def _giles_from_w(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The Giles polynomials in ``w = -log(1 - x^2)``, times ``x``:
+    float32 Horner steps ``c + p * wc``, both branches evaluated, selected
+    by ``w < 5``.  The square root is the correctly rounded one (taken in
+    float64, rounded once), as ``sqrtf`` gives it on the card and
+    ``jnp.sqrt`` on the CPU."""
+    wc = w - 2.5
+    p = _f32(2.81022636e-08)
+    for c in _GILES_CENTRAL:
+        p = _f32(c) + p * wc
+    wt = torch.sqrt(w.double()).float() - 3.0
+    q = _f32(-0.000200214257)
+    for c in _GILES_TAIL:
+        q = _f32(c) + q * wt
+    return torch.where(w < 5.0, p, q) * x
+
+
+def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function (Giles polynomial pair)."""
+    w = -torch.log(torch.clamp((1.0 - x) * (1.0 + x), min=_f32(1e-37)))
+    return _giles_from_w(w, x)
+
+
+def norm_ppf_f32(u: torch.Tensor) -> torch.Tensor:
+    """float32 inverse standard-normal CDF of uniforms: ``sqrt(2)
+    erfinv(2u - 1)`` entered through ``w = -log(4 u (1 - u))``, with ``u``
+    clipped to ``[1e-7, 1 - 1e-7]`` (float32 bounds)."""
+    eps = _f32(1e-7)
+    u = torch.minimum(torch.maximum(u, eps), 1.0 - eps)
+    x = 2.0 * u - 1.0
+    w = -torch.log(4.0 * u * (1.0 - u))
+    return _giles_from_w(w, x) * _f32(1.4142135623730951)
 
 
 def bs_call(s, k, r, v, t) -> torch.Tensor:

@@ -15,7 +15,9 @@ kernels' ``(sum x, sum x^2)`` pairs are held by the scaled bound of
 x^2))``, ``n`` the units per block), because a Greek's block sum can nearly
 cancel; under wrong-way risk at ``rtol=1e-4`` (the hazard's series switch
 can flip on one ulp).  Repeated launches and the block-offset contract are
-held bitwise.
+held bitwise.  The RQMC nets' unfolded quads ``[s, c, s2, c2]`` are
+compared folded (``s + c``, ``s2 + c2``): each of ``s`` and ``c`` depends
+on the order of a chunk's float32 sum.
 """
 import dataclasses
 
@@ -23,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from mctpu_torch import _build, lsm, mlmc, variance
+from mctpu_torch import _build, lsm, mlmc, qmc_engine, variance
 from mctpu_torch.engine import EngineConfig, greeks_american
 from mctpu_torch.kernels import asian as kasian
 from mctpu_torch.kernels import barrier as kbarrier
@@ -40,17 +42,19 @@ from mctpu_torch.kernels import lookback as klookback
 from mctpu_torch.kernels import lsm as klsm
 from mctpu_torch.kernels import multi_walk as kmw
 from mctpu_torch.kernels import rainbow as krainbow
+from mctpu_torch.kernels import rqmc as krqmc
 from mctpu_torch.kernels import vanilla as kvanilla
 from mctpu_torch.kernels import varred as kvr
 from mctpu_torch.kernels import varswap as kvarswap
-from mctpu_torch.math import cholesky_lower
+from mctpu_torch.math import bs_call, cholesky_lower
 from mctpu_torch.types import (AmericanOption, AsianOption, BarrierBook,
                                BarrierOption,
                                BasketOption, CliquetOption, CvaMultiSpec,
                                CvaPortfolioSpec, CvaSpec, HestonOption,
                                LookbackOption, Precision, RainbowOption,
                                VanillaBook, VanillaOption, XvaSpec)
-from torch_tolerance import assert_moments_close, assert_pairs_close
+from torch_tolerance import (assert_moments_close, assert_pairs_close,
+                             assert_quads_close)
 
 pytestmark = pytest.mark.cuda
 
@@ -1404,3 +1408,99 @@ def test_mlmc_bad_operands_raise(dev):
         kasian.level_partials(lp[:4].double(), 1, 0, plan, 2, 16, False)
     with pytest.raises(ValueError):
         kbarrier.level_partials(lp[:5], 1, 0, plan, 0, 16, True)
+
+
+# ---------------------------------------------------------------- K52-K55
+
+_RQMC_KEY = qmc_engine.rqmc_key(SEED)
+
+
+def _rqmc_contract(fn, plain, units=None, n_blocks=NB):
+    """Folded quads equal at RTOL (K53's by the scaled pair bound); two
+    launches and the block-offset contract bitwise on the raw quads."""
+    got, again, tail = fn(0, n_blocks), fn(0, n_blocks), fn(2, n_blocks - 2)
+    want = plain(0, n_blocks)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert torch.equal(got[2:], tail)
+    assert_quads_close(got, want, RTOL, units)
+
+
+@pytest.mark.parametrize("kind", ["call", "put"])
+@pytest.mark.parametrize("rows", [8, 24])
+def test_rqmc_vanilla_and_greek_kernels_match_plain(dev, kind, rows):
+    opt = VanillaOption(100.0, 100.0, 0.048790, 0.2, 1.0, kind=kind)
+    plan = qmc_engine.rqmc_plan(3 * rows * 128, NB, rows)
+    put = kind == "put"
+    vops = krqmc.vanilla_operands(opt, dev)
+    _rqmc_contract(
+        lambda off, n: krqmc.vanilla_partials(vops, _RQMC_KEY, off, plan, n,
+                                              put),
+        lambda off, n: krqmc.vanilla_plain_partials(vops, _RQMC_KEY, off,
+                                                    plan, n, put))
+    gops = krqmc.greek_operands(opt, dev)
+    _rqmc_contract(
+        lambda off, n: krqmc.greek_partials(gops, _RQMC_KEY, off, plan, n,
+                                            put),
+        lambda off, n: krqmc.greek_plain_partials(gops, _RQMC_KEY, off, plan,
+                                                  n, put),
+        units=plan.paths_per_block)
+
+
+@pytest.mark.parametrize("n_assets,rows", [(1, 8), (3, 8), (12, 8),
+                                           (40, 8), (100, 8), (300, 12)])
+def test_rqmc_basket_kernel_matches_plain(dev, n_assets, rows):
+    opt = BasketOption.equicorrelated(n_assets, 0.3)
+    c = kbasket.pack_factor(n_assets)[1]
+    plan = qmc_engine.rqmc_plan(3 * rows * c, NB, rows, pts_per_chunk=rows * c)
+    ops = krqmc.basket_operands(opt, cholesky_lower(opt.corr), dev)
+    _rqmc_contract(
+        lambda off, n: krqmc.basket_partials(ops, _RQMC_KEY, off, plan, n),
+        lambda off, n: krqmc.basket_plain_partials(ops, _RQMC_KEY, off, plan,
+                                                   n))
+
+
+@pytest.mark.parametrize("n_obs,rows", [(1, 8), (12, 8), (12, 24), (50, 163),
+                                        (252, 32), (300, 8)])
+@pytest.mark.parametrize("average", ["arithmetic", "geometric"])
+def test_rqmc_asian_kernel_matches_plain(dev, n_obs, rows, average):
+    opt = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=n_obs,
+                      average=average)
+    plan = qmc_engine.rqmc_plan(3 * rows * 128, NB, rows)
+    ops = krqmc.asian_operands(opt, dev)
+    geo = average == "geometric"
+    _rqmc_contract(
+        lambda off, n: krqmc.asian_partials(ops, _RQMC_KEY, off, plan, n,
+                                            geo),
+        lambda off, n: krqmc.asian_plain_partials(ops, _RQMC_KEY, off, plan,
+                                                  n, geo))
+
+
+def test_price_vanilla_rqmc_against_bs_and_launches(dev):
+    """The JAX exotic CLI's --product rqmc call on the card: 16 replicates
+    of 131072 points on 512 x 256, within 4 standard errors (the floored
+    1e-5 of the price) of Black-Scholes, through K52."""
+    opt = VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
+    before = krqmc.LAUNCHES["rqmc_vanilla"]
+    res = qmc_engine.price_vanilla_rqmc(opt, 131072, SEED)
+    assert krqmc.LAUNCHES["rqmc_vanilla"] == before + 1
+    bs = float(bs_call(100.0, 100.0, 0.05, 0.2, 1.0))
+    assert abs(float(res.price) - bs) < 4 * float(res.std_error)
+    assert (res.n, res.n_paths) == (16, 16 * 131072)
+    again = qmc_engine.price_vanilla_rqmc(opt, 131072, SEED)
+    assert float(again.price) == float(res.price)
+
+
+def test_rqmc_bad_operands_raise(dev):
+    plan = qmc_engine.rqmc_plan(1024, 2, 8)
+    ops = krqmc.vanilla_operands(VanillaOption(100.0, 100.0, 0.05, 0.2,
+                                               1.0), dev)
+    bad = dataclasses.replace(ops, par=ops.par[:3].contiguous())
+    with pytest.raises(ValueError, match="par"):
+        krqmc.vanilla_partials(bad, _RQMC_KEY, 0, plan, 2, False)
+    bad = dataclasses.replace(ops, v=ops.v.cpu())
+    with pytest.raises(ValueError, match="v must be"):
+        krqmc.vanilla_partials(bad, _RQMC_KEY, 0, plan, 2, False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        krqmc.vanilla_partials(ops, _RQMC_KEY, 0, plan, 70000, False)

@@ -12,8 +12,9 @@ where ``n`` is the units per block: by Cauchy-Schwarz the root bounds
 column has non-negative terms, so its ``sum |terms|`` is itself: it is held
 to ``rtol * want sum x^2``.  Exact zeros (padded basket slots) must stay
 exactly zero.  ``rtol`` is one number, or one per pair where the pairs'
-outputs are conditioned differently.  This module imports neither jax nor
-mctpu.
+outputs are conditioned differently.  The RQMC nets' unfolded Neumaier
+quads ``[s, c, s2, c2]`` are compared folded (:func:`assert_quads_close`).
+This module imports neither jax nor mctpu.
 """
 import numpy as np
 
@@ -59,3 +60,28 @@ def assert_moments_close(got, want, n: int, rtol):
     assert (err <= bound).all(), (
         f"sum d cc beyond rtol * sqrt(sum d^2 sum cc^2): got {got[:, 4]!r}, "
         f"want {want[:, 4]!r}, bound {bound!r}")
+
+
+def fold_quads(quads):
+    """The float64 ``(s + c, s2 + c2)`` pairs of unfolded Neumaier quads
+    ``[s, c, s2, c2]`` laid out along axis 1 (a NumPy or JAX array, or a
+    tensor on any device).  ``s`` and ``c`` each depend on the float32 order
+    of a chunk's sum; their sum does not, up to rounding."""
+    if hasattr(quads, "detach"):
+        quads = quads.detach().cpu().double().numpy()
+    q = np.asarray(quads, np.float64)
+    out = np.empty((q.shape[0], q.shape[1] // 2))
+    out[:, 0::2] = q[:, 0::4] + q[:, 1::4]
+    out[:, 1::2] = q[:, 2::4] + q[:, 3::4]
+    return out
+
+
+def assert_quads_close(got, want, rtol, units=None):
+    """Assert the folded quads of ``got`` match ``want``: at ``rtol`` each,
+    or, given the ``units`` a replicate, by the pair bound above (a Greek's
+    sum can cancel)."""
+    fg, fw = fold_quads(got), fold_quads(want)
+    if units is None:
+        np.testing.assert_allclose(fg, fw, rtol=rtol, atol=0)
+    else:
+        assert_pairs_close(fg, fw, units, rtol)

@@ -16,7 +16,7 @@ default ``EngineConfig``), after one warm-up call:
   (kernels, copies, fills) that ``torch.profiler`` records in one call;
 * kernel ms — the same for the call's own CUDA kernels alone (both
   launches of a control-variate call; an MLMC call's level-0 kernel and
-  its level kernel; 0 for a call with no kernel of its own, the rule fit
+  its level kernel; an RQMC call's net kernel and its chunk carry; 0 for a call with no kernel of its own, the rule fit
   and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -138,6 +138,29 @@ def calls(mt):
              ("barrier_kernel", "barrier_level_kernel"),
              lambda c=cfg: mt.mlmc.price_barrier_mlmc(uo8, 0.02, SEED, c,
                                                       max_levels=8))]
+    # The JAX CLIs' RQMC calls at their defaults: the exotic CLI's
+    # --product rqmc (n = 131072 a replicate, the Asian at max(n // 50,
+    # 4096) points and 50 dates, arithmetic; the basket at --assets 3, and
+    # the rqmc path's 100), the Greeks CLI's --rqmc (2^20 // 16 points); 16
+    # replicates on 512 x 256.  Each call launches its net kernel and the
+    # chunk carry.
+    rq = ("chunk_carry_kernel",)
+    rqmc_calls = [
+        ("price_vanilla_rqmc n=131072 x 16", ("rqmc_vanilla_kernel",) + rq,
+         lambda: mt.price_vanilla_rqmc(cv_van, 131072, SEED)),
+        ("greeks_vanilla_rqmc 65536 x 16", ("rqmc_greeks_kernel",) + rq,
+         lambda: mt.qmc_engine.greeks_vanilla_rqmc(van, 65536, SEED)),
+        ("price_basket_rqmc a=3, n=131072 x 16",
+         ("rqmc_basket_kernel",) + rq,
+         lambda: mt.price_basket_rqmc(eq3, 131072, SEED)),
+        ("price_basket_rqmc a=100, n=131072 x 16",
+         ("rqmc_basket_kernel",) + rq,
+         lambda: mt.price_basket_rqmc(BasketOption.equicorrelated(100, 0.3),
+                                      131072, SEED)),
+        ("price_asian_rqmc arithmetic, n_obs=50, 4096 x 16",
+         ("rqmc_asian_kernel",) + rq,
+         lambda: mt.price_asian_rqmc(ari, 4096, SEED)),
+    ]
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
@@ -276,7 +299,7 @@ def calls(mt):
          lambda: mt.greeks_american(
              AmericanOption(100.0, 100.0, 0.05, 0.2, 1.0, n_steps=12),
              1 << 20, SEED)),
-    ] + mlmc_calls
+    ] + mlmc_calls + rqmc_calls
 
 
 def is_kernel(name: str, kernel) -> bool:
@@ -287,7 +310,9 @@ def is_kernel(name: str, kernel) -> bool:
         return False
     if isinstance(kernel, tuple):
         return any(is_kernel(name, k) for k in kernel)
-    return f"::{kernel}<" in name or f"{len(kernel)}{kernel}I" in name
+    return any(mark in name for mark in (
+        f"::{kernel}<", f"::{kernel}(", f"{len(kernel)}{kernel}I",
+        f"{len(kernel)}{kernel}E"))
 
 
 def launch_count() -> int:
