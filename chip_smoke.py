@@ -20,13 +20,13 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    instruments and 1, 7 and 50 dates; the Heston walks, Euler, QE and
    Greeks, at 13 and 100 steps, and the variance swap's Heston leg at 13
    and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
-   3 and 8 assets and the packed walk and its Greeks at 16 and 100, at 13
-   dates; the rainbow and its Greeks at 1, 3 and 8 assets and the packed
+   3 and 8 assets and the packed walk and its Greeks at 9, 16, 17, 32 and
+   100, at 13 dates; the rainbow and its Greeks at 1, 3 and 8 assets and the packed
    rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
    netting set and its Greeks at 9, 16 and 100, at 13 nodes; the xVA and
-   its Greeks at 1, 2, 3 and 8 and the runtime-m kernels at 9 and 16 and
-   forced at 3 against the M = 3 kernels; the control variates K45-K48
+   its Greeks at 1, 2, 3 and 8 and the runtime-m kernels at 9, 16, 17 and
+   100 and forced at 3 against the M = 3 kernels; the control variates K45-K48
    at the vanilla call at and deep in the money, the Asian at 13 and 50
    dates, baskets of 1, 3 and 8 and packed of 9, 16 and 100 assets,
    antithetic and Kahan each on and off; the importance-sampled call K49
@@ -3400,7 +3400,9 @@ def main() -> int:
                      units=units(plan))
 
     # The multi-asset walks: K30 and K32/K34 at a = 1, 3 and 8, K31 and
-    # K33/K35 at 16 and 100 assets, both products (up- and down-and-out), 13
+    # K33/K35 at 16 and 100 assets and at the edges of K31's register
+    # instances (9 and 16 for a_tile 16, 17 and 32 for a_tile 32; 100 takes
+    # the shared-memory design), both products (up- and down-and-out), 13
     # dates (the trailing half pair); antithetic and Kahan on and off,
     # rotated over the products so that each kernel meets every variant
     # (K33's and K35's padded lanes held to exact zeros by the pair bound's
@@ -3412,7 +3414,7 @@ def main() -> int:
 
     mw_variants = ((False, True), (True, True), (False, False))
     mw_obs = 13
-    for ka, a in enumerate((1, 3, 8, 16, 100)):
+    for ka, a in enumerate((1, 3, 8, 16, 100, 9, 17, 32)):
         bk = BasketOption.equicorrelated(a, 0.3)
         chol = mcmath.cholesky_lower(bk.corr)
         lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, mw_obs))
@@ -3550,14 +3552,16 @@ def main() -> int:
                                      "of K39's")
 
     # The bilateral xVA: K43 and K44 at 1, 2 (mixed), 3 and 8 (mixed), their
-    # runtime-m kernels at 9 (mixed) and 16 and forced at 3 (mixed), 13
-    # nodes, antithetic and Kahan rotated; the profiles at RTOL; at
-    # own_intensity = 0 and funding_spread = 0 K43's CVA sums and EPE
-    # profile equal K40's bit for bit.
+    # runtime-m kernels at 9 (mixed), 16, 17 (mixed) and 100 (mixed: K43's
+    # register tiles 16 and 32 at their edges, then its scratch state) and
+    # forced at 3 (mixed), 13 nodes, antithetic and Kahan rotated; the
+    # profiles at RTOL; at own_intensity = 0 and funding_spread = 0 K43's
+    # CVA sums and EPE profile equal K40's bit for bit.
     for ka, (m, mixed, wide) in enumerate(((1, False, None), (2, True, None),
                                            (3, False, None), (8, True, None),
                                            (9, True, None), (16, False, None),
-                                           (3, True, True))):
+                                           (3, True, True), (17, True, None),
+                                           (100, True, None))):
         anti, kahan = mw_variants[ka % 3]
         xs = xva_spec(cva_multi_spec(m, 13, mixed))
         chol = mcmath.cholesky_lower(xs.netting.corr)

@@ -155,8 +155,9 @@ _SIGNATURES = {
     # kahan, scratch, out, [K43: prof,] stream
     "mctpu_xva": (_P,) * 4 + (_I,) * 10 + (_P,) * 4,
     "mctpu_xva_greeks": (_P,) * 4 + (_I,) * 10 + (_P,) * 3,
-    # n_under, n_grid, greeks, wide -> float count of one block's scratch
-    "mctpu_xva_scratch_floats": (_I,) * 4,
+    # n_under, n_grid, greeks, wide, n_blocks, rows, iters -> float count
+    # of a launch's scratch
+    "mctpu_xva_scratch_floats": (_I,) * 7,
     # The control variates (K45, K47, K48; K46 takes the single-asset
     # walks' signature above): K45 par, seed, off, n_blocks, rows, iters,
     # antithetic, kahan, out, stream

@@ -20,6 +20,25 @@ namespace mct {
 
 constexpr int LANES = 128;
 
+// Shared-memory loads the compiler may not move: a kernel that stages
+// loop-invariant operands (a correlation factor, per-asset rows) reads them
+// at each use instead of holding them in registers across its loops.
+__device__ __forceinline__ float4 lds4(const float4* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+__device__ __forceinline__ float lds1(const float* p) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];"
+               : "=f"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
 // Neumaier compensated add of x into (s, c).
 __device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
   const float t = __fadd_rn(s, x);

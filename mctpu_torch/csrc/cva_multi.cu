@@ -65,10 +65,15 @@
 // m = 8: 8 log-spots, 8 tangents, 16 accumulators, 7 legs and 46 sums), L
 // and the per-leg rows in shared memory, the node tables read through the
 // read-only cache (every thread of a warp on the same node).  Runtime m:
-// the same per thread, its state in global scratch.  Packed: K31's passes
+// K44's the same per thread, its state in global scratch; K43's split over
+// more CUDA blocks than simulation blocks (slices of rows, then an ordered
+// fold; see xva_slice_kernel), its state in registers up to 32
+// underlyings.  Packed: K31's passes
 // (packed.cuh), the log-spots and a pair of nodes' normals in shared
 // memory, one thread per packed path; K41 adds K33's lane carries and its
 // halving tree over the rows.
+#include <algorithm>
+
 #include "common.cuh"
 #include "packed.cuh"
 
@@ -141,19 +146,27 @@ __device__ __forceinline__ void profile_add(float* wprof, int j, float half_w,
   }
 }
 
-// The block's profile row: each node's warp slots (sum + compensation)
-// added in warp order.  Call after a __syncthreads.
+// A profile row into row[0 .. g): each node's warp slots (sum +
+// compensation) added in warp order.  Call after a __syncthreads.
 template <int THREADS>
-__device__ __forceinline__ void profile_write(const float* prof, int warps,
-                                              int g, float* ee_out) {
+__device__ __forceinline__ void profile_write_to(const float* prof, int warps,
+                                                 int g, float* row) {
   for (int j = threadIdx.x; j < g; j += THREADS) {
     float total = 0.0f;
     for (int w = 0; w < warps; ++w) {
       const float* slot = prof + (w * g + j) * 2;
       total = __fadd_rn(total, __fadd_rn(slot[0], slot[1]));
     }
-    ee_out[static_cast<size_t>(blockIdx.x) * g + j] = total;
+    row[j] = total;
   }
+}
+
+// The block's profile row of ee_out.
+template <int THREADS>
+__device__ __forceinline__ void profile_write(const float* prof, int warps,
+                                              int g, float* ee_out) {
+  profile_write_to<THREADS>(prof, warps, g,
+                            ee_out + static_cast<size_t>(blockIdx.x) * g);
 }
 
 // --------------------------------------------------------- K40, K42 (m <= 8)
@@ -947,18 +960,18 @@ __global__ void __launch_bounds__(am_threads<M>())
 // Beyond 8 underlyings mctpu serves xVA with its asset-major XLA twin (a
 // Threefry stream); here the asset-major Philox map extends to any m (pair
 // jj draws counters jj m + i, as walk_pairwise_multi for any A) and one
-// thread walks one path element with its state in global scratch: per
-// thread WIDE_THREADS-strided slots (coalesced over a warp) of the
-// log-spots, both nodes' normals and, for K44, the tangents, the carries of
-// each sign, the node's integrands and the 4m per-underlying sums.  L and
-// the per-leg rows are read through the read-only cache (every thread of a
-// warp on the same entry).  The node math is am_leg's and the order of
+// thread walks one path element.  K44's keeps its state in global scratch:
+// per thread WIDE_THREADS-strided slots (coalesced over a warp) of the
+// log-spots, both nodes' normals, the tangents, the carries of each sign,
+// the node's integrands and the 4m per-underlying sums; so does K43's past
+// its register tiles (log-spots and both nodes' normals).  L and the
+// per-leg rows are read there through the read-only cache (every thread of
+// a warp on the same entry).  The node math is am_leg's and the order of
 // every sum K43's and K44's, so the runtime-m kernels match the M <= 8
-// ones but for the block reduction's thread count.
+// ones but for the order of the block reduction.
 constexpr int WIDE_THREADS = 256;
 
 // Per-thread scratch slots (each m floats) of the runtime-m kernels.
-constexpr int XVA_WIDE_SLOTS = 3;         // x, z1, z2
 constexpr int XVA_GREEK_WIDE_SLOTS = 14;  // x, dxv, ad, av, ad', av', z1,
                                           // z2, dval, vval, 4 sums
 
@@ -1023,60 +1036,283 @@ __device__ __forceinline__ void wide_walk(mct::Key key, uint32_t e, int m,
   }
 }
 
-template <bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(WIDE_THREADS)
-    xva_wide_kernel(const float* __restrict__ scal,
-                    const float* __restrict__ lt,
-                    const float* __restrict__ par,
-                    const float* __restrict__ nodes, int m, Launch L,
-                    float* __restrict__ scratch, float* __restrict__ out,
-                    float* __restrict__ prof_out) {
+// K43 past 8 underlyings, split: simulation block b's rows are cut into
+// slices of XVA_SLICE_ROWS rows, one CUDA block per (b, slice), so a
+// 2^20-path launch of 32 simulation blocks of 256 rows runs on 1024 CUDA
+// blocks.  A slice walks its elements with the runtime-m map (element e =
+// row * 128 + lane, counters jj m + i under b's and the iteration's key),
+// keeps its warps' compensated profile slots in shared memory, and writes
+// per iteration its 8 leg sums reduced over the block (the warp-shuffle
+// tree, then the warps in order) and at the end its profile row (the warps'
+// slots in order).  xva_fold_kernel then adds the slices in order: the
+// iteration's slice sums, Kahan-carried over the iterations under KAHAN
+// (BlockAccN's form), and the profile rows.  Every path's draws and node
+// values are the unsplit walk's; only the order of the sums moves, and it
+// depends on the plan alone, so two launches and any block offset give the
+// same bits.  Up to XVA_REG_MAX underlyings a thread keeps x and both
+// nodes' normals in registers (tile MT 16 or 32, L and the per-leg rows
+// staged in shared memory at stride MT); beyond, in global scratch through
+// wide_node and wide_walk, with the grid capped at the blocks the card
+// holds at once and each CUDA block taking (b, slice) items in turn.
+constexpr int XVA_SLICE_ROWS = 8;
+constexpr int XVA_REG_MAX = 32;
+// Dynamic shared memory for the profile slots; past it they go to scratch.
+constexpr int XVA_PROF_SMEM_MAX = 200 * 1024;
+
+__host__ __device__ inline int xva_slices(int rows) {
+  return (rows + XVA_SLICE_ROWS - 1) / XVA_SLICE_ROWS;
+}
+
+// L and the per-leg rows of a register tile, at stride MT.
+template <int MT>
+struct XvaOps {
+  float l[MT * MT];
+  float par[9 * MT];
+};
+
+// One runtime-m node over a register tile (wide_node's operations in its
+// order); zs holds the signed normals sgn * z.  The staged operands are
+// read at their use (mct::lds1), not held across the walk.
+template <int MT>
+__device__ __forceinline__ float reg_node(int m, const XvaOps<MT>& o, float r,
+                                          const Node& nd,
+                                          const float (&zs)[MT],
+                                          float (&x)[MT], float& net) {
+  float value = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (i < m) {
+      float b = mct::lds1(&o.l[i * MT]) * zs[0];
+#pragma unroll
+      for (int j = 1; j <= i; ++j) {
+        b = b + mct::lds1(&o.l[i * MT + j]) * zs[j];
+      }
+      float pr[9];  // leg i's rows, read by am_leg at stride 1
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {  // am_leg reads rows 1, 2 and 4-8
+        pr[k] = (k == 0 || k == 3) ? 0.0f
+                                   : mct::lds1(&o.par[k * MT + i]);
+      }
+      float s, nd1, phi;
+      const float val = am_leg<false>(b, x[i], pr, 1, 0, r, nd, s, nd1, phi);
+      value = (i == 0) ? val : value + val;
+    }
+  }
+  net = value;
+  return fmaxf(value, 0.0f);
+}
+
+// One K43 walk of element e and sign sgn over a register tile: the legs
+// (before the LGDs) into leg, each node's epe and ene to the warp's slots.
+template <int MT>
+__device__ __forceinline__ void reg_xva_walk(const XvaOps<MT>& o,
+                                             const float* __restrict__ nodes,
+                                             int m, int g, float r,
+                                             mct::Key key, uint32_t e,
+                                             float sgn, float half_w,
+                                             float* wprof, int lane,
+                                             float (&leg)[4]) {
+  float x[MT], lg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < MT; ++i) x[i] = o.par[i];
+  const int pairs = (g + 1) / 2;
+  for (int jj = 0; jj < pairs; ++jj) {
+    float z1[MT], z2[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i < m) {
+        mct::draw_normal_pair(key, e, static_cast<uint32_t>(jj * m + i),
+                              z1[i], z2[i]);
+      }
+    }
+    const int dates = min(2, g - 2 * jj);
+#pragma unroll 1
+    for (int d = 0; d < dates; ++d) {
+      float zs[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) zs[i] = sgn * (d ? z2[i] : z1[i]);
+      const int j = 2 * jj + d;
+      float net;
+      const float epe =
+          reg_node<MT>(m, o, r, tail_node(nodes, g, j, 3), zs, x, net);
+      xva_legs_add(nodes, g, j, epe, epe - net, lg);
+      profile_add(wprof, j, half_w, epe, lane);
+      profile_add(wprof, g + j, half_w, epe - net, lane);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) leg[k] = lg[k];
+}
+
+// The 8 per-thread sums v reduced over the block (BlockAccN's tree and
+// warp order, no carry) into dst; v is zeroed.  sh: WARPS * 8 floats.
+template <int THREADS>
+__device__ __forceinline__ void block_row8(float (&v)[8], float* sh,
+                                           float* dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float r = v[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, o));
+    }
+    if (lane == 0) sh[warp * 8 + k] = r;
+    v[k] = 0.0f;
+  }
+  __syncthreads();
+  if (threadIdx.x < 8) {
+    float t = sh[threadIdx.x];
+    for (int w = 1; w < THREADS / 32; ++w) {
+      t = __fadd_rn(t, sh[w * 8 + threadIdx.x]);
+    }
+    dst[threadIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// A split launch: its slices a simulation block, (block, slice) items and
+// CUDA blocks, whether the profile slots fit in shared memory, and its
+// scratch in floats: the slices' iteration sums [B][iters][S][8] and
+// profile rows [B][S][2g], then per CUDA block of the grid its profile
+// slots [WARPS][2g][2] when they are not in shared memory and, past the
+// register tiles, its threads' state [3][m][THREADS].
+struct XvaSplit {
+  int slices, items, grid;
+  bool prof_smem;
+  size_t total;
+};
+
+int xva_mt(int m) { return m <= 16 ? 16 : (m <= XVA_REG_MAX ? 32 : 0); }
+
+template <int MT, bool ANTI>
+__global__ void __launch_bounds__(WIDE_THREADS, MT == 16 ? 2 : 1)
+    xva_slice_kernel(const float* __restrict__ scal,
+                     const float* __restrict__ lt,
+                     const float* __restrict__ par,
+                     const float* __restrict__ nodes, int m, Launch L,
+                     int n_blocks, int slices, int prof_smem,
+                     float* __restrict__ scratch) {
   constexpr int THREADS = WIDE_THREADS;
   constexpr int WARPS = THREADS / 32;
+  extern __shared__ float smem[];  // the profile slots, when prof_smem
+  __shared__ XvaOps<MT == 0 ? 1 : MT> o;
   __shared__ float sh[WARPS * 8];
-  const int g2 = 2 * L.g;
-  float* prof = scratch + static_cast<size_t>(blockIdx.x) *
-                              (WARPS * g2 * 2 + XVA_WIDE_SLOTS * m * THREADS);
-  float* x = prof + WARPS * g2 * 2 + threadIdx.x;
-  float* z1 = x + m * THREADS;
-  float* z2 = z1 + m * THREADS;
-  profile_zero<THREADS>(prof, WARPS * g2 * 2);
-  __syncthreads();
+  const int g2 = 2 * L.g, items = n_blocks * slices;
+  const size_t n_slot = static_cast<size_t>(WARPS) * g2 * 2;
+  float* sums = scratch;
+  float* sprof = sums + static_cast<size_t>(items) * L.iters * 8;
+  float* slots_g = sprof + static_cast<size_t>(items) * g2;
+  float* prof = prof_smem ? smem : slots_g + blockIdx.x * n_slot;
+  float* state = slots_g + (prof_smem ? 0 : gridDim.x * n_slot) +
+                 static_cast<size_t>(blockIdx.x) * 3 * m * THREADS +
+                 threadIdx.x;
+  if constexpr (MT > 0) {
+    for (int t = threadIdx.x; t < MT * MT; t += THREADS) {
+      const int i = t / MT, j = t - i * MT;
+      o.l[t] = (i < m && j <= i) ? lt[i * m + j] : 0.0f;
+    }
+    for (int t = threadIdx.x; t < 9 * MT; t += THREADS) {
+      const int k = t / MT, i = t - k * MT;
+      o.par[t] = i < m ? par[k * m + i] : 0.0f;
+    }
+  }
   const float r = scal[0], lgd = scal[1], olgd = scal[2];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* wprof = prof + warp * g2 * 2;
   const float half_w = ANTI ? 0.5f : 1.0f;
-  const int n_elems = L.rows * mct::LANES;
-  mct::BlockAccN<THREADS, 8, KAHAN> acc;
-  float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < L.iters; ++i) {
-    const mct::Key key = iter_key(L, i);
-    for (int base = 0; base < n_elems; base += THREADS) {
-      if (base + warp * 32 >= n_elems) continue;  // whole warps
-      const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
-      float legs[2][4];
-      for (int sg = 0; sg < (ANTI ? 2 : 1); ++sg) {
-        const float sgn = sg ? -1.0f : 1.0f;
-        float(&leg)[4] = legs[sg];
-        for (int k = 0; k < 4; ++k) leg[k] = 0.0f;
-        for (int u = 0; u < m; ++u) x[u * THREADS] = __ldg(par + u);
-        wide_walk(key, e, m, L.g, z1, z2, THREADS, [&](int j, const float* z) {
-          float net;
-          const float epe = wide_node<false>(
-              m, lt, par, r, 0.0f, tail_node(nodes, L.g, j, 3), sgn, z, x,
-              nullptr, nullptr, nullptr, THREADS, net);
-          xva_legs_add(nodes, L.g, j, epe, epe - net, leg);
-          profile_add(wprof, j, half_w, epe, lane);
-          profile_add(wprof, L.g + j, half_w, epe - net, lane);
-        });
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = item / slices, sl = item - b * slices;
+    const int e0 = sl * XVA_SLICE_ROWS * mct::LANES;
+    const int e1 = min(L.rows, (sl + 1) * XVA_SLICE_ROWS) * mct::LANES;
+    profile_zero<THREADS>(prof, static_cast<int>(n_slot));
+    __syncthreads();
+    float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = 0; i < L.iters; ++i) {
+      const mct::Key key = mct::seed_key(
+          L.seed, (L.off + static_cast<uint32_t>(b)) *
+                          static_cast<uint32_t>(L.iters) +
+                      static_cast<uint32_t>(i));
+      for (int base = e0; base < e1; base += THREADS) {
+        if (base + warp * 32 >= e1) continue;  // whole warps
+        const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
+        float legs[2][4];
+#pragma unroll 1
+        for (int sg = 0; sg < (ANTI ? 2 : 1); ++sg) {
+          const float sgn = sg ? -1.0f : 1.0f;
+          if constexpr (MT > 0) {
+            reg_xva_walk<MT>(o, nodes, m, L.g, r, key, e, sgn, half_w, wprof,
+                             lane, legs[sg]);
+          } else {
+            float(&leg)[4] = legs[sg];
+            for (int k = 0; k < 4; ++k) leg[k] = 0.0f;
+            float* x = state;
+            float* z1 = x + m * THREADS;
+            float* z2 = z1 + m * THREADS;
+            for (int u = 0; u < m; ++u) x[u * THREADS] = __ldg(par + u);
+            wide_walk(key, e, m, L.g, z1, z2, THREADS,
+                      [&](int j, const float* z) {
+                        float net;
+                        const float epe = wide_node<false>(
+                            m, lt, par, r, 0.0f, tail_node(nodes, L.g, j, 3),
+                            sgn, z, x, nullptr, nullptr, nullptr, THREADS,
+                            net);
+                        xva_legs_add(nodes, L.g, j, epe, epe - net, leg);
+                        profile_add(wprof, j, half_w, epe, lane);
+                        profile_add(wprof, L.g + j, half_w, epe - net, lane);
+                      });
+          }
+        }
+        xva_leg_sums(legs[0], ANTI ? legs[1] : nullptr, lgd, olgd, v);
       }
-      xva_leg_sums(legs[0], ANTI ? legs[1] : nullptr, lgd, olgd, v);
+      block_row8<THREADS>(
+          v, sh, sums + ((static_cast<size_t>(b) * L.iters + i) * slices +
+                         sl) * 8);
     }
-    acc.add(v, nullptr, sh);
+    // block_row8's barrier orders the last profile adds before these reads.
+    profile_write_to<THREADS>(prof, WARPS, g2,
+                              sprof + static_cast<size_t>(item) * g2);
+    __syncthreads();
   }
-  __syncthreads();
-  profile_write<THREADS>(prof, WARPS, g2, prof_out);
-  acc.write(out);
+}
+
+// The slices of each simulation block added in order: per iteration its 8
+// slice sums, carried over the iterations (Kahan under KAHAN) as BlockAccN
+// carries its warps' sums, into out (B, 8); the profile rows into prof_out
+// (B, 2g).
+template <bool KAHAN>
+__global__ void xva_fold_kernel(const float* __restrict__ scratch,
+                                int n_blocks, int iters, int slices, int g2,
+                                float* __restrict__ out,
+                                float* __restrict__ prof_out) {
+  const int items = n_blocks * slices, per = 8 + g2;
+  const float* sums = scratch;
+  const float* sprof = sums + static_cast<size_t>(items) * iters * 8;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_blocks * per) return;
+  const int b = idx / per, k = idx - b * per;
+  if (k < 8) {
+    float s = 0.0f, c = 0.0f;
+    for (int i = 0; i < iters; ++i) {
+      const float* row =
+          sums + (static_cast<size_t>(b) * iters + i) * slices * 8 + k;
+      float t = row[0];
+      for (int sl = 1; sl < slices; ++sl) t = __fadd_rn(t, row[sl * 8]);
+      if (KAHAN) {
+        mct::kahan_add(s, c, t);
+      } else {
+        s = __fadd_rn(s, t);
+      }
+    }
+    out[static_cast<size_t>(b) * 8 + k] = __fadd_rn(s, c);
+  } else {
+    const float* col = sprof + static_cast<size_t>(b) * slices * g2 + (k - 8);
+    float total = 0.0f;
+    for (int sl = 0; sl < slices; ++sl) {
+      total = __fadd_rn(total, col[static_cast<size_t>(sl) * g2]);
+    }
+    prof_out[static_cast<size_t>(b) * g2 + (k - 8)] = total;
+  }
 }
 
 // Adds the n per-thread sums at vals (stride THREADS, zeroed on return)
@@ -1253,6 +1489,59 @@ Launch make_launch(int g, int seed, int off, int rows, int iters) {
                 rows, iters};
 }
 
+using SliceFn = void (*)(const float*, const float*, const float*,
+                         const float*, int, Launch, int, int, int, float*);
+
+SliceFn slice_fn(int m, bool anti) {
+  switch (xva_mt(m)) {
+    case 16:
+      return anti ? xva_slice_kernel<16, true> : xva_slice_kernel<16, false>;
+    case XVA_REG_MAX:
+      return anti ? xva_slice_kernel<XVA_REG_MAX, true>
+                  : xva_slice_kernel<XVA_REG_MAX, false>;
+    default:
+      return anti ? xva_slice_kernel<0, true> : xva_slice_kernel<0, false>;
+  }
+}
+
+// Bytes of a CUDA block's profile slots ([WARPS][2g][2] floats).
+size_t xva_slot_bytes(int g) {
+  return static_cast<size_t>(WIDE_THREADS / 32) * 2 * g * 2 * sizeof(float);
+}
+
+// The split launch of a runtime-m K43: its slices, grid and scratch.  Past
+// the register tiles the grid is the blocks the card holds at once (by the
+// occupancy of the antithetic instance), capped at the items; the sums do
+// not depend on it.
+XvaSplit xva_split(int m, int g, int n_blocks, int rows, int iters) {
+  XvaSplit X{};
+  X.slices = xva_slices(rows);
+  X.items = n_blocks * X.slices;
+  X.prof_smem = xva_slot_bytes(g) <= XVA_PROF_SMEM_MAX;
+  X.grid = X.items;
+  if (xva_mt(m) == 0) {
+    const SliceFn fn = slice_fn(m, true);
+    const size_t smem = X.prof_smem ? xva_slot_bytes(g) : 0;
+    int dev = 0, sms = 1, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (smem > 48 * 1024) {
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    }
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, WIDE_THREADS,
+                                                  smem);
+    X.grid = std::min(X.items, std::max(1, per_sm) * sms);
+  }
+  const size_t slot = xva_slot_bytes(g) / sizeof(float);
+  X.total = static_cast<size_t>(X.items) * (iters * 8 + 2 * g) +
+            (X.prof_smem ? 0 : static_cast<size_t>(X.grid) * slot) +
+            (xva_mt(m) == 0
+                 ? static_cast<size_t>(X.grid) * 3 * m * WIDE_THREADS
+                 : 0);
+  return X;
+}
+
 }  // namespace
 
 // Dispatches the asset-major kernels on n_under = 1..8.
@@ -1375,13 +1664,17 @@ extern "C" int mctpu_cva_multi_greeks_packed(
 // Floats of one block's xVA scratch: K43's profile slots ([warps][2 g][2])
 // and, for the runtime-m kernels (wide), their per-thread state.
 extern "C" int mctpu_xva_scratch_floats(int n_under, int n_grid, int greeks,
-                                        int wide) {
-  if (greeks) return wide ? XVA_GREEK_WIDE_SLOTS * n_under * WIDE_THREADS : 0;
-  if (wide) {
-    return (WIDE_THREADS / 32) * 2 * n_grid * 2 +
-           XVA_WIDE_SLOTS * n_under * WIDE_THREADS;
+                                        int wide, int n_blocks, int rows,
+                                        int iters) {
+  if (greeks) {
+    return wide ? n_blocks * XVA_GREEK_WIDE_SLOTS * n_under * WIDE_THREADS
+                : 0;
   }
-  return warps_of(n_under) * 2 * n_grid * 2;
+  if (wide) {
+    return static_cast<int>(
+        xva_split(n_under, n_grid, n_blocks, rows, iters).total);
+  }
+  return n_blocks * warps_of(n_under) * 2 * n_grid * 2;
 }
 
 // K43 (n_under = 1..8) or its runtime-m kernel (wide, any n_under).
@@ -1393,14 +1686,24 @@ extern "C" int mctpu_xva(const float* scal, const float* lt, const float* par,
   const Launch L = make_launch(n_grid, seed, off, rows, iters);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
-    using Fn = void (*)(const float*, const float*, const float*,
-                        const float*, int, Launch, float*, float*, float*);
-    static const Fn FNS[4] = {
-        xva_wide_kernel<false, false>, xva_wide_kernel<false, true>,
-        xva_wide_kernel<true, false>, xva_wide_kernel<true, true>};
-    FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)]<<<n_blocks, WIDE_THREADS, 0,
-                                                  s>>>(
-        scal, lt, par, nodes, n_under, L, scratch, out, prof);
+    const XvaSplit X = xva_split(n_under, n_grid, n_blocks, rows, iters);
+    const SliceFn fn = slice_fn(n_under, antithetic != 0);
+    const size_t smem = X.prof_smem ? xva_slot_bytes(n_grid) : 0;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    fn<<<X.grid, WIDE_THREADS, smem, s>>>(scal, lt, par, nodes, n_under, L,
+                                          n_blocks, X.slices,
+                                          X.prof_smem ? 1 : 0, scratch);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int work = n_blocks * (8 + 2 * n_grid);
+    (kahan ? xva_fold_kernel<true> : xva_fold_kernel<false>)<<<
+        (work + 255) / 256, 256, 0, s>>>(scratch, n_blocks, iters, X.slices,
+                                         2 * n_grid, out, prof);
     return static_cast<int>(cudaGetLastError());
   }
 #define MCT_CALL(M)                                                        \

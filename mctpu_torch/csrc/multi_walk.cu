@@ -47,27 +47,39 @@
 //
 // Bound on the H100: arithmetic.  Per path-date: a/2 Philox blocks and
 // Box-Muller pairs, a expf and the a(a+1)/2 multiply-adds of L z (twice
-// that for K34's and K35's L^-1 z), each a separate multiply and add here.
+// that for K34's and K35's L^-1 z), each a separate multiply and add here;
+// Philox's 32-bit multiplies (int32) bind K31 at 16 assets.
 // Simple design: one CUDA block per simulation block.  Asset-major: one
 // thread per path element striding over the tile, the walk state in
 // registers, L, L^-1 and the per-asset rows in shared memory, per-iteration
-// sums through mct::BlockAccN (4 + 4a of them for the Greeks).  Packed: a
-// path's log-spots do not fit a thread's registers at a = 100, so a chunk of
-// rows keeps its log-spots in shared memory (asset-major over the chunk's
-// paths, so a warp's threads hit consecutive words), every pair of dates first
-// draws the chunk's normals into shared memory (one odd-strided row per
-// path, padded lanes not drawn), then one thread per packed path forms the
-// triangular product (L read through the read-only cache, every thread of
-// a warp on the same entry) and the basket for both dates; the mirror's
-// product is the negated sum of the same terms, exactly.  Measured on an
-// H100, that product's loads (one of L, one of z per multiply-add) and not
-// the arithmetic hold K31 well under its bound.  A pass walks every
-// n_chunks-th row (see Packed), so that K33 and K35 add their lane rows
-// pass by pass in the halving tree's own order: the tree's first levels
-// inside a pass, its last over the passes, with only a pass's leaves and
-// one partial row set a pass in shared memory.  K31 takes as few passes as
-// its threads and shared memory allow at any rows; K33 and K35 need a power
-// of two of rows a pass.  No atomics: two launches give the same bits.
+// sums through mct::BlockAccN (4 + 4a of them for the Greeks).  Packed: one
+// thread per packed path (Packed's passes, set_chunk_even for K31).  Up to
+// 32 assets (a_tile 16 or 32) K31 keeps a path in its thread's registers:
+// the thread draws its own path's normals for a pair of dates (its lanes'
+// Philox blocks, the counters of the shared-memory design), the log-spots
+// of both signs stay in registers, and L (four entries a shared load) and
+// the step rows are staged once a block and read as broadcasts, in loops
+// unrolled at the tile with i < a and j <= i predicates.  So no barrier
+// and no shared-memory round trip remain in the walk, and a block's Philox
+// and product phases overlap across its warps.  Its passes, thread-to-path
+// map and sums are the shared-memory design's, so the block sums are the
+// same bits (and K33's and K35's price sums still equal K31's).  Wider
+// baskets (a_tile 64 and up, the 100-asset basket) do not fit a thread's
+// registers: a pass keeps its log-spots in shared memory (asset-major over
+// the pass's paths, so a warp's threads hit consecutive words), every pair
+// of dates first draws the pass's normals into shared memory (draw_pass: one
+// odd-strided row per path, padded lanes not drawn), then one thread per
+// packed path forms the triangular product (L read through the read-only
+// cache, every thread of a warp on the same entry) and the basket for both
+// dates; the mirror's product is the negated sum of the same terms,
+// exactly.  There the product's loads (one of L, one of z per multiply-add)
+// and not the arithmetic hold the kernel well under its bound.  A pass walks
+// every n_chunks-th row (see Packed), so that K33 and K35 add their lane
+// rows pass by pass in the halving tree's own order: the tree's first
+// levels inside a pass, its last over the passes, with only a pass's leaves
+// and one partial row set a pass in shared memory.  K31 takes as few passes
+// as its threads and shared memory allow at any rows; K33 and K35 need a
+// power of two of rows a pass.  No atomics: two launches give the same bits.
 #include <algorithm>
 
 #include "common.cuh"
@@ -534,10 +546,178 @@ __global__ void __launch_bounds__(PK_THREADS)
   acc.write(out);
 }
 
+// K31 at a_tile AT = 16 or 32 (9-32 assets): a path's normals and log-spots
+// in its thread's registers.  The block stages L (rows at stride AT, zero
+// above the diagonal) and the per-asset step rows once; every thread of a
+// warp reads the same entry, a broadcast, L four entries a load, each
+// load at its use (mct::lds4: held in registers for the whole walk, 136 + 64
+// values at a_tile 16, they would spill the path's state).
+constexpr int MW_REG_MAX = 32;
+
+template <int AT>
+struct RegOps {
+  float4 l[AT * AT / 4];  // L[i][j] at i * AT + j
+  float4 step[AT];        // drift, vol, d, w of asset i
+  float x0[AT];           // log s0
+};
+
+
+// One date of a path for both signs (packed_date's operations in its
+// order: sum = sum + L_ij z_j from j = 0, x + drift + vol (sum + d), basket
+// + expf(x) w in asset order, the mirror's -sum), over registers.
+template <int AT, bool ANTI>
+__device__ __forceinline__ void reg_date(const RegOps<AT>& o, int a,
+                                         const float (&z)[AT], float (&x)[AT],
+                                         float (&xm)[AT], float& b,
+                                         float& bm) {
+  float basket = 0.0f, basket_m = 0.0f;
+#pragma unroll
+  for (int i = 0; i < AT; ++i) {
+    if (i < a) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int q = 0; 4 * q <= i; ++q) {
+        const float4 l4 = mct::lds4(&o.l[i * (AT / 4) + q]);
+        sum = sum + l4.x * z[4 * q];
+        if (4 * q + 1 <= i) sum = sum + l4.y * z[4 * q + 1];
+        if (4 * q + 2 <= i) sum = sum + l4.z * z[4 * q + 2];
+        if (4 * q + 3 <= i) sum = sum + l4.w * z[4 * q + 3];
+      }
+      const float4 st = mct::lds4(&o.step[i]);
+      x[i] = x[i] + st.x + st.y * (sum + st.z);
+      basket = basket + expf(x[i]) * st.w;
+      if (ANTI) {
+        xm[i] = xm[i] + st.x + st.y * (-sum + st.z);
+        basket_m = basket_m + expf(xm[i]) * st.w;
+      }
+    }
+  }
+  b = basket;
+  bm = basket_m;
+}
+
+// The same thread-to-path map, passes and sums as mw_walk_packed_kernel
+// (thread q walks path q % c of local row q / c), so the block sums are
+// that kernel's bit for bit; each thread draws its own path's normals
+// (element row * width + p * AT + m, pair jj), with no barrier in the walk.
+template <int AT, bool ANTI, bool KAHAN, bool BARRIER>
+__global__ void __launch_bounds__(PK_THREADS, AT <= 16 ? 2 : 1)
+    mw_walk_reg_kernel(const float* __restrict__ lt,
+                       const float* __restrict__ par,
+                       const float* __restrict__ scal, int up, Packed P,
+                       Launch g, float* __restrict__ out) {
+  __shared__ RegOps<AT> o;
+  __shared__ float sh[(PK_THREADS / 32) * 2];
+  const int a = P.a;
+  float* lf = reinterpret_cast<float*>(o.l);
+  for (int t = threadIdx.x; t < AT * AT; t += PK_THREADS) {
+    const int i = t / AT, j = t - i * AT;
+    lf[t] = (i < a && j <= i) ? lt[i * a + j] : 0.0f;
+  }
+  float* sf = reinterpret_cast<float*>(o.step);
+  for (int t = threadIdx.x; t < 4 * AT; t += PK_THREADS) {
+    const int i = t / 4;
+    sf[t] = i < a ? par[(t - 4 * i + 1) * a + i] : 0.0f;
+  }
+  for (int t = threadIdx.x; t < AT; t += PK_THREADS) {
+    o.x0[t] = t < a ? par[t] : 0.0f;
+  }
+  __syncthreads();
+  const float k = scal[0], h = scal[1];
+  const int q = threadIdx.x;
+  const int pairs = (g.n_obs + 1) / 2;
+  mct::BlockAccN<PK_THREADS, 2, KAHAN> acc;
+  float v[2] = {0.0f, 0.0f};
+  for (int it = 0; it < g.iters; ++it) {
+    const mct::Key key = iter_key(g, it);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      const int row = pass_row(P, c0, q / P.c);
+      if (q >= P.np_max || row >= g.rows) continue;
+      const uint32_t e0 =
+          static_cast<uint32_t>(row * P.width + (q % P.c) * AT);
+      float x[AT], xm[AT];
+#pragma unroll
+      for (int i = 0; i < AT; ++i) x[i] = xm[i] = mct::lds1(&o.x0[i]);
+      float m1 = 0.0f, alive = 1.0f, last = 0.0f;  // acc, or flag and B
+      float m1m = 0.0f, alive_m = 1.0f, last_m = 0.0f;
+      for (int jj = 0; jj < pairs; ++jj) {
+        float z[2][AT];
+#pragma unroll
+        for (int m = 0; m < AT; ++m) {
+          if (m < a) {
+            mct::draw_normal_pair(key, e0 + m, static_cast<uint32_t>(jj),
+                                  z[0][m], z[1][m]);
+          }
+        }
+        const int dates = min(2, g.n_obs - 2 * jj);
+#pragma unroll
+        for (int date = 0; date < 2; ++date) {
+          if (date >= dates) break;
+          float b, bm;
+          reg_date<AT, ANTI>(o, a, z[date], x, xm, b, bm);
+          if (BARRIER) {
+            alive = knock(alive, b, h, up);
+            last = b;
+            if (ANTI) {
+              alive_m = knock(alive_m, bm, h, up);
+              last_m = bm;
+            }
+          } else {
+            m1 = m1 + b;
+            if (ANTI) m1m = m1m + bm;
+          }
+        }
+      }
+      const float n = static_cast<float>(g.n_obs);
+      float pay = BARRIER ? alive * fmaxf(last - k, 0.0f)
+                          : fmaxf(m1 / n - k, 0.0f);
+      if (ANTI) {
+        const float pm = BARRIER ? alive_m * fmaxf(last_m - k, 0.0f)
+                                 : fmaxf(m1m / n - k, 0.0f);
+        pay = 0.5f * (pay + pm);
+      }
+      v[0] += pay;
+      v[1] += pay * pay;
+    }
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+}
+
+template <int AT>
+int launch_walk_reg(bool anti, bool kahan, bool barrier, const float* lt,
+                    const float* par, const float* scal, int up,
+                    const Packed& P, const Launch& g, int n_blocks,
+                    float* out, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, int, Packed,
+                      Launch, float*);
+  static const Fn FNS[8] = {
+      mw_walk_reg_kernel<AT, false, false, false>,
+      mw_walk_reg_kernel<AT, false, false, true>,
+      mw_walk_reg_kernel<AT, false, true, false>,
+      mw_walk_reg_kernel<AT, false, true, true>,
+      mw_walk_reg_kernel<AT, true, false, false>,
+      mw_walk_reg_kernel<AT, true, false, true>,
+      mw_walk_reg_kernel<AT, true, true, false>,
+      mw_walk_reg_kernel<AT, true, true, true>,
+  };
+  const Fn fn = FNS[(anti ? 4 : 0) | (kahan ? 2 : 0) | (barrier ? 1 : 0)];
+  fn<<<n_blocks, PK_THREADS, 0, s>>>(lt, par, scal, up, P, g, out);
+  return 0;
+}
+
 int launch_walk_packed(bool anti, bool kahan, bool barrier, const float* lt,
                        const float* par, const float* scal, int up,
                        const Packed& P, size_t smem, const Launch& g,
                        int n_blocks, float* out, cudaStream_t s) {
+  if (P.a_tile == 16) {
+    return launch_walk_reg<16>(anti, kahan, barrier, lt, par, scal, up, P, g,
+                               n_blocks, out, s);
+  }
+  if (P.a_tile == MW_REG_MAX) {
+    return launch_walk_reg<MW_REG_MAX>(anti, kahan, barrier, lt, par, scal,
+                                       up, P, g, n_blocks, out, s);
+  }
   using Fn = void (*)(const float*, const float*, const float*, int, Packed,
                       Launch, float*);
   static const Fn FNS[8] = {

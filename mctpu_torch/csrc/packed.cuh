@@ -3,9 +3,11 @@
 // tile packs c paths of a_tile lanes a row (a assets or underlyings each,
 // the rest padding); a CUDA block walks it in passes of chunk_rows rows,
 // one thread per packed path, with the pass's normals (and, in the
-// kernels, its walk state) in shared memory.  Pair jj of a pass draws
-// Philox block (row * width + lane, jj) for each real lane (the JAX
-// kernels' walk_pairwise over the flat tile index).
+// kernels, its walk state) in shared memory (draw_pass), or, in K31's
+// register instances (a_tile 16 and 32), in the path's thread, which draws
+// its own lanes.  Pair jj of a pass draws Philox block (row * width + lane,
+// jj) for each real lane (the JAX kernels' walk_pairwise over the flat tile
+// index).
 #pragma once
 
 #include <algorithm>
@@ -86,7 +88,8 @@ __device__ __forceinline__ void draw_pass(const Packed& P, Key key,
 }
 
 // K31's and K39's pass: about one path per thread, its normals and the
-// log-spots of one or both signs within PK_SMEM_LIMIT.
+// log-spots of one or both signs within PK_SMEM_LIMIT (K31's register
+// instances take the pass and leave smem unused).
 inline Packed packed_shape(int a, int a_tile, int width, int rows,
                            bool anti, size_t& smem) {
   Packed P = packed_base(a, a_tile, width);

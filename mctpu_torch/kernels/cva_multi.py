@@ -820,7 +820,8 @@ def xva_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
                           device=dev)
         prof = torch.empty((n_blocks, 2, g), dtype=torch.float32, device=dev)
         scratch = torch.empty(
-            n_blocks * lib.mctpu_xva_scratch_floats(m, g, 0, int(wide)),
+            lib.mctpu_xva_scratch_floats(m, g, 0, int(wide), n_blocks,
+                                         plan.rows, plan.iters),
             dtype=torch.float32, device=dev)
         status = lib.mctpu_xva(
             ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),
@@ -849,8 +850,8 @@ def xva_greek_partials(ops: Operands, seed: int, block_offset: int,
         out = torch.empty((n_blocks, N_XVA_GREEK_SCALARS + 4 * m),
                           dtype=torch.float32, device=dev)
         scratch = torch.empty(
-            max(1, n_blocks * lib.mctpu_xva_scratch_floats(m, g, 1,
-                                                           int(wide))),
+            max(1, lib.mctpu_xva_scratch_floats(m, g, 1, int(wide), n_blocks,
+                                                plan.rows, plan.iters)),
             dtype=torch.float32, device=dev)
         status = lib.mctpu_xva_greeks(
             ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),

@@ -650,8 +650,11 @@ _MW_CASES = {
     "a3_n50_f32": (3, 50, False, False),
     "a8_n7_antithetic_f32": (8, 7, True, False),
     "a8_n16": (8, 16, False, True),
+    "a9_n13_antithetic": (9, 13, True, True),
     "a16_n13": (16, 13, False, True),
     "a16_n7_antithetic_f32": (16, 7, True, False),
+    "a17_n13": (17, 13, False, True),
+    "a32_n7_antithetic_f32": (32, 7, True, False),
     "a100_n5": (100, 5, False, True),
     "a100_n4_antithetic": (100, 4, True, True),
 }
@@ -672,7 +675,9 @@ def _mw_setup(dev, a, n_obs, antithetic, kahan, rows=16):
 @pytest.mark.parametrize("case", sorted(_MW_CASES))
 @pytest.mark.parametrize("product", sorted(_MW_PRODUCTS))
 def test_multi_walk_kernels_match_plain(dev, case, product):
-    """K30 (a <= 8) and K31 against the plain version, both products."""
+    """K30 (a <= 8) and K31 against the plain version, both products; K31
+    at the edges of its register instances (9, 16; 17, 32) and in its
+    shared-memory design (100)."""
     a, n_obs, antithetic, kahan = _MW_CASES[case]
     kind, up, h = _MW_PRODUCTS[product]
     bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan)
@@ -785,6 +790,7 @@ _MW_PACKED = {
     "a9_n13": (9, 13, False, True),
     "a16_n12_antithetic": (16, 12, True, True),
     "a16_n7_f32": (16, 7, False, False),
+    "a32_n5_antithetic": (32, 5, True, True),
     "a100_n5_antithetic_f32": (100, 5, True, False),
     "a129_n4": (129, 4, False, True),
 }
@@ -893,12 +899,14 @@ def test_multi_walk_packed_bar_greek_launch_counter(dev):
 
 
 @pytest.mark.parametrize("rows", [24, 35])
-@pytest.mark.parametrize("case", ["a16_n7_f32", "a100_n5_antithetic_f32"])
+@pytest.mark.parametrize("case", ["a16_n7_f32", "a32_n5_antithetic",
+                                  "a100_n5_antithetic_f32"])
 def test_multi_walk_packed_uneven_rows_match_plain(dev, case, rows):
     """K31 (both products) and K33 against their plain versions at rows
     that are not a power of two: K31 splits them evenly over its passes
-    (at 35 rows of 16 assets its last pass holds a row fewer), K33 takes
-    a power of two of rows a pass."""
+    (at 35 rows of 16 assets its last pass holds a row fewer; 32 assets
+    take one pass of all the rows, 96 or 140 of its threads), K33 takes a
+    power of two of rows a pass."""
     a, n_obs, antithetic, kahan = _MW_PACKED[case]
     bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan, rows=rows)
     lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, n_obs))
@@ -1108,6 +1116,8 @@ _XVA_CASES = {
     "m8_mixed_g13_antithetic_f32": (8, True, 13, True, False),
     "m9_mixed_g13": (9, True, 13, False, True),
     "m16_g12_antithetic": (16, False, 12, True, True),
+    "m17_mixed_g13_antithetic_f32": (17, True, 13, True, False),
+    "m100_mixed_g7": (100, True, 7, False, True),
 }
 
 
@@ -1169,6 +1179,30 @@ def test_xva_ties_cva_multi_and_runtime_m_kernels(dev, antithetic):
         _mw_greek_pairs(kcm.xva_greek_partials(gops, SEED, 0, plan,
                                                NB)).cpu().numpy(),
         plan.iters * plan.units_per_iter, RTOL)
+
+
+def test_xva_runtime_m_capped_grid_matches_plain(dev):
+    """K43's runtime-m kernel past its register tiles (33 underlyings) on
+    2048 (block, slice) items, more than the card holds at once, so each
+    CUDA block of the capped grid takes several: against the plain version,
+    two launches bitwise, the block offsets."""
+    ops, _ = _xva_setup(dev, 33, True, 3, False, True)
+    plan = kcm.make_plan(256 * 64 * 128, 256, 64, False, True,
+                         n_underlyings=1)
+    _contract(lambda off, nb: kcm.xva_partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kcm.xva_plain_partials(ops, SEED, off, plan,
+                                                     nb), n_blocks=256)
+
+
+def test_xva_runtime_m_long_grid_matches_plain(dev):
+    """K43's runtime-m kernel at 1601 nodes, where a CUDA block's profile
+    slots outgrow shared memory and lie in its scratch: against the plain
+    version, two launches bitwise, the block offsets."""
+    ops, _ = _xva_setup(dev, 9, True, 1601, False, True)
+    plan = kcm.make_plan(3 * 8 * 128, 3, 8, False, True, n_underlyings=1)
+    _contract(lambda off, nb: kcm.xva_partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kcm.xva_plain_partials(ops, SEED, off, plan,
+                                                     nb), n_blocks=3)
 
 
 def test_xva_launch_counters_and_bad_operands(dev):

@@ -103,7 +103,7 @@ def test_k53_matches_interpret_mode(kind):
     assert_quads_close(got, want, RTOL, jplan.paths_per_block)
 
 
-@pytest.mark.parametrize("n_assets", [3, 12])
+@pytest.mark.parametrize("n_assets", [3, 12, 100, 300])
 def test_k54_matches_interpret_mode(n_assets):
     import jax.numpy as jnp
 

@@ -16,8 +16,9 @@ default ``EngineConfig``), after one warm-up call:
   (kernels, copies, fills) that ``torch.profiler`` records in one call;
 * kernel ms — the same for the call's own CUDA kernels alone (both
   launches of a control-variate call; an MLMC call's level-0 kernel and
-  its level kernel; an RQMC call's net kernel and its chunk carry; 0 for a call with no kernel of its own, the rule fit
-  and the Heston American);
+  its level kernel; an RQMC call's net kernel and its chunk carry; the
+  runtime-m xVA's slice kernel and its fold; 0 for a call with no kernel
+  of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
   ``LAUNCHES`` counters).
@@ -78,6 +79,7 @@ def calls(mt):
     ba3 = BasketAsianOption(b3, n_obs=50)
     bb3 = BasketBarrierOption(b3, 130.0, n_obs=50)
     ba16 = BasketAsianOption(BasketOption.equicorrelated(16), n_obs=50)
+    bb16 = BasketBarrierOption(ba16.basket, 130.0, n_obs=50)
     eq3 = BasketOption.equicorrelated(3, 0.3)
     ga3 = BasketAsianOption(eq3, n_obs=16)
     gb3 = BasketBarrierOption(eq3, 130.0, n_obs=50)
@@ -232,8 +234,11 @@ def calls(mt):
          lambda: mt.price_basket_asian(ba3, n22, SEED)),
         ("price_basket_barrier a=3 up-and-out, n_obs=50, 2^22",
          "mw_walk_am_kernel", lambda: mt.price_basket_barrier(bb3, n22, SEED)),
-        ("price_basket_asian a=16, n_obs=50, 2^22", "mw_walk_packed_kernel",
+        ("price_basket_asian a=16, n_obs=50, 2^22", "mw_walk_reg_kernel",
          lambda: mt.price_basket_asian(ba16, n22, SEED)),
+        ("price_basket_barrier a=16 up-and-out, n_obs=50, 2^22",
+         "mw_walk_reg_kernel",
+         lambda: mt.price_basket_barrier(bb16, n22, SEED)),
         ("greeks_basket_asian a=3, n_obs=16, 2^24", "mw_greeks_am_kernel",
          lambda: mt.greeks(ga3, n24, SEED)),
         ("greeks_basket_barrier a=3, n_obs=50, 2^23",
@@ -260,7 +265,8 @@ def calls(mt):
          lambda: mt.greeks(cmg16, 1 << 20, SEED)),
         ("price_xva m=3, n_grid=50, 2^20", "xva_am_kernel",
          lambda: mt.price_xva(xva3, 1 << 20, SEED)),
-        ("price_xva m=16, n_grid=50, 2^20", "xva_wide_kernel",
+        ("price_xva m=16, n_grid=50, 2^20",
+         ("xva_slice_kernel", "xva_fold_kernel"),
          lambda: mt.price_xva(xva16, 1 << 20, SEED)),
         ("greeks_xva m=3, n_grid=12, 2^20", "xva_greeks_am_kernel",
          lambda: mt.greeks_xva(xvag, 1 << 20, SEED)),

@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Time K31 (the packed multi-asset walk) and K43's runtime-m xVA kernel
+at ``chip_smoke.py``'s phase 6 shapes on one GPU, against another
+checkout in the same process.
+
+Run from the repository root on a machine with a CUDA device and ``nvcc``:
+
+    python3 tools/time_redesign.py [--root DIR] [--reps 7]
+
+``--root`` names another checkout (an unpacked earlier version, say): its
+``mctpu_torch`` is imported beside this one's, both libraries are built
+(in parallel), and every case runs the two in turns, P V V P (P the other
+checkout, V this one), so that both are timed in one process on one card.
+Without ``--root`` only this checkout runs.  The cases, on the default
+``EngineConfig``'s layout: K31 on ``equicorrelated(16)`` at 50 dates and
+2^22 paths, the arithmetic Asian and the up-and-out at H = 130, and the
+Asian at 32 assets (2^22) and at 100 (2^20); K43's runtime-m kernel on the
+JAX exotic CLI's ``--product xva`` set at 16 and 32 underlyings, 50 nodes,
+2^20 paths, and at 100 underlyings, 12 nodes, 2^16 (``chip_smoke.py``'s
+100-set run); K44's runtime-m kernel on the JAX Greeks CLI's set at 16
+underlyings, 12 nodes, 2^20.  Each time is the median of ``--reps``
+launches timed by CUDA events after one warm-up launch.  Prints the card's
+name and power limit, one line per case and version, and a JSON line of
+them last.  Imports neither jax nor mctpu.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import json
+import statistics
+import subprocess
+import sys
+import threading
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SEED = 20240607
+MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
+           "mctpu_torch.kernels.multi_walk", "mctpu_torch.kernels.cva_multi",
+           "mctpu_torch.types")
+
+
+def _drop_port_modules() -> None:
+    for name in [k for k in sys.modules
+                 if k == "mctpu_torch" or k.startswith("mctpu_torch.")]:
+        del sys.modules[name]
+
+
+def load(root: Path) -> SimpleNamespace:
+    """``root``'s ``mctpu_torch`` modules, imported afresh and then taken
+    out of ``sys.modules``, so that another checkout's load next to it
+    imports its own (the modules bind their imports at import time)."""
+    _drop_port_modules()
+    sys.path.insert(0, str(root))
+    try:
+        mods = [importlib.import_module(name) for name in MODULES]
+    finally:
+        sys.path.remove(str(root))
+        _drop_port_modules()
+    build, engine, kmw, kcm, types = mods
+    return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
+                           kcm=kcm, types=types)
+
+
+def kernel_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def netting_set(t, m: int, n_grid: int):
+    """``chip_smoke.cva_multi_spec``: the JAX exotic CLI's ``--product
+    cva-multi`` set of ``m`` calls (s = k = 100, v = 0.2, correlation 0.5,
+    w = 1/m, lambda 0.03, lgd 0.6, r 0.05, T 1)."""
+    corr = np.full((m, m), 0.5) + 0.5 * np.eye(m)
+    full = np.full(m, 100.0)
+    return t.CvaMultiSpec(0.03, 0.6, full, np.full(m, 0.2), corr, 0.05, 1.0,
+                          full, np.full(m, 1.0 / m), n_grid)
+
+
+def greeks_set(t, m: int):
+    """``chip_smoke.cva_greeks_cli_spec``: the JAX Greeks CLI's set."""
+    i = np.arange(m)
+    return dataclasses.replace(
+        netting_set(t, m, 12), s=100.0 * (1.0 - 0.05 * i),
+        v=0.2 * (1.0 + 0.25 * i), r=0.04879,
+        corr=np.full((m, m), 0.3) + 0.7 * np.eye(m), weights=np.ones(m))
+
+
+def cases(v: SimpleNamespace):
+    """``[(name, launch)]`` of one version, built from its own API."""
+    t, engine, kmw, kcm = v.types, v.engine, v.kmw, v.kcm
+    cfg = engine.EngineConfig()
+    out = []
+    for a, n, barrier in ((16, 1 << 22, False), (16, 1 << 22, True),
+                          (32, 1 << 22, False), (100, 1 << 20, False)):
+        bk = t.BasketOption.equicorrelated(a)
+        if barrier:
+            opt = t.BasketBarrierOption(bk, 130.0, n_obs=50)
+            plan, ops = engine.basket_barrier_setup(opt, n, cfg)
+        else:
+            opt = t.BasketAsianOption(bk, n_obs=50)
+            plan, ops = engine.basket_asian_setup(opt, n, cfg)
+        product = "barrier" if barrier else "asian"
+        name = (f"K31 {'knock-out H=130' if barrier else 'asian'} a={a} "
+                f"50 dates 2^{n.bit_length() - 1}")
+        out.append((name, lambda o=ops, p=plan, pr=product:
+                    kmw.partials(*o, SEED, 0, p, p.num_blocks, pr, 50, True)))
+    for m, g, n in ((16, 50, 1 << 20), (32, 50, 1 << 20), (100, 12, 1 << 16)):
+        xs = t.XvaSpec(netting_set(t, m, g), own_intensity=0.02,
+                       own_lgd=0.5, funding_spread=0.01)
+        plan, ops = engine.price_xva_setup(xs, n, cfg)
+        out.append((f"K43 runtime-m m={m} {g} nodes 2^{n.bit_length() - 1}",
+                    lambda o=ops, p=plan: kcm.xva_partials(
+                        o, SEED, 0, p, p.num_blocks)))
+    xs = t.XvaSpec(greeks_set(t, 16), own_intensity=0.02, own_lgd=0.5,
+                   funding_spread=0.01)
+    plan, ops = engine.greeks_xva_setup(xs, 1 << 20, cfg)
+    out.append(("K44 runtime-m m=16 12 nodes 2^20",
+                lambda o=ops, p=plan: kcm.xva_greek_partials(
+                    o, SEED, 0, p, p.num_blocks)))
+    return out
+
+
+def build_all(versions) -> None:
+    """Each version's kernel library, built in parallel threads."""
+    errors = []
+
+    def run(v):
+        try:
+            v.build.library()
+        except Exception as exc:  # re-raised below, in the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(v,)) for v in versions]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=None)
+    ap.add_argument("--reps", type=int, default=7)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    this = load(ROOT)
+    other = load(args.root.resolve()) if args.root is not None else None
+    build_all([v for v in (other, this) if v is not None])
+    mine = cases(this)
+    theirs = cases(other) if other is not None else None
+    out = []
+    for k, (name, fn) in enumerate(mine):
+        if theirs is None:
+            order = (("V", fn),)
+        else:
+            order = (("P", theirs[k][1]), ("V", fn), ("V", fn),
+                     ("P", theirs[k][1]))
+        times = []
+        for tag, f in order:
+            ms = kernel_ms(f, args.reps)
+            times.append(ms)
+            out.append({"case": name, "version": tag, "ms": ms,
+                        "root": str(other.root if tag == "P" else ROOT),
+                        "card": smi})
+        print(f"{name}: " + " ".join(f"{tag} {ms:.4f}" for (tag, _), ms
+                                     in zip(order, times)) + " ms",
+              flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
