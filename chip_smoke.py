@@ -3090,20 +3090,24 @@ def main() -> int:
                                                        n))
     spec50 = CvaSpec(0.03, 0.6, VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0),
                      50)
-    for label, port, prec in (
+    # K4 at rows 32: eight 4-row slices a block, two iterations, folded.
+    for label, port, prec, anti in (
             ("K4 n_grid=50", CvaPortfolioSpec.from_single(spec50),
-             Precision.F32_KAHAN),
+             Precision.F32_KAHAN, False),
             ("K4 WWR b=0.8", CvaPortfolioSpec.from_single(spec50, wwr_b=0.8),
-             Precision.F32_KAHAN),
+             Precision.F32_KAHAN, False),
             ("K4 F32_DS", CvaPortfolioSpec.from_single(spec50),
-             Precision.F32_DS),
+             Precision.F32_DS, False),
             ("K4 netted 2-option", CvaPortfolioSpec(
                 0.03, 0.6, 100.0, 0.05, 0.2, 1.0, [95.0, 110.0], [1.0, -0.5],
-                0.0, 50), Precision.F32_KAHAN)):
+                0.0, 50), Precision.F32_KAHAN, False),
+            ("K4 antithetic WWR b=0.8 F32_DS",
+             CvaPortfolioSpec.from_single(spec50, wwr_b=0.8),
+             Precision.F32_DS, True)):
         ops = kcva.operands(port, dev)
         wwr = float(port.wwr_b) != 0.0
-        plan = kcva.make_plan(nb * iters * rows * 128, nb, rows, False,
-                              prec.kahan, prec.ds)
+        plan = kcva.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                              nb, rows, anti, prec.kahan, prec.ds)
         contract(label,
                  lambda off, n: kcva.partials(ops, SEED, off, plan, n, wwr),
                  lambda off, n: kcva.plain_partials(ops, SEED, off, plan, n,

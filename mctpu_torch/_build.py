@@ -72,8 +72,9 @@ _SIGNATURES = {
     # iters, antithetic, kahan, ds, wwr, scratch, out, ee, stream
     "mctpu_cva": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P),
-    # n_grid -> float count of one block's profile scratch
-    "mctpu_cva_scratch_floats": (_I,),
+    # n_grid, n_blocks, rows, iters -> float count of K4's scratch (its
+    # slices' sums and profile rows, profile slots past shared memory)
+    "mctpu_cva_scratch_floats": (_I, _I, _I, _I),
     # par, seed, off, n_blocks, rows, iters, antithetic, put, kahan, out,
     # stream
     "mctpu_greeks_vanilla": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),

@@ -308,6 +308,81 @@ struct BlockAccN {
   }
 };
 
+// The split walks (K4, K43's runtime-m kernel) cut a simulation block's
+// rows into slices, one CUDA block per (block, slice) item.  A slice writes
+// per iteration its N per-thread sums reduced over the block (block_row)
+// into scratch [B][iters][S][N], and at the end its profile row into
+// [B][S][gp] after them; slice_fold adds the slices in order.  The order
+// depends on the plan alone, so two launches and any block offset give the
+// same bits.
+
+// The N per-thread sums v reduced over the block (BlockAccN's tree and warp
+// order, no carry) into dst; v is zeroed.  sh: WARPS * N floats.
+template <int THREADS, int N>
+__device__ __forceinline__ void block_row(float (&v)[N], float* sh,
+                                          float* dst) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float r = v[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, o));
+    }
+    if (lane == 0) sh[warp * N + k] = r;
+    v[k] = 0.0f;
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float t = sh[threadIdx.x];
+    for (int w = 1; w < THREADS / 32; ++w) {
+      t = __fadd_rn(t, sh[w * N + threadIdx.x]);
+    }
+    dst[threadIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// Item idx of a fold over n_blocks * (N + gp) items: for k < N, block b's
+// sum k, per iteration its slices added in order and carried over the
+// iterations (Kahan under KAHAN, as BlockAccN carries) into out (B, N);
+// past N, node k - N of its profile, the slices' rows added in order, into
+// prof_out (B, gp).
+template <int N, bool KAHAN>
+__device__ __forceinline__ void slice_fold(const float* __restrict__ scratch,
+                                           int n_blocks, int iters,
+                                           int slices, int gp, int idx,
+                                           float* __restrict__ out,
+                                           float* __restrict__ prof_out) {
+  const int items = n_blocks * slices, per = N + gp;
+  const float* sums = scratch;
+  const float* sprof = sums + static_cast<size_t>(items) * iters * N;
+  if (idx >= n_blocks * per) return;
+  const int b = idx / per, k = idx - b * per;
+  if (k < N) {
+    float s = 0.0f, c = 0.0f;
+    for (int i = 0; i < iters; ++i) {
+      const float* row =
+          sums + (static_cast<size_t>(b) * iters + i) * slices * N + k;
+      float t = row[0];
+      for (int sl = 1; sl < slices; ++sl) t = __fadd_rn(t, row[sl * N]);
+      if (KAHAN) {
+        kahan_add(s, c, t);
+      } else {
+        s = __fadd_rn(s, t);
+      }
+    }
+    out[static_cast<size_t>(b) * N + k] = __fadd_rn(s, c);
+  } else {
+    const float* col = sprof + static_cast<size_t>(b) * slices * gp + (k - N);
+    float total = 0.0f;
+    for (int sl = 0; sl < slices; ++sl) {
+      total = __fadd_rn(total, col[static_cast<size_t>(sl) * gp]);
+    }
+    prof_out[static_cast<size_t>(b) * gp + (k - N)] = total;
+  }
+}
+
 // Adds one path's outputs q [S scalars, d.., v..] (the asset-major Greek
 // kernels' scalars, two but for K44's seven, and A-vectors) to the
 // per-thread sums, in the row order [p, p2, gr, gr2, .., d.., d2.., v..,

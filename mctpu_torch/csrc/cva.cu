@@ -16,14 +16,27 @@
 // Bound on the H100: arithmetic and latency.  Per path-step: one expf for
 // the spot, two Hastings CDFs (an expf and an IEEE divide each) per option,
 // half a Philox block and Box-Muller, and a serial dependence from node to
-// node.  Simple design: one CUDA block (256 threads) per simulation block,
-// one thread per path element, striding over the (rows, 128) tile.  The EE
-// profile is reduced per node by a fixed warp-shuffle tree and
-// Kahan-added by lane 0 into its warp's own slot, then combined across warps
-// in warp order: no atomics, deterministic.  Node tables and profile slots
-// live in shared memory when they fit, otherwise in global memory.  With
-// layout_for's few wide blocks (32 at 2^20 paths) most of the 132 SMs idle
-// (see PERF.md).
+// node.  Design: split.  layout_for keeps the TPU's few wide simulation
+// blocks (32 of 256 rows at 2^20 paths), and one CUDA block each would
+// leave 100 of the 132 SMs idle with a serial walk of 128 paths a thread.
+// So each simulation block's rows are cut into slices of SLICE_ROWS rows,
+// one CUDA block (256 threads) per (block, slice): 2048 CUDA blocks at 2^20
+// paths.  A slice walks its elements as the unsplit walk (element e = row *
+// 128 + lane under (seed, (off + b) * iters + i)), one thread per element
+// striding over the slice, so every path's draws and node values are
+// unchanged.  The EE profile is reduced per node by a fixed warp-shuffle
+// tree and Kahan-added by lane 0 into its warp's own slot; a slice writes
+// per iteration its (sum cva, sum cva^2) reduced over the block
+// (mct::block_row) and at the end its profile row (the warps' slots in
+// order), and cva_fold_kernel adds the slices in order (mct::slice_fold:
+// the iteration sums Kahan-carried under KAHAN).  No atomics: the order
+// depends on the plan alone.  Node tables and profile slots live in shared
+// memory when they fit (92 bytes a node: 46 KB at 500 nodes, four CUDA
+// blocks an SM), otherwise in global memory, with the grid capped at the
+// blocks the card holds and each CUDA block taking (block, slice) items in
+// turn.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -128,23 +141,54 @@ __device__ float walk(const Ctx& cx, mct::Key key, uint32_t e, float sgn,
   return cx.lgd * acc;
 }
 
+// Rows of a slice: 2048 CUDA blocks at 2^20 paths (32 x 256 rows), 3.9
+// waves of the 528 the card holds at 500 nodes (four an SM by shared
+// memory); each thread walks 2 elements an iteration.  8-row slices (1024
+// CUDA blocks, 4 elements a thread) took 2-3% longer at 500 nodes on an
+// H100 (tools/time_redesign.py, see PERF.md).
+constexpr int SLICE_ROWS = 4;
+
+size_t smem_need(int g) {
+  return (static_cast<size_t>(N_TABLES) + 2 * WARPS) * g * sizeof(float);
+}
+
+// The split launch: its slices a simulation block, (block, slice) items and
+// CUDA blocks, whether tables and profile slots sit in shared memory, and
+// its scratch in floats: the slices' iteration sums [B][iters][S][2] and
+// profile rows [B][S][g], then, past shared memory, per CUDA block of the
+// grid its profile slots [WARPS][g][2].
+struct Split {
+  int slices, items, grid;
+  bool use_smem;
+  size_t total;
+};
+
+using SliceFn = void (*)(const float*, const float*, const float*, int, int,
+                         uint32_t, uint32_t, int, int, int, int, int, float*);
+
 template <bool ANTI, bool KAHAN, bool DS, bool WWR>
 __global__ void __launch_bounds__(THREADS)
-    cva_kernel(const float* __restrict__ scal, const float* __restrict__ opts,
-               const float* __restrict__ nodes_g, int n_options, int g,
-               uint32_t seed, uint32_t off, int n_elems, int iters,
-               int use_smem, float* __restrict__ scratch,
-               float* __restrict__ out, float* __restrict__ ee_out) {
+    cva_slice_kernel(const float* __restrict__ scal,
+                     const float* __restrict__ opts,
+                     const float* __restrict__ nodes_g, int n_options, int g,
+                     uint32_t seed, uint32_t off, int rows, int iters,
+                     int n_blocks, int slices, int use_smem,
+                     float* __restrict__ scratch) {
   extern __shared__ float smem[];
+  __shared__ float sh[WARPS * 2];
+  const int items = n_blocks * slices;
+  const size_t n_slot = static_cast<size_t>(WARPS) * g * 2;
+  float* sums = scratch;
+  float* sprof = sums + static_cast<size_t>(items) * iters * 2;
   const float* nodes = nodes_g;
-  float* prof = scratch + static_cast<size_t>(blockIdx.x) * WARPS * g * 2;
+  float* prof = sprof + static_cast<size_t>(items) * g + blockIdx.x * n_slot;
   if (use_smem) {
-    for (int t = threadIdx.x; t < N_TABLES * g; t += THREADS) smem[t] = nodes_g[t];
+    for (int t = threadIdx.x; t < N_TABLES * g; t += THREADS) {
+      smem[t] = nodes_g[t];
+    }
     nodes = smem;
     prof = smem + N_TABLES * g;
   }
-  for (int t = threadIdx.x; t < WARPS * g * 2; t += THREADS) prof[t] = 0.0f;
-  __syncthreads();
 
   Ctx cx;
   cx.dp = nodes;
@@ -172,88 +216,133 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31;
   float* wprof = prof + warp * g * 2;
   const float half_w = ANTI ? 0.5f : 1.0f;
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int base = 0; base < n_elems; base += THREADS) {
-      // n_elems is a multiple of 128: a warp is wholly inside or outside.
-      if (base + warp * 32 >= n_elems) continue;
-      const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
-      float cva = walk<KAHAN, DS, WWR>(cx, key, e, 1.0f, half_w, wprof, lane);
-      if (ANTI) {
-        cva = 0.5f * (cva + walk<KAHAN, DS, WWR>(cx, key, e, -1.0f, half_w,
-                                                 wprof, lane));
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = item / slices, sl = item - b * slices;
+    const int e0 = sl * SLICE_ROWS * mct::LANES;
+    const int e1 = min(rows, (sl + 1) * SLICE_ROWS) * mct::LANES;
+    for (size_t t = threadIdx.x; t < n_slot; t += THREADS) prof[t] = 0.0f;
+    __syncthreads();
+    float v[2] = {0.0f, 0.0f};
+    for (int i = 0; i < iters; ++i) {
+      const mct::Key key = mct::seed_key(
+          seed, (off + static_cast<uint32_t>(b)) *
+                        static_cast<uint32_t>(iters) +
+                    static_cast<uint32_t>(i));
+      for (int base = e0; base < e1; base += THREADS) {
+        // e1 - e0 is a multiple of 128: a warp is wholly inside or outside.
+        if (base + warp * 32 >= e1) continue;
+        const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
+        float cva =
+            walk<KAHAN, DS, WWR>(cx, key, e, 1.0f, half_w, wprof, lane);
+        if (ANTI) {
+          cva = 0.5f * (cva + walk<KAHAN, DS, WWR>(cx, key, e, -1.0f, half_w,
+                                                   wprof, lane));
+        }
+        v[0] = __fadd_rn(v[0], cva);
+        v[1] = __fadd_rn(v[1], __fmul_rn(cva, cva));
       }
-      acc.add(cva);
+      mct::block_row<THREADS, 2>(
+          v, sh, sums + ((static_cast<size_t>(b) * iters + i) * slices + sl) *
+                            2);
     }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < g; j += THREADS) {
-    float total = 0.0f;
-    for (int w = 0; w < WARPS; ++w) {
-      const float* slot = prof + (w * g + j) * 2;
-      total = __fadd_rn(total, __fadd_rn(slot[0], slot[1]));
+    // block_row's barrier orders the last profile adds before these reads.
+    for (int j = threadIdx.x; j < g; j += THREADS) {
+      float total = 0.0f;
+      for (int w = 0; w < WARPS; ++w) {
+        const float* slot = prof + (w * g + j) * 2;
+        total = __fadd_rn(total, __fadd_rn(slot[0], slot[1]));
+      }
+      sprof[static_cast<size_t>(item) * g + j] = total;
     }
-    ee_out[static_cast<size_t>(blockIdx.x) * g + j] = total;
+    __syncthreads();
   }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
 }
 
-template <bool ANTI, bool KAHAN, bool DS, bool WWR>
-int launch(const float* scal, const float* opts, const float* nodes,
-           int n_options, int g, uint32_t seed, uint32_t off, int n_blocks,
-           int n_elems, int iters, float* scratch, float* out, float* ee,
-           cudaStream_t stream) {
-  const size_t smem_need =
-      (static_cast<size_t>(N_TABLES) * g + static_cast<size_t>(WARPS) * g * 2) *
-      sizeof(float);
-  const int use_smem = smem_need <= SMEM_LIMIT;
-  const size_t smem = use_smem ? smem_need : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cva_kernel<ANTI, KAHAN, DS, WWR>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cva_kernel<ANTI, KAHAN, DS, WWR><<<n_blocks, THREADS, smem, stream>>>(
-      scal, opts, nodes, n_options, g, seed, off, n_elems, iters, use_smem,
-      scratch, out, ee);
-  return 0;
+template <bool KAHAN>
+__global__ void cva_fold_kernel(const float* __restrict__ scratch,
+                                int n_blocks, int iters, int slices, int g,
+                                float* __restrict__ out,
+                                float* __restrict__ ee) {
+  mct::slice_fold<2, KAHAN>(scratch, n_blocks, iters, slices, g,
+                            blockIdx.x * blockDim.x + threadIdx.x, out, ee);
 }
-
-using LaunchFn = int (*)(const float*, const float*, const float*, int, int,
-                         uint32_t, uint32_t, int, int, int, float*, float*,
-                         float*, cudaStream_t);
 
 // Indexed by antithetic << 3 | kahan << 2 | ds << 1 | wwr.
-constexpr LaunchFn LAUNCHERS[16] = {
-    launch<false, false, false, false>, launch<false, false, false, true>,
-    launch<false, false, true, false>,  launch<false, false, true, true>,
-    launch<false, true, false, false>,  launch<false, true, false, true>,
-    launch<false, true, true, false>,   launch<false, true, true, true>,
-    launch<true, false, false, false>,  launch<true, false, false, true>,
-    launch<true, false, true, false>,   launch<true, false, true, true>,
-    launch<true, true, false, false>,   launch<true, true, false, true>,
-    launch<true, true, true, false>,    launch<true, true, true, true>,
+constexpr SliceFn SLICE_FNS[16] = {
+    cva_slice_kernel<false, false, false, false>,
+    cva_slice_kernel<false, false, false, true>,
+    cva_slice_kernel<false, false, true, false>,
+    cva_slice_kernel<false, false, true, true>,
+    cva_slice_kernel<false, true, false, false>,
+    cva_slice_kernel<false, true, false, true>,
+    cva_slice_kernel<false, true, true, false>,
+    cva_slice_kernel<false, true, true, true>,
+    cva_slice_kernel<true, false, false, false>,
+    cva_slice_kernel<true, false, false, true>,
+    cva_slice_kernel<true, false, true, false>,
+    cva_slice_kernel<true, false, true, true>,
+    cva_slice_kernel<true, true, false, false>,
+    cva_slice_kernel<true, true, false, true>,
+    cva_slice_kernel<true, true, true, false>,
+    cva_slice_kernel<true, true, true, true>,
 };
+
+// The split launch of K4.  Past shared memory the grid is the blocks the
+// card holds at once (by the occupancy of the widest instance), capped at
+// the items; the sums do not depend on it.
+Split split(int g, int n_blocks, int rows, int iters) {
+  Split X{};
+  X.slices = (rows + SLICE_ROWS - 1) / SLICE_ROWS;
+  X.items = n_blocks * X.slices;
+  X.use_smem = smem_need(g) <= SMEM_LIMIT;
+  X.grid = X.items;
+  const size_t n_slot = static_cast<size_t>(WARPS) * g * 2;
+  if (!X.use_smem) {
+    int dev = 0, sms = 1, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, SLICE_FNS[15],
+                                                  THREADS, 0);
+    X.grid = std::min(X.items, std::max(1, per_sm) * sms);
+  }
+  X.total = static_cast<size_t>(X.items) * (2 * iters + g) +
+            (X.use_smem ? 0 : static_cast<size_t>(X.grid) * n_slot);
+  return X;
+}
 
 }  // namespace
 
-extern "C" int mctpu_cva_scratch_floats(int n_grid) { return WARPS * n_grid * 2; }
+// Floats of K4's scratch for a launch (Split::total).
+extern "C" int mctpu_cva_scratch_floats(int n_grid, int n_blocks, int rows,
+                                        int iters) {
+  return static_cast<int>(split(n_grid, n_blocks, rows, iters).total);
+}
 
 extern "C" int mctpu_cva(const float* scal, const float* opts,
                          const float* nodes, int n_options, int n_grid,
                          int seed, int off, int n_blocks, int rows, int iters,
                          int antithetic, int kahan, int ds, int wwr,
                          float* scratch, float* out, float* ee, void* stream) {
-  const int idx = (antithetic ? 8 : 0) | (kahan ? 4 : 0) | (ds ? 2 : 0) |
-                  (wwr ? 1 : 0);
-  const int err = LAUNCHERS[idx](
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Split X = split(n_grid, n_blocks, rows, iters);
+  const SliceFn fn = SLICE_FNS[(antithetic ? 8 : 0) | (kahan ? 4 : 0) |
+                               (ds ? 2 : 0) | (wwr ? 1 : 0)];
+  const size_t smem = X.use_smem ? smem_need(n_grid) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<X.grid, THREADS, smem, s>>>(
       scal, opts, nodes, n_options, n_grid, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(off), n_blocks, rows * mct::LANES, iters, scratch,
-      out, ee, static_cast<cudaStream_t>(stream));
-  if (err != 0) return err;
+      static_cast<uint32_t>(off), rows, iters, n_blocks, X.slices,
+      X.use_smem ? 1 : 0, scratch);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int work = n_blocks * (2 + n_grid);
+  (kahan ? cva_fold_kernel<true> : cva_fold_kernel<false>)<<<
+      (work + 255) / 256, 256, 0, s>>>(scratch, n_blocks, iters, X.slices,
+                                       n_grid, out, ee);
   return static_cast<int>(cudaGetLastError());
 }

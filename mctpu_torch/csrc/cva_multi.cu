@@ -1144,33 +1144,6 @@ __device__ __forceinline__ void reg_xva_walk(const XvaOps<MT>& o,
   for (int k = 0; k < 4; ++k) leg[k] = lg[k];
 }
 
-// The 8 per-thread sums v reduced over the block (BlockAccN's tree and
-// warp order, no carry) into dst; v is zeroed.  sh: WARPS * 8 floats.
-template <int THREADS>
-__device__ __forceinline__ void block_row8(float (&v)[8], float* sh,
-                                           float* dst) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float r = v[k];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, o));
-    }
-    if (lane == 0) sh[warp * 8 + k] = r;
-    v[k] = 0.0f;
-  }
-  __syncthreads();
-  if (threadIdx.x < 8) {
-    float t = sh[threadIdx.x];
-    for (int w = 1; w < THREADS / 32; ++w) {
-      t = __fadd_rn(t, sh[w * 8 + threadIdx.x]);
-    }
-    dst[threadIdx.x] = t;
-  }
-  __syncthreads();
-}
-
 // A split launch: its slices a simulation block, (block, slice) items and
 // CUDA blocks, whether the profile slots fit in shared memory, and its
 // scratch in floats: the slices' iteration sums [B][iters][S][8] and
@@ -1265,54 +1238,27 @@ __global__ void __launch_bounds__(WIDE_THREADS, MT == 16 ? 2 : 1)
         }
         xva_leg_sums(legs[0], ANTI ? legs[1] : nullptr, lgd, olgd, v);
       }
-      block_row8<THREADS>(
+      mct::block_row<THREADS, 8>(
           v, sh, sums + ((static_cast<size_t>(b) * L.iters + i) * slices +
                          sl) * 8);
     }
-    // block_row8's barrier orders the last profile adds before these reads.
+    // block_row's barrier orders the last profile adds before these reads.
     profile_write_to<THREADS>(prof, WARPS, g2,
                               sprof + static_cast<size_t>(item) * g2);
     __syncthreads();
   }
 }
 
-// The slices of each simulation block added in order: per iteration its 8
-// slice sums, carried over the iterations (Kahan under KAHAN) as BlockAccN
-// carries its warps' sums, into out (B, 8); the profile rows into prof_out
-// (B, 2g).
+// The slices of each simulation block added in order (mct::slice_fold): the
+// 8 leg sums into out (B, 8), the profile rows into prof_out (B, 2g).
 template <bool KAHAN>
 __global__ void xva_fold_kernel(const float* __restrict__ scratch,
                                 int n_blocks, int iters, int slices, int g2,
                                 float* __restrict__ out,
                                 float* __restrict__ prof_out) {
-  const int items = n_blocks * slices, per = 8 + g2;
-  const float* sums = scratch;
-  const float* sprof = sums + static_cast<size_t>(items) * iters * 8;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_blocks * per) return;
-  const int b = idx / per, k = idx - b * per;
-  if (k < 8) {
-    float s = 0.0f, c = 0.0f;
-    for (int i = 0; i < iters; ++i) {
-      const float* row =
-          sums + (static_cast<size_t>(b) * iters + i) * slices * 8 + k;
-      float t = row[0];
-      for (int sl = 1; sl < slices; ++sl) t = __fadd_rn(t, row[sl * 8]);
-      if (KAHAN) {
-        mct::kahan_add(s, c, t);
-      } else {
-        s = __fadd_rn(s, t);
-      }
-    }
-    out[static_cast<size_t>(b) * 8 + k] = __fadd_rn(s, c);
-  } else {
-    const float* col = sprof + static_cast<size_t>(b) * slices * g2 + (k - 8);
-    float total = 0.0f;
-    for (int sl = 0; sl < slices; ++sl) {
-      total = __fadd_rn(total, col[static_cast<size_t>(sl) * g2]);
-    }
-    prof_out[static_cast<size_t>(b) * g2 + (k - 8)] = total;
-  }
+  mct::slice_fold<8, KAHAN>(scratch, n_blocks, iters, slices, g2,
+                            blockIdx.x * blockDim.x + threadIdx.x, out,
+                            prof_out);
 }
 
 // Adds the n per-thread sums at vals (stride THREADS, zeroed on return)

@@ -63,7 +63,9 @@
 // and no shared-memory round trip remain in the walk, and a block's Philox
 // and product phases overlap across its warps.  Its passes, thread-to-path
 // map and sums are the shared-memory design's, so the block sums are the
-// same bits (and K33's and K35's price sums still equal K31's).  Wider
+// same bits (and K33's and K35's price sums still equal K31's).  K35 takes
+// the same register design at a_tile 16 and 32 (see
+// mw_bar_greeks_reg_kernel), with K33's passes and halving tree.  Wider
 // baskets (a_tile 64 and up, the 100-asset basket) do not fit a thread's
 // registers: a pass keeps its log-spots in shared memory (asset-major over
 // the pass's paths, so a warp's threads hit consecutive words), every pair
@@ -969,8 +971,32 @@ __device__ __forceinline__ void packed_bar_greek_date(
   bm = basket_m;
 }
 
-// K35: K33's passes, shared memory and halving tree (greek_shape sizes
-// it: x, qd, acc_q, acc_v take the places of x, dxv, AS, AV), the
+// pass_tree's levels over K35's (dval, vval) leaves where its paths write
+// them: lane p a_tile + m of local row rl at d[m np + rl c + p] (vval at v
+// likewise), so a column's rows stand c apart; padded lanes sum to exact
+// zeros.
+__device__ __forceinline__ void bar_leaf_tree(const Packed& P, int c0,
+                                              float* d, float* v,
+                                              float* part) {
+  const int W = P.width;
+  for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
+    const int qty = u / W;
+    const int lane = u - qty * W;
+    const int pth = lane / P.a_tile;
+    const int m = lane - pth * P.a_tile;
+    float s1 = 0.0f, s2 = 0.0f;
+    if (m < P.a) {
+      halving_pair((qty ? v : d) + m * P.np_max + pth, P.chunk_rows, P.c, s1,
+                   s2);
+    }
+    part[(4 * c0 + 2 * qty) * W + lane] = s1;
+    part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
+  }
+}
+
+// K35 at a_tile 64 and up: K33's passes, shared memory and halving tree
+// (greek_shape sizes it, for every a_tile: x, qd, acc_q, acc_v take the
+// places of x, dxv, AS, AV), the
 // knock-out flag and last basket value per path in its thread, and at the
 // end the (payoff, rho) sums and the (dval, vval) leaves of mctpu's
 // _bar_greek_payoff: p = alive max(B_T - k, 0), rho = p sum_m acc_q_m sr_m
@@ -987,7 +1013,7 @@ __global__ void __launch_bounds__(PK_THREADS)
                                 Packed P, Launch g, float* __restrict__ out,
                                 float* __restrict__ vecs) {
   extern __shared__ float smem[];
-  const int np = P.np_max, a = P.a, W = P.width, nr = P.chunk_rows;
+  const int np = P.np_max, a = P.a, W = P.width;
   constexpr int NS = ANTI ? 2 : 1;  // signs
   float* z1s = smem;
   float* z2s = z1s + np * P.ap;
@@ -1085,21 +1111,7 @@ __global__ void __launch_bounds__(PK_THREADS)
         }
       }
       __syncthreads();
-      // pass_tree's levels, read from the leaves where they lie: lane p
-      // a_tile + m of local row rl at st[m np + rl c + p], so a column's
-      // rows stand c apart; padded lanes sum to exact zeros.
-      for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
-        const int qty = u / W;
-        const int lane = u - qty * W;
-        const int pth = lane / P.a_tile;
-        const int m = lane - pth * P.a_tile;
-        float s1 = 0.0f, s2 = 0.0f;
-        if (m < a) {
-          halving_pair(st[1 + 2 * qty] + m * np + pth, nr, P.c, s1, s2);
-        }
-        part[(4 * c0 + 2 * qty) * W + lane] = s1;
-        part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
-      }
+      bar_leaf_tree(P, c0, st[1], st[3], part);
       __syncthreads();
     }
     fold_passes(P, part, vec);
@@ -1109,6 +1121,248 @@ __global__ void __launch_bounds__(PK_THREADS)
   for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) {
     vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
   }
+}
+
+// K35 at a_tile AT = 16 or 32 (9-32 assets): K31's register design with
+// K35's scores.  The block stages L (rows at stride AT), L^-1 by columns
+// (column m as row m, its entries j >= m) and the per-asset rows once, and
+// reads them as broadcasts at their use (mct::lds4 / lds1, as K31's).
+template <int AT>
+struct RegGreekOps {
+  float4 l[AT * AT / 4];   // L[i][j] at i * AT + j, zero above the diagonal
+  float4 li[AT * AT / 4];  // L^-1[j][m] at m * AT + j, zero for j < m
+  float4 step[AT];         // drift, vol, d, w of asset i
+  float4 score[AT];        // inv_v, cd, sr, log s0 of asset i
+};
+
+// One date of a path for both signs, packed_bar_greek_date's operations in
+// its order: x, acc_v and the mirror's in registers; qd (written at the
+// first date) and acc_q in the shared slots qd[m np], aq[m np].  The
+// mirror's q is -q exactly, so its qd and acc_q are the negations of these
+// (up to the sign of a zero) and are not kept.
+template <int AT, bool ANTI>
+__device__ __forceinline__ void reg_bar_greek_date(
+    const RegGreekOps<AT>& o, int a, int np, float sqdt, bool first,
+    const float (&z)[AT], float (&x)[AT], float (&xm)[AT], float (&av)[AT],
+    float (&avm)[AT], float* qd, float* aq, float& b, float& bm) {
+  float basket = 0.0f, basket_m = 0.0f;
+#pragma unroll
+  for (int i = 0; i < AT; ++i) {
+    if (i < a) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int q = 0; 4 * q <= i; ++q) {
+        const float4 l4 = mct::lds4(&o.l[i * (AT / 4) + q]);
+        sum = sum + l4.x * z[4 * q];
+        if (4 * q + 1 <= i) sum = sum + l4.y * z[4 * q + 1];
+        if (4 * q + 2 <= i) sum = sum + l4.z * z[4 * q + 2];
+        if (4 * q + 3 <= i) sum = sum + l4.w * z[4 * q + 3];
+      }
+      // Past lane a the entries and normals are 0: the padded terms add
+      // +0 after the real ones (qs is never -0), so qs is unchanged.
+      float qs = 0.0f;
+#pragma unroll
+      for (int q = i / 4; q < AT / 4; ++q) {
+        const float4 l4 = mct::lds4(&o.li[i * (AT / 4) + q]);
+        if (4 * q >= i) qs = qs + l4.x * z[4 * q];
+        if (4 * q + 1 >= i) qs = qs + l4.y * z[4 * q + 1];
+        if (4 * q + 2 >= i) qs = qs + l4.z * z[4 * q + 2];
+        if (4 * q + 3 >= i) qs = qs + l4.w * z[4 * q + 3];
+      }
+      const float4 st = mct::lds4(&o.step[i]);
+      const float inv_v = mct::lds1(&o.score[i].x);
+      const float bt = sum + st.z;
+      x[i] = x[i] + st.x + st.y * bt;
+      if (first) qd[i * np] = qs;
+      aq[i * np] = aq[i * np] + qs;
+      av[i] = av[i] + qs * (bt * inv_v - sqdt);
+      basket = basket + expf(x[i]) * st.w;
+      if (ANTI) {
+        const float btm = -sum + st.z;
+        xm[i] = xm[i] + st.x + st.y * btm;
+        avm[i] = avm[i] + (-qs) * (btm * inv_v - sqdt);
+        basket_m = basket_m + expf(xm[i]) * st.w;
+      }
+    }
+  }
+  b = basket;
+  bm = basket_m;
+}
+
+// mw_bar_greeks_packed_kernel's passes (greek_shape), thread-to-path map,
+// payoff, leaves, halving tree and sums, so out and vecs are that kernel's
+// bit for bit; each thread draws its own path's normals (element row *
+// width + p * AT + m, pair jj) and no barrier remains in the walk.  Shared
+// memory: per lane and path the slot of qd, then of its dval leaf ([a][np])
+// and the slot of acc_q, then of its vval leaf ([a][np]), where the tree
+// reads them; then part and vec as there.
+template <int AT, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(PK_THREADS, AT <= 16 ? 2 : 1)
+    mw_bar_greeks_reg_kernel(const float* __restrict__ scal,
+                             const float* __restrict__ lt,
+                             const float* __restrict__ linv,
+                             const float* __restrict__ par, int up, Packed P,
+                             Launch g, float* __restrict__ out,
+                             float* __restrict__ vecs) {
+  extern __shared__ float smem[];
+  __shared__ RegGreekOps<AT> o;
+  __shared__ float sh[(PK_THREADS / 32) * 4];
+  const int np = P.np_max, a = P.a, W = P.width;
+  float* ld = smem;                        // [a][np]: qd, then dval
+  float* lv = ld + a * np;                 // [a][np]: acc_q, then vval
+  float* part = lv + a * np;               // [n_chunks][4][W]
+  float* vec = part + 4 * P.n_chunks * W;  // [4][W]
+  float* lf = reinterpret_cast<float*>(o.l);
+  float* lif = reinterpret_cast<float*>(o.li);
+  for (int t = threadIdx.x; t < AT * AT; t += PK_THREADS) {
+    const int i = t / AT, j = t - i * AT;
+    lf[t] = (i < a && j <= i) ? lt[i * a + j] : 0.0f;
+    lif[t] = (j < a && j >= i) ? linv[j * a + i] : 0.0f;
+  }
+  float* sf = reinterpret_cast<float*>(o.step);
+  float* cf = reinterpret_cast<float*>(o.score);
+  for (int t = threadIdx.x; t < 4 * AT; t += PK_THREADS) {
+    const int i = t / 4, r = t - 4 * i;
+    sf[t] = i < a ? par[(r + 1) * a + i] : 0.0f;
+    cf[t] = i < a ? par[(r < 3 ? r + 5 : 0) * a + i] : 0.0f;
+  }
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) vec[u] = 0.0f;
+  __syncthreads();
+  const float k = scal[0], t = scal[1], h = scal[2], sqdt = scal[3];
+  const float n = static_cast<float>(g.n_obs);
+  const int q = threadIdx.x;
+  const int pairs = (g.n_obs + 1) / 2;
+  mct::BlockAccN<PK_THREADS, 4, KAHAN> acc;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int it = 0; it < g.iters; ++it) {
+    const mct::Key key = iter_key(g, it);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      if (q < np) {
+        const int row = pass_row(P, c0, q / P.c);
+        const uint32_t e0 =
+            static_cast<uint32_t>(row * W + (q % P.c) * AT);
+        float* qd = ld + q;
+        float* aq = lv + q;
+        float x[AT], xm[AT], av[AT], avm[AT];
+#pragma unroll
+        for (int i = 0; i < AT; ++i) {
+          x[i] = xm[i] = mct::lds1(&o.score[i].w);
+          av[i] = avm[i] = 0.0f;
+          if (i < a) aq[i * np] = 0.0f;
+        }
+        float alive = 1.0f, last = 0.0f, alive_m = 1.0f, last_m = 0.0f;
+        for (int jj = 0; jj < pairs; ++jj) {
+          float z[2][AT];
+#pragma unroll
+          for (int m = 0; m < AT; ++m) {
+            if (m < a) {
+              mct::draw_normal_pair(key, e0 + m, static_cast<uint32_t>(jj),
+                                    z[0][m], z[1][m]);
+            } else {
+              z[0][m] = z[1][m] = 0.0f;
+            }
+          }
+          const int dates = min(2, g.n_obs - 2 * jj);
+#pragma unroll
+          for (int date = 0; date < 2; ++date) {
+            if (date >= dates) break;
+            float b, bm;
+            reg_bar_greek_date<AT, ANTI>(o, a, np, sqdt,
+                                         jj == 0 && date == 0, z[date], x,
+                                         xm, av, avm, qd, aq, b, bm);
+            alive = knock(alive, b, h, up);
+            last = b;
+            if (ANTI) {
+              alive_m = knock(alive_m, bm, h, up);
+              last_m = bm;
+            }
+          }
+        }
+        float p = alive * fmaxf(last - k, 0.0f);
+        float sr = 0.0f;
+#pragma unroll
+        for (int m = 0; m < AT; ++m) {
+          if (m < a) sr = sr + aq[m * np] * mct::lds1(&o.score[m].z);
+        }
+        float gr = p * sr - t * p;
+        float pm = 0.0f;
+        if (ANTI) {
+          pm = alive_m * fmaxf(last_m - k, 0.0f);
+          float srm = 0.0f;
+#pragma unroll
+          for (int m = 0; m < AT; ++m) {
+            if (m < a) srm = srm + (-aq[m * np]) * mct::lds1(&o.score[m].z);
+          }
+          const float grm = pm * srm - t * pm;
+          gr = 0.5f * (gr + grm);
+        }
+        const float p_own = p;
+        if (ANTI) p = 0.5f * (p + pm);
+        v[0] += p;
+        v[1] += p * p;
+        v[2] += gr;
+        v[3] += gr * gr;
+        // The (dval, vval) leaves in place of qd and acc_q.
+#pragma unroll
+        for (int m = 0; m < AT; ++m) {
+          if (m < a) {
+            const float inv_v = mct::lds1(&o.score[m].x);
+            const float cd = mct::lds1(&o.score[m].y);
+            const float qdm = qd[m * np];
+            float dval = p_own * qdm * cd;
+            float vval = p_own * (av[m] - n * inv_v);
+            if (ANTI) {
+              dval = 0.5f * (dval + pm * (-qdm) * cd);
+              vval = 0.5f * (vval + pm * (avm[m] - n * inv_v));
+            }
+            qd[m * np] = dval;
+            aq[m * np] = vval;
+          }
+        }
+      }
+      __syncthreads();
+      bar_leaf_tree(P, c0, ld, lv, part);
+      __syncthreads();
+    }
+    fold_passes(P, part, vec);
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) {
+    vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
+  }
+}
+
+// K35 at a_tile 16 and 32: dynamic shared memory of leaves, part and vec.
+size_t bar_greeks_reg_smem(const Packed& P) {
+  return (2 * static_cast<size_t>(P.a) * P.np_max +
+          (4 * static_cast<size_t>(P.n_chunks) + 4) * P.width) *
+         sizeof(float);
+}
+
+template <int AT>
+int launch_bar_greeks_reg(bool anti, bool kahan, const float* scal,
+                          const float* lt, const float* linv,
+                          const float* par, int up, const Packed& P,
+                          const Launch& g, int n_blocks, float* out,
+                          float* vecs, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      int, Packed, Launch, float*, float*);
+  static const Fn FNS[4] = {mw_bar_greeks_reg_kernel<AT, false, false>,
+                            mw_bar_greeks_reg_kernel<AT, false, true>,
+                            mw_bar_greeks_reg_kernel<AT, true, false>,
+                            mw_bar_greeks_reg_kernel<AT, true, true>};
+  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
+  const size_t smem = bar_greeks_reg_smem(P);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<n_blocks, PK_THREADS, smem, s>>>(scal, lt, linv, par, up, P, g, out,
+                                        vecs);
+  return 0;
 }
 
 Launch make_launch(int n_obs, int seed, int off, int rows, int iters) {
@@ -1244,6 +1498,17 @@ extern "C" int mctpu_multi_walk_bar_greeks_packed(
   const Packed P = greek_shape(n_assets, a_tile, width, rows,
                                (antithetic ? 2 : 1) * K33_LANE_FLOATS, smem);
   if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch g = make_launch(n_obs, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_tile == 16 || a_tile == MW_REG_MAX) {
+    const int err =
+        (a_tile == 16 ? launch_bar_greeks_reg<16>
+                      : launch_bar_greeks_reg<MW_REG_MAX>)(
+            antithetic != 0, kahan != 0, scal, lt, linv, par, up, P, g,
+            n_blocks, out, vecs, s);
+    if (err != 0) return err;
+    return static_cast<int>(cudaGetLastError());
+  }
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       int, Packed, Launch, float*, float*);
   static const Fn FNS[4] = {
@@ -1258,8 +1523,7 @@ extern "C" int mctpu_multi_walk_bar_greeks_packed(
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fn<<<n_blocks, PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      scal, lt, linv, par, up, P, make_launch(n_obs, seed, off, rows, iters),
-      out, vecs);
+  fn<<<n_blocks, PK_THREADS, smem, s>>>(scal, lt, linv, par, up, P, g, out,
+                                        vecs);
   return static_cast<int>(cudaGetLastError());
 }

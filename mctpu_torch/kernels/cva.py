@@ -254,8 +254,9 @@ def _cuda_partials(ops: Operands, seed, block_offset, plan, n_blocks, wwr):
         out = torch.empty((n_blocks, 2), dtype=torch.float32,
                           device=ops.device)
         ee = torch.empty((n_blocks, g), dtype=torch.float32, device=ops.device)
-        scratch = torch.empty(n_blocks * lib.mctpu_cva_scratch_floats(g),
-                              dtype=torch.float32, device=ops.device)
+        scratch = torch.empty(
+            lib.mctpu_cva_scratch_floats(g, n_blocks, plan.rows, plan.iters),
+            dtype=torch.float32, device=ops.device)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         status = lib.mctpu_cva(
             ops.scal.data_ptr(), ops.opts.data_ptr(), ops.nodes.data_ptr(),

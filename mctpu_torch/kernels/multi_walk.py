@@ -56,8 +56,8 @@ __all__ = ["make_plan", "walk_ops", "scalars", "am_greek_ops",
            "plain_partials", "partials", "am_greek_plain_partials",
            "packed_greek_plain_partials", "am_greek_partials",
            "am_bar_greek_plain_partials", "am_bar_greek_partials",
-           "packed_bar_greek_plain_partials", "bar_greek_partials",
-           "N_GREEK_SCALARS", "LAUNCHES"]
+           "packed_bar_greek_state", "packed_bar_greek_plain_partials",
+           "bar_greek_partials", "N_GREEK_SCALARS", "LAUNCHES"]
 
 # Launches of the CUDA kernels in this process, by kernel name: K30 and K31
 # for each product, K32, K33, K34, K35.
@@ -644,16 +644,17 @@ def am_bar_greek_partials(scal: torch.Tensor, lt: torch.Tensor,
 # vval = p (acc_v - n inv_v) on each lane, rho = p sum_m acc_q sr - t p per
 # path.  Per block K33's four scalar sums and (4, width) lane rows.
 
-def _packed_bar_greek_walk(scal, lt, linv, par, n_obs, up, key, idx, shape,
+def packed_bar_greek_state(scal, lt, linv, par, n_obs, up, key, idx, shape,
                            sgn):
-    """One packed LR walk -> ``(p, gr)`` per path ``(B, rows, c)`` and
-    ``(dval, vval)`` per real lane ``(B, rows, c, a)``.  ``L z`` and ``z
-    L^-1`` are formed column by column from 0 (the zero terms add exactly
-    0), then ``+ d``."""
+    """The state at the end of one packed LR walk: ``(x, qd, acc_q, acc_v)``
+    per real lane ``(B, rows, c, a)``, the knock-out flag and the last
+    basket value per path ``(B, rows, c)``.  ``L z`` and ``z L^-1`` are
+    formed column by column from 0 (the zero terms add exactly 0), then
+    ``+ d``."""
     a = lt.shape[0]
     a_tile, c, width = pack_factor(a)
-    k, t, barrier, sqdt = scal.unbind()
-    log_s0, drift, vol, d, w, inv_v, cd, sr = par.unbind()
+    barrier, sqdt = scal[2], scal[3]
+    log_s0, drift, vol, d, w, inv_v = par[:6].unbind()
     n_blocks, rows = shape[0], shape[1] // width
 
     def step(j, z, carry):
@@ -683,11 +684,20 @@ def _packed_bar_greek_walk(scal, lt, linv, par, n_obs, up, key, idx, shape,
     paths = lanes[..., 0]
     init = (log_s0.expand(n_blocks, rows, c, a), lanes, lanes, lanes,
             torch.ones_like(paths), paths)
-    _, qd, acc_q, acc_v, alive, last = walk_pairwise(key, idx, n_obs, step,
-                                                     init)
+    return walk_pairwise(key, idx, n_obs, step, init)
+
+
+def _packed_bar_greek_walk(scal, lt, linv, par, n_obs, up, key, idx, shape,
+                           sgn):
+    """One packed LR walk -> ``(p, gr)`` per path ``(B, rows, c)`` and
+    ``(dval, vval)`` per real lane ``(B, rows, c, a)``."""
+    k, t = scal[0], scal[1]
+    inv_v, cd, sr = par[5:].unbind()
+    _, qd, acc_q, acc_v, alive, last = packed_bar_greek_state(
+        scal, lt, linv, par, n_obs, up, key, idx, shape, sgn)
     p = alive * torch.clamp(last - k, min=0.0)
     score_r = torch.zeros_like(p)
-    for m in range(a):
+    for m in range(lt.shape[0]):
         score_r = score_r + acc_q[..., m] * sr[m]
     gr = p * score_r - t * p
     pw = p.unsqueeze(-1)

@@ -160,6 +160,51 @@ def test_cva_kernel_matches_plain(dev, case):
                                                   wwr))
 
 
+def _cva_split_plan(antithetic, kahan, ds, rows, iters, n_blocks=NB):
+    """K4's plan of ``iters`` iterations over ``rows`` rows: ``rows / 4``
+    slices of each simulation block, folded in order."""
+    per_iter = rows * 128 * (2 if antithetic else 1)
+    plan = kcva.make_plan(iters * n_blocks * per_iter, n_blocks, rows,
+                          antithetic, kahan, ds)
+    assert plan.iters == iters
+    return plan
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+@pytest.mark.parametrize("ds", [False, True])
+@pytest.mark.parametrize("wwr", [False, True])
+def test_cva_split_kernel_matches_plain(dev, antithetic, kahan, ds, wwr):
+    """K4 in every variant (ANTI x KAHAN x DS x WWR) at rows 32 and two
+    iterations, so that eight slices a block and both iterations are
+    folded: against the plain version, two launches and the block-offset
+    contract bitwise."""
+    port = CvaPortfolioSpec.from_single(
+        CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 9),
+        wwr_b=0.8 if wwr else 0.0)
+    ops = kcva.operands(port, dev)
+    plan = _cva_split_plan(antithetic, kahan, ds, 32, 2)
+    _contract(lambda off, nb: kcva.partials(ops, SEED, off, plan, nb, wwr),
+              lambda off, nb: kcva.plain_partials(ops, SEED, off, plan, nb,
+                                                  wwr))
+
+
+@pytest.mark.parametrize("rows, iters", [(18, 2), (2048, 1)])
+def test_cva_split_kernel_scratch_profile_matches_plain(dev, rows, iters):
+    """K4 at 1100 nodes, past shared memory: tables in global memory and
+    each CUDA block's profile slots in scratch.  At rows 18 a block's last
+    slice holds 2 rows; at rows 2048 (3072 slices) there are more slices
+    than the card holds at once, so the grid is capped and each CUDA block
+    walks several (block, slice) items."""
+    port = CvaPortfolioSpec.from_single(
+        CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 1100))
+    ops = kcva.operands(port, dev)
+    plan = _cva_split_plan(False, True, True, rows, iters)
+    _contract(lambda off, nb: kcva.partials(ops, SEED, off, plan, nb, False),
+              lambda off, nb: kcva.plain_partials(ops, SEED, off, plan, nb,
+                                                  False))
+
+
 def _units(plan):
     return plan.iters * plan.units_per_iter
 
@@ -790,6 +835,7 @@ _MW_PACKED = {
     "a9_n13": (9, 13, False, True),
     "a16_n12_antithetic": (16, 12, True, True),
     "a16_n7_f32": (16, 7, False, False),
+    "a17_n6_antithetic_f32": (17, 6, True, False),
     "a32_n5_antithetic": (32, 5, True, True),
     "a100_n5_antithetic_f32": (100, 5, True, False),
     "a129_n4": (129, 4, False, True),
@@ -867,11 +913,12 @@ def test_multi_walk_packed_bar_greek_kernel_matches_plain(dev, case, up):
     assert bool((pad == 0).all())
 
 
-@pytest.mark.parametrize("a", [9, 16])
+@pytest.mark.parametrize("a", [9, 16, 17, 32])
 @pytest.mark.parametrize("antithetic", [False, True])
 def test_multi_walk_packed_bar_greek_price_equals_pricer(dev, a, antithetic):
     """K35's price sums equal K31's bit for bit: one walk order, one pass
-    shape (rows 16), one block reduction."""
+    shape (rows 16), one block reduction (both in registers at a_tile 16
+    and 32)."""
     n_obs = 13
     bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, True)
     lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, n_obs))
@@ -896,6 +943,25 @@ def test_multi_walk_packed_bar_greek_launch_counter(dev):
     with pytest.raises(ValueError):  # a short scal
         kmw.bar_greek_partials(ops[0][:3].contiguous(), *ops[1:], 1, 0, plan,
                                2, 3, True)
+
+
+@pytest.mark.parametrize("rows", [24, 40])
+@pytest.mark.parametrize("case", ["a9_n13", "a16_n12_antithetic",
+                                  "a32_n5_antithetic"])
+def test_multi_walk_packed_bar_greek_passes_match_plain(dev, case, rows):
+    """K35 at rows whose power-of-two pass (8) leaves 3 or 5 passes, so the
+    halving tree's last levels over the passes carry an odd row, against
+    its plain version."""
+    a, n_obs, antithetic, kahan = _MW_PACKED[case]
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan, rows=rows)
+    ops = tuple(x.to(dev) for x in kmw.packed_bar_greek_ops(bk, chol, n_obs,
+                                                            104.0))
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kmw.bar_greek_partials(
+            *ops, SEED, off, plan, nb, n_obs, True)),
+        lambda off, nb: _mw_greek_pairs(kmw.packed_bar_greek_plain_partials(
+            *ops, SEED, off, plan, nb, n_obs, True)),
+        units=plan.iters * plan.units_per_iter)
 
 
 @pytest.mark.parametrize("rows", [24, 35])

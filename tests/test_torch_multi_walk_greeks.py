@@ -477,3 +477,32 @@ def test_packed_bar_block_offset_relabels_streams():
     tail = tmw.bar_greek_partials(*ops, 9, 2, plan, 2, 3, True)
     for x, y in zip(full, tail):
         assert torch.equal(x[2:], y)
+
+
+@pytest.mark.parametrize("a", [9, 16])
+def test_packed_bar_mirror_scores_are_negations(a):
+    """The mirror's scores q are -q exactly, so under round-to-nearest its
+    first-date score qd and score sum acc_q are the plain sign's negated
+    (the register design of K35 keeps neither); its acc_v is not."""
+    from mctpu_torch.kernels.common import iter_keys, tile_index
+    tb = BasketOption.equicorrelated(a, 0.3)
+    scal, lt, linv, par = tmw.packed_bar_greek_ops(
+        tb, tmath.cholesky_lower(tb.corr), 7, 104.0)
+    width = tmw.pack_factor(a)[2]
+    shape = (NB, ROWS * width)
+    key = iter_keys(SEED, 0, 1, 0, NB, torch.device("cpu"))
+    idx = tile_index(shape[1], torch.device("cpu"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plus, minus = (tmw.packed_bar_greek_state(
+            scal, lt, linv, par, 7, True, key, idx, shape, sgn)
+            for sgn in (1.0, -1.0))
+    finally:
+        torch.set_num_threads(threads)
+    _, qd, acc_q, acc_v, _, _ = plus
+    _, qd_m, acc_q_m, acc_v_m, _, _ = minus
+    assert bool((qd != 0).all()) and bool((acc_q != 0).all())
+    assert torch.equal(qd_m, -qd)
+    assert torch.equal(acc_q_m, -acc_q)
+    assert not torch.equal(acc_v_m, -acc_v)

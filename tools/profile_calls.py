@@ -17,8 +17,8 @@ default ``EngineConfig``), after one warm-up call:
 * kernel ms — the same for the call's own CUDA kernels alone (both
   launches of a control-variate call; an MLMC call's level-0 kernel and
   its level kernel; an RQMC call's net kernel and its chunk carry; the
-  runtime-m xVA's slice kernel and its fold; 0 for a call with no kernel
-  of its own, the rule fit and the Heston American);
+  runtime-m xVA's and the CVA's slice kernels and their folds; 0 for a
+  call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
   ``LAUNCHES`` counters).
@@ -170,9 +170,11 @@ def calls(mt):
          lambda: mt.price_basket(b3, n24, SEED)),
         ("price_basket a=100, 2^22", "basket_packed_kernel",
          lambda: mt.price_basket(b100, n22, SEED)),
-        ("price_cva n_grid=50, 2^20", "cva_kernel",
+        ("price_cva n_grid=50, 2^20",
+         ("cva_slice_kernel", "cva_fold_kernel"),
          lambda: mt.price_cva(cva[50], 1 << 20, SEED)),
-        ("price_cva n_grid=500, 2^20", "cva_kernel",
+        ("price_cva n_grid=500, 2^20",
+         ("cva_slice_kernel", "cva_fold_kernel"),
          lambda: mt.price_cva(cva[500], 1 << 20, SEED)),
         ("greeks_vanilla 2^28", "greeks_vanilla_kernel",
          lambda: mt.greeks(van, 1 << 28, SEED)),
@@ -252,7 +254,7 @@ def calls(mt):
         ("greeks_rainbow max of 3, 2^24", "rainbow_greeks_kernel",
          lambda: mt.greeks(rbg, n24, SEED)),
         ("greeks_basket_barrier a=16, n_obs=50, 2^22",
-         "mw_bar_greeks_packed_kernel", lambda: mt.greeks(gb16, n22, SEED)),
+         "mw_bar_greeks_reg_kernel", lambda: mt.greeks(gb16, n22, SEED)),
         ("price_cva_multi m=3, n_grid=50, 2^20", "cva_multi_am_kernel",
          lambda: mt.price_cva_multi(cm3, 1 << 20, SEED)),
         ("price_cva_multi m=16, n_grid=50, 2^20", "cva_multi_packed_kernel",

@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
-"""Time K31 (the packed multi-asset walk) and K43's runtime-m xVA kernel
-at ``chip_smoke.py``'s phase 6 shapes on one GPU, against another
-checkout in the same process.
+"""Time the redesigned kernels -- K35 (the packed basket-barrier LR
+Greeks), K4 (the CVA exposure walk), K31 (the packed multi-asset walk) and
+K43's runtime-m xVA kernel -- at ``chip_smoke.py``'s phase 6 shapes on one
+GPU, against another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
 
-    python3 tools/time_redesign.py [--root DIR] [--reps 7]
+    python3 tools/time_redesign.py [--root DIR] [--reps 7] [--only TEXT]
 
 ``--root`` names another checkout (an unpacked earlier version, say): its
 ``mctpu_torch`` is imported beside this one's, both libraries are built
 (in parallel), and every case runs the two in turns, P V V P (P the other
 checkout, V this one), so that both are timed in one process on one card.
-Without ``--root`` only this checkout runs.  The cases, on the default
-``EngineConfig``'s layout: K31 on ``equicorrelated(16)`` at 50 dates and
-2^22 paths, the arithmetic Asian and the up-and-out at H = 130, and the
-Asian at 32 assets (2^22) and at 100 (2^20); K43's runtime-m kernel on the
-JAX exotic CLI's ``--product xva`` set at 16 and 32 underlyings, 50 nodes,
-2^20 paths, and at 100 underlyings, 12 nodes, 2^16 (``chip_smoke.py``'s
-100-set run); K44's runtime-m kernel on the JAX Greeks CLI's set at 16
-underlyings, 12 nodes, 2^20.  Each time is the median of ``--reps``
-launches timed by CUDA events after one warm-up launch.  Prints the card's
-name and power limit, one line per case and version, and a JSON line of
-them last.  Imports neither jax nor mctpu.
+Without ``--root`` only this checkout runs; ``--only`` keeps the cases
+whose name contains its text.  The cases, on the default
+``EngineConfig``'s layout: K35 on ``equicorrelated(16, 0.3)``, up-and-out
+at H = 130, 50 dates, 2^22 paths, plain and antithetic, and at 32 (2^22)
+and 100 assets (2^20); K4 on the call CVA (S = K = 100, r = 0.05, v = 0.2,
+T = 1, lambda 0.03, lgd 0.6, F32_KAHAN) at 500 and 50 nodes, at 500 under
+wrong-way risk b = 0.8 and under F32_DS, 2^20 paths; K31 on
+``equicorrelated(16)`` at 50 dates and 2^22 paths, the arithmetic Asian
+and the up-and-out at H = 130, and the Asian at 32 assets (2^22) and at
+100 (2^20); K43's runtime-m kernel on the JAX exotic CLI's ``--product
+xva`` set at 16 underlyings, 50 nodes, 2^20 paths.  Each time is the
+median of ``--reps`` launches timed by CUDA events after one warm-up
+launch.  K35's and K31's outputs must equal the other checkout's bit for
+bit (same walk, passes and sums); each such case prints the comparison
+and the tool exits 1 if one differs.  Prints the card's name and power
+limit, one line per case and version, and a JSON line of them last.
+Imports neither jax nor mctpu.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED = 20240607
 MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.kernels.multi_walk", "mctpu_torch.kernels.cva_multi",
-           "mctpu_torch.types")
+           "mctpu_torch.kernels.cva", "mctpu_torch.types")
 
 
 def _drop_port_modules() -> None:
@@ -63,9 +70,9 @@ def load(root: Path) -> SimpleNamespace:
     finally:
         sys.path.remove(str(root))
         _drop_port_modules()
-    build, engine, kmw, kcm, types = mods
+    build, engine, kmw, kcm, kcva, types = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
-                           kcm=kcm, types=types)
+                           kcm=kcm, kcva=kcva, types=types)
 
 
 def kernel_ms(fn, reps: int) -> float:
@@ -91,20 +98,36 @@ def netting_set(t, m: int, n_grid: int):
                           full, np.full(m, 1.0 / m), n_grid)
 
 
-def greeks_set(t, m: int):
-    """``chip_smoke.cva_greeks_cli_spec``: the JAX Greeks CLI's set."""
-    i = np.arange(m)
-    return dataclasses.replace(
-        netting_set(t, m, 12), s=100.0 * (1.0 - 0.05 * i),
-        v=0.2 * (1.0 + 0.25 * i), r=0.04879,
-        corr=np.full((m, m), 0.3) + 0.7 * np.eye(m), weights=np.ones(m))
-
-
 def cases(v: SimpleNamespace):
-    """``[(name, launch)]`` of one version, built from its own API."""
-    t, engine, kmw, kcm = v.types, v.engine, v.kmw, v.kcm
+    """``[(name, launch, bitwise)]`` of one version, built from its own
+    API; ``bitwise``: its outputs must equal the other version's."""
+    t, engine, kmw, kcm, kcva = v.types, v.engine, v.kmw, v.kcm, v.kcva
     cfg = engine.EngineConfig()
     out = []
+    for a, n, anti in ((16, 1 << 22, False), (16, 1 << 22, True),
+                       (32, 1 << 22, False), (100, 1 << 20, False)):
+        opt = t.BasketBarrierOption(t.BasketOption.equicorrelated(a, 0.3),
+                                    130.0, n_obs=50)
+        c = dataclasses.replace(cfg, antithetic=anti)
+        plan, ops = engine.greeks_basket_barrier_setup(opt, n, c)
+        out.append((f"K35 a={a} H=130 50 dates 2^{n.bit_length() - 1}"
+                    f"{' antithetic' if anti else ''}",
+                    lambda o=ops, p=plan: kmw.bar_greek_partials(
+                        *o, SEED, 0, p, p.num_blocks, 50, True), True))
+    port = t.CvaPortfolioSpec.from_single(
+        t.CvaSpec(0.03, 0.6, t.VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0),
+                  500))
+    for g, wwr_b, prec in ((500, 0.0, t.Precision.F32_KAHAN),
+                           (50, 0.0, t.Precision.F32_KAHAN),
+                           (500, 0.8, t.Precision.F32_KAHAN),
+                           (500, 0.0, t.Precision.F32_DS)):
+        pt = dataclasses.replace(port, n_grid=g, wwr_b=wwr_b)
+        plan, ops = engine.cva_setup(
+            pt, 1 << 20, dataclasses.replace(cfg, precision=prec))
+        out.append((f"K4 n_grid={g} {prec.value}"
+                    f"{f' WWR b={wwr_b:g}' if wwr_b else ''} 2^20",
+                    lambda o=ops, p=plan, w=bool(wwr_b): kcva.partials(
+                        o, SEED, 0, p, p.num_blocks, w), False))
     for a, n, barrier in ((16, 1 << 22, False), (16, 1 << 22, True),
                           (32, 1 << 22, False), (100, 1 << 20, False)):
         bk = t.BasketOption.equicorrelated(a)
@@ -118,21 +141,21 @@ def cases(v: SimpleNamespace):
         name = (f"K31 {'knock-out H=130' if barrier else 'asian'} a={a} "
                 f"50 dates 2^{n.bit_length() - 1}")
         out.append((name, lambda o=ops, p=plan, pr=product:
-                    kmw.partials(*o, SEED, 0, p, p.num_blocks, pr, 50, True)))
-    for m, g, n in ((16, 50, 1 << 20), (32, 50, 1 << 20), (100, 12, 1 << 16)):
-        xs = t.XvaSpec(netting_set(t, m, g), own_intensity=0.02,
-                       own_lgd=0.5, funding_spread=0.01)
-        plan, ops = engine.price_xva_setup(xs, n, cfg)
-        out.append((f"K43 runtime-m m={m} {g} nodes 2^{n.bit_length() - 1}",
-                    lambda o=ops, p=plan: kcm.xva_partials(
-                        o, SEED, 0, p, p.num_blocks)))
-    xs = t.XvaSpec(greeks_set(t, 16), own_intensity=0.02, own_lgd=0.5,
+                    kmw.partials(*o, SEED, 0, p, p.num_blocks, pr, 50, True),
+                    True))
+    xs = t.XvaSpec(netting_set(t, 16, 50), own_intensity=0.02, own_lgd=0.5,
                    funding_spread=0.01)
-    plan, ops = engine.greeks_xva_setup(xs, 1 << 20, cfg)
-    out.append(("K44 runtime-m m=16 12 nodes 2^20",
-                lambda o=ops, p=plan: kcm.xva_greek_partials(
-                    o, SEED, 0, p, p.num_blocks)))
+    plan, ops = engine.price_xva_setup(xs, 1 << 20, cfg)
+    out.append(("K43 runtime-m m=16 50 nodes 2^20",
+                lambda o=ops, p=plan: kcm.xva_partials(
+                    o, SEED, 0, p, p.num_blocks), False))
     return out
+
+
+def same_bits(a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def build_all(versions) -> None:
@@ -158,6 +181,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=None)
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--only", default="",
+                    help="run only the cases whose name contains this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -170,10 +195,11 @@ def main() -> int:
     this = load(ROOT)
     other = load(args.root.resolve()) if args.root is not None else None
     build_all([v for v in (other, this) if v is not None])
-    mine = cases(this)
-    theirs = cases(other) if other is not None else None
-    out = []
-    for k, (name, fn) in enumerate(mine):
+    mine = [c for c in cases(this) if args.only in c[0]]
+    theirs = ([c for c in cases(other) if args.only in c[0]]
+              if other is not None else None)
+    out, differ = [], []
+    for k, (name, fn, bitwise) in enumerate(mine):
         if theirs is None:
             order = (("V", fn),)
         else:
@@ -186,10 +212,20 @@ def main() -> int:
             out.append({"case": name, "version": tag, "ms": ms,
                         "root": str(other.root if tag == "P" else ROOT),
                         "card": smi})
-        print(f"{name}: " + " ".join(f"{tag} {ms:.4f}" for (tag, _), ms
-                                     in zip(order, times)) + " ms",
-              flush=True)
+        line = f"{name}: " + " ".join(f"{tag} {ms:.4f}" for (tag, _), ms
+                                      in zip(order, times)) + " ms"
+        if bitwise and theirs is not None:
+            equal = same_bits(fn(), theirs[k][1]())
+            out[-1]["bitwise_equal"] = equal
+            line += ("; outputs equal the other checkout's bit for bit: "
+                     f"{equal}")
+            if not equal:
+                differ.append(name)
+        print(line, flush=True)
     print(json.dumps(out), flush=True)
+    if differ:
+        print("outputs differ: " + ", ".join(differ), file=sys.stderr)
+        return 1
     return 0
 
 
