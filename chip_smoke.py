@@ -154,7 +154,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    of 5 synchronized runs (3 for the slower plain versions, said so in
    the line), beside the least time the card could take for the same
    work (``bound_ms``: instruction counts over the peak rate of their
-   class, see ``PEAK_OPS``).
+   class, see ``PEAK_OPS``); a split kernel's time holds both its
+   launches, the slice or split kernel and its fold (K4, K5, K40 and
+   K43's runtime-m kernel).
 
 The last two lines of output are a JSON line of per-kernel results and the
 line ``{"ok": true, "device": {...}}``.  Imports nothing of jax or mctpu.
@@ -3155,6 +3157,7 @@ def main() -> int:
         contract(label, lambda off, n: fn(ops, SEED, off, plan, n),
                  lambda off, n: plain(ops, SEED, off, plan, n),
                  units=units(plan))
+    # K5 as K4: eight 4-row slices a block, two iterations, folded.
     for label, port, anti in (
             ("K5 n_grid=50", CvaPortfolioSpec.from_single(spec50), False),
             ("K5 WWR b=0.5", CvaPortfolioSpec.from_single(spec50, wwr_b=0.5),
@@ -3520,8 +3523,9 @@ def main() -> int:
     # CLI's all-long set at 1, 3 and 16), 13 nodes (the trailing half
     # pair), antithetic and Kahan rotated over the sizes; the EE profile at
     # RTOL (its warp-then-block order against the plain version's sum over
-    # the block); K42's CVA sums equal K40's bit for bit, K41's K39's at
-    # 1e-5 (the two forms of a leg).
+    # the block); K42's CVA sums equal K40's bit for bit (K40's split and
+    # fold keep the order of the unsplit kernel that K42 runs), K41's K39's
+    # at 1e-5 (the two forms of a leg).
     for ka, (m, mixed) in enumerate(((1, False), (2, True), (3, False),
                                      (8, True), (9, True), (16, False),
                                      (100, True))):

@@ -87,9 +87,12 @@ _SIGNATURES = {
     "mctpu_greeks_basket_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _P, _P, _P),
     # scal, opts, nodes, n_options, n_grid, seed, off, n_blocks, rows,
-    # iters, antithetic, kahan, wwr, out, stream
+    # iters, antithetic, kahan, wwr, scratch, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P),
+                         _P, _P, _P),
+    # n_grid, n_blocks, rows, iters -> float count of K5's scratch (its
+    # slices' sums)
+    "mctpu_cva_greeks_scratch_floats": (_I, _I, _I, _I),
     # The single-asset walks (K9-K20, K27-K29, K46): scal, n_obs (the
     # cliquet's n_periods, the Heston walk's n_steps, an MLMC level's fine
     # step count), seed, off, n_blocks, rows, iters, antithetic, kahan, mode
@@ -143,14 +146,17 @@ _SIGNATURES = {
     "mctpu_rainbow_greeks": (_P, _P, _P, _P) + (_I,) * 9 + (_P, _P),
     # The netting-set CVA (K40, K39, K42, K41): scal, lt, par, nodes,
     # n_under, n_grid, [K39, K41: a_tile, width,] seed, off, n_blocks, rows,
-    # iters, antithetic, kahan, [K40, K39: scratch,] out, [K40, K39: ee,
-    # K41: vecs,] stream
-    "mctpu_cva_multi_am": (_P,) * 4 + (_I,) * 9 + (_P,) * 4,
+    # iters, antithetic, kahan, [K40: scratch cap in floats,] [K40, K39:
+    # scratch,] out, [K40, K39: ee, K41: vecs,] stream
+    "mctpu_cva_multi_am": (_P,) * 4 + (_I,) * 10 + (_P,) * 4,
     "mctpu_cva_multi_packed": (_P,) * 4 + (_I,) * 11 + (_P,) * 4,
     "mctpu_cva_multi_greeks_am": (_P,) * 4 + (_I,) * 9 + (_P, _P),
     "mctpu_cva_multi_greeks_packed": (_P,) * 4 + (_I,) * 11 + (_P,) * 3,
-    # n_under, n_grid -> float count of one block's profile scratch
+    # n_under, n_grid -> float count of one K39 block's profile scratch
     "mctpu_cva_multi_scratch_floats": (_I, _I),
+    # n_under, n_grid, n_blocks, rows, iters, antithetic, cap -> float count
+    # of K40's scratch (its groups' split items and fold carry)
+    "mctpu_cva_multi_am_scratch_floats": (_I,) * 7,
     # The xVA (K43, K44 and their runtime-m kernels): scal, lt, par, nodes,
     # n_under, n_grid, wide, seed, off, n_blocks, rows, iters, antithetic,
     # kahan, scratch, out, [K43: prof,] stream

@@ -19,14 +19,26 @@
 // the spot, per option three expf-class operations (two Hastings CDFs and
 // the density, which shares the first CDF's exponential), two IEEE divides,
 // and the serial node-to-node dependence; the WWR hazard adds two expf and a
-// divide.  Simple design, as K4: one CUDA block (256 threads) per simulation
-// block, one thread per path element, the 14-value state in registers.  The
-// 12 node tables (12 * n_grid floats, 24 KB at n_grid = 500) are staged in
-// shared memory when they fit, else read through the read-only path; never
-// __constant__, whose 64 KB would cap n_grid.  Each thread sums its walks of
-// an iteration plainly and mct::BlockAccN reduces and Kahan-adds the 14 sums
-// once per iteration in a fixed order: no atomics, deterministic.  K4's few
-// wide blocks (32 at 2^20 paths) leave most SMs idle (see PERF.md).
+// divide.  Design: split, as K4 (csrc/cva.cu).  layout_for keeps the TPU's
+// few wide simulation blocks (32 of 256 rows at 2^20 paths), and one CUDA
+// block each would leave 100 of the 132 SMs idle with a serial walk of 128
+// paths a thread.  So each simulation block's rows are cut into slices of
+// SLICE_ROWS rows, one CUDA block (256 threads) per (block, slice): 2048
+// CUDA blocks at 2^20 paths.  A slice walks its elements as the unsplit
+// walk, one thread per element striding over the slice with the 14-value
+// state in registers, so every path's draws and node values are unchanged;
+// it writes per iteration its 14 sums reduced over the block
+// (mct::block_row), and cva_greeks_fold_kernel adds the slices in order and
+// carries the iterations (mct::slice_fold, Kahan under KAHAN).  No atomics:
+// the order depends on the plan alone, so launches and block offsets agree
+// bit for bit; the sums move in the last bits against the unsplit order,
+// and no gate holds them to another kernel's.  The 12 node tables (12 *
+// n_grid floats, 24 KB at n_grid = 500) are staged in shared memory when
+// they fit, else read through the read-only path with the grid capped at
+// the blocks the card holds and each CUDA block taking (block, slice) items
+// in turn; never __constant__, whose 64 KB would cap n_grid.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -180,19 +192,42 @@ __device__ void walk(const Ctx& cx, mct::Key key, uint32_t e, float sgn,
   out[6] = cx.lgd * axg;
 }
 
+// Rows of a slice (K4's choice): 2048 CUDA blocks at 2^20 paths (32 x 256
+// rows), each thread walking 2 elements an iteration.  On an H100 8-row
+// slices took ~2% longer at 500 nodes and 2-row slices 5% longer at 50
+// (tools/time_redesign.py, see PERF.md).
+constexpr int SLICE_ROWS = 4;
+// Three CUDA blocks an SM: the walk at 80 registers (the plain instance's
+// own count; the antithetic and WWR instances spill 4-80 B instead of
+// taking 119-127 registers and two blocks an SM), 1.5-7% faster on an
+// H100 than uncapped; four blocks (64 registers, 84-144 B spilled) gained
+// 2-7.5%, less under antithetic (tools/time_redesign.py, see PERF.md).
+constexpr int MIN_BLOCKS = 3;
+
+using SliceFn = void (*)(const float*, const float*, const float*, int, int,
+                         uint32_t, uint32_t, int, int, int, int, int, float*);
+
+// One CUDA block per (simulation block b, slice sl) item, taking items in
+// turn when the grid is capped.  A slice walks its elements as the unsplit
+// walk (element e = row * 128 + lane under (seed, (off + b) * iters + i)),
+// one thread per element striding over the slice, and writes per iteration
+// its 14 sums reduced over the block to scratch [B][iters][S][14].
 template <bool ANTI, bool KAHAN, bool WWR>
-__global__ void __launch_bounds__(THREADS)
-    cva_greeks_kernel(const float* __restrict__ scal,
-                      const float* __restrict__ opts,
-                      const float* __restrict__ nodes_g, int n_options, int g,
-                      uint32_t seed, uint32_t off, int n_elems, int iters,
-                      int use_smem, float* __restrict__ out) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    cva_greeks_slice_kernel(const float* __restrict__ scal,
+                            const float* __restrict__ opts,
+                            const float* __restrict__ nodes_g, int n_options,
+                            int g, uint32_t seed, uint32_t off, int rows,
+                            int iters, int n_blocks, int slices, int use_smem,
+                            float* __restrict__ scratch) {
   extern __shared__ float smem[];
   __shared__ float sh[WARPS * N_SUMS];
   Ctx cx;
   cx.nodes = nodes_g;
   if (use_smem) {
-    for (int t = threadIdx.x; t < N_NODES * g; t += THREADS) smem[t] = nodes_g[t];
+    for (int t = threadIdx.x; t < N_NODES * g; t += THREADS) {
+      smem[t] = nodes_g[t];
+    }
     cx.nodes = smem;
   }
   __syncthreads();
@@ -215,77 +250,132 @@ __global__ void __launch_bounds__(THREADS)
   cx.v_t = scal[11];
   cx.isqt = scal[12];
 
-  mct::BlockAccN<THREADS, N_SUMS, KAHAN> acc;
+  const int items = n_blocks * slices;
   float v[N_SUMS];
 #pragma unroll
   for (int k = 0; k < N_SUMS; ++k) v[k] = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      float o[7];
-      walk<WWR>(cx, key, static_cast<uint32_t>(e), 1.0f, o);
-      if (ANTI) {
-        float m[7];
-        walk<WWR>(cx, key, static_cast<uint32_t>(e), -1.0f, m);
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = item / slices, sl = item - b * slices;
+    const int e0 = sl * SLICE_ROWS * mct::LANES;
+    const int e1 = min(rows, (sl + 1) * SLICE_ROWS) * mct::LANES;
+    for (int i = 0; i < iters; ++i) {
+      const mct::Key key = mct::seed_key(
+          seed, (off + static_cast<uint32_t>(b)) *
+                        static_cast<uint32_t>(iters) +
+                    static_cast<uint32_t>(i));
+      for (int e = e0 + threadIdx.x; e < e1; e += THREADS) {
+        float o[7];
+        walk<WWR>(cx, key, static_cast<uint32_t>(e), 1.0f, o);
+        if (ANTI) {
+          float m[7];
+          walk<WWR>(cx, key, static_cast<uint32_t>(e), -1.0f, m);
 #pragma unroll
-        for (int k = 0; k < 7; ++k) o[k] = 0.5f * (o[k] + m[k]);
-      }
+          for (int k = 0; k < 7; ++k) o[k] = 0.5f * (o[k] + m[k]);
+        }
 #pragma unroll
-      for (int k = 0; k < 7; ++k) {
-        v[2 * k] += o[k];
-        v[2 * k + 1] += o[k] * o[k];
+        for (int k = 0; k < 7; ++k) {
+          v[2 * k] += o[k];
+          v[2 * k + 1] += o[k] * o[k];
+        }
       }
+      mct::block_row<THREADS, N_SUMS>(
+          v, sh,
+          scratch + ((static_cast<size_t>(b) * iters + i) * slices + sl) *
+                        N_SUMS);
     }
-    acc.add(v, nullptr, sh);
   }
-  acc.write(out);
 }
 
-template <bool ANTI, bool KAHAN, bool WWR>
-int launch(const float* scal, const float* opts, const float* nodes,
-           int n_options, int g, uint32_t seed, uint32_t off, int n_blocks,
-           int n_elems, int iters, float* out, cudaStream_t stream) {
-  const size_t need = static_cast<size_t>(N_NODES) * g * sizeof(float);
-  const int use_smem = need <= SMEM_LIMIT;
-  const size_t smem = use_smem ? need : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cva_greeks_kernel<ANTI, KAHAN, WWR>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cva_greeks_kernel<ANTI, KAHAN, WWR><<<n_blocks, THREADS, smem, stream>>>(
-      scal, opts, nodes, n_options, g, seed, off, n_elems, iters, use_smem,
-      out);
-  return 0;
+// Block b's 14 sums: per iteration its slices added in order, carried over
+// the iterations (Kahan under KAHAN); no profile (gp = 0).
+template <bool KAHAN>
+__global__ void cva_greeks_fold_kernel(const float* __restrict__ scratch,
+                                       int n_blocks, int iters, int slices,
+                                       float* __restrict__ out) {
+  mct::slice_fold<N_SUMS, KAHAN>(scratch, n_blocks, iters, slices, 0,
+                                 blockIdx.x * blockDim.x + threadIdx.x, out,
+                                 nullptr);
 }
-
-using LaunchFn = int (*)(const float*, const float*, const float*, int, int,
-                         uint32_t, uint32_t, int, int, int, float*,
-                         cudaStream_t);
 
 // Indexed by antithetic << 2 | kahan << 1 | wwr.
-constexpr LaunchFn LAUNCHERS[8] = {
-    launch<false, false, false>, launch<false, false, true>,
-    launch<false, true, false>,  launch<false, true, true>,
-    launch<true, false, false>,  launch<true, false, true>,
-    launch<true, true, false>,   launch<true, true, true>,
+constexpr SliceFn SLICE_FNS[8] = {
+    cva_greeks_slice_kernel<false, false, false>,
+    cva_greeks_slice_kernel<false, false, true>,
+    cva_greeks_slice_kernel<false, true, false>,
+    cva_greeks_slice_kernel<false, true, true>,
+    cva_greeks_slice_kernel<true, false, false>,
+    cva_greeks_slice_kernel<true, false, true>,
+    cva_greeks_slice_kernel<true, true, false>,
+    cva_greeks_slice_kernel<true, true, true>,
 };
 
+size_t smem_need(int g) {
+  return static_cast<size_t>(N_NODES) * g * sizeof(float);
+}
+
+// The split launch: its slices a simulation block, (block, slice) items and
+// CUDA blocks, whether the tables sit in shared memory, and its scratch in
+// floats (the slices' iteration sums [B][iters][S][14]).
+struct Split {
+  int slices, items, grid;
+  bool use_smem;
+  size_t total;
+};
+
+// Past shared memory the grid is the blocks the card holds at once (by the
+// occupancy of the widest instance), capped at the items; the sums do not
+// depend on it.
+Split split(int g, int n_blocks, int rows, int iters) {
+  Split X{};
+  X.slices = (rows + SLICE_ROWS - 1) / SLICE_ROWS;
+  X.items = n_blocks * X.slices;
+  X.use_smem = smem_need(g) <= SMEM_LIMIT;
+  X.grid = X.items;
+  if (!X.use_smem) {
+    int dev = 0, sms = 1, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, SLICE_FNS[7],
+                                                  THREADS, 0);
+    X.grid = std::min(X.items, std::max(1, per_sm) * sms);
+  }
+  X.total = static_cast<size_t>(X.items) * iters * N_SUMS;
+  return X;
+}
+
 }  // namespace
+
+// Floats of K5's scratch for a launch (Split::total).
+extern "C" int mctpu_cva_greeks_scratch_floats(int n_grid, int n_blocks,
+                                               int rows, int iters) {
+  return static_cast<int>(split(n_grid, n_blocks, rows, iters).total);
+}
 
 extern "C" int mctpu_cva_greeks(const float* scal, const float* opts,
                                 const float* nodes, int n_options, int n_grid,
                                 int seed, int off, int n_blocks, int rows,
                                 int iters, int antithetic, int kahan, int wwr,
-                                float* out, void* stream) {
-  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (wwr ? 1 : 0);
-  const int err = LAUNCHERS[idx](
+                                float* scratch, float* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Split X = split(n_grid, n_blocks, rows, iters);
+  const SliceFn fn =
+      SLICE_FNS[(antithetic ? 4 : 0) | (kahan ? 2 : 0) | (wwr ? 1 : 0)];
+  const size_t smem = X.use_smem ? smem_need(n_grid) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<X.grid, THREADS, smem, s>>>(
       scal, opts, nodes, n_options, n_grid, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(off), n_blocks, rows * mct::LANES, iters, out,
-      static_cast<cudaStream_t>(stream));
-  if (err != 0) return err;
+      static_cast<uint32_t>(off), rows, iters, n_blocks, X.slices,
+      X.use_smem ? 1 : 0, scratch);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int work = n_blocks * N_SUMS;
+  (kahan ? cva_greeks_fold_kernel<true> : cva_greeks_fold_kernel<false>)<<<
+      (work + 255) / 256, 256, 0, s>>>(scratch, n_blocks, iters, X.slices,
+                                       out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,7 +45,8 @@
 // round as the plain PyTorch version's separate multiplies and adds do.
 // K40, K42 and K43 share am_node, the thread count and BlockAccN's
 // reduction, so K42's CVA sums equal K40's bit for bit, and so do K43's
-// CVA sums and EPE profile where its CVA table is K40's (no own default).
+// CVA sums and EPE profile where its CVA table is K40's (no own default);
+// K40's split and fold (below) keep that order of additions.
 //
 // The expected-exposure profiles: mctpu Kahan-adds (1/2 under antithetic)
 // the tile's sum of ee_j into an SMEM scalar per node.  Here (K4's design,
@@ -64,14 +65,24 @@
 // path element striding over the tile, the walk state in registers (K44 at
 // m = 8: 8 log-spots, 8 tangents, 16 accumulators, 7 legs and 46 sums), L
 // and the per-leg rows in shared memory, the node tables read through the
-// read-only cache (every thread of a warp on the same node).  Runtime m:
-// K44's the same per thread, its state in global scratch; K43's split over
-// more CUDA blocks than simulation blocks (slices of rows, then an ordered
-// fold; see xva_slice_kernel), its state in registers up to 32
-// underlyings.  Packed: K31's passes
-// (packed.cuh), the log-spots and a pair of nodes' normals in shared
-// memory, one thread per packed path; K41 adds K33's lane carries and its
-// halving tree over the rows.
+// read-only cache (every thread of a warp on the same node).  K40 is split:
+// one warp per 32 elements that a warp of the unsplit kernel walked in one
+// pass (32768 warp items at 2^20 paths instead of 512 warps on 32 SMs),
+// each writing its paths' cva and its warp's node sums of ee to scratch,
+// then a fold, one CUDA block per simulation block, that replays the
+// unsplit kernel's per-thread sums, BlockAccN and profile Kahan chains in
+// their order from scratch, so that its bits, and the K42 / K43 gates
+// against them, stay as they were ("K40 split, then folded" below).  Its
+// scratch (a float of cva a tile element, signs x n_grid warp sums for
+// each 32) is capped at 256 MB: past that the blocks and iterations are
+// split and folded in groups, the fold's carry kept in scratch between
+// them.
+// Runtime m: K44's the same per thread, its state in global scratch; K43's
+// split over more CUDA blocks than simulation blocks (slices of rows, then
+// an ordered fold; see xva_slice_kernel), its state in registers up to 32
+// underlyings.  Packed: K31's passes (packed.cuh), the log-spots and a
+// pair of nodes' normals in shared memory, one thread per packed path; K41
+// adds K33's lane carries and its halving tree over the rows.
 #include <algorithm>
 
 #include "common.cuh"
@@ -127,15 +138,21 @@ __device__ __forceinline__ void profile_zero(float* prof, int n) {
   for (int t = threadIdx.x; t < n; t += THREADS) prof[t] = 0.0f;
 }
 
+// The warp's sum of x by a fixed shuffle tree, in lane 0 (every lane of the
+// warp calls it).
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  }
+  return x;
+}
+
 // Adds half_w times the warp's sum of ee (every lane of the warp calls it)
 // into node j's compensated slot of the warp, in mctpu's Kahan form.
 __device__ __forceinline__ void profile_add(float* wprof, int j, float half_w,
                                             float ee, int lane) {
-  float r = ee;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, o));
-  }
+  const float r = warp_sum(ee);
   if (lane == 0) {
     float* slot = wprof + 2 * j;
     const float row = __fmul_rn(half_w, r);
@@ -239,14 +256,41 @@ __device__ __forceinline__ float am_node(const float (&z)[M], float sgn,
   return fmaxf(value, 0.0f);
 }
 
+// ------------------------------------------------- K40 split, then folded
+
+// K40 runs as a split walk and a fold that replays the unsplit kernel's
+// order of additions.  The unsplit kernel ran one CUDA block of THREADS =
+// am_threads<M>() threads per simulation block; in iteration i thread t
+// walked elements e = p * THREADS + t for passes p, adding cva and cva^2
+// into two plain per-thread sums that BlockAccN reduced (warp tree, warps
+// in order, Kahan carry) once per iteration, and at each node of each walk
+// (the plain sign's, then the mirror's) lane 0 Kahan-added half_w times its
+// warp's sum of ee into the warp's slot (w, j).  Here a warp item (b, i, p,
+// w) is the 32 elements that warp w walked in pass p of iteration i: the
+// split kernel walks each on one warp and writes its cva and, per sign and
+// node, half_w times the warp's sum of ee (the same shuffle tree); the fold
+// kernel, one CUDA block of THREADS threads per simulation block, adds them
+// in the unsplit order.  So K40's sums and profile equal the unsplit
+// kernel's bit for bit, as do K42's CVA sums and K43's CVA sums and EPE
+// profile (their gates against K40).
+// Warp items a CUDA block: 8 (256 threads) ran 0-10% faster than 4 on an
+// H100 (tools/time_redesign.py, see PERF.md); the bits do not depend on it.
+constexpr int AM_SPLIT_THREADS = 256;
+constexpr int AM_SPLIT_WARPS = AM_SPLIT_THREADS / 32;
+// Floats of scratch a launch aims at (256 MB): simulation blocks and
+// iterations are split and folded in groups below it, the fold's carry kept
+// between the groups.
+constexpr size_t AM_SCRATCH_CAP = size_t{64} << 20;
+
 // One K40 walk of tile element e and sign sgn: its default leg lgd sum_j
-// dp_j ee_j; each node's exposures go to the warp's profile slots.
+// dp_j ee_j; lane 0 writes each node's warp sum of ee, times half_w, to
+// wrow[j].
 template <int M>
 __device__ __forceinline__ float am_cva_walk(const float* lt, const float* par,
                                              const float* nodes, float r,
                                              float lgd, int g, mct::Key key,
                                              uint32_t e, float sgn,
-                                             float half_w, float* wprof,
+                                             float half_w, float* wrow,
                                              int lane) {
   float x[M];
 #pragma unroll
@@ -258,55 +302,146 @@ __device__ __forceinline__ float am_cva_walk(const float* lt, const float* par,
     const float ee =
         am_node<M, false>(z, sgn, x, lt, par, r, nd, bt, s, nd1, phi, net);
     acc = acc + nd.dp * ee;
-    profile_add(wprof, j, half_w, ee, lane);
+    const float t = warp_sum(ee);
+    if (lane == 0) wrow[j] = __fmul_rn(half_w, t);
   });
   return lgd * acc;
 }
 
-template <int M, bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(am_threads<M>())
-    cva_multi_am_kernel(const float* __restrict__ scal,
-                        const float* __restrict__ lt_g,
-                        const float* __restrict__ par_g,
-                        const float* __restrict__ nodes, Launch L,
-                        float* __restrict__ scratch, float* __restrict__ out,
-                        float* __restrict__ ee_out) {
+// The plan of a K40 launch: the unsplit kernel's warps and passes, the
+// groups of simulation blocks and iterations, and the scratch in floats:
+// per block of a group the fold's carry (its BlockAccN pairs (s, c) and its
+// profile slots [warps][g][2]), then per (block, iteration) of a group the
+// split's cva [rows * 128] and warp rows [passes][warps][signs][g].
+struct AmSplit {
+  int warps, passes, signs, group_blocks, group_iters;
+  size_t carry, per_item, total;
+};
+
+// Warp items (b0 + bl, i0 + il, p, w) of a group, AM_SPLIT_WARPS a CUDA
+// block: each lane walks its element with both signs, writes its cva (the
+// antithetic mean under ANTI) and lane 0 the warp's node rows.  Warps past
+// the tile (rows % 4 != 0 leaves the last pass's warps idle in the unsplit
+// kernel) write nothing; the fold skips them as the unsplit kernel did.
+template <int M, bool ANTI>
+__global__ void __launch_bounds__(AM_SPLIT_THREADS)
+    cva_multi_am_split_kernel(const float* __restrict__ scal,
+                              const float* __restrict__ lt_g,
+                              const float* __restrict__ par_g,
+                              const float* __restrict__ nodes, Launch L,
+                              int b0, int nb, int i0, int ni,
+                              float* __restrict__ split) {
   constexpr int THREADS = am_threads<M>();
   constexpr int WARPS = THREADS / 32;
-  __shared__ float lt[M * M], par[9 * M], sh[WARPS * 2];
-  stage<THREADS>(lt, lt_g, M * M);
-  stage<THREADS>(par, par_g, 9 * M);
-  float* prof = scratch + static_cast<size_t>(blockIdx.x) * WARPS * L.g * 2;
-  profile_zero<THREADS>(prof, WARPS * L.g * 2);
+  constexpr int SIGNS = ANTI ? 2 : 1;
+  __shared__ float lt[M * M], par[9 * M];
+  stage<AM_SPLIT_THREADS>(lt, lt_g, M * M);
+  stage<AM_SPLIT_THREADS>(par, par_g, 9 * M);
   __syncthreads();
-  const float r = scal[0], lgd = scal[1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* wprof = prof + warp * L.g * 2;
-  const float half_w = ANTI ? 0.5f : 1.0f;
+  const int lane = threadIdx.x & 31;
   const int n_elems = L.rows * mct::LANES;
+  const int passes = (n_elems + THREADS - 1) / THREADS;
+  const int per = passes * WARPS;
+  const int item = blockIdx.x * AM_SPLIT_WARPS + (threadIdx.x >> 5);
+  if (item >= nb * ni * per) return;
+  const int bi = item / per, pw = item - bi * per;
+  const int p = pw / WARPS, w = pw - p * WARPS;
+  const int base = p * THREADS + w * 32;
+  if (base >= n_elems) return;  // the whole warp: n_elems % 128 == 0
+  const int bl = bi / ni, il = bi - bl * ni;
+  const mct::Key key = mct::seed_key(
+      L.seed, (L.off + static_cast<uint32_t>(b0 + bl)) *
+                      static_cast<uint32_t>(L.iters) +
+                  static_cast<uint32_t>(i0 + il));
+  const size_t per_item =
+      static_cast<size_t>(n_elems) + static_cast<size_t>(per) * SIGNS * L.g;
+  float* cva_s = split + bi * per_item;
+  float* wrow = cva_s + n_elems + static_cast<size_t>(pw) * SIGNS * L.g;
+  const float r = scal[0], lgd = scal[1];
+  const float half_w = ANTI ? 0.5f : 1.0f;
+  const uint32_t e = static_cast<uint32_t>(base + lane);
+  float cva = am_cva_walk<M>(lt, par, nodes, r, lgd, L.g, key, e, 1.0f,
+                             half_w, wrow, lane);
+  if (ANTI) {
+    cva = 0.5f * (cva + am_cva_walk<M>(lt, par, nodes, r, lgd, L.g, key, e,
+                                       -1.0f, half_w, wrow + L.g, lane));
+  }
+  cva_s[e] = cva;
+}
+
+// One CUDA block of THREADS threads per simulation block b0 + bl of a
+// group: thread t adds its elements' cva and cva^2 over the passes into
+// v[2] and BlockAccN reduces them once per iteration; thread (w, j) runs
+// slot (w, j)'s Kahan chain over (iteration, pass, sign) in profile_add's
+// form.  The carry (BlockAccN's pairs, the slots) starts at zero in the
+// first group and is kept in scratch between groups; the last group writes
+// the block's row of out and, the warps in order, of ee.
+template <int THREADS, bool KAHAN>
+__global__ void __launch_bounds__(THREADS)
+    cva_multi_am_fold_kernel(const float* __restrict__ split,
+                             float* __restrict__ carry, Launch L, int b0,
+                             int ni, int signs, int first, int last,
+                             float* __restrict__ out,
+                             float* __restrict__ ee_out) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ float sh[WARPS * 2];
+  const int g = L.g, bl = blockIdx.x, b = b0 + bl;
+  const int n_elems = L.rows * mct::LANES;
+  const int passes = (n_elems + THREADS - 1) / THREADS;
+  const size_t per_item = static_cast<size_t>(n_elems) +
+                          static_cast<size_t>(passes) * WARPS * signs * g;
+  float* cb = carry + static_cast<size_t>(bl) * (4 + WARPS * g * 2);
+  float* prof = cb + 4;
+  const float* items = split + static_cast<size_t>(bl) * ni * per_item;
   mct::BlockAccN<THREADS, 2, KAHAN> acc;
+  if (!first && threadIdx.x < 2) {
+    acc.s = cb[2 * threadIdx.x];
+    acc.c = cb[2 * threadIdx.x + 1];
+  }
+  // A warp's passes: those with p * THREADS + w * 32 < n_elems.
+  const int my_passes =
+      (n_elems - (threadIdx.x >> 5) * 32 + THREADS - 1) / THREADS;
   float v[2] = {0.0f, 0.0f};
-  for (int i = 0; i < L.iters; ++i) {
-    const mct::Key key = iter_key(L, i);
-    for (int base = 0; base < n_elems; base += THREADS) {
-      // n_elems is a multiple of 128: a warp is wholly inside or outside,
-      // so every lane of an active warp reaches the profile's shuffles.
-      if (base + warp * 32 >= n_elems) continue;
-      const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
-      float cva = am_cva_walk<M>(lt, par, nodes, r, lgd, L.g, key, e, 1.0f,
-                                 half_w, wprof, lane);
-      if (ANTI) {
-        cva = 0.5f * (cva + am_cva_walk<M>(lt, par, nodes, r, lgd, L.g, key,
-                                           e, -1.0f, half_w, wprof, lane));
-      }
+  for (int il = 0; il < ni; ++il) {
+    const float* cva_s = items + il * per_item;
+    for (int p = 0; p < my_passes; ++p) {
+      const float cva = cva_s[p * THREADS + threadIdx.x];
       v[0] += cva;
       v[1] += cva * cva;
     }
     acc.add(v, nullptr, sh);
   }
-  __syncthreads();
-  profile_write<THREADS>(prof, WARPS, L.g, ee_out);
-  acc.write(out);
+  for (int t = threadIdx.x; t < WARPS * g; t += THREADS) {
+    const int w = t / g, j = t - w * g;
+    const int w_passes = (n_elems - w * 32 + THREADS - 1) / THREADS;
+    float* slot = prof + 2 * t;
+    float s0 = first ? 0.0f : slot[0], s1 = first ? 0.0f : slot[1];
+    for (int il = 0; il < ni; ++il) {
+      const float* rows = items + il * per_item + n_elems +
+                          static_cast<size_t>(w) * signs * g + j;
+      for (int p = 0; p < w_passes; ++p) {
+        for (int sg = 0; sg < signs; ++sg) {
+          const float row =
+              rows[(static_cast<size_t>(p) * WARPS * signs + sg) * g];
+          const float y = __fsub_rn(row, s1);
+          const float u = __fadd_rn(s0, y);
+          s1 = __fsub_rn(__fsub_rn(u, s0), y);
+          s0 = u;
+        }
+      }
+    }
+    slot[0] = s0;
+    slot[1] = s1;
+  }
+  if (last) {
+    __syncthreads();
+    profile_write_to<THREADS>(prof, WARPS, g,
+                              ee_out + static_cast<size_t>(b) * g);
+    acc.write_n(out + static_cast<size_t>(b) * 2, 2);
+  } else if (threadIdx.x < 2) {
+    cb[2 * threadIdx.x] = acc.s;
+    cb[2 * threadIdx.x + 1] = acc.c;
+  }
 }
 
 // One K42 walk of tile element e and sign sgn; q gets [cva, credit delta,
@@ -393,19 +528,36 @@ __global__ void __launch_bounds__(am_threads<M>())
   acc.write(out);
 }
 
+// K40's groups in order, each its split and then its fold.
 template <int M>
-void launch_am(bool anti, bool kahan, const float* scal, const float* lt,
-               const float* par, const float* nodes, const Launch& L,
-               int n_blocks, float* scratch, float* out, float* ee,
-               cudaStream_t s) {
-  using Fn = void (*)(const float*, const float*, const float*, const float*,
-                      Launch, float*, float*, float*);
-  static const Fn FNS[4] = {
-      cva_multi_am_kernel<M, false, false>, cva_multi_am_kernel<M, false, true>,
-      cva_multi_am_kernel<M, true, false>, cva_multi_am_kernel<M, true, true>};
-  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
-  fn<<<n_blocks, am_threads<M>(), 0, s>>>(scal, lt, par, nodes, L, scratch,
-                                          out, ee);
+int launch_am(bool anti, bool kahan, const float* scal, const float* lt,
+              const float* par, const float* nodes, const Launch& L,
+              int n_blocks, const AmSplit& X, float* scratch, float* out,
+              float* ee, cudaStream_t s) {
+  constexpr int THREADS = am_threads<M>();
+  const auto split = anti ? cva_multi_am_split_kernel<M, true>
+                          : cva_multi_am_split_kernel<M, false>;
+  const auto fold = kahan ? cva_multi_am_fold_kernel<THREADS, true>
+                          : cva_multi_am_fold_kernel<THREADS, false>;
+  float* carry = scratch;
+  float* items = scratch + X.group_blocks * X.carry;
+  for (int b0 = 0; b0 < n_blocks; b0 += X.group_blocks) {
+    const int nb = std::min(X.group_blocks, n_blocks - b0);
+    for (int i0 = 0; i0 < L.iters; i0 += X.group_iters) {
+      const int ni = std::min(X.group_iters, L.iters - i0);
+      const int warp_items = nb * ni * X.passes * X.warps;
+      split<<<(warp_items + AM_SPLIT_WARPS - 1) / AM_SPLIT_WARPS,
+              AM_SPLIT_THREADS, 0, s>>>(scal, lt, par, nodes, L, b0, nb, i0,
+                                        ni, items);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fold<<<nb, THREADS, 0, s>>>(items, carry, L, b0, ni, X.signs, i0 == 0,
+                                  i0 + ni >= L.iters, out, ee);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return 0;
 }
 
 template <int M>
@@ -1435,6 +1587,30 @@ Launch make_launch(int g, int seed, int off, int rows, int iters) {
                 rows, iters};
 }
 
+AmSplit am_split(int m, int g, int n_blocks, int rows, int iters, bool anti,
+                 size_t cap) {
+  AmSplit X{};
+  X.warps = warps_of(m);
+  const int threads = X.warps * 32, n_elems = rows * mct::LANES;
+  X.passes = (n_elems + threads - 1) / threads;
+  X.signs = anti ? 2 : 1;
+  X.carry = 4 + static_cast<size_t>(X.warps) * g * 2;
+  X.per_item = static_cast<size_t>(n_elems) +
+               static_cast<size_t>(X.passes) * X.warps * X.signs * g;
+  const size_t block = X.carry + X.per_item * iters;
+  if (cap == 0) cap = AM_SCRATCH_CAP;
+  X.group_iters = iters;
+  X.group_blocks = static_cast<int>(
+      std::min<size_t>(n_blocks, std::max<size_t>(1, cap / block)));
+  if (block > cap) {  // one block at a time, its iterations in groups
+    const size_t room = cap > X.carry ? cap - X.carry : 0;
+    X.group_iters = static_cast<int>(
+        std::min<size_t>(iters, std::max<size_t>(1, room / X.per_item)));
+  }
+  X.total = X.group_blocks * (X.carry + X.per_item * X.group_iters);
+  return X;
+}
+
 using SliceFn = void (*)(const float*, const float*, const float*,
                          const float*, int, Launch, int, int, int, float*);
 
@@ -1504,25 +1680,42 @@ XvaSplit xva_split(int m, int g, int n_blocks, int rows, int iters) {
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
-// Floats of one block's EE-profile scratch for n_under underlyings.
+// Floats of one block's EE-profile scratch for n_under underlyings (K39).
 extern "C" int mctpu_cva_multi_scratch_floats(int n_under, int n_grid) {
   return warps_of(n_under) * n_grid * 2;
+}
+
+// Floats of K40's scratch for a launch (AmSplit::total) under a cap in
+// floats (0: AM_SCRATCH_CAP); past the cap only where one (block,
+// iteration) and a block's carry exceed it.
+extern "C" int mctpu_cva_multi_am_scratch_floats(int n_under, int n_grid,
+                                                 int n_blocks, int rows,
+                                                 int iters, int antithetic,
+                                                 int cap) {
+  return static_cast<int>(am_split(n_under, n_grid, n_blocks, rows, iters,
+                                   antithetic != 0,
+                                   static_cast<size_t>(cap))
+                              .total);
 }
 
 extern "C" int mctpu_cva_multi_am(const float* scal, const float* lt,
                                   const float* par, const float* nodes,
                                   int n_under, int n_grid, int seed, int off,
                                   int n_blocks, int rows, int iters,
-                                  int antithetic, int kahan, float* scratch,
-                                  float* out, float* ee, void* stream) {
+                                  int antithetic, int kahan, int cap,
+                                  float* scratch, float* out, float* ee,
+                                  void* stream) {
   const Launch L = make_launch(n_grid, seed, off, rows, iters);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MCT_CALL(M)                                                       \
-  launch_am<M>(antithetic != 0, kahan != 0, scal, lt, par, nodes, L,      \
-               n_blocks, scratch, out, ee, s)
+  const AmSplit X = am_split(n_under, n_grid, n_blocks, rows, iters,
+                             antithetic != 0, static_cast<size_t>(cap));
+  int status = 0;
+#define MCT_CALL(M)                                                         \
+  status = launch_am<M>(antithetic != 0, kahan != 0, scal, lt, par, nodes, \
+                        L, n_blocks, X, scratch, out, ee, s)
   MCT_DISPATCH_M(MCT_CALL)
 #undef MCT_CALL
-  return static_cast<int>(cudaGetLastError());
+  return status;
 }
 
 extern "C" int mctpu_cva_multi_greeks_am(const float* scal, const float* lt,

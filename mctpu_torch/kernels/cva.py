@@ -534,12 +534,16 @@ def _greek_cuda_partials(ops: GreekOperands, seed, block_offset, plan,
     with torch.cuda.device(ops.device):
         out = torch.empty((n_blocks, N_GREEK_SUMS), dtype=torch.float32,
                           device=ops.device)
+        scratch = torch.empty(
+            lib.mctpu_cva_greeks_scratch_floats(g, n_blocks, plan.rows,
+                                                plan.iters),
+            dtype=torch.float32, device=ops.device)
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         status = lib.mctpu_cva_greeks(
             ops.scal.data_ptr(), ops.opts.data_ptr(), ops.nodes.data_ptr(),
             m, g, wrap_int32(seed), wrap_int32(block_offset), n_blocks,
             plan.rows, plan.iters, int(plan.antithetic), int(plan.kahan),
-            int(wwr), out.data_ptr(), stream)
+            int(wwr), scratch.data_ptr(), out.data_ptr(), stream)
     _build.check(status, "cva_greeks")
     LAUNCHES["cva_greeks"] += 1
     return out

@@ -371,9 +371,12 @@ def _stream():
 
 
 def partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
-             n_blocks: int):
+             n_blocks: int, scratch_cap: int = 0):
     """``((B, 2), (B, n_grid))`` partials: K40 (``m <= 8``) or K39 for CUDA
-    operands, the plain version for CPU operands; other devices raise."""
+    operands, the plain version for CPU operands; other devices raise.
+    ``scratch_cap``: K40's scratch in floats at most (0: 256 MB), past which
+    it splits and folds simulation blocks and iterations in groups; the
+    outputs do not depend on it."""
     dev = ops.device
     m = ops.n_underlyings
     am = use_asset_major(m)
@@ -389,23 +392,27 @@ def partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
     with torch.cuda.device(dev):
         out = torch.empty((n_blocks, 2), dtype=torch.float32, device=dev)
         ee = torch.empty((n_blocks, g), dtype=torch.float32, device=dev)
-        scratch = torch.empty(
-            n_blocks * lib.mctpu_cva_multi_scratch_floats(m, g),
-            dtype=torch.float32, device=dev)
+        shape = (n_blocks, plan.rows, plan.iters, int(plan.antithetic))
+        if am:
+            n_scratch = lib.mctpu_cva_multi_am_scratch_floats(
+                m, g, *shape, scratch_cap)
+        else:
+            n_scratch = n_blocks * lib.mctpu_cva_multi_scratch_floats(m, g)
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
         ptrs = (ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),
                 ops.nodes.data_ptr(), m, g)
-        common = (wrap_int32(seed), wrap_int32(block_offset), n_blocks,
-                  plan.rows, plan.iters, int(plan.antithetic),
-                  int(plan.kahan), scratch.data_ptr(), out.data_ptr(),
-                  ee.data_ptr(), _stream())
+        common = (wrap_int32(seed), wrap_int32(block_offset), *shape,
+                  int(plan.kahan))
+        bufs = (scratch.data_ptr(), out.data_ptr(), ee.data_ptr(), _stream())
         if am:
             name = "cva_multi_am"
-            status = lib.mctpu_cva_multi_am(*ptrs, *common)
+            status = lib.mctpu_cva_multi_am(*ptrs, *common, scratch_cap,
+                                            *bufs)
         else:
             name = "cva_multi_packed"
             a_tile, _, width = pack_factor(m)
             status = lib.mctpu_cva_multi_packed(*ptrs, a_tile, width,
-                                                *common)
+                                                *common, *bufs)
     _build.check(status, name)
     LAUNCHES[name] += 1
     return out, ee

@@ -290,6 +290,25 @@ def test_cva_greeks_kernel_matches_plain(dev, case):
         units=_units(plan), rtol=1e-4 if wwr else RTOL)
 
 
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("wwr", [False, True])
+def test_cva_greeks_split_kernel_matches_plain(dev, antithetic, wwr):
+    """K5 on its slices at rows 10 (slices of 4, 4 and 2 rows) and two
+    iterations, so that a short slice and both iterations are folded:
+    against the plain version by the scaled pair bound, two launches and
+    the block-offset contract bitwise."""
+    port = CvaPortfolioSpec.from_single(
+        CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 9),
+        wwr_b=0.5 if wwr else 0.0)
+    ops = kcva.greek_operands(port, dev)
+    plan = _cva_split_plan(antithetic, True, False, 10, 2)
+    _contract(
+        lambda off, nb: kcva.greek_partials(ops, SEED, off, plan, nb, wwr),
+        lambda off, nb: kcva.greek_plain_partials(ops, SEED, off, plan, nb,
+                                                  wwr),
+        units=_units(plan), rtol=1e-4 if wwr else RTOL)
+
+
 # The single-asset walks at the medium plan's odd date count (n_obs=13, the
 # trailing half pair), and at n_obs=1.
 _WALK_CASES = {
@@ -1150,6 +1169,48 @@ def test_cva_multi_greek_kernel_matches_plain(dev, case):
         assert (vec.reshape(NB, 4, c, a_tile)[..., m:] == 0).all()
         np.testing.assert_allclose(scal[:, :2].cpu().numpy(),
                                    price.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("m, rows", [(5, 16), (3, 10)])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_cva_multi_split_kernel_matches_plain_and_ties(dev, m, rows, kahan):
+    """K40's split and fold at two iterations, antithetic: at m = 5 (the
+    unsplit kernel's 256 threads) and at m = 3, rows 10, where the last
+    pass of 512 threads leaves half the warps idle.  Against the plain
+    version; K42's CVA sums (the unsplit order) equal K40's bit for bit,
+    and so do K43's CVA sums and EPE profile at no own default and no
+    funding."""
+    ops, plan = _cm_setup(dev, m, True, 13, True, kahan, rows=rows)
+    assert plan.iters == 2
+    _contract(lambda off, nb: kcm.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kcm.plain_partials(ops, SEED, off, plan, nb))
+    price, prof = kcm.partials(ops, SEED, 0, plan, NB)
+    gops, _ = _cm_setup(dev, m, True, 13, True, kahan, rows=rows,
+                        greeks=True)
+    assert torch.equal(kcm.greek_partials(gops, SEED, 0, plan, NB)[0][:, :2],
+                       price)
+    spec = XvaSpec(_netting_set(m, 13, True), own_intensity=0.0,
+                   own_lgd=0.5, funding_spread=0.0)
+    xops = kcm.xva_operands(spec, cholesky_lower(spec.netting.corr), dev)
+    xs, xp = kcm.xva_partials(xops, SEED, 0, plan, NB)
+    assert torch.equal(xs[:, :2], price) and torch.equal(xp[:, 0], prof)
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_cva_multi_grouped_scratch_matches_one_group(dev, antithetic):
+    """K40 under a forced small scratch cap: at 1 float every (block,
+    iteration) is split and folded on its own (12 groups), at half the
+    one-group scratch the blocks go in groups with their iterations; both
+    equal the one-group launch bit for bit."""
+    ops, plan = _cm_setup(dev, 3, False, 13, antithetic, True, rows=10)
+    lib = _build.library()
+    shape = (3, 13, NB, plan.rows, plan.iters, int(antithetic))
+    whole = lib.mctpu_cva_multi_am_scratch_floats(*shape, 0)
+    assert lib.mctpu_cva_multi_am_scratch_floats(*shape, 1) < whole
+    want = kcm.partials(ops, SEED, 0, plan, NB)
+    for cap in (1, whole // 2):
+        got = kcm.partials(ops, SEED, 0, plan, NB, scratch_cap=cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
 
 
 def test_cva_multi_launch_counters_and_bad_operands(dev):

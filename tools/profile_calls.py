@@ -17,7 +17,8 @@ default ``EngineConfig``), after one warm-up call:
 * kernel ms — the same for the call's own CUDA kernels alone (both
   launches of a control-variate call; an MLMC call's level-0 kernel and
   its level kernel; an RQMC call's net kernel and its chunk carry; the
-  runtime-m xVA's and the CVA's slice kernels and their folds; 0 for a
+  runtime-m xVA's, the CVA's and the CVA Greeks' slice kernels and their
+  folds; the netting-set CVA's split kernel and its fold at m <= 8; 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -182,9 +183,11 @@ def calls(mt):
          lambda: mt.greeks(b3, n24, SEED)),
         ("greeks_basket a=100, 2^22", "greeks_packed_kernel",
          lambda: mt.greeks(b100, n22, SEED)),
-        ("greeks_cva n_grid=50, 2^20", "cva_greeks_kernel",
+        ("greeks_cva n_grid=50, 2^20",
+         ("cva_greeks_slice_kernel", "cva_greeks_fold_kernel"),
          lambda: mt.greeks(cva[50], 1 << 20, SEED)),
-        ("greeks_cva n_grid=500, 2^20", "cva_greeks_kernel",
+        ("greeks_cva n_grid=500, 2^20",
+         ("cva_greeks_slice_kernel", "cva_greeks_fold_kernel"),
          lambda: mt.greeks(cva[500], 1 << 20, SEED)),
         ("price_asian arithmetic, n_obs=50, 2^22", "asian_kernel",
          lambda: mt.price_asian(ari, n22, SEED)),
@@ -255,7 +258,8 @@ def calls(mt):
          lambda: mt.greeks(rbg, n24, SEED)),
         ("greeks_basket_barrier a=16, n_obs=50, 2^22",
          "mw_bar_greeks_reg_kernel", lambda: mt.greeks(gb16, n22, SEED)),
-        ("price_cva_multi m=3, n_grid=50, 2^20", "cva_multi_am_kernel",
+        ("price_cva_multi m=3, n_grid=50, 2^20",
+         ("cva_multi_am_split_kernel", "cva_multi_am_fold_kernel"),
          lambda: mt.price_cva_multi(cm3, 1 << 20, SEED)),
         ("price_cva_multi m=16, n_grid=50, 2^20", "cva_multi_packed_kernel",
          lambda: mt.price_cva_multi(cm16, 1 << 20, SEED)),

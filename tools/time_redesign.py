@@ -1,34 +1,39 @@
 #!/usr/bin/env python3
 """Time the redesigned kernels -- K35 (the packed basket-barrier LR
-Greeks), K4 (the CVA exposure walk), K31 (the packed multi-asset walk) and
-K43's runtime-m xVA kernel -- at ``chip_smoke.py``'s phase 6 shapes on one
-GPU, against another checkout in the same process.
+Greeks), K4 (the CVA exposure walk), K5 (its Greeks), K31 (the packed
+multi-asset walk), K40 (the netting-set CVA) and K43's runtime-m xVA
+kernel -- at ``chip_smoke.py``'s phase 6 shapes on one GPU, against
+another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
 
-    python3 tools/time_redesign.py [--root DIR] [--reps 7] [--only TEXT]
+    python3 tools/time_redesign.py [--root DIR] [--reps 7] [--only TEXT ...]
 
 ``--root`` names another checkout (an unpacked earlier version, say): its
 ``mctpu_torch`` is imported beside this one's, both libraries are built
 (in parallel), and every case runs the two in turns, P V V P (P the other
 checkout, V this one), so that both are timed in one process on one card.
-Without ``--root`` only this checkout runs; ``--only`` keeps the cases
-whose name contains its text.  The cases, on the default
+Without ``--root`` only this checkout runs; ``--only`` (repeatable) keeps
+the cases whose name contains one of its texts.  The cases, on the default
 ``EngineConfig``'s layout: K35 on ``equicorrelated(16, 0.3)``, up-and-out
 at H = 130, 50 dates, 2^22 paths, plain and antithetic, and at 32 (2^22)
 and 100 assets (2^20); K4 on the call CVA (S = K = 100, r = 0.05, v = 0.2,
 T = 1, lambda 0.03, lgd 0.6, F32_KAHAN) at 500 and 50 nodes, at 500 under
-wrong-way risk b = 0.8 and under F32_DS, 2^20 paths; K31 on
+wrong-way risk b = 0.8 and under F32_DS, 2^20 paths; K5 on the same CVA
+at 500 and 50 nodes, at 500 under wrong-way risk b = 0.5 and antithetic,
+2^20 paths; K31 on
 ``equicorrelated(16)`` at 50 dates and 2^22 paths, the arithmetic Asian
 and the up-and-out at H = 130, and the Asian at 32 assets (2^22) and at
-100 (2^20); K43's runtime-m kernel on the JAX exotic CLI's ``--product
-xva`` set at 16 underlyings, 50 nodes, 2^20 paths.  Each time is the
-median of ``--reps`` launches timed by CUDA events after one warm-up
-launch.  K35's and K31's outputs must equal the other checkout's bit for
-bit (same walk, passes and sums); each such case prints the comparison
-and the tool exits 1 if one differs.  Prints the card's name and power
-limit, one line per case and version, and a JSON line of them last.
-Imports neither jax nor mctpu.
+100 (2^20); K40 on the JAX exotic CLI's ``--product cva-multi`` set at
+3 underlyings, plain and antithetic, and at 8, 50 nodes, 2^20 paths; K43's
+runtime-m kernel on the JAX exotic CLI's ``--product xva`` set at 16
+underlyings, 50 nodes, 2^20 paths.  Each time is the median of ``--reps``
+launches timed by CUDA events after one warm-up launch.  K35's, K31's and
+K40's outputs (K40's sums and EE profile) must equal the other checkout's
+bit for bit (same walk, passes and order of sums); each such case prints
+the comparison and the tool exits 1 if one differs.  Prints the card's
+name and power limit, one line per case and version, and a JSON line of
+them last.  Imports neither jax nor mctpu.
 """
 from __future__ import annotations
 
@@ -128,6 +133,15 @@ def cases(v: SimpleNamespace):
                     f"{f' WWR b={wwr_b:g}' if wwr_b else ''} 2^20",
                     lambda o=ops, p=plan, w=bool(wwr_b): kcva.partials(
                         o, SEED, 0, p, p.num_blocks, w), False))
+    for g, wwr_b, anti in ((500, 0.0, False), (50, 0.0, False),
+                           (500, 0.5, False), (500, 0.0, True)):
+        pt = dataclasses.replace(port, n_grid=g, wwr_b=wwr_b)
+        plan, ops = engine.greeks_cva_setup(
+            pt, 1 << 20, dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K5 n_grid={g}{f' WWR b={wwr_b:g}' if wwr_b else ''}"
+                    f"{' antithetic' if anti else ''} 2^20",
+                    lambda o=ops, p=plan, w=bool(wwr_b): kcva.greek_partials(
+                        o, SEED, 0, p, p.num_blocks, w), False))
     for a, n, barrier in ((16, 1 << 22, False), (16, 1 << 22, True),
                           (32, 1 << 22, False), (100, 1 << 20, False)):
         bk = t.BasketOption.equicorrelated(a)
@@ -143,6 +157,13 @@ def cases(v: SimpleNamespace):
         out.append((name, lambda o=ops, p=plan, pr=product:
                     kmw.partials(*o, SEED, 0, p, p.num_blocks, pr, 50, True),
                     True))
+    for m, anti in ((3, False), (3, True), (8, False)):
+        plan, ops = engine.price_cva_multi_setup(
+            netting_set(t, m, 50), 1 << 20,
+            dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K40 m={m} 50 nodes{' antithetic' if anti else ''} 2^20",
+                    lambda o=ops, p=plan: kcm.partials(
+                        o, SEED, 0, p, p.num_blocks), True))
     xs = t.XvaSpec(netting_set(t, 16, 50), own_intensity=0.02, own_lgd=0.5,
                    funding_spread=0.01)
     plan, ops = engine.price_xva_setup(xs, 1 << 20, cfg)
@@ -181,8 +202,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=None)
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--only", default="",
-                    help="run only the cases whose name contains this")
+    ap.add_argument("--only", action="append", default=[],
+                    help="run only the cases whose name contains this "
+                         "(repeatable: any of them)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -195,9 +217,12 @@ def main() -> int:
     this = load(ROOT)
     other = load(args.root.resolve()) if args.root is not None else None
     build_all([v for v in (other, this) if v is not None])
-    mine = [c for c in cases(this) if args.only in c[0]]
-    theirs = ([c for c in cases(other) if args.only in c[0]]
-              if other is not None else None)
+
+    def kept(version):
+        return [c for c in cases(version)
+                if not args.only or any(o in c[0] for o in args.only)]
+    mine = kept(this)
+    theirs = kept(other) if other is not None else None
     out, differ = [], []
     for k, (name, fn, bitwise) in enumerate(mine):
         if theirs is None:
