@@ -24,12 +24,16 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    100, at 13 dates; the rainbow and its Greeks at 1, 3 and 8 assets and the packed
    rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
-   netting set and its Greeks at 9, 16 and 100, at 13 nodes; the xVA and
+   netting set and its Greeks at 9, 16, 17, 32 and 100, at 13 nodes (the
+   packed netting set's register instances also at rows 35 and 69, a
+   pass with lanes past the rows); the xVA and
    its Greeks at 1, 2, 3 and 8 and the runtime-m kernels at 9, 16, 17 and
    100 and forced at 3 against the M = 3 kernels; the control variates K45-K48
    at the vanilla call at and deep in the money, the Asian at 13 and 50
-   dates, baskets of 1, 3 and 8 and packed of 9, 16 and 100 assets,
-   antithetic and Kahan each on and off; the importance-sampled call K49
+   dates, baskets of 1, 3 and 8 and packed of 9, 16, 17, 32 and 100
+   assets, K48 also on the pilot's plan of the 100-asset call (8 blocks x
+   102 iterations, and 51 antithetic), antithetic and Kahan each on and
+   off; the importance-sampled call K49
    at K = 100 and 200, untilted and at the optimal tilt; the American walk
    K50 and its Greeks K51 on a put and a call at 1, 13 and 50 dates under
    a pilot-fitted rule, K51's price sums equal to K50's bit for bit; the
@@ -155,8 +159,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    the line), beside the least time the card could take for the same
    work (``bound_ms``: instruction counts over the peak rate of their
    class, see ``PEAK_OPS``); a split kernel's time holds both its
-   launches, the slice or split kernel and its fold (K4, K5, K40 and
-   K43's runtime-m kernel).
+   launches, the slice or split kernel and its fold (K4, K5, K40, K43's
+   runtime-m kernel and K48); K48 also on its pilot's plan, a line of its
+   own (``basket_cv_packed_pilot``, the kernel's launches beside it).
 
 The last two lines of output are a JSON line of per-kernel results and the
 line ``{"ok": true, "device": {...}}``.  Imports nothing of jax or mctpu.
@@ -3039,10 +3044,13 @@ def main() -> int:
     # ---- 3. kernel vs plain at a medium plan ----------------------------
     nb, rows, iters = 64, 32, 2
 
-    def contract(label, fn, plain, units=None, rtol=RTOL, moments=False):
+    def contract(label, fn, plain, units=None, rtol=RTOL, moments=False,
+                 blocks=nb):
         """``units`` per block given: the Greek partials' scaled bound, or
-        with ``moments`` the control variates' moment bound."""
-        outs = [fn(0, nb), fn(0, nb), fn(2, nb - 2), plain(0, nb)]
+        with ``moments`` the control variates' moment bound; ``blocks``
+        simulation blocks (``nb`` unless a plan's own count is kept)."""
+        outs = [fn(0, blocks), fn(0, blocks), fn(2, blocks - 2),
+                plain(0, blocks)]
         outs = [o if isinstance(o, tuple) else (o,) for o in outs]
         torch.cuda.synchronize()
         worst = 0.0
@@ -3528,7 +3536,7 @@ def main() -> int:
     # at 1e-5 (the two forms of a leg).
     for ka, (m, mixed) in enumerate(((1, False), (2, True), (3, False),
                                      (8, True), (9, True), (16, False),
-                                     (100, True))):
+                                     (17, True), (32, False), (100, True))):
         anti, kahan = mw_variants[ka % 3]
         cspec = cva_multi_spec(m, 13, mixed)
         cops = kcm.operands(cspec, mcmath.cholesky_lower(cspec.corr), dev)
@@ -3558,6 +3566,24 @@ def main() -> int:
                 1e-5 * price.double().abs())
             check(bool(close.all()), f"K41 {tag}: CVA sums beyond 1e-5 "
                                      "of K39's")
+
+    # K39's register instances (a_tile 16 at 9 and 16 underlyings, 32 at 17
+    # and 32) at rows that leave a pass with lanes past the tile's rows
+    # (35: two passes of 18 rows at a_tile 16; 69: two of 35 at 32), mixed
+    # and all-long legs, 13 nodes.
+    for ka, (m, mixed, urows) in enumerate(((9, True, 35), (16, False, 35),
+                                            (17, True, 69),
+                                            (32, False, 69))):
+        anti, kahan = mw_variants[ka % 3]
+        cspec = cva_multi_spec(m, 13, mixed)
+        cops = kcm.operands(cspec, mcmath.cholesky_lower(cspec.corr), dev)
+        probe = kcm.make_plan(1, nb, urows, anti, kahan, n_underlyings=m)
+        plan = kcm.make_plan(nb * iters * probe.paths_per_iter, nb, urows,
+                             anti, kahan, n_underlyings=m)
+        contract(f"K39 m={m}{' mixed' if mixed else ''} rows={urows}"
+                 f"{' antithetic' if anti else ''}{'' if kahan else ' f32'}",
+                 lambda off, n: kcm.partials(cops, SEED, off, plan, n),
+                 lambda off, n: kcm.plain_partials(cops, SEED, off, plan, n))
 
     # The bilateral xVA: K43 and K44 at 1, 2 (mixed), 3 and 8 (mixed), their
     # runtime-m kernels at 9 (mixed), 16, 17 (mixed) and 100 (mixed: K43's
@@ -3615,7 +3641,8 @@ def main() -> int:
     # antithetic and Kahan each on and off: K45 at and deep in the money
     # (where d is exactly 0 on every path), K46 at an odd 13 dates and at
     # 50, K47 at 1, 3 (a Brownian offset d = 0.3) and 8 assets, K48 at 9,
-    # 16 and 100.
+    # 16, 17, 32 and 100 (its tiled product at a_tile 16, 32 and 128) and
+    # on the pilot's plan of a 100-asset call (8 blocks, 102 iterations).
     cv_variants = ((False, True), (True, False), (True, True), (False, False))
     base3 = BasketOption.equicorrelated(3, 0.3)
     for label, copt, variants in (
@@ -3632,6 +3659,10 @@ def main() -> int:
             ("K47 a=8", BasketOption.equicorrelated(8, 0.3), cv_variants[:2]),
             ("K48 a=9", BasketOption.equicorrelated(9, 0.3), cv_variants[:2]),
             ("K48 a=16", BasketOption.equicorrelated(16, 0.3), cv_variants),
+            ("K48 a=17", BasketOption.equicorrelated(17, 0.3),
+             cv_variants[1:3]),
+            ("K48 a=32", BasketOption.equicorrelated(32, 0.3),
+             cv_variants[2:]),
             ("K48 a=100", BasketOption.equicorrelated(100, 0.3),
              cv_variants[:2])):
         for anti, kahan in variants:
@@ -3647,6 +3678,16 @@ def main() -> int:
                      lambda off, n: cvs.plain_partials(cops, SEED, off, plan,
                                                        n),
                      units=units(plan), moments=True)
+    for anti in (False, True):
+        cvs = variance.cv_setup(BasketOption.equicorrelated(100, 0.3), 1 << 22,
+                                engine.EngineConfig(antithetic=anti))
+        plan = variance._pilot_plan(cvs.plan, 0.1)  # 8 x 102 (x 51)
+        cops = cvs.operands(kvr.center32(cvs.center))
+        contract(f"K48 a=100 pilot {plan.num_blocks} x {plan.iters}"
+                 f"{' antithetic' if anti else ''}",
+                 lambda off, n: cvs.partials(cops, SEED, off, plan, n),
+                 lambda off, n: cvs.plain_partials(cops, SEED, off, plan, n),
+                 units=units(plan), moments=True, blocks=plan.num_blocks)
 
     # K49 at the money and twice the spot, untilted and at the optimal
     # tilt (0 at the money); K50 and K51 on a put and a call at 1, 13 and 50 dates under a
@@ -4051,7 +4092,7 @@ def main() -> int:
 
     def timed(kname, source, replaces, plan, steps, disc, kernel, plain,
               ops, in_bytes=64, units=None, fold=None, plain_reps=5,
-              rtol=RTOL, cv_p0=None, record=True, quads=False):
+              rtol=RTOL, cv_p0=None, record=True, quads=False, row=None):
         """``units`` per block given: Greek partials (scaled pair bound,
         every output's estimate in max_abs_err), or with ``cv_p0`` (the
         center) the control variates' moment sums (their bound, the CV
@@ -4059,7 +4100,8 @@ def main() -> int:
         ``[s, c, s2, c2]`` quads, compared and estimated folded.  ``ops``
         are the run's instruction counts (:func:`work`), ``in_bytes`` its
         operands' bytes.  ``record=False`` prints the line only (a kernel's
-        second shape)."""
+        second shape); ``row`` names a second shape's own line (K48's
+        pilot), with the kernel's launches."""
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -4088,7 +4130,8 @@ def main() -> int:
         rate = plan.total_paths * steps / (ms * 1e-3)
         unit = "path-steps/s" if steps > 1 else "paths/s"
         bound_ms, bound_by, cls = bound(ops, in_bytes + out_bytes)
-        phase("times", f"{kname}: kernel {ms:.3f} ms ({rate:.4g} {unit}), "
+        phase("times", f"{row or kname}: kernel {ms:.3f} ms "
+                       f"({rate:.4g} {unit}), "
                        f"plain {plain_ms:.3f} ms (median of {plain_reps}), "
                        f"{plan.num_blocks} blocks x {plan.iters} iters x rows "
                        f"{plan.rows}; bound {bound_ms:.4f} ms ({cls}; "
@@ -4099,7 +4142,8 @@ def main() -> int:
         # functions (an in-kernel counter-based stream feeding per-block
         # compensated sums).
         if record:
-            kernels.append({"name": kname, "route": "cuda", "source": source,
+            kernels.append({"name": row or kname, "route": "cuda",
+                            "source": source,
                             "replaces": replaces, "launches": launches[kname],
                             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -4584,6 +4628,18 @@ def main() -> int:
                                                      s.plan.num_blocks),
               cv_work(kname, cvs.plan, a, steps), in_bytes=in_bytes,
               units=gunits(cvs.plan), plain_reps=3, cv_p0=cvs.center[0])
+        if kname == "basket_cv_packed":  # its pilot launch, 8 x 102 x 256
+            pilot = variance._pilot_plan(cvs.plan, 0.1)
+            timed(kname, "mctpu_torch/csrc/varred.cu",
+                  f"mctpu/kernels/{replaces}", pilot, steps,
+                  math.exp(-copt.r * copt.t),
+                  lambda s=cvs, o=cops, p=pilot: s.partials(
+                      o, SEED, 0, p, p.num_blocks),
+                  lambda s=cvs, o=cops, p=pilot: s.plain_partials(
+                      o, SEED, 0, p, p.num_blocks),
+                  cv_work(kname, pilot, a, steps), in_bytes=in_bytes,
+                  units=gunits(pilot), plain_reps=3, cv_p0=cvs.center[0],
+                  row="basket_cv_packed_pilot")
 
     # The American path's shapes: K49 at the exotic CLI's --product is
     # (K = 200, 2^28 paths at the optimal tilt); K50 and K51 on the put at

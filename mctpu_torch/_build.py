@@ -177,9 +177,12 @@ _SIGNATURES = {
     **{name: (_P, _P, _P) + (_I,) * 9 + (_P, _P)
        for name in ("mctpu_lsm", "mctpu_lsm_greeks")},
     # K47, K48: K2's and K3's signatures with the strike replaced by scal
-    # (k, p0, m)
+    # (k, p0, m); K48 takes its scratch before out
     "mctpu_basket_cv_am": (_P, _P, _P) + (_I,) * 8 + (_P, _P),
-    "mctpu_basket_cv_packed": (_P, _P, _P) + (_I,) * 10 + (_P, _P),
+    "mctpu_basket_cv_packed": (_P, _P, _P) + (_I,) * 10 + (_P, _P, _P),
+    # n_blocks, iters -> float count of K48's scratch (its (block,
+    # iteration) rows of five sums)
+    "mctpu_basket_cv_packed_scratch_floats": (_I, _I),
     # The RQMC nets (K52-K55), both passes: their operands (K52, K53: par;
     # K54: par, lt, rows; K55: par, drift, bridge), v, low, the shifts' key
     # words k0, k1 and block offset, dims, n_blocks, ppc, iters, [K52, K53:

@@ -81,8 +81,9 @@
 // split over more CUDA blocks than simulation blocks (slices of rows, then
 // an ordered fold; see xva_slice_kernel), its state in registers up to 32
 // underlyings.  Packed: K31's passes (packed.cuh), the log-spots and a
-// pair of nodes' normals in shared memory, one thread per packed path; K41
-// adds K33's lane carries and its halving tree over the rows.
+// pair of nodes' normals in shared memory, one thread per packed path (at
+// a_tile 16 and 32 K39 keeps them in the path's thread's registers, K31's
+// design); K41 adds K33's lane carries and its halving tree over the rows.
 #include <algorithm>
 
 #include "common.cuh"
@@ -697,6 +698,240 @@ __global__ void __launch_bounds__(mct::PK_THREADS)
   __syncthreads();
   profile_write<THREADS>(prof, WARPS, L.g, ee_out);
   acc.write(out);
+}
+
+// K39 at a_tile AT = 16 or 32 (9-32 underlyings): a path's normals and
+// log-spots in its thread's registers, K31's design (multi_walk.cu,
+// mw_walk_reg_kernel).  The block stages once L (rows at stride AT, zero
+// above the diagonal), the legs' rows and the node table; the thread-to-path
+// map, the passes and packed_node's operations in their order are
+// cva_multi_packed_kernel's, so the sums and the profile are that kernel's
+// bit for bit.  Every lane of a warp runs every node, a lane with no path
+// in the pass adding 0 to profile_add's warp sum as there; no barrier sits
+// inside the walk.  The legs run in a loop (one copy of packed_leg's code,
+// not AT): each node's log-spots pass to it through the thread's own
+// column of shared memory.  Two blocks an SM at both tiles: at a_tile 32
+// the cap of 128 registers spills a few hundred bytes under antithetic and
+// still runs faster than one block an SM at 155-222 registers (PERF.md).
+constexpr int CM_REG_MAX = 32;
+
+template <int AT>
+struct CmRegOps {
+  float4 l[AT * AT / 4];  // L[i][j] at i * AT + j
+  float4 step[AT];        // drift, vol of leg i (z, w unused)
+  float4 leg[AT];         // k, w, v, r + v^2 / 2 of leg i
+  float x0[AT];           // log s0
+};
+
+// The net of a node's legs, from 0 in leg order (and the mirror's), from
+// the log-spots in the thread's columns xc, xmc: two legs at a time, their
+// values formed side by side (independent chains of divides, logf and
+// expf) and added in order.
+template <int AT, bool ANTI, bool LAST>
+__device__ __forceinline__ void reg_net(const CmRegOps<AT>& o, int a,
+                                        const float* xc, const float* xmc,
+                                        const Node& nd, float& net,
+                                        float& net_m) {
+  constexpr int T = mct::PK_THREADS;
+  int i = 0;
+  for (; i + 2 <= a; i += 2) {
+    const float4 g0 = mct::lds4(&o.leg[i]), g1 = mct::lds4(&o.leg[i + 1]);
+    const float v0 = packed_leg(expf(xc[i * T]), g0.x, g0.z, g0.w, nd, LAST);
+    const float v1 =
+        packed_leg(expf(xc[(i + 1) * T]), g1.x, g1.z, g1.w, nd, LAST);
+    float m0 = 0.0f, m1 = 0.0f;
+    if (ANTI) {
+      m0 = packed_leg(expf(xmc[i * T]), g0.x, g0.z, g0.w, nd, LAST);
+      m1 = packed_leg(expf(xmc[(i + 1) * T]), g1.x, g1.z, g1.w, nd, LAST);
+    }
+    net = net + g0.y * v0;
+    net = net + g1.y * v1;
+    if (ANTI) {
+      net_m = net_m + g0.y * m0;
+      net_m = net_m + g1.y * m1;
+    }
+  }
+  if (i < a) {
+    const float4 g = mct::lds4(&o.leg[i]);
+    net = net + g.y * packed_leg(expf(xc[i * T]), g.x, g.z, g.w, nd, LAST);
+    if (ANTI) {
+      net_m = net_m +
+              g.y * packed_leg(expf(xmc[i * T]), g.x, g.z, g.w, nd, LAST);
+    }
+  }
+}
+
+// One node of a path for both signs: x (and the mirror's xm) advanced in
+// registers (sum = sum + L_ij z_j from j = 0, x + drift + vol sum, the
+// mirror's -sum) and written to the thread's columns xc, xmc (stride
+// PK_THREADS); then the net over the legs (reg_net) and ee = max(net, 0).
+template <int AT, bool ANTI>
+__device__ __forceinline__ void reg_node(const CmRegOps<AT>& o, int a,
+                                         const float (&z)[AT], float (&x)[AT],
+                                         float (&xm)[AT], float* xc,
+                                         float* xmc, const Node& nd,
+                                         float& ee, float& eem) {
+#pragma unroll
+  for (int i = 0; i < AT; ++i) {
+    if (i < a) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int q = 0; 4 * q <= i; ++q) {
+        const float4 l4 = mct::lds4(&o.l[i * (AT / 4) + q]);
+        sum = sum + l4.x * z[4 * q];
+        if (4 * q + 1 <= i) sum = sum + l4.y * z[4 * q + 1];
+        if (4 * q + 2 <= i) sum = sum + l4.z * z[4 * q + 2];
+        if (4 * q + 3 <= i) sum = sum + l4.w * z[4 * q + 3];
+      }
+      const float4 st = mct::lds4(&o.step[i]);
+      x[i] = x[i] + st.x + st.y * sum;
+      xc[i * mct::PK_THREADS] = x[i];
+      if (ANTI) {
+        xm[i] = xm[i] + st.x + st.y * (-sum);
+        xmc[i * mct::PK_THREADS] = xm[i];
+      }
+    }
+  }
+  float net = 0.0f, net_m = 0.0f;
+  if (nd.tau <= 0.0f) {
+    reg_net<AT, ANTI, true>(o, a, xc, xmc, nd, net, net_m);
+  } else {
+    reg_net<AT, ANTI, false>(o, a, xc, xmc, nd, net, net_m);
+  }
+  ee = fmaxf(net, 0.0f);
+  eem = fmaxf(net_m, 0.0f);
+}
+
+template <int AT, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(mct::PK_THREADS, 2)
+    cva_multi_reg_kernel(const float* __restrict__ scal,
+                         const float* __restrict__ lt,
+                         const float* __restrict__ par,
+                         const float* __restrict__ nodes, mct::Packed P,
+                         Launch L, float* __restrict__ scratch,
+                         float* __restrict__ out,
+                         float* __restrict__ ee_out) {
+  constexpr int THREADS = mct::PK_THREADS;
+  constexpr int WARPS = THREADS / 32;
+  __shared__ CmRegOps<AT> o;
+  __shared__ float sh[WARPS * 2];
+  extern __shared__ float4 smem4[];
+  float4* nodes4 = smem4;  // dp, tau, sqrt(tau), exp(-r tau) of node j
+  float* xc = reinterpret_cast<float*>(nodes4 + L.g) + threadIdx.x;
+  float* xmc = xc + AT * THREADS;  // the mirror's column (ANTI)
+  const int a = P.a;
+  float* lf = reinterpret_cast<float*>(o.l);
+  for (int t = threadIdx.x; t < AT * AT; t += THREADS) {
+    const int i = t / AT, j = t - i * AT;
+    lf[t] = (i < a && j <= i) ? lt[i * a + j] : 0.0f;
+  }
+  for (int t = threadIdx.x; t < AT; t += THREADS) {
+    const bool real = t < a;
+    o.step[t] = real ? make_float4(par[a + t], par[2 * a + t], 0.0f, 0.0f)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    o.leg[t] = real ? make_float4(par[3 * a + t], par[4 * a + t],
+                                  par[5 * a + t], par[6 * a + t])
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    o.x0[t] = real ? par[t] : 0.0f;
+  }
+  for (int j = threadIdx.x; j < L.g; j += THREADS) {
+    const Node nd = node_at(nodes, L.g, j);
+    nodes4[j] = make_float4(nd.dp, nd.tau, nd.sqtau, nd.disc);
+  }
+  float* prof = scratch + static_cast<size_t>(blockIdx.x) * WARPS * L.g * 2;
+  profile_zero<THREADS>(prof, WARPS * L.g * 2);
+  __syncthreads();
+  const float lgd = scal[1];
+  const int q = threadIdx.x;
+  const int lane = q & 31;
+  float* wprof = prof + (q >> 5) * L.g * 2;
+  const float half_w = ANTI ? 0.5f : 1.0f;
+  const int pairs = (L.g + 1) / 2;
+  mct::BlockAccN<THREADS, 2, KAHAN> acc;
+  float v[2] = {0.0f, 0.0f};
+  for (int it = 0; it < L.iters; ++it) {
+    const mct::Key key = iter_key(L, it);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      // A pass's last rows may lie past rows (set_chunk_even).
+      const int row = mct::pass_row(P, c0, q / P.c);
+      const bool mine = q < P.np_max && row < L.rows;
+      const uint32_t e0 =
+          static_cast<uint32_t>(row * P.width + (q % P.c) * AT);
+      float x[AT], xm[AT];
+#pragma unroll
+      for (int i = 0; i < AT; ++i) x[i] = xm[i] = mct::lds1(&o.x0[i]);
+      float dl = 0.0f, dl_m = 0.0f;  // the default legs, before lgd
+      for (int jj = 0; jj < pairs; ++jj) {
+        float z[2][AT];
+        if (mine) {
+#pragma unroll
+          for (int m = 0; m < AT; ++m) {
+            if (m < a) {
+              mct::draw_normal_pair(key, e0 + m, static_cast<uint32_t>(jj),
+                                    z[0][m], z[1][m]);
+            }
+          }
+        }
+        const int dates = min(2, L.g - 2 * jj);
+#pragma unroll
+        for (int date = 0; date < 2; ++date) {
+          if (date >= dates) break;
+          const int j = 2 * jj + date;
+          const float4 n4 = nodes4[j];
+          const Node nd{n4.x, 0.0f, n4.y, n4.z, n4.w};
+          float ee = 0.0f, eem = 0.0f;
+          if (mine) {
+            reg_node<AT, ANTI>(o, a, z[date], x, xm, xc, xmc, nd, ee, eem);
+            dl = dl + nd.dp * ee;
+            if (ANTI) dl_m = dl_m + nd.dp * eem;
+          }
+          // Every lane of the warp: paths past the pass add 0.
+          profile_add(wprof, j, half_w, ee, lane);
+          if (ANTI) profile_add(wprof, j, half_w, eem, lane);
+        }
+      }
+      if (mine) {
+        float cva = lgd * dl;
+        if (ANTI) cva = 0.5f * (cva + lgd * dl_m);
+        v[0] += cva;
+        v[1] += cva * cva;
+      }
+    }
+    acc.add(v, nullptr, sh);
+  }
+  __syncthreads();
+  profile_write<THREADS>(prof, WARPS, L.g, ee_out);
+  acc.write(out);
+}
+
+// K39's register instance at a_tile AT: its dynamic shared memory (the node
+// table and the thread's log-spot columns) and launch.
+template <int AT>
+int launch_cva_multi_reg(bool anti, bool kahan, const float* scal,
+                         const float* lt, const float* par,
+                         const float* nodes, const mct::Packed& P,
+                         const Launch& L, int n_blocks, float* scratch,
+                         float* out, float* ee, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      mct::Packed, Launch, float*, float*, float*);
+  static const Fn FNS[4] = {cva_multi_reg_kernel<AT, false, false>,
+                            cva_multi_reg_kernel<AT, false, true>,
+                            cva_multi_reg_kernel<AT, true, false>,
+                            cva_multi_reg_kernel<AT, true, true>};
+  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
+  const size_t smem =
+      static_cast<size_t>(L.g) * sizeof(float4) +
+      (anti ? 2 : 1) * static_cast<size_t>(AT) * mct::PK_THREADS *
+          sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<n_blocks, mct::PK_THREADS, smem, s>>>(scal, lt, par, nodes, P, L,
+                                             scratch, out, ee);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------- K41 (m > 8)
@@ -1755,6 +1990,18 @@ extern "C" int mctpu_cva_multi_packed(const float* scal, const float* lt,
                             cva_multi_packed_kernel<false, true>,
                             cva_multi_packed_kernel<true, false>,
                             cva_multi_packed_kernel<true, true>};
+  const Launch L = make_launch(n_grid, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_tile == 16) {
+    return launch_cva_multi_reg<16>(antithetic != 0, kahan != 0, scal, lt,
+                                    par, nodes, P, L, n_blocks, scratch, out,
+                                    ee, s);
+  }
+  if (a_tile == CM_REG_MAX) {
+    return launch_cva_multi_reg<CM_REG_MAX>(antithetic != 0, kahan != 0,
+                                            scal, lt, par, nodes, P, L,
+                                            n_blocks, scratch, out, ee, s);
+  }
   const Fn fn = FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1762,9 +2009,8 @@ extern "C" int mctpu_cva_multi_packed(const float* scal, const float* lt,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fn<<<n_blocks, mct::PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      scal, lt, par, nodes, P, make_launch(n_grid, seed, off, rows, iters),
-      scratch, out, ee);
+  fn<<<n_blocks, mct::PK_THREADS, smem, s>>>(scal, lt, par, nodes, P, L,
+                                             scratch, out, ee);
   return static_cast<int>(cudaGetLastError());
 }
 

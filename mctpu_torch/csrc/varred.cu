@@ -11,8 +11,8 @@
 // the geometric one.  K47 replaces ::_basket_cv_am_kernel (<= 8 assets):
 // K2's asset-major stream and mct::am_basket (basket.cuh); c the basket
 // value.  K48 replaces ::_basket_cv_kernel (> 8 assets): K3's lane-packed
-// stream and pass, mct::packed_baskets; padded slots are never drawn and
-// have s0 = 0 in the table, so they add nothing to the value.
+// stream and pass and mct::packed_baskets' operations in their order (a
+// register-tiled product up to width 128); padded slots are never drawn.
 //
 // Per unit, p and c are pair-meaned under antithetic first; then, with the
 // centers (p0, m) from the operands, cc = c - m and d = (p - p0) - cc, and
@@ -37,8 +37,10 @@
 // loops: one CUDA block per simulation block; each thread sums its units of
 // an iteration plainly, and mct::BlockAccN reduces the block's five sums
 // once per iteration in a fixed tree and Kahan-adds them in the carrying
-// threads (the JAX kernels' acc_add_n).  No atomics: two launches give the
-// same bits.
+// threads (the JAX kernels' acc_add_n).  K48 is split into one CUDA block
+// per (simulation block, iteration) and a fold that keeps that order, its
+// L z a register-tiled product (see "K48" below).  No atomics: two
+// launches give the same bits.
 #include <algorithm>
 
 #include "basket.cuh"
@@ -237,17 +239,185 @@ void launch_am(bool anti, bool kahan, const float* lt, const float* par,
 
 // ---------------------------------------------------------------- K48
 
-// K3's pass: a chunk of the tile's rows drawn into shared memory (both
-// branches, odd row stride, padded slots not drawn), then one thread per
-// (row, packed path, branch) forms its (p, c).
-template <bool ANTI, bool KAHAN>
+// K48 runs as a split kernel and a fold.  The simple design's CUDA block of
+// PK_THREADS threads walked one simulation block's iterations in series: per
+// iteration, K3's chunks of chunk_rows rows (both branches' normals drawn
+// into shared memory, padded slots not drawn), then unit q = 2 path + branch
+// of a chunk (at most PK_THREADS of them) to thread q, which formed its
+// basket values (mct::packed_baskets) and added its five moments into its
+// per-thread sums, chunk after chunk; BlockAccN reduced them once per
+// iteration (warp tree, warps in order) and Kahan-carried them.  Here one
+// CUDA block takes one (simulation block b, iteration i) item: its key
+// seed_key(seed, off + b), its draws (r0 * width + e, i), the same chunks
+// and the same unit-to-thread map, so each thread's sums are the simple
+// design's; it writes the iteration's row reduced over the block
+// (mct::block_row, the same tree) into scratch [B][iters][1][5], and
+// basket_cv_fold_kernel carries the rows over the iterations in order
+// (mct::slice_fold with one slice, BlockAccN's Kahan form).  So the sums
+// equal the simple design's bit for bit, and the main run's 512 blocks x 16
+// iterations and the pilot's 8 x 102 become 8192 and 816 CUDA blocks.
+//
+// At width 128 (9-128 assets) the item's L z is a register-tiled product
+// (basket_cv_tiled_kernel): a chunk's normals sit in shared memory unit by
+// unit ([a][128], each row's 128 units contiguous), and per j-tile of 32
+// assets (the tiles end at a) the slice of L it reads ([l][32], L[j][l] at
+// l <= j, zero above the diagonal and below asset 0) is staged beside them.
+// Each thread holds a tile of 4 units x 4 assets: per l one float4 of
+// normals and one of L feed 16 fmaf.  Warp w takes units 64 (w & 1) .. + 64
+// and assets 8 (w >> 1) .. + 8 of the j-tile, up to l = its last asset + 1
+// (none if they lie below asset 0): every bt_j is fmaf(L[j][l],
+// z[l], bt) from 0.0f over l = 0 .. j ascending, as packed_baskets forms it,
+// followed by fmaf(0, z, bt) for the l of its tile above j, which return bt
+// but for the sign of a zero bt, and expf(+-0) = 1 makes the term the same.
+// The tile's threads form term_j = s0_j expf(drift_j + vol_j (bt_j + d_j))
+// (and the mirror's, d_j - bt_j) into shared memory, and the unit's summing
+// thread folds the j-tile into its running basket, fmaf(term_j, w_j,
+// basket) with j ascending.  Threads 128-255 hold no unit: their zero sums
+// enter block_row's tree after the first four warps' and leave each row as
+// it was (x + 0 = x; only the sign of a zero row could change, which no
+// Kahan carry or plain add from 0.0f keeps).  Shared memory at a = 100,
+// antithetic: 94.5 KB, two blocks an SM.  Past width 128 (a > 128) the item
+// keeps the simple design's per-path code (basket_cv_path_kernel).
+constexpr int CV_THREADS = 256;       // a tiled item's threads
+constexpr int CV_UNITS = PK_THREADS;  // unit slots of a chunk
+constexpr int CV_JT = 32;             // assets of a j-tile
+
+template <bool ANTI>
+__global__ void __launch_bounds__(CV_THREADS, 2)
+    basket_cv_tiled_kernel(const float* __restrict__ lt,
+                           const float* __restrict__ par,
+                           const float* __restrict__ scal, int a, int a_tile,
+                           int chunk_rows, uint32_t seed, uint32_t off,
+                           int rows, int iters, float* __restrict__ scratch) {
+  extern __shared__ float4 smem4[];
+  float* zs = reinterpret_cast<float*>(smem4);  // [a][CV_UNITS]
+  float* ls = zs + a * CV_UNITS;                // [a][CV_JT]
+  float* ts = ls + a * CV_JT;                   // [CV_JT][CV_UNITS]
+  float* tms = ts + CV_JT * CV_UNITS;           // the mirror's (ANTI)
+  __shared__ float sh[(CV_THREADS / 32) * N_SUMS];
+  constexpr int width = mct::LANES;
+  const int c = width / a_tile;
+  const int b = blockIdx.x / iters, i = blockIdx.x - b * iters;
+  const mct::Key key = mct::seed_key(seed, off + b);
+  const float k = scal[0], p0 = scal[1], m = scal[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int uw = (warp & 1) * 64, jw = (warp >> 1) * 8;
+  const int ub = uw + (lane & 15) * 4;  // the thread's first unit
+  const int jb = jw + (lane >> 4) * 4;  // its first asset in the j-tile
+  float v[N_SUMS];
+  zero(v);
+  // The draw: thread t takes path t % 64 of a chunk (at most 64 paths, as
+  // 2 c chunk_rows <= CV_UNITS) and its assets t / 64, t / 64 + 4, ...
+  const int dp = tid & (CV_UNITS / 2 - 1), dl = tid / (CV_UNITS / 2);
+  const int drow = dp / c, dlane = (dp - drow * c) * a_tile;
+  for (int r0 = 0; r0 < rows; r0 += chunk_rows) {
+    const int np = min(chunk_rows, rows - r0) * c;  // the chunk's paths
+    const int nu = 2 * np;                          // and units
+    if (dp < np) {
+      const uint32_t e0 =
+          static_cast<uint32_t>((r0 + drow) * width + dlane);
+      for (int l = dl; l < a; l += CV_THREADS / (CV_UNITS / 2)) {
+        float2 z;
+        mct::draw_normal_pair(key, e0 + static_cast<uint32_t>(l),
+                              static_cast<uint32_t>(i), z.x, z.y);
+        *reinterpret_cast<float2*>(zs + l * CV_UNITS + 2 * dp) = z;
+      }
+    }
+    float basket = 0.0f, basket_m = 0.0f;
+    // j-tiles end at a: the first holds the a mod 32 lowest assets (its
+    // warps below j = 0 idle), so no tile takes a full-depth l loop for a
+    // few assets.
+    for (int j0 = a - (a + CV_JT - 1) / CV_JT * CV_JT; j0 < a; j0 += CV_JT) {
+      const int kt = j0 + CV_JT;
+      for (int t = threadIdx.x; t < kt * CV_JT; t += CV_THREADS) {
+        const int l = t / CV_JT, j = j0 + (t - l * CV_JT);
+        ls[t] = (j >= 0 && l <= j) ? __ldg(lt + j * a + l) : 0.0f;
+      }
+      __syncthreads();
+      if (uw < nu && j0 + jw + 8 > 0) {
+        const int kmax = j0 + jw + 8;
+        float acc[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[u][jj] = 0.0f;
+        }
+#pragma unroll 4
+        for (int l = 0; l < kmax; ++l) {
+          const float4 z4 =
+              *reinterpret_cast<const float4*>(zs + l * CV_UNITS + ub);
+          const float4 l4 =
+              *reinterpret_cast<const float4*>(ls + l * CV_JT + jb);
+          const float zu[4] = {z4.x, z4.y, z4.z, z4.w};
+          const float lj[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              acc[u][jj] = fmaf(lj[jj], zu[u], acc[u][jj]);
+            }
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = j0 + jb + jj;
+          if (j >= 0) {
+            const float drift = __ldg(par + j), vol = __ldg(par + a + j);
+            const float d = __ldg(par + 2 * a + j);
+            const float s0 = __ldg(par + 3 * a + j);
+            float t[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              t[u] = s0 * expf(drift + vol * (acc[u][jj] + d));
+            }
+            *reinterpret_cast<float4*>(ts + (jb + jj) * CV_UNITS + ub) =
+                make_float4(t[0], t[1], t[2], t[3]);
+            if (ANTI) {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                t[u] = s0 * expf(drift + vol * (d - acc[u][jj]));
+              }
+              *reinterpret_cast<float4*>(tms + (jb + jj) * CV_UNITS + ub) =
+                  make_float4(t[0], t[1], t[2], t[3]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // The fold reads the terms after the barrier; the next j-tile writes
+      // them (and the next chunk its normals) only after its own first
+      // barrier, which each summing thread reaches after its fold.
+      if (tid < nu) {
+        for (int jj = max(0, -j0); jj < CV_JT; ++jj) {
+          const float w = __ldg(par + 4 * a + j0 + jj);
+          basket = fmaf(ts[jj * CV_UNITS + tid], w, basket);
+          if (ANTI) basket_m = fmaf(tms[jj * CV_UNITS + tid], w, basket_m);
+        }
+      }
+    }
+    if (tid < nu) {
+      float p = fmaxf(basket - k, 0.0f), cv = basket;
+      if (ANTI) {
+        p = 0.5f * (p + fmaxf(basket_m - k, 0.0f));
+        cv = 0.5f * (cv + basket_m);
+      }
+      add_moments(p, cv, p0, m, v);
+    }
+  }
+  mct::block_row<CV_THREADS, N_SUMS>(
+      v, sh, scratch + static_cast<size_t>(blockIdx.x) * N_SUMS);
+}
+
+// Past width 128: the simple design's chunk (both branches' rows, odd row
+// stride) and one thread per unit forming its basket values, per item.
+template <bool ANTI>
 __global__ void __launch_bounds__(PK_THREADS)
-    basket_cv_packed_kernel(const float* __restrict__ lt,
-                            const float* __restrict__ par,
-                            const float* __restrict__ scal, int a, int a_tile,
-                            int width, int chunk_rows, uint32_t seed,
-                            uint32_t off, int rows, int iters,
-                            float* __restrict__ out) {
+    basket_cv_path_kernel(const float* __restrict__ lt,
+                          const float* __restrict__ par,
+                          const float* __restrict__ scal, int a, int a_tile,
+                          int width, int chunk_rows, uint32_t seed,
+                          uint32_t off, int rows, int iters,
+                          float* __restrict__ scratch) {
   extern __shared__ float smem[];
   __shared__ float sh[(PK_THREADS / 32) * N_SUMS];
   const int stride = width + 1;
@@ -255,44 +425,53 @@ __global__ void __launch_bounds__(PK_THREADS)
   float* z2s = smem + chunk_rows * stride;
   const int c_paths = width / a_tile;
   const float k = scal[0], p0 = scal[1], m = scal[2];
-  const mct::Key key = mct::seed_key(seed, off + blockIdx.x);
-  mct::BlockAccN<PK_THREADS, N_SUMS, KAHAN> acc;
+  const int b = blockIdx.x / iters, i = blockIdx.x - b * iters;
+  const mct::Key key = mct::seed_key(seed, off + b);
   float v[N_SUMS];
   zero(v);
-  for (int i = 0; i < iters; ++i) {
-    for (int r0 = 0; r0 < rows; r0 += chunk_rows) {
-      const int nr = min(chunk_rows, rows - r0);
-      for (int e = threadIdx.x; e < nr * width; e += PK_THREADS) {
-        const int row = e / width;
-        const int lane = e - row * width;
-        if (lane % a_tile < a) {
-          float z1, z2;
-          mct::draw_normal_pair(key, static_cast<uint32_t>(r0 * width + e),
-                                static_cast<uint32_t>(i), z1, z2);
-          z1s[row * stride + lane] = z1;
-          z2s[row * stride + lane] = z2;
-        }
+  for (int r0 = 0; r0 < rows; r0 += chunk_rows) {
+    const int nr = min(chunk_rows, rows - r0);
+    for (int e = threadIdx.x; e < nr * width; e += PK_THREADS) {
+      const int row = e / width;
+      const int lane = e - row * width;
+      if (lane % a_tile < a) {
+        float z1, z2;
+        mct::draw_normal_pair(key, static_cast<uint32_t>(r0 * width + e),
+                              static_cast<uint32_t>(i), z1, z2);
+        z1s[row * stride + lane] = z1;
+        z2s[row * stride + lane] = z2;
       }
-      __syncthreads();
-      for (int q = threadIdx.x; q < nr * c_paths * 2; q += PK_THREADS) {
-        const int path = q >> 1;
-        const int row = path / c_paths;
-        const int pp = path - row * c_paths;
-        const float* z = ((q & 1) ? z2s : z1s) + row * stride + pp * a_tile;
-        float b, bm;
-        mct::packed_baskets<ANTI>(z, lt, par, a, b, bm);
-        float p = fmaxf(b - k, 0.0f), c = b;
-        if (ANTI) {
-          p = 0.5f * (p + fmaxf(bm - k, 0.0f));
-          c = 0.5f * (c + bm);
-        }
-        add_moments(p, c, p0, m, v);
-      }
-      __syncthreads();
     }
-    acc.add(v, nullptr, sh);
+    __syncthreads();
+    for (int q = threadIdx.x; q < nr * c_paths * 2; q += PK_THREADS) {
+      const int path = q >> 1;
+      const int row = path / c_paths;
+      const int pp = path - row * c_paths;
+      const float* z = ((q & 1) ? z2s : z1s) + row * stride + pp * a_tile;
+      float bk, bm;
+      mct::packed_baskets<ANTI>(z, lt, par, a, bk, bm);
+      float p = fmaxf(bk - k, 0.0f), cv = bk;
+      if (ANTI) {
+        p = 0.5f * (p + fmaxf(bm - k, 0.0f));
+        cv = 0.5f * (cv + bm);
+      }
+      add_moments(p, cv, p0, m, v);
+    }
+    __syncthreads();
   }
-  acc.write(out);
+  mct::block_row<PK_THREADS, N_SUMS>(
+      v, sh, scratch + static_cast<size_t>(blockIdx.x) * N_SUMS);
+}
+
+// Simulation block b's five sums: its iteration rows Kahan-carried in order
+// (plain under !KAHAN), as BlockAccN carried them.
+template <bool KAHAN>
+__global__ void basket_cv_fold_kernel(const float* __restrict__ scratch,
+                                      int n_blocks, int iters,
+                                      float* __restrict__ out) {
+  mct::slice_fold<N_SUMS, KAHAN>(scratch, n_blocks, iters, 1, 0,
+                                 blockIdx.x * blockDim.x + threadIdx.x, out,
+                                 nullptr);
 }
 
 // ---------------------------------------------------------------- K49
@@ -336,23 +515,6 @@ __global__ void __launch_bounds__(VAN_THREADS)
     }
   }
   mct::write_block_sums<VAN_THREADS, KAHAN>(acc, out);
-}
-
-template <bool ANTI, bool KAHAN>
-int launch_packed(const float* lt, const float* par, const float* scal, int a,
-                  int a_tile, int width, int chunk_rows, size_t smem,
-                  uint32_t seed, uint32_t off, int n_blocks, int rows,
-                  int iters, float* out, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        basket_cv_packed_kernel<ANTI, KAHAN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  basket_cv_packed_kernel<ANTI, KAHAN><<<n_blocks, PK_THREADS, smem, stream>>>(
-      lt, par, scal, a, a_tile, width, chunk_rows, seed, off, rows, iters,
-      out);
-  return 0;
 }
 
 }  // namespace
@@ -438,31 +600,77 @@ extern "C" int mctpu_basket_cv_am(const float* lt, const float* par,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K48's scratch in floats: a row of five sums per (block, iteration).
+extern "C" int mctpu_basket_cv_packed_scratch_floats(int n_blocks,
+                                                     int iters) {
+  return n_blocks * iters * N_SUMS;
+}
+
 extern "C" int mctpu_basket_cv_packed(const float* lt, const float* par,
                                       const float* scal, int n_assets,
                                       int a_tile, int width, int seed,
                                       int off, int n_blocks, int rows,
                                       int iters, int antithetic, int kahan,
-                                      float* out, void* stream) {
+                                      float* scratch, float* out,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t sd = static_cast<uint32_t>(seed);
   const uint32_t of = static_cast<uint32_t>(off);
-  // K3's chunk: about one (path, branch) per thread, both branches' rows
-  // within SMEM_LIMIT.
+  // K3's chunk: about one (path, branch) per summing thread, both branches'
+  // rows within SMEM_LIMIT.
   const int c = width / a_tile;
   const size_t row_bytes = 2 * static_cast<size_t>(width + 1) * sizeof(float);
   int chunk = std::min(rows, std::max(1, PK_THREADS / (2 * c)));
   chunk = std::min<int>(chunk, static_cast<int>(SMEM_LIMIT / row_bytes));
   if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = chunk * row_bytes;
-  int err;
-  if (antithetic) {
-    err = kahan ? launch_packed<true, true>(lt, par, scal, n_assets, a_tile, width, chunk, smem, sd, of, n_blocks, rows, iters, out, s)
-                : launch_packed<true, false>(lt, par, scal, n_assets, a_tile, width, chunk, smem, sd, of, n_blocks, rows, iters, out, s);
+  const int items = n_blocks * iters;
+  using Fn = void (*)(const float*, const float*, const float*, int, int,
+                      int, uint32_t, uint32_t, int, int, float*);
+  using PathFn = void (*)(const float*, const float*, const float*, int, int,
+                          int, int, uint32_t, uint32_t, int, int, float*);
+  if (width == mct::LANES) {
+    const Fn fn = antithetic ? &basket_cv_tiled_kernel<true>
+                             : &basket_cv_tiled_kernel<false>;
+    const size_t smem =
+        (static_cast<size_t>(n_assets) * (CV_UNITS + CV_JT) +
+         (antithetic ? 2 : 1) * CV_JT * CV_UNITS) * sizeof(float);
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+      }
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    fn<<<items, CV_THREADS, smem, s>>>(lt, par, scal, n_assets, a_tile,
+                                       chunk, sd, of, rows, iters, scratch);
   } else {
-    err = kahan ? launch_packed<false, true>(lt, par, scal, n_assets, a_tile, width, chunk, smem, sd, of, n_blocks, rows, iters, out, s)
-                : launch_packed<false, false>(lt, par, scal, n_assets, a_tile, width, chunk, smem, sd, of, n_blocks, rows, iters, out, s);
+    const PathFn fn = antithetic ? &basket_cv_path_kernel<true>
+                                 : &basket_cv_path_kernel<false>;
+    const size_t smem = chunk * row_bytes;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    fn<<<items, PK_THREADS, smem, s>>>(lt, par, scal, n_assets, a_tile,
+                                       width, chunk, sd, of, rows, iters,
+                                       scratch);
   }
-  if (err != 0) return err;
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int FOLD_THREADS = 128;
+  const int fold_blocks = (n_blocks * N_SUMS + FOLD_THREADS - 1) / FOLD_THREADS;
+  if (kahan) {
+    basket_cv_fold_kernel<true><<<fold_blocks, FOLD_THREADS, 0, s>>>(
+        scratch, n_blocks, iters, out);
+  } else {
+    basket_cv_fold_kernel<false><<<fold_blocks, FOLD_THREADS, 0, s>>>(
+        scratch, n_blocks, iters, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -230,8 +230,9 @@ def launch(prefix: str, scal: torch.Tensor, lt: torch.Tensor,
            plan: Plan, n_blocks: int):
     """Launch the asset-major or packed kernel ``mctpu_{prefix}_am`` /
     ``_packed`` (K2/K3 with ``scal = [k]``, K47/K48 with ``scal = [k, p0,
-    m]``) on checked operands; returns ``(kernel name, (n_blocks, n_sums)
-    partials)``.  Raises on a failed launch."""
+    m]``; K48 with its scratch of (block, iteration) rows) on checked
+    operands; returns ``(kernel name, (n_blocks, n_sums) partials)``.
+    Raises on a failed launch."""
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
     a = lt.shape[0]
@@ -250,6 +251,12 @@ def launch(prefix: str, scal: torch.Tensor, lt: torch.Tensor,
         else:
             name = f"{prefix}_packed"
             a_tile, _, width = pack_factor(a)
+            if prefix == "basket_cv":
+                scratch = torch.empty(
+                    lib.mctpu_basket_cv_packed_scratch_floats(n_blocks,
+                                                              plan.iters),
+                    dtype=torch.float32, device=lt.device)
+                common = common[:-2] + (scratch.data_ptr(),) + common[-2:]
             status = getattr(lib, f"mctpu_{name}")(*ptrs, a, a_tile, width,
                                                     *common)
     _build.check(status, name)

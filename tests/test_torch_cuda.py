@@ -1122,6 +1122,8 @@ _CM_CASES = {
     "m8_mixed_g13_antithetic_f32": (8, True, 13, True, False),
     "m9_mixed_g13": (9, True, 13, False, True),
     "m16_g12_antithetic": (16, False, 12, True, True),
+    "m17_mixed_g13_antithetic_f32": (17, True, 13, True, False),
+    "m32_g12": (32, False, 12, False, True),
     "m100_mixed_g5_f32": (100, True, 5, False, False),
 }
 
@@ -1169,6 +1171,24 @@ def test_cva_multi_greek_kernel_matches_plain(dev, case):
         assert (vec.reshape(NB, 4, c, a_tile)[..., m:] == 0).all()
         np.testing.assert_allclose(scal[:, :2].cpu().numpy(),
                                    price.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("m, rows", [(9, 35), (16, 35), (17, 69), (32, 69)])
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_cva_multi_register_kernel_uneven_rows_match_plain(dev, m, rows,
+                                                           mixed,
+                                                           antithetic):
+    """K39's register instances (a_tile 16 at 9 and 16 underlyings, 32 at
+    17 and 32) at rows that leave a pass with lanes past the tile's rows
+    (35 rows: two passes of 18 at a_tile 16; 69: two of 35 at a_tile 32),
+    mixed and all-long legs, against the plain version: the price pairs and
+    the EE profile at rtol (the idle lanes add 0 to their warps' profile
+    sums)."""
+    ops, plan = _cm_setup(dev, m, mixed, 13, antithetic, not antithetic,
+                          rows=rows)
+    _contract(lambda off, nb: kcm.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kcm.plain_partials(ops, SEED, off, plan, nb))
 
 
 @pytest.mark.parametrize("m, rows", [(5, 16), (3, 10)])
@@ -1359,12 +1379,13 @@ def test_xva_launch_counters_and_bad_operands(dev):
 
 # ---- K45-K48: the control variates -----------------------------------------
 
-def _cv_contract(dev, opt, antithetic, kahan=True):
+def _cv_contract(dev, opt, antithetic, kahan=True, rows=16):
     """K45-K48 against their plain versions on ``opt``'s CV launch at NB
-    blocks of 16 rows, 2 iterations, at the a-priori float32 centers."""
+    blocks of ``rows`` rows, 2 iterations, at the a-priori float32
+    centers."""
     prec = Precision.F32_KAHAN if kahan else Precision.F32
     setup = variance.cv_setup(opt, 1, EngineConfig(
-        num_blocks=NB, rows=16, precision=prec, antithetic=antithetic,
+        num_blocks=NB, rows=rows, precision=prec, antithetic=antithetic,
         auto_shrink=False))
     plan = dataclasses.replace(setup.plan, iters=2)
     ops = setup.operands(kvr.center32(setup.center))
@@ -1388,13 +1409,47 @@ def test_asian_cv_kernel_matches_plain(dev, n_obs, antithetic):
                  antithetic, kahan=n_obs != 8)
 
 
-@pytest.mark.parametrize("n_assets", [1, 3, 8, 9, 16, 100])
+@pytest.mark.parametrize("n_assets", [1, 3, 8, 9, 16, 17, 32, 64, 100,
+                                      300])
 @pytest.mark.parametrize("antithetic", [False, True])
-def test_basket_cv_kernel_matches_plain(dev, n_assets, antithetic):
+@pytest.mark.parametrize("kahan", [False, True])
+def test_basket_cv_kernel_matches_plain(dev, n_assets, antithetic, kahan):
+    """K47 up to 8 assets; K48's split kernel and fold beyond, its tiled
+    product at every a_tile (16 at 9 and 16 assets, 32 at 17 and 32, 64,
+    128 at 100) and past width 128 (300 assets, width 384: the per-path
+    code)."""
     opt = BasketOption.equicorrelated(n_assets, 0.3)
     if n_assets == 3:  # a Brownian offset on every asset
         opt = dataclasses.replace(opt, d=np.full(3, 0.3))
-    _cv_contract(dev, opt, antithetic, kahan=n_assets != 9)
+    _cv_contract(dev, opt, antithetic, kahan)
+
+
+@pytest.mark.parametrize("n_assets", [17, 100])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_basket_cv_short_last_chunk_matches_plain(dev, n_assets, antithetic):
+    """K48 at 100 rows, which its chunks do not divide: at 17 assets six
+    chunks of 16 rows and one of 4, at 100 assets one of 64 and one of 36
+    (units past the chunk's in its tile's warps, summing threads idle)."""
+    _cv_contract(dev, BasketOption.equicorrelated(n_assets, 0.3), antithetic,
+                 rows=100)
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_basket_cv_pilot_plan_matches_plain(dev, antithetic):
+    """K48 on the pilot's plan of a 100-asset call (8 blocks of rows 16, at
+    least 3 iterations, one CUDA block each): against the plain version,
+    two launches bit-equal and the block-offset contract."""
+    setup = variance.cv_setup(BasketOption.equicorrelated(100, 0.3),
+                              1 << 20, EngineConfig(num_blocks=32, rows=16,
+                                                    antithetic=antithetic,
+                                                    auto_shrink=False))
+    plan = variance._pilot_plan(setup.plan, 0.1)
+    assert plan.num_blocks == 8 and plan.iters >= 3
+    ops = setup.operands(kvr.center32(setup.center))
+    _contract(lambda off, nb: setup.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: setup.plain_partials(ops, SEED, off, plan, nb),
+              n_blocks=plan.num_blocks,
+              units=plan.iters * plan.units_per_iter, moments=True)
 
 
 def test_cv_pricers_launch_their_kernels(dev):

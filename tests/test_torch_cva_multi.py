@@ -75,6 +75,9 @@ CASES = {
     "K40_m1_g3": (1, 3, False, False, True, 1),
     "K39_m9_g4": (9, 4, False, False, True, 1),
     "K39_m9_g3_antithetic": (9, 3, False, True, True, 1),
+    # the register instances' edges: a_tile 16 full, a_tile 32 at its first
+    "K39_m16_g3": (16, 3, False, False, True, 1),
+    "K39_m17_g3_antithetic_f32": (17, 3, False, True, False, 1),
 }
 
 

@@ -92,16 +92,20 @@ def test_asian_cv_matches_interpret_mode(n_obs, antithetic, kahan):
     assert_moments_close(got.numpy(), want, _units(tplan), RTOL)
 
 
-@pytest.mark.parametrize("a,antithetic,kahan", [
-    (3, False, True), (3, True, False), (8, False, True), (16, False, True),
-    (16, True, False)], ids=["K47-a3", "K47-a3-anti-f32", "K47-a8",
-                             "K48-a16", "K48-a16-anti-f32"])
-def test_basket_cv_matches_interpret_mode(a, antithetic, kahan):
+@pytest.mark.parametrize("a,antithetic,kahan,iters", [
+    (3, False, True, 1), (3, True, False, 1), (8, False, True, 1),
+    (16, False, True, 1), (16, True, False, 1), (17, False, True, 2)],
+    ids=["K47-a3", "K47-a3-anti-f32", "K47-a8", "K48-a16",
+         "K48-a16-anti-f32", "K48-a17-2iters"])
+def test_basket_cv_matches_interpret_mode(a, antithetic, kahan, iters):
+    """At 17 assets (a_tile 32) over two iterations the moment rows are
+    Kahan-carried across iterations, as K48's fold carries them."""
     opt = jtypes.BasketOption.equicorrelated(a, rho=0.3)
     chol = np.asarray(jmath.cholesky_lower(np.asarray(opt.corr)))
     probe = jbasket.make_plan(1, NB, ROWS, antithetic, n_assets=a)
-    jplan = jbasket.make_plan(NB * probe.paths_per_iter, NB, ROWS,
+    jplan = jbasket.make_plan(NB * iters * probe.paths_per_iter, NB, ROWS,
                               antithetic, kahan=kahan, n_assets=a)
+    assert jplan.iters == iters
     tplan = _same_plan(tbasket.make_plan(jplan.total_paths, NB, ROWS,
                                          antithetic, kahan, n_assets=a),
                        jplan)

@@ -15,8 +15,9 @@ default ``EngineConfig``), after one warm-up call:
 * device ms — sum of the durations of every device-side event
   (kernels, copies, fills) that ``torch.profiler`` records in one call;
 * kernel ms — the same for the call's own CUDA kernels alone (both
-  launches of a control-variate call; an MLMC call's level-0 kernel and
-  its level kernel; an RQMC call's net kernel and its chunk carry; the
+  launches of a control-variate call, K48's split kernel and fold in
+  each; an MLMC call's level-0 kernel and its level kernel; an RQMC
+  call's net kernel and its chunk carry; the
   runtime-m xVA's, the CVA's and the CVA Greeks' slice kernels and their
   folds; the netting-set CVA's split kernel and its fold at m <= 8; 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
@@ -261,7 +262,7 @@ def calls(mt):
         ("price_cva_multi m=3, n_grid=50, 2^20",
          ("cva_multi_am_split_kernel", "cva_multi_am_fold_kernel"),
          lambda: mt.price_cva_multi(cm3, 1 << 20, SEED)),
-        ("price_cva_multi m=16, n_grid=50, 2^20", "cva_multi_packed_kernel",
+        ("price_cva_multi m=16, n_grid=50, 2^20", "cva_multi_reg_kernel",
          lambda: mt.price_cva_multi(cm16, 1 << 20, SEED)),
         ("greeks_cva_multi m=3, n_grid=12, 2^20",
          "cva_multi_greeks_am_kernel",
@@ -284,7 +285,8 @@ def calls(mt):
          lambda: mt.variance.price_asian_cv(ari, n22, SEED)),
         ("price_basket_cv a=3, 2^24", "basket_cv_am_kernel",
          lambda: mt.variance.price_basket_cv(eq3, n24, SEED)),
-        ("price_basket_cv a=100, 2^22", "basket_cv_packed_kernel",
+        ("price_basket_cv a=100, 2^22",
+         ("basket_cv_tiled_kernel", "basket_cv_fold_kernel"),
          lambda: mt.variance.price_basket_cv(
              BasketOption.equicorrelated(100, 0.3), n22, SEED)),
         # The American path at the JAX CLIs' shapes: the exotic CLI's

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the redesigned kernels -- K35 (the packed basket-barrier LR
-Greeks), K4 (the CVA exposure walk), K5 (its Greeks), K31 (the packed
-multi-asset walk), K40 (the netting-set CVA) and K43's runtime-m xVA
-kernel -- at ``chip_smoke.py``'s phase 6 shapes on one GPU, against
-another checkout in the same process.
+"""Time the redesigned kernels -- K48 (the packed basket control
+variate), K39 (the packed netting-set CVA), K35 (the packed
+basket-barrier LR Greeks), K4 (the CVA exposure walk), K5 (its Greeks),
+K31 (the packed multi-asset walk), K40 (the netting-set CVA) and K43's
+runtime-m xVA kernel, with K3 beside K48 -- at ``chip_smoke.py``'s phase
+6 shapes on one GPU, against another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
 
@@ -15,7 +16,12 @@ Run from the repository root on a machine with a CUDA device and ``nvcc``:
 checkout, V this one), so that both are timed in one process on one card.
 Without ``--root`` only this checkout runs; ``--only`` (repeatable) keeps
 the cases whose name contains one of its texts.  The cases, on the default
-``EngineConfig``'s layout: K35 on ``equicorrelated(16, 0.3)``, up-and-out
+``EngineConfig``'s layout: K48 on ``equicorrelated(100, 0.3)`` at 2^22
+paths, its main run (512 x 16 x 256) and its pilot's plan (8 x 102 x
+256), plain and antithetic, and the main run at 32 assets; K3 on
+``equicorrelated(100)`` at 2^22; K39 on the JAX exotic CLI's ``--product
+cva-multi`` set at ``--assets 16``, plain and antithetic, and at 32, 50
+nodes, 2^20 paths; K35 on ``equicorrelated(16, 0.3)``, up-and-out
 at H = 130, 50 dates, 2^22 paths, plain and antithetic, and at 32 (2^22)
 and 100 assets (2^20); K4 on the call CVA (S = K = 100, r = 0.05, v = 0.2,
 T = 1, lambda 0.03, lgd 0.6, F32_KAHAN) at 500 and 50 nodes, at 500 under
@@ -28,9 +34,10 @@ and the up-and-out at H = 130, and the Asian at 32 assets (2^22) and at
 3 underlyings, plain and antithetic, and at 8, 50 nodes, 2^20 paths; K43's
 runtime-m kernel on the JAX exotic CLI's ``--product xva`` set at 16
 underlyings, 50 nodes, 2^20 paths.  Each time is the median of ``--reps``
-launches timed by CUDA events after one warm-up launch.  K35's, K31's and
-K40's outputs (K40's sums and EE profile) must equal the other checkout's
-bit for bit (same walk, passes and order of sums); each such case prints
+launches timed by CUDA events after one warm-up launch.  K48's (its five
+moment sums), K3's, K39's, K35's, K31's and K40's outputs (K39's and K40's
+sums and EE profile) must equal the other checkout's bit for bit (same
+walk, passes and order of sums); each such case prints
 the comparison and the tool exits 1 if one differs.  Prints the card's
 name and power limit, one line per case and version, and a JSON line of
 them last.  Imports neither jax nor mctpu.
@@ -55,7 +62,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED = 20240607
 MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.kernels.multi_walk", "mctpu_torch.kernels.cva_multi",
-           "mctpu_torch.kernels.cva", "mctpu_torch.types")
+           "mctpu_torch.kernels.cva", "mctpu_torch.types",
+           "mctpu_torch.variance", "mctpu_torch.kernels.varred",
+           "mctpu_torch.kernels.basket")
 
 
 def _drop_port_modules() -> None:
@@ -75,9 +84,10 @@ def load(root: Path) -> SimpleNamespace:
     finally:
         sys.path.remove(str(root))
         _drop_port_modules()
-    build, engine, kmw, kcm, kcva, types = mods
+    build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
-                           kcm=kcm, kcva=kcva, types=types)
+                           kcm=kcm, kcva=kcva, types=types, variance=variance,
+                           kvr=kvr, kbasket=kbasket)
 
 
 def kernel_ms(fn, reps: int) -> float:
@@ -109,6 +119,31 @@ def cases(v: SimpleNamespace):
     t, engine, kmw, kcm, kcva = v.types, v.engine, v.kmw, v.kcm, v.kcva
     cfg = engine.EngineConfig()
     out = []
+    for a, anti, pilot in ((100, False, False), (100, True, False),
+                           (100, False, True), (100, True, True),
+                           (32, False, False)):
+        cvs = v.variance.cv_setup(t.BasketOption.equicorrelated(a, 0.3),
+                                  1 << 22,
+                                  dataclasses.replace(cfg, antithetic=anti))
+        plan = (v.variance._pilot_plan(cvs.plan, 0.1) if pilot
+                else cvs.plan)
+        ops = cvs.operands(v.kvr.center32(cvs.center))
+        out.append((f"K48 a={a} {'pilot' if pilot else 'main'} "
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows} 2^22"
+                    f"{' antithetic' if anti else ''}",
+                    lambda s=cvs, o=ops, p=plan: s.partials(
+                        o, SEED, 0, p, p.num_blocks), True))
+    bk = t.BasketOption.equicorrelated(100)
+    plan, ops = engine.basket_setup(bk, 1 << 22, cfg)
+    out.append(("K3 a=100 2^22", lambda o=ops, p=plan: v.kbasket.partials(
+        o, SEED, 0, p, p.num_blocks), True))
+    for m, anti in ((16, False), (16, True), (32, False)):
+        plan, ops = engine.price_cva_multi_setup(
+            netting_set(t, m, 50), 1 << 20,
+            dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K39 m={m} 50 nodes{' antithetic' if anti else ''} 2^20",
+                    lambda o=ops, p=plan: kcm.partials(
+                        o, SEED, 0, p, p.num_blocks), True))
     for a, n, anti in ((16, 1 << 22, False), (16, 1 << 22, True),
                        (32, 1 << 22, False), (100, 1 << 20, False)):
         opt = t.BasketBarrierOption(t.BasketOption.equicorrelated(a, 0.3),
