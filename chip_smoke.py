@@ -158,10 +158,12 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    of 5 synchronized runs (3 for the slower plain versions, said so in
    the line), beside the least time the card could take for the same
    work (``bound_ms``: instruction counts over the peak rate of their
-   class, see ``PEAK_OPS``); a split kernel's time holds both its
-   launches, the slice or split kernel and its fold (K4, K5, K40, K43's
-   runtime-m kernel and K48); K48 also on its pilot's plan, a line of its
-   own (``basket_cv_packed_pilot``, the kernel's launches beside it).
+   class, see ``PEAK_OPS``); a split kernel's time holds all its
+   launches, the slice or split kernel and its fold (K4, K5, K40, K43 and
+   its runtime-m kernel, K8 and K48); K48 also on its pilot's plan, a line
+   of its own (``basket_cv_packed_pilot``, the kernel's launches beside
+   it); K43's CVA sums and EPE profile at no own default and no funding
+   equal to K40's bit for bit at the timed shape, plain and antithetic.
 
 The last two lines of output are a JSON line of per-kernel results and the
 line ``{"ok": true, "device": {...}}``.  Imports nothing of jax or mctpu.
@@ -4595,6 +4597,24 @@ def main() -> int:
               in_bytes=4 * sum(x.numel() for x in (xops.scal, xops.lt,
                                                    xops.par, xops.nodes)),
               units=gunits(plan) if greek else None, plain_reps=3)
+    # K43 = K40 at the timed shape, both signs: at no own default and no
+    # funding K43's split and fold give K40's CVA sums and EPE profile bit
+    # for bit (one walk, one order of additions).
+    tie_net = cva_multi_spec(3, 50)
+    for anti in (False, True):
+        c = dataclasses.replace(cfg, antithetic=anti)
+        plan, xops = engine.price_xva_setup(
+            xva_spec(tie_net, own=0.0, spread=0.0), 1 << 20, c)
+        _, cops = engine.price_cva_multi_setup(tie_net, 1 << 20, c)
+        xsum, xprof = kcm.xva_partials(xops, SEED, 0, plan, plan.num_blocks)
+        csum, cprof = kcm.partials(cops, SEED, 0, plan, plan.num_blocks)
+        check(torch.equal(xsum[:, :2], csum) and torch.equal(xprof[:, 0],
+                                                             cprof),
+              f"K43 m=3{' antithetic' if anti else ''} at 2^20: the CVA sums "
+              "or EPE profile at no own default and no funding differ from "
+              "K40's")
+    phase("times", "K43 = K40 at m=3, 50 nodes, 2^20, plain and "
+                   "antithetic: CVA sums and EPE profile bit for bit")
 
     # The control-variate path's shapes (the JAX exotic CLI's --product cv
     # at its defaults): K45 the call at 2^28, K46 the arithmetic Asian at

@@ -83,9 +83,12 @@ _SIGNATURES = {
     "mctpu_greeks_basket_am": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P, _P),
     # scal, lt, rows, n_assets, a_tile, width, seed, off, n_blocks, rows,
-    # iters, antithetic, kahan, out, vecs, stream
-    "mctpu_greeks_basket_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _P, _P, _P),
+    # iters, antithetic, kahan, scratch cap in floats, scratch, out, vecs,
+    # stream
+    "mctpu_greeks_basket_packed": (_P, _P, _P) + (_I,) * 11 + (_P,) * 4,
+    # n_assets, a_tile, width, n_blocks, rows, iters, antithetic, cap ->
+    # float count of K8's scratch (its groups' items and fold carry)
+    "mctpu_greeks_basket_packed_scratch_floats": (_I,) * 8,
     # scal, opts, nodes, n_options, n_grid, seed, off, n_blocks, rows,
     # iters, antithetic, kahan, wwr, scratch, out, stream
     "mctpu_cva_greeks": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -159,12 +162,13 @@ _SIGNATURES = {
     "mctpu_cva_multi_am_scratch_floats": (_I,) * 7,
     # The xVA (K43, K44 and their runtime-m kernels): scal, lt, par, nodes,
     # n_under, n_grid, wide, seed, off, n_blocks, rows, iters, antithetic,
-    # kahan, scratch, out, [K43: prof,] stream
-    "mctpu_xva": (_P,) * 4 + (_I,) * 10 + (_P,) * 4,
+    # kahan, [K43: scratch cap in floats,] scratch, out, [K43: prof,] stream
+    "mctpu_xva": (_P,) * 4 + (_I,) * 11 + (_P,) * 4,
     "mctpu_xva_greeks": (_P,) * 4 + (_I,) * 10 + (_P,) * 3,
-    # n_under, n_grid, greeks, wide, n_blocks, rows, iters -> float count
-    # of a launch's scratch
-    "mctpu_xva_scratch_floats": (_I,) * 7,
+    # n_under, n_grid, greeks, wide, n_blocks, rows, iters, antithetic, cap
+    # -> float count of a launch's scratch (K43: its groups' split items and
+    # fold carry)
+    "mctpu_xva_scratch_floats": (_I,) * 9,
     # The control variates (K45, K47, K48; K46 takes the single-asset
     # walks' signature above): K45 par, seed, off, n_blocks, rows, iters,
     # antithetic, kahan, out, stream

@@ -383,6 +383,39 @@ __device__ __forceinline__ void slice_fold(const float* __restrict__ scratch,
   }
 }
 
+// The split kernels that keep per-(block, iteration) rows in scratch until
+// an ordered fold (K40, K43, K8) bound it by a cap in floats: simulation
+// blocks go in groups of `blocks`, each block taking `carry` floats (the
+// fold's carry between groups) and `per_item` a (block, iteration) item;
+// where one block with all its iterations exceeds the cap, one block goes
+// at a time with its iterations in groups of `iters`.  The groups are
+// balanced (their sizes differ by at most one block); the bits do not
+// depend on them.
+struct ScratchGroups {
+  int blocks, iters;
+  size_t total;  // floats of scratch a launch needs
+};
+
+inline ScratchGroups scratch_groups(int n_blocks, int iters, size_t carry,
+                                    size_t per_item, size_t cap) {
+  ScratchGroups G{};
+  const size_t block = carry + per_item * iters;
+  const size_t most = cap / block < 1 ? 1 : cap / block;
+  const int fit = static_cast<int>(
+      most < static_cast<size_t>(n_blocks) ? most : n_blocks);
+  const int groups = (n_blocks + fit - 1) / fit;
+  G.blocks = (n_blocks + groups - 1) / groups;
+  G.iters = iters;
+  if (block > cap) {
+    const size_t room = cap > carry ? cap - carry : 0;
+    const size_t it = room / per_item;
+    G.iters = it < 1 ? 1 : (it < static_cast<size_t>(iters)
+                                ? static_cast<int>(it) : iters);
+  }
+  G.total = G.blocks * (carry + per_item * G.iters);
+  return G;
+}
+
 // Adds one path's outputs q [S scalars, d.., v..] (the asset-major Greek
 // kernels' scalars, two but for K44's seven, and A-vectors) to the
 // per-thread sums, in the row order [p, p2, gr, gr2, .., d.., d2.., v..,

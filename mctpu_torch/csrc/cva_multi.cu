@@ -46,7 +46,7 @@
 // K40, K42 and K43 share am_node, the thread count and BlockAccN's
 // reduction, so K42's CVA sums equal K40's bit for bit, and so do K43's
 // CVA sums and EPE profile where its CVA table is K40's (no own default);
-// K40's split and fold (below) keep that order of additions.
+// K40's and K43's split and fold (below) keep that order of additions.
 //
 // The expected-exposure profiles: mctpu Kahan-adds (1/2 under antithetic)
 // the tile's sum of ee_j into an SMEM scalar per node.  Here (K4's design,
@@ -65,18 +65,19 @@
 // path element striding over the tile, the walk state in registers (K44 at
 // m = 8: 8 log-spots, 8 tangents, 16 accumulators, 7 legs and 46 sums), L
 // and the per-leg rows in shared memory, the node tables read through the
-// read-only cache (every thread of a warp on the same node).  K40 is split:
-// one warp per 32 elements that a warp of the unsplit kernel walked in one
-// pass (32768 warp items at 2^20 paths instead of 512 warps on 32 SMs),
-// each writing its paths' cva and its warp's node sums of ee to scratch,
-// then a fold, one CUDA block per simulation block, that replays the
-// unsplit kernel's per-thread sums, BlockAccN and profile Kahan chains in
-// their order from scratch, so that its bits, and the K42 / K43 gates
-// against them, stay as they were ("K40 split, then folded" below).  Its
-// scratch (a float of cva a tile element, signs x n_grid warp sums for
-// each 32) is capped at 256 MB: past that the blocks and iterations are
-// split and folded in groups, the fold's carry kept in scratch between
-// them.
+// read-only cache (every thread of a warp on the same node).  K40 and K43
+// are split: one warp per 32 elements that a warp of the unsplit kernel
+// walked in one pass (32768 warp items at 2^20 paths instead of 512 warps
+// on 32 SMs), each writing its paths' payload (K40: cva; K43: four legs)
+// and its warp's node sums (K40: ee; K43: epe and ene) to scratch, then a
+// fold, one CUDA block per simulation block, that replays the unsplit
+// kernel's per-thread sums, BlockAccN and profile Kahan chains in their
+// order from scratch, so that their bits, and the K42 / K43 gates against
+// K40, stay as they were ("K40, K43 split, then folded" below; one split
+// kernel and one fold over the payload).  The scratch (the payload a tile
+// element, signs x rows warp sums for each 32) is capped at 256 MB: past
+// that the blocks and iterations are split and folded in groups, the
+// fold's carry kept in scratch between them.
 // Runtime m: K44's the same per thread, its state in global scratch; K43's
 // split over more CUDA blocks than simulation blocks (slices of rows, then
 // an ordered fold; see xva_slice_kernel), its state in registers up to 32
@@ -257,30 +258,32 @@ __device__ __forceinline__ float am_node(const float (&z)[M], float sgn,
   return fmaxf(value, 0.0f);
 }
 
-// ------------------------------------------------- K40 split, then folded
+// --------------------------------------------- K40, K43 split, then folded
 
-// K40 runs as a split walk and a fold that replays the unsplit kernel's
-// order of additions.  The unsplit kernel ran one CUDA block of THREADS =
-// am_threads<M>() threads per simulation block; in iteration i thread t
-// walked elements e = p * THREADS + t for passes p, adding cva and cva^2
-// into two plain per-thread sums that BlockAccN reduced (warp tree, warps
-// in order, Kahan carry) once per iteration, and at each node of each walk
-// (the plain sign's, then the mirror's) lane 0 Kahan-added half_w times its
-// warp's sum of ee into the warp's slot (w, j).  Here a warp item (b, i, p,
-// w) is the 32 elements that warp w walked in pass p of iteration i: the
-// split kernel walks each on one warp and writes its cva and, per sign and
-// node, half_w times the warp's sum of ee (the same shuffle tree); the fold
-// kernel, one CUDA block of THREADS threads per simulation block, adds them
-// in the unsplit order.  So K40's sums and profile equal the unsplit
-// kernel's bit for bit, as do K42's CVA sums and K43's CVA sums and EPE
-// profile (their gates against K40).
+// K40 and K43 run as a split walk and a fold that replays the unsplit
+// kernel's order of additions.  The unsplit kernel ran one CUDA block of
+// THREADS = am_threads<M>() threads per simulation block; in iteration i
+// thread t walked elements e = p * THREADS + t for passes p, adding each of
+// the element's NP payload values x (K40: its cva; K43: its four legs after
+// the LGDs) as x and x^2 into 2 NP plain per-thread sums that BlockAccN
+// reduced (warp tree, warps in order, Kahan carry) once per iteration, and
+// at each node of each walk (the plain sign's, then the mirror's) lane 0
+// Kahan-added half_w times its warp's sum of each profile value (K40: ee;
+// K43: epe, then ene) into the warp's slot (w, row).  Here a warp item (b,
+// i, p, w) is the 32 elements that warp w walked in pass p of iteration i:
+// the split kernel walks each on one warp and writes its payload and, per
+// sign and node, half_w times the warp's sums (the same shuffle tree); the
+// fold kernel, one CUDA block of THREADS threads per simulation block, adds
+// them in the unsplit order.  So K40's and K43's sums and profiles equal
+// the unsplit kernels' bit for bit, as do K42's CVA sums, and K43's CVA
+// sums and EPE profile equal K40's where its CVA table is K40's.
 // Warp items a CUDA block: 8 (256 threads) ran 0-10% faster than 4 on an
 // H100 (tools/time_redesign.py, see PERF.md); the bits do not depend on it.
 constexpr int AM_SPLIT_THREADS = 256;
 constexpr int AM_SPLIT_WARPS = AM_SPLIT_THREADS / 32;
 // Floats of scratch a launch aims at (256 MB): simulation blocks and
-// iterations are split and folded in groups below it, the fold's carry kept
-// between the groups.
+// iterations are split and folded in groups below it (mct::scratch_groups),
+// the fold's carry kept between the groups.
 constexpr size_t AM_SCRATCH_CAP = size_t{64} << 20;
 
 // One K40 walk of tile element e and sign sgn: its default leg lgd sum_j
@@ -309,37 +312,62 @@ __device__ __forceinline__ float am_cva_walk(const float* lt, const float* par,
   return lgd * acc;
 }
 
-// The plan of a K40 launch: the unsplit kernel's warps and passes, the
-// groups of simulation blocks and iterations, and the scratch in floats:
-// per block of a group the fold's carry (its BlockAccN pairs (s, c) and its
-// profile slots [warps][g][2]), then per (block, iteration) of a group the
-// split's cva [rows * 128] and warp rows [passes][warps][signs][g].
+// K40's split walk of element e: its cva (the antithetic pair's mean), one
+// profile row a node (ee).  scal: r, lgd.
+struct CvaPay {
+  static constexpr int NP = 1, ROWS = 1;
+
+  template <int M, bool ANTI>
+  __device__ static void walk(const float* lt, const float* par,
+                              const float* nodes, const float* scal, int g,
+                              mct::Key key, uint32_t e, float half_w,
+                              float* wrow, int lane, float (&q)[NP]) {
+    const float r = scal[0], lgd = scal[1];
+    float cva = am_cva_walk<M>(lt, par, nodes, r, lgd, g, key, e, 1.0f,
+                               half_w, wrow, lane);
+    if (ANTI) {
+      cva = 0.5f * (cva + am_cva_walk<M>(lt, par, nodes, r, lgd, g, key, e,
+                                         -1.0f, half_w, wrow + g, lane));
+    }
+    q[0] = cva;
+  }
+};
+
+// The plan of a K40 or K43 launch: the unsplit kernel's warps and passes,
+// the payload floats an element (np) and profile rows a sign (gp: g or 2g),
+// the groups of simulation blocks and iterations, and the scratch in
+// floats: per block of a group the fold's carry (its BlockAccN pairs (s, c)
+// and its profile slots [warps][gp][2]), then per (block, iteration) of a
+// group the split's payload [np][rows * 128] and warp rows
+// [passes][warps][signs][gp].
 struct AmSplit {
-  int warps, passes, signs, group_blocks, group_iters;
+  int warps, passes, signs, np, gp, group_blocks, group_iters;
   size_t carry, per_item, total;
 };
 
 // Warp items (b0 + bl, i0 + il, p, w) of a group, AM_SPLIT_WARPS a CUDA
-// block: each lane walks its element with both signs, writes its cva (the
-// antithetic mean under ANTI) and lane 0 the warp's node rows.  Warps past
-// the tile (rows % 4 != 0 leaves the last pass's warps idle in the unsplit
-// kernel) write nothing; the fold skips them as the unsplit kernel did.
-template <int M, bool ANTI>
+// block: each lane walks its element with both signs, writes its payload
+// (the antithetic mean under ANTI) and lane 0 the warp's node rows.  Warps
+// past the tile (rows % 4 != 0 leaves the last pass's warps idle in the
+// unsplit kernel) write nothing; the fold skips them as the unsplit kernel
+// did.
+template <int M, bool ANTI, class Pay>
 __global__ void __launch_bounds__(AM_SPLIT_THREADS)
-    cva_multi_am_split_kernel(const float* __restrict__ scal,
-                              const float* __restrict__ lt_g,
-                              const float* __restrict__ par_g,
-                              const float* __restrict__ nodes, Launch L,
-                              int b0, int nb, int i0, int ni,
-                              float* __restrict__ split) {
+    am_split_kernel(const float* __restrict__ scal,
+                    const float* __restrict__ lt_g,
+                    const float* __restrict__ par_g,
+                    const float* __restrict__ nodes, Launch L, int b0, int nb,
+                    int i0, int ni, float* __restrict__ split) {
   constexpr int THREADS = am_threads<M>();
   constexpr int WARPS = THREADS / 32;
   constexpr int SIGNS = ANTI ? 2 : 1;
+  constexpr int NP = Pay::NP;
   __shared__ float lt[M * M], par[9 * M];
   stage<AM_SPLIT_THREADS>(lt, lt_g, M * M);
   stage<AM_SPLIT_THREADS>(par, par_g, 9 * M);
   __syncthreads();
   const int lane = threadIdx.x & 31;
+  const int gp = Pay::ROWS * L.g;
   const int n_elems = L.rows * mct::LANES;
   const int passes = (n_elems + THREADS - 1) / THREADS;
   const int per = passes * WARPS;
@@ -354,76 +382,82 @@ __global__ void __launch_bounds__(AM_SPLIT_THREADS)
       L.seed, (L.off + static_cast<uint32_t>(b0 + bl)) *
                       static_cast<uint32_t>(L.iters) +
                   static_cast<uint32_t>(i0 + il));
-  const size_t per_item =
-      static_cast<size_t>(n_elems) + static_cast<size_t>(per) * SIGNS * L.g;
-  float* cva_s = split + bi * per_item;
-  float* wrow = cva_s + n_elems + static_cast<size_t>(pw) * SIGNS * L.g;
-  const float r = scal[0], lgd = scal[1];
+  const size_t per_item = static_cast<size_t>(NP) * n_elems +
+                          static_cast<size_t>(per) * SIGNS * gp;
+  float* pay = split + bi * per_item;
+  float* wrow = pay + static_cast<size_t>(NP) * n_elems +
+                static_cast<size_t>(pw) * SIGNS * gp;
   const float half_w = ANTI ? 0.5f : 1.0f;
   const uint32_t e = static_cast<uint32_t>(base + lane);
-  float cva = am_cva_walk<M>(lt, par, nodes, r, lgd, L.g, key, e, 1.0f,
-                             half_w, wrow, lane);
-  if (ANTI) {
-    cva = 0.5f * (cva + am_cva_walk<M>(lt, par, nodes, r, lgd, L.g, key, e,
-                                       -1.0f, half_w, wrow + L.g, lane));
-  }
-  cva_s[e] = cva;
+  float q[NP];
+  Pay::template walk<M, ANTI>(lt, par, nodes, scal, L.g, key, e, half_w, wrow,
+                              lane, q);
+#pragma unroll
+  for (int k = 0; k < NP; ++k) pay[static_cast<size_t>(k) * n_elems + e] = q[k];
 }
 
 // One CUDA block of THREADS threads per simulation block b0 + bl of a
-// group: thread t adds its elements' cva and cva^2 over the passes into
-// v[2] and BlockAccN reduces them once per iteration; thread (w, j) runs
-// slot (w, j)'s Kahan chain over (iteration, pass, sign) in profile_add's
-// form.  The carry (BlockAccN's pairs, the slots) starts at zero in the
-// first group and is kept in scratch between groups; the last group writes
-// the block's row of out and, the warps in order, of ee.
-template <int THREADS, bool KAHAN>
+// group: thread t adds its elements' payload values x and x^2 over the
+// passes into v[2 NP] and BlockAccN reduces them once per iteration; thread
+// (w, row) runs slot (w, row)'s Kahan chain over (iteration, pass, sign) in
+// profile_add's form.  The carry (BlockAccN's pairs, the slots) starts at
+// zero in the first group and is kept in scratch between groups; the last
+// group writes the block's row of out (2 NP sums) and, the warps in order,
+// its gp-row of prof.
+template <int THREADS, bool KAHAN, int NP>
 __global__ void __launch_bounds__(THREADS)
-    cva_multi_am_fold_kernel(const float* __restrict__ split,
-                             float* __restrict__ carry, Launch L, int b0,
-                             int ni, int signs, int first, int last,
-                             float* __restrict__ out,
-                             float* __restrict__ ee_out) {
+    am_fold_kernel(const float* __restrict__ split, float* __restrict__ carry,
+                   Launch L, int gp, int b0, int ni, int signs, int first,
+                   int last, float* __restrict__ out,
+                   float* __restrict__ prof_out) {
   constexpr int WARPS = THREADS / 32;
-  __shared__ float sh[WARPS * 2];
-  const int g = L.g, bl = blockIdx.x, b = b0 + bl;
+  constexpr int N = 2 * NP;
+  __shared__ float sh[WARPS * N];
+  const int bl = blockIdx.x, b = b0 + bl;
   const int n_elems = L.rows * mct::LANES;
   const int passes = (n_elems + THREADS - 1) / THREADS;
-  const size_t per_item = static_cast<size_t>(n_elems) +
-                          static_cast<size_t>(passes) * WARPS * signs * g;
-  float* cb = carry + static_cast<size_t>(bl) * (4 + WARPS * g * 2);
-  float* prof = cb + 4;
+  const size_t per_item = static_cast<size_t>(NP) * n_elems +
+                          static_cast<size_t>(passes) * WARPS * signs * gp;
+  float* cb = carry + static_cast<size_t>(bl) * (2 * N + WARPS * gp * 2);
+  float* prof = cb + 2 * N;
   const float* items = split + static_cast<size_t>(bl) * ni * per_item;
-  mct::BlockAccN<THREADS, 2, KAHAN> acc;
-  if (!first && threadIdx.x < 2) {
+  mct::BlockAccN<THREADS, N, KAHAN> acc;
+  if (!first && threadIdx.x < N) {
     acc.s = cb[2 * threadIdx.x];
     acc.c = cb[2 * threadIdx.x + 1];
   }
   // A warp's passes: those with p * THREADS + w * 32 < n_elems.
   const int my_passes =
       (n_elems - (threadIdx.x >> 5) * 32 + THREADS - 1) / THREADS;
-  float v[2] = {0.0f, 0.0f};
+  float v[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = 0.0f;
   for (int il = 0; il < ni; ++il) {
-    const float* cva_s = items + il * per_item;
+    const float* pay = items + il * per_item;
     for (int p = 0; p < my_passes; ++p) {
-      const float cva = cva_s[p * THREADS + threadIdx.x];
-      v[0] += cva;
-      v[1] += cva * cva;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const float x =
+            pay[static_cast<size_t>(k) * n_elems + p * THREADS + threadIdx.x];
+        v[2 * k] += x;
+        v[2 * k + 1] += x * x;
+      }
     }
     acc.add(v, nullptr, sh);
   }
-  for (int t = threadIdx.x; t < WARPS * g; t += THREADS) {
-    const int w = t / g, j = t - w * g;
+  for (int t = threadIdx.x; t < WARPS * gp; t += THREADS) {
+    const int w = t / gp, j = t - w * gp;
     const int w_passes = (n_elems - w * 32 + THREADS - 1) / THREADS;
     float* slot = prof + 2 * t;
     float s0 = first ? 0.0f : slot[0], s1 = first ? 0.0f : slot[1];
     for (int il = 0; il < ni; ++il) {
-      const float* rows = items + il * per_item + n_elems +
-                          static_cast<size_t>(w) * signs * g + j;
+      const float* rows = items + il * per_item +
+                          static_cast<size_t>(NP) * n_elems +
+                          static_cast<size_t>(w) * signs * gp + j;
       for (int p = 0; p < w_passes; ++p) {
         for (int sg = 0; sg < signs; ++sg) {
           const float row =
-              rows[(static_cast<size_t>(p) * WARPS * signs + sg) * g];
+              rows[(static_cast<size_t>(p) * WARPS * signs + sg) * gp];
           const float y = __fsub_rn(row, s1);
           const float u = __fadd_rn(s0, y);
           s1 = __fsub_rn(__fsub_rn(u, s0), y);
@@ -436,10 +470,10 @@ __global__ void __launch_bounds__(THREADS)
   }
   if (last) {
     __syncthreads();
-    profile_write_to<THREADS>(prof, WARPS, g,
-                              ee_out + static_cast<size_t>(b) * g);
-    acc.write_n(out + static_cast<size_t>(b) * 2, 2);
-  } else if (threadIdx.x < 2) {
+    profile_write_to<THREADS>(prof, WARPS, gp,
+                              prof_out + static_cast<size_t>(b) * gp);
+    acc.write_n(out + static_cast<size_t>(b) * N, N);
+  } else if (threadIdx.x < N) {
     cb[2 * threadIdx.x] = acc.s;
     cb[2 * threadIdx.x + 1] = acc.c;
   }
@@ -529,17 +563,18 @@ __global__ void __launch_bounds__(am_threads<M>())
   acc.write(out);
 }
 
-// K40's groups in order, each its split and then its fold.
-template <int M>
+// K40's or K43's groups in order, each its split and then its fold; out
+// takes 2 Pay::NP sums a block, prof Pay::ROWS profile rows.
+template <int M, class Pay>
 int launch_am(bool anti, bool kahan, const float* scal, const float* lt,
               const float* par, const float* nodes, const Launch& L,
               int n_blocks, const AmSplit& X, float* scratch, float* out,
-              float* ee, cudaStream_t s) {
+              float* prof, cudaStream_t s) {
   constexpr int THREADS = am_threads<M>();
-  const auto split = anti ? cva_multi_am_split_kernel<M, true>
-                          : cva_multi_am_split_kernel<M, false>;
-  const auto fold = kahan ? cva_multi_am_fold_kernel<THREADS, true>
-                          : cva_multi_am_fold_kernel<THREADS, false>;
+  const auto split = anti ? am_split_kernel<M, true, Pay>
+                          : am_split_kernel<M, false, Pay>;
+  const auto fold = kahan ? am_fold_kernel<THREADS, true, Pay::NP>
+                          : am_fold_kernel<THREADS, false, Pay::NP>;
   float* carry = scratch;
   float* items = scratch + X.group_blocks * X.carry;
   for (int b0 = 0; b0 < n_blocks; b0 += X.group_blocks) {
@@ -552,8 +587,8 @@ int launch_am(bool anti, bool kahan, const float* scal, const float* lt,
                                         ni, items);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
-      fold<<<nb, THREADS, 0, s>>>(items, carry, L, b0, ni, X.signs, i0 == 0,
-                                  i0 + ni >= L.iters, out, ee);
+      fold<<<nb, THREADS, 0, s>>>(items, carry, L, X.gp, b0, ni, X.signs,
+                                  i0 == 0, i0 + ni >= L.iters, out, prof);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
@@ -1143,14 +1178,15 @@ __device__ __forceinline__ void xva_legs_add(const float* __restrict__ nodes,
 }
 
 // One K43 walk of tile element e and sign sgn: the legs (before the LGDs)
-// into leg; each node's epe and ene go to the warp's profile slots j and g
-// + j.  nodes (6, g): w_cva, w_dva, w_fnd, tau, sqrt(tau), disc.
+// into leg; lane 0 writes each node's warp sums of epe and ene, times
+// half_w, to wrow[j] and wrow[g + j].  nodes (6, g): w_cva, w_dva, w_fnd,
+// tau, sqrt(tau), disc.
 template <int M>
 __device__ __forceinline__ void am_xva_walk(const float* lt, const float* par,
                                             const float* nodes, float r,
                                             int g, mct::Key key, uint32_t e,
                                             float sgn, float half_w,
-                                            float* wprof, int lane,
+                                            float* wrow, int lane,
                                             float (&leg)[4]) {
   float x[M];
 #pragma unroll
@@ -1163,23 +1199,37 @@ __device__ __forceinline__ void am_xva_walk(const float* lt, const float* par,
                                         phi, net);
     const float ene = epe - net;
     xva_legs_add(nodes, g, j, epe, ene, leg);
-    profile_add(wprof, j, half_w, epe, lane);
-    profile_add(wprof, g + j, half_w, ene, lane);
+    const float te = warp_sum(epe), tn = warp_sum(ene);
+    if (lane == 0) {
+      wrow[j] = __fmul_rn(half_w, te);
+      wrow[g + j] = __fmul_rn(half_w, tn);
+    }
   });
 }
 
 // The legs of one element's walk (or its antithetic pair's mean) with the
-// LGDs applied at the walk's end, added to the per-thread (x, x^2) sums.
-__device__ __forceinline__ void xva_leg_sums(const float (&a)[4],
-                                             const float* mirror, float lgd,
-                                             float olgd, float (&v)[8]) {
-  float leg[4] = {lgd * a[0], olgd * a[1], a[2], a[3]};
+// LGDs applied at the walk's end.
+__device__ __forceinline__ void xva_legs(const float (&a)[4],
+                                         const float* mirror, float lgd,
+                                         float olgd, float (&leg)[4]) {
+  leg[0] = lgd * a[0];
+  leg[1] = olgd * a[1];
+  leg[2] = a[2];
+  leg[3] = a[3];
   if (mirror != nullptr) {
     const float m[4] = {lgd * mirror[0], olgd * mirror[1], mirror[2],
                         mirror[3]};
 #pragma unroll
     for (int k = 0; k < 4; ++k) leg[k] = 0.5f * (leg[k] + m[k]);
   }
+}
+
+// xva_legs added to the per-thread (x, x^2) sums.
+__device__ __forceinline__ void xva_leg_sums(const float (&a)[4],
+                                             const float* mirror, float lgd,
+                                             float olgd, float (&v)[8]) {
+  float leg[4];
+  xva_legs(a, mirror, lgd, olgd, leg);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     v[2 * k] += leg[k];
@@ -1187,54 +1237,29 @@ __device__ __forceinline__ void xva_leg_sums(const float (&a)[4],
   }
 }
 
-// K43: K40's walk, threads, element loop and profile slots with 8 sums and
-// two profiles (scratch [warps][2g][2]), so at own_intensity = 0 and
-// funding_spread = 0 (w_cva = dp) its CVA sums and EPE profile are K40's
-// bit for bit.  scal: r, lgd, own_lgd, sqrt(dt).
-template <int M, bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(am_threads<M>())
-    xva_am_kernel(const float* __restrict__ scal,
-                  const float* __restrict__ lt_g,
-                  const float* __restrict__ par_g,
-                  const float* __restrict__ nodes, Launch L,
-                  float* __restrict__ scratch, float* __restrict__ out,
-                  float* __restrict__ prof_out) {
-  constexpr int THREADS = am_threads<M>();
-  constexpr int WARPS = THREADS / 32;
-  __shared__ float lt[M * M], par[9 * M], sh[WARPS * 8];
-  stage<THREADS>(lt, lt_g, M * M);
-  stage<THREADS>(par, par_g, 9 * M);
-  const int g2 = 2 * L.g;
-  float* prof = scratch + static_cast<size_t>(blockIdx.x) * WARPS * g2 * 2;
-  profile_zero<THREADS>(prof, WARPS * g2 * 2);
-  __syncthreads();
-  const float r = scal[0], lgd = scal[1], olgd = scal[2];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* wprof = prof + warp * g2 * 2;
-  const float half_w = ANTI ? 0.5f : 1.0f;
-  const int n_elems = L.rows * mct::LANES;
-  mct::BlockAccN<THREADS, 8, KAHAN> acc;
-  float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < L.iters; ++i) {
-    const mct::Key key = iter_key(L, i);
-    for (int base = 0; base < n_elems; base += THREADS) {
-      if (base + warp * 32 >= n_elems) continue;  // as K40: whole warps
-      const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
-      float a[4], m[4];
-      am_xva_walk<M>(lt, par, nodes, r, L.g, key, e, 1.0f, half_w, wprof,
-                     lane, a);
-      if (ANTI) {
-        am_xva_walk<M>(lt, par, nodes, r, L.g, key, e, -1.0f, half_w, wprof,
-                       lane, m);
-      }
-      xva_leg_sums(a, ANTI ? m : nullptr, lgd, olgd, v);
+// K43: K40's split walk, threads, element loop, profile slots and fold
+// (launch_am) with four legs an element and two profile rows a node (EPE
+// then ENE), so at own_intensity = 0 and funding_spread = 0 (w_cva = dp)
+// its CVA sums and EPE profile are K40's bit for bit.  scal: r, lgd,
+// own_lgd, sqrt(dt).
+struct XvaPay {
+  static constexpr int NP = 4, ROWS = 2;
+
+  template <int M, bool ANTI>
+  __device__ static void walk(const float* lt, const float* par,
+                              const float* nodes, const float* scal, int g,
+                              mct::Key key, uint32_t e, float half_w,
+                              float* wrow, int lane, float (&q)[NP]) {
+    const float r = scal[0], lgd = scal[1], olgd = scal[2];
+    float a[4], m[4];
+    am_xva_walk<M>(lt, par, nodes, r, g, key, e, 1.0f, half_w, wrow, lane, a);
+    if (ANTI) {
+      am_xva_walk<M>(lt, par, nodes, r, g, key, e, -1.0f, half_w,
+                     wrow + 2 * g, lane, m);
     }
-    acc.add(v, nullptr, sh);
+    xva_legs(a, ANTI ? m : nullptr, lgd, olgd, q);
   }
-  __syncthreads();
-  profile_write<THREADS>(prof, WARPS, g2, prof_out);
-  acc.write(out);
-}
+};
 
 // The xVA Greek node's adds (mctpu's _am_xva_greek_step) after the legs'
 // values: the total-xVA weight tw = (wc' + wf) 1{net > 0} + (wd' + wf)
@@ -1774,21 +1799,6 @@ __global__ void __launch_bounds__(WIDE_THREADS)
 }
 
 template <int M>
-void launch_xva_am(bool anti, bool kahan, const float* scal, const float* lt,
-                   const float* par, const float* nodes, const Launch& L,
-                   int n_blocks, float* scratch, float* out, float* prof,
-                   cudaStream_t s) {
-  using Fn = void (*)(const float*, const float*, const float*, const float*,
-                      Launch, float*, float*, float*);
-  static const Fn FNS[4] = {
-      xva_am_kernel<M, false, false>, xva_am_kernel<M, false, true>,
-      xva_am_kernel<M, true, false>, xva_am_kernel<M, true, true>};
-  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
-  fn<<<n_blocks, am_threads<M>(), 0, s>>>(scal, lt, par, nodes, L, scratch,
-                                          out, prof);
-}
-
-template <int M>
 void launch_xva_greeks_am(bool anti, bool kahan, const float* scal,
                           const float* lt, const float* par,
                           const float* nodes, const Launch& L, int n_blocks,
@@ -1822,6 +1832,9 @@ Launch make_launch(int g, int seed, int off, int rows, int iters) {
                 rows, iters};
 }
 
+// The split plan of K40 (Pay = CvaPay) or K43 (XvaPay) at m underlyings and
+// g nodes under a cap in floats (0: AM_SCRATCH_CAP).
+template <class Pay>
 AmSplit am_split(int m, int g, int n_blocks, int rows, int iters, bool anti,
                  size_t cap) {
   AmSplit X{};
@@ -1829,20 +1842,17 @@ AmSplit am_split(int m, int g, int n_blocks, int rows, int iters, bool anti,
   const int threads = X.warps * 32, n_elems = rows * mct::LANES;
   X.passes = (n_elems + threads - 1) / threads;
   X.signs = anti ? 2 : 1;
-  X.carry = 4 + static_cast<size_t>(X.warps) * g * 2;
-  X.per_item = static_cast<size_t>(n_elems) +
-               static_cast<size_t>(X.passes) * X.warps * X.signs * g;
-  const size_t block = X.carry + X.per_item * iters;
-  if (cap == 0) cap = AM_SCRATCH_CAP;
-  X.group_iters = iters;
-  X.group_blocks = static_cast<int>(
-      std::min<size_t>(n_blocks, std::max<size_t>(1, cap / block)));
-  if (block > cap) {  // one block at a time, its iterations in groups
-    const size_t room = cap > X.carry ? cap - X.carry : 0;
-    X.group_iters = static_cast<int>(
-        std::min<size_t>(iters, std::max<size_t>(1, room / X.per_item)));
-  }
-  X.total = X.group_blocks * (X.carry + X.per_item * X.group_iters);
+  X.np = Pay::NP;
+  X.gp = Pay::ROWS * g;
+  X.carry = 4 * static_cast<size_t>(X.np) +
+            static_cast<size_t>(X.warps) * X.gp * 2;
+  X.per_item = static_cast<size_t>(X.np) * n_elems +
+               static_cast<size_t>(X.passes) * X.warps * X.signs * X.gp;
+  const mct::ScratchGroups G = mct::scratch_groups(
+      n_blocks, iters, X.carry, X.per_item, cap == 0 ? AM_SCRATCH_CAP : cap);
+  X.group_blocks = G.blocks;
+  X.group_iters = G.iters;
+  X.total = G.total;
   return X;
 }
 
@@ -1927,9 +1937,9 @@ extern "C" int mctpu_cva_multi_am_scratch_floats(int n_under, int n_grid,
                                                  int n_blocks, int rows,
                                                  int iters, int antithetic,
                                                  int cap) {
-  return static_cast<int>(am_split(n_under, n_grid, n_blocks, rows, iters,
-                                   antithetic != 0,
-                                   static_cast<size_t>(cap))
+  return static_cast<int>(am_split<CvaPay>(n_under, n_grid, n_blocks, rows,
+                                           iters, antithetic != 0,
+                                           static_cast<size_t>(cap))
                               .total);
 }
 
@@ -1942,12 +1952,14 @@ extern "C" int mctpu_cva_multi_am(const float* scal, const float* lt,
                                   void* stream) {
   const Launch L = make_launch(n_grid, seed, off, rows, iters);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const AmSplit X = am_split(n_under, n_grid, n_blocks, rows, iters,
-                             antithetic != 0, static_cast<size_t>(cap));
+  const AmSplit X = am_split<CvaPay>(n_under, n_grid, n_blocks, rows, iters,
+                                     antithetic != 0,
+                                     static_cast<size_t>(cap));
   int status = 0;
-#define MCT_CALL(M)                                                         \
-  status = launch_am<M>(antithetic != 0, kahan != 0, scal, lt, par, nodes, \
-                        L, n_blocks, X, scratch, out, ee, s)
+#define MCT_CALL(M)                                                    \
+  status = launch_am<M, CvaPay>(antithetic != 0, kahan != 0, scal, lt, \
+                                par, nodes, L, n_blocks, X, scratch, out, \
+                                ee, s)
   MCT_DISPATCH_M(MCT_CALL)
 #undef MCT_CALL
   return status;
@@ -2046,11 +2058,13 @@ extern "C" int mctpu_cva_multi_greeks_packed(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of one block's xVA scratch: K43's profile slots ([warps][2 g][2])
-// and, for the runtime-m kernels (wide), their per-thread state.
+// Floats of an xVA launch's scratch: K43's split plan (AmSplit::total)
+// under a cap in floats (0: AM_SCRATCH_CAP), past the cap only where one
+// (block, iteration) and a block's carry exceed it; for the runtime-m
+// kernels (wide) their slices' rows, profile slots and state, K44's state.
 extern "C" int mctpu_xva_scratch_floats(int n_under, int n_grid, int greeks,
                                         int wide, int n_blocks, int rows,
-                                        int iters) {
+                                        int iters, int antithetic, int cap) {
   if (greeks) {
     return wide ? n_blocks * XVA_GREEK_WIDE_SLOTS * n_under * WIDE_THREADS
                 : 0;
@@ -2059,15 +2073,18 @@ extern "C" int mctpu_xva_scratch_floats(int n_under, int n_grid, int greeks,
     return static_cast<int>(
         xva_split(n_under, n_grid, n_blocks, rows, iters).total);
   }
-  return n_blocks * warps_of(n_under) * 2 * n_grid * 2;
+  return static_cast<int>(am_split<XvaPay>(n_under, n_grid, n_blocks, rows,
+                                           iters, antithetic != 0,
+                                           static_cast<size_t>(cap))
+                              .total);
 }
 
 // K43 (n_under = 1..8) or its runtime-m kernel (wide, any n_under).
 extern "C" int mctpu_xva(const float* scal, const float* lt, const float* par,
                          const float* nodes, int n_under, int n_grid, int wide,
                          int seed, int off, int n_blocks, int rows, int iters,
-                         int antithetic, int kahan, float* scratch, float* out,
-                         float* prof, void* stream) {
+                         int antithetic, int kahan, int cap, float* scratch,
+                         float* out, float* prof, void* stream) {
   const Launch L = make_launch(n_grid, seed, off, rows, iters);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
@@ -2091,12 +2108,17 @@ extern "C" int mctpu_xva(const float* scal, const float* lt, const float* par,
                                          2 * n_grid, out, prof);
     return static_cast<int>(cudaGetLastError());
   }
-#define MCT_CALL(M)                                                        \
-  launch_xva_am<M>(antithetic != 0, kahan != 0, scal, lt, par, nodes, L,    \
-                   n_blocks, scratch, out, prof, s)
+  const AmSplit X = am_split<XvaPay>(n_under, n_grid, n_blocks, rows, iters,
+                                     antithetic != 0,
+                                     static_cast<size_t>(cap));
+  int status = 0;
+#define MCT_CALL(M)                                                    \
+  status = launch_am<M, XvaPay>(antithetic != 0, kahan != 0, scal, lt, \
+                                par, nodes, L, n_blocks, X, scratch, out, \
+                                prof, s)
   MCT_DISPATCH_M(MCT_CALL)
 #undef MCT_CALL
-  return static_cast<int>(cudaGetLastError());
+  return status;
 }
 
 // K44 (n_under = 1..8) or its runtime-m kernel (wide, any n_under): out is

@@ -813,10 +813,13 @@ def _xva_launch(ops: Operands, greeks: bool, wide, n_blocks: int):
 
 
 def xva_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
-                 n_blocks: int, wide=None):
+                 n_blocks: int, wide=None, scratch_cap: int = 0):
     """K43's ``((B, 8), (B, 2, g))`` partials: for CUDA operands K43 up to
     8 underlyings and its runtime-m kernel beyond (or wherever ``wide`` is
-    true), for CPU operands the plain version; other devices raise."""
+    true), for CPU operands the plain version; other devices raise.
+    ``scratch_cap``: K43's scratch in floats at most (0: 256 MB), past which
+    it splits and folds simulation blocks and iterations in groups, as K40
+    does; the outputs do not depend on it."""
     dev, wide = _xva_launch(ops, False, wide, n_blocks)
     if dev.type == "cpu":
         return xva_plain_partials(ops, seed, block_offset, plan, n_blocks)
@@ -826,16 +829,16 @@ def xva_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
         out = torch.empty((n_blocks, N_XVA_SUMS), dtype=torch.float32,
                           device=dev)
         prof = torch.empty((n_blocks, 2, g), dtype=torch.float32, device=dev)
+        shape = (n_blocks, plan.rows, plan.iters, int(plan.antithetic))
         scratch = torch.empty(
-            lib.mctpu_xva_scratch_floats(m, g, 0, int(wide), n_blocks,
-                                         plan.rows, plan.iters),
+            lib.mctpu_xva_scratch_floats(m, g, 0, int(wide), *shape,
+                                         scratch_cap),
             dtype=torch.float32, device=dev)
         status = lib.mctpu_xva(
             ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),
             ops.nodes.data_ptr(), m, g, int(wide), wrap_int32(seed),
-            wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
-            int(plan.antithetic), int(plan.kahan), scratch.data_ptr(),
-            out.data_ptr(), prof.data_ptr(), _stream())
+            wrap_int32(block_offset), *shape, int(plan.kahan), scratch_cap,
+            scratch.data_ptr(), out.data_ptr(), prof.data_ptr(), _stream())
     name = "xva_wide" if wide else "xva_am"
     _build.check(status, name)
     LAUNCHES[name] += 1
@@ -858,7 +861,8 @@ def xva_greek_partials(ops: Operands, seed: int, block_offset: int,
                           dtype=torch.float32, device=dev)
         scratch = torch.empty(
             max(1, lib.mctpu_xva_scratch_floats(m, g, 1, int(wide), n_blocks,
-                                                plan.rows, plan.iters)),
+                                                plan.rows, plan.iters,
+                                                int(plan.antithetic), 0)),
             dtype=torch.float32, device=dev)
         status = lib.mctpu_xva_greeks(
             ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),

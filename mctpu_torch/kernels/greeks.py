@@ -490,7 +490,7 @@ def packed_plain_partials(ops: PackedOperands, seed: int, block_offset: int,
 
 
 def _packed_cuda_partials(ops: PackedOperands, seed, block_offset, plan,
-                          n_blocks):
+                          n_blocks, scratch_cap):
     a = ops.n_assets
     a_tile, _, width = kbasket.pack_factor(a)
     for name, x, shape in (("scal", ops.scal, (4,)), ("lt", ops.lt, (a, a)),
@@ -499,27 +499,39 @@ def _packed_cuda_partials(ops: PackedOperands, seed, block_offset, plan,
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
     lib = _build.library()
+    shape = (n_blocks, plan.rows, plan.iters, int(plan.antithetic))
+    n_scratch = lib.mctpu_greeks_basket_packed_scratch_floats(
+        a, a_tile, width, *shape, scratch_cap)
+    if n_scratch < 1:
+        raise ValueError(f"K8 takes no basket of width {width}: its fixed "
+                         "tables and one row exceed shared memory")
     with torch.cuda.device(ops.device):
         out = torch.empty((n_blocks, 6), dtype=torch.float32,
                           device=ops.device)
         vecs = torch.empty((n_blocks, 6, width), dtype=torch.float32,
                            device=ops.device)
+        scratch = torch.empty(n_scratch, dtype=torch.float32,
+                              device=ops.device)
         status = lib.mctpu_greeks_basket_packed(
             ops.scal.data_ptr(), ops.lt.data_ptr(), ops.rows.data_ptr(), a,
             a_tile, width, wrap_int32(seed), wrap_int32(block_offset),
-            n_blocks, plan.rows, plan.iters, int(plan.antithetic),
-            int(plan.kahan), out.data_ptr(), vecs.data_ptr(), _stream())
+            *shape, int(plan.kahan), scratch_cap,
+            scratch.data_ptr(), out.data_ptr(), vecs.data_ptr(), _stream())
     _build.check(status, "greeks_basket_packed")
     LAUNCHES["greeks_basket_packed"] += 1
     return out, vecs
 
 
 def packed_partials(ops: PackedOperands, seed: int, block_offset: int,
-                    plan: Plan, n_blocks: int):
+                    plan: Plan, n_blocks: int, scratch_cap: int = 0):
     """``((n_blocks, 6), (n_blocks, 6, width))`` partials: K8 for CUDA
-    operands, the plain version for CPU operands; other devices raise."""
+    operands, the plain version for CPU operands; other devices raise.
+    ``scratch_cap``: K8's scratch in floats at most (0: 256 MB), past which
+    it splits and folds simulation blocks and iterations in groups; the
+    outputs do not depend on it."""
     if ops.device.type == "cuda":
-        return _packed_cuda_partials(ops, seed, block_offset, plan, n_blocks)
+        return _packed_cuda_partials(ops, seed, block_offset, plan, n_blocks,
+                                     scratch_cap)
     if ops.device.type == "cpu":
         return packed_plain_partials(ops, seed, block_offset, plan, n_blocks)
     raise ValueError(f"unsupported device {ops.device}")

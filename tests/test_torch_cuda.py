@@ -258,6 +258,76 @@ def test_greeks_basket_kernel_matches_plain(dev, name, antithetic):
               units=_units(plan))
 
 
+def _k8_setup(dev, a, antithetic, rows, kahan=True):
+    """K8's operands and a plan of NB blocks, ``rows`` rows and 2
+    iterations on ``equicorrelated(a)``."""
+    opt = BasketOption.equicorrelated(a)
+    chol = cholesky_lower(opt.corr)
+    ops = kgreeks.packed_operands(opt, chol, kgreeks.tilt_direction(chol)[:2],
+                                  dev)
+    plan = kbasket.make_plan(1, NB, rows, antithetic, kahan, n_assets=a)
+    plan = kbasket.make_plan(2 * NB * plan.paths_per_iter, NB, rows,
+                             antithetic, kahan, n_assets=a)
+    assert plan.iters == 2
+    return ops, plan
+
+
+@pytest.mark.parametrize("a", [16, 100, 128, 200])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_greeks_basket_packed_kernel_matches_plain(dev, a, antithetic):
+    """K8 split per (block, iteration) and folded, at 64 rows (several of
+    the simple design's chunks an item): its register-tiled product at
+    width 128 (16 assets: a_tile 16; 100: a_tile 128, one unit group; 128:
+    j-tiles from asset 0, one block an SM) and the per-path code past it
+    (200 assets, width 256), against the plain version; padded slots
+    exactly 0."""
+    ops, plan = _k8_setup(dev, a, antithetic, 64, kahan=not antithetic)
+    _contract(lambda off, nb: kgreeks.packed_partials(ops, SEED, off, plan,
+                                                      nb),
+              lambda off, nb: kgreeks.packed_plain_partials(ops, SEED, off,
+                                                            plan, nb),
+              units=_units(plan))
+    a_tile, c, _ = kbasket.pack_factor(a)
+    _, vecs = kgreeks.packed_partials(ops, SEED, 0, plan, NB)
+    assert (vecs.reshape(NB, 6, c, a_tile)[..., a:] == 0).all()
+
+
+@pytest.mark.parametrize("a", [16, 100])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_greeks_basket_packed_short_last_chunk_matches_plain(dev, a,
+                                                             antithetic):
+    """K8 at 37 rows, which its chunks do not divide (100 assets: 25 and 12
+    plain, 15, 15 and 7 antithetic; 16 assets: 24 and 13, 14, 14 and 9),
+    against the plain version."""
+    ops, plan = _k8_setup(dev, a, antithetic, 37)
+    _contract(lambda off, nb: kgreeks.packed_partials(ops, SEED, off, plan,
+                                                      nb),
+              lambda off, nb: kgreeks.packed_plain_partials(ops, SEED, off,
+                                                            plan, nb),
+              units=_units(plan))
+
+
+@pytest.mark.parametrize("a", [16, 100, 200])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_greeks_basket_packed_grouped_scratch_matches_one_group(
+        dev, a, antithetic):
+    """K8 under a forced small scratch cap: at 1 float every (block,
+    iteration) is split and folded on its own (12 groups, the fold's carry
+    between them), at half the one-group scratch the blocks go in groups
+    with their iterations; both equal the one-group launch bit for bit."""
+    ops, plan = _k8_setup(dev, a, antithetic, 40)
+    lib = _build.library()
+    a_tile, _, width = kbasket.pack_factor(a)
+    shape = (a, a_tile, width, NB, plan.rows, plan.iters, int(antithetic))
+    whole = lib.mctpu_greeks_basket_packed_scratch_floats(*shape, 0)
+    assert lib.mctpu_greeks_basket_packed_scratch_floats(*shape, 1) < whole
+    want = kgreeks.packed_partials(ops, SEED, 0, plan, NB)
+    for cap in (1, whole // 2):
+        got = kgreeks.packed_partials(ops, SEED, 0, plan, NB,
+                                      scratch_cap=cap)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), cap
+
+
 _GREEK_CVA_CASES = {
     # name: (portfolio, kahan, antithetic)
     "single": (CvaPortfolioSpec.from_single(_SPEC), True, False),
@@ -1269,14 +1339,20 @@ _XVA_CASES = {
 
 
 def _xva_setup(dev, m, mixed, n_grid, antithetic, kahan, greeks=False,
-               own=0.02, spread=0.01):
+               own=0.02, spread=0.01, rows=16):
     spec = XvaSpec(_netting_set(m, n_grid, mixed), own_intensity=own,
                    own_lgd=0.5, funding_spread=spread)
     ops = kcm.xva_operands(spec, cholesky_lower(spec.netting.corr), dev,
                            greeks)
-    plan = kcm.make_plan(2 * NB * 16 * 128, NB, 16, antithetic, kahan,
+    plan = kcm.make_plan(2 * NB * rows * 128, NB, rows, antithetic, kahan,
                          n_underlyings=1)
     return ops, plan
+
+
+def _xva_two_iters(plan):
+    """``plan`` at two iterations, its blocks and rows kept."""
+    return kcm.make_plan(2 * NB * plan.paths_per_iter, NB, plan.rows,
+                         plan.antithetic, plan.kahan, n_underlyings=1)
 
 
 @pytest.mark.parametrize("case", sorted(_XVA_CASES))
@@ -1326,6 +1402,41 @@ def test_xva_ties_cva_multi_and_runtime_m_kernels(dev, antithetic):
         _mw_greek_pairs(kcm.xva_greek_partials(gops, SEED, 0, plan,
                                                NB)).cpu().numpy(),
         plan.iters * plan.units_per_iter, RTOL)
+
+
+@pytest.mark.parametrize("m, rows", [(1, 10), (3, 10), (8, 11)])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_xva_split_kernel_uneven_rows_matches_plain(dev, m, rows,
+                                                    antithetic):
+    """K43's split and fold at two iterations and rows whose last pass
+    leaves warps of the unsplit kernel idle (10 rows at 512 threads, 11 at
+    256), mixed legs, against the plain version: the leg pairs and both
+    profiles at rtol."""
+    ops, plan = _xva_setup(dev, m, True, 13, antithetic, not antithetic,
+                           rows=rows)
+    plan = _xva_two_iters(plan)
+    assert plan.iters == 2
+    _contract(lambda off, nb: kcm.xva_partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kcm.xva_plain_partials(ops, SEED, off, plan,
+                                                     nb))
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_xva_grouped_scratch_matches_one_group(dev, antithetic):
+    """K43 under a forced small scratch cap: at 1 float every (block,
+    iteration) is split and folded on its own (12 groups), at half the
+    one-group scratch the blocks go in groups with their iterations; both
+    equal the one-group launch bit for bit."""
+    ops, plan = _xva_setup(dev, 3, True, 13, antithetic, True, rows=10)
+    plan = _xva_two_iters(plan)
+    lib = _build.library()
+    shape = (3, 13, 0, 0, NB, plan.rows, plan.iters, int(antithetic))
+    whole = lib.mctpu_xva_scratch_floats(*shape, 0)
+    assert lib.mctpu_xva_scratch_floats(*shape, 1) < whole
+    want = kcm.xva_partials(ops, SEED, 0, plan, NB)
+    for cap in (1, whole // 2):
+        got = kcm.xva_partials(ops, SEED, 0, plan, NB, scratch_cap=cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
 
 
 def test_xva_runtime_m_capped_grid_matches_plain(dev):

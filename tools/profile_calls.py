@@ -19,7 +19,8 @@ default ``EngineConfig``), after one warm-up call:
   each; an MLMC call's level-0 kernel and its level kernel; an RQMC
   call's net kernel and its chunk carry; the
   runtime-m xVA's, the CVA's and the CVA Greeks' slice kernels and their
-  folds; the netting-set CVA's split kernel and its fold at m <= 8; 0 for a
+  folds; the netting-set CVA's and the xVA's split kernel and its fold at
+  m <= 8; the packed basket Greeks' split kernel and its fold; 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -182,7 +183,8 @@ def calls(mt):
          lambda: mt.greeks(van, 1 << 28, SEED)),
         ("greeks_basket a=3, 2^24", "greeks_am_kernel",
          lambda: mt.greeks(b3, n24, SEED)),
-        ("greeks_basket a=100, 2^22", "greeks_packed_kernel",
+        ("greeks_basket a=100, 2^22",
+         ("greeks_tiled_kernel", "greeks_packed_fold_kernel"),
          lambda: mt.greeks(b100, n22, SEED)),
         ("greeks_cva n_grid=50, 2^20",
          ("cva_greeks_slice_kernel", "cva_greeks_fold_kernel"),
@@ -260,7 +262,7 @@ def calls(mt):
         ("greeks_basket_barrier a=16, n_obs=50, 2^22",
          "mw_bar_greeks_reg_kernel", lambda: mt.greeks(gb16, n22, SEED)),
         ("price_cva_multi m=3, n_grid=50, 2^20",
-         ("cva_multi_am_split_kernel", "cva_multi_am_fold_kernel"),
+         ("am_split_kernel", "am_fold_kernel"),
          lambda: mt.price_cva_multi(cm3, 1 << 20, SEED)),
         ("price_cva_multi m=16, n_grid=50, 2^20", "cva_multi_reg_kernel",
          lambda: mt.price_cva_multi(cm16, 1 << 20, SEED)),
@@ -270,7 +272,8 @@ def calls(mt):
         ("greeks_cva_multi m=16, n_grid=12, 2^20",
          "cva_multi_greeks_packed_kernel",
          lambda: mt.greeks(cmg16, 1 << 20, SEED)),
-        ("price_xva m=3, n_grid=50, 2^20", "xva_am_kernel",
+        ("price_xva m=3, n_grid=50, 2^20",
+         ("am_split_kernel", "am_fold_kernel"),
          lambda: mt.price_xva(xva3, 1 << 20, SEED)),
         ("price_xva m=16, n_grid=50, 2^20",
          ("xva_slice_kernel", "xva_fold_kernel"),

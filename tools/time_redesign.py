@@ -1,46 +1,53 @@
 #!/usr/bin/env python3
-"""Time the redesigned kernels -- K48 (the packed basket control
-variate), K39 (the packed netting-set CVA), K35 (the packed
-basket-barrier LR Greeks), K4 (the CVA exposure walk), K5 (its Greeks),
-K31 (the packed multi-asset walk), K40 (the netting-set CVA) and K43's
-runtime-m xVA kernel, with K3 beside K48 -- at ``chip_smoke.py``'s phase
-6 shapes on one GPU, against another checkout in the same process.
+"""Time the redesigned kernels -- K8 (the packed basket Greeks), K43 (the
+netting-set xVA), K48 (the packed basket control variate), K39 (the
+packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
+(the CVA exposure walk), K5 (its Greeks), K31 (the packed multi-asset
+walk), K40 (the netting-set CVA) and K43's runtime-m xVA kernel, with K3
+beside K48 -- at ``chip_smoke.py``'s phase 6 shapes on one GPU, against
+another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
 
     python3 tools/time_redesign.py [--root DIR] [--reps 7] [--only TEXT ...]
 
-``--root`` names another checkout (an unpacked earlier version, say): its
-``mctpu_torch`` is imported beside this one's, both libraries are built
-(in parallel), and every case runs the two in turns, P V V P (P the other
-checkout, V this one), so that both are timed in one process on one card.
-Without ``--root`` only this checkout runs; ``--only`` (repeatable) keeps
-the cases whose name contains one of its texts.  The cases, on the default
-``EngineConfig``'s layout: K48 on ``equicorrelated(100, 0.3)`` at 2^22
-paths, its main run (512 x 16 x 256) and its pilot's plan (8 x 102 x
-256), plain and antithetic, and the main run at 32 assets; K3 on
+``--root`` names another checkout (an unpacked earlier version, say):
+its ``mctpu_torch`` is imported beside this one's, both libraries are
+built (in parallel), and every case runs the two in turns, P V V P (P
+the other checkout, V this one), so that both are timed in one process
+on one card. Without ``--root`` only this checkout runs; ``--only``
+(repeatable) keeps the cases whose name contains one of its texts. The
+cases, on the default ``EngineConfig``'s layout: K8 on
+``equicorrelated(100)`` at 2^22 paths, plain and antithetic, and on
+``equicorrelated(16)``; K43 on the JAX exotic CLI's ``--product xva``
+set (its ``--product cva-multi`` set, own intensity 0.02, own lgd 0.5,
+funding spread 0.01) at 3 underlyings, plain and antithetic, and at 8,
+50 nodes, 2^20 paths; K48 on ``equicorrelated(100, 0.3)`` at 2^22 paths,
+its main run (512 x 16 x 256) and its pilot's plan (8 x 102 x 256),
+plain and antithetic, and the main run at 32 assets; K3 on
 ``equicorrelated(100)`` at 2^22; K39 on the JAX exotic CLI's ``--product
 cva-multi`` set at ``--assets 16``, plain and antithetic, and at 32, 50
-nodes, 2^20 paths; K35 on ``equicorrelated(16, 0.3)``, up-and-out
-at H = 130, 50 dates, 2^22 paths, plain and antithetic, and at 32 (2^22)
-and 100 assets (2^20); K4 on the call CVA (S = K = 100, r = 0.05, v = 0.2,
-T = 1, lambda 0.03, lgd 0.6, F32_KAHAN) at 500 and 50 nodes, at 500 under
+nodes, 2^20 paths; K35 on ``equicorrelated(16, 0.3)``, up-and-out at H =
+130, 50 dates, 2^22 paths, plain and antithetic, and at 32 (2^22) and
+100 assets (2^20); K4 on the call CVA (S = K = 100, r = 0.05, v = 0.2, T
+= 1, lambda 0.03, lgd 0.6, F32_KAHAN) at 500 and 50 nodes, at 500 under
 wrong-way risk b = 0.8 and under F32_DS, 2^20 paths; K5 on the same CVA
 at 500 and 50 nodes, at 500 under wrong-way risk b = 0.5 and antithetic,
-2^20 paths; K31 on
-``equicorrelated(16)`` at 50 dates and 2^22 paths, the arithmetic Asian
-and the up-and-out at H = 130, and the Asian at 32 assets (2^22) and at
-100 (2^20); K40 on the JAX exotic CLI's ``--product cva-multi`` set at
-3 underlyings, plain and antithetic, and at 8, 50 nodes, 2^20 paths; K43's
-runtime-m kernel on the JAX exotic CLI's ``--product xva`` set at 16
-underlyings, 50 nodes, 2^20 paths.  Each time is the median of ``--reps``
-launches timed by CUDA events after one warm-up launch.  K48's (its five
-moment sums), K3's, K39's, K35's, K31's and K40's outputs (K39's and K40's
-sums and EE profile) must equal the other checkout's bit for bit (same
-walk, passes and order of sums); each such case prints
-the comparison and the tool exits 1 if one differs.  Prints the card's
-name and power limit, one line per case and version, and a JSON line of
-them last.  Imports neither jax nor mctpu.
+2^20 paths; K31 on ``equicorrelated(16)`` at 50 dates and 2^22 paths,
+the arithmetic Asian and the up-and-out at H = 130, and the Asian at 32
+assets (2^22) and at 100 (2^20); K40 on the JAX exotic CLI's ``--product
+cva-multi`` set at 3 underlyings, plain and antithetic, and at 8, 50
+nodes, 2^20 paths; K43's runtime-m kernel on the JAX exotic CLI's
+``--product xva`` set at 16 underlyings, 50 nodes, 2^20 paths. Each time
+is the median of ``--reps`` launches timed by CUDA events after one
+warm-up launch. K8's (its six sums and (6, width) slot vectors), K43's
+(its eight sums and both profiles), K48's (its five moment sums), K3's,
+K39's, K35's, K31's and K40's outputs (K39's and K40's sums and EE
+profile) must equal the other checkout's bit for bit (same walk, passes
+and order of sums); each such case prints the comparison and the tool
+exits 1 if one differs. Prints the card's name and power limit, one line
+per case and version, and a JSON line of them last.
+Imports neither jax nor mctpu.
 """
 from __future__ import annotations
 
@@ -64,7 +71,7 @@ MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.kernels.multi_walk", "mctpu_torch.kernels.cva_multi",
            "mctpu_torch.kernels.cva", "mctpu_torch.types",
            "mctpu_torch.variance", "mctpu_torch.kernels.varred",
-           "mctpu_torch.kernels.basket")
+           "mctpu_torch.kernels.basket", "mctpu_torch.kernels.greeks")
 
 
 def _drop_port_modules() -> None:
@@ -84,10 +91,11 @@ def load(root: Path) -> SimpleNamespace:
     finally:
         sys.path.remove(str(root))
         _drop_port_modules()
-    build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket = mods
+    (build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket,
+     kgreeks) = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
                            kcm=kcm, kcva=kcva, types=types, variance=variance,
-                           kvr=kvr, kbasket=kbasket)
+                           kvr=kvr, kbasket=kbasket, kgreeks=kgreeks)
 
 
 def kernel_ms(fn, reps: int) -> float:
@@ -119,6 +127,21 @@ def cases(v: SimpleNamespace):
     t, engine, kmw, kcm, kcva = v.types, v.engine, v.kmw, v.kcm, v.kcva
     cfg = engine.EngineConfig()
     out = []
+    for a, anti in ((100, False), (100, True), (16, False)):
+        plan, ops, _ = engine.greeks_basket_setup(
+            t.BasketOption.equicorrelated(a), 1 << 22,
+            dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K8 a={a} 2^22{' antithetic' if anti else ''}",
+                    lambda o=ops, p=plan: v.kgreeks.packed_partials(
+                        o, SEED, 0, p, p.num_blocks), True))
+    for m, anti in ((3, False), (3, True), (8, False)):
+        xs = t.XvaSpec(netting_set(t, m, 50), own_intensity=0.02,
+                       own_lgd=0.5, funding_spread=0.01)
+        plan, ops = engine.price_xva_setup(
+            xs, 1 << 20, dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K43 am m={m} 50 nodes{' antithetic' if anti else ''} "
+                    "2^20", lambda o=ops, p=plan: kcm.xva_partials(
+                        o, SEED, 0, p, p.num_blocks), True))
     for a, anti, pilot in ((100, False, False), (100, True, False),
                            (100, False, True), (100, True, True),
                            (32, False, False)):
