@@ -21,7 +21,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    Greeks, at 13 and 100 steps, and the variance swap's Heston leg at 13
    and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
    3 and 8 assets and the packed walk and its Greeks at 9, 16, 17, 32 and
-   100, at 13 dates; the rainbow and its Greeks at 1, 3 and 8 assets and the packed
+   100, at 13 dates; the split walks K12 and K30 (a = 3, the Asian and
+   the knock-out) at 50 dates on the MLMC 8 x 8 plan with 32 iterations,
+   plain and antithetic, and with their scratch capped at 1 float and at
+   half the one-group size, bit-equal to the one-group launch; the
+   rainbow and its Greeks at 1, 3 and 8 assets and the packed
    rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
    netting set and its Greeks at 9, 16, 17, 32 and 100, at 13 nodes (the
@@ -3206,6 +3210,54 @@ def main() -> int:
             contract(label, lambda off, n: fn(off, n, plan),
                      lambda off, n: plain(off, n, plan),
                      units=units(plan) if greek else None)
+    # K12 and K30 are split per path element and folded in the unsplit
+    # order: on the MLMC 8 x 8 plan with many iterations against their plain
+    # versions, and under a forced small scratch cap (1 float: every (block,
+    # iteration) its own group, the fold's carry between them; half the
+    # one-group scratch: blocks in groups) bit-equal to the one-group launch.
+    uo50 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, 130.0, n_obs=50)
+    bpar = kbarrier.params(uo50, dev)
+    b3 = BasketOption.default_reference(3)
+    lt3, par3 = (x.to(dev) for x in kmw.walk_ops(
+        b3, mcmath.cholesky_lower(b3.corr), 50))
+    split_cases = (
+        ("K12 up-and-out H=130", 1,
+         lambda off, n, pl, cap=0: kbarrier.partials(
+             bpar, SEED, off, pl, n, 50, True, scratch_cap=cap),
+         lambda off, n, pl: kbarrier.plain_partials(bpar, SEED, off, pl, n,
+                                                    50, True),
+         lambda pl, cap: _build.library().mctpu_barrier_scratch_floats(
+             pl.num_blocks, pl.rows, pl.iters, cap)),
+    ) + tuple(
+        (f"K30 a=3 {product}", 3,
+         lambda off, n, pl, cap=0, pr=product, sc=sc: kmw.partials(
+             lt3, par3, sc, SEED, off, pl, n, pr, 50, True,
+             scratch_cap=cap),
+         lambda off, n, pl, pr=product, sc=sc: kmw.plain_partials(
+             lt3, par3, sc, SEED, off, pl, n, pr, 50, True),
+         lambda pl, cap: _build.library().mctpu_multi_walk_am_scratch_floats(
+             pl.num_blocks, pl.rows, pl.iters, cap))
+        for product, sc in (("asian", kmw.scalars(b3).to(dev)),
+                            ("barrier", kmw.scalars(b3, 130.0).to(dev))))
+    for label, a, fn, plain, floats in split_cases:
+        for anti in (False, True):
+            plan = kbarrier.make_plan(8 * 32 * 8 * 128 * (2 if anti else 1),
+                                      8, 8, anti)
+            contract(f"{label} MLMC plan 8 x 32 x 8"
+                     f"{' antithetic' if anti else ''}",
+                     lambda off, n: fn(off, n, plan),
+                     lambda off, n: plain(off, n, plan), blocks=8)
+        plan = kbarrier.make_plan(nb * 3 * 13 * 128, nb, 13, False)
+        want = fn(0, nb, plan)
+        whole = floats(plan, 0)
+        check(floats(plan, 1) < whole, f"{label}: the cap did not bind")
+        for cap in (1, whole // 2):
+            check(torch.equal(fn(0, nb, plan, cap), want),
+                  f"{label}: scratch capped at {cap} floats differs")
+        phase("kernel-vs-plain", f"{label} split: scratch capped at 1 and "
+                                 f"{whole // 2} floats ({nb} x 3 x 13) "
+                                 "bit-equal to one group")
+
     # The lookback in every mode (fixed strikes off the atom at s0) and the
     # cliquet, at the same odd step count.
     lb13 = LookbackOption(100.0, 0.05, 0.2, 1.0, n_obs=n_obs)

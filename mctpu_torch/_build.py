@@ -103,7 +103,7 @@ _SIGNATURES = {
     # lookback, the QE scheme, the variance swap's Heston leg; 0 for the
     # cliquet, K29 and K46), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
-       for name in ("mctpu_asian", "mctpu_asian_greeks", "mctpu_barrier",
+       for name in ("mctpu_asian", "mctpu_asian_greeks",
                     "mctpu_barrier_greeks", "mctpu_lookback",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
                     "mctpu_cliquet_greeks", "mctpu_varswap",
@@ -111,6 +111,14 @@ _SIGNATURES = {
                     "mctpu_heston_greeks", "mctpu_asian_cv",
                     "mctpu_heston_level", "mctpu_asian_level",
                     "mctpu_barrier_level")},
+    # K12, the split barrier walk: par, n_obs, seed, off, n_blocks, rows,
+    # iters, antithetic, kahan, up, scratch cap in floats, scratch, out,
+    # stream
+    "mctpu_barrier": (_P,) + (_I,) * 10 + (_P, _P, _P),
+    # n_blocks, rows, iters, cap -> float count of K12's scratch (its
+    # groups' payoffs and fold carry); K30's likewise
+    **{name: (_I,) * 4 for name in ("mctpu_barrier_scratch_floats",
+                                     "mctpu_multi_walk_am_scratch_floats")},
     # The strike ladder (K21, K22): par, strikes, n_strikes, seed, off,
     # n_blocks, rows, iters, antithetic, put, kahan, out, stream
     **{name: (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
@@ -126,8 +134,8 @@ _SIGNATURES = {
     # The multi-asset walks (K30-K35): their operands, then
     # n_assets, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
     # the kernel's flags, out, stream.  K30: lt, par, scal; flags barrier,
-    # up.
-    "mctpu_multi_walk_am": (_P, _P, _P) + (_I,) * 11 + (_P, _P),
+    # up, scratch cap in floats; its scratch before out.
+    "mctpu_multi_walk_am": (_P, _P, _P) + (_I,) * 12 + (_P, _P, _P),
     # K31: lt, par, scal; flags a_tile, width, barrier, up.
     "mctpu_multi_walk_packed": (_P, _P, _P) + (_I,) * 13 + (_P, _P),
     # K32: scal, lt, par; no flags.

@@ -28,14 +28,22 @@
 //
 // Bound on the H100: arithmetic and latency.  Per path-step: half a Philox
 // block, half a Box-Muller, one add chain and a compare; one expf per path.
-// Simple design, as K9: one CUDA block per simulation block, one thread per
-// path element striding over the (rows, 128) tile, state in registers; K12
-// and K14 sum with mct::Acc2, K13 with mct::BlockAccN per iteration.  No atomics.
+// K12 is a split walk (mct::walk_split_kernel, csrc/common.cuh): one thread
+// per path element of every (simulation block, iteration) item walks both
+// signs of its path on one draw of each pair and writes its payoff, and
+// mct::walk_fold_kernel adds the payoffs in the order of the unsplit design
+// (one CUDA block of 1024 threads per simulation block, each thread's Acc2
+// over its elements t, t + 1024, .. of every iteration, then
+// write_block_sums' tree), so its block sums are that design's bit for bit.
+// K13 and K14 keep the simple design: one CUDA block per simulation block,
+// one thread per path element striding over the (rows, 128) tile, state in
+// registers; K14 sums with mct::Acc2, K13 with mct::BlockAccN per
+// iteration.  No atomics.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;        // K12
+constexpr int THREADS = 1024;        // K12's fold, K14
 constexpr int GREEK_THREADS = 512;   // K13
 constexpr int N_SUMS = 8;
 
@@ -46,18 +54,40 @@ __device__ __forceinline__ float alive_update(float alive, float log_s,
   return alive * (hit ? 0.0f : 1.0f);
 }
 
-// One K12 walk of tile element e -> its payoff.
+// K12's split walk: both signs of tile element e's path advance on one
+// draw of each pair (the mirror's normal is -z, exactly the unsplit walk's
+// sgn * z), and the element's payoff is their mean under ANTI.
+// par: log s0, k, log H, drift, vol.
 template <bool UP>
-__device__ __forceinline__ float walk(float log_s0, float k, float log_h,
-                                      float drift, float vol, int n_obs,
-                                      mct::Key key, uint32_t e, float sgn) {
-  float log_s = log_s0, alive = 1.0f;
-  mct::walk_pairwise(key, e, n_obs, [&](int, float z) {
-    log_s = log_s + drift + vol * (sgn * z);
-    alive = alive_update<UP>(alive, log_s, log_h);
-  });
-  return alive * fmaxf(expf(log_s) - k, 0.0f);
-}
+struct BarrierWalk {
+  struct Params {
+    const float* par;
+    int n_obs;
+  };
+  static constexpr int SHARED = 0;
+  static constexpr int MIN_BLOCKS = 16;  // 64 warps an SM at 32 registers
+
+  __device__ static void stage(const Params&, float*) {}
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float*, mct::Key key,
+                              uint32_t e) {
+    const float log_s0 = P.par[0], k = P.par[1], log_h = P.par[2],
+                drift = P.par[3], vol = P.par[4];
+    float log_s = log_s0, alive = 1.0f, log_m = log_s0, alive_m = 1.0f;
+    mct::walk_pairwise(key, e, P.n_obs, [&](int, float z) {
+      log_s = log_s + drift + vol * z;
+      alive = alive_update<UP>(alive, log_s, log_h);
+      if (ANTI) {
+        log_m = log_m + drift + vol * (-z);
+        alive_m = alive_update<UP>(alive_m, log_m, log_h);
+      }
+    });
+    const float p = alive * fmaxf(expf(log_s) - k, 0.0f);
+    if (!ANTI) return p;
+    return 0.5f * (p + alive_m * fmaxf(expf(log_m) - k, 0.0f));
+  }
+};
 
 // One K14 walk of tile element e over n_fine dates -> its level
 // difference d.
@@ -100,32 +130,6 @@ __global__ void __launch_bounds__(THREADS)
                                        key, u, -1.0f));
       }
       acc.add(d);
-    }
-  }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
-}
-
-template <bool ANTI, bool KAHAN, bool UP>
-__global__ void __launch_bounds__(THREADS)
-    barrier_kernel(const float* __restrict__ par, int n_obs, uint32_t seed,
-                   uint32_t off, int n_elems, int iters,
-                   float* __restrict__ out) {
-  // par: log s0, k, log H, drift, vol
-  const float log_s0 = par[0], k = par[1], log_h = par[2], drift = par[3],
-              vol = par[4];
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float p = walk<UP>(log_s0, k, log_h, drift, vol, n_obs, key, u, 1.0f);
-      if (ANTI) {
-        p = 0.5f * (p + walk<UP>(log_s0, k, log_h, drift, vol, n_obs, key, u,
-                                 -1.0f));
-      }
-      acc.add(p);
     }
   }
   mct::write_block_sums<THREADS, KAHAN>(acc, out);
@@ -193,7 +197,7 @@ __global__ void __launch_bounds__(GREEK_THREADS)
   acc.write(out);
 }
 
-// kind: 0 K12, 1 K13, 2 K14.
+// kind: 1 K13, 2 K14.
 template <bool ANTI, bool KAHAN, bool UP>
 void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
             int n_blocks, int n_elems, int iters, int kind, float* out,
@@ -201,13 +205,10 @@ void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
   if (kind == 2) {
     barrier_level_kernel<ANTI, KAHAN, UP><<<n_blocks, THREADS, 0, stream>>>(
         scal, n_obs, seed, off, n_elems, iters, out);
-  } else if (kind == 1) {
+  } else {
     barrier_greeks_kernel<ANTI, KAHAN, UP><<<n_blocks, GREEK_THREADS, 0,
                                              stream>>>(scal, n_obs, seed, off,
                                                        n_elems, iters, out);
-  } else {
-    barrier_kernel<ANTI, KAHAN, UP><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
   }
 }
 
@@ -232,13 +233,48 @@ int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K12's split walk and its fold (THREADS threads, each thread's Acc2).
+template <bool ANTI, bool KAHAN, bool UP>
+int launch_split(const float* par, int n_obs, uint32_t seed, uint32_t off,
+                 int n_blocks, int rows, int iters, size_t cap,
+                 float* scratch, float* out, cudaStream_t s) {
+  return mct::walk_split_launch<BarrierWalk<UP>, THREADS, false, ANTI, KAHAN>(
+      typename BarrierWalk<UP>::Params{par, n_obs}, seed, off, n_blocks, rows,
+      iters, cap, scratch, out, s);
+}
+
+using SplitFn = int (*)(const float*, int, uint32_t, uint32_t, int, int, int,
+                        size_t, float*, float*, cudaStream_t);
+
+// Indexed by antithetic << 2 | kahan << 1 | up.
+constexpr SplitFn SPLIT_LAUNCHERS[8] = {
+    launch_split<false, false, false>, launch_split<false, false, true>,
+    launch_split<false, true, false>,  launch_split<false, true, true>,
+    launch_split<true, false, false>,  launch_split<true, false, true>,
+    launch_split<true, true, false>,   launch_split<true, true, true>,
+};
+
 }  // namespace
+
+// Floats of scratch a K12 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_barrier_scratch_floats(int n_blocks, int rows,
+                                            int iters, int cap) {
+  return static_cast<int>(
+      mct::walk_groups<THREADS, false>(n_blocks, rows, iters,
+                                       static_cast<size_t>(cap))
+          .total);
+}
 
 extern "C" int mctpu_barrier(const float* par, int n_obs, int seed, int off,
                              int n_blocks, int rows, int iters, int antithetic,
-                             int kahan, int up, float* out, void* stream) {
-  return run(par, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             up, 0, out, stream);
+                             int kahan, int up, int cap, float* scratch,
+                             float* out, void* stream) {
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (up ? 1 : 0);
+  return SPLIT_LAUNCHERS[idx](par, n_obs, static_cast<uint32_t>(seed),
+                              static_cast<uint32_t>(off), n_blocks, rows,
+                              iters, static_cast<size_t>(cap), scratch, out,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mctpu_barrier_greeks(const float* scal, int n_obs, int seed,

@@ -416,6 +416,188 @@ inline ScratchGroups scratch_groups(int n_blocks, int iters, size_t carry,
   return G;
 }
 
+// The split walks (K12, K30): walk_split_kernel runs one thread per path
+// element of every (simulation block, iteration) item on the unsplit
+// kernel's key and counters and writes the element's payoff (the antithetic
+// pair's mean under ANTI) to scratch [block][iteration][rows * 128];
+// walk_fold_kernel, one CUDA block of the unsplit kernel's THREADS per
+// simulation block, adds them in the unsplit kernel's order: thread t takes
+// elements t, t + THREADS, .. of each iteration, either into its own Acc2
+// over (iteration, element) and then write_block_sums' tree (PER_ITER
+// false, K12) or into v[2] that BlockAccN reduces once per iteration
+// (PER_ITER true, K30).  So the block sums equal the unsplit kernel's bit
+// for bit.  The scratch is grouped under WALK_SCRATCH_CAP by
+// scratch_groups, the fold's carry (each thread's Acc2, or BlockAccN's
+// pairs) kept between the groups.
+//
+// A Walk provides Params (by value: pointers to its device operands and
+// ints), SHARED (floats it stages a CUDA block), MIN_BLOCKS (its
+// __launch_bounds__ occupancy), stage(P, sh) and pay<ANTI>(P, sh, key, e).
+constexpr int WALK_SPLIT_THREADS = 128;  // a (rows, 128) tile's row
+constexpr size_t WALK_SCRATCH_CAP = size_t{64} << 20;  // floats: 256 MB
+
+// A group's items: simulation blocks b0 .. b0 + nb, iterations i0 .. i0 +
+// ni of a launch of `iters`, n_elems elements an item.
+struct WalkItems {
+  uint32_t seed, off;
+  int iters, n_elems, b0, nb, i0, ni;
+};
+
+// Grid (nb * ni items, rows): CUDA block (item, row) walks the row's 128
+// elements.
+template <class Walk, bool ANTI>
+__global__ void __launch_bounds__(WALK_SPLIT_THREADS, Walk::MIN_BLOCKS)
+    walk_split_kernel(const typename Walk::Params P, const WalkItems I,
+                      float* __restrict__ split) {
+  __shared__ float sh[Walk::SHARED > 0 ? Walk::SHARED : 1];
+  if (Walk::SHARED > 0) {
+    Walk::stage(P, sh);
+    __syncthreads();
+  }
+  const int item = blockIdx.x;
+  const int bl = item / I.ni, il = item - bl * I.ni;
+  const int e = blockIdx.y * WALK_SPLIT_THREADS + threadIdx.x;
+  const Key key = seed_key(
+      I.seed, (I.off + static_cast<uint32_t>(I.b0 + bl)) *
+                      static_cast<uint32_t>(I.iters) +
+                  static_cast<uint32_t>(I.i0 + il));
+  split[static_cast<size_t>(item) * I.n_elems + e] =
+      Walk::template pay<ANTI>(P, sh, key, static_cast<uint32_t>(e));
+}
+
+// Floats of a simulation block's fold carry between groups.
+template <int THREADS, bool PER_ITER>
+__host__ __device__ constexpr size_t walk_carry() {
+  return PER_ITER ? 4 : 4 * static_cast<size_t>(THREADS);
+}
+
+// Loads a fold thread issues ahead of its adds.
+constexpr int FOLD_BATCH = 8;
+
+// Calls f(x) on elements t, t + THREADS, .. (< n) of each of the ni rows of
+// n floats at rows, row by row and in that order, the loads issued
+// FOLD_BATCH at a time ahead of the calls (across rows too).
+template <int THREADS, class F>
+__device__ __forceinline__ void fold_rows(const float* __restrict__ rows,
+                                          int ni, int n, F&& f) {
+  const int t = threadIdx.x;
+  const int m = t < n ? (n - 1 - t) / THREADS + 1 : 0;  // elements a row
+  const int total = ni * m;
+  int il = 0, j = 0;  // the next load's row and element
+  for (int k = 0; k < total; k += FOLD_BATCH) {
+    float x[FOLD_BATCH];
+#pragma unroll
+    for (int u = 0; u < FOLD_BATCH; ++u) {
+      x[u] = 0.0f;
+      if (k + u < total) {
+        x[u] = rows[static_cast<size_t>(il) * n + t + j * THREADS];
+        if (++j == m) {
+          j = 0;
+          ++il;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < FOLD_BATCH; ++u) {
+      if (k + u < total) f(x[u]);
+    }
+  }
+}
+
+// Simulation block b0 + blockIdx.x of a group of ni iterations; out is
+// offset to b0's row (2 sums a block).
+template <int THREADS, bool KAHAN, bool PER_ITER>
+__global__ void __launch_bounds__(THREADS)
+    walk_fold_kernel(const float* __restrict__ split,
+                     float* __restrict__ carry, int n_elems, int ni,
+                     int first, int last, float* __restrict__ out) {
+  const int t = threadIdx.x;
+  const float* items =
+      split + static_cast<size_t>(blockIdx.x) * ni * n_elems;
+  float* cb = carry + blockIdx.x * walk_carry<THREADS, PER_ITER>();
+  if constexpr (PER_ITER) {
+    __shared__ float sh[(THREADS / 32) * 2];
+    BlockAccN<THREADS, 2, KAHAN> acc;
+    if (!first && t < 2) {
+      acc.s = cb[2 * t];
+      acc.c = cb[2 * t + 1];
+    }
+    float v[2] = {0.0f, 0.0f};
+    for (int il = 0; il < ni; ++il) {
+      fold_rows<THREADS>(items + static_cast<size_t>(il) * n_elems, 1,
+                         n_elems, [&](float p) {
+                           v[0] = __fadd_rn(v[0], p);
+                           v[1] = __fadd_rn(v[1], __fmul_rn(p, p));
+                         });
+      acc.add(v, nullptr, sh);
+    }
+    if (last) {
+      acc.write(out);
+    } else if (t < 2) {
+      cb[2 * t] = acc.s;
+      cb[2 * t + 1] = acc.c;
+    }
+  } else {
+    Acc2<KAHAN> acc;
+    if (!first) {
+      acc.s = cb[t];
+      acc.c = cb[THREADS + t];
+      acc.s2 = cb[2 * THREADS + t];
+      acc.c2 = cb[3 * THREADS + t];
+    }
+    fold_rows<THREADS>(items, ni, n_elems, [&](float p) { acc.add(p); });
+    if (last) {
+      write_block_sums<THREADS, KAHAN>(acc, out);
+    } else {
+      cb[t] = acc.s;
+      cb[THREADS + t] = acc.c;
+      cb[2 * THREADS + t] = acc.s2;
+      cb[3 * THREADS + t] = acc.c2;
+    }
+  }
+}
+
+// The groups of a split walk launch (cap 0: WALK_SCRATCH_CAP floats).
+template <int THREADS, bool PER_ITER>
+inline ScratchGroups walk_groups(int n_blocks, int rows, int iters,
+                                 size_t cap) {
+  return scratch_groups(n_blocks, iters, walk_carry<THREADS, PER_ITER>(),
+                        static_cast<size_t>(rows) * LANES,
+                        cap > 0 ? cap : WALK_SCRATCH_CAP);
+}
+
+// Every group in order, its split and then its fold, into out (n_blocks,
+// 2); scratch holds walk_groups(..).total floats.  Returns a CUDA error.
+template <class Walk, int THREADS, bool PER_ITER, bool ANTI, bool KAHAN>
+int walk_split_launch(const typename Walk::Params& P, uint32_t seed,
+                      uint32_t off, int n_blocks, int rows, int iters,
+                      size_t cap, float* scratch, float* out,
+                      cudaStream_t s) {
+  const ScratchGroups G =
+      walk_groups<THREADS, PER_ITER>(n_blocks, rows, iters, cap);
+  const int n_elems = rows * LANES;
+  float* carry = scratch;
+  float* items = scratch + G.blocks * walk_carry<THREADS, PER_ITER>();
+  for (int b0 = 0; b0 < n_blocks; b0 += G.blocks) {
+    const int nb = n_blocks - b0 < G.blocks ? n_blocks - b0 : G.blocks;
+    for (int i0 = 0; i0 < iters; i0 += G.iters) {
+      const int ni = iters - i0 < G.iters ? iters - i0 : G.iters;
+      const WalkItems I{seed, off, iters, n_elems, b0, nb, i0, ni};
+      walk_split_kernel<Walk, ANTI><<<dim3(nb * ni, rows),
+                                      WALK_SPLIT_THREADS, 0, s>>>(P, I,
+                                                                  items);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      walk_fold_kernel<THREADS, KAHAN, PER_ITER><<<nb, THREADS, 0, s>>>(
+          items, carry, n_elems, ni, i0 == 0, i0 + ni >= iters,
+          out + 2 * static_cast<size_t>(b0));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return 0;
+}
+
 // Adds one path's outputs q [S scalars, d.., v..] (the asset-major Greek
 // kernels' scalars, two but for K44's seven, and A-vectors) to the
 // per-thread sums, in the row order [p, p2, gr, gr2, .., d.., d2.., v..,

@@ -40,19 +40,27 @@
 // path that grazes the barrier or the strike flips and a block sum moves by a
 // whole payoff.  With the same libm expf/logf/sqrtf each path equals the
 // plain version's to the bit; only the block sums' order differs.  K30, K32
-// and K34 share am_core, the thread count and BlockAccN's reduction, so a
-// Greek kernel's price sums equal K30's bit for bit wherever its payoff is
-// formed the same way (the barrier; the Asian when 1/n_obs is a power of
-// two, since K32 takes acc * (1/n) where K30 takes acc / n).
+// and K34 share am_core, the thread count and BlockAccN's reduction (K30's
+// in its fold), so a Greek kernel's price sums equal K30's bit for bit
+// wherever its payoff is formed the same way (the barrier; the Asian when
+// 1/n_obs is a power of two, since K32 takes acc * (1/n) where K30 takes
+// acc / n).
 //
 // Bound on the H100: arithmetic.  Per path-date: a/2 Philox blocks and
 // Box-Muller pairs, a expf and the a(a+1)/2 multiply-adds of L z (twice
 // that for K34's and K35's L^-1 z), each a separate multiply and add here;
 // Philox's 32-bit multiplies (int32) bind K31 at 16 assets.
-// Simple design: one CUDA block per simulation block.  Asset-major: one
-// thread per path element striding over the tile, the walk state in
-// registers, L, L^-1 and the per-asset rows in shared memory, per-iteration
-// sums through mct::BlockAccN (4 + 4a of them for the Greeks).  Packed: one
+// K30 is a split walk (mct::walk_split_kernel, csrc/common.cuh): one thread
+// per path element of every (simulation block, iteration) item walks both
+// signs of its path on one draw of each pair of dates, L and the per-asset
+// rows staged in shared memory, and writes its payoff; mct::walk_fold_kernel
+// adds the payoffs in the simple design's order (am_threads<A>() threads a
+// simulation block, BlockAccN per iteration), so its block sums are that
+// design's bit for bit.  The other kernels keep the simple design: one CUDA
+// block per simulation block.  Asset-major (K32, K34): one thread per path
+// element striding over the tile, the walk state in registers, L, L^-1 and
+// the per-asset rows in shared memory, per-iteration sums through
+// mct::BlockAccN (4 + 4a of them).  Packed: one
 // thread per packed path (Packed's passes, set_chunk_even for K31).  Up to
 // 32 assets (a_tile 16 or 32) K31 keeps a path in its thread's registers:
 // the thread draws its own path's normals for a pair of dates (its lanes'
@@ -166,81 +174,99 @@ __device__ __forceinline__ mct::Key iter_key(const Launch& g, int i) {
 
 // ------------------------------------------------------------ K30 (a <= 8)
 
-// One pricing walk of tile element e and sign sgn -> its payoff.
-template <int A, bool BARRIER>
-__device__ __forceinline__ float am_walk(const float* lt, const float* par,
-                                         float k, float h, bool up,
-                                         int n_obs, mct::Key key, uint32_t e,
-                                         float sgn) {
-  float x[A];
-#pragma unroll
-  for (int i = 0; i < A; ++i) x[i] = par[i];
-  float acc = 0.0f, alive = 1.0f, last = 0.0f;
-  mct::walk_pairwise_multi<A>(key, e, n_obs, [&](int, const float(&z)[A]) {
-    float bt[A], s[A];
-    const float basket = am_core<A>(z, sgn, x, lt, par, bt, s);
-    if (BARRIER) {
-      alive = knock(alive, basket, h, up);
-      last = basket;
-    } else {
-      acc = acc + basket;
-    }
-  });
-  if (BARRIER) return alive * fmaxf(last - k, 0.0f);
-  return fmaxf(acc / static_cast<float>(n_obs) - k, 0.0f);
-}
+// K30's split walk (mct::walk_split_kernel): both signs of tile element
+// e's path advance on one draw of each pair of dates (am_core's sgn * z, as
+// the unsplit walk forms it), and the element's payoff is their mean under
+// ANTI.  lt and the per-asset rows are staged in shared memory.
+struct AmParams {
+  const float *lt, *par, *scal;
+  int up, n_obs;
+};
 
-template <int A, bool ANTI, bool KAHAN, bool BARRIER>
-__global__ void __launch_bounds__(am_threads<A>())
-    mw_walk_am_kernel(const float* __restrict__ lt_g,
-                      const float* __restrict__ par_g,
-                      const float* __restrict__ scal, int up, Launch g,
-                      float* __restrict__ out) {
-  constexpr int THREADS = am_threads<A>();
-  __shared__ float lt[A * A], par[5 * A], sh[(THREADS / 32) * 2];
-  stage<THREADS>(lt, lt_g, A * A);
-  stage<THREADS>(par, par_g, 5 * A);
-  __syncthreads();
-  const float k = scal[0], h = scal[1];
-  const int n_elems = g.rows * mct::LANES;
-  mct::BlockAccN<THREADS, 2, KAHAN> acc;
-  float v[2] = {0.0f, 0.0f};
-  for (int i = 0; i < g.iters; ++i) {
-    const mct::Key key = iter_key(g, i);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float p = am_walk<A, BARRIER>(lt, par, k, h, up, g.n_obs, key, u, 1.0f);
-      if (ANTI) {
-        p = 0.5f * (p + am_walk<A, BARRIER>(lt, par, k, h, up, g.n_obs, key,
-                                            u, -1.0f));
-      }
-      v[0] += p;
-      v[1] += p * p;
+template <int A, bool BARRIER>
+struct AmWalk {
+  using Params = AmParams;
+  static constexpr int SHARED = A * A + 5 * A;
+  // CUDA blocks an SM: 64 warps at 32 registers (a = 1), 32 warps at 64
+  // (a = 2, 3), 16 at 128 past them, where a = 8's state would spill at 64.
+  static constexpr int MIN_BLOCKS = A == 1 ? 16 : A <= 3 ? 8 : 4;
+
+  __device__ static void stage(const Params& P, float* sh) {
+    for (int t = threadIdx.x; t < SHARED; t += blockDim.x) {
+      sh[t] = t < A * A ? P.lt[t] : P.par[t - A * A];
     }
-    acc.add(v, nullptr, sh);
   }
-  acc.write(out);
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float* sh, mct::Key key,
+                              uint32_t e) {
+    const float* lt = sh;
+    const float* par = sh + A * A;
+    const float k = P.scal[0], h = P.scal[1];
+    const bool up = P.up != 0;
+    float x[A], xm[A];
+#pragma unroll
+    for (int i = 0; i < A; ++i) x[i] = xm[i] = par[i];
+    float acc = 0.0f, alive = 1.0f, last = 0.0f;
+    float acc_m = 0.0f, alive_m = 1.0f, last_m = 0.0f;
+    mct::walk_pairwise_multi<A>(key, e, P.n_obs,
+                                [&](int, const float(&z)[A]) {
+      float bt[A], s[A];
+      const float basket = am_core<A>(z, 1.0f, x, lt, par, bt, s);
+      if (BARRIER) {
+        alive = knock(alive, basket, h, up);
+        last = basket;
+      } else {
+        acc = acc + basket;
+      }
+      if (ANTI) {
+        const float bm = am_core<A>(z, -1.0f, xm, lt, par, bt, s);
+        if (BARRIER) {
+          alive_m = knock(alive_m, bm, h, up);
+          last_m = bm;
+        } else {
+          acc_m = acc_m + bm;
+        }
+      }
+    });
+    float p, pm = 0.0f;
+    if (BARRIER) {
+      p = alive * fmaxf(last - k, 0.0f);
+      if (ANTI) pm = alive_m * fmaxf(last_m - k, 0.0f);
+    } else {
+      const float n = static_cast<float>(P.n_obs);
+      p = fmaxf(acc / n - k, 0.0f);
+      if (ANTI) pm = fmaxf(acc_m / n - k, 0.0f);
+    }
+    return ANTI ? 0.5f * (p + pm) : p;
+  }
+};
+
+// K30's split walk and its fold (am_threads<A>() threads, BlockAccN per
+// iteration: the order of the simple design's per-block kernel).
+template <int A, bool ANTI, bool KAHAN, bool BARRIER>
+int walk_am(const AmParams& P, const Launch& g, int n_blocks, size_t cap,
+            float* scratch, float* out, cudaStream_t s) {
+  return mct::walk_split_launch<AmWalk<A, BARRIER>, am_threads<A>(), true,
+                                ANTI, KAHAN>(P, g.seed, g.off, n_blocks,
+                                             g.rows, g.iters, cap, scratch,
+                                             out, s);
 }
 
 template <int A>
-void launch_walk_am(bool anti, bool kahan, bool barrier, const float* lt,
-                    const float* par, const float* scal, int up,
-                    const Launch& g, int n_blocks, float* out,
-                    cudaStream_t s) {
-  using Fn = void (*)(const float*, const float*, const float*, int, Launch,
-                      float*);
+int launch_walk_am(bool anti, bool kahan, bool barrier, const AmParams& P,
+                   const Launch& g, int n_blocks, size_t cap, float* scratch,
+                   float* out, cudaStream_t s) {
+  using Fn = int (*)(const AmParams&, const Launch&, int, size_t, float*,
+                     float*, cudaStream_t);
   static const Fn FNS[8] = {
-      mw_walk_am_kernel<A, false, false, false>,
-      mw_walk_am_kernel<A, false, false, true>,
-      mw_walk_am_kernel<A, false, true, false>,
-      mw_walk_am_kernel<A, false, true, true>,
-      mw_walk_am_kernel<A, true, false, false>,
-      mw_walk_am_kernel<A, true, false, true>,
-      mw_walk_am_kernel<A, true, true, false>,
-      mw_walk_am_kernel<A, true, true, true>,
+      walk_am<A, false, false, false>, walk_am<A, false, false, true>,
+      walk_am<A, false, true, false>,  walk_am<A, false, true, true>,
+      walk_am<A, true, false, false>,  walk_am<A, true, false, true>,
+      walk_am<A, true, true, false>,   walk_am<A, true, true, true>,
   };
-  const Fn fn = FNS[(anti ? 4 : 0) | (kahan ? 2 : 0) | (barrier ? 1 : 0)];
-  fn<<<n_blocks, am_threads<A>(), 0, s>>>(lt, par, scal, up, g, out);
+  return FNS[(anti ? 4 : 0) | (kahan ? 2 : 0) | (barrier ? 1 : 0)](
+      P, g, n_blocks, cap, scratch, out, s);
 }
 
 // ------------------------------------------------------- K32 (a <= 8)
@@ -1386,20 +1412,34 @@ Launch make_launch(int n_obs, int seed, int off, int rows, int iters) {
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
+// Floats of scratch a K30 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).  The fold's carry
+// (BlockAccN's pairs) is the same at every thread count.
+extern "C" int mctpu_multi_walk_am_scratch_floats(int n_blocks, int rows,
+                                                  int iters, int cap) {
+  return static_cast<int>(
+      mct::walk_groups<am_threads<1>(), true>(n_blocks, rows, iters,
+                                              static_cast<size_t>(cap))
+          .total);
+}
+
 extern "C" int mctpu_multi_walk_am(const float* lt, const float* par,
                                    const float* scal, int n_assets, int n_obs,
                                    int seed, int off, int n_blocks, int rows,
                                    int iters, int antithetic, int kahan,
-                                   int barrier, int up, float* out,
-                                   void* stream) {
+                                   int barrier, int up, int cap,
+                                   float* scratch, float* out, void* stream) {
   const Launch g = make_launch(n_obs, seed, off, rows, iters);
+  const AmParams P{lt, par, scal, up, n_obs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MCT_CALL(A)                                                        \
-  launch_walk_am<A>(antithetic != 0, kahan != 0, barrier != 0, lt, par, scal, \
-                    up, g, n_blocks, out, s)
+  int err = 0;
+#define MCT_CALL(A)                                                       \
+  err = launch_walk_am<A>(antithetic != 0, kahan != 0, barrier != 0, P, g, \
+                          n_blocks, static_cast<size_t>(cap), scratch,     \
+                          out, s)
   MCT_DISPATCH_A(MCT_CALL)
 #undef MCT_CALL
-  return static_cast<int>(cudaGetLastError());
+  return err;
 }
 
 extern "C" int mctpu_multi_walk_packed(const float* lt, const float* par,

@@ -36,6 +36,7 @@ the correlation product as separate multiplies and adds, never as a
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -308,11 +309,23 @@ def _check_product(product: str) -> None:
         raise ValueError(f"product must be one of {PRODUCTS}")
 
 
+@functools.lru_cache(maxsize=64)
+def _am_scratch_floats(n_blocks: int, rows: int, iters: int,
+                       cap: int) -> int:
+    """Floats of scratch a K30 launch takes (its groups' payoffs and the
+    fold's carry; a function of the plan alone)."""
+    return _build.library().mctpu_multi_walk_am_scratch_floats(
+        n_blocks, rows, iters, cap)
+
+
 def _launch(entry: str, ptrs, a: int, n_scal_out: int, seed, block_offset,
-            plan: Plan, n_blocks: int, n_obs: int, flags, device):
+            plan: Plan, n_blocks: int, n_obs: int, flags, device,
+            scratch_floats: int = 0):
     """Launch a multi-walk kernel; its C signature is ``(*ptrs, n_assets,
     n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan, *flags,
-    out, stream)``.  Returns the ``(n_blocks, n_scal_out)`` partials."""
+    [scratch,] out, stream)``, the scratch (``scratch_floats`` of them,
+    allocated here on the current stream) only where ``scratch_floats``
+    is given.  Returns the ``(n_blocks, n_scal_out)`` partials."""
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
     if n_obs < 1:
@@ -321,10 +334,16 @@ def _launch(entry: str, ptrs, a: int, n_scal_out: int, seed, block_offset,
     with torch.cuda.device(device):
         out = torch.empty((n_blocks, n_scal_out), dtype=torch.float32,
                           device=device)
+        scratch = ()
+        if scratch_floats:
+            buf = torch.empty(scratch_floats, dtype=torch.float32,
+                              device=device)
+            scratch = (buf.data_ptr(),)
         status = getattr(lib, entry)(
             *ptrs, a, n_obs, wrap_int32(seed), wrap_int32(block_offset),
             n_blocks, plan.rows, plan.iters, int(plan.antithetic),
-            int(plan.kahan), *(int(f) for f in flags), out.data_ptr(),
+            int(plan.kahan), *(int(f) for f in flags), *scratch,
+            out.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(status, entry)
     return out
@@ -332,10 +351,13 @@ def _launch(entry: str, ptrs, a: int, n_scal_out: int, seed, block_offset,
 
 def partials(lt: torch.Tensor, par: torch.Tensor, scal: torch.Tensor,
              seed: int, block_offset: int, plan: Plan, n_blocks: int,
-             product: str, n_obs: int, up: bool = True) -> torch.Tensor:
+             product: str, n_obs: int, up: bool = True,
+             scratch_cap: int = 0) -> torch.Tensor:
     """Per-block partials ``(n_blocks, 2)``: K30 (``a <= 8``) or K31 for
     CUDA operands, the plain version for CPU operands; any other device
-    raises."""
+    raises.  ``scratch_cap``: K30's scratch in floats at most (0: 256 MB),
+    past which it splits and folds simulation blocks and iterations in
+    groups; the outputs do not depend on it."""
     _check_product(product)
     dev = lt.device
     if dev.type == "cpu":
@@ -351,8 +373,11 @@ def partials(lt: torch.Tensor, par: torch.Tensor, scal: torch.Tensor,
     flags = (product == "barrier", up)
     if use_asset_major(a):
         name = f"basket_{product}_am"
+        floats = _am_scratch_floats(max(n_blocks, 1), plan.rows, plan.iters,
+                                    scratch_cap)
         out = _launch("mctpu_multi_walk_am", ptrs, a, 2, seed, block_offset,
-                      plan, n_blocks, n_obs, flags, dev)
+                      plan, n_blocks, n_obs, flags + (scratch_cap,), dev,
+                      scratch_floats=floats)
     else:
         name = f"basket_{product}_packed"
         a_tile, _, width = pack_factor(a)

@@ -423,6 +423,69 @@ def test_walk_kernels_match_plain(dev, product, case):
         units=_units(plan))
 
 
+# K12's split walk and fold: up and down, plain and antithetic, Kahan on and
+# off, n_obs 1, 49 and 50, on phase 6's 128 x 1 x 256 plan, on the MLMC 8 x
+# 8 plan with many iterations and at rows that are not a multiple of 8.
+_K12_SPLIT = {
+    # name: (n_obs, up, antithetic, kahan, blocks, rows, iters)
+    "n50_up_plan128x1x256": (50, True, False, True, 128, 256, 1),
+    "n50_down_antithetic_plan128x1x256": (50, False, True, True, 128, 256, 1),
+    "n1_up_plan128x1x256_f32": (1, True, False, False, 128, 256, 1),
+    "n8_up_mlmc8x8_iters64": (8, True, False, True, 8, 8, 64),
+    "n49_up_antithetic_f32_mlmc8x8_iters32": (49, True, True, False, 8, 8,
+                                              32),
+    "n49_down_rows13": (49, False, False, True, NB, 13, 3),
+    "n1_down_antithetic_rows5": (1, False, True, True, NB, 5, 2),
+    "n50_up_antithetic_f32_rows9": (50, True, True, False, NB, 9, 2),
+}
+
+
+def _k12_setup(dev, n_obs, up, antithetic, kahan, blocks, rows, iters):
+    plan = kbarrier.make_plan(
+        blocks * iters * rows * 128 * (2 if antithetic else 1), blocks,
+        rows, antithetic, kahan)
+    assert (plan.num_blocks, plan.rows, plan.iters) == (blocks, rows, iters)
+    return kbarrier.params(_barrier(n_obs, up), dev), plan
+
+
+@pytest.mark.parametrize("case", sorted(_K12_SPLIT))
+def test_barrier_split_kernel_matches_plain(dev, case):
+    """K12 (split per path element, folded in the unsplit order) against
+    the plain version; two launches and the block offset bitwise."""
+    n_obs, up, antithetic, kahan, blocks, rows, iters = _K12_SPLIT[case]
+    par, plan = _k12_setup(dev, n_obs, up, antithetic, kahan, blocks, rows,
+                           iters)
+    _contract(
+        lambda off, nb: kbarrier.partials(par, SEED, off, plan, nb, n_obs,
+                                          up),
+        lambda off, nb: kbarrier.plain_partials(par, SEED, off, plan, nb,
+                                                n_obs, up),
+        n_blocks=blocks)
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("iters", [1, 5])
+def test_barrier_split_grouped_scratch_matches_one_group(dev, antithetic,
+                                                         iters):
+    """K12 under a forced small scratch cap: at 1 float every (block,
+    iteration) is split and folded on its own (the fold's carry, each
+    thread's Acc2, between the groups), at half the one-group scratch the
+    blocks go in groups; both equal the one-group launch bit for bit, and
+    each capped call counts one launch."""
+    par, plan = _k12_setup(dev, 13, True, antithetic, True, NB, 7, iters)
+    lib = _build.library()
+    whole = lib.mctpu_barrier_scratch_floats(NB, plan.rows, plan.iters, 0)
+    assert lib.mctpu_barrier_scratch_floats(NB, plan.rows, plan.iters,
+                                            1) < whole
+    want = kbarrier.partials(par, SEED, 0, plan, NB, 13, True)
+    for cap in (1, whole // 2):
+        before = kbarrier.LAUNCHES["barrier"]
+        got = kbarrier.partials(par, SEED, 0, plan, NB, 13, True,
+                                scratch_cap=cap)
+        assert kbarrier.LAUNCHES["barrier"] == before + 1
+        assert torch.equal(got, want), cap
+
+
 # K15-K18 at the odd step count 13 (and 1): every lookback mode, antithetic
 # and plain sums; the fixed strikes away from the atom at s0.
 _LOOKBACK_CASES = {
@@ -903,6 +966,68 @@ def test_multi_walk_launch_counters(dev):
             call(plain)
             assert kmw.LAUNCHES[name] == before[name] + 1, name
             assert sum(kmw.LAUNCHES.values()) == sum(before.values()) + 1
+
+
+# K30's split walk and fold at the 3-asset basket (512 threads) and 8 (256):
+# phase 6's 128 x 1 x 256 plan at 50 dates, and rows not a multiple of 8.
+_K30_SPLIT = {
+    # name: (assets, n_obs, antithetic, kahan, blocks, rows, iters)
+    "a3_n50_plan128x1x256": (3, 50, False, True, 128, 256, 1),
+    "a3_n50_antithetic_plan128x1x256": (3, 50, True, True, 128, 256, 1),
+    "a1_n49_rows13_f32": (1, 49, False, False, NB, 13, 3),
+    "a8_n50_antithetic_rows9": (8, 50, True, True, NB, 9, 2),
+    "a3_n1_mlmc8x8_iters16": (3, 1, False, True, 8, 8, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K30_SPLIT))
+@pytest.mark.parametrize("product", sorted(_MW_PRODUCTS))
+def test_multi_walk_am_split_kernel_matches_plain(dev, case, product):
+    """K30 (split per path element, folded in the unsplit order) against
+    the plain version, the Asian and both knock-outs."""
+    a, n_obs, antithetic, kahan, blocks, rows, iters = _K30_SPLIT[case]
+    kind, up, h = _MW_PRODUCTS[product]
+    bk = BasketOption.equicorrelated(a, 0.3)
+    plan = kmw.make_plan(blocks * iters * rows * 128 * (2 if antithetic
+                                                        else 1),
+                         blocks, rows, antithetic, kahan, n_assets=a)
+    assert (plan.num_blocks, plan.rows, plan.iters) == (blocks, rows, iters)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, cholesky_lower(bk.corr),
+                                               n_obs))
+    scal = kmw.scalars(bk, h).to(dev)
+    _contract(
+        lambda off, nb: kmw.partials(lt, par, scal, SEED, off, plan, nb, kind,
+                                     n_obs, up),
+        lambda off, nb: kmw.plain_partials(lt, par, scal, SEED, off, plan, nb,
+                                           kind, n_obs, up),
+        n_blocks=blocks)
+
+
+@pytest.mark.parametrize("a", [3, 8])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_multi_walk_am_grouped_scratch_matches_one_group(dev, a, antithetic):
+    """K30 under a forced small scratch cap: at 1 float every (block,
+    iteration) is split and folded on its own (BlockAccN's carry between the
+    groups), at half the one-group scratch the blocks go in groups; both
+    equal the one-group launch bit for bit, and each capped call counts one
+    launch."""
+    bk, chol, plan = _mw_setup(dev, a, 13, antithetic, True, rows=7)
+    lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, 13))
+    lib = _build.library()
+    whole = lib.mctpu_multi_walk_am_scratch_floats(NB, plan.rows,
+                                                   plan.iters, 0)
+    assert lib.mctpu_multi_walk_am_scratch_floats(NB, plan.rows, plan.iters,
+                                                  1) < whole
+    for kind, h in (("asian", None), ("barrier", 110.0)):
+        scal = kmw.scalars(bk, h).to(dev)
+        want = kmw.partials(lt, par, scal, SEED, 0, plan, NB, kind, 13)
+        for cap in (1, whole // 2):
+            name = f"basket_{kind}_am"
+            before = kmw.LAUNCHES[name]
+            got = kmw.partials(lt, par, scal, SEED, 0, plan, NB, kind, 13,
+                               scratch_cap=cap)
+            assert kmw.LAUNCHES[name] == before + 1
+            assert torch.equal(got, want), (kind, cap)
 
 
 def test_multi_walk_bad_operands_raise(dev):

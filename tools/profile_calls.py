@@ -20,7 +20,9 @@ default ``EngineConfig``), after one warm-up call:
   call's net kernel and its chunk carry; the
   runtime-m xVA's, the CVA's and the CVA Greeks' slice kernels and their
   folds; the netting-set CVA's and the xVA's split kernel and its fold at
-  m <= 8; the packed basket Greeks' split kernel and its fold; 0 for a
+  m <= 8; the packed basket Greeks' split kernel and its fold; the
+  barrier walk's and the 3-asset basket walks' split kernel and its fold
+  (K12, K30); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -129,6 +131,9 @@ def calls(mt):
                        average="geometric")
     uo8 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0,
                         n_obs=8)
+    # The split walks' kernels (K12, K30: a walk per path element, then the
+    # fold in the unsplit order).
+    split = ("walk_split_kernel", "walk_fold_kernel")
     mlmc_calls = []
     for tag, cfg in (("512 x 256", mt.EngineConfig()),
                      ("8 x 8", mt.EngineConfig(num_blocks=8, rows=8))):
@@ -140,7 +145,7 @@ def calls(mt):
              ("asian_kernel", "asian_level_kernel"),
              lambda c=cfg: mt.mlmc.price_asian_mlmc(geo4, 0.02, SEED, c)),
             (f"price_barrier_mlmc H=130 eps=0.02, {tag}",
-             ("barrier_kernel", "barrier_level_kernel"),
+             split + ("barrier_level_kernel",),
              lambda c=cfg: mt.mlmc.price_barrier_mlmc(uo8, 0.02, SEED, c,
                                                       max_levels=8))]
     # The JAX CLIs' RQMC calls at their defaults: the exotic CLI's
@@ -198,7 +203,7 @@ def calls(mt):
          lambda: mt.price_asian(geo, n22, SEED)),
         ("greeks_asian arithmetic, 2^22", "asian_greeks_kernel",
          lambda: mt.greeks(ari, n22, SEED)),
-        ("price_barrier up-and-out, 2^22", "barrier_kernel",
+        ("price_barrier up-and-out, 2^22", split,
          lambda: mt.price_barrier(uo, n22, SEED)),
         ("greeks_barrier up-and-out, 2^22", "barrier_greeks_kernel",
          lambda: mt.greeks(uo, n22, SEED)),
@@ -238,10 +243,10 @@ def calls(mt):
         ("greeks_varswap Heston, n_obs=252, 2^22",
          "varswap_heston_greeks_kernel",
          lambda: mt.greeks_varswap(hvs, n22, SEED, n_obs=252)),
-        ("price_basket_asian a=3, n_obs=50, 2^22", "mw_walk_am_kernel",
+        ("price_basket_asian a=3, n_obs=50, 2^22", split,
          lambda: mt.price_basket_asian(ba3, n22, SEED)),
-        ("price_basket_barrier a=3 up-and-out, n_obs=50, 2^22",
-         "mw_walk_am_kernel", lambda: mt.price_basket_barrier(bb3, n22, SEED)),
+        ("price_basket_barrier a=3 up-and-out, n_obs=50, 2^22", split,
+         lambda: mt.price_basket_barrier(bb3, n22, SEED)),
         ("price_basket_asian a=16, n_obs=50, 2^22", "mw_walk_reg_kernel",
          lambda: mt.price_basket_asian(ba16, n22, SEED)),
         ("price_basket_barrier a=16 up-and-out, n_obs=50, 2^22",

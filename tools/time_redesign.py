@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the redesigned kernels -- K8 (the packed basket Greeks), K43 (the
+"""Time the redesigned kernels -- K30 (the asset-major basket walk), K12
+(the barrier walk), K8 (the packed basket Greeks), K43 (the
 netting-set xVA), K48 (the packed basket control variate), K39 (the
 packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
 (the CVA exposure walk), K5 (its Greeks), K31 (the packed multi-asset
@@ -17,7 +18,17 @@ built (in parallel), and every case runs the two in turns, P V V P (P
 the other checkout, V this one), so that both are timed in one process
 on one card. Without ``--root`` only this checkout runs; ``--only``
 (repeatable) keeps the cases whose name contains one of its texts. The
-cases, on the default ``EngineConfig``'s layout: K8 on
+cases, on the default ``EngineConfig``'s layout: K30 on the JAX exotic
+CLI's basket (``default_reference(3)``) at 50 dates and 2^22 paths, the
+Asian, the up-and-out at H = 130 and the down-and-out at H = 90, the Asian
+and the up-and-out antithetic, the up-and-out with its scratch capped at
+2^20 floats, and the Asian and the up-and-out on ``equicorrelated(8,
+0.3)``; K12 on the exotic path's up-and-out call (S = K = 100, r = 0.05, v
+= 0.2, T = 1, H = 130, 50 dates, 2^22 paths), the down-and-out at H = 80,
+the up-and-out antithetic and with its scratch capped at 2^20 floats (a
+version without the cap runs whole), and the up-and-out at 8 dates and
+2^20 paths on the MLMC level plan of ``mctpu``'s 8 x 8 MLMC default
+(``mlmc._level_plan``), plain and antithetic; K8 on
 ``equicorrelated(100)`` at 2^22 paths, plain and antithetic, and on
 ``equicorrelated(16)``; K43 on the JAX exotic CLI's ``--product xva``
 set (its ``--product cva-multi`` set, own intensity 0.02, own lgd 0.5,
@@ -40,7 +51,10 @@ cva-multi`` set at 3 underlyings, plain and antithetic, and at 8, 50
 nodes, 2^20 paths; K43's runtime-m kernel on the JAX exotic CLI's
 ``--product xva`` set at 16 underlyings, 50 nodes, 2^20 paths. Each time
 is the median of ``--reps`` launches timed by CUDA events after one
-warm-up launch. K8's (its six sums and (6, width) slot vectors), K43's
+warm-up launch (the event time holds the host's time before a call's
+first launch; the host's time in the call, its launches enqueued, is
+printed beside it). K30's and K12's (their block sums), K8's (its six sums
+and (6, width) slot vectors), K43's
 (its eight sums and both profiles), K48's (its five moment sums), K3's,
 K39's, K35's, K31's and K40's outputs (K39's and K40's sums and EE
 profile) must equal the other checkout's bit for bit (same walk, passes
@@ -54,11 +68,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
+import inspect
 import json
 import statistics
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -71,7 +87,8 @@ MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.kernels.multi_walk", "mctpu_torch.kernels.cva_multi",
            "mctpu_torch.kernels.cva", "mctpu_torch.types",
            "mctpu_torch.variance", "mctpu_torch.kernels.varred",
-           "mctpu_torch.kernels.basket", "mctpu_torch.kernels.greeks")
+           "mctpu_torch.kernels.basket", "mctpu_torch.kernels.greeks",
+           "mctpu_torch.kernels.barrier", "mctpu_torch.mlmc")
 
 
 def _drop_port_modules() -> None:
@@ -92,23 +109,29 @@ def load(root: Path) -> SimpleNamespace:
         sys.path.remove(str(root))
         _drop_port_modules()
     (build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket,
-     kgreeks) = mods
+     kgreeks, kbarrier, mlmc) = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
                            kcm=kcm, kcva=kcva, types=types, variance=variance,
-                           kvr=kvr, kbasket=kbasket, kgreeks=kgreeks)
+                           kvr=kvr, kbasket=kbasket, kgreeks=kgreeks,
+                           kbarrier=kbarrier, mlmc=mlmc)
 
 
-def kernel_ms(fn, reps: int) -> float:
+def kernel_ms(fn, reps: int):
+    """``(event ms, host ms)``: medians over ``reps`` calls after a warm-up
+    of the CUDA-event time of a call and of the host's time in it (its
+    launches enqueued, before the synchronize)."""
     fn()
-    times = []
+    times, host = [], []
     for _ in range(reps):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
+        t = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - t) * 1e3)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), statistics.median(host)
 
 
 def netting_set(t, m: int, n_grid: int):
@@ -127,6 +150,67 @@ def cases(v: SimpleNamespace):
     t, engine, kmw, kcm, kcva = v.types, v.engine, v.kmw, v.kcm, v.kcva
     cfg = engine.EngineConfig()
     out = []
+    # A case's "cap" runs this version's split walk with its scratch capped
+    # at 2^20 floats (the blocks in groups); a version without the argument
+    # runs whole.
+    def cap_of(fn, capped):
+        takes = "scratch_cap" in inspect.signature(fn).parameters
+        return {"scratch_cap": 1 << 20} if capped and takes else {}
+
+    for a, barrier, up, anti, capped in ((3, False, True, False, False),
+                                         (3, True, True, False, False),
+                                         (3, True, False, False, False),
+                                         (3, False, True, True, False),
+                                         (3, True, True, True, False),
+                                         (3, True, True, False, True),
+                                         (8, False, True, False, False),
+                                         (8, True, True, False, False)):
+        bk = (t.BasketOption.default_reference(3) if a == 3
+              else t.BasketOption.equicorrelated(a, 0.3))
+        c = dataclasses.replace(cfg, antithetic=anti)
+        h = 130.0 if up else 90.0
+        kind = "up-and-out" if up else "down-and-out"
+        if barrier:
+            opt = t.BasketBarrierOption(bk, h, n_obs=50, kind=kind)
+            plan, ops = engine.basket_barrier_setup(opt, 1 << 22, c)
+        else:
+            plan, ops = engine.basket_asian_setup(
+                t.BasketAsianOption(bk, n_obs=50), 1 << 22, c)
+        product = "barrier" if barrier else "asian"
+        name = (f"K30 {f'{kind} H={h:g}' if barrier else 'asian'} a={a} "
+                f"50 dates 2^22{' antithetic' if anti else ''}"
+                f"{' scratch cap 2^20' if capped else ''}")
+        out.append((name, lambda o=ops, p=plan, pr=product, u=up,
+                    kw=cap_of(kmw.partials, capped):
+                    kmw.partials(*o, SEED, 0, p, p.num_blocks, pr, 50, u,
+                                 **kw), True))
+    mlmc_cfg = engine.EngineConfig(num_blocks=8, rows=8)
+    for h, up, anti, n, n_obs, mlmc_plan, capped in (
+            (130.0, True, False, 1 << 22, 50, False, False),
+            (80.0, False, False, 1 << 22, 50, False, False),
+            (130.0, True, True, 1 << 22, 50, False, False),
+            (130.0, True, False, 1 << 22, 50, False, True),
+            (130.0, True, False, 1 << 20, 8, True, False),
+            (130.0, True, True, 1 << 20, 8, True, False)):
+        opt = t.BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, h, n_obs=n_obs,
+                              kind="up-and-out" if up else "down-and-out")
+        c = dataclasses.replace(mlmc_cfg if mlmc_plan else cfg,
+                                antithetic=anti)
+        if mlmc_plan:
+            plan = v.mlmc._level_plan(n, c)
+            par = v.kbarrier.params(opt, c.torch_device())
+        else:
+            plan, par = engine.barrier_setup(opt, n, c)
+        name = (f"K12 {'up' if up else 'down'}-and-out H={h:g} {n_obs} dates "
+                f"2^{n.bit_length() - 1}"
+                f"{' MLMC 8 x 8 plan ' if mlmc_plan else ' '}"
+                f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                f"{' antithetic' if anti else ''}"
+                f"{' scratch cap 2^20' if capped else ''}")
+        out.append((name, lambda o=par, p=plan, nn=n_obs, u=up,
+                    kw=cap_of(v.kbarrier.partials, capped):
+                    v.kbarrier.partials(o, SEED, 0, p, p.num_blocks, nn, u,
+                                        **kw), True))
     for a, anti in ((100, False), (100, True), (16, False)):
         plan, ops, _ = engine.greeks_basket_setup(
             t.BasketOption.equicorrelated(a), 1 << 22,
@@ -288,15 +372,18 @@ def main() -> int:
         else:
             order = (("P", theirs[k][1]), ("V", fn), ("V", fn),
                      ("P", theirs[k][1]))
-        times = []
+        times, hosts = [], []
         for tag, f in order:
-            ms = kernel_ms(f, args.reps)
+            ms, host = kernel_ms(f, args.reps)
             times.append(ms)
+            hosts.append(host)
             out.append({"case": name, "version": tag, "ms": ms,
+                        "host_ms": host,
                         "root": str(other.root if tag == "P" else ROOT),
                         "card": smi})
-        line = f"{name}: " + " ".join(f"{tag} {ms:.4f}" for (tag, _), ms
-                                      in zip(order, times)) + " ms"
+        line = (f"{name}: " + " ".join(f"{tag} {ms:.4f}" for (tag, _), ms
+                                       in zip(order, times))
+                + " ms (host " + " ".join(f"{h:.4f}" for h in hosts) + ")")
         if bitwise and theirs is not None:
             equal = same_bits(fn(), theirs[k][1]())
             out[-1]["bitwise_equal"] = equal
