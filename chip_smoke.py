@@ -3104,6 +3104,36 @@ def main() -> int:
                  lambda off, n: kbasket.partials(ops, SEED, off, plan, n),
                  lambda off, n: kbasket.plain_partials(ops, SEED, off, plan,
                                                        n))
+    # K3 split per (block, iteration) and folded in the unsplit order: its
+    # register-tiled product at 10, 16, 100 and 128 assets and the per-path
+    # code at 200, at 72 rows (a short last chunk at 100, 128 and 200),
+    # plain with Kahan and antithetic without; the scratch capped at 1
+    # float (every (block, iteration) its own group, the fold's Acc2s
+    # carried between them) and at half the one-group scratch bit-equal to
+    # one group.
+    for a in (10, 16, 100, 128, 200):
+        bopt = BasketOption.equicorrelated(a)
+        ops = kbasket.operands(bopt, mcmath.cholesky_lower(bopt.corr), dev)
+        a_tile, _, width = kbasket.pack_factor(a)
+        for anti in (False, True):
+            probe = kbasket.make_plan(1, nb, 72, anti, not anti, n_assets=a)
+            plan = kbasket.make_plan(nb * iters * probe.paths_per_iter, nb,
+                                     72, anti, not anti, n_assets=a)
+            contract(f"K3 split a={a} rows 72"
+                     f"{' antithetic' if anti else ''}",
+                     lambda off, n: kbasket.partials(ops, SEED, off, plan, n),
+                     lambda off, n: kbasket.plain_partials(ops, SEED, off,
+                                                           plan, n))
+        whole = _build.library().mctpu_basket_packed_scratch_floats(
+            a_tile, width, nb, plan.rows, plan.iters, 0)
+        want = kbasket.partials(ops, SEED, 0, plan, nb)
+        for cap in (1, whole // 2):
+            check(torch.equal(kbasket.partials(ops, SEED, 0, plan, nb,
+                                               scratch_cap=cap), want),
+                  f"K3 a={a}: scratch capped at {cap} floats differs")
+        phase("kernel-vs-plain", f"K3 split a={a}: scratch capped at 1 and "
+                                 f"{whole // 2} floats bit-equal to one "
+                                 "group")
     spec50 = CvaSpec(0.03, 0.6, VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0),
                      50)
     # K4 at rows 32: eight 4-row slices a block, two iterations, folded.
@@ -3540,6 +3570,40 @@ def main() -> int:
                     kmw.partials(lt, par, scal, SEED, 0, plan, nb, product,
                                  mw_obs, up)),
                       f"K35 {tag}: price sums differ from K31's")
+
+    # K33's register kernel (a_tile 16 at 9 and 16 assets, 32 at 17 and 32)
+    # at 5 dates, plain and antithetic, Kahan on and off, against its plain
+    # version; its price sums equal K31's bit for bit at 16 dates.
+    for a in (9, 16, 17, 32):
+        bk = BasketOption.equicorrelated(a, 0.3)
+        chol = mcmath.cholesky_lower(bk.corr)
+        for anti in (False, True):
+            for kahan in (True, False):
+                probe = kmw.make_plan(1, nb, rows, anti, kahan, n_assets=a)
+                plan = kmw.make_plan(nb * iters * probe.paths_per_iter, nb,
+                                     rows, anti, kahan, n_assets=a)
+                ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(bk, chol,
+                                                                   5))
+                contract(f"K33 register a={a} n_obs=5"
+                         f"{' antithetic' if anti else ''}"
+                         f"{'' if kahan else ' f32'}",
+                         lambda off, n: mw_pairs(kmw.am_greek_partials(
+                             *ops, SEED, off, plan, n, 5)),
+                         lambda off, n: mw_pairs(
+                             kmw.packed_greek_plain_partials(
+                                 *ops, SEED, off, plan, n, 5)),
+                         units=units(plan))
+            ops16 = tuple(x.to(dev) for x in kmw.packed_greek_ops(bk, chol,
+                                                                 16))
+            lt, par = (x.to(dev) for x in kmw.walk_ops(bk, chol, 16))
+            check(torch.equal(
+                kmw.am_greek_partials(*ops16, SEED, 0, plan, nb, 16)[0][:, :2],
+                kmw.partials(lt, par, kmw.scalars(bk).to(dev), SEED, 0, plan,
+                             nb, "asian", 16)),
+                  f"K33 a={a}{' antithetic' if anti else ''}: price sums at "
+                  "16 dates differ from K31's")
+        phase("kernel-vs-plain", f"K33 register a={a}: price sums at 16 "
+                                 "dates equal K31's bit for bit")
 
     # The rainbow: K36 and K38 at 1, 3 and 8 assets, K37 at 9, 16 and 100,
     # max and min, antithetic and Kahan rotated over the sizes; K38's price

@@ -65,9 +65,11 @@ _SIGNATURES = {
     # kahan, out, stream
     "mctpu_basket_am": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # lt, par, k, n_assets, a_tile, width, seed, off, n_blocks, rows, iters,
-    # antithetic, kahan, out, stream
-    "mctpu_basket_packed": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _P, _P),
+    # antithetic, kahan, scratch cap in floats, scratch, out, stream
+    "mctpu_basket_packed": (_P, _P, _P) + (_I,) * 11 + (_P, _P, _P),
+    # a_tile, width, n_blocks, rows, iters, cap -> float count of K3's
+    # scratch (its groups' payoffs and fold carry)
+    "mctpu_basket_packed_scratch_floats": (_I,) * 6,
     # scal, opts, nodes, n_options, n_grid, seed, off, n_blocks, rows,
     # iters, antithetic, kahan, ds, wwr, scratch, out, ee, stream
     "mctpu_cva": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -50,46 +50,45 @@
 // Box-Muller pairs, a expf and the a(a+1)/2 multiply-adds of L z (twice
 // that for K34's and K35's L^-1 z), each a separate multiply and add here;
 // Philox's 32-bit multiplies (int32) bind K31 at 16 assets.
-// K30 is a split walk (mct::walk_split_kernel, csrc/common.cuh): one thread
-// per path element of every (simulation block, iteration) item walks both
-// signs of its path on one draw of each pair of dates, L and the per-asset
-// rows staged in shared memory, and writes its payoff; mct::walk_fold_kernel
-// adds the payoffs in the simple design's order (am_threads<A>() threads a
-// simulation block, BlockAccN per iteration), so its block sums are that
-// design's bit for bit.  The other kernels keep the simple design: one CUDA
-// block per simulation block.  Asset-major (K32, K34): one thread per path
-// element striding over the tile, the walk state in registers, L, L^-1 and
-// the per-asset rows in shared memory, per-iteration sums through
-// mct::BlockAccN (4 + 4a of them).  Packed: one
-// thread per packed path (Packed's passes, set_chunk_even for K31).  Up to
-// 32 assets (a_tile 16 or 32) K31 keeps a path in its thread's registers:
-// the thread draws its own path's normals for a pair of dates (its lanes'
-// Philox blocks, the counters of the shared-memory design), the log-spots
-// of both signs stay in registers, and L (four entries a shared load) and
-// the step rows are staged once a block and read as broadcasts, in loops
-// unrolled at the tile with i < a and j <= i predicates.  So no barrier
-// and no shared-memory round trip remain in the walk, and a block's Philox
-// and product phases overlap across its warps.  Its passes, thread-to-path
-// map and sums are the shared-memory design's, so the block sums are the
-// same bits (and K33's and K35's price sums still equal K31's).  K35 takes
-// the same register design at a_tile 16 and 32 (see
-// mw_bar_greeks_reg_kernel), with K33's passes and halving tree.  Wider
-// baskets (a_tile 64 and up, the 100-asset basket) do not fit a thread's
-// registers: a pass keeps its log-spots in shared memory (asset-major over
-// the pass's paths, so a warp's threads hit consecutive words), every pair
-// of dates first draws the pass's normals into shared memory (draw_pass: one
-// odd-strided row per path, padded lanes not drawn), then one thread per
-// packed path forms the triangular product (L read through the read-only
-// cache, every thread of a warp on the same entry) and the basket for both
-// dates; the mirror's product is the negated sum of the same terms,
-// exactly.  There the product's loads (one of L, one of z per multiply-add)
-// and not the arithmetic hold the kernel well under its bound.  A pass walks
-// every n_chunks-th row (see Packed), so that K33 and K35 add their lane
-// rows pass by pass in the halving tree's own order: the tree's first
-// levels inside a pass, its last over the passes, with only a pass's leaves
-// and one partial row set a pass in shared memory.  K31 takes as few passes
-// as its threads and shared memory allow at any rows; K33 and K35 need a
-// power of two of rows a pass.  No atomics: two launches give the same bits.
+// K30 is a split walk (mct::walk_split_kernel, csrc/common.cuh): one thread per
+// path element of every (simulation block, iteration) item walks both signs of
+// its path on one draw of each pair of dates, L and the per-asset rows staged
+// in shared memory, and writes its payoff; mct::walk_fold_kernel adds the
+// payoffs in the simple design's order (am_threads<A>() threads a simulation
+// block, BlockAccN per iteration), so its block sums are that design's bit for
+// bit.  The other kernels keep the simple design: one CUDA block per simulation
+// block.  Asset-major (K32, K34): one thread per path element striding over the
+// tile, the walk state in registers, L, L^-1 and the per-asset rows in shared
+// memory, per-iteration sums through mct::BlockAccN (4 + 4a of them).  Packed:
+// one thread per packed path (Packed's passes, set_chunk_even for K31).  Up to
+// 32 assets (a_tile 16 or 32) K31 keeps a path in its thread's registers: the
+// thread draws its own path's normals for a pair of dates (its lanes' Philox
+// blocks, the counters of the shared-memory design), the log-spots of both
+// signs stay in registers, and L (four entries a shared load) and the step rows
+// are staged once a block and read as broadcasts, in loops unrolled at the tile
+// with i < a and j <= i predicates.  So no barrier and no shared-memory round
+// trip remain in the walk, and a block's Philox and product phases overlap
+// across its warps.  Its passes, thread-to-path map and sums are the
+// shared-memory design's, so the block sums are the same bits (and K33's and
+// K35's price sums still equal K31's).  K33 and K35 take the same register
+// design at a_tile 16 and 32 (see mw_greeks_reg_kernel and
+// mw_bar_greeks_reg_kernel), with K33's passes and halving tree.  Wider baskets
+// (a_tile 64 and up, the 100-asset basket) do not fit a thread's registers: a
+// pass keeps its log-spots in shared memory (asset-major over the pass's paths,
+// so a warp's threads hit consecutive words), every pair of dates first draws
+// the pass's normals into shared memory (draw_pass: one odd-strided row per
+// path, padded lanes not drawn), then one thread per packed path forms the
+// triangular product (L read through the read-only cache, every thread of a
+// warp on the same entry) and the basket for both dates; the mirror's product
+// is the negated sum of the same terms, exactly.  There the product's loads
+// (one of L, one of z per multiply-add) and not the arithmetic hold the kernel
+// well under its bound.  A pass walks every n_chunks-th row (see Packed), so
+// that K33 and K35 add their lane rows pass by pass in the halving tree's own
+// order: the tree's first levels inside a pass, its last over the passes, with
+// only a pass's leaves and one partial row set a pass in shared memory.  K31
+// takes as few passes as its threads and shared memory allow at any rows; K33
+// and K35 need a power of two of rows a pass.  No atomics: two launches give
+// the same bits.
 #include <algorithm>
 
 #include "common.cuh"
@@ -771,7 +770,8 @@ int launch_walk_packed(bool anti, bool kahan, bool barrier, const float* lt,
 
 // --------------------------------------------------------- K33 (a > 8)
 
-// K33's block keeps in shared memory, per pass: both dates' normals (2 np
+// K33 at a_tile 64 and up (at 16 and 32: mw_greeks_reg_kernel below).
+// Its block keeps in shared memory, per pass: both dates' normals (2 np
 // ap), per asset and path the log-spot x, the tangent dxv, the spot sum AS
 // and the S dxv sum AV (and the mirror's four), then per pass the (dval,
 // dval^2, vval, vval^2) lane rows its rows add up to ([n_chunks][4][width])
@@ -948,6 +948,253 @@ __global__ void __launch_bounds__(PK_THREADS)
   }
 }
 
+// pass_tree's levels over the (dval, vval) leaves where the register
+// kernels (K33's, K35's) and K35's shared-memory kernel write them: lane p
+// a_tile + m of local row rl at d[m np + rl c + p] (vval at v likewise), so
+// a column's rows stand c apart; padded lanes sum to exact zeros.
+__device__ __forceinline__ void bar_leaf_tree(const Packed& P, int c0,
+                                              float* d, float* v,
+                                              float* part) {
+  const int W = P.width;
+  for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
+    const int qty = u / W;
+    const int lane = u - qty * W;
+    const int pth = lane / P.a_tile;
+    const int m = lane - pth * P.a_tile;
+    float s1 = 0.0f, s2 = 0.0f;
+    if (m < P.a) {
+      halving_pair((qty ? v : d) + m * P.np_max + pth, P.chunk_rows, P.c, s1,
+                   s2);
+    }
+    part[(4 * c0 + 2 * qty) * W + lane] = s1;
+    part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
+  }
+}
+
+// K33 at a_tile AT = 16 or 32 (9-32 assets): K31's register design with
+// K33's tangents.  The block stages L (rows at stride AT, zero above the
+// diagonal) and the per-asset rows once, read as broadcasts at their use
+// (mct::lds4 / lds1, as K31's and K35's).
+template <int AT>
+struct RegAsianGreekOps {
+  float4 l[AT * AT / 4];  // L[i][j] at i * AT + j, zero above the diagonal
+  float4 step[AT];        // drift, vol, d, w of asset i
+  float4 tan[AT];         // v dt, 1/s0, log s0 (and a zero) of asset i
+};
+
+// One pair of dates (the second where two) of a path for both signs,
+// packed_greek_date's operations in its order for each date: x and dxv (and
+// the mirror's, whose dxv is not the negation of the path's: its step is
+// sqrt(dt) (d - sum) - v dt) in registers, AS and AV of each sign in the
+// shared slots s[m np] (the path's, then the mirror's AS and AV at s + a
+// np, 2 a np, 3 a np).  An asset's dates depend on each other only through
+// its own x, dxv, AS and AV, so each asset takes both dates in turn: its L
+// row and step rows are read once a pair, its slots loaded and stored once
+// a pair, and each date's basket b[date] still adds the assets in order.
+template <int AT, bool ANTI>
+__device__ __forceinline__ void reg_greek_pair(
+    const RegAsianGreekOps<AT>& o, int a, int np, float sqdt, bool two,
+    const float (&z)[2][AT], float (&x)[AT], float (&dx)[AT],
+    float (&xm)[AT], float (&dxm)[AT], float* s, float (&b)[2],
+    float (&bm)[2]) {
+  b[0] = b[1] = bm[0] = bm[1] = 0.0f;
+  const int an = a * np;
+#pragma unroll
+  for (int i = 0; i < AT; ++i) {
+    if (i < a) {
+      float* si = s + i * np;
+      float as = si[0], av = si[an];
+      float as_m = ANTI ? si[2 * an] : 0.0f, av_m = ANTI ? si[3 * an] : 0.0f;
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int q = 0; 4 * q <= i; ++q) {
+        const float4 l4 = mct::lds4(&o.l[i * (AT / 4) + q]);
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          if (d == 0 || two) {
+            sum[d] = sum[d] + l4.x * z[d][4 * q];
+            if (4 * q + 1 <= i) sum[d] = sum[d] + l4.y * z[d][4 * q + 1];
+            if (4 * q + 2 <= i) sum[d] = sum[d] + l4.z * z[d][4 * q + 2];
+            if (4 * q + 3 <= i) sum[d] = sum[d] + l4.w * z[d][4 * q + 3];
+          }
+        }
+      }
+      const float4 st = mct::lds4(&o.step[i]);
+      const float vdt = mct::lds1(&o.tan[i].x);
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        if (d == 0 || two) {
+          const float bt = sum[d] + st.z;
+          x[i] = x[i] + st.x + st.y * bt;
+          dx[i] = dx[i] + sqdt * bt - vdt;
+          const float e = expf(x[i]);
+          b[d] = b[d] + e * st.w;
+          as = as + e;
+          av = av + e * dx[i];
+          if (ANTI) {
+            const float btm = -sum[d] + st.z;
+            xm[i] = xm[i] + st.x + st.y * btm;
+            dxm[i] = dxm[i] + sqdt * btm - vdt;
+            const float em = expf(xm[i]);
+            bm[d] = bm[d] + em * st.w;
+            as_m = as_m + em;
+            av_m = av_m + em * dxm[i];
+          }
+        }
+      }
+      si[0] = as;
+      si[an] = av;
+      if (ANTI) {
+        si[2 * an] = as_m;
+        si[3 * an] = av_m;
+      }
+    }
+  }
+}
+
+// mw_greeks_packed_kernel's passes (greek_shape), thread-to-path map,
+// payoff, rho, leaves, halving tree and sums, so out and vecs are that
+// kernel's bit for bit; each thread draws its own path's normals (element
+// row * width + p * AT + m, pair jj) and no barrier remains in the walk.
+// Shared memory: per lane and path the slots of AS and AV of each sign
+// ([2 NS][a][np]); after the walk the path's dval and vval leaves take the
+// places of its AS and AV, where bar_leaf_tree reads them (pass_tree's
+// levels in its order over that layout; padded lanes sum to exact zeros, as
+// pass_tree's over the zeros the parent writes there); then part and vec as
+// there.
+template <int AT, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(PK_THREADS, AT <= 16 ? 2 : 1)
+    mw_greeks_reg_kernel(const float* __restrict__ scal,
+                         const float* __restrict__ tj,
+                         const float* __restrict__ lt,
+                         const float* __restrict__ par, Packed P, Launch g,
+                         float* __restrict__ out, float* __restrict__ vecs) {
+  extern __shared__ float smem[];
+  __shared__ RegAsianGreekOps<AT> o;
+  __shared__ float sh[(PK_THREADS / 32) * 4];
+  constexpr int NS = ANTI ? 2 : 1;  // signs
+  const int np = P.np_max, a = P.a, W = P.width;
+  float* ld = smem;                         // [a][np]: AS, then dval
+  float* lv = ld + a * np;                  // [a][np]: AV, then vval
+  float* part = smem + 2 * NS * a * np;     // [n_chunks][4][W]
+  float* vec = part + 4 * P.n_chunks * W;   // [4][W]
+  float* lf = reinterpret_cast<float*>(o.l);
+  for (int t = threadIdx.x; t < AT * AT; t += PK_THREADS) {
+    const int i = t / AT, j = t - i * AT;
+    lf[t] = (i < a && j <= i) ? lt[i * a + j] : 0.0f;
+  }
+  float* sf = reinterpret_cast<float*>(o.step);
+  float* tf = reinterpret_cast<float*>(o.tan);
+  for (int t = threadIdx.x; t < 4 * AT; t += PK_THREADS) {
+    const int i = t / 4, r = t - 4 * i;
+    sf[t] = i < a ? par[(r + 1) * a + i] : 0.0f;
+    tf[t] = i < a && r < 3 ? par[(r < 2 ? r + 5 : 0) * a + i] : 0.0f;
+  }
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) vec[u] = 0.0f;
+  __syncthreads();
+  const float k = scal[0], t = scal[1], inv_n = scal[2], sqdt = scal[3];
+  const int q = threadIdx.x;
+  const int pairs = (g.n_obs + 1) / 2;
+  mct::BlockAccN<PK_THREADS, 4, KAHAN> acc;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int it = 0; it < g.iters; ++it) {
+    const mct::Key key = iter_key(g, it);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+      if (q < np) {
+        const int row = pass_row(P, c0, q / P.c);
+        const uint32_t e0 =
+            static_cast<uint32_t>(row * W + (q % P.c) * AT);
+        float* sq = ld + q;  // this path's slots
+        float x[AT], dx[AT], xm[AT], dxm[AT];
+#pragma unroll
+        for (int i = 0; i < AT; ++i) {
+          x[i] = xm[i] = mct::lds1(&o.tan[i].z);
+          dx[i] = dxm[i] = 0.0f;
+          if (i < a) {
+#pragma unroll
+            for (int r = 0; r < 2 * NS; ++r) sq[(r * a + i) * np] = 0.0f;
+          }
+        }
+        float m1 = 0.0f, tb = 0.0f, m1m = 0.0f, tbm = 0.0f;
+        for (int jj = 0; jj < pairs; ++jj) {
+          float z[2][AT];
+#pragma unroll
+          for (int m = 0; m < AT; ++m) {
+            if (m < a) {
+              mct::draw_normal_pair(key, e0 + m, static_cast<uint32_t>(jj),
+                                    z[0][m], z[1][m]);
+            } else {
+              z[0][m] = z[1][m] = 0.0f;
+            }
+          }
+          const int dates = min(2, g.n_obs - 2 * jj);
+          float b[2], bm[2];
+          reg_greek_pair<AT, ANTI>(o, a, np, sqdt, dates == 2, z, x, dx, xm,
+                                   dxm, sq, b, bm);
+#pragma unroll
+          for (int date = 0; date < 2; ++date) {
+            if (date >= dates) break;
+            const float tjv = __ldg(tj + 2 * jj + date);
+            m1 = m1 + b[date];
+            tb = tb + tjv * b[date];
+            if (ANTI) {
+              m1m = m1m + bm[date];
+              tbm = tbm + tjv * bm[date];
+            }
+          }
+        }
+        // The payoff, rho and the (dval, vval) leaves (mctpu's
+        // _greek_payoff_mw), in mw_greeks_packed_kernel's operations.
+        const float abar = m1 * inv_n;
+        float p = fmaxf(abar - k, 0.0f);
+        const float ind = abar > k ? 1.0f : 0.0f;
+        float gr = ind * (tb * inv_n) - t * p;
+        float ind_m = 0.0f;
+        if (ANTI) {
+          const float abar_m = m1m * inv_n;
+          const float pm = fmaxf(abar_m - k, 0.0f);
+          ind_m = abar_m > k ? 1.0f : 0.0f;
+          const float grm = ind_m * (tbm * inv_n) - t * pm;
+          p = 0.5f * (p + pm);
+          gr = 0.5f * (gr + grm);
+        }
+        v[0] += p;
+        v[1] += p * p;
+        v[2] += gr;
+        v[3] += gr * gr;
+        const int an = a * np;
+#pragma unroll
+        for (int m = 0; m < AT; ++m) {
+          if (m < a) {
+            const float w = mct::lds1(&o.step[m].w);
+            const float inv_s0 = mct::lds1(&o.tan[m].y);
+            float* sm = sq + m * np;
+            const float wiv = ind * w * inv_n;
+            float dval = wiv * sm[0] * inv_s0;
+            float vval = wiv * sm[an];
+            if (ANTI) {
+              const float wiv_m = ind_m * w * inv_n;
+              dval = 0.5f * (dval + wiv_m * sm[2 * an] * inv_s0);
+              vval = 0.5f * (vval + wiv_m * sm[3 * an]);
+            }
+            sm[0] = dval;
+            sm[an] = vval;
+          }
+        }
+      }
+      __syncthreads();
+      bar_leaf_tree(P, c0, ld, lv, part);
+      __syncthreads();
+    }
+    fold_passes(P, part, vec);
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+  for (int u = threadIdx.x; u < 4 * W; u += PK_THREADS) {
+    vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
+  }
+}
+
 // --------------------------------------------------------- K35 (a > 8)
 
 // One date of K35's walk for packed path q and both signs (state pointers
@@ -995,29 +1242,6 @@ __device__ __forceinline__ void packed_bar_greek_date(
   }
   b = basket;
   bm = basket_m;
-}
-
-// pass_tree's levels over K35's (dval, vval) leaves where its paths write
-// them: lane p a_tile + m of local row rl at d[m np + rl c + p] (vval at v
-// likewise), so a column's rows stand c apart; padded lanes sum to exact
-// zeros.
-__device__ __forceinline__ void bar_leaf_tree(const Packed& P, int c0,
-                                              float* d, float* v,
-                                              float* part) {
-  const int W = P.width;
-  for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
-    const int qty = u / W;
-    const int lane = u - qty * W;
-    const int pth = lane / P.a_tile;
-    const int m = lane - pth * P.a_tile;
-    float s1 = 0.0f, s2 = 0.0f;
-    if (m < P.a) {
-      halving_pair((qty ? v : d) + m * P.np_max + pth, P.chunk_rows, P.c, s1,
-                   s2);
-    }
-    part[(4 * c0 + 2 * qty) * W + lane] = s1;
-    part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
-  }
 }
 
 // K35 at a_tile 64 and up: K33's passes, shared memory and halving tree
@@ -1508,12 +1732,29 @@ extern "C" int mctpu_multi_walk_greeks_packed(
   if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       Packed, Launch, float*, float*);
-  static const Fn FNS[4] = {
-      mw_greeks_packed_kernel<false, false>,
-      mw_greeks_packed_kernel<false, true>,
-      mw_greeks_packed_kernel<true, false>,
-      mw_greeks_packed_kernel<true, true>};
-  const Fn fn = FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
+  static const Fn FNS[3][4] = {
+      {mw_greeks_packed_kernel<false, false>,
+       mw_greeks_packed_kernel<false, true>,
+       mw_greeks_packed_kernel<true, false>,
+       mw_greeks_packed_kernel<true, true>},
+      {mw_greeks_reg_kernel<16, false, false>,
+       mw_greeks_reg_kernel<16, false, true>,
+       mw_greeks_reg_kernel<16, true, false>,
+       mw_greeks_reg_kernel<16, true, true>},
+      {mw_greeks_reg_kernel<MW_REG_MAX, false, false>,
+       mw_greeks_reg_kernel<MW_REG_MAX, false, true>,
+       mw_greeks_reg_kernel<MW_REG_MAX, true, false>,
+       mw_greeks_reg_kernel<MW_REG_MAX, true, true>}};
+  // a_tile 16 and 32: the register kernel, its shared memory the AS and AV
+  // slots of each sign, part and vec.
+  const int reg = a_tile == 16 ? 1 : a_tile == MW_REG_MAX ? 2 : 0;
+  if (reg > 0) {
+    smem = (2 * static_cast<size_t>(antithetic ? 2 : 1) * n_assets *
+                P.np_max +
+            (4 * static_cast<size_t>(P.n_chunks) + 4) * width) *
+           sizeof(float);
+  }
+  const Fn fn = FNS[reg][(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -257,154 +257,39 @@ void launch_am(bool anti, bool kahan, const float* lt, const float* par,
 // equal the simple design's bit for bit, and the main run's 512 blocks x 16
 // iterations and the pilot's 8 x 102 become 8192 and 816 CUDA blocks.
 //
-// At width 128 (9-128 assets) the item's L z is a register-tiled product
-// (basket_cv_tiled_kernel): a chunk's normals sit in shared memory unit by
-// unit ([a][128], each row's 128 units contiguous), and per j-tile of 32
-// assets (the tiles end at a) the slice of L it reads ([l][32], L[j][l] at
-// l <= j, zero above the diagonal and below asset 0) is staged beside them.
-// Each thread holds a tile of 4 units x 4 assets: per l one float4 of
-// normals and one of L feed 16 fmaf.  Warp w takes units 64 (w & 1) .. + 64
-// and assets 8 (w >> 1) .. + 8 of the j-tile, up to l = its last asset + 1
-// (none if they lie below asset 0): every bt_j is fmaf(L[j][l],
-// z[l], bt) from 0.0f over l = 0 .. j ascending, as packed_baskets forms it,
-// followed by fmaf(0, z, bt) for the l of its tile above j, which return bt
-// but for the sign of a zero bt, and expf(+-0) = 1 makes the term the same.
-// The tile's threads form term_j = s0_j expf(drift_j + vol_j (bt_j + d_j))
-// (and the mirror's, d_j - bt_j) into shared memory, and the unit's summing
-// thread folds the j-tile into its running basket, fmaf(term_j, w_j,
-// basket) with j ascending.  Threads 128-255 hold no unit: their zero sums
-// enter block_row's tree after the first four warps' and leave each row as
-// it was (x + 0 = x; only the sign of a zero row could change, which no
-// Kahan carry or plain add from 0.0f keeps).  Shared memory at a = 100,
-// antithetic: 94.5 KB, two blocks an SM.  Past width 128 (a > 128) the item
-// keeps the simple design's per-path code (basket_cv_path_kernel).
-constexpr int CV_THREADS = 256;       // a tiled item's threads
-constexpr int CV_UNITS = PK_THREADS;  // unit slots of a chunk
-constexpr int CV_JT = 32;             // assets of a j-tile
-
+// At width 128 (9-128 assets) the item's L z is the register-tiled
+// product mct::tiled_item (basket.cuh, shared with K3): the simple design's
+// chunks and unit-to-thread map, the basket values of packed_baskets bit
+// for bit, and each unit's moments added in its thread (threads 128-255
+// hold no unit: their zero sums enter block_row's tree after the first four
+// warps' and leave each row as it was (x + 0 = x; only the sign of a zero
+// row could change, which no Kahan carry or plain add from 0.0f keeps)).
+// Past width 128 (a > 128) the item keeps the simple design's per-path
+// code (basket_cv_path_kernel).
 template <bool ANTI>
-__global__ void __launch_bounds__(CV_THREADS, 2)
+__global__ void __launch_bounds__(mct::TILED_THREADS, 2)
     basket_cv_tiled_kernel(const float* __restrict__ lt,
                            const float* __restrict__ par,
                            const float* __restrict__ scal, int a, int a_tile,
                            int chunk_rows, uint32_t seed, uint32_t off,
                            int rows, int iters, float* __restrict__ scratch) {
-  extern __shared__ float4 smem4[];
-  float* zs = reinterpret_cast<float*>(smem4);  // [a][CV_UNITS]
-  float* ls = zs + a * CV_UNITS;                // [a][CV_JT]
-  float* ts = ls + a * CV_JT;                   // [CV_JT][CV_UNITS]
-  float* tms = ts + CV_JT * CV_UNITS;           // the mirror's (ANTI)
-  __shared__ float sh[(CV_THREADS / 32) * N_SUMS];
-  constexpr int width = mct::LANES;
-  const int c = width / a_tile;
+  __shared__ float sh[(mct::TILED_THREADS / 32) * N_SUMS];
   const int b = blockIdx.x / iters, i = blockIdx.x - b * iters;
-  const mct::Key key = mct::seed_key(seed, off + b);
   const float k = scal[0], p0 = scal[1], m = scal[2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int uw = (warp & 1) * 64, jw = (warp >> 1) * 8;
-  const int ub = uw + (lane & 15) * 4;  // the thread's first unit
-  const int jb = jw + (lane >> 4) * 4;  // its first asset in the j-tile
   float v[N_SUMS];
   zero(v);
-  // The draw: thread t takes path t % 64 of a chunk (at most 64 paths, as
-  // 2 c chunk_rows <= CV_UNITS) and its assets t / 64, t / 64 + 4, ...
-  const int dp = tid & (CV_UNITS / 2 - 1), dl = tid / (CV_UNITS / 2);
-  const int drow = dp / c, dlane = (dp - drow * c) * a_tile;
-  for (int r0 = 0; r0 < rows; r0 += chunk_rows) {
-    const int np = min(chunk_rows, rows - r0) * c;  // the chunk's paths
-    const int nu = 2 * np;                          // and units
-    if (dp < np) {
-      const uint32_t e0 =
-          static_cast<uint32_t>((r0 + drow) * width + dlane);
-      for (int l = dl; l < a; l += CV_THREADS / (CV_UNITS / 2)) {
-        float2 z;
-        mct::draw_normal_pair(key, e0 + static_cast<uint32_t>(l),
-                              static_cast<uint32_t>(i), z.x, z.y);
-        *reinterpret_cast<float2*>(zs + l * CV_UNITS + 2 * dp) = z;
-      }
-    }
-    float basket = 0.0f, basket_m = 0.0f;
-    // j-tiles end at a: the first holds the a mod 32 lowest assets (its
-    // warps below j = 0 idle), so no tile takes a full-depth l loop for a
-    // few assets.
-    for (int j0 = a - (a + CV_JT - 1) / CV_JT * CV_JT; j0 < a; j0 += CV_JT) {
-      const int kt = j0 + CV_JT;
-      for (int t = threadIdx.x; t < kt * CV_JT; t += CV_THREADS) {
-        const int l = t / CV_JT, j = j0 + (t - l * CV_JT);
-        ls[t] = (j >= 0 && l <= j) ? __ldg(lt + j * a + l) : 0.0f;
-      }
-      __syncthreads();
-      if (uw < nu && j0 + jw + 8 > 0) {
-        const int kmax = j0 + jw + 8;
-        float acc[4][4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[u][jj] = 0.0f;
+  mct::tiled_item<ANTI>(
+      lt, par, a, a_tile, chunk_rows, mct::seed_key(seed, off + b),
+      static_cast<uint32_t>(i), rows,
+      [&](int, int, float basket, float basket_m) {
+        float p = fmaxf(basket - k, 0.0f), cv = basket;
+        if (ANTI) {
+          p = 0.5f * (p + fmaxf(basket_m - k, 0.0f));
+          cv = 0.5f * (cv + basket_m);
         }
-#pragma unroll 4
-        for (int l = 0; l < kmax; ++l) {
-          const float4 z4 =
-              *reinterpret_cast<const float4*>(zs + l * CV_UNITS + ub);
-          const float4 l4 =
-              *reinterpret_cast<const float4*>(ls + l * CV_JT + jb);
-          const float zu[4] = {z4.x, z4.y, z4.z, z4.w};
-          const float lj[4] = {l4.x, l4.y, l4.z, l4.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              acc[u][jj] = fmaf(lj[jj], zu[u], acc[u][jj]);
-            }
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int j = j0 + jb + jj;
-          if (j >= 0) {
-            const float drift = __ldg(par + j), vol = __ldg(par + a + j);
-            const float d = __ldg(par + 2 * a + j);
-            const float s0 = __ldg(par + 3 * a + j);
-            float t[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              t[u] = s0 * expf(drift + vol * (acc[u][jj] + d));
-            }
-            *reinterpret_cast<float4*>(ts + (jb + jj) * CV_UNITS + ub) =
-                make_float4(t[0], t[1], t[2], t[3]);
-            if (ANTI) {
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                t[u] = s0 * expf(drift + vol * (d - acc[u][jj]));
-              }
-              *reinterpret_cast<float4*>(tms + (jb + jj) * CV_UNITS + ub) =
-                  make_float4(t[0], t[1], t[2], t[3]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-      // The fold reads the terms after the barrier; the next j-tile writes
-      // them (and the next chunk its normals) only after its own first
-      // barrier, which each summing thread reaches after its fold.
-      if (tid < nu) {
-        for (int jj = max(0, -j0); jj < CV_JT; ++jj) {
-          const float w = __ldg(par + 4 * a + j0 + jj);
-          basket = fmaf(ts[jj * CV_UNITS + tid], w, basket);
-          if (ANTI) basket_m = fmaf(tms[jj * CV_UNITS + tid], w, basket_m);
-        }
-      }
-    }
-    if (tid < nu) {
-      float p = fmaxf(basket - k, 0.0f), cv = basket;
-      if (ANTI) {
-        p = 0.5f * (p + fmaxf(basket_m - k, 0.0f));
-        cv = 0.5f * (cv + basket_m);
-      }
-      add_moments(p, cv, p0, m, v);
-    }
-  }
-  mct::block_row<CV_THREADS, N_SUMS>(
+        add_moments(p, cv, p0, m, v);
+      });
+  mct::block_row<mct::TILED_THREADS, N_SUMS>(
       v, sh, scratch + static_cast<size_t>(blockIdx.x) * N_SUMS);
 }
 
@@ -631,9 +516,7 @@ extern "C" int mctpu_basket_cv_packed(const float* lt, const float* par,
   if (width == mct::LANES) {
     const Fn fn = antithetic ? &basket_cv_tiled_kernel<true>
                              : &basket_cv_tiled_kernel<false>;
-    const size_t smem =
-        (static_cast<size_t>(n_assets) * (CV_UNITS + CV_JT) +
-         (antithetic ? 2 : 1) * CV_JT * CV_UNITS) * sizeof(float);
+    const size_t smem = mct::tiled_smem_bytes(n_assets, antithetic != 0);
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -645,8 +528,9 @@ extern "C" int mctpu_basket_cv_packed(const float* lt, const float* par,
       }
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    fn<<<items, CV_THREADS, smem, s>>>(lt, par, scal, n_assets, a_tile,
-                                       chunk, sd, of, rows, iters, scratch);
+    fn<<<items, mct::TILED_THREADS, smem, s>>>(lt, par, scal, n_assets,
+                                               a_tile, chunk, sd, of, rows,
+                                               iters, scratch);
   } else {
     const PathFn fn = antithetic ? &basket_cv_path_kernel<true>
                                  : &basket_cv_path_kernel<false>;

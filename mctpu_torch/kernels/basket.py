@@ -227,12 +227,14 @@ def _check(ops: Operands):
 
 def launch(prefix: str, scal: torch.Tensor, lt: torch.Tensor,
            par: torch.Tensor, n_sums: int, seed: int, block_offset: int,
-           plan: Plan, n_blocks: int):
+           plan: Plan, n_blocks: int, scratch_cap: int = 0):
     """Launch the asset-major or packed kernel ``mctpu_{prefix}_am`` /
     ``_packed`` (K2/K3 with ``scal = [k]``, K47/K48 with ``scal = [k, p0,
-    m]``; K48 with its scratch of (block, iteration) rows) on checked
-    operands; returns ``(kernel name, (n_blocks, n_sums) partials)``.
-    Raises on a failed launch."""
+    m]``) on checked operands; returns ``(kernel name, (n_blocks, n_sums)
+    partials)``.  K3 and K48 take a scratch, allocated here on the current
+    stream: K48's (block, iteration) rows, K3's unit payoffs, in groups of
+    at most ``scratch_cap`` floats (0: 256 MB; the outputs do not depend on
+    it).  Raises on a failed launch."""
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
     a = lt.shape[0]
@@ -252,31 +254,43 @@ def launch(prefix: str, scal: torch.Tensor, lt: torch.Tensor,
             name = f"{prefix}_packed"
             a_tile, _, width = pack_factor(a)
             if prefix == "basket_cv":
-                scratch = torch.empty(
-                    lib.mctpu_basket_cv_packed_scratch_floats(n_blocks,
-                                                              plan.iters),
-                    dtype=torch.float32, device=lt.device)
-                common = common[:-2] + (scratch.data_ptr(),) + common[-2:]
+                n_scratch = lib.mctpu_basket_cv_packed_scratch_floats(
+                    n_blocks, plan.iters)
+                extra = ()
+            else:
+                n_scratch = lib.mctpu_basket_packed_scratch_floats(
+                    a_tile, width, n_blocks, plan.rows, plan.iters,
+                    scratch_cap)
+                extra = (scratch_cap,)
+            scratch = torch.empty(n_scratch, dtype=torch.float32,
+                                  device=lt.device)
+            common = (common[:-2] + extra + (scratch.data_ptr(),)
+                      + common[-2:])
             status = getattr(lib, f"mctpu_{name}")(*ptrs, a, a_tile, width,
                                                     *common)
     _build.check(status, name)
     return name, out
 
 
-def _cuda_partials(ops: Operands, seed, block_offset, plan, n_blocks):
+def _cuda_partials(ops: Operands, seed, block_offset, plan, n_blocks,
+                   scratch_cap):
     _check(ops)
     name, out = launch("basket", ops.k, ops.lt, ops.par, 2, seed,
-                       block_offset, plan, n_blocks)
+                       block_offset, plan, n_blocks, scratch_cap)
     LAUNCHES[name] += 1
     return out
 
 
 def partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
-             n_blocks: int) -> torch.Tensor:
+             n_blocks: int, scratch_cap: int = 0) -> torch.Tensor:
     """Per-block partials ``(n_blocks, 2)``: K2 or K3 for CUDA operands,
-    the plain version for CPU operands; any other device raises."""
+    the plain version for CPU operands; any other device raises.
+    ``scratch_cap``: K3's scratch in floats at most (0: 256 MB), past which
+    it splits and folds simulation blocks and iterations in groups; the
+    outputs do not depend on it."""
     if ops.device.type == "cuda":
-        return _cuda_partials(ops, seed, block_offset, plan, n_blocks)
+        return _cuda_partials(ops, seed, block_offset, plan, n_blocks,
+                              scratch_cap)
     if ops.device.type == "cpu":
         return plain_partials(ops, seed, block_offset, plan, n_blocks)
     raise ValueError(f"unsupported device {ops.device}")

@@ -9,6 +9,7 @@ matmul), libm ``exp``/``log`` within an ulp.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from mctpu import math as jmath
 from mctpu import rng as jrng
@@ -22,13 +23,24 @@ RTOL = 2e-5
 SEED = int(jrng.key_to_seed(jax.random.key(5)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The wide baskets' plain products beside other test workers: torch's
+    per-process thread pool oversubscribes the cores, so this module runs
+    torch on one thread and restores the setting after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _option(a):
     if a == 1:
         return jtypes.BasketOption(s=np.array([100.0]), v=np.array([0.2]),
                                    w=np.array([1.0]), corr=np.eye(1),
                                    d=np.zeros(1), k=100.0, r=0.048790, t=1.0)
-    if a == 100:
-        return jtypes.BasketOption.equicorrelated(100)
+    if a >= 100:
+        return jtypes.BasketOption.equicorrelated(a)
     return jtypes.BasketOption.default_reference(a)
 
 
@@ -44,7 +56,8 @@ def _plans(a, nb, rows, iters, antithetic):
 
 
 @pytest.mark.parametrize("a,nb,iters", [(1, 2, 2), (3, 2, 2), (10, 2, 2),
-                                        (100, 2, 1)])
+                                        (100, 2, 1), (100, 2, 2),
+                                        (129, 2, 1)])
 @pytest.mark.parametrize("antithetic", [False, True])
 def test_partials_match_interpret_mode(a, nb, iters, antithetic):
     opt = _option(a)

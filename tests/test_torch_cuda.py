@@ -128,6 +128,52 @@ def test_basket_kernel_matches_plain(dev, n_assets, antithetic):
                                                      nb))
 
 
+def _k3_setup(dev, a, antithetic, rows, kahan=True):
+    opt = BasketOption.equicorrelated(a)
+    ops = kbasket.operands(opt, cholesky_lower(opt.corr), dev)
+    plan = kbasket.make_plan(1, NB, rows, antithetic, kahan, n_assets=a)
+    plan = kbasket.make_plan(2 * NB * plan.paths_per_iter, NB, rows,
+                             antithetic, kahan, n_assets=a)
+    assert plan.iters == 2
+    return ops, plan
+
+
+@pytest.mark.parametrize("a", [10, 16, 100, 128, 200])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_basket_packed_split_kernel_matches_plain(dev, a, antithetic):
+    """K3 split per (block, iteration) and folded, at 72 rows and 2
+    iterations: its register-tiled product at width 128 (10 and 16 assets:
+    a_tile 16, chunks of 8 rows; 100 and 128: a_tile 128, chunks of 64 rows
+    and a short last chunk of 8, whose missing units the fold skips; 128:
+    j-tiles from asset 0) and the per-path code past it (200 assets, width
+    256: chunks of 47 rows, 94 units, and a short last one), against the
+    plain version, Kahan on plain and off antithetic."""
+    ops, plan = _k3_setup(dev, a, antithetic, 72, kahan=not antithetic)
+    _contract(lambda off, nb: kbasket.partials(ops, SEED, off, plan, nb),
+              lambda off, nb: kbasket.plain_partials(ops, SEED, off, plan,
+                                                     nb))
+
+
+@pytest.mark.parametrize("a", [16, 100, 200])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_basket_packed_grouped_scratch_matches_one_group(dev, a, antithetic):
+    """K3 under a forced small scratch cap: at 1 float every (block,
+    iteration) is split and folded on its own (12 groups, each fold
+    thread's Acc2 carried between them), at half the one-group scratch the
+    blocks go in groups with their iterations; both equal the one-group
+    launch bit for bit."""
+    ops, plan = _k3_setup(dev, a, antithetic, 72)
+    lib = _build.library()
+    a_tile, _, width = kbasket.pack_factor(a)
+    shape = (a_tile, width, NB, plan.rows, plan.iters)
+    whole = lib.mctpu_basket_packed_scratch_floats(*shape, 0)
+    assert lib.mctpu_basket_packed_scratch_floats(*shape, 1) < whole
+    want = kbasket.partials(ops, SEED, 0, plan, NB)
+    for cap in (1, whole // 2):
+        got = kbasket.partials(ops, SEED, 0, plan, NB, scratch_cap=cap)
+        assert torch.equal(got, want), cap
+
+
 _SPEC = CvaSpec(0.03, 0.6, VanillaOption(100., 100., 0.05, 0.2, 1.), 10)
 _CVA_CASES = {
     "single": (CvaPortfolioSpec.from_single(_SPEC), True, False, False),
@@ -1075,7 +1121,29 @@ def test_multi_walk_packed_greek_kernel_matches_plain(dev, case):
     assert bool((pad == 0).all())
 
 
-@pytest.mark.parametrize("a", [9, 16])
+@pytest.mark.parametrize("a", [9, 16, 17, 32])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_multi_walk_packed_greek_register_kernel_matches_plain(
+        dev, a, antithetic, kahan):
+    """K33's register kernel (a_tile 16 at 9 and 16 assets, 32 at 17 and
+    32) at 5 dates (the trailing half pair) against its plain version, by
+    the scaled pair bound; its padded lanes exactly 0."""
+    n_obs = 5
+    bk, chol, plan = _mw_setup(dev, a, n_obs, antithetic, kahan)
+    ops = tuple(x.to(dev) for x in kmw.packed_greek_ops(bk, chol, n_obs))
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kmw.am_greek_partials(
+            *ops, SEED, off, plan, nb, n_obs)),
+        lambda off, nb: _mw_greek_pairs(kmw.packed_greek_plain_partials(
+            *ops, SEED, off, plan, nb, n_obs)),
+        units=plan.iters * plan.units_per_iter)
+    _, vec = kmw.am_greek_partials(*ops, SEED, 0, plan, NB, n_obs)
+    a_tile = kmw.pack_factor(a)[0]
+    assert bool((vec.view(NB, 4, -1, a_tile)[..., a:] == 0).all())
+
+
+@pytest.mark.parametrize("a", [9, 16, 17, 32])
 @pytest.mark.parametrize("antithetic", [False, True])
 def test_multi_walk_packed_greek_price_equals_pricer(dev, a, antithetic):
     """K33's price sums equal K31's bit for bit at n_obs = 16 (acc * (1/n)

@@ -40,6 +40,17 @@ KEY = jax.random.key(37)
 SEED = int(jrng.key_to_seed(KEY))
 NB, ROWS = 2, 8
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The wide baskets' plain walks beside other test workers: torch's
+    per-process thread pool oversubscribes the cores, so this module runs
+    torch on one thread and restores the setting after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 CASES = {
     # name: (assets, barrier kernel, n_obs, up, barrier, antithetic, kahan,
     #        iters)
@@ -241,6 +252,10 @@ PACKED = {
     "K33_a9_n3": (9, 3, False, True, 1),
     "K33_a16_n4_antithetic_f32_2iters": (16, 4, True, False, 2),
     "K33_a16_n3_antithetic": (16, 3, True, True, 1),
+    # a_tile 32 (the register kernel's second instance) and past it.
+    "K33_a17_n3": (17, 3, False, True, 1),
+    "K33_a32_n2_antithetic": (32, 2, True, True, 1),
+    "K33_a33_n2": (33, 2, False, True, 1),
 }
 
 

@@ -20,7 +20,8 @@ default ``EngineConfig``), after one warm-up call:
   call's net kernel and its chunk carry; the
   runtime-m xVA's, the CVA's and the CVA Greeks' slice kernels and their
   folds; the netting-set CVA's and the xVA's split kernel and its fold at
-  m <= 8; the packed basket Greeks' split kernel and its fold; the
+  m <= 8; the packed basket price's and the packed basket Greeks' split
+  kernels and their folds; the
   barrier walk's and the 3-asset basket walks' split kernel and its fold
   (K12, K30); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
@@ -176,7 +177,8 @@ def calls(mt):
          lambda: mt.price_vanilla(van, 1 << 28, SEED)),
         ("price_basket a=3, 2^24", "basket_am_kernel",
          lambda: mt.price_basket(b3, n24, SEED)),
-        ("price_basket a=100, 2^22", "basket_packed_kernel",
+        ("price_basket a=100, 2^22",
+         ("basket_tiled_kernel", "basket_fold_kernel"),
          lambda: mt.price_basket(b100, n22, SEED)),
         ("price_cva n_grid=50, 2^20",
          ("cva_slice_kernel", "cva_fold_kernel"),
@@ -257,7 +259,7 @@ def calls(mt):
         ("greeks_basket_barrier a=3, n_obs=50, 2^23",
          "mw_bar_greeks_am_kernel", lambda: mt.greeks(gb3, 1 << 23, SEED)),
         ("greeks_basket_asian a=16, n_obs=12, 2^22",
-         "mw_greeks_packed_kernel", lambda: mt.greeks(ga16, n22, SEED)),
+         "mw_greeks_reg_kernel", lambda: mt.greeks(ga16, n22, SEED)),
         ("price_rainbow max of 3, 2^24", "rainbow_am_kernel",
          lambda: mt.price_rainbow(rb3, n24, SEED)),
         ("price_rainbow max of 16, 2^22", "rainbow_packed_kernel",

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the redesigned kernels -- K30 (the asset-major basket walk), K12
 (the barrier walk), K8 (the packed basket Greeks), K43 (the
-netting-set xVA), K48 (the packed basket control variate), K39 (the
+netting-set xVA), K48 (the packed basket control variate), K3 (the
+packed basket price), K33 (the packed basket-Asian Greeks), K39 (the
 packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
 (the CVA exposure walk), K5 (its Greeks), K31 (the packed multi-asset
-walk), K40 (the netting-set CVA) and K43's runtime-m xVA kernel, with K3
-beside K48 -- at ``chip_smoke.py``'s phase 6 shapes on one GPU, against
+walk), K40 (the netting-set CVA) and K43's runtime-m xVA kernel -- at ``chip_smoke.py``'s phase 6 shapes on one GPU, against
 another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
@@ -36,7 +36,10 @@ funding spread 0.01) at 3 underlyings, plain and antithetic, and at 8,
 50 nodes, 2^20 paths; K48 on ``equicorrelated(100, 0.3)`` at 2^22 paths,
 its main run (512 x 16 x 256) and its pilot's plan (8 x 102 x 256),
 plain and antithetic, and the main run at 32 assets; K3 on
-``equicorrelated(100)`` at 2^22; K39 on the JAX exotic CLI's ``--product
+``equicorrelated(100)`` at 2^22, plain and antithetic, and on
+``equicorrelated(16)``; K33 on ``equicorrelated(16, 0.3)`` at 12 dates
+(the JAX Greeks CLI's ``--assets 16``) and 2^22 paths, plain and
+antithetic, and at 32 assets; K39 on the JAX exotic CLI's ``--product
 cva-multi`` set at ``--assets 16``, plain and antithetic, and at 32, 50
 nodes, 2^20 paths; K35 on ``equicorrelated(16, 0.3)``, up-and-out at H =
 130, 50 dates, 2^22 paths, plain and antithetic, and at 32 (2^22) and
@@ -56,7 +59,8 @@ first launch; the host's time in the call, its launches enqueued, is
 printed beside it). K30's and K12's (their block sums), K8's (its six sums
 and (6, width) slot vectors), K43's
 (its eight sums and both profiles), K48's (its five moment sums), K3's,
-K39's, K35's, K31's and K40's outputs (K39's and K40's sums and EE
+K33's (its four sums and (4, width) lane rows), K39's, K35's, K31's and
+K40's outputs (K39's and K40's sums and EE
 profile) must equal the other checkout's bit for bit (same walk, passes
 and order of sums); each such case prints the comparison and the tool
 exits 1 if one differs. Prints the card's name and power limit, one line
@@ -240,10 +244,21 @@ def cases(v: SimpleNamespace):
                     f"{' antithetic' if anti else ''}",
                     lambda s=cvs, o=ops, p=plan: s.partials(
                         o, SEED, 0, p, p.num_blocks), True))
-    bk = t.BasketOption.equicorrelated(100)
-    plan, ops = engine.basket_setup(bk, 1 << 22, cfg)
-    out.append(("K3 a=100 2^22", lambda o=ops, p=plan: v.kbasket.partials(
-        o, SEED, 0, p, p.num_blocks), True))
+    for a, anti in ((100, False), (100, True), (16, False)):
+        plan, ops = engine.basket_setup(
+            t.BasketOption.equicorrelated(a), 1 << 22,
+            dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K3 a={a} 2^22{' antithetic' if anti else ''}",
+                    lambda o=ops, p=plan: v.kbasket.partials(
+                        o, SEED, 0, p, p.num_blocks), True))
+    for a, anti in ((16, False), (16, True), (32, False)):
+        opt = t.BasketAsianOption(t.BasketOption.equicorrelated(a, 0.3),
+                                  n_obs=12)
+        plan, ops = engine.greeks_basket_asian_setup(
+            opt, 1 << 22, dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K33 a={a} 12 dates 2^22{' antithetic' if anti else ''}",
+                    lambda o=ops, p=plan: kmw.am_greek_partials(
+                        *o, SEED, 0, p, p.num_blocks, 12), True))
     for m, anti in ((16, False), (16, True), (32, False)):
         plan, ops = engine.price_cva_multi_setup(
             netting_set(t, m, 50), 1 << 20,
