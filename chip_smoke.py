@@ -22,9 +22,10 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
    3 and 8 assets and the packed walk and its Greeks at 9, 16, 17, 32 and
    100, at 13 dates; the split walks K12 and K30 (a = 3, the Asian and
-   the knock-out) at 50 dates on the MLMC 8 x 8 plan with 32 iterations,
-   plain and antithetic, and with their scratch capped at 1 float and at
-   half the one-group size, bit-equal to the one-group launch; the
+   the knock-out) at 50 dates and K29 at level 4 on the MLMC 8 x 8 plan
+   with 32 iterations, plain and antithetic, and with their scratch capped
+   at 1 float and at half the one-group size, bit-equal to the one-group
+   launch; the
    rainbow and its Greeks at 1, 3 and 8 assets and the packed
    rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
@@ -32,7 +33,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    packed netting set's register instances also at rows 35 and 69, a
    pass with lanes past the rows); the xVA and
    its Greeks at 1, 2, 3 and 8 and the runtime-m kernels at 9, 16, 17 and
-   100 and forced at 3 against the M = 3 kernels; the control variates K45-K48
+   100 and forced at 3 against the M = 3 kernels, K44 also at 4-7, with
+   its scratch capped (bit-equal to one group) and its runtime-m kernel at
+   13 rows (a short last slice); the control variates K45-K48
    at the vanilla call at and deep in the money, the Asian at 13 and 50
    dates, baskets of 1, 3 and 8 and packed of 9, 16, 17, 32 and 100
    assets, K48 also on the pilot's plan of the 100-asset call (8 blocks x
@@ -3269,14 +3272,19 @@ def main() -> int:
              pl.num_blocks, pl.rows, pl.iters, cap))
         for product, sc in (("asian", kmw.scalars(b3).to(dev)),
                             ("barrier", kmw.scalars(b3, 130.0).to(dev))))
-    for label, a, fn, plain, floats in split_cases:
+    def split_contract(label, fn, plain, floats, pairs=False):
+        """A split walk on the MLMC 8 x 32 x 8 plan, plain and antithetic,
+        against its plain version (by the scaled pair bound with
+        ``pairs``), and at nb x 3 x 13 with its scratch capped at 1 float
+        and at half the one-group scratch, bit-equal to one group."""
         for anti in (False, True):
             plan = kbarrier.make_plan(8 * 32 * 8 * 128 * (2 if anti else 1),
                                       8, 8, anti)
             contract(f"{label} MLMC plan 8 x 32 x 8"
                      f"{' antithetic' if anti else ''}",
                      lambda off, n: fn(off, n, plan),
-                     lambda off, n: plain(off, n, plan), blocks=8)
+                     lambda off, n: plain(off, n, plan), blocks=8,
+                     units=units(plan) if pairs else None)
         plan = kbarrier.make_plan(nb * 3 * 13 * 128, nb, 13, False)
         want = fn(0, nb, plan)
         whole = floats(plan, 0)
@@ -3287,6 +3295,9 @@ def main() -> int:
         phase("kernel-vs-plain", f"{label} split: scratch capped at 1 and "
                                  f"{whole // 2} floats ({nb} x 3 x 13) "
                                  "bit-equal to one group")
+
+    for label, _, fn, plain, floats in split_cases:
+        split_contract(label, fn, plain, floats)
 
     # The lookback in every mode (fixed strikes off the atom at s0) and the
     # cliquet, at the same odd step count.
@@ -3457,11 +3468,22 @@ def main() -> int:
                  units=units(plan))
 
     # The MLMC level kernels at levels 1 and 4: K29 on the reference option
-    # (the JAX exotic CLI's --product mlmc) with n0 = 8 (16 and 128 fine steps), K11 with n0 = 4 (8
-    # and 64 dates) under both averages, K14 with n0 = 8 (16 and 128 dates)
-    # up-and-out at H = 130 and down-and-out at H = 80; antithetic and Kahan
-    # each on and off.  d is a payoff difference, so its block sums are held
-    # by the scaled pair bound.
+    # (the JAX exotic CLI's --product mlmc) with n0 = 8 (16 and 128 fine
+    # steps), K11 with n0 = 4 (8 and 64 dates) under both averages, K14 with
+    # n0 = 8 (16 and 128 dates) up-and-out at H = 130 and down-and-out at H
+    # = 80; antithetic and Kahan each on and off.  d is a payoff difference,
+    # so its block sums are held by the scaled pair bound.  K29 is a split
+    # walk (as K12): also at level 4 on the MLMC 8 x 32 x 8 plan and with
+    # its scratch capped, bit-equal to one group.
+    hlp4 = kheston.level_params(h_opt, 128, dev)
+    split_contract(
+        "K29 level 4 (128 steps)",
+        lambda off, n, pl, cap=0: kheston.level_partials(
+            hlp4, SEED, off, pl, n, 128, scratch_cap=cap),
+        lambda off, n, pl: kheston.level_plain_partials(hlp4, SEED, off, pl,
+                                                        n, 128),
+        lambda pl, cap: _build.library().mctpu_heston_level_scratch_floats(
+            pl.num_blocks, pl.rows, pl.iters, cap), pairs=True)
     for lv, anti, kahan in ((1, False, True), (4, True, False),
                             (4, False, True)):
         plan = kheston.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
@@ -3703,12 +3725,36 @@ def main() -> int:
                  lambda off, n: kcm.partials(cops, SEED, off, plan, n),
                  lambda off, n: kcm.plain_partials(cops, SEED, off, plan, n))
 
+    def k44_contract(tag, xgops, plan, m, anti, wide=None):
+        """K44 against its plain version, and with its scratch capped at 1
+        float (every (block, iteration) its own group, the fold's carry
+        between them) and at half its one-group scratch, bit-equal to one
+        group."""
+        contract(f"K44 {tag}",
+                 lambda off, n: mw_pairs(kcm.xva_greek_partials(
+                     xgops, SEED, off, plan, n, wide=wide)),
+                 lambda off, n: mw_pairs(kcm.xva_greek_plain_partials(
+                     xgops, SEED, off, plan, n)), units=units(plan))
+        want = kcm.xva_greek_partials(xgops, SEED, 0, plan, nb, wide=wide)
+        whole = _build.library().mctpu_xva_scratch_floats(
+            m, xgops.n_grid, 1, int(bool(wide) or m > 8), nb, plan.rows,
+            plan.iters, int(anti), 0)
+        for cap in (1, whole // 2):
+            got = kcm.xva_greek_partials(xgops, SEED, 0, plan, nb, wide=wide,
+                                         scratch_cap=cap)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"K44 {tag}: scratch capped at {cap} floats differs")
+        phase("kernel-vs-plain", f"K44 {tag}: scratch capped at 1 and "
+                                 f"{whole // 2} floats bit-equal to one "
+                                 "group")
+
     # The bilateral xVA: K43 and K44 at 1, 2 (mixed), 3 and 8 (mixed), their
-    # runtime-m kernels at 9 (mixed), 16, 17 (mixed) and 100 (mixed: K43's
-    # register tiles 16 and 32 at their edges, then its scratch state) and
+    # runtime-m kernels at 9 (mixed), 16, 17 (mixed) and 100 (mixed: the
+    # register tiles 16 and 32 at their edges, then the scratch state) and
     # forced at 3 (mixed), 13 nodes, antithetic and Kahan rotated; the
-    # profiles at RTOL; at own_intensity = 0 and funding_spread = 0 K43's
-    # CVA sums and EPE profile equal K40's bit for bit.
+    # profiles at RTOL; K44 also with its scratch capped; at own_intensity
+    # = 0 and funding_spread = 0 K43's CVA sums and EPE profile equal K40's
+    # bit for bit.
     for ka, (m, mixed, wide) in enumerate(((1, False, None), (2, True, None),
                                            (3, False, None), (8, True, None),
                                            (9, True, None), (16, False, None),
@@ -3730,11 +3776,7 @@ def main() -> int:
                                                  wide=wide),
                  lambda off, n: kcm.xva_plain_partials(xops, SEED, off, plan,
                                                        n))
-        contract(f"K44 {tag}",
-                 lambda off, n: mw_pairs(kcm.xva_greek_partials(
-                     xgops, SEED, off, plan, n, wide=wide)),
-                 lambda off, n: mw_pairs(kcm.xva_greek_plain_partials(
-                     xgops, SEED, off, plan, n)), units=units(plan))
+        k44_contract(tag, xgops, plan, m, anti, wide)
         if wide:  # the runtime-m kernels against K43's and K44's M = 3
             for got, want in zip(kcm.xva_partials(xops, SEED, 0, plan, nb,
                                                   wide=True),
@@ -3754,6 +3796,37 @@ def main() -> int:
                   and torch.equal(zprof[:, 0], cprof),
                   f"K43 {tag}: the CVA sums or EPE profile at no own "
                   "default and no funding differ from K40's")
+
+    # K44's split at the other instances of its am kernel, 4 (512 threads)
+    # to 7 (256), mixed legs, 13 nodes, antithetic and Kahan rotated, with
+    # its scratch capped too.
+    for ka, m in enumerate((4, 5, 6, 7)):
+        anti, kahan = mw_variants[ka % 3]
+        xs = xva_spec(cva_multi_spec(m, 13, True))
+        xgops = kcm.xva_operands(xs, mcmath.cholesky_lower(xs.netting.corr),
+                                 dev, greeks=True)
+        plan = kcm.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
+                             nb, rows, anti, kahan, n_underlyings=1)
+        k44_contract(f"m={m} mixed{' antithetic' if anti else ''}"
+                     f"{'' if kahan else ' f32'}", xgops, plan, m, anti)
+
+    # K44's runtime-m kernel at 13 rows, so that each block's last slice
+    # holds 5 rows (its last pass with half its warps idle), against the
+    # plain version: at 9 and 17 (the register tiles 16 and 32) and at 100
+    # (the state in scratch), 7 nodes, mixed legs.
+    for m, anti, kahan in ((9, False, True), (17, True, False),
+                           (100, False, True)):
+        xs = xva_spec(cva_multi_spec(m, 7, True))
+        xgops = kcm.xva_operands(xs, mcmath.cholesky_lower(xs.netting.corr),
+                                 dev, greeks=True)
+        plan = kcm.make_plan(nb * iters * 13 * 128 * (2 if anti else 1), nb,
+                             13, anti, kahan, n_underlyings=1)
+        contract(f"K44 m={m} mixed runtime-m rows=13"
+                 f"{' antithetic' if anti else ''}{'' if kahan else ' f32'}",
+                 lambda off, n: mw_pairs(kcm.xva_greek_partials(
+                     xgops, SEED, off, plan, n)),
+                 lambda off, n: mw_pairs(kcm.xva_greek_plain_partials(
+                     xgops, SEED, off, plan, n)), units=units(plan))
 
     # The control variates (K45-K48) at the a-priori float32 centers,
     # antithetic and Kahan each on and off: K45 at and deep in the money

@@ -98,12 +98,12 @@ _SIGNATURES = {
     # n_grid, n_blocks, rows, iters -> float count of K5's scratch (its
     # slices' sums)
     "mctpu_cva_greeks_scratch_floats": (_I, _I, _I, _I),
-    # The single-asset walks (K9-K20, K27-K29, K46): scal, n_obs (the
-    # cliquet's n_periods, the Heston walk's n_steps, an MLMC level's fine
-    # step count), seed, off, n_blocks, rows, iters, antithetic, kahan, mode
-    # (geometric Asian, up-and-out barrier, 2 * fixed + put for the
+    # The single-asset walks (K9-K20 but K12, K27, K28, K46): scal, n_obs
+    # (the cliquet's n_periods, the Heston walk's n_steps, an MLMC level's
+    # fine step count), seed, off, n_blocks, rows, iters, antithetic, kahan,
+    # mode (geometric Asian, up-and-out barrier, 2 * fixed + put for the
     # lookback, the QE scheme, the variance swap's Heston leg; 0 for the
-    # cliquet, K29 and K46), out, stream
+    # cliquet and K46), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_asian_greeks",
                     "mctpu_barrier_greeks", "mctpu_lookback",
@@ -111,15 +111,20 @@ _SIGNATURES = {
                     "mctpu_cliquet_greeks", "mctpu_varswap",
                     "mctpu_varswap_greeks", "mctpu_heston",
                     "mctpu_heston_greeks", "mctpu_asian_cv",
-                    "mctpu_heston_level", "mctpu_asian_level",
+                    "mctpu_asian_level",
                     "mctpu_barrier_level")},
     # K12, the split barrier walk: par, n_obs, seed, off, n_blocks, rows,
     # iters, antithetic, kahan, up, scratch cap in floats, scratch, out,
     # stream
     "mctpu_barrier": (_P,) + (_I,) * 10 + (_P, _P, _P),
+    # K29, the split Heston level walk: scal, n_fine, seed, off, n_blocks,
+    # rows, iters, antithetic, kahan, scratch cap in floats, scratch, out,
+    # stream
+    "mctpu_heston_level": (_P,) + (_I,) * 9 + (_P, _P, _P),
     # n_blocks, rows, iters, cap -> float count of K12's scratch (its
-    # groups' payoffs and fold carry); K30's likewise
+    # groups' payoffs and fold carry); K29's and K30's likewise
     **{name: (_I,) * 4 for name in ("mctpu_barrier_scratch_floats",
+                                     "mctpu_heston_level_scratch_floats",
                                      "mctpu_multi_walk_am_scratch_floats")},
     # The strike ladder (K21, K22): par, strikes, n_strikes, seed, off,
     # n_blocks, rows, iters, antithetic, put, kahan, out, stream
@@ -172,12 +177,12 @@ _SIGNATURES = {
     "mctpu_cva_multi_am_scratch_floats": (_I,) * 7,
     # The xVA (K43, K44 and their runtime-m kernels): scal, lt, par, nodes,
     # n_under, n_grid, wide, seed, off, n_blocks, rows, iters, antithetic,
-    # kahan, [K43: scratch cap in floats,] scratch, out, [K43: prof,] stream
+    # kahan, scratch cap in floats, scratch, out, [K43: prof,] stream
     "mctpu_xva": (_P,) * 4 + (_I,) * 11 + (_P,) * 4,
-    "mctpu_xva_greeks": (_P,) * 4 + (_I,) * 10 + (_P,) * 3,
+    "mctpu_xva_greeks": (_P,) * 4 + (_I,) * 11 + (_P,) * 3,
     # n_under, n_grid, greeks, wide, n_blocks, rows, iters, antithetic, cap
-    # -> float count of a launch's scratch (K43: its groups' split items and
-    # fold carry)
+    # -> float count of a launch's scratch (its groups' split items and fold
+    # carry; the runtime-m kernels' slice rows and state)
     "mctpu_xva_scratch_floats": (_I,) * 9,
     # The control variates (K45, K47, K48; K46 takes the single-asset
     # walks' signature above): K45 par, seed, off, n_blocks, rows, iters,

@@ -308,13 +308,13 @@ struct BlockAccN {
   }
 };
 
-// The split walks (K4, K43's runtime-m kernel) cut a simulation block's
-// rows into slices, one CUDA block per (block, slice) item.  A slice writes
-// per iteration its N per-thread sums reduced over the block (block_row)
-// into scratch [B][iters][S][N], and at the end its profile row into
-// [B][S][gp] after them; slice_fold adds the slices in order.  The order
-// depends on the plan alone, so two launches and any block offset give the
-// same bits.
+// The split walks (K4, K5, K43's and K44's runtime-m kernels) cut a
+// simulation block's rows into slices, one CUDA block per (block, slice)
+// item.  A slice writes per iteration its N per-thread sums reduced over
+// the block (block_row) into scratch [B][iters][S][N], and at the end its
+// profile row into [B][S][gp] after them; slice_fold adds the slices in
+// order.  The order depends on the plan alone, so two launches and any
+// block offset give the same bits.
 
 // The N per-thread sums v reduced over the block (BlockAccN's tree and warp
 // order, no carry) into dst; v is zeroed.  sh: WARPS * N floats.
@@ -343,48 +343,80 @@ __device__ __forceinline__ void block_row(float (&v)[N], float* sh,
   __syncthreads();
 }
 
-// Item idx of a fold over n_blocks * (N + gp) items: for k < N, block b's
+// The fold's carry between groups of iterations (a split kernel whose
+// scratch is grouped, K44's runtime-m): carry holds (s, c) of each (block,
+// sum) of the group's blocks; the first group starts from zero, the last
+// writes out.  No carry: one group.
+struct FoldCarry {
+  float* carry;
+  int first, last;
+};
+
+// Item idx of a fold over n_blocks * (n + gp) items: for k < n, block b's
 // sum k, per iteration its slices added in order and carried over the
-// iterations (Kahan under KAHAN, as BlockAccN carries) into out (B, N);
-// past N, node k - N of its profile, the slices' rows added in order, into
+// iterations (Kahan under KAHAN, as BlockAccN carries) into out (B, n);
+// past n, node k - n of its profile, the slices' rows added in order, into
 // prof_out (B, gp).
-template <int N, bool KAHAN>
-__device__ __forceinline__ void slice_fold(const float* __restrict__ scratch,
-                                           int n_blocks, int iters,
-                                           int slices, int gp, int idx,
-                                           float* __restrict__ out,
-                                           float* __restrict__ prof_out) {
-  const int items = n_blocks * slices, per = N + gp;
+template <bool KAHAN>
+__device__ __forceinline__ void slice_fold_n(
+    const float* __restrict__ scratch, int n_blocks, int iters, int slices,
+    int n, int gp, int idx, float* __restrict__ out,
+    float* __restrict__ prof_out, const FoldCarry& fc = FoldCarry{nullptr, 1,
+                                                                    1}) {
+  const int items = n_blocks * slices, per = n + gp;
   const float* sums = scratch;
-  const float* sprof = sums + static_cast<size_t>(items) * iters * N;
+  const float* sprof = sums + static_cast<size_t>(items) * iters * n;
   if (idx >= n_blocks * per) return;
   const int b = idx / per, k = idx - b * per;
-  if (k < N) {
+  if (k < n) {
     float s = 0.0f, c = 0.0f;
+    float* cs = fc.carry == nullptr
+                    ? nullptr
+                    : fc.carry + 2 * (static_cast<size_t>(b) * n + k);
+    if (!fc.first) {
+      s = cs[0];
+      c = cs[1];
+    }
     for (int i = 0; i < iters; ++i) {
       const float* row =
-          sums + (static_cast<size_t>(b) * iters + i) * slices * N + k;
+          sums + (static_cast<size_t>(b) * iters + i) * slices * n + k;
       float t = row[0];
-      for (int sl = 1; sl < slices; ++sl) t = __fadd_rn(t, row[sl * N]);
+      for (int sl = 1; sl < slices; ++sl) t = __fadd_rn(t, row[sl * n]);
       if (KAHAN) {
         kahan_add(s, c, t);
       } else {
         s = __fadd_rn(s, t);
       }
     }
-    out[static_cast<size_t>(b) * N + k] = __fadd_rn(s, c);
+    if (fc.last) {
+      out[static_cast<size_t>(b) * n + k] = __fadd_rn(s, c);
+    } else {
+      cs[0] = s;
+      cs[1] = c;
+    }
   } else {
-    const float* col = sprof + static_cast<size_t>(b) * slices * gp + (k - N);
+    const float* col = sprof + static_cast<size_t>(b) * slices * gp + (k - n);
     float total = 0.0f;
     for (int sl = 0; sl < slices; ++sl) {
       total = __fadd_rn(total, col[static_cast<size_t>(sl) * gp]);
     }
-    prof_out[static_cast<size_t>(b) * gp + (k - N)] = total;
+    prof_out[static_cast<size_t>(b) * gp + (k - n)] = total;
   }
 }
 
+// slice_fold_n at a compile-time count of sums N, in one group.
+template <int N, bool KAHAN>
+__device__ __forceinline__ void slice_fold(const float* __restrict__ scratch,
+                                           int n_blocks, int iters,
+                                           int slices, int gp, int idx,
+                                           float* __restrict__ out,
+                                           float* __restrict__ prof_out) {
+  slice_fold_n<KAHAN>(scratch, n_blocks, iters, slices, N, gp, idx, out,
+                      prof_out);
+}
+
 // The split kernels that keep per-(block, iteration) rows in scratch until
-// an ordered fold (K40, K43, K8) bound it by a cap in floats: simulation
+// an ordered fold (K40, K43, K44, K8) bound it by a cap in floats: simulation
 // blocks go in groups of `blocks`, each block taking `carry` floats (the
 // fold's carry between groups) and `per_item` a (block, iteration) item;
 // where one block with all its iterations exceeds the cap, one block goes
@@ -416,7 +448,7 @@ inline ScratchGroups scratch_groups(int n_blocks, int iters, size_t carry,
   return G;
 }
 
-// The split walks (K12, K30): walk_split_kernel runs one thread per path
+// The split walks (K12, K29, K30): walk_split_kernel runs one thread per path
 // element of every (simulation block, iteration) item on the unsplit
 // kernel's key and counters and writes the element's payoff (the antithetic
 // pair's mean under ANTI) to scratch [block][iteration][rows * 128];

@@ -63,26 +63,28 @@
 // one CUDA block per simulation block (layout_for gives 32 at 2^20 paths,
 // so most of the 132 SMs idle, as with K4).  Asset-major: one thread per
 // path element striding over the tile, the walk state in registers (K44 at
-// m = 8: 8 log-spots, 8 tangents, 16 accumulators, 7 legs and 46 sums), L
+// m = 8: 8 log-spots, 8 tangents, 16 accumulators and 7 legs), L
 // and the per-leg rows in shared memory, the node tables read through the
-// read-only cache (every thread of a warp on the same node).  K40 and K43
-// are split: one warp per 32 elements that a warp of the unsplit kernel
-// walked in one pass (32768 warp items at 2^20 paths instead of 512 warps
-// on 32 SMs), each writing its paths' payload (K40: cva; K43: four legs)
-// and its warp's node sums (K40: ee; K43: epe and ene) to scratch, then a
-// fold, one CUDA block per simulation block, that replays the unsplit
-// kernel's per-thread sums, BlockAccN and profile Kahan chains in their
-// order from scratch, so that their bits, and the K42 / K43 gates against
-// K40, stay as they were ("K40, K43 split, then folded" below; one split
-// kernel and one fold over the payload).  The scratch (the payload a tile
-// element, signs x rows warp sums for each 32) is capped at 256 MB: past
-// that the blocks and iterations are split and folded in groups, the
-// fold's carry kept in scratch between them.
-// Runtime m: K44's the same per thread, its state in global scratch; K43's
-// split over more CUDA blocks than simulation blocks (slices of rows, then
-// an ordered fold; see xva_slice_kernel), its state in registers up to 32
-// underlyings.  Packed: K31's passes (packed.cuh), the log-spots and a
-// pair of nodes' normals in shared memory, one thread per packed path (at
+// read-only cache (every thread of a warp on the same node).  K40, K43
+// and K44 are split: one warp per 32 elements that a warp of the unsplit
+// kernel walked in one pass (32768 warp items at 2^20 paths instead of 512
+// warps on 32 SMs), each writing its paths' payload (K40: cva; K43: four
+// legs; K44: its 7 + 2M Greek outputs) and its warp's node sums (K40: ee;
+// K43: epe and ene; K44: none) to scratch, then a fold, one CUDA block per
+// simulation block, that replays the unsplit kernel's per-thread sums,
+// BlockAccN and profile Kahan chains in their order from scratch, so that
+// their bits, and the K42 / K43 gates against K40, stay as they were
+// ("K40, K43 split, then folded" below; one split kernel and one fold over
+// the payload).  The scratch (the payload a tile element, signs x rows
+// warp sums for each 32) is capped at 256 MB: past that the blocks and
+// iterations are split and folded in groups, the fold's carry kept in
+// scratch between them.
+// Runtime m: K43's and K44's split over more CUDA blocks than simulation
+// blocks (slices of rows, then an ordered fold; see xva_slice_kernel and
+// xva_greek_slice_kernel), their walk state in registers up to 32
+// underlyings (K44's integrands and carries in shared memory).  Packed:
+// K31's passes (packed.cuh), the log-spots and a pair of nodes' normals in
+// shared memory, one thread per packed path (at
 // a_tile 16 and 32 K39 keeps them in the path's thread's registers, K31's
 // design); K41 adds K33's lane carries and its halving tree over the rows.
 #include <algorithm>
@@ -279,6 +281,11 @@ __device__ __forceinline__ float am_node(const float (&z)[M], float sgn,
 // sums and EPE profile equal K40's where its CVA table is K40's.
 // Warp items a CUDA block: 8 (256 threads) ran 0-10% faster than 4 on an
 // H100 (tools/time_redesign.py, see PERF.md); the bits do not depend on it.
+// A payload Pay gives its values an element (np(M)), its profile rows a
+// node and sign (ROWS), its walk, and the fold's add of an element's values
+// to the per-thread sums (Add<M>): K40's and K43's add each value x as x
+// and x^2 into slots 2k and 2k + 1 (PairAdd), K44's in
+// mct::add_greek_sums' layout (GreekAdd).
 constexpr int AM_SPLIT_THREADS = 256;
 constexpr int AM_SPLIT_WARPS = AM_SPLIT_THREADS / 32;
 // Floats of scratch a launch aims at (256 MB): simulation blocks and
@@ -312,16 +319,31 @@ __device__ __forceinline__ float am_cva_walk(const float* lt, const float* par,
   return lgd * acc;
 }
 
+// Each of NP values x as x and x^2 into slots 2k and 2k + 1.
+template <int NP>
+struct PairAdd {
+  __device__ static void add(const float (&q)[NP], float (&v)[2 * NP]) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      v[2 * k] += q[k];
+      v[2 * k + 1] += q[k] * q[k];
+    }
+  }
+};
+
 // K40's split walk of element e: its cva (the antithetic pair's mean), one
 // profile row a node (ee).  scal: r, lgd.
 struct CvaPay {
-  static constexpr int NP = 1, ROWS = 1;
+  static constexpr int ROWS = 1;
+  __host__ __device__ static constexpr int np(int) { return 1; }
+  template <int M>
+  using Add = PairAdd<1>;
 
   template <int M, bool ANTI>
   __device__ static void walk(const float* lt, const float* par,
                               const float* nodes, const float* scal, int g,
                               mct::Key key, uint32_t e, float half_w,
-                              float* wrow, int lane, float (&q)[NP]) {
+                              float* wrow, int lane, float (&q)[1]) {
     const float r = scal[0], lgd = scal[1];
     float cva = am_cva_walk<M>(lt, par, nodes, r, lgd, g, key, e, 1.0f,
                                half_w, wrow, lane);
@@ -361,7 +383,7 @@ __global__ void __launch_bounds__(AM_SPLIT_THREADS)
   constexpr int THREADS = am_threads<M>();
   constexpr int WARPS = THREADS / 32;
   constexpr int SIGNS = ANTI ? 2 : 1;
-  constexpr int NP = Pay::NP;
+  constexpr int NP = Pay::np(M);
   __shared__ float lt[M * M], par[9 * M];
   stage<AM_SPLIT_THREADS>(lt, lt_g, M * M);
   stage<AM_SPLIT_THREADS>(par, par_g, 9 * M);
@@ -397,14 +419,15 @@ __global__ void __launch_bounds__(AM_SPLIT_THREADS)
 }
 
 // One CUDA block of THREADS threads per simulation block b0 + bl of a
-// group: thread t adds its elements' payload values x and x^2 over the
-// passes into v[2 NP] and BlockAccN reduces them once per iteration; thread
+// group: thread t adds its elements' payload values over the passes into
+// v[2 NP] (Add::add: x and x^2 into slots 2k and 2k + 1 for K40 and K43,
+// K44's layout for K44) and BlockAccN reduces them once per iteration; thread
 // (w, row) runs slot (w, row)'s Kahan chain over (iteration, pass, sign) in
 // profile_add's form.  The carry (BlockAccN's pairs, the slots) starts at
 // zero in the first group and is kept in scratch between groups; the last
 // group writes the block's row of out (2 NP sums) and, the warps in order,
 // its gp-row of prof.
-template <int THREADS, bool KAHAN, int NP>
+template <int THREADS, bool KAHAN, int NP, class Add>
 __global__ void __launch_bounds__(THREADS)
     am_fold_kernel(const float* __restrict__ split, float* __restrict__ carry,
                    Launch L, int gp, int b0, int ni, int signs, int first,
@@ -435,13 +458,13 @@ __global__ void __launch_bounds__(THREADS)
   for (int il = 0; il < ni; ++il) {
     const float* pay = items + il * per_item;
     for (int p = 0; p < my_passes; ++p) {
+      float q[NP];
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
-        const float x =
+        q[k] =
             pay[static_cast<size_t>(k) * n_elems + p * THREADS + threadIdx.x];
-        v[2 * k] += x;
-        v[2 * k + 1] += x * x;
       }
+      Add::add(q, v);
     }
     acc.add(v, nullptr, sh);
   }
@@ -563,18 +586,20 @@ __global__ void __launch_bounds__(am_threads<M>())
   acc.write(out);
 }
 
-// K40's or K43's groups in order, each its split and then its fold; out
-// takes 2 Pay::NP sums a block, prof Pay::ROWS profile rows.
+// K40's, K43's or K44's groups in order, each its split and then its fold;
+// out takes 2 Pay::np(M) sums a block, prof Pay::ROWS profile rows.
 template <int M, class Pay>
 int launch_am(bool anti, bool kahan, const float* scal, const float* lt,
               const float* par, const float* nodes, const Launch& L,
               int n_blocks, const AmSplit& X, float* scratch, float* out,
               float* prof, cudaStream_t s) {
   constexpr int THREADS = am_threads<M>();
+  constexpr int NP = Pay::np(M);
+  using Add = typename Pay::template Add<M>;
   const auto split = anti ? am_split_kernel<M, true, Pay>
                           : am_split_kernel<M, false, Pay>;
-  const auto fold = kahan ? am_fold_kernel<THREADS, true, Pay::NP>
-                          : am_fold_kernel<THREADS, false, Pay::NP>;
+  const auto fold = kahan ? am_fold_kernel<THREADS, true, NP, Add>
+                          : am_fold_kernel<THREADS, false, NP, Add>;
   float* carry = scratch;
   float* items = scratch + X.group_blocks * X.carry;
   for (int b0 = 0; b0 < n_blocks; b0 += X.group_blocks) {
@@ -1243,13 +1268,16 @@ __device__ __forceinline__ void xva_leg_sums(const float (&a)[4],
 // its CVA sums and EPE profile are K40's bit for bit.  scal: r, lgd,
 // own_lgd, sqrt(dt).
 struct XvaPay {
-  static constexpr int NP = 4, ROWS = 2;
+  static constexpr int ROWS = 2;
+  __host__ __device__ static constexpr int np(int) { return 4; }
+  template <int M>
+  using Add = PairAdd<4>;
 
   template <int M, bool ANTI>
   __device__ static void walk(const float* lt, const float* par,
                               const float* nodes, const float* scal, int g,
                               mct::Key key, uint32_t e, float half_w,
-                              float* wrow, int lane, float (&q)[NP]) {
+                              float* wrow, int lane, float (&q)[4]) {
     const float r = scal[0], lgd = scal[1], olgd = scal[2];
     float a[4], m[4];
     am_xva_walk<M>(lt, par, nodes, r, g, key, e, 1.0f, half_w, wrow, lane, a);
@@ -1330,62 +1358,55 @@ __device__ __forceinline__ void am_xva_greek_walk(const float* lt,
   }
 }
 
-template <int M, bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(am_threads<M>())
-    xva_greeks_am_kernel(const float* __restrict__ scal,
-                         const float* __restrict__ lt_g,
-                         const float* __restrict__ par_g,
-                         const float* __restrict__ nodes, Launch L,
-                         float* __restrict__ out) {
-  constexpr int THREADS = am_threads<M>();
-  constexpr int N = 14 + 4 * M;
-  __shared__ float lt[M * M], par[9 * M], sc[4], sh[(THREADS / 32) * N];
-  stage<THREADS>(lt, lt_g, M * M);
-  stage<THREADS>(par, par_g, 9 * M);
-  stage<THREADS>(sc, scal, 4);
-  __syncthreads();
-  const int n_elems = L.rows * mct::LANES;
-  mct::BlockAccN<THREADS, N, KAHAN> acc;
-  float v[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = 0.0f;
-  for (int i = 0; i < L.iters; ++i) {
-    const mct::Key key = iter_key(L, i);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float q[7 + 2 * M];
-      am_xva_greek_walk<M>(lt, par, nodes, sc, L.g, key, u, 1.0f, q);
-      if (ANTI) {
-        float m[7 + 2 * M];
-        am_xva_greek_walk<M>(lt, par, nodes, sc, L.g, key, u, -1.0f, m);
-        mct::mirror_mean<M, 7>(q, m);
-      }
-      mct::add_greek_sums<M, 7>(q, v);
-    }
-    acc.add(v, nullptr, sh);
+// K44: K40's split walk, threads, element loop and fold (launch_am) with
+// the 7 + 2M Greek outputs an element and no profile rows; the fold adds
+// them in mct::add_greek_sums' layout (the seven scalars in pairs, then d..,
+// d^2.., v.., v^2..), so each sum's chain of additions and the output rows
+// are the unsplit kernel's (K42's walk and BlockAccN order, which an
+// unsplit K44 kernel kept) bit for bit.  scal: r, lgd, own_lgd, sqrt(dt).
+template <int M>
+struct GreekAdd {
+  __device__ static void add(const float (&q)[7 + 2 * M],
+                             float (&v)[14 + 4 * M]) {
+    mct::add_greek_sums<M, 7>(q, v);
   }
-  acc.write(out);
-}
+};
+
+struct XvaGreekPay {
+  static constexpr int ROWS = 0;
+  __host__ __device__ static constexpr int np(int m) { return 7 + 2 * m; }
+  template <int M>
+  using Add = GreekAdd<M>;
+
+  template <int M, bool ANTI>
+  __device__ static void walk(const float* lt, const float* par,
+                              const float* nodes, const float* scal, int g,
+                              mct::Key key, uint32_t e, float, float*, int,
+                              float (&q)[7 + 2 * M]) {
+    am_xva_greek_walk<M>(lt, par, nodes, scal, g, key, e, 1.0f, q);
+    if (ANTI) {
+      float m[7 + 2 * M];
+      am_xva_greek_walk<M>(lt, par, nodes, scal, g, key, e, -1.0f, m);
+      mct::mirror_mean<M, 7>(q, m);
+    }
+  }
+};
 
 // ------------------------------------- K43, K44 at any m (runtime m)
 
 // Beyond 8 underlyings mctpu serves xVA with its asset-major XLA twin (a
 // Threefry stream); here the asset-major Philox map extends to any m (pair
 // jj draws counters jj m + i, as walk_pairwise_multi for any A) and one
-// thread walks one path element.  K44's keeps its state in global scratch:
-// per thread WIDE_THREADS-strided slots (coalesced over a warp) of the
-// log-spots, both nodes' normals, the tangents, the carries of each sign,
-// the node's integrands and the 4m per-underlying sums; so does K43's past
-// its register tiles (log-spots and both nodes' normals).  L and the
-// per-leg rows are read there through the read-only cache (every thread of
-// a warp on the same entry).  The node math is am_leg's and the order of
-// every sum K43's and K44's, so the runtime-m kernels match the M <= 8
-// ones but for the order of the block reduction.
+// thread walks one path element.  Both kernels are split into slices of a
+// simulation block's rows and folded (below).  Up to 32 underlyings a
+// thread's log-spots and normals (and K44's vol tangents) sit in registers;
+// past them, in global scratch: per thread WIDE_THREADS-strided slots
+// (coalesced over a warp), L and the per-leg rows read there through the
+// read-only cache (every thread of a warp on the same entry).  The node
+// math is am_leg's and the order of every path's sums K43's and K44's, so
+// the runtime-m kernels match the M <= 8 ones but for the order of the
+// block reduction.
 constexpr int WIDE_THREADS = 256;
-
-// Per-thread scratch slots (each m floats) of the runtime-m kernels.
-constexpr int XVA_GREEK_WIDE_SLOTS = 14;  // x, dxv, ad, av, ad', av', z1,
-                                          // z2, dval, vval, 4 sums
 
 // One runtime-m node over slot pointers at stride T: x and z (and, for the
 // Greeks, dxv, the integrands dval and vval before the total-xVA weight);
@@ -1483,13 +1504,17 @@ struct XvaOps {
 };
 
 // One runtime-m node over a register tile (wide_node's operations in its
-// order); zs holds the signed normals sgn * z.  The staged operands are
-// read at their use (mct::lds1), not held across the walk.
-template <int MT>
+// order); zs holds the signed normals sgn * z.  For the Greeks also the
+// vol tangents dxv and each leg's integrands dval, vval before the
+// total-xVA weight, to dv[i T], vv[i T].  The staged operands are read at
+// their use (mct::lds1), not held across the walk.
+template <int MT, bool GREEKS>
 __device__ __forceinline__ float reg_node(int m, const XvaOps<MT>& o, float r,
-                                          const Node& nd,
+                                          float sqdt, const Node& nd,
                                           const float (&zs)[MT],
-                                          float (&x)[MT], float& net) {
+                                          float (&x)[MT], float (&dxv)[MT],
+                                          float* dv, float* vv, int T,
+                                          float& net) {
   float value = 0.0f;
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
@@ -1502,11 +1527,20 @@ __device__ __forceinline__ float reg_node(int m, const XvaOps<MT>& o, float r,
       float pr[9];  // leg i's rows, read by am_leg at stride 1
 #pragma unroll
       for (int k = 0; k < 9; ++k) {  // am_leg reads rows 1, 2 and 4-8
-        pr[k] = (k == 0 || k == 3) ? 0.0f
-                                   : mct::lds1(&o.par[k * MT + i]);
+        pr[k] = (k == 0 || (k == 3 && !GREEKS))
+                    ? 0.0f
+                    : mct::lds1(&o.par[k * MT + i]);
       }
       float s, nd1, phi;
-      const float val = am_leg<false>(b, x[i], pr, 1, 0, r, nd, s, nd1, phi);
+      const float val = am_leg<GREEKS>(b, x[i], pr, 1, 0, r, nd, s, nd1, phi);
+      if (GREEKS) {
+        const float d = dxv[i] + sqdt * b - pr[3];
+        dxv[i] = d;
+        const float ws = pr[4] * s;
+        const float dval = ws * nd1;
+        dv[i * T] = dval;
+        vv[i * T] = dval * d + ws * phi * nd.sqtau;
+      }
       value = (i == 0) ? val : value + val;
     }
   }
@@ -1545,8 +1579,9 @@ __device__ __forceinline__ void reg_xva_walk(const XvaOps<MT>& o,
       for (int i = 0; i < MT; ++i) zs[i] = sgn * (d ? z2[i] : z1[i]);
       const int j = 2 * jj + d;
       float net;
-      const float epe =
-          reg_node<MT>(m, o, r, tail_node(nodes, g, j, 3), zs, x, net);
+      const float epe = reg_node<MT, false>(m, o, r, 0.0f,
+                                            tail_node(nodes, g, j, 3), zs, x,
+                                            x, nullptr, nullptr, 0, net);
       xva_legs_add(nodes, g, j, epe, epe - net, lg);
       profile_add(wprof, j, half_w, epe, lane);
       profile_add(wprof, g + j, half_w, epe - net, lane);
@@ -1673,144 +1708,261 @@ __global__ void xva_fold_kernel(const float* __restrict__ scratch,
                             prof_out);
 }
 
-// Adds the n per-thread sums at vals (stride THREADS, zeroed on return)
-// over the block as BlockAccN adds its N (warp-shuffle tree, then the warps
-// in order) into the carries cs/cc (shared, n each), compensated when
-// KAHAN.  sh: WARPS * n floats of shared memory.
-template <int THREADS, bool KAHAN>
-__device__ __forceinline__ void block_add_n(float* vals, int n, float* sh,
-                                            float* cs, float* cc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < n; ++k) {
-    float r = vals[k * THREADS];
+// K44 past 8 underlyings, split as K43's: one CUDA block of WIDE_THREADS
+// per (simulation block, slice of XVA_SLICE_ROWS rows), 1024 CUDA blocks
+// at 2^20 paths.  A thread walks one element a pass, each sign in turn on
+// the same draws: up to XVA_REG_MAX underlyings its log-spots, vol tangents
+// and both nodes' normals in registers (reg_node's tile, MT 16 or 32) and
+// each node's integrands dval, vval and the carries ad, av (of the mirror
+// too under ANTI) in its own columns of shared memory (stride WIDE_THREADS,
+// no bank conflicts); past them all of it in global scratch (wide_node,
+// wide_walk), the grid capped at the blocks the card holds at once and at
+// XVA_GREEK_STATE_CAP floats of state, each CUDA block taking (b, slice)
+// items in turn.  Per iteration a slice writes its 14 scalar sums (each
+// thread's plain sums over its passes, then block_row's tree) and its 4m
+// per-underlying sums (d.., d^2.., v.., v^2..: each pass's values reduced
+// over the block by the warp-shuffle tree and the warps in order, added
+// pass by pass) to scratch [B][iters][S][14 + 4m]; xva_greek_fold_kernel
+// adds the slices in order, Kahan-carried over the iterations under KAHAN
+// (mct::slice_fold_n).  The simulation blocks and iterations go in groups
+// under a cap in floats (mct::scratch_groups), the fold's carry kept in
+// scratch between them.  Every path's values are the M <= 8 kernel's and
+// the plain version's; the order of the sums depends on the plan alone.
+constexpr int XVA_GREEK_N_SCAL = 14;
+constexpr size_t XVA_GREEK_STATE_CAP = size_t{64} << 20;  // floats: 256 MB
+
+// The items of a group: simulation blocks b0 .. b0 + nb, iterations i0 ..
+// i0 + ni, slices a block.
+struct SliceItems {
+  int b0, nb, i0, ni, slices;
+};
+
+// A node's total-xVA weight on each underlying's integrands (slots at
+// stride T): ad += tw dval, av += tw vval (mctpu's _am_xva_greek_step).
+__device__ __forceinline__ void greek_weight_adds(int m, float tw,
+                                                  const float* dv,
+                                                  const float* vv, float* ad,
+                                                  float* av, int T) {
+  for (int u = 0; u < m; ++u) {
+    ad[u * T] = ad[u * T] + tw * dv[u * T];
+    av[u * T] = av[u * T] + tw * vv[u * T];
+  }
+}
+
+// One K44 walk of element e and sign sgn over a register tile: q7 the legs
+// and the three sensitivities, ad and av (slots at stride T) the
+// per-underlying delta and vega integrands; dv, vv a node's.  nodes (9, g).
+template <int MT>
+__device__ __forceinline__ void reg_xva_greek_walk(
+    const XvaOps<MT>& o, const float* __restrict__ nodes, int m, int g,
+    float r, float sqdt, mct::Key key, uint32_t e, float sgn, float* dv,
+    float* vv, float* ad, float* av, int T, float (&q7)[7]) {
+  float x[MT], dxv[MT];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, o));
+  for (int i = 0; i < MT; ++i) {
+    x[i] = o.par[i];
+    dxv[i] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 7; ++k) q7[k] = 0.0f;
+  for (int u = 0; u < m; ++u) ad[u * T] = av[u * T] = 0.0f;
+  const int pairs = (g + 1) / 2;
+  for (int jj = 0; jj < pairs; ++jj) {
+    float z1[MT], z2[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i < m) {
+        mct::draw_normal_pair(key, e, static_cast<uint32_t>(jj * m + i),
+                              z1[i], z2[i]);
+      }
     }
-    if (lane == 0) sh[warp * n + k] = r;
-    vals[k * THREADS] = 0.0f;
+    const int dates = min(2, g - 2 * jj);
+#pragma unroll 1
+    for (int d = 0; d < dates; ++d) {
+      float zs[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) zs[i] = sgn * (d ? z2[i] : z1[i]);
+      const int j = 2 * jj + d;
+      const Node nd = tail_node(nodes, g, j, 6);
+      float net;
+      const float epe = reg_node<MT, true>(m, o, r, sqdt, nd, zs, x, dxv, dv,
+                                           vv, T, net);
+      const float tw = xva_greek_weight(nodes, g, j, epe, net, q7);
+      greek_weight_adds(m, tw, dv, vv, ad, av, T);
+    }
+  }
+}
+
+// The same walk with its whole state in global slots (stride T): x, dxv,
+// z1, z2 at st, 2 st, .. m T apart.
+__device__ __forceinline__ void wide_xva_greek_walk(
+    const float* __restrict__ lt, const float* __restrict__ par,
+    const float* __restrict__ nodes, int m, int g, float r, float sqdt,
+    mct::Key key, uint32_t e, float sgn, float* st, float* dv, float* vv,
+    float* ad, float* av, int T, float (&q7)[7]) {
+  float* x = st;
+  float* dxv = x + m * T;
+  float* z1 = dxv + m * T;
+  float* z2 = z1 + m * T;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) q7[k] = 0.0f;
+  for (int u = 0; u < m; ++u) {
+    x[u * T] = __ldg(par + u);
+    dxv[u * T] = ad[u * T] = av[u * T] = 0.0f;
+  }
+  wide_walk(key, e, m, g, z1, z2, T, [&](int j, const float* z) {
+    float net;
+    const Node nd = tail_node(nodes, g, j, 6);
+    const float epe = wide_node<true>(m, lt, par, r, sqdt, nd, sgn, z, x,
+                                      dxv, dv, vv, T, net);
+    const float tw = xva_greek_weight(nodes, g, j, epe, net, q7);
+    greek_weight_adds(m, tw, dv, vv, ad, av, T);
+  });
+}
+
+// Adds this pass's 4m per-underlying values (d, d^2, v, v^2 of the
+// element's delta and vega, the antithetic pair's mean under ANTI: ad, av
+// of sign 0 at a0, of the mirror at a1), reduced over the block by the
+// warp-shuffle tree and then the warps in order, into acc[4m] (shared).
+// Every thread calls it; an idle warp (past a short slice) adds zeros.
+// sh: WARPS * 4m floats.
+template <int THREADS, bool ANTI>
+__device__ __forceinline__ void pass_vec_sums(int m, bool active,
+                                              const float* a0,
+                                              const float* a1, float* sh,
+                                              float* acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n4 = 4 * m;
+  for (int u = 0; u < m; ++u) {
+    float d = 0.0f, w = 0.0f;
+    if (active) {
+      d = a0[u * THREADS];
+      w = a0[(m + u) * THREADS];
+      if (ANTI) {
+        d = 0.5f * (d + a1[u * THREADS]);
+        w = 0.5f * (w + a1[(m + u) * THREADS]);
+      }
+    }
+    const float vals[4] = {d, d * d, w, w * w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float t = warp_sum(vals[c]);
+      if (lane == 0) sh[warp * n4 + c * m + u] = t;
+    }
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < n; k += THREADS) {
+  for (int k = threadIdx.x; k < n4; k += THREADS) {
     float t = sh[k];
-    for (int w = 1; w < THREADS / 32; ++w) t = __fadd_rn(t, sh[w * n + k]);
-    if (KAHAN) {
-      mct::kahan_add(cs[k], cc[k], t);
-    } else {
-      cs[k] = __fadd_rn(cs[k], t);
-    }
+    for (int w = 1; w < THREADS / 32; ++w) t = __fadd_rn(t, sh[w * n4 + k]);
+    acc[k] = __fadd_rn(acc[k], t);
   }
   __syncthreads();
 }
 
-// Dynamic shared floats of the runtime-m K44: the warps' partial sums and
-// the carries of the 4m per-underlying sums.
-__host__ __device__ inline int xva_greek_wide_smem_floats(int m) {
-  return (WIDE_THREADS / 32 + 2) * 4 * m;
-}
-
-template <bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(WIDE_THREADS)
-    xva_greeks_wide_kernel(const float* __restrict__ scal,
+template <int MT, bool ANTI>
+__global__ void __launch_bounds__(WIDE_THREADS, MT == 16 ? 2 : 1)
+    xva_greek_slice_kernel(const float* __restrict__ scal,
                            const float* __restrict__ lt,
                            const float* __restrict__ par,
                            const float* __restrict__ nodes, int m, Launch L,
-                           float* __restrict__ scratch,
-                           float* __restrict__ out) {
-  constexpr int THREADS = WIDE_THREADS;
-  constexpr int T = THREADS;
+                           SliceItems I, float* __restrict__ sums,
+                           float* __restrict__ state) {
+  constexpr int T = WIDE_THREADS;
+  constexpr int WARPS = T / 32;
+  constexpr int NS = XVA_GREEK_N_SCAL;
   extern __shared__ float smem[];
-  const int n4 = 4 * m;
-  float* shn = smem;  // [WARPS][4m]
-  float* cs = shn + (THREADS / 32) * n4;
-  float* cc = cs + n4;
-  __shared__ float sh[(THREADS / 32) * 14];
-  float* base = scratch + static_cast<size_t>(blockIdx.x) *
-                              XVA_GREEK_WIDE_SLOTS * m * T + threadIdx.x;
-  float* x = base;
-  float* dxv = x + m * T;
-  float* carry[2] = {dxv + m * T, dxv + 3 * m * T};  // ad, av of each sign
-  float* z1 = dxv + 5 * m * T;
-  float* z2 = z1 + m * T;
-  float* dv = z2 + m * T;
+  __shared__ XvaOps<MT == 0 ? 1 : MT> o;
+  __shared__ float sh[WARPS * NS];
+  const int n4 = 4 * m, n = NS + n4;
+  float* sh4 = smem;               // [WARPS][4m]
+  float* acc = sh4 + WARPS * n4;   // the (slice, iteration)'s 4m sums
+  // A thread's slots at stride T: dv, vv, then ad, av of each sign; past
+  // the register tiles x, dxv, z1, z2 before them, in global scratch.
+  float* slots = MT > 0 ? acc + n4 + threadIdx.x
+                        : state + static_cast<size_t>(blockIdx.x) *
+                                      (ANTI ? 10 : 8) * m * T +
+                              threadIdx.x;
+  float* st = slots;
+  if (MT == 0) slots += 4 * m * T;
+  float* dv = slots;
   float* vv = dv + m * T;
-  float* sums = vv + m * T;  // [d.., d2.., v.., v2..]
-  for (int k = threadIdx.x; k < n4; k += THREADS) cs[k] = cc[k] = 0.0f;
-  for (int k = 0; k < n4; ++k) sums[k * T] = 0.0f;
-  const float r = scal[0], sqdt = scal[3];
-  const int n_elems = L.rows * mct::LANES;
-  mct::BlockAccN<THREADS, 14, KAHAN> acc;
-  float v[14];
-  for (int k = 0; k < 14; ++k) v[k] = 0.0f;
+  float* a0 = vv + m * T;  // ad, av of sign 0
+  float* a1 = a0 + 2 * m * T;  // of the mirror (ANTI)
+  if constexpr (MT > 0) {
+    for (int t = threadIdx.x; t < MT * MT; t += T) {
+      const int i = t / MT, j = t - i * MT;
+      o.l[t] = (i < m && j <= i) ? lt[i * m + j] : 0.0f;
+    }
+    for (int t = threadIdx.x; t < 9 * MT; t += T) {
+      const int k = t / MT, i = t - k * MT;
+      o.par[t] = i < m ? par[k * m + i] : 0.0f;
+    }
+  }
+  for (int k = threadIdx.x; k < n4; k += T) acc[k] = 0.0f;
   __syncthreads();
-  for (int i = 0; i < L.iters; ++i) {
-    const mct::Key key = iter_key(L, i);
-    for (int e0 = threadIdx.x; e0 < n_elems; e0 += THREADS) {
-      const uint32_t e = static_cast<uint32_t>(e0);
-      float q[2][7];
-      for (int sg = 0; sg < (ANTI ? 2 : 1); ++sg) {
-        const float sgn = sg ? -1.0f : 1.0f;
-        float* ad = carry[sg];
-        float* av = ad + m * T;
-        float(&q7)[7] = q[sg];
-        for (int k = 0; k < 7; ++k) q7[k] = 0.0f;
-        for (int u = 0; u < m; ++u) {
-          x[u * T] = __ldg(par + u);
-          dxv[u * T] = ad[u * T] = av[u * T] = 0.0f;
-        }
-        wide_walk(key, e, m, L.g, z1, z2, T, [&](int j, const float* z) {
-          float net;
-          const Node nd = tail_node(nodes, L.g, j, 6);
-          const float epe = wide_node<true>(m, lt, par, r, sqdt, nd, sgn, z,
-                                            x, dxv, dv, vv, T, net);
-          const float tw = xva_greek_weight(nodes, L.g, j, epe, net, q7);
-          for (int u = 0; u < m; ++u) {
-            ad[u * T] = ad[u * T] + tw * dv[u * T];
-            av[u * T] = av[u * T] + tw * vv[u * T];
+  const float r = scal[0], sqdt = scal[3];
+  const int warp = threadIdx.x >> 5;
+  const int items = I.nb * I.slices;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int bl = item / I.slices, sl = item - bl * I.slices;
+    const int e0 = sl * XVA_SLICE_ROWS * mct::LANES;
+    const int e1 = min(L.rows, (sl + 1) * XVA_SLICE_ROWS) * mct::LANES;
+    for (int il = 0; il < I.ni; ++il) {
+      const mct::Key key = mct::seed_key(
+          L.seed, (L.off + static_cast<uint32_t>(I.b0 + bl)) *
+                          static_cast<uint32_t>(L.iters) +
+                      static_cast<uint32_t>(I.i0 + il));
+      float v[NS];
+#pragma unroll
+      for (int k = 0; k < NS; ++k) v[k] = 0.0f;
+      for (int base = e0; base < e1; base += T) {
+        const bool active = base + warp * 32 < e1;  // whole warps
+        if (active) {
+          const uint32_t e = static_cast<uint32_t>(base + threadIdx.x);
+          float q[2][7];
+#pragma unroll 1
+          for (int sg = 0; sg < (ANTI ? 2 : 1); ++sg) {
+            const float sgn = sg ? -1.0f : 1.0f;
+            float* ad = sg ? a1 : a0;
+            if constexpr (MT > 0) {
+              reg_xva_greek_walk<MT>(o, nodes, m, L.g, r, sqdt, key, e, sgn,
+                                     dv, vv, ad, ad + m * T, T, q[sg]);
+            } else {
+              wide_xva_greek_walk(lt, par, nodes, m, L.g, r, sqdt, key, e,
+                                  sgn, st, dv, vv, ad, ad + m * T, T, q[sg]);
+            }
           }
-        });
-      }
-      // mct::mirror_mean and add_greek_sums at runtime m.
-      for (int k = 0; k < 7; ++k) {
-        const float y = ANTI ? 0.5f * (q[0][k] + q[1][k]) : q[0][k];
-        v[2 * k] += y;
-        v[2 * k + 1] += y * y;
-      }
-      for (int u = 0; u < m; ++u) {
-        float d = carry[0][u * T], w = carry[0][(m + u) * T];
-        if (ANTI) {
-          d = 0.5f * (d + carry[1][u * T]);
-          w = 0.5f * (w + carry[1][(m + u) * T]);
+          // mct::mirror_mean and add_greek_sums' scalars.
+#pragma unroll
+          for (int k = 0; k < 7; ++k) {
+            const float y = ANTI ? 0.5f * (q[0][k] + q[1][k]) : q[0][k];
+            v[2 * k] += y;
+            v[2 * k + 1] += y * y;
+          }
         }
-        sums[u * T] += d;
-        sums[(m + u) * T] += d * d;
-        sums[(2 * m + u) * T] += w;
-        sums[(3 * m + u) * T] += w * w;
+        pass_vec_sums<T, ANTI>(m, active, a0, a1, sh4, acc);
+      }
+      float* dst =
+          sums + ((static_cast<size_t>(bl) * I.ni + il) * I.slices + sl) * n;
+      mct::block_row<T, NS>(v, sh, dst);
+      for (int k = threadIdx.x; k < n4; k += T) {
+        dst[NS + k] = acc[k];
+        acc[k] = 0.0f;
       }
     }
-    acc.add(v, nullptr, sh);
-    block_add_n<THREADS, KAHAN>(sums, n4, shn, cs, cc);
-  }
-  float* row = out + static_cast<size_t>(blockIdx.x) * (14 + n4);
-  acc.write_n(row, 14);
-  for (int k = threadIdx.x; k < n4; k += THREADS) {
-    row[14 + k] = __fadd_rn(cs[k], cc[k]);
   }
 }
 
-template <int M>
-void launch_xva_greeks_am(bool anti, bool kahan, const float* scal,
-                          const float* lt, const float* par,
-                          const float* nodes, const Launch& L, int n_blocks,
-                          float* out, cudaStream_t s) {
-  using Fn = void (*)(const float*, const float*, const float*, const float*,
-                      Launch, float*);
-  static const Fn FNS[4] = {xva_greeks_am_kernel<M, false, false>,
-                            xva_greeks_am_kernel<M, false, true>,
-                            xva_greeks_am_kernel<M, true, false>,
-                            xva_greeks_am_kernel<M, true, true>};
-  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
-  fn<<<n_blocks, am_threads<M>(), 0, s>>>(scal, lt, par, nodes, L, out);
+// The slices of each simulation block of a group added in order
+// (mct::slice_fold_n), carried between groups of iterations: n = 14 + 4m
+// sums into out (offset to the group's first block).
+template <bool KAHAN>
+__global__ void xva_greek_fold_kernel(const float* __restrict__ sums,
+                                      float* __restrict__ carry, int nb,
+                                      int ni, int slices, int n, int first,
+                                      int last, float* __restrict__ out) {
+  mct::slice_fold_n<KAHAN>(sums, nb, ni, slices, n, 0,
+                           blockIdx.x * blockDim.x + threadIdx.x, out,
+                           nullptr, mct::FoldCarry{carry, first, last});
 }
 
 int warps_of(int m) {
@@ -1832,8 +1984,8 @@ Launch make_launch(int g, int seed, int off, int rows, int iters) {
                 rows, iters};
 }
 
-// The split plan of K40 (Pay = CvaPay) or K43 (XvaPay) at m underlyings and
-// g nodes under a cap in floats (0: AM_SCRATCH_CAP).
+// The split plan of K40 (Pay = CvaPay), K43 (XvaPay) or K44 (XvaGreekPay)
+// at m underlyings and g nodes under a cap in floats (0: AM_SCRATCH_CAP).
 template <class Pay>
 AmSplit am_split(int m, int g, int n_blocks, int rows, int iters, bool anti,
                  size_t cap) {
@@ -1842,7 +1994,7 @@ AmSplit am_split(int m, int g, int n_blocks, int rows, int iters, bool anti,
   const int threads = X.warps * 32, n_elems = rows * mct::LANES;
   X.passes = (n_elems + threads - 1) / threads;
   X.signs = anti ? 2 : 1;
-  X.np = Pay::NP;
+  X.np = Pay::np(m);
   X.gp = Pay::ROWS * g;
   X.carry = 4 * static_cast<size_t>(X.np) +
             static_cast<size_t>(X.warps) * X.gp * 2;
@@ -1907,6 +2059,117 @@ XvaSplit xva_split(int m, int g, int n_blocks, int rows, int iters) {
                  ? static_cast<size_t>(X.grid) * 3 * m * WIDE_THREADS
                  : 0);
   return X;
+}
+
+using GreekSliceFn = void (*)(const float*, const float*, const float*,
+                              const float*, int, Launch, SliceItems, float*,
+                              float*);
+
+GreekSliceFn greek_slice_fn(int m, bool anti) {
+  switch (xva_mt(m)) {
+    case 16:
+      return anti ? xva_greek_slice_kernel<16, true>
+                  : xva_greek_slice_kernel<16, false>;
+    case XVA_REG_MAX:
+      return anti ? xva_greek_slice_kernel<XVA_REG_MAX, true>
+                  : xva_greek_slice_kernel<XVA_REG_MAX, false>;
+    default:
+      return anti ? xva_greek_slice_kernel<0, true>
+                  : xva_greek_slice_kernel<0, false>;
+  }
+}
+
+// The split launch of a runtime-m K44: slices a block, the groups of
+// simulation blocks and iterations under the cap (0: AM_SCRATCH_CAP), the
+// grid of a group's launch, its dynamic shared memory and the scratch in
+// floats: the fold's carry [group blocks][2n], the group's sums
+// [blocks][iters][S][n] (n = 14 + 4m), then past the register tiles the
+// threads' state [grid][8 or 10 m][WIDE_THREADS].  Past the tiles the grid
+// is the blocks the card holds at once, capped at a group's items and at
+// XVA_GREEK_STATE_CAP floats of state; the sums do not depend on it.
+struct XvaGreekSplit {
+  int slices, n, grid;
+  mct::ScratchGroups groups;
+  size_t smem, state, total;
+};
+
+XvaGreekSplit xva_greek_split(int m, int n_blocks, int rows, int iters,
+                              bool anti, size_t cap) {
+  XvaGreekSplit X{};
+  constexpr int T = WIDE_THREADS;
+  const bool reg = xva_mt(m) > 0;
+  X.slices = xva_slices(rows);
+  X.n = XVA_GREEK_N_SCAL + 4 * m;
+  X.groups = mct::scratch_groups(n_blocks, iters, 2 * static_cast<size_t>(X.n),
+                                 static_cast<size_t>(X.slices) * X.n,
+                                 cap == 0 ? AM_SCRATCH_CAP : cap);
+  X.smem = sizeof(float) *
+           (static_cast<size_t>(T / 32 + 1) * 4 * m +
+            (reg ? static_cast<size_t>(anti ? 6 : 4) * m * T : 0));
+  const int items = X.groups.blocks * X.slices;
+  X.grid = items;
+  if (!reg) {
+    const size_t per_block = static_cast<size_t>(anti ? 10 : 8) * m * T;
+    const GreekSliceFn fn = greek_slice_fn(m, anti);
+    int dev = 0, sms = 1, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (X.smem > 48 * 1024) {
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(X.smem));
+    }
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, T, X.smem);
+    const size_t most = std::max<size_t>(1, XVA_GREEK_STATE_CAP / per_block);
+    X.grid = static_cast<int>(std::min<size_t>(
+        std::min<size_t>(items, static_cast<size_t>(std::max(1, per_sm)) *
+                                    sms),
+        most));
+    X.state = static_cast<size_t>(X.grid) * per_block;
+  }
+  X.total = X.groups.total + X.state;
+  return X;
+}
+
+// A runtime-m K44 launch: each group's slices, then its fold, into out (B,
+// 14 + 4m).
+int launch_xva_greek_slices(int m, bool anti, bool kahan, const float* scal,
+                            const float* lt, const float* par,
+                            const float* nodes, const Launch& L,
+                            int n_blocks, size_t cap, float* scratch,
+                            float* out, cudaStream_t s) {
+  const XvaGreekSplit X =
+      xva_greek_split(m, n_blocks, L.rows, L.iters, anti, cap);
+  const GreekSliceFn fn = greek_slice_fn(m, anti);
+  if (X.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(X.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto fold =
+      kahan ? xva_greek_fold_kernel<true> : xva_greek_fold_kernel<false>;
+  const mct::ScratchGroups& G = X.groups;
+  float* carry = scratch;
+  float* sums = carry + static_cast<size_t>(G.blocks) * 2 * X.n;
+  float* state = scratch + G.total;
+  for (int b0 = 0; b0 < n_blocks; b0 += G.blocks) {
+    const int nb = std::min(G.blocks, n_blocks - b0);
+    for (int i0 = 0; i0 < L.iters; i0 += G.iters) {
+      const int ni = std::min(G.iters, L.iters - i0);
+      const SliceItems I{b0, nb, i0, ni, X.slices};
+      fn<<<std::min(X.grid, nb * X.slices), WIDE_THREADS, X.smem, s>>>(
+          scal, lt, par, nodes, m, L, I, sums, state);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int work = nb * X.n;
+      fold<<<(work + 255) / 256, 256, 0, s>>>(
+          sums, carry, nb, ni, X.slices, X.n, i0 == 0, i0 + ni >= L.iters,
+          out + static_cast<size_t>(b0) * X.n);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return 0;
 }
 
 }  // namespace
@@ -2058,16 +2321,26 @@ extern "C" int mctpu_cva_multi_greeks_packed(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of an xVA launch's scratch: K43's split plan (AmSplit::total)
-// under a cap in floats (0: AM_SCRATCH_CAP), past the cap only where one
-// (block, iteration) and a block's carry exceed it; for the runtime-m
-// kernels (wide) their slices' rows, profile slots and state, K44's state.
+// Floats of an xVA launch's scratch: K43's and K44's split plans
+// (AmSplit::total) under a cap in floats (0: AM_SCRATCH_CAP), past the cap
+// only where one (block, iteration) and a block's carry exceed it; for the
+// runtime-m kernels (wide) their slices' rows, profile slots and state,
+// K44's groups under the cap and its state.
 extern "C" int mctpu_xva_scratch_floats(int n_under, int n_grid, int greeks,
                                         int wide, int n_blocks, int rows,
                                         int iters, int antithetic, int cap) {
   if (greeks) {
-    return wide ? n_blocks * XVA_GREEK_WIDE_SLOTS * n_under * WIDE_THREADS
-                : 0;
+    if (wide) {
+      return static_cast<int>(xva_greek_split(n_under, n_blocks, rows, iters,
+                                              antithetic != 0,
+                                              static_cast<size_t>(cap))
+                                  .total);
+    }
+    return static_cast<int>(am_split<XvaGreekPay>(n_under, n_grid, n_blocks,
+                                                  rows, iters,
+                                                  antithetic != 0,
+                                                  static_cast<size_t>(cap))
+                                .total);
   }
   if (wide) {
     return static_cast<int>(
@@ -2122,38 +2395,30 @@ extern "C" int mctpu_xva(const float* scal, const float* lt, const float* par,
 }
 
 // K44 (n_under = 1..8) or its runtime-m kernel (wide, any n_under): out is
-// (n_blocks, 14 + 4 n_under).
+// (n_blocks, 14 + 4 n_under); scratch of mctpu_xva_scratch_floats(.., cap)
+// floats.
 extern "C" int mctpu_xva_greeks(const float* scal, const float* lt,
                                 const float* par, const float* nodes,
                                 int n_under, int n_grid, int wide, int seed,
                                 int off, int n_blocks, int rows, int iters,
-                                int antithetic, int kahan, float* scratch,
-                                float* out, void* stream) {
+                                int antithetic, int kahan, int cap,
+                                float* scratch, float* out, void* stream) {
   const Launch L = make_launch(n_grid, seed, off, rows, iters);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
-    using Fn = void (*)(const float*, const float*, const float*,
-                        const float*, int, Launch, float*, float*);
-    static const Fn FNS[4] = {xva_greeks_wide_kernel<false, false>,
-                              xva_greeks_wide_kernel<false, true>,
-                              xva_greeks_wide_kernel<true, false>,
-                              xva_greeks_wide_kernel<true, true>};
-    const Fn fn = FNS[(antithetic ? 2 : 0) | (kahan ? 1 : 0)];
-    const size_t smem = xva_greek_wide_smem_floats(n_under) * sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    fn<<<n_blocks, WIDE_THREADS, smem, s>>>(scal, lt, par, nodes, n_under, L,
-                                            scratch, out);
-    return static_cast<int>(cudaGetLastError());
+    return launch_xva_greek_slices(n_under, antithetic != 0, kahan != 0,
+                                   scal, lt, par, nodes, L, n_blocks,
+                                   static_cast<size_t>(cap), scratch, out, s);
   }
-#define MCT_CALL(M)                                                          \
-  launch_xva_greeks_am<M>(antithetic != 0, kahan != 0, scal, lt, par, nodes, \
-                          L, n_blocks, out, s)
+  const AmSplit X = am_split<XvaGreekPay>(n_under, n_grid, n_blocks, rows,
+                                          iters, antithetic != 0,
+                                          static_cast<size_t>(cap));
+  int status = 0;
+#define MCT_CALL(M)                                                   \
+  status = launch_am<M, XvaGreekPay>(antithetic != 0, kahan != 0, scal, \
+                                     lt, par, nodes, L, n_blocks, X,    \
+                                     scratch, out, nullptr, s)
   MCT_DISPATCH_M(MCT_CALL)
 #undef MCT_CALL
-  return static_cast<int>(cudaGetLastError());
+  return status;
 }

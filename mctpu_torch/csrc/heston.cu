@@ -35,18 +35,28 @@
 // Euler; QE adds an expf (the Hastings CDF), a logf in its exponential
 // branch, two more sqrtf and three divides, and may be bound by them rather
 // than by the integer pipe.  The walk is a serial dependence from step to
-// step and the only memory traffic is the block's partials.  Simple design,
-// as K9 and K10: one CUDA block per simulation block, one thread per path
-// element striding over the (rows, 128) tile, the state in registers.  K29
-// is K27's Euler walk at n_fine steps plus a coarse step (a sqrtf) per two
-// fine steps and a second expf.  K27 and K29 sum with mct::Acc2 and one fixed-order block tree, K28 with
-// mct::BlockAccN once per iteration.  No atomics: two launches give the
-// same bits.
+// step and the only memory traffic is the block's partials.  K27 and K28
+// keep the simple design, as K9 and K10: one CUDA block per simulation
+// block, one thread per path element striding over the (rows, 128) tile,
+// the state in registers; K27 sums with mct::Acc2 and one fixed-order block
+// tree, K28 with mct::BlockAccN once per iteration.  K29 is K27's Euler
+// walk at n_fine steps plus a coarse step (a sqrtf) per two fine steps and
+// a second expf, as a split walk (HestonLevelWalk on
+// mct::walk_split_kernel, csrc/common.cuh): one thread per path element of
+// every (simulation block, iteration) item, so the grid fills the card on
+// any plan (the MLMC 8 x 8 plan ran on 8 SMs in the simple design), both
+// antithetic signs advancing on one draw of each pair (the simple design
+// drew and transformed every pair twice), the element's d written to
+// scratch; mct::walk_fold_kernel then adds them in the simple design's
+// order (one CUDA block of 1024 threads per simulation block, each
+// thread's Acc2 over its elements t, t + 1024, .. of every iteration, then
+// write_block_sums' tree), so K29's block sums are that design's bit for
+// bit.  No atomics: two launches give the same bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;       // K27
+constexpr int THREADS = 1024;       // K27, K29's fold
 constexpr int GREEK_THREADS = 512;  // K28: 14 sums and 10 carries a thread
 constexpr int N_SUMS = 14;
 constexpr int N_EULER = 10;  // K27's scal: 10 Euler scalars, then QE_KEYS
@@ -220,59 +230,73 @@ __device__ __forceinline__ LevelScal load_level(const float* p) {
                                    p[12]}};
 }
 
-// One K29 walk of tile element e -> its payoff difference d.
-__device__ __forceinline__ float level_walk(const LevelScal& c, int n_coarse,
-                                            mct::Key key, uint32_t e,
-                                            float sgn) {
+// One coarse step of K29's coupled walk on the draws z1 = (z1v, z1p), z2 =
+// (z2v, z2p) of Philox blocks (e, 2j) and (e, 2j + 1), with the sign sgn
+// (the mirror's -1): two fine steps on sgn z1 and sgn z2, one coarse step on
+// sgn zc, zc = (z1 + z2) / sqrt(2) formed unsigned (a rounded add, then a
+// rounded multiply) and the sign applied after.  s = (xf, vf, xc, vc).
+__device__ __forceinline__ void level_step(const LevelScal& c, float z1v,
+                                           float z1p, float z2v, float z2p,
+                                           float sgn, float (&s)[4]) {
   const float inv_sqrt2 = MCT_F32(0.7071067811865476);
-  float xf = 0.0f, vf = c.v0, xc = 0.0f, vc = c.v0;
-  for (int j = 0; j < n_coarse; ++j) {
-    float z1v, z1p, z2v, z2p;
-    mct::draw_normal_pair(key, e, static_cast<uint32_t>(2 * j), z1v, z1p);
-    mct::draw_normal_pair(key, e, static_cast<uint32_t>(2 * j + 1), z2v,
-                          z2p);
-    mct::heston_step(c.fine, sgn * z1v, sgn * z1p, xf, vf);
-    mct::heston_step(c.fine, sgn * z2v, sgn * z2p, xf, vf);
-    // The coarse normal is a rounded add, then a rounded multiply.
-    const float zcv = (z1v + z2v) * inv_sqrt2;
-    const float zcp = (z1p + z2p) * inv_sqrt2;
-    mct::heston_step(c.coarse, sgn * zcv, sgn * zcp, xc, vc);
-  }
-  return fmaxf(c.s0 * expf(xf) - c.k, 0.0f) -
-         fmaxf(c.s0 * expf(xc) - c.k, 0.0f);
+  mct::heston_step(c.fine, sgn * z1v, sgn * z1p, s[0], s[1]);
+  mct::heston_step(c.fine, sgn * z2v, sgn * z2p, s[0], s[1]);
+  const float zcv = (z1v + z2v) * inv_sqrt2;
+  const float zcp = (z1p + z2p) * inv_sqrt2;
+  mct::heston_step(c.coarse, sgn * zcv, sgn * zcp, s[2], s[3]);
 }
 
-template <bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(THREADS)
-    heston_level_kernel(const float* __restrict__ scal, int n_fine,
-                        uint32_t seed, uint32_t off, int n_elems, int iters,
-                        float* __restrict__ out) {
-  const LevelScal c = load_level(scal);
-  const int n_coarse = n_fine / 2;
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float d = level_walk(c, n_coarse, key, u, 1.0f);
-      if (ANTI) d = 0.5f * (d + level_walk(c, n_coarse, key, u, -1.0f));
-      acc.add(d);
+// The payoff difference d = P(x_fine) - P(x_coarse) of a walk's state.
+__device__ __forceinline__ float level_pay(const LevelScal& c,
+                                           const float (&s)[4]) {
+  return fmaxf(c.s0 * expf(s[0]) - c.k, 0.0f) -
+         fmaxf(c.s0 * expf(s[2]) - c.k, 0.0f);
+}
+
+// K29's split walk (mct::walk_split_kernel): tile element e walks its
+// n_coarse coarse steps once, drawing each pair of Philox blocks once;
+// under ANTI both signs' fine and coarse states (8 floats) advance on that
+// draw (the mirror's normals -z, exactly the unsplit walk's sgn * z), and
+// the element's sample is the pair's mean 0.5 (d+ + d-).  The 13 level
+// scalars are staged in shared memory.
+struct HestonLevelWalk {
+  struct Params {
+    const float* scal;
+    int n_coarse;
+  };
+  static constexpr int SHARED = 13;
+  static constexpr int MIN_BLOCKS = 16;  // 64 warps an SM
+
+  __device__ static void stage(const Params& P, float* sh) {
+    if (threadIdx.x < SHARED) sh[threadIdx.x] = P.scal[threadIdx.x];
+  }
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float* sh, mct::Key key,
+                              uint32_t e) {
+    const LevelScal c = load_level(sh);
+    float s[4] = {0.0f, c.v0, 0.0f, c.v0};
+    float m[4] = {0.0f, c.v0, 0.0f, c.v0};
+    for (int j = 0; j < P.n_coarse; ++j) {
+      float z1v, z1p, z2v, z2p;
+      mct::draw_normal_pair(key, e, static_cast<uint32_t>(2 * j), z1v, z1p);
+      mct::draw_normal_pair(key, e, static_cast<uint32_t>(2 * j + 1), z2v,
+                            z2p);
+      level_step(c, z1v, z1p, z2v, z2p, 1.0f, s);
+      if (ANTI) level_step(c, z1v, z1p, z2v, z2p, -1.0f, m);
     }
+    const float d = level_pay(c, s);
+    if (!ANTI) return d;
+    return 0.5f * (d + level_pay(c, m));
   }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
-}
+};
 
-// kind: 0 K27 (qe selects the scheme), 1 K28, 2 K29.
+// kind: 0 K27 (qe selects the scheme), 1 K28.
 template <bool ANTI, bool KAHAN>
 void launch(const float* scal, int n_steps, uint32_t seed, uint32_t off,
             int n_blocks, int n_elems, int iters, int kind, int qe,
             float* out, cudaStream_t stream) {
-  if (kind == 2) {
-    heston_level_kernel<ANTI, KAHAN><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_steps, seed, off, n_elems, iters, out);
-  } else if (kind == 1) {
+  if (kind == 1) {
     heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0, stream>>>(
         scal, n_steps, seed, off, n_elems, iters, out);
   } else if (qe) {
@@ -303,6 +327,26 @@ int run(const float* scal, int n_steps, int seed, int off, int n_blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K29's split walk and its fold (THREADS threads, each thread's Acc2, the
+// unsplit kernel's order).
+template <bool ANTI, bool KAHAN>
+int launch_level(const float* scal, int n_coarse, uint32_t seed, uint32_t off,
+                 int n_blocks, int rows, int iters, size_t cap,
+                 float* scratch, float* out, cudaStream_t s) {
+  return mct::walk_split_launch<HestonLevelWalk, THREADS, false, ANTI, KAHAN>(
+      HestonLevelWalk::Params{scal, n_coarse}, seed, off, n_blocks, rows,
+      iters, cap, scratch, out, s);
+}
+
+using LevelFn = int (*)(const float*, int, uint32_t, uint32_t, int, int, int,
+                        size_t, float*, float*, cudaStream_t);
+
+// Indexed by antithetic << 1 | kahan.
+constexpr LevelFn LEVEL_LAUNCHERS[4] = {
+    launch_level<false, false>, launch_level<false, true>,
+    launch_level<true, false>,  launch_level<true, true>,
+};
+
 }  // namespace
 
 // scal (the 10 Euler scalars, then the 10 QE constants) -> out (n_blocks,
@@ -324,12 +368,26 @@ extern "C" int mctpu_heston_greeks(const float* scal, int n_steps, int seed,
              kahan, 1, 0, out, stream);
 }
 
+// Floats of scratch a K29 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_heston_level_scratch_floats(int n_blocks, int rows,
+                                                 int iters, int cap) {
+  return static_cast<int>(
+      mct::walk_groups<THREADS, false>(n_blocks, rows, iters,
+                                       static_cast<size_t>(cap))
+          .total);
+}
+
 // scal (LEVEL_SCAL, 13 floats) -> out (n_blocks, 2) of the level correction
-// over n_fine (even) fine steps.  mode is unused.
+// over n_fine (even) fine steps: the split walk and its fold, scratch of
+// mctpu_heston_level_scratch_floats(.., cap) floats.
 extern "C" int mctpu_heston_level(const float* scal, int n_fine, int seed,
                                   int off, int n_blocks, int rows, int iters,
-                                  int antithetic, int kahan, int /*mode*/,
-                                  float* out, void* stream) {
-  return run(scal, n_fine, seed, off, n_blocks, rows, iters, antithetic,
-             kahan, 2, 0, out, stream);
+                                  int antithetic, int kahan, int cap,
+                                  float* scratch, float* out, void* stream) {
+  const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
+  return LEVEL_LAUNCHERS[idx](scal, n_fine / 2, static_cast<uint32_t>(seed),
+                              static_cast<uint32_t>(off), n_blocks, rows,
+                              iters, static_cast<size_t>(cap), scratch, out,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -846,10 +846,15 @@ def xva_partials(ops: Operands, seed: int, block_offset: int, plan: Plan,
 
 
 def xva_greek_partials(ops: Operands, seed: int, block_offset: int,
-                       plan: Plan, n_blocks: int, wide=None):
+                       plan: Plan, n_blocks: int, wide=None,
+                       scratch_cap: int = 0):
     """K44's ``((B, 14), (B, 4, m))`` partials: for CUDA operands K44 up to
     8 underlyings and its runtime-m kernel beyond (or wherever ``wide`` is
-    true), for CPU operands the plain version; other devices raise."""
+    true), for CPU operands the plain version; other devices raise.
+    ``scratch_cap``: K44's scratch in floats at most (0: 256 MB), past which
+    it splits and folds simulation blocks and iterations in groups; the
+    outputs do not depend on it (the runtime-m kernel's state past 32
+    underlyings comes on top)."""
     dev, wide = _xva_launch(ops, True, wide, n_blocks)
     if dev.type == "cpu":
         return xva_greek_plain_partials(ops, seed, block_offset, plan,
@@ -859,17 +864,16 @@ def xva_greek_partials(ops: Operands, seed: int, block_offset: int,
     with torch.cuda.device(dev):
         out = torch.empty((n_blocks, N_XVA_GREEK_SCALARS + 4 * m),
                           dtype=torch.float32, device=dev)
+        shape = (n_blocks, plan.rows, plan.iters, int(plan.antithetic))
         scratch = torch.empty(
-            max(1, lib.mctpu_xva_scratch_floats(m, g, 1, int(wide), n_blocks,
-                                                plan.rows, plan.iters,
-                                                int(plan.antithetic), 0)),
+            lib.mctpu_xva_scratch_floats(m, g, 1, int(wide), *shape,
+                                         scratch_cap),
             dtype=torch.float32, device=dev)
         status = lib.mctpu_xva_greeks(
             ops.scal.data_ptr(), ops.lt.data_ptr(), ops.par.data_ptr(),
             ops.nodes.data_ptr(), m, g, int(wide), wrap_int32(seed),
-            wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
-            int(plan.antithetic), int(plan.kahan), scratch.data_ptr(),
-            out.data_ptr(), _stream())
+            wrap_int32(block_offset), *shape, int(plan.kahan), scratch_cap,
+            scratch.data_ptr(), out.data_ptr(), _stream())
     name = "xva_greeks_wide" if wide else "xva_greeks_am"
     _build.check(status, name)
     LAUNCHES[name] += 1

@@ -1632,6 +1632,36 @@ def test_xva_grouped_scratch_matches_one_group(dev, antithetic):
         assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
 
 
+@pytest.mark.parametrize("m, rows", [(3, 10), (8, 11), (9, 13), (17, 13),
+                                     (33, 13)])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_xva_greek_split_grouped_scratch_matches_plain(dev, m, rows,
+                                                       antithetic):
+    """K44 (its split and fold at m <= 8, its runtime-m slices past it) at
+    two iterations and rows that leave a short last pass or slice, mixed
+    legs, against the plain version by the scaled pair bound; under a
+    forced small scratch cap (1 float: every (block, iteration) its own
+    group, the fold's carry between them; half the one-group scratch) bit
+    for bit the one-group launch."""
+    ops, plan = _xva_setup(dev, m, True, 5, antithetic, not antithetic,
+                           greeks=True, rows=rows)
+    plan = _xva_two_iters(plan)
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kcm.xva_greek_partials(
+            ops, SEED, off, plan, nb)),
+        lambda off, nb: _mw_greek_pairs(kcm.xva_greek_plain_partials(
+            ops, SEED, off, plan, nb)), units=_units(plan))
+    lib = _build.library()
+    shape = (m, 5, 1, int(m > 8), NB, plan.rows, plan.iters,
+             int(antithetic))
+    whole = lib.mctpu_xva_scratch_floats(*shape, 0)
+    want = kcm.xva_greek_partials(ops, SEED, 0, plan, NB)
+    for cap in (1, whole // 2):
+        got = kcm.xva_greek_partials(ops, SEED, 0, plan, NB,
+                                     scratch_cap=cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), cap
+
+
 def test_xva_runtime_m_capped_grid_matches_plain(dev):
     """K43's runtime-m kernel past its register tiles (33 underlyings) on
     2048 (block, slice) items, more than the card holds at once, so each
@@ -1900,6 +1930,33 @@ def test_mlmc_level_kernels_match_plain(dev, level, antithetic):
             lambda off, nb: kbarrier.level_plain_partials(bp, SEED, off, plan,
                                                           nb, nf, up),
             units=_units(plan))
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_heston_level_split_mlmc_plan_and_grouped_scratch(dev, antithetic):
+    """K29 (split per path element, folded in the unsplit order) on the
+    MLMC 8 x 8 plan's shape (8 blocks, 16 iterations, rows 8) against the
+    plain version; under a forced small scratch cap bit for bit the
+    one-group launch, each capped call counting one launch."""
+    lp = kheston.level_params(_HESTON["opt"], 32, dev)
+    plan = kheston.make_plan(8 * 16 * 8 * 128 * (2 if antithetic else 1), 8,
+                             8, antithetic)
+    assert (plan.num_blocks, plan.iters) == (8, 16)
+    _contract(
+        lambda off, nb: kheston.level_partials(lp, SEED, off, plan, nb, 32),
+        lambda off, nb: kheston.level_plain_partials(lp, SEED, off, plan, nb,
+                                                     32),
+        n_blocks=8, units=_units(plan))
+    lib = _build.library()
+    whole = lib.mctpu_heston_level_scratch_floats(8, 8, 16, 0)
+    assert lib.mctpu_heston_level_scratch_floats(8, 8, 16, 1) < whole
+    want = kheston.level_partials(lp, SEED, 0, plan, 8, 32)
+    for cap in (1, whole // 2):
+        before = kheston.LAUNCHES["heston_level"]
+        got = kheston.level_partials(lp, SEED, 0, plan, 8, 32,
+                                     scratch_cap=cap)
+        assert torch.equal(got, want), cap
+        assert kheston.LAUNCHES["heston_level"] == before + 1
 
 
 def test_price_heston_mlmc_against_cf_and_launches(dev):

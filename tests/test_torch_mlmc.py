@@ -83,35 +83,41 @@ def _barrier(opt, lv, plan, nb, off, seed=SEED):
 
 KERNELS = {"K29": (jheston, _heston), "K11": (jasian, _asian),
            "K14": (jbarrier, _barrier)}
+# K29 also at 2 iterations a block, plain and antithetic: the stream's
+# per-iteration reseed, which the card's split walk folds in the plain
+# version's order.
 CASES = {
-    # name: (kernel, option, level, antithetic, kahan)
-    "K29_l1": ("K29", HOPT, 1, False, True),
-    "K29_l2": ("K29", MOPT, 2, False, True),
-    "K29_l1_antithetic_f32": ("K29", HOPT, 1, True, False),
-    "K11_arithmetic_l1": ("K11", ASIAN, 1, False, True),
-    "K11_geometric_l2": ("K11", GEO, 2, False, True),
-    "K11_geometric_l1_antithetic_f32": ("K11", GEO, 1, True, False),
-    "K14_up_l1": ("K14", UP, 1, False, True),
-    "K14_down_l2": ("K14", DOWN, 2, False, True),
-    "K14_up_l2_antithetic_f32": ("K14", UP, 2, True, False),
+    # name: (kernel, option, level, antithetic, kahan, iterations)
+    "K29_l1": ("K29", HOPT, 1, False, True, 1),
+    "K29_l2": ("K29", MOPT, 2, False, True, 1),
+    "K29_l1_antithetic_f32": ("K29", HOPT, 1, True, False, 1),
+    "K29_l1_iters2": ("K29", HOPT, 1, False, True, 2),
+    "K29_l1_iters2_antithetic": ("K29", MOPT, 1, True, True, 2),
+    "K11_arithmetic_l1": ("K11", ASIAN, 1, False, True, 1),
+    "K11_geometric_l2": ("K11", GEO, 2, False, True, 1),
+    "K11_geometric_l1_antithetic_f32": ("K11", GEO, 1, True, False, 1),
+    "K14_up_l1": ("K14", UP, 1, False, True, 1),
+    "K14_down_l2": ("K14", DOWN, 2, False, True, 1),
+    "K14_up_l2_antithetic_f32": ("K14", UP, 2, True, False, 1),
 }
 
 
-def _plans(jmod, antithetic, kahan):
-    paths = NB * ROWS * 128 * (2 if antithetic else 1)
+def _plans(jmod, antithetic, kahan, iters=1):
+    paths = NB * ROWS * 128 * (2 if antithetic else 1) * iters
     jplan = jmod.make_plan(paths, NB, ROWS, antithetic, kahan=kahan)
     tplan = theston.make_plan(paths, NB, ROWS, antithetic, kahan)
     for f in ("num_blocks", "iters", "rows", "paths_per_iter",
               "units_per_iter", "antithetic", "kahan"):
         assert getattr(tplan, f) == getattr(jplan, f), f
+    assert tplan.iters == iters
     return jplan, tplan
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_level_partials_match_interpret_mode(case):
-    kernel, opt, lv, antithetic, kahan = CASES[case]
+    kernel, opt, lv, antithetic, kahan, iters = CASES[case]
     jmod, run = KERNELS[kernel]
-    jplan, tplan = _plans(jmod, antithetic, kahan)
+    jplan, tplan = _plans(jmod, antithetic, kahan, iters)
     want = np.asarray(jmod.level_pallas_partials(
         opt, SEED, 1, jplan, NB, N0, lv, interpret=True))
     got = run(opt, lv, tplan, NB, 1)

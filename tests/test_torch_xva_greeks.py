@@ -40,15 +40,17 @@ SEED = int(jrng.key_to_seed(KEY))
 NB, ROWS = 2, 8
 
 
-def _cli(m: int, g: int):
+def _cli(m: int, g: int, mixed: bool = False):
     """The JAX Greeks CLI's xVA set (``--product xva``): correlation 0.3 +
     0.7 I, s = 100 (1 - 0.05 i), v = 0.2 (1 + 0.25 i), k = 100, w = 1, r =
-    0.04879; own intensity 0.02, own lgd 0.5, spread 0.01."""
+    0.04879; own intensity 0.02, own lgd 0.5, spread 0.01.  ``mixed``:
+    every odd leg short, w = -0.6."""
     i = np.arange(m)
     net = jtypes.CvaMultiSpec(
         intensity=0.03, lgd=0.6, s=100.0 * (1.0 - 0.05 * i),
         v=0.2 * (1.0 + 0.25 * i), corr=np.full((m, m), 0.3) + 0.7 * np.eye(m),
-        r=0.04879, t=1.0, strikes=np.full(m, 100.0), weights=np.ones(m),
+        r=0.04879, t=1.0, strikes=np.full(m, 100.0),
+        weights=np.where(i % 2 == 1, -0.6, 1.0) if mixed else np.ones(m),
         n_grid=g)
     return jtypes.XvaSpec(net, own_intensity=0.02, own_lgd=0.5,
                           funding_spread=0.01)
@@ -89,23 +91,29 @@ def _pairs(scal, vec):
 # (mctpu/kernels/cva_multi.py:1413-1420).  The port averages the mirror as
 # K42 does; its antithetic K44 is held against the plain version on the
 # card and by the engine's statistical gates.
+# Also the geometries the card's kernels dispatch on: one underlying, five
+# (past am_threads' 512-thread instances), and two iterations a block.
 CASES = {
-    # name: (xspec, antithetic, kahan)
-    "K44_m3_cli_g3": (_cli(3, 3), False, True),
-    "K44_m2_mixed_g4_f32": (_mixed(4), False, False),
+    # name: (xspec, antithetic, kahan, iterations)
+    "K44_m3_cli_g3": (_cli(3, 3), False, True, 1),
+    "K44_m2_mixed_g4_f32": (_mixed(4), False, False, 1),
+    "K44_m1_cli_g2": (_cli(1, 2), False, True, 1),
+    "K44_m5_mixed_g2": (_cli(5, 2, mixed=True), False, True, 1),
+    "K44_m3_cli_g2_iters2_f32": (_cli(3, 2), False, False, 2),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_greek_partials_match_interpret_mode(case):
-    xspec, antithetic, kahan = CASES[case]
+    xspec, antithetic, kahan, iters = CASES[case]
     m = xspec.netting.n_underlyings
     probe = jcm.make_plan(1, NB, ROWS, antithetic, n_underlyings=m)
-    paths = NB * probe.paths_per_iter
+    paths = NB * probe.paths_per_iter * iters
     jplan = jcm.make_plan(paths, NB, ROWS, antithetic, kahan=kahan,
                           n_underlyings=m)
     tplan = tcm.make_plan(paths, NB, ROWS, antithetic, kahan,
                           n_underlyings=m)
+    assert tplan.iters == jplan.iters == iters
     ws, wv = jcm.xva_greek_pallas_partials(xspec, _chol64(xspec.netting),
                                            SEED, 1, jplan, NB,
                                            interpret=True)

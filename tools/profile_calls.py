@@ -3,9 +3,12 @@
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
 
-    python3 tools/profile_calls.py [label-substring ...]
+    python3 tools/profile_calls.py [--root DIR] [label-substring ...]
 
-(with substrings, only the calls whose label holds one of them).
+(with substrings, only the calls whose label holds one of them; with
+``--root``, another checkout's ``mctpu_torch`` runs these calls, an
+earlier version say, and its kernel ms counts every kernel of the call
+but PyTorch's own, since its kernels may bear other names).
 
 For each call at the main-path shapes that ``chip_smoke.py`` drives (the
 default ``EngineConfig``), after one warm-up call:
@@ -18,12 +21,12 @@ default ``EngineConfig``), after one warm-up call:
   launches of a control-variate call, K48's split kernel and fold in
   each; an MLMC call's level-0 kernel and its level kernel; an RQMC
   call's net kernel and its chunk carry; the
-  runtime-m xVA's, the CVA's and the CVA Greeks' slice kernels and their
-  folds; the netting-set CVA's and the xVA's split kernel and its fold at
-  m <= 8; the packed basket price's and the packed basket Greeks' split
-  kernels and their folds; the
-  barrier walk's and the 3-asset basket walks' split kernel and its fold
-  (K12, K30); 0 for a
+  runtime-m xVA's and xVA Greeks', the CVA's and the CVA Greeks' slice
+  kernels and their folds; the netting-set CVA's, the xVA's and the xVA
+  Greeks' split kernel and its fold at m <= 8; the packed basket price's
+  and the packed basket Greeks' split kernels and their folds; the
+  barrier walk's, the Heston MLMC level's and the 3-asset basket walks'
+  split kernel and its fold (K12, K29, K30); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -34,6 +37,7 @@ list of the rows last.  Imports neither jax nor mctpu.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -46,6 +50,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 SEED = 20240607
 PROFILE_TRIES = 3  # profiles of one call before an empty trace is an error
+ANY_PORT_KERNEL = "any kernel of the port"  # --root's kernel column
 
 
 def calls(mt):
@@ -113,10 +118,10 @@ def calls(mt):
                         v=0.2 * (1.0 + 0.25 * i16), rho=0.3, r=0.04879,
                         w=np.ones(16))
     # The JAX CLIs' --product xva: the exotic CLI's netting set at 3 and 16
-    # underlyings, the Greeks CLI's at 3, with own intensity 0.02, own lgd
-    # 0.5 and funding spread 0.01.
-    xva3, xva16, xvag = (XvaSpec(net, 0.02, 0.5, 0.01)
-                         for net in (cm3, cm16, cmg))
+    # underlyings, the Greeks CLI's at 3 and 16, with own intensity 0.02,
+    # own lgd 0.5 and funding spread 0.01.
+    xva3, xva16, xvag, xvag16 = (XvaSpec(net, 0.02, 0.5, 0.01)
+                                 for net in (cm3, cm16, cmg, cmg16))
 
     rainbow = RainbowOption.equicorrelated
     rb3 = rainbow([100.0] * 3, [0.2, 0.3, 0.2], 0.3, 100.0, 0.05)
@@ -132,15 +137,15 @@ def calls(mt):
                        average="geometric")
     uo8 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0,
                         n_obs=8)
-    # The split walks' kernels (K12, K30: a walk per path element, then the
-    # fold in the unsplit order).
+    # The split walks' kernels (K12, K29, K30: a walk per path element, then
+    # the fold in the unsplit order).
     split = ("walk_split_kernel", "walk_fold_kernel")
     mlmc_calls = []
     for tag, cfg in (("512 x 256", mt.EngineConfig()),
                      ("8 x 8", mt.EngineConfig(num_blocks=8, rows=8))):
         mlmc_calls += [
             (f"price_heston_mlmc eps=0.02, {tag}",
-             ("heston_kernel", "heston_level_kernel"),
+             ("heston_kernel",) + split,
              lambda c=cfg: mt.mlmc.price_heston_mlmc(hopt, 0.02, SEED, c)),
             (f"price_asian_mlmc geometric eps=0.02, {tag}",
              ("asian_kernel", "asian_level_kernel"),
@@ -285,8 +290,12 @@ def calls(mt):
         ("price_xva m=16, n_grid=50, 2^20",
          ("xva_slice_kernel", "xva_fold_kernel"),
          lambda: mt.price_xva(xva16, 1 << 20, SEED)),
-        ("greeks_xva m=3, n_grid=12, 2^20", "xva_greeks_am_kernel",
+        ("greeks_xva m=3, n_grid=12, 2^20",
+         ("am_split_kernel", "am_fold_kernel"),
          lambda: mt.greeks_xva(xvag, 1 << 20, SEED)),
+        ("greeks_xva m=16, n_grid=12, 2^20",
+         ("xva_greek_slice_kernel", "xva_greek_fold_kernel"),
+         lambda: mt.greeks_xva(xvag16, 1 << 20, SEED)),
         # The control variates at the JAX exotic CLI's --product cv shapes:
         # two launches a call (the pilot's 8 blocks, then the main run).
         ("price_vanilla_cv 2^28", "vanilla_cv_kernel",
@@ -332,6 +341,8 @@ def is_kernel(name: str, kernel) -> bool:
     a call without a kernel."""
     if kernel is None:
         return False
+    if kernel == ANY_PORT_KERNEL:
+        return not (name.startswith(("Memcpy", "Memset")) or "at::" in name)
     if isinstance(kernel, tuple):
         return any(is_kernel(name, k) for k in kernel)
     return any(mark in name for mark in (
@@ -384,10 +395,14 @@ def wall_ms(fn, reps: int = 7) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=None)
+    ap.add_argument("labels", nargs="*")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_calls: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str((args.root or ROOT).resolve()))
     import mctpu_torch as mt
 
     smi = subprocess.run(
@@ -396,10 +411,12 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     rows = []
-    wanted = sys.argv[1:]
+    wanted = args.labels
     for label, kernel, fn in calls(mt):
         if wanted and not any(w in label for w in wanted):
             continue
+        if args.root is not None and kernel is not None:
+            kernel = ANY_PORT_KERNEL
         before = launch_count()
         fn()  # warm-up: builds the kernels on the first call
         launches = launch_count() - before
@@ -408,7 +425,7 @@ def main() -> int:
         rows.append({"call": label, "kernel": kernel, "wall_ms": wall,
                      "device_ms": device, "kernel_ms": kern,
                      "busy": device / wall, "launches": launches,
-                     "card": smi})
+                     "root": str(args.root or ROOT), "card": smi})
         print(f"{label}: wall {wall:.3f} ms, device {device:.3f} ms, "
               f"kernel {kern:.3f} ms, busy {device / wall:.0%}, "
               f"{launches} launches", flush=True)

@@ -6,12 +6,16 @@ Run from the repository root on a machine with the CUDA toolkit (``nvcc``):
     python3 tools/ptxas_report.py [source.cu ...]
 
 Compiles each source of ``mctpu_torch/csrc`` (all of ``_build.SOURCES`` by
-default, ``multi_walk.cu``, ``rainbow.cu`` and ``cva_multi.cu`` among them)
+default, ``multi_walk.cu``, ``rainbow.cu``, ``cva_multi.cu`` and
+``heston.cu`` -- K29's split walk ``walk_split_kernel<HestonLevelWalk, ..>``
+and its fold ``walk_fold_kernel<1024, ..>`` -- among them)
 with the flags ``mctpu_torch/_build.py`` builds it with, plus ``-Xptxas -v``,
 one ``nvcc`` per source, all started together, into a temporary
-directory, and prints one line per kernel instance: its source, its name
-(demangled where ``cu++filt`` is found), registers, spill stores and loads
-in bytes, and static shared memory.  Builds nothing the port loads.
+directory, and prints each source's compile time (wall seconds from the
+common start, as ``_build.build`` runs them) and one line per kernel
+instance: its source, its name (demangled where ``cu++filt`` is found),
+registers, spill stores and loads in bytes, and static shared memory.
+Builds nothing the port loads.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,14 +55,23 @@ def main(argv) -> int:
     nvcc = _build._nvcc()
     rows = []
     with tempfile.TemporaryDirectory() as work:
-        procs = [(name, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, *_build.SOURCE_FLAGS.get(name, ()),
-             "-Xptxas", "-v", "-c", "-o", str(Path(work) / f"{name}.o"),
-             str(_build.CSRC / name)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for name in sources]
-        for name, proc in procs:
-            out = proc.communicate()[0]
+        start = time.perf_counter()
+
+        def compile_one(name):
+            proc = subprocess.run(
+                [nvcc, *_build.NVCC_FLAGS, *_build.SOURCE_FLAGS.get(name, ()),
+                 "-Xptxas", "-v", "-c", "-o", str(Path(work) / f"{name}.o"),
+                 str(_build.CSRC / name)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return proc, time.perf_counter() - start
+
+        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+            done = list(pool.map(compile_one, sources))
+        for name, (_, secs) in zip(sources, done):
+            print(f"{name}: compiled in {secs:.1f} s ({len(sources)} "
+                  "sources at once)")
+        for name, (proc, _) in zip(sources, done):
+            out = proc.stdout
             if proc.returncode != 0:
                 print(out)
                 raise RuntimeError(f"nvcc failed on {name}")

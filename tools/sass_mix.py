@@ -12,16 +12,20 @@ with the flags ``mctpu_torch/_build.py`` builds it with, to a cubin in a
 temporary directory, and reads ``cuobjdump -sass``.  In each case's kernel
 it finds the innermost loops (a backward branch with no other inside) that
 hold a ``MUFU.RSQ`` -- the IEEE sqrtf of a Box-Muller pair, one a Philox
-block; the walks take no other root -- and counts the loop body's
-instructions by class: ``IMAD.WIDE``, the other ``IMAD``,
+block, and of the Heston walk's variance, one an Euler step -- and counts
+the loop body's instructions by class: ``IMAD.WIDE``, the other ``IMAD``,
 ``LOP3``/``IADD3``, FP32 (``FADD``, ``FMUL``, ``FFMA``, ``FMNMX``,
 ``FSETP``, ``FSEL``, ``FSET``, ``FCHK``), ``MUFU`` and the rest.
-A body of ``n`` roots draws ``2 n`` normals, so it walks ``2 n / k`` dates
-of a path that takes ``k`` normals a date (1 for the barrier walk, ``a``
-for the asset-major basket walk); a walk that draws the stream again for
-the antithetic mirror (the simple design) walks each date ``walks = 2``
-times.  Per path-date = the largest such loop's counts / its dates x
-walks.  The issue time at the case's path-dates is that count / 32 warp
+A path that takes ``k`` normals a date (1 for the barrier walk, ``a`` for
+the asset-major basket walk, 2 for the Heston level's fine step) and
+``q`` more roots a date (the Heston level: its fine step's and half its
+coarse step's, 1.5, or 3 for both signs) takes ``k / 2 + q`` roots a
+date, so a body of ``n`` roots walks ``n / (k / 2 + q)`` dates; a walk
+that draws the stream again for the antithetic mirror (the simple design)
+walks each date ``walks = 2`` times.  Per path-date = the largest such
+loop's counts / its dates x walks.  The issue time at the case's
+path-dates (2^22 x 50, the Heston level's 2^22 x 128 fine steps) is that
+count / 32 warp
 instructions, over 4 warp instructions a clock an SM, at the card's SM
 count and its maximum SM clock (``nvidia-smi``): the least time the SMs
 can take to issue the walk's instructions, beside ``chip_smoke.py``'s bound
@@ -50,9 +54,11 @@ sys.path.insert(0, str(ROOT / "tools"))
 from ptxas_report import _demangle  # noqa: E402
 
 PATH_DATES = (1 << 22) * 50  # phase 6: 2^22 paths, 50 dates
-# (case, source, text of the demangled kernel name, normals a date, walks)
-# at ANTI false, KAHAN true, up-and-out / the 3-asset basket: the simple
-# designs (K12 barrier_kernel, K30 mw_walk_am_kernel) and the split walks.
+LEVEL_DATES = (1 << 22) * 128  # K29 in phase 6: 128 fine steps
+# (case, source, text of the demangled kernel name, normals a date, walks
+# [, more roots a date, path-dates]) at ANTI false, KAHAN true, up-and-out
+# / the 3-asset basket: the simple designs (K12 barrier_kernel, K30
+# mw_walk_am_kernel, K29 heston_level_kernel) and the split walks.
 CASES = (
     ("K12 simple", "barrier.cu", "barrier_kernel<false, true, true>", 1, 1),
     ("K12 simple antithetic", "barrier.cu",
@@ -71,6 +77,14 @@ CASES = (
      3, 1),
     ("K30 asian a=3 split antithetic", "multi_walk.cu",
      "AmWalk<3, false>, true>", 3, 1),
+    ("K29 simple", "heston.cu", "heston_level_kernel<false, true>", 2, 1,
+     1.5, LEVEL_DATES),
+    ("K29 simple antithetic", "heston.cu", "heston_level_kernel<true, true>",
+     2, 2, 1.5, LEVEL_DATES),
+    ("K29 split", "heston.cu", "HestonLevelWalk, false>", 2, 1, 1.5,
+     LEVEL_DATES),
+    ("K29 split antithetic", "heston.cu", "HestonLevelWalk, true>", 2, 1, 3,
+     LEVEL_DATES),
 )
 FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"}
 CLASSES = ("IMAD.WIDE", "IMAD", "LOP3/IADD3", "FP32", "MUFU", "other")
@@ -197,7 +211,8 @@ def main() -> int:
             names = [plain_name(n) for n in _demangle(list(funcs), nvcc)]
             sass[src] = dict(zip(names, funcs.values()))
     rows = []
-    for case, src, text, normals, walks in cases:
+    for case, src, text, normals, walks, *more in cases:
+        roots, path_dates = more or (0, PATH_DATES)
         hits = [(n, ins) for n, ins in sass[src].items() if text in n]
         if not hits:
             print(f"{case}: no kernel matching {text!r} in {src}")
@@ -205,24 +220,26 @@ def main() -> int:
         name, ins = hits[0]
         loops = walk_loops(ins)
         for n_pairs, cnt in loops:
-            dates = 2 * n_pairs / normals
+            dates = n_pairs / (normals / 2 + roots)
             print(f"{case}: loop of {sum(cnt.values())} instructions, "
-                  f"{n_pairs} Box-Muller pairs ({dates:g} dates): "
+                  f"{n_pairs} roots (MUFU.RSQ) ({dates:g} dates): "
                   + ", ".join(f"{k} {cnt[k]}" for k in CLASSES), flush=True)
         if not loops:
             print(f"{case}: no walk loop found in {name}")
             continue
         n_pairs, cnt = max(loops, key=lambda x: (x[0], sum(x[1].values())))
-        per = {k: cnt[k] * walks * normals / (2 * n_pairs) for k in CLASSES}
+        per = {k: cnt[k] * walks * (normals / 2 + roots) / n_pairs
+               for k in CLASSES}
         total = sum(per.values())
-        issue_ms = total * PATH_DATES / 32 / (4 * sms * clock) * 1e3
+        issue_ms = total * path_dates / 32 / (4 * sms * clock) * 1e3
         print(f"{case}: per path-date " + ", ".join(
             f"{k} {per[k]:.2f}" for k in CLASSES)
-              + f"; total {total:.2f}; issue time at 2^22 x 50 "
-                f"{issue_ms:.4f} ms [{label}]", flush=True)
+              + f"; total {total:.2f}; issue time at 2^22 x "
+                f"{path_dates >> 22} {issue_ms:.4f} ms [{label}]",
+              flush=True)
         rows.append({"case": case, "kernel": name, "per_path_date": per,
                      "total": total, "issue_ms": issue_ms,
-                     "path_dates": PATH_DATES, "sms": sms,
+                     "path_dates": path_dates, "sms": sms,
                      "clock_hz": clock, "card": label})
     print(json.dumps(rows), flush=True)
     return 0

@@ -5,8 +5,9 @@ netting-set xVA), K48 (the packed basket control variate), K3 (the
 packed basket price), K33 (the packed basket-Asian Greeks), K39 (the
 packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
 (the CVA exposure walk), K5 (its Greeks), K31 (the packed multi-asset
-walk), K40 (the netting-set CVA) and K43's runtime-m xVA kernel -- at ``chip_smoke.py``'s phase 6 shapes on one GPU, against
-another checkout in the same process.
+walk), K40 (the netting-set CVA), K43's runtime-m xVA kernel, K29 (the
+Heston MLMC level) and K44 (the xVA Greeks) -- at ``chip_smoke.py``'s
+phase 6 shapes on one GPU, against another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
 
@@ -52,7 +53,14 @@ the arithmetic Asian and the up-and-out at H = 130, and the Asian at 32
 assets (2^22) and at 100 (2^20); K40 on the JAX exotic CLI's ``--product
 cva-multi`` set at 3 underlyings, plain and antithetic, and at 8, 50
 nodes, 2^20 paths; K43's runtime-m kernel on the JAX exotic CLI's
-``--product xva`` set at 16 underlyings, 50 nodes, 2^20 paths. Each time
+``--product xva`` set at 16 underlyings, 50 nodes, 2^20 paths; K29 on the
+JAX exotic CLI's ``--product mlmc`` option at level 4 (128 fine steps),
+2^22 paths on the default level plan and 2^20 on the level plan of
+``mctpu``'s 8 x 8 MLMC default, plain and antithetic; K44 on the JAX
+Greeks CLI's ``--product xva`` set, 12 nodes, 2^20 paths, its ``am``
+kernel at 3 underlyings and its runtime-m kernel at 16, and on the
+exotic CLI's set with the same bank side at 32, plain and antithetic.
+Each time
 is the median of ``--reps`` launches timed by CUDA events after one
 warm-up launch (the event time holds the host's time before a call's
 first launch; the host's time in the call, its launches enqueued, is
@@ -61,10 +69,13 @@ and (6, width) slot vectors), K43's
 (its eight sums and both profiles), K48's (its five moment sums), K3's,
 K33's (its four sums and (4, width) lane rows), K39's, K35's, K31's and
 K40's outputs (K39's and K40's sums and EE
-profile) must equal the other checkout's bit for bit (same walk, passes
-and order of sums); each such case prints the comparison and the tool
-exits 1 if one differs. Prints the card's name and power limit, one line
-per case and version, and a JSON line of them last.
+profile), K29's and K44's ``am`` outputs must equal the other
+checkout's bit for bit (same walk, passes and order of sums), and K44's
+runtime-m (sum, sum^2) pairs must agree with it by ``chip_smoke.py``'s
+scaled pair bound at rtol 2e-5 (its slices reorder the block sums); each
+such case prints the comparison and the tool exits 1 if one differs.
+Prints the card's name and power limit, one line per case and version,
+and a JSON line of them last.
 Imports neither jax nor mctpu.
 """
 from __future__ import annotations
@@ -92,7 +103,11 @@ MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.kernels.cva", "mctpu_torch.types",
            "mctpu_torch.variance", "mctpu_torch.kernels.varred",
            "mctpu_torch.kernels.basket", "mctpu_torch.kernels.greeks",
-           "mctpu_torch.kernels.barrier", "mctpu_torch.mlmc")
+           "mctpu_torch.kernels.barrier", "mctpu_torch.mlmc",
+           "mctpu_torch.kernels.heston")
+# The kernel-vs-kernel tolerance of the cases whose outputs may move in the
+# last bits (chip_smoke.py's RTOL), by the Greek pairs' scaled bound.
+RTOL = 2e-5
 
 
 def _drop_port_modules() -> None:
@@ -113,11 +128,11 @@ def load(root: Path) -> SimpleNamespace:
         sys.path.remove(str(root))
         _drop_port_modules()
     (build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket,
-     kgreeks, kbarrier, mlmc) = mods
+     kgreeks, kbarrier, mlmc, kheston) = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
                            kcm=kcm, kcva=kcva, types=types, variance=variance,
                            kvr=kvr, kbasket=kbasket, kgreeks=kgreeks,
-                           kbarrier=kbarrier, mlmc=mlmc)
+                           kbarrier=kbarrier, mlmc=mlmc, kheston=kheston)
 
 
 def kernel_ms(fn, reps: int):
@@ -148,9 +163,34 @@ def netting_set(t, m: int, n_grid: int):
                           full, np.full(m, 1.0 / m), n_grid)
 
 
+def greeks_set(t, m: int):
+    """``chip_smoke.xva_spec(cva_greeks_cli_spec(m))``: the JAX Greeks
+    CLI's xVA set (``--product xva``) of ``m`` calls, correlation 0.3 + 0.7
+    I, s = 100 (1 - 0.05 i), v = 0.2 (1 + 0.25 i), r = 0.04879, k = 100, w
+    = 1, 12 nodes; own intensity 0.02, own lgd 0.5, funding spread 0.01."""
+    i = np.arange(m)
+    net = dataclasses.replace(
+        netting_set(t, m, 12), s=100.0 * (1.0 - 0.05 * i),
+        v=0.2 * (1.0 + 0.25 * i), r=0.04879,
+        corr=np.full((m, m), 0.3) + 0.7 * np.eye(m), weights=np.ones(m))
+    return t.XvaSpec(net, own_intensity=0.02, own_lgd=0.5,
+                     funding_spread=0.01)
+
+
+def greek_pairs(out):
+    """K44's ``((B, 14), (B, 4, m))`` as ``(B, 14 + 4m)`` (sum, sum^2)
+    pairs."""
+    scal, vec = out
+    return torch.cat([scal] + [vec[:, :, i] for i in range(vec.shape[2])],
+                     1)
+
+
 def cases(v: SimpleNamespace):
-    """``[(name, launch, bitwise)]`` of one version, built from its own
-    API; ``bitwise``: its outputs must equal the other version's."""
+    """``[(name, launch, compare)]`` of one version, built from its own
+    API; ``compare``: True, its outputs must equal the other version's bit
+    for bit; a number, its (sum, sum^2) pairs must agree with the other's
+    by the scaled bound at RTOL over that many units a block; False, no
+    comparison."""
     t, engine, kmw, kcm, kcva = v.types, v.engine, v.kmw, v.kcm, v.kcva
     cfg = engine.EngineConfig()
     out = []
@@ -327,6 +367,46 @@ def cases(v: SimpleNamespace):
     out.append(("K43 runtime-m m=16 50 nodes 2^20",
                 lambda o=ops, p=plan: kcm.xva_partials(
                     o, SEED, 0, p, p.num_blocks), False))
+    # K29 on the JAX exotic CLI's --product mlmc option (S = K = 100, r =
+    # 0.05, T = 1, v0 = theta = 0.04, kappa = 2, xi = 0.3, rho = -0.7) at
+    # level 4 of n0 = 8 (128 fine steps), 2^22 paths on the level plan of
+    # the default EngineConfig (phase 6's), plain and antithetic, and 2^20
+    # on the level plan of mctpu's 8 x 8 MLMC default, plain and
+    # antithetic.
+    hopt = t.HestonOption(s=100.0, k=100.0, r=0.05, t=1.0, v0=0.04,
+                          kappa=2.0, theta=0.04, xi=0.3, rho=-0.7)
+    for n, mlmc_plan, anti in ((1 << 22, False, False),
+                               (1 << 22, False, True),
+                               (1 << 20, True, False),
+                               (1 << 20, True, True)):
+        c = dataclasses.replace(mlmc_cfg if mlmc_plan else cfg,
+                                antithetic=anti)
+        plan = v.mlmc._level_plan(n, c)
+        lp = v.kheston.level_params(hopt, 128, c.torch_device())
+        out.append((f"K29 level 4 (128 steps) 2^{n.bit_length() - 1}"
+                    f"{' MLMC 8 x 8 plan ' if mlmc_plan else ' '}"
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}",
+                    lambda o=lp, p=plan: v.kheston.level_partials(
+                        o, SEED, 0, p, p.num_blocks, 128), True))
+    # K44 on the JAX Greeks CLI's xVA set, 12 nodes, 2^20 paths: its am
+    # kernel at 3 underlyings (bit for bit), its runtime-m kernel at 16
+    # (within RTOL: the slices reorder the block sums), plain and
+    # antithetic; at 32 on the exotic CLI's set with the same bank side
+    # (the Greeks CLI's spots 100 (1 - 0.05 i) turn negative past 20).
+    for m, anti in ((3, False), (3, True), (16, False), (16, True),
+                    (32, False), (32, True)):
+        xs = (greeks_set(t, m) if m <= 16 else t.XvaSpec(
+            netting_set(t, m, 12), own_intensity=0.02, own_lgd=0.5,
+            funding_spread=0.01))
+        plan, ops = engine.greeks_xva_setup(
+            xs, 1 << 20, dataclasses.replace(cfg, antithetic=anti))
+        kind = "am" if m <= 8 else "runtime-m"
+        out.append((f"K44 {kind} m={m} 12 nodes"
+                    f"{' antithetic' if anti else ''} 2^20",
+                    lambda o=ops, p=plan: greek_pairs(kcm.xva_greek_partials(
+                        o, SEED, 0, p, p.num_blocks)),
+                    True if m <= 8 else plan.iters * plan.units_per_iter))
     return out
 
 
@@ -334,6 +414,20 @@ def same_bits(a, b) -> bool:
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def pairs_close(got, want, units: int) -> float:
+    """The largest error over its bound of (sum x, sum x^2) pairs along
+    axis 1: RTOL (|want sum x| + sqrt(units want sum x^2)) on sum x, RTOL
+    want sum x^2 on sum x^2 (chip_smoke.close_pairs); above 1 they differ."""
+    got, want = got.double(), want.double()
+    s, s2 = want[:, 0::2], want[:, 1::2].abs()
+    bound = torch.empty_like(want)
+    bound[:, 0::2] = RTOL * (s.abs() + torch.sqrt(units * s2))
+    bound[:, 1::2] = RTOL * s2
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float(((got - want).abs() / bound.clamp(min=1e-300)).max())
 
 
 def build_all(versions) -> None:
@@ -381,7 +475,7 @@ def main() -> int:
     mine = kept(this)
     theirs = kept(other) if other is not None else None
     out, differ = [], []
-    for k, (name, fn, bitwise) in enumerate(mine):
+    for k, (name, fn, compare) in enumerate(mine):
         if theirs is None:
             order = (("V", fn),)
         else:
@@ -399,12 +493,20 @@ def main() -> int:
         line = (f"{name}: " + " ".join(f"{tag} {ms:.4f}" for (tag, _), ms
                                        in zip(order, times))
                 + " ms (host " + " ".join(f"{h:.4f}" for h in hosts) + ")")
-        if bitwise and theirs is not None:
+        if compare is True and theirs is not None:
             equal = same_bits(fn(), theirs[k][1]())
             out[-1]["bitwise_equal"] = equal
             line += ("; outputs equal the other checkout's bit for bit: "
                      f"{equal}")
             if not equal:
+                differ.append(name)
+        elif compare and theirs is not None:
+            worst = pairs_close(fn(), theirs[k][1](), compare)
+            out[-1]["max_err_over_bound"] = worst
+            line += (f"; outputs within rtol {RTOL} of the other "
+                     f"checkout's (scaled pair bound): max err / bound "
+                     f"{worst:.3e}")
+            if not worst <= 1.0:
                 differ.append(name)
         print(line, flush=True)
     print(json.dumps(out), flush=True)
