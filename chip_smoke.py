@@ -22,10 +22,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
    3 and 8 assets and the packed walk and its Greeks at 9, 16, 17, 32 and
    100, at 13 dates; the split walks K12 and K30 (a = 3, the Asian and
-   the knock-out) at 50 dates and K29 at level 4 on the MLMC 8 x 8 plan
-   with 32 iterations, plain and antithetic, and with their scratch capped
-   at 1 float and at half the one-group size, bit-equal to the one-group
-   launch; the
+   the knock-out) at 50 dates, K10 (both averages) at 13 dates, K27 (Euler
+   and QE) at 8 steps (level 0 of ``mctpu``'s MLMC default) and K29 at
+   level 4 on the MLMC 8 x 8 plan with 32 iterations, plain and
+   antithetic, and with their scratch capped at 1 float and at half the
+   one-group size, bit-equal to the one-group launch; the
    rainbow and its Greeks at 1, 3 and 8 assets and the packed
    rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
@@ -167,9 +168,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    work (``bound_ms``: instruction counts over the peak rate of their
    class, see ``PEAK_OPS``); a split kernel's time holds all its
    launches, the slice or split kernel and its fold (K4, K5, K40, K43 and
-   its runtime-m kernel, K8 and K48); K48 also on its pilot's plan, a line
-   of its own (``basket_cv_packed_pilot``, the kernel's launches beside
-   it); K43's CVA sums and EPE profile at no own default and no funding
+   its runtime-m kernel, K8 and K48, the split walks); K48 also on its
+   pilot's plan, a line of its own (``basket_cv_packed_pilot``, the
+   kernel's launches beside it), and K27 Euler at level 0 of the MLMC 8 x
+   8 default (8 steps, 8 x 128 x 8), a line that is printed only; K43's
+   CVA sums and EPE profile at no own default and no funding
    equal to K40's bit for bit at the timed shape, plain and antithetic.
 
 The last two lines of output are a JSON line of per-kernel results and the
@@ -3298,6 +3301,20 @@ def main() -> int:
 
     for label, _, fn, plain, floats in split_cases:
         split_contract(label, fn, plain, floats)
+    # K10 is a split walk too, its 5 outputs an element folded once an
+    # iteration (its pairs by the scaled bound), at the odd 13 dates.
+    for average in ("arithmetic", "geometric"):
+        geo = average == "geometric"
+        gp13 = kasian.greek_params(dataclasses.replace(ari13,
+                                                       average=average), dev)
+        split_contract(
+            f"K10 {average} 13 dates",
+            lambda off, n, pl, cap=0, gp=gp13, geo=geo: kasian.greek_partials(
+                gp, SEED, off, pl, n, 13, geo, scratch_cap=cap),
+            lambda off, n, pl, gp=gp13, geo=geo: kasian.greek_plain_partials(
+                gp, SEED, off, pl, n, 13, geo),
+            lambda pl, cap: _build.library().mctpu_asian_greeks_scratch_floats(
+                pl.num_blocks, pl.rows, pl.iters, cap), pairs=True)
 
     # The lookback in every mode (fixed strikes off the atom at s0) and the
     # cliquet, at the same odd step count.
@@ -3447,6 +3464,19 @@ def main() -> int:
                  lambda off, n: kheston.greek_plain_partials(
                      gp, SEED, off, plan, n, n_steps),
                  units=units(plan))
+    # K27 is a split walk (as K12): Euler and QE at 8 steps, level 0 of
+    # mctpu's MLMC default, on that plan's shape and with its scratch
+    # capped, bit-equal to one group.
+    for qe in (False, True):
+        hpar8 = kheston.params(h_opt, 8, qe, dev)
+        split_contract(
+            f"K27 {'QE' if qe else 'Euler'} 8 steps (MLMC level 0)",
+            lambda off, n, pl, cap=0, par=hpar8, qe=qe: kheston.partials(
+                par, SEED, off, pl, n, 8, qe, scratch_cap=cap),
+            lambda off, n, pl, par=hpar8, qe=qe: kheston.plain_partials(
+                par, SEED, off, pl, n, 8, qe),
+            lambda pl, cap: _build.library().mctpu_heston_scratch_floats(
+                pl.num_blocks, pl.rows, pl.iters, cap))
     for n_obs, anti, kahan in ((13, False, True), (252, False, True),
                                (252, True, False)):
         plan = kvarswap.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
@@ -4592,6 +4622,20 @@ def main() -> int:
               plan, steps, disc, kernel, plain, walk_work(kname, plan, steps),
               in_bytes=4 * ops.numel(), units=gunits(plan) if greek else None,
               plain_reps=3)
+    # K27 Euler at level 0 of mctpu's MLMC default: 8 steps, 2^20 paths on
+    # its 8 x 8 level plan (8 x 128 x 8), a second shape's line.
+    from mctpu_torch import mlmc
+    plan8 = mlmc._level_plan(1 << 20, engine.EngineConfig(num_blocks=8,
+                                                          rows=8))
+    hpar8 = kheston.params(h_opt, 8, False, dev)
+    timed("heston", "mctpu_torch/csrc/heston.cu", "mctpu/kernels/heston.py:137",
+          plan8, 8, disc_h,
+          lambda: kheston.partials(hpar8, SEED, 0, plan8, plan8.num_blocks, 8,
+                                   False),
+          lambda: kheston.plain_partials(hpar8, SEED, 0, plan8,
+                                         plan8.num_blocks, 8, False),
+          walk_work("heston", plan8, 8), in_bytes=4 * hpar8.numel(),
+          plain_reps=3, record=False, row="heston MLMC 8 x 8 level 0")
 
     # The multi-asset walk path's shapes: default_reference(3) and
     # equicorrelated(16) at 50 dates and 2^22 paths (the Asian, and the
@@ -4891,7 +4935,6 @@ def main() -> int:
     # fine steps) on the reference option, K11 arithmetic at level 4 of n0 =
     # 4 (64 dates), K14 up-and-out at H = 130 at level 3 of n0 = 8 (64
     # dates).  max_abs_err is in discounted level means.
-    from mctpu_torch import mlmc
     plan = mlmc._level_plan(n_ex, cfg)
     nbl = plan.num_blocks
     disc_m = math.exp(-0.05)

@@ -31,20 +31,28 @@
 // Bound on the H100: arithmetic and latency.  Per path-step: half a Philox
 // block (10 rounds of two 32-bit mul.hi/lo), half a Box-Muller (logf,
 // sqrtf, the sin/cos polynomials), one add chain and, arithmetic only, one
-// expf; the walk is a serial dependence from date to date and the only
-// memory traffic is the block's partials.  Simple design: one CUDA block
-// per simulation block, one thread per path element striding over the
-// (rows, 128) tile, the state in registers; K9 and K11 sum with mct::Acc2
-// and one fixed-order block tree, K10 with mct::BlockAccN once per iteration.  No
-// atomics: two launches give the same bits.  layout_for gives 128 blocks
-// at 2^22 paths, one per SM.
+// expf; the walk is a serial dependence from date to date.  K9 and K11
+// keep the simple design: one CUDA block per simulation block, one thread
+// per path element striding over the (rows, 128) tile, the state in
+// registers, mct::Acc2 and one fixed-order block tree; layout_for gives
+// 128 blocks at 2^22 paths, one per SM.  K10 is a split walk
+// (AsianGreekWalk on mct::walk_split_kernel, csrc/common.cuh): one thread
+// per path element of every (simulation block, iteration) item, so the
+// grid fills all 132 SMs, both antithetic signs advancing on one draw of
+// each pair (the simple design drew and transformed every pair twice), the
+// element's 5 outputs written to scratch; mct::walk_fold_kernel then adds
+// them in the simple design's order (one CUDA block of 512 threads per
+// simulation block, thread t taking elements t, t + 512, .. of each
+// iteration into its 10 plain sums, mct::BlockAccN once per iteration), so
+// K10's block sums are that design's bit for bit.  No atomics: two
+// launches give the same bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;        // K9
-constexpr int GREEK_THREADS = 512;   // K10: 10 sums and 7 carries a thread
-constexpr int N_SUMS = 10;
+constexpr int THREADS = 1024;       // K9, K11
+constexpr int GREEK_THREADS = 512;  // K10's fold: 10 sums a thread
+constexpr int N_GREEK_SCAL = 12;    // K10's scal (GREEK_SCAL)
 
 // max(avg - k, 0) of a running sum over n dates (an IEEE division).
 template <bool GEO>
@@ -137,51 +145,67 @@ __global__ void __launch_bounds__(THREADS)
   mct::write_block_sums<THREADS, KAHAN>(acc, out);
 }
 
-// K10's scalars (mctpu_torch/kernels/asian.py, GREEK_SCAL).
+// K10's scalars (mctpu_torch/kernels/asian.py, GREEK_SCAL), then the
+// JAX kernel's in-kernel scalars inv_n, sqt_v and inv_s02.
 struct GreekScal {
   float log_s0, s0, k, drift, vol, inv_v, c1, dt, t, tbar, zc0, ivst;
   float inv_n, sqt_v, inv_s02;
 };
 
-// One K10 walk of tile element e; q[] gets (p, gd, gv, gr, gg).
+__device__ __forceinline__ GreekScal load_greek(const float* p) {
+  return GreekScal{p[0], p[1], p[2],  p[3],  p[4],  p[5],  p[6], p[7],
+                   p[8], p[9], p[10], p[11], p[12], p[13], p[14]};
+}
+
+// One sign's carries of a K10 walk: the log-spot, the running sum of the
+// spots (log-spots for GEO), the vega tangent sum and, arithmetic only,
+// sum s_j t_j and sum s_j t_j^2.
+struct GreekState {
+  float log_s, acc, gacc, racc, r2acc;
+};
+
+// One date of a K10 walk on the normal z (the mirror's -z), at the running
+// scalars cj = c1 (j + 1) and tj = t_j, which both signs share.
 template <bool GEO>
-__device__ __forceinline__ void greek_walk(const GreekScal& c, int n_obs,
-                                           mct::Key key, uint32_t e,
-                                           float sgn, float (&q)[5]) {
-  float log_s = c.log_s0, acc = 0.0f, gacc = 0.0f, racc = 0.0f,
-        r2acc = 0.0f, cj = c.c1, tj = c.dt;
-  mct::walk_pairwise(key, e, n_obs, [&](int, float z) {
-    log_s = log_s + c.drift + c.vol * (sgn * z);
-    const float f = (log_s - c.log_s0) * c.inv_v + cj;
-    if (GEO) {
-      acc = acc + log_s;
-      gacc = gacc + f;
-    } else {
-      const float s = expf(log_s);
-      const float st = s * tj;
-      acc = acc + s;
-      gacc = gacc + s * f;
-      racc = racc + st;
-      r2acc = r2acc + st * tj;
-      tj = tj + c.dt;
-    }
-    cj = cj + c.c1;
-  });
-  float avg = acc * c.inv_n;
+__device__ __forceinline__ void greek_step(const GreekScal& c, float z,
+                                           float cj, float tj,
+                                           GreekState& g) {
+  g.log_s = g.log_s + c.drift + c.vol * z;
+  const float f = (g.log_s - c.log_s0) * c.inv_v + cj;
+  if (GEO) {
+    g.acc = g.acc + g.log_s;
+    g.gacc = g.gacc + f;
+  } else {
+    const float s = expf(g.log_s);
+    const float st = s * tj;
+    g.acc = g.acc + s;
+    g.gacc = g.gacc + s * f;
+    g.racc = g.racc + st;
+    g.r2acc = g.r2acc + st * tj;
+  }
+}
+
+// (p, gd, gv, gr, gg) of a walk's carries (mctpu/kernels/asian.py,
+// _greek_quants).
+template <bool GEO>
+__device__ __forceinline__ void greek_quants(const GreekScal& c,
+                                             const GreekState& g,
+                                             float (&q)[5]) {
+  float avg = g.acc * c.inv_n;
   if (GEO) avg = expf(avg);
   const float ind = avg > c.k ? 1.0f : 0.0f;
   const float p = fmaxf(avg - c.k, 0.0f);
-  const float z = (log_s - c.log_s0 - c.zc0) * c.ivst;
+  const float z = (g.log_s - c.log_s0 - c.zc0) * c.ivst;
   q[0] = p;
   q[1] = __fdiv_rn(ind * avg, c.s0);
   if (GEO) {
-    q[2] = ind * (avg * gacc * c.inv_n);
+    q[2] = ind * (avg * g.gacc * c.inv_n);
     q[3] = ind * (avg * c.tbar) - c.t * p;
     q[4] = ind * (avg * c.inv_s02) * (__fdiv_rn(c.sqt_v, c.tbar) * z - 1.0f);
   } else {
-    const float m = racc * c.inv_n;
-    const float r2n = r2acc * c.inv_n;
-    q[2] = ind * (gacc * c.inv_n);
+    const float m = g.racc * c.inv_n;
+    const float r2n = g.r2acc * c.inv_n;
+    q[2] = ind * (g.gacc * c.inv_n);
     q[3] = ind * m - c.t * p;
     // h = Abar^2 / (dA/dz); IEEE division (m >= t_1 avg > 0).
     const float h = __fdiv_rn(c.sqt_v * (avg * avg) * c.inv_s02, m);
@@ -191,60 +215,65 @@ __device__ __forceinline__ void greek_walk(const GreekScal& c, int n_obs,
   }
 }
 
-template <bool ANTI, bool KAHAN, bool GEO>
-__global__ void __launch_bounds__(GREEK_THREADS)
-    asian_greeks_kernel(const float* __restrict__ scal, int n_obs,
-                        uint32_t seed, uint32_t off, int n_elems, int iters,
-                        float* __restrict__ out) {
-  __shared__ float sh[(GREEK_THREADS / 32) * N_SUMS];
-  GreekScal c;
-  c.log_s0 = scal[0];
-  c.s0 = scal[1];
-  c.k = scal[2];
-  c.drift = scal[3];
-  c.vol = scal[4];
-  c.inv_v = scal[5];
-  c.c1 = scal[6];
-  c.dt = scal[7];
-  c.t = scal[8];
-  c.tbar = scal[9];
-  c.zc0 = scal[10];
-  c.ivst = scal[11];
-  // The JAX kernel's in-kernel scalars: 1.0 / n_obs is a double rounded to
-  // float (a weakly typed Python float there).
-  c.inv_n = MCT_F32(1.0 / n_obs);
-  c.sqt_v = c.t * c.ivst;
-  c.inv_s02 = __fdiv_rn(1.0f, c.s0 * c.s0);
+// K10's split walk (mct::walk_split_kernel, 5 outputs an element): tile
+// element e walks its n_obs dates once, drawing each pair once; under ANTI
+// both signs' carries advance on that draw (the mirror's normal -z,
+// exactly the unsplit walk's sgn * z, so each sign rounds as it did there
+// and the in-the-money indicator falls on the same side), the running
+// scalars cj and tj once for both, and each output is the pair's mean
+// 0.5 (q+ + q-).  The 12 scalars and the 3 formed from them are staged in
+// shared memory; the geometric walk is an instance of its own (no expf a
+// date, no racc / r2acc).
+struct GreekParams {
+  const float* scal;
+  int n_obs;
+};
 
-  mct::BlockAccN<GREEK_THREADS, N_SUMS, KAHAN> acc;
-  float v[N_SUMS];
-#pragma unroll
-  for (int j = 0; j < N_SUMS; ++j) v[j] = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += GREEK_THREADS) {
-      float q[5];
-      greek_walk<GEO>(c, n_obs, key, static_cast<uint32_t>(e), 1.0f, q);
-      if (ANTI) {
-        float m[5];
-        greek_walk<GEO>(c, n_obs, key, static_cast<uint32_t>(e), -1.0f, m);
-#pragma unroll
-        for (int j = 0; j < 5; ++j) q[j] = 0.5f * (q[j] + m[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 5; ++j) {
-        v[2 * j] += q[j];
-        v[2 * j + 1] += q[j] * q[j];
-      }
+template <bool GEO>
+struct AsianGreekWalk {
+  using Params = GreekParams;
+  static constexpr int N_OUT = 5;
+  static constexpr int SHARED = N_GREEK_SCAL + 3;
+  static constexpr int MIN_BLOCKS = 8;  // 32 warps an SM
+
+  // The JAX kernel's in-kernel scalars, formed as the simple kernel formed
+  // them: 1.0 / n_obs is a double rounded to float (a weakly typed Python
+  // float there).
+  __device__ static void stage(const Params& P, float* sh) {
+    const int t = threadIdx.x;
+    if (t < N_GREEK_SCAL) sh[t] = P.scal[t];
+    if (t == 0) {
+      const float s0 = P.scal[1], t_mat = P.scal[8], ivst = P.scal[11];
+      sh[N_GREEK_SCAL] = MCT_F32(1.0 / P.n_obs);
+      sh[N_GREEK_SCAL + 1] = t_mat * ivst;
+      sh[N_GREEK_SCAL + 2] = __fdiv_rn(1.0f, s0 * s0);
     }
-    acc.add(v, nullptr, sh);
   }
-  acc.write(out);
-}
 
-// kind: 0 K9, 1 K10, 2 K11.
+  template <bool ANTI>
+  __device__ static void pay(const Params& P, const float* sh, mct::Key key,
+                             uint32_t e, float (&q)[N_OUT]) {
+    const GreekScal c = load_greek(sh);
+    GreekState g{c.log_s0, 0.0f, 0.0f, 0.0f, 0.0f};
+    GreekState m = g;
+    float cj = c.c1, tj = c.dt;
+    mct::walk_pairwise(key, e, P.n_obs, [&](int, float z) {
+      greek_step<GEO>(c, z, cj, tj, g);
+      if (ANTI) greek_step<GEO>(c, -z, cj, tj, m);
+      if (!GEO) tj = tj + c.dt;
+      cj = cj + c.c1;
+    });
+    greek_quants<GEO>(c, g, q);
+    if (ANTI) {
+      float qm[N_OUT];
+      greek_quants<GEO>(c, m, qm);
+#pragma unroll
+      for (int j = 0; j < N_OUT; ++j) q[j] = 0.5f * (q[j] + qm[j]);
+    }
+  }
+};
+
+// kind: 0 K9, 2 K11.
 template <bool ANTI, bool KAHAN, bool GEO>
 void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
             int n_blocks, int n_elems, int iters, int kind, float* out,
@@ -252,10 +281,6 @@ void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
   if (kind == 2) {
     asian_level_kernel<ANTI, KAHAN, GEO><<<n_blocks, THREADS, 0, stream>>>(
         scal, n_obs, seed, off, n_elems, iters, out);
-  } else if (kind == 1) {
-    asian_greeks_kernel<ANTI, KAHAN, GEO><<<n_blocks, GREEK_THREADS, 0,
-                                            stream>>>(scal, n_obs, seed, off,
-                                                      n_elems, iters, out);
   } else {
     asian_kernel<ANTI, KAHAN, GEO><<<n_blocks, THREADS, 0, stream>>>(
         scal, n_obs, seed, off, n_elems, iters, out);
@@ -283,6 +308,29 @@ int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K10's split walk and its fold (GREEK_THREADS threads, BlockAccN of the 10
+// sums once per iteration: the unsplit kernel's order).
+template <bool ANTI, bool KAHAN, bool GEO>
+int launch_greeks(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+                  int n_blocks, int rows, int iters, size_t cap,
+                  float* scratch, float* out, cudaStream_t s) {
+  return mct::walk_split_launch<AsianGreekWalk<GEO>, GREEK_THREADS, true,
+                                ANTI, KAHAN>(GreekParams{scal, n_obs}, seed,
+                                             off, n_blocks, rows, iters, cap,
+                                             scratch, out, s);
+}
+
+using GreekFn = int (*)(const float*, int, uint32_t, uint32_t, int, int, int,
+                        size_t, float*, float*, cudaStream_t);
+
+// Indexed by antithetic << 2 | kahan << 1 | geometric.
+constexpr GreekFn GREEK_LAUNCHERS[8] = {
+    launch_greeks<false, false, false>, launch_greeks<false, false, true>,
+    launch_greeks<false, true, false>,  launch_greeks<false, true, true>,
+    launch_greeks<true, false, false>,  launch_greeks<true, false, true>,
+    launch_greeks<true, true, false>,   launch_greeks<true, true, true>,
+};
+
 }  // namespace
 
 extern "C" int mctpu_asian(const float* par, int n_obs, int seed, int off,
@@ -293,12 +341,28 @@ extern "C" int mctpu_asian(const float* par, int n_obs, int seed, int off,
              geometric, 0, out, stream);
 }
 
+// Floats of scratch a K10 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_asian_greeks_scratch_floats(int n_blocks, int rows,
+                                                 int iters, int cap) {
+  return static_cast<int>(
+      mct::walk_groups<GREEK_THREADS, true, AsianGreekWalk<false>::N_OUT>(
+          n_blocks, rows, iters, static_cast<size_t>(cap))
+          .total);
+}
+
+// scal (GREEK_SCAL, 12 floats) -> out (n_blocks, 10): the split walk and
+// its fold, scratch of mctpu_asian_greeks_scratch_floats(.., cap) floats.
 extern "C" int mctpu_asian_greeks(const float* scal, int n_obs, int seed,
                                   int off, int n_blocks, int rows, int iters,
                                   int antithetic, int kahan, int geometric,
-                                  float* out, void* stream) {
-  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             geometric, 1, out, stream);
+                                  int cap, float* scratch, float* out,
+                                  void* stream) {
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (geometric ? 1 : 0);
+  return GREEK_LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
+                              static_cast<uint32_t>(off), n_blocks, rows,
+                              iters, static_cast<size_t>(cap), scratch, out,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // par (log s0, k, drift, vol at dt = t / n_fine) -> out (n_blocks, 2) of the

@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -448,23 +449,26 @@ inline ScratchGroups scratch_groups(int n_blocks, int iters, size_t carry,
   return G;
 }
 
-// The split walks (K12, K29, K30): walk_split_kernel runs one thread per path
-// element of every (simulation block, iteration) item on the unsplit
-// kernel's key and counters and writes the element's payoff (the antithetic
-// pair's mean under ANTI) to scratch [block][iteration][rows * 128];
-// walk_fold_kernel, one CUDA block of the unsplit kernel's THREADS per
-// simulation block, adds them in the unsplit kernel's order: thread t takes
-// elements t, t + THREADS, .. of each iteration, either into its own Acc2
-// over (iteration, element) and then write_block_sums' tree (PER_ITER
-// false, K12) or into v[2] that BlockAccN reduces once per iteration
-// (PER_ITER true, K30).  So the block sums equal the unsplit kernel's bit
-// for bit.  The scratch is grouped under WALK_SCRATCH_CAP by
-// scratch_groups, the fold's carry (each thread's Acc2, or BlockAccN's
-// pairs) kept between the groups.
+// The split walks (K10, K12, K27, K29, K30): walk_split_kernel runs one
+// thread per path element of every (simulation block, iteration) item on
+// the unsplit kernel's key and counters and writes the element's N_OUT
+// outputs (each the antithetic pair's mean under ANTI) to scratch
+// [block][iteration][N_OUT][rows * 128]; walk_fold_kernel, one CUDA block
+// of the unsplit kernel's THREADS per simulation block, adds them in the
+// unsplit kernel's order: thread t takes elements t, t + THREADS, .. of
+// each iteration, either into its own Acc2 over (iteration, element) and
+// then write_block_sums' tree (PER_ITER false, one output: K12, K27, K29)
+// or, output k by output k, into v[2k], v[2k + 1] that BlockAccN reduces
+// once per iteration (PER_ITER true: K30, and K10 at 5 outputs).  So the
+// block sums equal the unsplit kernel's bit for bit.  The scratch is
+// grouped under WALK_SCRATCH_CAP by scratch_groups, the fold's carry
+// (each thread's Acc2, or BlockAccN's pairs) kept between the groups.
 //
 // A Walk provides Params (by value: pointers to its device operands and
 // ints), SHARED (floats it stages a CUDA block), MIN_BLOCKS (its
-// __launch_bounds__ occupancy), stage(P, sh) and pay<ANTI>(P, sh, key, e).
+// __launch_bounds__ occupancy), stage(P, sh) and either pay<ANTI>(P, sh,
+// key, e) -> its one output or, where it declares N_OUT > 1 outputs an
+// element, pay<ANTI>(P, sh, key, e, q) filling q[N_OUT].
 constexpr int WALK_SPLIT_THREADS = 128;  // a (rows, 128) tile's row
 constexpr size_t WALK_SCRATCH_CAP = size_t{64} << 20;  // floats: 256 MB
 
@@ -473,6 +477,16 @@ constexpr size_t WALK_SCRATCH_CAP = size_t{64} << 20;  // floats: 256 MB
 struct WalkItems {
   uint32_t seed, off;
   int iters, n_elems, b0, nb, i0, ni;
+};
+
+// A Walk's outputs an element: its N_OUT where it declares one, else 1.
+template <class Walk, class = void>
+struct WalkOutputs {
+  static constexpr int N = 1;
+};
+template <class Walk>
+struct WalkOutputs<Walk, std::void_t<decltype(Walk::N_OUT)>> {
+  static constexpr int N = Walk::N_OUT;
 };
 
 // Grid (nb * ni items, rows): CUDA block (item, row) walks the row's 128
@@ -493,14 +507,26 @@ __global__ void __launch_bounds__(WALK_SPLIT_THREADS, Walk::MIN_BLOCKS)
       I.seed, (I.off + static_cast<uint32_t>(I.b0 + bl)) *
                       static_cast<uint32_t>(I.iters) +
                   static_cast<uint32_t>(I.i0 + il));
-  split[static_cast<size_t>(item) * I.n_elems + e] =
-      Walk::template pay<ANTI>(P, sh, key, static_cast<uint32_t>(e));
+  constexpr int N_OUT = WalkOutputs<Walk>::N;
+  float* dst = split + static_cast<size_t>(item) * N_OUT * I.n_elems + e;
+  if constexpr (N_OUT == 1) {
+    *dst = Walk::template pay<ANTI>(P, sh, key, static_cast<uint32_t>(e));
+  } else {
+    float q[N_OUT];
+    Walk::template pay<ANTI>(P, sh, key, static_cast<uint32_t>(e), q);
+#pragma unroll
+    for (int k = 0; k < N_OUT; ++k) {
+      dst[static_cast<size_t>(k) * I.n_elems] = q[k];
+    }
+  }
 }
 
-// Floats of a simulation block's fold carry between groups.
-template <int THREADS, bool PER_ITER>
+// Floats of a simulation block's fold carry between groups: BlockAccN's
+// (s, c) of each of 2 N_OUT sums, or each thread's Acc2.
+template <int THREADS, bool PER_ITER, int N_OUT = 1>
 __host__ __device__ constexpr size_t walk_carry() {
-  return PER_ITER ? 4 : 4 * static_cast<size_t>(THREADS);
+  return PER_ITER ? 4 * static_cast<size_t>(N_OUT)
+                  : 4 * static_cast<size_t>(THREADS);
 }
 
 // Loads a fold thread issues ahead of its adds.
@@ -537,35 +563,43 @@ __device__ __forceinline__ void fold_rows(const float* __restrict__ rows,
 }
 
 // Simulation block b0 + blockIdx.x of a group of ni iterations; out is
-// offset to b0's row (2 sums a block).
-template <int THREADS, bool KAHAN, bool PER_ITER>
+// offset to b0's row (2 N_OUT sums a block).
+template <int THREADS, bool KAHAN, bool PER_ITER, int N_OUT = 1>
 __global__ void __launch_bounds__(THREADS)
     walk_fold_kernel(const float* __restrict__ split,
                      float* __restrict__ carry, int n_elems, int ni,
                      int first, int last, float* __restrict__ out) {
+  static_assert(PER_ITER || N_OUT == 1, "one Acc2 a thread: one output");
   const int t = threadIdx.x;
   const float* items =
-      split + static_cast<size_t>(blockIdx.x) * ni * n_elems;
-  float* cb = carry + blockIdx.x * walk_carry<THREADS, PER_ITER>();
+      split + static_cast<size_t>(blockIdx.x) * ni * N_OUT * n_elems;
+  float* cb = carry + blockIdx.x * walk_carry<THREADS, PER_ITER, N_OUT>();
   if constexpr (PER_ITER) {
-    __shared__ float sh[(THREADS / 32) * 2];
-    BlockAccN<THREADS, 2, KAHAN> acc;
-    if (!first && t < 2) {
+    constexpr int N = 2 * N_OUT;
+    __shared__ float sh[(THREADS / 32) * N];
+    BlockAccN<THREADS, N, KAHAN> acc;
+    if (!first && t < N) {
       acc.s = cb[2 * t];
       acc.c = cb[2 * t + 1];
     }
-    float v[2] = {0.0f, 0.0f};
+    float v[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = 0.0f;
     for (int il = 0; il < ni; ++il) {
-      fold_rows<THREADS>(items + static_cast<size_t>(il) * n_elems, 1,
-                         n_elems, [&](float p) {
-                           v[0] = __fadd_rn(v[0], p);
-                           v[1] = __fadd_rn(v[1], __fmul_rn(p, p));
-                         });
+#pragma unroll
+      for (int k = 0; k < N_OUT; ++k) {
+        fold_rows<THREADS>(
+            items + (static_cast<size_t>(il) * N_OUT + k) * n_elems, 1,
+            n_elems, [&](float p) {
+              v[2 * k] = __fadd_rn(v[2 * k], p);
+              v[2 * k + 1] = __fadd_rn(v[2 * k + 1], __fmul_rn(p, p));
+            });
+      }
       acc.add(v, nullptr, sh);
     }
     if (last) {
       acc.write(out);
-    } else if (t < 2) {
+    } else if (t < N) {
       cb[2 * t] = acc.s;
       cb[2 * t + 1] = acc.c;
     }
@@ -589,27 +623,32 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// The groups of a split walk launch (cap 0: WALK_SCRATCH_CAP floats).
-template <int THREADS, bool PER_ITER>
+// The groups of a split walk launch of N_OUT outputs an element (cap 0:
+// WALK_SCRATCH_CAP floats).
+template <int THREADS, bool PER_ITER, int N_OUT = 1>
 inline ScratchGroups walk_groups(int n_blocks, int rows, int iters,
                                  size_t cap) {
-  return scratch_groups(n_blocks, iters, walk_carry<THREADS, PER_ITER>(),
-                        static_cast<size_t>(rows) * LANES,
+  return scratch_groups(n_blocks, iters,
+                        walk_carry<THREADS, PER_ITER, N_OUT>(),
+                        static_cast<size_t>(rows) * LANES * N_OUT,
                         cap > 0 ? cap : WALK_SCRATCH_CAP);
 }
 
 // Every group in order, its split and then its fold, into out (n_blocks,
-// 2); scratch holds walk_groups(..).total floats.  Returns a CUDA error.
+// 2 N_OUT); scratch holds walk_groups(..).total floats.  Returns a CUDA
+// error.
 template <class Walk, int THREADS, bool PER_ITER, bool ANTI, bool KAHAN>
 int walk_split_launch(const typename Walk::Params& P, uint32_t seed,
                       uint32_t off, int n_blocks, int rows, int iters,
                       size_t cap, float* scratch, float* out,
                       cudaStream_t s) {
+  constexpr int N_OUT = WalkOutputs<Walk>::N;
   const ScratchGroups G =
-      walk_groups<THREADS, PER_ITER>(n_blocks, rows, iters, cap);
+      walk_groups<THREADS, PER_ITER, N_OUT>(n_blocks, rows, iters, cap);
   const int n_elems = rows * LANES;
   float* carry = scratch;
-  float* items = scratch + G.blocks * walk_carry<THREADS, PER_ITER>();
+  float* items =
+      scratch + G.blocks * walk_carry<THREADS, PER_ITER, N_OUT>();
   for (int b0 = 0; b0 < n_blocks; b0 += G.blocks) {
     const int nb = n_blocks - b0 < G.blocks ? n_blocks - b0 : G.blocks;
     for (int i0 = 0; i0 < iters; i0 += G.iters) {
@@ -620,9 +659,10 @@ int walk_split_launch(const typename Walk::Params& P, uint32_t seed,
                                                                   items);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
-      walk_fold_kernel<THREADS, KAHAN, PER_ITER><<<nb, THREADS, 0, s>>>(
+      walk_fold_kernel<THREADS, KAHAN, PER_ITER, N_OUT><<<nb, THREADS, 0,
+                                                          s>>>(
           items, carry, n_elems, ni, i0 == 0, i0 + ni >= iters,
-          out + 2 * static_cast<size_t>(b0));
+          out + 2 * N_OUT * static_cast<size_t>(b0));
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }

@@ -35,28 +35,26 @@
 // Euler; QE adds an expf (the Hastings CDF), a logf in its exponential
 // branch, two more sqrtf and three divides, and may be bound by them rather
 // than by the integer pipe.  The walk is a serial dependence from step to
-// step and the only memory traffic is the block's partials.  K27 and K28
-// keep the simple design, as K9 and K10: one CUDA block per simulation
-// block, one thread per path element striding over the (rows, 128) tile,
-// the state in registers; K27 sums with mct::Acc2 and one fixed-order block
-// tree, K28 with mct::BlockAccN once per iteration.  K29 is K27's Euler
-// walk at n_fine steps plus a coarse step (a sqrtf) per two fine steps and
-// a second expf, as a split walk (HestonLevelWalk on
+// step.  K27 and K29 are split walks (HestonWalk and HestonLevelWalk on
 // mct::walk_split_kernel, csrc/common.cuh): one thread per path element of
 // every (simulation block, iteration) item, so the grid fills the card on
-// any plan (the MLMC 8 x 8 plan ran on 8 SMs in the simple design), both
-// antithetic signs advancing on one draw of each pair (the simple design
-// drew and transformed every pair twice), the element's d written to
-// scratch; mct::walk_fold_kernel then adds them in the simple design's
-// order (one CUDA block of 1024 threads per simulation block, each
-// thread's Acc2 over its elements t, t + 1024, .. of every iteration, then
-// write_block_sums' tree), so K29's block sums are that design's bit for
-// bit.  No atomics: two launches give the same bits.
+// any plan (the MLMC 8 x 8 plan, which K27 runs at level 0 and K29 above
+// it, ran on 8 SMs in the simple design), both antithetic signs advancing
+// on one draw of each pair (the simple design drew and transformed every
+// pair twice), the element's payoff (K29: its d) written to scratch;
+// mct::walk_fold_kernel then adds them in the simple design's order (one
+// CUDA block of 1024 threads per simulation block, each thread's Acc2 over
+// its elements t, t + 1024, .. of every iteration, then write_block_sums'
+// tree), so their block sums are that design's bit for bit.  K28 keeps the
+// simple design: one CUDA block per simulation block, one thread per path
+// element striding over the (rows, 128) tile, the state in registers,
+// mct::BlockAccN once per iteration.  No atomics: two launches give the
+// same bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;       // K27, K29's fold
+constexpr int THREADS = 1024;       // K27's and K29's folds
 constexpr int GREEK_THREADS = 512;  // K28: 14 sums and 10 carries a thread
 constexpr int N_SUMS = 14;
 constexpr int N_EULER = 10;  // K27's scal: 10 Euler scalars, then QE_KEYS
@@ -112,41 +110,54 @@ __device__ __forceinline__ Scal load_scal(const float* p) {
                       q[9]}};
 }
 
-// One K27 walk of tile element e -> its payoff.
+// One K27 step of (x, v) on the pair (z_v, z_perp), in the scheme QE.
 template <bool QE>
-__device__ __forceinline__ float walk(const Scal& c, int n_steps,
-                                      mct::Key key, uint32_t e, float sgn) {
-  float x = 0.0f, v = c.v0;
-  mct::walk_steps(key, e, n_steps, [&](int, float z_v, float z_perp) {
-    if (QE) {
-      qe_step(c.qe, sgn * z_v, sgn * z_perp, x, v);
-    } else {
-      mct::heston_step(c.h, sgn * z_v, sgn * z_perp, x, v);
-    }
-  });
+__device__ __forceinline__ void step(const Scal& c, float z_v, float z_perp,
+                                     float& x, float& v) {
+  if (QE) {
+    qe_step(c.qe, z_v, z_perp, x, v);
+  } else {
+    mct::heston_step(c.h, z_v, z_perp, x, v);
+  }
+}
+
+__device__ __forceinline__ float call_pay(const Scal& c, float x) {
   return fmaxf(c.s0 * expf(x) - c.k, 0.0f);
 }
 
-template <bool ANTI, bool KAHAN, bool QE>
-__global__ void __launch_bounds__(THREADS)
-    heston_kernel(const float* __restrict__ scal, int n_steps, uint32_t seed,
-                  uint32_t off, int n_elems, int iters,
-                  float* __restrict__ out) {
-  const Scal c = load_scal(scal);
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float p = walk<QE>(c, n_steps, key, u, 1.0f);
-      if (ANTI) p = 0.5f * (p + walk<QE>(c, n_steps, key, u, -1.0f));
-      acc.add(p);
-    }
+// K27's split walk (mct::walk_split_kernel): tile element e walks its
+// n_steps steps once, drawing each Philox block once; under ANTI both
+// signs' (x, v) advance on that draw (the mirror's normals -z, exactly the
+// unsplit walk's sgn * z, so each sign rounds as it did there, QE's
+// branches included), and the element's sample is the pair's mean
+// 0.5 (p+ + p-).  The 20 scalars are staged in shared memory.
+template <bool QE>
+struct HestonWalk {
+  struct Params {
+    const float* scal;
+    int n_steps;
+  };
+  static constexpr int SHARED = N_EULER + 10;
+  static constexpr int MIN_BLOCKS = QE ? 8 : 16;  // 32 / 64 warps an SM
+
+  __device__ static void stage(const Params& P, float* sh) {
+    if (threadIdx.x < SHARED) sh[threadIdx.x] = P.scal[threadIdx.x];
   }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
-}
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float* sh, mct::Key key,
+                              uint32_t e) {
+    const Scal c = load_scal(sh);
+    float x = 0.0f, v = c.v0, xm = 0.0f, vm = c.v0;
+    mct::walk_steps(key, e, P.n_steps, [&](int, float z_v, float z_perp) {
+      step<QE>(c, z_v, z_perp, x, v);
+      if (ANTI) step<QE>(c, -z_v, -z_perp, xm, vm);
+    });
+    const float p = call_pay(c, x);
+    if (!ANTI) return p;
+    return 0.5f * (p + call_pay(c, xm));
+  }
+};
 
 // K28's scalars (mctpu_torch/kernels/heston.py, GREEK_SCAL).
 struct GreekScal {
@@ -291,41 +302,44 @@ struct HestonLevelWalk {
   }
 };
 
-// kind: 0 K27 (qe selects the scheme), 1 K28.
 template <bool ANTI, bool KAHAN>
-void launch(const float* scal, int n_steps, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int kind, int qe,
-            float* out, cudaStream_t stream) {
-  if (kind == 1) {
-    heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0, stream>>>(
-        scal, n_steps, seed, off, n_elems, iters, out);
-  } else if (qe) {
-    heston_kernel<ANTI, KAHAN, true><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_steps, seed, off, n_elems, iters, out);
-  } else {
-    heston_kernel<ANTI, KAHAN, false><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_steps, seed, off, n_elems, iters, out);
-  }
+void launch_greeks(const float* scal, int n_steps, uint32_t seed,
+                   uint32_t off, int n_blocks, int n_elems, int iters,
+                   float* out, cudaStream_t stream) {
+  heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0, stream>>>(
+      scal, n_steps, seed, off, n_elems, iters, out);
 }
 
-using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
-                          int, int, int, float*, cudaStream_t);
+using GreekFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
+                         int, float*, cudaStream_t);
 
 // Indexed by antithetic << 1 | kahan.
-constexpr LaunchFn LAUNCHERS[4] = {
-    launch<false, false>, launch<false, true>,
-    launch<true, false>,  launch<true, true>,
+constexpr GreekFn GREEK_LAUNCHERS[4] = {
+    launch_greeks<false, false>, launch_greeks<false, true>,
+    launch_greeks<true, false>,  launch_greeks<true, true>,
 };
 
-int run(const float* scal, int n_steps, int seed, int off, int n_blocks,
-        int rows, int iters, int antithetic, int kahan, int kind, int qe,
-        float* out, void* stream) {
-  const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
-  LAUNCHERS[idx](scal, n_steps, static_cast<uint32_t>(seed),
-                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, kind, qe, out, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+// K27's split walk and its fold (THREADS threads, each thread's Acc2, the
+// unsplit kernel's order).
+template <bool ANTI, bool KAHAN, bool QE>
+int launch_walk(const float* scal, int n_steps, uint32_t seed, uint32_t off,
+                int n_blocks, int rows, int iters, size_t cap, float* scratch,
+                float* out, cudaStream_t s) {
+  return mct::walk_split_launch<HestonWalk<QE>, THREADS, false, ANTI, KAHAN>(
+      typename HestonWalk<QE>::Params{scal, n_steps}, seed, off, n_blocks,
+      rows, iters, cap, scratch, out, s);
 }
+
+using WalkFn = int (*)(const float*, int, uint32_t, uint32_t, int, int, int,
+                       size_t, float*, float*, cudaStream_t);
+
+// Indexed by antithetic << 2 | kahan << 1 | qe.
+constexpr WalkFn WALK_LAUNCHERS[8] = {
+    launch_walk<false, false, false>, launch_walk<false, false, true>,
+    launch_walk<false, true, false>,  launch_walk<false, true, true>,
+    launch_walk<true, false, false>,  launch_walk<true, false, true>,
+    launch_walk<true, true, false>,   launch_walk<true, true, true>,
+};
 
 // K29's split walk and its fold (THREADS threads, each thread's Acc2, the
 // unsplit kernel's order).
@@ -349,13 +363,28 @@ constexpr LevelFn LEVEL_LAUNCHERS[4] = {
 
 }  // namespace
 
+// Floats of scratch a K27 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_heston_scratch_floats(int n_blocks, int rows, int iters,
+                                           int cap) {
+  return static_cast<int>(
+      mct::walk_groups<THREADS, false>(n_blocks, rows, iters,
+                                       static_cast<size_t>(cap))
+          .total);
+}
+
 // scal (the 10 Euler scalars, then the 10 QE constants) -> out (n_blocks,
-// 2); mode 1 takes the QE scheme, 0 Euler.
+// 2); mode 1 takes the QE scheme, 0 Euler: the split walk and its fold,
+// scratch of mctpu_heston_scratch_floats(.., cap) floats.
 extern "C" int mctpu_heston(const float* scal, int n_steps, int seed, int off,
                             int n_blocks, int rows, int iters, int antithetic,
-                            int kahan, int mode, float* out, void* stream) {
-  return run(scal, n_steps, seed, off, n_blocks, rows, iters, antithetic,
-             kahan, 0, mode, out, stream);
+                            int kahan, int mode, int cap, float* scratch,
+                            float* out, void* stream) {
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (mode ? 1 : 0);
+  return WALK_LAUNCHERS[idx](scal, n_steps, static_cast<uint32_t>(seed),
+                             static_cast<uint32_t>(off), n_blocks, rows,
+                             iters, static_cast<size_t>(cap), scratch, out,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // scal (the 10 Euler scalars, half_dt, t_k, dt) -> out (n_blocks, 14).
@@ -364,8 +393,12 @@ extern "C" int mctpu_heston_greeks(const float* scal, int n_steps, int seed,
                                    int off, int n_blocks, int rows, int iters,
                                    int antithetic, int kahan, int /*mode*/,
                                    float* out, void* stream) {
-  return run(scal, n_steps, seed, off, n_blocks, rows, iters, antithetic,
-             kahan, 1, 0, out, stream);
+  const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
+  GREEK_LAUNCHERS[idx](scal, n_steps, static_cast<uint32_t>(seed),
+                       static_cast<uint32_t>(off), n_blocks,
+                       rows * mct::LANES, iters, out,
+                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Floats of scratch a K29 launch takes (cap: at most this many, 0 for 256

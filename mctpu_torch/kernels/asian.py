@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from mctpu_torch.kernels.common import (Plan, check_level, f32, launch_walk,
+from mctpu_torch.kernels.common import (Plan, check_level, f32,
+                                        launch_split_walk, launch_walk,
                                         walk_pairwise, walk_partials,
                                         walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
@@ -190,14 +191,17 @@ def greek_plain_partials(gp: torch.Tensor, seed: int, block_offset: int,
 
 
 def greek_partials(gp: torch.Tensor, seed: int, block_offset: int,
-                   plan: Plan, n_blocks: int, n_obs: int,
-                   geometric: bool) -> torch.Tensor:
+                   plan: Plan, n_blocks: int, n_obs: int, geometric: bool,
+                   scratch_cap: int = 0) -> torch.Tensor:
     """``(n_blocks, 10)`` Greek partials: K10 for a CUDA ``gp``, the plain
-    version for a CPU ``gp``; other devices raise."""
+    version for a CPU ``gp``; other devices raise.  ``scratch_cap``: K10's
+    scratch in floats at most (0: 256 MB; 5 floats a path element), past
+    which it splits and folds simulation blocks and iterations in groups;
+    the outputs do not depend on it."""
     if gp.device.type == "cuda":
-        out = launch_walk("mctpu_asian_greeks", gp, len(GREEK_SCAL),
-                          N_GREEK_SUMS, seed, block_offset, plan, n_blocks,
-                          n_obs, geometric)
+        out = launch_split_walk("mctpu_asian_greeks", gp, len(GREEK_SCAL),
+                                N_GREEK_SUMS, seed, block_offset, plan,
+                                n_blocks, n_obs, geometric, scratch_cap)
         LAUNCHES["asian_greeks"] += 1
         return out
     if gp.device.type == "cpu":

@@ -11,18 +11,14 @@ kernels' expression order and moved to the device.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from mctpu_torch import _build
-from mctpu_torch.kernels.common import (Plan, check_level, check_operand, f32,
-                                        launch_walk, walk_pairwise,
-                                        walk_partials, walk_steps)
+from mctpu_torch.kernels.common import (Plan, check_level, f32,
+                                        launch_split_walk, launch_walk,
+                                        walk_pairwise, walk_partials,
+                                        walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import asian as masian
-from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import BarrierOption
 
 __all__ = ["make_plan", "params", "plain_partials", "partials",
@@ -77,41 +73,6 @@ def plain_partials(par: torch.Tensor, seed: int, block_offset: int,
         seed, block_offset, plan, n_blocks, par.device)
 
 
-@functools.lru_cache(maxsize=64)
-def _scratch_floats(n_blocks: int, rows: int, iters: int, cap: int) -> int:
-    """Floats of scratch a K12 launch takes (its groups' payoffs and the
-    fold's carry; a function of the plan alone)."""
-    return _build.library().mctpu_barrier_scratch_floats(n_blocks, rows,
-                                                         iters, cap)
-
-
-def _launch_split(par: torch.Tensor, seed: int, block_offset: int,
-                  plan: Plan, n_blocks: int, n_obs: int, up: bool,
-                  scratch_cap: int) -> torch.Tensor:
-    """K12's split walk and its fold on ``par``'s device, the scratch
-    allocated here on the current stream."""
-    check_operand("par", par, (5,), par.device)
-    if n_blocks < 1:
-        raise ValueError("n_blocks must be >= 1")
-    if n_obs < 1:
-        raise ValueError("n_obs must be >= 1")
-    lib = _build.library()
-    with torch.cuda.device(par.device):
-        out = torch.empty((n_blocks, 2), dtype=torch.float32,
-                          device=par.device)
-        scratch = torch.empty(
-            _scratch_floats(n_blocks, plan.rows, plan.iters, scratch_cap),
-            dtype=torch.float32, device=par.device)
-        status = lib.mctpu_barrier(
-            par.data_ptr(), n_obs, wrap_int32(seed), wrap_int32(block_offset),
-            n_blocks, plan.rows, plan.iters, int(plan.antithetic),
-            int(plan.kahan), int(up), scratch_cap, scratch.data_ptr(),
-            out.data_ptr(),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(status, "mctpu_barrier")
-    return out
-
-
 def partials(par: torch.Tensor, seed: int, block_offset: int, plan: Plan,
              n_blocks: int, n_obs: int, up: bool,
              scratch_cap: int = 0) -> torch.Tensor:
@@ -121,8 +82,9 @@ def partials(par: torch.Tensor, seed: int, block_offset: int, plan: Plan,
     it splits and folds simulation blocks and iterations in groups; the
     outputs do not depend on it."""
     if par.device.type == "cuda":
-        out = _launch_split(par, seed, block_offset, plan, n_blocks, n_obs,
-                            up, scratch_cap)
+        out = launch_split_walk("mctpu_barrier", par, 5, 2, seed,
+                                block_offset, plan, n_blocks, n_obs, up,
+                                scratch_cap)
         LAUNCHES["barrier"] += 1
         return out
     if par.device.type == "cpu":

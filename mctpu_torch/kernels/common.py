@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -29,8 +30,8 @@ __all__ = ["LANES", "Plan", "walk_plan", "seed_key", "block_keys",
            "acc_add", "acc_final", "acc_init_n", "acc_add_n", "acc_final_n",
            "det_col_sums", "N_GREEK_SCALARS", "split_vec",
            "vec_greek_partials", "check_operand", "f32", "sqrt32",
-           "launch_walk", "launch_items", "check_level",
-           "terminal_partials"]
+           "launch_walk", "launch_split_walk", "launch_items",
+           "check_level", "terminal_partials"]
 
 # Lane width of one path tile: tiles are (rows, LANES) with the flat element
 # index row * LANES + lane, as the JAX kernels lay them out.
@@ -424,11 +425,12 @@ def check_level(n_fine: int) -> None:
 def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
                 seed: int, block_offset: int, plan: Plan, n_blocks: int,
                 n_obs: int, mode: int) -> torch.Tensor:
-    """Launch a single-asset walk kernel (K9-K20, K27-K29 and K46 share one
-    C signature) on ``scal``'s device and return its ``(n_blocks, n_out)``
-    partials.  ``mode`` selects the kernel's static variant: 1 for the
-    geometric Asian, the up-and-out barrier, the QE scheme or the variance
-    swap's Heston leg, ``2 * fixed + put`` for the lookback, 0 otherwise;
+    """Launch a single-asset walk kernel of the simple design (K9, K11,
+    K13-K20, K28 and K46 share one C signature) on ``scal``'s device and
+    return its ``(n_blocks, n_out)`` partials.  ``mode`` selects the
+    kernel's static variant: 1 for the geometric Asian, the up-and-out
+    barrier or the variance swap's Heston leg, ``2 * fixed + put`` for the
+    lookback, 0 otherwise;
     ``n_obs`` is the step count (the cliquet's ``n_periods``, an MLMC
     level's fine step count).  Raises on a bad operand or a failed launch."""
     check_operand("scal", scal, (n_scal,), scal.device)
@@ -446,5 +448,53 @@ def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
             wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
             int(plan.antithetic), int(plan.kahan), int(mode), out.data_ptr(),
             stream)
+    _build.check(status, entry)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _split_scratch_floats(entry: str, n_blocks: int, rows: int, iters: int,
+                          cap: int) -> int:
+    """Floats of scratch a split walk's launch takes (its groups' outputs
+    and the fold's carry; a function of the plan alone)."""
+    return getattr(_build.library(), f"{entry}_scratch_floats")(
+        n_blocks, rows, iters, cap)
+
+
+def launch_split_walk(entry: str, scal: torch.Tensor, n_scal: int,
+                      n_out: int, seed: int, block_offset: int, plan: Plan,
+                      n_blocks: int, n_obs: int, mode: int | None,
+                      scratch_cap: int = 0) -> torch.Tensor:
+    """Launch a split walk (K10, K12, K27, K29: ``csrc/common.cuh``'s
+    ``walk_split_launch``, a thread per path element and a fold in the
+    simple design's order) on ``scal``'s device and return its
+    ``(n_blocks, n_out)`` partials, the scratch that ``entry`` +
+    ``_scratch_floats`` sizes allocated here on the current stream.
+    ``mode`` is the kernel's static variant, as :func:`launch_walk`'s (the
+    QE scheme for K27), or None where the entry takes none (K29);
+    ``scratch_cap``: the scratch in floats at most (0: 256 MB), past which
+    the simulation blocks and iterations go in groups, the outputs the
+    same.  Raises on a bad operand or a failed launch."""
+    check_operand("scal", scal, (n_scal,), scal.device)
+    if n_blocks < 1:
+        raise ValueError("n_blocks must be >= 1")
+    if n_obs < 1:
+        raise ValueError("n_obs must be >= 1")
+    lib = _build.library()
+    flags = (int(plan.antithetic), int(plan.kahan))
+    if mode is not None:
+        flags += (int(mode),)
+    with torch.cuda.device(scal.device):
+        out = torch.empty((n_blocks, n_out), dtype=torch.float32,
+                          device=scal.device)
+        scratch = torch.empty(
+            _split_scratch_floats(entry, n_blocks, plan.rows, plan.iters,
+                                  scratch_cap),
+            dtype=torch.float32, device=scal.device)
+        status = getattr(lib, entry)(
+            scal.data_ptr(), n_obs, wrap_int32(seed),
+            wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,
+            *flags, scratch_cap, scratch.data_ptr(), out.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(status, entry)
     return out

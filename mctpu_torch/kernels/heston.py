@@ -22,19 +22,14 @@ against ``mctpu`` that is an ulp in some steps, within the tests' bound.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from mctpu_torch import _build
 from mctpu_torch import math as mcmath
-from mctpu_torch.kernels.common import (Plan, check_level, check_operand,
-                                        draw_normal_pair, f32, launch_walk,
+from mctpu_torch.kernels.common import (Plan, check_level, draw_normal_pair,
+                                        f32, launch_split_walk, launch_walk,
                                         sqrt32, walk_partials, walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import heston as mheston
-from mctpu_torch.rng import wrap_int32
 from mctpu_torch.types import HestonOption
 
 __all__ = ["make_plan", "params", "plain_partials", "partials",
@@ -123,12 +118,17 @@ def plain_partials(par: torch.Tensor, seed: int, block_offset: int,
 
 
 def partials(par: torch.Tensor, seed: int, block_offset: int, plan: Plan,
-             n_blocks: int, n_steps: int, qe: bool) -> torch.Tensor:
+             n_blocks: int, n_steps: int, qe: bool,
+             scratch_cap: int = 0) -> torch.Tensor:
     """Per-block partials ``(n_blocks, 2)``: K27 for a CUDA ``par``, the
-    plain version for a CPU ``par``; any other device raises."""
+    plain version for a CPU ``par``; any other device raises.
+    ``scratch_cap``: K27's scratch in floats at most (0: 256 MB), past which
+    it splits and folds simulation blocks and iterations in groups; the
+    outputs do not depend on it."""
     if par.device.type == "cuda":
-        out = launch_walk("mctpu_heston", par, N_SCAL, 2, seed, block_offset,
-                          plan, n_blocks, n_steps, qe)
+        out = launch_split_walk("mctpu_heston", par, N_SCAL, 2, seed,
+                                block_offset, plan, n_blocks, n_steps, qe,
+                                scratch_cap)
         LAUNCHES["heston_qe" if qe else "heston"] += 1
         return out
     if par.device.type == "cpu":
@@ -248,9 +248,9 @@ def greek_partials(gp: torch.Tensor, seed: int, block_offset: int,
 # takes the two fine steps on them and one coarse step on zc = (z1 + z2) /
 # sqrt(2) for z_v and z_perp alike, the mirror's sign applied after the sum.
 # The unit's sample is the payoff difference d = P_fine - P_coarse.  Level 0
-# is K27 itself at n_steps = n0.  On the card K29 is a split walk (one
-# thread per path element, both signs on one draw) and a fold in the simple
-# design's order of additions (csrc/heston.cu).
+# is K27 itself at n_steps = n0.  On the card K27 and K29 are split walks
+# (one thread per path element, both signs on one draw) and a fold in the
+# simple design's order of additions (csrc/heston.cu).
 # ---------------------------------------------------------------------------
 
 # K29's 13 scalars, in the JAX kernel's scal order (level_pallas_partials).
@@ -311,40 +311,6 @@ def level_plain_partials(lp: torch.Tensor, seed: int, block_offset: int,
         seed, block_offset, plan, n_blocks, lp.device)
 
 
-@functools.lru_cache(maxsize=64)
-def _level_scratch_floats(n_blocks: int, rows: int, iters: int,
-                          cap: int) -> int:
-    """Floats of scratch a K29 launch takes (its groups' samples and the
-    fold's carry; a function of the plan alone)."""
-    return _build.library().mctpu_heston_level_scratch_floats(
-        n_blocks, rows, iters, cap)
-
-
-def _launch_level(lp: torch.Tensor, seed: int, block_offset: int, plan: Plan,
-                  n_blocks: int, n_fine: int,
-                  scratch_cap: int) -> torch.Tensor:
-    """K29's split walk and its fold on ``lp``'s device, the scratch
-    allocated here on the current stream."""
-    check_operand("lp", lp, (len(LEVEL_SCAL),), lp.device)
-    if n_blocks < 1:
-        raise ValueError("n_blocks must be >= 1")
-    lib = _build.library()
-    with torch.cuda.device(lp.device):
-        out = torch.empty((n_blocks, 2), dtype=torch.float32,
-                          device=lp.device)
-        scratch = torch.empty(
-            _level_scratch_floats(n_blocks, plan.rows, plan.iters,
-                                  scratch_cap),
-            dtype=torch.float32, device=lp.device)
-        status = lib.mctpu_heston_level(
-            lp.data_ptr(), n_fine, wrap_int32(seed), wrap_int32(block_offset),
-            n_blocks, plan.rows, plan.iters, int(plan.antithetic),
-            int(plan.kahan), scratch_cap, scratch.data_ptr(), out.data_ptr(),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(status, "mctpu_heston_level")
-    return out
-
-
 def level_partials(lp: torch.Tensor, seed: int, block_offset: int,
                    plan: Plan, n_blocks: int, n_fine: int,
                    scratch_cap: int = 0) -> torch.Tensor:
@@ -355,8 +321,9 @@ def level_partials(lp: torch.Tensor, seed: int, block_offset: int,
     outputs do not depend on it."""
     check_level(n_fine)
     if lp.device.type == "cuda":
-        out = _launch_level(lp, seed, block_offset, plan, n_blocks, n_fine,
-                            scratch_cap)
+        out = launch_split_walk("mctpu_heston_level", lp, len(LEVEL_SCAL),
+                                2, seed, block_offset, plan, n_blocks,
+                                n_fine, None, scratch_cap)
         LAUNCHES["heston_level"] += 1
         return out
     if lp.device.type == "cpu":

@@ -42,6 +42,9 @@ CASES = {
     "n7_arithmetic_antithetic": (7, "arithmetic", True, True, 1),
     "n7_geometric_antithetic_f32": (7, "geometric", True, False, 1),
     "n6_arithmetic_f32_2iters": (6, "arithmetic", False, False, 2),
+    # The per-iteration reseed under antithetic, which K10's fold replays
+    # once an iteration.
+    "n6_arithmetic_antithetic_2iters": (6, "arithmetic", True, True, 2),
 }
 
 

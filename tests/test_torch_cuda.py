@@ -1959,6 +1959,93 @@ def test_heston_level_split_mlmc_plan_and_grouped_scratch(dev, antithetic):
         assert kheston.LAUNCHES["heston_level"] == before + 1
 
 
+# K10 (arithmetic and geometric, 13 dates) and K27 (Euler and QE, 8 steps:
+# level 0 of mctpu's MLMC default), split per path element and folded in
+# the unsplit order.
+_SPLIT_WALKS = ("K10 arithmetic", "K10 geometric", "K27 Euler", "K27 QE")
+# name: (blocks, iters, rows, kahan): the MLMC 8 x 8 plan's shape, and 2
+# iterations on 1 and 3 rows (the fold's 512- or 1024-thread stride partly
+# empty).
+_SPLIT_SHAPES = {"mlmc8x8_iters16": (8, 16, 8, True),
+                 "rows1_iters2_f32": (NB, 2, 1, False),
+                 "rows3_iters2": (NB, 2, 3, True)}
+
+
+def _split_walk(dev, name):
+    """``(fn(off, nb, plan, cap=0), plain(off, nb, plan), launch key,
+    scratch-floats entry, greek)`` of a split walk."""
+    if name.startswith("K10"):
+        geo = name.endswith("geometric")
+        gp = kasian.greek_params(_asian(13, geo), dev)
+        return (lambda off, nb, plan, cap=0: kasian.greek_partials(
+                    gp, SEED, off, plan, nb, 13, geo, scratch_cap=cap),
+                lambda off, nb, plan: kasian.greek_plain_partials(
+                    gp, SEED, off, plan, nb, 13, geo),
+                "asian_greeks", "mctpu_asian_greeks_scratch_floats", True)
+    qe = name.endswith("QE")
+    par = kheston.params(_HESTON["opt"], 8, qe, dev)
+    return (lambda off, nb, plan, cap=0: kheston.partials(
+                par, SEED, off, plan, nb, 8, qe, scratch_cap=cap),
+            lambda off, nb, plan: kheston.plain_partials(par, SEED, off, plan,
+                                                         nb, 8, qe),
+            "heston_qe" if qe else "heston", "mctpu_heston_scratch_floats",
+            False)
+
+
+def _split_counts(name):
+    return kasian.LAUNCHES if name.startswith("K10") else kheston.LAUNCHES
+
+
+@pytest.mark.parametrize("shape", sorted(_SPLIT_SHAPES))
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("name", _SPLIT_WALKS)
+def test_asian_greeks_and_heston_split_match_plain(dev, name, antithetic,
+                                                   shape):
+    """K10 and K27 (split per path element, folded in the unsplit order)
+    against their plain versions (K10's pairs by the scaled bound), on the
+    MLMC 8 x 8 plan's shape and on short rows; two launches and the block
+    offset bitwise; each call counts one launch."""
+    blocks, iters, rows, kahan = _SPLIT_SHAPES[shape]
+    fn, plain, key, _, greek = _split_walk(dev, name)
+    plan = kheston.make_plan(
+        blocks * iters * rows * 128 * (2 if antithetic else 1), blocks, rows,
+        antithetic, kahan)
+    assert (plan.num_blocks, plan.iters, plan.rows) == (blocks, iters, rows)
+    _contract(lambda off, nb: fn(off, nb, plan),
+              lambda off, nb: plain(off, nb, plan), n_blocks=blocks,
+              units=_units(plan) if greek else None)
+    counts = _split_counts(name)
+    before = dict(counts)
+    fn(0, blocks, plan)
+    assert counts[key] == before[key] + 1
+    assert sum(counts.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("name", _SPLIT_WALKS)
+def test_asian_greeks_and_heston_split_grouped_scratch(dev, name,
+                                                       antithetic):
+    """K10 and K27 under a forced small scratch cap: at 1 float every
+    (block, iteration) is split and folded on its own (the fold's carry
+    between the groups: K10's BlockAccN pairs, K27's Acc2s), at half the
+    one-group scratch the blocks go in groups; both equal the one-group
+    launch bit for bit, and each capped call counts one launch."""
+    fn, _, key, entry, _ = _split_walk(dev, name)
+    plan = kheston.make_plan(NB * 3 * 7 * 128 * (2 if antithetic else 1), NB,
+                             7, antithetic)
+    assert plan.iters == 3
+    floats = getattr(_build.library(), entry)
+    whole = floats(NB, plan.rows, plan.iters, 0)
+    assert floats(NB, plan.rows, plan.iters, 1) < whole
+    want = fn(0, NB, plan)
+    counts = _split_counts(name)
+    for cap in (1, whole // 2):
+        before = counts[key]
+        got = fn(0, NB, plan, cap)
+        assert counts[key] == before + 1
+        assert torch.equal(got, want), cap
+
+
 def test_price_heston_mlmc_against_cf_and_launches(dev):
     """The JAX exotic CLI's --product mlmc on the card (512 x 256, eps =
     0.02): within 3 eps of the characteristic-function price; level 0 runs

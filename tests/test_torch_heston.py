@@ -60,6 +60,7 @@ CASES = {
     "qe_n8": (STEEP, "qe", 8, False, True, 1),
     "qe_n7_antithetic_f32": (STEEP, "qe", 7, True, False, 1),
     "qe_n4_2iters": (OPT, "qe", 4, False, True, 2),
+    "qe_n4_antithetic_2iters": (OPT, "qe", 4, True, True, 2),
 }
 
 

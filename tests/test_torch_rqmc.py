@@ -123,12 +123,14 @@ def test_k54_matches_interpret_mode(n_assets):
     pytest.param("geometric", 8, 12, 2, id="geometric-8"),
     pytest.param("arithmetic", 24, 12, 2, id="arithmetic-24"),
     pytest.param("arithmetic", 163, 50, 1, id="arithmetic-163-50dates"),
-    pytest.param("geometric", 8, 252, 1, id="geometric-8-252dates")])
+    pytest.param("geometric", 8, 252, 1, id="geometric-8-252dates"),
+    pytest.param("arithmetic", 8, 300, 1, id="arithmetic-8-300dates")])
 def test_k55_matches_interpret_mode(average, rows, n_obs, chunks):
     """rows 8: a 1024-point chunk (mctpu's hoisted construction); rows 24:
     3072 points, not a power of two (its 30-bit form); the bridge, the tree
     sum and the chunk also at the depths the engine runs: 50 dates on rows
-    163 (the Asian's cap, a 20864-point chunk) and 252 dates."""
+    163 (the Asian's cap, a 20864-point chunk) and 252 dates; and 300
+    dates, past 256, where the CUDA kernel takes its 2048-date instance."""
     opt = jtypes.AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=n_obs,
                              average=average)
     jplan = jq.rqmc_plan(chunks * rows * 128, NB, rows)

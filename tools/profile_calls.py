@@ -25,8 +25,9 @@ default ``EngineConfig``), after one warm-up call:
   kernels and their folds; the netting-set CVA's, the xVA's and the xVA
   Greeks' split kernel and its fold at m <= 8; the packed basket price's
   and the packed basket Greeks' split kernels and their folds; the
-  barrier walk's, the Heston MLMC level's and the 3-asset basket walks'
-  split kernel and its fold (K12, K29, K30); 0 for a
+  barrier walk's, the Asian Greeks', the Heston walk's, the Heston MLMC
+  level's and the 3-asset basket walks' split kernel and its fold (K12,
+  K10, K27, K29, K30); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -137,15 +138,14 @@ def calls(mt):
                        average="geometric")
     uo8 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0,
                         n_obs=8)
-    # The split walks' kernels (K12, K29, K30: a walk per path element, then
-    # the fold in the unsplit order).
+    # The split walks' kernels (K10, K12, K27, K29, K30: a walk per path
+    # element, then the fold in the unsplit order).
     split = ("walk_split_kernel", "walk_fold_kernel")
     mlmc_calls = []
     for tag, cfg in (("512 x 256", mt.EngineConfig()),
                      ("8 x 8", mt.EngineConfig(num_blocks=8, rows=8))):
         mlmc_calls += [
-            (f"price_heston_mlmc eps=0.02, {tag}",
-             ("heston_kernel",) + split,
+            (f"price_heston_mlmc eps=0.02, {tag}", split,
              lambda c=cfg: mt.mlmc.price_heston_mlmc(hopt, 0.02, SEED, c)),
             (f"price_asian_mlmc geometric eps=0.02, {tag}",
              ("asian_kernel", "asian_level_kernel"),
@@ -208,7 +208,7 @@ def calls(mt):
          lambda: mt.price_asian(ari, n22, SEED)),
         ("price_asian geometric, n_obs=50, 2^22", "asian_kernel",
          lambda: mt.price_asian(geo, n22, SEED)),
-        ("greeks_asian arithmetic, 2^22", "asian_greeks_kernel",
+        ("greeks_asian arithmetic, 2^22", split,
          lambda: mt.greeks(ari, n22, SEED)),
         ("price_barrier up-and-out, 2^22", split,
          lambda: mt.price_barrier(uo, n22, SEED)),
@@ -238,9 +238,9 @@ def calls(mt):
          lambda: mt.price_barrier_book(bbook, n22, SEED)),
         ("greeks_barrier_book 32 instruments, 2^22", "bb_greeks_kernel",
          lambda: mt.greeks_barrier_book(bbook, n22, SEED)),
-        ("price_heston Euler, n_steps=100, 2^22", "heston_kernel",
+        ("price_heston Euler, n_steps=100, 2^22", split,
          lambda: mt.price_heston(hopt, n22, SEED)),
-        ("price_heston QE, n_steps=100, 2^22", "heston_kernel",
+        ("price_heston QE, n_steps=100, 2^22", split,
          lambda: mt.price_heston(hopt, n22, SEED, scheme="qe")),
         ("greeks_heston n_steps=100, 2^22", "heston_greeks_kernel",
          lambda: mt.greeks_heston(hopt, n22, SEED)),

@@ -12,19 +12,21 @@ with the flags ``mctpu_torch/_build.py`` builds it with, to a cubin in a
 temporary directory, and reads ``cuobjdump -sass``.  In each case's kernel
 it finds the innermost loops (a backward branch with no other inside) that
 hold a ``MUFU.RSQ`` -- the IEEE sqrtf of a Box-Muller pair, one a Philox
-block, and of the Heston walk's variance, one an Euler step -- and counts
+block, and of the Heston walks' variance, one an Euler step -- and counts
 the loop body's instructions by class: ``IMAD.WIDE``, the other ``IMAD``,
 ``LOP3``/``IADD3``, FP32 (``FADD``, ``FMUL``, ``FFMA``, ``FMNMX``,
 ``FSETP``, ``FSEL``, ``FSET``, ``FCHK``), ``MUFU`` and the rest.
-A path that takes ``k`` normals a date (1 for the barrier walk, ``a`` for
-the asset-major basket walk, 2 for the Heston level's fine step) and
-``q`` more roots a date (the Heston level: its fine step's and half its
-coarse step's, 1.5, or 3 for both signs) takes ``k / 2 + q`` roots a
+A path that takes ``k`` normals a date (1 for the barrier and Asian
+Greeks walks, ``a`` for the asset-major basket walk, 2 for a Heston
+step) and ``q`` more roots a date (the Heston level: its fine step's and
+half its coarse step's, 1.5, or 3 for both signs; the Heston Euler walk
+1, or 2 for both signs) takes ``k / 2 + q`` roots a
 date, so a body of ``n`` roots walks ``n / (k / 2 + q)`` dates; a walk
 that draws the stream again for the antithetic mirror (the simple design)
 walks each date ``walks = 2`` times.  Per path-date = the largest such
 loop's counts / its dates x walks.  The issue time at the case's
-path-dates (2^22 x 50, the Heston level's 2^22 x 128 fine steps) is that
+path-dates (2^22 x 50, the Heston level's 2^22 x 128 fine steps, the
+Heston walk's 2^22 x 100 steps) is that
 count / 32 warp
 instructions, over 4 warp instructions a clock an SM, at the card's SM
 count and its maximum SM clock (``nvidia-smi``): the least time the SMs
@@ -55,10 +57,12 @@ from ptxas_report import _demangle  # noqa: E402
 
 PATH_DATES = (1 << 22) * 50  # phase 6: 2^22 paths, 50 dates
 LEVEL_DATES = (1 << 22) * 128  # K29 in phase 6: 128 fine steps
+HESTON_DATES = (1 << 22) * 100  # K27 in phase 6: 100 steps
 # (case, source, text of the demangled kernel name, normals a date, walks
 # [, more roots a date, path-dates]) at ANTI false, KAHAN true, up-and-out
-# / the 3-asset basket: the simple designs (K12 barrier_kernel, K30
-# mw_walk_am_kernel, K29 heston_level_kernel) and the split walks.
+# / the 3-asset basket / the arithmetic average / Euler: the simple designs
+# (K12 barrier_kernel, K30 mw_walk_am_kernel, K29 heston_level_kernel, K10
+# asian_greeks_kernel, K27 heston_kernel) and the split walks.
 CASES = (
     ("K12 simple", "barrier.cu", "barrier_kernel<false, true, true>", 1, 1),
     ("K12 simple antithetic", "barrier.cu",
@@ -85,6 +89,21 @@ CASES = (
      LEVEL_DATES),
     ("K29 split antithetic", "heston.cu", "HestonLevelWalk, true>", 2, 1, 3,
      LEVEL_DATES),
+    ("K10 simple", "asian.cu", "asian_greeks_kernel<false, true, false>", 1,
+     1),
+    ("K10 simple antithetic", "asian.cu",
+     "asian_greeks_kernel<true, true, false>", 1, 2),
+    ("K10 split", "asian.cu", "AsianGreekWalk<false>, false>", 1, 1),
+    ("K10 split antithetic", "asian.cu", "AsianGreekWalk<false>, true>", 1,
+     1),
+    ("K27 Euler simple", "heston.cu", "heston_kernel<false, true, false>", 2,
+     1, 1, HESTON_DATES),
+    ("K27 Euler simple antithetic", "heston.cu",
+     "heston_kernel<true, true, false>", 2, 2, 1, HESTON_DATES),
+    ("K27 Euler split", "heston.cu", "HestonWalk<false>, false>", 2, 1, 1,
+     HESTON_DATES),
+    ("K27 Euler split antithetic", "heston.cu", "HestonWalk<false>, true>",
+     2, 1, 2, HESTON_DATES),
 )
 FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"}
 CLASSES = ("IMAD.WIDE", "IMAD", "LOP3/IADD3", "FP32", "MUFU", "other")

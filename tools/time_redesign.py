@@ -6,7 +6,8 @@ packed basket price), K33 (the packed basket-Asian Greeks), K39 (the
 packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
 (the CVA exposure walk), K5 (its Greeks), K31 (the packed multi-asset
 walk), K40 (the netting-set CVA), K43's runtime-m xVA kernel, K29 (the
-Heston MLMC level) and K44 (the xVA Greeks) -- at ``chip_smoke.py``'s
+Heston MLMC level), K44 (the xVA Greeks), K10 (the Asian Greeks walk) and
+K27 (the Heston walk) -- at ``chip_smoke.py``'s
 phase 6 shapes on one GPU, against another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
@@ -59,7 +60,13 @@ JAX exotic CLI's ``--product mlmc`` option at level 4 (128 fine steps),
 ``mctpu``'s 8 x 8 MLMC default, plain and antithetic; K44 on the JAX
 Greeks CLI's ``--product xva`` set, 12 nodes, 2^20 paths, its ``am``
 kernel at 3 underlyings and its runtime-m kernel at 16, and on the
-exotic CLI's set with the same bank side at 32, plain and antithetic.
+exotic CLI's set with the same bank side at 32, plain and antithetic;
+K10 (the Asian Greeks) on the exotic path's arithmetic Asian call at 50
+dates, 2^22 paths, F32_KAHAN and F32, geometric, antithetic, and 2^20 on
+the 8 x 8 MLMC level plan, plain and antithetic; K27 (the Heston walk) on
+K29's option at 100 steps, 2^22 paths, Euler (F32_KAHAN and F32) and QE,
+each antithetic, and Euler at 8 steps (level 0 of the 8 x 8 MLMC
+default), 2^20 on its level plan, plain and antithetic.
 Each time
 is the median of ``--reps`` launches timed by CUDA events after one
 warm-up launch (the event time holds the host's time before a call's
@@ -69,7 +76,7 @@ and (6, width) slot vectors), K43's
 (its eight sums and both profiles), K48's (its five moment sums), K3's,
 K33's (its four sums and (4, width) lane rows), K39's, K35's, K31's and
 K40's outputs (K39's and K40's sums and EE
-profile), K29's and K44's ``am`` outputs must equal the other
+profile), K29's, K44's ``am``, K10's and K27's outputs must equal the other
 checkout's bit for bit (same walk, passes and order of sums), and K44's
 runtime-m (sum, sum^2) pairs must agree with it by ``chip_smoke.py``'s
 scaled pair bound at rtol 2e-5 (its slices reorder the block sums); each
@@ -104,7 +111,7 @@ MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.variance", "mctpu_torch.kernels.varred",
            "mctpu_torch.kernels.basket", "mctpu_torch.kernels.greeks",
            "mctpu_torch.kernels.barrier", "mctpu_torch.mlmc",
-           "mctpu_torch.kernels.heston")
+           "mctpu_torch.kernels.heston", "mctpu_torch.kernels.asian")
 # The kernel-vs-kernel tolerance of the cases whose outputs may move in the
 # last bits (chip_smoke.py's RTOL), by the Greek pairs' scaled bound.
 RTOL = 2e-5
@@ -128,11 +135,12 @@ def load(root: Path) -> SimpleNamespace:
         sys.path.remove(str(root))
         _drop_port_modules()
     (build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket,
-     kgreeks, kbarrier, mlmc, kheston) = mods
+     kgreeks, kbarrier, mlmc, kheston, kasian) = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
                            kcm=kcm, kcva=kcva, types=types, variance=variance,
                            kvr=kvr, kbasket=kbasket, kgreeks=kgreeks,
-                           kbarrier=kbarrier, mlmc=mlmc, kheston=kheston)
+                           kbarrier=kbarrier, mlmc=mlmc, kheston=kheston,
+                           kasian=kasian)
 
 
 def kernel_ms(fn, reps: int):
@@ -407,6 +415,63 @@ def cases(v: SimpleNamespace):
                     lambda o=ops, p=plan: greek_pairs(kcm.xva_greek_partials(
                         o, SEED, 0, p, p.num_blocks)),
                     True if m <= 8 else plan.iters * plan.units_per_iter))
+    # K10 on the exotic path's arithmetic Asian call (S = K = 100, r = 0.05,
+    # v = 0.2, T = 1, 50 dates), 2^22 paths on phase 6's plan: F32_KAHAN and
+    # F32, the geometric average, antithetic (F32_KAHAN and F32); and 2^20
+    # on the level plan of mctpu's 8 x 8 MLMC default, plain and antithetic.
+    f32 = t.Precision.F32
+    for avg, anti, prec, n, mlmc_plan in (
+            ("arithmetic", False, None, 1 << 22, False),
+            ("arithmetic", False, f32, 1 << 22, False),
+            ("geometric", False, None, 1 << 22, False),
+            ("arithmetic", True, None, 1 << 22, False),
+            ("arithmetic", True, f32, 1 << 22, False),
+            ("arithmetic", False, None, 1 << 20, True),
+            ("arithmetic", True, None, 1 << 20, True)):
+        opt = t.AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=50,
+                            average=avg)
+        c = dataclasses.replace(mlmc_cfg if mlmc_plan else cfg,
+                                antithetic=anti,
+                                precision=prec or cfg.precision)
+        plan = (v.mlmc._level_plan(n, c) if mlmc_plan
+                else engine.greeks_asian_setup(opt, n, c)[0])
+        gp = v.kasian.greek_params(opt, c.torch_device())
+        out.append((f"K10 {avg} 50 dates 2^{n.bit_length() - 1}"
+                    f"{' MLMC 8 x 8 plan ' if mlmc_plan else ' '}"
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}"
+                    f"{' F32' if prec else ''}",
+                    lambda o=gp, p=plan, g=avg == "geometric":
+                    v.kasian.greek_partials(o, SEED, 0, p, p.num_blocks, 50,
+                                            g), True))
+    # K27 on K29's option at 100 steps, 2^22 paths on phase 6's plan: Euler
+    # (F32_KAHAN and F32) and QE, each antithetic; and Euler at 8 steps,
+    # level 0 of mctpu's 8 x 8 MLMC default, 2^20 on its level plan, plain
+    # and antithetic.
+    for scheme, anti, prec, n, mlmc_plan in (
+            ("euler", False, None, 1 << 22, False),
+            ("euler", False, f32, 1 << 22, False),
+            ("qe", False, None, 1 << 22, False),
+            ("euler", True, None, 1 << 22, False),
+            ("qe", True, f32, 1 << 22, False),
+            ("euler", False, None, 1 << 20, True),
+            ("euler", True, None, 1 << 20, True)):
+        steps = 8 if mlmc_plan else 100
+        c = dataclasses.replace(mlmc_cfg if mlmc_plan else cfg,
+                                antithetic=anti,
+                                precision=prec or cfg.precision)
+        plan = (v.mlmc._level_plan(n, c) if mlmc_plan
+                else engine.heston_setup(hopt, n, c, steps, scheme)[0])
+        par = v.kheston.params(hopt, steps, scheme == "qe", c.torch_device())
+        out.append((f"K27 {'QE' if scheme == 'qe' else 'Euler'} {steps} "
+                    f"steps 2^{n.bit_length() - 1}"
+                    f"{' MLMC 8 x 8 level 0 ' if mlmc_plan else ' '}"
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}"
+                    f"{' F32' if prec else ''}",
+                    lambda o=par, p=plan, s=steps, q=scheme == "qe":
+                    v.kheston.partials(o, SEED, 0, p, p.num_blocks, s, q),
+                    True))
     return out
 
 
