@@ -3502,9 +3502,10 @@ def main() -> int:
     # steps), K11 with n0 = 4 (8 and 64 dates) under both averages, K14 with
     # n0 = 8 (16 and 128 dates) up-and-out at H = 130 and down-and-out at H
     # = 80; antithetic and Kahan each on and off.  d is a payoff difference,
-    # so its block sums are held by the scaled pair bound.  K29 is a split
-    # walk (as K12): also at level 4 on the MLMC 8 x 32 x 8 plan and with
-    # its scratch capped, bit-equal to one group.
+    # so its block sums are held by the scaled pair bound.  K29 and K11 are
+    # split walks (as K12): also at level 4 (K11 under both averages) on
+    # the MLMC 8 x 32 x 8 plan and with their scratch capped, bit-equal to
+    # one group.
     hlp4 = kheston.level_params(h_opt, 128, dev)
     split_contract(
         "K29 level 4 (128 steps)",
@@ -3514,6 +3515,18 @@ def main() -> int:
                                                         n, 128),
         lambda pl, cap: _build.library().mctpu_heston_level_scratch_floats(
             pl.num_blocks, pl.rows, pl.iters, cap), pairs=True)
+    alp4 = kasian.level_params(
+        AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=4), 64, dev)
+    for average in ("arithmetic", "geometric"):
+        split_contract(
+            f"K11 {average} level 4 (64 dates)",
+            lambda off, n, pl, cap=0, g=average == "geometric":
+            kasian.level_partials(alp4, SEED, off, pl, n, 64, g,
+                                  scratch_cap=cap),
+            lambda off, n, pl, g=average == "geometric":
+            kasian.level_plain_partials(alp4, SEED, off, pl, n, 64, g),
+            lambda pl, cap: _build.library().mctpu_asian_level_scratch_floats(
+                pl.num_blocks, pl.rows, pl.iters, cap), pairs=True)
     for lv, anti, kahan in ((1, False, True), (4, True, False),
                             (4, False, True)):
         plan = kheston.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
@@ -3696,6 +3709,19 @@ def main() -> int:
                 krainbow.partials(ops, SEED, 0, plan, nb)),
                 f"K38 {tag}: price sums differ from K36's")
 
+    def k41_gates(tag, gops, cops, plan):
+        """K41's CVA sums within 1e-5 of K39's (the two forms of a leg)
+        and its padded lanes exactly 0."""
+        gsum, gvec = kcm.greek_partials(gops, SEED, 0, plan, nb)
+        price = kcm.partials(cops, SEED, 0, plan, nb)[0]
+        close = (gsum[:, :2].double() - price.double()).abs() <= (
+            1e-5 * price.double().abs())
+        check(bool(close.all()), f"K41 {tag}: CVA sums beyond 1e-5 of K39's")
+        m = gops.n_underlyings
+        a_tile, c_pk, _ = kbasket.pack_factor(m)
+        check(bool((gvec.reshape(nb, 4, c_pk, a_tile)[..., m:] == 0).all()),
+              f"K41 {tag}: a padded lane is not 0")
+
     # The netting-set CVA: K40 and K42 at 1, 2, 3 and 8 underlyings, K39
     # and K41 at 9, 16 and 100 (the mixed-sign legs at 2, 8, 9 and 100, the
     # CLI's all-long set at 1, 3 and 16), 13 nodes (the trailing half
@@ -3726,27 +3752,28 @@ def main() -> int:
                                                             plan, n)),
                  lambda off, n: mw_pairs(kcm.greek_plain_partials(
                      gops, SEED, off, plan, n)), units=units(plan))
-        gsum = kcm.greek_partials(gops, SEED, 0, plan, nb)[0][:, :2]
-        price = kcm.partials(cops, SEED, 0, plan, nb)[0]
         if m <= 8:
-            check(torch.equal(gsum, price),
-                  f"K42 {tag}: CVA sums differ from K40's")
+            check(torch.equal(
+                kcm.greek_partials(gops, SEED, 0, plan, nb)[0][:, :2],
+                kcm.partials(cops, SEED, 0, plan, nb)[0]),
+                f"K42 {tag}: CVA sums differ from K40's")
         else:
-            close = (gsum.double() - price.double()).abs() <= (
-                1e-5 * price.double().abs())
-            check(bool(close.all()), f"K41 {tag}: CVA sums beyond 1e-5 "
-                                     "of K39's")
+            k41_gates(tag, gops, cops, plan)
 
-    # K39's register instances (a_tile 16 at 9 and 16 underlyings, 32 at 17
-    # and 32) at rows that leave a pass with lanes past the tile's rows
-    # (35: two passes of 18 rows at a_tile 16; 69: two of 35 at 32), mixed
-    # and all-long legs, 13 nodes.
+    # K39's and K41's register instances (a_tile 16 at 9 and 16
+    # underlyings, 32 at 17 and 32) at rows that leave K39's passes with
+    # lanes past the tile's rows (35: two passes of 18 rows at a_tile 16;
+    # 69: two of 35 at 32) and give K41 one-row passes, mixed and all-long
+    # legs, 13 nodes; K41 plain and antithetic at each size, its padded
+    # lanes exactly 0 and its CVA sums within 1e-5 of K39's.
     for ka, (m, mixed, urows) in enumerate(((9, True, 35), (16, False, 35),
                                             (17, True, 69),
                                             (32, False, 69))):
         anti, kahan = mw_variants[ka % 3]
         cspec = cva_multi_spec(m, 13, mixed)
         cops = kcm.operands(cspec, mcmath.cholesky_lower(cspec.corr), dev)
+        gops = kcm.operands(cspec, mcmath.cholesky_lower(cspec.corr), dev,
+                            greeks=True)
         probe = kcm.make_plan(1, nb, urows, anti, kahan, n_underlyings=m)
         plan = kcm.make_plan(nb * iters * probe.paths_per_iter, nb, urows,
                              anti, kahan, n_underlyings=m)
@@ -3754,6 +3781,20 @@ def main() -> int:
                  f"{' antithetic' if anti else ''}{'' if kahan else ' f32'}",
                  lambda off, n: kcm.partials(cops, SEED, off, plan, n),
                  lambda off, n: kcm.plain_partials(cops, SEED, off, plan, n))
+        for ganti in (False, True):
+            probe = kcm.make_plan(1, nb, urows, ganti, kahan,
+                                  n_underlyings=m)
+            gplan = kcm.make_plan(nb * iters * probe.paths_per_iter, nb,
+                                  urows, ganti, kahan, n_underlyings=m)
+            tag = (f"m={m}{' mixed' if mixed else ''} rows={urows}"
+                   f"{' antithetic' if ganti else ''}"
+                   f"{'' if kahan else ' f32'}")
+            contract(f"K41 {tag}",
+                     lambda off, n: mw_pairs(kcm.greek_partials(
+                         gops, SEED, off, gplan, n)),
+                     lambda off, n: mw_pairs(kcm.greek_plain_partials(
+                         gops, SEED, off, gplan, n)), units=units(gplan))
+            k41_gates(tag, gops, cops, gplan)
 
     def k44_contract(tag, xgops, plan, m, anti, wide=None):
         """K44 against its plain version, and with its scratch capped at 1

@@ -31,26 +31,30 @@
 // Bound on the H100: arithmetic and latency.  Per path-step: half a Philox
 // block (10 rounds of two 32-bit mul.hi/lo), half a Box-Muller (logf,
 // sqrtf, the sin/cos polynomials), one add chain and, arithmetic only, one
-// expf; the walk is a serial dependence from date to date.  K9 and K11
-// keep the simple design: one CUDA block per simulation block, one thread
+// expf; the walk is a serial dependence from date to date.  K9 keeps the
+// simple design: one CUDA block per simulation block, one thread
 // per path element striding over the (rows, 128) tile, the state in
 // registers, mct::Acc2 and one fixed-order block tree; layout_for gives
-// 128 blocks at 2^22 paths, one per SM.  K10 is a split walk
-// (AsianGreekWalk on mct::walk_split_kernel, csrc/common.cuh): one thread
-// per path element of every (simulation block, iteration) item, so the
-// grid fills all 132 SMs, both antithetic signs advancing on one draw of
-// each pair (the simple design drew and transformed every pair twice), the
-// element's 5 outputs written to scratch; mct::walk_fold_kernel then adds
-// them in the simple design's order (one CUDA block of 512 threads per
+// 128 blocks at 2^22 paths, one per SM.  K10 and K11 are split walks
+// (AsianGreekWalk and AsianLevelWalk on mct::walk_split_kernel,
+// csrc/common.cuh): one thread per path element of every (simulation
+// block, iteration) item, so the grid fills all 132 SMs on any plan (the
+// MLMC 8 x 8 plan ran K11 on 8 SMs in the simple design), both antithetic
+// signs advancing on one draw of each pair (the simple design drew and
+// transformed every pair twice), the element's outputs (K10: 5; K11: its
+// d) written to scratch; mct::walk_fold_kernel then adds them in the
+// simple design's order -- K10: one CUDA block of 512 threads per
 // simulation block, thread t taking elements t, t + 512, .. of each
-// iteration into its 10 plain sums, mct::BlockAccN once per iteration), so
-// K10's block sums are that design's bit for bit.  No atomics: two
+// iteration into its 10 plain sums, mct::BlockAccN once per iteration;
+// K11: one CUDA block of 1024 threads, each thread's Acc2 over its
+// elements t, t + 1024, .. of every iteration, then write_block_sums' tree
+// -- so their block sums are that design's bit for bit.  No atomics: two
 // launches give the same bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;       // K9, K11
+constexpr int THREADS = 1024;       // K9, K11's fold
 constexpr int GREEK_THREADS = 512;  // K10's fold: 10 sums a thread
 constexpr int N_GREEK_SCAL = 12;    // K10's scal (GREEK_SCAL)
 
@@ -75,50 +79,61 @@ __device__ __forceinline__ float walk(float log_s0, float k, float drift,
   return avg_payoff<GEO>(acc, n_obs, k);
 }
 
-// One K11 walk of tile element e over n_fine dates -> its level
-// difference d.
+// One coarse step of a K11 walk on the pair (z1, z2) (the mirror's (-z1,
+// -z2)): the odd, fine-only date on z1, then the shared date on z2; the
+// fine sum takes both dates, the coarse sum the shared one.
 template <bool GEO>
-__device__ __forceinline__ float level_walk(float log_s0, float k,
-                                            float drift, float vol,
-                                            int n_fine, mct::Key key,
-                                            uint32_t e, float sgn) {
-  const int n_coarse = n_fine / 2;
-  float log_s = log_s0, accf = 0.0f, accc = 0.0f;
-  mct::walk_steps(key, e, n_coarse, [&](int, float z1, float z2) {
-    log_s = log_s + drift + vol * (sgn * z1);  // the odd, fine-only date
-    accf = accf + (GEO ? log_s : expf(log_s));
-    log_s = log_s + drift + vol * (sgn * z2);  // the shared date
-    const float x = GEO ? log_s : expf(log_s);
-    accf = accf + x;
-    accc = accc + x;
-  });
-  return avg_payoff<GEO>(accf, n_fine, k) - avg_payoff<GEO>(accc, n_coarse, k);
+__device__ __forceinline__ void level_step(float drift, float vol, float z1,
+                                           float z2, float& log_s,
+                                           float& accf, float& accc) {
+  log_s = log_s + drift + vol * z1;
+  accf = accf + (GEO ? log_s : expf(log_s));
+  log_s = log_s + drift + vol * z2;
+  const float x = GEO ? log_s : expf(log_s);
+  accf = accf + x;
+  accc = accc + x;
 }
 
-template <bool ANTI, bool KAHAN, bool GEO>
-__global__ void __launch_bounds__(THREADS)
-    asian_level_kernel(const float* __restrict__ par, int n_fine,
-                       uint32_t seed, uint32_t off, int n_elems, int iters,
-                       float* __restrict__ out) {
-  // par: log s0, k, drift, vol (at dt = t / n_fine)
-  const float log_s0 = par[0], k = par[1], drift = par[2], vol = par[3];
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float d = level_walk<GEO>(log_s0, k, drift, vol, n_fine, key, u, 1.0f);
-      if (ANTI) {
-        d = 0.5f * (d + level_walk<GEO>(log_s0, k, drift, vol, n_fine, key,
-                                        u, -1.0f));
-      }
-      acc.add(d);
-    }
+// K11's split walk (mct::walk_split_kernel, one output): tile element e
+// walks its n_coarse steps once, one Box-Muller pair a step at counter j
+// (mct::walk_steps); under ANTI both signs' log-spot and sums advance on
+// that draw (the mirror's normals -z1, -z2, exactly the simple design's
+// sgn * z), and the sample is the pair's mean 0.5 (d+ + d-) with d =
+// pay(accf / nf) - pay(accc / nc).  The four level scalars are staged in
+// shared memory; the geometric walk is an instance of its own (no expf a
+// date).
+template <bool GEO>
+struct AsianLevelWalk {
+  struct Params {
+    const float* scal;  // log s0, k, drift, vol (at dt = t / n_fine)
+    int n_coarse;
+  };
+  static constexpr int SHARED = 4;
+  static constexpr int MIN_BLOCKS = 16;  // 64 warps an SM
+
+  __device__ static void stage(const Params& P, float* sh) {
+    if (threadIdx.x < SHARED) sh[threadIdx.x] = P.scal[threadIdx.x];
   }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
-}
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float* sh, mct::Key key,
+                              uint32_t e) {
+    const float log_s0 = sh[0], k = sh[1], drift = sh[2], vol = sh[3];
+    float log_s = log_s0, accf = 0.0f, accc = 0.0f;
+    float log_m = log_s0, accf_m = 0.0f, accc_m = 0.0f;
+    mct::walk_steps(key, e, P.n_coarse, [&](int, float z1, float z2) {
+      level_step<GEO>(drift, vol, z1, z2, log_s, accf, accc);
+      if (ANTI) level_step<GEO>(drift, vol, -z1, -z2, log_m, accf_m, accc_m);
+    });
+    auto level_d = [&](float f, float c) {
+      return avg_payoff<GEO>(f, 2 * P.n_coarse, k) -
+             avg_payoff<GEO>(c, P.n_coarse, k);
+    };
+    const float d = level_d(accf, accc);
+    if (!ANTI) return d;
+    return 0.5f * (d + level_d(accf_m, accc_m));
+  }
+};
 
 template <bool ANTI, bool KAHAN, bool GEO>
 __global__ void __launch_bounds__(THREADS)
@@ -273,22 +288,16 @@ struct AsianGreekWalk {
   }
 };
 
-// kind: 0 K9, 2 K11.
 template <bool ANTI, bool KAHAN, bool GEO>
 void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int kind, float* out,
+            int n_blocks, int n_elems, int iters, float* out,
             cudaStream_t stream) {
-  if (kind == 2) {
-    asian_level_kernel<ANTI, KAHAN, GEO><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
-  } else {
-    asian_kernel<ANTI, KAHAN, GEO><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
-  }
+  asian_kernel<ANTI, KAHAN, GEO><<<n_blocks, THREADS, 0, stream>>>(
+      scal, n_obs, seed, off, n_elems, iters, out);
 }
 
 using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
-                          int, int, float*, cudaStream_t);
+                          int, float*, cudaStream_t);
 
 // Indexed by antithetic << 2 | kahan << 1 | geometric.
 constexpr LaunchFn LAUNCHERS[8] = {
@@ -297,16 +306,6 @@ constexpr LaunchFn LAUNCHERS[8] = {
     launch<true, false, false>,  launch<true, false, true>,
     launch<true, true, false>,   launch<true, true, true>,
 };
-
-int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
-        int rows, int iters, int antithetic, int kahan, int geometric,
-        int kind, float* out, void* stream) {
-  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (geometric ? 1 : 0);
-  LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
-                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, kind, out, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // K10's split walk and its fold (GREEK_THREADS threads, BlockAccN of the 10
 // sums once per iteration: the unsplit kernel's order).
@@ -331,14 +330,37 @@ constexpr GreekFn GREEK_LAUNCHERS[8] = {
     launch_greeks<true, true, false>,   launch_greeks<true, true, true>,
 };
 
+// K11's split walk and its fold (THREADS threads, each thread's Acc2, the
+// unsplit kernel's order).
+template <bool ANTI, bool KAHAN, bool GEO>
+int launch_level(const float* scal, int n_coarse, uint32_t seed,
+                 uint32_t off, int n_blocks, int rows, int iters, size_t cap,
+                 float* scratch, float* out, cudaStream_t s) {
+  return mct::walk_split_launch<AsianLevelWalk<GEO>, THREADS, false, ANTI,
+                                KAHAN>(
+      typename AsianLevelWalk<GEO>::Params{scal, n_coarse}, seed, off,
+      n_blocks, rows, iters, cap, scratch, out, s);
+}
+
+// Indexed by antithetic << 2 | kahan << 1 | geometric.
+constexpr GreekFn LEVEL_LAUNCHERS[8] = {
+    launch_level<false, false, false>, launch_level<false, false, true>,
+    launch_level<false, true, false>,  launch_level<false, true, true>,
+    launch_level<true, false, false>,  launch_level<true, false, true>,
+    launch_level<true, true, false>,   launch_level<true, true, true>,
+};
+
 }  // namespace
 
 extern "C" int mctpu_asian(const float* par, int n_obs, int seed, int off,
                            int n_blocks, int rows, int iters, int antithetic,
                            int kahan, int geometric, float* out,
                            void* stream) {
-  return run(par, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             geometric, 0, out, stream);
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (geometric ? 1 : 0);
+  LAUNCHERS[idx](par, n_obs, static_cast<uint32_t>(seed),
+                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
+                 iters, out, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Floats of scratch a K10 launch takes (cap: at most this many, 0 for 256
@@ -365,12 +387,27 @@ extern "C" int mctpu_asian_greeks(const float* scal, int n_obs, int seed,
                               static_cast<cudaStream_t>(stream));
 }
 
+// Floats of scratch a K11 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_asian_level_scratch_floats(int n_blocks, int rows,
+                                                int iters, int cap) {
+  return static_cast<int>(
+      mct::walk_groups<THREADS, false>(n_blocks, rows, iters,
+                                       static_cast<size_t>(cap))
+          .total);
+}
+
 // par (log s0, k, drift, vol at dt = t / n_fine) -> out (n_blocks, 2) of the
-// level correction over n_fine (even) dates.
+// level correction over n_fine (even) dates: the split walk and its fold,
+// scratch of mctpu_asian_level_scratch_floats(.., cap) floats.
 extern "C" int mctpu_asian_level(const float* par, int n_fine, int seed,
                                  int off, int n_blocks, int rows, int iters,
                                  int antithetic, int kahan, int geometric,
-                                 float* out, void* stream) {
-  return run(par, n_fine, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             geometric, 2, out, stream);
+                                 int cap, float* scratch, float* out,
+                                 void* stream) {
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (geometric ? 1 : 0);
+  return LEVEL_LAUNCHERS[idx](par, n_fine / 2, static_cast<uint32_t>(seed),
+                              static_cast<uint32_t>(off), n_blocks, rows,
+                              iters, static_cast<size_t>(cap), scratch, out,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -84,9 +84,10 @@
 // xva_greek_slice_kernel), their walk state in registers up to 32
 // underlyings (K44's integrands and carries in shared memory).  Packed:
 // K31's passes (packed.cuh), the log-spots and a pair of nodes' normals in
-// shared memory, one thread per packed path (at
-// a_tile 16 and 32 K39 keeps them in the path's thread's registers, K31's
-// design); K41 adds K33's lane carries and its halving tree over the rows.
+// shared memory, one thread per packed path (at a_tile 16 and 32 K39 and
+// K41 keep them in the path's thread's registers, K31's and K33's
+// designs); K41 adds K33's lane carries and its halving tree over the
+// rows.
 #include <algorithm>
 
 #include "common.cuh"
@@ -199,14 +200,15 @@ __device__ __forceinline__ void profile_write(const float* prof, int warps,
 // phi(d1) (0 there).  par rows (m each): log s0, drift dt, v sqrt(dt), v
 // dt, w, k, log k, v^2 / 2, v.  Shared by the kernels of every size (M <= 8
 // in registers, the runtime-m xVA kernels and K41 over shared or scratch
-// state), so they round alike.
+// state), so they round alike.  am_value is its second half: the leg's
+// value at the advanced log-spot xi (K41's register kernel advances the
+// log-spots itself, then values the legs in a loop).
 template <bool GREEKS>
-__device__ __forceinline__ float am_leg(float b, float& x, const float* par,
-                                        int m, int i, float r, const Node& nd,
-                                        float& s, float& nd1, float& phi) {
+__device__ __forceinline__ float am_value(float xi, const float* par, int m,
+                                          int i, float r, const Node& nd,
+                                          float& s, float& nd1, float& phi) {
   const float tau_safe = fmaxf(nd.tau, MCT_F32(1e-12));
   const float sq_floor = fmaxf(nd.sqtau, MCT_F32(1e-6));
-  const float xi = x + par[m + i] + par[2 * m + i] * b;
   const float si = expf(xi);
   const float k = par[5 * m + i];
   float val;
@@ -229,9 +231,17 @@ __device__ __forceinline__ float am_leg(float b, float& x, const float* par,
       phi = INV_SQRT_2PI * e;
     }
   }
-  x = xi;
   s = si;
   return val;
+}
+
+template <bool GREEKS>
+__device__ __forceinline__ float am_leg(float b, float& x, const float* par,
+                                        int m, int i, float r, const Node& nd,
+                                        float& s, float& nd1, float& phi) {
+  const float xi = x + par[m + i] + par[2 * m + i] * b;
+  x = xi;
+  return am_value<GREEKS>(xi, par, m, i, r, nd, s, nd1, phi);
 }
 
 // One asset-major node (mctpu's _am_quants and _am_net): advances x[M] with
@@ -996,16 +1006,17 @@ int launch_cva_multi_reg(bool anti, bool kahan, const float* scal,
 
 // ------------------------------------------------------------- K41 (m > 8)
 
-// K41's block keeps in shared memory, per pass: both nodes' normals (2 np
-// ap), then per underlying and path of each sign the log-spot x, the vol
-// tangent dxv and the node's two integrands before the indicator (dval0 =
-// w s N(d1), vval0 = dval0 dxv + w s phi(d1) sqrt(tau)), then of each sign
-// the lane carries ad and av (lgd applied at the end), then K33's partial
-// rows and the block's lane rows (greek_shape).  After a pass's walk its
-// (dval, vval) leaves ([2][chunk_rows][width]) take the place of the
-// normals, x, dxv and the integrands, which span at least as many floats (2
-// ap + 4 a >= 2 a_tile); ad and av are read from past them.  The CVA and
-// credit legs stay in the path's thread.
+// Past a_tile 32 (the 100-underlying sets) K41's block keeps in shared
+// memory, per pass: both nodes' normals (2 np ap), then per underlying and
+// path of each sign the log-spot x, the vol tangent dxv and the node's two
+// integrands before the indicator (dval0 = w s N(d1), vval0 = dval0 dxv +
+// w s phi(d1) sqrt(tau)), then of each sign the lane carries ad and av
+// (lgd applied at the end), then K33's partial rows and the block's lane
+// rows (greek_shape).  After a pass's walk its (dval, vval) leaves
+// ([2][chunk_rows][width]) take the place of the normals, x, dxv and the
+// integrands, which span at least as many floats (2 ap + 4 a >= 2
+// a_tile); ad and av are read from past them.  The CVA and credit legs
+// stay in the path's thread.
 constexpr int K41_LANE_FLOATS = 6;
 
 // One node of K41's walk for packed path q and both signs (state pointers
@@ -1171,6 +1182,291 @@ __global__ void __launch_bounds__(mct::PK_THREADS)
   for (int u = threadIdx.x; u < 4 * W; u += THREADS) {
     vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
   }
+}
+
+// K41 at a_tile AT = 16 or 32 (9-32 underlyings): a path in its thread's
+// registers, K39's register walk (cva_multi_reg_kernel) with K33's lane
+// slots (mw_greeks_reg_kernel).  The block stages once L (rows at stride
+// AT, zero above the diagonal), the legs' rows and the node table, read
+// as broadcasts at their use.  A pass's walks are (sign, path) items, one
+// a thread (in turns where there are more than threads): the item draws
+// its path's normals (element row * width + p * AT + m, pair jj:
+// draw_pass's counters) and keeps that sign's x and dxv in registers, so
+// that under antithetic a thread holds one sign's state, not both, and
+// the pass's np paths keep 2 np threads busy (the parent's passes hold
+// half its threads' paths there).  The signs are independent until the
+// path's sums: each item writes its (cva, credit) legs and adds its ad
+// and av into its sign's lane slots ([2 NS][a][np]); after a barrier the
+// path's thread forms the sums and the (dval, vval) leaves over its ad and
+// av, where bar_leaf_tree reads them.  The item's thread keeps a column of
+// shared memory ([2][a] at stride NS np, the pass's item count: the plain
+// instance's columns stand np apart as its lane slots do, one stride in
+// registers): a node's advanced log-spot and dxv, which the leg loop
+// overwrites with dval0 and vval0 until the net's indicator is known.
+// The passes (greek_shape), the path-to-thread map of the sums and
+// packed_greek_node's operations in their order are
+// cva_multi_greeks_packed_kernel's, so out and vecs are that kernel's bit
+// for bit; no barrier sits inside the walk.
+template <int AT>
+struct CmGreekOps {
+  float4 l[AT * AT / 4];  // L[i][j] at i * AT + j, zero above the diagonal
+  float4 step[AT];        // drift dt, v sqrt(dt), v dt, w of leg i
+  float4 leg[AT];         // k, log k, v^2 / 2, v of leg i
+  float x0[AT];           // log s0
+};
+
+// The net of a node's legs, two at a time (one copy of am_value's code,
+// not AT): each leg's value at the advanced log-spot in the thread's
+// column (am_value, am_leg's second half, on the leg's rows at stride 1),
+// its dval0 = w s N(d1) and vval0 = dval0 dxv + w s phi(d1) sqrt(tau)
+// written over the log-spot and dxv there (rows i and a + i, stride nt),
+// and the net from 0 in leg order.
+template <int AT>
+__device__ __forceinline__ float reg_greek_net(const CmGreekOps<AT>& o,
+                                               int a, int nt, float r,
+                                               const Node& nd, float* col) {
+  float net = 0.0f;
+  for (int i = 0; i < a; i += 2) {
+    const int n = min(2, a - i);
+    float val[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u < n) {
+        const float4 st = mct::lds4(&o.step[i + u]);
+        const float4 g = mct::lds4(&o.leg[i + u]);
+        const float pr[9] = {0.0f, st.x, st.y, st.z, st.w,
+                             g.x,  g.y,  g.z,  g.w};
+        float* cx = col + (i + u) * nt;
+        float* cv = cx + a * nt;
+        float s, nd1, phi;
+        val[u] = am_value<true>(*cx, pr, 1, 0, r, nd, s, nd1, phi);
+        const float ws = st.w * s;
+        const float dval = ws * nd1;
+        const float vval = dval * *cv + ws * phi * nd.sqtau;
+        *cx = dval;
+        *cv = vval;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u < n) net = net + val[u];
+    }
+  }
+  return net;
+}
+
+// One node of an item (packed_greek_node's operations for its sign): bt =
+// L z from 0 (the mirror's the negated sum), x += drift + vol bt and dxv
+// += sqrt(dt) bt - v dt in registers, both written to the thread's
+// column; the net (reg_greek_net); ee = max(net, 0) and, where net > 0,
+// ad += dp dval0 and av += dp vval0 in the sign's lane slots (rows i and
+// a + i at stride np), in leg order.
+template <int AT>
+__device__ __forceinline__ float reg_greek_node(
+    const CmGreekOps<AT>& o, int a, int np, int nt, float r, float sqdt,
+    const Node& nd, const float (&z)[AT], bool mirror, float (&x)[AT],
+    float (&dx)[AT], float* col, float* slot) {
+#pragma unroll
+  for (int i = 0; i < AT; ++i) {
+    if (i < a) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int q = 0; 4 * q <= i; ++q) {
+        const float4 l4 = mct::lds4(&o.l[i * (AT / 4) + q]);
+        sum = sum + l4.x * z[4 * q];
+        if (4 * q + 1 <= i) sum = sum + l4.y * z[4 * q + 1];
+        if (4 * q + 2 <= i) sum = sum + l4.z * z[4 * q + 2];
+        if (4 * q + 3 <= i) sum = sum + l4.w * z[4 * q + 3];
+      }
+      const float4 st = mct::lds4(&o.step[i]);
+      const float b = mirror ? -sum : sum;
+      x[i] = x[i] + st.x + st.y * b;
+      dx[i] = dx[i] + sqdt * b - st.z;
+      col[i * nt] = x[i];
+      col[(a + i) * nt] = dx[i];
+    }
+  }
+  const float net = reg_greek_net<AT>(o, a, nt, r, nd, col);
+  if (net > 0.0f) {
+    for (int i = 0; i < a; ++i) {
+      slot[i * np] = slot[i * np] + nd.dp * col[i * nt];
+      slot[(a + i) * np] = slot[(a + i) * np] + nd.dp * col[(a + i) * nt];
+    }
+  }
+  return fmaxf(net, 0.0f);
+}
+
+template <int AT, bool ANTI, bool KAHAN>
+__global__ void __launch_bounds__(mct::PK_THREADS, 2)
+    cva_multi_greeks_reg_kernel(const float* __restrict__ scal,
+                                const float* __restrict__ lt,
+                                const float* __restrict__ par,
+                                const float* __restrict__ nodes,
+                                mct::Packed P, Launch L,
+                                float* __restrict__ out,
+                                float* __restrict__ vecs) {
+  constexpr int THREADS = mct::PK_THREADS;
+  constexpr int NS = ANTI ? 2 : 1;  // signs
+  __shared__ CmGreekOps<AT> o;
+  __shared__ float sh[(THREADS / 32) * 4];
+  extern __shared__ float4 smem4[];
+  const int np = P.np_max, a = P.a, W = P.width;
+  const int items = NS * np;  // (sign, path) walks a pass, <= NS THREADS
+  const int an = a * np;
+  float4* nodes4 = smem4;  // dp, tau, sqrt(tau), exp(-r tau) of node j
+  float* ddp = reinterpret_cast<float*>(nodes4 + L.g);  // d(dp)/dlambda
+  float* legs = ddp + L.g;               // [NS][2][np]: cva, credit
+  float* slots = legs + 2 * NS * np;     // [2 NS][a][np]: ad, av a sign
+  float* cols = slots + 2 * NS * an;     // [2][a][items]
+  float* part = cols + 2 * a * items;    // [n_chunks][4][W]
+  float* vec = part + 4 * P.n_chunks * W;  // [4][W]
+  float* lf = reinterpret_cast<float*>(o.l);
+  for (int t = threadIdx.x; t < AT * AT; t += THREADS) {
+    const int i = t / AT, j = t - i * AT;
+    lf[t] = (i < a && j <= i) ? lt[i * a + j] : 0.0f;
+  }
+  for (int t = threadIdx.x; t < AT; t += THREADS) {
+    const bool real = t < a;
+    o.step[t] = real ? make_float4(par[a + t], par[2 * a + t],
+                                   par[3 * a + t], par[4 * a + t])
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    o.leg[t] = real ? make_float4(par[5 * a + t], par[6 * a + t],
+                                  par[7 * a + t], par[8 * a + t])
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    o.x0[t] = real ? par[t] : 0.0f;
+  }
+  for (int j = threadIdx.x; j < L.g; j += THREADS) {
+    const Node nd = node_at(nodes, L.g, j);
+    nodes4[j] = make_float4(nd.dp, nd.tau, nd.sqtau, nd.disc);
+    ddp[j] = nd.ddp;
+  }
+  for (int u = threadIdx.x; u < 4 * W; u += THREADS) vec[u] = 0.0f;
+  __syncthreads();
+  const float r = scal[0], lgd = scal[1], sqdt = scal[2];
+  const int pairs = (L.g + 1) / 2;
+  float* col = cols + threadIdx.x;  // this thread's column
+  mct::BlockAccN<THREADS, 4, KAHAN> acc;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int it = 0; it < L.iters; ++it) {
+    const mct::Key key = iter_key(L, it);
+    for (int c0 = 0; c0 < P.n_chunks; ++c0) {
+#pragma unroll 1
+      for (int k = 0; k < NS; ++k) {
+        const int item = threadIdx.x + k * THREADS;
+        if (item >= items) break;
+        const int sgn = ANTI && item >= np ? 1 : 0;
+        const int q = item - sgn * np;
+        const int row = mct::pass_row(P, c0, q / P.c);
+        const uint32_t e0 =
+            static_cast<uint32_t>(row * W + (q % P.c) * AT);
+        float* slot = slots + 2 * sgn * an + q;  // the sign's ad, av rows
+        float x[AT], dx[AT];
+#pragma unroll
+        for (int i = 0; i < AT; ++i) {
+          x[i] = mct::lds1(&o.x0[i]);
+          dx[i] = 0.0f;
+          if (i < a) slot[i * np] = slot[(a + i) * np] = 0.0f;
+        }
+        float cva = 0.0f, cr = 0.0f;  // before lgd
+        for (int jj = 0; jj < pairs; ++jj) {
+          float z[2][AT];
+#pragma unroll
+          for (int m = 0; m < AT; ++m) {
+            if (m < a) {
+              mct::draw_normal_pair(key, e0 + m, static_cast<uint32_t>(jj),
+                                    z[0][m], z[1][m]);
+            } else {
+              z[0][m] = z[1][m] = 0.0f;
+            }
+          }
+          const int dates = min(2, L.g - 2 * jj);
+#pragma unroll
+          for (int date = 0; date < 2; ++date) {
+            if (date >= dates) break;
+            const int j = 2 * jj + date;
+            const float4 n4 = nodes4[j];
+            const Node nd{n4.x, ddp[j], n4.y, n4.z, n4.w};
+            const float ee = reg_greek_node<AT>(o, a, np, items, r, sqdt,
+                                                nd, z[date], sgn != 0, x, dx,
+                                                col, slot);
+            cva = cva + nd.dp * ee;
+            cr = cr + nd.ddp * ee;
+          }
+        }
+        legs[2 * sgn * np + q] = cva;
+        legs[(2 * sgn + 1) * np + q] = cr;
+      }
+      __syncthreads();
+      // Path q's (cva, credit) sums and (dval, vval) leaves in its
+      // thread, in cva_multi_greeks_packed_kernel's operations, the
+      // leaves over the path's ad and av.
+      const int q = threadIdx.x;
+      if (q < np) {
+        float c = lgd * legs[q], d = lgd * legs[np + q];
+        if (ANTI) {
+          c = 0.5f * (c + lgd * legs[2 * np + q]);
+          d = 0.5f * (d + lgd * legs[3 * np + q]);
+        }
+        v[0] += c;
+        v[1] += c * c;
+        v[2] += d;
+        v[3] += d * d;
+        for (int m = 0; m < a; ++m) {
+          float* sm = slots + m * np + q;
+          float dval = lgd * sm[0];
+          float vval = lgd * sm[an];
+          if (ANTI) {
+            dval = 0.5f * (dval + lgd * sm[2 * an]);
+            vval = 0.5f * (vval + lgd * sm[3 * an]);
+          }
+          sm[0] = dval;
+          sm[an] = vval;
+        }
+      }
+      __syncthreads();
+      mct::bar_leaf_tree(P, c0, slots, slots + an, part);
+      __syncthreads();
+    }
+    mct::fold_passes(P, part, vec);
+    acc.add(v, nullptr, sh);
+  }
+  acc.write(out);
+  for (int u = threadIdx.x; u < 4 * W; u += THREADS) {
+    vecs[static_cast<size_t>(blockIdx.x) * 4 * W + u] = vec[u];
+  }
+}
+
+// K41's register instance at a_tile AT: its dynamic shared memory (the
+// node table, the items' legs, the lane slots of each sign, the walking
+// threads' columns, part and vec) and launch on greek_shape's passes.
+template <int AT>
+int launch_cva_multi_greeks_reg(bool anti, bool kahan, const float* scal,
+                                const float* lt, const float* par,
+                                const float* nodes, const mct::Packed& P,
+                                const Launch& L, int n_blocks, float* out,
+                                float* vecs, cudaStream_t s) {
+  using Fn = void (*)(const float*, const float*, const float*, const float*,
+                      mct::Packed, Launch, float*, float*);
+  static const Fn FNS[4] = {cva_multi_greeks_reg_kernel<AT, false, false>,
+                            cva_multi_greeks_reg_kernel<AT, false, true>,
+                            cva_multi_greeks_reg_kernel<AT, true, false>,
+                            cva_multi_greeks_reg_kernel<AT, true, true>};
+  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
+  const size_t items = (anti ? 2 : 1) * static_cast<size_t>(P.np_max);
+  const size_t smem =
+      static_cast<size_t>(L.g) * (sizeof(float4) + sizeof(float)) +
+      (2 * items * (1 + 2 * static_cast<size_t>(P.a)) +
+       (4 * static_cast<size_t>(P.n_chunks) + 4) * P.width) *
+          sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<n_blocks, mct::PK_THREADS, smem, s>>>(scal, lt, par, nodes, P, L, out,
+                                             vecs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -------------------------------------------------- K43, K44 (m <= 8)
@@ -2302,6 +2598,18 @@ extern "C" int mctpu_cva_multi_greeks_packed(
       mct::greek_shape(n_under, a_tile, width, rows,
                        (antithetic ? 2 : 1) * K41_LANE_FLOATS, smem);
   if (P.chunk_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch L = make_launch(n_grid, seed, off, rows, iters);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_tile == 16) {
+    return launch_cva_multi_greeks_reg<16>(antithetic != 0, kahan != 0, scal,
+                                           lt, par, nodes, P, L, n_blocks,
+                                           out, vecs, s);
+  }
+  if (a_tile == CM_REG_MAX) {
+    return launch_cva_multi_greeks_reg<CM_REG_MAX>(
+        antithetic != 0, kahan != 0, scal, lt, par, nodes, P, L, n_blocks,
+        out, vecs, s);
+  }
   using Fn = void (*)(const float*, const float*, const float*, const float*,
                       mct::Packed, Launch, float*, float*);
   static const Fn FNS[4] = {cva_multi_greeks_packed_kernel<false, false>,
@@ -2315,9 +2623,8 @@ extern "C" int mctpu_cva_multi_greeks_packed(
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fn<<<n_blocks, mct::PK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      scal, lt, par, nodes, P, make_launch(n_grid, seed, off, rows, iters),
-      out, vecs);
+  fn<<<n_blocks, mct::PK_THREADS, smem, s>>>(scal, lt, par, nodes, P, L, out,
+                                             vecs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -175,6 +175,30 @@ __device__ __forceinline__ void pass_tree(const Packed& P, int c0,
   }
 }
 
+// pass_tree's levels over the (dval, vval) leaves where the register
+// kernels (K33's, K35's, K41's) and K35's shared-memory kernel write them:
+// lane p a_tile + m of local row rl at d[m np + rl c + p] (vval at v
+// likewise), so a column's rows stand c apart; padded lanes sum to exact
+// zeros.
+__device__ __forceinline__ void bar_leaf_tree(const Packed& P, int c0,
+                                              float* d, float* v,
+                                              float* part) {
+  const int W = P.width;
+  for (int u = threadIdx.x; u < 2 * W; u += PK_THREADS) {
+    const int qty = u / W;
+    const int lane = u - qty * W;
+    const int pth = lane / P.a_tile;
+    const int m = lane - pth * P.a_tile;
+    float s1 = 0.0f, s2 = 0.0f;
+    if (m < P.a) {
+      halving_pair((qty ? v : d) + m * P.np_max + pth, P.chunk_rows, P.c, s1,
+                   s2);
+    }
+    part[(4 * c0 + 2 * qty) * W + lane] = s1;
+    part[(4 * c0 + 2 * qty + 1) * W + lane] = s2;
+  }
+}
+
 // The tree's remaining levels over the passes (odd rows carried, as
 // det_col_sums), added into the block's lane rows vec ([4][width]) in plain
 // float32.

@@ -217,7 +217,9 @@ def greek_partials(gp: torch.Tensor, seed: int, block_offset: int,
 # takes one Box-Muller pair at counter j: the cosine drives the odd,
 # fine-only date, the sine the shared date (the walk_steps map over nc
 # steps, the normals K9 draws at nf dates).  d = pay(accf / nf) -
-# pay(accc / nc).  Level 0 is K9 itself at n_obs = n0.
+# pay(accc / nc).  Level 0 is K9 itself at n_obs = n0.  K11 is a split
+# walk (a thread per path element, then a fold in the simple design's
+# order).
 # ---------------------------------------------------------------------------
 
 def level_params(opt: AsianOption, n_fine: int, device) -> torch.Tensor:
@@ -263,14 +265,18 @@ def level_plain_partials(lp: torch.Tensor, seed: int, block_offset: int,
 
 
 def level_partials(lp: torch.Tensor, seed: int, block_offset: int,
-                   plan: Plan, n_blocks: int, n_fine: int,
-                   geometric: bool) -> torch.Tensor:
+                   plan: Plan, n_blocks: int, n_fine: int, geometric: bool,
+                   scratch_cap: int = 0) -> torch.Tensor:
     """Per-block level partials ``(n_blocks, 2)``: K11 for a CUDA ``lp``,
-    the plain version for a CPU ``lp``; any other device raises."""
+    the plain version for a CPU ``lp``; any other device raises.
+    ``scratch_cap``: K11's scratch in floats at most (0: 256 MB; a float a
+    path element), past which it splits and folds simulation blocks and
+    iterations in groups; the outputs do not depend on it."""
     check_level(n_fine)
     if lp.device.type == "cuda":
-        out = launch_walk("mctpu_asian_level", lp, 4, 2, seed, block_offset,
-                          plan, n_blocks, n_fine, geometric)
+        out = launch_split_walk("mctpu_asian_level", lp, 4, 2, seed,
+                                block_offset, plan, n_blocks, n_fine,
+                                geometric, scratch_cap)
         LAUNCHES["asian_level"] += 1
         return out
     if lp.device.type == "cpu":

@@ -425,7 +425,7 @@ def check_level(n_fine: int) -> None:
 def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
                 seed: int, block_offset: int, plan: Plan, n_blocks: int,
                 n_obs: int, mode: int) -> torch.Tensor:
-    """Launch a single-asset walk kernel of the simple design (K9, K11,
+    """Launch a single-asset walk kernel of the simple design (K9,
     K13-K20, K28 and K46 share one C signature) on ``scal``'s device and
     return its ``(n_blocks, n_out)`` partials.  ``mode`` selects the
     kernel's static variant: 1 for the geometric Asian, the up-and-out
@@ -465,7 +465,7 @@ def launch_split_walk(entry: str, scal: torch.Tensor, n_scal: int,
                       n_out: int, seed: int, block_offset: int, plan: Plan,
                       n_blocks: int, n_obs: int, mode: int | None,
                       scratch_cap: int = 0) -> torch.Tensor:
-    """Launch a split walk (K10, K12, K27, K29: ``csrc/common.cuh``'s
+    """Launch a split walk (K10, K11, K12, K27, K29: ``csrc/common.cuh``'s
     ``walk_split_launch``, a thread per path element and a fold in the
     simple design's order) on ``scal``'s device and return its
     ``(n_blocks, n_out)`` partials, the scratch that ``entry`` +

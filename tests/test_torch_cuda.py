@@ -1454,6 +1454,34 @@ def test_cva_multi_register_kernel_uneven_rows_match_plain(dev, m, rows,
               lambda off, nb: kcm.plain_partials(ops, SEED, off, plan, nb))
 
 
+@pytest.mark.parametrize("m, rows", [(9, 35), (16, 35), (17, 69), (32, 69)])
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_cva_multi_greek_register_kernel_uneven_rows_match_plain(
+        dev, m, rows, mixed, antithetic):
+    """K41's register instances (a_tile 16 at 9 and 16 underlyings, 32 at
+    17 and 32) at rows that are no power of two (35 and 69: one-row passes
+    of c paths), mixed and all-long legs, against the plain version by the
+    scaled pair bound; the padded lanes exactly 0; its CVA sums within
+    1e-5 of K39's (the two forms of a leg)."""
+    ops, plan = _cm_setup(dev, m, mixed, 13, antithetic, not antithetic,
+                          rows=rows, greeks=True)
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kcm.greek_partials(ops, SEED, off,
+                                                           plan, nb)),
+        lambda off, nb: _mw_greek_pairs(kcm.greek_plain_partials(
+            ops, SEED, off, plan, nb)),
+        units=plan.iters * plan.units_per_iter)
+    scal, vec = kcm.greek_partials(ops, SEED, 0, plan, NB)
+    a_tile, c, _ = kbasket.pack_factor(m)
+    assert (vec.reshape(NB, 4, c, a_tile)[..., m:] == 0).all()
+    pops, _ = _cm_setup(dev, m, mixed, 13, antithetic, not antithetic,
+                        rows=rows)
+    price, _ = kcm.partials(pops, SEED, 0, plan, NB)
+    np.testing.assert_allclose(scal[:, :2].cpu().numpy(),
+                               price.cpu().numpy(), rtol=1e-5)
+
+
 @pytest.mark.parametrize("m, rows", [(5, 16), (3, 10)])
 @pytest.mark.parametrize("kahan", [False, True])
 def test_cva_multi_split_kernel_matches_plain_and_ties(dev, m, rows, kahan):
@@ -1959,10 +1987,42 @@ def test_heston_level_split_mlmc_plan_and_grouped_scratch(dev, antithetic):
         assert kheston.LAUNCHES["heston_level"] == before + 1
 
 
-# K10 (arithmetic and geometric, 13 dates) and K27 (Euler and QE, 8 steps:
-# level 0 of mctpu's MLMC default), split per path element and folded in
-# the unsplit order.
-_SPLIT_WALKS = ("K10 arithmetic", "K10 geometric", "K27 Euler", "K27 QE")
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_asian_level_split_mlmc_plan_and_grouped_scratch(dev, antithetic):
+    """K11 (split per path element, folded in the unsplit order) at level 4
+    of n0 = 4 (64 dates), arithmetic and geometric, on the MLMC 8 x 8
+    plan's shape (8 blocks, 16 iterations, rows 8) against the plain
+    version; under a forced small scratch cap bit for bit the one-group
+    launch, each capped call counting one launch."""
+    plan = kasian.make_plan(8 * 16 * 8 * 128 * (2 if antithetic else 1), 8,
+                            8, antithetic)
+    assert (plan.num_blocks, plan.iters) == (8, 16)
+    lib = _build.library()
+    whole = lib.mctpu_asian_level_scratch_floats(8, 8, 16, 0)
+    assert lib.mctpu_asian_level_scratch_floats(8, 8, 16, 1) < whole
+    for geo in (False, True):
+        lp = kasian.level_params(_asian(4, geo), 64, dev)
+        _contract(
+            lambda off, nb: kasian.level_partials(lp, SEED, off, plan, nb,
+                                                  64, geo),
+            lambda off, nb: kasian.level_plain_partials(lp, SEED, off, plan,
+                                                        nb, 64, geo),
+            n_blocks=8, units=_units(plan))
+        want = kasian.level_partials(lp, SEED, 0, plan, 8, 64, geo)
+        for cap in (1, whole // 2):
+            before = kasian.LAUNCHES["asian_level"]
+            got = kasian.level_partials(lp, SEED, 0, plan, 8, 64, geo,
+                                        scratch_cap=cap)
+            assert torch.equal(got, want), cap
+            assert kasian.LAUNCHES["asian_level"] == before + 1
+
+
+# K10 (arithmetic and geometric, 13 dates), K11 (arithmetic and geometric,
+# level 2 of n0 = 4: 16 dates) and K27 (Euler and QE, 8 steps: level 0 of
+# mctpu's MLMC default), split per path element and folded in the unsplit
+# order.
+_SPLIT_WALKS = ("K10 arithmetic", "K10 geometric", "K11 arithmetic",
+                "K11 geometric", "K27 Euler", "K27 QE")
 # name: (blocks, iters, rows, kahan): the MLMC 8 x 8 plan's shape, and 2
 # iterations on 1 and 3 rows (the fold's 512- or 1024-thread stride partly
 # empty).
@@ -1982,6 +2042,14 @@ def _split_walk(dev, name):
                 lambda off, nb, plan: kasian.greek_plain_partials(
                     gp, SEED, off, plan, nb, 13, geo),
                 "asian_greeks", "mctpu_asian_greeks_scratch_floats", True)
+    if name.startswith("K11"):
+        geo = name.endswith("geometric")
+        lp = kasian.level_params(_asian(4, geo), 16, dev)
+        return (lambda off, nb, plan, cap=0: kasian.level_partials(
+                    lp, SEED, off, plan, nb, 16, geo, scratch_cap=cap),
+                lambda off, nb, plan: kasian.level_plain_partials(
+                    lp, SEED, off, plan, nb, 16, geo),
+                "asian_level", "mctpu_asian_level_scratch_floats", True)
     qe = name.endswith("QE")
     par = kheston.params(_HESTON["opt"], 8, qe, dev)
     return (lambda off, nb, plan, cap=0: kheston.partials(
@@ -1993,7 +2061,7 @@ def _split_walk(dev, name):
 
 
 def _split_counts(name):
-    return kasian.LAUNCHES if name.startswith("K10") else kheston.LAUNCHES
+    return kasian.LAUNCHES if name.startswith("K1") else kheston.LAUNCHES
 
 
 @pytest.mark.parametrize("shape", sorted(_SPLIT_SHAPES))
@@ -2001,10 +2069,10 @@ def _split_counts(name):
 @pytest.mark.parametrize("name", _SPLIT_WALKS)
 def test_asian_greeks_and_heston_split_match_plain(dev, name, antithetic,
                                                    shape):
-    """K10 and K27 (split per path element, folded in the unsplit order)
-    against their plain versions (K10's pairs by the scaled bound), on the
-    MLMC 8 x 8 plan's shape and on short rows; two launches and the block
-    offset bitwise; each call counts one launch."""
+    """K10, K11 and K27 (split per path element, folded in the unsplit
+    order) against their plain versions (K10's and K11's pairs by the
+    scaled bound), on the MLMC 8 x 8 plan's shape and on short rows; two
+    launches and the block offset bitwise; each call counts one launch."""
     blocks, iters, rows, kahan = _SPLIT_SHAPES[shape]
     fn, plain, key, _, greek = _split_walk(dev, name)
     plan = kheston.make_plan(
@@ -2025,11 +2093,11 @@ def test_asian_greeks_and_heston_split_match_plain(dev, name, antithetic,
 @pytest.mark.parametrize("name", _SPLIT_WALKS)
 def test_asian_greeks_and_heston_split_grouped_scratch(dev, name,
                                                        antithetic):
-    """K10 and K27 under a forced small scratch cap: at 1 float every
+    """K10, K11 and K27 under a forced small scratch cap: at 1 float every
     (block, iteration) is split and folded on its own (the fold's carry
-    between the groups: K10's BlockAccN pairs, K27's Acc2s), at half the
-    one-group scratch the blocks go in groups; both equal the one-group
-    launch bit for bit, and each capped call counts one launch."""
+    between the groups: K10's BlockAccN pairs, K11's and K27's Acc2s), at
+    half the one-group scratch the blocks go in groups; both equal the
+    one-group launch bit for bit, and each capped call counts one launch."""
     fn, _, key, entry, _ = _split_walk(dev, name)
     plan = kheston.make_plan(NB * 3 * 7 * 128 * (2 if antithetic else 1), NB,
                              7, antithetic)

@@ -141,6 +141,30 @@ def test_packed_greek_partials_match_interpret_mode():
     np.testing.assert_allclose(gs[:, :2].numpy(), price.numpy(), rtol=1e-5)
 
 
+def test_packed_greek_partials_16_antithetic_match_interpret_mode():
+    """K41 at 16 underlyings (the widest set of its a_tile-16 register
+    instance, so no lane of a path is padding; the 9-underlying case above
+    holds the padded lanes at 0) under antithetic against the
+    interpret-mode kernel: the ``(B, 4)`` pairs and the ``(B, 4, width)``
+    lane rows by the scaled bound."""
+    spec = _cli(16, 3)
+    m = spec.n_underlyings
+    jplan, tplan = _plans(m, True, True, 1)
+    ws, wv = jcm.greek_pallas_partials(spec, _chol64(spec), SEED, 1, jplan,
+                                       NB, interpret=True)
+    ts = from_reference(spec)
+    ops = tcm.operands(ts, tmath.cholesky_lower(ts.corr), "cpu",
+                       greeks=True)
+    gs, gv = tcm.greek_partials(ops, SEED, 1, tplan, NB)
+    a_tile, c, width = tcm.pack_factor(m)
+    assert (a_tile, c, width) == (16, 8, 128)
+    assert gs.shape == (NB, 4) and gv.shape == (NB, 4, width)
+    wv = np.asarray(wv)
+    assert wv.shape == (NB, 4, width)
+    assert_pairs_close(_pairs(gs, gv), _pairs(ws, wv),
+                       tplan.iters * tplan.units_per_iter, RTOL)
+
+
 JCFG = jengine.EngineConfig(backend="pallas", interpret=True, num_blocks=8,
                             rows=8)
 TCFG = tengine.EngineConfig(num_blocks=8, rows=8, device="cpu")

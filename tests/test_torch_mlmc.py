@@ -83,9 +83,9 @@ def _barrier(opt, lv, plan, nb, off, seed=SEED):
 
 KERNELS = {"K29": (jheston, _heston), "K11": (jasian, _asian),
            "K14": (jbarrier, _barrier)}
-# K29 also at 2 iterations a block, plain and antithetic: the stream's
-# per-iteration reseed, which the card's split walk folds in the plain
-# version's order.
+# K29 and K11 also at 2 iterations a block, plain and antithetic: the
+# stream's per-iteration reseed, which the card's split walks fold in the
+# plain version's order.
 CASES = {
     # name: (kernel, option, level, antithetic, kahan, iterations)
     "K29_l1": ("K29", HOPT, 1, False, True, 1),
@@ -96,6 +96,8 @@ CASES = {
     "K11_arithmetic_l1": ("K11", ASIAN, 1, False, True, 1),
     "K11_geometric_l2": ("K11", GEO, 2, False, True, 1),
     "K11_geometric_l1_antithetic_f32": ("K11", GEO, 1, True, False, 1),
+    "K11_arithmetic_l1_iters2": ("K11", ASIAN, 1, False, True, 2),
+    "K11_geometric_l1_iters2_antithetic": ("K11", GEO, 1, True, True, 2),
     "K14_up_l1": ("K14", UP, 1, False, True, 1),
     "K14_down_l2": ("K14", DOWN, 2, False, True, 1),
     "K14_up_l2_antithetic_f32": ("K14", UP, 2, True, False, 1),
@@ -126,6 +128,19 @@ def test_level_partials_match_interpret_mode(case):
                        RTOL)
     if kernel == "K14":  # finer monitoring only knocks out more
         assert (want[:, 0] < 0).all()
+
+
+@pytest.mark.parametrize("cap", [0, 1, 1 << 20])
+def test_asian_level_scratch_cap_runs_plain_on_cpu(cap):
+    """``level_partials`` takes K11's scratch cap on every device; on a CPU
+    ``lp`` it runs the plain version, whatever the cap."""
+    lp = tasian.level_params(from_reference(ASIAN), 8, "cpu")
+    plan = theston.make_plan(NB * 2 * ROWS * 128 * 2, NB, ROWS, True)
+    assert plan.iters == 2
+    want = tasian.level_plain_partials(lp, SEED, 1, plan, NB, 8, False)
+    got = tasian.level_partials(lp, SEED, 1, plan, NB, 8, False,
+                                scratch_cap=cap)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))

@@ -25,9 +25,9 @@ default ``EngineConfig``), after one warm-up call:
   kernels and their folds; the netting-set CVA's, the xVA's and the xVA
   Greeks' split kernel and its fold at m <= 8; the packed basket price's
   and the packed basket Greeks' split kernels and their folds; the
-  barrier walk's, the Asian Greeks', the Heston walk's, the Heston MLMC
-  level's and the 3-asset basket walks' split kernel and its fold (K12,
-  K10, K27, K29, K30); 0 for a
+  barrier walk's, the Asian Greeks', the Heston walk's, the Heston and
+  Asian MLMC levels' and the 3-asset basket walks' split kernel and its
+  fold (K12, K10, K27, K29, K11, K30); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -138,8 +138,8 @@ def calls(mt):
                        average="geometric")
     uo8 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0,
                         n_obs=8)
-    # The split walks' kernels (K10, K12, K27, K29, K30: a walk per path
-    # element, then the fold in the unsplit order).
+    # The split walks' kernels (K10, K11, K12, K27, K29, K30: a walk per
+    # path element, then the fold in the unsplit order).
     split = ("walk_split_kernel", "walk_fold_kernel")
     mlmc_calls = []
     for tag, cfg in (("512 x 256", mt.EngineConfig()),
@@ -148,7 +148,7 @@ def calls(mt):
             (f"price_heston_mlmc eps=0.02, {tag}", split,
              lambda c=cfg: mt.mlmc.price_heston_mlmc(hopt, 0.02, SEED, c)),
             (f"price_asian_mlmc geometric eps=0.02, {tag}",
-             ("asian_kernel", "asian_level_kernel"),
+             ("asian_kernel",) + split,
              lambda c=cfg: mt.mlmc.price_asian_mlmc(geo4, 0.02, SEED, c)),
             (f"price_barrier_mlmc H=130 eps=0.02, {tag}",
              split + ("barrier_level_kernel",),
@@ -282,7 +282,7 @@ def calls(mt):
          "cva_multi_greeks_am_kernel",
          lambda: mt.greeks(cmg, 1 << 20, SEED)),
         ("greeks_cva_multi m=16, n_grid=12, 2^20",
-         "cva_multi_greeks_packed_kernel",
+         "cva_multi_greeks_reg_kernel",
          lambda: mt.greeks(cmg16, 1 << 20, SEED)),
         ("price_xva m=3, n_grid=50, 2^20",
          ("am_split_kernel", "am_fold_kernel"),

@@ -6,12 +6,15 @@ Run from the repository root on a machine with the CUDA toolkit (``nvcc``):
     python3 tools/ptxas_report.py [source.cu ...]
 
 Compiles each source of ``mctpu_torch/csrc`` (all of ``_build.SOURCES`` by
-default, ``multi_walk.cu``, ``rainbow.cu``, ``cva_multi.cu``,
-``heston.cu`` -- K27's and K29's split walks ``walk_split_kernel<
-HestonWalk<..>, ..>`` and ``<HestonLevelWalk, ..>`` and their fold
-``walk_fold_kernel<1024, ..>`` -- and ``asian.cu`` -- K10's
-``walk_split_kernel<AsianGreekWalk<..>, ..>`` and its fold
-``walk_fold_kernel<512, .., true, 5>`` -- among them)
+default, ``multi_walk.cu``, ``rainbow.cu``, ``heston.cu`` -- K27's and
+K29's split walks ``walk_split_kernel<HestonWalk<..>, ..>`` and
+``<HestonLevelWalk, ..>`` and their fold ``walk_fold_kernel<1024, ..>``
+-- ``asian.cu`` -- K10's ``walk_split_kernel<AsianGreekWalk<..>, ..>``
+and its fold ``walk_fold_kernel<512, .., true, 5>``, K11's
+``walk_split_kernel<AsianLevelWalk<..>, ..>`` and its fold
+``walk_fold_kernel<1024, ..>`` -- and ``cva_multi.cu`` -- K41's register
+instances ``cva_multi_greeks_reg_kernel<16 | 32, ANTI, KAHAN>`` beside
+its shared-memory kernel ``cva_multi_greeks_packed_kernel`` -- among them)
 with the flags ``mctpu_torch/_build.py`` builds it with, plus ``-Xptxas -v``,
 one ``nvcc`` per source, all started together, into a temporary
 directory, and prints each source's compile time (wall seconds from the

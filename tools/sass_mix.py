@@ -21,12 +21,14 @@ Greeks walks, ``a`` for the asset-major basket walk, 2 for a Heston
 step) and ``q`` more roots a date (the Heston level: its fine step's and
 half its coarse step's, 1.5, or 3 for both signs; the Heston Euler walk
 1, or 2 for both signs) takes ``k / 2 + q`` roots a
-date, so a body of ``n`` roots walks ``n / (k / 2 + q)`` dates; a walk
+date, so a body of ``n`` roots walks ``n / (k / 2 + q)`` dates (the
+Asian level walk: one normal a fine date, a pair a coarse step); a walk
 that draws the stream again for the antithetic mirror (the simple design)
 walks each date ``walks = 2`` times.  Per path-date = the largest such
 loop's counts / its dates x walks.  The issue time at the case's
 path-dates (2^22 x 50, the Heston level's 2^22 x 128 fine steps, the
-Heston walk's 2^22 x 100 steps) is that
+Heston walk's 2^22 x 100 steps, the Asian level's 2^22 x 64 fine dates)
+is that
 count / 32 warp
 instructions, over 4 warp instructions a clock an SM, at the card's SM
 count and its maximum SM clock (``nvidia-smi``): the least time the SMs
@@ -58,11 +60,13 @@ from ptxas_report import _demangle  # noqa: E402
 PATH_DATES = (1 << 22) * 50  # phase 6: 2^22 paths, 50 dates
 LEVEL_DATES = (1 << 22) * 128  # K29 in phase 6: 128 fine steps
 HESTON_DATES = (1 << 22) * 100  # K27 in phase 6: 100 steps
+ASIAN_LEVEL_DATES = (1 << 22) * 64  # K11 in phase 6: 64 fine dates
 # (case, source, text of the demangled kernel name, normals a date, walks
 # [, more roots a date, path-dates]) at ANTI false, KAHAN true, up-and-out
 # / the 3-asset basket / the arithmetic average / Euler: the simple designs
 # (K12 barrier_kernel, K30 mw_walk_am_kernel, K29 heston_level_kernel, K10
-# asian_greeks_kernel, K27 heston_kernel) and the split walks.
+# asian_greeks_kernel, K27 heston_kernel, K11 asian_level_kernel) and the
+# split walks.
 CASES = (
     ("K12 simple", "barrier.cu", "barrier_kernel<false, true, true>", 1, 1),
     ("K12 simple antithetic", "barrier.cu",
@@ -104,6 +108,14 @@ CASES = (
      HESTON_DATES),
     ("K27 Euler split antithetic", "heston.cu", "HestonWalk<false>, true>",
      2, 1, 2, HESTON_DATES),
+    ("K11 simple", "asian.cu", "asian_level_kernel<false, true, false>", 1,
+     1, 0, ASIAN_LEVEL_DATES),
+    ("K11 simple antithetic", "asian.cu",
+     "asian_level_kernel<true, true, false>", 1, 2, 0, ASIAN_LEVEL_DATES),
+    ("K11 split", "asian.cu", "AsianLevelWalk<false>, false>", 1, 1, 0,
+     ASIAN_LEVEL_DATES),
+    ("K11 split antithetic", "asian.cu", "AsianLevelWalk<false>, true>", 1,
+     1, 0, ASIAN_LEVEL_DATES),
 )
 FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"}
 CLASSES = ("IMAD.WIDE", "IMAD", "LOP3/IADD3", "FP32", "MUFU", "other")

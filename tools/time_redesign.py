@@ -6,8 +6,9 @@ packed basket price), K33 (the packed basket-Asian Greeks), K39 (the
 packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
 (the CVA exposure walk), K5 (its Greeks), K31 (the packed multi-asset
 walk), K40 (the netting-set CVA), K43's runtime-m xVA kernel, K29 (the
-Heston MLMC level), K44 (the xVA Greeks), K10 (the Asian Greeks walk) and
-K27 (the Heston walk) -- at ``chip_smoke.py``'s
+Heston MLMC level), K44 (the xVA Greeks), K10 (the Asian Greeks walk),
+K27 (the Heston walk), K11 (the Asian MLMC level) and K41 (the packed
+netting-set CVA Greeks) -- at ``chip_smoke.py``'s
 phase 6 shapes on one GPU, against another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
@@ -66,7 +67,14 @@ dates, 2^22 paths, F32_KAHAN and F32, geometric, antithetic, and 2^20 on
 the 8 x 8 MLMC level plan, plain and antithetic; K27 (the Heston walk) on
 K29's option at 100 steps, 2^22 paths, Euler (F32_KAHAN and F32) and QE,
 each antithetic, and Euler at 8 steps (level 0 of the 8 x 8 MLMC
-default), 2^20 on its level plan, plain and antithetic.
+default), 2^20 on its level plan, plain and antithetic; K11 (the Asian
+MLMC level) on the JAX exotic CLI's ``--product mlmc-asian`` option at
+level 4 of n0 = 4 (64 dates), 2^22 paths on the default level plan,
+arithmetic (F32_KAHAN and F32) and geometric, each antithetic, and 2^20
+on the level plan of the 8 x 8 MLMC default, arithmetic plain and
+antithetic and geometric; K41 (the packed netting-set CVA Greeks) on the
+JAX Greeks CLI's ``--product cva-multi`` set at ``--assets 16`` and on
+the exotic CLI's set at 32, 12 nodes, 2^20 paths, plain and antithetic.
 Each time
 is the median of ``--reps`` launches timed by CUDA events after one
 warm-up launch (the event time holds the host's time before a call's
@@ -76,7 +84,8 @@ and (6, width) slot vectors), K43's
 (its eight sums and both profiles), K48's (its five moment sums), K3's,
 K33's (its four sums and (4, width) lane rows), K39's, K35's, K31's and
 K40's outputs (K39's and K40's sums and EE
-profile), K29's, K44's ``am``, K10's and K27's outputs must equal the other
+profile), K29's, K44's ``am``, K10's, K27's, K11's and K41's (its four
+sums and (4, width) lane rows) outputs must equal the other
 checkout's bit for bit (same walk, passes and order of sums), and K44's
 runtime-m (sum, sum^2) pairs must agree with it by ``chip_smoke.py``'s
 scaled pair bound at rtol 2e-5 (its slices reorder the block sums); each
@@ -472,6 +481,49 @@ def cases(v: SimpleNamespace):
                     lambda o=par, p=plan, s=steps, q=scheme == "qe":
                     v.kheston.partials(o, SEED, 0, p, p.num_blocks, s, q),
                     True))
+    # K11 on the JAX exotic CLI's --product mlmc-asian option (S = K = 100,
+    # r = 0.05, v = 0.2, T = 1) at level 4 of n0 = 4 (64 dates): 2^22 paths
+    # on the level plan of the default EngineConfig (phase 6's),
+    # arithmetic (F32_KAHAN and F32) and geometric, each antithetic; and
+    # 2^20 on the level plan of mctpu's 8 x 8 MLMC default, arithmetic
+    # plain and antithetic and geometric.
+    for avg, anti, prec, n, mlmc_plan in (
+            ("arithmetic", False, None, 1 << 22, False),
+            ("arithmetic", False, f32, 1 << 22, False),
+            ("geometric", False, None, 1 << 22, False),
+            ("arithmetic", True, None, 1 << 22, False),
+            ("arithmetic", True, f32, 1 << 22, False),
+            ("geometric", True, None, 1 << 22, False),
+            ("arithmetic", False, None, 1 << 20, True),
+            ("arithmetic", True, None, 1 << 20, True),
+            ("geometric", False, None, 1 << 20, True)):
+        c = dataclasses.replace(mlmc_cfg if mlmc_plan else cfg,
+                                antithetic=anti,
+                                precision=prec or cfg.precision)
+        plan = v.mlmc._level_plan(n, c)
+        lp = v.kasian.level_params(
+            t.AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=4), 64,
+            c.torch_device())
+        out.append((f"K11 {avg} level 4 (64 dates) 2^{n.bit_length() - 1}"
+                    f"{' MLMC 8 x 8 plan ' if mlmc_plan else ' '}"
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}"
+                    f"{' F32' if prec else ''}",
+                    lambda o=lp, p=plan, g=avg == "geometric":
+                    v.kasian.level_partials(o, SEED, 0, p, p.num_blocks, 64,
+                                            g), True))
+    # K41 on the JAX Greeks CLI's --product cva-multi set at --assets 16
+    # (12 nodes), and at 32 on the exotic CLI's set with 12 nodes (the
+    # Greeks CLI's spots turn negative past 20), 2^20 paths, plain and
+    # antithetic.
+    for m, anti in ((16, False), (16, True), (32, False), (32, True)):
+        spec = (greeks_set(t, m).netting if m <= 16
+                else netting_set(t, m, 12))
+        plan, ops = engine.greeks_cva_multi_setup(
+            spec, 1 << 20, dataclasses.replace(cfg, antithetic=anti))
+        out.append((f"K41 m={m} 12 nodes{' antithetic' if anti else ''} "
+                    "2^20", lambda o=ops, p=plan: kcm.greek_partials(
+                        o, SEED, 0, p, p.num_blocks), True))
     return out
 
 
