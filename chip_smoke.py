@@ -23,10 +23,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    3 and 8 assets and the packed walk and its Greeks at 9, 16, 17, 32 and
    100, at 13 dates; the split walks K12 and K30 (a = 3, the Asian and
    the knock-out) at 50 dates, K10 (both averages) at 13 dates, K27 (Euler
-   and QE) at 8 steps (level 0 of ``mctpu``'s MLMC default) and K29 at
-   level 4 on the MLMC 8 x 8 plan with 32 iterations, plain and
-   antithetic, and with their scratch capped at 1 float and at half the
-   one-group size, bit-equal to the one-group launch; the
+   and QE) at 8 steps (level 0 of ``mctpu``'s MLMC default), K19 (GBM at
+   13 dates, Heston at 13 and 252) and K29 at level 4 on the MLMC 8 x 8
+   plan with 32 iterations, plain and antithetic, and with their scratch
+   capped at 1 float and at half the one-group size, bit-equal to the
+   one-group launch; the
    rainbow and its Greeks at 1, 3 and 8 assets and the packed
    rainbow at 9, 16 and 100, max and min; the netting-set CVA and its
    Greeks at 1, 2 (mixed-sign), 3 and 8 underlyings and the packed
@@ -49,10 +50,11 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    K14 (knock-out, up and down) at levels 1 and 4, their level sums by the
    Greek kernels' scaled bound, because a payoff difference's block sum can
    cancel; antithetic and Kahan each on and off; the RQMC nets K52 and
-   K53 call and put, K54 at 3, 12, 100 and 300 assets and K55 at 12, 50, 252
-   and 300 dates, geometric and arithmetic, on a power-of-two chunk and
-   on rows 24 and 163, 16 replicates, their unfolded quads compared
-   folded, s + c and s2 + c2): equal
+   K53 call and put, K54 at 3, 12, 100 and 300 assets and K55 at 1, 12,
+   50, 252 and 300 dates, geometric and arithmetic, on a power-of-two chunk
+   and on rows 24 and 163, 16 replicates, their unfolded quads compared
+   folded, s + c and s2 + c2; K55's split net also with its scratch
+   capped at 1 float and at half, bit-equal to one group): equal
    at rtol 2e-5 (the Greek kernels' (sum x, sum x^2) pairs by the scaled
    bound rtol * (|sum x| + sqrt(n * sum x^2)), n the units per block,
    because a Greek's block sum can nearly cancel; rtol 1e-4 under
@@ -168,7 +170,8 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    work (``bound_ms``: instruction counts over the peak rate of their
    class, see ``PEAK_OPS``); a split kernel's time holds all its
    launches, the slice or split kernel and its fold (K4, K5, K40, K43 and
-   its runtime-m kernel, K8 and K48, the split walks); K48 also on its
+   its runtime-m kernel, K8 and K48, the split walks, K55's split net and
+   its fold and the chunk carry); K48 also on its
    pilot's plan, a line of its own (``basket_cv_packed_pilot``, the
    kernel's launches beside it), and K27 Euler at level 0 of the MLMC 8 x
    8 default (8 steps, 8 x 128 x 8), a line that is printed only; K43's
@@ -3477,6 +3480,23 @@ def main() -> int:
                 par, SEED, off, pl, n, 8, qe),
             lambda pl, cap: _build.library().mctpu_heston_scratch_floats(
                 pl.num_blocks, pl.rows, pl.iters, cap))
+    # K19 is a split walk (as K27), both legs: GBM at 13 dates, Heston at
+    # 13 and 252.
+    vs_gbm13 = kvarswap.params(VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0),
+                               13, dev)
+    for leg, vpar, vn in (("GBM", vs_gbm13, 13),
+                          ("Heston", kvarswap.heston_params(h_vs, 13, dev),
+                           13),
+                          ("Heston", kvarswap.heston_params(h_vs, 252, dev),
+                           252)):
+        split_contract(
+            f"K19 {leg} {vn} dates",
+            lambda off, n, pl, cap=0, par=vpar, vn=vn: kvarswap.partials(
+                par, SEED, off, pl, n, vn, scratch_cap=cap),
+            lambda off, n, pl, par=vpar, vn=vn: kvarswap.plain_partials(
+                par, SEED, off, pl, n, vn),
+            lambda pl, cap: _build.library().mctpu_varswap_scratch_floats(
+                pl.num_blocks, pl.rows, pl.iters, cap))
     for n_obs, anti, kahan in ((13, False, True), (252, False, True),
                                (252, True, False)):
         plan = kvarswap.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
@@ -4005,7 +4025,9 @@ def main() -> int:
     # 300 on rows 8 (the kernel's largest z array), K55 geometric and
     # arithmetic at 12 dates on rows 8 (a 1024-point chunk) and rows 24
     # (3072 points), at 50 dates on rows 163 (the Asian's cap) and at 252
-    # dates on rows 32, and at 300 dates (the kernel's largest W array).
+    # dates on rows 32, and at 300 dates (the kernel's largest W array);
+    # K55 at 1 date too, and its split net with the scratch capped at 1
+    # float and at half, bit-equal to one group.
     # Each chunk's float32 sum depends on its order, so s and c each differ
     # between kernel and plain version while s + c agrees: the quads are
     # compared folded, K53's outputs by the scaled pair bound.
@@ -4066,7 +4088,8 @@ def main() -> int:
                           bops, rkey, off, plan, n),
                       lambda off, n: krqmc.basket_plain_partials(
                           bops, rkey, off, plan, n))
-    for m, arows, avgs in ((12, 8, ("geometric", "arithmetic")),
+    for m, arows, avgs in ((1, 8, ("arithmetic",)),
+                           (12, 8, ("geometric", "arithmetic")),
                            (12, 24, ("geometric", "arithmetic")),
                            (50, 163, ("geometric", "arithmetic")),
                            (252, 32, ("geometric", "arithmetic")),
@@ -4081,6 +4104,18 @@ def main() -> int:
                               aops, rkey, off, plan, n, geo),
                           lambda off, n: krqmc.asian_plain_partials(
                               aops, rkey, off, plan, n, geo))
+            want = krqmc.asian_partials(aops, rkey, 0, plan, 16, geo)
+            whole = _build.library().mctpu_rqmc_asian_scratch_floats(
+                16, plan.paths_per_iter, plan.iters, 0)
+            for cap in (1, whole // 2):
+                check(torch.equal(krqmc.asian_partials(
+                    aops, rkey, 0, plan, 16, geo, scratch_cap=cap), want),
+                    f"K55 {avg} n_obs={m} rows={arows}: scratch capped at "
+                    f"{cap} floats differs")
+            phase("kernel-vs-plain", f"K55 {avg} n_obs={m} rows={arows} "
+                                     f"split: scratch capped at 1 and "
+                                     f"{whole // 2} floats bit-equal to one "
+                                     "group")
 
     # ---- 4a. the pricing path at real size ------------------------------
     counters = (kvanilla.LAUNCHES, kbasket.LAUNCHES, kcva.LAUNCHES,

@@ -98,8 +98,8 @@ _SIGNATURES = {
     # n_grid, n_blocks, rows, iters -> float count of K5's scratch (its
     # slices' sums)
     "mctpu_cva_greeks_scratch_floats": (_I, _I, _I, _I),
-    # The single-asset walks of the simple design (K9-K20 but K10, K11,
-    # K12, K27, K28, K46): scal, n_obs (the cliquet's n_periods, the Heston
+    # The single-asset walks of the simple design (K9, K13-K18, K20, K28,
+    # K46, K14's level walk): scal, n_obs (the cliquet's n_periods, the Heston
     # walk's n_steps, an MLMC level's fine step count), seed, off, n_blocks,
     # rows, iters, antithetic, kahan, mode (geometric Asian, up-and-out
     # barrier, 2 * fixed + put for the lookback, the variance swap's Heston
@@ -107,25 +107,27 @@ _SIGNATURES = {
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_barrier_greeks", "mctpu_lookback",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
-                    "mctpu_cliquet_greeks", "mctpu_varswap",
-                    "mctpu_varswap_greeks", "mctpu_heston_greeks",
+                    "mctpu_cliquet_greeks", "mctpu_varswap_greeks", "mctpu_heston_greeks",
                     "mctpu_asian_cv", "mctpu_barrier_level")},
-    # The split walks K10, K11, K12 and K27: scal, n_obs (K11's n_fine,
-    # K27's n_steps), seed, off, n_blocks, rows, iters, antithetic, kahan,
-    # mode (geometric Asian, up-and-out barrier, the QE scheme), scratch cap
-    # in floats, scratch, out, stream
+    # The split walks K10, K11, K12, K19 and K27: scal, n_obs (K11's
+    # n_fine, K27's n_steps), seed, off, n_blocks, rows, iters, antithetic,
+    # kahan, mode (geometric Asian, up-and-out barrier, the variance swap's
+    # Heston leg, the QE scheme), scratch cap in floats, scratch, out,
+    # stream
     **{name: (_P,) + (_I,) * 10 + (_P, _P, _P)
        for name in ("mctpu_asian_greeks", "mctpu_asian_level",
-                    "mctpu_barrier", "mctpu_heston")},
+                    "mctpu_barrier", "mctpu_varswap", "mctpu_heston")},
     # K29, the split Heston level walk: scal, n_fine, seed, off, n_blocks,
     # rows, iters, antithetic, kahan, scratch cap in floats, scratch, out,
     # stream
     "mctpu_heston_level": (_P,) + (_I,) * 9 + (_P, _P, _P),
     # n_blocks, rows, iters, cap -> float count of a split walk's scratch
-    # (its groups' outputs and fold carry): K10, K11, K12, K27, K29, K30
+    # (its groups' outputs and fold carry): K10, K11, K12, K19, K27, K29,
+    # K30
     **{name: (_I,) * 4 for name in ("mctpu_asian_greeks_scratch_floats",
                                      "mctpu_asian_level_scratch_floats",
                                      "mctpu_barrier_scratch_floats",
+                                     "mctpu_varswap_scratch_floats",
                                      "mctpu_heston_scratch_floats",
                                      "mctpu_heston_level_scratch_floats",
                                      "mctpu_multi_walk_am_scratch_floats")},
@@ -208,11 +210,15 @@ _SIGNATURES = {
     # The RQMC nets (K52-K55), both passes: their operands (K52, K53: par;
     # K54: par, lt, rows; K55: par, drift, bridge), v, low, the shifts' key
     # words k0, k1 and block offset, dims, n_blocks, ppc, iters, [K52, K53:
-    # put; K55: geometric,] tiles, out, stream
+    # put; K55: geometric, scratch cap in floats, scratch,] tiles, out,
+    # stream
     **{name: (_P,) * 3 + (_I,) * 8 + (_P,) * 3
        for name in ("mctpu_rqmc_vanilla", "mctpu_rqmc_greeks")},
     "mctpu_rqmc_basket": (_P,) * 5 + (_I,) * 7 + (_P,) * 3,
-    "mctpu_rqmc_asian": (_P,) * 5 + (_I,) * 8 + (_P,) * 3,
+    "mctpu_rqmc_asian": (_P,) * 5 + (_I,) * 9 + (_P,) * 4,
+    # n_blocks, ppc, iters, cap -> float count of K55's scratch (its
+    # groups' payoffs)
+    "mctpu_rqmc_asian_scratch_floats": (_I,) * 4,
 }
 
 _lib = None

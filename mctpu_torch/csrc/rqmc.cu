@@ -18,7 +18,8 @@
 //
 // Design.  The TPU runs one grid program per replicate (16 by default),
 // which on 132 SMs would be K4's under-fill.  Here one CUDA block takes one
-// (chunk, replicate) and writes that chunk's float32 tile sums (sum p,
+// (chunk, replicate) (K55: a split and a fold of the same order, below)
+// and writes that chunk's float32 tile sums (sum p,
 // sum p^2; K53's 16) to a scratch row; a second, tiny kernel then runs
 // mctpu's Neumaier adds over the chunks in order, one thread per
 // (replicate, sum), and writes the unfolded (s, c) pairs.  The tile sums
@@ -36,9 +37,11 @@
 // shuffles.  A point-dim then costs a shuffle, a table load and an XOR
 // beside the quantile's 28 float32 operations and logf (the tail branch's
 // sqrtf and 17 more only in a warp that holds a tail point, but for K54
-// past 64 assets).  K55 holds a
-// point's W in a local array of one of three sizes (m <= 64, 256, 2048 =
-// MAX_DIM), K54 its z.
+// past 64 assets).  K54 holds a point's z in a local array of one of three
+// sizes (a <= 64, 256, 2048 = MAX_DIM).  K55 splits each chunk's batches
+// over many CUDA blocks, each point's payoff to scratch, and folds them in
+// the one-block-a-chunk order (see its section below); a point's W is a
+// warp's column in shared memory, or past 64 dates a local array.
 //
 // Bound on the H100: float32 operations and the SFU (logf and expf per
 // point-dim); K54 at a = 100 by the 5050-term correlation product per
@@ -131,60 +134,84 @@ struct Net {
   int m;
 };
 
+// The 32-point groups of the chunk whose first point has index base: the
+// first group's base a0 (32-aligned), their count, and the batches of gpb =
+// 32 / min(m, 32) groups that a warp takes at a time.
+struct NetChunk {
+  uint32_t a0;
+  int ngroups, nbatch, gpb, dc;
+};
+
+__device__ __forceinline__ NetChunk net_chunk(int m, uint32_t base,
+                                              int ppc) {
+  NetChunk C;
+  C.dc = m < 32 ? m : 32;
+  C.gpb = 32 / C.dc;
+  C.a0 = base & ~31u;
+  C.ngroups = static_cast<int>(
+      ((base & 31u) + static_cast<uint32_t>(ppc) + 31u) >> 5);
+  C.nbatch = (C.ngroups + C.gpb - 1) / C.gpb;
+  return C;
+}
+
+// Drives pt over batch kb of the chunk whose first point has index base:
+// per point pt.begin(), pt.dim(d, z) for d = 0 .. m-1 in order, then
+// pt.end(inside the chunk, the point's index less a0); z =
+// norm_ppf<Pt::kLazyTail>.  In the batch lane (g, d) forms x(A_g) of dim
+// d, shifted (the dims in slices of 32 when m > 32, one group a batch).
+// Every lane of the warp runs every step, so the shuffles see the whole
+// warp.
+template <class Pt>
+__device__ __forceinline__ void net_batch(const Net& net, const NetChunk& C,
+                                          uint32_t base, int ppc, int kb,
+                                          Pt& pt) {
+  const int lane = threadIdx.x & 31;
+  const int m = net.m, dc = C.dc, gpb = C.gpb;
+  const int my_g = lane / dc;
+  const int my_d = lane - my_g * dc;
+  uint32_t h = 0u;
+  for (int g = 0; g < gpb; ++g) {
+    const int k = kb * gpb + g;
+    if (k >= C.ngroups) break;
+    const uint32_t pos = 32u * static_cast<uint32_t>(k) +
+                         static_cast<uint32_t>(lane);
+    const uint32_t n = C.a0 + pos;
+    pt.begin();
+    for (int d0 = 0; d0 < m; d0 += 32) {
+      if (g == 0) {  // m <= 32: one slice, formed for the whole batch
+        const int kk = kb * gpb + my_g;
+        const int dd = d0 + my_d;
+        h = 0u;
+        if (my_g < gpb && kk < C.ngroups && dd < m) {
+          const uint32_t shift =
+              mct::philox4x32_10(net.k0, net.k1, net.rep,
+                                 static_cast<uint32_t>(dd), SHIFT_TAG, 0u)
+                  .x;
+          h = sobol30(C.a0 + 32u * static_cast<uint32_t>(kk),
+                      net.v + dd * BITS) ^
+              (shift >> 2);
+        }
+      }
+      const int dn = min(32, m - d0);
+      for (int j = 0; j < dn; ++j) {
+        const int d = d0 + j;
+        const uint32_t x = __shfl_sync(0xffffffffu, h, g * dc + j) ^
+                           __ldg(net.low + d * 32 + lane);
+        pt.dim(d, norm_ppf<Pt::kLazyTail>(u_from_bits30(x)));
+      }
+    }
+    pt.end(n - base < static_cast<uint32_t>(ppc), pos);
+  }
+}
+
 // Drives pt over the ppc points of the chunk whose first point has index
-// base: per point pt.begin(), pt.dim(d, z) for d = 0 .. m-1 in order, then
-// pt.end(inside the chunk); z = norm_ppf<Pt::kLazyTail>.  Warps take
-// batches of gpb = 32 / min(m, 32) aligned 32-point groups; in a batch lane
-// (g, d) forms x(A_g) of dim d, shifted (the dims in slices of 32 when
-// m > 32, one group a batch).
-// Every lane of a warp runs every step, so the shuffles see the whole warp.
+// base, the block's warps taking batches kb = warp, warp + WARPS, ...
 template <class Pt>
 __device__ __forceinline__ void run_net(const Net& net, uint32_t base,
                                         int ppc, Pt& pt) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m = net.m;
-  const int dc = m < 32 ? m : 32;
-  const int gpb = 32 / dc;
-  const uint32_t a0 = base & ~31u;
-  const int ngroups = static_cast<int>(
-      ((base & 31u) + static_cast<uint32_t>(ppc) + 31u) >> 5);
-  const int nbatch = (ngroups + gpb - 1) / gpb;
-  const int my_g = lane / dc;
-  const int my_d = lane - my_g * dc;
-  for (int kb = warp; kb < nbatch; kb += WARPS) {
-    uint32_t h = 0u;
-    for (int g = 0; g < gpb; ++g) {
-      const int k = kb * gpb + g;
-      if (k >= ngroups) break;
-      const uint32_t n = a0 + 32u * static_cast<uint32_t>(k) +
-                         static_cast<uint32_t>(lane);
-      pt.begin();
-      for (int d0 = 0; d0 < m; d0 += 32) {
-        if (g == 0) {  // m <= 32: one slice, formed for the whole batch
-          const int kk = kb * gpb + my_g;
-          const int dd = d0 + my_d;
-          h = 0u;
-          if (my_g < gpb && kk < ngroups && dd < m) {
-            const uint32_t shift =
-                mct::philox4x32_10(net.k0, net.k1, net.rep,
-                                   static_cast<uint32_t>(dd), SHIFT_TAG, 0u)
-                    .x;
-            h = sobol30(a0 + 32u * static_cast<uint32_t>(kk),
-                        net.v + dd * BITS) ^
-                (shift >> 2);
-          }
-        }
-        const int dn = min(32, m - d0);
-        for (int j = 0; j < dn; ++j) {
-          const int d = d0 + j;
-          const uint32_t x = __shfl_sync(0xffffffffu, h, g * dc + j) ^
-                             __ldg(net.low + d * 32 + lane);
-          pt.dim(d, norm_ppf<Pt::kLazyTail>(u_from_bits30(x)));
-        }
-      }
-      pt.end(n - base < static_cast<uint32_t>(ppc));
-    }
+  const NetChunk C = net_chunk(net.m, base, ppc);
+  for (int kb = threadIdx.x >> 5; kb < C.nbatch; kb += WARPS) {
+    net_batch(net, C, base, ppc, kb, pt);
   }
 }
 
@@ -201,7 +228,7 @@ struct VanPt {
     const float st = s0 * expf(mu + sig * z);
     p = PUT ? fmaxf(k - st, 0.0f) : fmaxf(st - k, 0.0f);
   }
-  __device__ __forceinline__ void end(bool inside) {
+  __device__ __forceinline__ void end(bool inside, uint32_t) {
     if (inside) {
       v[0] += p;
       v[1] += p * p;
@@ -222,7 +249,7 @@ struct GreekPt {
   __device__ __forceinline__ void dim(int, float z) {
     mct::van_quants<PUT>(P, z, q);
   }
-  __device__ __forceinline__ void end(bool inside) {
+  __device__ __forceinline__ void end(bool inside, uint32_t) {
     if (inside) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -251,7 +278,7 @@ struct BasketPt {
 
   __device__ __forceinline__ void begin() {}
   __device__ __forceinline__ void dim(int d, float zz) { z[d] = zz; }
-  __device__ __forceinline__ void end(bool inside) {
+  __device__ __forceinline__ void end(bool inside, uint32_t) {
     float basket, unused;
     mct::packed_baskets<false>(z, lt, rows, a, basket, unused);
     const float p = fmaxf(basket - k, 0.0f);
@@ -264,49 +291,114 @@ struct BasketPt {
 
 // --------------------------------------------------------------- K55 Asian
 
-// br: the (6, m) bridge rows left, right, out, ca, cb, sds.
-template <int MAXM, bool GEO>
+// K55 runs as a split net and a fold.  The split kernel takes one CUDA
+// block of 8 warps per (replicate, chunk, slice of 8 batches), a warp a
+// batch, and writes each point's payoff to scratch at the point's index
+// less a0, so the grid is no longer one block a chunk; the fold, one block
+// of THREADS per (replicate, chunk), adds the payoffs in the order that
+// run_net's warps took them in that design (thread (w, l) its batches w, w
+// + WARPS, .. and in each its groups in turn), then reduces them with
+// write_tile's tree into the same tile row.  So the tiles, and the quads
+// after chunk_carry_kernel, are that design's bit for bit.
+//
+// The bridge table is staged per block in shared memory: step q as the
+// int4 (left, right, out, 0) and the float4 (ca, cb, sds, drift_q).  A
+// point's W is a warp's [m][32] column in shared memory where that fits
+// (asian_w_shared<MAXM>), lane l's W_i at [i][l]: every lane of the warp
+// takes the same bridge step at once, so each access is one row, free of
+// bank conflicts.  Else it is a local array of MAXM floats.
+
+// Where W lives, by MAXM instance: m <= 64 in shared memory (52.8 KB a
+// block of 8 warps at 50 dates, four blocks an SM); past 64 in a local
+// array.  A column of 252 dates takes 32 KB a warp, so at most 6 warps an
+// SM fit; with the local array, reaching L2, the refilled grid keeps 32
+// warps an SM and ran 1.45x faster at 252 dates (tools/time_redesign.py
+// against a copy with the shared column, PERF.md).
+template <int MAXM>
+__host__ __device__ constexpr bool asian_w_shared() {
+  return MAXM <= 64;
+}
+
+template <int MAXM, bool GEO, bool SHW>
 struct AsianPt {
   static constexpr bool kLazyTail = true;
-  const float* br;
-  const float* drift;
+  const int4* idx;   // the staged bridge steps
+  const float4* cf;
   float log_s0, k, vol, inv_m;
   int m;
-  float w[MAXM];
-  float v[2] = {0.0f, 0.0f};
+  float* col;        // SHW: this lane's column, W_i at col[32 i]
+  float* dst;        // the item's payoffs, by point index less a0
+  float wl[SHW ? 1 : MAXM];
 
+  __device__ __forceinline__ float& w(int i) {
+    if constexpr (SHW) {
+      return col[32 * i];
+    } else {
+      return wl[i];
+    }
+  }
   __device__ __forceinline__ void begin() {}
   __device__ __forceinline__ void dim(int q, float z) {
-    const int o = static_cast<int>(__ldg(br + 2 * m + q));
-    const float sz = __ldg(br + 5 * m + q) * z;
+    const int4 ix = idx[q];
+    const float4 c = cf[q];
+    const float sz = c.z * z;
     if (q == 0) {
-      w[o] = sz;
+      w(ix.z) = sz;
       return;
     }
-    const int l = static_cast<int>(__ldg(br + q));
-    float wb = __ldg(br + 4 * m + q) * w[static_cast<int>(__ldg(br + m + q))];
-    if (l >= 0) wb = __ldg(br + 3 * m + q) * w[l] + wb;
-    w[o] = wb + sz;
+    float wb = c.y * w(ix.y);
+    if (ix.x >= 0) wb = c.x * w(ix.x) + wb;
+    w(ix.z) = wb + sz;
   }
-  __device__ __forceinline__ void end(bool inside) {
-    for (int j = 0; j < m; ++j) {
-      const float ls = (log_s0 + __ldg(drift + j)) + vol * w[j];
-      w[j] = GEO ? ls : expf(ls);
+  // Date j's log-spot (geometric) or spot.
+  __device__ __forceinline__ float date(int j) {
+    const float ls = (log_s0 + cf[j].w) + vol * w(j);
+    return GEO ? ls : expf(ls);
+  }
+  // The adjacent-pair tree of the dates (an odd level's last element
+  // carried up), its first three levels formed as the dates are: element i
+  // < m / 8 of the third level is dates 8i .. 8i + 7 in a perfect tree, and
+  // the m % 8 dates past them make its one more element, their own tree
+  // (they start on a multiple of 8, so each level's parity is theirs).
+  __device__ __forceinline__ void end(bool, uint32_t pos) {
+    const int q = m >> 3, r = m & 7;
+    for (int i = 0; i < q; ++i) {
+      const int j = 8 * i;
+      const float a = date(j) + date(j + 1);
+      const float b = date(j + 2) + date(j + 3);
+      const float c = date(j + 4) + date(j + 5);
+      const float d = date(j + 6) + date(j + 7);
+      w(i) = (a + b) + (c + d);
     }
-    int n = m;
+    if (r != 0) {
+      float t[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) t[u] = u < r ? date(8 * q + u) : 0.0f;
+      int n = r;
+#pragma unroll
+      for (int level = 0; level < 3; ++level) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (2 * i + 1 < n) {
+            t[i] = t[2 * i] + t[2 * i + 1];
+          } else if (2 * i < n) {
+            t[i] = t[2 * i];
+          }
+        }
+        n = (n + 1) >> 1;
+      }
+      w(q) = t[0];
+    }
+    int n = q + (r != 0);
     while (n > 1) {
-      const int half = n >> 1;
-      for (int i = 0; i < half; ++i) w[i] = w[2 * i] + w[2 * i + 1];
-      if (n & 1) w[half] = w[n - 1];
-      n = half + (n & 1);
+      const int h = n >> 1;
+      for (int i = 0; i < h; ++i) w(i) = w(2 * i) + w(2 * i + 1);
+      if (n & 1) w(h) = w(n - 1);
+      n = h + (n & 1);
     }
-    float avg = w[0] * inv_m;
+    float avg = w(0) * inv_m;
     if (GEO) avg = expf(avg);
-    const float p = fmaxf(avg - k, 0.0f);
-    if (inside) {
-      v[0] += p;
-      v[1] += p * p;
-    }
+    dst[pos] = fmaxf(avg - k, 0.0f);
   }
 };
 
@@ -385,26 +477,170 @@ __global__ void __launch_bounds__(THREADS)
   write_tile(pt.v, sh, iters, tiles);
 }
 
+// A group of K55's items: replicates b0 .. b0 + nb, chunks i0 .. i0 + ni.
+struct NetItems {
+  int b0, nb, i0, ni;
+};
+
+// Floats of scratch a (replicate, chunk) item takes: its groups' points.
+inline int asian_item_floats(int ppc) {
+  return 32 * ((ppc % 32 == 0 ? ppc : ppc + 62) / 32);
+}
+
+inline mct::ScratchGroups asian_groups(int n_blocks, int ppc, int iters,
+                                       size_t cap) {
+  return mct::scratch_groups(n_blocks, iters, 0,
+                             static_cast<size_t>(asian_item_floats(ppc)),
+                             cap > 0 ? cap : mct::WALK_SCRATCH_CAP);
+}
+
+// Grid (nb * ni items, slices): warp w of block (item, slice) takes batch
+// slice * WARPS + w of the item's chunk.  Dynamic shared memory: the bridge
+// (32 m bytes), then where W is shared the warps' columns (128 m bytes a
+// warp).
 template <int MAXM, bool GEO>
 __global__ void __launch_bounds__(THREADS)
-    rqmc_asian_kernel(const float* __restrict__ par,
-                      const float* __restrict__ drift,
-                      const float* __restrict__ bridge, const uint32_t* v,
-                      const uint32_t* low, uint32_t k0, uint32_t k1,
-                      uint32_t off, int m, int ppc, int iters, float* __restrict__ tiles) {
-  __shared__ float sh[WARPS * 2];
-  AsianPt<MAXM, GEO> pt;
-  pt.br = bridge;
-  pt.drift = drift;
+    rqmc_asian_split_kernel(const float* __restrict__ par,
+                            const float* __restrict__ drift,
+                            const float* __restrict__ bridge,
+                            const uint32_t* v, const uint32_t* low,
+                            uint32_t k0, uint32_t k1, uint32_t off, int m,
+                            int ppc, NetItems I, int item_floats,
+                            float* __restrict__ split) {
+  constexpr bool SHW = asian_w_shared<MAXM>();
+  extern __shared__ float4 asian_sh[];
+  int4* idx = reinterpret_cast<int4*>(asian_sh);
+  float4* cf = asian_sh + m;
+  for (int q = threadIdx.x; q < m; q += THREADS) {
+    idx[q] = make_int4(static_cast<int>(bridge[q]),
+                       static_cast<int>(bridge[m + q]),
+                       static_cast<int>(bridge[2 * m + q]), 0);
+    cf[q] = make_float4(bridge[3 * m + q], bridge[4 * m + q],
+                        bridge[5 * m + q], drift[q]);
+  }
+  __syncthreads();
+  const int item = blockIdx.x;
+  const int bl = item / I.ni, il = item - bl * I.ni;
+  const uint32_t base =
+      static_cast<uint32_t>(I.i0 + il) * static_cast<uint32_t>(ppc);
+  const NetChunk C = net_chunk(m, base, ppc);
+  const int warp = threadIdx.x >> 5;
+  const int kb = blockIdx.y * WARPS + warp;
+  if (kb >= C.nbatch) return;  // the whole warp
+  AsianPt<MAXM, GEO, SHW> pt;
+  pt.idx = idx;
+  pt.cf = cf;
   pt.log_s0 = par[0];
   pt.k = par[1];
   pt.vol = par[2];
   pt.inv_m = par[4];
   pt.m = m;
-  run_net(block_net(v, low, k0, k1, off, m),
-          static_cast<uint32_t>(blockIdx.x) * static_cast<uint32_t>(ppc), ppc,
-          pt);
-  write_tile(pt.v, sh, iters, tiles);
+  if constexpr (SHW) {
+    pt.col = reinterpret_cast<float*>(cf + m) + warp * m * 32 +
+             (threadIdx.x & 31);
+  }
+  pt.dst = split + static_cast<size_t>(item) * item_floats;
+  const Net net{v, low, k0, k1, off + static_cast<uint32_t>(I.b0 + bl), m};
+  net_batch(net, C, base, ppc, kb, pt);
+}
+
+// Grid (ni, nb): block (il, bl) folds item bl * ni + il into tile row
+// (b0 + bl, i0 + il), in run_net's order, then write_tile's tree.
+__global__ void __launch_bounds__(THREADS)
+    rqmc_asian_fold_kernel(const float* __restrict__ split, int m, int ppc,
+                           NetItems I, int iters, int item_floats,
+                           float* __restrict__ tiles) {
+  __shared__ float sh[WARPS * 2];
+  const int il = blockIdx.x, bl = blockIdx.y;
+  const float* src =
+      split + static_cast<size_t>(bl * I.ni + il) * item_floats;
+  const uint32_t base =
+      static_cast<uint32_t>(I.i0 + il) * static_cast<uint32_t>(ppc);
+  const NetChunk C = net_chunk(m, base, ppc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // The thread's groups, s = 0 .. cnt - 1: group (warp + WARPS (s / gpb))
+  // gpb + s % gpb, rising with s; the loads issued FOLD_BATCH ahead.
+  int cnt = 0;
+  for (int kb = warp; kb < C.nbatch; kb += WARPS) {
+    cnt += min(C.gpb, C.ngroups - kb * C.gpb);
+  }
+  float v[2] = {0.0f, 0.0f};
+  for (int s0 = 0; s0 < cnt; s0 += mct::FOLD_BATCH) {
+    float x[mct::FOLD_BATCH];
+    bool in[mct::FOLD_BATCH];
+#pragma unroll
+    for (int u = 0; u < mct::FOLD_BATCH; ++u) {
+      const int s = s0 + u;
+      x[u] = 0.0f;
+      in[u] = false;
+      if (s < cnt) {
+        const int k = (warp + WARPS * (s / C.gpb)) * C.gpb + s % C.gpb;
+        const uint32_t pos = 32u * static_cast<uint32_t>(k) +
+                             static_cast<uint32_t>(lane);
+        x[u] = src[pos];
+        in[u] = C.a0 + pos - base < static_cast<uint32_t>(ppc);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < mct::FOLD_BATCH; ++u) {
+      if (in[u]) {
+        v[0] += x[u];
+        v[1] += x[u] * x[u];
+      }
+    }
+  }
+  mct::BlockAccN<THREADS, 2, false> acc;
+  acc.add(v, nullptr, sh);
+  acc.write_n(tiles + (static_cast<size_t>(I.b0 + bl) * iters + I.i0 + il) *
+                          2,
+              2);
+}
+
+// Every group of items in order, its split and then its fold, into tiles
+// (n_blocks, iters, 2).  Returns a CUDA error.
+template <int MAXM, bool GEO>
+int asian_split_launch(const float* par, const float* drift,
+                       const float* bridge, const uint32_t* v,
+                       const uint32_t* low, uint32_t k0, uint32_t k1,
+                       uint32_t off, int m, int n_blocks, int ppc, int iters,
+                       size_t cap, float* scratch, float* tiles,
+                       cudaStream_t s) {
+  constexpr bool SHW = asian_w_shared<MAXM>();
+  const int item_floats = asian_item_floats(ppc);
+  const int gpb = 32 / (m < 32 ? m : 32);
+  const int nbatch = (item_floats / 32 + gpb - 1) / gpb;
+  const int slices = (nbatch + WARPS - 1) / WARPS;
+  if (slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 32 * static_cast<size_t>(m) +
+                      (SHW ? static_cast<size_t>(WARPS) * m * 128 : 0);
+  const auto kernel = rqmc_asian_split_kernel<MAXM, GEO>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const mct::ScratchGroups G = asian_groups(n_blocks, ppc, iters, cap);
+  for (int b0 = 0; b0 < n_blocks; b0 += G.blocks) {
+    const int nb = n_blocks - b0 < G.blocks ? n_blocks - b0 : G.blocks;
+    for (int i0 = 0; i0 < iters; i0 += G.iters) {
+      const int ni = iters - i0 < G.iters ? iters - i0 : G.iters;
+      const NetItems I{b0, nb, i0, ni};
+      kernel<<<dim3(static_cast<unsigned>(nb * ni),
+                    static_cast<unsigned>(slices)),
+               THREADS, smem, s>>>(par, drift, bridge, v, low, k0, k1, off,
+                                   m, ppc, I, item_floats, scratch);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      rqmc_asian_fold_kernel<<<dim3(static_cast<unsigned>(ni),
+                                    static_cast<unsigned>(nb)),
+                               THREADS, 0, s>>>(scratch, m, ppc, I, iters,
+                                                item_floats, tiles);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return 0;
 }
 
 // The second pass: thread (b, s) Neumaier-adds tiles[b, :, s] over the
@@ -436,22 +672,33 @@ __global__ void __launch_bounds__(CARRY_THREADS)
   out[static_cast<size_t>(b) * 2 * n_sums + 2 * s + 1] = comp;
 }
 
-// Launches the chunk kernel through launch(grid), then the carry; returns
-// the first CUDA error.
-template <class Launch>
-int two_pass(int n_blocks, int iters, int n_sums, const float* tiles,
-             float* out, cudaStream_t stream, Launch&& launch) {
-  if (n_blocks < 1 || n_blocks > 65535 || iters < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  launch(dim3(static_cast<unsigned>(iters), static_cast<unsigned>(n_blocks)));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The carry over the chunks of tiles (n_blocks, iters, n_sums) into out;
+// returns the CUDA error.
+int launch_carry(int n_blocks, int iters, int n_sums, const float* tiles,
+                 float* out, cudaStream_t stream) {
   const int threads = n_blocks * n_sums;
   chunk_carry_kernel<<<(threads + CARRY_THREADS - 1) / CARRY_THREADS,
                        CARRY_THREADS, 0, stream>>>(tiles, n_blocks, iters,
                                                    n_sums, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_grid(int n_blocks, int iters) {
+  return n_blocks < 1 || n_blocks > 65535 || iters < 1;
+}
+
+// Launches the chunk kernel through launch(grid), then the carry; returns
+// the first CUDA error.
+template <class Launch>
+int two_pass(int n_blocks, int iters, int n_sums, const float* tiles,
+             float* out, cudaStream_t stream, Launch&& launch) {
+  if (bad_grid(n_blocks, iters)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  launch(dim3(static_cast<unsigned>(iters), static_cast<unsigned>(n_blocks)));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_carry(n_blocks, iters, n_sums, tiles, out, stream);
 }
 
 }  // namespace
@@ -513,26 +760,42 @@ int mctpu_rqmc_basket(const float* par, const float* lt, const float* rows,
   });
 }
 
+// Floats of scratch a K55 launch takes (cap: at most this many, 0 for 256
+// MB; past it the replicates and chunks go in groups).
+int mctpu_rqmc_asian_scratch_floats(int n_blocks, int ppc, int iters,
+                                    int cap) {
+  return static_cast<int>(
+      asian_groups(n_blocks, ppc, iters, static_cast<size_t>(cap)).total);
+}
+
+// K55: the split net and its fold into tiles, scratch of
+// mctpu_rqmc_asian_scratch_floats(.., cap) floats, then the carry.
 int mctpu_rqmc_asian(const float* par, const float* drift,
                      const float* bridge, const uint32_t* v,
                      const uint32_t* low, int k0, int k1, int off, int m,
-                     int n_blocks, int ppc, int iters, int geometric,
-                     float* tiles, float* out, cudaStream_t stream) {
-  if (m < 1 || m > 2048) return static_cast<int>(cudaErrorInvalidValue);
+                     int n_blocks, int ppc, int iters, int geometric, int cap,
+                     float* scratch, float* tiles, float* out,
+                     cudaStream_t stream) {
+  if (m < 1 || m > 2048 || bad_grid(n_blocks, iters)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const uint32_t K0 = k0, K1 = k1, OFF = off;
-  return two_pass(n_blocks, iters, 2, tiles, out, stream, [&](dim3 grid) {
-#define MCT_ASIAN(MAXM, GEO)                                               \
-  rqmc_asian_kernel<MAXM, GEO><<<grid, THREADS, 0, stream>>>(              \
-      par, drift, bridge, v, low, K0, K1, OFF, m, ppc, iters, tiles)
-    if (m <= 64) {
-      if (geometric) MCT_ASIAN(64, true); else MCT_ASIAN(64, false);
-    } else if (m <= 256) {
-      if (geometric) MCT_ASIAN(256, true); else MCT_ASIAN(256, false);
-    } else {
-      if (geometric) MCT_ASIAN(2048, true); else MCT_ASIAN(2048, false);
-    }
+  int err;
+#define MCT_ASIAN(MAXM, GEO)                                                \
+  err = asian_split_launch<MAXM, GEO>(par, drift, bridge, v, low, K0, K1,   \
+                                      OFF, m, n_blocks, ppc, iters,         \
+                                      static_cast<size_t>(cap), scratch,    \
+                                      tiles, stream)
+  if (m <= 64) {
+    if (geometric) MCT_ASIAN(64, true); else MCT_ASIAN(64, false);
+  } else if (m <= 256) {
+    if (geometric) MCT_ASIAN(256, true); else MCT_ASIAN(256, false);
+  } else {
+    if (geometric) MCT_ASIAN(2048, true); else MCT_ASIAN(2048, false);
+  }
 #undef MCT_ASIAN
-  });
+  if (err != 0) return err;
+  return launch_carry(n_blocks, iters, 2, tiles, out, stream);
 }
 
 }  // extern "C"

@@ -22,8 +22,9 @@
 // S0) (K19); K20 steps mct::heston_greek_step (K28's tangents) and also sums
 // lr and 2 lr (al_p,new - al_p) per parameter p = v0, theta, kappa, xi, and
 // pays (rv, dv0, dtheta, dkappa, dxi, rho = (2 dt / T) sum lr), each over T
-// (mctpu's _heston_greek_walk).  The antithetic mirror reseeds and replays
-// the draws with -z, as the JAX kernel does.
+// (mctpu's _heston_greek_walk).  K20's antithetic mirror reseeds and
+// replays the draws with -z, as the JAX kernel does; K19's steps both signs
+// on one draw, as GBM.
 //
 // Built with -fmad=false (mctpu_torch/_build.py), as every walk: a
 // contracted drift + vol * z would round each log-return otherwise than the
@@ -37,10 +38,16 @@
 // Box-Muller pair per path-step, beside the Euler step's ~15 float32
 // operations and a sqrtf (K19) or the tangent step's ~45 and a sqrtf and a
 // divide (K20): 252 dates make 126 (GBM) or 252 (Heston) Philox blocks a
-// path.  Simple design, as K12 and K13: one CUDA block per simulation
-// block, one thread per path element striding over the (rows, 128) tile,
-// state in registers; K19 sums with mct::Acc2, K20 with mct::BlockAccN per
-// iteration.  No atomics: two launches give the same bits.
+// path.  K19 (both legs) is a split walk, as K12 and K27: one thread per
+// path element of every (block, iteration) on the whole card, its sample
+// to scratch, and a fold of THREADS threads a simulation block in the
+// order of the simple design it replaced (each thread's mct::Acc2 over its
+// elements t, t + THREADS, .. iteration by iteration, then the block's
+// tree), so its block sums are that design's bit for bit.  K20 keeps the
+// simple design, as K13: one CUDA block per simulation block, one thread
+// per path element striding over the (rows, 128) tile, state in registers,
+// mct::BlockAccN per iteration.  No atomics: two launches give the same
+// bits.
 #include "common.cuh"
 
 namespace {
@@ -67,26 +74,6 @@ __device__ __forceinline__ float realized_variance(float inv_t, float drift,
   });
   const float rv = acc * inv_t;
   return ANTI ? 0.5f * (rv + acc_m * inv_t) : rv;
-}
-
-template <bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(THREADS)
-    varswap_kernel(const float* __restrict__ scal, int n_obs, uint32_t seed,
-                   uint32_t off, int n_elems, int iters,
-                   float* __restrict__ out) {
-  // scal: 1/t, drift, vol
-  const float inv_t = scal[0], drift = scal[1], vol = scal[2];
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      acc.add(realized_variance<ANTI>(inv_t, drift, vol, n_obs, key,
-                                      static_cast<uint32_t>(e)));
-    }
-  }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
 }
 
 // K20's scalars (mctpu_torch/kernels/varswap.py, greek_params) and the
@@ -159,45 +146,71 @@ __global__ void __launch_bounds__(GREEK_THREADS)
   acc.write(out);
 }
 
-// K19, Heston leg: the realized variance of tile element e's path under
-// sign sgn.
-__device__ __forceinline__ float heston_rv(const mct::HestonStep& h, float v0,
-                                           float inv_t, int n_obs,
-                                           mct::Key key, uint32_t e,
-                                           float sgn) {
-  float x = 0.0f, v = v0, acc = 0.0f;
-  mct::walk_steps(key, e, n_obs, [&](int, float z_v, float z_perp) {
-    const float x_old = x;
-    mct::heston_step(h, sgn * z_v, sgn * z_perp, x, v);
-    const float lr = x - x_old;
-    acc = acc + lr * lr;
-  });
-  return acc * inv_t;
-}
+// K19 as split walks (mct::walk_split_kernel), the fold K19's unsplit order
+// (THREADS threads, each thread's Acc2 over (iteration, element), then
+// write_block_sums' tree), so the block sums are the simple design's bit
+// for bit.  Each stages its scalars in shared memory.
+//
+// GBM: realized_variance above, one thread a path element.
+struct VarswapGbmWalk {
+  struct Params {
+    const float* scal;
+    int n_obs;
+  };
+  static constexpr int SHARED = 3;
+  static constexpr int MIN_BLOCKS = 16;  // 64 warps an SM
 
-template <bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(THREADS)
-    varswap_heston_kernel(const float* __restrict__ scal, int n_obs,
-                          uint32_t seed, uint32_t off, int n_elems, int iters,
-                          float* __restrict__ out) {
-  // scal: 1/t, s0 (not read), v0, then the Euler step's seven constants
-  const float inv_t = scal[0], v0 = scal[2];
-  const mct::HestonStep h = mct::heston_consts(scal + 3);
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float rv = heston_rv(h, v0, inv_t, n_obs, key, u, 1.0f);
-      if (ANTI) rv = 0.5f * (rv + heston_rv(h, v0, inv_t, n_obs, key, u,
-                                            -1.0f));
-      acc.add(rv);
-    }
+  __device__ static void stage(const Params& P, float* sh) {
+    if (threadIdx.x < SHARED) sh[threadIdx.x] = P.scal[threadIdx.x];
   }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
-}
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float* sh, mct::Key key,
+                              uint32_t e) {
+    return realized_variance<ANTI>(sh[0], sh[1], sh[2], P.n_obs, key, e);
+  }
+};
+
+// Heston: tile element e walks its n_obs dates once, drawing each Philox
+// block once; under ANTI both signs' (x, v) advance on that draw, the
+// mirror's normals -z_v and -z_perp (exactly the simple design's sgn * z,
+// so each sign rounds as it did there), and the sample is the pair's mean
+// 0.5 (rv+ + rv-), rv = acc / T.
+struct VarswapHestonWalk {
+  struct Params {
+    const float* scal;
+    int n_obs;
+  };
+  static constexpr int SHARED = 10;      // HESTON_SCAL
+  static constexpr int MIN_BLOCKS = 12;  // 48 warps an SM, no spills
+
+  __device__ static void stage(const Params& P, float* sh) {
+    if (threadIdx.x < SHARED) sh[threadIdx.x] = P.scal[threadIdx.x];
+  }
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float* sh, mct::Key key,
+                              uint32_t e) {
+    // sh: 1/t, s0 (not read), v0, then the Euler step's seven constants
+    const float inv_t = sh[0], v0 = sh[2];
+    const mct::HestonStep h = mct::heston_consts(sh + 3);
+    float x = 0.0f, v = v0, acc = 0.0f, xm = 0.0f, vm = v0, acc_m = 0.0f;
+    mct::walk_steps(key, e, P.n_obs, [&](int, float z_v, float z_perp) {
+      const float x_old = x;
+      mct::heston_step(h, z_v, z_perp, x, v);
+      const float lr = x - x_old;
+      acc = acc + lr * lr;
+      if (ANTI) {
+        const float xm_old = xm;
+        mct::heston_step(h, -z_v, -z_perp, xm, vm);
+        const float lm = xm - xm_old;
+        acc_m = acc_m + lm * lm;
+      }
+    });
+    const float rv = acc * inv_t;
+    return ANTI ? 0.5f * (rv + acc_m * inv_t) : rv;
+  }
+};
 
 // K20's Heston scalars (mctpu_torch/kernels/varswap.py, HESTON_GREEK_SCAL).
 struct HestonGreekScal {
@@ -272,56 +285,80 @@ __global__ void __launch_bounds__(GREEK_THREADS)
 }
 
 template <bool ANTI, bool KAHAN>
-void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int greeks, int heston,
-            float* out, cudaStream_t stream) {
-  if (greeks && heston) {
+void launch_greeks(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+                   int n_blocks, int n_elems, int iters, int heston,
+                   float* out, cudaStream_t stream) {
+  if (heston) {
     varswap_heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
                                                 stream>>>(
         scal, n_obs, seed, off, n_elems, iters, out);
-  } else if (greeks) {
+  } else {
     varswap_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
                                          stream>>>(scal, n_obs, seed, off,
                                                    n_elems, iters, out);
-  } else if (heston) {
-    varswap_heston_kernel<ANTI, KAHAN><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
-  } else {
-    varswap_kernel<ANTI, KAHAN><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
   }
 }
 
-using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
-                          int, int, int, float*, cudaStream_t);
+using GreekFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
+                         int, int, float*, cudaStream_t);
 
 // Indexed by antithetic << 1 | kahan.
-constexpr LaunchFn LAUNCHERS[4] = {
-    launch<false, false>, launch<false, true>,
-    launch<true, false>,  launch<true, true>,
+constexpr GreekFn GREEK_LAUNCHERS[4] = {
+    launch_greeks<false, false>, launch_greeks<false, true>,
+    launch_greeks<true, false>,  launch_greeks<true, true>,
 };
 
-int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
-        int rows, int iters, int antithetic, int kahan, int greeks,
-        int heston, float* out, void* stream) {
-  const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
-  LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
-                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, greeks, heston, out,
-                 static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+// K19's split walk of the leg Walk and its fold (THREADS threads, each
+// thread's Acc2, the simple design's order).
+template <class Walk, bool ANTI, bool KAHAN>
+int launch_walk(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+                int n_blocks, int rows, int iters, size_t cap, float* scratch,
+                float* out, cudaStream_t s) {
+  return mct::walk_split_launch<Walk, THREADS, false, ANTI, KAHAN>(
+      typename Walk::Params{scal, n_obs}, seed, off, n_blocks, rows, iters,
+      cap, scratch, out, s);
 }
+
+using WalkFn = int (*)(const float*, int, uint32_t, uint32_t, int, int, int,
+                       size_t, float*, float*, cudaStream_t);
+
+// Indexed by antithetic << 2 | kahan << 1 | heston.
+constexpr WalkFn WALK_LAUNCHERS[8] = {
+    launch_walk<VarswapGbmWalk, false, false>,
+    launch_walk<VarswapHestonWalk, false, false>,
+    launch_walk<VarswapGbmWalk, false, true>,
+    launch_walk<VarswapHestonWalk, false, true>,
+    launch_walk<VarswapGbmWalk, true, false>,
+    launch_walk<VarswapHestonWalk, true, false>,
+    launch_walk<VarswapGbmWalk, true, true>,
+    launch_walk<VarswapHestonWalk, true, true>,
+};
 
 }  // namespace
 
+// Floats of scratch a K19 launch takes, either leg (cap: at most this many,
+// 0 for 256 MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_varswap_scratch_floats(int n_blocks, int rows, int iters,
+                                            int cap) {
+  return static_cast<int>(
+      mct::walk_groups<THREADS, false>(n_blocks, rows, iters,
+                                       static_cast<size_t>(cap))
+          .total);
+}
+
 // mode 0 (GBM): scal (1/t, drift, vol); mode 1 (Heston): scal (1/t, s0, v0,
 // kappa dt, theta, xi, rho, sqrt(1 - rho^2), r dt, sqrt(dt)).  -> out
-// (n_blocks, 2).
+// (n_blocks, 2): the split walk and its fold, scratch of
+// mctpu_varswap_scratch_floats(.., cap) floats.
 extern "C" int mctpu_varswap(const float* scal, int n_obs, int seed, int off,
                              int n_blocks, int rows, int iters, int antithetic,
-                             int kahan, int mode, float* out, void* stream) {
-  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             0, mode, out, stream);
+                             int kahan, int mode, int cap, float* scratch,
+                             float* out, void* stream) {
+  const int idx = (antithetic ? 4 : 0) | (kahan ? 2 : 0) | (mode ? 1 : 0);
+  return WALK_LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
+                             static_cast<uint32_t>(off), n_blocks, rows,
+                             iters, static_cast<size_t>(cap), scratch, out,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // mode 0 (GBM): scal (1/t, drift, vol, v, dt) -> out (n_blocks, 8); mode 1
@@ -331,6 +368,10 @@ extern "C" int mctpu_varswap_greeks(const float* scal, int n_obs, int seed,
                                     int off, int n_blocks, int rows, int iters,
                                     int antithetic, int kahan, int mode,
                                     float* out, void* stream) {
-  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             1, mode, out, stream);
+  const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
+  GREEK_LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
+                       static_cast<uint32_t>(off), n_blocks,
+                       rows * mct::LANES, iters, mode, out,
+                       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -331,10 +331,12 @@ def asian_plain_partials(ops: NetOperands, key, block_offset: int,
 
 def _launch(name: str, ops: NetOperands, key, block_offset: int,
             plan: Plan, n_blocks: int, n_sums: int, head: tuple,
-            tail: tuple) -> torch.Tensor:
+            tail: tuple, scratch_cap: int | None = None) -> torch.Tensor:
     """Launch ``mctpu_{name}`` (both passes) with ``head`` pointers before
     the net's tables and ``tail`` ints after the dims; the kernel draws the
-    shifts itself from ``key`` and ``block_offset``.  Returns the
+    shifts itself from ``key`` and ``block_offset``.  With ``scratch_cap``
+    (K55) the cap follows ``tail`` and the scratch that ``mctpu_{name}
+    _scratch_floats`` sizes goes before the tiles.  Returns the
     ``(n_blocks, 2 n_sums)`` quads.  Raises on a failed launch."""
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
@@ -352,12 +354,18 @@ def _launch(name: str, ops: NetOperands, key, block_offset: int,
                             dtype=torch.float32, device=dev)
         out = torch.empty((n_blocks, 2 * n_sums), dtype=torch.float32,
                           device=dev)
+        split = ()
+        if scratch_cap is not None:
+            floats = getattr(lib, f"mctpu_{name}_scratch_floats")(
+                n_blocks, plan.paths_per_iter, plan.iters, scratch_cap)
+            scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+            split = (scratch_cap, scratch.data_ptr())
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         status = getattr(lib, f"mctpu_{name}")(
             *(x.data_ptr() for x in head), ops.v.data_ptr(),
             ops.low.data_ptr(), *(wrap_int32(w) for w in key),
             wrap_int32(block_offset), ops.dim, n_blocks,
-            plan.paths_per_iter, plan.iters, *tail, tiles.data_ptr(),
+            plan.paths_per_iter, plan.iters, *tail, *split, tiles.data_ptr(),
             out.data_ptr(), stream)
     _build.check(status, name)
     LAUNCHES[name] += 1
@@ -415,9 +423,12 @@ def basket_partials(ops: NetOperands, key, block_offset: int, plan: Plan,
 
 
 def asian_partials(ops: NetOperands, key, block_offset: int, plan: Plan,
-                   n_blocks: int, geometric: bool) -> torch.Tensor:
-    """``(n_blocks, 4)`` quads: K55 for CUDA operands, the plain version
-    for CPU operands; any other device raises."""
+                   n_blocks: int, geometric: bool,
+                   scratch_cap: int = 0) -> torch.Tensor:
+    """``(n_blocks, 4)`` quads: K55 for CUDA operands (a split net and its
+    fold, ``scratch_cap`` floats of scratch at most, 0 for 256 MB, the
+    quads the same), the plain version for CPU operands whatever the cap;
+    any other device raises."""
     def cuda():
         m = ops.dim
         check_operand("par", ops.par, (5,), ops.device)
@@ -425,7 +436,7 @@ def asian_partials(ops: NetOperands, key, block_offset: int, plan: Plan,
         check_operand("bridge", ops.bridge, (6, m), ops.device)
         return _launch("rqmc_asian", ops, key, block_offset, plan,
                        n_blocks, 2, (ops.par, ops.drift, ops.bridge),
-                       (int(geometric),))
+                       (int(geometric),), scratch_cap=scratch_cap)
 
     return _dispatch(cuda, lambda: asian_plain_partials(
         ops, key, block_offset, plan, n_blocks, geometric), ops)

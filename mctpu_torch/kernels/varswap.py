@@ -22,9 +22,9 @@ from __future__ import annotations
 import torch
 
 from mctpu_torch.kernels import heston as kheston
-from mctpu_torch.kernels.common import (Plan, f32, launch_walk, sqrt32,
-                                        walk_pairwise, walk_partials,
-                                        walk_steps)
+from mctpu_torch.kernels.common import (Plan, f32, launch_split_walk,
+                                        launch_walk, sqrt32, walk_pairwise,
+                                        walk_partials, walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import asian as masian
 from mctpu_torch.models import heston as mheston
@@ -119,15 +119,18 @@ def plain_partials(par: torch.Tensor, seed: int, block_offset: int,
 
 
 def partials(par: torch.Tensor, seed: int, block_offset: int, plan: Plan,
-             n_blocks: int, n_obs: int) -> torch.Tensor:
+             n_blocks: int, n_obs: int, scratch_cap: int = 0) -> torch.Tensor:
     """Per-block partials ``(n_blocks, 2)``: K19 (the Heston leg for the 10
-    scalars of :func:`heston_params`, else GBM) for a CUDA ``par``, the
-    plain version for a CPU ``par``; any other device raises."""
+    scalars of :func:`heston_params`, else GBM; a split walk and its fold,
+    ``scratch_cap`` floats of scratch at most, 0 for 256 MB, the outputs
+    the same) for a CUDA ``par``, the plain version for a CPU ``par``
+    whatever the cap; any other device raises."""
     if par.device.type == "cuda":
         heston = _is_heston(par, HESTON_SCAL)
         names = HESTON_SCAL if heston else GBM_SCAL
-        out = launch_walk("mctpu_varswap", par, len(names), 2, seed,
-                          block_offset, plan, n_blocks, n_obs, int(heston))
+        out = launch_split_walk("mctpu_varswap", par, len(names), 2, seed,
+                                block_offset, plan, n_blocks, n_obs,
+                                int(heston), scratch_cap)
         LAUNCHES["varswap_heston" if heston else "varswap"] += 1
         return out
     if par.device.type == "cpu":

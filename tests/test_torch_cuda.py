@@ -718,7 +718,8 @@ def test_heston_kernels_match_plain(dev, name, n_steps, antithetic):
         units=_units(plan))
 
 
-# K19/K20's Heston leg at 1, 13 and the default 252 dates.
+# K19/K20's Heston leg at 1, 13 and the default 252 dates, 2 iterations a
+# block (K19 a split walk, K20 the simple design).
 @pytest.mark.parametrize("n_obs", [1, 13, 252])
 @pytest.mark.parametrize("antithetic", [False, True])
 def test_varswap_heston_kernels_match_plain(dev, n_obs, antithetic):
@@ -2018,11 +2019,12 @@ def test_asian_level_split_mlmc_plan_and_grouped_scratch(dev, antithetic):
 
 
 # K10 (arithmetic and geometric, 13 dates), K11 (arithmetic and geometric,
-# level 2 of n0 = 4: 16 dates) and K27 (Euler and QE, 8 steps: level 0 of
-# mctpu's MLMC default), split per path element and folded in the unsplit
-# order.
+# level 2 of n0 = 4: 16 dates), K27 (Euler and QE, 8 steps: level 0 of
+# mctpu's MLMC default) and K19 (GBM and Heston, 13 dates), split per path
+# element and folded in the unsplit order.
 _SPLIT_WALKS = ("K10 arithmetic", "K10 geometric", "K11 arithmetic",
-                "K11 geometric", "K27 Euler", "K27 QE")
+                "K11 geometric", "K27 Euler", "K27 QE", "K19 GBM",
+                "K19 Heston")
 # name: (blocks, iters, rows, kahan): the MLMC 8 x 8 plan's shape, and 2
 # iterations on 1 and 3 rows (the fold's 512- or 1024-thread stride partly
 # empty).
@@ -2050,6 +2052,17 @@ def _split_walk(dev, name):
                 lambda off, nb, plan: kasian.level_plain_partials(
                     lp, SEED, off, plan, nb, 16, geo),
                 "asian_level", "mctpu_asian_level_scratch_floats", True)
+    if name.startswith("K19"):
+        heston = name.endswith("Heston")
+        par = (kvarswap.heston_params(_HESTON["steep"], 13, dev) if heston
+               else kvarswap.params(VanillaOption(100., 100., 0.05, 0.2, 1.),
+                                    13, dev))
+        return (lambda off, nb, plan, cap=0: kvarswap.partials(
+                    par, SEED, off, plan, nb, 13, scratch_cap=cap),
+                lambda off, nb, plan: kvarswap.plain_partials(
+                    par, SEED, off, plan, nb, 13),
+                "varswap_heston" if heston else "varswap",
+                "mctpu_varswap_scratch_floats", False)
     qe = name.endswith("QE")
     par = kheston.params(_HESTON["opt"], 8, qe, dev)
     return (lambda off, nb, plan, cap=0: kheston.partials(
@@ -2061,6 +2074,8 @@ def _split_walk(dev, name):
 
 
 def _split_counts(name):
+    if name.startswith("K19"):
+        return kvarswap.LAUNCHES
     return kasian.LAUNCHES if name.startswith("K1") else kheston.LAUNCHES
 
 
@@ -2069,8 +2084,8 @@ def _split_counts(name):
 @pytest.mark.parametrize("name", _SPLIT_WALKS)
 def test_asian_greeks_and_heston_split_match_plain(dev, name, antithetic,
                                                    shape):
-    """K10, K11 and K27 (split per path element, folded in the unsplit
-    order) against their plain versions (K10's and K11's pairs by the
+    """K10, K11, K19 and K27 (split per path element, folded in the
+    unsplit order) against their plain versions (K10's and K11's pairs by the
     scaled bound), on the MLMC 8 x 8 plan's shape and on short rows; two
     launches and the block offset bitwise; each call counts one launch."""
     blocks, iters, rows, kahan = _SPLIT_SHAPES[shape]
@@ -2093,9 +2108,9 @@ def test_asian_greeks_and_heston_split_match_plain(dev, name, antithetic,
 @pytest.mark.parametrize("name", _SPLIT_WALKS)
 def test_asian_greeks_and_heston_split_grouped_scratch(dev, name,
                                                        antithetic):
-    """K10, K11 and K27 under a forced small scratch cap: at 1 float every
-    (block, iteration) is split and folded on its own (the fold's carry
-    between the groups: K10's BlockAccN pairs, K11's and K27's Acc2s), at
+    """K10, K11, K19 and K27 under a forced small scratch cap: at 1 float
+    every (block, iteration) is split and folded on its own (the fold's
+    carry between the groups: K10's BlockAccN pairs, the others' Acc2s), at
     half the one-group scratch the blocks go in groups; both equal the
     one-group launch bit for bit, and each capped call counts one launch."""
     fn, _, key, entry, _ = _split_walk(dev, name)
@@ -2193,8 +2208,8 @@ def test_rqmc_basket_kernel_matches_plain(dev, n_assets, rows):
                                                    n))
 
 
-@pytest.mark.parametrize("n_obs,rows", [(1, 8), (12, 8), (12, 24), (50, 163),
-                                        (252, 32), (300, 8)])
+@pytest.mark.parametrize("n_obs,rows", [(1, 8), (7, 24), (12, 8), (12, 24),
+                                        (50, 163), (252, 32), (300, 8)])
 @pytest.mark.parametrize("average", ["arithmetic", "geometric"])
 def test_rqmc_asian_kernel_matches_plain(dev, n_obs, rows, average):
     opt = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=n_obs,
@@ -2207,6 +2222,34 @@ def test_rqmc_asian_kernel_matches_plain(dev, n_obs, rows, average):
                                             geo),
         lambda off, n: krqmc.asian_plain_partials(ops, _RQMC_KEY, off, plan,
                                                   n, geo))
+
+
+# K55 split over the chunks' batches and folded in the one-block-a-chunk
+# order: at 1 float of scratch every (replicate, chunk) goes alone, at half
+# the one-group scratch the replicates go in groups; both equal the one-group
+# launch bit for bit (so do the tile rows' order and the carry).
+@pytest.mark.parametrize("n_obs,rows", [(1, 8), (12, 24), (50, 163),
+                                        (252, 32), (300, 8)])
+@pytest.mark.parametrize("average", ["arithmetic", "geometric"])
+def test_rqmc_asian_grouped_scratch_matches_one_group(dev, n_obs, rows,
+                                                      average):
+    opt = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=n_obs,
+                      average=average)
+    plan = qmc_engine.rqmc_plan(3 * rows * 128, NB, rows)
+    assert plan.iters == 3
+    ops = krqmc.asian_operands(opt, dev)
+    geo = average == "geometric"
+    floats = _build.library().mctpu_rqmc_asian_scratch_floats
+    whole = floats(NB, plan.paths_per_iter, plan.iters, 0)
+    assert whole == NB * 3 * rows * 128
+    assert floats(NB, plan.paths_per_iter, plan.iters, 1) == rows * 128
+    want = krqmc.asian_partials(ops, _RQMC_KEY, 0, plan, NB, geo)
+    for cap in (1, whole // 2):
+        before = krqmc.LAUNCHES["rqmc_asian"]
+        got = krqmc.asian_partials(ops, _RQMC_KEY, 0, plan, NB, geo,
+                                   scratch_cap=cap)
+        assert krqmc.LAUNCHES["rqmc_asian"] == before + 1
+        assert torch.equal(got, want), cap
 
 
 def test_price_vanilla_rqmc_against_bs_and_launches(dev):

@@ -122,12 +122,14 @@ def test_k54_matches_interpret_mode(n_assets):
 @pytest.mark.parametrize("average,rows,n_obs,chunks", [
     pytest.param("geometric", 8, 12, 2, id="geometric-8"),
     pytest.param("arithmetic", 24, 12, 2, id="arithmetic-24"),
+    pytest.param("geometric", 24, 12, 3, id="geometric-24-3chunks"),
     pytest.param("arithmetic", 163, 50, 1, id="arithmetic-163-50dates"),
     pytest.param("geometric", 8, 252, 1, id="geometric-8-252dates"),
     pytest.param("arithmetic", 8, 300, 1, id="arithmetic-8-300dates")])
 def test_k55_matches_interpret_mode(average, rows, n_obs, chunks):
     """rows 8: a 1024-point chunk (mctpu's hoisted construction); rows 24:
-    3072 points, not a power of two (its 30-bit form); the bridge, the tree
+    3072 points, not a power of two (its 30-bit form), at 2 and 3 chunks a
+    replicate (the chunk carry); the bridge, the tree
     sum and the chunk also at the depths the engine runs: 50 dates on rows
     163 (the Asian's cap, a 20864-point chunk) and 252 dates; and 300
     dates, past 256, where the CUDA kernel takes its 2048-date instance."""
@@ -193,6 +195,18 @@ def test_block_offset_contract(kernel):
                                             n_obs=7), "cpu")
         _offset_contract(lambda off, n: kr.asian_partials(
             ops, KD, off, plan, n, False))
+
+
+@pytest.mark.parametrize("cap", [0, 1, 1 << 20])
+def test_asian_scratch_cap_runs_plain_on_cpu(cap):
+    """On the CPU, K55's wrapper runs the plain version whatever the
+    scratch cap of its split net (a CUDA-only argument)."""
+    plan = tq.rqmc_plan(3 * 24 * 128, NB, 24)
+    ops = kr.asian_operands(AsianOption(100.0, 100.0, 0.05, 0.2, 1.0,
+                                        n_obs=12), "cpu")
+    got = kr.asian_partials(ops, KD, 1, plan, NB, True, scratch_cap=cap)
+    want = kr.asian_plain_partials(ops, KD, 1, plan, NB, True)
+    assert torch.equal(got, want)
 
 
 def test_wrappers_refuse_other_devices():

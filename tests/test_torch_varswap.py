@@ -224,6 +224,7 @@ HESTON_CASES = {
     "n5_f32_2iters_feller_violated": (
         jtypes.HestonOption(100.0, 100.0, 0.03, 1.0, 0.04, 1.5, 0.04, 0.5,
                             -0.7), 5, False, False, 2),
+    "n6_antithetic_2iters": (HOPT, 6, True, True, 2),
 }
 # K20's Heston pairs: rv, dv0, dtheta, dkappa, dxi, rho.
 HESTON_GREEK_RTOLS = (RTOL,) + (TANGENT_RTOL,) * 4 + (RTOL,)
@@ -288,6 +289,21 @@ def test_heston_block_offset_relabels_streams(greeks):
     full = fn(par, 9, 0, plan, 4, 5)
     tail = fn(par, 9, 2, plan, 2, 5)
     assert np.array_equal(full[2:].numpy(), tail.numpy())
+
+
+@pytest.mark.parametrize("cap", [0, 1, 1 << 20])
+@pytest.mark.parametrize("leg", ["gbm", "heston"])
+def test_partials_scratch_cap_runs_plain_on_cpu(leg, cap):
+    """On the CPU, K19's wrapper runs the plain version whatever the
+    scratch cap of its split walk (a CUDA-only argument)."""
+    plan = tvarswap.make_plan(2 * 2 * ROWS * 128 * 2, 2, ROWS, True)
+    assert plan.iters == 2
+    par = (tvarswap.heston_params(from_reference(HOPT), 6, "cpu")
+           if leg == "heston"
+           else tvarswap.params(from_reference(OPT), 6, "cpu"))
+    got = tvarswap.partials(par, SEED, 1, plan, 2, 6, scratch_cap=cap)
+    want = tvarswap.plain_partials(par, SEED, 1, plan, 2, 6)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("antithetic", [False, True])

@@ -26,8 +26,9 @@ default ``EngineConfig``), after one warm-up call:
   Greeks' split kernel and its fold at m <= 8; the packed basket price's
   and the packed basket Greeks' split kernels and their folds; the
   barrier walk's, the Asian Greeks', the Heston walk's, the Heston and
-  Asian MLMC levels' and the 3-asset basket walks' split kernel and its
-  fold (K12, K10, K27, K29, K11, K30); 0 for a
+  Asian MLMC levels', the variance swap's and the 3-asset basket walks'
+  split kernel and its fold (K12, K10, K27, K29, K11, K19, K30); the RQMC
+  Asian's split net, its fold and the chunk carry (K55); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
 * launches — the port's kernel launches in one call (every module's
@@ -158,9 +159,14 @@ def calls(mt):
     # --product rqmc (n = 131072 a replicate, the Asian at max(n // 50,
     # 4096) points and 50 dates, arithmetic; the basket at --assets 3, and
     # the rqmc path's 100), the Greeks CLI's --rqmc (2^20 // 16 points); 16
-    # replicates on 512 x 256.  Each call launches its net kernel and the
-    # chunk carry.
+    # replicates on 512 x 256; and the Asian at phase 6's shapes, 50 dates
+    # arithmetic at 2^18 points a replicate and 252 geometric at 2^16.
+    # Each call launches its net kernel (the Asian: its split net and
+    # fold) and the chunk carry.
     rq = ("chunk_carry_kernel",)
+    rq_asian = ("rqmc_asian_split_kernel", "rqmc_asian_fold_kernel") + rq
+    geo252 = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=252,
+                         average="geometric")
     rqmc_calls = [
         ("price_vanilla_rqmc n=131072 x 16", ("rqmc_vanilla_kernel",) + rq,
          lambda: mt.price_vanilla_rqmc(cv_van, 131072, SEED)),
@@ -173,9 +179,12 @@ def calls(mt):
          ("rqmc_basket_kernel",) + rq,
          lambda: mt.price_basket_rqmc(BasketOption.equicorrelated(100, 0.3),
                                       131072, SEED)),
-        ("price_asian_rqmc arithmetic, n_obs=50, 4096 x 16",
-         ("rqmc_asian_kernel",) + rq,
+        ("price_asian_rqmc arithmetic, n_obs=50, 4096 x 16", rq_asian,
          lambda: mt.price_asian_rqmc(ari, 4096, SEED)),
+        ("price_asian_rqmc arithmetic, n_obs=50, 2^18 x 16", rq_asian,
+         lambda: mt.price_asian_rqmc(ari, 1 << 18, SEED)),
+        ("price_asian_rqmc geometric, n_obs=252, 2^16 x 16", rq_asian,
+         lambda: mt.price_asian_rqmc(geo252, 1 << 16, SEED)),
     ]
     return [
         ("price_vanilla 2^28", "vanilla_kernel",
@@ -230,7 +239,7 @@ def calls(mt):
          lambda: mt.price_book(book, n24, SEED)),
         ("greeks_book 64 instruments, 2^24", "book_greeks_kernel",
          lambda: mt.greeks_book(book, n24, SEED)),
-        ("fair_variance_strike n_obs=252, 2^22", "varswap_kernel",
+        ("fair_variance_strike n_obs=252, 2^22", split,
          lambda: mt.fair_variance_strike(vs, n22, SEED, n_obs=252)),
         ("greeks_varswap n_obs=252, 2^22", "varswap_greeks_kernel",
          lambda: mt.greeks_varswap(vs, n22, SEED, n_obs=252)),
@@ -244,8 +253,7 @@ def calls(mt):
          lambda: mt.price_heston(hopt, n22, SEED, scheme="qe")),
         ("greeks_heston n_steps=100, 2^22", "heston_greeks_kernel",
          lambda: mt.greeks_heston(hopt, n22, SEED)),
-        ("fair_variance_strike Heston, n_obs=252, 2^22",
-         "varswap_heston_kernel",
+        ("fair_variance_strike Heston, n_obs=252, 2^22", split,
          lambda: mt.fair_variance_strike(hvs, n22, SEED, n_obs=252)),
         ("greeks_varswap Heston, n_obs=252, 2^22",
          "varswap_heston_greeks_kernel",

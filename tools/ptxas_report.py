@@ -12,9 +12,13 @@ K29's split walks ``walk_split_kernel<HestonWalk<..>, ..>`` and
 -- ``asian.cu`` -- K10's ``walk_split_kernel<AsianGreekWalk<..>, ..>``
 and its fold ``walk_fold_kernel<512, .., true, 5>``, K11's
 ``walk_split_kernel<AsianLevelWalk<..>, ..>`` and its fold
-``walk_fold_kernel<1024, ..>`` -- and ``cva_multi.cu`` -- K41's register
+``walk_fold_kernel<1024, ..>`` -- ``cva_multi.cu`` -- K41's register
 instances ``cva_multi_greeks_reg_kernel<16 | 32, ANTI, KAHAN>`` beside
-its shared-memory kernel ``cva_multi_greeks_packed_kernel`` -- among them)
+its shared-memory kernel ``cva_multi_greeks_packed_kernel`` --
+``varswap.cu`` -- K19's split walks ``walk_split_kernel<VarswapGbmWalk
+| VarswapHestonWalk, ..>`` and their fold ``walk_fold_kernel<1024, ..>``
+-- and ``rqmc.cu`` -- K55's split net ``rqmc_asian_split_kernel<64 | 256
+| 2048, GEO>`` and its fold ``rqmc_asian_fold_kernel`` -- among them)
 with the flags ``mctpu_torch/_build.py`` builds it with, plus ``-Xptxas -v``,
 one ``nvcc`` per source, all started together, into a temporary
 directory, and prints each source's compile time (wall seconds from the

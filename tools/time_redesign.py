@@ -7,8 +7,9 @@ packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
 (the CVA exposure walk), K5 (its Greeks), K31 (the packed multi-asset
 walk), K40 (the netting-set CVA), K43's runtime-m xVA kernel, K29 (the
 Heston MLMC level), K44 (the xVA Greeks), K10 (the Asian Greeks walk),
-K27 (the Heston walk), K11 (the Asian MLMC level) and K41 (the packed
-netting-set CVA Greeks) -- at ``chip_smoke.py``'s
+K27 (the Heston walk), K11 (the Asian MLMC level), K41 (the packed
+netting-set CVA Greeks), K19 (the variance swap, both legs) and K55 (the
+RQMC Asian) -- at ``chip_smoke.py``'s
 phase 6 shapes on one GPU, against another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
@@ -74,7 +75,18 @@ arithmetic (F32_KAHAN and F32) and geometric, each antithetic, and 2^20
 on the level plan of the 8 x 8 MLMC default, arithmetic plain and
 antithetic and geometric; K41 (the packed netting-set CVA Greeks) on the
 JAX Greeks CLI's ``--product cva-multi`` set at ``--assets 16`` and on
-the exotic CLI's set at 32, 12 nodes, 2^20 paths, plain and antithetic.
+the exotic CLI's set at 32, 12 nodes, 2^20 paths, plain and antithetic;
+K19 on phase 6's variance swaps at 252 dates and 2^22 paths, the Heston
+leg plain and antithetic, F32_KAHAN and F32, and with its scratch capped
+at 2^20 floats, the GBM leg plain and antithetic; K55 on phase 6's RQMC
+Asians, 16 replicates: 50 dates arithmetic at 2^18 points (16 x 13 x
+163), also with its scratch capped at 2^20 floats, 252 geometric at 2^16
+(16 x 16 x 32), 12 dates at 2^18 and 300 at 2^16; and the bit-equality
+sweeps ``K55 bits`` (1, 3, 6, 7, 12, 13, 50, 64, 65, 252, 255, 300 and
+2048 dates, both averages, 3 chunks of rows 8, 24, 32 or 163; capped at
+1 float and at half at 50 and 252) and ``K19 bits`` (13 and 252 dates,
+64 x 2 x 32, both legs, plain and antithetic, F32_KAHAN and F32; the
+Heston leg at 252 capped at 1 float and at half).
 Each time
 is the median of ``--reps`` launches timed by CUDA events after one
 warm-up launch (the event time holds the host's time before a call's
@@ -84,8 +96,9 @@ and (6, width) slot vectors), K43's
 (its eight sums and both profiles), K48's (its five moment sums), K3's,
 K33's (its four sums and (4, width) lane rows), K39's, K35's, K31's and
 K40's outputs (K39's and K40's sums and EE
-profile), K29's, K44's ``am``, K10's, K27's, K11's and K41's (its four
-sums and (4, width) lane rows) outputs must equal the other
+profile), K29's, K44's ``am``, K10's, K27's, K11's, K41's (its four
+sums and (4, width) lane rows), K19's and K55's (its quads) outputs must
+equal the other
 checkout's bit for bit (same walk, passes and order of sums), and K44's
 runtime-m (sum, sum^2) pairs must agree with it by ``chip_smoke.py``'s
 scaled pair bound at rtol 2e-5 (its slices reorder the block sums); each
@@ -120,7 +133,9 @@ MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.variance", "mctpu_torch.kernels.varred",
            "mctpu_torch.kernels.basket", "mctpu_torch.kernels.greeks",
            "mctpu_torch.kernels.barrier", "mctpu_torch.mlmc",
-           "mctpu_torch.kernels.heston", "mctpu_torch.kernels.asian")
+           "mctpu_torch.kernels.heston", "mctpu_torch.kernels.asian",
+           "mctpu_torch.kernels.varswap", "mctpu_torch.kernels.rqmc",
+           "mctpu_torch.qmc_engine")
 # The kernel-vs-kernel tolerance of the cases whose outputs may move in the
 # last bits (chip_smoke.py's RTOL), by the Greek pairs' scaled bound.
 RTOL = 2e-5
@@ -144,12 +159,14 @@ def load(root: Path) -> SimpleNamespace:
         sys.path.remove(str(root))
         _drop_port_modules()
     (build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket,
-     kgreeks, kbarrier, mlmc, kheston, kasian) = mods
+     kgreeks, kbarrier, mlmc, kheston, kasian, kvarswap, krqmc,
+     qmc_engine) = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
                            kcm=kcm, kcva=kcva, types=types, variance=variance,
                            kvr=kvr, kbasket=kbasket, kgreeks=kgreeks,
                            kbarrier=kbarrier, mlmc=mlmc, kheston=kheston,
-                           kasian=kasian)
+                           kasian=kasian, kvarswap=kvarswap, krqmc=krqmc,
+                           qmc_engine=qmc_engine)
 
 
 def kernel_ms(fn, reps: int):
@@ -524,6 +541,112 @@ def cases(v: SimpleNamespace):
         out.append((f"K41 m={m} 12 nodes{' antithetic' if anti else ''} "
                     "2^20", lambda o=ops, p=plan: kcm.greek_partials(
                         o, SEED, 0, p, p.num_blocks), True))
+    # K19 on phase 6's variance swaps at 252 dates, 2^22 paths: the Heston
+    # leg (v0 = 0.09, kappa 2, theta 0.04, xi 0.3, rho -0.6, r 0.03, T 1)
+    # plain and antithetic, F32_KAHAN and F32, and with its scratch capped
+    # at 2^20 floats; the GBM leg (S = K = 100, r = 0.05, v = 0.2, T = 1)
+    # plain and antithetic.
+    vs_heston = t.HestonOption(100.0, 100.0, 0.03, 1.0, 0.09, 2.0, 0.04, 0.3,
+                               -0.6)
+    vs_gbm = t.VanillaOption(100.0, 100.0, 0.05, 0.2, 1.0)
+    for leg, anti, prec, capped in (("Heston", False, None, False),
+                                    ("Heston", False, f32, False),
+                                    ("Heston", True, None, False),
+                                    ("Heston", True, f32, False),
+                                    ("Heston", False, None, True),
+                                    ("GBM", False, None, False),
+                                    ("GBM", True, None, False)):
+        c = dataclasses.replace(cfg, antithetic=anti,
+                                precision=prec or cfg.precision)
+        plan, par = engine.varswap_setup(
+            vs_heston if leg == "Heston" else vs_gbm, 1 << 22, c, 252)
+        out.append((f"K19 {leg} 252 dates 2^22 "
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}"
+                    f"{' F32' if prec else ''}"
+                    f"{' scratch capped' if capped else ''}",
+                    lambda o=par, p=plan, k=cap_of(v.kvarswap.partials,
+                                                   capped):
+                    v.kvarswap.partials(o, SEED, 0, p, p.num_blocks, 252,
+                                        **k), True))
+    # K55 on phase 6's RQMC Asians (S = K = 100, r = 0.05, v = 0.2, T = 1),
+    # 16 replicates on the layout asian_rqmc_setup gives: 50 dates
+    # arithmetic at 2^18 points a replicate (16 x 13 x 163) and with its
+    # scratch capped at 2^20 floats, 252 geometric at 2^16 (16 x 16 x 32),
+    # and 12 dates arithmetic at 2^18 and 300 dates arithmetic at 2^16.
+    rkey = v.qmc_engine.rqmc_key(SEED)
+    for m, avg, n, capped in ((50, "arithmetic", 1 << 18, False),
+                              (50, "arithmetic", 1 << 18, True),
+                              (252, "geometric", 1 << 16, False),
+                              (12, "arithmetic", 1 << 18, False),
+                              (300, "arithmetic", 1 << 16, False)):
+        aopt = t.AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=m,
+                             average=avg)
+        plan, rops = v.qmc_engine.asian_rqmc_setup(aopt, n, cfg, 16)
+        out.append((f"K55 {avg} {m} dates 16 x 2^{n.bit_length() - 1} "
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' scratch capped' if capped else ''}",
+                    lambda o=rops, p=plan, g=avg == "geometric",
+                    k=cap_of(v.krqmc.asian_partials, capped):
+                    v.krqmc.asian_partials(o, rkey, 0, p, 16, g, **k),
+                    True))
+    # The bit-equality sweeps, small shapes: K55 at 1, 3, 6, 7, 12, 13, 50,
+    # 64, 65, 252, 255, 300 and 2048 dates (every residue of the dates mod
+    # 8, each W instance's ends), both averages, on 3 chunks of rows 8, 24,
+    # 32 or 163, 16 replicates, and at 50 and 252 dates with the scratch
+    # capped at 1 float and at half; K19 at 13 and
+    # 252 dates, 2 iterations on 64 x 2 x 32, each leg plain and
+    # antithetic, F32_KAHAN and F32, and the Heston leg at 252 with its
+    # scratch capped at 1 float and at half.
+    def caps(entry, *plan_args):
+        """``{}`` and this version's caps of 1 float and half the scratch
+        (none where its wrapper takes no cap)."""
+        lib = v.build.library()
+        if not hasattr(lib, entry):
+            return [{}, {}, {}]
+        half = getattr(lib, entry)(*plan_args, 0) // 2
+        return [{}, {"scratch_cap": 1}, {"scratch_cap": half}]
+
+    for m, rows in ((1, 8), (3, 8), (6, 24), (7, 24), (12, 8), (12, 24),
+                    (13, 8), (50, 163), (50, 32), (64, 8), (65, 24),
+                    (252, 32), (252, 8), (255, 8), (300, 8), (300, 24),
+                    (2048, 8)):
+        plan = v.qmc_engine.rqmc_plan(3 * rows * 128, 16, rows)
+        for avg in ("arithmetic", "geometric"):
+            aopt = t.AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=m,
+                                 average=avg)
+            rops = v.krqmc.asian_operands(aopt, cfg.torch_device())
+            capped = (caps("mctpu_rqmc_asian_scratch_floats", 16,
+                           plan.paths_per_iter, plan.iters)
+                      if (m, rows) in ((50, 163), (252, 32)) else [{}])
+            for k in capped:
+                out.append((f"K55 bits {avg} {m} dates rows {rows} 16x3"
+                            f"{' cap ' + str(k['scratch_cap']) if k else ''}",
+                            lambda o=rops, p=plan, g=avg == "geometric",
+                            k=k: v.krqmc.asian_partials(o, rkey, 0, p, 16,
+                                                        g, **k), True))
+    for leg, n_obs in (("GBM", 13), ("GBM", 252), ("Heston", 13),
+                       ("Heston", 252)):
+        for anti, kahan in ((False, True), (False, False), (True, True),
+                            (True, False)):
+            plan = v.kvarswap.make_plan(64 * 2 * 32 * 128 * (2 if anti else 1),
+                                        64, 32, anti, kahan)
+            par = (v.kvarswap.heston_params(vs_heston, n_obs,
+                                            cfg.torch_device())
+                   if leg == "Heston" else
+                   v.kvarswap.params(vs_gbm, n_obs, cfg.torch_device()))
+            capped = (caps("mctpu_varswap_scratch_floats", 64, plan.rows,
+                           plan.iters)
+                      if (leg, n_obs, anti) == ("Heston", 252, False)
+                      else [{}])
+            for k in capped:
+                out.append((f"K19 bits {leg} {n_obs} dates 64x2x32"
+                            f"{' antithetic' if anti else ''}"
+                            f"{'' if kahan else ' F32'}"
+                            f"{' cap ' + str(k['scratch_cap']) if k else ''}",
+                            lambda o=par, p=plan, n=n_obs, k=k:
+                            v.kvarswap.partials(o, SEED, 0, p, 64, n, **k),
+                            True))
     return out
 
 
