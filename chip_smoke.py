@@ -21,8 +21,9 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    Greeks, at 13 and 100 steps, and the variance swap's Heston leg at 13
    and 252 dates; the multi-asset walks and their asset-major Greeks at 1,
    3 and 8 assets and the packed walk and its Greeks at 9, 16, 17, 32 and
-   100, at 13 dates; the split walks K12 and K30 (a = 3, the Asian and
-   the knock-out) at 50 dates, K10 (both averages) at 13 dates, K27 (Euler
+   100, at 13 dates; the split walks K12, K15 (every lookback mode) and
+   K30 (a = 3, the Asian and the knock-out) at 50 dates, K10 (both
+   averages) at 13 dates, K27 (Euler
    and QE) at 8 steps (level 0 of ``mctpu``'s MLMC default), K19 (GBM at
    13 dates, Heston at 13 and 252) and K29 at level 4 on the MLMC 8 x 8
    plan with 32 iterations, plain and antithetic, and with their scratch
@@ -50,7 +51,8 @@ Phases (one line each; any failure raises, so the exit code is non-zero):
    K14 (knock-out, up and down) at levels 1 and 4, their level sums by the
    Greek kernels' scaled bound, because a payoff difference's block sum can
    cancel; antithetic and Kahan each on and off; the RQMC nets K52 and
-   K53 call and put, K54 at 3, 12, 100 and 300 assets and K55 at 1, 12,
+   K53 call and put, K54 at 3, 12, 100 and 300 assets and at 65 and 128
+   on 37-point chunks (bases off the 32-point groups) and K55 at 1, 12,
    50, 252 and 300 dates, geometric and arithmetic, on a power-of-two chunk
    and on rows 24 and 163, 16 replicates, their unfolded quads compared
    folded, s + c and s2 + c2; K55's split net also with its scratch
@@ -3249,11 +3251,12 @@ def main() -> int:
             contract(label, lambda off, n: fn(off, n, plan),
                      lambda off, n: plain(off, n, plan),
                      units=units(plan) if greek else None)
-    # K12 and K30 are split per path element and folded in the unsplit
+    # K12, K15 and K30 are split per path element and folded in the unsplit
     # order: on the MLMC 8 x 8 plan with many iterations against their plain
     # versions, and under a forced small scratch cap (1 float: every (block,
     # iteration) its own group, the fold's carry between them; half the
     # one-group scratch: blocks in groups) bit-equal to the one-group launch.
+    # K15 in every mode, the fixed strikes off the atom at s0.
     uo50 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, 130.0, n_obs=50)
     bpar = kbarrier.params(uo50, dev)
     b3 = BasketOption.default_reference(3)
@@ -3277,7 +3280,23 @@ def main() -> int:
          lambda pl, cap: _build.library().mctpu_multi_walk_am_scratch_floats(
              pl.num_blocks, pl.rows, pl.iters, cap))
         for product, sc in (("asian", kmw.scalars(b3).to(dev)),
-                            ("barrier", kmw.scalars(b3, 130.0).to(dev))))
+                            ("barrier", kmw.scalars(b3, 130.0).to(dev)))
+    ) + tuple(
+        (f"K15 {lopt.kind} {lopt.payoff}", 1,
+         lambda off, n, pl, cap=0, lp=lp, m=m: klookback.partials(
+             lp, SEED, off, pl, n, 50, m, scratch_cap=cap),
+         lambda off, n, pl, lp=lp, m=m: klookback.plain_partials(
+             lp, SEED, off, pl, n, 50, m),
+         lambda pl, cap: _build.library().mctpu_lookback_scratch_floats(
+             pl.num_blocks, pl.rows, pl.iters, cap))
+        for lopt in (LookbackOption(100.0, 0.05, 0.2, 1.0, n_obs=50,
+                                    kind=kind, payoff=payoff, k=k)
+                     for kind, payoff, k in (("floating", "call", 0.0),
+                                             ("floating", "put", 0.0),
+                                             ("fixed", "call", 105.0),
+                                             ("fixed", "put", 95.0)))
+        for lp, m in ((klookback.params(lopt, dev),
+                       klookback.mode_of(lopt)),))
     def split_contract(label, fn, plain, floats, pairs=False):
         """A split walk on the MLMC 8 x 32 x 8 plan, plain and antithetic,
         against its plain version (by the scaled pair bound with
@@ -4021,8 +4040,9 @@ def main() -> int:
                     f"K51 {tag}: price sums differ from K50's")
 
     # The RQMC nets (K52-K55), 16 replicates of 3 chunks: K52 and K53 call
-    # and put (rows 32), K54 at 3, 12 and 100 assets (c = 32, 8, 1) and at
-    # 300 on rows 8 (the kernel's largest z array), K55 geometric and
+    # and put (rows 32), K54 at 3, 12 and 100 assets (c = 32, 8, 1), at
+    # 300 on rows 8 and at 65 and 128 on rows 37 (the tiled design's ends,
+    # chunk bases off the 32-point groups), K55 geometric and
     # arithmetic at 12 dates on rows 8 (a 1024-point chunk) and rows 24
     # (3072 points), at 50 dates on rows 163 (the Asian's cap) and at 252
     # dates on rows 32, and at 300 dates (the kernel's largest W array);
@@ -4076,7 +4096,8 @@ def main() -> int:
                       lambda off, n: krqmc.greek_plain_partials(
                           gops, rkey, off, plan, n, is_put),
                       units=plan.paths_per_block)
-    for a, brows in ((3, rows), (12, rows), (100, rows), (300, 8)):
+    for a, brows in ((3, rows), (12, rows), (100, rows), (300, 8), (65, 37),
+                     (128, 37)):
         bopt = BasketOption.equicorrelated(a, 0.3)
         c = kbasket.pack_factor(a)[1]
         plan = qmc_engine.rqmc_plan(3 * brows * c, 16, brows,
@@ -5069,7 +5090,7 @@ def main() -> int:
               in_bytes=rqmc_bytes(rops, plan, 16 if greek else 2),
               units=plan.paths_per_block if greek else None, plain_reps=3,
               quads=True)
-    for a, n, record in ((3, 1 << 20, True), (100, 1 << 18, False)):
+    for a, n, row in ((3, 1 << 20, None), (100, 1 << 18, "rqmc_basket_a100")):
         bopt = BasketOption.equicorrelated(a, 0.3)
         plan, rops = qmc_engine.basket_rqmc_setup(bopt, n, cfg, 16)
         timed("rqmc_basket", "mctpu_torch/csrc/rqmc.cu",
@@ -5079,7 +5100,7 @@ def main() -> int:
                   o, rkey, 0, p, 16),
               rqmc_work("rqmc_basket", plan, a),
               in_bytes=rqmc_bytes(rops, plan, 2), plain_reps=3, quads=True,
-              record=record)
+              row=row)
     for m, avg, n, record in ((50, "arithmetic", 1 << 18, True),
                               (252, "geometric", 1 << 16, False)):
         aopt = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=m,

@@ -98,35 +98,37 @@ _SIGNATURES = {
     # n_grid, n_blocks, rows, iters -> float count of K5's scratch (its
     # slices' sums)
     "mctpu_cva_greeks_scratch_floats": (_I, _I, _I, _I),
-    # The single-asset walks of the simple design (K9, K13-K18, K20, K28,
-    # K46, K14's level walk): scal, n_obs (the cliquet's n_periods, the Heston
-    # walk's n_steps, an MLMC level's fine step count), seed, off, n_blocks,
-    # rows, iters, antithetic, kahan, mode (geometric Asian, up-and-out
-    # barrier, 2 * fixed + put for the lookback, the variance swap's Heston
-    # leg; 0 for the cliquet, K28 and K46), out, stream
+    # The single-asset walks of the simple design (K9, K13, K16-K18, K20,
+    # K28, K46, K14's level walk): scal, n_obs (the cliquet's n_periods, the
+    # Heston walk's n_steps, an MLMC level's fine step count), seed, off,
+    # n_blocks, rows, iters, antithetic, kahan, mode (geometric Asian,
+    # up-and-out barrier, 2 * fixed + put for the lookback, the variance
+    # swap's Heston leg; 0 for the cliquet, K28 and K46), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
-       for name in ("mctpu_asian", "mctpu_barrier_greeks", "mctpu_lookback",
+       for name in ("mctpu_asian", "mctpu_barrier_greeks",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
                     "mctpu_cliquet_greeks", "mctpu_varswap_greeks", "mctpu_heston_greeks",
                     "mctpu_asian_cv", "mctpu_barrier_level")},
-    # The split walks K10, K11, K12, K19 and K27: scal, n_obs (K11's
+    # The split walks K10, K11, K12, K15, K19 and K27: scal, n_obs (K11's
     # n_fine, K27's n_steps), seed, off, n_blocks, rows, iters, antithetic,
-    # kahan, mode (geometric Asian, up-and-out barrier, the variance swap's
-    # Heston leg, the QE scheme), scratch cap in floats, scratch, out,
-    # stream
+    # kahan, mode (geometric Asian, up-and-out barrier, 2 * fixed + put for
+    # the lookback, the variance swap's Heston leg, the QE scheme), scratch
+    # cap in floats, scratch, out, stream
     **{name: (_P,) + (_I,) * 10 + (_P, _P, _P)
        for name in ("mctpu_asian_greeks", "mctpu_asian_level",
-                    "mctpu_barrier", "mctpu_varswap", "mctpu_heston")},
+                    "mctpu_barrier", "mctpu_lookback", "mctpu_varswap",
+                    "mctpu_heston")},
     # K29, the split Heston level walk: scal, n_fine, seed, off, n_blocks,
     # rows, iters, antithetic, kahan, scratch cap in floats, scratch, out,
     # stream
     "mctpu_heston_level": (_P,) + (_I,) * 9 + (_P, _P, _P),
     # n_blocks, rows, iters, cap -> float count of a split walk's scratch
-    # (its groups' outputs and fold carry): K10, K11, K12, K19, K27, K29,
-    # K30
+    # (its groups' outputs and fold carry): K10, K11, K12, K15, K19, K27,
+    # K29, K30
     **{name: (_I,) * 4 for name in ("mctpu_asian_greeks_scratch_floats",
                                      "mctpu_asian_level_scratch_floats",
                                      "mctpu_barrier_scratch_floats",
+                                     "mctpu_lookback_scratch_floats",
                                      "mctpu_varswap_scratch_floats",
                                      "mctpu_heston_scratch_floats",
                                      "mctpu_heston_level_scratch_floats",

@@ -449,17 +449,18 @@ inline ScratchGroups scratch_groups(int n_blocks, int iters, size_t carry,
   return G;
 }
 
-// The split walks (K10, K11, K12, K19, K27, K29, K30): walk_split_kernel
-// runs one thread per path element of every (simulation block, iteration)
-// item on the unsplit kernel's key and counters and writes the element's N_OUT
-// outputs (each the antithetic pair's mean under ANTI) to scratch
-// [block][iteration][N_OUT][rows * 128]; walk_fold_kernel, one CUDA block
-// of the unsplit kernel's THREADS per simulation block, adds them in the
-// unsplit kernel's order: thread t takes elements t, t + THREADS, .. of
-// each iteration, either into its own Acc2 over (iteration, element) and
-// then write_block_sums' tree (PER_ITER false, one output: K11, K12, K19,
-// K27, K29) or, output k by output k, into v[2k], v[2k + 1] that BlockAccN
-// reduces once per iteration (PER_ITER true: K30, and K10 at 5 outputs).
+// The split walks (K10, K11, K12, K15, K19, K27, K29, K30):
+// walk_split_kernel runs one thread per path element of every (simulation
+// block, iteration) item on the unsplit kernel's key and counters and
+// writes the element's N_OUT outputs (each the antithetic pair's mean
+// under ANTI) to scratch [block][iteration][N_OUT][rows * 128];
+// walk_fold_kernel, one CUDA block of the unsplit kernel's THREADS per
+// simulation block, adds them in the unsplit kernel's order: thread t takes
+// elements t, t + THREADS, .. of each iteration, either into its own Acc2
+// over (iteration, element) and then write_block_sums' tree (PER_ITER
+// false, one output: K11, K12, K15, K19, K27, K29) or, output k by output
+// k, into v[2k], v[2k + 1] that BlockAccN reduces once per iteration
+// (PER_ITER true: K30, and K10 at 5 outputs).
 // So the block sums equal the unsplit kernel's bit for bit.  The scratch
 // is grouped under WALK_SCRATCH_CAP by scratch_groups, the fold's carry
 // (each thread's Acc2, or BlockAccN's pairs) kept between the groups.

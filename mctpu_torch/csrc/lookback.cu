@@ -24,15 +24,22 @@
 // Bound on the H100: arithmetic, the 32-bit integer pipe of Philox first.
 // Per path-step: half a Philox block, half a Box-Muller, one add chain and a
 // min or max (K16: three selects and two tangent FMAs more); two expf per
-// path.  Simple design, as K9: one CUDA block per simulation block, one
-// thread per path element striding over the (rows, 128) tile, state in
-// registers; K15 sums with mct::Acc2, K16 with mct::BlockAccN per iteration.
-// No atomics.
+// path.  K15 is a split walk (mct::walk_split_kernel, csrc/common.cuh, as
+// K12 in csrc/barrier.cu): one thread per path element of every
+// (simulation block, iteration) item walks both signs of its path on one
+// draw of each pair and writes its payoff, and mct::walk_fold_kernel adds
+// the payoffs in the order of the simple design (one CUDA block of 1024
+// threads per simulation block, each thread's Acc2 over its elements t, t +
+// 1024, .. of every iteration, then write_block_sums' tree), so its block
+// sums are that design's bit for bit.  K16 keeps the simple design: one
+// CUDA block per simulation block, one thread per path element striding
+// over the (rows, 128) tile, state in registers, the sums in
+// mct::BlockAccN per iteration.  No atomics.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;        // K15
+constexpr int THREADS = 1024;        // K15's fold
 constexpr int GREEK_THREADS = 512;   // K16: 6 carries and 8 sums a thread
 constexpr int N_SUMS = 8;
 
@@ -43,46 +50,57 @@ struct Kind {
   static constexpr bool USE_MIN = FIXED == PUT;  // floating call, fixed put
 };
 
-// One K15 walk of tile element e -> its payoff.
+template <bool USE_MIN>
+__device__ __forceinline__ float extreme(float log_ext, float log_s) {
+  return USE_MIN ? fminf(log_ext, log_s) : fmaxf(log_ext, log_s);
+}
+
+// K15's payoff from the terminal log-spot and the running extreme.
 template <int MODE>
-__device__ __forceinline__ float walk(float log_s0, float k, float drift,
-                                      float vol, int n_obs, mct::Key key,
-                                      uint32_t e, float sgn) {
+__device__ __forceinline__ float payoff(float log_s, float log_ext,
+                                        float k) {
   using K = Kind<MODE>;
-  float log_s = log_s0, log_ext = log_s0;
-  mct::walk_pairwise(key, e, n_obs, [&](int, float z) {
-    log_s = log_s + drift + vol * (sgn * z);
-    log_ext = K::USE_MIN ? fminf(log_ext, log_s) : fmaxf(log_ext, log_s);
-  });
   const float s = expf(log_s), ext = expf(log_ext);
   if (!K::FIXED) return K::PUT ? ext - s : s - ext;
   return fmaxf(K::PUT ? k - ext : ext - k, 0.0f);
 }
 
-template <bool ANTI, bool KAHAN, int MODE>
-__global__ void __launch_bounds__(THREADS)
-    lookback_kernel(const float* __restrict__ par, int n_obs, uint32_t seed,
-                    uint32_t off, int n_elems, int iters,
-                    float* __restrict__ out) {
-  // par: log s0, k, drift, vol
-  const float log_s0 = par[0], k = par[1], drift = par[2], vol = par[3];
-  mct::Acc2<KAHAN> acc;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float p = walk<MODE>(log_s0, k, drift, vol, n_obs, key, u, 1.0f);
+// K15's split walk: both signs of tile element e's path advance on one
+// draw of each pair (the mirror's normal is -z, exactly the simple
+// design's sgn * z), and the element's payoff is their mean under ANTI.
+// par: log s0, k, drift, vol.
+template <int MODE>
+struct LookbackWalk {
+  struct Params {
+    const float* par;
+    int n_obs;
+  };
+  static constexpr int SHARED = 0;
+  static constexpr int MIN_BLOCKS = 16;  // 64 warps an SM at 32 registers
+
+  __device__ static void stage(const Params&, float*) {}
+
+  template <bool ANTI>
+  __device__ static float pay(const Params& P, const float*, mct::Key key,
+                              uint32_t e) {
+    constexpr bool USE_MIN = Kind<MODE>::USE_MIN;
+    const float log_s0 = P.par[0], k = P.par[1], drift = P.par[2],
+                vol = P.par[3];
+    float log_s = log_s0, log_ext = log_s0, log_m = log_s0,
+          log_ext_m = log_s0;
+    mct::walk_pairwise(key, e, P.n_obs, [&](int, float z) {
+      log_s = log_s + drift + vol * z;
+      log_ext = extreme<USE_MIN>(log_ext, log_s);
       if (ANTI) {
-        p = 0.5f * (p + walk<MODE>(log_s0, k, drift, vol, n_obs, key, u,
-                                   -1.0f));
+        log_m = log_m + drift + vol * (-z);
+        log_ext_m = extreme<USE_MIN>(log_ext_m, log_m);
       }
-      acc.add(p);
-    }
+    });
+    const float p = payoff<MODE>(log_s, log_ext, k);
+    if (!ANTI) return p;
+    return 0.5f * (p + payoff<MODE>(log_m, log_ext_m, k));
   }
-  mct::write_block_sums<THREADS, KAHAN>(acc, out);
-}
+};
 
 // K16's scalars (mctpu_torch/kernels/lookback.py, GREEK_SCAL).
 struct GreekScal {
@@ -172,56 +190,77 @@ __global__ void __launch_bounds__(GREEK_THREADS)
 }
 
 template <bool ANTI, bool KAHAN, int MODE>
-void launch(const float* scal, int n_obs, uint32_t seed, uint32_t off,
-            int n_blocks, int n_elems, int iters, int greeks, float* out,
-            cudaStream_t stream) {
-  if (greeks) {
-    lookback_greeks_kernel<ANTI, KAHAN, MODE><<<n_blocks, GREEK_THREADS, 0,
-                                                stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
-  } else {
-    lookback_kernel<ANTI, KAHAN, MODE><<<n_blocks, THREADS, 0, stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
-  }
+void launch_greeks(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+                   int n_blocks, int n_elems, int iters, float* out,
+                   cudaStream_t stream) {
+  lookback_greeks_kernel<ANTI, KAHAN, MODE><<<n_blocks, GREEK_THREADS, 0,
+                                              stream>>>(
+      scal, n_obs, seed, off, n_elems, iters, out);
 }
 
-using LaunchFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
-                          int, int, float*, cudaStream_t);
+using GreeksFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
+                          int, float*, cudaStream_t);
 
-// Indexed by antithetic << 3 | kahan << 2 | mode.
-#define MCT_LOOKBACK_MODES(A, K)                                  \
-  launch<A, K, 0>, launch<A, K, 1>, launch<A, K, 2>, launch<A, K, 3>
-constexpr LaunchFn LAUNCHERS[16] = {
-    MCT_LOOKBACK_MODES(false, false), MCT_LOOKBACK_MODES(false, true),
-    MCT_LOOKBACK_MODES(true, false),  MCT_LOOKBACK_MODES(true, true),
-};
+// K15's split walk and its fold (THREADS threads, each thread's Acc2).
+template <bool ANTI, bool KAHAN, int MODE>
+int launch_split(const float* par, int n_obs, uint32_t seed, uint32_t off,
+                 int n_blocks, int rows, int iters, size_t cap,
+                 float* scratch, float* out, cudaStream_t s) {
+  return mct::walk_split_launch<LookbackWalk<MODE>, THREADS, false, ANTI,
+                                KAHAN>(
+      typename LookbackWalk<MODE>::Params{par, n_obs}, seed, off, n_blocks,
+      rows, iters, cap, scratch, out, s);
+}
+
+using SplitFn = int (*)(const float*, int, uint32_t, uint32_t, int, int, int,
+                        size_t, float*, float*, cudaStream_t);
+
+// Both tables indexed by antithetic << 3 | kahan << 2 | mode.
+#define MCT_LOOKBACK_MODES(F, A, K) \
+  F<A, K, 0>, F<A, K, 1>, F<A, K, 2>, F<A, K, 3>
+#define MCT_LOOKBACK_TABLE(F)                                            \
+  MCT_LOOKBACK_MODES(F, false, false), MCT_LOOKBACK_MODES(F, false, true), \
+      MCT_LOOKBACK_MODES(F, true, false), MCT_LOOKBACK_MODES(F, true, true)
+constexpr GreeksFn GREEK_LAUNCHERS[16] = {MCT_LOOKBACK_TABLE(launch_greeks)};
+constexpr SplitFn SPLIT_LAUNCHERS[16] = {MCT_LOOKBACK_TABLE(launch_split)};
+#undef MCT_LOOKBACK_TABLE
 #undef MCT_LOOKBACK_MODES
 
-int run(const float* scal, int n_obs, int seed, int off, int n_blocks,
-        int rows, int iters, int antithetic, int kahan, int mode, int greeks,
-        float* out, void* stream) {
-  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
-  const int idx = (antithetic ? 8 : 0) | (kahan ? 4 : 0) | mode;
-  LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
-                 static_cast<uint32_t>(off), n_blocks, rows * mct::LANES,
-                 iters, greeks, out, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+int launcher_index(int antithetic, int kahan, int mode) {
+  return (antithetic ? 8 : 0) | (kahan ? 4 : 0) | mode;
 }
 
 }  // namespace
 
+// Floats of scratch a K15 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_lookback_scratch_floats(int n_blocks, int rows,
+                                             int iters, int cap) {
+  return static_cast<int>(
+      mct::walk_groups<THREADS, false>(n_blocks, rows, iters,
+                                       static_cast<size_t>(cap))
+          .total);
+}
+
 extern "C" int mctpu_lookback(const float* par, int n_obs, int seed, int off,
                               int n_blocks, int rows, int iters,
-                              int antithetic, int kahan, int mode, float* out,
-                              void* stream) {
-  return run(par, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             mode, 0, out, stream);
+                              int antithetic, int kahan, int mode, int cap,
+                              float* scratch, float* out, void* stream) {
+  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
+  return SPLIT_LAUNCHERS[launcher_index(antithetic, kahan, mode)](
+      par, n_obs, static_cast<uint32_t>(seed), static_cast<uint32_t>(off),
+      n_blocks, rows, iters, static_cast<size_t>(cap), scratch, out,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mctpu_lookback_greeks(const float* scal, int n_obs, int seed,
                                      int off, int n_blocks, int rows,
                                      int iters, int antithetic, int kahan,
                                      int mode, float* out, void* stream) {
-  return run(scal, n_obs, seed, off, n_blocks, rows, iters, antithetic, kahan,
-             mode, 1, out, stream);
+  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
+  GREEK_LAUNCHERS[launcher_index(antithetic, kahan, mode)](
+      scal, n_obs, static_cast<uint32_t>(seed), static_cast<uint32_t>(off),
+      n_blocks, rows * mct::LANES, iters, out,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -37,17 +37,22 @@
 // shuffles.  A point-dim then costs a shuffle, a table load and an XOR
 // beside the quantile's 28 float32 operations and logf (the tail branch's
 // sqrtf and 17 more only in a warp that holds a tail point, but for K54
-// past 64 assets).  K54 holds a point's z in a local array of one of three
-// sizes (a <= 64, 256, 2048 = MAX_DIM).  K55 splits each chunk's batches
+// past 336 assets).  K54 forms a round of points' normals into shared
+// memory, four quantiles a lane at a time, and their baskets by K3's
+// register-tiled product at 17-336 assets; else a lane holds its point's z
+// in a local array of 64 or 2048 = MAX_DIM floats (see its section below).
+// K55 splits each chunk's batches
 // over many CUDA blocks, each point's payoff to scratch, and folds them in
 // the one-block-a-chunk order (see its section below); a point's W is a
 // warp's column in shared memory, or past 64 dates a local array.
 //
 // Bound on the H100: float32 operations and the SFU (logf and expf per
 // point-dim); K54 at a = 100 by the 5050-term correlation product per
-// point, as K3.  This source builds with -fmad=false (mctpu_torch/_build.py):
-// the quantile's Horner steps, the payoff kink and K53's in-the-money
-// indicator round as the plain version's separate operations do.
+// point, as K3 (register tiles of 4 points x 4 assets off shared memory, 16
+// fmaf per two shared loads).  This source builds with -fmad=false
+// (mctpu_torch/_build.py): the quantile's Horner steps, the payoff kink and
+// K53's in-the-money indicator round as the plain version's separate
+// operations do.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -69,8 +74,7 @@ constexpr uint32_t SHIFT_TAG = 0x51D5u;
 // in sqrt(w) - 3.  LAZY forms the tail only when a lane of the warp needs
 // it (about 10% of the warps; every lane of the warp calls this together);
 // either way the result is the select of the two, bit for bit.
-template <bool LAZY>
-__device__ __forceinline__ float giles_from_w(float w, float x) {
+__device__ __forceinline__ float giles_central(float w) {
   const float wc = w - 2.5f;
   float p = MCT_F32(2.81022636e-08);
   p = MCT_F32(3.43273939e-07) + p * wc;
@@ -81,18 +85,29 @@ __device__ __forceinline__ float giles_from_w(float w, float x) {
   p = MCT_F32(-0.00417768164) + p * wc;
   p = MCT_F32(0.246640727) + p * wc;
   p = MCT_F32(1.50140941) + p * wc;
+  return p;
+}
+
+__device__ __forceinline__ float giles_tail(float w) {
+  const float wt = sqrtf(w) - 3.0f;
+  float q = MCT_F32(-0.000200214257);
+  q = MCT_F32(0.000100950558) + q * wt;
+  q = MCT_F32(0.00134934322) + q * wt;
+  q = MCT_F32(-0.00367342844) + q * wt;
+  q = MCT_F32(0.00573950773) + q * wt;
+  q = MCT_F32(-0.0076224613) + q * wt;
+  q = MCT_F32(0.00943887047) + q * wt;
+  q = MCT_F32(1.00167406) + q * wt;
+  q = MCT_F32(2.83297682) + q * wt;
+  return q;
+}
+
+template <bool LAZY>
+__device__ __forceinline__ float giles_from_w(float w, float x) {
+  float p = giles_central(w);
   const bool tail = !(w < 5.0f);
   if (!LAZY || __any_sync(0xffffffffu, tail)) {
-    const float wt = sqrtf(w) - 3.0f;
-    float q = MCT_F32(-0.000200214257);
-    q = MCT_F32(0.000100950558) + q * wt;
-    q = MCT_F32(0.00134934322) + q * wt;
-    q = MCT_F32(-0.00367342844) + q * wt;
-    q = MCT_F32(0.00573950773) + q * wt;
-    q = MCT_F32(-0.0076224613) + q * wt;
-    q = MCT_F32(0.00943887047) + q * wt;
-    q = MCT_F32(1.00167406) + q * wt;
-    q = MCT_F32(2.83297682) + q * wt;
+    const float q = giles_tail(w);
     if (tail) p = q;
   }
   return p * x;
@@ -107,6 +122,36 @@ __device__ __forceinline__ float norm_ppf(float u) {
   const float x = 2.0f * u - 1.0f;
   const float w = -logf(4.0f * u * (1.0f - u));
   return giles_from_w<LAZY>(w, x) * MCT_F32(1.4142135623730951);
+}
+
+// N lazy quantiles at once, each norm_ppf<true>'s bit for bit: one vote for
+// all their tails, so that their N dependent chains interleave.  Called by
+// the whole warp.
+template <int N>
+__device__ __forceinline__ void norm_ppf_n(const float (&u)[N],
+                                           float (&z)[N]) {
+  const float eps = MCT_F32(1e-7);
+  float x[N], w[N], p[N];
+  bool any_tail = false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float ui = fminf(fmaxf(u[i], eps), 1.0f - eps);
+    x[i] = 2.0f * ui - 1.0f;
+    w[i] = -logf(4.0f * ui * (1.0f - ui));
+    p[i] = giles_central(w[i]);
+    any_tail = any_tail || !(w[i] < 5.0f);
+  }
+  if (__any_sync(0xffffffffu, any_tail)) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float q = giles_tail(w[i]);
+      if (!(w[i] < 5.0f)) p[i] = q;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    z[i] = (p[i] * x[i]) * MCT_F32(1.4142135623730951);
+  }
 }
 
 __device__ __forceinline__ float u_from_bits30(uint32_t x) {
@@ -215,6 +260,49 @@ __device__ __forceinline__ void run_net(const Net& net, uint32_t base,
   }
 }
 
+// Quantiles net_group forms at once (norm_ppf_n): two ran K54 at 100
+// assets 15% faster than one (11-15% past 100, 4-6% at 32-65), four 9-11%
+// faster than two past 128 and as fast below (tools/time_redesign.py
+// against copies, PERF.md).
+constexpr int GROUP_QN = 4;
+
+// Calls f(d, z) for dims dlo .. dhi - 1 in turn of lane l's point A + l of
+// the 32-aligned group at A, z = norm_ppf<true>'s value: in each slice of 32
+// dims lane j forms x(A) of dim d0 + j, shifted, as net_batch does for one
+// group.  Called by the whole warp.
+template <class F>
+__device__ __forceinline__ void net_group(const Net& net, uint32_t A,
+                                          int dlo, int dhi, F&& f) {
+  const int lane = threadIdx.x & 31;
+  for (int d0 = dlo; d0 < dhi; d0 += 32) {
+    const int dn = min(32, dhi - d0);
+    uint32_t h = 0u;
+    if (lane < dn) {
+      const uint32_t dd = static_cast<uint32_t>(d0 + lane);
+      const uint32_t shift =
+          mct::philox4x32_10(net.k0, net.k1, net.rep, dd, SHIFT_TAG, 0u).x;
+      h = sobol30(A, net.v + dd * BITS) ^ (shift >> 2);
+    }
+    int j = 0;
+    for (; j + GROUP_QN <= dn; j += GROUP_QN) {
+      float u[GROUP_QN], z[GROUP_QN];
+#pragma unroll
+      for (int i = 0; i < GROUP_QN; ++i) {
+        u[i] = u_from_bits30(__shfl_sync(0xffffffffu, h, j + i) ^
+                             __ldg(net.low + (d0 + j + i) * 32 + lane));
+      }
+      norm_ppf_n(u, z);
+#pragma unroll
+      for (int i = 0; i < GROUP_QN; ++i) f(d0 + j + i, z[i]);
+    }
+    for (; j < dn; ++j) {
+      const uint32_t x = __shfl_sync(0xffffffffu, h, j) ^
+                         __ldg(net.low + (d0 + j) * 32 + lane);
+      f(d0 + j, norm_ppf<true>(u_from_bits30(x)));
+    }
+  }
+}
+
 // ------------------------------------------------------------ K52 vanilla
 
 template <bool PUT>
@@ -262,10 +350,32 @@ struct GreekPt {
 
 // -------------------------------------------------------------- K54 basket
 
-// Past 64 assets the correlation product outweighs the quantiles, and the
-// lazy tail's vote and branch cost its loop registers (ptxas: 63 -> 48 and
-// a spill; 100 assets 13% slower, tools/time_rqmc.py), so those instances
-// form both polynomials.
+// K54 runs one of two designs by a.  In TILED_MIN_A <= a <= TILED_MAX_A
+// (rqmc_basket_tiled_kernel) a chunk's points go in rounds of TILED_UNITS
+// / 32 groups: the block's warps write the round's normals into a shared
+// [a][TILED_UNITS] column (group g of the round at units 32 g .., each warp
+// a group's share of the dims, net_group), mct::tiled_baskets (basket.cuh,
+// K3's register-tiled product) forms their basket values, and each point's
+// value returns through shared memory to the lane that run_net gives it
+// (past 16 assets a batch is one group: lane l of warp k % WARPS for point
+// 32 k + l of group k), which adds max(basket - k, 0) and its square when
+// the point lies in the chunk.  The rounds take the groups in ascending
+// order, so each thread adds its points in run_net's order, and the basket
+// values are packed_baskets' bit for bit: the tiles, and so the quads, are
+// the local-array design's.  Elsewhere (BasketPt, rqmc_basket_kernel) a
+// lane holds its point's z in a local array and forms packed_baskets
+// itself.  The range is measured (tools/time_redesign.py, PERF.md): at 3-13
+// assets, where a round's barriers serve a few product terms a point, the
+// local array is 1.2-3x faster, at 16 they tie, from 17 the tiled design
+// wins (7% at 17, 2.3x at 64, 2.4x at 100, 6-8x at 256-336).  Past 336 its
+// shared memory does not fit and the 2048-float local array stays.  Past 64
+// assets the correlation product outweighs the quantiles, and the lazy
+// tail's vote and branch cost its loop registers (ptxas: 63 -> 48 and a
+// spill; 100 assets 13% slower, tools/time_rqmc.py), so the 2048 instance
+// forms both polynomials.
+constexpr int TILED_MIN_A = 17;   // one 32-point group a batch
+constexpr int TILED_MAX_A = 336;  // the tiled design's shared memory fits
+
 template <int MAXA>
 struct BasketPt {
   static constexpr bool kLazyTail = MAXA <= 64;
@@ -475,6 +585,64 @@ __global__ void __launch_bounds__(THREADS)
           static_cast<uint32_t>(blockIdx.x) * static_cast<uint32_t>(ppc), ppc,
           pt);
   write_tile(pt.v, sh, iters, tiles);
+}
+
+// Dynamic shared memory of the tiled K54: tiled_baskets' and the round's
+// basket values.
+inline size_t basket_tiled_smem_bytes(int a) {
+  return mct::tiled_smem_bytes(a, false) + mct::TILED_UNITS * sizeof(float);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    rqmc_basket_tiled_kernel(const float* __restrict__ par,
+                             const float* __restrict__ lt,
+                             const float* __restrict__ rows,
+                             const uint32_t* v, const uint32_t* low,
+                             uint32_t k0, uint32_t k1, uint32_t off, int a,
+                             int ppc, int iters, float* __restrict__ tiles) {
+  static_assert(THREADS == mct::TILED_THREADS, "tiled_baskets' threads");
+  constexpr int RG = mct::TILED_UNITS / 32;  // groups a round
+  __shared__ float sh[WARPS * 2];
+  extern __shared__ float4 basket_sh[];
+  float* zs = reinterpret_cast<float*>(basket_sh);
+  float* bs = zs + mct::tiled_smem_bytes(a, false) / sizeof(float);
+  const Net net = block_net(v, low, k0, k1, off, a);
+  const uint32_t base =
+      static_cast<uint32_t>(blockIdx.x) * static_cast<uint32_t>(ppc);
+  const NetChunk C = net_chunk(a, base, ppc);
+  const float k = par[0];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[2] = {0.0f, 0.0f};
+  for (int g0 = 0; g0 < C.ngroups; g0 += RG) {
+    const int nr = min(RG, C.ngroups - g0);  // the round's groups
+    const int parts = WARPS / nr;            // warps a group
+    if (warp < nr * parts) {  // the whole warp
+      const int g = warp % nr, part = warp / nr;
+      float* col = zs + 32 * g + lane;
+      net_group(net, C.a0 + 32u * static_cast<uint32_t>(g0 + g),
+                a * part / parts, a * (part + 1) / parts,
+                [&](int d, float z) { col[d * mct::TILED_UNITS] = z; });
+    }
+    float basket, unused;
+    mct::tiled_baskets<false>(lt, rows, a, 32 * nr, zs, basket, unused);
+    if (threadIdx.x < 32 * nr) bs[threadIdx.x] = basket;
+    __syncthreads();
+    // bs is written again only after the next round's first barrier in
+    // tiled_baskets, which each thread reaches after these reads.
+    for (int g = 0; g < nr; ++g) {
+      const int kk = g0 + g;
+      if (kk % WARPS == warp) {  // batch kk's warp in run_net (gpb 1)
+        const uint32_t pos = 32u * static_cast<uint32_t>(kk) +
+                             static_cast<uint32_t>(lane);
+        const float p = fmaxf(bs[32 * g + lane] - k, 0.0f);
+        if (C.a0 + pos - base < static_cast<uint32_t>(ppc)) {
+          acc[0] += p;
+          acc[1] += p * p;
+        }
+      }
+    }
+  }
+  write_tile(acc, sh, iters, tiles);
 }
 
 // A group of K55's items: replicates b0 .. b0 + nb, chunks i0 .. i0 + ni.
@@ -746,12 +914,25 @@ int mctpu_rqmc_basket(const float* par, const float* lt, const float* rows,
                       cudaStream_t stream) {
   if (a < 1 || a > 2048) return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t K0 = k0, K1 = k1, OFF = off;
+  const bool tiled = a >= TILED_MIN_A && a <= TILED_MAX_A;
+  const size_t smem = tiled ? basket_tiled_smem_bytes(a) : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        rqmc_basket_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(rqmc_basket_tiled_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return two_pass(n_blocks, iters, 2, tiles, out, stream, [&](dim3 grid) {
-    if (a <= 64) {
-      rqmc_basket_kernel<64><<<grid, THREADS, 0, stream>>>(
+    if (tiled) {
+      rqmc_basket_tiled_kernel<<<grid, THREADS, smem, stream>>>(
           par, lt, rows, v, low, K0, K1, OFF, a, ppc, iters, tiles);
-    } else if (a <= 256) {
-      rqmc_basket_kernel<256><<<grid, THREADS, 0, stream>>>(
+    } else if (a < TILED_MIN_A) {
+      rqmc_basket_kernel<64><<<grid, THREADS, 0, stream>>>(
           par, lt, rows, v, low, K0, K1, OFF, a, ppc, iters, tiles);
     } else {
       rqmc_basket_kernel<2048><<<grid, THREADS, 0, stream>>>(

@@ -425,10 +425,10 @@ def check_level(n_fine: int) -> None:
 def launch_walk(entry: str, scal: torch.Tensor, n_scal: int, n_out: int,
                 seed: int, block_offset: int, plan: Plan, n_blocks: int,
                 n_obs: int, mode: int) -> torch.Tensor:
-    """Launch a single-asset walk kernel of the simple design (K9,
-    K13-K18, K20, K28 and K46 share one C signature) on ``scal``'s device
-    and return its ``(n_blocks, n_out)`` partials.  ``mode`` selects the
-    kernel's static variant: 1 for the geometric Asian, the up-and-out
+    """Launch a single-asset walk kernel of the simple design (K9, K13,
+    K14, K16-K18, K20, K28 and K46 share one C signature) on ``scal``'s
+    device and return its ``(n_blocks, n_out)`` partials.  ``mode`` selects
+    the kernel's static variant: 1 for the geometric Asian, the up-and-out
     barrier or the variance swap's Heston leg, ``2 * fixed + put`` for the
     lookback, 0 otherwise;
     ``n_obs`` is the step count (the cliquet's ``n_periods``, an MLMC
@@ -465,13 +465,14 @@ def launch_split_walk(entry: str, scal: torch.Tensor, n_scal: int,
                       n_out: int, seed: int, block_offset: int, plan: Plan,
                       n_blocks: int, n_obs: int, mode: int | None,
                       scratch_cap: int = 0) -> torch.Tensor:
-    """Launch a split walk (K10, K11, K12, K19, K27, K29:
+    """Launch a split walk (K10, K11, K12, K15, K19, K27, K29:
     ``csrc/common.cuh``'s ``walk_split_launch``, a thread per path element
     and a fold in the simple design's order) on ``scal``'s device and
     return its ``(n_blocks, n_out)`` partials, the scratch that ``entry``
     + ``_scratch_floats`` sizes allocated here on the current stream.
     ``mode`` is the kernel's static variant, as :func:`launch_walk`'s (the
-    variance swap's Heston leg for K19, the QE scheme for K27), or None
+    lookback's ``2 * fixed + put`` for K15, the variance swap's Heston leg
+    for K19, the QE scheme for K27), or None
     where the entry takes none (K29);
     ``scratch_cap``: the scratch in floats at most (0: 256 MB), past which
     the simulation blocks and iterations go in groups, the outputs the

@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from mctpu_torch.kernels.common import (Plan, f32, launch_walk,
-                                        walk_pairwise, walk_partials)
+from mctpu_torch.kernels.common import (Plan, f32, launch_split_walk,
+                                        launch_walk, walk_pairwise,
+                                        walk_partials)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import asian as masian
 from mctpu_torch.types import LookbackOption
@@ -87,12 +88,17 @@ def plain_partials(par: torch.Tensor, seed: int, block_offset: int,
 
 
 def partials(par: torch.Tensor, seed: int, block_offset: int, plan: Plan,
-             n_blocks: int, n_obs: int, mode: int) -> torch.Tensor:
+             n_blocks: int, n_obs: int, mode: int,
+             scratch_cap: int = 0) -> torch.Tensor:
     """Per-block partials ``(n_blocks, 2)``: K15 for a CUDA ``par``, the
-    plain version for a CPU ``par``; any other device raises."""
+    plain version for a CPU ``par``; any other device raises.
+    ``scratch_cap``: K15's scratch in floats at most (0: 256 MB), past which
+    it splits and folds simulation blocks and iterations in groups; the
+    outputs do not depend on it."""
     if par.device.type == "cuda":
-        out = launch_walk("mctpu_lookback", par, 4, 2, seed, block_offset,
-                          plan, n_blocks, n_obs, mode)
+        out = launch_split_walk("mctpu_lookback", par, 4, 2, seed,
+                                block_offset, plan, n_blocks, n_obs, mode,
+                                scratch_cap)
         LAUNCHES["lookback"] += 1
         return out
     if par.device.type == "cpu":

@@ -2020,11 +2020,13 @@ def test_asian_level_split_mlmc_plan_and_grouped_scratch(dev, antithetic):
 
 # K10 (arithmetic and geometric, 13 dates), K11 (arithmetic and geometric,
 # level 2 of n0 = 4: 16 dates), K27 (Euler and QE, 8 steps: level 0 of
-# mctpu's MLMC default) and K19 (GBM and Heston, 13 dates), split per path
-# element and folded in the unsplit order.
+# mctpu's MLMC default), K19 (GBM and Heston, 13 dates) and K15 (every
+# lookback mode, 13 dates; the fixed strikes off the atom at s0), split per
+# path element and folded in the unsplit order.
 _SPLIT_WALKS = ("K10 arithmetic", "K10 geometric", "K11 arithmetic",
                 "K11 geometric", "K27 Euler", "K27 QE", "K19 GBM",
-                "K19 Heston")
+                "K19 Heston", "K15 floating call", "K15 floating put",
+                "K15 fixed call", "K15 fixed put")
 # name: (blocks, iters, rows, kahan): the MLMC 8 x 8 plan's shape, and 2
 # iterations on 1 and 3 rows (the fold's 512- or 1024-thread stride partly
 # empty).
@@ -2036,6 +2038,18 @@ _SPLIT_SHAPES = {"mlmc8x8_iters16": (8, 16, 8, True),
 def _split_walk(dev, name):
     """``(fn(off, nb, plan, cap=0), plain(off, nb, plan), launch key,
     scratch-floats entry, greek)`` of a split walk."""
+    if name.startswith("K15"):
+        _, kind, payoff = name.split()
+        opt = LookbackOption(100., 0.05, 0.2, 1., n_obs=13, kind=kind,
+                             payoff=payoff,
+                             k={"call": 105., "put": 95.}[payoff]
+                             if kind == "fixed" else 0.)
+        mode, par = klookback.mode_of(opt), klookback.params(opt, dev)
+        return (lambda off, nb, plan, cap=0: klookback.partials(
+                    par, SEED, off, plan, nb, 13, mode, scratch_cap=cap),
+                lambda off, nb, plan: klookback.plain_partials(
+                    par, SEED, off, plan, nb, 13, mode),
+                "lookback", "mctpu_lookback_scratch_floats", False)
     if name.startswith("K10"):
         geo = name.endswith("geometric")
         gp = kasian.greek_params(_asian(13, geo), dev)
@@ -2074,6 +2088,8 @@ def _split_walk(dev, name):
 
 
 def _split_counts(name):
+    if name.startswith("K15"):
+        return klookback.LAUNCHES
     if name.startswith("K19"):
         return kvarswap.LAUNCHES
     return kasian.LAUNCHES if name.startswith("K1") else kheston.LAUNCHES
@@ -2084,7 +2100,7 @@ def _split_counts(name):
 @pytest.mark.parametrize("name", _SPLIT_WALKS)
 def test_asian_greeks_and_heston_split_match_plain(dev, name, antithetic,
                                                    shape):
-    """K10, K11, K19 and K27 (split per path element, folded in the
+    """K10, K11, K15, K19 and K27 (split per path element, folded in the
     unsplit order) against their plain versions (K10's and K11's pairs by the
     scaled bound), on the MLMC 8 x 8 plan's shape and on short rows; two
     launches and the block offset bitwise; each call counts one launch."""
@@ -2108,8 +2124,8 @@ def test_asian_greeks_and_heston_split_match_plain(dev, name, antithetic,
 @pytest.mark.parametrize("name", _SPLIT_WALKS)
 def test_asian_greeks_and_heston_split_grouped_scratch(dev, name,
                                                        antithetic):
-    """K10, K11, K19 and K27 under a forced small scratch cap: at 1 float
-    every (block, iteration) is split and folded on its own (the fold's
+    """K10, K11, K15, K19 and K27 under a forced small scratch cap: at 1
+    float every (block, iteration) is split and folded on its own (the fold's
     carry between the groups: K10's BlockAccN pairs, the others' Acc2s), at
     half the one-group scratch the blocks go in groups; both equal the
     one-group launch bit for bit, and each capped call counts one launch."""
@@ -2195,8 +2211,14 @@ def test_rqmc_vanilla_and_greek_kernels_match_plain(dev, kind, rows):
         units=plan.paths_per_block)
 
 
-@pytest.mark.parametrize("n_assets,rows", [(1, 8), (3, 8), (12, 8),
-                                           (40, 8), (100, 8), (300, 12)])
+# K54's tiled design at 65-128 assets on rows 1, 3 and 37 (chunks of 1, 3
+# and 37 points: chunk bases off the 32-point groups, a round of fewer than
+# four groups) and on rows 163 (a full round and a short one), and past
+# 128 at 129 and 300 assets.
+@pytest.mark.parametrize("n_assets,rows", [
+    (1, 8), (3, 8), (12, 8), (40, 8), (100, 8), (300, 12), (65, 1), (65, 3),
+    (65, 37), (100, 1), (100, 3), (100, 37), (100, 163), (128, 1), (128, 3),
+    (128, 37), (129, 37), (300, 37)])
 def test_rqmc_basket_kernel_matches_plain(dev, n_assets, rows):
     opt = BasketOption.equicorrelated(n_assets, 0.3)
     c = kbasket.pack_factor(n_assets)[1]

@@ -41,6 +41,8 @@ CASES = {
     "n7_fixed_call_antithetic": (7, "fixed", "call", 105.0, True, True, 1),
     "n6_fixed_put_f32": (6, "fixed", "put", 95.0, False, False, 1),
     "n1_fixed_call": (1, "fixed", "call", 103.0, False, True, 1),
+    "n6_floating_call_antithetic_2iters": (6, "floating", "call", 0.0, True,
+                                           True, 2),
 }
 
 
@@ -123,6 +125,19 @@ def test_block_offset_relabels_streams(greeks):
     full = fn(par, 9, 0, plan, 4, opt.n_obs, 2)
     tail = fn(par, 9, 2, plan, 2, opt.n_obs, 2)
     assert np.array_equal(full[2:].numpy(), tail.numpy())
+
+
+@pytest.mark.parametrize("cap", [0, 1, 1 << 20])
+def test_partials_scratch_cap_runs_plain_on_cpu(cap):
+    """On the CPU, K15's wrapper runs the plain version whatever the
+    scratch cap of its split walk (a CUDA-only argument)."""
+    opt = mctpu_torch.LookbackOption(100.0, 0.05, 0.2, 1.0, n_obs=6)
+    plan = tlookback.make_plan(2 * 2 * ROWS * 128 * 2, 2, ROWS, True)
+    assert plan.iters == 2
+    par = tlookback.params(opt, "cpu")
+    got = tlookback.partials(par, SEED, 1, plan, 2, 6, 0, scratch_cap=cap)
+    want = tlookback.plain_partials(par, SEED, 1, plan, 2, 6, 0)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("s,r,v,t,m", [(100.0, 0.05, 0.2, 1.0, None),

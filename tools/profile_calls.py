@@ -25,9 +25,10 @@ default ``EngineConfig``), after one warm-up call:
   kernels and their folds; the netting-set CVA's, the xVA's and the xVA
   Greeks' split kernel and its fold at m <= 8; the packed basket price's
   and the packed basket Greeks' split kernels and their folds; the
-  barrier walk's, the Asian Greeks', the Heston walk's, the Heston and
-  Asian MLMC levels', the variance swap's and the 3-asset basket walks'
-  split kernel and its fold (K12, K10, K27, K29, K11, K19, K30); the RQMC
+  barrier walk's, the lookback's, the Asian Greeks', the Heston walk's,
+  the Heston and Asian MLMC levels', the variance swap's and the 3-asset
+  basket walks' split kernel and its fold (K12, K15, K10, K27, K29, K11,
+  K19, K30); the RQMC basket's net kernel, tiled or not (K54); the RQMC
   Asian's split net, its fold and the chunk carry (K55); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
@@ -139,7 +140,7 @@ def calls(mt):
                        average="geometric")
     uo8 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0,
                         n_obs=8)
-    # The split walks' kernels (K10, K11, K12, K27, K29, K30: a walk per
+    # The split walks' kernels (K10, K11, K12, K15, K27, K29, K30: a walk per
     # path element, then the fold in the unsplit order).
     split = ("walk_split_kernel", "walk_fold_kernel")
     mlmc_calls = []
@@ -165,6 +166,7 @@ def calls(mt):
     # fold) and the chunk carry.
     rq = ("chunk_carry_kernel",)
     rq_asian = ("rqmc_asian_split_kernel", "rqmc_asian_fold_kernel") + rq
+    rq_basket = ("rqmc_basket_tiled_kernel", "rqmc_basket_kernel") + rq
     geo252 = AsianOption(100.0, 100.0, 0.05, 0.2, 1.0, n_obs=252,
                          average="geometric")
     rqmc_calls = [
@@ -172,11 +174,9 @@ def calls(mt):
          lambda: mt.price_vanilla_rqmc(cv_van, 131072, SEED)),
         ("greeks_vanilla_rqmc 65536 x 16", ("rqmc_greeks_kernel",) + rq,
          lambda: mt.qmc_engine.greeks_vanilla_rqmc(van, 65536, SEED)),
-        ("price_basket_rqmc a=3, n=131072 x 16",
-         ("rqmc_basket_kernel",) + rq,
+        ("price_basket_rqmc a=3, n=131072 x 16", rq_basket,
          lambda: mt.price_basket_rqmc(eq3, 131072, SEED)),
-        ("price_basket_rqmc a=100, n=131072 x 16",
-         ("rqmc_basket_kernel",) + rq,
+        ("price_basket_rqmc a=100, n=131072 x 16", rq_basket,
          lambda: mt.price_basket_rqmc(BasketOption.equicorrelated(100, 0.3),
                                       131072, SEED)),
         ("price_asian_rqmc arithmetic, n_obs=50, 4096 x 16", rq_asian,
@@ -223,7 +223,7 @@ def calls(mt):
          lambda: mt.price_barrier(uo, n22, SEED)),
         ("greeks_barrier up-and-out, 2^22", "barrier_greeks_kernel",
          lambda: mt.greeks(uo, n22, SEED)),
-        ("price_lookback floating call, n_obs=50, 2^22", "lookback_kernel",
+        ("price_lookback floating call, n_obs=50, 2^22", split,
          lambda: mt.price_lookback(lb, n22, SEED)),
         ("greeks_lookback floating call, 2^22", "lookback_greeks_kernel",
          lambda: mt.greeks(lb, n22, SEED)),

@@ -17,8 +17,12 @@ instances ``cva_multi_greeks_reg_kernel<16 | 32, ANTI, KAHAN>`` beside
 its shared-memory kernel ``cva_multi_greeks_packed_kernel`` --
 ``varswap.cu`` -- K19's split walks ``walk_split_kernel<VarswapGbmWalk
 | VarswapHestonWalk, ..>`` and their fold ``walk_fold_kernel<1024, ..>``
--- and ``rqmc.cu`` -- K55's split net ``rqmc_asian_split_kernel<64 | 256
-| 2048, GEO>`` and its fold ``rqmc_asian_fold_kernel`` -- among them)
+-- ``lookback.cu`` -- K15's split walks ``walk_split_kernel<LookbackWalk<
+MODE>, ..>`` and their fold ``walk_fold_kernel<1024, ..>`` -- and
+``rqmc.cu`` -- K55's split net ``rqmc_asian_split_kernel<64 | 256 |
+2048, GEO>`` and its fold ``rqmc_asian_fold_kernel``, K54's tiled net
+``rqmc_basket_tiled_kernel`` beside its local-array instances
+``rqmc_basket_kernel<MAXA>`` -- among them)
 with the flags ``mctpu_torch/_build.py`` builds it with, plus ``-Xptxas -v``,
 one ``nvcc`` per source, all started together, into a temporary
 directory, and prints each source's compile time (wall seconds from the

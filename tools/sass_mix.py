@@ -16,8 +16,8 @@ block, and of the Heston walks' variance, one an Euler step -- and counts
 the loop body's instructions by class: ``IMAD.WIDE``, the other ``IMAD``,
 ``LOP3``/``IADD3``, FP32 (``FADD``, ``FMUL``, ``FFMA``, ``FMNMX``,
 ``FSETP``, ``FSEL``, ``FSET``, ``FCHK``), ``MUFU`` and the rest.
-A path that takes ``k`` normals a date (1 for the barrier and Asian
-Greeks walks, ``a`` for the asset-major basket walk, 2 for a Heston
+A path that takes ``k`` normals a date (1 for the barrier, lookback and
+Asian Greeks walks, ``a`` for the asset-major basket walk, 2 for a Heston
 step) and ``q`` more roots a date (the Heston level: its fine step's and
 half its coarse step's, 1.5, or 3 for both signs; the Heston Euler walk
 1, or 2 for both signs) takes ``k / 2 + q`` roots a
@@ -63,10 +63,10 @@ HESTON_DATES = (1 << 22) * 100  # K27 in phase 6: 100 steps
 ASIAN_LEVEL_DATES = (1 << 22) * 64  # K11 in phase 6: 64 fine dates
 # (case, source, text of the demangled kernel name, normals a date, walks
 # [, more roots a date, path-dates]) at ANTI false, KAHAN true, up-and-out
-# / the 3-asset basket / the arithmetic average / Euler: the simple designs
-# (K12 barrier_kernel, K30 mw_walk_am_kernel, K29 heston_level_kernel, K10
-# asian_greeks_kernel, K27 heston_kernel, K11 asian_level_kernel) and the
-# split walks.
+# / the 3-asset basket / the arithmetic average / Euler / the floating
+# call: the simple designs (K12 barrier_kernel, K30 mw_walk_am_kernel, K29
+# heston_level_kernel, K10 asian_greeks_kernel, K27 heston_kernel, K11
+# asian_level_kernel, K15 lookback_kernel) and the split walks.
 CASES = (
     ("K12 simple", "barrier.cu", "barrier_kernel<false, true, true>", 1, 1),
     ("K12 simple antithetic", "barrier.cu",
@@ -116,6 +116,11 @@ CASES = (
      ASIAN_LEVEL_DATES),
     ("K11 split antithetic", "asian.cu", "AsianLevelWalk<false>, true>", 1,
      1, 0, ASIAN_LEVEL_DATES),
+    ("K15 simple", "lookback.cu", "lookback_kernel<false, true, 0>", 1, 1),
+    ("K15 simple antithetic", "lookback.cu",
+     "lookback_kernel<true, true, 0>", 1, 2),
+    ("K15 split", "lookback.cu", "LookbackWalk<0>, false>", 1, 1),
+    ("K15 split antithetic", "lookback.cu", "LookbackWalk<0>, true>", 1, 1),
 )
 FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"}
 CLASSES = ("IMAD.WIDE", "IMAD", "LOP3/IADD3", "FP32", "MUFU", "other")

@@ -135,7 +135,8 @@ MODULES = ("mctpu_torch._build", "mctpu_torch.engine",
            "mctpu_torch.kernels.barrier", "mctpu_torch.mlmc",
            "mctpu_torch.kernels.heston", "mctpu_torch.kernels.asian",
            "mctpu_torch.kernels.varswap", "mctpu_torch.kernels.rqmc",
-           "mctpu_torch.qmc_engine")
+           "mctpu_torch.qmc_engine", "mctpu_torch.kernels.lookback",
+           "mctpu_torch.math")
 # The kernel-vs-kernel tolerance of the cases whose outputs may move in the
 # last bits (chip_smoke.py's RTOL), by the Greek pairs' scaled bound.
 RTOL = 2e-5
@@ -160,13 +161,14 @@ def load(root: Path) -> SimpleNamespace:
         _drop_port_modules()
     (build, engine, kmw, kcm, kcva, types, variance, kvr, kbasket,
      kgreeks, kbarrier, mlmc, kheston, kasian, kvarswap, krqmc,
-     qmc_engine) = mods
+     qmc_engine, klookback, mcmath) = mods
     return SimpleNamespace(root=root, build=build, engine=engine, kmw=kmw,
                            kcm=kcm, kcva=kcva, types=types, variance=variance,
                            kvr=kvr, kbasket=kbasket, kgreeks=kgreeks,
                            kbarrier=kbarrier, mlmc=mlmc, kheston=kheston,
                            kasian=kasian, kvarswap=kvarswap, krqmc=krqmc,
-                           qmc_engine=qmc_engine)
+                           qmc_engine=qmc_engine, klookback=klookback,
+                           mcmath=mcmath)
 
 
 def kernel_ms(fn, reps: int):
@@ -590,6 +592,70 @@ def cases(v: SimpleNamespace):
                     k=cap_of(v.krqmc.asian_partials, capped):
                     v.krqmc.asian_partials(o, rkey, 0, p, 16, g, **k),
                     True))
+    # K15 on phase 6's lookbacks (S = 100, r = 0.05, v = 0.2, T = 1, 50
+    # dates; the fixed strikes at k = 100), 2^22 paths on phase 6's plan:
+    # the floating call F32_KAHAN and F32, the floating put, the fixed call
+    # and put, antithetic (the floating call F32_KAHAN and F32, the fixed
+    # put), the floating call with its scratch capped at 2^20 floats; and
+    # 2^20 on the level plan of mctpu's 8 x 8 MLMC default, plain and
+    # antithetic.
+    lb_fl = t.LookbackOption(100.0, 0.05, 0.2, 1.0, n_obs=50)
+    for kind, payoff, anti, prec, n, mlmc_plan, capped in (
+            ("floating", "call", False, None, 1 << 22, False, False),
+            ("floating", "call", False, f32, 1 << 22, False, False),
+            ("floating", "put", False, None, 1 << 22, False, False),
+            ("fixed", "call", False, None, 1 << 22, False, False),
+            ("fixed", "put", False, None, 1 << 22, False, False),
+            ("floating", "call", True, None, 1 << 22, False, False),
+            ("floating", "call", True, f32, 1 << 22, False, False),
+            ("fixed", "put", True, None, 1 << 22, False, False),
+            ("floating", "call", False, None, 1 << 22, False, True),
+            ("floating", "call", False, None, 1 << 20, True, False),
+            ("floating", "call", True, None, 1 << 20, True, False)):
+        lopt = dataclasses.replace(lb_fl, kind=kind, payoff=payoff,
+                                   k=100.0 if kind == "fixed" else 0.0)
+        c = dataclasses.replace(mlmc_cfg if mlmc_plan else cfg,
+                                antithetic=anti,
+                                precision=prec or cfg.precision)
+        plan = (v.mlmc._level_plan(n, c) if mlmc_plan
+                else engine.lookback_setup(lopt, n, c)[0])
+        par = v.klookback.params(lopt, c.torch_device())
+        out.append((f"K15 {kind} {payoff} 50 dates 2^{n.bit_length() - 1}"
+                    f"{' MLMC 8 x 8 plan ' if mlmc_plan else ' '}"
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}"
+                    f"{' F32' if prec else ''}"
+                    f"{' scratch cap 2^20' if capped else ''}",
+                    lambda o=par, p=plan, m=v.klookback.mode_of(lopt),
+                    k=cap_of(v.klookback.partials, capped):
+                    v.klookback.partials(o, SEED, 0, p, p.num_blocks, 50, m,
+                                         **k), True))
+    # K54 on phase 6's RQMC baskets, equicorrelated(a, 0.3), 16 replicates
+    # on the layout basket_rqmc_setup gives: 2^20 points a replicate at 3
+    # to 16 assets (c = 32, 8), 2^18 past them (c = 4 at 17-32, 2 at 48
+    # and 64, 1 past 64); and 2^18 at 3 and 100 assets on chunks of 37 rows
+    # (chunk bases off the 32-point groups, rounds of two groups).
+    for a, n, brows in ((3, 1 << 20, None), (12, 1 << 20, None),
+                        (13, 1 << 20, None), (16, 1 << 20, None),
+                        (17, 1 << 18, None), (20, 1 << 18, None),
+                        (24, 1 << 18, None), (28, 1 << 18, None),
+                        (32, 1 << 18, None), (48, 1 << 18, None),
+                        (64, 1 << 18, None), (65, 1 << 18, None),
+                        (100, 1 << 18, None), (128, 1 << 18, None),
+                        (129, 1 << 18, None), (200, 1 << 18, None),
+                        (256, 1 << 18, None), (300, 1 << 18, None),
+                        (336, 1 << 18, None), (3, 1 << 18, 37),
+                        (100, 1 << 18, 37)):
+        bopt = t.BasketOption.equicorrelated(a, 0.3)
+        plan, bops = v.qmc_engine.basket_rqmc_setup(bopt, n, cfg, 16)
+        if brows is not None:
+            c = v.kbasket.pack_factor(a)[1]
+            plan = v.qmc_engine.rqmc_plan(n, 16, brows,
+                                          pts_per_chunk=brows * c)
+        out.append((f"K54 a={a} 16 x 2^{n.bit_length() - 1} "
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}",
+                    lambda o=bops, p=plan: v.krqmc.basket_partials(
+                        o, rkey, 0, p, 16), True))
     # The bit-equality sweeps, small shapes: K55 at 1, 3, 6, 7, 12, 13, 50,
     # 64, 65, 252, 255, 300 and 2048 dates (every residue of the dates mod
     # 8, each W instance's ends), both averages, on 3 chunks of rows 8, 24,
@@ -647,6 +713,52 @@ def cases(v: SimpleNamespace):
                             lambda o=par, p=plan, n=n_obs, k=k:
                             v.kvarswap.partials(o, SEED, 0, p, 64, n, **k),
                             True))
+    # K15 at 13 and 50 dates, 2 iterations on 64 x 2 x 32, every mode
+    # (the fixed strikes at 105 and 95), plain and antithetic, F32_KAHAN and
+    # F32, and the floating call at 50 dates with its scratch capped at 1
+    # float and at half.
+    for n_obs in (13, 50):
+        for kind, payoff in (("floating", "call"), ("floating", "put"),
+                             ("fixed", "call"), ("fixed", "put")):
+            lopt = t.LookbackOption(
+                100.0, 0.05, 0.2, 1.0, n_obs=n_obs, kind=kind, payoff=payoff,
+                k={"call": 105.0, "put": 95.0}[payoff] if kind == "fixed"
+                else 0.0)
+            par = v.klookback.params(lopt, cfg.torch_device())
+            mode = v.klookback.mode_of(lopt)
+            for anti, kahan in ((False, True), (False, False), (True, True),
+                                (True, False)):
+                plan = v.klookback.make_plan(
+                    64 * 2 * 32 * 128 * (2 if anti else 1), 64, 32, anti,
+                    kahan)
+                capped = (caps("mctpu_lookback_scratch_floats", 64, plan.rows,
+                               plan.iters)
+                          if (n_obs, mode, anti, kahan) == (50, 0, False,
+                                                            True)
+                          else [{}])
+                for k in capped:
+                    tag = f" cap {k['scratch_cap']}" if k else ""
+                    out.append((f"K15 bits {kind} {payoff} {n_obs} dates "
+                                f"64x2x32{' antithetic' if anti else ''}"
+                                f"{'' if kahan else ' F32'}{tag}",
+                                lambda o=par, p=plan, n=n_obs, m=mode, k=k:
+                                v.klookback.partials(o, SEED, 0, p, 64, n, m,
+                                                     **k), True))
+    # K54 at 1-336 assets (each side of 32, 64, 128 and 256: the instances'
+    # ends) on 3 chunks of rows 1, 3, 37 and 163 (c points a row), 16
+    # replicates: chunk bases off the 32-point groups, rounds of one to four
+    # groups.
+    for a in (1, 3, 12, 32, 33, 64, 65, 100, 128, 129, 256, 257, 300, 336):
+        bopt = t.BasketOption.equicorrelated(a, 0.3)
+        c = v.kbasket.pack_factor(a)[1]
+        bops = v.krqmc.basket_operands(
+            bopt, v.mcmath.cholesky_lower(bopt.corr), cfg.torch_device())
+        for brows in (1, 3, 37, 163):
+            plan = v.qmc_engine.rqmc_plan(3 * brows * c, 16, brows,
+                                          pts_per_chunk=brows * c)
+            out.append((f"K54 bits a={a} rows {brows} 16x3",
+                        lambda o=bops, p=plan: v.krqmc.basket_partials(
+                            o, rkey, 0, p, 16), True))
     return out
 
 
