@@ -3516,6 +3516,18 @@ def main() -> int:
                 par, SEED, off, pl, n, vn),
             lambda pl, cap: _build.library().mctpu_varswap_scratch_floats(
                 pl.num_blocks, pl.rows, pl.iters, cap))
+    # K20's Heston leg is a split walk too, its six outputs an element
+    # folded once an iteration (its pairs by the scaled bound).
+    vhgp13 = kvarswap.heston_greek_params(h_vs, 13, dev)
+    split_contract(
+        "K20 Heston 13 dates",
+        lambda off, n, pl, cap=0: kvarswap.greek_partials(
+            vhgp13, SEED, off, pl, n, 13, scratch_cap=cap),
+        lambda off, n, pl: kvarswap.greek_plain_partials(vhgp13, SEED, off,
+                                                         pl, n, 13),
+        lambda pl, cap: _build.library().mctpu_varswap_greeks_scratch_floats(
+            pl.num_blocks, pl.rows, pl.iters, cap),
+        pairs=True)
     for n_obs, anti, kahan in ((13, False, True), (252, False, True),
                                (252, True, False)):
         plan = kvarswap.make_plan(nb * iters * rows * 128 * (2 if anti else 1),
@@ -3674,6 +3686,25 @@ def main() -> int:
                     kmw.partials(lt, par, scal, SEED, 0, plan, nb, product,
                                  mw_obs, up)),
                       f"K35 {tag}: price sums differ from K31's")
+    # K34 is a split walk, its 2 + 2a outputs an element folded once an
+    # iteration into add_greek_sums' row: at 3 assets up-and-out and 8
+    # down-and-out, 13 dates, its pairs by the scaled bound.
+    for a, up, h in ((3, True, 104.0), (8, False, 96.0)):
+        bk = BasketOption.equicorrelated(a, 0.3)
+        bops = tuple(x.to(dev) for x in kmw.am_bar_greek_ops(
+            bk, mcmath.cholesky_lower(bk.corr), mw_obs, h))
+        split_contract(
+            f"K34 a={a} {'up' if up else 'down'} H={h:g} {mw_obs} dates",
+            lambda off, n, pl, cap=0, o=bops, u=up: mw_pairs(
+                kmw.am_bar_greek_partials(*o, SEED, off, pl, n, mw_obs, u,
+                                          scratch_cap=cap)),
+            lambda off, n, pl, o=bops, u=up: mw_pairs(
+                kmw.am_bar_greek_plain_partials(*o, SEED, off, pl, n, mw_obs,
+                                                u)),
+            lambda pl, cap, a=a: _build.library()
+            .mctpu_multi_walk_bar_greeks_am_scratch_floats(
+                a, pl.num_blocks, pl.rows, pl.iters, cap),
+            pairs=True)
 
     # K33's register kernel (a_tile 16 at 9 and 16 assets, 32 at 17 and 32)
     # at 5 dates, plain and antithetic, Kahan on and off, against its plain
@@ -4363,13 +4394,19 @@ def main() -> int:
 
     # ---- 6. times at the phase-4 shapes ----------------------------------
     def median_ms(fn, reps=5):
+        """The median over ``reps`` calls of a call's CUDA-event time (its
+        launches on the device, and the host's time before its first
+        launch), each call alone on an idle device; the caller's comparison
+        run is the warm-up."""
         times = []
         for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            start.record()
             fn()
+            end.record()
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
+            times.append(start.elapsed_time(end))
         return statistics.median(times)
 
     kernels = []

@@ -98,18 +98,19 @@ _SIGNATURES = {
     # n_grid, n_blocks, rows, iters -> float count of K5's scratch (its
     # slices' sums)
     "mctpu_cva_greeks_scratch_floats": (_I, _I, _I, _I),
-    # The single-asset walks of the simple design (K9, K13, K16-K18, K20,
-    # K28, K46, K14's level walk): scal, n_obs (the cliquet's n_periods, the
+    # The single-asset walks of the simple design (K9, K13, K16-K18, K28,
+    # K46, K14's level walk): scal, n_obs (the cliquet's n_periods, the
     # Heston walk's n_steps, an MLMC level's fine step count), seed, off,
     # n_blocks, rows, iters, antithetic, kahan, mode (geometric Asian,
-    # up-and-out barrier, 2 * fixed + put for the lookback, the variance
-    # swap's Heston leg; 0 for the cliquet, K28 and K46), out, stream
+    # up-and-out barrier, 2 * fixed + put for the lookback; 0 for the
+    # cliquet, K28 and K46), out, stream
     **{name: (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
        for name in ("mctpu_asian", "mctpu_barrier_greeks",
                     "mctpu_lookback_greeks", "mctpu_cliquet",
-                    "mctpu_cliquet_greeks", "mctpu_varswap_greeks", "mctpu_heston_greeks",
+                    "mctpu_cliquet_greeks", "mctpu_heston_greeks",
                     "mctpu_asian_cv", "mctpu_barrier_level")},
-    # The split walks K10, K11, K12, K15, K19 and K27: scal, n_obs (K11's
+    # The split walks K10, K11, K12, K15, K19, K27 and K20 (its Heston leg;
+    # its GBM leg the simple design, no scratch): scal, n_obs (K11's
     # n_fine, K27's n_steps), seed, off, n_blocks, rows, iters, antithetic,
     # kahan, mode (geometric Asian, up-and-out barrier, 2 * fixed + put for
     # the lookback, the variance swap's Heston leg, the QE scheme), scratch
@@ -117,15 +118,16 @@ _SIGNATURES = {
     **{name: (_P,) + (_I,) * 10 + (_P, _P, _P)
        for name in ("mctpu_asian_greeks", "mctpu_asian_level",
                     "mctpu_barrier", "mctpu_lookback", "mctpu_varswap",
-                    "mctpu_heston")},
+                    "mctpu_heston", "mctpu_varswap_greeks")},
     # K29, the split Heston level walk: scal, n_fine, seed, off, n_blocks,
     # rows, iters, antithetic, kahan, scratch cap in floats, scratch, out,
     # stream
     "mctpu_heston_level": (_P,) + (_I,) * 9 + (_P, _P, _P),
     # n_blocks, rows, iters, cap -> float count of a split walk's scratch
-    # (its groups' outputs and fold carry): K10, K11, K12, K15, K19, K27,
-    # K29, K30
+    # (its groups' outputs and fold carry): K10, K11, K12, K15, K19, K20's
+    # Heston leg, K27, K29, K30
     **{name: (_I,) * 4 for name in ("mctpu_asian_greeks_scratch_floats",
+                                     "mctpu_varswap_greeks_scratch_floats",
                                      "mctpu_asian_level_scratch_floats",
                                      "mctpu_barrier_scratch_floats",
                                      "mctpu_lookback_scratch_floats",
@@ -154,9 +156,13 @@ _SIGNATURES = {
     "mctpu_multi_walk_packed": (_P, _P, _P) + (_I,) * 13 + (_P, _P),
     # K32: scal, lt, par; no flags.
     "mctpu_multi_walk_greeks_am": (_P, _P, _P) + (_I,) * 9 + (_P, _P),
-    # K34: scal, lt, linv, par; flag up.
-    "mctpu_multi_walk_bar_greeks_am": (_P, _P, _P, _P) + (_I,) * 10
-    + (_P, _P),
+    # K34: scal, lt, linv, par; flags up, scratch cap in floats; its
+    # scratch before out.
+    "mctpu_multi_walk_bar_greeks_am": (_P, _P, _P, _P) + (_I,) * 11
+    + (_P, _P, _P),
+    # n_assets, n_blocks, rows, iters, cap -> float count of K34's scratch
+    # (its groups' outputs and fold carry)
+    "mctpu_multi_walk_bar_greeks_am_scratch_floats": (_I,) * 5,
     # K33: scal, tj, lt, par; flags a_tile, width; out, vecs, stream.
     "mctpu_multi_walk_greeks_packed": (_P, _P, _P, _P) + (_I,) * 11
     + (_P, _P, _P),

@@ -460,16 +460,22 @@ inline ScratchGroups scratch_groups(int n_blocks, int iters, size_t carry,
 // over (iteration, element) and then write_block_sums' tree (PER_ITER
 // false, one output: K11, K12, K15, K19, K27, K29) or, output k by output
 // k, into v[2k], v[2k + 1] that BlockAccN reduces once per iteration
-// (PER_ITER true: K30, and K10 at 5 outputs).
+// (PER_ITER true: K30, K10 at 5 outputs, K20's Heston leg at 6, K34 at
+// 2 + 2a).  Under PER_ITER output k's two sums go to the slots
+// Walk::Slots names in the block's row (PairSlots, (2k, 2k + 1), unless
+// the Walk declares others: K34 keeps add_greek_sums' row), and
+// BlockAccN reduces each slot on its own, so the order of the slots does
+// not touch the bits.
 // So the block sums equal the unsplit kernel's bit for bit.  The scratch
 // is grouped under WALK_SCRATCH_CAP by scratch_groups, the fold's carry
-// (each thread's Acc2, or BlockAccN's pairs) kept between the groups.
+// (each thread's Acc2, or BlockAccN's slots) kept between the groups.
 //
 // A Walk provides Params (by value: pointers to its device operands and
 // ints), SHARED (floats it stages a CUDA block), MIN_BLOCKS (its
 // __launch_bounds__ occupancy), stage(P, sh) and either pay<ANTI>(P, sh,
 // key, e) -> its one output or, where it declares N_OUT > 1 outputs an
-// element, pay<ANTI>(P, sh, key, e, q) filling q[N_OUT].
+// element, pay<ANTI>(P, sh, key, e, q) filling q[N_OUT] (the antithetic
+// pair's mean 0.5 (q + m) under ANTI).
 constexpr int WALK_SPLIT_THREADS = 128;  // a (rows, 128) tile's row
 constexpr size_t WALK_SCRATCH_CAP = size_t{64} << 20;  // floats: 256 MB
 
@@ -488,6 +494,21 @@ struct WalkOutputs {
 template <class Walk>
 struct WalkOutputs<Walk, std::void_t<decltype(Walk::N_OUT)>> {
   static constexpr int N = Walk::N_OUT;
+};
+
+// The fold's slots of output k's (sum q, sum q^2) in a block's row: (2k,
+// 2k + 1) unless the Walk declares Slots.
+struct PairSlots {
+  __host__ __device__ static constexpr int sum(int k) { return 2 * k; }
+  __host__ __device__ static constexpr int sq(int k) { return 2 * k + 1; }
+};
+template <class Walk, class = void>
+struct WalkSlots {
+  using type = PairSlots;
+};
+template <class Walk>
+struct WalkSlots<Walk, std::void_t<typename Walk::Slots>> {
+  using type = typename Walk::Slots;
 };
 
 // Grid (nb * ni items, rows): CUDA block (item, row) walks the row's 128
@@ -523,7 +544,7 @@ __global__ void __launch_bounds__(WALK_SPLIT_THREADS, Walk::MIN_BLOCKS)
 }
 
 // Floats of a simulation block's fold carry between groups: BlockAccN's
-// (s, c) of each of 2 N_OUT sums, or each thread's Acc2.
+// (s, c) of each of 2 N_OUT slots, or each thread's Acc2.
 template <int THREADS, bool PER_ITER, int N_OUT = 1>
 __host__ __device__ constexpr size_t walk_carry() {
   return PER_ITER ? 4 * static_cast<size_t>(N_OUT)
@@ -564,8 +585,9 @@ __device__ __forceinline__ void fold_rows(const float* __restrict__ rows,
 }
 
 // Simulation block b0 + blockIdx.x of a group of ni iterations; out is
-// offset to b0's row (2 N_OUT sums a block).
-template <int THREADS, bool KAHAN, bool PER_ITER, int N_OUT = 1>
+// offset to b0's row (2 N_OUT sums a block, at Slots' places).
+template <int THREADS, bool KAHAN, bool PER_ITER, int N_OUT = 1,
+          class Slots = PairSlots>
 __global__ void __launch_bounds__(THREADS)
     walk_fold_kernel(const float* __restrict__ split,
                      float* __restrict__ carry, int n_elems, int ni,
@@ -592,8 +614,8 @@ __global__ void __launch_bounds__(THREADS)
         fold_rows<THREADS>(
             items + (static_cast<size_t>(il) * N_OUT + k) * n_elems, 1,
             n_elems, [&](float p) {
-              v[2 * k] = __fadd_rn(v[2 * k], p);
-              v[2 * k + 1] = __fadd_rn(v[2 * k + 1], __fmul_rn(p, p));
+              v[Slots::sum(k)] = __fadd_rn(v[Slots::sum(k)], p);
+              v[Slots::sq(k)] = __fadd_rn(v[Slots::sq(k)], __fmul_rn(p, p));
             });
       }
       acc.add(v, nullptr, sh);
@@ -660,8 +682,9 @@ int walk_split_launch(const typename Walk::Params& P, uint32_t seed,
                                                                   items);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
-      walk_fold_kernel<THREADS, KAHAN, PER_ITER, N_OUT><<<nb, THREADS, 0,
-                                                          s>>>(
+      walk_fold_kernel<THREADS, KAHAN, PER_ITER, N_OUT,
+                       typename WalkSlots<Walk>::type><<<nb, THREADS, 0,
+                                                         s>>>(
           items, carry, n_elems, ni, i0 == 0, i0 + ni >= iters,
           out + 2 * N_OUT * static_cast<size_t>(b0));
       err = cudaGetLastError();

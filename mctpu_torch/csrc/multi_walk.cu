@@ -50,16 +50,18 @@
 // Box-Muller pairs, a expf and the a(a+1)/2 multiply-adds of L z (twice
 // that for K34's and K35's L^-1 z), each a separate multiply and add here;
 // Philox's 32-bit multiplies (int32) bind K31 at 16 assets.
-// K30 is a split walk (mct::walk_split_kernel, csrc/common.cuh): one thread per
-// path element of every (simulation block, iteration) item walks both signs of
-// its path on one draw of each pair of dates, L and the per-asset rows staged
-// in shared memory, and writes its payoff; mct::walk_fold_kernel adds the
-// payoffs in the simple design's order (am_threads<A>() threads a simulation
-// block, BlockAccN per iteration), so its block sums are that design's bit for
-// bit.  The other kernels keep the simple design: one CUDA block per simulation
-// block.  Asset-major (K32, K34): one thread per path element striding over the
-// tile, the walk state in registers, L, L^-1 and the per-asset rows in shared
-// memory, per-iteration sums through mct::BlockAccN (4 + 4a of them).  Packed:
+// K30 and K34 are split walks (mct::walk_split_kernel, csrc/common.cuh): one
+// thread per path element of every (simulation block, iteration) item walks
+// both signs of its path on one draw of each pair of dates, L (and K34's
+// L^-1) and the per-asset rows staged in shared memory, and writes its payoff
+// (K34: its 2 + 2a outputs); mct::walk_fold_kernel adds them in the simple
+// design's order (am_threads<A>() threads a simulation block, BlockAccN per
+// iteration; K34's 4 + 4a sums in add_greek_sums' row), so their block sums
+// are that design's bit for bit.  The other kernels keep the simple design:
+// one CUDA block per simulation block.  Asset-major (K32): one thread per path
+// element striding over the tile, the walk state in registers, L and the
+// per-asset rows in shared memory, per-iteration sums through mct::BlockAccN
+// (4 + 4a of them).  Packed:
 // one thread per packed path (Packed's passes, set_chunk_even for K31).  Up to
 // 32 assets (a_tile 16 or 32) K31 keeps a path in its thread's registers: the
 // thread draws its own path's normals for a pair of dates (its lanes' Philox
@@ -366,107 +368,182 @@ void launch_greeks_am(bool anti, bool kahan, const float* scal,
 
 // ------------------------------------------------------- K34 (a <= 8)
 
-// One likelihood-ratio walk of tile element e and sign sgn; q gets [p, gr,
-// delta_0.., vega_0..] (mctpu's _am_bar_greek_payoff).  sc: k, t, H,
-// sqrt(dt); par rows 5..7: 1/v, 1/(s0 v sqrt(dt)), sqrt(dt)/v.
+// K34 is a split walk (mct::walk_split_kernel): AmBarGreekWalk walks tile
+// element e's path and writes its 2 + 2a outputs [p, gr, delta_0..,
+// vega_0..] (mctpu's _am_bar_greek_payoff), the antithetic pair's mean
+// under ANTI; mct::walk_fold_kernel adds them per iteration into
+// add_greek_sums' row [p, p2, gr, gr2, d.., d2.., v.., v2..] (BarGreekSlots)
+// at am_threads<A>() threads, the order of the simple design it replaced,
+// so its block sums are that design's bit for bit.
+
+// One sign's walk state: log-spots, the scores' first-date values, their
+// sums and the vega sums, the knock-out flag and the last basket value.
 template <int A>
-__device__ __forceinline__ void am_bar_greek_walk(
-    const float* lt, const float* linv, const float* par, const float* sc,
-    bool up, int n_obs, mct::Key key, uint32_t e, float sgn,
-    float (&q)[2 + 2 * A]) {
-  const float h = sc[2], sqdt = sc[3];
-  float x[A], qd[A], aq[A], avv[A];
+struct BarGreekState {
+  float x[A], qd[A], aq[A], av[A];
+  float alive, last;
+
+  __device__ __forceinline__ void init(const float* par) {
 #pragma unroll
-  for (int i = 0; i < A; ++i) {
-    x[i] = par[i];
-    qd[i] = aq[i] = avv[i] = 0.0f;
+    for (int i = 0; i < A; ++i) {
+      x[i] = par[i];
+      qd[i] = aq[i] = av[i] = 0.0f;
+    }
+    alive = 1.0f;
+    last = 0.0f;
   }
-  float alive = 1.0f, last = 0.0f;
-  mct::walk_pairwise_multi<A>(key, e, n_obs, [&](int j, const float(&z)[A]) {
+
+  // Date j on the normals sgn * z with the scores q (this sign's).  sc: k,
+  // t, H, sqrt(dt); par rows 5..7: 1/v, 1/(s0 v sqrt(dt)), sqrt(dt)/v.
+  __device__ __forceinline__ void date(int j, const float (&z)[A], float sgn,
+                                       const float (&q)[A], const float* lt,
+                                       const float* par, const float* sc,
+                                       bool up) {
     float bt[A], s[A];
     const float basket = am_core<A>(z, sgn, x, lt, par, bt, s);
 #pragma unroll
     for (int m = 0; m < A; ++m) {
-      float qm = linv[m * A + m] * (sgn * z[m]);
-#pragma unroll
-      for (int jj = m + 1; jj < A; ++jj) {
-        qm = qm + linv[jj * A + m] * (sgn * z[jj]);
-      }
-      if (j == 0) qd[m] = qm;
-      aq[m] = aq[m] + qm;
-      avv[m] = avv[m] + qm * (bt[m] * par[5 * A + m] - sqdt);
+      if (j == 0) qd[m] = q[m];
+      aq[m] = aq[m] + q[m];
+      av[m] = av[m] + q[m] * (bt[m] * par[5 * A + m] - sc[3]);
     }
-    alive = knock(alive, basket, h, up);
+    alive = knock(alive, basket, sc[2], up);
     last = basket;
-  });
-  const float k = sc[0], t = sc[1];
-  const float p = alive * fmaxf(last - k, 0.0f);
-  float score_r = aq[0] * par[7 * A];
+  }
+
+  // The path's [p, gr, delta_0.., vega_0..].
+  __device__ __forceinline__ void pay(const float* par, const float* sc,
+                                      int n_obs, float (&q)[2 + 2 * A]) const {
+    const float k = sc[0], t = sc[1];
+    const float p = alive * fmaxf(last - k, 0.0f);
+    float score_r = aq[0] * par[7 * A];
 #pragma unroll
-  for (int m = 1; m < A; ++m) score_r = score_r + aq[m] * par[7 * A + m];
-  q[0] = p;
-  q[1] = p * score_r - t * p;
-  const float n = static_cast<float>(n_obs);
+    for (int m = 1; m < A; ++m) score_r = score_r + aq[m] * par[7 * A + m];
+    q[0] = p;
+    q[1] = p * score_r - t * p;
+    const float n = static_cast<float>(n_obs);
+#pragma unroll
+    for (int m = 0; m < A; ++m) {
+      q[2 + m] = p * qd[m] * par[6 * A + m];
+      q[2 + A + m] = p * (av[m] - n * par[5 * A + m]);
+    }
+  }
+};
+
+// The scores q_m = sum_{j >= m} Linv[j, m] z_j of the draw z (the plus
+// sign's; the mirror's are their negations, exactly: each product and sum
+// of -z rounds to the negation, up to the sign of a zero, which no output
+// reads but as a zero).
+template <int A>
+__device__ __forceinline__ void bar_scores(const float (&z)[A],
+                                           const float* linv, float (&q)[A]) {
 #pragma unroll
   for (int m = 0; m < A; ++m) {
-    q[2 + m] = p * qd[m] * par[6 * A + m];
-    q[2 + A + m] = p * (avv[m] - n * par[5 * A + m]);
+    float qm = linv[m * A + m] * z[m];
+#pragma unroll
+    for (int jj = m + 1; jj < A; ++jj) qm = qm + linv[jj * A + m] * z[jj];
+    q[m] = qm;
   }
 }
 
-template <int A, bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(am_threads<A>())
-    mw_bar_greeks_am_kernel(const float* __restrict__ scal,
-                            const float* __restrict__ lt_g,
-                            const float* __restrict__ linv_g,
-                            const float* __restrict__ par_g, int up, Launch g,
-                            float* __restrict__ out) {
-  constexpr int THREADS = am_threads<A>();
-  constexpr int N = 4 + 4 * A;
-  __shared__ float lt[A * A], linv[A * A], par[8 * A], sc[4];
-  __shared__ float sh[(THREADS / 32) * N];
-  stage<THREADS>(lt, lt_g, A * A);
-  stage<THREADS>(linv, linv_g, A * A);
-  stage<THREADS>(par, par_g, 8 * A);
-  stage<THREADS>(sc, scal, 4);
-  __syncthreads();
-  const int n_elems = g.rows * mct::LANES;
-  mct::BlockAccN<THREADS, N, KAHAN> acc;
-  float v[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = 0.0f;
-  for (int i = 0; i < g.iters; ++i) {
-    const mct::Key key = iter_key(g, i);
-    for (int e = threadIdx.x; e < n_elems; e += THREADS) {
-      const uint32_t u = static_cast<uint32_t>(e);
-      float q[2 + 2 * A];
-      am_bar_greek_walk<A>(lt, linv, par, sc, up, g.n_obs, key, u, 1.0f, q);
-      if (ANTI) {
-        float m[2 + 2 * A];
-        am_bar_greek_walk<A>(lt, linv, par, sc, up, g.n_obs, key, u, -1.0f,
-                             m);
-        mirror_mean<A>(q, m);
-      }
-      add_greek_sums<A>(q, v);
-    }
-    acc.add(v, nullptr, sh);
+// add_greek_sums' row: the two scalars' pairs first, then the deltas'
+// sums, their squares, the vegas' sums and their squares.
+template <int A>
+struct BarGreekSlots {
+  __host__ __device__ static constexpr int sum(int k) {
+    return k < 2 ? 2 * k : k < 2 + A ? 2 + k : 2 + A + k;
   }
-  acc.write(out);
+  __host__ __device__ static constexpr int sq(int k) {
+    return k < 2 ? 2 * k + 1 : k < 2 + A ? 2 + A + k : 2 + 2 * A + k;
+  }
+};
+
+struct BarGreekParams {
+  const float *scal, *lt, *linv, *par;
+  int up, n_obs;
+};
+
+// Both signs of a path a thread on one draw of each pair of dates, the
+// mirror's am_core recomputed (bt starts from d_i, so it is no negation)
+// and its scores negated.  (One (sign, path) item a thread, each drawing
+// its path, came out 1.8-2.2x slower under antithetic at 3-8 assets on
+// the H100: the draws bind, not the registers.)
+template <int A, bool ANTI_>
+struct AmBarGreekWalk {
+  using Params = BarGreekParams;
+  using Slots = BarGreekSlots<A>;
+  static constexpr int N_OUT = 2 + 2 * A;
+  static constexpr int SHARED = 2 * A * A + 8 * A + 4;
+  // CUDA blocks an SM: one sign a thread, 32 warps at 64 registers up to 2
+  // assets, 24 at 80 up to 4, 16 at 128 past them; both signs, 24 warps at
+  // 80 up to 2 assets, 16 at 128 up to 6, 12 at 168 at 7 and 8, whose two
+  // states spill at 128 (on the H100 12 warps were 3-4.5% slower at 6 and
+  // 8 assets plain and at 6 antithetic, 8% faster at 8 antithetic).
+  static constexpr int MIN_BLOCKS =
+      ANTI_ ? (A <= 2 ? 6 : A <= 6 ? 4 : 3) : (A <= 2 ? 8 : A <= 4 ? 6 : 4);
+
+  __device__ static void stage(const Params& P, float* sh) {
+    for (int t = threadIdx.x; t < SHARED; t += blockDim.x) {
+      sh[t] = t < A * A       ? P.lt[t]
+              : t < 2 * A * A ? P.linv[t - A * A]
+              : t < 2 * A * A + 8 * A ? P.par[t - 2 * A * A]
+                                      : P.scal[t - 2 * A * A - 8 * A];
+    }
+  }
+
+  template <bool ANTI>
+  __device__ static void pay(const Params& P, const float* sh, mct::Key key,
+                             uint32_t e, float (&q)[N_OUT]) {
+    const float *lt = sh, *linv = sh + A * A, *par = sh + 2 * A * A;
+    const float* sc = par + 8 * A;
+    const bool up = P.up != 0;
+    BarGreekState<A> st, mi;
+    st.init(par);
+    if (ANTI) mi.init(par);
+    mct::walk_pairwise_multi<A>(key, e, P.n_obs,
+                                [&](int j, const float(&z)[A]) {
+      float qs[A];
+      bar_scores<A>(z, linv, qs);
+      st.date(j, z, 1.0f, qs, lt, par, sc, up);
+      if (ANTI) {
+#pragma unroll
+        for (int m = 0; m < A; ++m) qs[m] = -qs[m];
+        mi.date(j, z, -1.0f, qs, lt, par, sc, up);
+      }
+    });
+    st.pay(par, sc, P.n_obs, q);
+    if (ANTI) {
+      float m[N_OUT];
+      mi.pay(par, sc, P.n_obs, m);
+      mirror_mean<A>(q, m);
+    }
+  }
+};
+
+// K34's split walk and its fold (am_threads<A>() threads, per iteration,
+// add_greek_sums' row).
+template <int A, bool ANTI, bool KAHAN>
+int walk_bar_greeks_am(const BarGreekParams& P, const Launch& g,
+                       int n_blocks, size_t cap, float* scratch, float* out,
+                       cudaStream_t s) {
+  return mct::walk_split_launch<AmBarGreekWalk<A, ANTI>, am_threads<A>(),
+                                true, ANTI, KAHAN>(P, g.seed, g.off,
+                                                   n_blocks, g.rows, g.iters,
+                                                   cap, scratch, out, s);
 }
 
 template <int A>
-void launch_bar_greeks_am(bool anti, bool kahan, const float* scal,
-                          const float* lt, const float* linv,
-                          const float* par, int up, const Launch& g,
-                          int n_blocks, float* out, cudaStream_t s) {
-  using Fn = void (*)(const float*, const float*, const float*, const float*,
-                      int, Launch, float*);
-  static const Fn FNS[4] = {mw_bar_greeks_am_kernel<A, false, false>,
-                         mw_bar_greeks_am_kernel<A, false, true>,
-                         mw_bar_greeks_am_kernel<A, true, false>,
-                         mw_bar_greeks_am_kernel<A, true, true>};
-  const Fn fn = FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)];
-  fn<<<n_blocks, am_threads<A>(), 0, s>>>(scal, lt, linv, par, up, g, out);
+int launch_bar_greeks_am(bool anti, bool kahan, const BarGreekParams& P,
+                         const Launch& g, int n_blocks, size_t cap,
+                         float* scratch, float* out, cudaStream_t s) {
+  using Fn = int (*)(const BarGreekParams&, const Launch&, int, size_t,
+                     float*, float*, cudaStream_t);
+  static const Fn FNS[4] = {walk_bar_greeks_am<A, false, false>,
+                            walk_bar_greeks_am<A, false, true>,
+                            walk_bar_greeks_am<A, true, false>,
+                            walk_bar_greeks_am<A, true, true>};
+  return FNS[(anti ? 2 : 0) | (kahan ? 1 : 0)](P, g, n_blocks, cap, scratch,
+                                                out, s);
 }
 
 // --------------------------------------------------------- K31 (a > 8)
@@ -1682,18 +1759,37 @@ extern "C" int mctpu_multi_walk_greeks_am(const float* scal, const float* lt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Floats of scratch a K34 launch takes (cap: at most this many, 0 for 256
+// MB; past it the blocks and iterations go in groups).
+extern "C" int mctpu_multi_walk_bar_greeks_am_scratch_floats(int n_assets,
+                                                            int n_blocks,
+                                                            int rows,
+                                                            int iters,
+                                                            int cap) {
+  size_t total = 0;
+#define MCT_CALL(A)                                                  \
+  total = mct::walk_groups<am_threads<A>(), true, 2 + 2 * A>(        \
+              n_blocks, rows, iters, static_cast<size_t>(cap)).total
+  MCT_DISPATCH_A(MCT_CALL)
+#undef MCT_CALL
+  return static_cast<int>(total);
+}
+
 extern "C" int mctpu_multi_walk_bar_greeks_am(
     const float* scal, const float* lt, const float* linv, const float* par,
     int n_assets, int n_obs, int seed, int off, int n_blocks, int rows,
-    int iters, int antithetic, int kahan, int up, float* out, void* stream) {
+    int iters, int antithetic, int kahan, int up, int cap, float* scratch,
+    float* out, void* stream) {
   const Launch g = make_launch(n_obs, seed, off, rows, iters);
+  const BarGreekParams P{scal, lt, linv, par, up, n_obs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MCT_CALL(A)                                                          \
-  launch_bar_greeks_am<A>(antithetic != 0, kahan != 0, scal, lt, linv, par, \
-                          up, g, n_blocks, out, s)
+  int err = 0;
+#define MCT_CALL(A)                                                         \
+  err = launch_bar_greeks_am<A>(antithetic != 0, kahan != 0, P, g, n_blocks, \
+                                static_cast<size_t>(cap), scratch, out, s)
   MCT_DISPATCH_A(MCT_CALL)
 #undef MCT_CALL
-  return static_cast<int>(cudaGetLastError());
+  return err;
 }
 
 extern "C" int mctpu_multi_walk_greeks_packed(

@@ -22,9 +22,8 @@
 // S0) (K19); K20 steps mct::heston_greek_step (K28's tangents) and also sums
 // lr and 2 lr (al_p,new - al_p) per parameter p = v0, theta, kappa, xi, and
 // pays (rv, dv0, dtheta, dkappa, dxi, rho = (2 dt / T) sum lr), each over T
-// (mctpu's _heston_greek_walk).  K20's antithetic mirror reseeds and
-// replays the draws with -z, as the JAX kernel does; K19's steps both signs
-// on one draw, as GBM.
+// (mctpu's _heston_greek_walk).  Both step both signs on one draw, as
+// GBM (the JAX kernels reseed and draw again for the mirror).
 //
 // Built with -fmad=false (mctpu_torch/_build.py), as every walk: a
 // contracted drift + vol * z would round each log-return otherwise than the
@@ -43,9 +42,12 @@
 // to scratch, and a fold of THREADS threads a simulation block in the
 // order of the simple design it replaced (each thread's mct::Acc2 over its
 // elements t, t + THREADS, .. iteration by iteration, then the block's
-// tree), so its block sums are that design's bit for bit.  K20 keeps the
-// simple design, as K13: one CUDA block per simulation block, one thread
-// per path element striding over the (rows, 128) tile, state in registers,
+// tree), so its block sums are that design's bit for bit.  K20's Heston
+// leg is a split walk too, its six outputs an element folded by
+// GREEK_THREADS threads a block into its (sum, sum^2) pairs, BlockAccN per
+// iteration (the simple design's order).  K20's GBM leg keeps the simple
+// design, as K13: one CUDA block per simulation block, one thread per path
+// element striding over the (rows, 128) tile, state in registers,
 // mct::BlockAccN per iteration.  No atomics: two launches give the same
 // bits.
 #include "common.cuh"
@@ -55,7 +57,6 @@ namespace {
 constexpr int THREADS = 1024;        // K19
 constexpr int GREEK_THREADS = 512;   // K20
 constexpr int N_SUMS = 8;            // (sum, sum^2) of rv, vega, rho, theta
-constexpr int N_SUMS_HESTON = 12;    // of rv, dv0, dtheta, dkappa, dxi, rho
 
 // K19: the realized variance of tile element e's path (the antithetic
 // pair's mean when ANTI).
@@ -219,20 +220,29 @@ struct HestonGreekScal {
   float half_dt, dt;
 };
 
-// One K20 Heston walk of tile element e; q[] gets (rv, dv0, dtheta, dkappa,
-// dxi, rho).
-__device__ __forceinline__ void heston_greek_walk(const HestonGreekScal& c,
-                                                  int n_obs, mct::Key key,
-                                                  uint32_t e, float sgn,
-                                                  float (&q)[6]) {
-  float x = 0.0f, v = c.v0, acc2 = 0.0f, acc1 = 0.0f;
-  float tg[8] = {0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mct::walk_steps(key, e, n_obs, [&](int, float z_v, float z_perp) {
+// One sign's K20 Heston walk state: (x, v), K28's tangent pairs tg, the
+// sums of lr^2 and lr, and of 2 lr (al_p,new - al_p) per parameter p.
+struct HestonGreekState {
+  float x, v, acc2, acc1;
+  float tg[8];
+  float dacc[4];
+
+  __device__ __forceinline__ void init(float v0) {
+    x = 0.0f;
+    v = v0;
+    acc2 = acc1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tg[i] = i == 1 ? 1.0f : 0.0f;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) dacc[p] = 0.0f;
+  }
+
+  // One date on the normals (z_v, z_perp) of this sign.
+  __device__ __forceinline__ void step(const HestonGreekScal& c, float z_v,
+                                       float z_perp) {
     const float x_old = x;
     const float al_old[4] = {tg[0], tg[2], tg[4], tg[6]};
-    mct::heston_greek_step(c.h, c.half_dt, c.dt, sgn * z_v, sgn * z_perp, x,
-                           v, tg);
+    mct::heston_greek_step(c.h, c.half_dt, c.dt, z_v, z_perp, x, v, tg);
     const float lr = x - x_old;
     const float two_lr = 2.0f * lr;
 #pragma unroll
@@ -241,66 +251,89 @@ __device__ __forceinline__ void heston_greek_walk(const HestonGreekScal& c,
     }
     acc2 = acc2 + lr * lr;
     acc1 = acc1 + lr;
-  });
-  q[0] = acc2 * c.inv_t;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) q[1 + p] = dacc[p] * c.inv_t;
-  q[5] = ((2.0f * c.dt) * c.inv_t) * acc1;
-}
+  }
 
-template <bool ANTI, bool KAHAN>
-__global__ void __launch_bounds__(GREEK_THREADS)
-    varswap_heston_greeks_kernel(const float* __restrict__ scal, int n_obs,
-                                 uint32_t seed, uint32_t off, int n_elems,
-                                 int iters, float* __restrict__ out) {
-  __shared__ float sh[(GREEK_THREADS / 32) * N_SUMS_HESTON];
-  const HestonGreekScal c{scal[0], scal[1], mct::heston_consts(scal + 2),
-                          scal[9], scal[10]};
-  mct::BlockAccN<GREEK_THREADS, N_SUMS_HESTON, KAHAN> acc;
-  float vs[N_SUMS_HESTON];
+  // (rv, dv0, dtheta, dkappa, dxi, rho).
+  __device__ __forceinline__ void pay(const HestonGreekScal& c,
+                                      float (&q)[6]) const {
+    q[0] = acc2 * c.inv_t;
 #pragma unroll
-  for (int j = 0; j < N_SUMS_HESTON; ++j) vs[j] = 0.0f;
-  for (int i = 0; i < iters; ++i) {
-    const uint32_t word = (off + blockIdx.x) * static_cast<uint32_t>(iters) +
-                          static_cast<uint32_t>(i);
-    const mct::Key key = mct::seed_key(seed, word);
-    for (int e = threadIdx.x; e < n_elems; e += GREEK_THREADS) {
-      float q[6];
-      heston_greek_walk(c, n_obs, key, static_cast<uint32_t>(e), 1.0f, q);
-      if (ANTI) {
-        float m[6];
-        heston_greek_walk(c, n_obs, key, static_cast<uint32_t>(e), -1.0f, m);
+    for (int p = 0; p < 4; ++p) q[1 + p] = dacc[p] * c.inv_t;
+    q[5] = ((2.0f * c.dt) * c.inv_t) * acc1;
+  }
+};
+
+// K20's Heston leg as a split walk (mct::walk_split_kernel): tile element
+// e walks its n_obs dates, drawing each Philox block once; under ANTI
+// both signs' states advance on that draw, the mirror's normals -z_v and
+// -z_perp (exactly the simple design's sgn * z), and the element's six
+// outputs are the pair's means 0.5 (q + m).  Its fold is
+// walk_fold_kernel<GREEK_THREADS, KAHAN, true, 6>: the simple design's
+// per-thread (sum q_k, sum q_k^2) pairs, BlockAccN per iteration.  (One
+// (sign, path) item a thread, each drawing its path, came out 1.45x
+// slower under antithetic on the H100.)
+template <bool ANTI_>
+struct VarswapHestonGreekWalk {
+  struct Params {
+    const float* scal;
+    int n_obs;
+  };
+  static constexpr int N_OUT = 6;
+  static constexpr int SHARED = 11;  // HESTON_GREEK_SCAL
+  // 32 warps an SM at 64 registers; both signs' 32 floats of state at up
+  // to 96 (72 taken: 28 warps).
+  static constexpr int MIN_BLOCKS = ANTI_ ? 5 : 8;
+
+  __device__ static void stage(const Params& P, float* sh) {
+    if (threadIdx.x < SHARED) sh[threadIdx.x] = P.scal[threadIdx.x];
+  }
+
+  __device__ static HestonGreekScal scal(const float* sh) {
+    return HestonGreekScal{sh[0], sh[1], mct::heston_consts(sh + 2), sh[9],
+                           sh[10]};
+  }
+
+  template <bool ANTI>
+  __device__ static void pay(const Params& P, const float* sh, mct::Key key,
+                             uint32_t e, float (&q)[N_OUT]) {
+    const HestonGreekScal c = scal(sh);
+    HestonGreekState st, mi;
+    st.init(c.v0);
+    if (ANTI) mi.init(c.v0);
+    mct::walk_steps(key, e, P.n_obs, [&](int, float z_v, float z_perp) {
+      st.step(c, z_v, z_perp);
+      if (ANTI) mi.step(c, -z_v, -z_perp);
+    });
+    st.pay(c, q);
+    if (ANTI) {
+      float m[N_OUT];
+      mi.pay(c, m);
 #pragma unroll
-        for (int j = 0; j < 6; ++j) q[j] = 0.5f * (q[j] + m[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        vs[2 * j] += q[j];
-        vs[2 * j + 1] += q[j] * q[j];
-      }
+      for (int j = 0; j < N_OUT; ++j) q[j] = 0.5f * (q[j] + m[j]);
     }
-    acc.add(vs, nullptr, sh);
   }
-  acc.write(out);
-}
+};
 
+// K20: the GBM leg on the simple design, the Heston leg as a split walk
+// and its fold (cap and scratch its groups').
 template <bool ANTI, bool KAHAN>
-void launch_greeks(const float* scal, int n_obs, uint32_t seed, uint32_t off,
-                   int n_blocks, int n_elems, int iters, int heston,
-                   float* out, cudaStream_t stream) {
+int launch_greeks(const float* scal, int n_obs, uint32_t seed, uint32_t off,
+                  int n_blocks, int rows, int iters, int heston, size_t cap,
+                  float* scratch, float* out, cudaStream_t stream) {
   if (heston) {
-    varswap_heston_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
-                                                stream>>>(
-        scal, n_obs, seed, off, n_elems, iters, out);
-  } else {
-    varswap_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
-                                         stream>>>(scal, n_obs, seed, off,
-                                                   n_elems, iters, out);
+    using Walk = VarswapHestonGreekWalk<ANTI>;
+    return mct::walk_split_launch<Walk, GREEK_THREADS, true, ANTI, KAHAN>(
+        typename Walk::Params{scal, n_obs}, seed, off, n_blocks, rows, iters,
+        cap, scratch, out, stream);
   }
+  varswap_greeks_kernel<ANTI, KAHAN><<<n_blocks, GREEK_THREADS, 0,
+                                       stream>>>(
+      scal, n_obs, seed, off, rows * mct::LANES, iters, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
-using GreekFn = void (*)(const float*, int, uint32_t, uint32_t, int, int,
-                         int, int, float*, cudaStream_t);
+using GreekFn = int (*)(const float*, int, uint32_t, uint32_t, int, int, int,
+                        int, size_t, float*, float*, cudaStream_t);
 
 // Indexed by antithetic << 1 | kahan.
 constexpr GreekFn GREEK_LAUNCHERS[4] = {
@@ -361,17 +394,30 @@ extern "C" int mctpu_varswap(const float* scal, int n_obs, int seed, int off,
                              static_cast<cudaStream_t>(stream));
 }
 
+// Floats of scratch a K20 Heston launch takes (cap: at most this many, 0
+// for 256 MB; past it the blocks and iterations go in groups); the GBM
+// leg takes none.
+extern "C" int mctpu_varswap_greeks_scratch_floats(int n_blocks, int rows,
+                                                   int iters, int cap) {
+  return static_cast<int>(
+      mct::walk_groups<GREEK_THREADS, true,
+                       VarswapHestonGreekWalk<true>::N_OUT>(
+          n_blocks, rows, iters, static_cast<size_t>(cap))
+          .total);
+}
+
 // mode 0 (GBM): scal (1/t, drift, vol, v, dt) -> out (n_blocks, 8); mode 1
 // (Heston): scal (1/t, v0, kappa dt, theta, xi, rho, sqrt(1 - rho^2), r dt,
-// sqrt(dt), dt / 2, dt) -> out (n_blocks, 12).
+// sqrt(dt), dt / 2, dt) -> out (n_blocks, 12), the split walk and its fold,
+// scratch of mctpu_varswap_greeks_scratch_floats(.., cap) floats.
 extern "C" int mctpu_varswap_greeks(const float* scal, int n_obs, int seed,
                                     int off, int n_blocks, int rows, int iters,
                                     int antithetic, int kahan, int mode,
-                                    float* out, void* stream) {
+                                    int cap, float* scratch, float* out,
+                                    void* stream) {
   const int idx = (antithetic ? 2 : 0) | (kahan ? 1 : 0);
-  GREEK_LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
-                       static_cast<uint32_t>(off), n_blocks,
-                       rows * mct::LANES, iters, mode, out,
-                       static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return GREEK_LAUNCHERS[idx](scal, n_obs, static_cast<uint32_t>(seed),
+                              static_cast<uint32_t>(off), n_blocks, rows,
+                              iters, mode, static_cast<size_t>(cap), scratch,
+                              out, static_cast<cudaStream_t>(stream));
 }

@@ -464,8 +464,9 @@ def _split_scratch_floats(entry: str, n_blocks: int, rows: int, iters: int,
 def launch_split_walk(entry: str, scal: torch.Tensor, n_scal: int,
                       n_out: int, seed: int, block_offset: int, plan: Plan,
                       n_blocks: int, n_obs: int, mode: int | None,
-                      scratch_cap: int = 0) -> torch.Tensor:
-    """Launch a split walk (K10, K11, K12, K15, K19, K27, K29:
+                      scratch_cap: int = 0,
+                      scratch_floats: int | None = None) -> torch.Tensor:
+    """Launch a split walk (K10, K11, K12, K15, K19, K20, K27, K29:
     ``csrc/common.cuh``'s ``walk_split_launch``, a thread per path element
     and a fold in the simple design's order) on ``scal``'s device and
     return its ``(n_blocks, n_out)`` partials, the scratch that ``entry``
@@ -476,7 +477,9 @@ def launch_split_walk(entry: str, scal: torch.Tensor, n_scal: int,
     where the entry takes none (K29);
     ``scratch_cap``: the scratch in floats at most (0: 256 MB), past which
     the simulation blocks and iterations go in groups, the outputs the
-    same.  Raises on a bad operand or a failed launch."""
+    same; ``scratch_floats``, where given, sizes the scratch instead (0 for
+    K20's GBM leg, which takes none).  Raises on a bad operand or a failed
+    launch."""
     check_operand("scal", scal, (n_scal,), scal.device)
     if n_blocks < 1:
         raise ValueError("n_blocks must be >= 1")
@@ -489,10 +492,11 @@ def launch_split_walk(entry: str, scal: torch.Tensor, n_scal: int,
     with torch.cuda.device(scal.device):
         out = torch.empty((n_blocks, n_out), dtype=torch.float32,
                           device=scal.device)
-        scratch = torch.empty(
-            _split_scratch_floats(entry, n_blocks, plan.rows, plan.iters,
-                                  scratch_cap),
-            dtype=torch.float32, device=scal.device)
+        if scratch_floats is None:
+            scratch_floats = _split_scratch_floats(entry, n_blocks, plan.rows,
+                                                   plan.iters, scratch_cap)
+        scratch = torch.empty(scratch_floats, dtype=torch.float32,
+                              device=scal.device)
         status = getattr(lib, entry)(
             scal.data_ptr(), n_obs, wrap_int32(seed),
             wrap_int32(block_offset), n_blocks, plan.rows, plan.iters,

@@ -633,12 +633,24 @@ def am_bar_greek_plain_partials(scal: torch.Tensor, lt: torch.Tensor,
         lt.shape[0], seed, block_offset, plan, n_blocks, lt.device)
 
 
+@functools.lru_cache(maxsize=64)
+def _bar_greek_scratch_floats(a: int, n_blocks: int, rows: int, iters: int,
+                              cap: int) -> int:
+    """Floats of scratch a K34 launch takes (its groups' outputs and the
+    fold's carry; a function of the plan alone)."""
+    return _build.library().mctpu_multi_walk_bar_greeks_am_scratch_floats(
+        a, n_blocks, rows, iters, cap)
+
+
 def am_bar_greek_partials(scal: torch.Tensor, lt: torch.Tensor,
                           linv: torch.Tensor, par: torch.Tensor, seed: int,
                           block_offset: int, plan: Plan, n_blocks: int,
-                          n_obs: int, up: bool):
-    """K34's ``((B, 4), (B, 4, a))`` partials: the kernel for CUDA operands,
-    the plain version for CPU operands; other devices raise."""
+                          n_obs: int, up: bool, scratch_cap: int = 0):
+    """K34's ``((B, 4), (B, 4, a))`` partials: the kernel (a split walk and
+    its fold, ``scratch_cap`` floats of scratch at most, 0 for 256 MB, past
+    which it splits and folds simulation blocks and iterations in groups;
+    the outputs do not depend on it) for CUDA operands, the plain version
+    for CPU operands whatever the cap; other devices raise."""
     a = lt.shape[0]
     _check_am(a)
     dev = lt.device
@@ -651,10 +663,13 @@ def am_bar_greek_partials(scal: torch.Tensor, lt: torch.Tensor,
     for name, x, shape in (("scal", scal, (4,)), ("lt", lt, (a, a)),
                            ("linv", linv, (a, a)), ("par", par, (8, a))):
         check_operand(name, x, shape, dev)
+    floats = _bar_greek_scratch_floats(a, max(n_blocks, 1), plan.rows,
+                                       plan.iters, scratch_cap)
     out = _launch("mctpu_multi_walk_bar_greeks_am",
                   (scal.data_ptr(), lt.data_ptr(), linv.data_ptr(),
                    par.data_ptr()), a, N_GREEK_SCALARS + 4 * a, seed,
-                  block_offset, plan, n_blocks, n_obs, (up,), dev)
+                  block_offset, plan, n_blocks, n_obs, (up, scratch_cap), dev,
+                  scratch_floats=floats)
     LAUNCHES["basket_barrier_greeks_am"] += 1
     return split_vec(out, a)
 

@@ -23,8 +23,8 @@ import torch
 
 from mctpu_torch.kernels import heston as kheston
 from mctpu_torch.kernels.common import (Plan, f32, launch_split_walk,
-                                        launch_walk, sqrt32, walk_pairwise,
-                                        walk_partials, walk_steps)
+                                        sqrt32, walk_pairwise, walk_partials,
+                                        walk_steps)
 from mctpu_torch.kernels.common import walk_plan as make_plan
 from mctpu_torch.models import asian as masian
 from mctpu_torch.models import heston as mheston
@@ -227,17 +227,21 @@ def greek_plain_partials(gp: torch.Tensor, seed: int, block_offset: int,
 
 
 def greek_partials(gp: torch.Tensor, seed: int, block_offset: int,
-                   plan: Plan, n_blocks: int, n_obs: int) -> torch.Tensor:
+                   plan: Plan, n_blocks: int, n_obs: int,
+                   scratch_cap: int = 0) -> torch.Tensor:
     """Greek partials, ``(n_blocks, 8)`` GBM or ``(n_blocks, 12)`` Heston:
-    K20 for a CUDA ``gp``, the plain version for a CPU ``gp``; other
-    devices raise."""
+    K20 for a CUDA ``gp`` (the Heston leg a split walk and its fold,
+    ``scratch_cap`` floats of scratch at most, 0 for 256 MB, the outputs
+    the same; the GBM leg takes no scratch), the plain version for a CPU
+    ``gp`` whatever the cap; other devices raise."""
     if gp.device.type == "cuda":
         heston = _is_heston(gp, HESTON_GREEK_SCAL)
         names = HESTON_GREEK_SCAL if heston else GBM_GREEK_SCAL
         n_sums = N_GREEK_SUMS_HESTON if heston else N_GREEK_SUMS_GBM
-        out = launch_walk("mctpu_varswap_greeks", gp, len(names), n_sums,
-                          seed, block_offset, plan, n_blocks, n_obs,
-                          int(heston))
+        out = launch_split_walk("mctpu_varswap_greeks", gp, len(names),
+                                n_sums, seed, block_offset, plan, n_blocks,
+                                n_obs, int(heston), scratch_cap,
+                                scratch_floats=None if heston else 0)
         LAUNCHES["varswap_heston_greeks" if heston else "varswap_greeks"] += 1
         return out
     if gp.device.type == "cpu":

@@ -719,7 +719,7 @@ def test_heston_kernels_match_plain(dev, name, n_steps, antithetic):
 
 
 # K19/K20's Heston leg at 1, 13 and the default 252 dates, 2 iterations a
-# block (K19 a split walk, K20 the simple design).
+# block (K19 and K20's Heston leg split walks).
 @pytest.mark.parametrize("n_obs", [1, 13, 252])
 @pytest.mark.parametrize("antithetic", [False, True])
 def test_varswap_heston_kernels_match_plain(dev, n_obs, antithetic):
@@ -2143,6 +2143,108 @@ def test_asian_greeks_and_heston_split_grouped_scratch(dev, name,
         got = fn(0, NB, plan, cap)
         assert counts[key] == before + 1
         assert torch.equal(got, want), cap
+
+
+# K20's Heston leg and K34 are split walks whose folds add several outputs
+# an element once an iteration (K34's in add_greek_sums' row order).
+@pytest.mark.parametrize("shape", sorted(_SPLIT_SHAPES))
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_varswap_heston_greeks_split_match_plain(dev, shape, antithetic):
+    """K20's Heston leg at 13 dates on the MLMC 8 x 8 plan's shape and on
+    short rows against its plain version by the scaled pair bound; two
+    launches and the block offset bitwise; a call counts one launch."""
+    blocks, iters, rows, kahan = _SPLIT_SHAPES[shape]
+    plan = kvarswap.make_plan(
+        blocks * iters * rows * 128 * (2 if antithetic else 1), blocks, rows,
+        antithetic, kahan)
+    assert (plan.num_blocks, plan.iters, plan.rows) == (blocks, iters, rows)
+    gp = kvarswap.heston_greek_params(_HESTON["steep"], 13, dev)
+    _contract(lambda off, nb: kvarswap.greek_partials(gp, SEED, off, plan, nb,
+                                                      13),
+              lambda off, nb: kvarswap.greek_plain_partials(gp, SEED, off,
+                                                            plan, nb, 13),
+              n_blocks=blocks, units=_units(plan))
+    before = dict(kvarswap.LAUNCHES)
+    kvarswap.greek_partials(gp, SEED, 0, plan, blocks, 13)
+    assert (kvarswap.LAUNCHES["varswap_heston_greeks"]
+            == before["varswap_heston_greeks"] + 1)
+    assert sum(kvarswap.LAUNCHES.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("n_obs", [1, 13, 252])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_varswap_heston_greeks_grouped_scratch(dev, n_obs, antithetic):
+    """K20's Heston leg under a forced small scratch cap: at 1 float every
+    (block, iteration) is split and folded on its own (the fold's BlockAccN
+    slots carried between the groups), at half the one-group scratch the
+    blocks go in groups; both equal the one-group launch bit for bit, and
+    each capped call counts one launch."""
+    plan = kvarswap.make_plan(NB * 3 * 7 * 128 * (2 if antithetic else 1),
+                              NB, 7, antithetic, not antithetic)
+    assert plan.iters == 3
+    gp = kvarswap.heston_greek_params(_HESTON["steep"], n_obs, dev)
+    floats = _build.library().mctpu_varswap_greeks_scratch_floats
+    whole = floats(NB, plan.rows, plan.iters, 0)
+    assert floats(NB, plan.rows, plan.iters, 1) < whole
+    want = kvarswap.greek_partials(gp, SEED, 0, plan, NB, n_obs)
+    for cap in (1, whole // 2):
+        before = kvarswap.LAUNCHES["varswap_heston_greeks"]
+        got = kvarswap.greek_partials(gp, SEED, 0, plan, NB, n_obs,
+                                      scratch_cap=cap)
+        assert kvarswap.LAUNCHES["varswap_heston_greeks"] == before + 1
+        assert torch.equal(got, want), cap
+
+
+def _k34_setup(dev, a, n_obs, antithetic, kahan, up, iters, rows=7):
+    bk = BasketOption.equicorrelated(a, 0.3)
+    chol = cholesky_lower(bk.corr)
+    plan = kmw.make_plan(NB * iters * rows * 128 * (2 if antithetic else 1),
+                         NB, rows, antithetic, kahan, n_assets=a)
+    assert plan.iters == iters
+    ops = tuple(x.to(dev) for x in kmw.am_bar_greek_ops(
+        bk, chol, n_obs, 104.0 if up else 96.0))
+    return ops, plan
+
+
+@pytest.mark.parametrize("a", [1, 3, 8])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("up", [True, False])
+def test_bar_greeks_am_split_matches_plain(dev, a, antithetic, up):
+    """K34 at 13 dates, 2 iterations on 7 rows (the fold's stride partly
+    empty), plain and antithetic, both directions, against its plain
+    version by the scaled pair bound; two launches and the block offset
+    bitwise; a call counts one launch."""
+    ops, plan = _k34_setup(dev, a, 13, antithetic, not antithetic, up, 2)
+    _contract(
+        lambda off, nb: _mw_greek_pairs(kmw.am_bar_greek_partials(
+            *ops, SEED, off, plan, nb, 13, up)),
+        lambda off, nb: _mw_greek_pairs(kmw.am_bar_greek_plain_partials(
+            *ops, SEED, off, plan, nb, 13, up)),
+        units=plan.iters * plan.units_per_iter)
+    before = dict(kmw.LAUNCHES)
+    kmw.am_bar_greek_partials(*ops, SEED, 0, plan, NB, 13, up)
+    assert (kmw.LAUNCHES["basket_barrier_greeks_am"]
+            == before["basket_barrier_greeks_am"] + 1)
+    assert sum(kmw.LAUNCHES.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("a", [3, 8])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_bar_greeks_am_grouped_scratch(dev, a, antithetic):
+    """K34 under a forced small scratch cap (1 float: every (block,
+    iteration) its own group, the fold's slots carried between them; half
+    the one-group scratch: blocks in groups) equals the one-group launch
+    bit for bit, up- and down-and-out."""
+    for up in (True, False):
+        ops, plan = _k34_setup(dev, a, 13, antithetic, True, up, 3)
+        floats = _build.library().mctpu_multi_walk_bar_greeks_am_scratch_floats
+        whole = floats(a, NB, plan.rows, plan.iters, 0)
+        assert floats(a, NB, plan.rows, plan.iters, 1) < whole
+        want = kmw.am_bar_greek_partials(*ops, SEED, 0, plan, NB, 13, up)
+        for cap in (1, whole // 2):
+            got = kmw.am_bar_greek_partials(*ops, SEED, 0, plan, NB, 13, up,
+                                            scratch_cap=cap)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), cap
 
 
 def test_price_heston_mlmc_against_cf_and_launches(dev):

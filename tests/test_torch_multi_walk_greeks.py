@@ -62,6 +62,8 @@ CASES = {
                                            False, 2),
     "K34_a1_down_n7": (1, True, 7, False, 97.0, False, True, 1),
     "K34_a8_up_n2": (8, True, 2, True, 103.0, False, True, 1),
+    "K34_a5_down_n3_antithetic_2iters": (5, True, 3, False, 97.0, True, True,
+                                         2),
 }
 
 MIXED = jtypes.BasketOption(
@@ -521,3 +523,43 @@ def test_packed_bar_mirror_scores_are_negations(a):
     assert torch.equal(qd_m, -qd)
     assert torch.equal(acc_q_m, -acc_q)
     assert not torch.equal(acc_v_m, -acc_v)
+
+
+@pytest.mark.parametrize("cap", [0, 1, 1 << 20])
+def test_am_bar_greek_partials_scratch_cap_runs_plain_on_cpu(cap):
+    """On the CPU, K34's wrapper runs the plain version whatever the
+    scratch cap of its split walk (a CUDA-only argument)."""
+    tb = BasketOption.equicorrelated(3, 0.3)
+    ops = tmw.am_bar_greek_ops(tb, tmath.cholesky_lower(tb.corr), 5, 104.0)
+    plan = tmw.make_plan(NB * 2 * ROWS * 128 * 2, NB, ROWS, True, n_assets=3)
+    assert plan.iters == 2
+    got = tmw.am_bar_greek_partials(*ops, SEED, 1, plan, NB, 5, True,
+                                    scratch_cap=cap)
+    want = tmw.am_bar_greek_plain_partials(*ops, SEED, 1, plan, NB, 5, True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("a", [1, 3, 8])
+def test_am_bar_mirror_scores_are_negations(a):
+    """K34's split walk takes the mirror's scores q_m = sum_{j >= m}
+    Linv[j, m] (-z_j) as -q_m: in the plain version's order each product
+    and sum of -z rounds to the negation of the plus sign's (torch.equal
+    leaves a zero's sign aside, which no output reads but as a zero)."""
+    tb = BasketOption.equicorrelated(a, 0.3)
+    linv = tmw.am_bar_greek_ops(tb, tmath.cholesky_lower(tb.corr), 7,
+                                104.0)[2]
+    z = torch.from_numpy(np.random.default_rng(a).standard_normal(
+        (a, 4096)).astype(np.float32))
+
+    def scores(zs):
+        out = []
+        for m in range(a):
+            q = linv[m, m] * zs[m]
+            for jj in range(m + 1, a):
+                q = q + linv[jj, m] * zs[jj]
+            out.append(q)
+        return torch.stack(out)
+
+    plus = scores(z)
+    assert bool((plus != 0).all())
+    assert torch.equal(scores(-z), -plus)

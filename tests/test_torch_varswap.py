@@ -306,6 +306,18 @@ def test_partials_scratch_cap_runs_plain_on_cpu(leg, cap):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("cap", [0, 1, 1 << 20])
+def test_greek_partials_scratch_cap_runs_plain_on_cpu(cap):
+    """On the CPU, K20's wrapper runs the plain version whatever the
+    scratch cap of its Heston leg's split walk (a CUDA-only argument)."""
+    plan = tvarswap.make_plan(2 * 2 * ROWS * 128 * 2, 2, ROWS, True)
+    assert plan.iters == 2
+    gp = tvarswap.heston_greek_params(from_reference(HOPT), 6, "cpu")
+    got = tvarswap.greek_partials(gp, SEED, 1, plan, 2, 6, scratch_cap=cap)
+    want = tvarswap.greek_plain_partials(gp, SEED, 1, plan, 2, 6)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("antithetic", [False, True])
 def test_heston_entry_points_match_mctpu(antithetic):
     n, n_obs = 1 << 12, 5

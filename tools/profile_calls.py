@@ -26,9 +26,11 @@ default ``EngineConfig``), after one warm-up call:
   Greeks' split kernel and its fold at m <= 8; the packed basket price's
   and the packed basket Greeks' split kernels and their folds; the
   barrier walk's, the lookback's, the Asian Greeks', the Heston walk's,
-  the Heston and Asian MLMC levels', the variance swap's and the 3-asset
-  basket walks' split kernel and its fold (K12, K15, K10, K27, K29, K11,
-  K19, K30); the RQMC basket's net kernel, tiled or not (K54); the RQMC
+  the Heston and Asian MLMC levels', the variance swap's, the Heston
+  variance swap Greeks', the 3-asset basket walks' and the basket-barrier
+  Greeks' split kernel and its fold (K12, K15, K10, K27, K29, K11, K19,
+  K20's Heston leg, K30, K34); the RQMC basket's net kernel, tiled or
+  not (K54); the RQMC
   Asian's split net, its fold and the chunk carry (K55); 0 for a
   call with no kernel of its own, the rule fit and the Heston American);
 * busy — device ms over that call's wall ms;
@@ -140,8 +142,9 @@ def calls(mt):
                        average="geometric")
     uo8 = BarrierOption(100.0, 100.0, 0.05, 0.2, 1.0, barrier=130.0,
                         n_obs=8)
-    # The split walks' kernels (K10, K11, K12, K15, K27, K29, K30: a walk per
-    # path element, then the fold in the unsplit order).
+    # The split walks' kernels (K10, K11, K12, K15, K19, K20's Heston leg,
+    # K27, K29, K30, K34: a walk per path element, then the fold in the
+    # unsplit order).
     split = ("walk_split_kernel", "walk_fold_kernel")
     mlmc_calls = []
     for tag, cfg in (("512 x 256", mt.EngineConfig()),
@@ -255,8 +258,7 @@ def calls(mt):
          lambda: mt.greeks_heston(hopt, n22, SEED)),
         ("fair_variance_strike Heston, n_obs=252, 2^22", split,
          lambda: mt.fair_variance_strike(hvs, n22, SEED, n_obs=252)),
-        ("greeks_varswap Heston, n_obs=252, 2^22",
-         "varswap_heston_greeks_kernel",
+        ("greeks_varswap Heston, n_obs=252, 2^22", split,
          lambda: mt.greeks_varswap(hvs, n22, SEED, n_obs=252)),
         ("price_basket_asian a=3, n_obs=50, 2^22", split,
          lambda: mt.price_basket_asian(ba3, n22, SEED)),
@@ -269,8 +271,8 @@ def calls(mt):
          lambda: mt.price_basket_barrier(bb16, n22, SEED)),
         ("greeks_basket_asian a=3, n_obs=16, 2^24", "mw_greeks_am_kernel",
          lambda: mt.greeks(ga3, n24, SEED)),
-        ("greeks_basket_barrier a=3, n_obs=50, 2^23",
-         "mw_bar_greeks_am_kernel", lambda: mt.greeks(gb3, 1 << 23, SEED)),
+        ("greeks_basket_barrier a=3, n_obs=50, 2^23", split,
+         lambda: mt.greeks(gb3, 1 << 23, SEED)),
         ("greeks_basket_asian a=16, n_obs=12, 2^22",
          "mw_greeks_reg_kernel", lambda: mt.greeks(ga16, n22, SEED)),
         ("price_rainbow max of 3, 2^24", "rainbow_am_kernel",

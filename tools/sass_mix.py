@@ -27,8 +27,9 @@ that draws the stream again for the antithetic mirror (the simple design)
 walks each date ``walks = 2`` times.  Per path-date = the largest such
 loop's counts / its dates x walks.  The issue time at the case's
 path-dates (2^22 x 50, the Heston level's 2^22 x 128 fine steps, the
-Heston walk's 2^22 x 100 steps, the Asian level's 2^22 x 64 fine dates)
-is that
+Heston walk's 2^22 x 100 steps, the Asian level's 2^22 x 64 fine dates,
+K34's 2^23 x 50 at 3 assets, K20's Heston leg's 2^22 x 252 dates) is
+that
 count / 32 warp
 instructions, over 4 warp instructions a clock an SM, at the card's SM
 count and its maximum SM clock (``nvidia-smi``): the least time the SMs
@@ -61,12 +62,15 @@ PATH_DATES = (1 << 22) * 50  # phase 6: 2^22 paths, 50 dates
 LEVEL_DATES = (1 << 22) * 128  # K29 in phase 6: 128 fine steps
 HESTON_DATES = (1 << 22) * 100  # K27 in phase 6: 100 steps
 ASIAN_LEVEL_DATES = (1 << 22) * 64  # K11 in phase 6: 64 fine dates
+BAR_GREEK_DATES = (1 << 23) * 50  # K34 in phase 6: 2^23 paths, 50 dates
+VARSWAP_DATES = (1 << 22) * 252  # K20 in phase 6: 252 dates
 # (case, source, text of the demangled kernel name, normals a date, walks
 # [, more roots a date, path-dates]) at ANTI false, KAHAN true, up-and-out
 # / the 3-asset basket / the arithmetic average / Euler / the floating
 # call: the simple designs (K12 barrier_kernel, K30 mw_walk_am_kernel, K29
 # heston_level_kernel, K10 asian_greeks_kernel, K27 heston_kernel, K11
-# asian_level_kernel, K15 lookback_kernel) and the split walks.
+# asian_level_kernel, K15 lookback_kernel, K34 mw_bar_greeks_am_kernel,
+# K20's Heston leg varswap_heston_greeks_kernel) and the split walks.
 CASES = (
     ("K12 simple", "barrier.cu", "barrier_kernel<false, true, true>", 1, 1),
     ("K12 simple antithetic", "barrier.cu",
@@ -121,6 +125,28 @@ CASES = (
      "lookback_kernel<true, true, 0>", 1, 2),
     ("K15 split", "lookback.cu", "LookbackWalk<0>, false>", 1, 1),
     ("K15 split antithetic", "lookback.cu", "LookbackWalk<0>, true>", 1, 1),
+    ("K34 a=3 simple", "multi_walk.cu",
+     "mw_bar_greeks_am_kernel<3, false, true>", 3, 1, 0, BAR_GREEK_DATES),
+    ("K34 a=3 simple antithetic", "multi_walk.cu",
+     "mw_bar_greeks_am_kernel<3, true, true>", 3, 2, 0, BAR_GREEK_DATES),
+    ("K34 a=3 split", "multi_walk.cu", "AmBarGreekWalk<3, false>, false>", 3,
+     1, 0, BAR_GREEK_DATES),
+    ("K34 a=3 split antithetic", "multi_walk.cu",
+     "AmBarGreekWalk<3, true>, true>", 3, 1, 0, BAR_GREEK_DATES),
+    ("K34 a=8 simple", "multi_walk.cu",
+     "mw_bar_greeks_am_kernel<8, false, true>", 8, 1),
+    ("K34 a=8 split", "multi_walk.cu", "AmBarGreekWalk<8, false>, false>", 8,
+     1),
+    ("K34 a=8 split antithetic", "multi_walk.cu",
+     "AmBarGreekWalk<8, true>, true>", 8, 1),
+    ("K20H simple", "varswap.cu", "varswap_heston_greeks_kernel<false, true>",
+     2, 1, 1, VARSWAP_DATES),
+    ("K20H simple antithetic", "varswap.cu",
+     "varswap_heston_greeks_kernel<true, true>", 2, 2, 1, VARSWAP_DATES),
+    ("K20H split", "varswap.cu", "VarswapHestonGreekWalk<false>, false>", 2,
+     1, 1, VARSWAP_DATES),
+    ("K20H split antithetic", "varswap.cu",
+     "VarswapHestonGreekWalk<true>, true>", 2, 1, 2, VARSWAP_DATES),
 )
 FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"}
 CLASSES = ("IMAD.WIDE", "IMAD", "LOP3/IADD3", "FP32", "MUFU", "other")

@@ -8,8 +8,10 @@ packed netting-set CVA), K35 (the packed basket-barrier LR Greeks), K4
 walk), K40 (the netting-set CVA), K43's runtime-m xVA kernel, K29 (the
 Heston MLMC level), K44 (the xVA Greeks), K10 (the Asian Greeks walk),
 K27 (the Heston walk), K11 (the Asian MLMC level), K41 (the packed
-netting-set CVA Greeks), K19 (the variance swap, both legs) and K55 (the
-RQMC Asian) -- at ``chip_smoke.py``'s
+netting-set CVA Greeks), K19 (the variance swap, both legs), K55 (the
+RQMC Asian), K15 (the lookback), K54 (the RQMC basket), K20's Heston leg
+(the variance swap's Greeks) and K34 (the basket-barrier LR Greeks) --
+at ``chip_smoke.py``'s
 phase 6 shapes on one GPU, against another checkout in the same process.
 
 Run from the repository root on a machine with a CUDA device and ``nvcc``:
@@ -86,7 +88,16 @@ sweeps ``K55 bits`` (1, 3, 6, 7, 12, 13, 50, 64, 65, 252, 255, 300 and
 2048 dates, both averages, 3 chunks of rows 8, 24, 32 or 163; capped at
 1 float and at half at 50 and 252) and ``K19 bits`` (13 and 252 dates,
 64 x 2 x 32, both legs, plain and antithetic, F32_KAHAN and F32; the
-Heston leg at 252 capped at 1 float and at half).
+Heston leg at 252 capped at 1 float and at half); K20's Heston leg on
+phase 6's Heston variance swap at 252 dates, 2^22 paths, plain and
+antithetic, F32_KAHAN and F32, and scratch capped at 2^20 floats; K34 on
+``equicorrelated(a, 0.3)`` at 50 dates: a = 3 at 2^23 paths up-and-out
+at H = 130 plain, antithetic and F32, down-and-out at H = 90 plain and
+antithetic, scratch capped; a = 1 and 8 plain and antithetic, 4 and 5
+antithetic, 6 plain and antithetic at 2^22; and the sweeps ``K34 bits``
+(1-8 assets, 1, 13 and 50 dates, up and down, plain and antithetic,
+F32_KAHAN and F32, 64 x 2 x 32; capped at 1 float and at half at 3 and 8
+assets) and ``K20H bits`` (1, 13 and 252 dates, likewise; capped at 252).
 Each time
 is the median of ``--reps`` launches timed by CUDA events after one
 warm-up launch (the event time holds the host's time before a call's
@@ -97,7 +108,8 @@ and (6, width) slot vectors), K43's
 K33's (its four sums and (4, width) lane rows), K39's, K35's, K31's and
 K40's outputs (K39's and K40's sums and EE
 profile), K29's, K44's ``am``, K10's, K27's, K11's, K41's (its four
-sums and (4, width) lane rows), K19's and K55's (its quads) outputs must
+sums and (4, width) lane rows), K19's, K55's (its quads), K15's, K54's,
+K20's and K34's (its four sums and (4, a) asset rows) outputs must
 equal the other
 checkout's bit for bit (same walk, passes and order of sums), and K44's
 runtime-m (sum, sum^2) pairs must agree with it by ``chip_smoke.py``'s
@@ -571,6 +583,61 @@ def cases(v: SimpleNamespace):
                                                    capped):
                     v.kvarswap.partials(o, SEED, 0, p, p.num_blocks, 252,
                                         **k), True))
+    # K20's Heston leg on phase 6's variance swap (K19's Heston option) at
+    # 252 dates, 2^22 paths: plain and antithetic, F32_KAHAN and F32, and
+    # with its scratch capped at 2^20 floats.
+    for anti, prec, capped in ((False, None, False), (True, None, False),
+                               (False, f32, False), (True, f32, False),
+                               (False, None, True)):
+        c = dataclasses.replace(cfg, antithetic=anti,
+                                precision=prec or cfg.precision)
+        plan, gp = engine.greeks_varswap_setup(vs_heston, 1 << 22, c, 252)
+        out.append((f"K20H 252 dates 2^22 "
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}"
+                    f"{' F32' if prec else ''}"
+                    f"{' scratch capped' if capped else ''}",
+                    lambda o=gp, p=plan, k=cap_of(v.kvarswap.greek_partials,
+                                                  capped):
+                    v.kvarswap.greek_partials(o, SEED, 0, p, p.num_blocks,
+                                              252, **k), True))
+    # K34 on phase 6's basket-barrier Greeks, equicorrelated(a, 0.3) at 50
+    # dates: a = 3 at 2^23 paths (256 x 1 x 256) up-and-out at H = 130,
+    # plain and antithetic, F32, down-and-out at H = 90, and with its
+    # scratch capped at 2^20 floats; a = 1 and 8 up-and-out at 2^22, plain
+    # and antithetic, and 4-6 (either side of the (sign, path) items).
+    for a, n, up, anti, prec, capped in (
+            (3, 1 << 23, True, False, None, False),
+            (3, 1 << 23, True, True, None, False),
+            (3, 1 << 23, True, False, f32, False),
+            (3, 1 << 23, False, False, None, False),
+            (3, 1 << 23, False, True, None, False),
+            (3, 1 << 23, True, False, None, True),
+            (1, 1 << 22, True, False, None, False),
+            (1, 1 << 22, True, True, None, False),
+            (4, 1 << 22, True, True, None, False),
+            (5, 1 << 22, True, True, None, False),
+            (6, 1 << 22, True, False, None, False),
+            (6, 1 << 22, True, True, None, False),
+            (8, 1 << 22, True, False, None, False),
+            (8, 1 << 22, True, True, None, False)):
+        h = 130.0 if up else 90.0
+        bopt = t.BasketBarrierOption(
+            t.BasketOption.equicorrelated(a, 0.3), h, n_obs=50,
+            kind="up-and-out" if up else "down-and-out")
+        c = dataclasses.replace(cfg, antithetic=anti,
+                                precision=prec or cfg.precision)
+        plan, ops = engine.greeks_basket_barrier_setup(bopt, n, c)
+        out.append((f"K34 a={a} {'up' if up else 'down'} H={h:g} 50 dates "
+                    f"2^{n.bit_length() - 1} "
+                    f"{plan.num_blocks}x{plan.iters}x{plan.rows}"
+                    f"{' antithetic' if anti else ''}"
+                    f"{' F32' if prec else ''}"
+                    f"{' scratch capped' if capped else ''}",
+                    lambda o=ops, p=plan, u=up, k=cap_of(
+                        kmw.am_bar_greek_partials, capped):
+                    kmw.am_bar_greek_partials(*o, SEED, 0, p, p.num_blocks,
+                                              50, u, **k), True))
     # K55 on phase 6's RQMC Asians (S = K = 100, r = 0.05, v = 0.2, T = 1),
     # 16 replicates on the layout asian_rqmc_setup gives: 50 dates
     # arithmetic at 2^18 points a replicate (16 x 13 x 163) and with its
@@ -759,6 +826,58 @@ def cases(v: SimpleNamespace):
             out.append((f"K54 bits a={a} rows {brows} 16x3",
                         lambda o=bops, p=plan: v.krqmc.basket_partials(
                             o, rkey, 0, p, 16), True))
+    # K34 at 1-8 assets (equicorrelated(a, 0.3)), 1, 13 and 50 dates, up-
+    # and-out at H = 104 and down-and-out at H = 96, 2 iterations on 64 x 2
+    # x 32, plain and antithetic, F32_KAHAN and F32, and at 3 and 8 assets,
+    # 50 dates, with the scratch capped at 1 float and at half (plain
+    # F32_KAHAN up, antithetic F32 down); K20's Heston leg at 1, 13 and 252
+    # dates likewise, capped at 252.
+    for a in range(1, 9):
+        bk = t.BasketOption.equicorrelated(a, 0.3)
+        chol = v.mcmath.cholesky_lower(bk.corr)
+        for n_obs in (1, 13, 50):
+            for up, h in ((True, 104.0), (False, 96.0)):
+                ops = tuple(x.to(cfg.torch_device())
+                            for x in kmw.am_bar_greek_ops(bk, chol, n_obs, h))
+                for anti, kahan in ((False, True), (False, False),
+                                    (True, True), (True, False)):
+                    plan = kmw.make_plan(
+                        64 * 2 * 32 * 128 * (2 if anti else 1), 64, 32, anti,
+                        kahan, n_assets=a)
+                    capped = (caps("mctpu_multi_walk_bar_greeks_am_"
+                                   "scratch_floats", a, 64, plan.rows,
+                                   plan.iters)
+                              if a in (3, 8) and n_obs == 50
+                              and (anti, kahan, up) in ((False, True, True),
+                                                        (True, False, False))
+                              else [{}])
+                    for k in capped:
+                        tag = f" cap {k['scratch_cap']}" if k else ""
+                        out.append((f"K34 bits a={a} {n_obs} dates "
+                                    f"{'up' if up else 'down'} 64x2x32"
+                                    f"{' antithetic' if anti else ''}"
+                                    f"{'' if kahan else ' F32'}{tag}",
+                                    lambda o=ops, p=plan, n=n_obs, u=up, k=k:
+                                    kmw.am_bar_greek_partials(
+                                        *o, SEED, 0, p, 64, n, u, **k), True))
+    for n_obs in (1, 13, 252):
+        gp = v.kvarswap.heston_greek_params(vs_heston, n_obs,
+                                            cfg.torch_device())
+        for anti, kahan in ((False, True), (False, False), (True, True),
+                            (True, False)):
+            plan = v.kvarswap.make_plan(64 * 2 * 32 * 128 * (2 if anti else 1),
+                                        64, 32, anti, kahan)
+            capped = (caps("mctpu_varswap_greeks_scratch_floats", 64,
+                           plan.rows, plan.iters)
+                      if n_obs == 252 and kahan else [{}])
+            for k in capped:
+                out.append((f"K20H bits {n_obs} dates 64x2x32"
+                            f"{' antithetic' if anti else ''}"
+                            f"{'' if kahan else ' F32'}"
+                            f"{' cap ' + str(k['scratch_cap']) if k else ''}",
+                            lambda o=gp, p=plan, n=n_obs, k=k:
+                            v.kvarswap.greek_partials(o, SEED, 0, p, 64, n,
+                                                      **k), True))
     return out
 
 
